@@ -1,0 +1,69 @@
+"""Configuration flags of the PyTorch port.
+
+The counterpart of ``aesara_tpu/config.py``, cut down to the flags the
+port reads.  ``device`` is new: it names the ``torch.device`` that
+``shared()`` places values on and that ``TorchLinker`` runs on when it is
+not given one.
+"""
+
+from __future__ import annotations
+
+from contextlib import contextmanager
+from typing import Any, Callable, Dict
+
+
+def _enum(*allowed):
+    def check(v):
+        if v not in allowed:
+            raise ValueError(f"invalid value {v!r}; allowed: {allowed}")
+        return v
+
+    return check
+
+
+def _device(v):
+    import torch
+
+    return str(torch.device(v))
+
+
+class _Config:
+    """Attribute access to typed flags; assignment validates."""
+
+    def __init__(self):
+        object.__setattr__(self, "_checks", {})
+        object.__setattr__(self, "_values", {})
+
+    def add(self, name: str, default: Any, check: Callable[[Any], Any]):
+        self._checks[name] = check
+        self._values[name] = check(default)
+
+    def __getattr__(self, name):
+        try:
+            return self._values[name]
+        except KeyError:
+            raise AttributeError(f"no config flag {name!r}") from None
+
+    def __setattr__(self, name, value):
+        if name not in self._checks:
+            raise AttributeError(f"no config flag {name!r}")
+        self._values[name] = self._checks[name](value)
+
+    @contextmanager
+    def change_flags(self, **kwargs):
+        """Temporarily set flags (reference ``configparser.py:33``)."""
+        old: Dict[str, Any] = {k: getattr(self, k) for k in kwargs}
+        try:
+            for k, v in kwargs.items():
+                setattr(self, k, v)
+            yield self
+        finally:
+            for k, v in old.items():
+                self._values[k] = v
+
+
+config = _Config()
+config.add("floatX", "float32", _enum("float32", "float64"))
+config.add("device", "cpu", _device)
+
+change_flags = config.change_flags

@@ -1,0 +1,65 @@
+"""Building the hand-written CUDA kernels.
+
+Each ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
+library with a plain C interface and loaded with ``ctypes`` (a build takes
+seconds; a PyTorch C++ extension would take minutes).  Libraries go into
+the git-ignored ``_build/`` directory beside this file, named by a hash of
+their source and flags, so a checkout builds them on first use.  With no
+``nvcc`` a build raises: a CUDA run never falls back to a plain version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from typing import Dict
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(_HERE, "csrc")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+              "-Xcompiler", "-fPIC"]
+
+_libs: Dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def build_dir(*parts: str) -> str:
+    """A directory under the kernels' build directory, created on demand."""
+    path = os.path.join(_HERE, "_build", *parts)
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
+def find_nvcc() -> str:
+    """``nvcc`` from ``CUDA_HOME``, then ``/usr/local/cuda``, then PATH."""
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and os.path.isfile(os.path.join(root, "bin", "nvcc")):
+            return os.path.join(root, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels cannot be built")
+    return found
+
+
+def load_cuda_library(name: str) -> ctypes.CDLL:
+    """Build ``csrc/<name>.cu`` if needed and load it."""
+    with _lock:
+        if name in _libs:
+            return _libs[name]
+        src = os.path.join(CSRC, f"{name}.cu")
+        with open(src, "rb") as f:
+            digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        out = os.path.join(build_dir(), f"lib{name}-{digest}.so")
+        if not os.path.exists(out):
+            tmp = f"{out}.{os.getpid()}.tmp"
+            cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
+            res = subprocess.run(cmd, capture_output=True, text=True)
+            if res.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {src}:\n{res.stdout}\n{res.stderr}")
+            os.replace(tmp, out)
+        _libs[name] = ctypes.CDLL(out)
+        return _libs[name]

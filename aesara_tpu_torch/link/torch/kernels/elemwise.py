@@ -1,0 +1,328 @@
+"""K1: one fused ``Elemwise(Composite)`` as one kernel.
+
+Replaces ``composite_pallas_fn`` (``aesara_tpu/link/jax/pallas_kernels.py:38``),
+which evaluated the fused scalar chain over (256, 128) VMEM row tiles of
+inputs that its caller had broadcast and flattened first.
+
+On the H100 this work is bound by device memory bandwidth: it does about
+one flop per byte moved, and the card does some 20 fp32 flops in the time
+it moves one byte of HBM.  So the design is about bytes: every input is read once,
+broadcast inputs are read through zero strides (nothing is
+materialised), intermediates stay in registers and
+one output is written.  Dimensions that all operands traverse
+contiguously are merged on the host, so a (8, 1024, 1024) add against a
+(1, 1, 1024) bias indexes in 2-d.
+
+Each distinct Composite gets its own ``@triton.jit`` source, generated
+from its scalar graph by :class:`ElemwiseKernel` when the function is
+compiled; Triton compiles it on first launch.  ``fused_elemwise`` is
+the wrapper: CPU tensors take the plain PyTorch version
+(:func:`composite_plain`), CUDA tensors launch the kernel.
+
+fp32 division and square root use ``tl.math.div_rn`` and ``tl.sqrt_rn``
+(Triton's ``/`` and ``tl.sqrt`` are approximate in fp32).  Maximum
+propagates NaN from either side, as ``numpy.maximum`` does.  bfloat16 and
+float16 values are computed in fp32 and rounded after every op, as
+PyTorch does.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import importlib.util
+import math
+import os
+from typing import Dict, List, Sequence, Tuple
+
+import numpy as np
+
+from aesara_tpu_torch.scalar import ops as aes
+from aesara_tpu_torch.scalar.composite import Composite
+
+
+__all__ = ["ElemwiseKernel", "composite_plain", "fused_elemwise", "scalar_torch_impl",
+           "torch_dtype"]
+
+_LOW_PRECISION = ("bfloat16", "float16")
+_BLOCK = 1024
+
+
+def torch_dtype(name: str):
+    import torch
+
+    return getattr(torch, "bool" if name == "bool" else name)
+
+
+# ---------------------------------------------------------------------------
+# the plain version
+# ---------------------------------------------------------------------------
+
+def scalar_torch_impl(op):
+    """The torch formula of one scalar op, computing in the node's output
+    dtype (NumPy semantics for the slice's ops)."""
+    import torch
+
+    if isinstance(op, aes.Add):
+        def f(*xs):
+            s = xs[0]
+            for x in xs[1:]:
+                s = s + x
+            return s
+        return f
+    if isinstance(op, aes.Mul):
+        def f(*xs):
+            p = xs[0]
+            for x in xs[1:]:
+                p = p * x
+            return p
+        return f
+    table = {
+        aes.Sub: torch.sub, aes.TrueDiv: torch.true_divide, aes.Neg: torch.neg,
+        aes.Sqr: torch.square, aes.Sqrt: torch.sqrt, aes.Maximum: torch.maximum,
+    }
+    for cls, fn in table.items():
+        if isinstance(op, cls):
+            return fn
+    if isinstance(op, aes.Cast):
+        return lambda x: x
+    raise NotImplementedError(f"no torch lowering for scalar op {op}")
+
+
+def apply_scalar_node(op, out_dtype: str, args):
+    """Run one scalar op on tensors: operands are cast to the output dtype
+    first (a Cast's operand is cast by definition)."""
+    want = torch_dtype(out_dtype)
+    args = [a.to(want) if a.dtype != want else a for a in args]
+    res = scalar_torch_impl(op)(*args)
+    return res.to(want) if res.dtype != want else res
+
+
+def composite_plain(composite: Composite, out_dtype: str, *args):
+    """The plain PyTorch version of K1: evaluate the Composite's scalar
+    graph with torch ops over broadcasting tensors."""
+    import torch
+
+    device = args[0].device
+    env = dict(zip(composite.inputs, args))
+    for node in composite.nodes:
+        ins = [env[i] if i in env else torch.tensor(np.asarray(i.data), device=device)
+               for i in node.inputs]
+        env[node.outputs[0]] = apply_scalar_node(node.op, node.outputs[0].type.dtype, ins)
+    out = composite.outputs[0]
+    res = env[out] if out in env else torch.tensor(np.asarray(out.data), device=device)
+    shape = torch.broadcast_shapes(*[a.shape for a in args])
+    return torch.broadcast_to(res, shape).to(torch_dtype(out_dtype)).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# the Triton source generator
+# ---------------------------------------------------------------------------
+
+_TL = {
+    "bool": "tl.int1", "int8": "tl.int8", "int16": "tl.int16", "int32": "tl.int32",
+    "int64": "tl.int64", "uint8": "tl.uint8", "float16": "tl.float16",
+    "bfloat16": "tl.bfloat16", "float32": "tl.float32", "float64": "tl.float64",
+}
+
+
+def _compute_dtype(dtype: str) -> str:
+    return "float32" if dtype in _LOW_PRECISION else dtype
+
+
+def _literal(value, dtype: str) -> str:
+    value = np.asarray(value).reshape(())[()]
+    if dtype == "bool":
+        text = repr(bool(value))
+    elif dtype.startswith(("int", "uint")):
+        text = repr(int(value))
+    else:
+        text = repr(float(value))
+    return f"tl.full([BLOCK], {text}, {_TL[_compute_dtype(dtype)]})"
+
+
+def _expr(op, args: List[str], dtype: str) -> str:
+    """One scalar op as a Triton expression over operand names already
+    converted to the compute dtype."""
+    is_float = dtype in ("float32", "float64") or dtype in _LOW_PRECISION
+    if isinstance(op, aes.Add):
+        return " + ".join(args)
+    if isinstance(op, aes.Mul):
+        return " * ".join(args)
+    if isinstance(op, aes.Sub):
+        return f"{args[0]} - {args[1]}"
+    if isinstance(op, aes.TrueDiv):
+        if not is_float:
+            raise NotImplementedError(f"true_div into {dtype}")
+        return f"tl.math.div_rn({args[0]}, {args[1]})"
+    if isinstance(op, aes.Neg):
+        return f"-{args[0]}"
+    if isinstance(op, aes.Sqr):
+        return f"{args[0]} * {args[0]}"
+    if isinstance(op, aes.Sqrt):
+        if not is_float:
+            raise NotImplementedError(f"sqrt into {dtype}")
+        return f"tl.sqrt_rn({args[0]})"
+    if isinstance(op, aes.Maximum):
+        a, b = args
+        return f"tl.where(({a} > {b}) | ({a} != {a}), {a}, {b})"
+    if isinstance(op, aes.Cast):
+        return args[0]
+    raise NotImplementedError(f"the fused-elemwise kernel has no Triton form for scalar op {op}")
+
+
+class ElemwiseKernel:
+    """The Triton kernel of one single-output Composite at fixed input
+    and output dtypes.  Building one checks that every scalar op has a
+    Triton form; ``source(ndim)`` is the kernel for an ``ndim``-d
+    (collapsed) iteration space."""
+
+    def __init__(self, composite: Composite, in_dtypes: Sequence[str], out_dtype: str):
+        if composite.nout != 1:
+            raise NotImplementedError("fused-elemwise kernel takes single-output Composites")
+        self.composite = composite
+        self.in_dtypes = tuple(in_dtypes)
+        self.out_dtype = out_dtype
+        self.body = self._body()
+        self._kernels: Dict[Tuple[int, bool], object] = {}
+
+    def _body(self) -> List[str]:
+        comp = self.composite
+        names = {v: f"x{i}" for i, v in enumerate(comp.inputs)}
+        lines = []
+        for k, node in enumerate(comp.nodes):
+            dtype = node.outputs[0].type.dtype
+            cdt = _TL[_compute_dtype(dtype)]
+            args = []
+            for inp in node.inputs:
+                if inp in names:
+                    args.append(f"{names[inp]}.to({cdt})")
+                else:
+                    args.append(f"{_literal(inp.data, inp.type.dtype)}.to({cdt})")
+            expr = _expr(node.op, args, dtype)
+            name = f"v{k}"
+            if dtype in _LOW_PRECISION:
+                # round after every op, then compute on in fp32
+                lines.append(f"{name} = ({expr}).to({_TL[dtype]}).to(tl.float32)")
+            else:
+                lines.append(f"{name} = ({expr}).to({cdt})")
+            names[node.outputs[0]] = name
+        out = comp.outputs[0]
+        result = names.get(out) or _literal(out.data, out.type.dtype)
+        lines.append(f"result = {result}")
+        return lines
+
+    def source(self, ndim: int, wide: bool = False) -> str:
+        """``wide`` indexes in int64, for more than 2**31 - 1 elements."""
+        n_in = len(self.in_dtypes)
+        params = ["out_ptr"] + [f"in{i}_ptr" for i in range(n_in)] + ["N"]
+        params += [f"size{d}" for d in range(ndim)]
+        params += [f"st{i}_{d}" for i in range(n_in) for d in range(ndim)]
+        lines = [
+            "import triton",
+            "import triton.language as tl",
+            "",
+            "",
+            "@triton.jit",
+            f"def kernel({', '.join(params)}, BLOCK: tl.constexpr):",
+            "    pid = tl.program_id(0)",
+            "    offs = pid.to(tl.int64) * BLOCK + tl.arange(0, BLOCK)" if wide
+            else "    offs = pid * BLOCK + tl.arange(0, BLOCK)",
+            "    mask = offs < N",
+            "    rem = offs",
+        ]
+        for d in reversed(range(ndim)):
+            if d:
+                lines.append(f"    i{d} = rem % size{d}")
+                lines.append(f"    rem = rem // size{d}")
+            else:
+                lines.append("    i0 = rem")
+        for i in range(n_in):
+            terms = [f"i{d} * st{i}_{d}" for d in range(ndim)] or ["offs * 0"]
+            lines.append(f"    x{i} = tl.load(in{i}_ptr + {' + '.join(terms)}, mask=mask)")
+        lines += [f"    {line}" for line in self.body]
+        lines.append(f"    tl.store(out_ptr + offs, result.to({_TL[self.out_dtype]}), mask=mask)")
+        return "\n".join(lines) + "\n"
+
+    def kernel(self, ndim: int, wide: bool = False):
+        """The ``@triton.jit`` function for ``ndim``, written to the build
+        directory and imported from there (Triton reads the source of
+        what it compiles)."""
+        if (ndim, wide) not in self._kernels:
+            from aesara_tpu_torch.link.torch.kernels.build import build_dir
+
+            src = self.source(ndim, wide)
+            digest = hashlib.sha256(src.encode()).hexdigest()[:20]
+            path = os.path.join(build_dir("triton"), f"fused_{digest}.py")
+            if not os.path.exists(path):
+                tmp = f"{path}.{os.getpid()}.tmp"
+                with open(tmp, "w") as f:
+                    f.write(src)
+                os.replace(tmp, path)
+            spec = importlib.util.spec_from_file_location(f"aesara_tpu_torch_fused_{digest}", path)
+            module = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(module)
+            self._kernels[(ndim, wide)] = module.kernel
+        return self._kernels[(ndim, wide)]
+
+
+def _collapse(shape: Tuple[int, ...], strides: List[Tuple[int, ...]]):
+    """Merge adjacent dims that every operand walks contiguously; drop
+    size-1 dims."""
+    dims = [(s, [st[d] for st in strides]) for d, s in enumerate(shape) if s != 1]
+    merged: List[Tuple[int, List[int]]] = []
+    for size, sts in dims:
+        if merged:
+            psize, psts = merged[-1]
+            if all(p == s * size for p, s in zip(psts, sts)):
+                merged[-1] = (psize * size, sts)
+                continue
+        merged.append((size, sts))
+    return [m[0] for m in merged], [[m[1][i] for m in merged] for i in range(len(strides))]
+
+
+def launch_plan(args):
+    """(output shape, element count, collapsed sizes, per-operand strides
+    over them, whether int64 indices are needed) of one launch over
+    broadcasting operands; a broadcast dim is read with stride 0."""
+    import torch
+
+    shape = tuple(torch.broadcast_shapes(*[a.shape for a in args]))
+    n = math.prod(shape)
+    sizes, strides = _collapse(shape, [torch.broadcast_to(a, shape).stride() for a in args])
+    # int32 index math is several times cheaper than int64 division
+    wide = n + _BLOCK >= 2**31 or any(abs(st) * d >= 2**31
+                                      for sts in strides for st, d in zip(sts, sizes))
+    return shape, n, sizes, strides, wide
+
+
+def fused_elemwise(kernel: ElemwiseKernel, *args):
+    """Evaluate a Composite over broadcasting tensors.  CPU tensors take
+    the plain version; CUDA tensors launch the generated Triton kernel."""
+    import torch
+
+    if len(args) != kernel.composite.nin:
+        raise TypeError(f"{kernel.composite} takes {kernel.composite.nin} operands, got {len(args)}")
+    if all(a.device.type == "cpu" for a in args):
+        fused_elemwise.plain_calls += 1
+        return composite_plain(kernel.composite, kernel.out_dtype, *args)
+    device = args[0].device
+    if any(a.device != device for a in args) or device.type != "cuda":
+        raise ValueError(f"fused_elemwise: operands on several devices {[a.device for a in args]}")
+    for a, dt in zip(args, kernel.in_dtypes):
+        if a.dtype != torch_dtype(dt):
+            raise TypeError(f"fused_elemwise: got {a.dtype}, the kernel was built for {dt}")
+    shape, n, sizes, strides, wide = launch_plan(args)
+    out = torch.empty(shape, dtype=torch_dtype(kernel.out_dtype), device=device)
+    if n == 0:
+        return out
+    grid = ((n + _BLOCK - 1) // _BLOCK,)
+    # the operands' own pointers: their broadcast dims are read with stride 0
+    kernel.kernel(len(sizes), wide)[grid](out, *args, n, *sizes, *[st for sts in strides for st in sts],
+                                          BLOCK=_BLOCK, num_warps=4)
+    fused_elemwise.launches += 1
+    return out
+
+
+#: launches of the Triton kernel, and calls that took the plain version
+fused_elemwise.launches = 0
+fused_elemwise.plain_calls = 0

@@ -1,0 +1,269 @@
+"""Scalar types and the scalar op algebra.
+
+The counterpart of ``aesara_tpu/scalar/ops.py``, cut to the ops the
+encoder forward uses: Add, Sub, Mul, TrueDiv, Neg, Sqr, Sqrt, Maximum and
+Cast.  Each op declares its NumPy semantics (``impl``) and its output
+dtype rule; the torch and Triton formulas of each live in
+``aesara_tpu_torch/link/torch/kernels/elemwise.py``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Tuple
+
+import numpy as np
+
+from aesara_tpu_torch.config import config
+from aesara_tpu_torch.graph.ir import Apply, Constant, Type, Variable
+from aesara_tpu_torch.graph.op import Op
+from aesara_tpu_torch.graph.utils import MethodNotDefined
+
+
+int_dtypes = ("int8", "int16", "int32", "int64")
+uint_dtypes = ("uint8", "uint16", "uint32", "uint64")
+float_dtypes = ("float16", "bfloat16", "float32", "float64")
+complex_dtypes = ("complex64", "complex128")
+discrete_dtypes = ("bool",) + int_dtypes + uint_dtypes
+continuous_dtypes = float_dtypes + complex_dtypes
+all_dtypes = discrete_dtypes + continuous_dtypes
+
+
+def _np_dtype(name: str) -> np.dtype:
+    if name == "bfloat16":
+        raise TypeError("NumPy has no bfloat16; bfloat16 values exist only as torch tensors")
+    return np.dtype(name)
+
+
+def upcast(dtype, *dtypes) -> str:
+    """NumPy type promotion over dtype names; with bfloat16 present,
+    integer operands do not widen the result (the JAX package's rule)."""
+    names = [str(d) if str(d) == "bfloat16" else np.dtype(d).name for d in (dtype, *dtypes)]
+    if "bfloat16" in names:
+        rest = [d for d in names if d != "bfloat16" and d in continuous_dtypes]
+        if not rest:
+            return "bfloat16"
+        promoted = upcast(*rest)
+        return "float32" if promoted == "float16" else promoted
+    out = np.dtype(names[0])
+    for d in names[1:]:
+        out = np.promote_types(out, np.dtype(d))
+    return out.name
+
+
+def upcast_out(*types):
+    return (ScalarType(upcast(*[t.dtype for t in types])),)
+
+
+def same_out(*types):
+    for t in types[1:]:
+        if t.dtype != types[0].dtype:
+            raise TypeError(f"mismatched dtypes: {[t.dtype for t in types]}")
+    return (types[0],)
+
+
+def upgrade_to_float(*types):
+    """Discrete inputs go to ``config.floatX``."""
+    conv = [config.floatX if t.dtype in discrete_dtypes else t.dtype for t in types]
+    return (ScalarType(upcast(*conv)),)
+
+
+class ScalarType(Type):
+    """A 0-d value of one dtype."""
+
+    ndim = 0
+    shape: tuple = ()
+
+    def __init__(self, dtype: str):
+        if dtype == "floatX":
+            dtype = config.floatX
+        self.dtype = "bfloat16" if dtype == "bfloat16" else np.dtype(dtype).name
+
+    def filter(self, data, strict=False, allow_downcast=None):
+        arr = np.asarray(data, dtype=_np_dtype(self.dtype))
+        if arr.ndim != 0:
+            raise TypeError(f"scalar expected, got array of ndim {arr.ndim}")
+        return arr[()]
+
+    def is_super(self, otype):
+        return isinstance(otype, ScalarType) and otype.dtype == self.dtype
+
+    def __eq__(self, other):
+        return type(other) is ScalarType and other.dtype == self.dtype
+
+    def __hash__(self):
+        return hash((ScalarType, self.dtype))
+
+    def __str__(self):
+        return self.dtype
+
+    def __repr__(self):
+        return f"ScalarType({self.dtype})"
+
+
+class ScalarVariable(Variable):
+    """Scalar symbolic variable."""
+
+    @property
+    def dtype(self):
+        return self.type.dtype
+
+
+class ScalarConstant(ScalarVariable, Constant):
+    pass
+
+
+ScalarType.variable_type = ScalarVariable
+ScalarType.constant_type = ScalarConstant
+
+
+def as_scalar(x) -> ScalarVariable:
+    if isinstance(x, Variable):
+        if isinstance(x.type, ScalarType):
+            return x
+        raise TypeError(f"cannot convert {x} to a scalar")
+    arr = np.asarray(x)
+    if arr.ndim != 0:
+        raise TypeError(f"scalar expected, got shape {arr.shape}")
+    return ScalarConstant(ScalarType(arr.dtype.name), arr[()])
+
+
+class ScalarOp(Op):
+    """Base of the scalar algebra: ``nin``/``nout`` arity, ``nfunc`` the
+    NumPy function, ``output_types_preference`` the dtype rule."""
+
+    nin = -1
+    nout = 1
+    nfunc: Any = None
+    output_types_preference = staticmethod(upcast_out)
+
+    def __init__(self, name=None):
+        if name is not None:
+            self.name = name
+
+    def output_types(self, types) -> Tuple[ScalarType, ...]:
+        return tuple(self.output_types_preference(*types))
+
+    def make_node(self, *inputs) -> Apply:
+        if self.nin >= 0 and len(inputs) != self.nin:
+            raise TypeError(f"{self} expected {self.nin} inputs, got {len(inputs)}")
+        inputs = [as_scalar(i) for i in inputs]
+        outputs = [t() for t in self.output_types([i.type for i in inputs])]
+        return Apply(self, inputs, outputs)
+
+    def impl(self, *inputs):
+        if self.nfunc is not None:
+            return self.nfunc(*inputs)
+        raise MethodNotDefined(f"{type(self).__name__}.impl")
+
+    def perform(self, node, inputs, output_storage):
+        out = self.impl(*inputs)
+        if self.nout == 1:
+            out = (out,)
+        for storage, o, var in zip(output_storage, out, node.outputs):
+            storage[0] = np.asarray(o).astype(_np_dtype(var.type.dtype))[()]
+
+    def __eq__(self, other):
+        if self is other:
+            return True
+        if type(self) is not type(other):
+            return False
+        if self.__props__:
+            return all(getattr(self, p) == getattr(other, p) for p in self.__props__)
+        return True
+
+    def __hash__(self):
+        if self.__props__:
+            return hash((type(self),) + tuple(getattr(self, p) for p in self.__props__))
+        return hash(type(self))
+
+    def __str__(self):
+        return getattr(self, "name", None) or type(self).__name__.lower()
+
+
+class UnaryScalarOp(ScalarOp):
+    nin = 1
+
+
+class BinaryScalarOp(ScalarOp):
+    nin = 2
+
+
+class Add(ScalarOp):
+    def impl(self, *inputs):
+        s = inputs[0]
+        for x in inputs[1:]:
+            s = s + x
+        return s
+
+
+class Mul(ScalarOp):
+    def impl(self, *inputs):
+        p = inputs[0]
+        for x in inputs[1:]:
+            p = p * x
+        return p
+
+
+class Sub(BinaryScalarOp):
+    nfunc = staticmethod(np.subtract)
+
+
+class TrueDiv(BinaryScalarOp):
+    nfunc = staticmethod(np.true_divide)
+
+    @staticmethod
+    def output_types_preference(*types):
+        t = upcast_out(*types)[0]
+        if t.dtype in discrete_dtypes:
+            return (ScalarType(config.floatX),)
+        return (t,)
+
+
+class Neg(UnaryScalarOp):
+    nfunc = staticmethod(np.negative)
+    output_types_preference = staticmethod(same_out)
+
+
+class Maximum(BinaryScalarOp):
+    nfunc = staticmethod(np.maximum)
+
+
+class Sqrt(UnaryScalarOp):
+    nfunc = staticmethod(np.sqrt)
+    output_types_preference = staticmethod(upgrade_to_float)
+
+
+class Sqr(UnaryScalarOp):
+    nfunc = staticmethod(np.square)
+    output_types_preference = staticmethod(same_out)
+
+
+class Cast(UnaryScalarOp):
+    """dtype conversion."""
+
+    __props__ = ("o_type",)
+
+    def __init__(self, o_type: ScalarType, name=None):
+        if not isinstance(o_type, ScalarType):
+            raise TypeError("o_type must be a ScalarType")
+        super().__init__(name)
+        self.o_type = o_type
+
+    def output_types(self, types):
+        return (self.o_type,)
+
+    def impl(self, x):
+        return np.asarray(x).astype(_np_dtype(self.o_type.dtype))[()]
+
+    def __str__(self):
+        return f"cast{{{self.o_type.dtype}}}"
+
+
+add = Add(name="add")
+mul = Mul(name="mul")
+sub = Sub(name="sub")
+true_div = TrueDiv(name="true_div")
+neg = Neg(name="neg")
+maximum = Maximum(name="maximum")
+sqrt = Sqrt(name="sqrt")
+sqr = Sqr(name="sqr")

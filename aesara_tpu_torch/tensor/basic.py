@@ -1,0 +1,156 @@
+"""Tensor construction and structural ops (reference
+``aesara_tpu/tensor/basic.py``): conversion to variables, constants with
+the JAX package's literal dtype rules, ``cast`` and ``MakeVector``."""
+
+from __future__ import annotations
+
+import numpy as np
+
+from aesara_tpu_torch.config import config
+from aesara_tpu_torch.graph.ir import Apply, Constant, Variable
+from aesara_tpu_torch.graph.op import Op
+from aesara_tpu_torch.scalar import ops as aes
+from aesara_tpu_torch.scalar.ops import ScalarType, _np_dtype, upcast
+from aesara_tpu_torch.tensor.elemwise import DimShuffle, Elemwise
+from aesara_tpu_torch.tensor.type import TensorType
+from aesara_tpu_torch.tensor.var import TensorConstant, TensorVariable
+
+
+__all__ = [
+    "as_tensor_variable", "constant", "cast", "MakeVector", "stack",
+    "get_scalar_constant_value", "get_vector_length", "NotScalarConstantError",
+]
+
+
+class NotScalarConstantError(Exception):
+    """get_scalar_constant_value found no constant."""
+
+
+def as_tensor_variable(x, name=None, ndim=None) -> TensorVariable:
+    """Coerce ``x`` into a TensorVariable."""
+    if isinstance(x, Variable):
+        if not isinstance(x.type, TensorType):
+            raise TypeError(f"cannot convert {x} of type {x.type} to a TensorVariable")
+        if ndim is not None and x.type.ndim != ndim:
+            if x.type.ndim > ndim:
+                raise ValueError(f"cannot reduce ndim of {x} to {ndim}")
+            x = DimShuffle(x.type.ndim, ("x",) * (ndim - x.type.ndim) + tuple(range(x.type.ndim)))(x)
+        return x
+    if isinstance(x, (list, tuple)) and any(isinstance(e, Variable) for e in x):
+        return stack(list(x))
+    if isinstance(x, (np.ndarray, np.generic, int, float, bool, list, tuple)):
+        return constant(x, name=name, ndim=ndim)
+    raise TypeError(f"cannot convert {x!r} to a TensorVariable")
+
+
+def constant(x, name=None, ndim=None, dtype=None) -> TensorConstant:
+    """A TensorConstant; bare Python ints take the smallest int dtype that
+    holds them and bare floats ``config.floatX``, so literals do not
+    upcast expressions."""
+    if isinstance(x, TensorConstant):
+        if (name in (None, x.name) and ndim in (None, x.type.ndim)
+                and dtype in (None, x.type.dtype)):
+            return x
+        x = x.data
+    if dtype is None and not isinstance(x, (np.ndarray, np.generic)):
+        if isinstance(x, bool):
+            dtype = "bool"
+        elif isinstance(x, int):
+            dtype = ("int8" if -128 <= x < 128 else "int16" if -(2**15) <= x < 2**15
+                     else "int32" if -(2**31) <= x < 2**31 else "int64")
+        elif isinstance(x, float):
+            dtype = config.floatX
+    arr = np.asarray(x, dtype=None if dtype is None else _np_dtype(dtype))
+    if ndim is not None:
+        if arr.ndim > ndim:
+            extra = arr.ndim - ndim
+            if arr.shape[:extra] != (1,) * extra:
+                raise ValueError(f"cannot reduce constant to ndim {ndim}")
+            arr = arr.reshape(arr.shape[extra:])
+        while arr.ndim < ndim:
+            arr = arr[None]
+    return TensorConstant(TensorType(arr.dtype.name, arr.shape), arr, name=name)
+
+
+def cast(x, dtype: str):
+    """Symbolic dtype conversion (Elemwise over the scalar Cast)."""
+    if dtype == "floatX":
+        dtype = config.floatX
+    x = as_tensor_variable(x)
+    if x.type.dtype == dtype:
+        return x
+    return Elemwise(aes.Cast(ScalarType(dtype)))(x)
+
+
+class MakeVector(Op):
+    """Pack N 0-d tensors into a length-N vector."""
+
+    __props__ = ("dtype",)
+
+    def __init__(self, dtype: str = "int64"):
+        self.dtype = dtype
+
+    def make_node(self, *inputs):
+        inputs = [as_tensor_variable(i) for i in inputs]
+        for i in inputs:
+            if i.type.ndim != 0:
+                raise TypeError("MakeVector inputs must be scalars")
+            if not np.can_cast(_np_dtype(i.type.dtype), _np_dtype(self.dtype)):
+                raise TypeError(f"MakeVector({self.dtype}) got {i.type.dtype}")
+        inputs = [cast(i, self.dtype) for i in inputs]
+        return Apply(self, inputs, [TensorType(self.dtype, (len(inputs),))()])
+
+    def perform(self, node, inputs, output_storage):
+        output_storage[0][0] = np.asarray(inputs, dtype=_np_dtype(self.dtype))
+
+
+def stack(tensors):
+    """Stack 0-d tensors into a vector (the only stacking the slice uses)."""
+    elems = [as_tensor_variable(t) for t in tensors]
+    if not elems or any(e.type.ndim != 0 for e in elems):
+        raise NotImplementedError("stack of non-scalars is not ported yet")
+    return MakeVector(upcast(*[e.type.dtype for e in elems]))(*elems)
+
+
+def get_scalar_constant_value(v):
+    """The Python scalar behind a constant scalar graph, walking through
+    DimShuffle and Elemwise; raises NotScalarConstantError otherwise."""
+    for _ in range(10):
+        if isinstance(v, Constant):
+            data = np.asarray(v.data)
+            if data.size != 1:
+                raise NotScalarConstantError(str(v))
+            return data.reshape(())[()]
+        if v.owner is None:
+            raise NotScalarConstantError(str(v))
+        op = v.owner.op
+        if isinstance(op, DimShuffle):
+            v = v.owner.inputs[0]
+            continue
+        if isinstance(op, Elemwise):
+            vals = [get_scalar_constant_value(i) for i in v.owner.inputs]
+            return np.asarray(op.scalar_op.impl(*vals)).astype(_np_dtype(v.type.dtype))[()]
+        raise NotScalarConstantError(str(v))
+    raise NotScalarConstantError("max recursion")
+
+
+def get_underlying_constant_vector(v):
+    """Constant value of a vector graph (through MakeVector/Cast)."""
+    if isinstance(v, Constant):
+        return np.asarray(v.data)
+    if v.owner is not None and isinstance(v.owner.op, MakeVector):
+        return np.asarray([get_scalar_constant_value(i) for i in v.owner.inputs])
+    if (v.owner is not None and isinstance(v.owner.op, Elemwise)
+            and isinstance(v.owner.op.scalar_op, aes.Cast)):
+        return get_underlying_constant_vector(v.owner.inputs[0])
+    raise NotScalarConstantError(str(v))
+
+
+def get_vector_length(v) -> int:
+    """Static length of a symbolic vector."""
+    v = as_tensor_variable(v)
+    if v.type.ndim != 1:
+        raise TypeError("not a vector")
+    if v.type.shape[0] is not None:
+        return int(v.type.shape[0])
+    raise ValueError(f"length of {v} not known statically")

@@ -1,0 +1,157 @@
+"""Elementwise math, reductions and ``Dot`` (reference
+``aesara_tpu/tensor/math.py``): the subset the encoder forward uses."""
+
+from __future__ import annotations
+
+import numpy as np
+
+from aesara_tpu_torch.config import config
+from aesara_tpu_torch.graph.ir import Apply
+from aesara_tpu_torch.graph.op import Op
+from aesara_tpu_torch.scalar import ops as aes
+from aesara_tpu_torch.scalar.ops import _np_dtype, discrete_dtypes, upcast
+from aesara_tpu_torch.tensor.basic import as_tensor_variable, cast, constant
+from aesara_tpu_torch.tensor.elemwise import CAReduce, DimShuffle, Elemwise
+from aesara_tpu_torch.tensor.type import TensorType
+
+
+__all__ = ["add", "sub", "mul", "true_div", "neg", "sqr", "sqrt", "maximum",
+           "Sum", "sum", "mean", "Dot", "dot", "tensordot"]
+
+
+def _ew(scalar_op):
+    op = Elemwise(scalar_op)
+
+    def fn(*args):
+        return op(*args)
+
+    fn.__name__ = str(scalar_op)
+    return fn
+
+
+add = _ew(aes.add)
+sub = _ew(aes.sub)
+mul = _ew(aes.mul)
+true_div = _ew(aes.true_div)
+neg = _ew(aes.neg)
+sqr = _ew(aes.sqr)
+sqrt = _ew(aes.sqrt)
+maximum = _ew(aes.maximum)
+
+
+class Sum(CAReduce):
+    """Sum reduction with an optional accumulator dtype."""
+
+    def __init__(self, axis=None, dtype=None, acc_dtype=None):
+        super().__init__(aes.add, axis=axis, dtype=dtype, acc_dtype=acc_dtype)
+
+    def __str__(self):
+        ax = "" if self.axis is None else f"{{axis={list(self.axis)}}}"
+        return f"Sum{ax}"
+
+
+def sum(x, axis=None, dtype=None, keepdims=False, acc_dtype=None):
+    x = as_tensor_variable(x)
+    op = Sum(axis=axis, dtype=dtype, acc_dtype=acc_dtype)
+    res = op(x)
+    if keepdims:
+        axes = op._normalized_axes(x.type.ndim)
+        order, k = [], 0
+        for d in range(x.type.ndim):
+            if d in axes:
+                order.append("x")
+            else:
+                order.append(k)
+                k += 1
+        res = DimShuffle(res.type.ndim, tuple(order))(res)
+    return res
+
+
+def mean(x, axis=None, dtype=None, keepdims=False, acc_dtype=None):
+    """Mean built as sum / size, as the JAX package builds it."""
+    from aesara_tpu_torch.tensor.shape import shape_tuple
+
+    x = as_tensor_variable(x)
+    s = sum(x, axis=axis, dtype=acc_dtype, keepdims=keepdims, acc_dtype=acc_dtype)
+    if axis is None:
+        axes = list(range(x.type.ndim))
+    elif isinstance(axis, (int, np.integer)):
+        axes = [int(axis) % x.type.ndim]
+    else:
+        axes = [int(a) % x.type.ndim for a in axis]
+    shp = shape_tuple(x)
+    n = constant(1, dtype="int64")
+    for a in axes:
+        n = mul(n, shp[a])
+    if dtype is None:
+        dtype = s.type.dtype if s.type.dtype not in discrete_dtypes else config.floatX
+    res = true_div(cast(s, dtype) if s.type.dtype in discrete_dtypes else s, cast(n, dtype))
+    return cast(res, dtype) if res.type.dtype != dtype else res
+
+
+class Dot(Op):
+    """Vector/matrix product for ndim 1 or 2."""
+
+    __props__ = ()
+
+    def make_node(self, x, y):
+        x, y = as_tensor_variable(x), as_tensor_variable(y)
+        if x.type.ndim not in (1, 2) or y.type.ndim not in (1, 2):
+            raise TypeError(f"Dot supports ndim 1/2, got {x.type.ndim} and {y.type.ndim}")
+        xi, yi = x.type.shape[-1], y.type.shape[0]
+        if xi is not None and yi is not None and xi != yi:
+            raise TypeError(f"Dot inner dims mismatch: {xi} vs {yi}")
+        out_shape = x.type.shape[:-1] + y.type.shape[1:]
+        return Apply(self, [x, y], [TensorType(upcast(x.type.dtype, y.type.dtype), out_shape)()])
+
+    def perform(self, node, inputs, output_storage):
+        x, y = inputs
+        out_dtype = _np_dtype(node.outputs[0].type.dtype)
+        output_storage[0][0] = np.asarray(np.dot(x, y)).astype(out_dtype, copy=False)
+
+    def __str__(self):
+        return "dot"
+
+
+_dot = Dot()
+
+
+def dot(x, y):
+    """NumPy dot semantics; an operand above 2-d goes through tensordot."""
+    x, y = as_tensor_variable(x), as_tensor_variable(y)
+    if x.type.ndim == 0 or y.type.ndim == 0:
+        return mul(x, y)
+    if x.type.ndim > 2 or y.type.ndim > 2:
+        return tensordot(x, y, [[x.type.ndim - 1], [max(y.type.ndim - 2, 0)]])
+    return _dot(x, y)
+
+
+def tensordot(a, b, axes):
+    """numpy.tensordot as transpose + reshape + Dot (the JAX package's
+    ``_tensordot_as_dot``, unbatched)."""
+    from aesara_tpu_torch.tensor.shape import reshape, shape_tuple
+
+    a, b = as_tensor_variable(a), as_tensor_variable(b)
+    a_axes = [int(ax) % a.type.ndim for ax in np.atleast_1d(axes[0])]
+    b_axes = [int(ax) % b.type.ndim for ax in np.atleast_1d(axes[1])]
+    if len(a_axes) != len(b_axes):
+        raise ValueError("tensordot axes must have equal length")
+    a_free = [d for d in range(a.type.ndim) if d not in a_axes]
+    b_free = [d for d in range(b.type.ndim) if d not in b_axes]
+    at = a.dimshuffle(*(a_free + a_axes))
+    bt = b.dimshuffle(*(b_axes + b_free))
+    ashape, bshape = shape_tuple(at), shape_tuple(bt)
+    nfa, nca = len(a_free), len(a_axes)
+    one = constant(1, dtype="int64")
+
+    def prod_dims(dims):
+        r = one
+        for d in dims:
+            r = mul(r, d)
+        return r
+
+    am = reshape(at, [prod_dims(ashape[:nfa]), prod_dims(ashape[nfa:])], ndim=2)
+    bm = reshape(bt, [prod_dims(bshape[:nca]), prod_dims(bshape[nca:])], ndim=2)
+    out = _dot(am, bm)
+    final = [ashape[i] for i in range(nfa)] + [bshape[nca + i] for i in range(len(b_free))]
+    return reshape(out, final, ndim=len(final))

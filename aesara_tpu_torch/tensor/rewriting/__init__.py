@@ -1,0 +1,3 @@
+"""Graph rewrites of the port; importing this package registers them."""
+
+from aesara_tpu_torch.tensor.rewriting import basic, elemwise  # noqa: F401

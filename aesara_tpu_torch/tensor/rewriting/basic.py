@@ -1,0 +1,195 @@
+"""Canonicalization rewrites the encoder forward needs (the counterparts
+of rules in ``aesara_tpu/tensor/rewriting/basic.py``, ``math.py`` and
+``shape.py``):
+
+- ``constant_folding``: nodes over constants become constants.
+- ``local_useless_dimshuffle``: an identity DimShuffle goes.
+- ``local_shape_i_lift``: ``Shape_i`` moves toward the graph inputs, the
+  work the JAX package's ShapeFeature does for the ops of the slice.
+- ``local_mul_one`` and ``local_flatten_add_mul``: the neutral-element and
+  flattening part of the algebraic canonicalizer.
+- ``local_reshape_chain``: a reshape of a reshape is one reshape.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from aesara_tpu_torch.compile.mode import register_canonicalize
+from aesara_tpu_torch.graph.ir import Constant
+from aesara_tpu_torch.graph.rewriting.basic import copy_stack_trace, node_rewriter
+from aesara_tpu_torch.graph.utils import MethodNotDefined
+from aesara_tpu_torch.scalar import ops as aes
+from aesara_tpu_torch.tensor.basic import MakeVector, cast, constant
+from aesara_tpu_torch.tensor.elemwise import CAReduce, DimShuffle, Elemwise
+from aesara_tpu_torch.tensor.math import Dot, add, mul
+from aesara_tpu_torch.tensor.nnet.attention import FusedAttention
+from aesara_tpu_torch.tensor.shape import Reshape, Shape_i
+
+
+def _const_val(var):
+    """The value of a size-1 Constant, else None."""
+    if isinstance(var, Constant) and np.asarray(var.data).size == 1:
+        return np.asarray(var.data).reshape(())
+    return None
+
+
+def _keep_type(out_var, res):
+    """``res`` converted to ``out_var``'s type, or None when that could
+    narrow the runtime shape (a static-1 dim where the output's is not)."""
+    if res.type.dtype != out_var.type.dtype:
+        res = cast(res, out_var.type.dtype)
+    if res.type.ndim != out_var.type.ndim:
+        return None
+    if any(sr == 1 and so != 1 for so, sr in zip(out_var.type.shape, res.type.shape)):
+        return None
+    return out_var.type.convert_variable(res)
+
+
+@node_rewriter(None)
+def constant_folding(fgraph, node):
+    """Evaluate nodes whose inputs are all constants."""
+    if not node.inputs or not all(isinstance(i, Constant) for i in node.inputs):
+        return False
+    if not node.op.do_constant_folding(fgraph, node):
+        return False
+    storage = [[None] for _ in node.outputs]
+    try:
+        node.op.perform(node, [i.data for i in node.inputs], storage)
+    except (MethodNotDefined, NotImplementedError):
+        return False
+    results = []
+    for s, o in zip(storage, node.outputs):
+        const = constant(np.asarray(s[0], dtype=o.type.dtype))
+        results.append(copy_stack_trace(o, const))
+    return results
+
+
+@node_rewriter([DimShuffle])
+def local_useless_dimshuffle(fgraph, node):
+    """DimShuffle that changes nothing → x"""
+    if node.op.new_order == tuple(range(node.op.input_ndim)):
+        return [node.inputs[0]]
+    return False
+
+
+def _lifted_dim(node, i):
+    """A variable equal to dim ``i`` of ``node``'s output, built from its
+    inputs, or None."""
+    op, ins = node.op, node.inputs
+    if isinstance(op, Elemwise):
+        # static-only broadcasting: every input whose dim is not statically
+        # 1 has the output's extent; prefer one whose size is known
+        cands = [x for x in ins if x.type.shape[i] != 1]
+        known = [x for x in cands if x.type.shape[i] is not None]
+        src = (known or cands or [None])[0]
+        return None if src is None else (src, i)
+    if isinstance(op, DimShuffle):
+        d = op.new_order[i]
+        return None if d == "x" else (ins[0], d)
+    if isinstance(op, CAReduce):
+        axes = op._normalized_axes(ins[0].type.ndim)
+        kept = [d for d in range(ins[0].type.ndim) if d not in axes]
+        return ins[0], kept[i]
+    if isinstance(op, Dot):
+        x, y = ins
+        if x.type.ndim == 2 and i == 0:
+            return x, 0
+        return y, y.type.ndim - 1
+    if isinstance(op, FusedAttention):
+        return (ins[0], i) if i < 2 else (ins[2], 2)
+    if isinstance(op, Reshape):
+        mk = ins[1].owner
+        if mk is not None and isinstance(mk.op, MakeVector):
+            el = mk.inputs[i]
+            if _const_val(el) is None or int(_const_val(el)) != -1:
+                return el
+    return None
+
+
+@node_rewriter([Shape_i])
+def local_shape_i_lift(fgraph, node):
+    """Shape_i of a static dim → constant; Shape_i of a computed value →
+    the same dim of an input it comes from."""
+    (x,) = node.inputs
+    i = node.op.i
+    if x.type.shape[i] is not None:
+        return [constant(x.type.shape[i], dtype="int64")]
+    if x.owner is None:
+        return False
+    lifted = _lifted_dim(x.owner, i)
+    if lifted is None:
+        return False
+    if isinstance(lifted, tuple):
+        src, d = lifted
+        if src.type.shape[d] is not None:
+            return [constant(src.type.shape[d], dtype="int64")]
+        res = Shape_i(d)(src)
+    else:
+        res = lifted
+    res = _keep_type(node.outputs[0], res)
+    return False if res is None else [copy_stack_trace(node.outputs[0], res)]
+
+
+@node_rewriter([Elemwise])
+def local_mul_one(fgraph, node):
+    """x * 1 → x"""
+    if not isinstance(node.op.scalar_op, aes.Mul):
+        return False
+    rest = [i for i in node.inputs if _const_val(i) is None or _const_val(i) != 1]
+    if len(rest) == len(node.inputs) or not rest:
+        return False
+    res = rest[0] if len(rest) == 1 else mul(*rest)
+    res = _keep_type(node.outputs[0], res)
+    return False if res is None else [copy_stack_trace(node.outputs[0], res)]
+
+
+@node_rewriter([Elemwise])
+def local_flatten_add_mul(fgraph, node):
+    """Flatten nested single-client add/mul chains into one variadic node
+    and fold their constants."""
+    sop = node.op.scalar_op
+    if not isinstance(sop, (aes.Add, aes.Mul)):
+        return False
+    is_add = isinstance(sop, aes.Add)
+    flat, changed = [], False
+    for inp in node.inputs:
+        inner = inp.owner
+        if (inner is not None and isinstance(inner.op, Elemwise)
+                and type(inner.op.scalar_op) is type(sop)
+                and len(fgraph.clients.get(inp, [])) == 1):
+            flat.extend(inner.inputs)
+            changed = True
+        else:
+            flat.append(inp)
+    consts = [_const_val(v) for v in flat if _const_val(v) is not None]
+    rest = [v for v in flat if _const_val(v) is None]
+    if len(consts) > 1:
+        changed = True
+    if not changed or not rest:
+        return False
+    if consts:
+        total = consts[0]
+        for c in consts[1:]:
+            total = total + c if is_add else total * c
+        if not np.all(total == (0 if is_add else 1)):
+            rest.append(constant(total[()]))
+    res = rest[0] if len(rest) == 1 else (add(*rest) if is_add else mul(*rest))
+    res = _keep_type(node.outputs[0], res)
+    return False if res is None else [copy_stack_trace(node.outputs[0], res)]
+
+
+@node_rewriter([Reshape])
+def local_reshape_chain(fgraph, node):
+    """Reshape(Reshape(x, s1), s2) → Reshape(x, s2)"""
+    inner = node.inputs[0].owner
+    if inner is None or not isinstance(inner.op, Reshape):
+        return False
+    res = node.op(inner.inputs[0], node.inputs[1])
+    res = _keep_type(node.outputs[0], res)
+    return False if res is None else [copy_stack_trace(node.outputs[0], res)]
+
+
+for _rw in (constant_folding, local_useless_dimshuffle, local_shape_i_lift,
+            local_mul_one, local_flatten_add_mul, local_reshape_chain):
+    register_canonicalize(_rw)

@@ -1,0 +1,111 @@
+"""Shape ops: ``Shape_i`` and ``Reshape`` (reference
+``aesara_tpu/tensor/shape.py``)."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+
+from aesara_tpu_torch.graph.ir import Apply
+from aesara_tpu_torch.graph.op import Op
+from aesara_tpu_torch.tensor.type import TensorType
+
+
+__all__ = ["Shape_i", "shape_i", "shape_tuple", "Reshape", "reshape"]
+
+
+class Shape_i(Op):
+    """One dimension of a runtime shape, as a 0-d int64."""
+
+    __props__ = ("i",)
+
+    def __init__(self, i: int):
+        self.i = int(i)
+
+    def make_node(self, x):
+        from aesara_tpu_torch.tensor.basic import as_tensor_variable
+
+        x = as_tensor_variable(x)
+        if not 0 <= self.i < x.type.ndim:
+            raise ValueError(f"axis {self.i} out of range for {x.type}")
+        return Apply(self, [x], [TensorType("int64", ())()])
+
+    def perform(self, node, inputs, output_storage):
+        output_storage[0][0] = np.asarray(np.shape(inputs[0])[self.i], dtype=np.int64)
+
+    def __str__(self):
+        return f"Shape_i{{{self.i}}}"
+
+
+def shape_i(x, i: int):
+    """A constant when the static shape knows dim ``i``, else Shape_i."""
+    from aesara_tpu_torch.tensor.basic import as_tensor_variable, constant
+
+    x = as_tensor_variable(x)
+    s = x.type.shape[i]
+    return constant(s, dtype="int64") if s is not None else Shape_i(i)(x)
+
+
+def shape_tuple(x) -> tuple:
+    """Per-dim symbolic sizes (static dims as constants)."""
+    from aesara_tpu_torch.tensor.basic import as_tensor_variable
+
+    x = as_tensor_variable(x)
+    return tuple(shape_i(x, d) for d in range(x.type.ndim))
+
+
+class Reshape(Op):
+    """numpy.reshape with a symbolic target shape (an int64 vector)."""
+
+    __props__ = ("ndim",)
+
+    def __init__(self, ndim: int):
+        self.ndim = int(ndim)
+
+    def make_node(self, x, shp):
+        from aesara_tpu_torch.tensor.basic import (
+            MakeVector, NotScalarConstantError, as_tensor_variable, cast,
+            get_scalar_constant_value, get_underlying_constant_vector, stack,
+        )
+
+        x = as_tensor_variable(x)
+        if isinstance(shp, (list, tuple)):
+            shp = stack([cast(as_tensor_variable(s), "int64") for s in shp])
+        shp = cast(as_tensor_variable(shp), "int64")
+        if shp.type.ndim != 1:
+            raise TypeError("reshape target must be a vector")
+        static = [None] * self.ndim
+        try:
+            for d, v in enumerate(get_underlying_constant_vector(shp)):
+                static[d] = int(v) if int(v) != -1 else None
+        except NotScalarConstantError:
+            mk = shp.owner
+            if mk is not None and isinstance(mk.op, MakeVector) and len(mk.inputs) == self.ndim:
+                for d, el in enumerate(mk.inputs):
+                    try:
+                        v = int(get_scalar_constant_value(el))
+                        static[d] = v if v != -1 else None
+                    except NotScalarConstantError:
+                        pass
+        if static.count(None) == 1 and all(s is not None for s in x.type.shape):
+            total = int(np.prod(x.type.shape))
+            known = int(np.prod([s for s in static if s is not None]))
+            if known > 0 and total % known == 0:
+                static[static.index(None)] = total // known
+        return Apply(self, [x, shp], [TensorType(x.type.dtype, tuple(static))()])
+
+    def perform(self, node, inputs, output_storage):
+        x, shp = inputs
+        output_storage[0][0] = np.reshape(x, tuple(int(s) for s in shp))
+
+
+def reshape(x, newshape, ndim: Optional[int] = None):
+    from aesara_tpu_torch.tensor.basic import as_tensor_variable, get_vector_length
+
+    if ndim is None:
+        if isinstance(newshape, (list, tuple)):
+            ndim = len(newshape)
+        else:
+            ndim = get_vector_length(as_tensor_variable(newshape))
+    return Reshape(int(ndim))(x, newshape)

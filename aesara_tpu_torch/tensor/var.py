@@ -1,0 +1,133 @@
+"""``TensorVariable``: the NumPy-like operator surface (reference
+``aesara_tpu/tensor/var.py``).
+
+One deliberate difference: ``x.shape`` is a tuple of 0-d int64 variables
+(a constant for each static dim, ``Shape_i`` otherwise).  In the JAX
+package ``x.shape[i]`` builds ``Subtensor(Shape(x))``, which its
+canonicalizer rewrites to the same ``Shape_i``; the port has no
+``Subtensor`` yet and builds the rewritten form directly.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from aesara_tpu_torch.graph.ir import Constant, Variable
+from aesara_tpu_torch.tensor.type import TensorType
+
+
+def _coerce(other):
+    """The foreign operand as a variable, or None for NotImplemented."""
+    from aesara_tpu_torch.tensor.basic import as_tensor_variable
+
+    if isinstance(other, Variable):
+        return other
+    try:
+        return as_tensor_variable(other)
+    except (TypeError, ValueError):
+        return None
+
+
+def _binary(fn_name, reflected=False):
+    def op(self, other):
+        from aesara_tpu_torch.tensor import math as tm
+
+        other = _coerce(other)
+        if other is None:
+            return NotImplemented
+        fn = getattr(tm, fn_name)
+        return fn(other, self) if reflected else fn(self, other)
+
+    return op
+
+
+class _tensor_operators:
+    """Operator overloads shared by variables, constants and shareds."""
+
+    # make ndarray defer to the reflected dunders
+    __array_priority__ = 1000
+
+    __add__ = _binary("add")
+    __radd__ = _binary("add", reflected=True)
+    __sub__ = _binary("sub")
+    __rsub__ = _binary("sub", reflected=True)
+    __mul__ = _binary("mul")
+    __rmul__ = _binary("mul", reflected=True)
+    __truediv__ = _binary("true_div")
+    __rtruediv__ = _binary("true_div", reflected=True)
+
+    def __neg__(self):
+        from aesara_tpu_torch.tensor import math as tm
+
+        return tm.neg(self)
+
+    @property
+    def shape(self) -> tuple:
+        from aesara_tpu_torch.tensor.shape import shape_tuple
+
+        return shape_tuple(self)
+
+    @property
+    def ndim(self) -> int:
+        return self.type.ndim
+
+    @property
+    def dtype(self) -> str:
+        return self.type.dtype
+
+    @property
+    def T(self):
+        return self.dimshuffle(*reversed(range(self.type.ndim)))
+
+    def reshape(self, shape, ndim=None):
+        from aesara_tpu_torch.tensor.shape import reshape
+
+        return reshape(self, shape, ndim=ndim)
+
+    def dimshuffle(self, *pattern):
+        from aesara_tpu_torch.tensor.elemwise import DimShuffle
+
+        if len(pattern) == 1 and isinstance(pattern[0], (list, tuple)):
+            pattern = tuple(pattern[0])
+        return DimShuffle(self.type.ndim, pattern)(self)
+
+
+class TensorVariable(_tensor_operators, Variable):
+    """A tensor-typed symbolic variable; identity semantics for ``==``."""
+
+    def __hash__(self):
+        return id(self)
+
+    def __eq__(self, other):
+        return self is other
+
+    def __ne__(self, other):
+        return self is not other
+
+
+class TensorConstant(TensorVariable, Constant):
+    """A constant ndarray; equal constants compare and hash equal."""
+
+    def __init__(self, type, data, name=None):
+        if tuple(type.shape) != np.shape(data):
+            type = type.clone(shape=np.shape(data))
+        Constant.__init__(self, type, data, name)
+
+    def __hash__(self):
+        d = self.data
+        return hash((self.type, d.shape, d.tobytes() if d.size <= 100000 else d.size))
+
+    def __eq__(self, other):
+        return isinstance(other, TensorConstant) and self.signature() == other.signature()
+
+    def __ne__(self, other):
+        return not self == other
+
+    def __str__(self):
+        if self.name is not None:
+            return self.name
+        return f"TensorConstant{{{np.array2string(np.asarray(self.data), threshold=5)}}}"
+
+
+TensorType.variable_type = TensorVariable
+TensorType.constant_type = TensorConstant
