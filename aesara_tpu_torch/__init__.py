@@ -1,19 +1,22 @@
 """aesara_tpu_torch: the PyTorch and CUDA port of aesara_tpu.
 
 Graphs are built with the same symbolic API (``aesara_tpu_torch.tensor``,
-``shared``), compiled by ``function(inputs, outputs, mode=)`` through the
-optdb rewrite pipeline, and run by ``TorchLinker`` on one torch device,
-with hand-written Hopper kernels for fused elementwise Composites (Triton)
-and attention (CUDA C++).  This package imports torch and never jax.
+``shared``, ``grad``), compiled by ``function(inputs, outputs, mode=,
+updates=)`` through the optdb rewrite pipeline, and run by
+``TorchLinker`` on one torch device, with hand-written Hopper kernels for
+fused elementwise Composites (Triton) and attention, forward and
+backward (CUDA C++).  This package imports torch and never jax.
 """
 
 from aesara_tpu_torch.config import config  # noqa: F401
 from aesara_tpu_torch import tensor  # noqa: F401
 from aesara_tpu_torch.compile.function import Function, function  # noqa: F401
+from aesara_tpu_torch.compile.io import Out  # noqa: F401
 from aesara_tpu_torch.compile.mode import TORCH, Mode, get_mode  # noqa: F401
 from aesara_tpu_torch.compile.sharedvalue import shared  # noqa: F401
+from aesara_tpu_torch.gradient import grad  # noqa: F401
 from aesara_tpu_torch.link.torch.linker import TorchLinker  # noqa: F401
 from aesara_tpu_torch.tensor import rewriting  # noqa: F401  (registers the rewrites)
 
-__all__ = ["config", "tensor", "function", "Function", "Mode", "TORCH", "get_mode",
-           "shared", "TorchLinker"]
+__all__ = ["config", "tensor", "function", "Function", "Out", "Mode", "TORCH", "get_mode",
+           "shared", "grad", "TorchLinker"]

@@ -35,7 +35,7 @@ class SharedVariable(Variable):
         import torch
 
         arr = self.type.filter(np.asarray(new_value))
-        self._value = torch.as_tensor(np.ascontiguousarray(arr)).to(self.device, copy=True)
+        self._value = torch.as_tensor(np.asarray(arr, order="C")).to(self.device, copy=True)
 
     @property
     def value(self):

@@ -5,11 +5,14 @@
 - ``perform(node, inputs, output_storage)`` evaluates with NumPy; the
   torch linker uses it to fold host values (shape arithmetic).
 - ``do_constant_folding`` says whether that folding is allowed.
+- ``grad``/``L_op`` give the symbolic vector-Jacobian product that
+  ``aesara_tpu_torch.gradient.grad`` composes; ``connection_pattern``
+  says which inputs reach which outputs.
 """
 
 from __future__ import annotations
 
-from typing import Any, Optional, Sequence
+from typing import Any, List, Optional, Sequence
 
 from aesara_tpu_torch.graph.ir import Apply, Variable
 from aesara_tpu_torch.graph.utils import MethodNotDefined, add_tag_trace
@@ -50,6 +53,17 @@ class Op:
 
     def do_constant_folding(self, fgraph, node: Apply) -> bool:
         return True
+
+    def grad(self, inputs: Sequence[Variable], output_grads: Sequence[Variable]):
+        raise NotImplementedError(f"{type(self).__name__}.grad")
+
+    def L_op(self, inputs, outputs, output_grads):
+        """The VJP given the outputs too; defaults to ``grad``."""
+        return self.grad(inputs, output_grads)
+
+    def connection_pattern(self, node: Apply) -> List[List[bool]]:
+        """[n_in][n_out]: which inputs influence which outputs."""
+        return [[True for _ in node.outputs] for _ in node.inputs]
 
     def __eq__(self, other):
         if self is other:

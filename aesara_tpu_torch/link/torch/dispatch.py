@@ -19,9 +19,9 @@ from aesara_tpu_torch.scalar.composite import Composite
 from aesara_tpu_torch.tensor.basic import MakeVector
 from aesara_tpu_torch.tensor.elemwise import CAReduce, DimShuffle, Elemwise, check_static_broadcast
 from aesara_tpu_torch.tensor.math import Dot
-from aesara_tpu_torch.tensor.nnet.attention import FusedAttention
-from aesara_tpu_torch.tensor.shape import Reshape, Shape_i
-from aesara_tpu_torch.link.torch.kernels.attention import flash_attention
+from aesara_tpu_torch.tensor.nnet.attention import FusedAttention, FusedAttentionGrad
+from aesara_tpu_torch.tensor.shape import Reshape, Shape, Shape_i
+from aesara_tpu_torch.link.torch.kernels.attention import flash_attention, flash_attention_grads
 from aesara_tpu_torch.link.torch.kernels.elemwise import (
     ElemwiseKernel, apply_scalar_node, fused_elemwise, torch_dtype,
 )
@@ -100,6 +100,11 @@ def _torch_shape_i(op, node):
     return lambda x: np.asarray(x.shape[i], dtype=np.int64)
 
 
+@torch_funcify.register(Shape)
+def _torch_shape(op, node):
+    return lambda x: np.asarray(x.shape, dtype=np.int64)
+
+
 @torch_funcify.register(Reshape)
 def _torch_reshape(op, node):
     def reshape(x, shp):
@@ -130,3 +135,13 @@ def _torch_fused_attention(op, node):
         return flash_attention(q, k, v, causal=causal, scale=1.0 / math.sqrt(q.shape[-1]))
 
     return attention
+
+
+@torch_funcify.register(FusedAttentionGrad)
+def _torch_fused_attention_grad(op, node):
+    causal = op.causal
+
+    def attention_grads(q, k, v, gz):
+        return flash_attention_grads(q, k, v, gz, causal=causal, scale=1.0 / math.sqrt(q.shape[-1]))
+
+    return attention_grads

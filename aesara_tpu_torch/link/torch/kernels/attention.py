@@ -1,15 +1,20 @@
-"""K2: the flash-attention forward.
+"""K2, the flash-attention forward, and K3, its backward.
 
-Replaces ``_flash_forward`` / ``flash_attention``
-(``aesara_tpu/link/jax/pallas_kernels.py:205,370``).  The kernel is CUDA
-C++ in ``csrc/flash_fwd.cu`` (its header says what bounds it on the H100
-and how it is built); :func:`flash_attention` is the wrapper.  CPU
-tensors take the plain PyTorch version (:func:`attention_plain`); CUDA
-tensors launch the kernel.
+K2 replaces ``_flash_forward`` / ``flash_attention``
+(``aesara_tpu/link/jax/pallas_kernels.py:205,370``), K3
+``flash_attention_grads`` (``:403``).  The kernels are CUDA C++ in
+``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` (their headers say what
+bounds them on the H100 and how they are built); :func:`flash_attention`
+and :func:`flash_attention_grads` are the wrappers.  CPU tensors take the
+plain PyTorch versions (:func:`attention_plain`,
+:func:`attention_grads_plain`); CUDA tensors launch the kernels.
 
-The wrapper calls ``.contiguous()`` on q, k and v: ``FusedAttention``'s
-inputs arrive as ``Reshape(DimShuffle(.))`` views, and the kernel reads
-contiguous (BH, T, D) panels.
+The wrappers call ``.contiguous()`` on their inputs: the ops' operands
+arrive as ``Reshape(DimShuffle(.))`` views, and the kernels read
+contiguous (BH, T, D) panels.  K3 takes no saved state, as
+``FusedAttentionGrad`` takes only (q, k, v, dout): it re-runs K2 for the
+output and the row logsumexp (natural log), then launches the two
+backward kernels.
 """
 
 from __future__ import annotations
@@ -18,7 +23,7 @@ import ctypes
 import math
 from typing import Optional
 
-__all__ = ["attention_plain", "flash_attention"]
+__all__ = ["attention_plain", "attention_grads_plain", "flash_attention", "flash_attention_grads"]
 
 
 def attention_plain(q, k, v, causal: bool, scale: float, with_lse: bool = False):
@@ -40,18 +45,66 @@ def attention_plain(q, k, v, causal: bool, scale: float, with_lse: bool = False)
     return (out, lse.float()) if with_lse else out
 
 
-def _library():
+def attention_grads_plain(q, k, v, do, causal: bool, scale: float):
+    """(dq, dk, dv) of :func:`attention_plain` for the output gradient
+    ``do``, by the formulas the kernel applies, in fp32 (fp64 for fp64
+    inputs), cast back to the input dtype: P = exp(scale·QKᵀ − lse),
+    D = rowsum(dO ⊙ O), dS = P ⊙ (dO Vᵀ − D), dQ = scale·dS K,
+    dK = scale·dSᵀ Q, dV = Pᵀ dO."""
+    import torch
+
+    acc = torch.float64 if q.dtype == torch.float64 else torch.float32
+    qa, ka, va, da = (t.to(acc) for t in (q, k, v, do))
+    s = torch.einsum("btd,bsd->bts", qa, ka) * scale
+    if causal:
+        T = q.shape[1]
+        mask = torch.ones((T, T), dtype=torch.bool, device=q.device).tril()
+        s = s.masked_fill(~mask, float("-inf"))
+    p = torch.exp(s - torch.logsumexp(s, dim=-1, keepdim=True))
+    o = torch.einsum("bts,bsd->btd", p, va)
+    ds = p * (torch.einsum("btd,bsd->bts", da, va) - (da * o).sum(-1, keepdim=True))
+    dq = torch.einsum("bts,bsd->btd", ds, ka) * scale
+    dk = torch.einsum("bts,btd->bsd", ds, qa) * scale
+    dv = torch.einsum("bts,btd->bsd", p, da)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _library(name: str):
+    """The built kernel library ``name`` ("flash_fwd" or "flash_bwd")."""
     from aesara_tpu_torch.link.torch.kernels.build import load_cuda_library
 
-    lib = load_cuda_library("flash_fwd")
+    lib = load_cuda_library(name)
     if not getattr(lib, "_typed", False):
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.flash_fwd.argtypes = [p, p, p, p, p, i, i, i, ctypes.c_float, i, i, p]
-        lib.flash_fwd.restype = i
-        lib.flash_fwd_error_string.argtypes = [i]
-        lib.flash_fwd_error_string.restype = ctypes.c_char_p
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        entry = getattr(lib, name)
+        if name == "flash_fwd":
+            entry.argtypes = [p, p, p, p, p, i, i, i, f, i, i, p]
+        else:
+            entry.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, f, i, i, p]
+        entry.restype = i
+        errstr = getattr(lib, f"{name}_error_string")
+        errstr.argtypes = [i]
+        errstr.restype = ctypes.c_char_p
         lib._typed = True
     return lib
+
+
+def _check_cuda_panels(name: str, *ts):
+    """Raise unless the tensors are (BH, T, D) panels of one shape, one
+    dtype (float32 or bfloat16) and one CUDA device that the kernels take."""
+    import torch
+
+    q = ts[0]
+    if any(t.device != q.device for t in ts) or q.device.type != "cuda":
+        raise ValueError(f"{name}: operands on {', '.join(str(t.device) for t in ts)}")
+    if any(t.dtype != q.dtype for t in ts) or q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name} takes float32 or bfloat16, got {', '.join(str(t.dtype) for t in ts)}")
+    if q.dim() != 3 or any(t.shape != q.shape for t in ts):
+        raise ValueError(f"{name} needs equal (BH, T, D) shapes, got "
+                         f"{', '.join(str(tuple(t.shape)) for t in ts)}")
+    BH, T, D = q.shape
+    if D > 128 or BH > 65535:
+        raise ValueError(f"{name} kernel takes D <= 128 and BH <= 65535, got {tuple(q.shape)}")
 
 
 def flash_attention(q, k, v, causal: bool = False, scale: Optional[float] = None,
@@ -65,20 +118,12 @@ def flash_attention(q, k, v, causal: bool = False, scale: Optional[float] = None
     if all(t.device.type == "cpu" for t in (q, k, v)):
         flash_attention.plain_calls += 1
         return attention_plain(q, k, v, causal, scale, with_lse)
-    if not (q.device == k.device == v.device) or q.device.type != "cuda":
-        raise ValueError(f"flash_attention: q, k, v on {q.device}, {k.device}, {v.device}")
-    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"flash_attention takes float32 or bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if q.dim() != 3 or q.shape != k.shape or q.shape != v.shape:
-        raise ValueError(f"flash_attention needs equal (BH, T, D) shapes, got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    _check_cuda_panels("flash_attention", q, k, v)
     BH, T, D = q.shape
-    if D > 128 or BH > 65535:
-        raise ValueError(f"flash_attention kernel takes D <= 128 and BH <= 65535, got {tuple(q.shape)}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
     lse = torch.empty((BH, T), dtype=torch.float32, device=q.device) if with_lse else None
-    lib = _library()
+    lib = _library("flash_fwd")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                         None if lse is None else lse.data_ptr(), BH, T, D, float(scale),
@@ -92,3 +137,40 @@ def flash_attention(q, k, v, causal: bool = False, scale: Optional[float] = None
 #: launches of the CUDA kernel, and calls that took the plain version
 flash_attention.launches = 0
 flash_attention.plain_calls = 0
+
+
+def flash_attention_grads(q, k, v, do, causal: bool = False, scale: Optional[float] = None):
+    """(dq, dk, dv) of attention over (BH, T, D) panels for the output
+    gradient ``do`` (cast to q's dtype): the CUDA kernels for CUDA
+    tensors, the plain version for CPU tensors.  On the card this re-runs
+    the forward kernel (K2) for the output and the row logsumexp, then
+    launches K3's two kernels."""
+    import torch
+
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    do = do.to(q.dtype)
+    if all(t.device.type == "cpu" for t in (q, k, v, do)):
+        flash_attention_grads.plain_calls += 1
+        return attention_grads_plain(q, k, v, do, causal, scale)
+    _check_cuda_panels("flash_attention_grads", q, k, v, do)
+    BH, T, D = q.shape
+    q, k, v, do = q.contiguous(), k.contiguous(), v.contiguous(), do.contiguous()
+    o, lse = flash_attention(q, k, v, causal=causal, scale=scale, with_lse=True)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((BH, T), dtype=torch.float32, device=q.device)
+    lib = _library("flash_bwd")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.flash_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+                        lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                        delta.data_ptr(), BH, T, D, float(scale), int(bool(causal)),
+                        0 if q.dtype == torch.float32 else 1, stream)
+    if err != 0:
+        raise RuntimeError(f"flash_bwd launch failed: {lib.flash_bwd_error_string(err).decode()}")
+    flash_attention_grads.launches += 1
+    return dq, dk, dv
+
+
+#: launches of the CUDA kernels, and calls that took the plain version
+flash_attention_grads.launches = 0
+flash_attention_grads.plain_calls = 0

@@ -24,6 +24,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "
               "-Xcompiler", "-fPIC"]
 
 _libs: Dict[str, ctypes.CDLL] = {}
+_locks: Dict[str, threading.Lock] = {}
 _lock = threading.Lock()
 
 
@@ -46,8 +47,11 @@ def find_nvcc() -> str:
 
 
 def load_cuda_library(name: str) -> ctypes.CDLL:
-    """Build ``csrc/<name>.cu`` if needed and load it."""
+    """Build ``csrc/<name>.cu`` if needed and load it.  Libraries of
+    different names may be built at the same time from several threads."""
     with _lock:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         if name in _libs:
             return _libs[name]
         src = os.path.join(CSRC, f"{name}.cu")

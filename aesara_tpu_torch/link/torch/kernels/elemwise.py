@@ -21,7 +21,9 @@ the wrapper: CPU tensors take the plain PyTorch version
 
 fp32 division and square root use ``tl.math.div_rn`` and ``tl.sqrt_rn``
 (Triton's ``/`` and ``tl.sqrt`` are approximate in fp32).  Maximum
-propagates NaN from either side, as ``numpy.maximum`` does.  bfloat16 and
+propagates NaN from either side, as ``numpy.maximum`` does.  Comparisons
+(``GE``, ``LT``: the ReLU gradient's mask) compute in their operands'
+common dtype and give a bool that a ``Cast`` turns into 0 or 1.  bfloat16 and
 float16 values are computed in fp32 and rounded after every op, as
 PyTorch does.
 """
@@ -79,22 +81,35 @@ def scalar_torch_impl(op):
     table = {
         aes.Sub: torch.sub, aes.TrueDiv: torch.true_divide, aes.Neg: torch.neg,
         aes.Sqr: torch.square, aes.Sqrt: torch.sqrt, aes.Maximum: torch.maximum,
+        aes.GE: torch.ge, aes.LT: torch.lt,
     }
     for cls, fn in table.items():
         if isinstance(op, cls):
             return fn
+    if isinstance(op, aes.Second):
+        return lambda x, y: torch.broadcast_to(y, torch.broadcast_shapes(x.shape, y.shape))
     if isinstance(op, aes.Cast):
         return lambda x: x
     raise NotImplementedError(f"no torch lowering for scalar op {op}")
 
 
+def _operand_dtype(op, args_dtypes, out_dtype: str) -> str:
+    """The dtype a scalar op computes in: a comparison in its operands'
+    common dtype, every other op in its output dtype (a Cast's operand is
+    cast by definition; Second's template is only a shape)."""
+    if isinstance(op, aes.LogicalComparison):
+        return aes.upcast(*args_dtypes)
+    return out_dtype
+
+
 def apply_scalar_node(op, out_dtype: str, args):
-    """Run one scalar op on tensors: operands are cast to the output dtype
-    first (a Cast's operand is cast by definition)."""
-    want = torch_dtype(out_dtype)
+    """Run one scalar op on tensors, its operands cast to the dtype it
+    computes in."""
+    want = torch_dtype(_operand_dtype(op, [str(a.dtype).split(".")[-1] for a in args], out_dtype))
     args = [a.to(want) if a.dtype != want else a for a in args]
     res = scalar_torch_impl(op)(*args)
-    return res.to(want) if res.dtype != want else res
+    out = torch_dtype(out_dtype)
+    return res.to(out) if res.dtype != out else res
 
 
 def composite_plain(composite: Composite, out_dtype: str, *args):
@@ -142,7 +157,7 @@ def _literal(value, dtype: str) -> str:
 
 def _expr(op, args: List[str], dtype: str) -> str:
     """One scalar op as a Triton expression over operand names already
-    converted to the compute dtype."""
+    converted to ``dtype``, the dtype it computes in."""
     is_float = dtype in ("float32", "float64") or dtype in _LOW_PRECISION
     if isinstance(op, aes.Add):
         return " + ".join(args)
@@ -165,7 +180,14 @@ def _expr(op, args: List[str], dtype: str) -> str:
     if isinstance(op, aes.Maximum):
         a, b = args
         return f"tl.where(({a} > {b}) | ({a} != {a}), {a}, {b})"
+    if isinstance(op, aes.GE):
+        return f"{args[0]} >= {args[1]}"
+    if isinstance(op, aes.LT):
+        return f"{args[0]} < {args[1]}"
+    if isinstance(op, aes.Second):
+        return args[1]
     if isinstance(op, aes.Cast):
+        # the operand was converted to the target dtype already
         return args[0]
     raise NotImplementedError(f"the fused-elemwise kernel has no Triton form for scalar op {op}")
 
@@ -192,13 +214,15 @@ class ElemwiseKernel:
         for k, node in enumerate(comp.nodes):
             dtype = node.outputs[0].type.dtype
             cdt = _TL[_compute_dtype(dtype)]
+            in_dtype = _operand_dtype(node.op, [i.type.dtype for i in node.inputs], dtype)
+            in_cdt = _TL[_compute_dtype(in_dtype)]
             args = []
             for inp in node.inputs:
                 if inp in names:
-                    args.append(f"{names[inp]}.to({cdt})")
+                    args.append(f"{names[inp]}.to({in_cdt})")
                 else:
-                    args.append(f"{_literal(inp.data, inp.type.dtype)}.to({cdt})")
-            expr = _expr(node.op, args, dtype)
+                    args.append(f"{_literal(inp.data, inp.type.dtype)}.to({in_cdt})")
+            expr = _expr(node.op, args, in_dtype)
             name = f"v{k}"
             if dtype in _LOW_PRECISION:
                 # round after every op, then compute on in fp32

@@ -81,7 +81,7 @@ def fgraph_to_torch(fgraph, device, n_user_inputs: int) -> Callable:
                 raise TypeError(f"input {var} has dtype {value.dtype}, expected {var.type.dtype}")
             var.type.check_shape(tuple(value.shape))
             return value
-        return torch.as_tensor(np.ascontiguousarray(var.type.filter(value)), device=device)
+        return torch.as_tensor(np.asarray(var.type.filter(value), order="C"), device=device)
 
     def run(*args):
         env = {}

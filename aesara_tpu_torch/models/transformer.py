@@ -68,3 +68,7 @@ class TransformerEncoderLayer(Model):
         z = layer_norm(h, self.ln2_g, self.ln2_b)
         ffn = tm.dot(tm.maximum(tm.dot(z, self.w1) + self.b1, 0.0), self.w2) + self.b2
         return h + ffn
+
+    def loss(self, x):
+        """Mean-square activation magnitude: a smoke-train objective."""
+        return tm.mean(tm.sqr(self(x)))

@@ -1,9 +1,11 @@
 """Scalar types and the scalar op algebra.
 
 The counterpart of ``aesara_tpu/scalar/ops.py``, cut to the ops the
-encoder forward uses: Add, Sub, Mul, TrueDiv, Neg, Sqr, Sqrt, Maximum and
-Cast.  Each op declares its NumPy semantics (``impl``) and its output
-dtype rule; the torch and Triton formulas of each live in
+encoder's train step uses: Add, Sub, Mul, TrueDiv, Neg, Sqr, Sqrt,
+Maximum and Cast, and the ops their gradients build: GE, LT and Second.
+Each op declares its NumPy semantics (``impl``), its output dtype rule
+and its gradient (``grad``, over scalar variables; ``Elemwise.L_op`` lifts
+it to tensors); the torch and Triton formulas of each live in
 ``aesara_tpu_torch/link/torch/kernels/elemwise.py``.
 """
 
@@ -67,6 +69,10 @@ def upgrade_to_float(*types):
     return (ScalarType(upcast(*conv)),)
 
 
+def bool_out(*types):
+    return (ScalarType("bool"),)
+
+
 class ScalarType(Type):
     """A 0-d value of one dtype."""
 
@@ -124,6 +130,21 @@ def as_scalar(x) -> ScalarVariable:
     arr = np.asarray(x)
     if arr.ndim != 0:
         raise TypeError(f"scalar expected, got shape {arr.shape}")
+    return ScalarConstant(ScalarType(arr.dtype.name), arr[()])
+
+
+def constant(x, dtype=None) -> ScalarConstant:
+    """A literal scalar: bare ints take int8 (int64 when wider) and bare
+    floats ``config.floatX``, so the literals of gradient formulas do not
+    upcast the expression around them."""
+    if dtype is None:
+        if isinstance(x, bool):
+            dtype = "bool"
+        elif isinstance(x, int):
+            dtype = "int8" if -128 <= x < 128 else "int64"
+        elif isinstance(x, float):
+            dtype = config.floatX
+    arr = np.asarray(x, dtype=dtype)
     return ScalarConstant(ScalarType(arr.dtype.name), arr[()])
 
 
@@ -188,12 +209,37 @@ class BinaryScalarOp(ScalarOp):
     nin = 2
 
 
+def _zeros_like(x):
+    """A zero of ``x``'s dtype (floatX for a discrete ``x``) shaped like it."""
+    return second(x, constant(0, dtype=x.dtype if x.dtype not in discrete_dtypes else config.floatX))
+
+
+def _discrete_grads(op, inputs):
+    """An op whose output is discrete has no gradient."""
+    from aesara_tpu_torch.gradient import grad_undefined
+
+    return [grad_undefined(op, i, inp, "output is discrete") for i, inp in enumerate(inputs)]
+
+
+class LogicalComparison(BinaryScalarOp):
+    """A comparison: a bool output whose gradient is defined and zero."""
+
+    output_types_preference = staticmethod(bool_out)
+
+    def grad(self, inputs, output_grads):
+        return [_zeros_like(inp) for inp in inputs]
+
+
 class Add(ScalarOp):
     def impl(self, *inputs):
         s = inputs[0]
         for x in inputs[1:]:
             s = s + x
         return s
+
+    def grad(self, inputs, output_grads):
+        (gz,) = output_grads
+        return [_zeros_like(inp) if inp.dtype in discrete_dtypes else gz for inp in inputs]
 
 
 class Mul(ScalarOp):
@@ -203,9 +249,24 @@ class Mul(ScalarOp):
             p = p * x
         return p
 
+    def grad(self, inputs, output_grads):
+        (gz,) = output_grads
+        rval = []
+        for i in range(len(inputs)):
+            g = gz
+            for j, other in enumerate(inputs):
+                if j != i:
+                    g = mul(g, other)
+            rval.append(g)
+        return rval
+
 
 class Sub(BinaryScalarOp):
     nfunc = staticmethod(np.subtract)
+
+    def grad(self, inputs, output_grads):
+        (gz,) = output_grads
+        return [gz, neg(gz)]
 
 
 class TrueDiv(BinaryScalarOp):
@@ -218,24 +279,75 @@ class TrueDiv(BinaryScalarOp):
             return (ScalarType(config.floatX),)
         return (t,)
 
+    def grad(self, inputs, output_grads):
+        x, y = inputs
+        (gz,) = output_grads
+        return [true_div(gz, y), neg(true_div(mul(gz, x), mul(y, y)))]
+
 
 class Neg(UnaryScalarOp):
     nfunc = staticmethod(np.negative)
     output_types_preference = staticmethod(same_out)
 
+    def grad(self, inputs, output_grads):
+        return [neg(output_grads[0])]
+
 
 class Maximum(BinaryScalarOp):
     nfunc = staticmethod(np.maximum)
+
+    def grad(self, inputs, output_grads):
+        x, y = inputs
+        (gz,) = output_grads
+        if x.dtype in discrete_dtypes and y.dtype in discrete_dtypes:
+            return _discrete_grads(self, inputs)
+        # ties go to x, as in the JAX package
+        return [mul(gz, cast_to(ge(x, y), gz.dtype)), mul(gz, cast_to(lt(x, y), gz.dtype))]
+
+
+class GE(LogicalComparison):
+    nfunc = staticmethod(np.greater_equal)
+
+
+class LT(LogicalComparison):
+    nfunc = staticmethod(np.less)
 
 
 class Sqrt(UnaryScalarOp):
     nfunc = staticmethod(np.sqrt)
     output_types_preference = staticmethod(upgrade_to_float)
 
+    def grad(self, inputs, output_grads):
+        (x,) = inputs
+        return [true_div(output_grads[0], mul(constant(2.0), sqrt(x)))]
+
 
 class Sqr(UnaryScalarOp):
     nfunc = staticmethod(np.square)
     output_types_preference = staticmethod(same_out)
+
+    def grad(self, inputs, output_grads):
+        (x,) = inputs
+        return [mul(output_grads[0], mul(constant(2.0), x))]
+
+
+class Second(BinaryScalarOp):
+    """second(x, y) = y broadcast against x: the scalar of ``fill``."""
+
+    @staticmethod
+    def output_types_preference(xt, yt):
+        return (yt,)
+
+    def impl(self, x, y):
+        return np.broadcast_arrays(x, y)[1] if np.ndim(x) or np.ndim(y) else y
+
+    def grad(self, inputs, output_grads):
+        from aesara_tpu_torch.gradient import disconnected_type
+
+        return [disconnected_type(), output_grads[0]]
+
+    def connection_pattern(self, node):
+        return [[False], [True]]
 
 
 class Cast(UnaryScalarOp):
@@ -255,8 +367,20 @@ class Cast(UnaryScalarOp):
     def impl(self, x):
         return np.asarray(x).astype(_np_dtype(self.o_type.dtype))[()]
 
+    def grad(self, inputs, output_grads):
+        (x,) = inputs
+        if self.o_type.dtype in discrete_dtypes or x.dtype in discrete_dtypes:
+            return _discrete_grads(self, inputs)
+        return [cast_to(output_grads[0], x.dtype)]
+
     def __str__(self):
         return f"cast{{{self.o_type.dtype}}}"
+
+
+def cast_to(x, dtype: str):
+    """``x`` as ``dtype`` (no node when it already is)."""
+    x = as_scalar(x)
+    return x if x.dtype == dtype else Cast(ScalarType(dtype))(x)
 
 
 add = Add(name="add")
@@ -265,5 +389,8 @@ sub = Sub(name="sub")
 true_div = TrueDiv(name="true_div")
 neg = Neg(name="neg")
 maximum = Maximum(name="maximum")
+ge = GE(name="ge")
+lt = LT(name="lt")
 sqrt = Sqrt(name="sqrt")
 sqr = Sqr(name="sqr")
+second = Second(name="second")

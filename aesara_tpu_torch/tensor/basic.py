@@ -1,6 +1,7 @@
 """Tensor construction and structural ops (reference
 ``aesara_tpu/tensor/basic.py``): conversion to variables, constants with
-the JAX package's literal dtype rules, ``cast`` and ``MakeVector``."""
+the JAX package's literal dtype rules, ``cast``, ``fill`` (with
+``ones_like``/``zeros_like``, which gradients build) and ``MakeVector``."""
 
 from __future__ import annotations
 
@@ -17,8 +18,9 @@ from aesara_tpu_torch.tensor.var import TensorConstant, TensorVariable
 
 
 __all__ = [
-    "as_tensor_variable", "constant", "cast", "MakeVector", "stack",
-    "get_scalar_constant_value", "get_vector_length", "NotScalarConstantError",
+    "as_tensor_variable", "constant", "cast", "fill", "second", "ones_like", "zeros_like",
+    "MakeVector", "stack", "get_scalar_constant_value", "get_vector_length",
+    "NotScalarConstantError",
 ]
 
 
@@ -80,6 +82,21 @@ def cast(x, dtype: str):
     if x.type.dtype == dtype:
         return x
     return Elemwise(aes.Cast(ScalarType(dtype)))(x)
+
+
+fill = Elemwise(aes.second, name="fill")
+"""fill(template, value): value broadcast to the template's shape."""
+second = fill
+
+
+def ones_like(x, dtype=None):
+    x = as_tensor_variable(x)
+    return fill(x, constant(1, dtype=dtype or x.type.dtype))
+
+
+def zeros_like(x, dtype=None):
+    x = as_tensor_variable(x)
+    return fill(x, constant(0, dtype=dtype or x.type.dtype))
 
 
 class MakeVector(Op):

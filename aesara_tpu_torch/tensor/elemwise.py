@@ -62,6 +62,27 @@ class DimShuffle(Op):
         (x,) = inputs
         output_storage[0][0] = np.transpose(x, self.transposition).reshape(self.out_shape(x.shape))
 
+    def grad(self, inputs, output_grads):
+        (x,) = inputs
+        (gz,) = output_grads
+        if x.type.dtype in discrete_dtypes:
+            from aesara_tpu_torch.tensor.basic import zeros_like
+
+            return [zeros_like(x)]
+        # the inverse permutation; dims the forward dropped come back as 'x'
+        grad_order = ["x"] * x.type.ndim
+        for i, d in enumerate(self.new_order):
+            if d != "x":
+                grad_order[d] = i
+        res = gz
+        if self.augment:
+            # the forward broadcast these dims: sum them out (keeping them
+            # as size 1, which the inverse shuffle then drops)
+            from aesara_tpu_torch.tensor.math import sum as tsum
+
+            res = tsum(res, axis=self.augment, keepdims=True)
+        return [DimShuffle(res.type.ndim, grad_order)(res)]
+
     def __str__(self):
         if self.is_transpose:
             return f"Transpose{{axes={self.shuffle}}}"
@@ -119,6 +140,64 @@ class Elemwise(Op):
 
     def __str__(self):
         return self.name or f"Elemwise{{{self.scalar_op}}}"
+
+    def connection_pattern(self, node):
+        snode = self.scalar_op.make_node(*[ScalarType(i.type.dtype)() for i in node.inputs])
+        return self.scalar_op.connection_pattern(snode)
+
+    def L_op(self, inputs, outs, ograds):
+        """The scalar op's gradient, built over scalar placeholders, lifted
+        to a tensor graph over the inputs, then summed over the dims
+        where an input was broadcast against the output."""
+        from aesara_tpu_torch.gradient import DisconnectedType, NullType
+        from aesara_tpu_torch.tensor.basic import cast, constant
+
+        markers = (DisconnectedType, NullType)
+        s_inputs = [ScalarType(i.type.dtype)() for i in inputs]
+        s_node = self.scalar_op.make_node(*s_inputs)
+        s_ograds = [g if isinstance(g.type, markers) else ScalarType(g.type.dtype)()
+                    for g in ograds]
+        s_igrads = self.scalar_op.L_op(s_inputs, s_node.outputs, s_ograds)
+        mapping = dict(zip(s_inputs, inputs))
+        mapping.update(zip(s_node.outputs, outs))
+        mapping.update((s, t) for s, t in zip(s_ograds, ograds) if not isinstance(s.type, markers))
+
+        def lift(s_var):
+            if s_var in mapping:
+                return mapping[s_var]
+            if isinstance(s_var.type, markers):
+                return s_var
+            if s_var.owner is None:
+                res = constant(s_var.data)   # a 0-d constant broadcasts
+            else:
+                t_ins = [lift(i) for i in s_var.owner.inputs]
+                bad = next((t for t in t_ins if isinstance(t.type, markers)), None)
+                if bad is not None:
+                    res = bad
+                else:
+                    t_node = Elemwise(s_var.owner.op).make_node(*t_ins)
+                    mapping.update(zip(s_var.owner.outputs, t_node.outputs))
+                    res = t_node.outputs[s_var.index]
+            mapping[s_var] = res
+            return res
+
+        rval = []
+        for inp, s_igrad in zip(inputs, s_igrads):
+            gx = lift(s_igrad)
+            if isinstance(gx.type, markers):
+                rval.append(gx)
+                continue
+            # dims where the input was broadcast against the output
+            to_sum = [d for d in range(inp.type.ndim)
+                      if inp.type.shape[d] == 1 and outs[0].type.shape[d] != 1]
+            if to_sum:
+                from aesara_tpu_torch.tensor.math import sum as tsum
+
+                gx = tsum(gx, axis=to_sum, keepdims=True)
+            if gx.type.dtype != inp.type.dtype and inp.type.dtype not in discrete_dtypes:
+                gx = cast(gx, inp.type.dtype)
+            rval.append(gx)
+        return rval
 
     def perform(self, node, inputs, output_storage):
         check_static_broadcast([i.type.shape for i in node.inputs], [np.shape(i) for i in inputs])

@@ -1,5 +1,6 @@
-"""Elementwise math, reductions and ``Dot`` (reference
-``aesara_tpu/tensor/math.py``): the subset the encoder forward uses."""
+"""Elementwise math, reductions and ``Dot`` with their gradients
+(reference ``aesara_tpu/tensor/math.py``): the subset the encoder's train
+step uses."""
 
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ from aesara_tpu_torch.tensor.elemwise import CAReduce, DimShuffle, Elemwise
 from aesara_tpu_torch.tensor.type import TensorType
 
 
-__all__ = ["add", "sub", "mul", "true_div", "neg", "sqr", "sqrt", "maximum",
+__all__ = ["add", "sub", "mul", "true_div", "neg", "sqr", "sqrt", "maximum", "ge", "lt",
            "Sum", "sum", "mean", "Dot", "dot", "tensordot"]
 
 
@@ -37,6 +38,8 @@ neg = _ew(aes.neg)
 sqr = _ew(aes.sqr)
 sqrt = _ew(aes.sqrt)
 maximum = _ew(aes.maximum)
+ge = _ew(aes.ge)
+lt = _ew(aes.lt)
 
 
 class Sum(CAReduce):
@@ -44,6 +47,25 @@ class Sum(CAReduce):
 
     def __init__(self, axis=None, dtype=None, acc_dtype=None):
         super().__init__(aes.add, axis=axis, dtype=dtype, acc_dtype=acc_dtype)
+
+    def grad(self, inputs, output_grads):
+        """The output gradient broadcast back over the summed axes."""
+        from aesara_tpu_torch.tensor.basic import fill, zeros_like
+
+        (x,) = inputs
+        (gz,) = output_grads
+        if x.type.dtype in discrete_dtypes:
+            return [zeros_like(x, dtype=config.floatX)]
+        axes = self._normalized_axes(x.type.ndim)
+        order, k = [], 0
+        for d in range(x.type.ndim):
+            if d in axes:
+                order.append("x")
+            else:
+                order.append(k)
+                k += 1
+        gx = fill(x, DimShuffle(gz.type.ndim, tuple(order))(gz))
+        return [cast(gx, x.type.dtype)]
 
     def __str__(self):
         ax = "" if self.axis is None else f"{{axis={list(self.axis)}}}"
@@ -108,6 +130,19 @@ class Dot(Op):
         x, y = inputs
         out_dtype = _np_dtype(node.outputs[0].type.dtype)
         output_storage[0][0] = np.asarray(np.dot(x, y)).astype(out_dtype, copy=False)
+
+    def grad(self, inputs, output_grads):
+        x, y = inputs
+        (gz,) = output_grads
+        if x.type.ndim == 2 and y.type.ndim == 2:
+            gx, gy = dot(gz, y.T), dot(x.T, gz)
+        elif x.type.ndim == 1 and y.type.ndim == 2:
+            gx, gy = dot(gz, y.T), _dot(x.dimshuffle(0, "x"), gz.dimshuffle("x", 0))
+        elif x.type.ndim == 2 and y.type.ndim == 1:
+            gx, gy = _dot(gz.dimshuffle(0, "x"), y.dimshuffle("x", 0)), dot(x.T, gz)
+        else:
+            gx, gy = mul(gz, y), mul(gz, x)
+        return [cast(gx, x.type.dtype), cast(gy, y.type.dtype)]
 
     def __str__(self):
         return "dot"

@@ -1,14 +1,23 @@
-"""Canonicalization rewrites the encoder forward needs (the counterparts
-of rules in ``aesara_tpu/tensor/rewriting/basic.py``, ``math.py`` and
-``shape.py``):
+"""Canonicalization rewrites the encoder's forward and train step need
+(the counterparts of rules in ``aesara_tpu/tensor/rewriting/basic.py``,
+``math.py`` and ``shape.py``):
 
 - ``constant_folding``: nodes over constants become constants.
-- ``local_useless_dimshuffle``: an identity DimShuffle goes.
+- ``local_useless_dimshuffle``: an identity DimShuffle goes;
+  ``local_dimshuffle_lift``: a DimShuffle of a DimShuffle is one.
 - ``local_shape_i_lift``: ``Shape_i`` moves toward the graph inputs, the
-  work the JAX package's ShapeFeature does for the ops of the slice.
+  work the JAX package's ShapeFeature does for the ops of the slice;
+  ``local_shape_to_shape_i``: ``Shape`` (which ``Reshape``'s gradient
+  builds) becomes its dims.
 - ``local_mul_one`` and ``local_flatten_add_mul``: the neutral-element and
   flattening part of the algebraic canonicalizer.
-- ``local_reshape_chain``: a reshape of a reshape is one reshape.
+- ``local_reshape_chain``: a reshape of a reshape is one reshape;
+  ``local_useless_reshape``: a reshape to the input's own shape goes.
+- ``local_reduce_broadcastable``: summing a static-1 axis is dropping it
+  (the gradients of broadcast operands build such sums).
+- ``local_fill_sink`` and ``local_useless_fill``: the ``fill`` nodes of
+  gradients move below the elemwise ops that read them, and go once
+  their value has the output's shape.
 """
 
 from __future__ import annotations
@@ -20,11 +29,11 @@ from aesara_tpu_torch.graph.ir import Constant
 from aesara_tpu_torch.graph.rewriting.basic import copy_stack_trace, node_rewriter
 from aesara_tpu_torch.graph.utils import MethodNotDefined
 from aesara_tpu_torch.scalar import ops as aes
-from aesara_tpu_torch.tensor.basic import MakeVector, cast, constant
+from aesara_tpu_torch.tensor.basic import MakeVector, cast, constant, fill
 from aesara_tpu_torch.tensor.elemwise import CAReduce, DimShuffle, Elemwise
-from aesara_tpu_torch.tensor.math import Dot, add, mul
-from aesara_tpu_torch.tensor.nnet.attention import FusedAttention
-from aesara_tpu_torch.tensor.shape import Reshape, Shape_i
+from aesara_tpu_torch.tensor.math import Dot, Sum, add, mul
+from aesara_tpu_torch.tensor.nnet.attention import FusedAttention, FusedAttentionGrad
+from aesara_tpu_torch.tensor.shape import Reshape, Shape, Shape_i, shape_tuple
 
 
 def _const_val(var):
@@ -73,9 +82,10 @@ def local_useless_dimshuffle(fgraph, node):
     return False
 
 
-def _lifted_dim(node, i):
-    """A variable equal to dim ``i`` of ``node``'s output, built from its
-    inputs, or None."""
+def _lifted_dim(var, i):
+    """A variable equal to dim ``i`` of ``var``, built from the inputs of
+    the node that computes it, or None."""
+    node = var.owner
     op, ins = node.op, node.inputs
     if isinstance(op, Elemwise):
         # static-only broadcasting: every input whose dim is not statically
@@ -98,6 +108,9 @@ def _lifted_dim(node, i):
         return y, y.type.ndim - 1
     if isinstance(op, FusedAttention):
         return (ins[0], i) if i < 2 else (ins[2], 2)
+    if isinstance(op, FusedAttentionGrad):
+        # dq, dk, dv are shaped like q, k, v
+        return ins[var.index], i
     if isinstance(op, Reshape):
         mk = ins[1].owner
         if mk is not None and isinstance(mk.op, MakeVector):
@@ -117,7 +130,7 @@ def local_shape_i_lift(fgraph, node):
         return [constant(x.type.shape[i], dtype="int64")]
     if x.owner is None:
         return False
-    lifted = _lifted_dim(x.owner, i)
+    lifted = _lifted_dim(x, i)
     if lifted is None:
         return False
     if isinstance(lifted, tuple):
@@ -129,6 +142,74 @@ def local_shape_i_lift(fgraph, node):
         res = lifted
     res = _keep_type(node.outputs[0], res)
     return False if res is None else [copy_stack_trace(node.outputs[0], res)]
+
+
+@node_rewriter([Shape])
+def local_shape_to_shape_i(fgraph, node):
+    """Shape(x) → MakeVector of x's dims (constants where static)."""
+    return [MakeVector("int64")(*shape_tuple(node.inputs[0]))]
+
+
+@node_rewriter([DimShuffle])
+def local_dimshuffle_lift(fgraph, node):
+    """DimShuffle(DimShuffle(x)) → one DimShuffle of x"""
+    inner = node.inputs[0].owner
+    if inner is None or not isinstance(inner.op, DimShuffle):
+        return False
+    order = tuple("x" if d == "x" else inner.op.new_order[d] for d in node.op.new_order)
+    res = DimShuffle(inner.inputs[0].type.ndim, order)(inner.inputs[0])
+    res = _keep_type(node.outputs[0], res)
+    return False if res is None else [copy_stack_trace(node.outputs[0], res)]
+
+
+@node_rewriter([Sum])
+def local_reduce_broadcastable(fgraph, node):
+    """A sum over static-1 axes drops them: Sum(x) over axes that are
+    all 1 → DimShuffle(x); otherwise the sum runs over the rest."""
+    x = node.inputs[0]
+    axes = node.op._normalized_axes(x.type.ndim)
+    ones = [d for d in axes if x.type.shape[d] == 1]
+    if not ones:
+        return False
+    order = [d for d in range(x.type.ndim) if d not in ones]
+    res = DimShuffle(x.type.ndim, tuple(order))(x)
+    rest = [order.index(d) for d in axes if d not in ones]
+    if rest:
+        res = Sum(axis=rest, dtype=node.op.dtype, acc_dtype=node.op.acc_dtype)(res)
+    res = _keep_type(node.outputs[0], res)
+    return False if res is None else [copy_stack_trace(node.outputs[0], res)]
+
+
+def _is_fill(var) -> bool:
+    return (var.owner is not None and isinstance(var.owner.op, Elemwise)
+            and isinstance(var.owner.op.scalar_op, aes.Second))
+
+
+@node_rewriter([Elemwise])
+def local_fill_sink(fgraph, node):
+    """f(fill(a, b), c) → fill(a, f(b, c)): the fill moves below the op
+    that reads it, toward the point where it is useless."""
+    if isinstance(node.op.scalar_op, aes.Second) or len(node.outputs) != 1:
+        return False
+    if not any(_is_fill(i) for i in node.inputs):
+        return False
+    templates = [i.owner.inputs[0] for i in node.inputs if _is_fill(i)]
+    res = node.op(*[i.owner.inputs[1] if _is_fill(i) else i for i in node.inputs])
+    for t in templates:
+        res = fill(t, res)
+    res = _keep_type(node.outputs[0], res)
+    return False if res is None else [copy_stack_trace(node.outputs[0], res)]
+
+
+@node_rewriter([Elemwise])
+def local_useless_fill(fgraph, node):
+    """fill(t, v) → v when v already has the output's static shape"""
+    if not isinstance(node.op.scalar_op, aes.Second):
+        return False
+    v, out = node.inputs[1], node.outputs[0]
+    if v.type.dtype == out.type.dtype and v.type.shape == out.type.shape:
+        return [v]
+    return False
 
 
 @node_rewriter([Elemwise])
@@ -190,6 +271,23 @@ def local_reshape_chain(fgraph, node):
     return False if res is None else [copy_stack_trace(node.outputs[0], res)]
 
 
-for _rw in (constant_folding, local_useless_dimshuffle, local_shape_i_lift,
-            local_mul_one, local_flatten_add_mul, local_reshape_chain):
+@node_rewriter([Reshape])
+def local_useless_reshape(fgraph, node):
+    """Reshape(x, shape(x)), or to x's own full static shape → x"""
+    x, shp = node.inputs
+    out = node.outputs[0]
+    if x.type.ndim != out.type.ndim:
+        return False
+    same_static = None not in x.type.shape and x.type.shape == out.type.shape
+    own_shape = shp.owner is not None and isinstance(shp.owner.op, Shape) and shp.owner.inputs[0] is x
+    if not (same_static or own_shape):
+        return False
+    res = _keep_type(out, x)
+    return False if res is None else [res]
+
+
+for _rw in (constant_folding, local_useless_dimshuffle, local_dimshuffle_lift,
+            local_shape_i_lift, local_shape_to_shape_i, local_mul_one, local_flatten_add_mul,
+            local_reshape_chain, local_useless_reshape, local_reduce_broadcastable,
+            local_fill_sink, local_useless_fill):
     register_canonicalize(_rw)

@@ -1,5 +1,7 @@
-"""Shape ops: ``Shape_i`` and ``Reshape`` (reference
-``aesara_tpu/tensor/shape.py``)."""
+"""Shape ops: ``Shape``, ``Shape_i`` and ``Reshape`` (reference
+``aesara_tpu/tensor/shape.py``).  A shape is an integer, so its
+gradient is disconnected; ``Reshape``'s gradient reshapes back to
+``shape(x)``."""
 
 from __future__ import annotations
 
@@ -12,7 +14,38 @@ from aesara_tpu_torch.graph.op import Op
 from aesara_tpu_torch.tensor.type import TensorType
 
 
-__all__ = ["Shape_i", "shape_i", "shape_tuple", "Reshape", "reshape"]
+__all__ = ["Shape", "shape", "Shape_i", "shape_i", "shape_tuple", "Reshape", "reshape"]
+
+
+def _disconnected_grads(inputs):
+    from aesara_tpu_torch.gradient import disconnected_type
+
+    return [disconnected_type() for _ in inputs]
+
+
+class Shape(Op):
+    """The runtime shape, as an int64 vector."""
+
+    __props__ = ()
+
+    def make_node(self, x):
+        from aesara_tpu_torch.tensor.basic import as_tensor_variable
+
+        x = as_tensor_variable(x)
+        return Apply(self, [x], [TensorType("int64", (x.type.ndim,))()])
+
+    def perform(self, node, inputs, output_storage):
+        output_storage[0][0] = np.asarray(np.shape(inputs[0]), dtype=np.int64)
+
+    def connection_pattern(self, node):
+        return [[False]]
+
+    def grad(self, inputs, output_grads):
+        return _disconnected_grads(inputs)
+
+
+def shape(x):
+    return Shape()(x)
 
 
 class Shape_i(Op):
@@ -33,6 +66,12 @@ class Shape_i(Op):
 
     def perform(self, node, inputs, output_storage):
         output_storage[0][0] = np.asarray(np.shape(inputs[0])[self.i], dtype=np.int64)
+
+    def connection_pattern(self, node):
+        return [[False]]
+
+    def grad(self, inputs, output_grads):
+        return _disconnected_grads(inputs)
 
     def __str__(self):
         return f"Shape_i{{{self.i}}}"
@@ -88,6 +127,9 @@ class Reshape(Op):
                         static[d] = v if v != -1 else None
                     except NotScalarConstantError:
                         pass
+            elif mk is not None and isinstance(mk.op, Shape) and mk.inputs[0].type.ndim == self.ndim:
+                # reshape(g, shape(x)), the gradient's form: x's static dims
+                static = list(mk.inputs[0].type.shape)
         if static.count(None) == 1 and all(s is not None for s in x.type.shape):
             total = int(np.prod(x.type.shape))
             known = int(np.prod([s for s in static if s is not None]))
@@ -98,6 +140,15 @@ class Reshape(Op):
     def perform(self, node, inputs, output_storage):
         x, shp = inputs
         output_storage[0][0] = np.reshape(x, tuple(int(s) for s in shp))
+
+    def connection_pattern(self, node):
+        return [[True], [False]]
+
+    def grad(self, inputs, output_grads):
+        from aesara_tpu_torch.gradient import disconnected_type
+
+        x, _ = inputs
+        return [reshape(output_grads[0], shape(x), ndim=x.type.ndim), disconnected_type()]
 
 
 def reshape(x, newshape, ndim: Optional[int] = None):

@@ -1,7 +1,8 @@
 """Kernel tests that need the card: each hand-written kernel against its
-plain PyTorch version on CUDA tensors, and a small encoder forward on the
-card against the CPU.  They skip where there is no CUDA device; run them
-on a GPU machine with ``python -m pytest -m cuda tests/test_torch_cuda.py``."""
+plain PyTorch version on CUDA tensors, and a small encoder forward and
+train step on the card against the CPU.  They skip where there is no CUDA
+device; run them on a GPU machine with
+``python -m pytest -m cuda tests/test_torch_cuda.py``."""
 
 import numpy as np
 import pytest
@@ -10,10 +11,13 @@ import torch
 import aesara_tpu_torch as ptp
 import aesara_tpu_torch.tensor as pt
 from aesara_tpu_torch.config import config
-from aesara_tpu_torch.link.torch.kernels.attention import attention_plain, flash_attention
+from aesara_tpu_torch.link.torch.kernels.attention import (
+    attention_grads_plain, attention_plain, flash_attention, flash_attention_grads,
+)
 from aesara_tpu_torch.link.torch.kernels.elemwise import (
     ElemwiseKernel, composite_plain, fused_elemwise,
 )
+from aesara_tpu_torch.models.optim import sgd
 from aesara_tpu_torch.models.transformer import TransformerEncoderLayer
 from aesara_tpu_torch.tensor import math as ptm
 
@@ -79,3 +83,63 @@ def test_small_encoder_on_card_matches_cpu(cuda):
     got = build("cuda")(x)
     assert got.is_cuda
     torch.testing.assert_close(got.cpu(), build("cpu")(x), atol=1e-4, rtol=1e-4)
+
+
+def test_k1_relu_grad_composite_matches_plain(cuda):
+    # mul(gz, cast(ge(y, 0))): a bool intermediate inside the Composite
+    y, gz = pt.tensor3("y"), pt.tensor3("gz")
+    fn = ptp.function([y, gz], ptm.mul(gz, pt.cast(ptm.ge(y, 0.0), "float32")))
+    node = _composite_node(fn)
+    kernel = ElemwiseKernel(node.op.scalar_op, ["float32", "float32"], "float32")
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    yv, gv = (torch.randn((4, 33, 70), device=cuda, generator=gen) for _ in range(2))
+    got = fused_elemwise(kernel, yv, gv)
+    want = composite_plain(node.op.scalar_op, "float32", yv, gv)
+    assert bool((yv < 0).any()) and bool((yv > 0).any())
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("shape,causal,dtype", [
+    ((4, 96, 64), False, torch.float32), ((2, 130, 40), True, torch.float32),
+    ((3, 200, 128), True, torch.bfloat16), ((2, 70, 96), False, torch.bfloat16)])
+def test_k3_kernel_matches_plain(cuda, shape, causal, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v, do = (torch.randn(shape, device=cuda, generator=gen).to(dtype) for _ in range(4))
+    before = flash_attention_grads.launches
+    got = flash_attention_grads(q, k, v, do, causal=causal)
+    assert flash_attention_grads.launches == before + 1
+    want = attention_grads_plain(q, k, v, do, causal, shape[-1] ** -0.5)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == shape
+        if dtype == torch.float32:
+            torch.testing.assert_close(g, w, atol=5e-4, rtol=1e-3)
+        else:
+            tol = 2e-2 * w.float().abs().max().item()
+            torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=0)
+
+
+def test_small_train_step_on_card_matches_cpu(cuda):
+    xv = np.random.default_rng(1).normal(size=(2, 96, 64)).astype("float32")
+
+    def build(device):
+        with config.change_flags(device=device):
+            layers = [TransformerEncoderLayer(64, 4, 128, seed=i) for i in range(2)]
+            x = ptp.shared(xv, name="x")
+        h = x
+        for layer in layers:
+            h = layer(h)
+        loss = ptm.mean(ptm.sqr(h))
+        params = [p for layer in layers for p in layer.params]
+        step = ptp.function([], ptp.Out(loss, borrow=True), updates=sgd(loss, params, lr=0.01),
+                            mode=ptp.Mode(ptp.TorchLinker(device=device)))
+        return step, params
+
+    (step_gpu, params_gpu), (step_cpu, params_cpu) = build("cuda"), build("cpu")
+    before = flash_attention_grads.launches
+    for _ in range(2):
+        loss_gpu, loss_cpu = step_gpu(), step_cpu()
+        assert loss_gpu.is_cuda
+        torch.testing.assert_close(loss_gpu.cpu(), loss_cpu, atol=1e-5, rtol=1e-5)
+    assert flash_attention_grads.launches == before + 4
+    for pg, pc in zip(params_gpu, params_cpu):
+        torch.testing.assert_close(pg.value.cpu(), pc.value, atol=1e-5, rtol=1e-5)
