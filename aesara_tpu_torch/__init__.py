@@ -3,9 +3,11 @@
 Graphs are built with the same symbolic API (``aesara_tpu_torch.tensor``,
 ``shared``, ``grad``), compiled by ``function(inputs, outputs, mode=,
 updates=)`` through the optdb rewrite pipeline, and run by
-``TorchLinker`` on one torch device, with hand-written Hopper kernels for
-fused elementwise Composites (Triton) and attention, forward and
-backward (CUDA C++).  This package imports torch and never jax.
+``TorchLinker`` on one torch device (the card unless the caller asks for
+the CPU), with hand-written Hopper kernels for fused elementwise
+Composites and row softmax (Triton), attention forward and backward, and
+the CSR products of sparse inputs (CUDA C++).  This package imports torch
+and never jax.
 """
 
 from aesara_tpu_torch.config import config  # noqa: F401
@@ -17,6 +19,7 @@ from aesara_tpu_torch.compile.sharedvalue import shared  # noqa: F401
 from aesara_tpu_torch.gradient import grad  # noqa: F401
 from aesara_tpu_torch.link.torch.linker import TorchLinker  # noqa: F401
 from aesara_tpu_torch.tensor import rewriting  # noqa: F401  (registers the rewrites)
+from aesara_tpu_torch import sparse  # noqa: F401  (registers the sparse rewrites)
 
-__all__ = ["config", "tensor", "function", "Function", "Out", "Mode", "TORCH", "get_mode",
-           "shared", "grad", "TorchLinker"]
+__all__ = ["config", "tensor", "sparse", "function", "Function", "Out", "Mode", "TORCH",
+           "get_mode", "shared", "grad", "TorchLinker"]

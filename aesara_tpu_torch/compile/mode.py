@@ -2,7 +2,7 @@
 (reference ``aesara_tpu/compile/mode.py``).
 
 Positions follow the JAX package: merge1 at 0, canonicalize at 1,
-elemwise fusion and merge2 at 49, merge3 at 100.  The ``TORCH`` mode runs
+specialize at 2, elemwise fusion and merge2 at 49, merge3 at 100.  The ``TORCH`` mode runs
 the ``fast_run`` rewrites the encoder forward needs and links through
 ``TorchLinker``.
 """
@@ -16,13 +16,16 @@ from aesara_tpu_torch.graph.rewriting.db import EquilibriumDB, RewriteDatabaseQu
 from aesara_tpu_torch.link.torch.linker import TorchLinker
 
 
-__all__ = ["Mode", "optdb", "get_mode", "register_canonicalize", "TORCH", "OPT_FAST_RUN"]
+__all__ = ["Mode", "optdb", "get_mode", "register_canonicalize", "register_specialize", "TORCH",
+           "OPT_FAST_RUN"]
 
 
 optdb = SequenceDB()
 optdb.register("merge1", MergeOptimizer(), "fast_run", "merge", position=0)
 canonicalize = EquilibriumDB()
 optdb.register("canonicalize", canonicalize, "fast_run", position=1)
+specialize = EquilibriumDB()
+optdb.register("specialize", specialize, "fast_run", position=2)
 optdb.register("merge2", MergeOptimizer(), "fast_run", "merge", position=49.5)
 optdb.register("merge3", MergeOptimizer(), "fast_run", "merge", position=100)
 # position 49: elemwise fusion, registered by aesara_tpu_torch.tensor.rewriting
@@ -30,6 +33,11 @@ optdb.register("merge3", MergeOptimizer(), "fast_run", "merge", position=100)
 
 def register_canonicalize(rewrite, *tags, name=None):
     canonicalize.register(name or rewrite.name, rewrite, "fast_run", *tags)
+    return rewrite
+
+
+def register_specialize(rewrite, *tags, name=None):
+    specialize.register(name or rewrite.name, rewrite, "fast_run", *tags)
     return rewrite
 
 

@@ -61,8 +61,15 @@ class TensorSharedVariable(_tensor_operators, SharedVariable):
 
 
 def shared(value, name=None, device=None) -> TensorSharedVariable:
-    """A shared tensor holding a copy of ``value`` on ``device``."""
+    """A shared tensor holding a copy of ``value`` on ``device``; a SciPy
+    sparse matrix makes a sparse shared variable."""
+    import scipy.sparse
+
     if isinstance(value, Variable):
         raise TypeError("shared() takes a value, not a Variable")
+    if scipy.sparse.issparse(value):
+        from aesara_tpu_torch.sparse.sharedvar import sparse_shared
+
+        return sparse_shared(value, name=name, device=device)
     arr = np.asarray(value)
     return TensorSharedVariable(TensorType(arr.dtype.name, arr.shape), arr, name=name, device=device)

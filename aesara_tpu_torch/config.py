@@ -3,7 +3,9 @@
 The counterpart of ``aesara_tpu/config.py``, cut down to the flags the
 port reads.  ``device`` is new: it names the ``torch.device`` that
 ``shared()`` places values on and that ``TorchLinker`` runs on when it is
-not given one.
+not given one.  It defaults to ``"cuda"``: entry points run on the card
+unless the caller asks for the CPU (``change_flags(device="cpu")`` or
+``device="cpu"``), and on a machine without a card they raise.
 """
 
 from __future__ import annotations
@@ -64,6 +66,6 @@ class _Config:
 
 config = _Config()
 config.add("floatX", "float32", _enum("float32", "float64"))
-config.add("device", "cpu", _device)
+config.add("device", "cuda", _device)
 
 change_flags = config.change_flags

@@ -16,15 +16,18 @@ from functools import singledispatch
 import numpy as np
 
 from aesara_tpu_torch.scalar.composite import Composite
-from aesara_tpu_torch.tensor.basic import MakeVector
+from aesara_tpu_torch.tensor.basic import Alloc, ARange, MakeVector
 from aesara_tpu_torch.tensor.elemwise import CAReduce, DimShuffle, Elemwise, check_static_broadcast
-from aesara_tpu_torch.tensor.math import Dot
+from aesara_tpu_torch.tensor.math import Argmax, Dot
 from aesara_tpu_torch.tensor.nnet.attention import FusedAttention, FusedAttentionGrad
 from aesara_tpu_torch.tensor.shape import Reshape, Shape, Shape_i
+from aesara_tpu_torch.tensor.special import LogSoftmax, Softmax, SoftmaxGrad
+from aesara_tpu_torch.tensor.subtensor import AdvancedIncSubtensor, AdvancedSubtensor
 from aesara_tpu_torch.link.torch.kernels.attention import flash_attention, flash_attention_grads
 from aesara_tpu_torch.link.torch.kernels.elemwise import (
     ElemwiseKernel, apply_scalar_node, fused_elemwise, torch_dtype,
 )
+from aesara_tpu_torch.link.torch.kernels.softmax import softmax_rows
 
 
 __all__ = ["torch_funcify"]
@@ -145,3 +148,100 @@ def _torch_fused_attention_grad(op, node):
         return flash_attention_grads(q, k, v, gz, causal=causal, scale=1.0 / math.sqrt(q.shape[-1]))
 
     return attention_grads
+
+
+def _softmax_lowering(op, node, log: bool):
+    ndim = node.inputs[0].type.ndim
+    axis = None if op.axis is None or ndim == 0 else op.axis % ndim
+
+    def softmax(x):
+        if axis is None:    # one row of every value
+            return softmax_rows(x.reshape(1, -1), log).reshape(x.shape)
+        if axis == ndim - 1:
+            return softmax_rows(x, log)
+        return softmax_rows(x.movedim(axis, -1), log).movedim(-1, axis)
+
+    return softmax
+
+
+@torch_funcify.register(Softmax)
+def _torch_softmax(op, node):
+    return _softmax_lowering(op, node, log=False)
+
+
+@torch_funcify.register(LogSoftmax)
+def _torch_log_softmax(op, node):
+    return _softmax_lowering(op, node, log=True)
+
+
+@torch_funcify.register(SoftmaxGrad)
+def _torch_softmax_grad(op, node):
+    # plain torch ops, as the JAX package lowers it (linalg_dispatch.py:389-397)
+    ndim = node.inputs[1].type.ndim
+    axis = None if op.axis is None or ndim == 0 else op.axis % ndim
+
+    def softmax_grad(dy, sm):
+        prod = dy * sm
+        inner = prod.sum() if axis is None else prod.sum(dim=axis, keepdim=True)
+        return sm * (dy - inner)
+
+    return softmax_grad
+
+
+@torch_funcify.register(AdvancedSubtensor)
+def _torch_advanced_subtensor(op, node):
+    return lambda x, *indices: x[indices]
+
+
+@torch_funcify.register(AdvancedIncSubtensor)
+def _torch_advanced_inc_subtensor(op, node):
+    accumulate = not op.set_instead_of_inc
+
+    def advanced_inc_subtensor(x, y, *indices):
+        return x.clone().index_put_(indices, y, accumulate=accumulate)
+
+    return advanced_inc_subtensor
+
+
+@torch_funcify.register(Alloc)
+def _torch_alloc(op, node):
+    import torch
+
+    def alloc(value, *shape):
+        target = tuple(int(s) for s in shape)
+        check_static_broadcast([node.inputs[0].type.shape, target], [tuple(value.shape), target])
+        return torch.broadcast_to(value, target).clone(memory_format=torch.contiguous_format)
+
+    alloc.host_inputs = tuple(range(1, len(node.inputs)))
+    return alloc
+
+
+@torch_funcify.register(ARange)
+def _torch_arange(op, node):
+    import torch
+
+    dtype = torch_dtype(op.dtype)
+
+    def arange(start, stop, step):
+        # the linker folds an arange of host values through perform; this
+        # runs only for bounds computed on the device
+        return torch.arange(start.item(), stop.item(), step.item(), dtype=dtype, device=start.device)
+
+    return arange
+
+
+@torch_funcify.register(Argmax)
+def _torch_argmax(op, node):
+    import torch
+
+    ndim = node.inputs[0].type.ndim
+    axes = op.axes(ndim)
+    keep = [d for d in range(ndim) if d not in axes]
+
+    def argmax(x):
+        if len(axes) == 1:
+            return torch.argmax(x, dim=axes[0])
+        flat = x.permute(keep + list(axes)).reshape([x.shape[d] for d in keep] + [-1])
+        return torch.argmax(flat, dim=-1)
+
+    return argmax

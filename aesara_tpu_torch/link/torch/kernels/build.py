@@ -1,4 +1,4 @@
-"""Building the hand-written CUDA kernels.
+"""Building the hand-written kernels.
 
 Each ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface and loaded with ``ctypes`` (a build takes
@@ -6,12 +6,17 @@ seconds; a PyTorch C++ extension would take minutes).  Libraries go into
 the git-ignored ``_build/`` directory beside this file, named by a hash of
 their source and flags, so a checkout builds them on first use.  With no
 ``nvcc`` a build raises: a CUDA run never falls back to a plain version.
+
+Triton kernels are Python source that Triton reads from a file:
+:func:`triton_module` writes a source into ``_build/triton/`` and imports
+it, so no module of the package imports ``triton`` when it is imported.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import importlib.util
 import os
 import shutil
 import subprocess
@@ -33,6 +38,22 @@ def build_dir(*parts: str) -> str:
     path = os.path.join(_HERE, "_build", *parts)
     os.makedirs(path, exist_ok=True)
     return path
+
+
+def triton_module(src: str, stem: str):
+    """The module whose source is ``src``, written once to the build
+    directory under a name made of ``stem`` and a hash of the source."""
+    digest = hashlib.sha256(src.encode()).hexdigest()[:20]
+    path = os.path.join(build_dir("triton"), f"{stem}_{digest}.py")
+    if not os.path.exists(path):
+        tmp = f"{path}.{os.getpid()}.tmp"
+        with open(tmp, "w") as f:
+            f.write(src)
+        os.replace(tmp, path)
+    spec = importlib.util.spec_from_file_location(f"aesara_tpu_torch_{stem}_{digest}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def find_nvcc() -> str:

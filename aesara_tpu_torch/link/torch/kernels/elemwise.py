@@ -20,7 +20,8 @@ the wrapper: CPU tensors take the plain PyTorch version
 (:func:`composite_plain`), CUDA tensors launch the kernel.
 
 fp32 division and square root use ``tl.math.div_rn`` and ``tl.sqrt_rn``
-(Triton's ``/`` and ``tl.sqrt`` are approximate in fp32).  Maximum
+(Triton's ``/`` and ``tl.sqrt`` are approximate in fp32); ``exp`` is
+``tl.exp``, within a few ulp of the plain version's.  Maximum
 propagates NaN from either side, as ``numpy.maximum`` does.  Comparisons
 (``GE``, ``LT``: the ReLU gradient's mask) compute in their operands'
 common dtype and give a bool that a ``Cast`` turns into 0 or 1.  bfloat16 and
@@ -30,10 +31,7 @@ PyTorch does.
 
 from __future__ import annotations
 
-import hashlib
-import importlib.util
 import math
-import os
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
@@ -80,7 +78,7 @@ def scalar_torch_impl(op):
         return f
     table = {
         aes.Sub: torch.sub, aes.TrueDiv: torch.true_divide, aes.Neg: torch.neg,
-        aes.Sqr: torch.square, aes.Sqrt: torch.sqrt, aes.Maximum: torch.maximum,
+        aes.Sqr: torch.square, aes.Sqrt: torch.sqrt, aes.Exp: torch.exp, aes.Maximum: torch.maximum,
         aes.GE: torch.ge, aes.LT: torch.lt,
     }
     for cls, fn in table.items():
@@ -177,6 +175,10 @@ def _expr(op, args: List[str], dtype: str) -> str:
         if not is_float:
             raise NotImplementedError(f"sqrt into {dtype}")
         return f"tl.sqrt_rn({args[0]})"
+    if isinstance(op, aes.Exp):
+        if not is_float:
+            raise NotImplementedError(f"exp into {dtype}")
+        return f"tl.exp({args[0]})"
     if isinstance(op, aes.Maximum):
         a, b = args
         return f"tl.where(({a} > {b}) | ({a} != {a}), {a}, {b})"
@@ -272,20 +274,9 @@ class ElemwiseKernel:
         directory and imported from there (Triton reads the source of
         what it compiles)."""
         if (ndim, wide) not in self._kernels:
-            from aesara_tpu_torch.link.torch.kernels.build import build_dir
+            from aesara_tpu_torch.link.torch.kernels.build import triton_module
 
-            src = self.source(ndim, wide)
-            digest = hashlib.sha256(src.encode()).hexdigest()[:20]
-            path = os.path.join(build_dir("triton"), f"fused_{digest}.py")
-            if not os.path.exists(path):
-                tmp = f"{path}.{os.getpid()}.tmp"
-                with open(tmp, "w") as f:
-                    f.write(src)
-                os.replace(tmp, path)
-            spec = importlib.util.spec_from_file_location(f"aesara_tpu_torch_fused_{digest}", path)
-            module = importlib.util.module_from_spec(spec)
-            spec.loader.exec_module(module)
-            self._kernels[(ndim, wide)] = module.kernel
+            self._kernels[(ndim, wide)] = triton_module(self.source(ndim, wide), "fused").kernel
         return self._kernels[(ndim, wide)]
 
 

@@ -1,0 +1,181 @@
+"""K5, K6 and K7: CSR products, each with its plain PyTorch version.
+
+K5 :func:`csr_spmv` replaces ``bss_matmul`` (``aesara_tpu/link/jax/bss.py:197``),
+K6 :func:`csr_spmm` replaces ``_bss_matmul_wide`` (``bss.py:271``) and K7
+:func:`csr_sddmm` replaces ``bss_sddmm`` (``bss.py:354``).  The kernels
+are CUDA C++ in ``csrc/csr_spmm.cu`` (its header says what bounds them on
+the H100 and how each is laid out); they read a
+:class:`~aesara_tpu_torch.link.torch.csr.CSRMat`.  CPU tensors take the
+plain versions (:func:`csr_matmul_plain`, :func:`csr_sddmm_plain`), CUDA
+tensors launch the kernels or raise.
+
+:func:`csr_matmul` picks K5 for a rhs of at most ``SPMV_MAX_C`` columns
+(a vector counts as one) and K6 for a wider one.  No TPU threshold carries
+over: the split is set from the H100 timings of both kernels at the GLM's
+shape that ``PERF.md`` records.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+__all__ = ["SPMV_MAX_C", "csr_matmul", "csr_matmul_plain", "csr_spmv", "csr_spmm", "csr_sddmm",
+           "csr_sddmm_plain", "row_ids"]
+
+#: widest rhs that K5 takes in :func:`csr_matmul`; wider ones go to K6
+SPMV_MAX_C = 8
+
+
+def _acc_dtype(dtype):
+    import torch
+
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+def row_ids(a):
+    """The row of every stored entry of ``a``, as int64."""
+    import torch
+
+    counts = (a.indptr[1:] - a.indptr[:-1]).long()
+    return torch.repeat_interleave(torch.arange(a.shape[0], device=counts.device), counts)
+
+
+def csr_matmul_plain(a, b, out_dtype):
+    """``a @ b`` for a CSRMat ``a`` and a dense (d,) or (d, C) ``b``: each
+    stored entry times its rhs row, summed into its output row, in
+    float32 (float64 for float64 output)."""
+    import torch
+
+    acc = _acc_dtype(out_dtype)
+    b2 = b.reshape(b.shape[0], -1)
+    prod = a.data.to(acc)[:, None] * b2.to(acc)[a.indices.long()]
+    out = torch.zeros((a.shape[0], b2.shape[1]), dtype=acc, device=b.device)
+    out.index_add_(0, row_ids(a), prod)
+    out = out.to(out_dtype)
+    return out.reshape(a.shape[0]) if b.dim() == 1 else out
+
+
+def csr_sddmm_plain(a, gz, b):
+    """The values of (gz @ bᵀ) at ``a``'s stored entries, in ``a``'s entry
+    order and dtype."""
+    acc = _acc_dtype(a.dtype)
+    gz2, b2 = gz.reshape(gz.shape[0], -1).to(acc), b.reshape(b.shape[0], -1).to(acc)
+    return (gz2[row_ids(a)] * b2[a.indices.long()]).sum(-1).to(a.dtype)
+
+
+def _library():
+    from aesara_tpu_torch.link.torch.kernels.build import load_cuda_library
+
+    lib = load_cuda_library("csr_spmm")
+    if not getattr(lib, "_typed", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        for name in ("csr_spmv", "csr_spmm", "csr_sddmm"):
+            entry = getattr(lib, name)
+            entry.argtypes = [p, p, p, p, p, i, i, i, p]
+            entry.restype = i
+        lib.csr_spmm_error_string.argtypes = [i]
+        lib.csr_spmm_error_string.restype = ctypes.c_char_p
+        lib._typed = True
+    return lib
+
+
+def _check_cuda(name, a, *dense):
+    if a.data.device.type != "cuda" or any(t.device != a.data.device for t in dense):
+        raise ValueError(f"{name}: operands on {a.data.device} and "
+                         f"{', '.join(str(t.device) for t in dense)}")
+    if a.shape[0] >= 2**31 or a.nnz >= 2**31:
+        raise ValueError(f"{name}: the kernel takes fewer than 2**31 rows and stored entries")
+
+
+def _launch(name, a, dense_args, out, C, code):
+    import torch
+
+    lib = _library()
+    stream = torch.cuda.current_stream(a.data.device).cuda_stream
+    err = getattr(lib, name)(a.indptr.data_ptr(), a.indices.data_ptr(), *[t.data_ptr() for t in dense_args],
+                             out.data_ptr(), a.shape[0], C, code, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: {lib.csr_spmm_error_string(err).decode()}")
+
+
+def _matmul_operands(name, a, b, out_dtype):
+    """(data, rhs as a contiguous (d, C) matrix, dtype code) for K5/K6."""
+    import torch
+
+    if b.dim() not in (1, 2) or b.shape[0] != a.shape[1]:
+        raise ValueError(f"{name}: rhs of shape {tuple(b.shape)} for a {a.shape} matrix")
+    b2 = b.reshape(b.shape[0], -1)
+    if out_dtype == torch.float64:
+        return a.data.to(torch.float64), b2.to(torch.float64).contiguous(), 2
+    if out_dtype != torch.float32 or a.data.dtype != torch.float32:
+        raise TypeError(f"{name} takes float32 or float64 values, got {a.data.dtype} -> {out_dtype}")
+    if b2.dtype == torch.bfloat16:
+        return a.data, b2.contiguous(), 1
+    return a.data, b2.to(torch.float32).contiguous(), 0
+
+
+def _product(kernel, a, b, out_dtype):
+    import torch
+
+    out_dtype = out_dtype or torch.promote_types(a.dtype, b.dtype)
+    if a.data.device.type == "cpu" and b.device.type == "cpu":
+        kernel.plain_calls += 1
+        return csr_matmul_plain(a, b, out_dtype)
+    name = kernel.__name__
+    _check_cuda(name, a, b)
+    data, b2, code = _matmul_operands(name, a, b, out_dtype)
+    C = b2.shape[1]
+    out = torch.empty((a.shape[0], C), dtype=out_dtype, device=b.device)
+    if a.shape[0] and C:
+        _launch(name, a, (data, b2), out, C, code)
+        kernel.launches += 1
+    return out.reshape(a.shape[0]) if b.dim() == 1 else out
+
+
+def csr_spmv(a, b, out_dtype=None):
+    """K5: ``a @ b`` for a narrow rhs, one warp per row."""
+    return _product(csr_spmv, a, b, out_dtype)
+
+
+def csr_spmm(a, b, out_dtype=None):
+    """K6: ``a @ b`` for a wide rhs, one warp per row and 32-column tile."""
+    return _product(csr_spmm, a, b, out_dtype)
+
+
+def csr_matmul(a, b, out_dtype):
+    """``a @ b`` in ``out_dtype``: K5 for a vector or a rhs of at most
+    ``SPMV_MAX_C`` columns, else K6."""
+    C = 1 if b.dim() == 1 else b.shape[1]
+    return (csr_spmv if C <= SPMV_MAX_C else csr_spmm)(a, b, out_dtype)
+
+
+def csr_sddmm(a, gz, b):
+    """K7: the CSRMat with ``a``'s pattern (its indptr and indices) and the
+    values of (gz @ bᵀ) at its stored entries."""
+    import torch
+
+    if gz.dim() != b.dim() or gz.shape[0] != a.shape[0] or b.shape[0] != a.shape[1]:
+        raise ValueError(f"csr_sddmm: gz {tuple(gz.shape)} and b {tuple(b.shape)} "
+                         f"for a {a.shape} matrix")
+    if a.data.device.type == "cpu" and gz.device.type == "cpu" and b.device.type == "cpu":
+        csr_sddmm.plain_calls += 1
+        return a.with_data(csr_sddmm_plain(a, gz, b))
+    _check_cuda("csr_sddmm", a, gz, b)
+    if a.data.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"csr_sddmm takes float32 or float64 values, got {a.data.dtype}")
+    gz2 = gz.reshape(gz.shape[0], -1).to(a.data.dtype).contiguous()
+    b2 = b.reshape(b.shape[0], -1).to(a.data.dtype).contiguous()
+    out = torch.empty_like(a.data)
+    C = b2.shape[1]
+    if a.nnz and C:
+        _launch("csr_sddmm", a, (gz2, b2), out, C, 0 if a.data.dtype == torch.float32 else 2)
+        csr_sddmm.launches += 1
+    elif a.nnz:
+        out.zero_()
+    return a.with_data(out)
+
+
+#: launches of the CUDA kernels, and calls that took the plain version
+csr_spmv.launches = csr_spmv.plain_calls = 0
+csr_spmm.launches = csr_spmm.plain_calls = 0
+csr_sddmm.launches = csr_sddmm.plain_calls = 0

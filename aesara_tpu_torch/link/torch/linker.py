@@ -14,6 +14,15 @@ and never makes the device wait.  A host value that meets a device node
 is copied to the device, except at the positions a lowering keeps on the
 host (``host_inputs``, e.g. the target shape of ``Reshape``).
 
+Sparse values (the counterpart of ``linker.py:296-402,414-469``): a
+sparse argument or shared variable, a SciPy matrix on the host, crosses to
+the device as a :class:`~aesara_tpu_torch.link.torch.csr.CSRMat`, with the
+CSR of its transpose when the graph transposes it
+(``sparse_dispatch.csr_plan``).  The upload is memoized per input by the
+identity of the value object, so a shared matrix is uploaded once and
+again after ``set_value``.  A sparse output goes back to SciPy with
+exactly the device value's pattern.
+
 There is no fallback: an op with no lowering raises when the function is
 compiled.  Dtypes are kept exactly; the card has fp64 and int64, so there
 is no 64→32 canonicalisation.
@@ -43,9 +52,12 @@ def fgraph_to_torch(fgraph, device, n_user_inputs: int) -> Callable:
     variables, read at every call."""
     import torch
 
+    from aesara_tpu_torch.link.torch.csr import CSRMat
     from aesara_tpu_torch.link.torch.dispatch import torch_funcify
     from aesara_tpu_torch.link.torch.kernels.elemwise import torch_dtype
+    from aesara_tpu_torch.link.torch.sparse_dispatch import csr_plan
 
+    plan = csr_plan(fgraph)
     order = fgraph.toposort()
     fns = [torch_funcify(node.op, node=node) for node in order]
     foldable = [node.op.do_constant_folding(fgraph, node) for node in order]
@@ -53,6 +65,7 @@ def fgraph_to_torch(fgraph, device, n_user_inputs: int) -> Callable:
     user_inputs = fgraph.inputs[:n_user_inputs]
     shared_inputs = fgraph.inputs[n_user_inputs:]
     device_constants: dict = {}
+    csr_memo: dict = {}
 
     def host_to_device(value):
         value = np.asarray(value)
@@ -71,9 +84,20 @@ def fgraph_to_torch(fgraph, device, n_user_inputs: int) -> Callable:
             return device_constants[var]
         return host_to_device(value)
 
-    def admit(var, value):
-        """A user argument as a tensor on the device, checked against the
-        variable's type."""
+    def to_csr(pos, var, value):
+        """A sparse input as a CSRMat on the device, uploaded once per value
+        object."""
+        hit = csr_memo.get(pos)
+        if hit is None or hit[0] is not value:
+            csr = CSRMat.from_scipy(var.type.filter(value), device, with_transpose=plan[pos]["transpose"])
+            hit = csr_memo[pos] = (value, csr)
+        return hit[1]
+
+    def admit(pos, var, value):
+        """A user argument as a tensor (a CSRMat when sparse) on the device,
+        checked against the variable's type."""
+        if plan[pos] is not None:
+            return to_csr(pos, var, value)
         if isinstance(value, torch.Tensor):
             if value.device != device:
                 raise ValueError(f"input {var} is on {value.device}; this function runs on {device}")
@@ -85,14 +109,15 @@ def fgraph_to_torch(fgraph, device, n_user_inputs: int) -> Callable:
 
     def run(*args):
         env = {}
-        for var, value in zip(user_inputs, args):
-            env[var] = admit(var, value)
-        for var in shared_inputs:
+        for pos, (var, value) in enumerate(zip(user_inputs, args)):
+            env[var] = admit(pos, var, value)
+        for pos, var in enumerate(shared_inputs, start=n_user_inputs):
             value = var.value
-            if value.device != device:
-                raise ValueError(f"shared variable {var} lives on {value.device}; "
+            where = value.device if plan[pos] is None else var.device
+            if where != device:
+                raise ValueError(f"shared variable {var} lives on {where}; "
                                  f"this function runs on {device}")
-            env[var] = value
+            env[var] = value if plan[pos] is None else to_csr(pos, var, value)
         with torch.no_grad():
             for node, fn, fold, keep in zip(order, fns, foldable, host_inputs):
                 ins = [env[i] if i in env else i.data for i in node.inputs]
@@ -116,6 +141,8 @@ def fgraph_to_torch(fgraph, device, n_user_inputs: int) -> Callable:
         results = []
         for o in fgraph.outputs:
             v = env[o] if o in env else o.data
+            if isinstance(v, CSRMat):
+                v = v.to_scipy(o.type.format)
             results.append(to_device(v, o) if _is_host(v) else v)
         return tuple(results)
 

@@ -2,7 +2,8 @@
 
 The counterpart of ``aesara_tpu/scalar/ops.py``, cut to the ops the
 encoder's train step uses: Add, Sub, Mul, TrueDiv, Neg, Sqr, Sqrt,
-Maximum and Cast, and the ops their gradients build: GE, LT and Second.
+Maximum and Cast, the ops their gradients build: GE, LT and Second, and
+Exp, which the gradient of ``LogSoftmax`` builds.
 Each op declares its NumPy semantics (``impl``), its output dtype rule
 and its gradient (``grad``, over scalar variables; ``Elemwise.L_op`` lifts
 it to tensors); the torch and Triton formulas of each live in
@@ -322,6 +323,17 @@ class Sqrt(UnaryScalarOp):
         return [true_div(output_grads[0], mul(constant(2.0), sqrt(x)))]
 
 
+class Exp(UnaryScalarOp):
+    nfunc = staticmethod(np.exp)
+    output_types_preference = staticmethod(upgrade_to_float)
+
+    def grad(self, inputs, output_grads):
+        (x,) = inputs
+        if x.dtype in discrete_dtypes:
+            return _discrete_grads(self, inputs)
+        return [mul(output_grads[0], exp(x))]
+
+
 class Sqr(UnaryScalarOp):
     nfunc = staticmethod(np.square)
     output_types_preference = staticmethod(same_out)
@@ -392,5 +404,6 @@ maximum = Maximum(name="maximum")
 ge = GE(name="ge")
 lt = LT(name="lt")
 sqrt = Sqrt(name="sqrt")
+exp = Exp(name="exp")
 sqr = Sqr(name="sqr")
 second = Second(name="second")

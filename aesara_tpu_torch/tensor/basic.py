@@ -1,7 +1,8 @@
 """Tensor construction and structural ops (reference
 ``aesara_tpu/tensor/basic.py``): conversion to variables, constants with
 the JAX package's literal dtype rules, ``cast``, ``fill`` (with
-``ones_like``/``zeros_like``, which gradients build) and ``MakeVector``."""
+``ones_like``/``zeros_like``, which gradients build), ``MakeVector``,
+``Alloc``, ``ARange`` and ``flatten``."""
 
 from __future__ import annotations
 
@@ -12,7 +13,7 @@ from aesara_tpu_torch.graph.ir import Apply, Constant, Variable
 from aesara_tpu_torch.graph.op import Op
 from aesara_tpu_torch.scalar import ops as aes
 from aesara_tpu_torch.scalar.ops import ScalarType, _np_dtype, upcast
-from aesara_tpu_torch.tensor.elemwise import DimShuffle, Elemwise
+from aesara_tpu_torch.tensor.elemwise import DimShuffle, Elemwise, check_static_broadcast
 from aesara_tpu_torch.tensor.type import TensorType
 from aesara_tpu_torch.tensor.var import TensorConstant, TensorVariable
 
@@ -20,7 +21,7 @@ from aesara_tpu_torch.tensor.var import TensorConstant, TensorVariable
 __all__ = [
     "as_tensor_variable", "constant", "cast", "fill", "second", "ones_like", "zeros_like",
     "MakeVector", "stack", "get_scalar_constant_value", "get_vector_length",
-    "NotScalarConstantError",
+    "NotScalarConstantError", "Alloc", "alloc", "ARange", "arange", "flatten",
 ]
 
 
@@ -171,3 +172,124 @@ def get_vector_length(v) -> int:
     if v.type.shape[0] is not None:
         return int(v.type.shape[0])
     raise ValueError(f"length of {v} not known statically")
+
+
+class Alloc(Op):
+    """``value`` broadcast to a runtime shape (one int64 scalar per dim);
+    a value dim broadcasts only where it is statically 1."""
+
+    __props__ = ()
+
+    def make_node(self, value, *shape):
+        value = as_tensor_variable(value)
+        shape = [cast(as_tensor_variable(s), "int64") for s in shape]
+        if any(s.type.ndim != 0 for s in shape) or value.type.ndim > len(shape):
+            raise TypeError(f"Alloc takes one scalar per dim and at most {len(shape)} value dims")
+        static = []
+        for s in shape:
+            try:
+                static.append(int(get_scalar_constant_value(s)))
+            except NotScalarConstantError:
+                static.append(None)
+        offset = len(shape) - value.type.ndim
+        for d, vs in enumerate(value.type.shape):
+            t = static[offset + d]
+            if vs is not None and vs != 1 and t is not None and vs != t:
+                raise TypeError(f"Alloc cannot broadcast value dim {d} ({vs}) to {t}")
+        return Apply(self, [value] + shape, [TensorType(value.type.dtype, tuple(static))()])
+
+    def perform(self, node, inputs, output_storage):
+        value, *shape = inputs
+        target = tuple(int(s) for s in shape)
+        check_static_broadcast([node.inputs[0].type.shape, target], [np.shape(value), target])
+        output_storage[0][0] = np.broadcast_to(value, target).copy()
+
+    def connection_pattern(self, node):
+        return [[True]] + [[False]] * (len(node.inputs) - 1)
+
+    def do_constant_folding(self, fgraph, node):
+        # a fill on the device costs less than a host array copied there
+        return False
+
+    def grad(self, inputs, output_grads):
+        """The output gradient summed over the dims the value was broadcast
+        along."""
+        from aesara_tpu_torch.gradient import disconnected_type, grad_undefined
+        from aesara_tpu_torch.tensor.math import sum as tsum
+
+        value, *shape = inputs
+        (gz,) = output_grads
+        rest = [disconnected_type() for _ in shape]
+        if value.type.dtype in aes.discrete_dtypes:
+            return [grad_undefined(self, 0, value, "discrete value")] + rest
+        n_extra = gz.type.ndim - value.type.ndim
+        gv = tsum(gz, axis=list(range(n_extra))) if n_extra else gz
+        ones = [d for d in range(value.type.ndim) if value.type.shape[d] == 1]
+        if ones:
+            gv = tsum(gv, axis=ones, keepdims=True)
+        return [gv] + rest
+
+
+def alloc(value, *shape):
+    return Alloc()(value, *shape)
+
+
+class ARange(Op):
+    """numpy.arange(start, stop, step) in ``dtype``."""
+
+    __props__ = ("dtype",)
+
+    def __init__(self, dtype: str):
+        self.dtype = dtype
+
+    def make_node(self, start, stop, step):
+        start, stop, step = [as_tensor_variable(a) for a in (start, stop, step)]
+        if any(a.type.ndim != 0 for a in (start, stop, step)):
+            raise TypeError("arange takes scalars")
+        try:
+            s0, s1, s2 = (float(get_scalar_constant_value(a)) for a in (start, stop, step))
+            length = max(0, int(np.ceil((s1 - s0) / s2)))
+        except NotScalarConstantError:
+            length = None
+        return Apply(self, [start, stop, step], [TensorType(self.dtype, (length,))()])
+
+    def perform(self, node, inputs, output_storage):
+        start, stop, step = inputs
+        output_storage[0][0] = np.arange(start, stop, step, dtype=_np_dtype(self.dtype))
+
+    def connection_pattern(self, node):
+        return [[False], [False], [False]]
+
+    def grad(self, inputs, output_grads):
+        from aesara_tpu_torch.gradient import disconnected_type
+
+        return [disconnected_type() for _ in inputs]
+
+
+def arange(start, stop=None, step=1, dtype=None):
+    """numpy.arange; integer arguments give int64, as in the JAX package."""
+    if stop is None:
+        start, stop = 0, start
+    if dtype is None:
+        dtype = upcast(*[a.type.dtype if isinstance(a, Variable) else np.asarray(a).dtype.name
+                         for a in (start, stop, step)])
+        if not dtype.startswith("float"):
+            dtype = upcast(dtype, "int64")
+    return ARange(dtype)(start, stop, step)
+
+
+def flatten(x, ndim: int = 1):
+    """``x`` reshaped to one dim (the only form the port uses); its length
+    is the product of ``x``'s dims, folded on the host."""
+    from aesara_tpu_torch.tensor.math import mul
+    from aesara_tpu_torch.tensor.shape import reshape, shape_tuple
+
+    x = as_tensor_variable(x)
+    if ndim != 1:
+        raise NotImplementedError("flatten to more than one dim is not ported yet")
+    if x.type.ndim == 1:
+        return x
+    n = constant(1, dtype="int64")
+    for d in shape_tuple(x):
+        n = mul(n, d)
+    return reshape(x, [n], ndim=1)

@@ -16,8 +16,8 @@ from aesara_tpu_torch.tensor.elemwise import CAReduce, DimShuffle, Elemwise
 from aesara_tpu_torch.tensor.type import TensorType
 
 
-__all__ = ["add", "sub", "mul", "true_div", "neg", "sqr", "sqrt", "maximum", "ge", "lt",
-           "Sum", "sum", "mean", "Dot", "dot", "tensordot"]
+__all__ = ["add", "sub", "mul", "true_div", "neg", "sqr", "sqrt", "exp", "maximum", "ge", "lt",
+           "Sum", "sum", "mean", "Argmax", "argmax", "Dot", "dot", "tensordot"]
 
 
 def _ew(scalar_op):
@@ -37,6 +37,7 @@ true_div = _ew(aes.true_div)
 neg = _ew(aes.neg)
 sqr = _ew(aes.sqr)
 sqrt = _ew(aes.sqrt)
+exp = _ew(aes.exp)
 maximum = _ew(aes.maximum)
 ge = _ew(aes.ge)
 lt = _ew(aes.lt)
@@ -111,6 +112,53 @@ def mean(x, axis=None, dtype=None, keepdims=False, acc_dtype=None):
     return cast(res, dtype) if res.type.dtype != dtype else res
 
 
+class Argmax(Op):
+    """The index of the first maximum over ``axis`` (None: all axes, over
+    the flattened array), as int64."""
+
+    __props__ = ("axis",)
+
+    def __init__(self, axis=None):
+        if axis is None:
+            self.axis = None
+        elif isinstance(axis, (int, np.integer)):
+            self.axis = (int(axis),)
+        else:
+            self.axis = tuple(sorted(int(a) for a in axis))
+
+    def axes(self, ndim: int):
+        if self.axis is None:
+            return tuple(range(ndim))
+        if any(not -ndim <= a < ndim for a in self.axis):
+            raise ValueError(f"axis {self.axis} out of range for ndim {ndim}")
+        return tuple(sorted(a % ndim for a in self.axis))
+
+    def make_node(self, x):
+        x = as_tensor_variable(x)
+        axes = self.axes(x.type.ndim)
+        out_shape = tuple(s for d, s in enumerate(x.type.shape) if d not in axes)
+        return Apply(self, [x], [TensorType("int64", out_shape)()])
+
+    def perform(self, node, inputs, output_storage):
+        (x,) = inputs
+        axes = self.axes(x.ndim)
+        keep = [d for d in range(x.ndim) if d not in axes]
+        flat = np.transpose(x, keep + list(axes)).reshape([x.shape[d] for d in keep] + [-1])
+        output_storage[0][0] = np.asarray(np.argmax(flat, axis=-1), dtype=np.int64)
+
+    def grad(self, inputs, output_grads):
+        from aesara_tpu_torch.gradient import grad_undefined
+
+        return [grad_undefined(self, 0, inputs[0], "argmax is discrete")]
+
+    def __str__(self):
+        return f"Argmax{{axis={self.axis}}}"
+
+
+def argmax(x, axis=None):
+    return Argmax(axis)(x)
+
+
 class Dot(Op):
     """Vector/matrix product for ndim 1 or 2."""
 
@@ -152,7 +200,15 @@ _dot = Dot()
 
 
 def dot(x, y):
-    """NumPy dot semantics; an operand above 2-d goes through tensordot."""
+    """NumPy dot semantics; an operand above 2-d goes through tensordot; a
+    sparse operand routes to the sparse ``Dot``, as
+    ``aesara_tpu/tensor/math.py:805-818`` does."""
+    from aesara_tpu_torch.sparse.type import SparseTensorType
+
+    if any(isinstance(getattr(v, "type", None), SparseTensorType) for v in (x, y)):
+        from aesara_tpu_torch.sparse.basic import dot as sparse_dot
+
+        return sparse_dot(x, y)
     x, y = as_tensor_variable(x), as_tensor_variable(y)
     if x.type.ndim == 0 or y.type.ndim == 0:
         return mul(x, y)

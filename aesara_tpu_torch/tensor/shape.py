@@ -14,7 +14,8 @@ from aesara_tpu_torch.graph.op import Op
 from aesara_tpu_torch.tensor.type import TensorType
 
 
-__all__ = ["Shape", "shape", "Shape_i", "shape_i", "shape_tuple", "Reshape", "reshape"]
+__all__ = ["Shape", "shape", "Shape_i", "shape_i", "shape_tuple", "Reshape", "reshape",
+           "shape_padright"]
 
 
 def _disconnected_grads(inputs):
@@ -160,3 +161,11 @@ def reshape(x, newshape, ndim: Optional[int] = None):
         else:
             ndim = get_vector_length(as_tensor_variable(newshape))
     return Reshape(int(ndim))(x, newshape)
+
+
+def shape_padright(t, n_ones: int = 1):
+    """``t`` with ``n_ones`` broadcastable dims appended."""
+    from aesara_tpu_torch.tensor.basic import as_tensor_variable
+
+    t = as_tensor_variable(t)
+    return t.dimshuffle(*range(t.type.ndim), *(["x"] * n_ones))

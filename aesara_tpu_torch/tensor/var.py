@@ -84,6 +84,22 @@ class _tensor_operators:
 
         return reshape(self, shape, ndim=ndim)
 
+    def flatten(self, ndim=1):
+        from aesara_tpu_torch.tensor.basic import flatten
+
+        return flatten(self, ndim)
+
+    def __getitem__(self, args):
+        """Integer-array indexing (``x[i, j]`` with integer arrays); slices
+        and scalar indices are not ported yet."""
+        from aesara_tpu_torch.tensor.subtensor import advanced_subtensor
+
+        args = args if isinstance(args, tuple) else (args,)
+        if any(isinstance(a, (slice, int, np.integer, type(None), type(Ellipsis))) for a in args):
+            raise NotImplementedError(f"basic indexing {args} is not ported yet; "
+                                      "index with integer arrays")
+        return advanced_subtensor(self, *args)
+
     def dimshuffle(self, *pattern):
         from aesara_tpu_torch.tensor.elemwise import DimShuffle
 

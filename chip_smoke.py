@@ -1,16 +1,17 @@
 """Drive the PyTorch port on one NVIDIA GPU: build its kernels, check each
 against its plain PyTorch version, serve a few requests of the flagship
-encoder forward, then train the same encoder for a few steps, all
-through ``aesara_tpu_torch.function``.
+encoder forward, train the same encoder for a few steps, then train and
+serve the sparse-input models, all through ``aesara_tpu_torch.function``.
 
     python3 chip_smoke.py
 
 Phases (any failure raises and the exit code is non-zero):
 
 0. setup: a CUDA device is required; prints the card's name and power
-   limit; builds the flash-attention forward (K2) and backward (K3)
-   kernels with nvcc for sm_90a, both at once, and compiles one
-   fused-elemwise kernel (K1) with Triton.
+   limit; builds the flash-attention forward (K2) and backward (K3) and
+   the CSR (K5-K7) kernels with nvcc for sm_90a, one nvcc per source, all
+   at once, and compiles one fused-elemwise kernel (K1) and the row
+   softmax (K4) with Triton.
 1. kernels: K1 and K2 against their plain versions on the card, at the
    shapes the forward gives them, with the times of both.
 2. forward: the 4-layer encoder (d_model 1024, 16 heads, d_ff 4096,
@@ -28,23 +29,41 @@ Phases (any failure raises and the exit code is non-zero):
    below the first step's.
    Then 10 steps are timed back to back and one is profiled.  The same
    step at batch 1 on the card and on the CPU agrees after one step.
+5. (a) bag-of-words classifier: ``LogisticRegression(130107, 20)`` on a
+   shared CSR x of the 20 Newsgroups training split's size (11,314
+   documents, synthetic, from a seed): K6 (forward and the weights'
+   gradient on the transposed twin) and K4 against their plain versions
+   at the step's shapes; 3 sgd steps with launch counts, 10 timed, one
+   profiled; ``predict`` answers 3 requests; one step at 512 documents
+   on the card against the CPU.
+6. (b) sparse GLM: the repo's config 5 at ``REFRATIO_SCALE=4``
+   (``benchmarks/bench_reference_ratio.py:276-321``, 16384 x 8192 at
+   density 0.01, without the Monte-Carlo noise): K5 against its plain
+   version, K5 and K6 timed at rhs widths 1-32 (the split between them),
+   3 + 10 steps with launch counts.
+7. (c) the gradient with respect to x's stored values at the GLM's size,
+   for a rhs of width 1 and of width 20: K7 against its plain version, the
+   function's launches, its output against the same function on the CPU.
 
-The next-to-last line is a JSON object describing the kernels, with the
-launch counts of the train steps; the last is
-``{"ok": true, "device": {...}}``.
+The next-to-last lines are a JSON object describing the kernels (each
+kernel's launches from its path's run) and the card's name and power
+limit; the last is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import gc
 import importlib.util
 import json
 import statistics
 import subprocess
 import sys
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+import scipy.sparse as sps
 import torch
 
 N_LAYERS, D_MODEL, N_HEADS, D_FF = 4, 1024, 16, 4096
@@ -62,9 +81,34 @@ TRAIN_TOL = 1e-4         # card against CPU after one train step (reduction orde
 K1_SOURCE = "aesara_tpu_torch/link/torch/kernels/elemwise.py"
 K2_SOURCE = "aesara_tpu_torch/link/torch/kernels/csrc/flash_fwd.cu"
 K3_SOURCE = "aesara_tpu_torch/link/torch/kernels/csrc/flash_bwd.cu"
+K4_SOURCE = "aesara_tpu_torch/link/torch/kernels/softmax.py"
+K567_SOURCE = "aesara_tpu_torch/link/torch/kernels/csrc/csr_spmm.cu"
 K1_REPLACES = "aesara_tpu/link/jax/pallas_kernels.py:38"
 K2_REPLACES = "aesara_tpu/link/jax/pallas_kernels.py:205"
 K3_REPLACES = "aesara_tpu/link/jax/pallas_kernels.py:403"
+K4_REPLACES = "aesara_tpu/link/jax/pallas_kernels.py:89"
+K5_REPLACES = "aesara_tpu/link/jax/bss.py:197"
+K6_REPLACES = "aesara_tpu/link/jax/bss.py:271"
+K7_REPLACES = "aesara_tpu/link/jax/bss.py:354"
+
+# the least time of a kernel: bytes over the H100's memory rate, flops over
+# its fp32 rate outside the tensor cores (NVIDIA's data sheet, SXM part)
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS = 67e12
+
+# (a) fetch_20newsgroups_vectorized, training split: 11,314 documents x
+# 130,107 features, 20 classes; words per document log-normal, so that a
+# document stores about 157 entries once repeated words are merged
+NG_DOCS, NG_FEATURES, NG_CLASSES = 11314, 130107, 20
+NG_LOG_MU, NG_LOG_SIGMA = 4.85, 1.0
+NG_REQUEST_DOCS, NG_CPU_DOCS = 1000, 512
+# (b) bench_reference_ratio.py config 5 at REFRATIO_SCALE=4
+GLM_N, GLM_D, GLM_DENSITY = 16384, 8192, 0.01
+SPARSE_LR = 0.1
+N_SPARSE_STEPS, N_SPARSE_TIMED = 3, 10
+SPLIT_WIDTHS = (1, 2, 4, 8, 16, 32)
+GRAD_WIDTHS = (1, 20)
+SPARSE_TOL = 1e-5        # fp32 K4-K7 against their plain versions (summation order)
 
 
 def log(*args):
@@ -98,12 +142,18 @@ def device_split(fn, reps: int = 20, warmup: int = 3) -> dict:
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not device:
+    for attempt in range(3):
+        # on the H100 a profiler session now and then comes back without
+        # device events; try it again
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if device:
+            break
+        log(f"profiler session {attempt + 1} saw no device activity")
+    else:
         raise RuntimeError("the profiler saw no device activity")
     by_name: dict = {}
     for e in device:
@@ -114,6 +164,33 @@ def device_split(fn, reps: int = 20, warmup: int = 3) -> dict:
 def device_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     """Device time of one call of ``fn`` (see ``device_split``)."""
     return sum(device_split(fn, reps, warmup).values())
+
+
+def reset_peak():
+    """Start a peak-memory window; garbage left by the checks before it
+    (tensors in reference cycles) is collected first, so it does not count."""
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def bound(n_bytes: float, flops: float):
+    """(least ms, what bounds it): the larger of the bytes over the card's
+    memory rate and the flops over its fp32 rate."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def library_ms(name: str, fn):
+    """Device ms of one PyTorch library call computing a kernel's function,
+    the yardstick of PERF.md (the port never calls it); None, with the
+    reason logged, when the library refuses these inputs."""
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            return device_ms(fn)
+    except (RuntimeError, NotImplementedError) as exc:
+        log(f"{name} library call not timed: {type(exc).__name__}: {str(exc)[:200]}")
+        return None
 
 
 def build_encoder(device: str):
@@ -192,15 +269,21 @@ def phase_setup():
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     log(f"card: {smi}; python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}")
-    from aesara_tpu_torch.link.torch.kernels.attention import _library
+    from aesara_tpu_torch.link.torch.kernels import attention, sparse
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:      # one nvcc per source, started together
-        list(pool.map(_library, ["flash_fwd", "flash_bwd"]))
-    log(f"K2 + K3 nvcc builds + load: {time.perf_counter() - t0:.2f} s")
+    with ThreadPoolExecutor(3) as pool:      # one nvcc per source, started together
+        builds = [pool.submit(attention._library, "flash_fwd"), pool.submit(attention._library, "flash_bwd"),
+                  pool.submit(sparse._library)]
+        for b in builds:
+            b.result()
+    log(f"K2 + K3 + K5-K7 nvcc builds + load: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     warm_k1()
     log(f"K1 Triton compile + first launch (bias+ReLU Composite): {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    warm_k4()
+    log(f"K4 Triton compile + first launch (log-softmax of 4 x 5): {time.perf_counter() - t0:.2f} s")
     return smi
 
 
@@ -222,10 +305,22 @@ def warm_k1():
         raise AssertionError("K1 warm-up did not launch or gave a wrong result")
 
 
+def warm_k4():
+    """Compile and launch K4 on a small input."""
+    from aesara_tpu_torch.link.torch.kernels.softmax import softmax_rows, softmax_rows_plain
+
+    x = torch.randn((4, 5), device="cuda")
+    before = softmax_rows.launches
+    out = softmax_rows(x, log=True)
+    torch.cuda.synchronize()
+    if softmax_rows.launches != before + 1 or not torch.allclose(out, softmax_rows_plain(x, True), atol=1e-5):
+        raise AssertionError("K4 warm-up did not launch or gave a wrong result")
+
+
 def phase_k1(fgraph, rng):
     """K1 on each distinct Composite of ``fgraph`` against its plain
-    version: (max abs err, (ms, plain ms) of the first full-width
-    Composite of more than two ops, or None)."""
+    version: (max abs err, (ms, plain ms, bound ms, bound by) of the first
+    full-width Composite of more than two ops, or None)."""
     from aesara_tpu_torch.link.torch.kernels.elemwise import (
         ElemwiseKernel, composite_plain, fused_elemwise,
     )
@@ -259,7 +354,8 @@ def phase_k1(fgraph, rng):
             f"device ms kernel {ms:.4f} plain {plain_ms:.4f}; per call ms kernel {call:.4f} "
             f"plain {plain_call:.4f}; first call {compile_s:.2f} s")
         if tuple(got.shape) == (BATCH, SEQ, D_MODEL) and len(comp.nodes) > 2 and k1_times is None:
-            k1_times = (ms, plain_ms)
+            n_bytes = sum(a.numel() * a.element_size() for a in args) + got.numel() * got.element_size()
+            k1_times = (ms, plain_ms, *bound(n_bytes, got.numel() * len(comp.nodes)))
     return k1_err, k1_times
 
 
@@ -302,7 +398,11 @@ def phase_kernels(fgraph):
             f"lse_err {lse_err:.3e}, device ms kernel {ms:.4f} plain {plain_ms:.4f}; "
             f"per call ms kernel {call:.4f}")
         if shape == (128, 1024, 64) and not causal and dtype == torch.float32:
-            k2_times = (ms, plain_ms)
+            BH, T, D = shape
+            sdpa = library_ms("K2", lambda: torch.nn.functional.scaled_dot_product_attention(
+                q[None], k[None], v[None], scale=scale))
+            k2_times = (ms, plain_ms, *bound(4 * q.numel() * 4, 4 * BH * T * T * D), sdpa)
+            log(f"K2 {shape} fp32: scaled_dot_product_attention (library) device ms {sdpa}")
     return k1_err, k1_times, k2_err, k2_times
 
 
@@ -320,16 +420,11 @@ def check_graph(fgraph):
 
 
 def phase_slice(fn):
-    from aesara_tpu_torch.link.torch.kernels.attention import flash_attention
-    from aesara_tpu_torch.link.torch.kernels.elemwise import fused_elemwise
-
     requests = [np.random.default_rng(100 + r).normal(size=(BATCH, SEQ, D_MODEL)).astype("float32")
                 for r in range(N_REQUESTS)]
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    for counter in (fused_elemwise, flash_attention):
-        counter.launches = 0
-        counter.plain_calls = 0
+    reset_peak()
+    zero_counters()
     results, latencies = [], []
     for x in requests:
         t0 = time.perf_counter()
@@ -337,16 +432,10 @@ def phase_slice(fn):
         torch.cuda.synchronize()
         latencies.append((time.perf_counter() - t0) * 1e3)
         results.append((h, msq))
-    launches = {"K1": fused_elemwise.launches, "K2": flash_attention.launches}
-    plain = fused_elemwise.plain_calls + flash_attention.plain_calls
+    launches = read_counters({"K1": N_COMPOSITE * N_REQUESTS, "K2": N_LAYERS * N_REQUESTS}, "forward")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     log(f"request latency ms: {[round(t, 3) for t in latencies]} (first includes kernel compiles)")
-    log(f"peak device memory: {peak_gib:.3f} GiB; launches {launches}; plain calls {plain}")
-    if launches["K1"] != N_COMPOSITE * N_REQUESTS or launches["K2"] != N_LAYERS * N_REQUESTS:
-        raise AssertionError(f"launch counts {launches}, expected K1 {N_COMPOSITE * N_REQUESTS}, "
-                             f"K2 {N_LAYERS * N_REQUESTS}")
-    if plain != 0:
-        raise AssertionError(f"{plain} calls of a plain version on the card")
+    log(f"peak device memory: {peak_gib:.3f} GiB")
     for h, msq in results:
         if not (h.is_cuda and msq.is_cuda and tuple(h.shape) == (BATCH, SEQ, D_MODEL)
                 and h.dtype == torch.float32 and bool(torch.isfinite(h).all())
@@ -358,25 +447,10 @@ def phase_slice(fn):
 def profile_request(fn, x):
     """Device busy time and its split by kernel for one request whose
     input already lies on the card."""
-    from torch.profiler import ProfilerActivity, profile
-
     x = torch.as_tensor(x, device="cuda")
     fn(x)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn(x)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.time_range.elapsed_us() for e in device) / 1e3
-    by_name: dict = {}
-    for e in device:
-        by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + e.time_range.elapsed_us() / 1e3
-    log(f"profiled request (input on the card): wall {wall:.3f} ms, device busy {busy:.3f} ms "
-        f"({100 * busy / wall:.1f}%)")
-    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
-        log(f"  {ms:8.3f} ms  {name}")
+    profile_call(lambda: fn(x), "request (input on the card)")
     t0 = time.perf_counter()
     fn(x)
     enqueue = (time.perf_counter() - t0) * 1e3
@@ -496,7 +570,9 @@ def phase_k3():
             f"{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e}, device ms kernel {ms:.4f} (backward "
             f"kernels {bwd:.4f}, K2 recompute {ms - bwd:.4f}) plain {plain_ms:.4f}")
         if shape == (128, 1024, 64) and not causal and dtype == torch.float32:
-            k3_times = (ms, plain_ms)
+            BH, T, D = shape
+            # inputs q, k, v, dO and outputs dQ, dK, dV; S, dP, dV, dQ, dK products
+            k3_times = (ms, plain_ms, *bound(7 * q.numel() * 4, 10 * BH * T * T * D))
     return k3_err, k3_times
 
 
@@ -511,12 +587,9 @@ def phase_train(step, params):
     """3 train steps with the launch counters set to 0 just before and
     read just after; the loss must be finite and fall below the first
     step's."""
-    counters = _counters()
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    for c in counters.values():
-        c.launches = 0
-        c.plain_calls = 0
+    reset_peak()
+    zero_counters()
     losses, times = [], []
     for _ in range(N_TRAIN_STEPS):
         t0 = time.perf_counter()
@@ -524,16 +597,9 @@ def phase_train(step, params):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         losses.append(loss)
-    launches = {k: c.launches for k, c in counters.items()}
-    plain = sum(c.plain_calls for c in counters.values())
-    want = {"K1": N_COMPOSITE_TRAIN * N_TRAIN_STEPS, "K2": 2 * N_LAYERS * N_TRAIN_STEPS,
-            "K3": N_LAYERS * N_TRAIN_STEPS}
     log(f"train step ms: {[round(t, 3) for t in times]} (first includes kernel compiles)")
-    log(f"train launches {launches} (expected {want}); plain calls {plain}")
-    if launches != want:
-        raise AssertionError(f"launch counts {launches}, expected {want}")
-    if plain != 0:
-        raise AssertionError(f"{plain} calls of a plain version on the card")
+    launches = read_counters({"K1": N_COMPOSITE_TRAIN * N_TRAIN_STEPS, "K2": 2 * N_LAYERS * N_TRAIN_STEPS,
+                              "K3": N_LAYERS * N_TRAIN_STEPS}, "train")
     for loss in losses:
         if not (loss.is_cuda and loss.shape == () and loss.dtype == torch.float32):
             raise AssertionError(f"loss {loss} is not a float32 scalar on the card")
@@ -551,46 +617,80 @@ def phase_train(step, params):
     return values, launches
 
 
-def time_train(step):
-    """Steps back to back (host clock around work that ends in a
-    synchronise), peak memory, and one profiled step."""
+def kernel_group(name: str) -> str:
+    """The group of a device kernel's time in a profiled step."""
+    groups = (("flash_bwd", "K3 flash backward"), ("flash_fwd", "K2 flash forward"),
+              ("csr_spmv_kernel", "K5 CSR SpMV"), ("csr_spmm_kernel", "K6 CSR SpMM"),
+              ("csr_sddmm_kernel", "K7 CSR SDDMM"))
+    for key, group in groups:
+        if key in name:
+            return group
+    if name == "kernel":
+        return "K1 fused Composite"
+    if name in ("one_pass", "two_pass"):
+        return "K4 row softmax"
+    if "gemm" in name.lower() or "cutlass" in name.lower():
+        return "matmul"
+    return "other torch"
+
+
+def profile_call(fn, label: str):
+    """One call of ``fn`` under torch.profiler: wall time, device busy time
+    and its split by kernel group and by kernel."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(N_TIMED_STEPS):
-        step()
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) * 1e3 / N_TIMED_STEPS
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"full-width train step: {N_TIMED_STEPS} steps back to back {ms:.3f} ms each, "
-        f"{BATCH * SEQ / ms * 1e3:.1f} tokens/s ({BATCH}x{SEQ} tokens a step); peak device "
-        f"memory {peak:.3f} GiB")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step()
+        fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not device:
+        raise RuntimeError(f"the profiler saw no device activity in the {label}")
     busy = sum(e.time_range.elapsed_us() for e in device) / 1e3
     groups: dict = {}
     by_name: dict = {}
     for e in device:
         t = e.time_range.elapsed_us() / 1e3
-        name = e.name
-        group = ("K3 flash backward" if "flash_bwd" in name else "K2 flash forward" if "flash_fwd" in name
-                 else "K1 fused Composite" if name == "kernel"
-                 else "matmul" if "gemm" in name.lower() or "cutlass" in name.lower() else "other torch")
-        groups[group] = groups.get(group, [0.0, 0])
-        groups[group][0] += t
-        groups[group][1] += 1
-        by_name[name[:70]] = by_name.get(name[:70], 0.0) + t
-    log(f"profiled train step: wall {wall:.3f} ms, device busy {busy:.3f} ms "
+        groups.setdefault(kernel_group(e.name), [0.0, 0])
+        groups[kernel_group(e.name)][0] += t
+        groups[kernel_group(e.name)][1] += 1
+        by_name[e.name[:70]] = by_name.get(e.name[:70], 0.0) + t
+    log(f"profiled {label}: wall {wall:.3f} ms, device busy {busy:.3f} ms "
         f"({100 * busy / wall:.1f}%)")
     for group, (t, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
         log(f"  {t:9.3f} ms  {100 * t / busy:5.1f}%  {n:4d} launches  {group}")
     for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         log(f"  {t:9.3f} ms  {name}")
+
+
+def time_steps(step, n: int, label: str):
+    """``n`` steps back to back (host clock around work that ends in a
+    synchronise), the host time of one step's call on an idle device
+    (where it comes near the step time, the host waits for the device
+    inside the call), the peak device memory since the last reset, and
+    one profiled step: (ms a step, peak GiB)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / n
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    step()
+    call = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    log(f"{label}: {n} steps back to back {ms:.3f} ms each; host time of one call {call:.3f} ms; "
+        f"peak device memory {peak:.3f} GiB")
+    profile_call(step, label)
+    return ms, peak
+
+
+def time_train(step):
+    """The flagship step back to back, its tokens a second, and one profiled."""
+    ms, peak = time_steps(step, N_TIMED_STEPS, "full-width train step")
+    log(f"full-width train step: {BATCH * SEQ / ms * 1e3:.1f} tokens/s ({BATCH}x{SEQ} tokens a step)")
     return ms, peak
 
 
@@ -612,7 +712,415 @@ def check_train_against_cpu():
         f"{param_err:.3e} (tolerance {TRAIN_TOL})")
 
 
+# ---------------------------------------------------------------------------
+# the sparse paths: (a) bag-of-words classifier, (b) GLM, (c) values gradient
+# ---------------------------------------------------------------------------
+
+def _all_counters():
+    from aesara_tpu_torch.link.torch.kernels.softmax import softmax_rows
+    from aesara_tpu_torch.link.torch.kernels.sparse import csr_sddmm, csr_spmm, csr_spmv
+
+    return {**_counters(), "K4": softmax_rows, "K5": csr_spmv, "K6": csr_spmm, "K7": csr_sddmm}
+
+
+def zero_counters():
+    for c in _all_counters().values():
+        c.launches = 0
+        c.plain_calls = 0
+
+
+def read_counters(want: dict, label: str) -> dict:
+    """The launches since ``zero_counters``; raises unless they are
+    ``want`` (kernels not named there: 0) and no plain version ran."""
+    counters = _all_counters()
+    launches = {k: c.launches for k, c in counters.items()}
+    plain = sum(c.plain_calls for c in counters.values())
+    expected = {k: want.get(k, 0) for k in counters}
+    log(f"{label} launches {launches} (expected {expected}); plain calls {plain}")
+    if launches != expected:
+        raise AssertionError(f"{label}: launch counts {launches}, expected {expected}")
+    if plain != 0:
+        raise AssertionError(f"{label}: {plain} calls of a plain version on the card")
+    return launches
+
+
+def newsgroups_like(seed: int = 300):
+    """A CSR of the size of 20 Newsgroups' vectorized training split, and
+    its labels, from a seed: words per document log-normal, word ids drawn
+    with frequency ~ 1/rank, repeated words merged, each row scaled to unit
+    L2 norm as TfidfVectorizer leaves it."""
+    rng = np.random.default_rng(seed)
+    lengths = np.clip(np.rint(rng.lognormal(NG_LOG_MU, NG_LOG_SIGMA, NG_DOCS)), 1, 20000).astype(np.int64)
+    total = int(lengths.sum())
+    rank = np.floor(np.exp(rng.random(total) * np.log(NG_FEATURES))).astype(np.int64) - 1
+    cols = rng.permutation(NG_FEATURES)[rank]
+    rows = np.repeat(np.arange(NG_DOCS), lengths)
+    x = sps.csr_matrix((rng.random(total).astype(np.float32), (rows, cols)), shape=(NG_DOCS, NG_FEATURES))
+    norms = np.sqrt(np.add.reduceat(x.data.astype(np.float64) ** 2, x.indptr[:-1]))
+    x.data /= np.repeat(norms, np.diff(x.indptr)).astype(np.float32)
+    return x, rng.integers(0, NG_CLASSES, NG_DOCS).astype(np.int64)
+
+
+def glm_data():
+    """Config 5's data at REFRATIO_SCALE=4, as the benchmark draws x; y and
+    w from a seed."""
+    xs = sps.random(GLM_N, GLM_D, density=GLM_DENSITY, format="csr", dtype="float32",
+                    random_state=np.random.RandomState(0))
+    rng = np.random.default_rng(0)
+    return xs, rng.normal(size=GLM_N).astype("float32"), (rng.normal(size=GLM_D) * 0.01).astype("float32")
+
+
+def torch_csr(a):
+    return torch.sparse_csr_tensor(a.indptr, a.indices, a.data, a.shape)
+
+
+def matmul_bytes(a, C: int) -> int:
+    """indptr, the stored entries (index + value), the rhs rows they need,
+    the output."""
+    n_cols = int(torch.unique(a.indices).numel())
+    return (a.shape[0] + 1) * 4 + a.nnz * 8 + n_cols * C * 4 + a.shape[0] * C * 4
+
+
+def sddmm_bytes(a, C: int) -> int:
+    """indptr, indices, the gz rows and b rows the entries need, the output
+    values."""
+    n_rows = int((a.indptr[1:] > a.indptr[:-1]).sum())
+    n_cols = int(torch.unique(a.indices).numel())
+    return (a.shape[0] + 1) * 4 + a.nnz * 4 + (n_rows + n_cols) * C * 4 + a.nnz * 4
+
+
+def check_matmul(label: str, kernel, a, b) -> dict:
+    """K5 or K6 against its plain version at one shape, with the times of
+    both, of torch.sparse.mm, and the bound."""
+    from aesara_tpu_torch.link.torch.kernels.sparse import csr_matmul_plain
+
+    got = kernel(a, b, torch.float32)
+    torch.cuda.synchronize()
+    want = csr_matmul_plain(a, b, torch.float32)
+    err = (got.double() - want.double()).abs().max().item()
+    torch.testing.assert_close(got, want, atol=SPARSE_TOL, rtol=SPARSE_TOL)
+    C = 1 if b.dim() == 1 else b.shape[1]
+    A, b2 = torch_csr(a), b.reshape(b.shape[0], -1)
+    res = {"max_abs_err": err, "ms": device_ms(lambda: kernel(a, b, torch.float32)),
+           "plain_ms": device_ms(lambda: csr_matmul_plain(a, b, torch.float32)),
+           "library_ms": library_ms(label, lambda: torch.sparse.mm(A, b2))}
+    res["bound_ms"], res["bound_by"] = bound(matmul_bytes(a, C), 2 * a.nnz * C)
+    log(f"{label}: {a.shape} nnz {a.nnz} @ ({a.shape[1]}, {C}): max_abs_err {err:.3e}, device ms "
+        f"kernel {res['ms']:.4f} plain {res['plain_ms']:.4f} torch.sparse.mm {res['library_ms']}; "
+        f"bound {res['bound_ms']:.4f} ({res['bound_by']})")
+    return res
+
+
+def check_sddmm(label: str, a, gz, b) -> dict:
+    """K7 against its plain version at one shape, with the times of both,
+    of torch.sparse.sampled_addmm, and the bound."""
+    from aesara_tpu_torch.link.torch.kernels.sparse import csr_sddmm, csr_sddmm_plain
+
+    got = csr_sddmm(a, gz, b)
+    torch.cuda.synchronize()
+    want = csr_sddmm_plain(a, gz, b)
+    err = (got.data.double() - want.double()).abs().max().item()
+    torch.testing.assert_close(got.data, want, atol=SPARSE_TOL, rtol=SPARSE_TOL)
+    if got.indptr is not a.indptr or got.indices is not a.indices:
+        raise AssertionError("K7 did not keep x's pattern")
+    C = gz.shape[1]
+    A, bt = torch_csr(a), b.t().contiguous()
+    res = {"max_abs_err": err, "ms": device_ms(lambda: csr_sddmm(a, gz, b)),
+           "plain_ms": device_ms(lambda: csr_sddmm_plain(a, gz, b)),
+           "library_ms": library_ms(label, lambda: torch.sparse.sampled_addmm(A, gz, bt, beta=0.0))}
+    res["bound_ms"], res["bound_by"] = bound(sddmm_bytes(a, C), 2 * a.nnz * C)
+    log(f"{label}: {a.shape} nnz {a.nnz}, gz ({a.shape[0]}, {C}), b ({a.shape[1]}, {C}): max_abs_err "
+        f"{err:.3e}, device ms kernel {res['ms']:.4f} plain {res['plain_ms']:.4f} sampled_addmm "
+        f"{res['library_ms']}; bound {res['bound_ms']:.4f} ({res['bound_by']})")
+    return res
+
+
+def check_k4(x) -> dict:
+    """K4 (log-softmax) against its plain version at one shape, with the
+    times of both, of torch.log_softmax, and the bound."""
+    from aesara_tpu_torch.link.torch.kernels.softmax import softmax_rows, softmax_rows_plain
+
+    got = softmax_rows(x, log=True)
+    torch.cuda.synchronize()
+    want = softmax_rows_plain(x, log=True)
+    err = (got.double() - want.double()).abs().max().item()
+    torch.testing.assert_close(got, want, atol=SPARSE_TOL, rtol=SPARSE_TOL)
+    res = {"max_abs_err": err, "ms": device_ms(lambda: softmax_rows(x, log=True)),
+           "plain_ms": device_ms(lambda: softmax_rows_plain(x, log=True)),
+           "library_ms": library_ms("K4", lambda: torch.log_softmax(x, dim=-1))}
+    # read and write each value once; max, subtract, exp, sum, log, subtract
+    res["bound_ms"], res["bound_by"] = bound(2 * x.numel() * 4, 6 * x.numel())
+    log(f"K4 log-softmax {tuple(x.shape)}: max_abs_err {err:.3e}, device ms kernel {res['ms']:.4f} "
+        f"plain {res['plain_ms']:.4f} torch.log_softmax {res['library_ms']}; bound "
+        f"{res['bound_ms']:.4f} ({res['bound_by']})")
+    return res
+
+
+def node_names(fgraph):
+    return [type(n.op).__name__ for n in fgraph.toposort()]
+
+
+def check_sparse_losses(losses, label: str):
+    values = [float(v) for v in losses]
+    log(f"{label} losses: {values}")
+    if not all(np.isfinite(values)) or not values[-1] < values[0]:
+        raise AssertionError(f"{label}: loss not finite or not below the first step's: {values}")
+
+
+def run_steps(step, n: int, label: str):
+    """``n`` steps, each ending in a synchronise: (losses, ms per step)."""
+    losses, times = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        losses.append(step())
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    log(f"{label} step ms: {[round(t, 3) for t in times]} (the first includes compiles and uploads)")
+    return losses
+
+
+def build_logistic(device: str, xv, yv):
+    """``LogisticRegression`` on a shared CSR x and shared labels: the sgd
+    train step (loss on the card) and ``predict`` of a CSR argument."""
+    import aesara_tpu_torch as ptp
+    from aesara_tpu_torch import sparse
+    from aesara_tpu_torch.config import config
+    from aesara_tpu_torch.models.linear import LogisticRegression
+    from aesara_tpu_torch.models.optim import sgd
+
+    with config.change_flags(device=device, floatX="float32"):
+        x, y = ptp.shared(xv, name="x"), ptp.shared(yv, name="y")
+        model = LogisticRegression(xv.shape[1], NG_CLASSES, seed=0)
+    loss = model.loss(x, y)
+    mode = ptp.Mode(ptp.TorchLinker(device=device))
+    step = ptp.function([], ptp.Out(loss, borrow=True), updates=sgd(loss, model.params, lr=SPARSE_LR),
+                        mode=mode)
+    xin = sparse.csr_matrix("xin", dtype="float32")
+    return model, step, ptp.function([xin], model.predict(xin), mode=mode)
+
+
+def check_logistic_graph(fgraph) -> int:
+    """Usmm, LogSoftmax and StructuredDot(Transpose(x), .) and no
+    DenseFromSparse; returns the number of Composites (K1 launches)."""
+    nodes, names = fgraph.toposort(), node_names(fgraph)
+    transposed = [n for n in nodes if type(n.op).__name__ == "StructuredDot"
+                  and n.inputs[0].owner is not None and type(n.inputs[0].owner.op).__name__ == "Transpose"]
+    n_composite = len(composite_nodes(fgraph))
+    log(f"logistic regression train graph: {len(nodes)} nodes, {names.count('Usmm')} Usmm, "
+        f"{names.count('LogSoftmax')} LogSoftmax, {len(transposed)} StructuredDot(Transpose(x), .), "
+        f"{names.count('DenseFromSparse')} DenseFromSparse, {n_composite} Composite")
+    if (names.count("Usmm"), names.count("LogSoftmax"), len(transposed), names.count("DenseFromSparse")) != (
+            1, 1, 1, 0):
+        raise AssertionError(f"logistic regression graph: {names}")
+    return n_composite
+
+
+def check_logistic_against_cpu(xv, yv):
+    """One step on the first documents, full width, from the same seeded
+    weights on the card and on the CPU: the loss and both parameters agree."""
+    xs, ys = xv[:NG_CPU_DOCS], yv[:NG_CPU_DOCS]
+    (m_gpu, step_gpu, _), (m_cpu, step_cpu, _) = build_logistic("cuda", xs, ys), build_logistic("cpu", xs, ys)
+    loss_gpu, loss_cpu = step_gpu().cpu(), step_cpu()
+    torch.testing.assert_close(loss_gpu, loss_cpu, atol=TRAIN_TOL, rtol=TRAIN_TOL)
+    err = 0.0
+    for pg, pc in zip(m_gpu.params, m_cpu.params):
+        err = max(err, (pg.value.cpu().double() - pc.value.double()).abs().max().item())
+        torch.testing.assert_close(pg.value.cpu(), pc.value, atol=TRAIN_TOL, rtol=TRAIN_TOL)
+    log(f"logistic regression step at {NG_CPU_DOCS} documents, card vs CPU: loss {float(loss_gpu):.7f} vs "
+        f"{float(loss_cpu):.7f}; max abs parameter err {err:.3e} (tolerance {TRAIN_TOL})")
+
+
+def phase_logistic() -> dict:
+    """Path (a): the bag-of-words classifier's kernels, train steps,
+    serving and card-vs-CPU check."""
+    from aesara_tpu_torch.link.torch.csr import CSRMat
+    from aesara_tpu_torch.link.torch.kernels.sparse import csr_spmm
+
+    t0 = time.perf_counter()
+    xv, yv = newsgroups_like()
+    per_row = np.diff(xv.indptr)
+    log(f"(a) 20 Newsgroups-sized CSR {xv.shape}: {xv.nnz} stored entries, mean {per_row.mean():.1f} "
+        f"(median {np.median(per_row):.0f}, max {per_row.max()}) a document, density "
+        f"{xv.nnz / (xv.shape[0] * xv.shape[1]):.3e}; made in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    model, step, predict = build_logistic("cuda", xv, yv)
+    log(f"(a) compile (graph + grad + rewrites + link): {time.perf_counter() - t0:.2f} s")
+    n_composite = check_logistic_graph(step.maker.fgraph)
+
+    cuda = torch.device("cuda")
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    a = CSRMat.from_scipy(xv, cuda, with_transpose=True)
+    w = torch.randn((NG_FEATURES, NG_CLASSES), device=cuda, generator=gen) * 0.01
+    g = torch.randn((NG_DOCS, NG_CLASSES), device=cuda, generator=gen) * 1e-3
+    k6 = check_matmul("K6 forward x @ W", csr_spmm, a, w)
+    k6_grad = check_matmul("K6 gradient x^T @ g (transposed twin)", csr_spmm, a.transpose(), g)
+    k4 = check_k4(torch.randn((NG_DOCS, NG_CLASSES), device=cuda, generator=gen) * 3)
+    del a, w, g
+
+    torch.cuda.synchronize()
+    reset_peak()
+    zero_counters()
+    losses = run_steps(step, N_SPARSE_STEPS, "(a) logistic regression")
+    launches = read_counters({"K1": n_composite * N_SPARSE_STEPS, "K4": N_SPARSE_STEPS,
+                              "K6": 2 * N_SPARSE_STEPS}, "(a) logistic regression train")
+    check_sparse_losses(losses, "(a) logistic regression")
+    ms, peak = time_steps(step, N_SPARSE_TIMED, "(a) logistic regression train step")
+    log(f"(a) logistic regression: {NG_DOCS / ms * 1e3:.1f} documents/s ({NG_DOCS} a full-batch step)")
+    for p in model.params:
+        if not (p.value.is_cuda and bool(torch.isfinite(p.value).all())):
+            raise AssertionError(f"parameter {p.name} not finite on the card")
+
+    requests = [xv[r * NG_REQUEST_DOCS:(r + 1) * NG_REQUEST_DOCS] for r in range(N_REQUESTS)]
+    zero_counters()
+    latencies, answers = [], []
+    for req in requests:
+        t0 = time.perf_counter()
+        answers.append(predict(req))
+        torch.cuda.synchronize()
+        latencies.append((time.perf_counter() - t0) * 1e3)
+    read_counters({"K6": N_REQUESTS}, "(a) predict")
+    log(f"(a) predict: {N_REQUESTS} requests of {NG_REQUEST_DOCS} documents (CSR from the host, "
+        f"uploaded per request), latency ms {[round(t, 3) for t in latencies]}")
+    w_host, b_host = model.w.get_value(), model.b.get_value()
+    for req, got in zip(requests, answers):
+        want = np.argmax(req @ w_host + b_host, axis=1)
+        agree = float(np.mean(got.cpu().numpy() == want))
+        if got.dtype != torch.int64 or got.shape != (NG_REQUEST_DOCS,) or agree < 0.999:
+            raise AssertionError(f"predict: {got.dtype} {tuple(got.shape)}, agreement with SciPy {agree}")
+    log(f"(a) predict agrees with argmax(x @ W + b) by SciPy on the host for every request")
+    del step, predict, model
+    check_logistic_against_cpu(xv, yv)
+    return {"K4": k4, "K6": k6, "K6_grad": k6_grad, "launches": launches, "ms": ms, "peak": peak}
+
+
+def build_glm(device: str, xv, yv, wv):
+    """The GLM step of bench_reference_ratio.py:290-295 without eps:
+    pred = structured_dot(x, w[:, None]).flatten(), mean((pred - y)^2),
+    one sgd update of w."""
+    import aesara_tpu_torch as ptp
+    from aesara_tpu_torch import sparse
+    from aesara_tpu_torch.config import config
+    from aesara_tpu_torch.tensor import math as tm
+    from aesara_tpu_torch.tensor.shape import shape_padright
+
+    with config.change_flags(device=device, floatX="float32"):
+        x, y, w = ptp.shared(xv, name="x"), ptp.shared(yv, name="y"), ptp.shared(wv, name="w")
+    pred = sparse.structured_dot(x, shape_padright(w)).flatten()
+    loss = tm.mean(tm.sqr(pred - y))
+    gw = ptp.grad(loss, w)
+    return ptp.function([], ptp.Out(loss, borrow=True), updates={w: w - np.float32(SPARSE_LR) * gw},
+                        mode=ptp.Mode(ptp.TorchLinker(device=device)))
+
+
+def phase_glm():
+    """Path (b): K5 at the GLM's shapes, the K5/K6 split, and the GLM's
+    train steps.  Returns (results, the GLM's x)."""
+    from aesara_tpu_torch.link.torch.csr import CSRMat
+    from aesara_tpu_torch.link.torch.kernels.sparse import SPMV_MAX_C, csr_spmm, csr_spmv
+
+    t0 = time.perf_counter()
+    xv, yv, wv = glm_data()
+    log(f"(b) GLM data {xv.shape}, {xv.nnz} stored entries: made in {time.perf_counter() - t0:.2f} s")
+    cuda = torch.device("cuda")
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    a = CSRMat.from_scipy(xv, cuda, with_transpose=True)
+    k5 = check_matmul("K5 GLM forward x @ w[:, None]", csr_spmv, a, torch.from_numpy(wv).to(cuda)[:, None])
+    k5_grad = check_matmul("K5 GLM gradient x^T @ g (transposed twin)", csr_spmv, a.transpose(),
+                           torch.randn((GLM_N, 1), device=cuda, generator=gen))
+    log(f"K5/K6 split at the GLM's x (device ms; csr_matmul sends widths <= {SPMV_MAX_C} to K5):")
+    for C in SPLIT_WIDTHS:
+        b = torch.randn((GLM_D, C), device=cuda, generator=gen)
+        t5, t6 = device_ms(lambda: csr_spmv(a, b)), device_ms(lambda: csr_spmm(a, b))
+        log(f"  width {C:3d}: K5 {t5:.4f}  K6 {t6:.4f}  faster {'K5' if t5 <= t6 else 'K6'}")
+    del a
+
+    t0 = time.perf_counter()
+    step = build_glm("cuda", xv, yv, wv)
+    log(f"(b) compile (graph + grad + rewrites + link): {time.perf_counter() - t0:.2f} s")
+    names = node_names(step.maker.fgraph)
+    n_composite = len(composite_nodes(step.maker.fgraph))
+    log(f"(b) GLM train graph: {len(names)} nodes, {names.count('StructuredDot')} StructuredDot, "
+        f"{names.count('DenseFromSparse')} DenseFromSparse, {n_composite} Composite")
+    if names.count("StructuredDot") != 2 or "DenseFromSparse" in names:
+        raise AssertionError(f"GLM graph: {names}")
+    torch.cuda.synchronize()
+    reset_peak()
+    zero_counters()
+    losses = run_steps(step, N_SPARSE_STEPS, "(b) GLM")
+    launches = read_counters({"K1": n_composite * N_SPARSE_STEPS, "K5": 2 * N_SPARSE_STEPS}, "(b) GLM train")
+    check_sparse_losses(losses, "(b) GLM")
+    ms, peak = time_steps(step, N_SPARSE_TIMED, "(b) GLM train step")
+    log(f"(b) GLM: {1e3 / ms:.1f} steps/s")
+    return {"K5": k5, "K5_grad": k5_grad, "launches": launches, "ms": ms, "peak": peak}, xv
+
+
+def build_values_grad(device: str):
+    """grad(sum(structured_dot(x, b)^2), x) for a CSR argument x."""
+    import aesara_tpu_torch as ptp
+    from aesara_tpu_torch import sparse
+    from aesara_tpu_torch.tensor import math as tm
+    from aesara_tpu_torch.tensor.type import matrix
+
+    x, b = sparse.csr_matrix("x", dtype="float32"), matrix("b", dtype="float32")
+    cost = tm.sum(tm.sqr(sparse.structured_dot(x, b)))
+    return ptp.function([x, b], ptp.grad(cost, x), mode=ptp.Mode(ptp.TorchLinker(device=device)))
+
+
+def phase_values_grad(xv) -> dict:
+    """Path (c): K7 at the GLM's size for rhs widths 1 and 20, then the
+    compiled gradient on the card against the same function on the CPU."""
+    from aesara_tpu_torch.link.torch.csr import CSRMat
+    from aesara_tpu_torch.link.torch.kernels.sparse import SPMV_MAX_C
+
+    cuda = torch.device("cuda")
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    a = CSRMat.from_scipy(xv, cuda)
+    k7 = {}
+    for C in GRAD_WIDTHS:
+        gz = torch.randn((GLM_N, C), device=cuda, generator=gen)
+        b = torch.randn((GLM_D, C), device=cuda, generator=gen)
+        k7[C] = check_sddmm(f"K7 values gradient, width {C}", a, gz, b)
+    del a
+    f_gpu, f_cpu = build_values_grad("cuda"), build_values_grad("cpu")
+    names = node_names(f_gpu.maker.fgraph)
+    if names.count("StructuredDotGradA") != 1:
+        raise AssertionError(f"values-gradient graph: {names}")
+    rng = np.random.default_rng(14)
+    rhs = {C: rng.normal(size=(GLM_D, C)).astype("float32") for C in GRAD_WIDTHS}
+    f_gpu(xv, rhs[GRAD_WIDTHS[0]])          # uploads x once; later calls reuse it
+    torch.cuda.synchronize()
+    reset_peak()
+    zero_counters()
+    outs, latencies = {}, []
+    for C in GRAD_WIDTHS:
+        t0 = time.perf_counter()
+        outs[C] = f_gpu(xv, rhs[C])
+        latencies.append((time.perf_counter() - t0) * 1e3)
+    launches = read_counters({"K7": len(GRAD_WIDTHS), "K5": sum(C <= SPMV_MAX_C for C in GRAD_WIDTHS),
+                              "K6": sum(C > SPMV_MAX_C for C in GRAD_WIDTHS)}, "(c) values gradient")
+    log(f"(c) values gradient, widths {GRAD_WIDTHS}: call ms {[round(t, 3) for t in latencies]} "
+        f"(the result goes back to SciPy); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    for C in GRAD_WIDTHS:
+        got, want = outs[C], f_cpu(xv, rhs[C])
+        if not (sps.isspmatrix_csr(got) and np.array_equal(got.indptr, want.indptr)
+                and np.array_equal(got.indices, want.indices)):
+            raise AssertionError(f"(c) width {C}: the card's result has another pattern than the CPU's")
+        err = float(np.abs(got.data - want.data).max())
+        np.testing.assert_allclose(got.data, want.data, atol=1e-4, rtol=SPARSE_TOL)
+        log(f"(c) width {C}: card vs CPU, same pattern ({got.nnz} entries), max abs err {err:.3e}")
+    return {"K7": k7[max(GRAD_WIDTHS)], "K7_err": max(r["max_abs_err"] for r in k7.values()),
+            "launches": launches}
+
+
+def kernel_line(name, route, source, replaces, launches, res):
+    return {"name": name, "route": route, "source": source, "replaces": replaces, "launches": launches,
+            "max_abs_err": res["max_abs_err"], "ms": res["ms"], "plain_ms": res["plain_ms"],
+            "bound_ms": res["bound_ms"], "bound_by": res["bound_by"], "library_ms": res["library_ms"]}
+
+
 def main():
+    start = time.perf_counter()
     smi = phase_setup()
     t0 = time.perf_counter()
     fn = compile_encoder("cuda")
@@ -637,17 +1145,30 @@ def main():
     time_train(step)
     del step, params
     check_train_against_cpu()
+
+    lr = phase_logistic()
+    glm, xv = phase_glm()
+    grad_values = phase_values_grad(xv)
+
+    k1 = {"max_abs_err": max(k1_err, k1_train_err), "ms": k1_times[0], "plain_ms": k1_times[1],
+          "bound_ms": k1_times[2], "bound_by": k1_times[3], "library_ms": None}
+    k2 = {"max_abs_err": k2_err, "ms": k2_times[0], "plain_ms": k2_times[1], "bound_ms": k2_times[2],
+          "bound_by": k2_times[3], "library_ms": k2_times[4]}
+    k3 = {"max_abs_err": k3_err, "ms": k3_times[0], "plain_ms": k3_times[1], "bound_ms": k3_times[2],
+          "bound_by": k3_times[3], "library_ms": None}
+    k5 = dict(glm["K5"], max_abs_err=max(glm["K5"]["max_abs_err"], glm["K5_grad"]["max_abs_err"]))
+    k6 = dict(lr["K6"], max_abs_err=max(lr["K6"]["max_abs_err"], lr["K6_grad"]["max_abs_err"]))
+    k7 = dict(grad_values["K7"], max_abs_err=grad_values["K7_err"])
     kernels = [
-        {"name": "K1 fused elemwise Composite", "route": "triton", "source": K1_SOURCE,
-         "replaces": K1_REPLACES, "launches": train_launches["K1"],
-         "max_abs_err": max(k1_err, k1_train_err), "ms": k1_times[0], "plain_ms": k1_times[1]},
-        {"name": "K2 flash attention forward", "route": "cuda", "source": K2_SOURCE,
-         "replaces": K2_REPLACES, "launches": train_launches["K2"], "max_abs_err": k2_err,
-         "ms": k2_times[0], "plain_ms": k2_times[1]},
-        {"name": "K3 flash attention backward", "route": "cuda", "source": K3_SOURCE,
-         "replaces": K3_REPLACES, "launches": train_launches["K3"], "max_abs_err": k3_err,
-         "ms": k3_times[0], "plain_ms": k3_times[1]},
+        kernel_line("K1 fused elemwise Composite", "triton", K1_SOURCE, K1_REPLACES, train_launches["K1"], k1),
+        kernel_line("K2 flash attention forward", "cuda", K2_SOURCE, K2_REPLACES, train_launches["K2"], k2),
+        kernel_line("K3 flash attention backward", "cuda", K3_SOURCE, K3_REPLACES, train_launches["K3"], k3),
+        kernel_line("K4 row log-softmax", "triton", K4_SOURCE, K4_REPLACES, lr["launches"]["K4"], lr["K4"]),
+        kernel_line("K5 CSR SpMV (narrow rhs)", "cuda", K567_SOURCE, K5_REPLACES, glm["launches"]["K5"], k5),
+        kernel_line("K6 CSR SpMM (wide rhs)", "cuda", K567_SOURCE, K6_REPLACES, lr["launches"]["K6"], k6),
+        kernel_line("K7 CSR SDDMM", "cuda", K567_SOURCE, K7_REPLACES, grad_values["launches"]["K7"], k7),
     ]
+    log(f"chip_smoke: every phase passed in {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

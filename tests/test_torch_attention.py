@@ -21,6 +21,16 @@ from aesara_tpu.tensor.nnet.attention import _attention_ref
 
 from aesara_tpu_torch.link.torch.kernels.attention import flash_attention, flash_attention_grads
 from aesara_tpu_torch.tensor.nnet.attention import attention_grads_ref_numpy, attention_ref_numpy
+from aesara_tpu_torch.config import config
+
+
+@pytest.fixture(autouse=True)
+def _on_the_cpu():
+    """The port's entry points run on the card by default; these tests ask
+    for the CPU."""
+    with config.change_flags(device="cpu"):
+        yield
+
 
 SHAPES = [((2, 96, 64), False), ((2, 96, 64), True), ((1, 160, 40), True),
           ((1, 1100, 64), True)]

@@ -1,11 +1,12 @@
 """Kernel tests that need the card: each hand-written kernel against its
-plain PyTorch version on CUDA tensors, and a small encoder forward and
-train step on the card against the CPU.  They skip where there is no CUDA
-device; run them on a GPU machine with
-``python -m pytest -m cuda tests/test_torch_cuda.py``."""
+plain PyTorch version on CUDA tensors, a small encoder forward and train
+step and a small sparse logistic-regression step on the card against the
+CPU.  They skip where there is no CUDA device; run them on a GPU machine
+with ``python -m pytest -m cuda tests/test_torch_cuda.py``."""
 
 import numpy as np
 import pytest
+import scipy.sparse as sps
 import torch
 
 import aesara_tpu_torch as ptp
@@ -14,12 +15,27 @@ from aesara_tpu_torch.config import config
 from aesara_tpu_torch.link.torch.kernels.attention import (
     attention_grads_plain, attention_plain, flash_attention, flash_attention_grads,
 )
+from aesara_tpu_torch.link.torch.csr import CSRMat
 from aesara_tpu_torch.link.torch.kernels.elemwise import (
     ElemwiseKernel, composite_plain, fused_elemwise,
 )
+from aesara_tpu_torch.link.torch.kernels.softmax import softmax_rows, softmax_rows_plain
+from aesara_tpu_torch.link.torch.kernels.sparse import (
+    csr_matmul_plain, csr_sddmm, csr_sddmm_plain, csr_spmm, csr_spmv,
+)
+from aesara_tpu_torch.models.linear import LogisticRegression
 from aesara_tpu_torch.models.optim import sgd
 from aesara_tpu_torch.models.transformer import TransformerEncoderLayer
 from aesara_tpu_torch.tensor import math as ptm
+
+
+@pytest.fixture(autouse=True)
+def _on_the_cpu():
+    """The port's entry points run on the card by default; these tests ask
+    for the CPU."""
+    with config.change_flags(device="cpu"):
+        yield
+
 
 pytestmark = pytest.mark.cuda
 
@@ -142,4 +158,104 @@ def test_small_train_step_on_card_matches_cpu(cuda):
         torch.testing.assert_close(loss_gpu.cpu(), loss_cpu, atol=1e-5, rtol=1e-5)
     assert flash_attention_grads.launches == before + 4
     for pg, pc in zip(params_gpu, params_cpu):
+        torch.testing.assert_close(pg.value.cpu(), pc.value, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("shape", [(11314, 20), (5, 37), (3, 10000)], ids=["wide_m", "ragged", "two_pass"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float64])
+@pytest.mark.parametrize("log", [False, True], ids=["softmax", "log_softmax"])
+def test_k4_kernel_matches_plain(cuda, shape, dtype, log):
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x = (torch.randn(shape, device=cuda, generator=gen) * 3).to(dtype)
+    x[0] = float("-inf")                 # -inf throughout: nan, as jax.nn gives
+    x[1, ::3] = float("-inf")
+    before = softmax_rows.launches
+    got = softmax_rows(x, log)
+    torch.cuda.synchronize()
+    assert softmax_rows.launches == before + 1 and got.dtype == dtype
+    want = softmax_rows_plain(x, log)
+    tol = {torch.float32: 1e-5, torch.bfloat16: 1e-2, torch.float64: 1e-12}[dtype]
+    torch.testing.assert_close(got, want, atol=tol, rtol=tol, equal_nan=True)
+    assert bool(got[0].isnan().all())
+
+
+def _awkward_csr(n, d, seed, dtype="float32"):
+    """A CSR with empty rows, duplicate and unsorted entries and a stored
+    zero."""
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(0, 12, size=n)
+    counts[::7] = 0
+    indptr = np.concatenate([[0], np.cumsum(counts)])
+    data = rng.random(indptr[-1]).astype(dtype)
+    data[0] = 0.0
+    return sps.csr_matrix((data, rng.integers(0, d, size=indptr[-1]), indptr), shape=(n, d))
+
+
+@pytest.mark.parametrize("C", [None, 1, 2, 5, 8, 9, 20, 40], ids=lambda c: f"C{c}")
+@pytest.mark.parametrize("kernel", [csr_spmv, csr_spmm], ids=["K5", "K6"])
+@pytest.mark.parametrize("dtype", ["float32", "float64", "bf16_rhs"])
+def test_k5_k6_kernels_match_plain(cuda, kernel, C, dtype):
+    x = _awkward_csr(3000, 700, seed=6, dtype="float64" if dtype == "float64" else "float32")
+    a = CSRMat.from_scipy(x, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    b = torch.randn((700,) if C is None else (700, C), device=cuda, generator=gen,
+                    dtype=torch.float64 if dtype == "float64" else torch.float32)
+    if dtype == "bf16_rhs":
+        b = b.to(torch.bfloat16)
+    out_dtype = torch.float64 if dtype == "float64" else torch.float32
+    before = kernel.launches
+    got = kernel(a, b, out_dtype)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1 and got.dtype == out_dtype
+    want = csr_matmul_plain(a, b, out_dtype)
+    tol = 1e-12 if dtype == "float64" else 1e-5
+    torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("kernel", [csr_spmv, csr_spmm], ids=["K5", "K6"])
+def test_k5_k6_a_stored_zero_times_inf_is_nan(cuda, kernel):
+    x = sps.csr_matrix((np.array([0.0, 1.0, 2.0], "float32"), np.array([2, 0, 1]),
+                        np.array([0, 2, 3])), shape=(2, 3))
+    b = torch.tensor([[1.0], [2.0], [float("inf")]], device=cuda)
+    got = kernel(CSRMat.from_scipy(x, cuda), b).cpu()
+    assert bool(got[0, 0].isnan()) and float(got[1, 0]) == 4.0
+
+
+@pytest.mark.parametrize("C", [None, 1, 20, 33, 64], ids=lambda c: f"C{c}")
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k7_kernel_matches_plain(cuda, C, dtype):
+    x = _awkward_csr(3000, 700, seed=8, dtype="float64" if dtype == torch.float64 else "float32")
+    a = CSRMat.from_scipy(x, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    gz, b = (torch.randn((n,) if C is None else (n, C), device=cuda, generator=gen, dtype=dtype)
+             for n in (3000, 700))
+    before = csr_sddmm.launches
+    got = csr_sddmm(a, gz, b)
+    torch.cuda.synchronize()
+    assert csr_sddmm.launches == before + 1
+    assert got.indptr is a.indptr and got.indices is a.indices and got.data.dtype == dtype
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    torch.testing.assert_close(got.data, csr_sddmm_plain(a, gz, b), atol=tol, rtol=tol)
+
+
+def test_small_logistic_regression_step_on_card_matches_cpu(cuda):
+    xv = sps.random(500, 3000, density=0.01, format="csr", dtype="float32",
+                    random_state=np.random.RandomState(10))
+    yv = np.random.default_rng(11).integers(0, 20, size=500).astype("int64")
+
+    def build(device):
+        with config.change_flags(device=device):
+            x, y = ptp.shared(xv, name="x"), ptp.shared(yv, name="y")
+            model = LogisticRegression(3000, 20, seed=0)
+        loss = model.loss(x, y)
+        return model, ptp.function([], ptp.Out(loss, borrow=True),
+                                   updates=sgd(loss, model.params, lr=0.1),
+                                   mode=ptp.Mode(ptp.TorchLinker(device=device)))
+
+    (m_gpu, step_gpu), (m_cpu, step_cpu) = build("cuda"), build("cpu")
+    counts = (csr_spmm.launches, softmax_rows.launches)
+    for _ in range(2):
+        torch.testing.assert_close(step_gpu().cpu(), step_cpu(), atol=1e-5, rtol=1e-5)
+    assert (csr_spmm.launches, softmax_rows.launches) == (counts[0] + 4, counts[1] + 2)
+    for pg, pc in zip(m_gpu.params, m_cpu.params):
         torch.testing.assert_close(pg.value.cpu(), pc.value, atol=1e-5, rtol=1e-5)

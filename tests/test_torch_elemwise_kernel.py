@@ -27,6 +27,15 @@ from aesara_tpu_torch.scalar.composite import Composite as PComposite
 from aesara_tpu_torch.tensor import math as ptm
 from aesara_tpu_torch.tensor.rewriting.elemwise import FusionOptimizer as PFusion
 from aesara_tpu_torch.tensor.type import TensorType as PTensorType
+from aesara_tpu_torch.config import config
+
+
+@pytest.fixture(autouse=True)
+def _on_the_cpu():
+    """The port's entry points run on the card by default; these tests ask
+    for the CPU."""
+    with config.change_flags(device="cpu"):
+        yield
 
 
 def _graph(TensorType, tm, which):

@@ -18,6 +18,16 @@ import aesara_tpu_torch.tensor as pat
 from aesara_tpu_torch.gradient import NullTypeGradError as PNullTypeGradError, grad as pgrad
 from aesara_tpu_torch.models.transformer import layer_norm as player_norm
 from aesara_tpu_torch.tensor import math as ptm
+from aesara_tpu_torch.config import config
+
+
+@pytest.fixture(autouse=True)
+def _on_the_cpu():
+    """The port's entry points run on the card by default; these tests ask
+    for the CPU."""
+    with config.change_flags(device="cpu"):
+        yield
+
 
 JAX = dict(pkg=aesara_tpu, at=jat, tm=jtm, grad=jgrad, layer_norm=jlayer_norm, mode="FAST_RUN")
 PORT = dict(pkg=aesara_tpu_torch, at=pat, tm=ptm, grad=pgrad, layer_norm=player_norm, mode="TORCH")

@@ -17,6 +17,15 @@ from aesara_tpu_torch.graph.rewriting.basic import (
 from aesara_tpu_torch.link.torch import linker as linker_module
 from aesara_tpu_torch.tensor import math as ptm
 from aesara_tpu_torch.tensor.shape import Shape_i
+from aesara_tpu_torch.config import config
+
+
+@pytest.fixture(autouse=True)
+def _on_the_cpu():
+    """The port's entry points run on the card by default; these tests ask
+    for the CPU."""
+    with config.change_flags(device="cpu"):
+        yield
 
 
 def _ops(fgraph):

@@ -14,10 +14,19 @@ from aesara_tpu_torch.graph.ir import Apply
 from aesara_tpu_torch.graph.op import Op
 from aesara_tpu_torch.link.basic import resolve_device
 from aesara_tpu_torch.link.torch.linker import TorchLinker
+from aesara_tpu_torch.config import config
+
+
+@pytest.fixture(autouse=True)
+def _on_the_cpu():
+    """The port's entry points run on the card by default; these tests ask
+    for the CPU."""
+    with config.change_flags(device="cpu"):
+        yield
 
 
 def test_import_pulls_in_neither_jax_nor_the_jax_package():
-    code = ("import sys, aesara_tpu_torch\n"
+    code = ("import sys, aesara_tpu_torch, aesara_tpu_torch.sparse\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'aesara_tpu' or m.startswith('aesara_tpu.')]\n"
             "assert not bad, bad\n")

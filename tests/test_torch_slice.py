@@ -21,6 +21,16 @@ from aesara_tpu_torch.models.convert import load_params, params_by_name
 from aesara_tpu_torch.models.transformer import TransformerEncoderLayer as PLayer
 from aesara_tpu_torch.tensor import math as ptm
 from aesara_tpu_torch.tensor.nnet.attention import fused_attention as pattention
+from aesara_tpu_torch.config import config
+
+
+@pytest.fixture(autouse=True)
+def _on_the_cpu():
+    """The port's entry points run on the card by default; these tests ask
+    for the CPU."""
+    with config.change_flags(device="cpu"):
+        yield
+
 
 JAX = dict(pkg=aesara_tpu, at=jat, tm=jtm, attention=jattention, Layer=JLayer, mode="FAST_RUN")
 PORT = dict(pkg=aesara_tpu_torch, at=pat, tm=ptm, attention=pattention, Layer=PLayer, mode="TORCH")

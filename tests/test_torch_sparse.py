@@ -1,0 +1,258 @@
+"""The CSR kernels' plain versions (K5, K6, K7), the device CSR container,
+the linker's sparse bridge and the device default, on the CPU.
+
+K5/K6 (``csr_matmul_plain``) and K7 (``csr_sddmm_plain``) are held against
+SciPy and against the JAX package's Pallas kernels ``bss_matmul``,
+``_bss_matmul_wide`` and ``bss_sddmm`` in interpret mode, as
+``tests/sparse/test_bss.py`` and ``tests/link/test_pallas.py`` run them.
+Tolerance 1e-5 absolute and relative in float32 (sums of a few products
+in another order), 1e-12 in float64 (SciPy only: the BSS layout stores
+float32).  A stored zero against an inf in the rhs is held against SciPy
+(nan), not against BSS, which masks stored zeros (``ROADMAP.md`` Queue 3).
+"""
+
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import scipy.sparse as sps
+import torch
+
+import jax.numpy as jnp
+from jax.experimental.pallas import tpu as pltpu
+
+from aesara_tpu.link.jax.bss import _bss_matmul_wide, bss_matmul, bss_sddmm, csr_to_bss
+
+import aesara_tpu_torch as ptp
+import aesara_tpu_torch.tensor as pt
+from aesara_tpu_torch import sparse
+from aesara_tpu_torch.config import config
+from aesara_tpu_torch.link.torch.csr import CSRMat
+from aesara_tpu_torch.link.torch.kernels.sparse import (
+    csr_matmul, csr_matmul_plain, csr_sddmm, csr_sddmm_plain, csr_spmm, csr_spmv,
+)
+from aesara_tpu_torch.sparse.basic import StructuredDotGradA
+
+
+@pytest.fixture(autouse=True)
+def _on_the_cpu():
+    """The port's entry points run on the card by default; these tests ask
+    for the CPU."""
+    with config.change_flags(device="cpu"):
+        yield
+
+
+F32 = dict(atol=1e-5, rtol=1e-5)
+F64 = dict(atol=1e-12, rtol=1e-12)
+CPU = torch.device("cpu")
+
+
+def _rand_csr(n, d, density, seed=0, dtype=np.float32):
+    return sps.random(n, d, density=density, format="csr", dtype=dtype,
+                      random_state=np.random.RandomState(seed))
+
+
+def _with_empty_rows(n=300, d=200, seed=1):
+    x = _rand_csr(n, d, 0.05, seed).tolil()
+    x[::7] = 0                       # every 7th row stores nothing
+    x = x.tocsr()
+    x.eliminate_zeros()
+    assert (np.diff(x.indptr)[::7] == 0).all()
+    return x
+
+
+def _with_duplicates(n=200, d=150, seed=2):
+    """A CSR whose rows hold duplicate and unsorted column indices."""
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(0, 9, size=n)
+    indptr = np.concatenate([[0], np.cumsum(counts)])
+    indices = rng.integers(0, d, size=indptr[-1])     # repeats within rows, unsorted
+    data = rng.normal(size=indptr[-1]).astype("float32")
+    x = sps.csr_matrix((data, indices, indptr), shape=(n, d))
+    assert not x.has_canonical_format
+    return x
+
+
+def _rhs(d, C, seed=3, dtype="float32"):
+    rng = np.random.default_rng(seed)
+    return rng.normal(size=(d,) if C is None else (d, C)).astype(dtype)
+
+
+MATRICES = {"random": lambda: _rand_csr(300, 200, 0.03), "empty_rows": _with_empty_rows,
+            "duplicates": _with_duplicates}
+
+
+@pytest.mark.parametrize("C", [None, 1, 8, 9, 20], ids=["vector", "C1", "C8", "C9", "C20"])
+@pytest.mark.parametrize("which", sorted(MATRICES))
+def test_plain_k5_k6_match_scipy_and_pallas_interpret(which, C):
+    x = MATRICES[which]()
+    b = _rhs(x.shape[1], C)
+    a = CSRMat.from_scipy(x, CPU)
+    got = csr_matmul_plain(a, torch.from_numpy(b), torch.float32).numpy()
+    np.testing.assert_allclose(got, x @ b, **F32)
+    bss = csr_to_bss(x)
+    with pltpu.force_tpu_interpret_mode():
+        if C is not None and C > 8:
+            want = _bss_matmul_wide(bss, jnp.asarray(b))     # K6's TPU kernel
+        else:
+            want = bss_matmul(bss, jnp.asarray(b))           # K5's TPU kernel
+    np.testing.assert_allclose(got, np.asarray(want), **F32)
+
+
+@pytest.mark.parametrize("C", [None, 8, 20], ids=["vector", "C8", "C20"])
+def test_plain_k5_k6_float64_match_scipy(C):
+    x = _with_duplicates().astype("float64")
+    b = _rhs(x.shape[1], C, dtype="float64")
+    a = CSRMat.from_scipy(x, CPU)
+    assert a.data.dtype == torch.float64
+    got = csr_matmul_plain(a, torch.from_numpy(b), torch.float64)
+    assert got.dtype == torch.float64
+    np.testing.assert_allclose(got.numpy(), x @ b, **F64)
+
+
+def test_a_stored_zero_times_inf_is_nan_as_in_scipy():
+    # row 0 stores an explicit 0 at column 2; row 1 stores nothing there
+    x = sps.csr_matrix((np.array([0.0, 1.0, 2.0], "float32"), np.array([2, 0, 1]),
+                        np.array([0, 2, 3])), shape=(2, 3))
+    b = np.array([[1.0], [2.0], [np.inf]], "float32")
+    want = x @ b
+    assert np.isnan(want[0, 0]) and want[1, 0] == 4.0
+    got = csr_matmul_plain(CSRMat.from_scipy(x, CPU), torch.from_numpy(b), torch.float32).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_the_wrappers_take_the_plain_versions_for_cpu_tensors():
+    x = _rand_csr(50, 40, 0.1)
+    a = CSRMat.from_scipy(x, CPU)
+    b = torch.from_numpy(_rhs(40, 3))
+    counts = (csr_spmv.plain_calls, csr_spmm.plain_calls, csr_sddmm.plain_calls)
+    for fn in (csr_spmv, csr_spmm):
+        np.testing.assert_allclose(fn(a, b).numpy(), x @ b.numpy(), **F32)
+    csr_matmul(a, b, torch.float32)                   # 3 columns: K5
+    gz = torch.from_numpy(_rhs(50, 3, seed=4))
+    assert csr_sddmm(a, gz, b).shape == x.shape
+    assert (csr_spmv.plain_calls, csr_spmm.plain_calls, csr_sddmm.plain_calls) == (
+        counts[0] + 2, counts[1] + 1, counts[2] + 1)
+    assert csr_spmv.launches == csr_spmm.launches == csr_sddmm.launches == 0
+
+
+def _sddmm_oracle(x, gz, b):
+    """StructuredDotGradA's SciPy perform."""
+    fake = type("node", (), {"outputs": [sparse.csr_matrix(dtype=x.dtype.name)]})
+    out = [[None]]
+    StructuredDotGradA().perform(fake, [gz, b, x], out)
+    return out[0][0]
+
+
+@pytest.mark.parametrize("C", [None, 1, 8, 20], ids=["vector", "C1", "C8", "C20"])
+def test_plain_k7_matches_scipy_and_pallas_interpret(C):
+    x = _rand_csr(256, 300, 0.02, seed=5)        # n a multiple of 128: BSS pads no rows
+    gz, b = _rhs(256, C, seed=6), _rhs(300, C, seed=7)
+    a = CSRMat.from_scipy(x, CPU)
+    got = a.with_data(csr_sddmm_plain(a, torch.from_numpy(gz), torch.from_numpy(b))).to_scipy()
+    want = _sddmm_oracle(x, gz, b)
+    np.testing.assert_array_equal(got.indptr, want.indptr)
+    np.testing.assert_array_equal(got.indices, want.indices)
+    np.testing.assert_allclose(got.data, want.data, **F32)
+    with pltpu.force_tpu_interpret_mode():
+        sampled = bss_sddmm(csr_to_bss(x), jnp.asarray(gz), jnp.asarray(b))
+    np.testing.assert_allclose(got.toarray(), np.asarray(sampled.todense()), **F32)
+
+
+@pytest.mark.parametrize("which", ["empty_rows", "duplicates"])
+def test_plain_k7_keeps_the_canonical_pattern(which):
+    x = MATRICES[which]()
+    canonical = x.copy()
+    canonical.sum_duplicates()
+    gz, b = _rhs(x.shape[0], 4, seed=8), _rhs(x.shape[1], 4, seed=9)
+    a = CSRMat.from_scipy(x, CPU)
+    got = a.with_data(csr_sddmm_plain(a, torch.from_numpy(gz), torch.from_numpy(b))).to_scipy()
+    want = _sddmm_oracle(canonical, gz, b)
+    np.testing.assert_array_equal(got.indices, want.indices)
+    np.testing.assert_allclose(got.data, want.data, **F32)
+    f64 = CSRMat.from_scipy(x.astype("float64"), CPU)
+    got64 = csr_sddmm_plain(f64, torch.from_numpy(gz.astype("float64")),
+                            torch.from_numpy(b.astype("float64")))
+    assert got64.dtype == torch.float64
+    np.testing.assert_allclose(got64.numpy(), _sddmm_oracle(canonical.astype("float64"),
+                                                            gz.astype("float64"),
+                                                            b.astype("float64")).data, **F64)
+
+
+def test_csrmat_sums_duplicates_keeps_stored_zeros_and_links_its_twin():
+    x = _with_duplicates()
+    x.data[:3] = 0.0
+    a = CSRMat.from_scipy(x, CPU, with_transpose=True)
+    assert a.indptr.dtype == a.indices.dtype == torch.int32 and a.data.dtype == torch.float32
+    canonical = x.copy()
+    canonical.sum_duplicates()
+    back = a.to_scipy()
+    assert back.nnz == canonical.nnz           # stored zeros stay stored
+    np.testing.assert_array_equal(back.toarray(), x.toarray())
+    t = a.transpose()
+    assert t.shape == (x.shape[1], x.shape[0])
+    np.testing.assert_array_equal(t.to_scipy().toarray(), x.toarray().T)
+    np.testing.assert_array_equal(t.transpose().to_scipy().toarray(), x.toarray())
+    assert not x.has_canonical_format          # the caller's matrix is left as it was
+    with pytest.raises(ValueError, match="twin"):
+        CSRMat.from_scipy(x, CPU).transpose()
+
+
+def test_shared_sparse_value_is_a_scipy_copy_and_set_value_reaches_the_device():
+    x0, x1 = _rand_csr(30, 20, 0.2, seed=10), _rand_csr(30, 20, 0.2, seed=11)
+    xs = ptp.shared(x0, name="x")
+    assert isinstance(xs, sparse.SparseTensorSharedVariable) and xs.type.format == "csr"
+    got = xs.get_value()
+    assert sps.issparse(got) and got is not xs.get_value()
+    got.data[:] = 0                              # a copy: the variable keeps its value
+    assert xs.get_value().nnz == x0.nnz and abs(xs.get_value() - x0).nnz == 0
+    w = pt.matrix("w")
+    f = ptp.function([w], sparse.structured_dot(xs, w))
+    wv = _rhs(20, 3, seed=12)
+    np.testing.assert_allclose(f(wv).numpy(), x0 @ wv, **F32)
+    xs.set_value(x1)
+    np.testing.assert_allclose(f(wv).numpy(), x1 @ wv, **F32)
+
+
+def test_sparse_output_has_the_input_pattern_and_format():
+    x = sparse.csr_matrix("x")
+    gz, b = pt.matrix("gz"), pt.matrix("b")
+    f = ptp.function([gz, b, x], [StructuredDotGradA()(gz, b, x), sparse.transpose(x)])
+    xv = _rand_csr(40, 30, 0.1, seed=13)
+    gv, bv = _rhs(40, 5, seed=14), _rhs(30, 5, seed=15)
+    ga, xt = f(gv, bv, xv)
+    assert ga.format == "csr" and xt.format == "csc"
+    np.testing.assert_array_equal(ga.indptr, xv.indptr)
+    np.testing.assert_array_equal(ga.indices, xv.indices)
+    np.testing.assert_allclose(ga.data, _sddmm_oracle(xv, gv, bv).data, **F32)
+    np.testing.assert_array_equal(xt.toarray(), xv.toarray().T)
+
+
+def test_a_sparse_operand_without_a_lowering_fails_the_compile():
+    x, y = sparse.csr_matrix("x"), sparse.csr_matrix("y")
+    with pytest.raises(NotImplementedError, match="Dot"):
+        ptp.function([x, y], sparse.dot(x, y))
+    g = pt.matrix("g")
+    computed = StructuredDotGradA()(g, g, x)
+    with pytest.raises(NotImplementedError, match="Transpose"):
+        ptp.function([g, x], sparse.structured_dot(sparse.transpose(computed), g))
+
+
+def test_the_default_device_is_the_card():
+    code = "import aesara_tpu_torch as p; print(p.config.device)"
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120,
+                         check=True)
+    assert res.stdout.strip() == "cuda"
+
+
+def test_without_a_card_the_default_device_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with config.change_flags(device="cuda"):      # the default, which the fixture overrides
+        with pytest.raises(RuntimeError, match="cuda"):
+            ptp.shared(np.zeros(3))
+        with pytest.raises(RuntimeError, match="cuda"):
+            ptp.shared(_rand_csr(4, 3, 0.5))
+        x = pt.vector("x")
+        with pytest.raises(RuntimeError, match="cuda"):
+            ptp.function([x], x * 2.0)

@@ -22,6 +22,16 @@ from aesara_tpu_torch.models.convert import load_params
 from aesara_tpu_torch.models.optim import sgd as psgd
 from aesara_tpu_torch.models.transformer import TransformerEncoderLayer as PLayer
 from aesara_tpu_torch.tensor import math as ptm
+from aesara_tpu_torch.config import config
+
+
+@pytest.fixture(autouse=True)
+def _on_the_cpu():
+    """The port's entry points run on the card by default; these tests ask
+    for the CPU."""
+    with config.change_flags(device="cpu"):
+        yield
+
 
 JAX = dict(pkg=aesara_tpu, Out=JOut, sgd=jsgd, Layer=JLayer, tm=jtm, mode="FAST_RUN")
 PORT = dict(pkg=aesara_tpu_torch, Out=POut, sgd=psgd, Layer=PLayer, tm=ptm, mode="TORCH")
@@ -142,6 +152,7 @@ def test_train_step_graph_is_the_same_under_any_hash_seed():
     import sys
 
     code = ("import numpy as np, aesara_tpu_torch as ptp\n"
+            "ptp.config.device = 'cpu'\n"
             "from aesara_tpu_torch.models.transformer import TransformerEncoderLayer as L\n"
             "from aesara_tpu_torch.models.optim import sgd\n"
             "from aesara_tpu_torch.tensor import math as tm\n"
