@@ -7,7 +7,10 @@ gather shape; a GPU gathers freely, so the port keeps plain CSR: ``indptr``
 dtype (float64 stays float64: the card has fp64), and the logical
 ``shape``.  ``t`` optionally holds the CSR of the transpose, built with the
 matrix when the graph transposes it, so the gradient's ``xᵀ @ g`` runs as
-a row-parallel product with no atomics.
+a row-parallel product with no atomics.  ``plans`` keeps what the kernels
+derive from the pattern alone (K6's chunk plan, by chunk size); the
+wrappers that ``transpose()`` and ``with_data`` make share it with the
+matrices they come from, so it is made once per pattern.
 
 A matrix is built on the host from SciPy: duplicates are summed on a copy
 (stored zeros stay stored, as in SciPy), then each array is uploaded once.
@@ -24,14 +27,15 @@ __all__ = ["CSRMat"]
 class CSRMat:
     """A CSR matrix on one torch device, with an optional transposed twin."""
 
-    __slots__ = ("indptr", "indices", "data", "shape", "t")
+    __slots__ = ("indptr", "indices", "data", "shape", "t", "plans")
 
-    def __init__(self, indptr, indices, data, shape, t=None):
+    def __init__(self, indptr, indices, data, shape, t=None, plans=None):
         self.indptr = indptr
         self.indices = indices
         self.data = data
         self.shape = tuple(int(s) for s in shape)
         self.t = t
+        self.plans = {} if plans is None else plans
 
     @property
     def device(self):
@@ -65,7 +69,7 @@ class CSRMat:
 
     def with_data(self, data) -> "CSRMat":
         """The same pattern with other values (no transposed twin)."""
-        return CSRMat(self.indptr, self.indices, data, self.shape)
+        return CSRMat(self.indptr, self.indices, data, self.shape, plans=self.plans)
 
     def transpose(self) -> "CSRMat":
         """The transpose, relinked so that transposing again gives this
@@ -74,8 +78,8 @@ class CSRMat:
             raise ValueError("this CSRMat has no transposed twin: the linker builds one only for "
                              "a graph input that the graph transposes")
         t = self.t
-        return CSRMat(t.indptr, t.indices, t.data, t.shape,
-                      t=CSRMat(self.indptr, self.indices, self.data, self.shape))
+        return CSRMat(t.indptr, t.indices, t.data, t.shape, plans=t.plans,
+                      t=CSRMat(self.indptr, self.indices, self.data, self.shape, plans=self.plans))
 
     def to_scipy(self, format: str = "csr"):
         """A SciPy matrix with exactly this pattern and these values."""

@@ -15,21 +15,56 @@
 // What bounds them on the H100: each stored entry is read once (8 bytes)
 // and pulls one rhs row of C values through the cache for 2*C flops, so
 // all three are bound by memory traffic (HBM and, for scattered rhs rows,
-// L2), never by arithmetic.  The design keeps every read of the CSR arrays
-// coalesced and gives each row to one warp, so there are no atomics and
-// the results do not depend on scheduling.
+// L2), never by arithmetic.  None uses atomics, so the results do not
+// depend on scheduling.
 //
 // K5 (narrow rhs, C small): one warp per row; lanes stride over the row's
 // entries and keep one accumulator per rhs column (columns in groups of up
 // to 8 registers); a warp-shuffle reduction ends the row.
-// K6 (wide rhs): one warp per row and one 32-column tile of the rhs per
-// block column; lanes own consecutive rhs columns, so each read of
-// b[col, tile] is one coalesced row segment; the row's (col, val) pairs
-// are loaded 32 at a time and broadcast across the warp by shuffles.
 // K7: one warp per row; with C >= 32 lanes split each dot product over C
 // and reduce by shuffles, otherwise each lane takes whole entries.  The
 // output is the values array in x's own entry order: it shares x's indptr
 // and indices.
+//
+// K6 (wide rhs) splits the work by entries, not by rows: the merge-based
+// CSR split of Merrill & Garland (SC 2016).  The merged sequence of the n
+// row ends and the nnz entries (row r's end sits after its last entry, at
+// position r + indptr[r + 1]) is cut into chunks of a fixed number of
+// items; the plan holds the row at which each chunk starts (a diagonal
+// search of indptr, made by `spmm_plan` in kernels/sparse.py), so a chunk
+// covers rows i0..i1 and entries j0..j1 - 1 with (i1 - i0) + (j1 - j0) at
+// most the chunk size.  One warp takes one chunk:
+//
+// - The chunk's row ends, indices and values are one contiguous range
+//   each; they are staged into shared memory with cp.async in two groups,
+//   and the rows of the first half start while the second is in flight.
+// - Lanes go over entries and vector columns: a group of G lanes reads one
+//   entry's rhs row with 16-, 8-, 4- or 2-byte loads (the widest that C,
+//   the dtype and the rhs's alignment allow, a template parameter), and
+//   32 / G groups take 32 / G entries a step, four steps unrolled, so a
+//   lane keeps four gathers in flight.  At C = 20 in fp32 that is 5 lanes
+//   of 16 bytes each, 6 entries a step on 30 of the 32 lanes.  A rhs wider
+//   than 32 vectors is walked in tiles of 32 vectors inside the warp.
+// - At a row's end the groups' partial sums meet in shared memory and are
+//   added in group order; lanes write the row's C values, coalesced.
+// - Short rows (at most a few steps' entries in the chunk, empty ones too;
+//   most rows of a transposed bag-of-words matrix) go one to a group
+//   instead, up to 32 / G rows at once, each summed in entry order by its
+//   group alone: the rows' gathers overlap and no reduction is needed.
+// - The rows that end inside the chunk are written; the row cut by the
+//   chunk's end leaves its partial sum in the carry buffer (one row of C
+//   values per chunk).  A second pass adds, for each row that started
+//   before the chunk that ends it, the carries of the chunks it spans, in
+//   chunk order, to what that chunk wrote.
+//
+// So a row of 10,909 entries (a common word in a classifier's transposed
+// design matrix) is the work of some 85 warps (chunks of 128 items), and
+// the time follows the bytes, not the longest row.  The chunk size is a
+// constant of the plan, not of the card, and every sum runs in a fixed
+// order: two calls on the same inputs give the same bits.  Tensor cores
+// buy nothing here: at C = 20 the product does 2 flops per 4-byte rhs
+// value gathered from a scattered row, far below what a wgmma tile needs
+// to pay for itself, and TMA's tiled copies do not gather rows.
 //
 // Implicit zeros never touch the rhs, so an inf or nan there poisons
 // exactly the rows whose stored pattern hits it; a stored zero times inf
@@ -38,11 +73,15 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <string.h>
 
 namespace {
 
-constexpr int WARPS = 8;               // warps (rows) per block
+constexpr int WARPS = 8;               // warps (rows) per block of K5 and K7
 constexpr int THREADS = WARPS * 32;
+constexpr int SPMM_WARPS = 4;          // warps (chunks) per block of K6
+constexpr int SPMM_THREADS = SPMM_WARPS * 32;
+constexpr int SPMM_UNROLL = 4;         // gathers in flight per lane
 constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ float to_acc(float x, float) { return x; }
@@ -85,38 +124,189 @@ csr_spmv_kernel(const int* __restrict__ indptr, const int* __restrict__ indices,
   }
 }
 
-// K6: blockIdx.y picks a tile of 32 rhs columns.
-template <typename T, typename TB, typename ACC>
-__global__ void __launch_bounds__(THREADS)
+// ---- K6 -------------------------------------------------------------------
+
+template <int BYTES> struct Vec;
+template <> struct Vec<16> { using type = uint4; };
+template <> struct Vec<8> { using type = uint2; };
+template <> struct Vec<4> { using type = unsigned int; };
+template <> struct Vec<2> { using type = unsigned short; };
+
+// a rhs element in the accumulator's type; a bfloat16 rhs arrives as its
+// 16 bits, the upper half of the float32 with the same value
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ double widen(double x) { return x; }
+__device__ __forceinline__ float widen(unsigned short x) { return __uint_as_float(unsigned(x) << 16); }
+
+template <typename TB, typename ACC, int EV, typename VT>
+__device__ __forceinline__ void fma_vec(ACC (&acc)[EV], ACC a, VT x) {
+  static_assert(sizeof(VT) == EV * sizeof(TB), "one vector holds EV rhs values");
+  TB e[EV];
+  memcpy(e, &x, sizeof(VT));
+#pragma unroll
+  for (int q = 0; q < EV; ++q) acc[q] += a * ACC(widen(e[q]));
+}
+
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s), "l"(gmem), "n"(BYTES) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory"); }
+
+// shared memory of one warp: the groups' partial sums (32 lanes x EV),
+// then the chunk's values, indices and row ends, at most `chunk` each
+template <typename T, typename ACC, int EV>
+__host__ __device__ constexpr size_t spmm_warp_bytes(int chunk) {
+  return (32 * EV * sizeof(ACC) + (size_t)chunk * (sizeof(T) + 2 * sizeof(int)) + 15) / 16 * 16;
+}
+
+template <typename T, typename TB, typename ACC, int VB>
+__global__ void __launch_bounds__(SPMM_THREADS)
 csr_spmm_kernel(const int* __restrict__ indptr, const int* __restrict__ indices,
                 const T* __restrict__ data, const TB* __restrict__ b, T* __restrict__ out,
-                int n, int C) {
-  const int row = blockIdx.x * WARPS + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (row >= n) return;
-  const int col = blockIdx.y * 32 + lane;
-  const bool live = col < C;
-  const int start = indptr[row], end = indptr[row + 1];
-  ACC acc = ACC(0);
-  for (int k0 = start; k0 < end; k0 += 32) {
-    const int k = k0 + lane;
-    int my_col = 0;
-    ACC my_val = ACC(0);
-    if (k < end) {
-      my_col = indices[k];
-      my_val = ACC(data[k]);
-    }
-    const int cnt = min(32, end - k0);
-    // unrolled so that several rhs loads are in flight at once: a long
-    // row (a common word in the transposed twin) is one warp's serial walk
-#pragma unroll 8
-    for (int j = 0; j < cnt; ++j) {
-      const int cj = __shfl_sync(FULL, my_col, j);
-      const ACC vj = __shfl_sync(FULL, my_val, j);
-      if (live) acc += vj * to_acc(b[(long long)cj * C + col], ACC(0));
+                T* __restrict__ carry, const int* __restrict__ plan, int n, int nnz, int C,
+                int chunk, int nchunks, int short_factor) {
+  using VT = typename Vec<VB>::type;
+  constexpr int EV = VB / sizeof(TB);
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int c = blockIdx.x * SPMM_WARPS + warp;
+  if (c >= nchunks) return;             // the whole warp leaves together
+  unsigned char* base = smem + warp * spmm_warp_bytes<T, ACC, EV>(chunk);
+  ACC* s_red = reinterpret_cast<ACC*>(base);
+  T* s_val = reinterpret_cast<T*>(base + 32 * EV * sizeof(ACC));
+  int* s_idx = reinterpret_cast<int*>(s_val + chunk);
+  int* s_end = s_idx + chunk;
+
+  const long long total = (long long)n + nnz;
+  const int d0 = (int)min((long long)c * chunk, total), d1 = (int)min((long long)(c + 1) * chunk, total);
+  const int i0 = plan[c], i1 = plan[c + 1];
+  const int j0 = d0 - i0, j1 = d1 - i1;
+  const int n_end = i1 - i0, n_ent = j1 - j0, half = (n_ent + 1) >> 1;
+
+  // stage: group 0 the row ends and the first half of the entries, group 1
+  // the rest
+  for (int t = lane; t < n_end; t += 32) cp_async<4>(s_end + t, indptr + i0 + 1 + t);
+  for (int t = lane; t < half; t += 32) {
+    cp_async<4>(s_idx + t, indices + j0 + t);
+    cp_async<sizeof(T)>(s_val + t, data + j0 + t);
+  }
+  cp_async_commit();
+  for (int t = half + lane; t < n_ent; t += 32) {
+    cp_async<4>(s_idx + t, indices + j0 + t);
+    cp_async<sizeof(T)>(s_val + t, data + j0 + t);
+  }
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncwarp();
+  bool staged = false;                  // group 1 arrived (warp-uniform)
+
+  // row r's entries in this chunk, as offsets into the staged arrays; the
+  // row ending after the chunk (r == i1) runs to the chunk's end
+  auto row_lo = [&](int r) { return r == i0 ? 0 : s_end[r - 1 - i0] - j0; };
+  auto row_hi = [&](int r) { return r < i1 ? s_end[r - i0] - j0 : n_ent; };
+
+  const int NV = C / EV;                // vectors in a rhs row
+  const int last = i1 < n ? i1 : n - 1; // row i1, cut by the chunk's end, goes to the carry
+  for (int v0 = 0; v0 < NV; v0 += 32) {
+    const int G = min(32, NV - v0), groups = 32 / G;
+    const int g = lane / G, p = lane - g * G;
+    const int width = G * EV, col0 = v0 * EV;
+    const int short_max = short_factor * groups;
+    const VT* bp = reinterpret_cast<const VT*>(b) + v0 + p;
+    for (int r = i0; r <= last;) {
+      // short rows (empty ones too) go one to a group, up to `groups` at once
+      int nb = 0;
+      while (nb < groups && r + nb <= last && row_hi(r + nb) - row_lo(r + nb) <= short_max) ++nb;
+      const int hi = row_hi(nb ? r + nb - 1 : r);
+      if (!staged && hi > half) {
+        cp_async_wait<0>();
+        __syncwarp();
+        staged = true;
+      }
+      ACC acc[EV];
+#pragma unroll
+      for (int q = 0; q < EV; ++q) acc[q] = ACC(0);
+      if (nb) {
+        if (g < nb) {
+          const int rr = r + g;
+          int kk = row_lo(rr);
+          const int kend = row_hi(rr);
+          for (; kk + SPMM_UNROLL - 1 < kend; kk += SPMM_UNROLL) {
+            VT x[SPMM_UNROLL];
+#pragma unroll
+            for (int u = 0; u < SPMM_UNROLL; ++u) x[u] = __ldg(bp + (long long)s_idx[kk + u] * NV);
+#pragma unroll
+            for (int u = 0; u < SPMM_UNROLL; ++u) fma_vec<TB, ACC, EV>(acc, ACC(s_val[kk + u]), x[u]);
+          }
+          for (; kk < kend; ++kk) fma_vec<TB, ACC, EV>(acc, ACC(s_val[kk]), __ldg(bp + (long long)s_idx[kk] * NV));
+          T* dst = (rr < i1 ? out + (long long)rr * C : carry + (long long)c * C) + col0 + p * EV;
+#pragma unroll
+          for (int q = 0; q < EV; ++q) dst[q] = T(acc[q]);
+        }
+        r += nb;
+        continue;
+      }
+      // a long row: every group takes every groups-th entry
+      const int lo = row_lo(r);
+      if (g < groups) {
+        int kk = lo + g;
+        for (; kk + (SPMM_UNROLL - 1) * groups < hi; kk += SPMM_UNROLL * groups) {
+          VT x[SPMM_UNROLL];
+#pragma unroll
+          for (int u = 0; u < SPMM_UNROLL; ++u) x[u] = __ldg(bp + (long long)s_idx[kk + u * groups] * NV);
+#pragma unroll
+          for (int u = 0; u < SPMM_UNROLL; ++u) fma_vec<TB, ACC, EV>(acc, ACC(s_val[kk + u * groups]), x[u]);
+        }
+        for (; kk < hi; kk += groups)
+          fma_vec<TB, ACC, EV>(acc, ACC(s_val[kk]), __ldg(bp + (long long)s_idx[kk] * NV));
+      }
+      // the groups' sums meet in shared memory and are added in group order
+      const int used = min(groups, hi - lo);
+      if (g < used) {
+#pragma unroll
+        for (int q = 0; q < EV; ++q) s_red[lane * EV + q] = acc[q];
+      }
+      __syncwarp();
+      T* dst = (r < i1 ? out + (long long)r * C : carry + (long long)c * C) + col0;
+      for (int e = lane; e < width; e += 32) {
+        ACC s = s_red[e];
+        for (int h = 1; h < used; ++h) s += s_red[h * width + e];
+        dst[e] = T(s);
+      }
+      __syncwarp();
+      ++r;
     }
   }
-  if (live) out[(long long)row * C + col] = T(acc);
+  cp_async_wait<0>();                   // no copy outlives the warp
+}
+
+// K6's second pass: chunk c ends row r = plan[c]; if r started before the
+// chunk, add the carries of the chunks c' < c that r spans (those with
+// plan[c' + 1] == r), in chunk order, to the partial sum chunk c wrote.
+template <typename T>
+__global__ void __launch_bounds__(SPMM_THREADS)
+csr_spmm_fixup_kernel(const int* __restrict__ indptr, const int* __restrict__ plan,
+                      const T* __restrict__ carry, T* __restrict__ out, int n, int nnz, int C,
+                      int chunk, int nchunks) {
+  const int c = blockIdx.x * SPMM_WARPS + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (c == 0 || c >= nchunks) return;
+  const int r = plan[c];
+  if (r >= plan[c + 1]) return;         // the chunk ends no row
+  const int j0 = (int)min((long long)c * chunk, (long long)n + nnz) - r;
+  if (indptr[r] >= j0) return;          // row r starts in this chunk
+  int first = c - 1;
+  while (first > 0 && plan[first] == r) --first;
+  T* o = out + (long long)r * C;
+  for (int col = lane; col < C; col += 32) {
+    T s = carry[(long long)first * C + col];
+    for (int cc = first + 1; cc < c; ++cc) s += carry[(long long)cc * C + col];
+    o[col] = s + o[col];
+  }
 }
 
 // K7: gz is (n, C), b is (d, C); out has one value per stored entry.
@@ -166,13 +356,28 @@ cudaError_t launch_spmv(const int* indptr, const int* indices, const void* data,
   return cudaGetLastError();
 }
 
-template <typename T, typename TB, typename ACC>
+template <typename T, typename TB, typename ACC, int VB>
 cudaError_t launch_spmm(const int* indptr, const int* indices, const void* data, const void* b,
-                        void* out, int n, int C, cudaStream_t stream) {
-  const dim3 grid((n + WARPS - 1) / WARPS, (C + 31) / 32);
-  csr_spmm_kernel<T, TB, ACC><<<grid, THREADS, 0, stream>>>(
-      indptr, indices, static_cast<const T*>(data), static_cast<const TB*>(b),
-      static_cast<T*>(out), n, C);
+                        void* out, void* carry, const int* plan, int n, int nnz, int C, int chunk,
+                        int nchunks, int short_factor, cudaStream_t stream) {
+  constexpr int EV = VB / sizeof(TB);
+  if ((C * sizeof(TB)) % VB != 0) return cudaErrorInvalidValue;
+  const size_t smem = SPMM_WARPS * spmm_warp_bytes<T, ACC, EV>(chunk);
+  auto kernel = csr_spmm_kernel<T, TB, ACC, VB>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid((nchunks + SPMM_WARPS - 1) / SPMM_WARPS);
+  T* o = static_cast<T*>(out);
+  T* cr = static_cast<T*>(carry);
+  kernel<<<grid, SPMM_THREADS, smem, stream>>>(indptr, indices, static_cast<const T*>(data),
+                                               static_cast<const TB*>(b), o, cr, plan, n, nnz, C,
+                                               chunk, nchunks, short_factor);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || nchunks == 1) return err;
+  csr_spmm_fixup_kernel<T><<<grid, SPMM_THREADS, 0, stream>>>(indptr, plan, cr, o, n, nnz, C, chunk,
+                                                              nchunks);
   return cudaGetLastError();
 }
 
@@ -192,16 +397,32 @@ extern "C" int csr_spmv(const int* indptr, const int* indices, const void* data,
   }
 }
 
+// K6.  `plan` holds nchunks + 1 row starts (see the header), `carry` room
+// for nchunks x C values of the output's type, `vec` the bytes of one rhs
+// load (16, 8, 4 or 2; it divides C times the rhs's item size and the
+// rhs's address); a row with at most short_factor x (entries a warp step)
+// entries in a chunk is summed by one lane group alone.  Dtype codes as
+// for csr_spmv.
 extern "C" int csr_spmm(const int* indptr, const int* indices, const void* data, const void* b,
-                        void* out, int n, int C, int dtype, void* stream) {
-  if (n <= 0 || C <= 0 || (C + 31) / 32 > 65535) return (int)cudaErrorInvalidValue;
+                        void* out, void* carry, const int* plan, int n, int nnz, int C, int chunk,
+                        int nchunks, int short_factor, int dtype, int vec, void* stream) {
+  if (n <= 0 || nnz < 0 || C <= 0 || chunk < 32 || chunk > 4096 || nchunks <= 0 || short_factor < 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0: return (int)launch_spmm<float, float, float>(indptr, indices, data, b, out, n, C, s);
-    case 1: return (int)launch_spmm<float, __nv_bfloat16, float>(indptr, indices, data, b, out, n, C, s);
-    case 2: return (int)launch_spmm<double, double, double>(indptr, indices, data, b, out, n, C, s);
+#define K6_ARGS indptr, indices, data, b, out, carry, plan, n, nnz, C, chunk, nchunks, short_factor, s
+  switch (dtype * 100 + vec) {
+    case 16: return (int)launch_spmm<float, float, float, 16>(K6_ARGS);
+    case 8: return (int)launch_spmm<float, float, float, 8>(K6_ARGS);
+    case 4: return (int)launch_spmm<float, float, float, 4>(K6_ARGS);
+    case 116: return (int)launch_spmm<float, unsigned short, float, 16>(K6_ARGS);
+    case 108: return (int)launch_spmm<float, unsigned short, float, 8>(K6_ARGS);
+    case 104: return (int)launch_spmm<float, unsigned short, float, 4>(K6_ARGS);
+    case 102: return (int)launch_spmm<float, unsigned short, float, 2>(K6_ARGS);
+    case 216: return (int)launch_spmm<double, double, double, 16>(K6_ARGS);
+    case 208: return (int)launch_spmm<double, double, double, 8>(K6_ARGS);
     default: return (int)cudaErrorInvalidValue;
   }
+#undef K6_ARGS
 }
 
 // dtype codes: 0 = float32, 2 = float64 (gz, b and the output alike).

@@ -9,6 +9,12 @@ the H100 and how each is laid out); they read a
 plain versions (:func:`csr_matmul_plain`, :func:`csr_sddmm_plain`), CUDA
 tensors launch the kernels or raise.
 
+K6 splits the merged sequence of row ends and entries into chunks of
+``SPMM_CHUNK`` items (the merge-based split of Merrill & Garland).  Its
+plan, the row at which each chunk starts (:func:`merge_path_plan`), is
+made on the matrix's device with torch ops and kept with the matrix
+(:func:`spmm_plan`).
+
 :func:`csr_matmul` picks K5 for a rhs of at most ``SPMV_MAX_C`` columns
 (a vector counts as one) and K6 for a wider one.  No TPU threshold carries
 over: the split is set from the H100 timings of both kernels at the GLM's
@@ -19,11 +25,18 @@ from __future__ import annotations
 
 import ctypes
 
-__all__ = ["SPMV_MAX_C", "csr_matmul", "csr_matmul_plain", "csr_spmv", "csr_spmm", "csr_sddmm",
-           "csr_sddmm_plain", "row_ids"]
+__all__ = ["SPMM_CHUNK", "SPMM_SHORT", "SPMV_MAX_C", "csr_matmul", "csr_matmul_plain", "csr_spmv", "csr_spmm",
+           "csr_sddmm", "csr_sddmm_plain", "merge_path_plan", "row_ids", "spmm_plan",
+           "spmm_vector_bytes"]
 
 #: widest rhs that K5 takes in :func:`csr_matmul`; wider ones go to K6
 SPMV_MAX_C = 8
+#: items (row ends and stored entries) of K6's merged sequence per warp
+SPMM_CHUNK = 128
+#: K6 sums a row with at most this many warp steps' entries in a chunk with
+#: one lane group alone, several such rows at once (both set from the H100
+#: sweep of ``chip_smoke.py --k6-sweep`` that ``PERF.md`` records)
+SPMM_SHORT = 2
 
 
 def _acc_dtype(dtype):
@@ -63,16 +76,60 @@ def csr_sddmm_plain(a, gz, b):
     return (gz2[row_ids(a)] * b2[a.indices.long()]).sum(-1).to(a.dtype)
 
 
+def merge_path_plan(indptr, nnz: int, chunk: int = SPMM_CHUNK):
+    """K6's plan for a CSR with this ``indptr`` and ``nnz`` stored entries:
+    int32, one more than the number of chunks; item c is the row at which
+    chunk c starts.
+
+    The merged sequence puts row r's end after its last entry, at position
+    ``r + indptr[r + 1]``; chunk c covers the positions from ``c * chunk``
+    (clamped to n + nnz).  The rows started before a diagonal are the row
+    ends before it, so the plan is one ``searchsorted`` on the device: no
+    value goes back to the host.  The number of chunks comes from the
+    shapes alone."""
+    import torch
+
+    n = indptr.shape[0] - 1
+    nchunks = max(1, -(-(n + nnz) // chunk))
+    if n + nnz + chunk >= 2**31:
+        raise ValueError("K6 takes fewer than 2**31 rows and stored entries together")
+    i32 = dict(device=indptr.device, dtype=torch.int32)
+    diag = torch.arange(0, (nchunks + 1) * chunk, chunk, **i32).clamp_(max=n + nnz)
+    ends = indptr[1:] + torch.arange(n, **i32)
+    return torch.searchsorted(ends, diag, out_int32=True)
+
+
+def spmm_plan(a, chunk: int = SPMM_CHUNK):
+    """K6's plan for the CSRMat ``a``, made once and kept with its pattern
+    (``a.plans``, which its transposes and ``with_data`` share)."""
+    plan = a.plans.get(chunk)
+    if plan is None:
+        plan = a.plans[chunk] = merge_path_plan(a.indptr, a.nnz, chunk)
+    return plan
+
+
+def spmm_vector_bytes(C: int, itemsize: int, address: int) -> int:
+    """The bytes of one rhs load in K6: the widest of 16, 8, 4 and 2 that
+    is at least one item and divides both a rhs row (``C * itemsize``) and
+    the rhs's address."""
+    for vec in (16, 8, 4, 2):
+        if vec >= itemsize and (C * itemsize) % vec == 0 and address % vec == 0:
+            return vec
+    raise ValueError(f"no load width for {C} items of {itemsize} bytes at address {address:#x}")
+
+
 def _library():
     from aesara_tpu_torch.link.torch.kernels.build import load_cuda_library
 
     lib = load_cuda_library("csr_spmm")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        for name in ("csr_spmv", "csr_spmm", "csr_sddmm"):
+        for name in ("csr_spmv", "csr_sddmm"):
             entry = getattr(lib, name)
             entry.argtypes = [p, p, p, p, p, i, i, i, p]
             entry.restype = i
+        lib.csr_spmm.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
+        lib.csr_spmm.restype = i
         lib.csr_spmm_error_string.argtypes = [i]
         lib.csr_spmm_error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -114,7 +171,27 @@ def _matmul_operands(name, a, b, out_dtype):
     return a.data, b2.to(torch.float32).contiguous(), 0
 
 
-def _product(kernel, a, b, out_dtype):
+def _launch_spmm(a, data, b2, out, code, chunk, short):
+    """K6's two passes (the chunks, then the fix-up of the rows they cut)."""
+    import torch
+
+    n, C = a.shape[0], b2.shape[1]
+    plan = spmm_plan(a, chunk)
+    nchunks = plan.shape[0] - 1
+    carry = torch.empty((nchunks, C), dtype=out.dtype, device=out.device)
+    vec = spmm_vector_bytes(C, b2.element_size(), b2.data_ptr())
+    lib = _library()
+    stream = torch.cuda.current_stream(a.data.device).cuda_stream
+    err = lib.csr_spmm(a.indptr.data_ptr(), a.indices.data_ptr(), data.data_ptr(), b2.data_ptr(),
+                       out.data_ptr(), carry.data_ptr(), plan.data_ptr(), n, a.nnz, C, chunk, nchunks,
+                       short, code, vec, stream)
+    if err != 0:
+        raise RuntimeError(f"csr_spmm launch failed: {lib.csr_spmm_error_string(err).decode()}")
+
+
+def _product(kernel, a, b, out_dtype, launch):
+    """``a @ b`` by ``kernel``'s plain version for CPU operands, else by
+    ``launch(a, data, rhs, out, dtype code)``."""
     import torch
 
     out_dtype = out_dtype or torch.promote_types(a.dtype, b.dtype)
@@ -127,19 +204,23 @@ def _product(kernel, a, b, out_dtype):
     C = b2.shape[1]
     out = torch.empty((a.shape[0], C), dtype=out_dtype, device=b.device)
     if a.shape[0] and C:
-        _launch(name, a, (data, b2), out, C, code)
+        launch(a, data, b2, out, code)
         kernel.launches += 1
     return out.reshape(a.shape[0]) if b.dim() == 1 else out
 
 
 def csr_spmv(a, b, out_dtype=None):
     """K5: ``a @ b`` for a narrow rhs, one warp per row."""
-    return _product(csr_spmv, a, b, out_dtype)
+    return _product(csr_spmv, a, b, out_dtype,
+                    lambda a, data, b2, out, code: _launch("csr_spmv", a, (data, b2), out, b2.shape[1], code))
 
 
-def csr_spmm(a, b, out_dtype=None):
-    """K6: ``a @ b`` for a wide rhs, one warp per row and 32-column tile."""
-    return _product(csr_spmm, a, b, out_dtype)
+def csr_spmm(a, b, out_dtype=None, chunk: int = SPMM_CHUNK, short: int = SPMM_SHORT):
+    """K6: ``a @ b`` for a wide rhs, split by entries into chunks of
+    ``chunk`` merged items, one warp each (``short``: see ``SPMM_SHORT``);
+    one launch counted per call."""
+    return _product(csr_spmm, a, b, out_dtype,
+                    lambda a, data, b2, out, code: _launch_spmm(a, data, b2, out, code, chunk, short))
 
 
 def csr_matmul(a, b, out_dtype):

@@ -4,6 +4,8 @@ encoder forward, train the same encoder for a few steps, then train and
 serve the sparse-input models, all through ``aesara_tpu_torch.function``.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --k6-sweep    # only K6's tuning table (see k6_sweep)
+    python3 chip_smoke.py --profile-check    # only the trace's lost launches (see profile_check)
 
 Phases (any failure raises and the exit code is non-zero):
 
@@ -20,30 +22,35 @@ Phases (any failure raises and the exit code is non-zero):
    counts show the forward went through them, and one sequence is held
    against the same graph compiled for the CPU.
 3. train kernels: K1 on the train step's Composites and K3 against their
-   plain versions on the card, with the times of both.
+   plain versions on the card, with the times of both and of PyTorch's
+   memory-efficient attention backward.
 4. train: the train step of the same encoder (symbolic ``grad``, ``sgd``
    updates of the shared parameters, ``x`` a shared (8, 1024, 1024)
    tensor on the card, as ``benchmarks/bench_transformer.py:26-67``
    builds it) takes 3 steps; the launch counts show every step went
    through K1, K2 (forward and K3's recompute) and K3, and the loss falls
    below the first step's.
-   Then 10 steps are timed back to back and one is profiled.  The same
-   step at batch 1 on the card and on the CPU agrees after one step.
+   Then 10 steps are timed back to back and 3 are profiled (after one
+   that the profiler traces and drops), the trace's launches of K1 and
+   K4-K7 held against the counters.  The same step at batch 1 on the card
+   and on the CPU agrees after one step.
 5. (a) bag-of-words classifier: ``LogisticRegression(130107, 20)`` on a
    shared CSR x of the 20 Newsgroups training split's size (11,314
-   documents, synthetic, from a seed): K6 (forward and the weights'
-   gradient on the transposed twin) and K4 against their plain versions
-   at the step's shapes; 3 sgd steps with launch counts, 10 timed, one
-   profiled; ``predict`` answers 3 requests; one step at 512 documents
-   on the card against the CPU.
+   documents, synthetic, from a seed): K6 (forward, the weights'
+   gradient on the transposed twin, where two calls must give the same
+   bits, and one ``predict`` request whose plan is made in the call) and
+   K4 against their plain versions at the step's shapes; 3 sgd steps with
+   launch counts, 10 timed, 3 profiled; ``predict`` answers 3 requests;
+   one step at 512 documents on the card against the CPU.
 6. (b) sparse GLM: the repo's config 5 at ``REFRATIO_SCALE=4``
    (``benchmarks/bench_reference_ratio.py:276-321``, 16384 x 8192 at
    density 0.01, without the Monte-Carlo noise): K5 against its plain
    version, K5 and K6 timed at rhs widths 1-32 (the split between them),
    3 + 10 steps with launch counts.
 7. (c) the gradient with respect to x's stored values at the GLM's size,
-   for a rhs of width 1 and of width 20: K7 against its plain version, the
-   function's launches, its output against the same function on the CPU.
+   for a rhs of width 1 and of width 20: K7, and K6 at width 20, against
+   their plain versions, the function's launches, its output against the
+   same function on the CPU.
 
 The next-to-last lines are a JSON object describing the kernels (each
 kernel's launches from its path's run) and the card's name and power
@@ -109,6 +116,13 @@ N_SPARSE_STEPS, N_SPARSE_TIMED = 3, 10
 SPLIT_WIDTHS = (1, 2, 4, 8, 16, 32)
 GRAD_WIDTHS = (1, 20)
 SPARSE_TOL = 1e-5        # fp32 K4-K7 against their plain versions (summation order)
+PROFILE_STEPS = 3        # calls in a profiled window, after one the profiler drops
+# idle host time at each edge of a profiled window: on the H100, a kernel
+# that runs within a fraction of a millisecond of a window's edge can be
+# missing from its trace (the device's timestamps, put on the host's clock,
+# can land before the launch that caused them); --profile-check
+# counts the sessions that lose launches with and without the gap
+PROFILE_GAP_S = 0.01
 
 
 def log(*args):
@@ -146,9 +160,11 @@ def device_split(fn, reps: int = 20, warmup: int = 3) -> dict:
         # on the H100 a profiler session now and then comes back without
         # device events; try it again
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_GAP_S)
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
+            time.sleep(PROFILE_GAP_S)
         device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
         if device:
             break
@@ -188,9 +204,22 @@ def library_ms(name: str, fn):
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")
             return device_ms(fn)
-    except (RuntimeError, NotImplementedError) as exc:
+    except (RuntimeError, NotImplementedError, TypeError) as exc:
         log(f"{name} library call not timed: {type(exc).__name__}: {str(exc)[:200]}")
         return None
+
+
+def call_by_schema(op, values: dict):
+    """A call of the aten overload ``op``, each argument passed by the name
+    that the installed torch's schema gives it, from ``values``; one that
+    ``values`` lacks keeps its default (a TypeError if it has none)."""
+    kwargs = {}
+    for arg in op._schema.arguments:
+        if arg.name in values:
+            kwargs[arg.name] = values[arg.name]
+        elif not arg.has_default_value():
+            raise TypeError(f"{op._schema.name}: no value for its argument {arg.name}")
+    return lambda: op(**kwargs)
 
 
 def build_encoder(device: str):
@@ -527,9 +556,36 @@ def check_train_graph(fgraph):
                              f"{N_LAYERS}")
 
 
+def k3_library_ms(q, k, v, do, scale):
+    """Device ms of PyTorch's memory-efficient attention backward
+    (``_scaled_dot_product_efficient_attention_backward``, fp32 on sm_90)
+    on K3's inputs, viewed as (8, 16, T, D); its ``out`` and ``logsumexp``
+    come from the matching forward, run outside the timed window.  None,
+    with the reason logged, when the library refuses the call."""
+    aten = torch.ops.aten
+    fwd = aten._scaled_dot_product_efficient_attention.default
+    bwd = aten._scaled_dot_product_efficient_attention_backward.default
+    log(f"K3 library call: {bwd._schema}")
+    q4, k4, v4, do4 = (t.reshape(8, t.shape[0] // 8, *t.shape[1:]) for t in (q, k, v, do))
+    try:
+        out, lse, seed, offset = call_by_schema(fwd, {
+            "query": q4, "key": k4, "value": v4, "attn_bias": None, "compute_log_sumexp": True,
+            "dropout_p": 0.0, "is_causal": False, "scale": scale})()
+        names = {"grad_out_": do4, "grad_out": do4, "query": q4, "key": k4, "value": v4, "attn_bias": None,
+                 "out": out, "logsumexp": lse, "philox_seed": seed, "philox_offset": offset,
+                 "dropout_p": 0.0, "grad_input_mask": [True, True, True, False], "is_causal": False,
+                 "scale": scale}
+        backward = call_by_schema(bwd, names)
+    except (RuntimeError, NotImplementedError, TypeError) as exc:
+        log(f"K3 library call not timed: {type(exc).__name__}: {str(exc)[:200]}")
+        return None
+    return library_ms("K3", backward)
+
+
 def phase_k3():
     """K3 against its plain version on the card: (fp32 max abs err,
-    (ms, plain ms) at the flagship shape, fp32, non-causal)."""
+    (ms, plain ms, bound ms, bound by, library ms) at the flagship shape,
+    fp32, non-causal)."""
     from aesara_tpu_torch.link.torch.kernels.attention import (
         attention_grads_plain, flash_attention_grads,
     )
@@ -572,7 +628,9 @@ def phase_k3():
         if shape == (128, 1024, 64) and not causal and dtype == torch.float32:
             BH, T, D = shape
             # inputs q, k, v, dO and outputs dQ, dK, dV; S, dP, dV, dQ, dK products
-            k3_times = (ms, plain_ms, *bound(7 * q.numel() * 4, 10 * BH * T * T * D))
+            lib = k3_library_ms(q, k, v, do, scale)
+            log(f"K3 {shape} fp32: _scaled_dot_product_efficient_attention_backward (library) device ms {lib}")
+            k3_times = (ms, plain_ms, *bound(7 * q.numel() * 4, 10 * BH * T * T * D), lib)
     return k3_err, k3_times
 
 
@@ -618,10 +676,12 @@ def phase_train(step, params):
 
 
 def kernel_group(name: str) -> str:
-    """The group of a device kernel's time in a profiled step."""
+    """The group of a device kernel's time in a profiled step; every kernel
+    a wrapper launches falls into its group (K6: its main pass and its
+    fix-up)."""
     groups = (("flash_bwd", "K3 flash backward"), ("flash_fwd", "K2 flash forward"),
               ("csr_spmv_kernel", "K5 CSR SpMV"), ("csr_spmm_kernel", "K6 CSR SpMM"),
-              ("csr_sddmm_kernel", "K7 CSR SDDMM"))
+              ("csr_spmm_fixup_kernel", "K6 CSR SpMM"), ("csr_sddmm_kernel", "K7 CSR SDDMM"))
     for key, group in groups:
         if key in name:
             return group
@@ -634,34 +694,89 @@ def kernel_group(name: str) -> str:
     return "other torch"
 
 
-def profile_call(fn, label: str):
-    """One call of ``fn`` under torch.profiler: wall time, device busy time
-    and its split by kernel group and by kernel."""
-    from torch.profiler import ProfilerActivity, profile
+def counted_kernel(name: str):
+    """The counter ("K1", "K4"-"K7") whose one launch this device kernel
+    marks, or None: each wrapper call runs one such kernel (K6's fix-up
+    pass, a second kernel of the same call, marks none)."""
+    counter = kernel_group(name)[:2]
+    return counter if counter in ("K1", "K4", "K5", "K6", "K7") and "fixup" not in name else None
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not device:
+
+def profile_session(fn, label: str, steps: int = PROFILE_STEPS, gap: float = PROFILE_GAP_S):
+    """``steps`` calls of ``fn`` under torch.profiler, after one call that
+    the profiler traces as its warm-up and drops, with ``gap`` seconds of
+    idle host time at each edge of the recorded window: (wall ms per call,
+    the device events, the launches of K1 and K4-K7 in the trace and by
+    the counters, the plain calls)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=steps, repeat=1)) as prof:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+            time.sleep(gap)
+            zero_counters()
+            t0 = time.perf_counter()
+            for i in range(steps):
+                fn()
+                if i == steps - 1:
+                    torch.cuda.synchronize()
+                    wall = (time.perf_counter() - t0) * 1e3 / steps
+                    time.sleep(gap)
+                prof.step()
+        # the profiler's own ProfilerStep# ranges also appear on the device
+        # timeline; they are annotations, not work
+        device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.name.startswith("ProfilerStep")]
+        if device:
+            break
+        log(f"profiler session {attempt + 1} saw no device activity in the {label}")
+    else:
         raise RuntimeError(f"the profiler saw no device activity in the {label}")
-    busy = sum(e.time_range.elapsed_us() for e in device) / 1e3
+    counters = _all_counters()
+    counted = {k: counters[k].launches for k in ("K1", "K4", "K5", "K6", "K7")}
+    traced = dict.fromkeys(counted, 0)
+    for e in device:
+        if counted_kernel(e.name) is not None:
+            traced[counted_kernel(e.name)] += 1
+    return wall, device, traced, counted, sum(c.plain_calls for c in counters.values())
+
+
+def profile_call(fn, label: str, steps: int = PROFILE_STEPS):
+    """A ``profile_session`` of ``fn`` whose trace shows, for K1 and K4-K7,
+    the launches that the counters count over the same calls: per call,
+    the wall time, the device busy time and its split by kernel group and
+    by kernel.  A session whose trace lost launches is logged and made
+    again; raises after three such sessions, or at once on a plain call."""
+    for attempt in range(3):
+        wall, device, traced, counted, plain = profile_session(fn, label, steps)
+        if plain:
+            raise AssertionError(f"profiled {label}: {plain} calls went to a plain version")
+        if traced == counted:
+            break
+        log(f"profiler session {attempt + 1} of the {label} lost launches: trace {traced}, "
+            f"counters {counted}")
+    else:
+        raise AssertionError(f"profiled {label}: in three sessions the trace showed launches {traced}, "
+                             f"the counters {counted}")
     groups: dict = {}
     by_name: dict = {}
     for e in device:
-        t = e.time_range.elapsed_us() / 1e3
-        groups.setdefault(kernel_group(e.name), [0.0, 0])
-        groups[kernel_group(e.name)][0] += t
-        groups[kernel_group(e.name)][1] += 1
+        t = e.time_range.elapsed_us() / 1e3 / steps
+        group = groups.setdefault(kernel_group(e.name), [0.0, 0])
+        group[0] += t
+        group[1] += 1
         by_name[e.name[:70]] = by_name.get(e.name[:70], 0.0) + t
-    log(f"profiled {label}: wall {wall:.3f} ms, device busy {busy:.3f} ms "
-        f"({100 * busy / wall:.1f}%)")
+    busy = sum(t for t, _ in groups.values())
+    log(f"profiled {label}, {steps} calls after a dropped one: per call wall {wall:.3f} ms, device busy "
+        f"{busy:.3f} ms ({100 * busy / wall:.1f}%)")
     for group, (t, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
-        log(f"  {t:9.3f} ms  {100 * t / busy:5.1f}%  {n:4d} launches  {group}")
+        log(f"  {t:9.3f} ms  {100 * t / busy:5.1f}%  {n / steps:6.1f} kernels  {group}")
     for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         log(f"  {t:9.3f} ms  {name}")
+    log(f"  launches in {steps} calls, trace {traced}, counters {counted}; plain calls {plain}")
 
 
 def time_steps(step, n: int, label: str):
@@ -811,6 +926,15 @@ def check_matmul(label: str, kernel, a, b) -> dict:
     return res
 
 
+def spmm_fresh_plan(a, b, out_dtype):
+    """K6 on a copy of the CSRMat ``a`` that holds no plan, as ``predict``
+    meets each request's matrix: the plan is made in the call."""
+    from aesara_tpu_torch.link.torch.csr import CSRMat
+    from aesara_tpu_torch.link.torch.kernels.sparse import csr_spmm
+
+    return csr_spmm(CSRMat(a.indptr, a.indices, a.data, a.shape), b, out_dtype)
+
+
 def check_sddmm(label: str, a, gz, b) -> dict:
     """K7 against its plain version at one shape, with the times of both,
     of torch.sparse.sampled_addmm, and the bound."""
@@ -954,8 +1078,16 @@ def phase_logistic() -> dict:
     g = torch.randn((NG_DOCS, NG_CLASSES), device=cuda, generator=gen) * 1e-3
     k6 = check_matmul("K6 forward x @ W", csr_spmm, a, w)
     k6_grad = check_matmul("K6 gradient x^T @ g (transposed twin)", csr_spmm, a.transpose(), g)
+    twin = a.transpose()
+    if not torch.equal(csr_spmm(twin, g), csr_spmm(twin, g)):
+        raise AssertionError("K6: two calls on the transposed twin gave different bits")
+    log("K6: two calls on the transposed twin give the same bits")
+    req = CSRMat.from_scipy(xv[:NG_REQUEST_DOCS], cuda)
+    k6_request = check_matmul(f"K6 predict request ({NG_REQUEST_DOCS} documents, plan made in the call)",
+                              spmm_fresh_plan, req, w)
+    log(f"K6 predict request with its plan kept: device ms {device_ms(lambda: csr_spmm(req, w)):.4f}")
     k4 = check_k4(torch.randn((NG_DOCS, NG_CLASSES), device=cuda, generator=gen) * 3)
-    del a, w, g
+    del a, w, g, twin, req
 
     torch.cuda.synchronize()
     reset_peak()
@@ -990,7 +1122,8 @@ def phase_logistic() -> dict:
     log(f"(a) predict agrees with argmax(x @ W + b) by SciPy on the host for every request")
     del step, predict, model
     check_logistic_against_cpu(xv, yv)
-    return {"K4": k4, "K6": k6, "K6_grad": k6_grad, "launches": launches, "ms": ms, "peak": peak}
+    return {"K4": k4, "K6": k6, "K6_grad": k6_grad, "K6_request": k6_request, "launches": launches, "ms": ms,
+            "peak": peak}
 
 
 def build_glm(device: str, xv, yv, wv):
@@ -1028,10 +1161,14 @@ def phase_glm():
     k5_grad = check_matmul("K5 GLM gradient x^T @ g (transposed twin)", csr_spmv, a.transpose(),
                            torch.randn((GLM_N, 1), device=cuda, generator=gen))
     log(f"K5/K6 split at the GLM's x (device ms; csr_matmul sends widths <= {SPMV_MAX_C} to K5):")
+    faster = {}
     for C in SPLIT_WIDTHS:
         b = torch.randn((GLM_D, C), device=cuda, generator=gen)
         t5, t6 = device_ms(lambda: csr_spmv(a, b)), device_ms(lambda: csr_spmm(a, b))
-        log(f"  width {C:3d}: K5 {t5:.4f}  K6 {t6:.4f}  faster {'K5' if t5 <= t6 else 'K6'}")
+        faster[C] = "K5" if t5 <= t6 else "K6"
+        log(f"  width {C:3d}: K5 {t5:.4f}  K6 {t6:.4f}  faster {faster[C]}")
+    k5_widths = [C for C in SPLIT_WIDTHS if faster[C] == "K5"]
+    log(f"K5 faster at widths {k5_widths}; SPMV_MAX_C is {SPMV_MAX_C}")
     del a
 
     t0 = time.perf_counter()
@@ -1074,12 +1211,15 @@ def phase_values_grad(xv) -> dict:
 
     cuda = torch.device("cuda")
     gen = torch.Generator(device=cuda).manual_seed(13)
+    from aesara_tpu_torch.link.torch.kernels.sparse import csr_spmm
+
     a = CSRMat.from_scipy(xv, cuda)
     k7 = {}
     for C in GRAD_WIDTHS:
         gz = torch.randn((GLM_N, C), device=cuda, generator=gen)
         b = torch.randn((GLM_D, C), device=cuda, generator=gen)
         k7[C] = check_sddmm(f"K7 values gradient, width {C}", a, gz, b)
+    k6 = check_matmul(f"K6 values-gradient path x @ b, width {max(GRAD_WIDTHS)}", csr_spmm, a, b)
     del a
     f_gpu, f_cpu = build_values_grad("cuda"), build_values_grad("cpu")
     names = node_names(f_gpu.maker.fgraph)
@@ -1110,7 +1250,7 @@ def phase_values_grad(xv) -> dict:
         np.testing.assert_allclose(got.data, want.data, atol=1e-4, rtol=SPARSE_TOL)
         log(f"(c) width {C}: card vs CPU, same pattern ({got.nnz} entries), max abs err {err:.3e}")
     return {"K7": k7[max(GRAD_WIDTHS)], "K7_err": max(r["max_abs_err"] for r in k7.values()),
-            "launches": launches}
+            "K6": k6, "launches": launches}
 
 
 def kernel_line(name, route, source, replaces, launches, res):
@@ -1119,7 +1259,82 @@ def kernel_line(name, route, source, replaces, launches, res):
             "bound_ms": res["bound_ms"], "bound_by": res["bound_by"], "library_ms": res["library_ms"]}
 
 
+def k6_sweep():
+    """K6's tuning table: device ms at the four shapes of its paths for
+    each chunk size and short-row factor, every variant checked against
+    the plain version, in two rounds (the second in reverse order) with
+    torch.sparse.mm timed before and after each round."""
+    from aesara_tpu_torch.link.torch.csr import CSRMat
+    from aesara_tpu_torch.link.torch.kernels import sparse
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    log(f"card: {smi}; torch {torch.__version__}")
+    cuda = torch.device("cuda")
+    gen = torch.Generator(device=cuda).manual_seed(15)
+    xv, _ = newsgroups_like()
+    a = CSRMat.from_scipy(xv, cuda, with_transpose=True)
+    glm = CSRMat.from_scipy(glm_data()[0], cuda)
+    # the scales of phase_logistic's W and g
+    w = torch.randn((NG_FEATURES, NG_CLASSES), device=cuda, generator=gen) * 0.01
+    g = torch.randn((NG_DOCS, NG_CLASSES), device=cuda, generator=gen) * 1e-3
+    shapes = {"forward": (a, w), "twin": (a.transpose(), g),
+              "request": (CSRMat.from_scipy(xv[:NG_REQUEST_DOCS], cuda), w),
+              "(c) width 20": (glm, torch.randn((GLM_D, 20), device=cuda, generator=gen))}
+    variants = [(chunk, short) for chunk in (64, 128, 256, 512) for short in (0, 2, 4, 8)]
+    times: dict = {}
+    for label, (m, b) in shapes.items():
+        want = sparse.csr_matmul_plain(m, b, torch.float32)
+        fresh = label == "request"        # the plan made in the call, as predict makes it
+
+        def run(chunk, short):
+            mat = CSRMat(m.indptr, m.indices, m.data, m.shape) if fresh else m
+            return sparse.csr_spmm(mat, b, torch.float32, chunk=chunk, short=short)
+
+        for chunk, short in variants:
+            torch.testing.assert_close(run(chunk, short), want, atol=SPARSE_TOL, rtol=SPARSE_TOL)
+        A = torch_csr(m)
+        lib = [library_ms(label, lambda: torch.sparse.mm(A, b))]
+        for order in (variants, variants[::-1]):
+            for chunk, short in order:
+                times.setdefault((label, chunk, short), []).append(device_ms(lambda: run(chunk, short)))
+            lib.append(library_ms(label, lambda: torch.sparse.mm(A, b)))
+        log(f"K6 {label}: {m.shape} nnz {m.nnz} @ {tuple(b.shape)}; torch.sparse.mm device ms "
+            f"{[round(t, 4) for t in lib]} (before, between and after the rounds); plain checks passed")
+        for chunk, short in variants:
+            t = times[(label, chunk, short)]
+            log(f"  chunk {chunk:4d} short {short}: device ms {t[0]:.4f} {t[1]:.4f}")
+    print(smi)
+
+
+def profile_check(sessions: int = 100):
+    """How often a profiled window of the GLM step loses launches from its
+    trace, with no idle gap at its edges and with PROFILE_GAP_S, in
+    ``sessions`` sessions each, taken in turns.  Raises if any session with
+    the gap lost one."""
+    smi = phase_setup()
+    xv, yv, wv = glm_data()
+    step = build_glm("cuda", xv, yv, wv)
+    run_steps(step, N_SPARSE_STEPS, "(b) GLM")
+    lost = {0.0: 0, PROFILE_GAP_S: 0}
+    for i in range(sessions):
+        for gap in lost:
+            _, _, traced, counted, _ = profile_session(step, "(b) GLM train step", gap=gap)
+            if traced != counted:
+                lost[gap] += 1
+                log(f"session {i}, gap {gap} s: trace {traced}, counters {counted}")
+    log(f"sessions of {PROFILE_STEPS} GLM steps that lost launches from the trace, of {sessions}: "
+        f"{', '.join(f'gap {gap} s: {n}' for gap, n in lost.items())}")
+    print(smi)
+    if lost[PROFILE_GAP_S]:
+        raise AssertionError(f"{lost[PROFILE_GAP_S]} sessions lost launches with a gap of {PROFILE_GAP_S} s")
+
+
 def main():
+    if sys.argv[1:] in (["--k6-sweep"], ["--profile-check"]):
+        if not torch.cuda.is_available():
+            raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU")
+        return k6_sweep() if sys.argv[1] == "--k6-sweep" else profile_check()
     start = time.perf_counter()
     smi = phase_setup()
     t0 = time.perf_counter()
@@ -1155,9 +1370,10 @@ def main():
     k2 = {"max_abs_err": k2_err, "ms": k2_times[0], "plain_ms": k2_times[1], "bound_ms": k2_times[2],
           "bound_by": k2_times[3], "library_ms": k2_times[4]}
     k3 = {"max_abs_err": k3_err, "ms": k3_times[0], "plain_ms": k3_times[1], "bound_ms": k3_times[2],
-          "bound_by": k3_times[3], "library_ms": None}
+          "bound_by": k3_times[3], "library_ms": k3_times[4]}
     k5 = dict(glm["K5"], max_abs_err=max(glm["K5"]["max_abs_err"], glm["K5_grad"]["max_abs_err"]))
-    k6 = dict(lr["K6"], max_abs_err=max(lr["K6"]["max_abs_err"], lr["K6_grad"]["max_abs_err"]))
+    k6 = dict(lr["K6"], max_abs_err=max(r["max_abs_err"] for r in (
+        lr["K6"], lr["K6_grad"], lr["K6_request"], grad_values["K6"])))
     k7 = dict(grad_values["K7"], max_abs_err=grad_values["K7_err"])
     kernels = [
         kernel_line("K1 fused elemwise Composite", "triton", K1_SOURCE, K1_REPLACES, train_launches["K1"], k1),

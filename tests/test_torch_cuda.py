@@ -21,7 +21,7 @@ from aesara_tpu_torch.link.torch.kernels.elemwise import (
 )
 from aesara_tpu_torch.link.torch.kernels.softmax import softmax_rows, softmax_rows_plain
 from aesara_tpu_torch.link.torch.kernels.sparse import (
-    csr_matmul_plain, csr_sddmm, csr_sddmm_plain, csr_spmm, csr_spmv,
+    SPMM_CHUNK, SPMM_SHORT, csr_matmul_plain, csr_sddmm, csr_sddmm_plain, csr_spmm, csr_spmv,
 )
 from aesara_tpu_torch.models.linear import LogisticRegression
 from aesara_tpu_torch.models.optim import sgd
@@ -219,6 +219,95 @@ def test_k5_k6_a_stored_zero_times_inf_is_nan(cuda, kernel):
     b = torch.tensor([[1.0], [2.0], [float("inf")]], device=cuda)
     got = kernel(CSRMat.from_scipy(x, cuda), b).cpu()
     assert bool(got[0, 0].isnan()) and float(got[1, 0]) == 4.0
+
+
+def _dyadic_csr(counts, d, seed):
+    """A CSR with the given entries a row, distinct columns, values that
+    are multiples of 1/4: against a rhs of multiples of 1/16 every float32
+    sum here is exact, so any order of summation gives the same bits."""
+    rng = np.random.default_rng(seed)
+    counts = np.asarray(counts)
+    cols = np.concatenate([rng.choice(d, size=c, replace=False) for c in counts])
+    indptr = np.concatenate([[0], np.cumsum(counts)])
+    values = rng.integers(1, 5, size=indptr[-1]).astype("float32") / 4
+    return sps.csr_matrix((values, cols, indptr), shape=(len(counts), d))
+
+
+def _one_long_row(seed=12):
+    counts = np.random.default_rng(seed).integers(0, 6, size=300)
+    counts[5] = 50000
+    return _dyadic_csr(counts, 60000, seed)
+
+
+def _long_among_empty(seed=13):
+    counts = np.random.default_rng(seed).integers(0, 11, size=2000)
+    counts[::3] = 0
+    counts[1::97] = 3000
+    return _dyadic_csr(counts, 5000, seed)
+
+
+K6_PATTERNS = {"one_row_of_50000": _one_long_row, "long_among_empty": _long_among_empty,
+               "no_entries": lambda: sps.csr_matrix((500, 300), dtype="float32")}
+
+
+@pytest.mark.parametrize("short", [0, SPMM_SHORT, 8])
+@pytest.mark.parametrize("chunk", [32, SPMM_CHUNK])
+@pytest.mark.parametrize("which", sorted(K6_PATTERNS))
+def test_k6_splits_long_rows_and_writes_empty_ones(cuda, which, chunk, short):
+    x = K6_PATTERNS[which]()
+    a = CSRMat.from_scipy(x, cuda)
+    rhs = np.clip(np.round(np.random.default_rng(14).normal(size=(x.shape[1], 20)) * 16) / 16, -2, 2)
+    b = torch.from_numpy(rhs).to(cuda, torch.float32)      # sums of at most 50,000 x 2: exact
+    before = csr_spmm.launches
+    got = csr_spmm(a, b, torch.float32, chunk=chunk, short=short)
+    torch.cuda.synchronize()
+    assert csr_spmm.launches == before + 1
+    torch.testing.assert_close(got, csr_matmul_plain(a, b, torch.float32), atol=1e-5, rtol=1e-5)
+    np.testing.assert_array_equal(got.cpu().numpy(), (x @ b.cpu().numpy()).astype("float32"))
+
+
+@pytest.mark.parametrize("case", ["C33", "C64", "C129", "C33_f64", "bf16_C20", "bf16_C9", "unaligned_C20",
+                                  "unaligned_bf16_C20"])
+def test_k6_widths_dtypes_and_alignments_match_plain(cuda, case):
+    dtype = torch.float64 if case.endswith("f64") else torch.float32
+    C = int(case.split("C")[1].split("_")[0])
+    x = _awkward_csr(3000, 700, seed=15, dtype="float64" if dtype == torch.float64 else "float32")
+    a = CSRMat.from_scipy(x, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(16)
+    rhs_dtype = torch.bfloat16 if "bf16" in case else dtype
+    if case.startswith("unaligned"):             # a rhs 4 bytes past a 16-byte boundary
+        flat = torch.randn(700 * C + 8, device=cuda, generator=gen).to(rhs_dtype)
+        b = flat[4 // flat.element_size():][:700 * C].view(700, C)
+        assert b.data_ptr() % 16 != 0 and b.is_contiguous()
+    else:
+        b = torch.randn((700, C), device=cuda, generator=gen, dtype=dtype).to(rhs_dtype)
+    before = csr_spmm.launches
+    got = csr_spmm(a, b, dtype)
+    torch.cuda.synchronize()
+    assert csr_spmm.launches == before + 1 and got.dtype == dtype
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    torch.testing.assert_close(got, csr_matmul_plain(a, b, dtype), atol=tol, rtol=tol)
+
+
+def test_k6_is_deterministic_on_a_transposed_bag_of_words(cuda):
+    rng = np.random.default_rng(17)
+    docs, features = 2000, 30000
+    lengths = np.clip(np.rint(rng.lognormal(4.85, 1.0, docs)), 1, 20000).astype(np.int64)
+    rank = np.floor(np.exp(rng.random(lengths.sum()) * np.log(features))).astype(np.int64) - 1
+    x = sps.csr_matrix((rng.random(lengths.sum()).astype(np.float32),
+                        (np.repeat(np.arange(docs), lengths), rng.permutation(features)[rank])),
+                       shape=(docs, features))
+    # rows at unit norm, as TfidfVectorizer leaves them: float32 sums of
+    # order one, which no two summation orders give with the same bits
+    x.data /= np.repeat(np.sqrt(np.add.reduceat(x.data.astype(np.float64) ** 2, x.indptr[:-1])),
+                        np.diff(x.indptr)).astype(np.float32)
+    a = CSRMat.from_scipy(x, cuda, with_transpose=True).transpose()
+    assert np.diff(a.to_scipy().indptr).max() > 1000       # the commonest words: long rows
+    g = torch.randn((docs, 20), device=cuda, generator=torch.Generator(device=cuda).manual_seed(18))
+    first, second = csr_spmm(a, g, torch.float32), csr_spmm(a, g, torch.float32)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    torch.testing.assert_close(first, csr_matmul_plain(a, g, torch.float32), atol=1e-5, rtol=1e-5)
 
 
 @pytest.mark.parametrize("C", [None, 1, 20, 33, 64], ids=lambda c: f"C{c}")

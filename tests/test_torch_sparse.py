@@ -5,6 +5,9 @@ K5/K6 (``csr_matmul_plain``) and K7 (``csr_sddmm_plain``) are held against
 SciPy and against the JAX package's Pallas kernels ``bss_matmul``,
 ``_bss_matmul_wide`` and ``bss_sddmm`` in interpret mode, as
 ``tests/sparse/test_bss.py`` and ``tests/link/test_pallas.py`` run them.
+K6's split by entries is checked here through its plan
+(``merge_path_plan``) and a model of its chunked sum with the fix-up of
+cut rows, held against SciPy.
 Tolerance 1e-5 absolute and relative in float32 (sums of a few products
 in another order), 1e-12 in float64 (SciPy only: the BSS layout stores
 float32).  A stored zero against an inf in the rhs is held against SciPy
@@ -30,7 +33,8 @@ from aesara_tpu_torch import sparse
 from aesara_tpu_torch.config import config
 from aesara_tpu_torch.link.torch.csr import CSRMat
 from aesara_tpu_torch.link.torch.kernels.sparse import (
-    csr_matmul, csr_matmul_plain, csr_sddmm, csr_sddmm_plain, csr_spmm, csr_spmv,
+    SPMM_CHUNK, csr_matmul, csr_matmul_plain, csr_sddmm, csr_sddmm_plain, csr_spmm, csr_spmv,
+    merge_path_plan, spmm_plan, spmm_vector_bytes,
 )
 from aesara_tpu_torch.sparse.basic import StructuredDotGradA
 
@@ -256,3 +260,188 @@ def test_without_a_card_the_default_device_raises(monkeypatch):
         x = pt.vector("x")
         with pytest.raises(RuntimeError, match="cuda"):
             ptp.function([x], x * 2.0)
+
+
+# --------------------------------------------------------------------------
+# K6's merge-path plan and its chunked sum
+# --------------------------------------------------------------------------
+
+def _heavy_tailed(n=400, d=600, seed=20):
+    """Row lengths log-normal: most rows short, a few hundreds long."""
+    rng = np.random.default_rng(seed)
+    counts = np.minimum(np.rint(rng.lognormal(1.5, 1.4, n)).astype(int), d)
+    rows = [rng.choice(d, size=c, replace=False) for c in counts]
+    indptr = np.concatenate([[0], np.cumsum(counts)])
+    return sps.csr_matrix((rng.random(indptr[-1]).astype("float32"), np.concatenate(rows), indptr),
+                          shape=(n, d))
+
+
+def _one_heavy_row(n=200, d=12000, seed=21):
+    """Row 37 holds 9,000 of the 10,000 entries.  The values are multiples
+    of 1/4, so against a rhs of multiples of 1/16 every float32 sum is
+    exact in any order: the long row checks the split, not the rounding."""
+    rng = np.random.default_rng(seed)
+    others = np.delete(np.arange(n), 37)
+    counts = np.bincount(rng.choice(others, size=1000), minlength=n)
+    counts[37] = 9000
+    rows = [rng.choice(d, size=c, replace=False) for c in counts]
+    indptr = np.concatenate([[0], np.cumsum(counts)])
+    values = rng.integers(1, 5, size=indptr[-1]).astype("float32") / 4
+    x = sps.csr_matrix((values, np.concatenate(rows), indptr), shape=(n, d))
+    assert x.nnz == 10000 and np.diff(x.indptr)[37] == 9000
+    return x
+
+
+def _mostly_empty(n=500, d=80, seed=22):
+    """Nine rows in ten store nothing; the others are full."""
+    x = sps.lil_matrix((n, d), dtype="float32")
+    rng = np.random.default_rng(seed)
+    for r in range(0, n, 10):
+        x[r, :] = rng.random(d) + 0.5
+    return x.tocsr()
+
+
+def _bag_of_words_twin(docs=300, features=3000, seed=23):
+    """The transpose of a small bag-of-words CSR made as the classifier's
+    synthetic 20 Newsgroups data is: log-normal document lengths, word ids
+    ~ 1/rank, repeats merged, rows at unit norm."""
+    rng = np.random.default_rng(seed)
+    lengths = np.clip(np.rint(rng.lognormal(4.0, 1.0, docs)), 1, 5000).astype(np.int64)
+    rank = np.floor(np.exp(rng.random(lengths.sum()) * np.log(features))).astype(np.int64) - 1
+    cols = rng.permutation(features)[rank]
+    x = sps.csr_matrix((rng.random(lengths.sum()).astype(np.float32), (np.repeat(np.arange(docs), lengths), cols)),
+                       shape=(docs, features))
+    x.data /= np.repeat(np.sqrt(np.add.reduceat(x.data.astype(np.float64) ** 2, x.indptr[:-1])),
+                        np.diff(x.indptr)).astype(np.float32)
+    return x.T.tocsr()
+
+
+PLAN_MATRICES = {
+    "heavy_tailed": _heavy_tailed,
+    "one_row_90pct": _one_heavy_row,
+    "mostly_empty": _mostly_empty,
+    "no_entries": lambda: sps.csr_matrix((300, 50), dtype="float32"),
+    "below_one_chunk": lambda: _rand_csr(6, 30, 0.3, seed=24),
+    "bag_of_words_twin": _bag_of_words_twin,
+    "empty_rows": _with_empty_rows,
+}
+
+
+def _merge_starts(indptr, chunk):
+    """The rows at which the chunks start, by walking the merged sequence
+    one item at a time: row r's end comes once all its entries are in."""
+    n, nnz = len(indptr) - 1, int(indptr[-1])
+    starts, i, j = [0], 0, 0
+    for pos in range(1, n + nnz + 1):
+        if i < n and indptr[i + 1] <= j:
+            i += 1
+        else:
+            j += 1
+        if pos % chunk == 0 or pos == n + nnz:
+            starts.append(i)
+    return np.array(starts if n + nnz else [0, 0])
+
+
+@pytest.mark.parametrize("chunk", [32, SPMM_CHUNK, 512])
+@pytest.mark.parametrize("which", sorted(PLAN_MATRICES))
+def test_spmm_plan_covers_every_row_end_and_entry_once(which, chunk):
+    a = CSRMat.from_scipy(PLAN_MATRICES[which](), CPU)
+    n, nnz = a.shape[0], a.nnz
+    indptr = a.indptr.numpy().astype(np.int64)
+    plan = merge_path_plan(a.indptr, nnz, chunk)
+    assert plan.dtype == torch.int32 and plan.device == CPU
+    rows = plan.numpy().astype(np.int64)
+    nchunks = len(rows) - 1
+    assert nchunks == max(1, -(-(n + nnz) // chunk))
+    diag = np.minimum(np.arange(nchunks + 1) * chunk, n + nnz)
+    entries = diag - rows
+    # monotone, from (0, 0) to (n, nnz): the chunks cut the row ends and the
+    # entries into consecutive ranges, so each is covered exactly once
+    assert rows[0] == 0 and rows[-1] == n and entries[0] == 0 and entries[-1] == nnz
+    assert (np.diff(rows) >= 0).all() and (np.diff(entries) >= 0).all()
+    items = np.diff(rows) + np.diff(entries)
+    assert (items <= chunk).all() and (items[:-1] == chunk).all() and items.sum() == n + nnz
+    # a start (i, j) is a point of the merge path: rows before i are done
+    # (their entries lie below j), row i is not (its end lies at or past j)
+    inner = rows < n
+    assert (indptr[rows] <= entries).all()
+    assert (indptr[rows[inner] + 1] >= entries[inner]).all()
+    np.testing.assert_array_equal(rows, _merge_starts(indptr, chunk))
+
+
+def _chunked_spmm(a, b, chunk):
+    """A model of K6 (``csrc/csr_spmm.cu``) in float32: each chunk writes
+    the rows that end in it from its own entries and leaves the row cut by
+    its end in the carry; the fix-up adds a cut row's carries in chunk
+    order to what the chunk that ends the row wrote.  Every row must be
+    written exactly once."""
+    indptr, indices = a.indptr.numpy().astype(np.int64), a.indices.numpy()
+    data = a.data.numpy().astype(np.float32)
+    n, nnz, C = a.shape[0], a.nnz, b.shape[1]
+    plan = merge_path_plan(a.indptr, nnz, chunk).numpy().astype(np.int64)
+    nchunks = len(plan) - 1
+    out, carry = np.full((n, C), np.nan, np.float32), np.full((nchunks, C), np.nan, np.float32)
+    written = np.zeros(n, np.int64)
+
+    def partial(lo, hi):
+        return (data[lo:hi, None] * b[indices[lo:hi]]).sum(0, dtype=np.float32)
+
+    def start(c):
+        return min(c * chunk, n + nnz) - plan[c]
+
+    for c in range(nchunks):
+        i0, i1, j0, j1 = plan[c], plan[c + 1], start(c), start(c + 1)
+        k = j0
+        for r in range(i0, i1):
+            assert k <= indptr[r + 1] <= j1
+            out[r] = partial(k, indptr[r + 1])
+            written[r] += 1
+            k = indptr[r + 1]
+        if i1 < n:
+            carry[c] = partial(k, j1)
+    for c in range(1, nchunks):
+        r = plan[c]
+        if r >= plan[c + 1] or indptr[r] >= start(c):
+            continue
+        first = c - 1
+        while first > 0 and plan[first] == r:
+            first -= 1
+        s = carry[first].copy()
+        for cc in range(first + 1, c):
+            s += carry[cc]
+        out[r] = s + out[r]
+    assert (written == 1).all()
+    return out
+
+
+@pytest.mark.parametrize("chunk", [32, SPMM_CHUNK, 512])
+@pytest.mark.parametrize("which", sorted(PLAN_MATRICES))
+def test_chunked_spmm_model_matches_plain_and_scipy(which, chunk):
+    x = PLAN_MATRICES[which]()
+    b = np.round(_rhs(x.shape[1], 20, seed=25) * 16) / 16
+    a = CSRMat.from_scipy(x, CPU)
+    got = _chunked_spmm(a, b, chunk)
+    np.testing.assert_allclose(got, x @ b, **F32)
+    np.testing.assert_allclose(got, csr_matmul_plain(a, torch.from_numpy(b), torch.float32).numpy(), **F32)
+
+
+def test_spmm_plan_is_kept_with_the_pattern_through_transpose_and_with_data():
+    a = CSRMat.from_scipy(_bag_of_words_twin().T, CPU, with_transpose=True)
+    t1, t2 = a.transpose(), a.transpose()
+    assert t1 is not t2
+    plan = spmm_plan(t1)
+    assert spmm_plan(t2) is plan                       # kept on the twin, not on the wrapper
+    assert spmm_plan(a.transpose()) is plan
+    assert spmm_plan(t1.transpose()) is spmm_plan(a)
+    assert spmm_plan(a.with_data(a.data * 2)) is spmm_plan(a)
+    assert spmm_plan(a, 64) is not spmm_plan(a) and spmm_plan(a, 64) is spmm_plan(a.transpose().transpose(), 64)
+    torch.testing.assert_close(plan, merge_path_plan(a.t.indptr, a.t.nnz), rtol=0, atol=0)
+    assert CSRMat.from_scipy(_rand_csr(5, 4, 0.5), CPU).plans == {}
+
+
+@pytest.mark.parametrize("C,itemsize,address,want", [
+    (20, 4, 0, 16), (20, 4, 4, 4), (20, 4, 8, 8), (9, 4, 0, 4), (64, 4, 0, 16), (129, 4, 0, 4),
+    (33, 4, 0, 4), (1, 4, 0, 4), (20, 2, 0, 8), (9, 2, 0, 2), (16, 2, 0, 16), (2, 8, 0, 16),
+    (1, 8, 0, 8), (3, 8, 0, 8)])
+def test_spmm_vector_bytes_takes_the_widest_aligned_load(C, itemsize, address, want):
+    assert spmm_vector_bytes(C, itemsize, address) == want
