@@ -14,7 +14,13 @@ arrive as ``Reshape(DimShuffle(.))`` views, and the kernels read
 contiguous (BH, T, D) panels.  K3 takes no saved state, as
 ``FusedAttentionGrad`` takes only (q, k, v, dout): it re-runs K2 for the
 output and the row logsumexp (natural log), then launches the two
-backward kernels.
+backward kernels.  Those take every product on the tensor cores with
+``mma.sync``: fp32 in 3xTF32 (each operand split into two TF32 halves,
+three TF32 products, so fp32 stays close to fp32), bf16 as one bf16
+product, both with fp32 sums.  They use no atomics: two calls give the
+same bits.  They stage rows by 16-byte ``cp.async``, so a panel whose
+rows are not a multiple of 16 bytes, or not 16-byte aligned, goes to them
+padded with zero columns (:func:`cp_async_rows`).
 """
 
 from __future__ import annotations
@@ -139,12 +145,33 @@ flash_attention.launches = 0
 flash_attention.plain_calls = 0
 
 
+def cp_async_width(D: int, itemsize: int) -> int:
+    """The row width, in values, at which K3's kernels stage a panel of
+    width ``D``: D rounded up to a multiple of 16 bytes."""
+    per = 16 // itemsize
+    return -(-D // per) * per
+
+
+def cp_async_rows(t, width: int):
+    """``t`` as K3's kernels stage it by 16-byte ``cp.async``: rows of
+    ``width`` values from a 16-byte aligned address.  ``t`` itself when it
+    is so already, else a copy padded with zero columns.  The zeros change
+    no product: they add nothing to Q Kᵀ, dO Vᵀ or rowsum(dO ⊙ O), and they
+    give zero gradient columns, which the caller cuts off."""
+    if t.shape[-1] == width and t.data_ptr() % 16 == 0:
+        return t
+    out = t.new_zeros((*t.shape[:-1], width))
+    out[..., : t.shape[-1]] = t
+    return out
+
+
 def flash_attention_grads(q, k, v, do, causal: bool = False, scale: Optional[float] = None):
     """(dq, dk, dv) of attention over (BH, T, D) panels for the output
     gradient ``do`` (cast to q's dtype): the CUDA kernels for CUDA
     tensors, the plain version for CPU tensors.  On the card this re-runs
     the forward kernel (K2) for the output and the row logsumexp, then
-    launches K3's two kernels."""
+    launches K3's two kernels (3xTF32 tensor-core products for fp32,
+    deterministic)."""
     import torch
 
     if scale is None:
@@ -157,17 +184,21 @@ def flash_attention_grads(q, k, v, do, causal: bool = False, scale: Optional[flo
     BH, T, D = q.shape
     q, k, v, do = q.contiguous(), k.contiguous(), v.contiguous(), do.contiguous()
     o, lse = flash_attention(q, k, v, causal=causal, scale=scale, with_lse=True)
+    width = cp_async_width(D, q.element_size())
+    q, k, v, o, do = (cp_async_rows(t, width) for t in (q, k, v, o, do))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((BH, T), dtype=torch.float32, device=q.device)
     lib = _library("flash_bwd")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.flash_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
                         lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                        delta.data_ptr(), BH, T, D, float(scale), int(bool(causal)),
+                        delta.data_ptr(), BH, T, width, float(scale), int(bool(causal)),
                         0 if q.dtype == torch.float32 else 1, stream)
     if err != 0:
         raise RuntimeError(f"flash_bwd launch failed: {lib.flash_bwd_error_string(err).decode()}")
     flash_attention_grads.launches += 1
+    if width != D:
+        dq, dk, dv = (t[..., :D].contiguous() for t in (dq, dk, dv))
     return dq, dk, dv
 
 

@@ -23,7 +23,9 @@ Phases (any failure raises and the exit code is non-zero):
    against the same graph compiled for the CPU.
 3. train kernels: K1 on the train step's Composites and K3 against their
    plain versions on the card, with the times of both and of PyTorch's
-   memory-efficient attention backward.
+   memory-efficient attention backward (K3's backward kernels alone against
+   it, beside the 3xTF32 bound); K3's resources (registers, shared memory,
+   resident blocks) and, at the flagship shape, two calls with the same bits.
 4. train: the train step of the same encoder (symbolic ``grad``, ``sgd``
    updates of the shared parameters, ``x`` a shared (8, 1024, 1024)
    tensor on the card, as ``benchmarks/bench_transformer.py:26-67``
@@ -99,9 +101,12 @@ K6_REPLACES = "aesara_tpu/link/jax/bss.py:271"
 K7_REPLACES = "aesara_tpu/link/jax/bss.py:354"
 
 # the least time of a kernel: bytes over the H100's memory rate, flops over
-# its fp32 rate outside the tensor cores (NVIDIA's data sheet, SXM part)
+# its rate for the kernel's type: fp32 outside the tensor cores, or dense
+# TF32 on them for K3, which takes each fp32 product as three TF32 ones
+# (NVIDIA's data sheet, SXM part)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+TF32_FLOPS = 495e12
 
 # (a) fetch_20newsgroups_vectorized, training split: 11,314 documents x
 # 130,107 features, 20 classes; words per document log-normal, so that a
@@ -189,10 +194,11 @@ def reset_peak():
     torch.cuda.reset_peak_memory_stats()
 
 
-def bound(n_bytes: float, flops: float):
+def bound(n_bytes: float, flops: float, flops_per_s: float = FP32_FLOPS):
     """(least ms, what bounds it): the larger of the bytes over the card's
-    memory rate and the flops over its fp32 rate."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+    memory rate and the flops over its rate for the kernel's type (fp32
+    outside the tensor cores unless given)."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -556,6 +562,30 @@ def check_train_graph(fgraph):
                              f"{N_LAYERS}")
 
 
+def k3_occupancy():
+    """Log the resources of K3's kernels from flash_bwd_kernel_info: for
+    each dtype and D variant, threads, dynamic shared memory, registers,
+    spill bytes and resident blocks an SM of the dq and dK/dV kernels."""
+    import ctypes
+    from aesara_tpu_torch.link.torch.kernels.attention import _library
+
+    info_fn = _library("flash_bwd").flash_bwd_kernel_info
+    info_fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    info_fn.restype = ctypes.c_int
+    for dtype, dtype_name in ((0, "fp32"), (1, "bf16")):
+        for dmax in (64, 128):
+            parts = []
+            for which, kernel in ((0, "dq"), (1, "dK/dV")):
+                info = (ctypes.c_int * 5)()
+                err = info_fn(dtype, dmax, which, info)
+                if err != 0:
+                    raise RuntimeError(f"flash_bwd_kernel_info({dtype}, {dmax}, {which}) failed: {err}")
+                threads, smem, regs, spill, blocks = list(info)
+                parts.append(f"{kernel} {threads} threads, {smem} B shared, {regs} registers, "
+                             f"{spill} B spilled, {blocks} blocks ({blocks * threads // 32} warps) an SM")
+            log(f"K3 occupancy {dtype_name} D<={dmax}: {'; '.join(parts)}")
+
+
 def k3_library_ms(q, k, v, do, scale):
     """Device ms of PyTorch's memory-efficient attention backward
     (``_scaled_dot_product_efficient_attention_backward``, fp32 on sm_90)
@@ -584,8 +614,9 @@ def k3_library_ms(q, k, v, do, scale):
 
 def phase_k3():
     """K3 against its plain version on the card: (fp32 max abs err,
-    (ms, plain ms, bound ms, bound by, library ms) at the flagship shape,
-    fp32, non-causal)."""
+    (ms, plain ms, bound ms, bound by, library ms, backward kernels ms) at
+    the flagship shape, fp32, non-causal, where two calls must also give the
+    same bits)."""
     from aesara_tpu_torch.link.torch.kernels.attention import (
         attention_grads_plain, flash_attention_grads,
     )
@@ -594,10 +625,11 @@ def phase_k3():
         f"bf16 <= {BF16_REL} x max|plain|")
     device = torch.device("cuda")
     gen = torch.Generator(device=device).manual_seed(1)
+    k3_occupancy()
     k3_err, k3_times = 0.0, None
     cases = [((128, 1024, 64), False, torch.float32), ((128, 1024, 64), True, torch.float32),
              ((128, 1024, 64), False, torch.bfloat16), ((128, 1024, 64), True, torch.bfloat16),
-             ((6, 1000, 40), True, torch.float32)]
+             ((6, 1000, 40), True, torch.float32), ((2, 130, 96), False, torch.float32)]
     for shape, causal, dtype in cases:
         q, k, v, do = (torch.randn(shape, device=device, generator=gen).to(dtype) for _ in range(4))
         scale = 1.0 / shape[-1] ** 0.5
@@ -627,10 +659,24 @@ def phase_k3():
             f"kernels {bwd:.4f}, K2 recompute {ms - bwd:.4f}) plain {plain_ms:.4f}")
         if shape == (128, 1024, 64) and not causal and dtype == torch.float32:
             BH, T, D = shape
-            # inputs q, k, v, dO and outputs dQ, dK, dV; S, dP, dV, dQ, dK products
+            again = flash_attention_grads(q, k, v, do, causal=causal, scale=scale)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"K3 {shape} fp32: two calls gave different bits")
+            log(f"K3 {shape} fp32: two calls give the same bits for dq, dk and dv")
+            # inputs q, k, v, dO and outputs dQ, dK, dV; the S, dP, dV, dQ, dK
+            # products, each taken as three TF32 products on the tensor cores
             lib = k3_library_ms(q, k, v, do, scale)
-            log(f"K3 {shape} fp32: _scaled_dot_product_efficient_attention_backward (library) device ms {lib}")
-            k3_times = (ms, plain_ms, *bound(7 * q.numel() * 4, 10 * BH * T * T * D), lib)
+            ratio = f"{bwd / lib:.3f}x the library's time" if lib else "library not timed"
+            k3_bound = bound(7 * q.numel() * 4, 3 * 10 * BH * T * T * D, TF32_FLOPS)
+            own_ms = 3 * 14 * BH * T * T * D / TF32_FLOPS * 1e3
+            fp32_ms = 10 * BH * T * T * D / FP32_FLOPS * 1e3
+            log(f"K3 {shape} fp32: backward kernels device ms {bwd:.4f} against "
+                f"_scaled_dot_product_efficient_attention_backward (library) {lib}: {ratio}; "
+                f"3xTF32 bound of the 5 products at {TF32_FLOPS / 1e12:.0f} TFLOP/s "
+                f"{k3_bound[0]:.4f} ms (the kernels line's), of K3's 7 products {own_ms:.4f} ms; "
+                f"the same 5 products in fp32 on the CUDA cores {fp32_ms:.4f} ms")
+            k3_times = (ms, plain_ms, *k3_bound, lib, bwd)
     return k3_err, k3_times
 
 
@@ -1371,6 +1417,9 @@ def main():
           "bound_by": k2_times[3], "library_ms": k2_times[4]}
     k3 = {"max_abs_err": k3_err, "ms": k3_times[0], "plain_ms": k3_times[1], "bound_ms": k3_times[2],
           "bound_by": k3_times[3], "library_ms": k3_times[4]}
+    # the library call is handed out and logsumexp: K3's backward kernels alone compare with it
+    k3_line = dict(kernel_line("K3 flash attention backward", "cuda", K3_SOURCE, K3_REPLACES,
+                               train_launches["K3"], k3), backward_ms=k3_times[5])
     k5 = dict(glm["K5"], max_abs_err=max(glm["K5"]["max_abs_err"], glm["K5_grad"]["max_abs_err"]))
     k6 = dict(lr["K6"], max_abs_err=max(r["max_abs_err"] for r in (
         lr["K6"], lr["K6_grad"], lr["K6_request"], grad_values["K6"])))
@@ -1378,7 +1427,7 @@ def main():
     kernels = [
         kernel_line("K1 fused elemwise Composite", "triton", K1_SOURCE, K1_REPLACES, train_launches["K1"], k1),
         kernel_line("K2 flash attention forward", "cuda", K2_SOURCE, K2_REPLACES, train_launches["K2"], k2),
-        kernel_line("K3 flash attention backward", "cuda", K3_SOURCE, K3_REPLACES, train_launches["K3"], k3),
+        k3_line,
         kernel_line("K4 row log-softmax", "triton", K4_SOURCE, K4_REPLACES, lr["launches"]["K4"], lr["K4"]),
         kernel_line("K5 CSR SpMV (narrow rhs)", "cuda", K567_SOURCE, K5_REPLACES, glm["launches"]["K5"], k5),
         kernel_line("K6 CSR SpMM (wide rhs)", "cuda", K567_SOURCE, K6_REPLACES, lr["launches"]["K6"], k6),

@@ -5,7 +5,9 @@ scipy's: atol 2e-5, rtol 1e-4 (the three sum in different orders).
 K3's plain version against ``flash_attention_grads`` in interpret mode
 and ``jax.vjp`` of ``_attention_ref``: atol 5e-4, rtol 1e-3, the JAX
 package's own tolerance for its backward kernel
-(``tests/link/test_pallas.py:92-95``)."""
+(``tests/link/test_pallas.py:92-95``).  On the card K3 takes its
+products on the tensor cores in 3xTF32: a torch model of that scheme is
+held against the same references and against fp64."""
 
 import numpy as np
 import pytest
@@ -19,7 +21,10 @@ from aesara_tpu.link.jax.pallas_kernels import flash_attention as jax_flash
 from aesara_tpu.link.jax.pallas_kernels import flash_attention_grads as jax_flash_grads
 from aesara_tpu.tensor.nnet.attention import _attention_ref
 
-from aesara_tpu_torch.link.torch.kernels.attention import flash_attention, flash_attention_grads
+from aesara_tpu_torch.link.torch.kernels.attention import (
+    attention_grads_plain, attention_plain, cp_async_rows, cp_async_width, flash_attention,
+    flash_attention_grads,
+)
 from aesara_tpu_torch.tensor.nnet.attention import attention_grads_ref_numpy, attention_ref_numpy
 from aesara_tpu_torch.config import config
 
@@ -137,3 +142,116 @@ def test_plain_k3_bfloat16_runs_in_fp32_and_casts_dout():
     for g, w in zip(got, want):
         assert g.dtype == torch.bfloat16
         np.testing.assert_allclose(g.float().numpy(), w.numpy(), atol=2e-2, rtol=0)
+
+
+# --- K3's numerical scheme on the card: 3xTF32 -----------------------------
+
+
+def _tf32(x):
+    """x rounded to TF32 (10 mantissa bits, to nearest, ties away) as the
+    kernel's split rounds it: add half a TF32 ulp to the bits, clear the 13
+    low bits."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_3xtf32(a, b):
+    """a @ b as three TF32 products, the small terms first: hi = tf32(x),
+    lo = tf32(x - hi), a_lo b_hi + a_hi b_lo + a_hi b_hi, fp32 sums."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    return (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi
+
+
+def _mm_1xtf32(a, b):
+    return _tf32(a) @ _tf32(b)
+
+
+def _k3_model(q, k, v, do, causal, scale, mm):
+    """K3's formulas (those of ``attention_grads_plain``) with the five
+    products of its backward kernels taken by ``mm``; O and the lse come in
+    fp32 from the forward, as K2 gives them on the card."""
+    o, lse = attention_plain(q, k, v, causal, scale, with_lse=True)
+    s = mm(q, k.transpose(1, 2)) * scale
+    p = torch.exp(s - lse[..., None])
+    if causal:
+        T = q.shape[1]
+        p = p * torch.ones((T, T), dtype=torch.bool).tril()
+    ds = p * (mm(do, v.transpose(1, 2)) - (do * o).sum(-1, keepdim=True))
+    return mm(ds, k) * scale, mm(ds.transpose(1, 2), q) * scale, mm(p.transpose(1, 2), do)
+
+
+TF32_SHAPES = [((2, 1024, 64), False), ((2, 1024, 64), True), ((1, 160, 40), False),
+               ((1, 160, 40), True)]
+TF32_IDS = ["flagship-d", "flagship-d-causal", "oddshape", "oddshape-causal"]
+
+
+def _grad_inputs(shape, seed):
+    q, k, v = _qkv(shape, seed=seed)
+    do = np.random.default_rng(seed + 1).normal(size=shape).astype("float32")
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("shape,causal", TF32_SHAPES, ids=TF32_IDS)
+def test_3xtf32_model_of_k3_matches_pallas_interpret(shape, causal):
+    from jax.experimental.pallas import tpu as pltpu
+
+    arrays = _grad_inputs(shape, seed=21)
+    scale = float(1.0 / np.sqrt(shape[-1]))
+    got = _k3_model(*[torch.from_numpy(a) for a in arrays], causal, scale, _mm_3xtf32)
+    with pltpu.force_tpu_interpret_mode():
+        want = jax_flash_grads(*[jnp.asarray(a) for a in arrays], causal=causal, scale=scale)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=5e-4, rtol=1e-3, err_msg=name)
+
+
+@pytest.mark.parametrize("shape,causal", TF32_SHAPES, ids=TF32_IDS)
+def test_3xtf32_split_is_needed_and_enough(shape, causal):
+    # against fp64: 3xTF32 stays within 4x of fp32's error, while one TF32
+    # product (no split) is at least 10x worse than 3xTF32
+    q, k, v, do = (torch.from_numpy(a) for a in _grad_inputs(shape, seed=23))
+    scale = float(1.0 / np.sqrt(shape[-1]))
+    exact = attention_grads_plain(q.double(), k.double(), v.double(), do.double(), causal, scale)
+    fp32 = attention_grads_plain(q, k, v, do, causal, scale)
+    three = _k3_model(q, k, v, do, causal, scale, _mm_3xtf32)
+    one = _k3_model(q, k, v, do, causal, scale, _mm_1xtf32)
+
+    def err(grads):
+        return [(g.double() - e).abs().max().item() for g, e in zip(grads, exact)]
+
+    for name, e32, e3, e1 in zip(("dq", "dk", "dv"), err(fp32), err(three), err(one)):
+        assert e3 <= 4 * e32, (name, e3, e32)
+        assert e1 >= 10 * e3, (name, e1, e3)
+
+
+# --- K3's staging on the card: rows of 16 bytes ------------------------------
+
+
+@pytest.mark.parametrize("D,dtype,offset", [(33, torch.float32, 0), (64, torch.float32, 1),
+                                            (20, torch.bfloat16, 0), (37, torch.bfloat16, 0),
+                                            (64, torch.bfloat16, 0)],
+                         ids=["fp32-odd", "fp32-misaligned", "bf16-20", "bf16-odd", "bf16-aligned"])
+def test_k3_rows_padded_to_16_bytes_change_no_gradient(D, dtype, offset):
+    # the wrapper pads panels that 16-byte cp.async cannot stage with zero
+    # columns; offset > 0 starts the panel off a 16-byte boundary
+    shape = (2, 37, D)
+    arrays = _grad_inputs(shape, seed=25)
+    panels = []
+    for a in arrays:
+        base = torch.zeros(offset + a.size, dtype=dtype)
+        base[offset:] = torch.from_numpy(a).reshape(-1).to(dtype)
+        panels.append(base[offset:].view(shape))
+    width = cp_async_width(D, panels[0].element_size())
+    assert width >= D and (width * panels[0].element_size()) % 16 == 0
+    assert width - D < 16 // panels[0].element_size()
+    padded = [cp_async_rows(t, width) for t in panels]
+    for t, pt in zip(panels, padded):
+        assert pt.shape == (*shape[:2], width) and pt.data_ptr() % 16 == 0
+        assert torch.equal(pt[..., :D], t) and not pt[..., D:].any()
+        assert (pt is t) == (width == D and offset == 0)
+    scale = float(1.0 / np.sqrt(D))
+    want = attention_grads_plain(*panels, True, scale)
+    got = attention_grads_plain(*padded, True, scale)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert not g[..., D:].any(), name
+        torch.testing.assert_close(g[..., :D], w, msg=name)

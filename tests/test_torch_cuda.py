@@ -117,7 +117,11 @@ def test_k1_relu_grad_composite_matches_plain(cuda):
 
 @pytest.mark.parametrize("shape,causal,dtype", [
     ((4, 96, 64), False, torch.float32), ((2, 130, 40), True, torch.float32),
-    ((3, 200, 128), True, torch.bfloat16), ((2, 70, 96), False, torch.bfloat16)])
+    ((3, 200, 128), True, torch.bfloat16), ((2, 70, 96), False, torch.bfloat16),
+    ((2, 130, 96), False, torch.float32), ((1, 65, 128), True, torch.float32),
+    ((3, 1, 64), False, torch.float32),
+    # rows not a multiple of 16 bytes: the wrapper pads them with zero columns
+    ((2, 33, 33), True, torch.float32), ((2, 37, 20), False, torch.bfloat16)])
 def test_k3_kernel_matches_plain(cuda, shape, causal, dtype):
     gen = torch.Generator(device=cuda).manual_seed(3)
     q, k, v, do = (torch.randn(shape, device=cuda, generator=gen).to(dtype) for _ in range(4))
@@ -132,6 +136,18 @@ def test_k3_kernel_matches_plain(cuda, shape, causal, dtype):
         else:
             tol = 2e-2 * w.float().abs().max().item()
             torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_is_deterministic(cuda, dtype):
+    # no atomics: every sum is taken in one fixed order
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    q, k, v, do = (torch.randn((4, 256, 64), device=cuda, generator=gen).to(dtype) for _ in range(4))
+    first = flash_attention_grads(q, k, v, do)
+    second = flash_attention_grads(q, k, v, do)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
 
 
 def test_small_train_step_on_card_matches_cpu(cuda):
