@@ -3,9 +3,10 @@
 K2 replaces ``_flash_forward`` / ``flash_attention``
 (``aesara_tpu/link/jax/pallas_kernels.py:205,370``), K3
 ``flash_attention_grads`` (``:403``).  The kernels are CUDA C++ in
-``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` (their headers say what
-bounds them on the H100 and how they are built); :func:`flash_attention`
-and :func:`flash_attention_grads` are the wrappers.  CPU tensors take the
+``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu``, with the pieces they
+share in ``csrc/flash_mma.cuh`` (their headers say what bounds them on the
+H100 and how they are built); :func:`flash_attention` and
+:func:`flash_attention_grads` are the wrappers.  CPU tensors take the
 plain PyTorch versions (:func:`attention_plain`,
 :func:`attention_grads_plain`); CUDA tensors launch the kernels.
 
@@ -14,13 +15,14 @@ arrive as ``Reshape(DimShuffle(.))`` views, and the kernels read
 contiguous (BH, T, D) panels.  K3 takes no saved state, as
 ``FusedAttentionGrad`` takes only (q, k, v, dout): it re-runs K2 for the
 output and the row logsumexp (natural log), then launches the two
-backward kernels.  Those take every product on the tensor cores with
-``mma.sync``: fp32 in 3xTF32 (each operand split into two TF32 halves,
-three TF32 products, so fp32 stays close to fp32), bf16 as one bf16
-product, both with fp32 sums.  They use no atomics: two calls give the
-same bits.  They stage rows by 16-byte ``cp.async``, so a panel whose
+backward kernels.  Every product of both kernels runs on the tensor cores
+with ``mma.sync``: fp32 in 3xTF32 (each operand split into two TF32
+halves, three TF32 products, so fp32 stays close to fp32), bf16 as one
+bf16 product, both with fp32 sums.  They use no atomics: two calls give
+the same bits.  They stage rows by 16-byte ``cp.async``, so a panel whose
 rows are not a multiple of 16 bytes, or not 16-byte aligned, goes to them
-padded with zero columns (:func:`cp_async_rows`).
+padded with zero columns (:func:`cp_async_rows`), and the results are cut
+back.
 """
 
 from __future__ import annotations
@@ -75,11 +77,12 @@ def attention_grads_plain(q, k, v, do, causal: bool, scale: float):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _library(name: str):
-    """The built kernel library ``name`` ("flash_fwd" or "flash_bwd")."""
+def _library(name: str, defines=()):
+    """The built kernel library ``name`` ("flash_fwd" or "flash_bwd"), a
+    build variant with ``defines`` given (see ``build.load_cuda_library``)."""
     from aesara_tpu_torch.link.torch.kernels.build import load_cuda_library
 
-    lib = load_cuda_library(name)
+    lib = load_cuda_library(name, tuple(defines))
     if not getattr(lib, "_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         entry = getattr(lib, name)
@@ -113,30 +116,62 @@ def _check_cuda_panels(name: str, *ts):
         raise ValueError(f"{name} kernel takes D <= 128 and BH <= 65535, got {tuple(q.shape)}")
 
 
-def flash_attention(q, k, v, causal: bool = False, scale: Optional[float] = None,
-                    with_lse: bool = False):
-    """Attention over (BH, T, D) panels: the CUDA kernel for CUDA tensors,
-    the plain version for CPU tensors."""
+def cp_async_width(D: int, itemsize: int) -> int:
+    """The row width, in values, at which K2 and K3 stage a panel of width
+    ``D``: D rounded up to a multiple of 16 bytes."""
+    per = 16 // itemsize
+    return -(-D // per) * per
+
+
+def cp_async_rows(t, width: int):
+    """``t`` as K2 and K3 stage it by 16-byte ``cp.async``: rows of
+    ``width`` values from a 16-byte aligned address.  ``t`` itself when it
+    is so already, else a copy padded with zero columns.  The zeros change
+    no product: they add nothing to Q Kᵀ, dO Vᵀ or rowsum(dO ⊙ O), and they
+    give zero output and gradient columns, which the caller cuts off."""
+    if t.shape[-1] == width and t.data_ptr() % 16 == 0:
+        return t
+    out = t.new_zeros((*t.shape[:-1], width))
+    out[..., : t.shape[-1]] = t
+    return out
+
+
+def _flash_fwd(q, k, v, causal: bool, scale: float, with_lse: bool):
+    """K2 on contiguous (BH, T, width) CUDA panels as :func:`cp_async_rows`
+    gives them: (out of the same width, lse or None)."""
     import torch
 
+    BH, T, width = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((BH, T), dtype=torch.float32, device=q.device) if with_lse else None
+    lib = _library("flash_fwd")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                        None if lse is None else lse.data_ptr(), BH, T, width, float(scale),
+                        int(bool(causal)), 0 if q.dtype == torch.float32 else 1, stream)
+    if err != 0:
+        raise RuntimeError(f"flash_fwd launch failed: {lib.flash_fwd_error_string(err).decode()}")
+    flash_attention.launches += 1
+    return out, lse
+
+
+def flash_attention(q, k, v, causal: bool = False, scale: Optional[float] = None,
+                    with_lse: bool = False):
+    """Attention over (BH, T, D) panels: the CUDA kernel for CUDA tensors
+    (3xTF32 tensor-core products for fp32, deterministic), the plain
+    version for CPU tensors."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if all(t.device.type == "cpu" for t in (q, k, v)):
         flash_attention.plain_calls += 1
         return attention_plain(q, k, v, causal, scale, with_lse)
     _check_cuda_panels("flash_attention", q, k, v)
-    BH, T, D = q.shape
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    out = torch.empty_like(q)
-    lse = torch.empty((BH, T), dtype=torch.float32, device=q.device) if with_lse else None
-    lib = _library("flash_fwd")
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                        None if lse is None else lse.data_ptr(), BH, T, D, float(scale),
-                        int(bool(causal)), 0 if q.dtype == torch.float32 else 1, stream)
-    if err != 0:
-        raise RuntimeError(f"flash_fwd launch failed: {lib.flash_fwd_error_string(err).decode()}")
-    flash_attention.launches += 1
+    D = q.shape[-1]
+    width = cp_async_width(D, q.element_size())
+    q, k, v = (cp_async_rows(t.contiguous(), width) for t in (q, k, v))
+    out, lse = _flash_fwd(q, k, v, causal, scale, with_lse)
+    if width != D:
+        out = out[..., :D].contiguous()
     return (out, lse) if with_lse else out
 
 
@@ -145,33 +180,13 @@ flash_attention.launches = 0
 flash_attention.plain_calls = 0
 
 
-def cp_async_width(D: int, itemsize: int) -> int:
-    """The row width, in values, at which K3's kernels stage a panel of
-    width ``D``: D rounded up to a multiple of 16 bytes."""
-    per = 16 // itemsize
-    return -(-D // per) * per
-
-
-def cp_async_rows(t, width: int):
-    """``t`` as K3's kernels stage it by 16-byte ``cp.async``: rows of
-    ``width`` values from a 16-byte aligned address.  ``t`` itself when it
-    is so already, else a copy padded with zero columns.  The zeros change
-    no product: they add nothing to Q Kᵀ, dO Vᵀ or rowsum(dO ⊙ O), and they
-    give zero gradient columns, which the caller cuts off."""
-    if t.shape[-1] == width and t.data_ptr() % 16 == 0:
-        return t
-    out = t.new_zeros((*t.shape[:-1], width))
-    out[..., : t.shape[-1]] = t
-    return out
-
-
 def flash_attention_grads(q, k, v, do, causal: bool = False, scale: Optional[float] = None):
     """(dq, dk, dv) of attention over (BH, T, D) panels for the output
     gradient ``do`` (cast to q's dtype): the CUDA kernels for CUDA
     tensors, the plain version for CPU tensors.  On the card this re-runs
     the forward kernel (K2) for the output and the row logsumexp, then
     launches K3's two kernels (3xTF32 tensor-core products for fp32,
-    deterministic)."""
+    deterministic), all on the same padded panels."""
     import torch
 
     if scale is None:
@@ -182,10 +197,10 @@ def flash_attention_grads(q, k, v, do, causal: bool = False, scale: Optional[flo
         return attention_grads_plain(q, k, v, do, causal, scale)
     _check_cuda_panels("flash_attention_grads", q, k, v, do)
     BH, T, D = q.shape
-    q, k, v, do = q.contiguous(), k.contiguous(), v.contiguous(), do.contiguous()
-    o, lse = flash_attention(q, k, v, causal=causal, scale=scale, with_lse=True)
+    # padded once: K2's recompute and K3's kernels take the same panels
     width = cp_async_width(D, q.element_size())
-    q, k, v, o, do = (cp_async_rows(t, width) for t in (q, k, v, o, do))
+    q, k, v, do = (cp_async_rows(t.contiguous(), width) for t in (q, k, v, do))
+    o, lse = _flash_fwd(q, k, v, causal, scale, with_lse=True)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((BH, T), dtype=torch.float32, device=q.device)
     lib = _library("flash_bwd")

@@ -4,8 +4,9 @@ Each ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface and loaded with ``ctypes`` (a build takes
 seconds; a PyTorch C++ extension would take minutes).  Libraries go into
 the git-ignored ``_build/`` directory beside this file, named by a hash of
-their source and flags, so a checkout builds them on first use.  With no
-``nvcc`` a build raises: a CUDA run never falls back to a plain version.
+their source, the headers under ``csrc/`` and the flags, so a checkout
+builds them on first use.  With no ``nvcc`` a build raises: a CUDA run
+never falls back to a plain version.
 
 Triton kernels are Python source that Triton reads from a file:
 :func:`triton_module` writes a source into ``_build/triton/`` and imports
@@ -15,13 +16,14 @@ it, so no module of the package imports ``triton`` when it is imported.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import importlib.util
 import os
 import shutil
 import subprocess
 import threading
-from typing import Dict
+from typing import Dict, Tuple
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -67,24 +69,32 @@ def find_nvcc() -> str:
     return found
 
 
-def load_cuda_library(name: str) -> ctypes.CDLL:
-    """Build ``csrc/<name>.cu`` if needed and load it.  Libraries of
-    different names may be built at the same time from several threads."""
+def load_cuda_library(name: str, defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
+    """Build ``csrc/<name>.cu`` if needed and load it.  The library is named
+    by a hash of the source, every header under ``csrc/`` (which a source
+    may include), the flags and ``defines`` (``NAME=VALUE`` macros, each
+    passed as ``-D``; a build variant, loaded beside the default one).
+    Libraries of different names may be built at the same time from several
+    threads."""
+    key = "|".join((name, *defines))
     with _lock:
-        lock = _locks.setdefault(name, threading.Lock())
+        lock = _locks.setdefault(key, threading.Lock())
     with lock:
-        if name in _libs:
-            return _libs[name]
+        if key in _libs:
+            return _libs[key]
         src = os.path.join(CSRC, f"{name}.cu")
-        with open(src, "rb") as f:
-            digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        out = os.path.join(build_dir(), f"lib{name}-{digest}.so")
+        flags = [*NVCC_FLAGS, *(f"-D{d}" for d in defines)]
+        digest = hashlib.sha256(" ".join(flags).encode())
+        for path in [src, *sorted(glob.glob(os.path.join(CSRC, "*.cuh")))]:
+            with open(path, "rb") as f:
+                digest.update(f.read())
+        out = os.path.join(build_dir(), f"lib{name}-{digest.hexdigest()[:16]}.so")
         if not os.path.exists(out):
             tmp = f"{out}.{os.getpid()}.tmp"
-            cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
+            cmd = [find_nvcc(), *flags, "-o", tmp, src]
             res = subprocess.run(cmd, capture_output=True, text=True)
             if res.returncode != 0:
                 raise RuntimeError(f"nvcc failed for {src}:\n{res.stdout}\n{res.stderr}")
             os.replace(tmp, out)
-        _libs[name] = ctypes.CDLL(out)
-        return _libs[name]
+        _libs[key] = ctypes.CDLL(out)
+        return _libs[key]

@@ -25,22 +25,14 @@
 //   - bf16 inputs: m16n8k16 bf16, one product, fp32 accumulation; P and dS
 //     are rounded to bf16 for the second product, as the operands are.
 // The split is what else the fp32 path pays for: it is issued by the same
-// warps as the mma.sync.  Two measures keep it small (chip_smoke.py
-// times the kernels; PERF.md has the numbers):
-//   - The split is done in four integer and float instructions: adding
-//     half a TF32 ulp (0x1000) to the bits of x rounds the 19 bits the
-//     mma reads to nearest, ties away, which is what cvt.rna.tf32.f32
-//     gives, and x - hi subtracts hi with its 13 low bits cleared.  The mma
-//     ignores those bits, so it sees exactly cvt.rna's hi and lo.
-//     cvt.rna.tf32.f32 itself compiles on sm_90 to a longer sequence
-//     that also guards infinities and NaNs.
-//   - The walked tiles (the B operands: K and V in the dq kernel, Q and
-//     dO in the dkdv kernel) are split once per block as they are staged,
-//     into a hi and a lo plane, instead of once per warp as each fragment
-//     is loaded: every warp of the block reads the whole walked tile.  The
-//     owned tiles (the A operands, 16 rows a warp) and the register-held
-//     P and dS are split as they are loaded: each value is read by one
-//     warp only.
+// warps as the mma.sync.  It is four instructions, and the walked tiles (the
+// B operands: K and V in the dq kernel, Q and dO in the dkdv kernel) are
+// split once a block as they are staged; the owned tiles (the A operands, 16
+// rows a warp) and the register-held P and dS are split as they are loaded:
+// each value is read by one warp only.  The staging, the fragments, the
+// split and the walked buffers are K2's too, in flash_mma.cuh (its header
+// says how they work); chip_smoke.py times the kernels, PERF.md has the
+// numbers.
 // wgmma with TMA would take both the staging and the operand reads off the
 // issuing warps; that is later work (ROADMAP.md).
 //
@@ -58,26 +50,15 @@
 //     stages its K and V rows and walks the queries in tiles of WALK rows:
 //     S^T and dP^T, then P^T and dS^T in registers, dV += P^T dO and
 //     dK += dS^T Q.
-// P and dS never leave the registers: the mma accumulator tile (row g or
-// g+8, columns 2t and 2t+1 of each 8) is the A fragment of the second
-// product once the contraction index is taken in the order
-// (0, 2, 4, 6, 1, 3, 5, 7) within each 8 (TF32), and as it stands for
-// bf16's k16 fragment.  The B operand of the second product is read in the
-// same order: rows 2t and 2t+1 of each step.
-// Staging: the next walked tile arrives by 16-byte cp.async (4-byte for
-// the lse and D rows) into a landing buffer while the warps compute on the
-// current one; rows past T and columns past D are zero-filled through the
-// copy's src-size operand.  fp32: one barrier, the landing tile is split
+// P and dS never leave the registers: they are the A fragment of the second
+// product (flash_mma.cuh).  The next walked tile arrives by 16-byte cp.async
+// (4-byte for the lse and D rows) into a landing buffer while the warps
+// compute on the current one.  fp32: one barrier, the landing tile is split
 // into the planes, and a second barrier: two barriers a tile.  bf16: the
 // products read the landing tile itself, with two landing buffers taken in
-// turn, so one barrier a tile.  Every row is staged so, which needs rows
-// of a 16-byte multiple on 16-byte aligned panels; flash_attention_grads
-// pads other panels with zero columns, which change no product.
-// Banks: every tile and plane is stored row-major with a pitch of D+4
-// 32-bit words (D+8 bf16).  Fragments read a tile along its rows (A, and B
-// of S = Q K^T: word 4g + t, distinct for the 32 lanes) and along its
-// columns (B of dQ = dS K in the order above: rows 2t, 2t+1, word 8t + g,
-// distinct), so neither read has a bank conflict and no swizzle is needed.
+// turn, so one barrier a tile.  flash_attention_grads pads panels whose rows
+// are not 16-byte multiples, or not 16-byte aligned, with zero columns,
+// which change no product.
 // Walked tiles of 16 rows keep the shared memory small: at D = 64, fp32,
 // 61 KB a block, so three blocks (12 warps) an SM, registers capped to
 // fit them; chip_smoke.py logs each kernel's registers and resident blocks
@@ -96,322 +77,16 @@
 // Inputs must be contiguous (BH, T, D), fp32 or bf16, all of one dtype,
 // with D a multiple of 16 bytes and q, k, v, dout 16-byte aligned.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "flash_mma.cuh"
 
 namespace {
 
-constexpr int OWN = 64;             // rows a block owns: queries (dq), keys (dkdv)
 constexpr int WALK = 16;            // rows of a walked tile: keys (dq), queries (dkdv)
-constexpr int WARPS = OWN / 16;     // 16 owned rows each
-constexpr int THREADS = 32 * WARPS;
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr unsigned FULL = 0xffffffffu;
 
 // resident blocks an SM asked of ptxas: three at D <= 64 (61 KB of shared
 // memory a block in fp32, so registers are the limit), one above
 template <int DMAX>
 __host__ __device__ constexpr int min_blocks() { return DMAX <= 64 ? 3 : 1; }
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// pitch of a staged row: 16 bytes of pad keeps rows 16-byte aligned and
-// the fragment reads free of bank conflicts (see the header)
-template <typename T, int DMAX>
-__host__ __device__ constexpr int pitch() { return DMAX + 16 / (int)sizeof(T); }
-
-// ---------------------------------------------------------------------------
-// cp.async staging
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from src, or 16 zero bytes when !in (src is then any valid address)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(in ? 16 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool in) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(in ? 4 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// Stage rows [r0, r0 + ROWS) of a (T_len, D) panel into dst (pitch
-// pitch<T, DMAX>()) by 16-byte cp.async, zero past T_len and D.  The
-// panel's rows are 16-byte multiples on a 16-byte aligned pointer.
-template <typename T, int DMAX, int ROWS>
-__device__ __forceinline__ void stage_tile(T* dst, const T* __restrict__ panel, int r0, int T_len,
-                                           int D) {
-  constexpr int P = pitch<T, DMAX>();
-  constexpr int E = 16 / sizeof(T);       // values a copy
-  constexpr int CPR = DMAX / E;           // copies a row
-#pragma unroll
-  for (int it = 0; it < ROWS * CPR / THREADS; ++it) {
-    const int i = it * THREADS + threadIdx.x;
-    const int r = i / CPR, d = (i % CPR) * E, gr = r0 + r;
-    const bool in = gr < T_len && d < D;
-    cp_async16(dst + r * P + d, in ? panel + (size_t)gr * D + d : panel, in);
-  }
-}
-
-// value i of a walked tile's (T_len,) fp32 row from r0 by 4-byte cp.async, zero past T_len
-__device__ __forceinline__ void stage_row(float* dst, const float* __restrict__ row, int r0, int T_len,
-                                          int i) {
-  const bool in = r0 + i < T_len;
-  cp_async4(dst + i, in ? row + r0 + i : row, in);
-}
-
-// ---------------------------------------------------------------------------
-// mma.sync fragments.  Lane = 4g + t.  An accumulator tile (16 x 8, fp32)
-// holds c[0], c[1] at row g, columns 2t, 2t+1 and c[2], c[3] at row g+8.
-// A walked tile is read as Prep values of the landing tile's shape and
-// pitch: fp32 from its hi and lo planes, PS values apart; bf16 from the
-// landing tile itself.
-// ---------------------------------------------------------------------------
-
-template <typename T> struct Mma;
-
-// x as hi + lo, each as the mma reads a TF32 operand (its 13 low bits
-// ignored): hi = rna_tf32(x), lo = rna_tf32(x - hi), as cvt.rna.tf32.f32
-// gives them, in four instructions (see the header)
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = __float_as_uint(x) + 0x1000u;
-  lo = __float_as_uint(x - __uint_as_float(hi & 0xffffe000u)) + 0x1000u;
-}
-
-// fp32 in 3xTF32: m16n8k8.  A fragment: rows g, g+8 x columns t, t+4; B
-// fragment: rows (k) t, t+4 x column g.
-template <> struct Mma<float> {
-  static constexpr int KS = 8;         // depth of one mma
-  static constexpr bool SPLIT = true;  // walked tiles read from hi and lo planes
-  using Prep = uint32_t;
-  struct A { uint32_t hi[4], lo[4]; };
-  struct B { uint32_t hi[2], lo[2]; };
-
-  // A = s[row][k0 + col] for the 16 rows from s
-  static __device__ __forceinline__ A load_a(const float* s, int P, int k0, int g, int t) {
-    A a;
-    split_tf32(s[g * P + k0 + t], a.hi[0], a.lo[0]);
-    split_tf32(s[(g + 8) * P + k0 + t], a.hi[1], a.lo[1]);
-    split_tf32(s[g * P + k0 + t + 4], a.hi[2], a.lo[2]);
-    split_tf32(s[(g + 8) * P + k0 + t + 4], a.hi[3], a.lo[3]);
-    return a;
-  }
-
-  // the A fragment of contraction step j (columns 8j..8j+7) from the
-  // accumulator tiles c, the columns taken in the order (0,2,4,6,1,3,5,7)
-  template <int N>
-  static __device__ __forceinline__ A a_from_c(const float (&c)[N][4], int j) {
-    A a;
-    split_tf32(c[j][0], a.hi[0], a.lo[0]);
-    split_tf32(c[j][2], a.hi[1], a.lo[1]);
-    split_tf32(c[j][1], a.hi[2], a.lo[2]);
-    split_tf32(c[j][3], a.hi[3], a.lo[3]);
-    return a;
-  }
-
-  // B(k, n) = s[n][k0 + k] for the 8 rows n from s
-  static __device__ __forceinline__ B load_b_nk(const uint32_t* s, int P, int PS, int k0, int g,
-                                                int t) {
-    const uint32_t* p = s + g * P + k0 + t;
-    return {{p[0], p[4]}, {p[PS], p[PS + 4]}};
-  }
-
-  // B(k, n) = s[k][n] over the 8 rows k from s, in the order of a_from_c:
-  // fragment row t is row 2t, row t+4 is row 2t+1
-  static __device__ __forceinline__ B load_b_kn(const uint32_t* s, int P, int PS, int g, int t) {
-    const uint32_t* p = s + 2 * t * P + g;
-    return {{p[0], p[P]}, {p[PS], p[PS + P]}};
-  }
-
-  // prepare 16 landed bytes: their hi and lo planes
-  static __device__ __forceinline__ void prepare(uint32_t* dst, int PS, const float* src) {
-    const float4 x = *reinterpret_cast<const float4*>(src);
-    uint4 hi, lo;
-    split_tf32(x.x, hi.x, lo.x);
-    split_tf32(x.y, hi.y, lo.y);
-    split_tf32(x.z, hi.z, lo.z);
-    split_tf32(x.w, hi.w, lo.w);
-    *reinterpret_cast<uint4*>(dst) = hi;
-    *reinterpret_cast<uint4*>(dst + PS) = lo;
-  }
-
-  static __device__ __forceinline__ void mma1(float (&d)[4], const uint32_t (&a)[4],
-                                              const uint32_t (&b)[2]) {
-    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
-
-  static __device__ __forceinline__ void mma(float (&d)[4], const A& a, const B& b) {
-    mma1(d, a.lo, b.hi);
-    mma1(d, a.hi, b.lo);
-    mma1(d, a.hi, b.hi);
-  }
-};
-
-// bf16: m16n8k16.  A fragment: register i holds two adjacent columns,
-// (row g, cols 2t..2t+1), (g+8, 2t..), (g, 2t+8..), (g+8, 2t+8..); B
-// fragment: (rows 2t..2t+1, column g), (rows 2t+8..2t+9, column g).
-template <> struct Mma<__nv_bfloat16> {
-  using bf16 = __nv_bfloat16;
-  static constexpr int KS = 16;
-  static constexpr bool SPLIT = false;  // walked tiles read as they landed
-  using Prep = bf16;
-  struct A { uint32_t r[4]; };
-  struct B { uint32_t r[2]; };
-
-  static __device__ __forceinline__ uint32_t ld2(const bf16* p) {
-    return *reinterpret_cast<const uint32_t*>(p);
-  }
-  static __device__ __forceinline__ uint32_t pack(bf16 lo, bf16 hi) {
-    return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-  }
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    return pack(__float2bfloat16(lo), __float2bfloat16(hi));
-  }
-
-  static __device__ __forceinline__ A load_a(const bf16* s, int P, int k0, int g, int t) {
-    return {{ld2(s + g * P + k0 + 2 * t), ld2(s + (g + 8) * P + k0 + 2 * t),
-             ld2(s + g * P + k0 + 2 * t + 8), ld2(s + (g + 8) * P + k0 + 2 * t + 8)}};
-  }
-
-  // step j covers columns 16j..16j+15: the accumulator tiles 2j and 2j+1
-  template <int N>
-  static __device__ __forceinline__ A a_from_c(const float (&c)[N][4], int j) {
-    return {{pack(c[2 * j][0], c[2 * j][1]), pack(c[2 * j][2], c[2 * j][3]),
-             pack(c[2 * j + 1][0], c[2 * j + 1][1]), pack(c[2 * j + 1][2], c[2 * j + 1][3])}};
-  }
-
-  static __device__ __forceinline__ B load_b_nk(const bf16* s, int P, int, int k0, int g, int t) {
-    return {{ld2(s + g * P + k0 + 2 * t), ld2(s + g * P + k0 + 2 * t + 8)}};
-  }
-
-  static __device__ __forceinline__ B load_b_kn(const bf16* s, int P, int, int g, int t) {
-    return {{pack(s[2 * t * P + g], s[(2 * t + 1) * P + g]),
-             pack(s[(2 * t + 8) * P + g], s[(2 * t + 9) * P + g])}};
-  }
-
-  static __device__ __forceinline__ void mma(float (&d)[4], const A& a, const B& b) {
-    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a.r[0]), "r"(a.r[1]), "r"(a.r[2]), "r"(a.r[3]), "r"(b.r[0]), "r"(b.r[1]));
-  }
-};
-
-template <typename T> using Prep = typename Mma<T>::Prep;
-
-// The shared-memory buffers of the two walked operands (K and V in the dq
-// kernel, Q and dO in the dkdv kernel).  fp32: tile i lands in one buffer
-// per operand, then split into that operand's hi and lo planes, which the
-// products read.  bf16: two buffers per operand; the products read tile i
-// where it landed while tile i + 1 lands in the other.
-template <typename T, int DMAX>
-struct Walked {
-  static constexpr bool SPLIT = Mma<T>::SPLIT;
-  static constexpr int P = pitch<T, DMAX>(), TILE = WALK * P;
-  static constexpr int LANDING = SPLIT ? 2 : 4;   // tiles of T: [1 or 2][operand]
-  static constexpr int PLANES = SPLIT ? 4 : 0;    // tiles of Prep: [operand][hi, lo]
-  static constexpr size_t BYTES = (size_t)TILE * (LANDING * sizeof(T) + PLANES * sizeof(Prep<T>));
-
-  T* land;
-  Prep<T>* planes;
-
-  __device__ explicit Walked(unsigned char* base)
-      : land(reinterpret_cast<T*>(base)), planes(reinterpret_cast<Prep<T>*>(land + LANDING * TILE)) {}
-
-  // where operand op of tile i lands
-  __device__ T* landing(int i, int op) const { return land + ((SPLIT ? 0 : 2 * (i & 1)) + op) * TILE; }
-
-  // where the products read operand op of tile i
-  __device__ const Prep<T>* read(int i, int op) const {
-    if constexpr (SPLIT) return planes + 2 * op * TILE;
-    else return landing(i, op);
-  }
-
-  // fp32: split the landed tiles into their planes, each thread the
-  // 16-byte pieces it copied in stage_tile
-  __device__ void prepare() const {
-    if constexpr (SPLIT) {
-      constexpr int E = 16 / sizeof(T), CPR = DMAX / E;
-#pragma unroll
-      for (int op = 0; op < 2; ++op)
-#pragma unroll
-        for (int it = 0; it < WALK * CPR / THREADS; ++it) {
-          const int i = it * THREADS + threadIdx.x;
-          const int off = (i / CPR) * P + (i % CPR) * E;
-          Mma<T>::prepare(planes + 2 * op * TILE + off, TILE, land + op * TILE + off);
-        }
-    }
-  }
-
-  // after tile i + 1 was staged and tile i computed: wait for the copies,
-  // then (fp32) split them; every warp is done with tile i on return
-  __device__ void next() const {
-    cp_async_wait_all();
-    __syncthreads();   // every warp is done with tile i; tile i + 1 has landed
-    if constexpr (SPLIT) {
-      prepare();
-      __syncthreads();
-    }
-  }
-};
-
-// acc (16 x WALK) += A B^T: A the warp's 16 rows from sa, B the walked
-// tile's prepared rows from sb, both contracted over all DMAX columns (zero
-// past D; no test on D inside, so the unrolled steps stay one block of
-// code that ptxas can schedule) (S = Q K^T, dP = dO V^T and, in the dkdv
-// kernel, their transposes).
-template <typename T, int DMAX>
-__device__ __forceinline__ void mma_rows_rows(float (&acc)[WALK / 8][4], const T* sa,
-                                              const Prep<T>* sb, int g, int t) {
-  using M = Mma<T>;
-  constexpr int P = pitch<T, DMAX>();
-#pragma unroll
-  for (int k0 = 0; k0 < DMAX; k0 += M::KS) {
-    const typename M::A a = M::load_a(sa, P, k0, g, t);
-#pragma unroll
-    for (int n = 0; n < WALK / 8; ++n)
-      M::mma(acc[n], a, M::load_b_nk(sb + n * 8 * P, P, WALK * P, k0, g, t));
-  }
-}
-
-// acc (16 x DMAX) += C S: C the accumulator tiles (16 x WALK) of P or dS,
-// S the walked tile's prepared rows from sb, all DMAX columns (zero past D)
-// (dQ = dS K, dV = P^T dO, dK = dS^T Q).
-template <typename T, int DMAX>
-__device__ __forceinline__ void mma_regs_rows(float (&acc)[DMAX / 8][4], const float (&c)[WALK / 8][4],
-                                              const Prep<T>* sb, int g, int t) {
-  using M = Mma<T>;
-  constexpr int P = pitch<T, DMAX>();
-#pragma unroll
-  for (int j = 0; j < WALK / M::KS; ++j) {
-    const typename M::A a = M::a_from_c(c, j);
-#pragma unroll
-    for (int n = 0; n < DMAX / 8; ++n)
-      M::mma(acc[n], a, M::load_b_kn(sb + j * M::KS * P + n * 8, P, WALK * P, g, t));
-  }
-}
 
 // write the warp's 16 x D block of an accumulator (rows from r0) times mul
 template <typename T, int DMAX>
@@ -429,7 +104,7 @@ __device__ __forceinline__ void store_rows(T* __restrict__ out, const float (&ac
 // two owned tiles and the walked operands' buffers
 template <typename T, int DMAX>
 constexpr size_t tiles_bytes() {
-  return sizeof(T) * pitch<T, DMAX>() * 2 * OWN + Walked<T, DMAX>::BYTES;
+  return sizeof(T) * pitch<T, DMAX>() * 2 * OWN + Walked<T, DMAX, WALK>::BYTES;
 }
 
 template <typename T, int DMAX>
@@ -450,7 +125,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   constexpr int P = pitch<T, DMAX>();
   T* Qs = reinterpret_cast<T*>(smem_raw);   // [OWN][P]
   T* dOs = Qs + OWN * P;                    // [OWN][P]
-  const Walked<T, DMAX> kv(reinterpret_cast<unsigned char*>(dOs + OWN * P));   // K, V
+  const Walked<T, DMAX, WALK> kv(reinterpret_cast<unsigned char*>(dOs + OWN * P));   // K, V
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int bh = blockIdx.y, q0 = blockIdx.x * OWN, w0 = warp * 16;
@@ -510,8 +185,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     for (int n = 0; n < WALK / 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-    mma_rows_rows<T, DMAX>(s, Qs + w0 * P, Kp, g, t);
-    mma_rows_rows<T, DMAX>(dp, dOs + w0 * P, Vp, g, t);
+    mma_rows_rows<T, DMAX, WALK>(s, Qs + w0 * P, Kp, g, t);
+    mma_rows_rows<T, DMAX, WALK>(dp, dOs + w0 * P, Vp, g, t);
 
     const int k0 = kt * WALK;
 #pragma unroll
@@ -523,7 +198,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
         const float p = valid ? exp2f(fmaf(s[n][e], scale_log2, -Lr[h])) : 0.f;
         s[n][e] = p * (dp[n][e] - Dr[h]);   // dS
       }
-    mma_regs_rows<T, DMAX>(acc, s, Kp, g, t);
+    mma_regs_rows<T, DMAX, WALK>(acc, s, Kp, g, t);
 
     if (next) kv.next();
   }
@@ -542,9 +217,9 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
   T* Ks = reinterpret_cast<T*>(smem_raw);   // [OWN][P]
   T* Vs = Ks + OWN * P;                     // [OWN][P]
   unsigned char* walked = reinterpret_cast<unsigned char*>(Vs + OWN * P);
-  const Walked<T, DMAX> qdo(walked);                                     // Q, dO
-  float* Ls = reinterpret_cast<float*>(walked + Walked<T, DMAX>::BYTES);  // [2][WALK] lse of the query tile
-  float* Ds = Ls + 2 * WALK;                                             // [2][WALK] D of the query tile
+  const Walked<T, DMAX, WALK> qdo(walked);                                     // Q, dO
+  float* Ls = reinterpret_cast<float*>(walked + Walked<T, DMAX, WALK>::BYTES);  // [2][WALK] lse
+  float* Ds = Ls + 2 * WALK;                                                   // [2][WALK] D
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int bh = blockIdx.y, k0 = blockIdx.x * OWN, w0 = warp * 16;
@@ -571,7 +246,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
   stage_queries(qt0, 0);
   cp_async_wait_all();
   __syncthreads();
-  if constexpr (Walked<T, DMAX>::SPLIT) {
+  if constexpr (Walked<T, DMAX, WALK>::SPLIT) {
     qdo.prepare();
     __syncthreads();
   }
@@ -597,8 +272,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
     for (int n = 0; n < WALK / 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-    mma_rows_rows<T, DMAX>(s, Ks + w0 * P, Qp, g, t);
-    mma_rows_rows<T, DMAX>(dp, Vs + w0 * P, dOp, g, t);
+    mma_rows_rows<T, DMAX, WALK>(s, Ks + w0 * P, Qp, g, t);
+    mma_rows_rows<T, DMAX, WALK>(dp, Vs + w0 * P, dOp, g, t);
 
     const int q0 = qt * WALK;
 #pragma unroll
@@ -616,8 +291,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
         dp[n][e] = p * (dp[n][e] - dc);   // dS^T
       }
     }
-    mma_regs_rows<T, DMAX>(dv_acc, s, dOp, g, t);
-    mma_regs_rows<T, DMAX>(dk_acc, dp, Qp, g, t);
+    mma_regs_rows<T, DMAX, WALK>(dv_acc, s, dOp, g, t);
+    mma_regs_rows<T, DMAX, WALK>(dk_acc, dp, Qp, g, t);
 
     if (next) qdo.next();
   }

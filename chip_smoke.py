@@ -5,6 +5,8 @@ serve the sparse-input models, all through ``aesara_tpu_torch.function``.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --k6-sweep    # only K6's tuning table (see k6_sweep)
+    python3 chip_smoke.py --k2-walk-sweep    # only K2's walked-tile table (see k2_walk_sweep)
+    python3 chip_smoke.py --attention-times    # only K2's and K3's times (see attention_times)
     python3 chip_smoke.py --profile-check    # only the trace's lost launches (see profile_check)
 
 Phases (any failure raises and the exit code is non-zero):
@@ -15,7 +17,11 @@ Phases (any failure raises and the exit code is non-zero):
    at once, and compiles one fused-elemwise kernel (K1) and the row
    softmax (K4) with Triton.
 1. kernels: K1 and K2 against their plain versions on the card, at the
-   shapes the forward gives them, with the times of both.
+   shapes the forward gives them (K2 also at ragged, padded and D = 128
+   panels), with the times of both; K2's resources (registers, shared
+   memory, resident blocks) and, at the flagship panels, two calls with
+   the same bits and scaled_dot_product_attention's time and backend
+   beside the 3xTF32 bound.
 2. forward: the 4-layer encoder (d_model 1024, 16 heads, d_ff 4096,
    float32, random weights from seeds) compiled with the TORCH mode on
    the card answers 3 requests of (8, 1024, 1024); the kernels' launch
@@ -102,11 +108,13 @@ K7_REPLACES = "aesara_tpu/link/jax/bss.py:354"
 
 # the least time of a kernel: bytes over the H100's memory rate, flops over
 # its rate for the kernel's type: fp32 outside the tensor cores, or dense
-# TF32 on them for K3, which takes each fp32 product as three TF32 ones
-# (NVIDIA's data sheet, SXM part)
+# TF32 on them for K2 and K3, which take each fp32 product as three TF32
+# ones, or dense bf16 (NVIDIA's data sheet, SXM part)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 TF32_FLOPS = 495e12
+BF16_FLOPS = 989e12
+K2_WALKS = (16, 32, 64)   # walked key tiles --k2-walk-sweep builds
 
 # (a) fetch_20newsgroups_vectorized, training split: 11,314 documents x
 # 130,107 features, 20 classes; words per document log-normal, so that a
@@ -202,17 +210,24 @@ def bound(n_bytes: float, flops: float, flops_per_s: float = FP32_FLOPS):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def library_ms(name: str, fn):
-    """Device ms of one PyTorch library call computing a kernel's function,
-    the yardstick of PERF.md (the port never calls it); None, with the
-    reason logged, when the library refuses these inputs."""
+def library_split(name: str, fn):
+    """(device ms, names of the device kernels) of one PyTorch library call
+    computing a kernel's function, the yardstick of PERF.md (the port never
+    calls it); (None, []), with the reason logged, when the library refuses
+    these inputs."""
     try:
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")
-            return device_ms(fn)
+            split = device_split(fn)
     except (RuntimeError, NotImplementedError, TypeError) as exc:
         log(f"{name} library call not timed: {type(exc).__name__}: {str(exc)[:200]}")
-        return None
+        return None, []
+    return sum(split.values()), sorted(split)
+
+
+def library_ms(name: str, fn):
+    """Device ms of ``library_split``."""
+    return library_split(name, fn)[0]
 
 
 def call_by_schema(op, values: dict):
@@ -394,6 +409,40 @@ def phase_k1(fgraph, rng):
     return k1_err, k1_times
 
 
+def k2_occupancy(lib=None, label: str = "K2 occupancy"):
+    """Log the resources of K2's variants from flash_fwd_kernel_info:
+    threads, dynamic shared memory, registers, spill bytes, resident blocks
+    an SM and walked rows, for each dtype and D variant of ``lib`` (the
+    default build unless given)."""
+    import ctypes
+    from aesara_tpu_torch.link.torch.kernels.attention import _library
+
+    info_fn = (lib or _library("flash_fwd")).flash_fwd_kernel_info
+    info_fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    info_fn.restype = ctypes.c_int
+    for dtype, dtype_name in ((0, "fp32"), (1, "bf16")):
+        for dmax in (64, 128):
+            info = (ctypes.c_int * 6)()
+            err = info_fn(dtype, dmax, info)
+            if err != 0:
+                raise RuntimeError(f"flash_fwd_kernel_info({dtype}, {dmax}) failed: {err}")
+            threads, smem, regs, spill, blocks, walk = list(info)
+            log(f"{label} {dtype_name} D<={dmax}: {threads} threads, {smem} B shared, {regs} registers, "
+                f"{spill} B spilled, {blocks} blocks ({blocks * threads // 32} warps) an SM, "
+                f"walked tiles of {walk} keys")
+
+
+def sdpa_backend(names) -> str:
+    """Which of scaled_dot_product_attention's backends ran, from the names
+    of the device kernels it launched."""
+    joined = " ".join(names).lower()
+    for key, backend in (("cudnn", "cuDNN"), ("flash", "flash"), ("fmha", "memory-efficient (cutlass fmha)"),
+                         ("efficient", "memory-efficient")):
+        if key in joined:
+            return backend
+    return "math (unfused)"
+
+
 def phase_kernels(fgraph):
     from aesara_tpu_torch.link.torch.kernels.attention import attention_plain, flash_attention
 
@@ -406,17 +455,24 @@ def phase_kernels(fgraph):
     if k1_times is None:
         raise AssertionError("no layer-norm scale Composite among the forward's Composites")
 
+    k2_occupancy()
     k2_err, k2_times = 0.0, None
     gen = torch.Generator(device=device).manual_seed(0)
+    # the flagship's panels; a T that is no multiple of the walked tile;
+    # rows of no 16-byte multiple (padded by the wrapper); D = 128
     cases = [((128, 1024, 64), False, torch.float32), ((128, 1024, 64), True, torch.float32),
              ((128, 1024, 64), False, torch.bfloat16), ((128, 1024, 64), True, torch.bfloat16),
-             ((6, 1000, 40), True, torch.float32)]
+             ((6, 1000, 40), True, torch.float32), ((2, 130, 33), False, torch.float32),
+             ((2, 75, 37), True, torch.bfloat16), ((4, 200, 128), True, torch.float32),
+             ((4, 200, 128), False, torch.bfloat16)]
     for shape, causal, dtype in cases:
         q, k, v = (torch.randn(shape, device=device, generator=gen).to(dtype) for _ in range(3))
         scale = 1.0 / shape[-1] ** 0.5
         got, lse = flash_attention(q, k, v, causal=causal, scale=scale, with_lse=True)
         torch.cuda.synchronize()
         want, want_lse = attention_plain(q, k, v, causal, scale, with_lse=True)
+        if got.shape != want.shape or got.dtype != want.dtype:
+            raise AssertionError(f"K2 {shape} {dtype}: {tuple(got.shape)} {got.dtype}")
         err = (got.float() - want.float()).abs().max().item()
         lse_err = (lse - want_lse).abs().max().item()
         if dtype == torch.float32:
@@ -432,12 +488,30 @@ def phase_kernels(fgraph):
         log(f"K2 {shape} causal={causal} {str(dtype).split('.')[-1]}: max_abs_err {err:.3e}, "
             f"lse_err {lse_err:.3e}, device ms kernel {ms:.4f} plain {plain_ms:.4f}; "
             f"per call ms kernel {call:.4f}")
-        if shape == (128, 1024, 64) and not causal and dtype == torch.float32:
+        if shape == (128, 1024, 64) and not causal:
             BH, T, D = shape
-            sdpa = library_ms("K2", lambda: torch.nn.functional.scaled_dot_product_attention(
+            again, again_lse = flash_attention(q, k, v, causal=causal, scale=scale, with_lse=True)
+            torch.cuda.synchronize()
+            if not (torch.equal(got, again) and torch.equal(lse, again_lse)):
+                raise AssertionError(f"K2 {shape} {dtype}: two calls gave different bits")
+            sdpa, names = library_split("K2", lambda: torch.nn.functional.scaled_dot_product_attention(
                 q[None], k[None], v[None], scale=scale))
-            k2_times = (ms, plain_ms, *bound(4 * q.numel() * 4, 4 * BH * T * T * D), sdpa)
-            log(f"K2 {shape} fp32: scaled_dot_product_attention (library) device ms {sdpa}")
+            backend = sdpa_backend(names)
+            ratio = f"{ms / sdpa:.3f}x the library's time" if sdpa else "library not timed"
+            log(f"K2 {shape} {str(dtype).split('.')[-1]}: two calls give the same bits (output, lse); "
+                f"scaled_dot_product_attention (library, {backend} backend: {', '.join(names)}) "
+                f"device ms {sdpa}: {ratio}")
+            if dtype == torch.float32:
+                # inputs q, k, v and the output; the two products, each taken
+                # as three TF32 products on the tensor cores
+                k2_bound = bound(4 * q.numel() * 4, 3 * 4 * BH * T * T * D, TF32_FLOPS)
+                fp32_ms = 4 * BH * T * T * D / FP32_FLOPS * 1e3
+                log(f"K2 {shape} fp32: 3xTF32 bound at {TF32_FLOPS / 1e12:.0f} TFLOP/s {k2_bound[0]:.4f} ms "
+                    f"(the kernels line's); the same products in fp32 on the CUDA cores {fp32_ms:.4f} ms")
+                k2_times = (ms, plain_ms, *k2_bound, sdpa)
+            else:
+                log(f"K2 {shape} bf16: bound of the two products at {BF16_FLOPS / 1e12:.0f} TFLOP/s "
+                    f"{4 * BH * T * T * D / BF16_FLOPS * 1e3:.4f} ms")
     return k1_err, k1_times, k2_err, k2_times
 
 
@@ -653,10 +727,12 @@ def phase_k3():
         split = device_split(lambda: flash_attention_grads(q, k, v, do, causal=causal, scale=scale))
         ms = sum(split.values())
         bwd = sum(t for name, t in split.items() if "flash_bwd" in name)
+        rec = sum(t for name, t in split.items() if "flash_fwd" in name)
         plain_ms = device_ms(lambda: attention_grads_plain(q, k, v, do, causal, scale))
         log(f"K3 {shape} causal={causal} {str(dtype).split('.')[-1]}: max_abs_err dq/dk/dv "
             f"{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e}, device ms kernel {ms:.4f} (backward "
-            f"kernels {bwd:.4f}, K2 recompute {ms - bwd:.4f}) plain {plain_ms:.4f}")
+            f"kernels {bwd:.4f}, K2 recompute {rec:.4f}, padding and cuts {ms - bwd - rec:.4f}) "
+            f"plain {plain_ms:.4f}")
         if shape == (128, 1024, 64) and not causal and dtype == torch.float32:
             BH, T, D = shape
             again = flash_attention_grads(q, k, v, do, causal=causal, scale=scale)
@@ -1353,6 +1429,100 @@ def k6_sweep():
     print(smi)
 
 
+def attention_times():
+    """K2 and K3 at the encoder's panels, (128, 1024, 64) fp32 and bf16,
+    causal and not: device ms of K2, and of K3's call split into its
+    backward kernels and K2's recompute.  It reads only the wrappers, so a
+    copy of this script placed in another checkout times that checkout's
+    kernels: two checkouts are compared in one call by running the two in
+    turns (a, b, b, a)."""
+    from aesara_tpu_torch.link.torch.kernels.attention import flash_attention, flash_attention_grads
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    log(f"card: {smi}; torch {torch.__version__}; checkout {sys.path[0]}")
+    cuda = torch.device("cuda")
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, do = (torch.randn((128, 1024, 64), device=cuda, generator=gen).to(dtype) for _ in range(4))
+        for causal in (False, True):
+            k2 = device_ms(lambda: flash_attention(q, k, v, causal=causal, scale=0.125))
+            split = device_split(lambda: flash_attention_grads(q, k, v, do, causal=causal, scale=0.125))
+            bwd = sum(t for name, t in split.items() if "flash_bwd" in name)
+            rec = sum(t for name, t in split.items() if "flash_fwd" in name)
+            log(f"(128, 1024, 64) {str(dtype).split('.')[-1]} causal={causal}: K2 device ms {k2:.4f}; K3 call "
+                f"{sum(split.values()):.4f} = backward kernels {bwd:.4f} + K2 recompute {rec:.4f} + other "
+                f"{sum(split.values()) - bwd - rec:.4f}")
+    print(smi)
+
+
+def k2_variant(lib, q, k, v, causal: bool, scale: float):
+    """(out, lse) of the K2 build ``lib`` on contiguous (BH, T, D) CUDA
+    panels whose rows are 16-byte multiples, called as the wrapper calls
+    it but outside it, so that no counter moves."""
+    BH, T, D = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((BH, T), dtype=torch.float32, device=q.device)
+    err = lib.flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), BH, T, D,
+                        float(scale), int(causal), 0 if q.dtype == torch.float32 else 1,
+                        torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_fwd launch failed: {lib.flash_fwd_error_string(err).decode()}")
+    return out, lse
+
+
+def k2_walk_sweep():
+    """K2's walked key tile: the D <= 64 variants built with 16, 32 and 64
+    rows (``FLASH_FWD_WALK``, one nvcc each, all at once), their resources,
+    each checked against the plain version at the encoder's panels, fp32
+    and bf16, causal and not, then timed in two rounds (the second in
+    reverse order) with scaled_dot_product_attention timed before, between
+    and after them."""
+    from aesara_tpu_torch.link.torch.kernels.attention import _library, attention_plain
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    log(f"card: {smi}; torch {torch.__version__}")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(K2_WALKS)) as pool:
+        futures = {w: pool.submit(_library, "flash_fwd", (f"FLASH_FWD_WALK={w}",)) for w in K2_WALKS}
+        libs = {w: f.result() for w, f in futures.items()}
+    log(f"K2 builds with walked tiles of {K2_WALKS} rows: {time.perf_counter() - t0:.2f} s")
+    for w, lib in libs.items():
+        k2_occupancy(lib, f"K2 walk {w}:")
+    cuda = torch.device("cuda")
+    gen = torch.Generator(device=cuda).manual_seed(16)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (torch.randn((128, 1024, 64), device=cuda, generator=gen).to(dtype) for _ in range(3))
+        scale = 1.0 / 8.0
+        for causal in (False, True):
+            want, want_lse = attention_plain(q, k, v, causal, scale, with_lse=True)
+            tol = F32_ATOL if dtype == torch.float32 else BF16_REL * want.float().abs().max().item()
+            for w, lib in libs.items():
+                got, lse = k2_variant(lib, q, k, v, causal, scale)
+                err, lse_err = (got.float() - want.float()).abs().max().item(), (lse - want_lse).abs().max().item()
+                if not (err <= tol and lse_err <= F32_ATOL):
+                    raise AssertionError(f"K2 walk {w} {dtype} causal={causal}: max err {err}, lse err {lse_err}")
+            order = list(libs.items())
+            times: dict = {}
+
+            def sdpa():
+                return torch.nn.functional.scaled_dot_product_attention(
+                    q[None], k[None], v[None], is_causal=causal, scale=scale)
+
+            lib_ms = [library_ms("K2", sdpa)]
+            for rnd in (order, order[::-1]):
+                for w, lib in rnd:
+                    times.setdefault(w, []).append(device_ms(lambda: k2_variant(lib, q, k, v, causal, scale)))
+                lib_ms.append(library_ms("K2", sdpa))
+            log(f"K2 (128, 1024, 64) {str(dtype).split('.')[-1]} causal={causal}: every walk within the "
+                f"tolerance; scaled_dot_product_attention device ms {[round(t, 4) for t in lib_ms if t]} "
+                f"(before, between and after the rounds)")
+            for w in libs:
+                log(f"  walk {w:2d}: device ms {times[w][0]:.4f} {times[w][1]:.4f}")
+    print(smi)
+
+
 def profile_check(sessions: int = 100):
     """How often a profiled window of the GLM step loses launches from its
     trace, with no idle gap at its edges and with PROFILE_GAP_S, in
@@ -1377,10 +1547,12 @@ def profile_check(sessions: int = 100):
 
 
 def main():
-    if sys.argv[1:] in (["--k6-sweep"], ["--profile-check"]):
+    modes = {"--k6-sweep": k6_sweep, "--k2-walk-sweep": k2_walk_sweep, "--attention-times": attention_times,
+             "--profile-check": profile_check}
+    if len(sys.argv) == 2 and sys.argv[1] in modes:
         if not torch.cuda.is_available():
             raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU")
-        return k6_sweep() if sys.argv[1] == "--k6-sweep" else profile_check()
+        return modes[sys.argv[1]]()
     start = time.perf_counter()
     smi = phase_setup()
     t0 = time.perf_counter()

@@ -5,9 +5,10 @@ scipy's: atol 2e-5, rtol 1e-4 (the three sum in different orders).
 K3's plain version against ``flash_attention_grads`` in interpret mode
 and ``jax.vjp`` of ``_attention_ref``: atol 5e-4, rtol 1e-3, the JAX
 package's own tolerance for its backward kernel
-(``tests/link/test_pallas.py:92-95``).  On the card K3 takes its
+(``tests/link/test_pallas.py:92-95``).  On the card K2 and K3 take their
 products on the tensor cores in 3xTF32: a torch model of that scheme is
-held against the same references and against fp64."""
+held against the same references (K2's at 1e-4, output and lse) and
+against fp64."""
 
 import numpy as np
 import pytest
@@ -17,6 +18,7 @@ from scipy.special import logsumexp
 import jax
 import jax.numpy as jnp
 
+from aesara_tpu.link.jax.pallas_kernels import _flash_forward, _flash_tiling
 from aesara_tpu.link.jax.pallas_kernels import flash_attention as jax_flash
 from aesara_tpu.link.jax.pallas_kernels import flash_attention_grads as jax_flash_grads
 from aesara_tpu.tensor.nnet.attention import _attention_ref
@@ -255,3 +257,98 @@ def test_k3_rows_padded_to_16_bytes_change_no_gradient(D, dtype, offset):
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert not g[..., D:].any(), name
         torch.testing.assert_close(g[..., :D], w, msg=name)
+
+
+# --- K2's numerical scheme on the card: 3xTF32 -----------------------------
+
+
+def _k2_model(q, k, v, causal, scale, mm):
+    """K2's forward with its two products taken by ``mm``: S = Q Kᵀ, then
+    the unnormalised P = exp(S·scale − m) against the row max m, O = P V
+    divided by the row sum l, and lse = m + log l."""
+    s = mm(q, k.transpose(1, 2)) * scale
+    if causal:
+        T = q.shape[1]
+        s = s.masked_fill(~torch.ones((T, T), dtype=torch.bool).tril(), float("-inf"))
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True)
+    return mm(p, v) / l, (m + torch.log(l))[..., 0]
+
+
+def _jax_flash_with_lse(q, k, v, causal, scale):
+    """The JAX package's Pallas forward in interpret mode, with its row
+    logsumexp (log2 units there) in natural log."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    BH, T, D = q.shape
+    BQ, BK, T_pad, D_pad = _flash_tiling(T, D, q.dtype, causal)
+
+    def pad(a):
+        return jnp.pad(jnp.asarray(a), ((0, 0), (0, T_pad - T), (0, D_pad - D)))
+
+    with pltpu.force_tpu_interpret_mode():
+        out, lse2 = _flash_forward(pad(q), pad(k), pad(v), T=T, causal=causal, scale=scale,
+                                   dot_dtype=jnp.float32, BQ=BQ, BK=BK, T_pad=T_pad, D_pad=D_pad,
+                                   with_lse=True)
+    return np.asarray(out)[:, :T, :D], np.asarray(lse2)[:, :T, 0] * np.log(2.0)
+
+
+@pytest.mark.parametrize("shape,causal", TF32_SHAPES, ids=TF32_IDS)
+def test_3xtf32_model_of_k2_matches_pallas_interpret(shape, causal):
+    q, k, v = _qkv(shape, seed=31)
+    scale = float(1.0 / np.sqrt(shape[-1]))
+    got, lse = _k2_model(*[torch.from_numpy(a) for a in (q, k, v)], causal, scale, _mm_3xtf32)
+    want, want_lse = _jax_flash_with_lse(q, k, v, causal, scale)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=0)
+    np.testing.assert_allclose(lse.numpy(), want_lse, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("shape,causal", TF32_SHAPES, ids=TF32_IDS)
+def test_3xtf32_split_is_needed_and_enough_for_k2(shape, causal):
+    # against fp64: 3xTF32 stays within 4x of fp32's error in the output and
+    # the lse, while one TF32 product (no split) is at least 10x worse than
+    # 3xTF32 in the output (the lse, a log of a sum, averages the products'
+    # errors: 7x to 96x worse at these shapes)
+    q, k, v = (torch.from_numpy(a) for a in _qkv(shape, seed=33))
+    scale = float(1.0 / np.sqrt(shape[-1]))
+    exact = attention_plain(q.double(), k.double(), v.double(), causal, scale, with_lse=True)
+    fp32 = attention_plain(q, k, v, causal, scale, with_lse=True)
+    three = _k2_model(q, k, v, causal, scale, _mm_3xtf32)
+    one = _k2_model(q, k, v, causal, scale, _mm_1xtf32)
+
+    def err(pair):
+        return [(a.double() - e.double()).abs().max().item() for a, e in zip(pair, exact)]
+
+    for name, e32, e3 in zip(("out", "lse"), err(fp32), err(three)):
+        assert e3 <= 4 * e32, (name, e3, e32)
+    assert err(one)[0] >= 10 * err(three)[0], (err(one), err(three))
+
+
+# --- K2's staging on the card: rows of 16 bytes ------------------------------
+
+
+@pytest.mark.parametrize("D,dtype,offset", [(33, torch.float32, 0), (64, torch.float32, 1),
+                                            (20, torch.bfloat16, 0), (37, torch.bfloat16, 0),
+                                            (64, torch.bfloat16, 0)],
+                         ids=["fp32-odd", "fp32-misaligned", "bf16-20", "bf16-odd", "bf16-aligned"])
+def test_k2_rows_padded_to_16_bytes_change_no_output(D, dtype, offset):
+    # the wrapper pads panels that 16-byte cp.async cannot stage with zero
+    # columns, keeps the scale of the unpadded D, and cuts the output back
+    shape = (2, 37, D)
+    panels = []
+    for a in _qkv(shape, seed=35):
+        base = torch.zeros(offset + a.size, dtype=dtype)
+        base[offset:] = torch.from_numpy(a).reshape(-1).to(dtype)
+        panels.append(base[offset:].view(shape))
+    width = cp_async_width(D, panels[0].element_size())
+    padded = [cp_async_rows(t, width) for t in panels]
+    for t, pt in zip(panels, padded):
+        assert pt.shape == (*shape[:2], width) and pt.data_ptr() % 16 == 0
+        assert (pt is t) == (width == D and offset == 0)
+    scale = float(1.0 / np.sqrt(D))
+    want, want_lse = attention_plain(*panels, True, scale, with_lse=True)
+    got, lse = attention_plain(*padded, True, scale, with_lse=True)
+    assert not got[..., D:].any()
+    torch.testing.assert_close(got[..., :D], want)
+    torch.testing.assert_close(lse, want_lse)

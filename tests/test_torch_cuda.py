@@ -70,19 +70,43 @@ def test_k1_kernel_matches_plain(cuda, shape):
     torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-5)
 
 
-@pytest.mark.parametrize("shape,causal,dtype", [
-    ((4, 96, 64), False, torch.float32), ((2, 130, 40), True, torch.float32),
-    ((3, 200, 128), True, torch.bfloat16)])
-def test_k2_kernel_matches_plain(cuda, shape, causal, dtype):
+@pytest.mark.parametrize("shape,causal,dtype,offset", [
+    ((4, 96, 64), False, torch.float32, 0), ((2, 130, 40), True, torch.float32, 0),
+    ((3, 200, 128), True, torch.bfloat16, 0),
+    # rows not a multiple of 16 bytes, or a panel off a 16-byte boundary:
+    # the wrapper pads them with zero columns
+    ((2, 33, 33), True, torch.float32, 0), ((2, 70, 64), False, torch.float32, 1),
+    ((2, 37, 20), False, torch.bfloat16, 0), ((2, 75, 37), True, torch.bfloat16, 0),
+    # D = 128, and T no multiple of the walked tile, causal and not
+    ((2, 130, 128), False, torch.float32, 0), ((1, 65, 128), True, torch.float32, 0),
+    ((2, 150, 128), False, torch.bfloat16, 0), ((3, 1000, 64), True, torch.float32, 0),
+    ((3, 1000, 64), False, torch.bfloat16, 0), ((3, 1, 64), False, torch.float32, 0)])
+def test_k2_kernel_matches_plain(cuda, shape, causal, dtype, offset):
     gen = torch.Generator(device=cuda).manual_seed(1)
     q, k, v = (torch.randn(shape, device=cuda, generator=gen).to(dtype) for _ in range(3))
+    if offset:
+        q = torch.cat([q.new_zeros(offset), q.reshape(-1)])[offset:].view(shape)
+        assert q.data_ptr() % 16 != 0
     before = flash_attention.launches
     got, lse = flash_attention(q, k, v, causal=causal, with_lse=True)
     assert flash_attention.launches == before + 1
+    assert got.shape == shape and got.dtype == dtype
     want, want_lse = attention_plain(q, k, v, causal, shape[-1] ** -0.5, with_lse=True)
     tol = 1e-4 if dtype == torch.float32 else 2e-2 * want.float().abs().max().item()
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
     torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_is_deterministic(cuda, dtype):
+    # no atomics: every sum is taken in one fixed order
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    q, k, v = (torch.randn((4, 256, 64), device=cuda, generator=gen).to(dtype) for _ in range(3))
+    first = flash_attention(q, k, v, causal=True, with_lse=True)
+    second = flash_attention(q, k, v, causal=True, with_lse=True)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("out", "lse"), first, second):
+        assert torch.equal(a, b), name
 
 
 def test_small_encoder_on_card_matches_cpu(cuda):
