@@ -21,10 +21,6 @@
 // K5 (narrow rhs, C small): one warp per row; lanes stride over the row's
 // entries and keep one accumulator per rhs column (columns in groups of up
 // to 8 registers); a warp-shuffle reduction ends the row.
-// K7: one warp per row; with C >= 32 lanes split each dot product over C
-// and reduce by shuffles, otherwise each lane takes whole entries.  The
-// output is the values array in x's own entry order: it shares x's indptr
-// and indices.
 //
 // K6 (wide rhs) splits the work by entries, not by rows: the merge-based
 // CSR split of Merrill & Garland (SC 2016).  The merged sequence of the n
@@ -66,6 +62,40 @@
 // value gathered from a scattered row, far below what a wgmma tile needs
 // to pay for itself, and TMA's tiled copies do not gather rows.
 //
+// K7 (`csr_sddmm_kernel`) writes one value per stored entry, so what
+// bounds it is the same gather: each entry pulls its b row through L2, at
+// C = 20 in float32 80 bytes that always touch three 32-byte sectors (96
+// bytes an entry, some 129 MB for the GLM's 1.34 M entries), beside 8
+// bytes of index and output and the gz rows, read once a row.  It takes
+// K6's plan (the same chunks: one plan serves both), so the load follows
+// the entries, not the rows:
+//
+// - One warp takes one chunk; cp.async stages the chunk's row ends and
+//   indices (no values: K7 reads none of x's).
+// - A group of G lanes reads one entry's b row with the widest vector
+//   load that C, the dtype, the operands' addresses and their row strides
+//   allow (`spmm_vector_bytes`); 32 / G groups take consecutive entries, a
+//   step.  C = 20 in float32 is 5 lanes of 16 bytes, 6 entries a step.
+//   One step is in flight a group: on the H100 two or four (unrolled)
+//   held more registers, fitted fewer warps an SM and were no faster
+//   (PERF.md); the other warps keep the gathers coming.
+// - A group finds its entry's row by walking the staged row ends forward
+//   (rows only increase along a chunk) and keeps its slice of gz[row] in
+//   registers, reloading it only when the row changes.
+// - The group's partial dots meet in a shuffle tree of fixed shape, and
+//   the first lane of each group writes the entry's value: a step's
+//   outputs are contiguous.  Every output belongs to one entry and one
+//   warp, so there is no carry and no fix-up pass, and two calls give the
+//   same bits.
+// - A row of more than 32 vectors is walked in tiles of 32 inside the
+//   warp (one entry a step), each lane adding its tiles in order.
+// - A row of one vector (C = 1, or up to 16 bytes) needs no group and no
+//   reduction: `csr_sddmm_lane_kernel` gives each lane one entry of the
+//   chunk at a time and stages nothing, which keeps its registers few and
+//   its warps many.  On the H100 the staged kernel with one-lane groups
+//   lost at C = 1 to the row-per-warp kernel this replaces; this one
+//   does not (PERF.md).
+//
 // Implicit zeros never touch the rhs, so an inf or nan there poisons
 // exactly the rows whose stored pattern hits it; a stored zero times inf
 // gives nan, as in SciPy.  Accumulation is float32 for float32 values
@@ -77,11 +107,13 @@
 
 namespace {
 
-constexpr int WARPS = 8;               // warps (rows) per block of K5 and K7
+constexpr int WARPS = 8;               // warps (rows) per block of K5
 constexpr int THREADS = WARPS * 32;
 constexpr int SPMM_WARPS = 4;          // warps (chunks) per block of K6
 constexpr int SPMM_THREADS = SPMM_WARPS * 32;
 constexpr int SPMM_UNROLL = 4;         // gathers in flight per lane
+constexpr int SDDMM_WARPS = 4;         // warps (chunks) per block of K7
+constexpr int SDDMM_THREADS = SDDMM_WARPS * 32;
 constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ float to_acc(float x, float) { return x; }
@@ -309,32 +341,147 @@ csr_spmm_fixup_kernel(const int* __restrict__ indptr, const int* __restrict__ pl
   }
 }
 
-// K7: gz is (n, C), b is (d, C); out has one value per stored entry.
-template <typename T, typename ACC>
-__global__ void __launch_bounds__(THREADS)
+// ---- K7 -------------------------------------------------------------------
+
+// shared memory of one K7 warp: the chunk's indices and row ends
+__host__ __device__ constexpr size_t sddmm_warp_bytes(int chunk) {
+  return ((size_t)chunk * 2 * sizeof(int) + 15) / 16 * 16;
+}
+
+template <typename T, typename ACC, int EV, typename VT>
+__device__ __forceinline__ ACC dot_vec(VT x, VT y) {
+  static_assert(sizeof(VT) == EV * sizeof(T), "one vector holds EV values");
+  T a[EV], b[EV];
+  memcpy(a, &x, sizeof(VT));
+  memcpy(b, &y, sizeof(VT));
+  ACC s = ACC(a[0]) * ACC(b[0]);
+#pragma unroll
+  for (int q = 1; q < EV; ++q) s += ACC(a[q]) * ACC(b[q]);
+  return s;
+}
+
+// the sum of the G partials of a lane group, in lane p == 0 of the group:
+// a tree of fixed shape, so the order of the additions never changes
+template <typename ACC>
+__device__ __forceinline__ ACC group_sum(ACC s, int p, int G) {
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    if (off >= G) break;                // G is the same in every lane
+    const ACC o = __shfl_down_sync(FULL, s, off);
+    if ((p & (2 * off - 1)) == 0 && p + off < G) s += o;
+  }
+  return s;
+}
+
+// chunk c of the plan: rows i0..i1, entries j0..j0 + n_ent - 1
+struct Chunk {
+  int i0, i1, j0, n_ent;
+};
+
+__device__ __forceinline__ Chunk chunk_at(const int* __restrict__ plan, int c, int chunk, int n, int nnz) {
+  const long long total = (long long)n + nnz;
+  const int i0 = plan[c], i1 = plan[c + 1];
+  const int d0 = (int)min((long long)c * chunk, total), d1 = (int)min((long long)(c + 1) * chunk, total);
+  return {i0, i1, d0 - i0, (d1 - i1) - (d0 - i0)};
+}
+
+// K7: gz is (n, C) with rows ld_gz values apart, b is (d, C) with rows
+// ld_b apart (both multiples of the vector); out has one value per stored
+// entry, in x's entry order.  WIDE: more than 32 vectors a row.
+template <typename T, typename ACC, int VB, bool WIDE>
+__global__ void __launch_bounds__(SDDMM_THREADS)
 csr_sddmm_kernel(const int* __restrict__ indptr, const int* __restrict__ indices,
                  const T* __restrict__ gz, const T* __restrict__ b, T* __restrict__ out,
-                 int n, int C) {
-  const int row = blockIdx.x * WARPS + (threadIdx.x >> 5);
+                 const int* __restrict__ plan, int n, int nnz, int C, long long ld_gz,
+                 long long ld_b, int chunk, int nchunks) {
+  using VT = typename Vec<VB>::type;
+  constexpr int EV = VB / sizeof(T);
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int c = blockIdx.x * SDDMM_WARPS + warp;
+  if (c >= nchunks) return;             // the whole warp leaves together
+  int* s_idx = reinterpret_cast<int*>(smem + warp * sddmm_warp_bytes(chunk));
+  int* s_end = s_idx + chunk;
+  const Chunk k = chunk_at(plan, c, chunk, n, nnz);
+  const int i0 = k.i0, i1 = k.i1, j0 = k.j0, n_ent = k.n_ent;
+  if (n_ent == 0) return;               // only row ends: nothing to write
+
+  for (int t = lane; t < i1 - i0; t += 32) cp_async<4>(s_end + t, indptr + i0 + 1 + t);
+  for (int t = lane; t < n_ent; t += 32) cp_async<4>(s_idx + t, indices + j0 + t);
+  cp_async_commit();
+
+  const int NV = C / EV;                // vectors in a row
+  const int G = WIDE ? 32 : NV, groups = 32 / G;
+  const int g = lane / G, p = lane - g * G;
+  const long long gz_ld = ld_gz / EV, b_ld = ld_b / EV;
+  const VT* gp = reinterpret_cast<const VT*>(gz) + p;
+  const VT* bp = reinterpret_cast<const VT*>(b) + p;
+  cp_async_wait<0>();
+  __syncwarp();
+
+  // the row of the group's latest entry and the offset at which it ends in
+  // the chunk (row i1, cut by the chunk's end, runs to n_ent); the group's
+  // slice of gz at that row (one tile only)
+  int r = i0, r_hi = i0 < i1 ? s_end[0] - j0 : n_ent;
+  int gz_row = -1;
+  VT gv;
+  for (int t0 = 0; t0 < n_ent; t0 += groups) {
+    const int t = t0 + g;
+    const bool ok = g < groups && t < n_ent;
+    ACC part = ACC(0);
+    if (ok) {
+      while (t >= r_hi) {
+        ++r;
+        r_hi = r < i1 ? s_end[r - i0] - j0 : n_ent;
+      }
+      const VT* bu = bp + s_idx[t] * b_ld;
+      if (!WIDE) {
+        const VT x = __ldg(bu);          // the gather goes out before gz is looked at
+        if (r != gz_row) {
+          gz_row = r;
+          gv = __ldg(gp + gz_row * gz_ld);
+        }
+        part = dot_vec<T, ACC, EV>(gv, x);
+      } else {
+        const VT* gu = gp + r * gz_ld;
+        for (int v = 0; v + p < NV; v += 32) part += dot_vec<T, ACC, EV>(__ldg(gu + v), __ldg(bu + v));
+      }
+    }
+    const ACC sum = group_sum(part, p, G);
+    if (p == 0 && ok) out[j0 + t] = T(sum);
+  }
+}
+
+// K7 for a row of one vector (C times the item size is the load, 16 bytes
+// at most; C = 1 among them): one entry a lane, lanes on consecutive
+// entries of the chunk, each walking indptr forward to its entry's row.
+// Nothing to reduce, so nothing is staged: the lanes read their indices
+// themselves, coalesced, and a lane holds few registers, so many warps fit
+// an SM.
+template <typename T, typename ACC, int VB>
+__global__ void __launch_bounds__(SDDMM_THREADS)
+csr_sddmm_lane_kernel(const int* __restrict__ indptr, const int* __restrict__ indices,
+                      const T* __restrict__ gz, const T* __restrict__ b, T* __restrict__ out,
+                      const int* __restrict__ plan, int n, int nnz, long long ld_gz, long long ld_b,
+                      int chunk, int nchunks) {
+  using VT = typename Vec<VB>::type;
+  constexpr int EV = VB / sizeof(T);
   const int lane = threadIdx.x & 31;
-  if (row >= n) return;
-  const int start = indptr[row], end = indptr[row + 1];
-  const T* g = gz + (long long)row * C;
-  if (C >= 32) {
-    for (int k = start; k < end; ++k) {
-      const T* brow = b + (long long)indices[k] * C;
-      ACC s = ACC(0);
-      for (int c = lane; c < C; c += 32) s += ACC(g[c]) * ACC(brow[c]);
-      s = warp_sum(s);
-      if (lane == 0) out[k] = T(s);
+  const int c = blockIdx.x * SDDMM_WARPS + (threadIdx.x >> 5);
+  if (c >= nchunks) return;
+  const Chunk k = chunk_at(plan, c, chunk, n, nnz);
+  const int i0 = k.i0, i1 = k.i1, j0 = k.j0, n_ent = k.n_ent;
+  const VT* gp = reinterpret_cast<const VT*>(gz);
+  const VT* bp = reinterpret_cast<const VT*>(b);
+  const long long gz_ld = ld_gz / EV, b_ld = ld_b / EV;
+  int r = i0, r_hi = i0 < i1 ? __ldg(indptr + i0 + 1) - j0 : n_ent;
+  for (int t = lane; t < n_ent; t += 32) {
+    while (t >= r_hi) {
+      ++r;
+      r_hi = r < i1 ? __ldg(indptr + r + 1) - j0 : n_ent;
     }
-  } else {
-    for (int k = start + lane; k < end; k += 32) {
-      const T* brow = b + (long long)indices[k] * C;
-      ACC s = ACC(0);
-      for (int c = 0; c < C; ++c) s += ACC(g[c]) * ACC(brow[c]);
-      out[k] = T(s);
-    }
+    const VT x = __ldg(bp + __ldg(indices + j0 + t) * b_ld);
+    out[j0 + t] = T(dot_vec<T, ACC, EV>(__ldg(gp + r * gz_ld), x));
   }
 }
 
@@ -378,6 +525,32 @@ cudaError_t launch_spmm(const int* indptr, const int* indices, const void* data,
   if (err != cudaSuccess || nchunks == 1) return err;
   csr_spmm_fixup_kernel<T><<<grid, SPMM_THREADS, 0, stream>>>(indptr, plan, cr, o, n, nnz, C, chunk,
                                                               nchunks);
+  return cudaGetLastError();
+}
+
+template <typename T, typename ACC, int VB, bool WIDE>
+cudaError_t launch_sddmm(const int* indptr, const int* indices, const void* gz, const void* b, void* out,
+                         const int* plan, int n, int nnz, int C, long long ld_gz, long long ld_b, int chunk,
+                         int nchunks, cudaStream_t stream) {
+  if ((C * sizeof(T)) % VB != 0 || (ld_gz * sizeof(T)) % VB != 0 || (ld_b * sizeof(T)) % VB != 0)
+    return cudaErrorInvalidValue;
+  const size_t smem = SDDMM_WARPS * sddmm_warp_bytes(chunk);
+  const dim3 grid((nchunks + SDDMM_WARPS - 1) / SDDMM_WARPS);
+  const T* g = static_cast<const T*>(gz);
+  const T* bb = static_cast<const T*>(b);
+  T* o = static_cast<T*>(out);
+  if (!WIDE && C * sizeof(T) == VB) {    // a row is one vector
+    csr_sddmm_lane_kernel<T, ACC, VB><<<grid, SDDMM_THREADS, 0, stream>>>(indptr, indices, g, bb, o, plan, n,
+                                                                          nnz, ld_gz, ld_b, chunk, nchunks);
+    return cudaGetLastError();
+  }
+  auto kernel = csr_sddmm_kernel<T, ACC, VB, WIDE>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<grid, SDDMM_THREADS, smem, stream>>>(indptr, indices, g, bb, o, plan, n, nnz, C, ld_gz, ld_b, chunk,
+                                                nchunks);
   return cudaGetLastError();
 }
 
@@ -425,24 +598,32 @@ extern "C" int csr_spmm(const int* indptr, const int* indices, const void* data,
 #undef K6_ARGS
 }
 
-// dtype codes: 0 = float32, 2 = float64 (gz, b and the output alike).
+// K7.  `plan` is K6's plan of x for this `chunk` (nchunks + 1 row starts);
+// gz and b have rows ld_gz and ld_b values apart; `vec` is the bytes of one
+// load (16, 8 or 4; it divides C, ld_gz and ld_b times the item size and
+// both addresses).  dtype codes: 0 = float32, 2 = float64 (gz, b and the
+// output alike).
 extern "C" int csr_sddmm(const int* indptr, const int* indices, const void* gz, const void* b,
-                         void* out, int n, int C, int dtype, void* stream) {
-  if (n <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((n + WARPS - 1) / WARPS);
-  if (dtype == 0) {
-    csr_sddmm_kernel<float, float><<<grid, THREADS, 0, s>>>(
-        indptr, indices, static_cast<const float*>(gz), static_cast<const float*>(b),
-        static_cast<float*>(out), n, C);
-  } else if (dtype == 2) {
-    csr_sddmm_kernel<double, double><<<grid, THREADS, 0, s>>>(
-        indptr, indices, static_cast<const double*>(gz), static_cast<const double*>(b),
-        static_cast<double*>(out), n, C);
-  } else {
+                         void* out, const int* plan, int n, int nnz, int C, long long ld_gz,
+                         long long ld_b, int chunk, int nchunks, int dtype, int vec, void* stream) {
+  if (n <= 0 || nnz < 0 || C <= 0 || ld_gz < 0 || ld_b < 0 || chunk < 32 || chunk > 4096 || nchunks <= 0)
     return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool wide = (long long)C * (dtype == 2 ? 8 : 4) / vec > 32;
+#define K7_ARGS indptr, indices, gz, b, out, plan, n, nnz, C, ld_gz, ld_b, chunk, nchunks, s
+#define K7_CASE(code, T, VB)                                                       \
+  case code:                                                                       \
+    return (int)(wide ? launch_sddmm<T, T, VB, true>(K7_ARGS) : launch_sddmm<T, T, VB, false>(K7_ARGS));
+  switch (dtype * 100 + vec) {
+    K7_CASE(16, float, 16)
+    K7_CASE(8, float, 8)
+    K7_CASE(4, float, 4)
+    K7_CASE(216, double, 16)
+    K7_CASE(208, double, 8)
+    default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+#undef K7_CASE
+#undef K7_ARGS
 }
 
 extern "C" const char* csr_spmm_error_string(int err) {

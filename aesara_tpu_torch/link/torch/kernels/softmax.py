@@ -23,7 +23,7 @@ tensors take :func:`softmax_rows_plain`, CUDA tensors launch the kernel.
 
 from __future__ import annotations
 
-__all__ = ["softmax_rows", "softmax_rows_plain"]
+__all__ = ["launch_config", "softmax_rows", "softmax_rows_plain"]
 
 _TILE = 1024        # values a program holds in the one-pass kernel
 _ONE_PASS = 8192    # widest row the one-pass kernel takes
@@ -109,6 +109,16 @@ def _module():
 _module.cache = None
 
 
+def launch_config(n: int):
+    """(one pass?, BLOCK_M, BLOCK_N, num_warps) of K4's launch for rows of
+    ``n`` columns: a function of ``n`` alone."""
+    block_n = 1 << max(0, (n - 1).bit_length())
+    if block_n <= _ONE_PASS:
+        block_m = max(1, _TILE // block_n)
+        return True, block_m, block_n, 4 if block_m * block_n <= 2048 else 8
+    return False, 1, _LOOP_BLOCK, 8
+
+
 def softmax_rows(x, log: bool = False):
     """Softmax (``log=True``: log-softmax) over the last axis of ``x``: the
     Triton kernel for a CUDA tensor, the plain version for a CPU one."""
@@ -131,16 +141,11 @@ def softmax_rows(x, log: bool = False):
         return out.reshape(x.shape)
     mod = _module()
     acc = tl.float64 if x.dtype == torch.float64 else tl.float32
-    block_n = 1 << max(0, (n - 1).bit_length())
-    if block_n <= _ONE_PASS:
-        block_m = max(1, _TILE // block_n)
-        kernel = mod.one_pass
-    else:
-        block_m, block_n = 1, _LOOP_BLOCK
-        kernel = mod.two_pass
+    one_pass, block_m, block_n, num_warps = launch_config(n)
+    kernel = mod.one_pass if one_pass else mod.two_pass
     grid = ((m + block_m - 1) // block_m,)
     kernel[grid](x2, out, m, n, x2.stride(0), out.stride(0), LOG=bool(log), BLOCK_M=block_m,
-                 BLOCK_N=block_n, ACC=acc, num_warps=4 if block_m * block_n <= 2048 else 8)
+                 BLOCK_N=block_n, ACC=acc, num_warps=num_warps)
     softmax_rows.launches += 1
     return out.reshape(x.shape)
 

@@ -13,7 +13,8 @@ K6 splits the merged sequence of row ends and entries into chunks of
 ``SPMM_CHUNK`` items (the merge-based split of Merrill & Garland).  Its
 plan, the row at which each chunk starts (:func:`merge_path_plan`), is
 made on the matrix's device with torch ops and kept with the matrix
-(:func:`spmm_plan`).
+(:func:`spmm_plan`).  K7 splits x's entries by the same plan, at the
+same chunk size, so one plan serves both.
 
 :func:`csr_matmul` picks K5 for a rhs of at most ``SPMV_MAX_C`` columns
 (a vector counts as one) and K6 for a wider one.  No TPU threshold carries
@@ -26,7 +27,7 @@ from __future__ import annotations
 import ctypes
 
 __all__ = ["SPMM_CHUNK", "SPMM_SHORT", "SPMV_MAX_C", "csr_matmul", "csr_matmul_plain", "csr_spmv", "csr_spmm",
-           "csr_sddmm", "csr_sddmm_plain", "merge_path_plan", "row_ids", "spmm_plan",
+           "csr_sddmm", "csr_sddmm_plain", "launch_sddmm", "merge_path_plan", "row_ids", "spmm_plan",
            "spmm_vector_bytes"]
 
 #: widest rhs that K5 takes in :func:`csr_matmul`; wider ones go to K6
@@ -109,9 +110,11 @@ def spmm_plan(a, chunk: int = SPMM_CHUNK):
 
 
 def spmm_vector_bytes(C: int, itemsize: int, address: int) -> int:
-    """The bytes of one rhs load in K6: the widest of 16, 8, 4 and 2 that
-    is at least one item and divides both a rhs row (``C * itemsize``) and
-    the rhs's address."""
+    """The bytes of one rhs load in K6 and K7: the widest of 16, 8, 4 and 2
+    that is at least one item and divides both a rhs row (``C * itemsize``)
+    and ``address``.  K7 passes its operands' addresses and row strides in
+    bytes OR-ed together: a power of two divides that if and only if it
+    divides each of them."""
     for vec in (16, 8, 4, 2):
         if vec >= itemsize and (C * itemsize) % vec == 0 and address % vec == 0:
             return vec
@@ -123,13 +126,13 @@ def _library():
 
     lib = load_cuda_library("csr_spmm")
     if not getattr(lib, "_typed", False):
-        p, i = ctypes.c_void_p, ctypes.c_int
-        for name in ("csr_spmv", "csr_sddmm"):
-            entry = getattr(lib, name)
-            entry.argtypes = [p, p, p, p, p, i, i, i, p]
-            entry.restype = i
+        p, i, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.csr_spmv.argtypes = [p, p, p, p, p, i, i, i, p]
+        lib.csr_spmv.restype = i
         lib.csr_spmm.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
         lib.csr_spmm.restype = i
+        lib.csr_sddmm.argtypes = [p, p, p, p, p, p, i, i, i, q, q, i, i, i, i, p]
+        lib.csr_sddmm.restype = i
         lib.csr_spmm_error_string.argtypes = [i]
         lib.csr_spmm_error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -144,15 +147,15 @@ def _check_cuda(name, a, *dense):
         raise ValueError(f"{name}: the kernel takes fewer than 2**31 rows and stored entries")
 
 
-def _launch(name, a, dense_args, out, C, code):
+def _launch_spmv(a, data, b2, out, code):
     import torch
 
     lib = _library()
     stream = torch.cuda.current_stream(a.data.device).cuda_stream
-    err = getattr(lib, name)(a.indptr.data_ptr(), a.indices.data_ptr(), *[t.data_ptr() for t in dense_args],
-                             out.data_ptr(), a.shape[0], C, code, stream)
+    err = lib.csr_spmv(a.indptr.data_ptr(), a.indices.data_ptr(), data.data_ptr(), b2.data_ptr(),
+                       out.data_ptr(), a.shape[0], b2.shape[1], code, stream)
     if err != 0:
-        raise RuntimeError(f"{name} launch failed: {lib.csr_spmm_error_string(err).decode()}")
+        raise RuntimeError(f"csr_spmv launch failed: {lib.csr_spmm_error_string(err).decode()}")
 
 
 def _matmul_operands(name, a, b, out_dtype):
@@ -211,8 +214,7 @@ def _product(kernel, a, b, out_dtype, launch):
 
 def csr_spmv(a, b, out_dtype=None):
     """K5: ``a @ b`` for a narrow rhs, one warp per row."""
-    return _product(csr_spmv, a, b, out_dtype,
-                    lambda a, data, b2, out, code: _launch("csr_spmv", a, (data, b2), out, b2.shape[1], code))
+    return _product(csr_spmv, a, b, out_dtype, _launch_spmv)
 
 
 def csr_spmm(a, b, out_dtype=None, chunk: int = SPMM_CHUNK, short: int = SPMM_SHORT):
@@ -230,12 +232,42 @@ def csr_matmul(a, b, out_dtype):
     return (csr_spmv if C <= SPMV_MAX_C else csr_spmm)(a, b, out_dtype)
 
 
-def csr_sddmm(a, gz, b):
-    """K7: the CSRMat with ``a``'s pattern (its indptr and indices) and the
-    values of (gz @ bᵀ) at its stored entries."""
+def _sddmm_rows(t, dtype):
+    """``t`` as a (rows, C) matrix of ``dtype`` whose columns are adjacent;
+    its rows may lie any multiple of a value apart (a column slice is taken
+    as it is)."""
+    t2 = t.reshape(t.shape[0], -1).to(dtype)
+    return t2 if t2.stride(1) == 1 or t2.shape[1] == 1 else t2.contiguous()
+
+
+def launch_sddmm(a, gz2, b2, out, chunk: int = SPMM_CHUNK):
+    """One launch of K7 into ``out`` for (rows, C) CUDA operands that
+    ``_sddmm_rows`` gave, split by the plan at ``chunk``; the wrapper
+    counts it, a direct caller (a sweep, a test) does not."""
     import torch
 
-    if gz.dim() != b.dim() or gz.shape[0] != a.shape[0] or b.shape[0] != a.shape[1]:
+    n, C = a.shape[0], b2.shape[1]
+    plan = spmm_plan(a, chunk)
+    item = b2.element_size()
+    ld_gz, ld_b = gz2.stride(0), b2.stride(0)
+    vec = spmm_vector_bytes(C, item, gz2.data_ptr() | b2.data_ptr() | ld_gz * item | ld_b * item)
+    lib = _library()
+    stream = torch.cuda.current_stream(a.data.device).cuda_stream
+    err = lib.csr_sddmm(a.indptr.data_ptr(), a.indices.data_ptr(), gz2.data_ptr(), b2.data_ptr(),
+                        out.data_ptr(), plan.data_ptr(), n, a.nnz, C, ld_gz, ld_b, chunk, plan.shape[0] - 1,
+                        0 if out.dtype == torch.float32 else 2, vec, stream)
+    if err != 0:
+        raise RuntimeError(f"csr_sddmm launch failed: {lib.csr_spmm_error_string(err).decode()}")
+
+
+def csr_sddmm(a, gz, b):
+    """K7: the CSRMat with ``a``'s pattern (its indptr and indices) and the
+    values of (gz @ bᵀ) at its stored entries; x's entries split by K6's
+    plan, one warp a chunk."""
+    import torch
+
+    if (gz.dim() != b.dim() or gz.shape[1:] != b.shape[1:] or gz.shape[0] != a.shape[0]
+            or b.shape[0] != a.shape[1]):
         raise ValueError(f"csr_sddmm: gz {tuple(gz.shape)} and b {tuple(b.shape)} "
                          f"for a {a.shape} matrix")
     if a.data.device.type == "cpu" and gz.device.type == "cpu" and b.device.type == "cpu":
@@ -244,12 +276,10 @@ def csr_sddmm(a, gz, b):
     _check_cuda("csr_sddmm", a, gz, b)
     if a.data.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"csr_sddmm takes float32 or float64 values, got {a.data.dtype}")
-    gz2 = gz.reshape(gz.shape[0], -1).to(a.data.dtype).contiguous()
-    b2 = b.reshape(b.shape[0], -1).to(a.data.dtype).contiguous()
+    gz2, b2 = _sddmm_rows(gz, a.data.dtype), _sddmm_rows(b, a.data.dtype)
     out = torch.empty_like(a.data)
-    C = b2.shape[1]
-    if a.nnz and C:
-        _launch("csr_sddmm", a, (gz2, b2), out, C, 0 if a.data.dtype == torch.float32 else 2)
+    if a.nnz and b2.shape[1]:
+        launch_sddmm(a, gz2, b2, out)
         csr_sddmm.launches += 1
     elif a.nnz:
         out.zero_()

@@ -8,6 +8,9 @@ serve the sparse-input models, all through ``aesara_tpu_torch.function``.
     python3 chip_smoke.py --k2-walk-sweep    # only K2's walked-tile table (see k2_walk_sweep)
     python3 chip_smoke.py --attention-times    # only K2's and K3's times (see attention_times)
     python3 chip_smoke.py --profile-check    # only the trace's lost launches (see profile_check)
+    python3 chip_smoke.py --k7-sweep    # only K7's tuning table (see k7_sweep)
+    python3 chip_smoke.py --k4-times    # only K4 against torch.log_softmax, and its sweep (see k4_times)
+    python3 chip_smoke.py --k4-k7-times    # only K7's and K4's times, for two checkouts (see k4_k7_times)
 
 Phases (any failure raises and the exit code is non-zero):
 
@@ -56,9 +59,9 @@ Phases (any failure raises and the exit code is non-zero):
    version, K5 and K6 timed at rhs widths 1-32 (the split between them),
    3 + 10 steps with launch counts.
 7. (c) the gradient with respect to x's stored values at the GLM's size,
-   for a rhs of width 1 and of width 20: K7, and K6 at width 20, against
-   their plain versions, the function's launches, its output against the
-   same function on the CPU.
+   for a rhs of width 1 and of width 20: K7 (two calls with the same
+   bits), and K6 at width 20, against their plain versions, the
+   function's launches, its output against the same function on the CPU.
 
 The next-to-last lines are a JSON object describing the kernels (each
 kernel's launches from its path's run) and the card's name and power
@@ -115,6 +118,10 @@ FP32_FLOPS = 67e12
 TF32_FLOPS = 495e12
 BF16_FLOPS = 989e12
 K2_WALKS = (16, 32, 64)   # walked key tiles --k2-walk-sweep builds
+K7_CHUNKS = (64, 128, 256, 512)   # plan chunk sizes --k7-sweep times
+K4_ROUNDS, K4_LAUNCHES = 5, 200   # --k4-times: rounds, launches a round
+K4_BLOCK_MS = (8, 16, 32, 64, 128)   # rows a program --k4-times sweeps
+K4_WARPS = (1, 2, 4)                 # warps a program --k4-times sweeps
 
 # (a) fetch_20newsgroups_vectorized, training split: 11,314 documents x
 # 130,107 features, 20 classes; words per document log-normal, so that a
@@ -140,6 +147,12 @@ PROFILE_GAP_S = 0.01
 
 def log(*args):
     print(*args, flush=True)
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()
 
 
 def call_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -315,8 +328,7 @@ def phase_setup():
                          "from the root of a checkout of the repo")
     # Dot is a full-fp32 product, as in the JAX reference; the linker refuses TF32
     torch.backends.cuda.matmul.allow_tf32 = False
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    smi = card_line()
     log(f"card: {smi}; python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}")
     from aesara_tpu_torch.link.torch.kernels import attention, sparse
@@ -800,10 +812,10 @@ def phase_train(step, params):
 def kernel_group(name: str) -> str:
     """The group of a device kernel's time in a profiled step; every kernel
     a wrapper launches falls into its group (K6: its main pass and its
-    fix-up)."""
+    fix-up; K7: its grouped kernel and its one-vector kernel)."""
     groups = (("flash_bwd", "K3 flash backward"), ("flash_fwd", "K2 flash forward"),
               ("csr_spmv_kernel", "K5 CSR SpMV"), ("csr_spmm_kernel", "K6 CSR SpMM"),
-              ("csr_spmm_fixup_kernel", "K6 CSR SpMM"), ("csr_sddmm_kernel", "K7 CSR SDDMM"))
+              ("csr_spmm_fixup_kernel", "K6 CSR SpMM"), ("csr_sddmm", "K7 CSR SDDMM"))
     for key, group in groups:
         if key in name:
             return group
@@ -1058,17 +1070,20 @@ def spmm_fresh_plan(a, b, out_dtype):
 
 
 def check_sddmm(label: str, a, gz, b) -> dict:
-    """K7 against its plain version at one shape, with the times of both,
-    of torch.sparse.sampled_addmm, and the bound."""
+    """K7 against its plain version at one shape (two calls with the same
+    bits), with the times of both, of torch.sparse.sampled_addmm, and the
+    bound."""
     from aesara_tpu_torch.link.torch.kernels.sparse import csr_sddmm, csr_sddmm_plain
 
-    got = csr_sddmm(a, gz, b)
+    got, again = csr_sddmm(a, gz, b), csr_sddmm(a, gz, b)
     torch.cuda.synchronize()
     want = csr_sddmm_plain(a, gz, b)
     err = (got.data.double() - want.double()).abs().max().item()
     torch.testing.assert_close(got.data, want, atol=SPARSE_TOL, rtol=SPARSE_TOL)
     if got.indptr is not a.indptr or got.indices is not a.indices:
         raise AssertionError("K7 did not keep x's pattern")
+    if not torch.equal(got.data, again.data):
+        raise AssertionError(f"{label}: two calls of K7 gave different bits")
     C = gz.shape[1]
     A, bt = torch_csr(a), b.t().contiguous()
     res = {"max_abs_err": err, "ms": device_ms(lambda: csr_sddmm(a, gz, b)),
@@ -1389,8 +1404,7 @@ def k6_sweep():
     from aesara_tpu_torch.link.torch.csr import CSRMat
     from aesara_tpu_torch.link.torch.kernels import sparse
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    smi = card_line()
     log(f"card: {smi}; torch {torch.__version__}")
     cuda = torch.device("cuda")
     gen = torch.Generator(device=cuda).manual_seed(15)
@@ -1429,6 +1443,242 @@ def k6_sweep():
     print(smi)
 
 
+def spread(times) -> str:
+    return f"median {statistics.median(times):.6f} (min {min(times):.6f}, max {max(times):.6f})"
+
+
+def versus(mine, theirs) -> str:
+    """Both tests of one set of rounds against another, each beyond the
+    spread of the rounds: the slowest of ``mine`` beats the fastest of
+    ``theirs``, or the fastest of ``mine`` loses to the slowest of theirs."""
+    return f"wins beyond the spread: {max(mine) < min(theirs)}, loses beyond it: {min(mine) > max(theirs)}"
+
+
+def k7_sweep():
+    """K7's tuning table at the GLM's x (path (c)), widths 1 and 20: each
+    chunk size of the plan, checked against the plain version, then timed
+    in two rounds (the second in reverse order) with
+    torch.sparse.sampled_addmm before, between and after them; and the
+    one-off device time of making the plan at each chunk size."""
+    from aesara_tpu_torch.link.torch.csr import CSRMat
+    from aesara_tpu_torch.link.torch.kernels import sparse
+
+    smi = card_line()
+    log(f"card: {smi}; torch {torch.__version__}")
+    cuda = torch.device("cuda")
+    gen = torch.Generator(device=cuda).manual_seed(19)
+    a = CSRMat.from_scipy(glm_data()[0], cuda)
+    for chunk in K7_CHUNKS:
+        plan_ms = device_ms(lambda: sparse.merge_path_plan(a.indptr, a.nnz, chunk))
+        log(f"K7 plan at chunk {chunk}: {sparse.spmm_plan(a, chunk).shape[0] - 1} chunks, made once in "
+            f"{plan_ms:.4f} device ms")
+    for C in GRAD_WIDTHS:
+        gz = torch.randn((GLM_N, C), device=cuda, generator=gen)
+        b = torch.randn((GLM_D, C), device=cuda, generator=gen)
+        want = sparse.csr_sddmm_plain(a, gz, b)
+        out = torch.empty_like(a.data)
+
+        def run(chunk):
+            sparse.launch_sddmm(a, gz, b, out, chunk)
+            return out
+
+        for chunk in K7_CHUNKS:
+            torch.testing.assert_close(run(chunk).clone(), want, atol=SPARSE_TOL, rtol=SPARSE_TOL)
+        A, bt = torch_csr(a), b.t().contiguous()
+        lib_ms = [library_ms("K7", lambda: torch.sparse.sampled_addmm(A, gz, bt, beta=0.0))]
+        times: dict = {}
+        for order in (K7_CHUNKS, K7_CHUNKS[::-1]):
+            for chunk in order:
+                times.setdefault(chunk, []).append(device_ms(lambda: run(chunk)))
+            lib_ms.append(library_ms("K7", lambda: torch.sparse.sampled_addmm(A, gz, bt, beta=0.0)))
+        bound_ms, bound_by = bound(sddmm_bytes(a, C), 2 * a.nnz * C)
+        log(f"K7 GLM x {a.shape} nnz {a.nnz}, width {C}: every chunk within the tolerance; bound "
+            f"{bound_ms:.4f} ({bound_by}); sampled_addmm device ms {[round(t, 4) for t in lib_ms if t]} "
+            f"(before, between and after the rounds)")
+        for chunk in K7_CHUNKS:
+            log(f"  chunk {chunk:4d}: device ms {times[chunk][0]:.4f} {times[chunk][1]:.4f}")
+    print(smi)
+
+
+K4_EMPTY_SOURCE = """import triton
+
+
+@triton.jit
+def empty(x_ptr):
+    pass
+"""
+
+
+def graph_timer(fn, launches: int = K4_LAUNCHES):
+    """A function that replays a CUDA graph of ``launches`` calls of ``fn``
+    between two CUDA events and returns the device ms per call: the
+    kernels back to back, with no host launch cost between them."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    def timer():
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / launches
+
+    return timer
+
+
+def eager_ms(fn, launches: int = K4_LAUNCHES) -> float:
+    """ms per call of ``launches`` calls of ``fn`` launched from the host
+    between two CUDA events (where the host launches slower than the device
+    runs, this is the host's rate)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(launches):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / launches
+
+
+def k4_times():
+    """K4 timed against torch.log_softmax at the classifier's (11314, 20)
+    fp32: K4 as the wrapper launches it, the library call and an empty
+    Triton kernel on K4's grid (the launch floor), in K4_ROUNDS rounds of
+    K4_LAUNCHES launches each, in turns, timed by CUDA events around a CUDA
+    graph of the launches and around eager launches, with each one's
+    kernel time by the profiler; then the sweep of BLOCK_M x num_warps, each
+    setting checked against the plain version, in K4_ROUNDS rounds with the
+    library before every round and after the last; then the fastest
+    setting, the kept launch and the library alone, in turns.  Each
+    comparison prints both tests beyond the spread (``versus``)."""
+    import triton.language as tl
+
+    from aesara_tpu_torch.link.torch.kernels.build import triton_module
+    from aesara_tpu_torch.link.torch.kernels.softmax import (
+        _module, launch_config, softmax_rows, softmax_rows_plain,
+    )
+
+    smi = card_line()
+    log(f"card: {smi}; torch {torch.__version__}")
+    cuda = torch.device("cuda")
+    x = torch.randn((NG_DOCS, NG_CLASSES), device=cuda, generator=torch.Generator(device=cuda).manual_seed(20))
+    m, n = x.shape
+    want = softmax_rows_plain(x, log=True)
+    one_pass, block_m, block_n, num_warps = launch_config(n)
+    grid = ((m + block_m - 1) // block_m,)
+    mod, empty = _module(), triton_module(K4_EMPTY_SOURCE, "k4_floor").empty
+    out = torch.empty_like(x)
+
+    def setting(bm, warps):
+        def launch():
+            mod.one_pass[((m + bm - 1) // bm,)](x, out, m, n, x.stride(0), out.stride(0), LOG=True, BLOCK_M=bm,
+                                                BLOCK_N=block_n, ACC=tl.float32, num_warps=warps)
+            return out
+        return launch
+
+    contenders = {"K4": lambda: softmax_rows(x, log=True),
+                  "torch.log_softmax": lambda: torch.log_softmax(x, dim=-1),
+                  "empty kernel": lambda: empty[grid](x, num_warps=num_warps)}
+    torch.testing.assert_close(softmax_rows(x, log=True), want, atol=SPARSE_TOL, rtol=SPARSE_TOL)
+    timers = {name: graph_timer(fn) for name, fn in contenders.items()}
+    graph_t: dict = {}
+    eager_t: dict = {}
+    for rnd in range(K4_ROUNDS):
+        names = list(contenders) if rnd % 2 == 0 else list(contenders)[::-1]
+        for name in names:
+            graph_t.setdefault(name, []).append(timers[name]())
+            eager_t.setdefault(name, []).append(eager_ms(contenders[name]))
+    log(f"K4 log-softmax {tuple(x.shape)} fp32, launch: one pass {one_pass}, BLOCK_M {block_m}, BLOCK_N "
+        f"{block_n}, {num_warps} warps, {grid[0]} programs; {K4_ROUNDS} rounds of {K4_LAUNCHES} launches, in turns")
+    for name, fn in contenders.items():
+        log(f"  {name}: graph ms a launch {spread(graph_t[name])}; eager {spread(eager_t[name])}; "
+            f"kernel (profiler) {device_ms(fn):.6f}")
+    log(f"  K4 against torch.log_softmax (graph rounds): {versus(graph_t['K4'], graph_t['torch.log_softmax'])}")
+    bound_ms, bound_by = bound(2 * x.numel() * 4, 6 * x.numel())
+    log(f"  bound {bound_ms:.6f} ({bound_by})")
+
+    settings = [(bm, w) for bm in K4_BLOCK_MS for w in K4_WARPS]
+    launches = {sw: setting(*sw) for sw in settings}
+    for sw, fn in launches.items():
+        torch.testing.assert_close(fn().clone(), want, atol=SPARSE_TOL, rtol=SPARSE_TOL)
+    timers = {sw: graph_timer(fn) for sw, fn in launches.items()}
+    lib_timer = graph_timer(contenders["torch.log_softmax"])
+    sweep: dict = {}
+    lib_t = [lib_timer()]
+    for rnd in range(K4_ROUNDS):
+        for sw in (settings if rnd % 2 == 0 else settings[::-1]):
+            sweep.setdefault(sw, []).append(timers[sw]())
+        lib_t.append(lib_timer())
+    log(f"K4 sweep of BLOCK_M x num_warps at {tuple(x.shape)} (graph ms a launch, {K4_ROUNDS} rounds); "
+        f"torch.log_softmax {spread(lib_t)} (before every round and after the last)")
+    for sw in settings:
+        log(f"  BLOCK_M {sw[0]:3d} warps {sw[1]}: {spread(sweep[sw])}; kernel (profiler) "
+            f"{device_ms(launches[sw]):.6f}")
+    best = min(settings, key=lambda sw: statistics.median(sweep[sw]))
+    log(f"K4 fastest setting BLOCK_M {best[0]} warps {best[1]}: {spread(sweep[best])}; against "
+        f"torch.log_softmax: {versus(sweep[best], lib_t)}")
+    # the fastest setting, the kept launch and the library alone, in turns
+    final = {"fastest": timers[best], "kept": timers[(block_m, num_warps)], "torch.log_softmax": lib_timer}
+    final_t: dict = {}
+    for rnd in range(K4_ROUNDS):
+        for name in (list(final) if rnd % 2 == 0 else list(final)[::-1]):
+            final_t.setdefault(name, []).append(final[name]())
+    log(f"K4 in turns, {K4_ROUNDS} rounds (graph ms a launch): fastest (BLOCK_M {best[0]}, {best[1]} warps) "
+        f"{spread(final_t['fastest'])}; kept (BLOCK_M {block_m}, {num_warps} warps) {spread(final_t['kept'])}; "
+        f"torch.log_softmax {spread(final_t['torch.log_softmax'])}")
+    log(f"  fastest against the kept launch: {versus(final_t['fastest'], final_t['kept'])}; against "
+        f"torch.log_softmax: {versus(final_t['fastest'], final_t['torch.log_softmax'])}; the kept launch against "
+        f"torch.log_softmax: {versus(final_t['kept'], final_t['torch.log_softmax'])}")
+    print(smi)
+
+
+def k4_k7_times():
+    """K7 at the GLM's x, widths 1 and 20, and K4 at (11314, 20) fp32, each
+    checked against its plain version and timed through its wrapper beside
+    its library call.  It reads only the wrappers, so a copy of this script
+    placed in another checkout times that checkout's kernels: two checkouts
+    are compared in one call by running the two in turns (a, b, b, a)."""
+    from aesara_tpu_torch.link.torch.csr import CSRMat
+    from aesara_tpu_torch.link.torch.kernels.softmax import softmax_rows, softmax_rows_plain
+    from aesara_tpu_torch.link.torch.kernels.sparse import csr_sddmm, csr_sddmm_plain
+
+    smi = card_line()
+    log(f"card: {smi}; torch {torch.__version__}; checkout {sys.path[0]}")
+    cuda = torch.device("cuda")
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    a = CSRMat.from_scipy(glm_data()[0], cuda)
+    for C in GRAD_WIDTHS:
+        gz = torch.randn((GLM_N, C), device=cuda, generator=gen)
+        b = torch.randn((GLM_D, C), device=cuda, generator=gen)
+        torch.testing.assert_close(csr_sddmm(a, gz, b).data, csr_sddmm_plain(a, gz, b), atol=SPARSE_TOL,
+                                   rtol=SPARSE_TOL)
+        A, bt = torch_csr(a), b.t().contiguous()
+        ms = [device_ms(lambda: csr_sddmm(a, gz, b)) for _ in range(3)]
+        lib = library_ms("K7", lambda: torch.sparse.sampled_addmm(A, gz, bt, beta=0.0))
+        log(f"K7 GLM x, width {C}: device ms {[round(t, 4) for t in ms]}; sampled_addmm {lib}")
+    x = torch.randn((NG_DOCS, NG_CLASSES), device=cuda, generator=gen)
+    torch.testing.assert_close(softmax_rows(x, log=True), softmax_rows_plain(x, log=True), atol=SPARSE_TOL,
+                               rtol=SPARSE_TOL)
+    k4, lib = graph_timer(lambda: softmax_rows(x, log=True)), graph_timer(lambda: torch.log_softmax(x, dim=-1))
+    k4_t, lib_t = [], []
+    for _ in range(K4_ROUNDS):
+        k4_t.append(k4())
+        lib_t.append(lib())
+    log(f"K4 {tuple(x.shape)}: kernel (profiler) {device_ms(lambda: softmax_rows(x, log=True)):.6f}, graph ms a "
+        f"launch {spread(k4_t)}; torch.log_softmax {spread(lib_t)}; K4 {versus(k4_t, lib_t)}")
+    print(smi)
+
+
 def attention_times():
     """K2 and K3 at the encoder's panels, (128, 1024, 64) fp32 and bf16,
     causal and not: device ms of K2, and of K3's call split into its
@@ -1438,8 +1688,7 @@ def attention_times():
     turns (a, b, b, a)."""
     from aesara_tpu_torch.link.torch.kernels.attention import flash_attention, flash_attention_grads
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    smi = card_line()
     log(f"card: {smi}; torch {torch.__version__}; checkout {sys.path[0]}")
     cuda = torch.device("cuda")
     gen = torch.Generator(device=cuda).manual_seed(17)
@@ -1480,8 +1729,7 @@ def k2_walk_sweep():
     and after them."""
     from aesara_tpu_torch.link.torch.kernels.attention import _library, attention_plain
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    smi = card_line()
     log(f"card: {smi}; torch {torch.__version__}")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(K2_WALKS)) as pool:
@@ -1548,7 +1796,8 @@ def profile_check(sessions: int = 100):
 
 def main():
     modes = {"--k6-sweep": k6_sweep, "--k2-walk-sweep": k2_walk_sweep, "--attention-times": attention_times,
-             "--profile-check": profile_check}
+             "--profile-check": profile_check, "--k7-sweep": k7_sweep, "--k4-times": k4_times,
+             "--k4-k7-times": k4_k7_times}
     if len(sys.argv) == 2 and sys.argv[1] in modes:
         if not torch.cuda.is_available():
             raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU")

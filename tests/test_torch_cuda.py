@@ -21,7 +21,8 @@ from aesara_tpu_torch.link.torch.kernels.elemwise import (
 )
 from aesara_tpu_torch.link.torch.kernels.softmax import softmax_rows, softmax_rows_plain
 from aesara_tpu_torch.link.torch.kernels.sparse import (
-    SPMM_CHUNK, SPMM_SHORT, csr_matmul_plain, csr_sddmm, csr_sddmm_plain, csr_spmm, csr_spmv,
+    SPMM_CHUNK, SPMM_SHORT, csr_matmul_plain, csr_sddmm, csr_sddmm_plain, csr_spmm, csr_spmv, launch_sddmm,
+    spmm_vector_bytes,
 )
 from aesara_tpu_torch.models.linear import LogisticRegression
 from aesara_tpu_torch.models.optim import sgd
@@ -350,7 +351,7 @@ def test_k6_is_deterministic_on_a_transposed_bag_of_words(cuda):
     torch.testing.assert_close(first, csr_matmul_plain(a, g, torch.float32), atol=1e-5, rtol=1e-5)
 
 
-@pytest.mark.parametrize("C", [None, 1, 20, 33, 64], ids=lambda c: f"C{c}")
+@pytest.mark.parametrize("C", [None, 1, 2, 4, 5, 8, 20, 33, 64, 160], ids=lambda c: f"C{c}")
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_k7_kernel_matches_plain(cuda, C, dtype):
     x = _awkward_csr(3000, 700, seed=8, dtype="float64" if dtype == torch.float64 else "float32")
@@ -365,6 +366,98 @@ def test_k7_kernel_matches_plain(cuda, C, dtype):
     assert got.indptr is a.indptr and got.indices is a.indices and got.data.dtype == dtype
     tol = 1e-12 if dtype == torch.float64 else 1e-5
     torch.testing.assert_close(got.data, csr_sddmm_plain(a, gz, b), atol=tol, rtol=tol)
+
+
+def _dyadic_rhs(rows, C, seed, device):
+    """Multiples of 1/16 in [-2, 2]: against multiples of 1/4 every float32
+    dot of up to 160 terms here is exact."""
+    rhs = np.clip(np.round(np.random.default_rng(seed).normal(size=(rows, C)) * 16) / 16, -2, 2)
+    return torch.from_numpy(rhs).to(device, torch.float32)
+
+
+K7_PATTERNS = {**K6_PATTERNS, "ragged_total": lambda: _dyadic_csr(
+    np.random.default_rng(19).integers(0, 9, size=1001), 900, 19)}
+
+
+@pytest.mark.parametrize("C", [1, 20, 160], ids=lambda c: f"C{c}")
+@pytest.mark.parametrize("chunk", [32, SPMM_CHUNK])
+@pytest.mark.parametrize("which", sorted(K7_PATTERNS))
+def test_k7_splits_long_rows_and_skips_empty_ones(cuda, which, chunk, C):
+    """The wrapper at the package's chunk; one launch at a chunk of 32
+    (many more chunks a row) through ``launch_sddmm``."""
+    x = K7_PATTERNS[which]()
+    if which == "ragged_total":
+        assert (x.shape[0] + x.nnz) % chunk != 0
+    a = CSRMat.from_scipy(x, cuda)
+    gz, b = _dyadic_rhs(x.shape[0], C, 20, cuda), _dyadic_rhs(x.shape[1], C, 21, cuda)
+    if chunk == SPMM_CHUNK:
+        before = csr_sddmm.launches
+        got = csr_sddmm(a, gz, b).data
+        assert csr_sddmm.launches == before + int(x.nnz > 0)
+    else:
+        got = torch.full_like(a.data, float("nan"))
+        if x.nnz:
+            launch_sddmm(a, gz, b, got, chunk)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, csr_sddmm_plain(a, gz, b), atol=0, rtol=0)    # exact sums
+
+
+@pytest.mark.parametrize("C,offset,ld,vecs", [
+    (20, 1, 22, (4, 8)), (20, 2, 24, (8, 16)), (8, 0, 9, (4, 8)), (64, 4, 72, (16, 16)), (5, 0, 6, (4, 8)),
+    (160, 1, 161, (4, 8))])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k7_column_slices_take_a_narrower_load(cuda, C, offset, ld, vecs, dtype):
+    """gz and b as column slices of wider matrices, rows ``ld`` values
+    apart and ``offset`` values in: the load is the widest that divides the
+    addresses and the row strides as well as the row (``vecs``: fp32,
+    fp64)."""
+    x = _awkward_csr(3000, 700, seed=22, dtype="float64" if dtype == torch.float64 else "float32")
+    a = CSRMat.from_scipy(x, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(23)
+    gz, b = (torch.randn((rows, ld), device=cuda, generator=gen, dtype=dtype)[:, offset:offset + C]
+             for rows in (3000, 700))
+    item = gz.element_size()
+    vec = spmm_vector_bytes(C, item, gz.data_ptr() | b.data_ptr() | gz.stride(0) * item | b.stride(0) * item)
+    assert not gz.is_contiguous() and vec == vecs[dtype == torch.float64]
+    before = csr_sddmm.launches
+    got = csr_sddmm(a, gz, b)
+    torch.cuda.synchronize()
+    assert csr_sddmm.launches == before + 1
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    torch.testing.assert_close(got.data, csr_sddmm_plain(a, gz, b), atol=tol, rtol=tol)
+
+
+def test_k7_is_deterministic(cuda):
+    rng = np.random.default_rng(24)
+    docs, features = 2000, 30000
+    lengths = np.clip(np.rint(rng.lognormal(4.85, 1.0, docs)), 1, 20000).astype(np.int64)
+    rank = np.floor(np.exp(rng.random(lengths.sum()) * np.log(features))).astype(np.int64) - 1
+    x = sps.csr_matrix((rng.random(lengths.sum()).astype(np.float32),
+                        (np.repeat(np.arange(docs), lengths), rng.permutation(features)[rank])),
+                       shape=(docs, features))
+    a = CSRMat.from_scipy(x, cuda, with_transpose=True).transpose()     # rows of thousands of entries
+    assert np.diff(a.to_scipy().indptr).max() > 1000
+    gen = torch.Generator(device=cuda).manual_seed(25)
+    gz, b = (torch.randn((rows, 20), device=cuda, generator=gen) for rows in (features, docs))
+    first, second = csr_sddmm(a, gz, b), csr_sddmm(a, gz, b)
+    torch.cuda.synchronize()
+    assert torch.equal(first.data, second.data)
+    torch.testing.assert_close(first.data, csr_sddmm_plain(a, gz, b), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("n", [1, 20, 33, 1000, 8192, 8193])
+@pytest.mark.parametrize("log", [False, True], ids=["softmax", "log_softmax"])
+def test_k4_launch_at_widths_matches_plain(cuda, n, log):
+    gen = torch.Generator(device=cuda).manual_seed(26)
+    x = torch.randn((70, n), device=cuda, generator=gen) * 3
+    x[3] = float("-inf")                 # -inf throughout: nan
+    x[5, ::2] = float("-inf")
+    before = softmax_rows.launches
+    got = softmax_rows(x, log)
+    torch.cuda.synchronize()
+    assert softmax_rows.launches == before + 1
+    torch.testing.assert_close(got, softmax_rows_plain(x, log), atol=1e-5, rtol=1e-5, equal_nan=True)
+    assert bool(got[3].isnan().all())
 
 
 def test_small_logistic_regression_step_on_card_matches_cpu(cuda):

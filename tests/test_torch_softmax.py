@@ -27,7 +27,7 @@ from aesara_tpu.tensor import special as jspecial
 import aesara_tpu_torch
 import aesara_tpu_torch.tensor as pat
 from aesara_tpu_torch.config import config
-from aesara_tpu_torch.link.torch.kernels.softmax import softmax_rows, softmax_rows_plain
+from aesara_tpu_torch.link.torch.kernels.softmax import launch_config, softmax_rows, softmax_rows_plain
 from aesara_tpu_torch.tensor import math as ptm
 from aesara_tpu_torch.tensor import special as pspecial
 
@@ -74,6 +74,17 @@ def test_wrapper_takes_the_plain_version_for_cpu_tensors():
     before = softmax_rows.plain_calls
     torch.testing.assert_close(softmax_rows(x, log=True), softmax_rows_plain(x, log=True))
     assert softmax_rows.plain_calls == before + 1
+
+
+@pytest.mark.parametrize("n,want", [
+    (1, (True, 1024, 1, 4)), (20, (True, 32, 32, 4)), (33, (True, 16, 64, 4)), (1000, (True, 1, 1024, 4)),
+    (2048, (True, 1, 2048, 4)), (4096, (True, 1, 4096, 8)), (8192, (True, 1, 8192, 8)),
+    (8193, (False, 1, 2048, 8))])
+def test_k4_launch_is_a_function_of_the_width(n, want):
+    """The launch K4 takes for rows of n columns (the classifier's 20 among
+    them): one pass up to 8,192 columns, a block of up to 1,024 values a
+    program, kept by the H100 sweep of ``chip_smoke.py --k4-times``."""
+    assert launch_config(n) == want
 
 
 def test_plain_k4_computes_bfloat16_in_fp32_and_float64_in_fp64():

@@ -7,7 +7,8 @@ SciPy and against the JAX package's Pallas kernels ``bss_matmul``,
 ``tests/sparse/test_bss.py`` and ``tests/link/test_pallas.py`` run them.
 K6's split by entries is checked here through its plan
 (``merge_path_plan``) and a model of its chunked sum with the fix-up of
-cut rows, held against SciPy.
+cut rows, held against SciPy; K7's split of x's entries by the same plan
+through a model of how its lane groups take them.
 Tolerance 1e-5 absolute and relative in float32 (sums of a few products
 in another order), 1e-12 in float64 (SciPy only: the BSS layout stores
 float32).  A stored zero against an inf in the rhs is held against SciPy
@@ -34,7 +35,7 @@ from aesara_tpu_torch.config import config
 from aesara_tpu_torch.link.torch.csr import CSRMat
 from aesara_tpu_torch.link.torch.kernels.sparse import (
     SPMM_CHUNK, csr_matmul, csr_matmul_plain, csr_sddmm, csr_sddmm_plain, csr_spmm, csr_spmv,
-    merge_path_plan, spmm_plan, spmm_vector_bytes,
+    merge_path_plan, row_ids, spmm_plan, spmm_vector_bytes,
 )
 from aesara_tpu_torch.sparse.basic import StructuredDotGradA
 
@@ -442,6 +443,118 @@ def test_spmm_plan_is_kept_with_the_pattern_through_transpose_and_with_data():
 @pytest.mark.parametrize("C,itemsize,address,want", [
     (20, 4, 0, 16), (20, 4, 4, 4), (20, 4, 8, 8), (9, 4, 0, 4), (64, 4, 0, 16), (129, 4, 0, 4),
     (33, 4, 0, 4), (1, 4, 0, 4), (20, 2, 0, 8), (9, 2, 0, 2), (16, 2, 0, 16), (2, 8, 0, 16),
-    (1, 8, 0, 8), (3, 8, 0, 8)])
+    (1, 8, 0, 8), (3, 8, 0, 8),
+    # K7 ORs its operands' addresses and row strides in bytes into the address
+    (20, 4, 0x200 | 88, 8), (20, 4, 0x204 | 96, 4), (20, 8, 0x200 | 192, 16), (8, 8, 0x208 | 72, 8)])
 def test_spmm_vector_bytes_takes_the_widest_aligned_load(C, itemsize, address, want):
     assert spmm_vector_bytes(C, itemsize, address) == want
+
+
+# --------------------------------------------------------------------------
+# K7's split of x's entries by K6's plan
+# --------------------------------------------------------------------------
+
+def _sddmm_split(a, gz, b, chunk, G):
+    """A model of how K7 (``csrc/csr_spmm.cu``) assigns x's entries: a warp
+    takes a chunk of K6's plan; 32 // G lane groups take consecutive
+    entries a step; each group finds its entry's row by walking the chunk's
+    row ends forward from its last one.  With G = 1 (a row of one vector)
+    this is also the order in which ``csr_sddmm_lane_kernel``'s lanes take
+    entries.  Returns how often each entry was taken, the row each resolved
+    to and the float32 values written."""
+    indptr, indices = a.indptr.numpy().astype(np.int64), a.indices.numpy()
+    n, nnz = a.shape[0], a.nnz
+    plan = merge_path_plan(a.indptr, nnz, chunk).numpy().astype(np.int64)
+    groups = 32 // G
+    taken, rows = np.zeros(nnz, np.int64), np.full(nnz, -1, np.int64)
+    out = np.full(nnz, np.nan, np.float32)
+    for c in range(len(plan) - 1):
+        i0, i1 = plan[c], plan[c + 1]
+        j0, j1 = min(c * chunk, n + nnz) - i0, min((c + 1) * chunk, n + nnz) - i1
+        n_ent = j1 - j0
+        ends = indptr[i0 + 1:i1 + 1] - j0            # the staged row ends, as offsets in the chunk
+
+        def row_hi(r):
+            return ends[r - i0] if r < i1 else n_ent  # row i1, cut by the chunk's end, runs to it
+
+        walk = [(i0, row_hi(i0))] * groups
+        for t0 in range(0, n_ent, groups):
+            for g in range(groups):
+                t = t0 + g
+                if t >= n_ent:
+                    continue
+                r, hi = walk[g]
+                while t >= hi:
+                    r += 1
+                    hi = row_hi(r)
+                walk[g] = (r, hi)
+                k = j0 + t
+                taken[k] += 1
+                rows[k] = r
+                out[k] = np.dot(gz[r], b[indices[k]])
+    return taken, rows, out
+
+
+@pytest.mark.parametrize("C", [1, 20, 160], ids=lambda c: f"C{c}")
+@pytest.mark.parametrize("chunk", [32, SPMM_CHUNK])
+@pytest.mark.parametrize("which", sorted(PLAN_MATRICES))
+def test_sddmm_split_takes_every_entry_once_at_its_row(which, chunk, C):
+    x = PLAN_MATRICES[which]()
+    a = CSRMat.from_scipy(x, CPU)
+    gz, b = _rhs(x.shape[0], C, seed=26), _rhs(x.shape[1], C, seed=27)
+    NV = C * 4 // spmm_vector_bytes(C, 4, 0)          # 16-byte loads where the row allows them
+    taken, rows, got = _sddmm_split(a, gz, b, chunk, G=min(NV, 32))
+    assert (taken == 1).all()
+    np.testing.assert_array_equal(rows, row_ids(a).numpy())
+    want = csr_sddmm_plain(a, torch.from_numpy(gz), torch.from_numpy(b)).numpy()
+    np.testing.assert_allclose(got, want, **F32)
+    np.testing.assert_allclose(got, _sddmm_oracle(a.to_scipy(), gz, b).data, **F32)
+
+
+def test_sddmm_rows_keep_column_slices_and_copy_the_rest():
+    from aesara_tpu_torch.link.torch.kernels.sparse import _sddmm_rows
+
+    wide = torch.randn(30, 24)
+    sliced = _sddmm_rows(wide[:, 2:22], torch.float32)
+    assert sliced.data_ptr() == wide[:, 2:22].data_ptr() and sliced.stride() == (24, 1)
+    strided = _sddmm_rows(wide[:, ::2], torch.float32)
+    assert strided.is_contiguous() and torch.equal(strided, wide[:, ::2])
+    column = _sddmm_rows(wide[:, 3], torch.float32)
+    assert column.shape == (30, 1) and column.data_ptr() == wide[:, 3].data_ptr()
+    assert _sddmm_rows(wide[:, :5], torch.float64).dtype == torch.float64
+
+
+def test_csr_sddmm_refuses_operands_of_other_widths():
+    a = CSRMat.from_scipy(_rand_csr(30, 20, 0.2, seed=28), CPU)
+    with pytest.raises(ValueError, match="csr_sddmm"):
+        csr_sddmm(a, torch.ones(30, 4), torch.ones(20, 5))
+
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("name,group,counter", [
+    ("void (anonymous namespace)::csr_sddmm_kernel<float, float, 16, false>(int const*, int const*)",
+     "K7 CSR SDDMM", "K7"),
+    ("void (anonymous namespace)::csr_sddmm_kernel<double, double, 8, true>(int const*, int const*)",
+     "K7 CSR SDDMM", "K7"),
+    ("void (anonymous namespace)::csr_sddmm_lane_kernel<float, float, 4>(int const*, int const*)",
+     "K7 CSR SDDMM", "K7"),
+    ("void (anonymous namespace)::csr_spmm_kernel<float, float, float, 16>(int const*)", "K6 CSR SpMM", "K6"),
+    ("void (anonymous namespace)::csr_spmm_fixup_kernel<float>(int const*)", "K6 CSR SpMM", None),
+    ("void (anonymous namespace)::csr_spmv_kernel<float, float, float>(int const*)", "K5 CSR SpMV", "K5"),
+    ("one_pass", "K4 row softmax", "K4"),
+])
+def test_profile_groups_and_counts_every_csr_and_softmax_kernel(name, group, counter):
+    """``chip_smoke.py`` reads a profiled step's kernels by name: each of
+    K7's two kernels marks one K7 launch, K6's fix-up pass marks none."""
+    smoke = _chip_smoke()
+    assert smoke.kernel_group(name) == group
+    assert smoke.counted_kernel(name) == counter
