@@ -1,17 +1,17 @@
-"""K4: row softmax and log-softmax over the last axis (Triton).
+"""K4: row softmax and log-softmax over the last axis (CUDA C++).
 
 Replaces ``softmax_rows`` / ``log_softmax_rows``
 (``aesara_tpu/link/jax/pallas_kernels.py:89,129``), which padded rows to
 8 and columns to 128 with −inf and ran one VMEM tile per 8 rows.
 
-On the H100 this is bound by device memory: it reads each value once and
-writes it once for a handful of flops, so the design is about bytes and
-about filling the card.  Each program takes a block of rows, so narrow
-rows (the 20 classes of a text classifier) do not leave most of a program
-idle: up to ``_TILE`` values a program, in one pass that keeps the row in
-registers.  Rows wider than ``_ONE_PASS`` columns loop over the columns
-twice, first with a running max and sum, then writing the output.  bf16
-and fp16 compute in fp32; fp64 in fp64.
+The kernel is ``csrc/softmax_rows.cu`` (its header says what bounds it on
+the H100 and how each regime is laid out).  :func:`launch_plan` picks its
+regime and block from the width alone: rows of up to ``LANE_ROWS_MAX``
+values go to lane groups (a power of two of lanes a row, a warp at most,
+the values in registers), rows of up to ``ONE_PASS`` values one block a
+row, wider rows two passes.  The kernel takes the widest access the
+tensors' addresses and the rows allow.  bf16 and fp16 compute in fp32;
+fp64 in fp64.
 
 Semantics are those of ``jax.nn.softmax`` / ``log_softmax``, which the JAX
 lowering calls (``link/jax/linalg_dispatch.py:372-386``): −inf entries
@@ -23,64 +23,23 @@ tensors take :func:`softmax_rows_plain`, CUDA tensors launch the kernel.
 
 from __future__ import annotations
 
-__all__ = ["launch_config", "softmax_rows", "softmax_rows_plain"]
+import ctypes
 
-_TILE = 1024        # values a program holds in the one-pass kernel
-_ONE_PASS = 8192    # widest row the one-pass kernel takes
-_LOOP_BLOCK = 2048  # columns per step of the two-pass kernel
+__all__ = ["BLOCK_ROWS", "LANE_GROUPS", "LANE_ROWS_MAX", "ONE_PASS", "TWO_PASS", "launch_plan", "launch_softmax",
+           "softmax_rows", "softmax_rows_plain"]
 
-_SOURCE = '''import triton
-import triton.language as tl
+#: the kernel's regimes (see ``csrc/softmax_rows.cu``)
+LANE_GROUPS, BLOCK_ROWS, TWO_PASS = 0, 1, 2
+#: widest row of the lane groups (32 values a lane of a warp), and of one
+#: pass (32 values a thread of a block of 512); threads a block of the lane
+#: groups, and of a row in two passes (all four set by the H100 sweeps of
+#: ``chip_smoke.py --k4-times`` that PERF.md records)
+LANE_ROWS_MAX = 1024
+ONE_PASS = 16384
+GROUP_THREADS = 128
+TWO_PASS_THREADS = 256
 
-
-@triton.jit
-def one_pass(x_ptr, out_ptr, m, n, stride_x, stride_o, LOG: tl.constexpr,
-             BLOCK_M: tl.constexpr, BLOCK_N: tl.constexpr, ACC: tl.constexpr):
-    rows = tl.program_id(0) * BLOCK_M + tl.arange(0, BLOCK_M)
-    cols = tl.arange(0, BLOCK_N)
-    mask = (rows[:, None] < m) & (cols[None, :] < n)
-    r64 = rows[:, None].to(tl.int64)
-    x = tl.load(x_ptr + r64 * stride_x + cols[None, :], mask=mask, other=float("-inf")).to(ACC)
-    z = x - tl.max(x, axis=1)[:, None]
-    e = tl.exp(z)
-    s = tl.sum(e, axis=1)
-    if LOG:
-        out = z - tl.log(s)[:, None]
-    else:
-        out = e / s[:, None]
-    tl.store(out_ptr + r64 * stride_o + cols[None, :], out.to(out_ptr.dtype.element_ty), mask=mask)
-
-
-@triton.jit
-def two_pass(x_ptr, out_ptr, m, n, stride_x, stride_o, LOG: tl.constexpr,
-             BLOCK_M: tl.constexpr, BLOCK_N: tl.constexpr, ACC: tl.constexpr):
-    rows = tl.program_id(0) * BLOCK_M + tl.arange(0, BLOCK_M)
-    r64 = rows[:, None].to(tl.int64)
-    row_ok = rows[:, None] < m
-    m_i = tl.full([BLOCK_M], float("-inf"), ACC)
-    s_i = tl.zeros([BLOCK_M], ACC)
-    for start in range(0, n, BLOCK_N):
-        cols = start + tl.arange(0, BLOCK_N)
-        mask = row_ok & (cols[None, :] < n)
-        x = tl.load(x_ptr + r64 * stride_x + cols[None, :], mask=mask, other=float("-inf")).to(ACC)
-        m_new = tl.maximum(m_i, tl.max(x, axis=1))
-        # while a row has seen only -inf, its running sum stays 0
-        empty = m_new == float("-inf")
-        alpha = tl.where(empty, 0.0, tl.exp(m_i - m_new))
-        p = tl.where(empty[:, None], 0.0, tl.exp(x - m_new[:, None]))
-        s_i = s_i * alpha + tl.sum(p, axis=1)
-        m_i = m_new
-    for start in range(0, n, BLOCK_N):
-        cols = start + tl.arange(0, BLOCK_N)
-        mask = row_ok & (cols[None, :] < n)
-        x = tl.load(x_ptr + r64 * stride_x + cols[None, :], mask=mask, other=float("-inf")).to(ACC)
-        z = x - m_i[:, None]
-        if LOG:
-            out = z - tl.log(s_i)[:, None]
-        else:
-            out = tl.exp(z) / s_i[:, None]
-        tl.store(out_ptr + r64 * stride_o + cols[None, :], out.to(out_ptr.dtype.element_ty), mask=mask)
-'''
+_CODES: dict = {}   # torch dtype -> the kernel's dtype code, filled on first use
 
 
 def softmax_rows_plain(x, log: bool = False):
@@ -98,58 +57,95 @@ def softmax_rows_plain(x, log: bool = False):
     return (z - torch.log(s) if log else e / s).to(x.dtype)
 
 
-def _module():
-    from aesara_tpu_torch.link.torch.kernels.build import triton_module
+def launch_plan(n: int):
+    """(regime, tile) of K4's launch for rows of ``n`` values: the lane
+    groups' tile is the threads of a block (a row takes as many lanes as
+    its vectors, up to a warp), a wider regime's the threads of its one
+    row, the fewest of at least 128 that hold the row in one pass."""
+    if n <= LANE_ROWS_MAX:
+        return LANE_GROUPS, GROUP_THREADS
+    if n <= ONE_PASS:
+        return BLOCK_ROWS, max(128, 1 << (-(-n // 32) - 1).bit_length())
+    return TWO_PASS, TWO_PASS_THREADS
 
-    if _module.cache is None:
-        _module.cache = triton_module(_SOURCE, "softmax_rows")
-    return _module.cache
+
+def _library():
+    """The built library, its functions typed; kept after the first call,
+    so a launch pays for no lookup."""
+    from aesara_tpu_torch.link.torch.kernels.build import load_cuda_library
+
+    if _library.lib is None:
+        lib = load_cuda_library("softmax_rows")
+        p, i, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        for fn in (lib.softmax_rows, lib.softmax_rows_floor):
+            fn.argtypes = [p, p, q, i, q, i, i, i, i, p]
+            fn.restype = i
+        lib.softmax_rows_error_string.argtypes = [i]
+        lib.softmax_rows_error_string.restype = ctypes.c_char_p
+        _library.lib = lib
+    return _library.lib
 
 
-_module.cache = None
+_library.lib = None
 
 
-def launch_config(n: int):
-    """(one pass?, BLOCK_M, BLOCK_N, num_warps) of K4's launch for rows of
-    ``n`` columns: a function of ``n`` alone."""
-    block_n = 1 << max(0, (n - 1).bit_length())
-    if block_n <= _ONE_PASS:
-        block_m = max(1, _TILE // block_n)
-        return True, block_m, block_n, 4 if block_m * block_n <= 2048 else 8
-    return False, 1, _LOOP_BLOCK, 8
+def _dtype_code(dtype):
+    if not _CODES:
+        import torch
+
+        _CODES.update({torch.float32: 0, torch.float64: 1, torch.float16: 2, torch.bfloat16: 3})
+    return _CODES.get(dtype)
+
+
+def launch_softmax(x2, out, log: bool, regime: int, tile: int, floor: bool = False):
+    """One launch of K4 into the contiguous (m, n) CUDA tensor ``out`` for
+    the (m, n) ``x2`` (its rows any number of values apart, its columns
+    adjacent), at ``regime`` and ``tile``, on the current stream (so a CUDA
+    graph can capture it); the wrapper counts it, a direct caller (a sweep,
+    a test) does not.  ``floor``: the same launch of a kernel that does
+    nothing (the launch floor)."""
+    import torch
+
+    m, n = x2.shape
+    if out.shape != x2.shape or out.dtype != x2.dtype or not out.is_contiguous() or (n > 1 and x2.stride(1) != 1):
+        raise ValueError(f"softmax_rows: x {tuple(x2.shape)} {x2.dtype} strides {x2.stride()} into out "
+                         f"{tuple(out.shape)} {out.dtype} strides {out.stride()}")
+    lib = _library()
+    fn = lib.softmax_rows_floor if floor else lib.softmax_rows
+    # the raw stream handle, as PyTorch's own generated kernels read it:
+    # a torch.cuda.Stream object would cost more host time than the kernel
+    stream = torch._C._cuda_getCurrentRawStream(x2.get_device())
+    err = fn(x2.data_ptr(), out.data_ptr(), m, n, x2.stride(0) if m > 1 else n, _dtype_code(x2.dtype),
+             1 if log else 0, regime, tile, stream)
+    if err != 0:
+        raise RuntimeError(f"softmax_rows launch failed: {lib.softmax_rows_error_string(err).decode()}")
 
 
 def softmax_rows(x, log: bool = False):
     """Softmax (``log=True``: log-softmax) over the last axis of ``x``: the
-    Triton kernel for a CUDA tensor, the plain version for a CPU one."""
+    CUDA kernel for a CUDA tensor, the plain version for a CPU one.  A 2-D
+    view whose last axis is contiguous is read in place."""
     import torch
 
-    if x.device.type == "cpu":
+    if not x.is_cuda:
+        if x.device.type != "cpu":
+            raise ValueError(f"softmax_rows: tensor on {x.device}")
         softmax_rows.plain_calls += 1
         return softmax_rows_plain(x, log)
-    import triton.language as tl
-
-    if x.device.type != "cuda":
-        raise ValueError(f"softmax_rows: tensor on {x.device}")
-    if x.dtype not in (torch.float32, torch.float64, torch.bfloat16, torch.float16):
+    if _dtype_code(x.dtype) is None:
         raise TypeError(f"softmax_rows takes a floating tensor, got {x.dtype}")
+    if x.numel() == 0:
+        return torch.empty_like(x)
     n = x.shape[-1] if x.dim() else 1
-    x2 = x.reshape(-1, n).contiguous()
-    m = x2.shape[0]
-    out = torch.empty_like(x2)
-    if m == 0 or n == 0:
-        return out.reshape(x.shape)
-    mod = _module()
-    acc = tl.float64 if x.dtype == torch.float64 else tl.float32
-    one_pass, block_m, block_n, num_warps = launch_config(n)
-    kernel = mod.one_pass if one_pass else mod.two_pass
-    grid = ((m + block_m - 1) // block_m,)
-    kernel[grid](x2, out, m, n, x2.stride(0), out.stride(0), LOG=bool(log), BLOCK_M=block_m,
-                 BLOCK_N=block_n, ACC=acc, num_warps=num_warps)
+    x2 = x if x.dim() == 2 else x.reshape(-1, n)
+    if n > 1 and x2.stride(1) != 1:
+        x2 = x2.contiguous()
+    out = torch.empty_like(x2)    # contiguous: x2 is, or is not dense
+    launch_softmax(x2, out, log, *launch_plan(n))
     softmax_rows.launches += 1
-    return out.reshape(x.shape)
+    return out if out.shape == x.shape else out.reshape(x.shape)
 
 
-#: launches of the Triton kernel, and calls that took the plain version
+#: launches of the CUDA kernel, and calls that took the plain version
 softmax_rows.launches = 0
 softmax_rows.plain_calls = 0

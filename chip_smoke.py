@@ -9,16 +9,16 @@ serve the sparse-input models, all through ``aesara_tpu_torch.function``.
     python3 chip_smoke.py --attention-times    # only K2's and K3's times (see attention_times)
     python3 chip_smoke.py --profile-check    # only the trace's lost launches (see profile_check)
     python3 chip_smoke.py --k7-sweep    # only K7's tuning table (see k7_sweep)
-    python3 chip_smoke.py --k4-times    # only K4 against torch.log_softmax, and its sweep (see k4_times)
+    python3 chip_smoke.py --k4-times    # only K4 against torch.log_softmax, and its sweeps (see k4_times)
     python3 chip_smoke.py --k4-k7-times    # only K7's and K4's times, for two checkouts (see k4_k7_times)
 
 Phases (any failure raises and the exit code is non-zero):
 
 0. setup: a CUDA device is required; prints the card's name and power
-   limit; builds the flash-attention forward (K2) and backward (K3) and
-   the CSR (K5-K7) kernels with nvcc for sm_90a, one nvcc per source, all
-   at once, and compiles one fused-elemwise kernel (K1) and the row
-   softmax (K4) with Triton.
+   limit; builds the flash-attention forward (K2) and backward (K3), the
+   row softmax (K4) and the CSR (K5-K7) kernels with nvcc for sm_90a, one
+   nvcc per source, all at once, and compiles one fused-elemwise kernel
+   (K1) with Triton.
 1. kernels: K1 and K2 against their plain versions on the card, at the
    shapes the forward gives them (K2 also at ragged, padded and D = 128
    panels), with the times of both; K2's resources (registers, shared
@@ -99,7 +99,7 @@ TRAIN_TOL = 1e-4         # card against CPU after one train step (reduction orde
 K1_SOURCE = "aesara_tpu_torch/link/torch/kernels/elemwise.py"
 K2_SOURCE = "aesara_tpu_torch/link/torch/kernels/csrc/flash_fwd.cu"
 K3_SOURCE = "aesara_tpu_torch/link/torch/kernels/csrc/flash_bwd.cu"
-K4_SOURCE = "aesara_tpu_torch/link/torch/kernels/softmax.py"
+K4_SOURCE = "aesara_tpu_torch/link/torch/kernels/csrc/softmax_rows.cu"
 K567_SOURCE = "aesara_tpu_torch/link/torch/kernels/csrc/csr_spmm.cu"
 K1_REPLACES = "aesara_tpu/link/jax/pallas_kernels.py:38"
 K2_REPLACES = "aesara_tpu/link/jax/pallas_kernels.py:205"
@@ -119,9 +119,13 @@ TF32_FLOPS = 495e12
 BF16_FLOPS = 989e12
 K2_WALKS = (16, 32, 64)   # walked key tiles --k2-walk-sweep builds
 K7_CHUNKS = (64, 128, 256, 512)   # plan chunk sizes --k7-sweep times
-K4_ROUNDS, K4_LAUNCHES = 5, 200   # --k4-times: rounds, launches a round
-K4_BLOCK_MS = (8, 16, 32, 64, 128)   # rows a program --k4-times sweeps
-K4_WARPS = (1, 2, 4)                 # warps a program --k4-times sweeps
+K4_ROUNDS, K4_LAUNCHES = 9, 200   # --k4-times: rounds, launches a round
+K4_TILES = (32, 64, 128, 256, 512)   # threads a lane-group block --k4-times sweeps
+# --k4-times: widths of the regime sweep (each regime that takes the width,
+# at K4_SWEEP_VALUES values) and of the width sweep against the library
+K4_REGIME_WIDTHS = (16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384)
+K4_WIDTHS = (20, 100, 1000, 8192, 32768)
+K4_SWEEP_VALUES, K4_SWEEP_ROUNDS = 1 << 22, 3
 
 # (a) fetch_20newsgroups_vectorized, training split: 11,314 documents x
 # 130,107 features, 20 classes; words per document log-normal, so that a
@@ -331,21 +335,21 @@ def phase_setup():
     smi = card_line()
     log(f"card: {smi}; python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}")
-    from aesara_tpu_torch.link.torch.kernels import attention, sparse
+    from aesara_tpu_torch.link.torch.kernels import attention, softmax, sparse
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:      # one nvcc per source, started together
+    with ThreadPoolExecutor(4) as pool:      # one nvcc per source, started together
         builds = [pool.submit(attention._library, "flash_fwd"), pool.submit(attention._library, "flash_bwd"),
-                  pool.submit(sparse._library)]
+                  pool.submit(softmax._library), pool.submit(sparse._library)]
         for b in builds:
             b.result()
-    log(f"K2 + K3 + K5-K7 nvcc builds + load: {time.perf_counter() - t0:.2f} s")
+    log(f"K2 + K3 + K4 + K5-K7 nvcc builds + load: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     warm_k1()
     log(f"K1 Triton compile + first launch (bias+ReLU Composite): {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     warm_k4()
-    log(f"K4 Triton compile + first launch (log-softmax of 4 x 5): {time.perf_counter() - t0:.2f} s")
+    log(f"K4 (CUDA) first launch (log-softmax of 4 x 5): {time.perf_counter() - t0:.2f} s")
     return smi
 
 
@@ -814,6 +818,8 @@ def kernel_group(name: str) -> str:
     a wrapper launches falls into its group (K6: its main pass and its
     fix-up; K7: its grouped kernel and its one-vector kernel)."""
     groups = (("flash_bwd", "K3 flash backward"), ("flash_fwd", "K2 flash forward"),
+              ("softmax_group_kernel", "K4 row softmax"), ("softmax_block_kernel", "K4 row softmax"),
+              ("softmax_two_pass_kernel", "K4 row softmax"),
               ("csr_spmv_kernel", "K5 CSR SpMV"), ("csr_spmm_kernel", "K6 CSR SpMM"),
               ("csr_spmm_fixup_kernel", "K6 CSR SpMM"), ("csr_sddmm", "K7 CSR SDDMM"))
     for key, group in groups:
@@ -821,8 +827,6 @@ def kernel_group(name: str) -> str:
             return group
     if name == "kernel":
         return "K1 fused Composite"
-    if name in ("one_pass", "two_pass"):
-        return "K4 row softmax"
     if "gemm" in name.lower() or "cutlass" in name.lower():
         return "matmul"
     return "other torch"
@@ -1550,104 +1554,188 @@ def eager_ms(fn, launches: int = K4_LAUNCHES) -> float:
     return start.elapsed_time(end) / launches
 
 
+def host_ms(fn, calls: int = 2000) -> float:
+    """Host ms a call of ``fn`` over ``calls`` calls back to back (by the
+    host's clock, the device synchronised after)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / calls
+    torch.cuda.synchronize()
+    return ms
+
+
+def k4_rounds(timers: dict, rounds: int = K4_ROUNDS, eager: dict = None):
+    """``rounds`` rounds of every timer of ``timers`` in turns (every other
+    round in reverse order): the graph ms a launch of each, and, for the
+    names that ``eager`` maps to their functions, the eager ms a launch in
+    the same turn."""
+    graph_t: dict = {}
+    eager_t: dict = {}
+    for rnd in range(rounds):
+        for name in (list(timers) if rnd % 2 == 0 else list(timers)[::-1]):
+            graph_t.setdefault(name, []).append(timers[name]())
+            if eager and name in eager:
+                eager_t.setdefault(name, []).append(eager_ms(eager[name]))
+    return graph_t, eager_t
+
+
+def k4_lane_grid(m: int, n: int, tile: int):
+    """(blocks, lanes a row) of K4's lane-group launch for fp32 rows of
+    ``n`` values whose rows are 16-byte multiples, as ``geometry`` in
+    softmax_rows.cu makes them: a power of two of lanes a row, one 16-byte
+    vector a lane, ``tile`` threads a block."""
+    lanes = min(32, 1 << (-(-n // 4) - 1).bit_length())
+    return -(-m // (tile // lanes)), lanes
+
+
 def k4_times():
     """K4 timed against torch.log_softmax at the classifier's (11314, 20)
-    fp32: K4 as the wrapper launches it, the library call and an empty
-    Triton kernel on K4's grid (the launch floor), in K4_ROUNDS rounds of
-    K4_LAUNCHES launches each, in turns, timed by CUDA events around a CUDA
-    graph of the launches and around eager launches, with each one's
-    kernel time by the profiler; then the sweep of BLOCK_M x num_warps, each
-    setting checked against the plain version, in K4_ROUNDS rounds with the
-    library before every round and after the last; then the fastest
-    setting, the kept launch and the library alone, in turns.  Each
-    comparison prints both tests beyond the spread (``versus``)."""
-    import triton.language as tl
-
+    fp32: K4 as the wrapper launches it, the library call and two launch
+    floors on K4's grid (an empty kernel of K4's own CUDA library, launched
+    the same way, and an empty Triton kernel), in K4_ROUNDS rounds of K4_LAUNCHES
+    launches each, in turns, timed by CUDA events around a CUDA graph of
+    the launches and around eager launches, with each one's kernel time by
+    the profiler, and the host time a call of the wrapper and of its
+    pieces.  Then the sweep of the lane groups' block (K4_TILES
+    threads, so rows a block), each checked against the plain version, in
+    K4_ROUNDS rounds with the library before every round and after the
+    last, and the fastest block, the kept one and the library alone, in
+    turns.  Then, each checked against the plain version and timed in
+    K4_SWEEP_ROUNDS rounds at about K4_SWEEP_VALUES values: every regime
+    and tile that takes each width of K4_REGIME_WIDTHS (log-softmax,
+    fp32), and K4 against torch.softmax and torch.log_softmax at K4_WIDTHS
+    in fp32 and bf16.  Each comparison prints both tests beyond the spread
+    (``versus``)."""
     from aesara_tpu_torch.link.torch.kernels.build import triton_module
     from aesara_tpu_torch.link.torch.kernels.softmax import (
-        _module, launch_config, softmax_rows, softmax_rows_plain,
+        BLOCK_ROWS, LANE_GROUPS, TWO_PASS, launch_plan, launch_softmax, softmax_rows, softmax_rows_plain,
     )
 
     smi = card_line()
     log(f"card: {smi}; torch {torch.__version__}")
     cuda = torch.device("cuda")
-    x = torch.randn((NG_DOCS, NG_CLASSES), device=cuda, generator=torch.Generator(device=cuda).manual_seed(20))
+    gen = torch.Generator(device=cuda).manual_seed(20)
+    x = torch.randn((NG_DOCS, NG_CLASSES), device=cuda, generator=gen)
     m, n = x.shape
     want = softmax_rows_plain(x, log=True)
-    one_pass, block_m, block_n, num_warps = launch_config(n)
-    grid = ((m + block_m - 1) // block_m,)
-    mod, empty = _module(), triton_module(K4_EMPTY_SOURCE, "k4_floor").empty
+    regime, tile = launch_plan(n)
+    blocks, lanes = k4_lane_grid(m, n, tile)
+    empty = triton_module(K4_EMPTY_SOURCE, "k4_floor").empty
     out = torch.empty_like(x)
-
-    def setting(bm, warps):
-        def launch():
-            mod.one_pass[((m + bm - 1) // bm,)](x, out, m, n, x.stride(0), out.stride(0), LOG=True, BLOCK_M=bm,
-                                                BLOCK_N=block_n, ACC=tl.float32, num_warps=warps)
-            return out
-        return launch
-
     contenders = {"K4": lambda: softmax_rows(x, log=True),
                   "torch.log_softmax": lambda: torch.log_softmax(x, dim=-1),
-                  "empty kernel": lambda: empty[grid](x, num_warps=num_warps)}
+                  "empty CUDA kernel": lambda: launch_softmax(x, out, True, regime, tile, floor=True),
+                  "empty Triton kernel": lambda: empty[(blocks,)](x, num_warps=tile // 32)}
     torch.testing.assert_close(softmax_rows(x, log=True), want, atol=SPARSE_TOL, rtol=SPARSE_TOL)
-    timers = {name: graph_timer(fn) for name, fn in contenders.items()}
-    graph_t: dict = {}
-    eager_t: dict = {}
-    for rnd in range(K4_ROUNDS):
-        names = list(contenders) if rnd % 2 == 0 else list(contenders)[::-1]
-        for name in names:
-            graph_t.setdefault(name, []).append(timers[name]())
-            eager_t.setdefault(name, []).append(eager_ms(contenders[name]))
-    log(f"K4 log-softmax {tuple(x.shape)} fp32, launch: one pass {one_pass}, BLOCK_M {block_m}, BLOCK_N "
-        f"{block_n}, {num_warps} warps, {grid[0]} programs; {K4_ROUNDS} rounds of {K4_LAUNCHES} launches, in turns")
+    graph_t, eager_t = k4_rounds({name: graph_timer(fn) for name, fn in contenders.items()}, eager=contenders)
+    log(f"K4 log-softmax {tuple(x.shape)} fp32, launch: regime {regime}, {blocks} blocks of {tile} threads, "
+        f"{lanes} lanes a row; {K4_ROUNDS} rounds of {K4_LAUNCHES} launches, in turns")
     for name, fn in contenders.items():
         log(f"  {name}: graph ms a launch {spread(graph_t[name])}; eager {spread(eager_t[name])}; "
             f"kernel (profiler) {device_ms(fn):.6f}")
-    log(f"  K4 against torch.log_softmax (graph rounds): {versus(graph_t['K4'], graph_t['torch.log_softmax'])}")
+    log(f"  K4 against torch.log_softmax: graph rounds {versus(graph_t['K4'], graph_t['torch.log_softmax'])}; "
+        f"eager rounds {versus(eager_t['K4'], eager_t['torch.log_softmax'])}")
     bound_ms, bound_by = bound(2 * x.numel() * 4, 6 * x.numel())
     log(f"  bound {bound_ms:.6f} ({bound_by})")
+    # where an eager launch's host time goes: each piece alone, host clock
+    pieces = {"softmax_rows (the wrapper)": contenders["K4"],
+              "launch_softmax (out given)": lambda: launch_softmax(x, out, True, regime, tile),
+              "launch_softmax of the empty kernel": contenders["empty CUDA kernel"],
+              "torch.empty_like": lambda: torch.empty_like(x),
+              "torch.cuda.current_stream().cuda_stream": lambda: torch.cuda.current_stream(cuda).cuda_stream,
+              "torch._C._cuda_getCurrentRawStream": lambda: torch._C._cuda_getCurrentRawStream(0),
+              "torch.log_softmax": contenders["torch.log_softmax"]}
+    for name, fn in pieces.items():
+        log(f"  host ms a call, {name}: {host_ms(fn):.6f}")
 
-    settings = [(bm, w) for bm in K4_BLOCK_MS for w in K4_WARPS]
-    launches = {sw: setting(*sw) for sw in settings}
-    for sw, fn in launches.items():
+    def group_launch(threads):
+        res = torch.empty_like(x)
+        return lambda: (launch_softmax(x, res, True, LANE_GROUPS, threads), res)[1]
+
+    launches = {t: group_launch(t) for t in K4_TILES}
+    for fn in launches.values():
         torch.testing.assert_close(fn().clone(), want, atol=SPARSE_TOL, rtol=SPARSE_TOL)
-    timers = {sw: graph_timer(fn) for sw, fn in launches.items()}
+    timers = {t: graph_timer(fn) for t, fn in launches.items()}
     lib_timer = graph_timer(contenders["torch.log_softmax"])
     sweep: dict = {}
     lib_t = [lib_timer()]
     for rnd in range(K4_ROUNDS):
-        for sw in (settings if rnd % 2 == 0 else settings[::-1]):
-            sweep.setdefault(sw, []).append(timers[sw]())
+        for t in (K4_TILES if rnd % 2 == 0 else K4_TILES[::-1]):
+            sweep.setdefault(t, []).append(timers[t]())
         lib_t.append(lib_timer())
-    log(f"K4 sweep of BLOCK_M x num_warps at {tuple(x.shape)} (graph ms a launch, {K4_ROUNDS} rounds); "
+    log(f"K4 sweep of the lane groups' block at {tuple(x.shape)} (graph ms a launch, {K4_ROUNDS} rounds); "
         f"torch.log_softmax {spread(lib_t)} (before every round and after the last)")
-    for sw in settings:
-        log(f"  BLOCK_M {sw[0]:3d} warps {sw[1]}: {spread(sweep[sw])}; kernel (profiler) "
-            f"{device_ms(launches[sw]):.6f}")
-    best = min(settings, key=lambda sw: statistics.median(sweep[sw]))
-    log(f"K4 fastest setting BLOCK_M {best[0]} warps {best[1]}: {spread(sweep[best])}; against "
-        f"torch.log_softmax: {versus(sweep[best], lib_t)}")
-    # the fastest setting, the kept launch and the library alone, in turns
-    final = {"fastest": timers[best], "kept": timers[(block_m, num_warps)], "torch.log_softmax": lib_timer}
-    final_t: dict = {}
-    for rnd in range(K4_ROUNDS):
-        for name in (list(final) if rnd % 2 == 0 else list(final)[::-1]):
-            final_t.setdefault(name, []).append(final[name]())
-    log(f"K4 in turns, {K4_ROUNDS} rounds (graph ms a launch): fastest (BLOCK_M {best[0]}, {best[1]} warps) "
-        f"{spread(final_t['fastest'])}; kept (BLOCK_M {block_m}, {num_warps} warps) {spread(final_t['kept'])}; "
-        f"torch.log_softmax {spread(final_t['torch.log_softmax'])}")
+    for t in K4_TILES:
+        log(f"  {t:3d} threads, {t // lanes} rows a block ({k4_lane_grid(m, n, t)[0]} blocks): {spread(sweep[t])}; "
+            f"kernel (profiler) {device_ms(launches[t]):.6f}")
+    best = min(K4_TILES, key=lambda t: statistics.median(sweep[t]))
+    log(f"K4 fastest: {best} threads a block, {spread(sweep[best])}; against torch.log_softmax: "
+        f"{versus(sweep[best], lib_t)}")
+    final_t, _ = k4_rounds({"fastest": timers[best], "kept": timers[tile] if tile in timers else
+                            graph_timer(group_launch(tile)), "torch.log_softmax": lib_timer})
+    log(f"K4 in turns, {K4_ROUNDS} rounds (graph ms a launch): fastest ({best} threads) "
+        f"{spread(final_t['fastest'])}; kept ({tile} threads) {spread(final_t['kept'])}; torch.log_softmax "
+        f"{spread(final_t['torch.log_softmax'])}")
     log(f"  fastest against the kept launch: {versus(final_t['fastest'], final_t['kept'])}; against "
         f"torch.log_softmax: {versus(final_t['fastest'], final_t['torch.log_softmax'])}; the kept launch against "
         f"torch.log_softmax: {versus(final_t['kept'], final_t['torch.log_softmax'])}")
+
+    names = {LANE_GROUPS: "lane groups", BLOCK_ROWS: "block rows", TWO_PASS: "two passes"}
+    log(f"K4 regimes (log-softmax, fp32, about {K4_SWEEP_VALUES} values; graph ms a launch, median of "
+        f"{K4_SWEEP_ROUNDS} rounds; * the plan's launch)")
+    for w in K4_REGIME_WIDTHS:
+        xw = torch.randn((max(1, K4_SWEEP_VALUES // w), w), device=cuda, generator=gen)
+        want_w = softmax_rows_plain(xw, log=True)
+        options = [(LANE_GROUPS, t) for t in (64, 128, 256) if w <= 1024]
+        options += [(BLOCK_ROWS, t) for t in (128, 256, 512) if w <= 32 * t]
+        options += [(TWO_PASS, t) for t in (256, 1024) if w >= 1024]
+        fns = {}
+        for opt in options:
+            res = torch.empty_like(xw)
+            fns[opt] = lambda opt=opt, res=res, xw=xw: (launch_softmax(xw, res, True, *opt), res)[1]
+            torch.testing.assert_close(fns[opt]().clone(), want_w, atol=SPARSE_TOL, rtol=SPARSE_TOL)
+        timers = {opt: graph_timer(fn) for opt, fn in fns.items()}
+        timers["torch.log_softmax"] = graph_timer(lambda xw=xw: torch.log_softmax(xw, dim=-1))
+        t, _ = k4_rounds(timers, K4_SWEEP_ROUNDS)
+        plan = launch_plan(w)
+        cells = [f"{names[opt[0]]} {opt[1]}{'*' if opt == plan else ''} {statistics.median(t[opt]):.6f}"
+                 for opt in options]
+        log(f"  width {w} ({xw.shape[0]} rows): {'; '.join(cells)}; torch.log_softmax "
+            f"{statistics.median(t['torch.log_softmax']):.6f}")
+        del xw, want_w, fns, timers
+
+    log(f"K4 widths against the library (about {K4_SWEEP_VALUES} values; graph ms a launch, {K4_SWEEP_ROUNDS} "
+        f"rounds)")
+    for dtype in (torch.float32, torch.bfloat16):
+        for w in K4_WIDTHS:
+            xw = torch.randn((max(1, K4_SWEEP_VALUES // w), w), device=cuda, generator=gen).to(dtype)
+            tol = SPARSE_TOL if dtype == torch.float32 else BF16_REL
+            for log_sm in (False, True):
+                torch.testing.assert_close(softmax_rows(xw, log_sm), softmax_rows_plain(xw, log_sm), atol=tol,
+                                           rtol=tol)
+                lib = torch.log_softmax if log_sm else torch.softmax
+                t, _ = k4_rounds({"K4": graph_timer(lambda: softmax_rows(xw, log_sm)),
+                                  "library": graph_timer(lambda: lib(xw, dim=-1))}, K4_SWEEP_ROUNDS)
+                bound_ms, bound_by = bound(2 * xw.numel() * xw.element_size(), 6 * xw.numel())
+                log(f"  {str(dtype)[6:]} width {w} ({xw.shape[0]} rows) {'log-softmax' if log_sm else 'softmax'}: "
+                    f"K4 {spread(t['K4'])}; {lib.__name__} {spread(t['library'])}; K4 "
+                    f"{versus(t['K4'], t['library'])}; launch {launch_plan(w)}; bound {bound_ms:.6f} "
+                    f"({bound_by})")
+            del xw
     print(smi)
 
 
 def k4_k7_times():
     """K7 at the GLM's x, widths 1 and 20, and K4 at (11314, 20) fp32, each
     checked against its plain version and timed through its wrapper beside
-    its library call.  It reads only the wrappers, so a copy of this script
-    placed in another checkout times that checkout's kernels: two checkouts
-    are compared in one call by running the two in turns (a, b, b, a)."""
+    its library call (K4 in K4_ROUNDS rounds in turns with the library, in
+    CUDA graphs and eagerly).  It reads only the wrappers, so a copy of this
+    script placed in another checkout times that checkout's kernels: two
+    checkouts are compared in one call by running the two in turns (a, b,
+    b, a)."""
     from aesara_tpu_torch.link.torch.csr import CSRMat
     from aesara_tpu_torch.link.torch.kernels.softmax import softmax_rows, softmax_rows_plain
     from aesara_tpu_torch.link.torch.kernels.sparse import csr_sddmm, csr_sddmm_plain
@@ -1669,13 +1757,13 @@ def k4_k7_times():
     x = torch.randn((NG_DOCS, NG_CLASSES), device=cuda, generator=gen)
     torch.testing.assert_close(softmax_rows(x, log=True), softmax_rows_plain(x, log=True), atol=SPARSE_TOL,
                                rtol=SPARSE_TOL)
-    k4, lib = graph_timer(lambda: softmax_rows(x, log=True)), graph_timer(lambda: torch.log_softmax(x, dim=-1))
-    k4_t, lib_t = [], []
-    for _ in range(K4_ROUNDS):
-        k4_t.append(k4())
-        lib_t.append(lib())
-    log(f"K4 {tuple(x.shape)}: kernel (profiler) {device_ms(lambda: softmax_rows(x, log=True)):.6f}, graph ms a "
-        f"launch {spread(k4_t)}; torch.log_softmax {spread(lib_t)}; K4 {versus(k4_t, lib_t)}")
+    fns = {"K4": lambda: softmax_rows(x, log=True), "torch.log_softmax": lambda: torch.log_softmax(x, dim=-1)}
+    graph_t, eager_t = k4_rounds({name: graph_timer(fn) for name, fn in fns.items()}, eager=fns)
+    log(f"K4 {tuple(x.shape)}: kernel (profiler) {device_ms(fns['K4']):.6f}, graph ms a launch "
+        f"{spread(graph_t['K4'])}; torch.log_softmax {spread(graph_t['torch.log_softmax'])}; K4 "
+        f"{versus(graph_t['K4'], graph_t['torch.log_softmax'])}")
+    log(f"K4 {tuple(x.shape)} eager ms a launch {spread(eager_t['K4'])}; torch.log_softmax "
+        f"{spread(eager_t['torch.log_softmax'])}; K4 {versus(eager_t['K4'], eager_t['torch.log_softmax'])}")
     print(smi)
 
 
@@ -1849,7 +1937,7 @@ def main():
         kernel_line("K1 fused elemwise Composite", "triton", K1_SOURCE, K1_REPLACES, train_launches["K1"], k1),
         kernel_line("K2 flash attention forward", "cuda", K2_SOURCE, K2_REPLACES, train_launches["K2"], k2),
         k3_line,
-        kernel_line("K4 row log-softmax", "triton", K4_SOURCE, K4_REPLACES, lr["launches"]["K4"], lr["K4"]),
+        kernel_line("K4 row log-softmax", "cuda", K4_SOURCE, K4_REPLACES, lr["launches"]["K4"], lr["K4"]),
         kernel_line("K5 CSR SpMV (narrow rhs)", "cuda", K567_SOURCE, K5_REPLACES, glm["launches"]["K5"], k5),
         kernel_line("K6 CSR SpMM (wide rhs)", "cuda", K567_SOURCE, K6_REPLACES, lr["launches"]["K6"], k6),
         kernel_line("K7 CSR SDDMM", "cuda", K567_SOURCE, K7_REPLACES, grad_values["launches"]["K7"], k7),

@@ -19,7 +19,9 @@ from aesara_tpu_torch.link.torch.csr import CSRMat
 from aesara_tpu_torch.link.torch.kernels.elemwise import (
     ElemwiseKernel, composite_plain, fused_elemwise,
 )
-from aesara_tpu_torch.link.torch.kernels.softmax import softmax_rows, softmax_rows_plain
+from aesara_tpu_torch.link.torch.kernels.softmax import (
+    BLOCK_ROWS, LANE_GROUPS, LANE_ROWS_MAX, ONE_PASS, TWO_PASS, launch_softmax, softmax_rows, softmax_rows_plain,
+)
 from aesara_tpu_torch.link.torch.kernels.sparse import (
     SPMM_CHUNK, SPMM_SHORT, csr_matmul_plain, csr_sddmm, csr_sddmm_plain, csr_spmm, csr_spmv, launch_sddmm,
     spmm_vector_bytes,
@@ -203,7 +205,7 @@ def test_small_train_step_on_card_matches_cpu(cuda):
 
 
 @pytest.mark.parametrize("shape", [(11314, 20), (5, 37), (3, 10000)], ids=["wide_m", "ragged", "two_pass"])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float64, torch.float16])
 @pytest.mark.parametrize("log", [False, True], ids=["softmax", "log_softmax"])
 def test_k4_kernel_matches_plain(cuda, shape, dtype, log):
     gen = torch.Generator(device=cuda).manual_seed(5)
@@ -215,9 +217,89 @@ def test_k4_kernel_matches_plain(cuda, shape, dtype, log):
     torch.cuda.synchronize()
     assert softmax_rows.launches == before + 1 and got.dtype == dtype
     want = softmax_rows_plain(x, log)
-    tol = {torch.float32: 1e-5, torch.bfloat16: 1e-2, torch.float64: 1e-12}[dtype]
+    tol = _K4_TOL[dtype]
     torch.testing.assert_close(got, want, atol=tol, rtol=tol, equal_nan=True)
     assert bool(got[0].isnan().all())
+
+
+#: K4 against its plain version: fp32 and fp64 differ in the order of the
+#: row sums; bf16 and fp16 compute in fp32 and may round to a neighbour
+_K4_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2, torch.float64: 1e-12, torch.float16: 2e-3}
+
+
+def _k4_rows(cuda, shape, seed, dtype=torch.float32):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = (torch.randn(shape, device=cuda, generator=gen) * 3).to(dtype)
+    if shape[0] > 5:
+        x[3] = float("-inf")             # -inf throughout: nan
+        x[5, ::2] = float("-inf")
+    return x
+
+
+def _k4_check(x, log, tol=1e-5):
+    before = softmax_rows.launches
+    got = softmax_rows(x, log)
+    torch.cuda.synchronize()
+    assert softmax_rows.launches == before + 1 and got.shape == x.shape and got.dtype == x.dtype
+    torch.testing.assert_close(got, softmax_rows_plain(x, log), atol=tol, rtol=tol, equal_nan=True)
+    return got
+
+
+@pytest.mark.parametrize("n", [20, 37, 300, 3000, 10000])
+@pytest.mark.parametrize("log", [False, True], ids=["softmax", "log_softmax"])
+def test_k4_base_off_16_bytes_matches_plain(cuda, n, log):
+    """x one element past a 16-byte boundary: every regime takes one value
+    an access."""
+    x = torch.empty(70 * n + 1, device=cuda)[1:].view(70, n)
+    x.copy_(_k4_rows(cuda, (70, n), 27))
+    assert x.data_ptr() % 16 != 0
+    _k4_check(x, log)
+
+
+@pytest.mark.parametrize("n,width", [(20, 24), (100, 128), (3000, 3072), (9000, 9004)])
+@pytest.mark.parametrize("log", [False, True], ids=["softmax", "log_softmax"])
+def test_k4_row_strided_view_matches_plain(cuda, n, width, log):
+    """A column slice is read in place, its rows ``width`` values apart."""
+    x = _k4_rows(cuda, (70, width), 28)[:, :n]
+    assert x.stride() == (width, 1)
+    _k4_check(x, log)
+
+
+@pytest.mark.parametrize("shape", [(11314, 20), (64, 10000)])
+@pytest.mark.parametrize("log", [False, True], ids=["softmax", "log_softmax"])
+def test_k4_is_deterministic(cuda, shape, log):
+    x = _k4_rows(cuda, shape, 29)
+    first, second = softmax_rows(x, log), softmax_rows(x, log)
+    torch.cuda.synchronize()
+    assert torch.equal(first.nan_to_num(), second.nan_to_num())
+    assert torch.equal(first.isnan(), second.isnan())
+
+
+@pytest.mark.parametrize("shape", [(0, 20), (5, 0), (0, 0), (2, 0, 7)])
+def test_k4_launches_nothing_for_no_values(cuda, shape):
+    x = torch.empty(shape, device=cuda)
+    before = softmax_rows.launches
+    got = softmax_rows(x, log=True)
+    assert got.shape == x.shape and got.device == x.device and softmax_rows.launches == before
+
+
+@pytest.mark.parametrize("regime,tile,n", [
+    (LANE_GROUPS, 128, 1), (LANE_GROUPS, 128, 7), (LANE_GROUPS, 128, 20), (LANE_GROUPS, 32, 20),
+    (LANE_GROUPS, 512, 20), (LANE_GROUPS, 128, 21), (LANE_GROUPS, 128, 22), (LANE_GROUPS, 64, 100),
+    (LANE_GROUPS, 256, 1000), (LANE_GROUPS, 128, 1001), (LANE_GROUPS, 128, 1024), (BLOCK_ROWS, 128, 20),
+    (BLOCK_ROWS, 128, 1000), (BLOCK_ROWS, 256, 8192), (BLOCK_ROWS, 512, 16384), (TWO_PASS, 256, 1),
+    (TWO_PASS, 256, 20), (TWO_PASS, 1024, 1000), (TWO_PASS, 256, 32768)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float64, torch.float16])
+def test_k4_every_regime_matches_plain(cuda, regime, tile, n, dtype):
+    """Each regime at widths and tiles the plan does not choose as well; 21
+    and 22 fp32 values a row take 4- and 8-byte accesses."""
+    x = _k4_rows(cuda, (70, n), 30, dtype)
+    for log in (False, True):
+        out = torch.empty_like(x)
+        launch_softmax(x, out, log, regime, tile)
+        torch.cuda.synchronize()
+        tol = _K4_TOL[dtype]
+        torch.testing.assert_close(out, softmax_rows_plain(x, log), atol=tol, rtol=tol, equal_nan=True)
 
 
 def _awkward_csr(n, d, seed, dtype="float32"):
@@ -445,7 +527,8 @@ def test_k7_is_deterministic(cuda):
     torch.testing.assert_close(first.data, csr_sddmm_plain(a, gz, b), atol=1e-5, rtol=1e-5)
 
 
-@pytest.mark.parametrize("n", [1, 20, 33, 1000, 8192, 8193])
+@pytest.mark.parametrize("n", sorted({1, 20, 33, 1000, 8192, 8193, 32768, *(
+    edge + d for edge in (LANE_ROWS_MAX, 4096, ONE_PASS) for d in (-1, 0, 1))}))
 @pytest.mark.parametrize("log", [False, True], ids=["softmax", "log_softmax"])
 def test_k4_launch_at_widths_matches_plain(cuda, n, log):
     gen = torch.Generator(device=cuda).manual_seed(26)

@@ -27,7 +27,9 @@ from aesara_tpu.tensor import special as jspecial
 import aesara_tpu_torch
 import aesara_tpu_torch.tensor as pat
 from aesara_tpu_torch.config import config
-from aesara_tpu_torch.link.torch.kernels.softmax import launch_config, softmax_rows, softmax_rows_plain
+from aesara_tpu_torch.link.torch.kernels.softmax import (
+    BLOCK_ROWS, LANE_GROUPS, TWO_PASS, launch_plan, softmax_rows, softmax_rows_plain,
+)
 from aesara_tpu_torch.tensor import math as ptm
 from aesara_tpu_torch.tensor import special as pspecial
 
@@ -77,14 +79,78 @@ def test_wrapper_takes_the_plain_version_for_cpu_tensors():
 
 
 @pytest.mark.parametrize("n,want", [
-    (1, (True, 1024, 1, 4)), (20, (True, 32, 32, 4)), (33, (True, 16, 64, 4)), (1000, (True, 1, 1024, 4)),
-    (2048, (True, 1, 2048, 4)), (4096, (True, 1, 4096, 8)), (8192, (True, 1, 8192, 8)),
-    (8193, (False, 1, 2048, 8))])
-def test_k4_launch_is_a_function_of_the_width(n, want):
-    """The launch K4 takes for rows of n columns (the classifier's 20 among
-    them): one pass up to 8,192 columns, a block of up to 1,024 values a
-    program, kept by the H100 sweep of ``chip_smoke.py --k4-times``."""
-    assert launch_config(n) == want
+    (1, (LANE_GROUPS, 128)), (20, (LANE_GROUPS, 128)), (1023, (LANE_GROUPS, 128)), (1024, (LANE_GROUPS, 128)),
+    (1025, (BLOCK_ROWS, 128)), (4096, (BLOCK_ROWS, 128)), (4097, (BLOCK_ROWS, 256)), (8193, (BLOCK_ROWS, 512)),
+    (16384, (BLOCK_ROWS, 512)), (16385, (TWO_PASS, 256)), (32768, (TWO_PASS, 256))])
+def test_k4_launch_plan_is_a_function_of_the_width(n, want):
+    """The regime and tile K4 takes for rows of n values (the classifier's
+    20 among them): lane groups in blocks of 128 threads up to 1,024
+    values, one block a row up to 16,384 (the fewest threads, 128 at least,
+    that hold 32 values each), then two passes.  Kept by the H100 sweeps of
+    ``chip_smoke.py --k4-times``."""
+    assert launch_plan(n) == want
+
+
+def _combine(m1, s1, m2, s2):
+    """Two (max, sum of exp(value - max)) pairs as one, as ``combine`` in
+    ``softmax_rows.cu``: a pair whose max is -inf has sum 0."""
+    m = np.maximum(m1, m2)
+    with np.errstate(invalid="ignore"):
+        s = s1 * np.exp(m1 - m) + s2 * np.exp(m2 - m)
+    return m, np.where(m == -np.inf, np.float32(0), s).astype(np.float32)
+
+
+def _two_pass_model(x, log, threads, ve):
+    """K4's two-pass regime in its order, in float32 (``softmax_two_pass_kernel``):
+    thread t takes the vectors t, t + threads, ... of ``ve`` values; a
+    vector's max, then the thread's running pair (while it has seen only
+    -inf its sum stays 0); the pairs combined by a butterfly inside each
+    warp of 32, then the warps' in order; a second pass writes."""
+    rows, n = x.shape
+    vecs = x.reshape(rows, n // ve, ve)
+    M = np.full((rows, threads), -np.inf, np.float32)
+    S = np.zeros((rows, threads), np.float32)
+    for k0 in range(0, n // ve, threads):
+        chunk = vecs[:, k0:k0 + threads]
+        t = chunk.shape[1]
+        mn = np.maximum(M[:, :t], chunk.max(-1))
+        add = np.zeros((rows, t), np.float32)
+        with np.errstate(invalid="ignore"):
+            for q in range(ve):
+                add = add + np.exp(chunk[..., q] - mn)
+            running = S[:, :t] * np.exp(M[:, :t] - mn) + add
+        seen = mn != -np.inf
+        S[:, :t] = np.where(seen, running, S[:, :t])
+        M[:, :t] = np.where(seen, mn, M[:, :t])
+    for off in (16, 8, 4, 2, 1):
+        other = np.arange(threads) ^ off
+        M, S = _combine(M, S, M[:, other], S[:, other])
+    m, s = M[:, 0], S[:, 0]
+    for w in range(1, threads // 32):
+        m, s = _combine(m, s, M[:, 32 * w], S[:, 32 * w])
+    with np.errstate(invalid="ignore", divide="ignore"):
+        z = x - m[:, None]
+        return z - np.log(s)[:, None] if log else np.exp(z) / s[:, None]
+
+
+@pytest.mark.parametrize("threads,ve", [(256, 4), (1024, 4), (256, 1)])
+@pytest.mark.parametrize("log", [False, True], ids=["softmax", "log_softmax"])
+def test_two_pass_order_matches_plain_and_jax_nn(threads, ve, log):
+    """The two-pass order on rows of 9,000 values whose first 5,000 are -inf
+    (every thread's first vectors all -inf), -inf throughout (nan), every
+    third -inf, and finite.  Tolerance 1e-5: sums of 9,000 float32 values
+    in three orders."""
+    x = _rows((4, 9000), seed=5)
+    x[0, :5000] = -np.inf
+    x[1, :] = -np.inf
+    x[2, ::3] = -np.inf
+    got = _two_pass_model(x, log, threads, ve)
+    plain = softmax_rows_plain(torch.from_numpy(x), log).numpy()
+    nn = np.asarray((jax.nn.log_softmax if log else jax.nn.softmax)(jnp.asarray(x), axis=-1))
+    for want in (plain, nn):
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+    assert np.isnan(got[1]).all()
+    assert (got[0, :5000] == (-np.inf if log else 0.0)).all()
 
 
 def test_plain_k4_computes_bfloat16_in_fp32_and_float64_in_fp64():

@@ -550,7 +550,14 @@ def _chip_smoke():
     ("void (anonymous namespace)::csr_spmm_kernel<float, float, float, 16>(int const*)", "K6 CSR SpMM", "K6"),
     ("void (anonymous namespace)::csr_spmm_fixup_kernel<float>(int const*)", "K6 CSR SpMM", None),
     ("void (anonymous namespace)::csr_spmv_kernel<float, float, float>(int const*)", "K5 CSR SpMV", "K5"),
-    ("one_pass", "K4 row softmax", "K4"),
+    ("void (anonymous namespace)::softmax_group_kernel<float, 16, 8, 1>(float const*, float*, long long, int)",
+     "K4 row softmax", "K4"),
+    ("void (anonymous namespace)::softmax_block_kernel<(anonymous namespace)::bf16, 16>(bf16 const*)",
+     "K4 row softmax", "K4"),
+    ("void (anonymous namespace)::softmax_two_pass_kernel<double, 8>(double const*, double*, int)",
+     "K4 row softmax", "K4"),
+    ("void at::native::(anonymous namespace)::softmax_warp_forward<float, float, float, 5, true, false>(float*)",
+     "other torch", None),
 ])
 def test_profile_groups_and_counts_every_csr_and_softmax_kernel(name, group, counter):
     """``chip_smoke.py`` reads a profiled step's kernels by name: each of
