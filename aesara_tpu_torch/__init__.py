@@ -13,7 +13,7 @@ and never jax.
 from aesara_tpu_torch.config import config  # noqa: F401
 from aesara_tpu_torch import tensor  # noqa: F401
 from aesara_tpu_torch.compile.function import Function, function  # noqa: F401
-from aesara_tpu_torch.compile.io import Out  # noqa: F401
+from aesara_tpu_torch.compile.io import In, Out  # noqa: F401
 from aesara_tpu_torch.compile.mode import TORCH, Mode, get_mode  # noqa: F401
 from aesara_tpu_torch.compile.sharedvalue import shared  # noqa: F401
 from aesara_tpu_torch.gradient import grad  # noqa: F401
@@ -21,5 +21,5 @@ from aesara_tpu_torch.link.torch.linker import TorchLinker  # noqa: F401
 from aesara_tpu_torch.tensor import rewriting  # noqa: F401  (registers the rewrites)
 from aesara_tpu_torch import sparse  # noqa: F401  (registers the sparse rewrites)
 
-__all__ = ["config", "tensor", "sparse", "function", "Function", "Out", "Mode", "TORCH",
+__all__ = ["config", "tensor", "sparse", "function", "Function", "In", "Out", "Mode", "TORCH",
            "get_mode", "shared", "grad", "TorchLinker"]

@@ -1,30 +1,44 @@
-"""``function(inputs, outputs, mode=, updates=)``: graph → FunctionGraph →
-optdb rewrites → linker (reference ``aesara_tpu/compile/function.py``).
+"""``function(inputs, outputs, ...)``: graph → FunctionGraph → optdb
+rewrites → linker (reference ``aesara_tpu/compile/function.py``:
+``function`` :55, ``rebuild_collect_shared`` :219, ``pfunc`` :322).
 
-``updates`` pairs shared variables with expressions of their new values.
+``inputs`` are variables or ``In`` specs (a name to call by keyword, a
+default value, an ``update`` that becomes the next call's default).
+``givens`` substitutes variables in the graph before it is compiled (a
+dict at once, a list of pairs in order).  ``updates`` pairs shared
+variables with expressions of their new values; a shared variable's
+``default_update`` joins them unless ``no_default_updates`` says not.
 The update expressions are outputs of the one compiled graph, so they
 read every shared value as it was before the call; the new values are
 bound to their shared variables only after the whole graph has run.
 The JAX package donates the old buffers to XLA instead
 (``aesara_tpu/link/jax/linker.py:304-343``); here the shared variable is
 rebound to the new tensor and the old one is freed when nothing else
-holds it.  Givens, ``In`` specs and bucketing are not ported yet.
+holds it.  ``steps_per_call`` needs scan and bucketing needs
+``compile/bucketing.py``: neither is ported yet.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Sequence
 
 import numpy as np
 
-from aesara_tpu_torch.compile.io import Out
+from aesara_tpu_torch.compile.io import In, Out
 from aesara_tpu_torch.compile.mode import get_mode
 from aesara_tpu_torch.compile.sharedvalue import SharedVariable
+from aesara_tpu_torch.config import config
 from aesara_tpu_torch.graph.fg import FunctionGraph
-from aesara_tpu_torch.graph.ir import Constant, Variable, graph_inputs
+from aesara_tpu_torch.graph.ir import Constant, Variable, ancestors, clone_replace, graph_inputs
+from aesara_tpu_torch.tensor.type import TensorType
 
 
-__all__ = ["function", "Function"]
+__all__ = ["function", "Function", "rebuild_collect_shared", "UnusedInputError"]
+
+
+class UnusedInputError(Exception):
+    """An input of ``function()`` that no output or update reads."""
 
 
 def _storage_ptr(value) -> int:
@@ -38,32 +52,70 @@ def _storage_ptr(value) -> int:
     return 0
 
 
-class Function:
-    """A compiled graph: call it with one value per input; it returns a
-    list of torch tensors on the linker's device (one tensor when
-    ``outputs`` was a single variable, None when there were none), and
-    then binds each updated shared variable to its new value."""
+_UNSET = object()
 
-    def __init__(self, fn, fgraph, n_inputs: int, single_output: bool, borrow: Sequence[bool],
-                 update_targets: Sequence[SharedVariable]):
+
+class Function:
+    """A compiled graph: call it with one value per input, by position or
+    by an ``In`` name; it returns a list of torch tensors on the linker's
+    device (one tensor when ``outputs`` was a single variable, None when
+    there were none), and then binds each updated shared variable to its
+    new value and each ``In(update=)`` input to its next default."""
+
+    def __init__(self, fn, fgraph, in_specs: Sequence[In], single_output: bool, borrow: Sequence[bool],
+                 update_targets: Sequence[SharedVariable], input_updates: Sequence[int], name=None):
         self.fn = fn
         self.fgraph = fgraph
         self.maker = self  # ``f.maker.fgraph``, as in the JAX package
-        self.n_inputs = n_inputs
+        self.in_specs = list(in_specs)
+        self.n_inputs = len(in_specs)
         self.single_output = single_output
         self.borrow = list(borrow)
         self.update_targets = list(update_targets)
-        self.shared_inputs = fgraph.inputs[n_inputs:]
+        #: positions of the inputs whose ``In(update=)`` value comes last
+        self.input_updates = list(input_updates)
+        self.name = name
+        self.shared_inputs = fgraph.inputs[self.n_inputs:]
+        self._name_to_pos = {s.name: i for i, s in enumerate(self.in_specs) if s.name}
+        self._in_state: dict = {}
 
-    def __call__(self, *args):
-        if len(args) != self.n_inputs:
+    def _arguments(self, args, kwargs) -> list:
+        """One value per input: the positional and keyword ones, then the
+        carried ``In(update=)`` state or the spec's default."""
+        import torch
+
+        if len(args) > self.n_inputs:
             raise TypeError(f"expected {self.n_inputs} arguments, got {len(args)}")
+        values = list(args) + [_UNSET] * (self.n_inputs - len(args))
+        for key, value in kwargs.items():
+            if key not in self._name_to_pos:
+                raise TypeError(f"unknown input name {key!r}")
+            pos = self._name_to_pos[key]
+            if values[pos] is not _UNSET:
+                raise TypeError(f"input {key!r} given twice")
+            values[pos] = value
+        for i, (spec, value) in enumerate(zip(self.in_specs, values)):
+            if value is _UNSET:
+                if i in self._in_state:
+                    value = self._in_state[i]
+                elif spec.value is not None and not isinstance(spec.value, Variable):
+                    value = spec.value
+                else:
+                    raise TypeError(f"missing input {spec.variable}")
+            if not isinstance(value, torch.Tensor) and isinstance(spec.variable.type, TensorType):
+                value = spec.variable.type.filter(value, strict=spec.strict,
+                                                  allow_downcast=spec.allow_downcast)
+            values[i] = value
+        return values
+
+    def __call__(self, *args, **kwargs):
+        args = self._arguments(args, kwargs)
         # read before the call: an updated shared variable holds another
         # tensor afterwards
         held = [v.value for v in self.shared_inputs] + list(args)
         results = self.fn(*args)
-        n_out = len(self.borrow)
-        outs, new_values = list(results[:n_out]), results[n_out:]
+        n_out, n_up = len(self.borrow), len(self.update_targets)
+        outs, new_values = list(results[:n_out]), results[n_out:n_out + n_up]
         for target, new in zip(self.update_targets, new_values):
             if new.device != target.value.device:
                 raise ValueError(f"update of {target} computed on {new.device}; "
@@ -71,8 +123,10 @@ class Function:
             target.type.check_shape(tuple(new.shape))
         for target, new in zip(self.update_targets, new_values):
             target._value = new
+        for pos, new in zip(self.input_updates, results[n_out + n_up:]):
+            self._in_state[pos] = new
         if not all(self.borrow):
-            taken = {_storage_ptr(v) for v in held + list(new_values)} - {0}
+            taken = {_storage_ptr(v) for v in held + list(results[n_out:])} - {0}
             outs = [o.clone() if not b and _storage_ptr(o) in taken else o
                     for o, b in zip(outs, self.borrow)]
         if self.single_output:
@@ -80,54 +134,151 @@ class Function:
         return outs if outs else None
 
 
-def _update_pairs(updates):
-    """``updates`` as a list of (shared variable, new value variable)."""
+def _check_update_type(target, value):
+    """``value`` as a variable of ``target``'s type; the value may know
+    less of its static shape than the target (the call checks it)."""
     from aesara_tpu_torch.tensor.basic import as_tensor_variable
 
+    value = as_tensor_variable(value)
+    tt, vt = target.type, value.type
+    if (vt.dtype != tt.dtype or vt.ndim != tt.ndim
+            or any(a is not None and b is not None and a != b for a, b in zip(tt.shape, vt.shape))):
+        raise TypeError(f"update of {target} ({tt}) has type {vt}")
+    return value
+
+
+def _pairs(updates) -> list:
+    """``updates`` (a dict or pairs) as a list of pairs, refusing a target
+    given twice."""
     if updates is None:
         return []
     pairs = list(updates.items()) if isinstance(updates, dict) else list(updates)
     targets = [t for t, _ in pairs]
     if len({id(t) for t in targets}) != len(targets):
         raise ValueError(f"duplicate update targets: {[t for t in targets if targets.count(t) > 1][:2]}")
-    out = []
-    for target, value in pairs:
-        if not isinstance(target, SharedVariable):
-            raise TypeError(f"update target {target} is not a shared variable")
-        value = as_tensor_variable(value)
-        tt, vt = target.type, value.type
-        # the value may know less of its static shape than the target;
-        # the call checks the runtime shape
-        if (vt.dtype != tt.dtype or vt.ndim != tt.ndim
-                or any(a is not None and b is not None and a != b
-                       for a, b in zip(tt.shape, vt.shape))):
-            raise TypeError(f"update of {target} ({tt}) has type {vt}")
-        out.append((target, value))
-    return out
+    return pairs
 
 
-def function(inputs: Sequence[Variable], outputs=None, mode=None, updates=None) -> Function:
-    """Compile ``outputs`` (a variable, an ``Out``, a list of them, or
-    None) as a function of ``inputs``, applying ``updates`` (pairs or a
-    dict of shared variable → new value) after each call."""
-    if isinstance(inputs, Variable):
-        raise TypeError("inputs must be a list/tuple")
-    inputs = list(inputs)
+def rebuild_collect_shared(outputs, inputs=(), replace=None, updates=None, no_default_updates=False):
+    """Apply ``replace`` (the givens) to the outputs and the update
+    expressions, collect the shared variables they read and the update
+    pairs, default updates included: (output variables, shared variables,
+    update pairs, whether ``outputs`` was one variable).  An update target
+    must be a shared variable or one of ``inputs``."""
     single = isinstance(outputs, (Variable, Out))
     specs = [] if outputs is None else [outputs] if single else list(outputs)
-    specs = [o if isinstance(o, Out) else Out(o) for o in specs]
-    pairs = _update_pairs(updates)
-    out_vars = [o.variable for o in specs] + [v for _, v in pairs]
-    sources = graph_inputs(out_vars)
-    shared = [v for v in sources if isinstance(v, SharedVariable) and v not in inputs]
+    out_vars = [o.variable if isinstance(o, Out) else o for o in specs]
+    input_ids = {id(v) for v in inputs}
+    update_pairs = []
+    for target, value in _pairs(updates):
+        if not isinstance(target, SharedVariable) and id(target) not in input_ids:
+            raise TypeError(f"update target {target} is not a shared variable")
+        update_pairs.append((target, _check_update_type(target, value)))
+
+    if replace:
+        items = list(replace.items()) if isinstance(replace, dict) else list(replace)
+        roots = out_vars + [v for _, v in update_pairs]
+        if isinstance(replace, dict):
+            roots = clone_replace(roots, replace=dict(items))
+        else:
+            # list-form givens apply in order: a later pair substitutes
+            # into an earlier pair's replacement
+            for old, new in items:
+                roots = clone_replace(roots, replace={old: new})
+        out_vars = roots[:len(out_vars)]
+        update_pairs = [(t, e) for (t, _), e in zip(update_pairs, roots[len(out_vars):])]
+
+    shared, seen = [], set()
+
+    def collect(roots):
+        for v in graph_inputs(roots) if roots else []:
+            if isinstance(v, SharedVariable) and id(v) not in seen:
+                seen.add(id(v))
+                shared.append(v)
+
+    collect(out_vars + [v for _, v in update_pairs])
+    # no_default_updates: True drops all, a list drops those in it
+    explicit = {id(t) for t, _ in update_pairs}
+    changed = no_default_updates is not True
+    while changed:
+        changed = False
+        for sv in list(shared):
+            du = sv.default_update
+            if du is None or id(sv) in explicit:
+                continue
+            if isinstance(no_default_updates, list) and sv in no_default_updates:
+                continue
+            update_pairs.append((sv, _check_update_type(sv, du)))
+            explicit.add(id(sv))
+            n = len(shared)
+            collect([update_pairs[-1][1]])
+            changed = changed or len(shared) != n
+    return out_vars, shared, update_pairs, single
+
+
+def function(inputs: Sequence, outputs=None, mode=None, updates=None, givens=None,
+             no_default_updates=False, name=None, allow_input_downcast=None, on_unused_input=None,
+             steps_per_call: int = 1) -> Function:
+    """Compile ``outputs`` (a variable, an ``Out``, a list of them, or
+    None) as a function of ``inputs`` (variables or ``In`` specs),
+    applying ``updates`` (pairs or a dict of shared variable → new value)
+    after each call.  ``givens`` replaces variables before compiling;
+    ``allow_input_downcast`` is the default of the inputs' own;
+    ``on_unused_input`` ("raise", "warn" or "ignore"; default
+    ``config.on_unused_input``) says what an input nothing reads does."""
+    if isinstance(inputs, (Variable, In)):
+        raise TypeError("inputs must be a list/tuple")
+    if steps_per_call != 1:
+        raise NotImplementedError("steps_per_call waits for the scan slice, which the port does not have yet")
+    specs = []
+    for p in inputs:
+        if isinstance(p, In):
+            specs.append(p)
+        elif isinstance(p, SharedVariable):
+            raise TypeError("shared variables do not belong in `inputs`: they are implicit; "
+                            "pass updates={shared: expr} instead")
+        elif isinstance(p, Constant):
+            raise TypeError("constants cannot be function inputs")
+        elif isinstance(p, Variable):
+            specs.append(In(p, allow_downcast=allow_input_downcast))
+        else:
+            raise TypeError(f"invalid function input {p!r}")
+    in_vars = [s.variable for s in specs]
+
+    pairs = _pairs(updates)
+    for s in specs:
+        if s.update is not None:
+            if any(t is s.variable for t, _ in pairs):
+                raise ValueError(f"input {s.variable} has both In(update=...) and an entry in `updates`")
+            pairs.append((s.variable, s.update))
+    out_vars, _, update_pairs, single = rebuild_collect_shared(
+        outputs, inputs=in_vars, replace=givens, updates=pairs, no_default_updates=no_default_updates)
+    shared_updates = [(t, v) for t, v in update_pairs if isinstance(t, SharedVariable)]
+    input_updates = [(t, v) for t, v in update_pairs if not isinstance(t, SharedVariable)]
+
+    out_specs = [] if outputs is None else [outputs] if single else list(outputs)
+    borrow = [o.borrow if isinstance(o, Out) else False for o in out_specs]
+    all_outs = out_vars + [v for _, v in shared_updates] + [v for _, v in input_updates]
+    sources = graph_inputs(all_outs)
+    shared = [v for v in sources if isinstance(v, SharedVariable) and v not in in_vars]
     missing = [v for v in sources
-               if v.owner is None and not isinstance(v, (Constant, SharedVariable))
-               and v not in inputs]
+               if v.owner is None and not isinstance(v, (Constant, SharedVariable)) and v not in in_vars]
     if missing:
         raise TypeError(f"graph depends on inputs not given to function(): {missing}")
+    policy = on_unused_input or config.on_unused_input
+    if policy != "ignore" and all_outs:
+        used = set(ancestors(all_outs))
+        for var in in_vars:
+            if var not in used:
+                msg = (f"function input {var} is unused; pass on_unused_input='ignore' or 'warn' "
+                       "to silence")
+                if policy == "raise":
+                    raise UnusedInputError(msg)
+                warnings.warn(msg)
+
     mode = get_mode(mode)
-    fgraph = FunctionGraph(inputs + shared, out_vars, clone=True)
+    fgraph = FunctionGraph(in_vars + shared, all_outs, clone=True)
     mode.optimizer.rewrite(fgraph)
-    fn = mode.linker.make_function(fgraph, n_user_inputs=len(inputs))
-    return Function(fn, fgraph, len(inputs), single, [o.borrow for o in specs],
-                    [t for t, _ in pairs])
+    fn = mode.linker.make_function(fgraph, n_user_inputs=len(in_vars))
+    positions = [next(i for i, v in enumerate(in_vars) if v is t) for t, _ in input_updates]
+    return Function(fn, fgraph, specs, single, borrow, [t for t, _ in shared_updates], positions, name=name)

@@ -1,12 +1,70 @@
-"""``Out``: an output spec of a compiled function (reference
-``aesara_tpu/compile/io.py``).  ``In`` is not ported yet."""
+"""``In`` and ``Out``: the input and output specs of a compiled function
+(reference ``aesara_tpu/compile/io.py``)."""
 
 from __future__ import annotations
+
+from typing import Any, Optional
 
 from aesara_tpu_torch.graph.ir import Variable
 
 
-__all__ = ["Out"]
+__all__ = ["SymbolicInput", "In", "Out"]
+
+
+class SymbolicInput:
+    """One input slot of a compiled function.
+
+    - ``name``: the keyword the function takes it by (default: the
+      variable's name, with ``autoname``).
+    - ``value``: its default when a call does not give it.
+    - ``update``: an expression of the function's inputs; after each call
+      its value becomes this input's default (the input's own state).
+    - ``mutable``: the function may write to the value given (default:
+      whether there is an ``update``); the port never does.
+    - ``strict``: the value must have the variable's dtype exactly;
+      ``allow_downcast``: a value may be cast to a narrower dtype.
+    """
+
+    def __init__(self, variable: Variable, name: Optional[str] = None, update: Optional[Variable] = None,
+                 mutable: Optional[bool] = None, strict: bool = False, allow_downcast=None,
+                 autoname: bool = True, value: Any = None):
+        if not isinstance(variable, Variable):
+            raise TypeError(f"In takes a Variable, got {type(variable)}")
+        self.variable = variable
+        self.name = name if name is not None else (variable.name if autoname else None)
+        self.update = None if update is None else variable.type.filter_variable(update, allow_convert=True)
+        self.mutable = mutable if mutable is not None else update is not None
+        self.strict = strict
+        self.allow_downcast = allow_downcast
+        self.value = value
+
+    def __str__(self):
+        if self.update is not None:
+            return f"In({self.variable} -> {self.update})"
+        return f"In({self.variable})"
+
+    __repr__ = __str__
+
+
+class In(SymbolicInput):
+    """The user's input spec.  ``borrow`` (default: ``mutable``) lets the
+    function keep the caller's value without a copy.  ``batched`` and
+    ``seq_bucketed`` belong to shape bucketing, which the port does not
+    have yet: setting either raises."""
+
+    def __init__(self, variable: Variable, name: Optional[str] = None, value: Any = None,
+                 update: Optional[Variable] = None, mutable: Optional[bool] = None, strict: bool = False,
+                 allow_downcast=None, autoname: bool = True, borrow: Optional[bool] = None,
+                 batched: Optional[bool] = None,
+                 seq_bucketed: Optional[int] = None):
+        if batched is not None or seq_bucketed is not None:
+            raise NotImplementedError("In(batched=, seq_bucketed=) wait for compile/bucketing.py, "
+                                      "which the port does not have yet")
+        if borrow is None:
+            borrow = mutable if mutable is not None else False
+        super().__init__(variable, name=name, update=update, mutable=mutable, strict=strict,
+                         allow_downcast=allow_downcast, autoname=autoname, value=value)
+        self.borrow = bool(borrow)
 
 
 class Out:

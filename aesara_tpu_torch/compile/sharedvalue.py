@@ -3,7 +3,9 @@
 
 The value is a ``torch.Tensor`` on one explicit device, chosen when the
 variable is made (``device=``, else ``config.device``).  ``get_value``
-returns a NumPy copy and ``set_value`` takes NumPy.
+returns a NumPy copy and ``set_value`` takes NumPy.  ``default_update``
+(reference ``aesara_tpu/compile/sharedvalue.py:44``) is an update that
+``function()`` applies without being asked.
 """
 
 from __future__ import annotations
@@ -21,6 +23,10 @@ __all__ = ["SharedVariable", "TensorSharedVariable", "shared"]
 
 class SharedVariable(Variable):
     """A Variable whose value lives on a device between function calls."""
+
+    #: an expression of this variable's next value, applied by every
+    #: function that reads it (unless ``no_default_updates``)
+    default_update = None
 
     def __init__(self, type, value, name=None, device=None):
         super().__init__(type=type, owner=None, index=None, name=name)

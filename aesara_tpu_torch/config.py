@@ -6,6 +6,9 @@ port reads.  ``device`` is new: it names the ``torch.device`` that
 not given one.  It defaults to ``"cuda"``: entry points run on the card
 unless the caller asks for the CPU (``change_flags(device="cpu")`` or
 ``device="cpu"``), and on a machine without a card they raise.
+``on_unused_input`` is what ``function()`` does with an input that
+nothing reads: "raise" (the default, as in the JAX package), "warn" or
+"ignore".
 """
 
 from __future__ import annotations
@@ -67,5 +70,6 @@ class _Config:
 config = _Config()
 config.add("floatX", "float32", _enum("float32", "float64"))
 config.add("device", "cuda", _device)
+config.add("on_unused_input", "raise", _enum("raise", "warn", "ignore"))
 
 change_flags = config.change_flags

@@ -18,7 +18,7 @@ from aesara_tpu_torch.graph.utils import Scratchpad, add_tag_trace
 
 __all__ = [
     "Type", "Variable", "AtomicVariable", "Constant", "Apply", "walk",
-    "ancestors", "graph_inputs", "clone", "clone_get_equiv", "io_toposort",
+    "ancestors", "graph_inputs", "clone", "clone_get_equiv", "clone_replace", "io_toposort",
     "equal_computations",
 ]
 
@@ -261,6 +261,20 @@ def clone(inputs: Sequence[Variable], outputs: Sequence[Variable], copy_inputs: 
     """Copy a subgraph; returns (new_inputs, new_outputs)."""
     equiv = clone_get_equiv(inputs, outputs, copy_inputs, copy_inputs)
     return [equiv[i] for i in inputs], [equiv[o] for o in outputs]
+
+
+def clone_replace(output, replace=None):
+    """A copy of the graph of ``output`` (a variable or a list of them) in
+    which each key of ``replace`` (a dict or pairs) is the variable given
+    for it; the graph's other inputs are kept, not copied."""
+    single = isinstance(output, Variable)
+    outputs = [output] if single else list(output)
+    items = list(replace.items()) if isinstance(replace, dict) else list(replace or [])
+    memo = {old: old.type.filter_variable(new, allow_convert=True) for old, new in items}
+    inputs = graph_inputs(outputs, blockers=list(memo))
+    equiv = clone_get_equiv(inputs, outputs, copy_inputs=False, copy_orphans=False, memo=memo)
+    result = [equiv[o] for o in outputs]
+    return result[0] if single else result
 
 
 def io_toposort(inputs: Iterable[Variable], outputs: Iterable[Variable]) -> list:

@@ -15,6 +15,7 @@ from functools import singledispatch
 
 import numpy as np
 
+from aesara_tpu_torch.gradient import GradManipulatorOp
 from aesara_tpu_torch.scalar.composite import Composite
 from aesara_tpu_torch.tensor.basic import Alloc, ARange, MakeVector
 from aesara_tpu_torch.tensor.elemwise import CAReduce, DimShuffle, Elemwise, check_static_broadcast
@@ -75,17 +76,39 @@ def _torch_careduce(op, node):
     import torch
 
     name = str(op.scalar_op)
-    if name != "add":
-        raise NotImplementedError(f"no torch lowering for CAReduce({name})")
     axes = op._normalized_axes(node.inputs[0].type.ndim)
     out_dtype = torch_dtype(node.outputs[0].type.dtype)
-    acc_dtype = torch_dtype(op.acc_dtype) if op.acc_dtype else out_dtype
+    if name == "add":
+        acc_dtype = torch_dtype(op.acc_dtype) if op.acc_dtype else out_dtype
 
-    def reduce_sum(x):
-        x = x.to(acc_dtype)
-        return (torch.sum(x, dim=axes) if axes else x).to(out_dtype)
+        def reduce_sum(x):
+            x = x.to(acc_dtype)
+            return (torch.sum(x, dim=axes) if axes else x).to(out_dtype)
 
-    return reduce_sum
+        return reduce_sum
+    # as the JAX package lowers them (link/jax/dispatch.py:630-665); amax
+    # and amin propagate NaN, as numpy.max does
+    reducers = {"maximum": torch.amax, "minimum": torch.amin}
+    if name in reducers:
+        base = reducers[name]
+        return lambda x: (base(x, dim=axes) if axes else x).to(out_dtype)
+    if name in ("and_", "or_") and node.inputs[0].type.dtype == "bool":
+        base = torch.all if name == "and_" else torch.any
+
+        def reduce_logical(x):
+            for d in reversed(axes):    # one axis a call: torch.all takes one dim
+                x = base(x, dim=d)
+            return x
+
+        return reduce_logical
+    raise NotImplementedError(f"no torch lowering for CAReduce({name}) of {node.inputs[0].type.dtype}")
+
+
+@torch_funcify.register(GradManipulatorOp)
+def _torch_grad_manipulator(op, node):
+    # identity forward, as the JAX package lowers zero_grad, grad_clip and
+    # the others (dispatch.py:1154-1178); only their gradients differ
+    return lambda x: x
 
 
 @torch_funcify.register(MakeVector)

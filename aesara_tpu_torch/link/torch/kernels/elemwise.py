@@ -21,12 +21,18 @@ the wrapper: CPU tensors take the plain PyTorch version
 
 fp32 division and square root use ``tl.math.div_rn`` and ``tl.sqrt_rn``
 (Triton's ``/`` and ``tl.sqrt`` are approximate in fp32); ``exp`` is
-``tl.exp``, within a few ulp of the plain version's.  Maximum
-propagates NaN from either side, as ``numpy.maximum`` does.  Comparisons
-(``GE``, ``LT``: the ReLU gradient's mask) compute in their operands'
-common dtype and give a bool that a ``Cast`` turns into 0 or 1.  bfloat16 and
-float16 values are computed in fp32 and rounded after every op, as
-PyTorch does.
+``tl.exp``, within a few ulp of the plain version's.  ``pow``, ``log``,
+``cos`` and ``sin`` call CUDA's libdevice (``__nv_powf`` and the like,
+the accurate forms; a negative base with an integral exponent stays
+finite, as in NumPy).  Maximum, minimum and clip propagate NaN from
+either side, as ``numpy.maximum``/``minimum``/``clip`` do; ``isnan`` is
+``x != x`` and ``isinf`` ``|x| == inf``.  Comparisons compute in their
+operands' common dtype and give a bool; ``switch`` reads its condition as
+a bool and its branches in its output dtype; ``and``, ``or`` and
+``invert`` are bitwise on integers and logical on bools.  A bool output
+is stored as one byte per element, as torch keeps ``torch.bool``.
+bfloat16 and float16 values are computed in fp32 and rounded after every
+op, as PyTorch does.  Integer ``pow`` has no Triton form.
 """
 
 from __future__ import annotations
@@ -79,11 +85,22 @@ def scalar_torch_impl(op):
     table = {
         aes.Sub: torch.sub, aes.TrueDiv: torch.true_divide, aes.Neg: torch.neg,
         aes.Sqr: torch.square, aes.Sqrt: torch.sqrt, aes.Exp: torch.exp, aes.Maximum: torch.maximum,
-        aes.GE: torch.ge, aes.LT: torch.lt,
+        aes.GE: torch.ge, aes.LT: torch.lt, aes.Pow: torch.pow, aes.Abs: torch.abs,
+        aes.Minimum: torch.minimum, aes.GT: torch.gt, aes.LE: torch.le, aes.EQ: torch.eq,
+        aes.NEQ: torch.ne, aes.IsNan: torch.isnan, aes.IsInf: torch.isinf,
+        aes.And: torch.bitwise_and, aes.Or: torch.bitwise_or, aes.Invert: torch.bitwise_not,
+        aes.Switch: torch.where, aes.Log: torch.log, aes.Cos: torch.cos, aes.Sin: torch.sin,
     }
     for cls, fn in table.items():
         if isinstance(op, cls):
             return fn
+    if isinstance(op, aes.Sgn):
+        # torch.sign gives 0 for NaN; NumPy keeps the NaN
+        return lambda x: torch.where(torch.isnan(x), x, torch.sign(x)) if x.is_floating_point() else torch.sign(x)
+    if isinstance(op, aes.Clip):
+        return lambda x, lo, hi: torch.minimum(torch.maximum(x, lo), hi)
+    if isinstance(op, aes.Identity):
+        return lambda x: x
     if isinstance(op, aes.Second):
         return lambda x, y: torch.broadcast_to(y, torch.broadcast_shapes(x.shape, y.shape))
     if isinstance(op, aes.Cast):
@@ -91,20 +108,26 @@ def scalar_torch_impl(op):
     raise NotImplementedError(f"no torch lowering for scalar op {op}")
 
 
-def _operand_dtype(op, args_dtypes, out_dtype: str) -> str:
-    """The dtype a scalar op computes in: a comparison in its operands'
-    common dtype, every other op in its output dtype (a Cast's operand is
-    cast by definition; Second's template is only a shape)."""
+def _operand_dtypes(op, args_dtypes, out_dtype: str) -> List[str]:
+    """The dtype each operand of a scalar op is read in: a comparison's in
+    their common dtype, a one-operand test's in its own, a switch's
+    condition as a bool, every other operand in the op's output dtype (a
+    Cast's operand is cast by definition; Second's template is only a
+    shape)."""
     if isinstance(op, aes.LogicalComparison):
-        return aes.upcast(*args_dtypes)
-    return out_dtype
+        return [aes.upcast(*args_dtypes)] * len(args_dtypes)
+    if isinstance(op, aes.FixedLogicalComparison):
+        return list(args_dtypes)
+    if isinstance(op, aes.Switch):
+        return ["bool", out_dtype, out_dtype]
+    return [out_dtype] * len(args_dtypes)
 
 
 def apply_scalar_node(op, out_dtype: str, args):
-    """Run one scalar op on tensors, its operands cast to the dtype it
-    computes in."""
-    want = torch_dtype(_operand_dtype(op, [str(a.dtype).split(".")[-1] for a in args], out_dtype))
-    args = [a.to(want) if a.dtype != want else a for a in args]
+    """Run one scalar op on tensors, its operands cast to the dtypes it
+    reads them in."""
+    wants = _operand_dtypes(op, [str(a.dtype).split(".")[-1] for a in args], out_dtype)
+    args = [a.to(torch_dtype(w)) if a.dtype != torch_dtype(w) else a for a, w in zip(args, wants)]
     res = scalar_torch_impl(op)(*args)
     out = torch_dtype(out_dtype)
     return res.to(out) if res.dtype != out else res
@@ -155,7 +178,8 @@ def _literal(value, dtype: str) -> str:
 
 def _expr(op, args: List[str], dtype: str) -> str:
     """One scalar op as a Triton expression over operand names already
-    converted to ``dtype``, the dtype it computes in."""
+    converted to the dtypes they are read in; ``dtype`` is that of its
+    non-condition operands."""
     is_float = dtype in ("float32", "float64") or dtype in _LOW_PRECISION
     if isinstance(op, aes.Add):
         return " + ".join(args)
@@ -163,34 +187,59 @@ def _expr(op, args: List[str], dtype: str) -> str:
         return " * ".join(args)
     if isinstance(op, aes.Sub):
         return f"{args[0]} - {args[1]}"
+    if isinstance(op, (aes.TrueDiv, aes.Sqrt, aes.Exp, aes.Pow, aes.Log, aes.Cos, aes.Sin)) and not is_float:
+        raise NotImplementedError(f"{op} into {dtype} has no Triton form")
     if isinstance(op, aes.TrueDiv):
-        if not is_float:
-            raise NotImplementedError(f"true_div into {dtype}")
         return f"tl.math.div_rn({args[0]}, {args[1]})"
     if isinstance(op, aes.Neg):
         return f"-{args[0]}"
     if isinstance(op, aes.Sqr):
         return f"{args[0]} * {args[0]}"
     if isinstance(op, aes.Sqrt):
-        if not is_float:
-            raise NotImplementedError(f"sqrt into {dtype}")
         return f"tl.sqrt_rn({args[0]})"
     if isinstance(op, aes.Exp):
-        if not is_float:
-            raise NotImplementedError(f"exp into {dtype}")
         return f"tl.exp({args[0]})"
+    if isinstance(op, aes.Pow):
+        return f"libdevice.pow({args[0]}, {args[1]})"
+    if isinstance(op, (aes.Log, aes.Cos, aes.Sin)):
+        return f"libdevice.{type(op).__name__.lower()}({args[0]})"
     if isinstance(op, aes.Maximum):
         a, b = args
         return f"tl.where(({a} > {b}) | ({a} != {a}), {a}, {b})"
-    if isinstance(op, aes.GE):
-        return f"{args[0]} >= {args[1]}"
-    if isinstance(op, aes.LT):
-        return f"{args[0]} < {args[1]}"
+    if isinstance(op, aes.Minimum):
+        a, b = args
+        return f"tl.where(({a} < {b}) | ({a} != {a}), {a}, {b})"
+    if isinstance(op, aes.Clip):
+        x, lo, hi = args
+        m = f"tl.where(({x} > {lo}) | ({x} != {x}), {x}, {lo})"
+        return f"tl.where(({m} < {hi}) | ({m} != {m}), {m}, {hi})"
+    if isinstance(op, aes.Abs):
+        return args[0] if dtype == "bool" else f"tl.abs({args[0]})"
+    if isinstance(op, aes.Sgn):
+        a = args[0]
+        sign = f"({a} > 0).to({_TL[_compute_dtype(dtype)]}) - ({a} < 0).to({_TL[_compute_dtype(dtype)]})"
+        return f"tl.where({a} != {a}, {a}, {sign})" if is_float else sign
+    comparisons = {aes.GE: ">=", aes.LT: "<", aes.GT: ">", aes.LE: "<=", aes.EQ: "==", aes.NEQ: "!="}
+    for cls, sym in comparisons.items():
+        if isinstance(op, cls):
+            return f"{args[0]} {sym} {args[1]}"
+    if isinstance(op, aes.IsNan):
+        return f"{args[0]} != {args[0]}"
+    if isinstance(op, aes.IsInf):
+        return f"tl.abs({args[0]}) == float('inf')" if is_float else f"{args[0]} != {args[0]}"
+    if isinstance(op, aes.And):
+        return f"{args[0]} & {args[1]}"
+    if isinstance(op, aes.Or):
+        return f"{args[0]} | {args[1]}"
+    if isinstance(op, aes.Invert):
+        return f"{args[0]} == 0" if dtype == "bool" else f"~{args[0]}"
+    if isinstance(op, aes.Switch):
+        return f"tl.where({args[0]}, {args[1]}, {args[2]})"
+    if isinstance(op, (aes.Identity, aes.Cast)):
+        # a Cast's operand was converted to the target dtype already
+        return args[0]
     if isinstance(op, aes.Second):
         return args[1]
-    if isinstance(op, aes.Cast):
-        # the operand was converted to the target dtype already
-        return args[0]
     raise NotImplementedError(f"the fused-elemwise kernel has no Triton form for scalar op {op}")
 
 
@@ -216,15 +265,15 @@ class ElemwiseKernel:
         for k, node in enumerate(comp.nodes):
             dtype = node.outputs[0].type.dtype
             cdt = _TL[_compute_dtype(dtype)]
-            in_dtype = _operand_dtype(node.op, [i.type.dtype for i in node.inputs], dtype)
-            in_cdt = _TL[_compute_dtype(in_dtype)]
+            in_dtypes = _operand_dtypes(node.op, [i.type.dtype for i in node.inputs], dtype)
             args = []
-            for inp in node.inputs:
+            for inp, in_dtype in zip(node.inputs, in_dtypes):
+                in_cdt = _TL[_compute_dtype(in_dtype)]
                 if inp in names:
                     args.append(f"{names[inp]}.to({in_cdt})")
                 else:
                     args.append(f"{_literal(inp.data, inp.type.dtype)}.to({in_cdt})")
-            expr = _expr(node.op, args, in_dtype)
+            expr = _expr(node.op, args, in_dtypes[-1])
             name = f"v{k}"
             if dtype in _LOW_PRECISION:
                 # round after every op, then compute on in fp32
@@ -246,6 +295,11 @@ class ElemwiseKernel:
         lines = [
             "import triton",
             "import triton.language as tl",
+            "",
+            "try:",
+            "    from triton.language.extra import libdevice",
+            "except ImportError:",
+            "    from triton.language.extra.cuda import libdevice",
             "",
             "",
             "@triton.jit",

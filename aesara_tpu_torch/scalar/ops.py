@@ -2,8 +2,11 @@
 
 The counterpart of ``aesara_tpu/scalar/ops.py``, cut to the ops the
 encoder's train step uses: Add, Sub, Mul, TrueDiv, Neg, Sqr, Sqrt,
-Maximum and Cast, the ops their gradients build: GE, LT and Second, and
-Exp, which the gradient of ``LogSoftmax`` builds.
+Maximum and Cast, the ops their gradients build: GE, LT and Second,
+Exp, which the gradient of ``LogSoftmax`` builds, and the ops of the
+optimizers and their helpers: Pow, Abs, Minimum, the comparisons GT, LE,
+EQ, NEQ, IsNan and IsInf, the logical And, Or and Invert, Switch,
+Identity, Log, Cos and Clip.
 Each op declares its NumPy semantics (``impl``), its output dtype rule
 and its gradient (``grad``, over scalar variables; ``Elemwise.L_op`` lifts
 it to tensors); the torch and Triton formulas of each live in
@@ -72,6 +75,13 @@ def upgrade_to_float(*types):
 
 def bool_out(*types):
     return (ScalarType("bool"),)
+
+
+def discrete_out(*types):
+    for t in types:
+        if t.dtype not in discrete_dtypes:
+            raise TypeError(f"integer/bool input required: {t}")
+    return upcast_out(*types)
 
 
 class ScalarType(Type):
@@ -231,6 +241,16 @@ class LogicalComparison(BinaryScalarOp):
         return [_zeros_like(inp) for inp in inputs]
 
 
+class FixedLogicalComparison(UnaryScalarOp):
+    """A one-operand test (``isnan``, ``isinf``): a bool output whose
+    gradient is defined and zero."""
+
+    output_types_preference = staticmethod(bool_out)
+
+    def grad(self, inputs, output_grads):
+        return [_zeros_like(inputs[0])]
+
+
 class Add(ScalarOp):
     def impl(self, *inputs):
         s = inputs[0]
@@ -343,6 +363,174 @@ class Sqr(UnaryScalarOp):
         return [mul(output_grads[0], mul(constant(2.0), x))]
 
 
+class Minimum(BinaryScalarOp):
+    nfunc = staticmethod(np.minimum)
+
+    def grad(self, inputs, output_grads):
+        x, y = inputs
+        (gz,) = output_grads
+        if x.dtype in discrete_dtypes and y.dtype in discrete_dtypes:
+            return _discrete_grads(self, inputs)
+        # ties go to x, as in the JAX package
+        return [mul(gz, cast_to(le(x, y), gz.dtype)), mul(gz, cast_to(gt(x, y), gz.dtype))]
+
+
+class Pow(BinaryScalarOp):
+    nfunc = staticmethod(np.power)
+
+    def grad(self, inputs, output_grads):
+        x, y = inputs
+        (gz,) = output_grads
+        gx = mul(gz, mul(y, pow(x, sub(y, constant(1, dtype="int8")))))
+        gy = mul(gz, mul(log(x), pow(x, y)))
+        return [gx, gy]
+
+
+class Abs(UnaryScalarOp):
+    nfunc = staticmethod(np.abs)
+    output_types_preference = staticmethod(same_out)
+
+    def grad(self, inputs, output_grads):
+        (x,) = inputs
+        if x.dtype in discrete_dtypes:
+            return _discrete_grads(self, inputs)
+        return [mul(output_grads[0], sgn(x))]
+
+
+class Sgn(UnaryScalarOp):
+    """The sign of x (NaN stays NaN); the gradient of ``Abs`` builds it."""
+
+    nfunc = staticmethod(np.sign)
+    output_types_preference = staticmethod(same_out)
+
+    def grad(self, inputs, output_grads):
+        return _discrete_grads(self, inputs)
+
+
+class GT(LogicalComparison):
+    nfunc = staticmethod(np.greater)
+
+
+class LE(LogicalComparison):
+    nfunc = staticmethod(np.less_equal)
+
+
+class EQ(LogicalComparison):
+    nfunc = staticmethod(np.equal)
+
+
+class NEQ(LogicalComparison):
+    nfunc = staticmethod(np.not_equal)
+
+
+class IsNan(FixedLogicalComparison):
+    nfunc = staticmethod(np.isnan)
+
+
+class IsInf(FixedLogicalComparison):
+    nfunc = staticmethod(np.isinf)
+
+
+class And(BinaryScalarOp):
+    """Bitwise and (logical on bool)."""
+
+    nfunc = staticmethod(np.bitwise_and)
+    output_types_preference = staticmethod(discrete_out)
+
+    def grad(self, inputs, output_grads):
+        return _discrete_grads(self, inputs)
+
+
+class Or(BinaryScalarOp):
+    """Bitwise or (logical on bool)."""
+
+    nfunc = staticmethod(np.bitwise_or)
+    output_types_preference = staticmethod(discrete_out)
+
+    def grad(self, inputs, output_grads):
+        return _discrete_grads(self, inputs)
+
+
+class Invert(UnaryScalarOp):
+    """Bitwise not (logical not on bool)."""
+
+    nfunc = staticmethod(np.invert)
+    output_types_preference = staticmethod(discrete_out)
+
+    def grad(self, inputs, output_grads):
+        return _discrete_grads(self, inputs)
+
+
+class Switch(ScalarOp):
+    """switch(cond, ift, iff): ift where cond is nonzero, else iff."""
+
+    nin = 3
+
+    @staticmethod
+    def output_types_preference(cond_t, ift_t, iff_t):
+        return upcast_out(ift_t, iff_t)
+
+    def impl(self, cond, ift, iff):
+        return np.where(cond, ift, iff)[()] if np.ndim(cond) == 0 else np.where(cond, ift, iff)
+
+    def grad(self, inputs, output_grads):
+        from aesara_tpu_torch.gradient import grad_undefined
+
+        cond, ift, iff = inputs
+        (gz,) = output_grads
+        zero = constant(0, dtype=gz.dtype)
+        return [grad_undefined(self, 0, cond, "condition has no gradient"),
+                switch(cond, gz, zero), switch(cond, zero, gz)]
+
+
+class Identity(UnaryScalarOp):
+    nfunc = staticmethod(lambda x: x)
+    output_types_preference = staticmethod(same_out)
+
+    def grad(self, inputs, output_grads):
+        return [output_grads[0]]
+
+
+class Log(UnaryScalarOp):
+    nfunc = staticmethod(np.log)
+    output_types_preference = staticmethod(upgrade_to_float)
+
+    def grad(self, inputs, output_grads):
+        return [true_div(output_grads[0], inputs[0])]
+
+
+class Cos(UnaryScalarOp):
+    nfunc = staticmethod(np.cos)
+    output_types_preference = staticmethod(upgrade_to_float)
+
+    def grad(self, inputs, output_grads):
+        return [neg(mul(output_grads[0], sin(inputs[0])))]
+
+
+class Sin(UnaryScalarOp):
+    """The gradient of ``Cos`` builds it."""
+
+    nfunc = staticmethod(np.sin)
+    output_types_preference = staticmethod(upgrade_to_float)
+
+    def grad(self, inputs, output_grads):
+        return [mul(output_grads[0], cos(inputs[0]))]
+
+
+class Clip(ScalarOp):
+    """clip(x, min, max) as one scalar op (NaN in x stays NaN)."""
+
+    nin = 3
+    nfunc = staticmethod(np.clip)
+
+    def grad(self, inputs, output_grads):
+        x, mn, mx = inputs
+        (gz,) = output_grads
+        inside = and_(ge(x, mn), le(x, mx))
+        return [mul(gz, cast_to(inside, gz.dtype)), mul(gz, cast_to(lt(x, mn), gz.dtype)),
+                mul(gz, cast_to(gt(x, mx), gz.dtype))]
+
+
 class Second(BinaryScalarOp):
     """second(x, y) = y broadcast against x: the scalar of ``fill``."""
 
@@ -407,3 +595,22 @@ sqrt = Sqrt(name="sqrt")
 exp = Exp(name="exp")
 sqr = Sqr(name="sqr")
 second = Second(name="second")
+minimum = Minimum(name="minimum")
+pow = Pow(name="pow")
+abs_ = Abs(name="abs")
+sgn = Sgn(name="sgn")
+gt = GT(name="gt")
+le = LE(name="le")
+eq = EQ(name="eq")
+neq = NEQ(name="neq")
+isnan = IsNan(name="isnan")
+isinf = IsInf(name="isinf")
+and_ = And(name="and_")
+or_ = Or(name="or_")
+invert = Invert(name="invert")
+switch = Switch(name="switch")
+identity = Identity(name="identity")
+log = Log(name="log")
+cos = Cos(name="cos")
+sin = Sin(name="sin")
+clip_scalar = Clip(name="clip")

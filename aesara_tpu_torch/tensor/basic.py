@@ -1,8 +1,8 @@
 """Tensor construction and structural ops (reference
 ``aesara_tpu/tensor/basic.py``): conversion to variables, constants with
 the JAX package's literal dtype rules, ``cast``, ``fill`` (with
-``ones_like``/``zeros_like``, which gradients build), ``MakeVector``,
-``Alloc``, ``ARange`` and ``flatten``."""
+``ones_like``/``zeros_like``, which gradients build), ``switch``,
+``MakeVector``, ``Alloc``, ``ARange`` and ``flatten``."""
 
 from __future__ import annotations
 
@@ -21,7 +21,7 @@ from aesara_tpu_torch.tensor.var import TensorConstant, TensorVariable
 __all__ = [
     "as_tensor_variable", "constant", "cast", "fill", "second", "ones_like", "zeros_like",
     "MakeVector", "stack", "get_scalar_constant_value", "get_vector_length",
-    "NotScalarConstantError", "Alloc", "alloc", "ARange", "arange", "flatten",
+    "NotScalarConstantError", "Alloc", "alloc", "ARange", "arange", "flatten", "switch", "where",
 ]
 
 
@@ -83,6 +83,14 @@ def cast(x, dtype: str):
     if x.type.dtype == dtype:
         return x
     return Elemwise(aes.Cast(ScalarType(dtype)))(x)
+
+
+def switch(cond, ift, iff):
+    """ift where cond is nonzero, else iff, elementwise with broadcasting."""
+    return Elemwise(aes.switch)(cond, ift, iff)
+
+
+where = switch
 
 
 fill = Elemwise(aes.second, name="fill")

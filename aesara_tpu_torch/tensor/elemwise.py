@@ -15,6 +15,7 @@ import numpy as np
 
 from aesara_tpu_torch.graph.ir import Apply
 from aesara_tpu_torch.graph.op import Op
+from aesara_tpu_torch.scalar import ops as aes
 from aesara_tpu_torch.scalar.ops import ScalarType, _np_dtype, discrete_dtypes
 from aesara_tpu_torch.tensor.type import TensorType
 
@@ -242,7 +243,9 @@ class CAReduce(Op):
     def _output_dtype(self, input_dtype: str) -> str:
         if self.dtype is not None:
             return self.dtype
-        # NumPy semantics: small integers accumulate in the platform int
+        if not isinstance(self.scalar_op, (aes.Add, aes.Mul)):
+            return input_dtype
+        # NumPy semantics: small integers sum in the platform int
         if input_dtype in ("bool", "int8", "int16", "int32"):
             return "int64"
         if input_dtype in ("uint8", "uint16", "uint32"):
@@ -261,7 +264,8 @@ class CAReduce(Op):
         out_shape = tuple(s for d, s in enumerate(inp.type.shape) if d not in axes)
         return Apply(op, [inp], [TensorType(self._output_dtype(inp.type.dtype), out_shape)()])
 
-    _np_reducers = {"add": np.add, "mul": np.multiply, "maximum": np.maximum}
+    _np_reducers = {"add": np.add, "mul": np.multiply, "maximum": np.maximum, "minimum": np.minimum,
+                    "and_": np.bitwise_and, "or_": np.bitwise_or}
 
     def perform(self, node, inputs, output_storage):
         (x,) = inputs

@@ -1,8 +1,10 @@
 """Elementwise math, reductions and ``Dot`` with their gradients
 (reference ``aesara_tpu/tensor/math.py``): the subset the encoder's train
-step uses."""
+step and the optimizers use."""
 
 from __future__ import annotations
+
+import builtins
 
 import numpy as np
 
@@ -17,7 +19,9 @@ from aesara_tpu_torch.tensor.type import TensorType
 
 
 __all__ = ["add", "sub", "mul", "true_div", "neg", "sqr", "sqrt", "exp", "maximum", "ge", "lt",
-           "Sum", "sum", "mean", "Argmax", "argmax", "Dot", "dot", "tensordot"]
+           "pow", "abs", "sgn", "minimum", "gt", "le", "eq", "neq", "and_", "or_", "invert", "log",
+           "cos", "sin", "clip", "isnan", "isinf", "Sum", "sum", "mean", "Max", "Min", "All", "Any",
+           "max", "min", "all", "any", "Argmax", "argmax", "Dot", "dot", "tensordot"]
 
 
 def _ew(scalar_op):
@@ -41,6 +45,44 @@ exp = _ew(aes.exp)
 maximum = _ew(aes.maximum)
 ge = _ew(aes.ge)
 lt = _ew(aes.lt)
+pow = _ew(aes.pow)
+abs = _ew(aes.abs_)
+sgn = _ew(aes.sgn)
+minimum = _ew(aes.minimum)
+gt = _ew(aes.gt)
+le = _ew(aes.le)
+eq = _ew(aes.eq)
+neq = _ew(aes.neq)
+and_ = _ew(aes.and_)
+or_ = _ew(aes.or_)
+invert = _ew(aes.invert)
+log = _ew(aes.log)
+cos = _ew(aes.cos)
+sin = _ew(aes.sin)
+isnan_ = _ew(aes.isnan)
+isinf_ = _ew(aes.isinf)
+
+
+def clip(x, min_, max_):
+    """minimum(maximum(x, min_), max_), as the JAX package builds it."""
+    return minimum(maximum(x, min_), max_)
+
+
+def isnan(x):
+    """A bool tensor; a discrete ``x`` has no NaN, so its result is a
+    constant False of its shape."""
+    from aesara_tpu_torch.tensor.basic import zeros_like
+
+    x = as_tensor_variable(x)
+    return zeros_like(x, dtype="bool") if x.type.dtype in discrete_dtypes else isnan_(x)
+
+
+def isinf(x):
+    """A bool tensor; a discrete ``x`` has no infinity."""
+    from aesara_tpu_torch.tensor.basic import zeros_like
+
+    x = as_tensor_variable(x)
+    return zeros_like(x, dtype="bool") if x.type.dtype in discrete_dtypes else isinf_(x)
 
 
 class Sum(CAReduce):
@@ -112,6 +154,128 @@ def mean(x, axis=None, dtype=None, keepdims=False, acc_dtype=None):
     return cast(res, dtype) if res.type.dtype != dtype else res
 
 
+def _kept_order(ndim: int, axes):
+    """The DimShuffle order that puts the reduced ``axes`` back as size 1."""
+    order, k = [], 0
+    for d in range(ndim):
+        if d in axes:
+            order.append("x")
+        else:
+            order.append(k)
+            k += 1
+    return tuple(order)
+
+
+class Max(CAReduce):
+    """Maximum over ``axis``; the gradient goes to every maximal entry."""
+
+    def __init__(self, axis=None):
+        super().__init__(aes.maximum, axis=axis)
+
+    def grad(self, inputs, output_grads):
+        from aesara_tpu_torch.gradient import grad_undefined
+        from aesara_tpu_torch.tensor.basic import fill
+
+        (x,) = inputs
+        (gz,) = output_grads
+        if x.type.dtype in discrete_dtypes:
+            return [grad_undefined(self, 0, x)]
+        order = _kept_order(x.type.ndim, self._normalized_axes(x.type.ndim))
+        out = self(x)
+        out_pad = DimShuffle(out.type.ndim, order)(out)
+        gz_pad = DimShuffle(gz.type.ndim, order)(gz)
+        mask = cast(eq(x, fill(x, out_pad)), x.type.dtype)
+        return [mul(mask, fill(x, gz_pad))]
+
+    def __str__(self):
+        ax = "" if self.axis is None else f"{{axis={list(self.axis)}}}"
+        return f"Max{ax}"
+
+
+class Min(CAReduce):
+    """Minimum over ``axis``: min(x) = -max(-x) for the gradient."""
+
+    def __init__(self, axis=None):
+        super().__init__(aes.minimum, axis=axis)
+
+    def grad(self, inputs, output_grads):
+        (x,) = inputs
+        (gz,) = output_grads
+        return [neg(Max(axis=self.axis).grad([neg(x)], [neg(gz)])[0])]
+
+    def __str__(self):
+        ax = "" if self.axis is None else f"{{axis={list(self.axis)}}}"
+        return f"Min{ax}"
+
+
+class All(CAReduce):
+    """Logical and over ``axis``; a non-bool input is compared with 0 first."""
+
+    def __init__(self, axis=None):
+        super().__init__(aes.and_, axis=axis, dtype="bool")
+
+    def make_node(self, inp):
+        inp = as_tensor_variable(inp)
+        if inp.type.dtype != "bool":
+            inp = neq(inp, constant(0, dtype="int8"))
+        return super().make_node(inp)
+
+    def grad(self, inputs, output_grads):
+        from aesara_tpu_torch.gradient import grad_undefined
+
+        return [grad_undefined(self, 0, inputs[0])]
+
+    def __str__(self):
+        ax = "" if self.axis is None else f"{{axis={list(self.axis)}}}"
+        return f"All{ax}"
+
+
+class Any(CAReduce):
+    """Logical or over ``axis``; a non-bool input is compared with 0 first."""
+
+    def __init__(self, axis=None):
+        super().__init__(aes.or_, axis=axis, dtype="bool")
+
+    def make_node(self, inp):
+        inp = as_tensor_variable(inp)
+        if inp.type.dtype != "bool":
+            inp = neq(inp, constant(0, dtype="int8"))
+        return super().make_node(inp)
+
+    def grad(self, inputs, output_grads):
+        from aesara_tpu_torch.gradient import grad_undefined
+
+        return [grad_undefined(self, 0, inputs[0])]
+
+    def __str__(self):
+        ax = "" if self.axis is None else f"{{axis={list(self.axis)}}}"
+        return f"Any{ax}"
+
+
+def _reduce(op, x, keepdims):
+    x = as_tensor_variable(x)
+    res = op(x)
+    if keepdims:
+        res = DimShuffle(res.type.ndim, _kept_order(x.type.ndim, op._normalized_axes(x.type.ndim)))(res)
+    return res
+
+
+def max(x, axis=None, keepdims=False):
+    return _reduce(Max(axis), x, keepdims)
+
+
+def min(x, axis=None, keepdims=False):
+    return _reduce(Min(axis), x, keepdims)
+
+
+def all(x, axis=None, keepdims=False):
+    return _reduce(All(axis), x, keepdims)
+
+
+def any(x, axis=None, keepdims=False):
+    return _reduce(Any(axis), x, keepdims)
+
+
 class Argmax(Op):
     """The index of the first maximum over ``axis`` (None: all axes, over
     the flattened array), as int64."""
@@ -129,7 +293,7 @@ class Argmax(Op):
     def axes(self, ndim: int):
         if self.axis is None:
             return tuple(range(ndim))
-        if any(not -ndim <= a < ndim for a in self.axis):
+        if builtins.any(not -ndim <= a < ndim for a in self.axis):
             raise ValueError(f"axis {self.axis} out of range for ndim {ndim}")
         return tuple(sorted(a % ndim for a in self.axis))
 
@@ -205,7 +369,7 @@ def dot(x, y):
     ``aesara_tpu/tensor/math.py:805-818`` does."""
     from aesara_tpu_torch.sparse.type import SparseTensorType
 
-    if any(isinstance(getattr(v, "type", None), SparseTensorType) for v in (x, y)):
+    if builtins.any(isinstance(getattr(v, "type", None), SparseTensorType) for v in (x, y)):
         from aesara_tpu_torch.sparse.basic import dot as sparse_dot
 
         return sparse_dot(x, y)
@@ -213,7 +377,7 @@ def dot(x, y):
     if x.type.ndim == 0 or y.type.ndim == 0:
         return mul(x, y)
     if x.type.ndim > 2 or y.type.ndim > 2:
-        return tensordot(x, y, [[x.type.ndim - 1], [max(y.type.ndim - 2, 0)]])
+        return tensordot(x, y, [[x.type.ndim - 1], [builtins.max(y.type.ndim - 2, 0)]])
     return _dot(x, y)
 
 

@@ -55,6 +55,30 @@ class _tensor_operators:
     __rmul__ = _binary("mul", reflected=True)
     __truediv__ = _binary("true_div")
     __rtruediv__ = _binary("true_div", reflected=True)
+    __pow__ = _binary("pow")
+    __rpow__ = _binary("pow", reflected=True)
+    __and__ = _binary("and_")
+    __rand__ = _binary("and_", reflected=True)
+    __or__ = _binary("or_")
+    __ror__ = _binary("or_", reflected=True)
+    __lt__ = _binary("lt")
+    __le__ = _binary("le")
+    __gt__ = _binary("gt")
+    __ge__ = _binary("ge")
+
+    def __abs__(self):
+        from aesara_tpu_torch.tensor import math as tm
+
+        return tm.abs(self)
+
+    def __invert__(self):
+        from aesara_tpu_torch.tensor import math as tm
+
+        return tm.invert(self)
+
+    def __bool__(self):
+        # ``x < 0`` builds a graph: its truth value is a program error
+        raise TypeError("cannot take the truth value of a symbolic variable; compare with tensor.eq/neq")
 
     def __neg__(self):
         from aesara_tpu_torch.tensor import math as tm

@@ -45,6 +45,17 @@ Phases (any failure raises and the exit code is non-zero):
    that the profiler traces and drops), the trace's launches of K1 and
    K4-K7 held against the counters.  The same step at batch 1 on the card
    and on the CPU agrees after one step.
+4d. AdamW train: the same encoder trained the way its users train it,
+   ``adamw(loss, params, lr=warmup_cosine(s, 1e-3, 2, 13),
+   weight_decay=0.01, grad_clip=1.0)`` with ``s`` a shared step counter
+   updated in the same function: K1 on each of its Composites that the
+   sgd step lacks against the plain version (time and bound at a (1024,
+   4096) weight); 3 steps with launch counts (K1, K2 and K3 every step);
+   10 timed back to back and 3 profiled, after which the schedule has
+   ended and the loss must lie below the first step's (the first update
+   runs at lr 0, the next ones overshoot before it falls); then 2 steps
+   at batch 1 on the card and on the CPU, every parameter, moment and
+   counter held.
 5. (a) bag-of-words classifier: ``LogisticRegression(130107, 20)`` on a
    shared CSR x of the 20 Newsgroups training split's size (11,314
    documents, synthetic, from a seed): K6 (forward, the weights'
@@ -57,15 +68,23 @@ Phases (any failure raises and the exit code is non-zero):
    (``benchmarks/bench_reference_ratio.py:276-321``, 16384 x 8192 at
    density 0.01, without the Monte-Carlo noise): K5 against its plain
    version, K5 and K6 timed at rhs widths 1-32 (the split between them),
-   3 + 10 steps with launch counts.
+   3 + 10 steps with launch counts.  Then the optimizers on the GLM's w,
+   each on the card and on the CPU from the same values, with launch
+   counts: one step each of ``momentum``, ``rmsprop`` and ``adam``, two of
+   ``accumulate_gradients(every=2)`` driving ``adamw_from_grads``, two of
+   ``scaled_loss_updates`` driving ``adamw_from_grads`` with
+   ``ema_updates`` (``switch``, ``isnan``/``isinf`` and ``any`` on the
+   card); every parameter and piece of state held against the CPU.
 7. (c) the gradient with respect to x's stored values at the GLM's size,
    for a rhs of width 1 and of width 20: K7 (two calls with the same
    bits), and K6 at width 20, against their plain versions, the
    function's launches, its output against the same function on the CPU.
 
 The next-to-last lines are a JSON object describing the kernels (each
-kernel's launches from its path's run) and the card's name and power
-limit; the last is ``{"ok": true, "device": {...}}``.
+kernel's launches from its path's run; K1-K3 also with their launches in
+path 4d's 3 steps, and K1 with its time and bound on the AdamW update)
+and the card's name and power limit; the last is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -95,6 +114,19 @@ BF16_REL = 2e-2          # bf16 error relative to the output's scale
 K3_ATOL, K3_RTOL = 5e-4, 1e-3   # fp32 K3: the JAX package's own bound for its backward
 SLICE_TOL = 1e-3         # card against CPU after 4 layers (reduction order)
 TRAIN_TOL = 1e-4         # card against CPU after one train step (reduction order)
+# path 4d: the AdamW recipe, its Composites (see check_train_graph) and
+# its card-vs-CPU check.  Adam divides each gradient entry by its own
+# running RMS, so an entry whose gradient sums cancel carries the two
+# devices' rounding into the update as a fraction of the learning rate:
+# such entries (at most ADAMW_CANCEL_SHARE of a tensor; 0.13% of one
+# layer's wq on the H100) may differ by up to two updates' worth, 2 x the
+# largest lr of the steps compared
+ADAMW_LR, ADAMW_WARMUP, ADAMW_TOTAL = 1e-3, 2, 13
+ADAMW_WD, ADAMW_CLIP = 0.01, 1.0
+N_COMPOSITE_ADAMW = 197          # 98 of the sgd step, 2 a parameter, 3 on 0-d counters
+N_ADAMW_CPU_STEPS = 2
+ADAMW_CANCEL_SHARE = 1e-2
+GLM_OPT_LR = 1e-3        # the GLM optimizers' learning rate
 
 K1_SOURCE = "aesara_tpu_torch/link/torch/kernels/elemwise.py"
 K2_SOURCE = "aesara_tpu_torch/link/torch/kernels/csrc/flash_fwd.cu"
@@ -114,6 +146,7 @@ K7_REPLACES = "aesara_tpu/link/jax/bss.py:354"
 # TF32 on them for K2 and K3, which take each fp32 product as three TF32
 # ones, or dense bf16 (NVIDIA's data sheet, SXM part)
 HBM_BYTES_PER_S = 3.35e12
+L2_FLUSH_BYTES = 256 * 2**20     # written before a launch timed cold: five times the 50 MB L2
 FP32_FLOPS = 67e12
 TF32_FLOPS = 495e12
 BF16_FLOPS = 989e12
@@ -141,6 +174,7 @@ SPLIT_WIDTHS = (1, 2, 4, 8, 16, 32)
 GRAD_WIDTHS = (1, 20)
 SPARSE_TOL = 1e-5        # fp32 K4-K7 against their plain versions (summation order)
 PROFILE_STEPS = 3        # calls in a profiled window, after one the profiler drops
+N_HOST_CALLS = 5         # calls whose host time time_steps takes the median of
 # idle host time at each edge of a profiled window: on the H100, a kernel
 # that runs within a fraction of a millisecond of a window's edge can be
 # missing from its trace (the device's timestamps, put on the host's clock,
@@ -314,7 +348,9 @@ def composite_inputs(node, rng, device):
     for i, var in enumerate(node.inputs):
         full = (BATCH, SEQ, D_MODEL)
         shape = tuple(s if s is not None else full[d] for d, s in enumerate(var.type.shape))
-        if var.type.dtype.startswith("int"):
+        if var.type.dtype == "bool":
+            arr = rng.random(size=shape) < 0.5
+        elif var.type.dtype.startswith("int"):
             arr = rng.integers(1, 100, size=shape).astype(var.type.dtype)
         elif i in guarded:
             arr = rng.uniform(0.5, 2.0, size=shape).astype(var.type.dtype)
@@ -383,20 +419,27 @@ def warm_k4():
         raise AssertionError("K4 warm-up did not launch or gave a wrong result")
 
 
-def phase_k1(fgraph, rng):
-    """K1 on each distinct Composite of ``fgraph`` against its plain
-    version: (max abs err, (ms, plain ms, bound ms, bound by) of the first
-    full-width Composite of more than two ops, or None)."""
+def phase_k1(fgraph, rng, skip=(), timed_shape=(BATCH, SEQ, D_MODEL)):
+    """K1 on each distinct Composite of ``fgraph`` (but those in ``skip``)
+    against its plain version: (max abs err, (ms, plain ms, bound ms, bound
+    by, ms with the L2 flushed) of the Composite of the most ops (more
+    than two) whose output has ``timed_shape``, or None, the Composite
+    ops checked)."""
     from aesara_tpu_torch.link.torch.kernels.elemwise import (
         ElemwiseKernel, composite_plain, fused_elemwise,
     )
 
     device = torch.device("cuda")
-    k1_err, k1_times = 0.0, None
-    distinct = []
+    k1_err, k1_times, timed = 0.0, None, []
+    distinct = []     # one node of each Composite op, one with ``timed_shape`` where there is one
     for node in composite_nodes(fgraph):
-        if node.op not in [n.op for n in distinct]:
+        if node.op in skip:
+            continue
+        known = [i for i, n in enumerate(distinct) if n.op == node.op]
+        if not known:
             distinct.append(node)
+        elif timed_shape is not None and node.outputs[0].type.shape == tuple(timed_shape):
+            distinct[known[0]] = node
     for node in distinct:
         comp = node.op.scalar_op
         out_dtype = node.outputs[0].type.dtype
@@ -408,8 +451,8 @@ def phase_k1(fgraph, rng):
         compile_s = time.perf_counter() - t0
         want = composite_plain(comp, out_dtype, *args)
         err = (got.double() - want.double()).abs().max().item()
-        if not err <= F32_ATOL or got.shape != want.shape:
-            raise AssertionError(f"K1 {comp} {tuple(got.shape)}: max err {err} > {F32_ATOL}")
+        if not err <= F32_ATOL or got.shape != want.shape or got.dtype != want.dtype:
+            raise AssertionError(f"K1 {comp} {tuple(got.shape)} {got.dtype}: max err {err} > {F32_ATOL}")
         ms = device_ms(lambda: fused_elemwise(kernel, *args))
         plain_ms = device_ms(lambda: composite_plain(comp, out_dtype, *args))
         call, plain_call = (call_ms(lambda: fused_elemwise(kernel, *args)),
@@ -419,10 +462,28 @@ def phase_k1(fgraph, rng):
         log(f"K1 {comp} inputs {shapes} -> {tuple(got.shape)}: max_abs_err {err:.3e}, "
             f"device ms kernel {ms:.4f} plain {plain_ms:.4f}; per call ms kernel {call:.4f} "
             f"plain {plain_call:.4f}; first call {compile_s:.2f} s")
-        if tuple(got.shape) == (BATCH, SEQ, D_MODEL) and len(comp.nodes) > 2 and k1_times is None:
-            n_bytes = sum(a.numel() * a.element_size() for a in args) + got.numel() * got.element_size()
-            k1_times = (ms, plain_ms, *bound(n_bytes, got.numel() * len(comp.nodes)))
-    return k1_err, k1_times
+        if timed_shape is not None and tuple(got.shape) == tuple(timed_shape) and len(comp.nodes) > 2:
+            timed.append((len(comp.nodes), ms, plain_ms, kernel, args, got))
+    if timed:
+        # the largest Composite at ``timed_shape``: its time beside its bound,
+        # and its time with the L2 cache flushed before each launch, as a
+        # train step finds its optimizer state
+        _, ms, plain_ms, kernel, args, got = max(timed, key=lambda t: t[0])
+        n_bytes = sum(a.numel() * a.element_size() for a in args) + got.numel() * got.element_size()
+        k1_times = (ms, plain_ms, *bound(n_bytes, got.numel() * len(kernel.composite.nodes)))
+        flush = torch.empty(L2_FLUSH_BYTES // 4, device=device)
+
+        def cold():
+            flush.zero_()
+            fused_elemwise(kernel, *args)
+
+        cold_ms = device_split(cold)["kernel"]
+        log(f"K1 {kernel.composite} {tuple(got.shape)} (the timed one): device ms {ms:.4f}, with the L2 "
+            f"flushed before each launch {cold_ms:.4f}; bound {k1_times[2]:.4f} ms ({k1_times[3]}), "
+            f"{n_bytes / 1e6:.1f} MB moved")
+        k1_times += (cold_ms,)
+        del flush
+    return k1_err, k1_times, {n.op for n in distinct}
 
 
 def k2_occupancy(lib=None, label: str = "K2 occupancy"):
@@ -467,7 +528,7 @@ def phase_kernels(fgraph):
 
     rng = np.random.default_rng(0)
     device = torch.device("cuda")
-    k1_err, k1_times = phase_k1(fgraph, rng)   # k1_times: the layer-norm scale Composite
+    k1_err, k1_times, _ = phase_k1(fgraph, rng)   # k1_times: the layer-norm scale Composite
     if k1_times is None:
         raise AssertionError("no layer-norm scale Composite among the forward's Composites")
 
@@ -610,14 +671,16 @@ def check_against_cpu(requests, results):
     torch.testing.assert_close(h_gpu, h_cpu, atol=SLICE_TOL, rtol=SLICE_TOL)
 
 
-def build_train_step(device: str, batch: int = BATCH):
+def build_train_step(device: str, batch: int = BATCH, optimizer: str = "sgd"):
     """The flagship train step: the 4-layer encoder on a shared ``x``
     (normal × 0.1 from a seed, its first ``batch`` sequences), loss
-    mean(h²), ``sgd`` updates of every parameter, the loss returned on
-    the card (``Out(borrow=True)``)."""
+    mean(h²), the loss returned on the card (``Out(borrow=True)``), and
+    ``sgd`` updates of every parameter or the AdamW recipe (warmup-cosine
+    schedule on a shared step counter ``s``, weight decay, global-norm
+    clipping): (step, parameters, every update target)."""
     import aesara_tpu_torch as ptp
     from aesara_tpu_torch.config import config
-    from aesara_tpu_torch.models.optim import sgd
+    from aesara_tpu_torch.models.optim import adamw, sgd, warmup_cosine
     from aesara_tpu_torch.models.transformer import TransformerEncoderLayer
     from aesara_tpu_torch.tensor import math as tm
 
@@ -625,31 +688,39 @@ def build_train_step(device: str, batch: int = BATCH):
     with config.change_flags(device=device, floatX="float32"):
         layers = [TransformerEncoderLayer(D_MODEL, N_HEADS, D_FF, seed=i) for i in range(N_LAYERS)]
         x = ptp.shared(xv[:batch], name="x")
+        s = ptp.shared(np.asarray(0.0, dtype="float32"), name="s")
     h = x
     for layer in layers:
         h = layer(h)
     loss = tm.mean(tm.sqr(h))
     params = [p for layer in layers for p in layer.params]
-    step = ptp.function([], ptp.Out(loss, borrow=True), updates=sgd(loss, params, lr=LR),
+    if optimizer == "sgd":
+        updates = sgd(loss, params, lr=LR)
+    else:
+        lr = warmup_cosine(s, ADAMW_LR, ADAMW_WARMUP, ADAMW_TOTAL)
+        updates = adamw(loss, params, lr=lr, weight_decay=ADAMW_WD, grad_clip=ADAMW_CLIP) + [(s, s + 1.0)]
+    step = ptp.function([], ptp.Out(loss, borrow=True), updates=updates,
                         mode=ptp.Mode(ptp.TorchLinker(device=device)))
-    return step, params
+    return step, params, [t for t, _ in updates]
 
 
-def check_train_graph(fgraph):
+def check_train_graph(fgraph, n_expected: int = N_COMPOSITE_TRAIN, label: str = "train"):
     """The rewritten train step holds one FusedAttention and one
-    FusedAttentionGrad per layer, and the Composites K1 serves (24 per
-    layer, 2 more for the loss)."""
+    FusedAttentionGrad per layer, and the Composites K1 serves: with sgd
+    24 per layer and 2 more for the loss; with AdamW 2 more a parameter
+    (its moments and its update; the clipped gradient is one op) and 3 on
+    the 0-d counters (step, bias corrections and schedule, clip scale)."""
     nodes = fgraph.toposort()
     n_composite = len(composite_nodes(fgraph))
     n_grad = sum(type(n.op).__name__ == "FusedAttentionGrad" for n in nodes)
     n_attention = sum(type(n.op).__name__ == "FusedAttention" for n in nodes)
-    log(f"train graph: {len(nodes)} nodes, {n_composite} Composite "
-        f"({len({n.op for n in composite_nodes(fgraph)})} distinct), {n_attention} FusedAttention, "
-        f"{n_grad} FusedAttentionGrad")
-    if (n_composite, n_attention, n_grad) != (N_COMPOSITE_TRAIN, N_LAYERS, N_LAYERS):
+    n_scalar = sum(n.outputs[0].type.ndim == 0 for n in composite_nodes(fgraph))
+    log(f"{label} graph: {len(nodes)} nodes, {n_composite} Composite "
+        f"({len({n.op for n in composite_nodes(fgraph)})} distinct, {n_scalar} 0-d), "
+        f"{n_attention} FusedAttention, {n_grad} FusedAttentionGrad")
+    if (n_composite, n_attention, n_grad) != (n_expected, N_LAYERS, N_LAYERS):
         raise AssertionError(f"{n_composite} Composite, {n_attention} FusedAttention and {n_grad} "
-                             f"FusedAttentionGrad nodes, expected {N_COMPOSITE_TRAIN}, {N_LAYERS}, "
-                             f"{N_LAYERS}")
+                             f"FusedAttentionGrad nodes, expected {n_expected}, {N_LAYERS}, {N_LAYERS}")
 
 
 def k3_occupancy():
@@ -779,10 +850,12 @@ def _counters():
     return {"K1": fused_elemwise, "K2": flash_attention, "K3": flash_attention_grads}
 
 
-def phase_train(step, params):
+def phase_train(step, params, n_composite: int = N_COMPOSITE_TRAIN, label: str = "train"):
     """3 train steps with the launch counters set to 0 just before and
-    read just after; the loss must be finite and fall below the first
-    step's."""
+    read just after; the loss must be finite and, with sgd, fall below the
+    first step's at every later step.  With AdamW it is checked at the end
+    of its schedule (``phase_adamw``): the first update runs at lr 0 and
+    the next ones overshoot before the loss falls."""
     torch.cuda.synchronize()
     reset_peak()
     zero_counters()
@@ -793,20 +866,21 @@ def phase_train(step, params):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         losses.append(loss)
-    log(f"train step ms: {[round(t, 3) for t in times]} (first includes kernel compiles)")
-    launches = read_counters({"K1": N_COMPOSITE_TRAIN * N_TRAIN_STEPS, "K2": 2 * N_LAYERS * N_TRAIN_STEPS,
-                              "K3": N_LAYERS * N_TRAIN_STEPS}, "train")
+    log(f"{label} step ms: {[round(t, 3) for t in times]} (first includes kernel compiles)")
+    launches = read_counters({"K1": n_composite * N_TRAIN_STEPS, "K2": 2 * N_LAYERS * N_TRAIN_STEPS,
+                              "K3": N_LAYERS * N_TRAIN_STEPS}, label)
     for loss in losses:
         if not (loss.is_cuda and loss.shape == () and loss.dtype == torch.float32):
             raise AssertionError(f"loss {loss} is not a float32 scalar on the card")
     values = [float(v) for v in losses]
-    log(f"train losses: {values}")
+    log(f"{label} losses: {values}")
     # sgd at lr 0.01 overshoots on this objective at full width: on the
     # CPU at batch 1 the JAX package and the port both go 3.0427 ->
     # 1.7635 -> 1.8381, so the check is that every step's loss lies
     # below the first one's
-    if not all(np.isfinite(values)) or not all(v < values[0] for v in values[1:]):
-        raise AssertionError(f"loss not finite or not below the first step's: {values}")
+    later = values[1:] if n_composite == N_COMPOSITE_TRAIN else []
+    if not all(np.isfinite(values)) or not all(v < values[0] for v in later):
+        raise AssertionError(f"{label}: loss not finite or not below the first step's: {values}")
     for p in params:
         if not (p.value.is_cuda and bool(torch.isfinite(p.value).all())):
             raise AssertionError(f"parameter {p.name} not finite on the card")
@@ -920,9 +994,10 @@ def profile_call(fn, label: str, steps: int = PROFILE_STEPS):
 def time_steps(step, n: int, label: str):
     """``n`` steps back to back (host clock around work that ends in a
     synchronise), the host time of one step's call on an idle device
-    (where it comes near the step time, the host waits for the device
-    inside the call), the peak device memory since the last reset, and
-    one profiled step: (ms a step, peak GiB)."""
+    (median of N_HOST_CALLS calls, each after a synchronise; where it
+    comes near the step time, the host waits for the device inside the
+    call), the peak device memory since the last reset, and one profiled
+    step: (ms a step, peak GiB)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(n):
@@ -930,12 +1005,14 @@ def time_steps(step, n: int, label: str):
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / n
     peak = torch.cuda.max_memory_allocated() / 2**30
-    t0 = time.perf_counter()
-    step()
-    call = (time.perf_counter() - t0) * 1e3
-    torch.cuda.synchronize()
-    log(f"{label}: {n} steps back to back {ms:.3f} ms each; host time of one call {call:.3f} ms; "
-        f"peak device memory {peak:.3f} GiB")
+    calls = []
+    for _ in range(N_HOST_CALLS):
+        t0 = time.perf_counter()
+        step()
+        calls.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+    log(f"{label}: {n} steps back to back {ms:.3f} ms each; host time of one call {statistics.median(calls):.3f} "
+        f"ms (median of {N_HOST_CALLS}: {', '.join(f'{c:.3f}' for c in calls)}); peak device memory {peak:.3f} GiB")
     profile_call(step, label)
     return ms, peak
 
@@ -950,8 +1027,8 @@ def time_train(step):
 def check_train_against_cpu():
     """One step at batch 1 from the same seeded weights on the card and
     on the CPU: the loss and every updated parameter agree."""
-    step_gpu, params_gpu = build_train_step("cuda", batch=1)
-    step_cpu, params_cpu = build_train_step("cpu", batch=1)
+    step_gpu, params_gpu, _ = build_train_step("cuda", batch=1)
+    step_cpu, params_cpu, _ = build_train_step("cpu", batch=1)
     loss_gpu, loss_cpu = step_gpu().cpu(), step_cpu()
     loss_err = abs(float(loss_gpu) - float(loss_cpu))
     param_err = 0.0
@@ -963,6 +1040,75 @@ def check_train_against_cpu():
     log(f"train step at batch 1, card vs CPU: loss {float(loss_gpu):.7f} vs {float(loss_cpu):.7f} "
         f"(abs err {loss_err:.3e}); max abs err over the {len(params_gpu)} updated parameters "
         f"{param_err:.3e} (tolerance {TRAIN_TOL})")
+
+
+def compare_state(label: str, gpu, cpu, tol: float, cancel_atol=None, params=()):
+    """Every state variable on the card against its CPU twin within
+    ``tol`` (atol and rtol); with ``cancel_atol``, the entries of the
+    ``params`` (by name) whose gradient sums cancel may differ by up to
+    it, in at most ADAMW_CANCEL_SHARE of a tensor (and one entry).
+    Logs the largest error of each kind."""
+    worst, worst_param, n_off = 0.0, 0.0, 0
+    for g, c in zip(gpu, cpu):
+        if g.name != c.name or not g.value.is_cuda:
+            raise AssertionError(f"{label}: state {g.name} against {c.name} on {g.value.device}")
+        got, want = g.value.cpu().double(), c.value.double()
+        diff = (got - want).abs()
+        off = diff > tol + tol * want.abs()
+        if g.name in params and cancel_atol is not None:
+            worst_param = max(worst_param, diff.max().item())
+            n_off += int(off.sum())
+            if int(off.sum()) > max(1, ADAMW_CANCEL_SHARE * off.numel()) or diff.max().item() > cancel_atol:
+                raise AssertionError(f"{label}: {g.name} {int(off.sum())} of {off.numel()} entries beyond "
+                                     f"{tol}, max abs err {diff.max().item():.3e} (> {cancel_atol}?)")
+        else:
+            worst = max(worst, diff.max().item())
+            if bool(off.any()):
+                raise AssertionError(f"{label}: {g.name} max abs err {diff.max().item():.3e} beyond {tol}")
+    extra = (f"; parameters max abs err {worst_param:.3e} ({n_off} entries beyond {tol}, within {cancel_atol})"
+             if cancel_atol is not None else "")
+    log(f"{label}, card vs CPU: {len(gpu)} state variables, max abs err {worst:.3e} (tolerance {tol}){extra}")
+
+
+def phase_adamw(sgd_ops):
+    """Path 4d: the flagship encoder trained with AdamW.  Returns K1's
+    error, times and bound on the AdamW Composites, the launches of the 3
+    counted steps, the step time and the peak memory."""
+    t0 = time.perf_counter()
+    step, params, _ = build_train_step("cuda", optimizer="adamw")
+    log(f"(d) AdamW train step compile (graph + grad + rewrites + link): {time.perf_counter() - t0:.2f} s")
+    check_train_graph(step.maker.fgraph, N_COMPOSITE_ADAMW, "(d) AdamW train")
+    k1_err, k1_times, _ = phase_k1(step.maker.fgraph, np.random.default_rng(3), skip=sgd_ops,
+                                   timed_shape=(D_MODEL, D_FF))
+    if k1_times is None:
+        raise AssertionError("no AdamW update Composite on a (d_model, d_ff) weight")
+    losses, launches = phase_train(step, params, N_COMPOSITE_ADAMW, "(d) AdamW train")
+    ms, peak = time_steps(step, N_TIMED_STEPS, "(d) AdamW train step")
+    log(f"(d) AdamW train step: {BATCH * SEQ / ms * 1e3:.1f} tokens/s ({BATCH}x{SEQ} tokens a step)")
+    # the 3 counted and 10 timed steps cover the schedule (ADAMW_TOTAL);
+    # past its end lr is 0, so the parameters and the loss stay put.  On
+    # the CPU at batch 1 the loss goes 3.04, 3.04 (lr 0), 9.88, 11.34, 7.46,
+    # 5.62, 4.21, 2.26, ..., 0.40 at step 13: AdamW's first full-size
+    # updates overshoot on this objective, then it falls
+    final = float(step())
+    log(f"(d) AdamW loss after the schedule's {ADAMW_TOTAL} steps and more: {final} (first step {losses[0]})")
+    if not (np.isfinite(final) and final < losses[0]):
+        raise AssertionError(f"(d) AdamW: loss {final} after the schedule not below the first step's {losses[0]}")
+    del step, params
+    t0 = time.perf_counter()
+    (step_gpu, _, state_gpu), (step_cpu, params_cpu, state_cpu) = (
+        build_train_step(dev, batch=1, optimizer="adamw") for dev in ("cuda", "cpu"))
+    for _ in range(N_ADAMW_CPU_STEPS):
+        loss_gpu, loss_cpu = step_gpu().cpu(), step_cpu()
+        torch.testing.assert_close(loss_gpu, loss_cpu, atol=TRAIN_TOL, rtol=TRAIN_TOL)
+    # the largest lr of the compared steps (the schedule at s = 0, 1); an
+    # update is at most lr a step (m_hat / sqrt(v_hat) is +-1 when every
+    # gradient so far is the same), and 0.1% more covers its rounding
+    lr_max = ADAMW_LR * (N_ADAMW_CPU_STEPS - 1) / ADAMW_WARMUP
+    compare_state(f"(d) AdamW at batch 1 after {N_ADAMW_CPU_STEPS} steps", state_gpu, state_cpu, TRAIN_TOL,
+                  cancel_atol=2 * lr_max * 1.001, params={p.name for p in params_cpu})
+    log(f"(d) card-vs-CPU check: {time.perf_counter() - t0:.2f} s")
+    return {"k1_err": k1_err, "k1_times": k1_times, "launches": launches, "ms": ms, "peak": peak}
 
 
 # ---------------------------------------------------------------------------
@@ -1267,10 +1413,34 @@ def phase_logistic() -> dict:
             "peak": peak}
 
 
-def build_glm(device: str, xv, yv, wv):
+#: path (b)'s optimizers: steps each takes on the card and on the CPU, and
+#: whether it divides each gradient entry by a running RMS
+GLM_OPTIMIZERS = {"momentum": (1, False), "rmsprop": (1, True), "adam": (1, True), "accumulate": (2, True),
+                  "scaled_ema": (2, True)}
+
+
+def glm_updates(recipe: str, loss, w):
+    """The updates of one of path (b)'s optimizers on the GLM's w."""
+    import aesara_tpu_torch as ptp
+    from aesara_tpu_torch.models import optim
+
+    if recipe == "sgd":
+        return {w: w - np.float32(SPARSE_LR) * ptp.grad(loss, w)}
+    if recipe in ("momentum", "rmsprop", "adam"):
+        return getattr(optim, recipe)(loss, [w], lr=GLM_OPT_LR)
+
+    def adamw(grads):
+        return optim.adamw_from_grads([w], grads, lr=GLM_OPT_LR)
+
+    if recipe == "accumulate":
+        return optim.accumulate_gradients(loss, [w], adamw, every=2)
+    return optim.scaled_loss_updates(loss, [w], adamw) + optim.ema_updates([w], decay=0.99)[0]
+
+
+def build_glm(device: str, xv, yv, wv, recipe: str = "sgd"):
     """The GLM step of bench_reference_ratio.py:290-295 without eps:
     pred = structured_dot(x, w[:, None]).flatten(), mean((pred - y)^2),
-    one sgd update of w."""
+    one update of w by sgd or another optimizer: (step, update targets)."""
     import aesara_tpu_torch as ptp
     from aesara_tpu_torch import sparse
     from aesara_tpu_torch.config import config
@@ -1279,11 +1449,43 @@ def build_glm(device: str, xv, yv, wv):
 
     with config.change_flags(device=device, floatX="float32"):
         x, y, w = ptp.shared(xv, name="x"), ptp.shared(yv, name="y"), ptp.shared(wv, name="w")
-    pred = sparse.structured_dot(x, shape_padright(w)).flatten()
-    loss = tm.mean(tm.sqr(pred - y))
-    gw = ptp.grad(loss, w)
-    return ptp.function([], ptp.Out(loss, borrow=True), updates={w: w - np.float32(SPARSE_LR) * gw},
+        pred = sparse.structured_dot(x, shape_padright(w)).flatten()
+        loss = tm.mean(tm.sqr(pred - y))
+        updates = glm_updates(recipe, loss, w)
+    step = ptp.function([], ptp.Out(loss, borrow=True), updates=updates,
                         mode=ptp.Mode(ptp.TorchLinker(device=device)))
+    return step, [t for t, _ in (updates.items() if isinstance(updates, dict) else updates)]
+
+
+def phase_glm_optimizers(xv, yv, wv) -> float:
+    """Path (b)'s optimizers: each on the card with launch counts (K5 twice
+    a step, K1 once a Composite) and K1 on its new Composites against the
+    plain version, then every piece of state against the same steps on the
+    CPU.  Returns K1's largest error."""
+    k1_err, checked = 0.0, set()
+    for recipe, (steps, normalised) in GLM_OPTIMIZERS.items():
+        t0 = time.perf_counter()
+        step, state = build_glm("cuda", xv, yv, wv, recipe)
+        fgraph = step.maker.fgraph
+        n_composite = len(composite_nodes(fgraph))
+        err, _, ops = phase_k1(fgraph, np.random.default_rng(4), skip=checked, timed_shape=None)
+        k1_err, checked = max(k1_err, err), checked | ops
+        torch.cuda.synchronize()
+        zero_counters()
+        losses = [step() for _ in range(steps)]
+        torch.cuda.synchronize()
+        read_counters({"K1": n_composite * steps, "K5": 2 * steps}, f"(b) GLM {recipe}")
+        step_cpu, state_cpu = build_glm("cpu", xv, yv, wv, recipe)
+        losses_cpu = [step_cpu() for _ in range(steps)]
+        for got, want in zip(losses, losses_cpu):
+            torch.testing.assert_close(got.cpu(), want, atol=TRAIN_TOL, rtol=TRAIN_TOL)
+        # rmsprop's first step moves an entry by up to lr / sqrt(1 - rho)
+        cancel = 2 * GLM_OPT_LR / np.sqrt(1 - 0.9) if normalised else None
+        compare_state(f"(b) GLM {recipe}, {steps} step(s), {n_composite} Composites "
+                      f"({', '.join(sorted({str(n.op.scalar_op) for n in composite_nodes(fgraph)}))})",
+                      state, state_cpu, TRAIN_TOL, cancel_atol=cancel, params={"w"})
+        log(f"(b) GLM {recipe}: losses {[float(v) for v in losses]}; {time.perf_counter() - t0:.2f} s")
+    return k1_err
 
 
 def phase_glm():
@@ -1313,7 +1515,7 @@ def phase_glm():
     del a
 
     t0 = time.perf_counter()
-    step = build_glm("cuda", xv, yv, wv)
+    step, _ = build_glm("cuda", xv, yv, wv)
     log(f"(b) compile (graph + grad + rewrites + link): {time.perf_counter() - t0:.2f} s")
     names = node_names(step.maker.fgraph)
     n_composite = len(composite_nodes(step.maker.fgraph))
@@ -1329,7 +1531,9 @@ def phase_glm():
     check_sparse_losses(losses, "(b) GLM")
     ms, peak = time_steps(step, N_SPARSE_TIMED, "(b) GLM train step")
     log(f"(b) GLM: {1e3 / ms:.1f} steps/s")
-    return {"K5": k5, "K5_grad": k5_grad, "launches": launches, "ms": ms, "peak": peak}, xv
+    del step
+    k1_err = phase_glm_optimizers(xv, yv, wv)
+    return {"K5": k5, "K5_grad": k5_grad, "launches": launches, "ms": ms, "peak": peak, "k1_err": k1_err}, xv
 
 
 def build_values_grad(device: str):
@@ -1906,22 +2110,31 @@ def main():
     del fn, requests, results
 
     t0 = time.perf_counter()
-    step, params = build_train_step("cuda")
+    step, params, _ = build_train_step("cuda")
     log(f"train step compile (graph + grad + rewrites + link): {time.perf_counter() - t0:.2f} s")
     check_train_graph(step.maker.fgraph)
-    k1_train_err, _ = phase_k1(step.maker.fgraph, np.random.default_rng(1))
+    k1_train_err, _, sgd_ops = phase_k1(step.maker.fgraph, np.random.default_rng(1))
     k3_err, k3_times = phase_k3()
     _, train_launches = phase_train(step, params)
     time_train(step)
     del step, params
     check_train_against_cpu()
+    t0 = time.perf_counter()
+    adamw = phase_adamw(sgd_ops)
+    log(f"(d) AdamW path: {time.perf_counter() - t0:.2f} s")
 
     lr = phase_logistic()
     glm, xv = phase_glm()
     grad_values = phase_values_grad(xv)
 
-    k1 = {"max_abs_err": max(k1_err, k1_train_err), "ms": k1_times[0], "plain_ms": k1_times[1],
-          "bound_ms": k1_times[2], "bound_by": k1_times[3], "library_ms": None}
+    k1 = {"max_abs_err": max(k1_err, k1_train_err, adamw["k1_err"], glm["k1_err"]), "ms": k1_times[0],
+          "plain_ms": k1_times[1], "bound_ms": k1_times[2], "bound_by": k1_times[3], "library_ms": None}
+    # path 4d: the launches of its 3 counted steps, and K1 on the AdamW
+    # update of a (d_model, d_ff) weight
+    adamw_ms, adamw_plain_ms, adamw_bound_ms, adamw_bound_by, adamw_cold_ms = adamw["k1_times"]
+    k1_adamw = {"adamw_launches": adamw["launches"]["K1"], "adamw_ms": adamw_ms, "adamw_cold_ms": adamw_cold_ms,
+                "adamw_plain_ms": adamw_plain_ms, "adamw_bound_ms": adamw_bound_ms,
+                "adamw_bound_by": adamw_bound_by}
     k2 = {"max_abs_err": k2_err, "ms": k2_times[0], "plain_ms": k2_times[1], "bound_ms": k2_times[2],
           "bound_by": k2_times[3], "library_ms": k2_times[4]}
     k3 = {"max_abs_err": k3_err, "ms": k3_times[0], "plain_ms": k3_times[1], "bound_ms": k3_times[2],
@@ -1934,9 +2147,11 @@ def main():
         lr["K6"], lr["K6_grad"], lr["K6_request"], grad_values["K6"])))
     k7 = dict(grad_values["K7"], max_abs_err=grad_values["K7_err"])
     kernels = [
-        kernel_line("K1 fused elemwise Composite", "triton", K1_SOURCE, K1_REPLACES, train_launches["K1"], k1),
-        kernel_line("K2 flash attention forward", "cuda", K2_SOURCE, K2_REPLACES, train_launches["K2"], k2),
-        k3_line,
+        dict(kernel_line("K1 fused elemwise Composite", "triton", K1_SOURCE, K1_REPLACES, train_launches["K1"],
+                         k1), cold_ms=k1_times[4], **k1_adamw),
+        dict(kernel_line("K2 flash attention forward", "cuda", K2_SOURCE, K2_REPLACES, train_launches["K2"], k2),
+             adamw_launches=adamw["launches"]["K2"]),
+        dict(k3_line, adamw_launches=adamw["launches"]["K3"]),
         kernel_line("K4 row log-softmax", "cuda", K4_SOURCE, K4_REPLACES, lr["launches"]["K4"], lr["K4"]),
         kernel_line("K5 CSR SpMV (narrow rhs)", "cuda", K567_SOURCE, K5_REPLACES, glm["launches"]["K5"], k5),
         kernel_line("K6 CSR SpMM (wide rhs)", "cuda", K567_SOURCE, K6_REPLACES, lr["launches"]["K6"], k6),

@@ -27,7 +27,9 @@ from aesara_tpu_torch.link.torch.kernels.sparse import (
     spmm_vector_bytes,
 )
 from aesara_tpu_torch.models.linear import LogisticRegression
-from aesara_tpu_torch.models.optim import sgd
+from aesara_tpu_torch.models.optim import adamw, sgd, warmup_cosine
+from aesara_tpu_torch.scalar import ops as aes
+from aesara_tpu_torch.scalar.composite import Composite
 from aesara_tpu_torch.models.transformer import TransformerEncoderLayer
 from aesara_tpu_torch.tensor import math as ptm
 
@@ -175,6 +177,129 @@ def test_k3_is_deterministic(cuda, dtype):
     torch.cuda.synchronize()
     for name, a, b in zip(("dq", "dk", "dv"), first, second):
         assert torch.equal(a, b), name
+
+
+def _scalar_composite(case: str, dtype: str):
+    """A Composite of one of the optimizers' scalar ops over ``dtype``
+    operands: (composite, number of inputs)."""
+    S = aes.ScalarType(dtype)
+    x, y, z = S(), S(), S()
+    zero = aes.constant(0, dtype="int8")
+    two = {
+        "pow": aes.pow(x, y), "minimum": aes.minimum(x, y), "gt": aes.gt(x, y), "le": aes.le(x, y),
+        "eq": aes.eq(x, y), "neq": aes.neq(x, y), "and": aes.and_(aes.gt(x, zero), aes.isnan(y)),
+        "or": aes.or_(aes.isinf(x), aes.le(x, y)), "invert": aes.invert(aes.eq(x, y)),
+        "switch": aes.switch(aes.gt(x, y), x, y),
+    }
+    one = {
+        "abs": aes.abs_(x), "sgn": aes.sgn(x), "isnan": aes.isnan(x), "isinf": aes.isinf(x),
+        "identity": aes.identity(x), "log": aes.log(x), "cos": aes.cos(x), "sin": aes.sin(x),
+    }
+    three = {"clip": aes.clip_scalar(x, y, z), "switch_float_cond": aes.switch(x, y, z)}
+    for ins, table in (([x], one), ([x, y], two), ([x, y, z], three)):
+        if case in table:
+            return Composite(ins, [table[case]]), len(ins)
+    raise KeyError(case)
+
+
+K1_SCALAR_CASES = ["pow", "minimum", "gt", "le", "eq", "neq", "and", "or", "invert", "switch", "abs", "sgn",
+                   "isnan", "isinf", "identity", "log", "cos", "sin", "clip", "switch_float_cond"]
+#: ops whose result is exact in every dtype (no rounding inside)
+K1_EXACT = {"minimum", "gt", "le", "eq", "neq", "and", "or", "invert", "switch", "abs", "sgn", "isnan", "isinf",
+            "identity", "clip", "switch_float_cond"}
+
+
+def _special_values(shape, dtype, gen, device):
+    """Normal values times 3 with NaN, +-inf, -0.0 and 0.0 in the first
+    entries and, for pow, integral exponents for some negative bases."""
+    v = torch.randn(shape, device=device, generator=gen, dtype=torch.float64) * 3
+    flat = v.reshape(-1)
+    special = torch.tensor([float("nan"), float("inf"), -float("inf"), -0.0, 0.0, -2.0, 2.0],
+                           dtype=torch.float64, device=device)
+    n = min(flat.numel(), special.numel())
+    flat[:n] = special[:n]
+    half = flat.numel() // 2
+    flat[half:] = torch.round(flat[half:])
+    return v.to(dtype)
+
+
+@pytest.mark.parametrize("layout", ["broadcast", "0-d"])
+@pytest.mark.parametrize("dtype", ["float32", "float64", "bfloat16"])
+@pytest.mark.parametrize("case", K1_SCALAR_CASES)
+def test_k1_optimizer_scalar_ops_match_plain(cuda, case, dtype, layout):
+    comp, nin = _scalar_composite(case, dtype)
+    out_dtype = comp.outputs[0].type.dtype
+    kernel = ElemwiseKernel(comp, [dtype] * nin, out_dtype)
+    gen = torch.Generator(device=cuda).manual_seed(K1_SCALAR_CASES.index(case))
+    shapes = [(), (), ()] if layout == "0-d" else [(33, 70), (1, 70), (33, 1)]
+    args = [_special_values(s, getattr(torch, dtype), gen, cuda) for s in shapes[:nin]]
+    if layout == "0-d":
+        args[0] = torch.tensor(-2.0 if case == "pow" else float("nan"), dtype=args[0].dtype, device=cuda)
+    before = fused_elemwise.launches
+    got = fused_elemwise(kernel, *args)
+    assert fused_elemwise.launches == before + 1
+    want = composite_plain(comp, out_dtype, *args)
+    assert got.dtype == want.dtype == (torch.bool if out_dtype == "bool" else getattr(torch, dtype))
+    assert got.shape == want.shape == torch.broadcast_shapes(*[a.shape for a in args])
+    if case in K1_EXACT or out_dtype == "bool":
+        torch.testing.assert_close(got, want, atol=0, rtol=0, equal_nan=True)
+    else:
+        # libdevice against torch's own CUDA math: a few ulp
+        tol = {"float32": 2e-6, "float64": 1e-14, "bfloat16": 8e-3}[dtype]
+        torch.testing.assert_close(got, want, atol=tol, rtol=tol, equal_nan=True)
+
+
+@pytest.mark.parametrize("case", ["and", "or", "invert"])
+def test_k1_bitwise_ops_on_integers_match_plain(cuda, case):
+    S = aes.ScalarType("int32")
+    x, y = S(), S()
+    expr = {"and": aes.and_(x, y), "or": aes.or_(x, y), "invert": aes.invert(x)}[case]
+    comp = Composite([x, y], [aes.add(expr, y)])
+    kernel = ElemwiseKernel(comp, ["int32", "int32"], "int32")
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    a = torch.randint(-1000, 1000, (40, 50), device=cuda, generator=gen, dtype=torch.int32)
+    b = torch.randint(-1000, 1000, (1, 50), device=cuda, generator=gen, dtype=torch.int32)
+    torch.testing.assert_close(fused_elemwise(kernel, a, b), composite_plain(comp, "int32", a, b), atol=0, rtol=0)
+
+
+def test_small_adamw_step_on_card_matches_cpu(cuda):
+    """The AdamW step of the flagship recipe (warmup-cosine schedule on a
+    shared step, weight decay, global-norm clipping) at a small size: 2
+    steps on the card and on the CPU; every parameter, moment and counter
+    agrees within 1e-5."""
+    xv = np.random.default_rng(3).normal(size=(1, 96, 64)).astype("float32")
+
+    def build(device):
+        with config.change_flags(device=device):
+            layers = [TransformerEncoderLayer(64, 4, 128, seed=i) for i in range(2)]
+            x = ptp.shared(xv, name="x")
+            s = ptp.shared(np.asarray(0.0, "float32"), name="s")
+        h = x
+        for layer in layers:
+            h = layer(h)
+        loss = ptm.mean(ptm.sqr(h))
+        params = [p for layer in layers for p in layer.params]
+        updates = adamw(loss, params, lr=warmup_cosine(s, 1e-3, 2, 13), weight_decay=0.01, grad_clip=1.0)
+        updates.append((s, s + 1.0))
+        step = ptp.function([], ptp.Out(loss, borrow=True), updates=updates,
+                            mode=ptp.Mode(ptp.TorchLinker(device=device)))
+        return step, [t for t, _ in updates]
+
+    (step_gpu, state_gpu), (step_cpu, state_cpu) = build("cuda"), build("cpu")
+    before = fused_elemwise.launches
+    for _ in range(2):
+        loss_gpu, loss_cpu = step_gpu(), step_cpu()
+        torch.testing.assert_close(loss_gpu.cpu(), loss_cpu, atol=1e-5, rtol=1e-5)
+    n_composite = len(_composite_nodes(step_gpu))
+    assert fused_elemwise.launches == before + 2 * n_composite
+    for sg, sc in zip(state_gpu, state_cpu):
+        assert sg.value.is_cuda and sg.name == sc.name
+        torch.testing.assert_close(sg.value.cpu(), sc.value, atol=1e-5, rtol=1e-5, msg=sg.name)
+
+
+def _composite_nodes(fn):
+    return [n for n in fn.maker.fgraph.toposort()
+            if type(getattr(n.op, "scalar_op", None)).__name__ == "Composite"]
 
 
 def test_small_train_step_on_card_matches_cpu(cuda):

@@ -1,7 +1,13 @@
 """K1, the fused-Composite kernel: its plain PyTorch version against the
 JAX package's Pallas kernel (interpret mode) and its XLA closure, on the
-three Composites the encoder forward builds; and the generated Triton
-source of each parses.  fp32 tolerance: rtol 1e-5, atol 1e-6."""
+three Composites the encoder forward builds and on those of the
+optimizers (the AdamW update, the global-norm clip, the warmup-cosine
+schedule, Adam's bias correction, the loss scale's finite test and
+skip); and the generated Triton source of each, and of a Composite of
+every scalar op K1 takes, parses.  fp32 tolerance: rtol 1e-5, atol 1e-6.
+A Composite with a bool operand or output is held against the XLA
+closure alone: the JAX package runs only Composites whose operands all
+have the output's dtype through Pallas (``link/jax/dispatch.py:602``)."""
 
 import ast
 
@@ -15,7 +21,7 @@ import jax.numpy as jnp
 from aesara_tpu.graph.fg import FunctionGraph as JFunctionGraph
 from aesara_tpu.link.jax.dispatch import composite_jax_impl
 from aesara_tpu.link.jax.pallas_kernels import composite_pallas_fn
-from aesara_tpu.tensor import math as jtm
+from aesara_tpu.tensor import basic as jtb, math as jtm
 from aesara_tpu.tensor.rewriting.elemwise import FusionOptimizer as JFusion
 from aesara_tpu.tensor.type import TensorType as JTensorType
 
@@ -24,7 +30,8 @@ from aesara_tpu_torch.link.torch.kernels.elemwise import (
     ElemwiseKernel, composite_plain, fused_elemwise, launch_plan,
 )
 from aesara_tpu_torch.scalar.composite import Composite as PComposite
-from aesara_tpu_torch.tensor import math as ptm
+from aesara_tpu_torch.scalar import ops as aes
+from aesara_tpu_torch.tensor import basic as ptb, math as ptm
 from aesara_tpu_torch.tensor.rewriting.elemwise import FusionOptimizer as PFusion
 from aesara_tpu_torch.tensor.type import TensorType as PTensorType
 from aesara_tpu_torch.config import config
@@ -39,11 +46,41 @@ def _on_the_cpu():
 
 
 def _graph(TensorType, tm, which):
-    """One of the encoder's Composites as a small graph: (inputs, output)."""
+    """One of the encoder's or the optimizers' Composites as a small graph:
+    (inputs, output)."""
     full = TensorType("float32", (None, None, None))
     col = TensorType("float32", (None, None, 1))
     one = TensorType("float32", (1, 1, 1))
     row = TensorType("float32", (1, 1, None))
+    flag = TensorType("bool", (None, None, None))
+    switch = (jtb if tm is jtm else ptb).switch
+
+    def c(v):   # a constant of the graph's rank, so that it needs no DimShuffle
+        return np.full((1, 1, 1), v, dtype="float32")
+
+    if which == "adamw_param":          # p - lr (m / bc1) / (sqrt(v / bc2) + eps) - lr wd p
+        p, m, v, bc1, bc2, lr = full("p"), full("m"), full("v"), one("bc1"), one("bc2"), one("lr")
+        step = lr * tm.true_div(m, bc1) / (tm.sqrt(tm.true_div(v, bc2)) + c(1e-8))
+        return [p, m, v, bc1, bc2, lr], p - step - lr * c(0.01) * p
+    if which == "clip_scale":           # g * minimum(1, max_norm / maximum(norm, 1e-12))
+        g, norm = full("g"), one("norm")
+        return [g, norm], g * tm.minimum(c(1.0), c(1.0) / tm.maximum(norm, c(1e-12)))
+    if which == "warmup_cosine":        # the schedule at every step s
+        s = full("s")
+        warm = c(1e-3) * s / c(2.0)
+        progress = tm.minimum((s - c(2.0)) / c(11.0), c(1.0))
+        cos = c(0.5e-3) * (c(1.0) + tm.cos(c(np.pi) * progress))
+        return [s], switch(tm.lt(s, c(2.0)), warm, cos)
+    if which == "bias_pow":             # m / (1 - pow(b1, t))
+        m, t = full("m"), one("t")
+        return [m, t], m / (c(1.0) - tm.pow(c(0.9), t))
+    if which == "nonfinite":            # isnan(g) | isinf(g) of an unscaled gradient: a bool output
+        g = full("g")
+        return [g], tm.or_(tm.isnan(g), tm.isinf(g))
+    if which == "skip":                 # switch(finite, p - lr g, p) on bool operands
+        a, b, p, g, lr = flag("a"), flag("b"), full("p"), full("g"), one("lr")
+        finite = tm.and_(tm.eq(a, np.zeros((1, 1, 1), dtype="int8")), tm.eq(b, np.zeros((1, 1, 1), dtype="int8")))
+        return [a, b, p, g, lr], switch(finite, p - lr * g, p)
     if which == "ln_centre":            # x - sum / n
         x, s, n = full("x"), col("s"), one("n")
         return [x, s, n], tm.sub(x, tm.true_div(s, n))
@@ -65,12 +102,32 @@ def _fused_node(FunctionGraph, Fusion, inputs, out):
 
 def _values(which, shape, rng):
     B, T, D = shape
+    full, one = (B, T, D), (1, 1, 1)
     shapes = {
         "ln_centre": [(B, T, D), (B, T, 1), (1, 1, 1)],
         "ln_scale": [(1, 1, D), (B, T, D), (B, T, 1), (1, 1, 1), (1, 1, D)],
         "bias_relu": [(B, T, D), (1, 1, D)],
+        "adamw_param": [full, full, full, one, one, one],
+        "clip_scale": [full, one],
+        "warmup_cosine": [full],
+        "bias_pow": [full, one],
+        "nonfinite": [full],
+        "skip": [full, full, full, full, one],
     }[which]
     vals = [rng.normal(size=s).astype("float32") for s in shapes]
+    if which == "adamw_param":
+        vals[2] = np.abs(vals[2]) * 1e-4                 # second moments
+        vals[3:] = [np.full(one, c, dtype="float32") for c in (0.271, 0.002997, 1e-3)]
+    if which == "clip_scale":
+        vals[1] = np.full(one, 3.5, dtype="float32")
+    if which == "warmup_cosine":
+        vals[0] = rng.integers(0, 20, size=full).astype("float32")
+    if which == "bias_pow":
+        vals[1] = np.full(one, 3.0, dtype="float32")
+    if which == "nonfinite":
+        vals[0].reshape(-1)[:5] = [np.nan, np.inf, -np.inf, 3e38, -0.0]
+    if which == "skip":
+        vals[0], vals[1] = vals[0] > 1.0, vals[1] > 1.0
     if which == "ln_scale":
         vals[2] = np.abs(vals[2]) * D + 0.5   # a sum of squares
         vals[3] = np.full((1, 1, 1), D, dtype="float32")
@@ -80,10 +137,11 @@ def _values(which, shape, rng):
 
 
 CASES = ["ln_centre", "ln_scale", "bias_relu"]
+OPTIMIZER_CASES = ["adamw_param", "clip_scale", "warmup_cosine", "bias_pow", "nonfinite", "skip"]
 
 
 @pytest.mark.parametrize("shape", [(2, 16, 64), (3, 7, 37)], ids=["even", "ragged"])
-@pytest.mark.parametrize("which", CASES)
+@pytest.mark.parametrize("which", CASES + OPTIMIZER_CASES)
 def test_plain_k1_matches_pallas_interpret_and_xla(which, shape):
     from jax.experimental.pallas import tpu as pltpu
 
@@ -94,7 +152,8 @@ def test_plain_k1_matches_pallas_interpret_and_xla(which, shape):
     # leaves come out in the same order from both fusion passes
     assert [v.name for v in jnode.inputs] == [v.name for v in pnode.inputs]
 
-    kernel = ElemwiseKernel(pnode.op.scalar_op, [i.type.dtype for i in pnode.inputs], "float32")
+    out_dtype = pnode.outputs[0].type.dtype
+    kernel = ElemwiseKernel(pnode.op.scalar_op, [i.type.dtype for i in pnode.inputs], out_dtype)
     before = fused_elemwise.plain_calls
     got = fused_elemwise(kernel, *[torch.from_numpy(v) for v in vals]).numpy()
     assert fused_elemwise.plain_calls == before + 1
@@ -102,19 +161,24 @@ def test_plain_k1_matches_pallas_interpret_and_xla(which, shape):
     comp = jnode.op.scalar_op
     want_xla = np.asarray(composite_jax_impl(comp)(*[jnp.asarray(v) for v in vals]))
     out_shape = np.broadcast_shapes(*[v.shape for v in vals])
-    with pltpu.force_tpu_interpret_mode():
-        fn = composite_pallas_fn(comp, np.dtype("float32"))
-        want_pallas = np.asarray(fn(*[jnp.asarray(np.broadcast_to(v, out_shape)) for v in vals]))
-    assert got.shape == want_pallas.shape == out_shape
-    assert got.dtype == np.float32
-    np.testing.assert_allclose(got, want_pallas, rtol=1e-5, atol=1e-6)
+    assert got.shape == want_xla.shape == out_shape
+    assert got.dtype == np.dtype(out_dtype) == want_xla.dtype
     np.testing.assert_allclose(got, want_xla, rtol=1e-5, atol=1e-6)
+    if all(v.dtype == np.dtype(out_dtype) for v in vals):
+        with pltpu.force_tpu_interpret_mode():
+            fn = composite_pallas_fn(comp, np.dtype(out_dtype))
+            want_pallas = np.asarray(fn(*[jnp.asarray(np.broadcast_to(v, out_shape)) for v in vals]))
+        assert want_pallas.shape == out_shape
+        np.testing.assert_allclose(got, want_pallas, rtol=1e-5, atol=1e-6)
+    else:
+        assert which in ("nonfinite", "skip")
 
 
-@pytest.mark.parametrize("which", CASES)
+@pytest.mark.parametrize("which", CASES + OPTIMIZER_CASES)
 def test_generated_triton_source_parses(which):
     pnode = _fused_node(PFunctionGraph, PFusion, *_graph(PTensorType, ptm, which))
-    kernel = ElemwiseKernel(pnode.op.scalar_op, [i.type.dtype for i in pnode.inputs], "float32")
+    out_dtype = pnode.outputs[0].type.dtype
+    kernel = ElemwiseKernel(pnode.op.scalar_op, [i.type.dtype for i in pnode.inputs], out_dtype)
     for ndim, wide in [(0, False), (1, False), (2, False), (3, False), (2, True)]:
         src = kernel.source(ndim, wide)
         assert ("pid.to(tl.int64)" in src) == wide
@@ -124,10 +188,53 @@ def test_generated_triton_source_parses(which):
         n_args = 1 + len(pnode.inputs) + 1 + ndim + ndim * len(pnode.inputs) + 1
         assert len(fn.args.args) == n_args
     src = kernel.source(2)
-    if which != "bias_relu":
-        assert "tl.math.div_rn" in src
-    if which == "ln_scale":
-        assert "tl.sqrt_rn" in src
+    forms = {"ln_centre": ["tl.math.div_rn"], "ln_scale": ["tl.math.div_rn", "tl.sqrt_rn"],
+             "bias_relu": ["tl.where"], "adamw_param": ["tl.math.div_rn", "tl.sqrt_rn"],
+             "clip_scale": ["tl.where", "tl.math.div_rn"], "warmup_cosine": ["libdevice.cos", "tl.where"],
+             "bias_pow": ["libdevice.pow"], "nonfinite": ["float('inf')", "tl.store(out_ptr + offs, "
+                                                          "result.to(tl.int1)"],
+             "skip": ["tl.where(", " & "]}[which]
+    for form in forms:
+        assert form in src, form
+
+
+def _one_op_composite(name):
+    """A Composite of one scalar op K1 takes, over float32 operands (bool
+    ones for the logical ops)."""
+    f, b = aes.ScalarType("float32"), aes.ScalarType("bool")
+    x, y, z = f(), f(), f()
+    p, q = b(), b()
+    ops = {
+        "pow": ([x, y], aes.pow(x, y)), "abs": ([x], aes.abs_(x)), "sgn": ([x], aes.sgn(x)),
+        "minimum": ([x, y], aes.minimum(x, y)), "gt": ([x, y], aes.gt(x, y)), "le": ([x, y], aes.le(x, y)),
+        "eq": ([x, y], aes.eq(x, y)), "neq": ([x, y], aes.neq(x, y)), "isnan": ([x], aes.isnan(x)),
+        "isinf": ([x], aes.isinf(x)), "and": ([p, q], aes.and_(p, q)), "or": ([p, q], aes.or_(p, q)),
+        "invert": ([p], aes.invert(p)), "switch": ([p, x, y], aes.switch(p, x, y)),
+        "identity": ([x], aes.identity(x)), "log": ([x], aes.log(x)), "cos": ([x], aes.cos(x)),
+        "sin": ([x], aes.sin(x)), "clip": ([x, y, z], aes.clip_scalar(x, y, z)),
+    }
+    ins, out = ops[name]
+    return PComposite(ins, [out])
+
+
+SCALAR_FORMS = {
+    "pow": "libdevice.pow(", "abs": "tl.abs(", "sgn": "!= x0", "minimum": " < ", "gt": " > ", "le": " <= ",
+    "eq": " == ", "neq": " != ", "isnan": "x0.to(tl.float32) != x0.to(tl.float32)", "isinf": "float('inf')",
+    "and": " & ", "or": " | ", "invert": "== 0", "switch": "tl.where(x0.to(tl.int1)", "identity": "v0 = (x0",
+    "log": "libdevice.log(", "cos": "libdevice.cos(", "sin": "libdevice.sin(", "clip": "tl.where(",
+}
+
+
+@pytest.mark.parametrize("name", sorted(SCALAR_FORMS))
+def test_every_scalar_op_has_a_triton_form_that_parses(name):
+    comp = _one_op_composite(name)
+    out_dtype = comp.outputs[0].type.dtype
+    kernel = ElemwiseKernel(comp, [i.type.dtype for i in comp.inputs], out_dtype)
+    for ndim in (0, 1, 3):
+        src = kernel.source(ndim)
+        ast.parse(src)
+        assert SCALAR_FORMS[name] in src
+        assert f"result.to({'tl.int1' if out_dtype == 'bool' else 'tl.float32'})" in src
 
 
 def _emulate_launch(kernel, args):
