@@ -19,6 +19,7 @@ from aesara_tpu_torch.compile.sharedvalue import shared  # noqa: F401
 from aesara_tpu_torch.gradient import grad  # noqa: F401
 from aesara_tpu_torch.link.torch.linker import TorchLinker  # noqa: F401
 from aesara_tpu_torch.tensor import rewriting  # noqa: F401  (registers the rewrites)
+from aesara_tpu_torch.tensor import blas  # noqa: F401  (registers BlasOpt)
 from aesara_tpu_torch import sparse  # noqa: F401  (registers the sparse rewrites)
 
 __all__ = ["config", "tensor", "sparse", "function", "Function", "In", "Out", "Mode", "TORCH",

@@ -9,13 +9,12 @@ dict at once, a list of pairs in order).  ``updates`` pairs shared
 variables with expressions of their new values; a shared variable's
 ``default_update`` joins them unless ``no_default_updates`` says not.
 The update expressions are outputs of the one compiled graph, so they
-read every shared value as it was before the call; the new values are
-bound to their shared variables only after the whole graph has run.
-The JAX package donates the old buffers to XLA instead
-(``aesara_tpu/link/jax/linker.py:304-343``); here the shared variable is
-rebound to the new tensor and the old one is freed when nothing else
-holds it.  ``steps_per_call`` needs scan and bucketing needs
-``compile/bucketing.py``: neither is ported yet.
+read every shared value as it was before the call; the linker writes
+the new values into the shared variables' storage only after the whole
+graph has run (inside the captured step on the card), as the JAX
+package donates the old buffers to XLA
+(``aesara_tpu/link/jax/linker.py:304-343``).  ``steps_per_call`` needs
+scan and bucketing needs ``compile/bucketing.py``: neither is ported yet.
 """
 
 from __future__ import annotations
@@ -23,7 +22,6 @@ from __future__ import annotations
 import warnings
 from typing import Sequence
 
-import numpy as np
 
 from aesara_tpu_torch.compile.io import In, Out
 from aesara_tpu_torch.compile.mode import get_mode
@@ -41,17 +39,6 @@ class UnusedInputError(Exception):
     """An input of ``function()`` that no output or update reads."""
 
 
-def _storage_ptr(value) -> int:
-    """The address of the memory a tensor or array argument lives in."""
-    import torch
-
-    if isinstance(value, torch.Tensor):
-        return value.untyped_storage().data_ptr()
-    if isinstance(value, np.ndarray):
-        return value.__array_interface__["data"][0]
-    return 0
-
-
 _UNSET = object()
 
 
@@ -59,8 +46,11 @@ class Function:
     """A compiled graph: call it with one value per input, by position or
     by an ``In`` name; it returns a list of torch tensors on the linker's
     device (one tensor when ``outputs`` was a single variable, None when
-    there were none), and then binds each updated shared variable to its
-    new value and each ``In(update=)`` input to its next default."""
+    there were none), having written each updated shared variable's new
+    value into its storage, and binds each ``In(update=)`` input to its
+    next default.  ``captured`` says whether the last call replayed a
+    captured CUDA graph, ``capture_blocker`` why no call does (None when
+    calls do, from the second with the same argument shapes)."""
 
     def __init__(self, fn, fgraph, in_specs: Sequence[In], single_output: bool, borrow: Sequence[bool],
                  update_targets: Sequence[SharedVariable], input_updates: Sequence[int], name=None):
@@ -108,27 +98,20 @@ class Function:
             values[i] = value
         return values
 
+    @property
+    def captured(self) -> bool:
+        return self.fn.captured
+
+    @property
+    def capture_blocker(self):
+        return self.fn.capture_blocker
+
     def __call__(self, *args, **kwargs):
-        args = self._arguments(args, kwargs)
-        # read before the call: an updated shared variable holds another
-        # tensor afterwards
-        held = [v.value for v in self.shared_inputs] + list(args)
-        results = self.fn(*args)
-        n_out, n_up = len(self.borrow), len(self.update_targets)
-        outs, new_values = list(results[:n_out]), results[n_out:n_out + n_up]
-        for target, new in zip(self.update_targets, new_values):
-            if new.device != target.value.device:
-                raise ValueError(f"update of {target} computed on {new.device}; "
-                                 f"the variable lives on {target.value.device}")
-            target.type.check_shape(tuple(new.shape))
-        for target, new in zip(self.update_targets, new_values):
-            target._value = new
-        for pos, new in zip(self.input_updates, results[n_out + n_up:]):
+        results = self.fn(*self._arguments(args, kwargs))
+        n_out = len(self.borrow)
+        outs = list(results[:n_out])
+        for pos, new in zip(self.input_updates, results[n_out:]):
             self._in_state[pos] = new
-        if not all(self.borrow):
-            taken = {_storage_ptr(v) for v in held + list(results[n_out:])} - {0}
-            outs = [o.clone() if not b and _storage_ptr(o) in taken else o
-                    for o, b in zip(outs, self.borrow)]
         if self.single_output:
             return outs[0]
         return outs if outs else None
@@ -279,6 +262,7 @@ def function(inputs: Sequence, outputs=None, mode=None, updates=None, givens=Non
     mode = get_mode(mode)
     fgraph = FunctionGraph(in_vars + shared, all_outs, clone=True)
     mode.optimizer.rewrite(fgraph)
-    fn = mode.linker.make_function(fgraph, n_user_inputs=len(in_vars))
+    fn = mode.linker.make_function(fgraph, n_user_inputs=len(in_vars), n_outputs=len(out_vars),
+                                   update_targets=[t for t, _ in shared_updates], borrow=borrow)
     positions = [next(i for i, v in enumerate(in_vars) if v is t) for t, _ in input_updates]
     return Function(fn, fgraph, specs, single, borrow, [t for t, _ in shared_updates], positions, name=name)

@@ -2,9 +2,11 @@
 (reference ``aesara_tpu/compile/mode.py``).
 
 Positions follow the JAX package: merge1 at 0, canonicalize at 1,
-specialize at 2, elemwise fusion and merge2 at 49, merge3 at 100.  The ``TORCH`` mode runs
-the ``fast_run`` rewrites the encoder forward needs and links through
-``TorchLinker``.
+BlasOpt at 1.7, specialize at 2, elemwise fusion and merge2 at 49, merge3
+at 100.  The ``TORCH`` mode runs the ``fast_run`` rewrites and links
+through ``TorchLinker``; ``including``/``excluding`` give a mode with
+tags added to or taken from its query, as the JAX package's ``Mode``
+does (``TORCH.excluding("BlasOpt")``).
 """
 
 from __future__ import annotations
@@ -28,7 +30,8 @@ specialize = EquilibriumDB()
 optdb.register("specialize", specialize, "fast_run", position=2)
 optdb.register("merge2", MergeOptimizer(), "fast_run", "merge", position=49.5)
 optdb.register("merge3", MergeOptimizer(), "fast_run", "merge", position=100)
-# position 49: elemwise fusion, registered by aesara_tpu_torch.tensor.rewriting
+# position 1.7: BlasOpt, registered by aesara_tpu_torch.tensor.blas; position
+# 49: elemwise fusion, registered by aesara_tpu_torch.tensor.rewriting
 
 
 def register_canonicalize(rewrite, *tags, name=None):
@@ -55,6 +58,12 @@ class Mode:
     @property
     def optimizer(self):
         return optdb.query(self.query)
+
+    def including(self, *tags) -> "Mode":
+        return Mode(self.linker, self.query.including(*tags))
+
+    def excluding(self, *tags) -> "Mode":
+        return Mode(self.linker, self.query.excluding(*tags))
 
     def __str__(self):
         return f"Mode(linker={self.linker}, optimizer={self.query})"

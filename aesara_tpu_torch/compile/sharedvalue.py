@@ -3,7 +3,9 @@
 
 The value is a ``torch.Tensor`` on one explicit device, chosen when the
 variable is made (``device=``, else ``config.device``).  ``get_value``
-returns a NumPy copy and ``set_value`` takes NumPy.  ``default_update``
+returns a NumPy copy and ``set_value`` takes NumPy and writes it into the
+variable's storage, which updates also write into: a compiled step
+captured in a CUDA graph keeps reading that storage.  ``default_update``
 (reference ``aesara_tpu/compile/sharedvalue.py:44``) is an update that
 ``function()`` applies without being asked.
 """
@@ -40,8 +42,11 @@ class SharedVariable(Variable):
     def set_value(self, new_value) -> None:
         import torch
 
-        arr = self.type.filter(np.asarray(new_value))
-        self._value = torch.as_tensor(np.asarray(arr, order="C")).to(self.device, copy=True)
+        arr = torch.as_tensor(np.asarray(self.type.filter(np.asarray(new_value)), order="C"))
+        if self._value is not None and self._value.shape == arr.shape and self._value.dtype == arr.dtype:
+            self._value.copy_(arr)
+        else:
+            self._value = arr.to(self.device, copy=True)
 
     @property
     def value(self):

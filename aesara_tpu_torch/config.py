@@ -8,7 +8,11 @@ unless the caller asks for the CPU (``change_flags(device="cpu")`` or
 ``device="cpu"``), and on a machine without a card they raise.
 ``on_unused_input`` is what ``function()`` does with an input that
 nothing reads: "raise" (the default, as in the JAX package), "warn" or
-"ignore".
+"ignore".  ``allow_gc`` (the JAX package's flag, default True) lets the
+linker drop each intermediate after its last reader.  ``cuda_graph`` (the
+counterpart of ``jax_jit``, default True) makes ``TorchLinker`` capture
+each compiled step into a CUDA graph on the card; it has no effect on
+the CPU.
 """
 
 from __future__ import annotations
@@ -71,5 +75,7 @@ config = _Config()
 config.add("floatX", "float32", _enum("float32", "float64"))
 config.add("device", "cuda", _device)
 config.add("on_unused_input", "raise", _enum("raise", "warn", "ignore"))
+config.add("allow_gc", True, _enum(True, False))
+config.add("cuda_graph", True, _enum(True, False))
 
 change_flags = config.change_flags

@@ -17,7 +17,7 @@ from aesara_tpu_torch.graph.ir import Constant, io_toposort
 __all__ = [
     "Rewriter", "GraphRewriter", "NodeRewriter", "node_rewriter",
     "SequentialGraphRewriter", "EquilibriumGraphRewriter", "MergeOptimizer",
-    "copy_stack_trace",
+    "copy_stack_trace", "in2out",
 ]
 
 
@@ -121,6 +121,14 @@ def _process_node(fgraph, node, rewriter) -> bool:
     return True
 
 
+def _tracked(rewriter, op) -> bool:
+    """Whether ``rewriter`` tracks ``op`` (an op type it names, an equal op,
+    or every op)."""
+    tracks = rewriter.tracks()
+    return tracks is None or any((isinstance(t, type) and isinstance(op, t)) or (not isinstance(t, type) and op == t)
+                                 for t in tracks)
+
+
 class EquilibriumGraphRewriter(GraphRewriter):
     """Apply node rewriters over the graph until none fires, with a
     max-use guard against ping-pong loops (reference ``:2232``)."""
@@ -130,13 +138,7 @@ class EquilibriumGraphRewriter(GraphRewriter):
         self.max_use_ratio = max_use_ratio
 
     def _trackers(self, op):
-        for rw in self.rewriters:
-            tracks = rw.tracks()
-            if tracks is None or any(
-                (isinstance(t, type) and isinstance(op, t)) or (not isinstance(t, type) and op == t)
-                for t in tracks
-            ):
-                yield rw
+        return [rw for rw in self.rewriters if _tracked(rw, op)]
 
     def apply(self, fgraph):
         max_use = max(1, int(self.max_use_ratio * (len(fgraph.apply_nodes) + 10)))
@@ -169,16 +171,68 @@ class EquilibriumGraphRewriter(GraphRewriter):
         return f"EquilibriumGraphRewriter({self.rewriters})"
 
 
+class SequentialNodeRewriter(NodeRewriter):
+    """Its member node rewriters tried in order on one node; the first that
+    fires gives the replacements (reference ``:1208``)."""
+
+    def __init__(self, *rewriters):
+        self.rewriters = list(rewriters)
+
+    def transform(self, fgraph, node):
+        for rw in self.rewriters:
+            if _tracked(rw, node.op):
+                result = rw.transform(fgraph, node)
+                if result:
+                    return result
+        return False
+
+    def __str__(self):
+        return f"SequentialNodeRewriter({self.rewriters})"
+
+
+class WalkingGraphRewriter(GraphRewriter):
+    """One pass of a node rewriter over the graph, inputs to outputs; the
+    nodes a replacement brings in are visited next (reference ``:2002``)."""
+
+    def __init__(self, rewriter: NodeRewriter):
+        self.rewriter = rewriter
+
+    def apply(self, fgraph):
+        q = deque(io_toposort(fgraph.inputs, fgraph.outputs))
+        importer = _Importer(q, left=True)
+        fgraph.attach_feature(importer)
+        try:
+            while q:
+                node = q.popleft()
+                if node in fgraph.apply_nodes:
+                    importer.current = node
+                    _process_node(fgraph, node, self.rewriter)
+        finally:
+            fgraph.remove_feature(importer)
+
+    def __str__(self):
+        return f"WalkingGraphRewriter({self.rewriter})"
+
+
+def in2out(*rewriters, name=None) -> WalkingGraphRewriter:
+    """One inputs-to-outputs pass of ``rewriters``, the first that fires on
+    a node winning (reference ``in2out``)."""
+    rw = WalkingGraphRewriter(rewriters[0] if len(rewriters) == 1 else SequentialNodeRewriter(*rewriters))
+    rw.name = name
+    return rw
+
+
 class _Importer(Feature):
     """Queues nodes that a rewrite imports, so they are visited too."""
 
-    def __init__(self, q: deque):
+    def __init__(self, q: deque, left: bool = False):
         self.q = q
+        self.left = left
         self.current = None
 
     def on_import(self, fgraph, node, reason):
         if node is not self.current:
-            self.q.append(node)
+            (self.q.appendleft if self.left else self.q.append)(node)
 
 
 class MergeOptimizer(GraphRewriter):

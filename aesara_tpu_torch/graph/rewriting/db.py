@@ -14,6 +14,12 @@ class RewriteDatabaseQuery:
         self.include = frozenset(include)
         self.exclude = frozenset(exclude)
 
+    def including(self, *tags: str) -> "RewriteDatabaseQuery":
+        return RewriteDatabaseQuery(self.include | set(tags), self.exclude)
+
+    def excluding(self, *tags: str) -> "RewriteDatabaseQuery":
+        return RewriteDatabaseQuery(self.include, self.exclude | set(tags))
+
     def __str__(self):
         return f"RewriteDatabaseQuery(inc={sorted(self.include)}, exc={sorted(self.exclude)})"
 

@@ -6,6 +6,9 @@ An op with no registration raises ``NotImplementedError`` naming it.
 Values the linker keeps on the host (shape arithmetic) reach a lowering
 as NumPy values only at the positions listed in its ``host_inputs``
 attribute; every other input arrives as a tensor on the linker's device.
+A lowering whose results are host values says so (``host_outputs``), and
+one that makes the host wait for the device, so that no CUDA graph can
+capture it, says that (``capturable = False``).
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import numpy as np
 from aesara_tpu_torch.gradient import GradManipulatorOp
 from aesara_tpu_torch.scalar.composite import Composite
 from aesara_tpu_torch.tensor.basic import Alloc, ARange, MakeVector
+from aesara_tpu_torch.tensor.blas import Dot22, Dot22Scalar, Gemm, Gemv, Ger
 from aesara_tpu_torch.tensor.elemwise import CAReduce, DimShuffle, Elemwise, check_static_broadcast
 from aesara_tpu_torch.tensor.math import Argmax, Dot
 from aesara_tpu_torch.tensor.nnet.attention import FusedAttention, FusedAttentionGrad
@@ -26,7 +30,7 @@ from aesara_tpu_torch.tensor.special import LogSoftmax, Softmax, SoftmaxGrad
 from aesara_tpu_torch.tensor.subtensor import AdvancedIncSubtensor, AdvancedSubtensor
 from aesara_tpu_torch.link.torch.kernels.attention import flash_attention, flash_attention_grads
 from aesara_tpu_torch.link.torch.kernels.elemwise import (
-    ElemwiseKernel, apply_scalar_node, fused_elemwise, torch_dtype,
+    ElemwiseKernel, apply_scalar_node, fused_elemwise, refuse_negative_int_pow, torch_dtype,
 )
 from aesara_tpu_torch.link.torch.kernels.softmax import softmax_rows
 
@@ -43,6 +47,7 @@ def torch_funcify(op, node=None):
 def _torch_elemwise(op, node):
     static_shapes = [tuple(i.type.shape) for i in node.inputs]
     out_dtype = node.outputs[0].type.dtype
+    refuse_negative_int_pow(op.scalar_op, node.inputs)
     if isinstance(op.scalar_op, Composite):
         # the kernel is generated now, so an op without a Triton form
         # fails when the function is compiled
@@ -123,12 +128,21 @@ def _torch_make_vector(op, node):
 def _torch_shape_i(op, node):
     # a host value, so shape arithmetic downstream folds on the host
     i = op.i
-    return lambda x: np.asarray(x.shape[i], dtype=np.int64)
+
+    def shape_i(x):
+        return np.asarray(x.shape[i], dtype=np.int64)
+
+    shape_i.host_outputs = True
+    return shape_i
 
 
 @torch_funcify.register(Shape)
 def _torch_shape(op, node):
-    return lambda x: np.asarray(x.shape, dtype=np.int64)
+    def shape(x):
+        return np.asarray(x.shape, dtype=np.int64)
+
+    shape.host_outputs = True
+    return shape
 
 
 @torch_funcify.register(Reshape)
@@ -151,6 +165,82 @@ def _torch_dot(op, node):
         return torch.matmul(x.to(out_dtype), y.to(out_dtype))
 
     return dot
+
+
+def _coefficient(value, dtype):
+    """A BLAS coefficient (kept on the host by ``host_inputs``): the Python
+    number of a host value, as ``torch.addmm`` takes it, or the device
+    tensor, multiplied in as a tensor (reading it on the host would make
+    the host wait for the device)."""
+    return value.item() if isinstance(value, np.ndarray) else value.to(dtype)
+
+
+def _accumulate_lowering(node, fused, product):
+    """beta·z + alpha·product(operands) for Gemm, Gemv and Ger (Ger: beta
+    1), by ``fused(z, *operands, beta=, alpha=)`` (``torch.addmm``,
+    ``addmv``, ``addr``) where both coefficients are host values (the
+    constants and what the linker folds from them); a coefficient that
+    lives on the device is a tensor multiply instead."""
+    import torch
+
+    out_dtype = torch_dtype(node.outputs[0].type.dtype)
+    with_beta = len(node.inputs) == 5
+
+    def accumulate(z, alpha, *rest):
+        operands = [o.to(out_dtype) for o in (rest[:-1] if with_beta else rest)]
+        z = z.to(out_dtype)
+        alpha = _coefficient(alpha, out_dtype)
+        beta = _coefficient(rest[-1], out_dtype) if with_beta else 1
+        if not isinstance(alpha, torch.Tensor) and not isinstance(beta, torch.Tensor):
+            return fused(z, *operands, beta=beta, alpha=alpha)
+        return torch.add(z * beta, product(*operands) * alpha)
+
+    accumulate.host_inputs = (1, 4) if with_beta else (1,)
+    return accumulate
+
+
+@torch_funcify.register(Gemm)
+def _torch_gemm(op, node):
+    # the inplace flag changes nothing here: the port has no destroy
+    # handler, so no rewrite sets it, and the value is the same
+    import torch
+
+    return _accumulate_lowering(node, torch.addmm, torch.mm)
+
+
+@torch_funcify.register(Gemv)
+def _torch_gemv(op, node):
+    import torch
+
+    return _accumulate_lowering(node, torch.addmv, torch.mv)
+
+
+@torch_funcify.register(Ger)
+def _torch_ger(op, node):
+    import torch
+
+    return _accumulate_lowering(node, torch.addr, torch.outer)
+
+
+@torch_funcify.register(Dot22)
+def _torch_dot22(op, node):
+    import torch
+
+    out_dtype = torch_dtype(node.outputs[0].type.dtype)
+    return lambda x, y: torch.mm(x.to(out_dtype), y.to(out_dtype))
+
+
+@torch_funcify.register(Dot22Scalar)
+def _torch_dot22scalar(op, node):
+    import torch
+
+    out_dtype = torch_dtype(node.outputs[0].type.dtype)
+
+    def dot22scalar(x, y, a):
+        return torch.mm(x.to(out_dtype), y.to(out_dtype)) * _coefficient(a, out_dtype)
+
+    dot22scalar.host_inputs = (2,)
+    return dot22scalar
 
 
 @torch_funcify.register(FusedAttention)
@@ -247,9 +337,10 @@ def _torch_arange(op, node):
 
     def arange(start, stop, step):
         # the linker folds an arange of host values through perform; this
-        # runs only for bounds computed on the device
+        # runs only for bounds computed on the device, which the host reads
         return torch.arange(start.item(), stop.item(), step.item(), dtype=dtype, device=start.device)
 
+    arange.capturable = False
     return arange
 
 

@@ -175,9 +175,11 @@ def flash_attention(q, k, v, causal: bool = False, scale: Optional[float] = None
     return (out, lse) if with_lse else out
 
 
-#: launches of the CUDA kernel, and calls that took the plain version
+#: launches of the CUDA kernel, calls that took the plain version, and the
+#: launches replayed from captured graphs (tallied by the linker)
 flash_attention.launches = 0
 flash_attention.plain_calls = 0
+flash_attention.replayed = 0
 
 
 def flash_attention_grads(q, k, v, do, causal: bool = False, scale: Optional[float] = None):
@@ -217,6 +219,8 @@ def flash_attention_grads(q, k, v, do, causal: bool = False, scale: Optional[flo
     return dq, dk, dv
 
 
-#: launches of the CUDA kernels, and calls that took the plain version
+#: launches of the CUDA kernels, calls that took the plain version, and the
+#: launches replayed from captured graphs (tallied by the linker)
 flash_attention_grads.launches = 0
 flash_attention_grads.plain_calls = 0
+flash_attention_grads.replayed = 0

@@ -32,7 +32,17 @@ a bool and its branches in its output dtype; ``and``, ``or`` and
 ``invert`` are bitwise on integers and logical on bools.  A bool output
 is stored as one byte per element, as torch keeps ``torch.bool``.
 bfloat16 and float16 values are computed in fp32 and rounded after every
-op, as PyTorch does.  Integer ``pow`` has no Triton form.
+op, as PyTorch does.  Integer ``pow`` is square-and-multiply over the
+exponent's bits in the output's type (``ipow`` in the generated module),
+wrapping as the JAX package's does; a negative exponent gives the exact
+integer (1 for base 1, +-1 for base -1, 0 for every other base), and a
+constant negative exponent is refused when the function is compiled, as
+NumPy refuses it.  Unsigned types keep their own semantics (unsigned
+comparisons, wrapping negation, ``abs`` the identity); PyTorch has no
+arithmetic on uint16, uint32 and uint64 tensors, so the plain version
+computes on int64 carriers of the values (uint64: of their bits) and
+wraps each result to the output's width.  A non-finite constant is
+written ``float('inf')``, ``float('-inf')`` or ``float('nan')``.
 """
 
 from __future__ import annotations
@@ -44,10 +54,11 @@ import numpy as np
 
 from aesara_tpu_torch.scalar import ops as aes
 from aesara_tpu_torch.scalar.composite import Composite
+from aesara_tpu_torch.scalar.ops import discrete_dtypes
 
 
-__all__ = ["ElemwiseKernel", "composite_plain", "fused_elemwise", "scalar_torch_impl",
-           "torch_dtype"]
+__all__ = ["ElemwiseKernel", "composite_plain", "fused_elemwise", "refuse_negative_int_pow",
+           "scalar_torch_impl", "torch_dtype"]
 
 _LOW_PRECISION = ("bfloat16", "float16")
 _BLOCK = 1024
@@ -123,14 +134,109 @@ def _operand_dtypes(op, args_dtypes, out_dtype: str) -> List[str]:
     return [out_dtype] * len(args_dtypes)
 
 
+#: the unsigned types PyTorch has no arithmetic for, and the mask that wraps
+#: an int64 carrier to each (None: uint64's carrier holds its bits)
+_WIDE_UNSIGNED = {"uint16": 0xFFFF, "uint32": 0xFFFFFFFF, "uint64": None}
+_INT64_MIN = -(2**63)
+
+
+def _dtype_name(t) -> str:
+    return str(t.dtype).split(".")[-1]
+
+
+def _wrap(c, dtype: str):
+    """An int64 carrier wrapped to the unsigned ``dtype``'s width."""
+    mask = _WIDE_UNSIGNED[dtype]
+    return c if mask is None else c & mask
+
+
+def _carrier_cast(t, src: str, dst: str):
+    """``t`` (of dtype ``src``, or its int64 carrier when ``src`` is a wide
+    unsigned type) as ``dst`` (its carrier when ``dst`` is one): as NumPy's
+    ``astype``, wrapping integers and truncating floats toward zero."""
+    import torch
+
+    if src == dst:
+        return t
+    if dst in _WIDE_UNSIGNED:
+        if src not in discrete_dtypes:
+            # from a float: values of 2**63 and more wrap onto the sign bit
+            t = t.to(torch.float64)
+            big = t >= 2.0**63
+            t = torch.where(big, (t - 2.0**63).to(torch.int64) + _INT64_MIN, t.to(torch.int64))
+        return _wrap(t.to(torch.int64), dst)
+    if src == "uint64" and dst == "bool":
+        return t != 0
+    if src == "uint64" and dst not in discrete_dtypes:
+        # the two halves of the bits are exact in float64: one rounding
+        hi = ((t >> 32) & 0xFFFFFFFF).to(torch.float64)
+        return (hi * 2.0**32 + (t & 0xFFFFFFFF).to(torch.float64)).to(torch_dtype(dst))
+    return t.to(torch_dtype(dst))
+
+
+def _apply_unsigned(op, out_dtype: str, args, wants):
+    """``apply_scalar_node`` where an operand or the output is uint16,
+    uint32 or uint64: on int64 carriers, which hold the values of the
+    narrower two and the bits of uint64 (compared with their sign bit
+    flipped)."""
+    import torch
+
+    names = [_dtype_name(a) for a in args]
+    vals = [(a.view(torch.int64) if n == "uint64" else a.to(torch.int64)) if n in _WIDE_UNSIGNED else a
+            for a, n in zip(args, names)]
+    vals = [_carrier_cast(v, n, w) for v, n, w in zip(vals, names, wants)]
+    unsigned = wants[-1] in _WIDE_UNSIGNED
+    if unsigned and isinstance(op, aes.Abs):
+        res = vals[0]
+    elif unsigned and isinstance(op, aes.Sgn):
+        res = (vals[0] != 0).to(torch.int64)
+    else:
+        flip = wants[-1] == "uint64" and isinstance(
+            op, (aes.LogicalComparison, aes.Maximum, aes.Minimum, aes.Clip))
+        if flip:
+            vals = [v ^ _INT64_MIN for v in vals]
+        res = scalar_torch_impl(op)(*vals)
+        if flip and res.dtype != torch.bool:
+            res = res ^ _INT64_MIN
+    if out_dtype in _WIDE_UNSIGNED:
+        res = _wrap(res.to(torch.int64), out_dtype)
+        return res.view(torch.uint64) if out_dtype == "uint64" else res.to(torch_dtype(out_dtype))
+    out = torch_dtype(out_dtype)
+    return res.to(out) if res.dtype != out else res
+
+
 def apply_scalar_node(op, out_dtype: str, args):
     """Run one scalar op on tensors, its operands cast to the dtypes it
     reads them in."""
-    wants = _operand_dtypes(op, [str(a.dtype).split(".")[-1] for a in args], out_dtype)
+    names = [_dtype_name(a) for a in args]
+    wants = _operand_dtypes(op, names, out_dtype)
+    if any(d in _WIDE_UNSIGNED for d in names + wants + [out_dtype]):
+        return _apply_unsigned(op, out_dtype, args, wants)
     args = [a.to(torch_dtype(w)) if a.dtype != torch_dtype(w) else a for a, w in zip(args, wants)]
     res = scalar_torch_impl(op)(*args)
     out = torch_dtype(out_dtype)
     return res.to(out) if res.dtype != out else res
+
+
+def refuse_negative_int_pow(op, outer_inputs=()) -> None:
+    """Raise, when the function is compiled, where an integer ``pow`` of
+    the scalar op ``op`` (a Composite or one op) has a constant negative
+    exponent, as NumPy raises; ``outer_inputs`` are the Elemwise node's
+    inputs, of which the Constants count as constant exponents."""
+    from aesara_tpu_torch.graph.ir import Constant
+
+    if isinstance(op, Composite):
+        outer = {v: i.data for v, i in zip(op.inputs, outer_inputs) if isinstance(i, Constant)}
+        pows = [(n.inputs[1], n.outputs[0].type.dtype) for n in op.nodes if isinstance(n.op, aes.Pow)]
+    else:
+        outer = {}
+        pows = [(outer_inputs[1], None)] if isinstance(op, aes.Pow) and len(outer_inputs) == 2 else []
+    for exp, out_dtype in pows:
+        data = outer.get(exp, getattr(exp, "data", None))
+        dtype = out_dtype or exp.type.dtype
+        if (data is not None and dtype in discrete_dtypes and exp.type.dtype in discrete_dtypes
+                and bool(np.any(np.asarray(data) < 0))):
+            raise ValueError("Integers to negative integer powers are not allowed.")
 
 
 def composite_plain(composite: Composite, out_dtype: str, *args):
@@ -156,9 +262,32 @@ def composite_plain(composite: Composite, out_dtype: str, *args):
 
 _TL = {
     "bool": "tl.int1", "int8": "tl.int8", "int16": "tl.int16", "int32": "tl.int32",
-    "int64": "tl.int64", "uint8": "tl.uint8", "float16": "tl.float16",
+    "int64": "tl.int64", "uint8": "tl.uint8", "uint16": "tl.uint16", "uint32": "tl.uint32",
+    "uint64": "tl.uint64", "float16": "tl.float16",
     "bfloat16": "tl.bfloat16", "float32": "tl.float32", "float64": "tl.float64",
 }
+
+
+#: integer pow of the generated module: square-and-multiply over the
+#: exponent's BITS bits in the base's type (wrapping); with SIGNED, a
+#: negative exponent gives 1 for base 1, +-1 for base -1 and 0 otherwise
+_IPOW = [
+    "@triton.jit",
+    "def ipow(base, exp, BITS: tl.constexpr, SIGNED: tl.constexpr):",
+    "    one = base * 0 + 1",
+    "    result = one",
+    "    b = base",
+    "    e = exp",
+    "    for _ in tl.static_range(BITS):",
+    "        result = tl.where((e & 1) != 0, (result * b).to(base.dtype), result)",
+    "        b = (b * b).to(base.dtype)",
+    "        e = e >> 1",
+    "    if SIGNED:",
+    "        odd = (exp & 1) != 0",
+    "        small = tl.where(base == 1, one, tl.where(base == -1, tl.where(odd, -one, one), one * 0))",
+    "        result = tl.where(exp < 0, small, result)",
+    "    return result",
+]
 
 
 def _compute_dtype(dtype: str) -> str:
@@ -172,7 +301,8 @@ def _literal(value, dtype: str) -> str:
     elif dtype.startswith(("int", "uint")):
         text = repr(int(value))
     else:
-        text = repr(float(value))
+        # repr gives a bare inf or nan, names the generated module lacks
+        text = repr(float(value)) if np.isfinite(value) else f"float('{float(value)}')"
     return f"tl.full([BLOCK], {text}, {_TL[_compute_dtype(dtype)]})"
 
 
@@ -187,12 +317,15 @@ def _expr(op, args: List[str], dtype: str) -> str:
         return " * ".join(args)
     if isinstance(op, aes.Sub):
         return f"{args[0]} - {args[1]}"
+    if isinstance(op, aes.Pow) and dtype in discrete_dtypes and dtype != "bool":
+        bits = 8 * np.dtype(dtype).itemsize
+        return f"ipow({args[0]}, {args[1]}, {bits}, {not dtype.startswith('uint')})"
     if isinstance(op, (aes.TrueDiv, aes.Sqrt, aes.Exp, aes.Pow, aes.Log, aes.Cos, aes.Sin)) and not is_float:
         raise NotImplementedError(f"{op} into {dtype} has no Triton form")
     if isinstance(op, aes.TrueDiv):
         return f"tl.math.div_rn({args[0]}, {args[1]})"
     if isinstance(op, aes.Neg):
-        return f"-{args[0]}"
+        return f"-{args[0]}"   # wraps on unsigned types, as in NumPy
     if isinstance(op, aes.Sqr):
         return f"{args[0]} * {args[0]}"
     if isinstance(op, aes.Sqrt):
@@ -214,7 +347,7 @@ def _expr(op, args: List[str], dtype: str) -> str:
         m = f"tl.where(({x} > {lo}) | ({x} != {x}), {x}, {lo})"
         return f"tl.where(({m} < {hi}) | ({m} != {m}), {m}, {hi})"
     if isinstance(op, aes.Abs):
-        return args[0] if dtype == "bool" else f"tl.abs({args[0]})"
+        return args[0] if dtype == "bool" or dtype.startswith("uint") else f"tl.abs({args[0]})"
     if isinstance(op, aes.Sgn):
         a = args[0]
         sign = f"({a} > 0).to({_TL[_compute_dtype(dtype)]}) - ({a} < 0).to({_TL[_compute_dtype(dtype)]})"
@@ -302,6 +435,7 @@ class ElemwiseKernel:
             "    from triton.language.extra.cuda import libdevice",
             "",
             "",
+            *([*_IPOW, "", ""] if any("ipow(" in line for line in self.body) else []),
             "@triton.jit",
             f"def kernel({', '.join(params)}, BLOCK: tl.constexpr):",
             "    pid = tl.program_id(0)",
@@ -392,6 +526,8 @@ def fused_elemwise(kernel: ElemwiseKernel, *args):
     return out
 
 
-#: launches of the Triton kernel, and calls that took the plain version
+#: launches of the Triton kernel, calls that took the plain version, and the
+#: launches replayed from captured graphs (tallied by the linker)
 fused_elemwise.launches = 0
 fused_elemwise.plain_calls = 0
+fused_elemwise.replayed = 0

@@ -146,6 +146,8 @@ def softmax_rows(x, log: bool = False):
     return out if out.shape == x.shape else out.reshape(x.shape)
 
 
-#: launches of the CUDA kernel, and calls that took the plain version
+#: launches of the CUDA kernel, calls that took the plain version, and the
+#: launches replayed from captured graphs (tallied by the linker)
 softmax_rows.launches = 0
 softmax_rows.plain_calls = 0
+softmax_rows.replayed = 0

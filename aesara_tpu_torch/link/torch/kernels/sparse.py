@@ -51,7 +51,8 @@ def row_ids(a):
     import torch
 
     counts = (a.indptr[1:] - a.indptr[:-1]).long()
-    return torch.repeat_interleave(torch.arange(a.shape[0], device=counts.device), counts)
+    # the length given, so that the host does not wait for the device
+    return torch.repeat_interleave(torch.arange(a.shape[0], device=counts.device), counts, output_size=a.nnz)
 
 
 def csr_matmul_plain(a, b, out_dtype):
@@ -286,7 +287,8 @@ def csr_sddmm(a, gz, b):
     return a.with_data(out)
 
 
-#: launches of the CUDA kernels, and calls that took the plain version
-csr_spmv.launches = csr_spmv.plain_calls = 0
-csr_spmm.launches = csr_spmm.plain_calls = 0
-csr_sddmm.launches = csr_sddmm.plain_calls = 0
+#: launches of the CUDA kernels, calls that took the plain version, and the
+#: launches replayed from captured graphs (tallied by the linker)
+csr_spmv.launches = csr_spmv.plain_calls = csr_spmv.replayed = 0
+csr_spmm.launches = csr_spmm.plain_calls = csr_spmm.replayed = 0
+csr_sddmm.launches = csr_sddmm.plain_calls = csr_sddmm.replayed = 0

@@ -8,6 +8,10 @@
 - ``local_useless_switch`` (canonicalize): ``switch(c, x, x)`` is x
   broadcast against c, and a switch on a constant condition is the
   branch it takes.
+- ``local_sumsqr2dot`` (specialize, ``math.py:1286``): the full sum of a
+  square, ``sum(sqr(x))``, is ``dot(x.flatten(), x.flatten())``, one
+  product in place of a square and a reduction (the AdamW clip's global
+  norm).
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ from aesara_tpu_torch.graph.rewriting.basic import copy_stack_trace, node_rewrit
 from aesara_tpu_torch.scalar import ops as aes
 from aesara_tpu_torch.scalar.ops import discrete_dtypes
 from aesara_tpu_torch.tensor import math as tm
-from aesara_tpu_torch.tensor.basic import constant, zeros_like
+from aesara_tpu_torch.tensor.basic import cast, constant, zeros_like
 from aesara_tpu_torch.tensor.elemwise import Elemwise
 from aesara_tpu_torch.tensor.rewriting.basic import _const_val, _keep_type
 
@@ -70,3 +74,33 @@ def local_useless_switch(fgraph, node):
 
 register_specialize(local_pow_specialize)
 register_canonicalize(local_useless_switch)
+
+
+@node_rewriter([tm.Sum])
+def local_sumsqr2dot(fgraph, node):
+    """sum(sqr(x)) over every axis → dot(x.flatten(), x.flatten()), where
+    the square has no other reader and the sum accumulates in no wider a
+    type than x's (bf16 and f16 products accumulate in f32)."""
+    inner = node.inputs[0].owner
+    if (node.op.axis is not None or inner is None or not _is_elemwise(inner, aes.Sqr)
+            or len(fgraph.clients.get(node.inputs[0], ())) != 1):
+        return False
+    x = inner.inputs[0]
+    if x.type.dtype in discrete_dtypes or x.type.ndim == 0:
+        return False
+    out = node.outputs[0]
+    out_dt = np.dtype(out.type.dtype)
+    acc_dt = np.dtype(node.op.acc_dtype) if node.op.acc_dtype else out_dt
+    x_dt = np.dtype(x.type.dtype)
+    eff_acc = 4 if x.type.dtype in ("float16", "bfloat16") else x_dt.itemsize
+    if out_dt.itemsize > x_dt.itemsize or acc_dt.itemsize > eff_acc:
+        return False
+    flat = x.flatten()
+    res = tm.dot(flat, flat)
+    if res.type.dtype != out.type.dtype:
+        res = cast(res, out.type.dtype)
+    conv = out.type.convert_variable(res)
+    return False if conv is None else [copy_stack_trace(out, conv)]
+
+
+register_specialize(local_sumsqr2dot)

@@ -7,10 +7,21 @@ serve the sparse-input models, all through ``aesara_tpu_torch.function``.
     python3 chip_smoke.py --k6-sweep    # only K6's tuning table (see k6_sweep)
     python3 chip_smoke.py --k2-walk-sweep    # only K2's walked-tile table (see k2_walk_sweep)
     python3 chip_smoke.py --attention-times    # only K2's and K3's times (see attention_times)
-    python3 chip_smoke.py --profile-check    # only the trace's lost launches (see profile_check)
+    python3 chip_smoke.py --profile-check    # only how often a profiled window of predict loses launches
     python3 chip_smoke.py --k7-sweep    # only K7's tuning table (see k7_sweep)
     python3 chip_smoke.py --k4-times    # only K4 against torch.log_softmax, and its sweeps (see k4_times)
     python3 chip_smoke.py --k4-k7-times    # only K7's and K4's times, for two checkouts (see k4_k7_times)
+
+Every compiled function runs captured (``TorchLinker``'s default on the
+card): its first call with a key runs eagerly, the second captures the
+step into a CUDA graph, later ones replay it.  A kernel's wrapper counts
+its launches where it launches, the eager ones and those recorded into a
+graph while it is captured; a replay calls no wrapper, and the linker
+tallies the launches it replays apart (``.replayed``).  Every profiled
+run holds the trace's launches of K1-K7 to the launches plus the replay
+tally over the same calls, and fails if they differ.  Each path checks
+that its last call replayed a graph (a ``predict`` request that brings a
+new CSR matrix is a new key and runs eagerly, as it should).
 
 Phases (any failure raises and the exit code is non-zero):
 
@@ -42,8 +53,9 @@ Phases (any failure raises and the exit code is non-zero):
    through K1, K2 (forward and K3's recompute) and K3, and the loss falls
    below the first step's.
    Then 10 steps are timed back to back and 3 are profiled (after one
-   that the profiler traces and drops), the trace's launches of K1 and
-   K4-K7 held against the counters.  The same step at batch 1 on the card
+   that the profiler traces and drops and one lead-in that a marker
+   kernel sets apart in the trace), the trace's launches of K1-K7
+   held against the counters and the replay tally.  The same step at batch 1 on the card
    and on the CPU agrees after one step.
 4d. AdamW train: the same encoder trained the way its users train it,
    ``adamw(loss, params, lr=warmup_cosine(s, 1e-3, 2, 13),
@@ -62,8 +74,9 @@ Phases (any failure raises and the exit code is non-zero):
    gradient on the transposed twin, where two calls must give the same
    bits, and one ``predict`` request whose plan is made in the call) and
    K4 against their plain versions at the step's shapes; 3 sgd steps with
-   launch counts, 10 timed, 3 profiled; ``predict`` answers 3 requests;
-   one step at 512 documents on the card against the CPU.
+   launch counts, 10 timed, 3 profiled; ``predict`` answers 3 requests
+   and, captured, the last of them 3 times more under the profiler; one
+   step at 512 documents on the card against the CPU.
 6. (b) sparse GLM: the repo's config 5 at ``REFRATIO_SCALE=4``
    (``benchmarks/bench_reference_ratio.py:276-321``, 16384 x 8192 at
    density 0.01, without the Monte-Carlo noise): K5 against its plain
@@ -78,11 +91,26 @@ Phases (any failure raises and the exit code is non-zero):
 7. (c) the gradient with respect to x's stored values at the GLM's size,
    for a rhs of width 1 and of width 20: K7 (two calls with the same
    bits), and K6 at width 20, against their plain versions, the
-   function's launches, its output against the same function on the CPU.
+   function's launches, 3 captured calls at width 20 profiled, its output
+   against the same function on the CPU.
+8. captured against eager: every path above (the forward request, the
+   sgd and AdamW steps, the classifier step, ``predict`` of one request
+   sent again, the GLM's sgd and adam steps, path (c) at width 20) compiled
+   twice from the same seeds, captured and with ``use_graph=False``, each
+   driven alike (4 calls compared, then timed and profiled); a "capture
+   table" line for each gives its step time back
+   to back, host time of one call, device busy share (profiled), peak and
+   reserved memory and BLAS ops, and the largest difference between the
+   two runs' outputs and state (bitwise, or within CAPTURE_REL of each
+   tensor's scale).  A captured run's profile is held to its launches as
+   everywhere; an eager run whose trace lost launches in PROFILE_ATTEMPTS
+   sessions prints its busy share as not measured.
 
 The next-to-last lines are a JSON object describing the kernels (each
-kernel's launches from its path's run; K1-K3 also with their launches in
-path 4d's 3 steps, and K1 with its time and bound on the AdamW update)
+kernel's launches from its path's run, and beside them the launches that
+run replayed and those the trace showed in the path's profiled replays;
+K1-K3 also with their launches in path 4d's 3 steps, and K1 with its time
+and bound on the AdamW update)
 and the card's name and power limit; the last is
 ``{"ok": true, "device": {...}}``.
 """
@@ -107,7 +135,7 @@ N_LAYERS, D_MODEL, N_HEADS, D_FF = 4, 1024, 16, 4096
 BATCH, SEQ = 8, 1024
 N_REQUESTS = 3
 N_COMPOSITE = 5 * N_LAYERS + 1   # see check_graph
-N_COMPOSITE_TRAIN = 98           # see check_train_graph
+N_COMPOSITE_TRAIN = 74           # see check_train_graph
 N_TRAIN_STEPS, N_TIMED_STEPS, LR = 3, 10, 0.01
 F32_ATOL = 1e-4          # fp32 kernels against fp32 plain versions
 BF16_REL = 2e-2          # bf16 error relative to the output's scale
@@ -123,10 +151,12 @@ TRAIN_TOL = 1e-4         # card against CPU after one train step (reduction orde
 # largest lr of the steps compared
 ADAMW_LR, ADAMW_WARMUP, ADAMW_TOTAL = 1e-3, 2, 13
 ADAMW_WD, ADAMW_CLIP = 0.01, 1.0
-N_COMPOSITE_ADAMW = 197          # 98 of the sgd step, 2 a parameter, 3 on 0-d counters
+N_COMPOSITE_ADAMW = 197          # see check_train_graph
 N_ADAMW_CPU_STEPS = 2
 ADAMW_CANCEL_SHARE = 1e-2
 GLM_OPT_LR = 1e-3        # the GLM optimizers' learning rate
+CAPTURE_REL = 1e-6       # captured against eager, where not bitwise: of each tensor's largest value
+N_COMPARED_CALLS = 4     # phase 8: calls whose results captured and eager must share
 
 K1_SOURCE = "aesara_tpu_torch/link/torch/kernels/elemwise.py"
 K2_SOURCE = "aesara_tpu_torch/link/torch/kernels/csrc/flash_fwd.cu"
@@ -173,14 +203,26 @@ N_SPARSE_STEPS, N_SPARSE_TIMED = 3, 10
 SPLIT_WIDTHS = (1, 2, 4, 8, 16, 32)
 GRAD_WIDTHS = (1, 20)
 SPARSE_TOL = 1e-5        # fp32 K4-K7 against their plain versions (summation order)
-PROFILE_STEPS = 3        # calls in a profiled window, after one the profiler drops
+PROFILE_STEPS = 3        # calls counted in a profiled window, after one the profiler drops and a lead-in
 N_HOST_CALLS = 5         # calls whose host time time_steps takes the median of
-# idle host time at each edge of a profiled window: on the H100, a kernel
-# that runs within a fraction of a millisecond of a window's edge can be
-# missing from its trace (the device's timestamps, put on the host's clock,
-# can land before the launch that caused them); --profile-check
-# counts the sessions that lose launches with and without the gap
-PROFILE_GAP_S = 0.01
+# host time at each edge of a profiled window.  On the H100, once the card
+# has run hot, the trace's device timestamps lose up to all of a stretch
+# in which the card idles, so a kernel next to an idle edge can land
+# outside the window (PERF.md §7).  The card therefore spins through the
+# edges (torch.cuda._sleep, SPIN_CYCLES_PER_S cycles a second): see
+# spin_edge
+PROFILE_GAP_S = 0.1
+# the markers between a profiled window's lead-in call and its counted
+# calls: N_MARKERS spins of MARKER_S seconds each, told from the edges'
+# spins (gap / 2 and more) by lasting less than MARKER_LIMIT_S.  The trace
+# may lose the first records of a window (PERF.md §7), a lone marker too
+N_MARKERS, MARKER_S, MARKER_LIMIT_S = 16, 5e-5, 1e-2
+SPIN_CYCLES_PER_S = 1.98e9     # the H100 SXM's top SM clock
+PROFILE_LOAD_S = 15            # --profile-check: seconds of GEMMs before each round
+# sessions a profile may take before its trace must show every launch:
+# without a lead-in, a window lost the first call's K6 record in some
+# sessions of predict and in all 6 of one run (PERF.md §7)
+PROFILE_ATTEMPTS = 6
 
 
 def log(*args):
@@ -191,6 +233,28 @@ def card_line() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+
+
+def spin(seconds: float):
+    """Keep the card busy for at least ``seconds`` (``spin_kernel``, left
+    out of the device events), or longer at a lower clock."""
+    torch.cuda._sleep(int(seconds * SPIN_CYCLES_PER_S))
+
+
+def spin_edge(opening: bool, gap: float = PROFILE_GAP_S):
+    """``gap`` seconds of host time at an edge of a profiled window, the
+    card spinning through at least the first half of an opening edge (so
+    that the first call does not wait for it at clocks down to half the
+    top one) and through all of a closing edge."""
+    spin(gap / 2 if opening else gap)
+    time.sleep(gap)
+
+
+def device_events(prof) -> list:
+    """A trace's device events but the profiler's own ProfilerStep# ranges
+    (annotations, not work) and spin_edge's kernel."""
+    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.name.startswith("ProfilerStep") and "spin_kernel" not in e.name]
 
 
 def call_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -224,12 +288,12 @@ def device_split(fn, reps: int = 20, warmup: int = 3) -> dict:
         # on the H100 a profiler session now and then comes back without
         # device events; try it again
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            time.sleep(PROFILE_GAP_S)
+            spin_edge(opening=True)
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-            time.sleep(PROFILE_GAP_S)
-        device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+            spin_edge(opening=False)
+        device = device_events(prof)
         if device:
             break
         log(f"profiler session {attempt + 1} saw no device activity")
@@ -244,6 +308,13 @@ def device_split(fn, reps: int = 20, warmup: int = 3) -> dict:
 def device_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     """Device time of one call of ``fn`` (see ``device_split``)."""
     return sum(device_split(fn, reps, warmup).values())
+
+
+def release():
+    """Free what dropped functions held: a Function refers to itself, so
+    its captured graphs and their memory pools go with a collection."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def reset_peak():
@@ -309,17 +380,39 @@ def build_encoder(device: str):
     return layers, x, [h, tm.mean(tm.sqr(h))]
 
 
-def compile_encoder(device: str):
+def compile_encoder(device: str, use_graph=None):
     import aesara_tpu_torch as ptp
 
     _, x, outs = build_encoder(device)
-    return ptp.function([x], outs, mode=ptp.Mode(ptp.TorchLinker(device=device)))
+    return ptp.function([x], outs, mode=ptp.Mode(ptp.TorchLinker(device=device, use_graph=use_graph)))
 
 
-def composite_nodes(fgraph):
+def composite_nodes(fn):
+    """The Composite nodes of a compiled function that run on the card
+    (one K1 launch each): those the linker does not fold on the host."""
     from aesara_tpu_torch.scalar.composite import Composite
 
-    return [n for n in fgraph.toposort() if isinstance(getattr(n.op, "scalar_op", None), Composite)]
+    program = fn.fn.program
+    return [n for n, fold in zip(program.order, program.folds)
+            if not fold and isinstance(getattr(n.op, "scalar_op", None), Composite)]
+
+
+BLAS_OPS = ("Gemm", "Gemv", "Ger", "Dot22", "Dot22Scalar")
+
+
+def blas_counts(fn) -> str:
+    """The BLAS ops of a compiled function's graph, by op, and its Dots."""
+    names = [type(n.op).__name__ for n in fn.maker.fgraph.toposort()]
+    return ", ".join(f"{op} {names.count(op)}" for op in BLAS_OPS + ("Dot",))
+
+
+def require_captured(fn, label: str, captured: bool = True):
+    """Raise unless the last call of ``fn`` replayed a captured CUDA graph
+    (or, with ``captured`` False, did not)."""
+    log(f"{label}: last call {'replayed a captured CUDA graph' if fn.captured else 'ran eagerly'} "
+        f"(blocker: {fn.capture_blocker}; captured keys {fn.fn.n_graphs})")
+    if fn.captured != captured:
+        raise AssertionError(f"{label}: the last call was {'' if fn.captured else 'not '}captured")
 
 
 def guarded_inputs(comp):
@@ -419,8 +512,9 @@ def warm_k4():
         raise AssertionError("K4 warm-up did not launch or gave a wrong result")
 
 
-def phase_k1(fgraph, rng, skip=(), timed_shape=(BATCH, SEQ, D_MODEL)):
-    """K1 on each distinct Composite of ``fgraph`` (but those in ``skip``)
+def phase_k1(fn, rng, skip=(), timed_shape=(BATCH, SEQ, D_MODEL)):
+    """K1 on each distinct Composite that the compiled ``fn`` runs on the
+    card (but those in ``skip``)
     against its plain version: (max abs err, (ms, plain ms, bound ms, bound
     by, ms with the L2 flushed) of the Composite of the most ops (more
     than two) whose output has ``timed_shape``, or None, the Composite
@@ -432,7 +526,7 @@ def phase_k1(fgraph, rng, skip=(), timed_shape=(BATCH, SEQ, D_MODEL)):
     device = torch.device("cuda")
     k1_err, k1_times, timed = 0.0, None, []
     distinct = []     # one node of each Composite op, one with ``timed_shape`` where there is one
-    for node in composite_nodes(fgraph):
+    for node in composite_nodes(fn):
         if node.op in skip:
             continue
         known = [i for i, n in enumerate(distinct) if n.op == node.op]
@@ -520,7 +614,7 @@ def sdpa_backend(names) -> str:
     return "math (unfused)"
 
 
-def phase_kernels(fgraph):
+def phase_kernels(fn):
     from aesara_tpu_torch.link.torch.kernels.attention import attention_plain, flash_attention
 
     log(f"tolerances: fp32 max_abs_err <= {F32_ATOL}; bf16 <= {BF16_REL} x max|plain|; "
@@ -528,7 +622,7 @@ def phase_kernels(fgraph):
 
     rng = np.random.default_rng(0)
     device = torch.device("cuda")
-    k1_err, k1_times, _ = phase_k1(fgraph, rng)   # k1_times: the layer-norm scale Composite
+    k1_err, k1_times, _ = phase_k1(fn, rng)   # k1_times: the layer-norm scale Composite
     if k1_times is None:
         raise AssertionError("no layer-norm scale Composite among the forward's Composites")
 
@@ -592,14 +686,17 @@ def phase_kernels(fgraph):
     return k1_err, k1_times, k2_err, k2_times
 
 
-def check_graph(fgraph):
+def check_graph(fn):
     """The rewritten forward holds the fused nodes the kernels serve: per
     layer two layer-norm centres, two layer-norm scales and one bias+ReLU,
-    plus the tail of ``mean``; and one FusedAttention per layer."""
-    n_composite = len(composite_nodes(fgraph))
+    plus the tail of ``mean`` (its sum of squares is one dot since
+    ``local_sumsqr2dot``, and the size it divides by one more Composite,
+    folded on the host); and one FusedAttention per layer."""
+    fgraph = fn.maker.fgraph
+    n_composite = len(composite_nodes(fn))
     n_attention = sum(type(n.op).__name__ == "FusedAttention" for n in fgraph.toposort())
-    log(f"slice graph: {len(fgraph.toposort())} nodes, {n_composite} Composite, "
-        f"{n_attention} FusedAttention")
+    log(f"slice graph: {len(fgraph.toposort())} nodes, {n_composite} Composite on the card, "
+        f"{n_attention} FusedAttention; {blas_counts(fn)}")
     if n_composite != N_COMPOSITE or n_attention != N_LAYERS:
         raise AssertionError(f"{n_composite} Composite and {n_attention} FusedAttention nodes, "
                              f"expected {N_COMPOSITE} and {N_LAYERS}")
@@ -618,7 +715,8 @@ def phase_slice(fn):
         torch.cuda.synchronize()
         latencies.append((time.perf_counter() - t0) * 1e3)
         results.append((h, msq))
-    launches = read_counters({"K1": N_COMPOSITE * N_REQUESTS, "K2": N_LAYERS * N_REQUESTS}, "forward")
+    launches, _ = read_counters({"K1": N_COMPOSITE, "K2": N_LAYERS}, "forward", N_REQUESTS)
+    require_captured(fn, "forward")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     log(f"request latency ms: {[round(t, 3) for t in latencies]} (first includes kernel compiles)")
     log(f"peak device memory: {peak_gib:.3f} GiB")
@@ -671,7 +769,7 @@ def check_against_cpu(requests, results):
     torch.testing.assert_close(h_gpu, h_cpu, atol=SLICE_TOL, rtol=SLICE_TOL)
 
 
-def build_train_step(device: str, batch: int = BATCH, optimizer: str = "sgd"):
+def build_train_step(device: str, batch: int = BATCH, optimizer: str = "sgd", use_graph=None):
     """The flagship train step: the 4-layer encoder on a shared ``x``
     (normal × 0.1 from a seed, its first ``batch`` sequences), loss
     mean(h²), the loss returned on the card (``Out(borrow=True)``), and
@@ -700,24 +798,25 @@ def build_train_step(device: str, batch: int = BATCH, optimizer: str = "sgd"):
         lr = warmup_cosine(s, ADAMW_LR, ADAMW_WARMUP, ADAMW_TOTAL)
         updates = adamw(loss, params, lr=lr, weight_decay=ADAMW_WD, grad_clip=ADAMW_CLIP) + [(s, s + 1.0)]
     step = ptp.function([], ptp.Out(loss, borrow=True), updates=updates,
-                        mode=ptp.Mode(ptp.TorchLinker(device=device)))
+                        mode=ptp.Mode(ptp.TorchLinker(device=device, use_graph=use_graph)))
     return step, params, [t for t, _ in updates]
 
 
-def check_train_graph(fgraph, n_expected: int = N_COMPOSITE_TRAIN, label: str = "train"):
+def check_train_graph(fn, n_expected: int = N_COMPOSITE_TRAIN, label: str = "train"):
     """The rewritten train step holds one FusedAttention and one
     FusedAttentionGrad per layer, and the Composites K1 serves: with sgd
-    24 per layer and 2 more for the loss; with AdamW 2 more a parameter
-    (its moments and its update; the clipped gradient is one op) and 3 on
-    the 0-d counters (step, bias corrections and schedule, clip scale)."""
-    nodes = fgraph.toposort()
-    n_composite = len(composite_nodes(fgraph))
+    74 (the CPU graph of the same step; BlasOpt moves the learning rate
+    of the 24 weight gradients into Dot22Scalar, which takes 24 of the 98
+    Composites the step had without it); with AdamW 197 (the same count
+    as without BlasOpt: no gradient is scaled by a constant there)."""
+    nodes = fn.maker.fgraph.toposort()
+    n_composite = len(composite_nodes(fn))
     n_grad = sum(type(n.op).__name__ == "FusedAttentionGrad" for n in nodes)
     n_attention = sum(type(n.op).__name__ == "FusedAttention" for n in nodes)
-    n_scalar = sum(n.outputs[0].type.ndim == 0 for n in composite_nodes(fgraph))
+    n_scalar = sum(n.outputs[0].type.ndim == 0 for n in composite_nodes(fn))
     log(f"{label} graph: {len(nodes)} nodes, {n_composite} Composite "
-        f"({len({n.op for n in composite_nodes(fgraph)})} distinct, {n_scalar} 0-d), "
-        f"{n_attention} FusedAttention, {n_grad} FusedAttentionGrad")
+        f"({len({n.op for n in composite_nodes(fn)})} distinct, {n_scalar} 0-d), "
+        f"{n_attention} FusedAttention, {n_grad} FusedAttentionGrad; {blas_counts(fn)}")
     if (n_composite, n_attention, n_grad) != (n_expected, N_LAYERS, N_LAYERS):
         raise AssertionError(f"{n_composite} Composite, {n_attention} FusedAttention and {n_grad} "
                              f"FusedAttentionGrad nodes, expected {n_expected}, {N_LAYERS}, {N_LAYERS}")
@@ -865,14 +964,15 @@ def phase_train(step, params, n_composite: int = N_COMPOSITE_TRAIN, label: str =
         loss = step()
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-        losses.append(loss)
-    log(f"{label} step ms: {[round(t, 3) for t in times]} (first includes kernel compiles)")
-    launches = read_counters({"K1": n_composite * N_TRAIN_STEPS, "K2": 2 * N_LAYERS * N_TRAIN_STEPS,
-                              "K3": N_LAYERS * N_TRAIN_STEPS}, label)
-    for loss in losses:
         if not (loss.is_cuda and loss.shape == () and loss.dtype == torch.float32):
             raise AssertionError(f"loss {loss} is not a float32 scalar on the card")
-    values = [float(v) for v in losses]
+        # read now: a borrowed output is the captured graph's buffer, which
+        # the next replay writes
+        losses.append(float(loss))
+    log(f"{label} step ms: {[round(t, 3) for t in times]} (the first runs eagerly and compiles, the second "
+        f"captures)")
+    launches = read_counters({"K1": n_composite, "K2": 2 * N_LAYERS, "K3": N_LAYERS}, label, N_TRAIN_STEPS)
+    values = losses
     log(f"{label} losses: {values}")
     # sgd at lr 0.01 overshoots on this objective at full width: on the
     # CPU at batch 1 the JAX package and the port both go 3.0427 ->
@@ -906,29 +1006,64 @@ def kernel_group(name: str) -> str:
     return "other torch"
 
 
+COUNTED = ("K1", "K2", "K3", "K4", "K5", "K6", "K7")
+
+
 def counted_kernel(name: str):
-    """The counter ("K1", "K4"-"K7") whose one launch this device kernel
-    marks, or None: each wrapper call runs one such kernel (K6's fix-up
-    pass, a second kernel of the same call, marks none)."""
+    """The counter ("K1"-"K7") whose one launch this device kernel marks,
+    or None: each wrapper call runs one such kernel (K3's dk/dv pass and
+    K6's fix-up pass, second kernels of the same call, mark none; the
+    forward that K3 runs again before its backward is a K2 launch, and
+    K2's counter counts it)."""
     counter = kernel_group(name)[:2]
-    return counter if counter in ("K1", "K4", "K5", "K6", "K7") and "fixup" not in name else None
+    second = "fixup" in name or "dkdv" in name
+    return counter if counter in COUNTED and not second else None
+
+
+def after_marker(events) -> tuple:
+    """(the last marker's time range, the device events but the profiler's
+    step ranges and spins that start after its start) of a trace's
+    events, or (None, []) if it holds no marker: a spin shorter than
+    MARKER_LIMIT_S.  Every marker runs after the lead-in call and before
+    the counted ones, so any one of them that the trace kept will do."""
+    device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    markers = [e for e in device if "spin_kernel" in e.name and e.time_range.elapsed_us() < MARKER_LIMIT_S * 1e6]
+    if not markers:
+        return None, []
+    marker = max(markers, key=lambda e: e.time_range.start).time_range
+    return marker, [e for e in device if e.time_range.start > marker.start
+                    and not e.name.startswith("ProfilerStep") and "spin_kernel" not in e.name]
 
 
 def profile_session(fn, label: str, steps: int = PROFILE_STEPS, gap: float = PROFILE_GAP_S):
     """``steps`` calls of ``fn`` under torch.profiler, after one call that
     the profiler traces as its warm-up and drops, with ``gap`` seconds of
-    idle host time at each edge of the recorded window: (wall ms per call,
-    the device events, the launches of K1 and K4-K7 in the trace and by
-    the counters, the plain calls)."""
+    host time at each edge of the recorded window, the card spinning
+    through them as in ``spin_edge``.  Inside the window one more
+    call, the lead-in, runs before the counted ones and N_MARKERS short
+    spin kernels, the markers, follow it on the same stream: the trace
+    counts only what starts after the last marker it kept, so the records
+    it loses from the first launches of a window (PERF.md §7) fall on the
+    lead-in and the markers.  Returns (wall ms per call, the device events
+    after that marker, the launches of K1-K7 in them and by the counters
+    (the wrappers' launches plus the replay tally), the plain calls, and
+    a note on where the counted kernels lie after the marker's end, in
+    ms).  A trace without a marker counts no launches."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     for attempt in range(3):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=steps, repeat=1)) as prof:
+                     schedule=schedule(wait=0, warmup=1, active=steps + 1, repeat=1)) as prof:
             fn()
             torch.cuda.synchronize()
+            spin(gap / 2)           # before the window opens: no idle stretch in between
             prof.step()
             time.sleep(gap)
+            fn()                    # the lead-in
+            for _ in range(N_MARKERS):
+                spin(MARKER_S)
+            torch.cuda.synchronize()
+            prof.step()
             zero_counters()
             t0 = time.perf_counter()
             for i in range(steps):
@@ -936,43 +1071,56 @@ def profile_session(fn, label: str, steps: int = PROFILE_STEPS, gap: float = PRO
                 if i == steps - 1:
                     torch.cuda.synchronize()
                     wall = (time.perf_counter() - t0) * 1e3 / steps
+                    spin(gap)
                     time.sleep(gap)
                 prof.step()
-        # the profiler's own ProfilerStep# ranges also appear on the device
-        # timeline; they are annotations, not work
-        device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-                  and not e.name.startswith("ProfilerStep")]
-        if device:
+        if device_events(prof):
             break
         log(f"profiler session {attempt + 1} saw no device activity in the {label}")
     else:
         raise RuntimeError(f"the profiler saw no device activity in the {label}")
     counters = _all_counters()
-    counted = {k: counters[k].launches for k in ("K1", "K4", "K5", "K6", "K7")}
+    counted = {k: counters[k].launches + counters[k].replayed for k in COUNTED}
+    plain = sum(c.plain_calls for c in counters.values())
     traced = dict.fromkeys(counted, 0)
+    marker, device = after_marker(prof.events())
+    if marker is None:
+        return wall, [], traced, counted, plain, "no marker kernel in the trace"
     for e in device:
         if counted_kernel(e.name) is not None:
             traced[counted_kernel(e.name)] += 1
-    return wall, device, traced, counted, sum(c.plain_calls for c in counters.values())
+    marks = sorted((e.time_range.start, counted_kernel(e.name)) for e in device if counted_kernel(e.name))
+    note = f"last marker kept {marker.elapsed_us() / 1e3:.3f} ms"
+    if marks:
+        note += f"; first counted kernel {(marks[0][0] - marker.end) / 1e3:.3f} ms after its end"
+    if 0 < len(marks) <= 24:
+        note += "; counted kernels at " + " ".join(f"{k}@{(t - marker.end) / 1e3:.3f}" for t, k in marks) + " ms"
+    return wall, device, traced, counted, plain, note
 
 
-def profile_call(fn, label: str, steps: int = PROFILE_STEPS):
-    """A ``profile_session`` of ``fn`` whose trace shows, for K1 and K4-K7,
-    the launches that the counters count over the same calls: per call,
-    the wall time, the device busy time and its split by kernel group and
-    by kernel.  A session whose trace lost launches is logged and made
-    again; raises after three such sessions, or at once on a plain call."""
-    for attempt in range(3):
-        wall, device, traced, counted, plain = profile_session(fn, label, steps)
+def profile_call(fn, label: str, steps: int = PROFILE_STEPS, strict: bool = True):
+    """A ``profile_session`` of ``fn`` whose trace shows, for K1-K7, the
+    launches that the counters count over the same calls: per call, the
+    wall time, the device busy time and its split by kernel group and by
+    kernel.  A session whose trace lost launches is logged and made again;
+    raises after PROFILE_ATTEMPTS such sessions, or at once on a plain call.
+    Without ``strict`` (eager runs of phase 8 only), that many give a
+    busy time of None: not measured.  Returns (wall ms, busy ms or None,
+    the trace's launches)."""
+    for attempt in range(PROFILE_ATTEMPTS):
+        wall, device, traced, counted, plain, note = profile_session(fn, label, steps)
         if plain:
             raise AssertionError(f"profiled {label}: {plain} calls went to a plain version")
         if traced == counted:
             break
         log(f"profiler session {attempt + 1} of the {label} lost launches: trace {traced}, "
-            f"counters {counted}")
+            f"counters {counted}; {note}")
     else:
-        raise AssertionError(f"profiled {label}: in three sessions the trace showed launches {traced}, "
-                             f"the counters {counted}")
+        if strict:
+            raise AssertionError(f"profiled {label}: in {PROFILE_ATTEMPTS} sessions the trace showed launches "
+                                 f"{traced}, the counters {counted}")
+        log(f"profiled {label}: the trace lost launches in {PROFILE_ATTEMPTS} sessions; its busy time is not measured")
+        return wall, None, traced
     groups: dict = {}
     by_name: dict = {}
     for e in device:
@@ -982,22 +1130,27 @@ def profile_call(fn, label: str, steps: int = PROFILE_STEPS):
         group[1] += 1
         by_name[e.name[:70]] = by_name.get(e.name[:70], 0.0) + t
     busy = sum(t for t, _ in groups.values())
-    log(f"profiled {label}, {steps} calls after a dropped one: per call wall {wall:.3f} ms, device busy "
-        f"{busy:.3f} ms ({100 * busy / wall:.1f}%)")
+    log(f"profiled {label}, {steps} calls after a dropped one and a lead-in: per call wall {wall:.3f} ms, "
+        f"device busy {busy:.3f} ms ({100 * busy / wall:.1f}%)")
     for group, (t, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
         log(f"  {t:9.3f} ms  {100 * t / busy:5.1f}%  {n / steps:6.1f} kernels  {group}")
     for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         log(f"  {t:9.3f} ms  {name}")
-    log(f"  launches in {steps} calls, trace {traced}, counters {counted}; plain calls {plain}")
+    log(f"  launches in {steps} calls, trace {traced}, counters {counted}; plain calls {plain}; {note}")
+    return wall, busy, traced
 
 
-def time_steps(step, n: int, label: str):
+def time_steps(step, n: int, label: str, strict: bool = True):
     """``n`` steps back to back (host clock around work that ends in a
     synchronise), the host time of one step's call on an idle device
     (median of N_HOST_CALLS calls, each after a synchronise; where it
     comes near the step time, the host waits for the device inside the
-    call), the peak device memory since the last reset, and one profiled
-    step: (ms a step, peak GiB)."""
+    call), the peak device memory since the last reset and the memory the
+    allocator holds (a captured graph keeps its own pool), and one profiled
+    step: a dict of ms a step, host ms of one call, peak and reserved GiB,
+    the profiled wall and device busy ms a call (busy None: not measured,
+    only without ``strict``) and the trace's launches of K1-K7 over the
+    profiled calls."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(n):
@@ -1011,17 +1164,20 @@ def time_steps(step, n: int, label: str):
         step()
         calls.append((time.perf_counter() - t0) * 1e3)
         torch.cuda.synchronize()
+    reserved = torch.cuda.memory_reserved() / 2**30
     log(f"{label}: {n} steps back to back {ms:.3f} ms each; host time of one call {statistics.median(calls):.3f} "
-        f"ms (median of {N_HOST_CALLS}: {', '.join(f'{c:.3f}' for c in calls)}); peak device memory {peak:.3f} GiB")
-    profile_call(step, label)
-    return ms, peak
+        f"ms (median of {N_HOST_CALLS}: {', '.join(f'{c:.3f}' for c in calls)}); peak device memory {peak:.3f} GiB, "
+        f"reserved {reserved:.3f} GiB")
+    wall, busy, traced = profile_call(step, label, strict=strict)
+    return {"ms": ms, "host": statistics.median(calls), "peak": peak, "reserved": reserved, "wall": wall,
+            "busy": busy, "traced": traced}
 
 
 def time_train(step):
     """The flagship step back to back, its tokens a second, and one profiled."""
-    ms, peak = time_steps(step, N_TIMED_STEPS, "full-width train step")
-    log(f"full-width train step: {BATCH * SEQ / ms * 1e3:.1f} tokens/s ({BATCH}x{SEQ} tokens a step)")
-    return ms, peak
+    t = time_steps(step, N_TIMED_STEPS, "full-width train step")
+    log(f"full-width train step: {BATCH * SEQ / t['ms'] * 1e3:.1f} tokens/s ({BATCH}x{SEQ} tokens a step)")
+    return t
 
 
 def check_train_against_cpu():
@@ -1077,13 +1233,15 @@ def phase_adamw(sgd_ops):
     t0 = time.perf_counter()
     step, params, _ = build_train_step("cuda", optimizer="adamw")
     log(f"(d) AdamW train step compile (graph + grad + rewrites + link): {time.perf_counter() - t0:.2f} s")
-    check_train_graph(step.maker.fgraph, N_COMPOSITE_ADAMW, "(d) AdamW train")
-    k1_err, k1_times, _ = phase_k1(step.maker.fgraph, np.random.default_rng(3), skip=sgd_ops,
+    check_train_graph(step, N_COMPOSITE_ADAMW, "(d) AdamW train")
+    k1_err, k1_times, _ = phase_k1(step, np.random.default_rng(3), skip=sgd_ops,
                                    timed_shape=(D_MODEL, D_FF))
     if k1_times is None:
         raise AssertionError("no AdamW update Composite on a (d_model, d_ff) weight")
-    losses, launches = phase_train(step, params, N_COMPOSITE_ADAMW, "(d) AdamW train")
-    ms, peak = time_steps(step, N_TIMED_STEPS, "(d) AdamW train step")
+    losses, (launches, _) = phase_train(step, params, N_COMPOSITE_ADAMW, "(d) AdamW train")
+    t = time_steps(step, N_TIMED_STEPS, "(d) AdamW train step")
+    ms, peak = t["ms"], t["peak"]
+    require_captured(step, "(d) AdamW train step")
     log(f"(d) AdamW train step: {BATCH * SEQ / ms * 1e3:.1f} tokens/s ({BATCH}x{SEQ} tokens a step)")
     # the 3 counted and 10 timed steps cover the schedule (ADAMW_TOTAL);
     # past its end lr is 0, so the parameters and the loss stay put.  On
@@ -1095,6 +1253,7 @@ def phase_adamw(sgd_ops):
     if not (np.isfinite(final) and final < losses[0]):
         raise AssertionError(f"(d) AdamW: loss {final} after the schedule not below the first step's {losses[0]}")
     del step, params
+    release()
     t0 = time.perf_counter()
     (step_gpu, _, state_gpu), (step_cpu, params_cpu, state_cpu) = (
         build_train_step(dev, batch=1, optimizer="adamw") for dev in ("cuda", "cpu"))
@@ -1126,21 +1285,34 @@ def zero_counters():
     for c in _all_counters().values():
         c.launches = 0
         c.plain_calls = 0
+        c.replayed = 0
 
 
-def read_counters(want: dict, label: str) -> dict:
-    """The launches since ``zero_counters``; raises unless they are
-    ``want`` (kernels not named there: 0) and no plain version ran."""
+def read_counters(per_call: dict, label: str, calls: int = 1, launching: int = None, replays: int = None):
+    """The launches and the replay tally since ``zero_counters``, after
+    ``calls`` calls of one captured function with a new key, each of which
+    launches ``per_call`` (kernels not named there: 0): the first call
+    runs eagerly, the second captures (the wrappers count the launches
+    recorded into the graph) and replays, later ones replay.  Or, with
+    ``launching`` and ``replays``, that many calls of each kind.  Raises
+    unless both are as expected and no plain version ran; returns
+    (launches, replayed) by kernel."""
     counters = _all_counters()
+    launching = min(calls, 2) if launching is None else launching
+    replays = max(calls - 1, 0) if replays is None else replays
     launches = {k: c.launches for k, c in counters.items()}
+    replayed = {k: c.replayed for k, c in counters.items()}
     plain = sum(c.plain_calls for c in counters.values())
-    expected = {k: want.get(k, 0) for k in counters}
-    log(f"{label} launches {launches} (expected {expected}); plain calls {plain}")
-    if launches != expected:
-        raise AssertionError(f"{label}: launch counts {launches}, expected {expected}")
+    expected = {k: per_call.get(k, 0) * launching for k in counters}
+    expected_replayed = {k: per_call.get(k, 0) * replays for k in counters}
+    log(f"{label} launches {launches} (expected {expected}), replayed {replayed} (expected {expected_replayed}); "
+        f"plain calls {plain}")
+    if launches != expected or replayed != expected_replayed:
+        raise AssertionError(f"{label}: launch counts {launches} and replayed {replayed}, expected {expected} "
+                             f"and {expected_replayed}")
     if plain != 0:
         raise AssertionError(f"{label}: {plain} calls of a plain version on the card")
-    return launches
+    return launches, replayed
 
 
 def newsgroups_like(seed: int = 300):
@@ -1272,25 +1444,28 @@ def node_names(fgraph):
 
 
 def check_sparse_losses(losses, label: str):
-    values = [float(v) for v in losses]
+    values = list(losses)
     log(f"{label} losses: {values}")
     if not all(np.isfinite(values)) or not values[-1] < values[0]:
         raise AssertionError(f"{label}: loss not finite or not below the first step's: {values}")
 
 
 def run_steps(step, n: int, label: str):
-    """``n`` steps, each ending in a synchronise: (losses, ms per step)."""
+    """``n`` steps, each ending in a synchronise: the losses, read after
+    each step (a borrowed loss is a captured graph's buffer)."""
     losses, times = [], []
     for _ in range(n):
         t0 = time.perf_counter()
-        losses.append(step())
+        loss = step()
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-    log(f"{label} step ms: {[round(t, 3) for t in times]} (the first includes compiles and uploads)")
+        losses.append(float(loss))
+    log(f"{label} step ms: {[round(t, 3) for t in times]} (the first runs eagerly, compiles and uploads; the "
+        f"second captures)")
     return losses
 
 
-def build_logistic(device: str, xv, yv):
+def build_logistic(device: str, xv, yv, use_graph=None):
     """``LogisticRegression`` on a shared CSR x and shared labels: the sgd
     train step (loss on the card) and ``predict`` of a CSR argument."""
     import aesara_tpu_torch as ptp
@@ -1303,23 +1478,24 @@ def build_logistic(device: str, xv, yv):
         x, y = ptp.shared(xv, name="x"), ptp.shared(yv, name="y")
         model = LogisticRegression(xv.shape[1], NG_CLASSES, seed=0)
     loss = model.loss(x, y)
-    mode = ptp.Mode(ptp.TorchLinker(device=device))
+    mode = ptp.Mode(ptp.TorchLinker(device=device, use_graph=use_graph))
     step = ptp.function([], ptp.Out(loss, borrow=True), updates=sgd(loss, model.params, lr=SPARSE_LR),
                         mode=mode)
     xin = sparse.csr_matrix("xin", dtype="float32")
     return model, step, ptp.function([xin], model.predict(xin), mode=mode)
 
 
-def check_logistic_graph(fgraph) -> int:
+def check_logistic_graph(fn) -> int:
     """Usmm, LogSoftmax and StructuredDot(Transpose(x), .) and no
     DenseFromSparse; returns the number of Composites (K1 launches)."""
+    fgraph = fn.maker.fgraph
     nodes, names = fgraph.toposort(), node_names(fgraph)
     transposed = [n for n in nodes if type(n.op).__name__ == "StructuredDot"
                   and n.inputs[0].owner is not None and type(n.inputs[0].owner.op).__name__ == "Transpose"]
-    n_composite = len(composite_nodes(fgraph))
+    n_composite = len(composite_nodes(fn))
     log(f"logistic regression train graph: {len(nodes)} nodes, {names.count('Usmm')} Usmm, "
         f"{names.count('LogSoftmax')} LogSoftmax, {len(transposed)} StructuredDot(Transpose(x), .), "
-        f"{names.count('DenseFromSparse')} DenseFromSparse, {n_composite} Composite")
+        f"{names.count('DenseFromSparse')} DenseFromSparse, {n_composite} Composite; {blas_counts(fn)}")
     if (names.count("Usmm"), names.count("LogSoftmax"), len(transposed), names.count("DenseFromSparse")) != (
             1, 1, 1, 0):
         raise AssertionError(f"logistic regression graph: {names}")
@@ -1356,7 +1532,7 @@ def phase_logistic() -> dict:
     t0 = time.perf_counter()
     model, step, predict = build_logistic("cuda", xv, yv)
     log(f"(a) compile (graph + grad + rewrites + link): {time.perf_counter() - t0:.2f} s")
-    n_composite = check_logistic_graph(step.maker.fgraph)
+    n_composite = check_logistic_graph(step)
 
     cuda = torch.device("cuda")
     gen = torch.Generator(device=cuda).manual_seed(11)
@@ -1380,10 +1556,11 @@ def phase_logistic() -> dict:
     reset_peak()
     zero_counters()
     losses = run_steps(step, N_SPARSE_STEPS, "(a) logistic regression")
-    launches = read_counters({"K1": n_composite * N_SPARSE_STEPS, "K4": N_SPARSE_STEPS,
-                              "K6": 2 * N_SPARSE_STEPS}, "(a) logistic regression train")
+    launches = read_counters({"K1": n_composite, "K4": 1, "K6": 2}, "(a) logistic regression train", N_SPARSE_STEPS)
     check_sparse_losses(losses, "(a) logistic regression")
-    ms, peak = time_steps(step, N_SPARSE_TIMED, "(a) logistic regression train step")
+    t = time_steps(step, N_SPARSE_TIMED, "(a) logistic regression train step")
+    ms, peak, traced = t["ms"], t["peak"], t["traced"]
+    require_captured(step, "(a) logistic regression train step")
     log(f"(a) logistic regression: {NG_DOCS / ms * 1e3:.1f} documents/s ({NG_DOCS} a full-batch step)")
     for p in model.params:
         if not (p.value.is_cuda and bool(torch.isfinite(p.value).all())):
@@ -1397,9 +1574,17 @@ def phase_logistic() -> dict:
         answers.append(predict(req))
         torch.cuda.synchronize()
         latencies.append((time.perf_counter() - t0) * 1e3)
-    read_counters({"K6": N_REQUESTS}, "(a) predict")
+    # each request is a new SciPy matrix, so a new key: it runs eagerly
+    read_counters({"K6": 1}, "(a) predict", launching=N_REQUESTS, replays=0)
     log(f"(a) predict: {N_REQUESTS} requests of {NG_REQUEST_DOCS} documents (CSR from the host, "
         f"uploaded per request), latency ms {[round(t, 3) for t in latencies]}")
+    require_captured(predict, "(a) predict on a new CSR request", captured=False)
+    again = predict(requests[-1])
+    if not torch.equal(again, answers[-1]):
+        raise AssertionError("(a) predict: the captured request's answer differs from the eager one's")
+    require_captured(predict, "(a) predict on the same CSR request again")
+    profile_call(lambda: predict(requests[-1]), "(a) predict, the same request again, captured")
+    require_captured(predict, "(a) predict, profiled")
     w_host, b_host = model.w.get_value(), model.b.get_value()
     for req, got in zip(requests, answers):
         want = np.argmax(req @ w_host + b_host, axis=1)
@@ -1410,7 +1595,7 @@ def phase_logistic() -> dict:
     del step, predict, model
     check_logistic_against_cpu(xv, yv)
     return {"K4": k4, "K6": k6, "K6_grad": k6_grad, "K6_request": k6_request, "launches": launches, "ms": ms,
-            "peak": peak}
+            "traced": traced, "data": (xv, yv), "peak": peak}
 
 
 #: path (b)'s optimizers: steps each takes on the card and on the CPU, and
@@ -1437,7 +1622,7 @@ def glm_updates(recipe: str, loss, w):
     return optim.scaled_loss_updates(loss, [w], adamw) + optim.ema_updates([w], decay=0.99)[0]
 
 
-def build_glm(device: str, xv, yv, wv, recipe: str = "sgd"):
+def build_glm(device: str, xv, yv, wv, recipe: str = "sgd", use_graph=None):
     """The GLM step of bench_reference_ratio.py:290-295 without eps:
     pred = structured_dot(x, w[:, None]).flatten(), mean((pred - y)^2),
     one update of w by sgd or another optimizer: (step, update targets)."""
@@ -1453,7 +1638,7 @@ def build_glm(device: str, xv, yv, wv, recipe: str = "sgd"):
         loss = tm.mean(tm.sqr(pred - y))
         updates = glm_updates(recipe, loss, w)
     step = ptp.function([], ptp.Out(loss, borrow=True), updates=updates,
-                        mode=ptp.Mode(ptp.TorchLinker(device=device)))
+                        mode=ptp.Mode(ptp.TorchLinker(device=device, use_graph=use_graph)))
     return step, [t for t, _ in (updates.items() if isinstance(updates, dict) else updates)]
 
 
@@ -1466,15 +1651,14 @@ def phase_glm_optimizers(xv, yv, wv) -> float:
     for recipe, (steps, normalised) in GLM_OPTIMIZERS.items():
         t0 = time.perf_counter()
         step, state = build_glm("cuda", xv, yv, wv, recipe)
-        fgraph = step.maker.fgraph
-        n_composite = len(composite_nodes(fgraph))
-        err, _, ops = phase_k1(fgraph, np.random.default_rng(4), skip=checked, timed_shape=None)
+        n_composite = len(composite_nodes(step))
+        err, _, ops = phase_k1(step, np.random.default_rng(4), skip=checked, timed_shape=None)
         k1_err, checked = max(k1_err, err), checked | ops
         torch.cuda.synchronize()
         zero_counters()
         losses = [step() for _ in range(steps)]
         torch.cuda.synchronize()
-        read_counters({"K1": n_composite * steps, "K5": 2 * steps}, f"(b) GLM {recipe}")
+        read_counters({"K1": n_composite, "K5": 2}, f"(b) GLM {recipe}", steps)
         step_cpu, state_cpu = build_glm("cpu", xv, yv, wv, recipe)
         losses_cpu = [step_cpu() for _ in range(steps)]
         for got, want in zip(losses, losses_cpu):
@@ -1482,8 +1666,11 @@ def phase_glm_optimizers(xv, yv, wv) -> float:
         # rmsprop's first step moves an entry by up to lr / sqrt(1 - rho)
         cancel = 2 * GLM_OPT_LR / np.sqrt(1 - 0.9) if normalised else None
         compare_state(f"(b) GLM {recipe}, {steps} step(s), {n_composite} Composites "
-                      f"({', '.join(sorted({str(n.op.scalar_op) for n in composite_nodes(fgraph)}))})",
+                      f"({', '.join(sorted({str(n.op.scalar_op) for n in composite_nodes(step)}))})",
                       state, state_cpu, TRAIN_TOL, cancel_atol=cancel, params={"w"})
+        if steps < 2:
+            step()      # the second call with the key: captured
+        require_captured(step, f"(b) GLM {recipe}")
         log(f"(b) GLM {recipe}: losses {[float(v) for v in losses]}; {time.perf_counter() - t0:.2f} s")
     return k1_err
 
@@ -1518,25 +1705,29 @@ def phase_glm():
     step, _ = build_glm("cuda", xv, yv, wv)
     log(f"(b) compile (graph + grad + rewrites + link): {time.perf_counter() - t0:.2f} s")
     names = node_names(step.maker.fgraph)
-    n_composite = len(composite_nodes(step.maker.fgraph))
+    n_composite = len(composite_nodes(step))
     log(f"(b) GLM train graph: {len(names)} nodes, {names.count('StructuredDot')} StructuredDot, "
-        f"{names.count('DenseFromSparse')} DenseFromSparse, {n_composite} Composite")
+        f"{names.count('DenseFromSparse')} DenseFromSparse, {n_composite} Composite; {blas_counts(step)}")
     if names.count("StructuredDot") != 2 or "DenseFromSparse" in names:
         raise AssertionError(f"GLM graph: {names}")
     torch.cuda.synchronize()
     reset_peak()
     zero_counters()
     losses = run_steps(step, N_SPARSE_STEPS, "(b) GLM")
-    launches = read_counters({"K1": n_composite * N_SPARSE_STEPS, "K5": 2 * N_SPARSE_STEPS}, "(b) GLM train")
+    launches = read_counters({"K1": n_composite, "K5": 2}, "(b) GLM train", N_SPARSE_STEPS)
     check_sparse_losses(losses, "(b) GLM")
-    ms, peak = time_steps(step, N_SPARSE_TIMED, "(b) GLM train step")
+    t = time_steps(step, N_SPARSE_TIMED, "(b) GLM train step")
+    ms, peak, traced = t["ms"], t["peak"], t["traced"]
+    require_captured(step, "(b) GLM train step")
     log(f"(b) GLM: {1e3 / ms:.1f} steps/s")
     del step
     k1_err = phase_glm_optimizers(xv, yv, wv)
-    return {"K5": k5, "K5_grad": k5_grad, "launches": launches, "ms": ms, "peak": peak, "k1_err": k1_err}, xv
+    return {"K5": k5, "K5_grad": k5_grad, "launches": launches, "ms": ms, "peak": peak, "k1_err": k1_err,
+            "traced": traced}, (
+        xv, yv, wv)
 
 
-def build_values_grad(device: str):
+def build_values_grad(device: str, use_graph=None):
     """grad(sum(structured_dot(x, b)^2), x) for a CSR argument x."""
     import aesara_tpu_torch as ptp
     from aesara_tpu_torch import sparse
@@ -1545,7 +1736,8 @@ def build_values_grad(device: str):
 
     x, b = sparse.csr_matrix("x", dtype="float32"), matrix("b", dtype="float32")
     cost = tm.sum(tm.sqr(sparse.structured_dot(x, b)))
-    return ptp.function([x, b], ptp.grad(cost, x), mode=ptp.Mode(ptp.TorchLinker(device=device)))
+    return ptp.function([x, b], ptp.grad(cost, x),
+                        mode=ptp.Mode(ptp.TorchLinker(device=device, use_graph=use_graph)))
 
 
 def phase_values_grad(xv) -> dict:
@@ -1572,7 +1764,8 @@ def phase_values_grad(xv) -> dict:
         raise AssertionError(f"values-gradient graph: {names}")
     rng = np.random.default_rng(14)
     rhs = {C: rng.normal(size=(GLM_D, C)).astype("float32") for C in GRAD_WIDTHS}
-    f_gpu(xv, rhs[GRAD_WIDTHS[0]])          # uploads x once; later calls reuse it
+    for C in GRAD_WIDTHS:
+        f_gpu(xv, rhs[C])          # one eager call a width (a key each); the next is captured
     torch.cuda.synchronize()
     reset_peak()
     zero_counters()
@@ -1581,8 +1774,15 @@ def phase_values_grad(xv) -> dict:
         t0 = time.perf_counter()
         outs[C] = f_gpu(xv, rhs[C])
         latencies.append((time.perf_counter() - t0) * 1e3)
+        require_captured(f_gpu, f"(c) values gradient, width {C}")
+    # each call is its key's second: it captures (the wrappers count the
+    # launches recorded into the graph) and replays
     launches = read_counters({"K7": len(GRAD_WIDTHS), "K5": sum(C <= SPMV_MAX_C for C in GRAD_WIDTHS),
-                              "K6": sum(C > SPMV_MAX_C for C in GRAD_WIDTHS)}, "(c) values gradient")
+                              "K6": sum(C > SPMV_MAX_C for C in GRAD_WIDTHS)}, "(c) values gradient",
+                             launching=1, replays=1)
+    C = max(GRAD_WIDTHS)
+    _, _, traced = profile_call(lambda: f_gpu(xv, rhs[C]), f"(c) values gradient, width {C}, captured")
+    require_captured(f_gpu, f"(c) values gradient, width {C}, profiled")
     log(f"(c) values gradient, widths {GRAD_WIDTHS}: call ms {[round(t, 3) for t in latencies]} "
         f"(the result goes back to SciPy); peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
@@ -1595,13 +1795,142 @@ def phase_values_grad(xv) -> dict:
         np.testing.assert_allclose(got.data, want.data, atol=1e-4, rtol=SPARSE_TOL)
         log(f"(c) width {C}: card vs CPU, same pattern ({got.nnz} entries), max abs err {err:.3e}")
     return {"K7": k7[max(GRAD_WIDTHS)], "K7_err": max(r["max_abs_err"] for r in k7.values()),
-            "K6": k6, "launches": launches}
+            "K6": k6, "launches": launches, "traced": traced}
 
 
-def kernel_line(name, route, source, replaces, launches, res):
-    return {"name": name, "route": route, "source": source, "replaces": replaces, "launches": launches,
+# ---------------------------------------------------------------------------
+# every path captured and eager, in one process
+# ---------------------------------------------------------------------------
+
+def _host(value):
+    """A result on the host, to compare after the function is gone: a
+    tensor's values, a SciPy matrix's values (its pattern is x's)."""
+    if isinstance(value, (list, tuple)):
+        return [_host(v) for v in value]
+    if isinstance(value, torch.Tensor):
+        return value.detach().cpu().numpy()
+    return np.asarray(value.data).copy()
+
+
+def _paths(ng, glm):
+    """(label, build(use_graph) -> (function, call, state variables)) of
+    every path the smoke drives, each built from the same seeds."""
+    ng_x, ng_y = ng
+    glm_x, glm_y, glm_w = glm
+    request = np.random.default_rng(100).normal(size=(BATCH, SEQ, D_MODEL)).astype("float32")
+    rhs = np.random.default_rng(14).normal(size=(GLM_D, max(GRAD_WIDTHS))).astype("float32")
+    docs = ng_x[:NG_REQUEST_DOCS]
+
+    def forward(g):
+        fn = compile_encoder("cuda", use_graph=g)
+        return fn, lambda: fn(request), []
+
+    def train(optimizer):
+        def build(g):
+            step, _, state = build_train_step("cuda", optimizer=optimizer, use_graph=g)
+            return step, step, state
+        return build
+
+    def classifier(g):
+        model, step, _ = build_logistic("cuda", ng_x, ng_y, use_graph=g)
+        return step, step, model.params
+
+    def predict(g):
+        _, _, fn = build_logistic("cuda", ng_x, ng_y, use_graph=g)
+        return fn, lambda: fn(docs), []
+
+    def glm_step(recipe):
+        def build(g):
+            step, state = build_glm("cuda", glm_x, glm_y, glm_w, recipe, use_graph=g)
+            return step, step, state
+        return build
+
+    def values_grad(g):
+        fn = build_values_grad("cuda", use_graph=g)
+        return fn, lambda: fn(glm_x, rhs), []
+
+    return [("encoder forward request", forward), ("encoder train step (sgd)", train("sgd")),
+            ("(d) encoder train step (AdamW)", train("adamw")), ("(a) classifier train step", classifier),
+            ("(a) predict, one request again", predict), ("(b) GLM train step", glm_step("sgd")),
+            ("(b) GLM adam step", glm_step("adam")), ("(c) values gradient, width 20", values_grad)]
+
+
+def _difference(captured, eager) -> tuple:
+    """(largest |difference|, largest |difference| over its tensor's
+    largest |value|, whether every one is bitwise equal) of two lists of
+    host arrays."""
+    diff, rel, same = 0.0, 0.0, True
+    for a, b in zip(captured, eager):
+        a, b = np.asarray(a), np.asarray(b)
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise AssertionError(f"captured {a.shape} {a.dtype} against eager {b.shape} {b.dtype}")
+        same = same and np.array_equal(a, b, equal_nan=True)
+        d = float(np.abs(a.astype("float64") - b.astype("float64")).max()) if a.size else 0.0
+        scale = float(np.abs(b.astype("float64")).max()) if b.size else 0.0
+        diff, rel = max(diff, d), max(rel, d / scale if scale else d)
+    return diff, rel, same
+
+
+def phase_capture(ng, glm):
+    """Every path compiled twice from the same seeds: captured (the
+    default) and eager (``use_graph=False``), one after the other, each
+    driven alike: 4 calls (eager, captured, replayed twice), then back to
+    back, host time of one call and a profile (``time_steps``).  Each
+    prints its step time, host time of one call, device busy share, peak
+    and reserved memory and BLAS ops; the captured run's results after the
+    4 calls (every call's outputs, then every piece of state) against the
+    eager run's: bitwise, or else within CAPTURE_REL of each tensor's
+    largest value (cuBLAS may pick another algorithm under capture)."""
+    summary = []
+    for label, build in _paths(ng, glm):
+        runs = {}
+        for use_graph in (True, False):
+            mode = "captured" if use_graph else "eager"
+            t0 = time.perf_counter()
+            fn, call, state = build(use_graph)
+            compile_s = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            reset_peak()
+            # eager, captured, replayed twice; compared before the timing,
+            # whose profile may take the step a varying number of times
+            outs = [_host(call()) for _ in range(N_COMPARED_CALLS)]
+            require_captured(fn, f"{label}, {mode}", captured=use_graph)
+            compared = dict(outs=[a for out in outs for a in (out if isinstance(out, list) else [out])],
+                            state=[v.get_value() for v in state])
+            # an eager run whose trace loses launches in every session
+            # prints its busy share as not measured; a captured run's must
+            # match, as in the main phases
+            t = time_steps(call, N_TIMED_STEPS, f"{label}, {mode}", strict=use_graph)
+            runs[mode] = dict(t, **compared, blas=blas_counts(fn), compile_s=compile_s)
+            del fn, call, state
+            release()
+        cap, eag = runs["captured"], runs["eager"]
+        diff, rel, same = _difference(cap["outs"] + cap["state"], eag["outs"] + eag["state"])
+        for mode, r in runs.items():
+            busy = ("not measured (the trace lost launches)" if r["busy"] is None
+                    else f"{r['busy']:.3f} of {r['wall']:.3f} ms ({100 * r['busy'] / r['wall']:.1f}%)")
+            log(f"capture table | {label} | {mode} | {r['ms']:.3f} ms back to back | host {r['host']:.3f} ms a "
+                f"call | busy {busy} | peak "
+                f"{r['peak']:.3f} GiB, reserved {r['reserved']:.3f} GiB | compile {r['compile_s']:.2f} s | "
+                f"{r['blas']}")
+        log(f"capture table | {label} | captured vs eager over {len(cap['outs'])} outputs and "
+            f"{len(cap['state'])} state variables: {'bitwise equal' if same else 'not bitwise equal'}, largest "
+            f"difference {diff:.3e} ({rel:.3e} of its tensor's scale)")
+        if not same and rel > CAPTURE_REL:
+            raise AssertionError(f"{label}: captured and eager differ by {rel:.3e} of a tensor's scale")
+        summary.append((label, same, diff))
+    return summary
+
+
+def kernel_line(name, route, source, replaces, key, path, res):
+    """One kernel's entry: ``path`` is the (launches, replayed) of its
+    path's counted run and the launches its profiled replays showed in the
+    trace, each by kernel; ``res`` its check against the plain version."""
+    (launches, replayed), traced = path
+    return {"name": name, "route": route, "source": source, "replaces": replaces, "launches": launches[key],
             "max_abs_err": res["max_abs_err"], "ms": res["ms"], "plain_ms": res["plain_ms"],
-            "bound_ms": res["bound_ms"], "bound_by": res["bound_by"], "library_ms": res["library_ms"]}
+            "bound_ms": res["bound_ms"], "bound_by": res["bound_by"], "library_ms": res["library_ms"],
+            "replayed": replayed[key], "profiled_launches": traced[key]}
 
 
 def k6_sweep():
@@ -2063,27 +2392,48 @@ def k2_walk_sweep():
     print(smi)
 
 
-def profile_check(sessions: int = 100):
-    """How often a profiled window of the GLM step loses launches from its
-    trace, with no idle gap at its edges and with PROFILE_GAP_S, in
-    ``sessions`` sessions each, taken in turns.  Raises if any session with
-    the gap lost one."""
+def load_card(seconds: float = PROFILE_LOAD_S):
+    """Run fp32 GEMMs on the card for ``seconds``, as the encoder phases do."""
+    a = torch.randn(4096, 4096, device="cuda")
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        a = (a @ a).clamp_(-1, 1)
+    torch.cuda.synchronize()
+
+
+def profile_check(sessions: int = 12, rounds: int = 3):
+    """How often a profiled window (``profile_session``) of ``predict``
+    on one 1,000-document request, captured and eager, loses launches
+    from its trace, and how often every marker: ``rounds`` rounds of
+    ``sessions`` sessions of each, taken in turns, each round after
+    PROFILE_LOAD_S of GEMMs; between sessions the card idles 0.3 s.
+    Raises if any session lost one."""
     smi = phase_setup()
-    xv, yv, wv = glm_data()
-    step = build_glm("cuda", xv, yv, wv)
-    run_steps(step, N_SPARSE_STEPS, "(b) GLM")
-    lost = {0.0: 0, PROFILE_GAP_S: 0}
-    for i in range(sessions):
-        for gap in lost:
-            _, _, traced, counted, _ = profile_session(step, "(b) GLM train step", gap=gap)
-            if traced != counted:
-                lost[gap] += 1
-                log(f"session {i}, gap {gap} s: trace {traced}, counters {counted}")
-    log(f"sessions of {PROFILE_STEPS} GLM steps that lost launches from the trace, of {sessions}: "
-        f"{', '.join(f'gap {gap} s: {n}' for gap, n in lost.items())}")
+    xv, yv = newsgroups_like()
+    docs = xv[:NG_REQUEST_DOCS]
+    calls = {}
+    for use_graph in (True, False):
+        _, _, fn = build_logistic("cuda", xv, yv, use_graph=use_graph)
+        for _ in range(3):
+            fn(docs)
+        calls["captured" if use_graph else "eager"] = lambda fn=fn: fn(docs)
+    lost = {mode: [0, 0] for mode in calls}
+    for r in range(rounds):
+        load_card()
+        for i in range(sessions):
+            for mode, call in calls.items():
+                _, _, traced, counted, _, note = profile_session(call, f"(a) predict, {mode}")
+                if traced != counted:
+                    lost[mode][0] += 1
+                    lost[mode][1] += note.startswith("no marker")
+                    log(f"round {r}, session {i}, {mode}: trace {traced}, counters {counted}; {note}")
+                time.sleep(0.3)
+    log(f"sessions of {PROFILE_STEPS} predict calls that lost launches (of them, every marker), of "
+        f"{rounds * sessions} after {PROFILE_LOAD_S} s of GEMMs a round: "
+        f"{', '.join(f'{mode}: {n} ({m})' for mode, (n, m) in lost.items())}")
     print(smi)
-    if lost[PROFILE_GAP_S]:
-        raise AssertionError(f"{lost[PROFILE_GAP_S]} sessions lost launches with a gap of {PROFILE_GAP_S} s")
+    if any(n for n, _ in lost.values()):
+        raise AssertionError(f"profiled windows of predict lost launches: {lost}")
 
 
 def main():
@@ -2099,8 +2449,8 @@ def main():
     t0 = time.perf_counter()
     fn = compile_encoder("cuda")
     log(f"compile (graph + rewrites + link): {time.perf_counter() - t0:.2f} s")
-    check_graph(fn.maker.fgraph)
-    k1_err, k1_times, k2_err, k2_times = phase_kernels(fn.maker.fgraph)
+    check_graph(fn)
+    k1_err, k1_times, k2_err, k2_times = phase_kernels(fn)
     requests, results, launches = phase_slice(fn)
     profile_request(fn, requests[-1])
     check_against_cpu(requests, results)
@@ -2108,24 +2458,30 @@ def main():
     log(f"full-width forward, steady request latency over 12 more requests: median {steady:.3f} "
         f"ms, quartiles {q1:.3f} / {q3:.3f} ms ({BATCH}x{SEQ} tokens)")
     del fn, requests, results
+    release()
 
     t0 = time.perf_counter()
     step, params, _ = build_train_step("cuda")
     log(f"train step compile (graph + grad + rewrites + link): {time.perf_counter() - t0:.2f} s")
-    check_train_graph(step.maker.fgraph)
-    k1_train_err, _, sgd_ops = phase_k1(step.maker.fgraph, np.random.default_rng(1))
+    check_train_graph(step)
+    k1_train_err, _, sgd_ops = phase_k1(step, np.random.default_rng(1))
     k3_err, k3_times = phase_k3()
-    _, train_launches = phase_train(step, params)
-    time_train(step)
+    _, train_counts = phase_train(step, params)
+    train = (train_counts, time_train(step)["traced"])
+    require_captured(step, "train step")
     del step, params
+    release()
     check_train_against_cpu()
     t0 = time.perf_counter()
     adamw = phase_adamw(sgd_ops)
     log(f"(d) AdamW path: {time.perf_counter() - t0:.2f} s")
 
     lr = phase_logistic()
-    glm, xv = phase_glm()
-    grad_values = phase_values_grad(xv)
+    glm, glm_xyw = phase_glm()
+    grad_values = phase_values_grad(glm_xyw[0])
+    t0 = time.perf_counter()
+    phase_capture(lr["data"], glm_xyw)
+    log(f"captured-vs-eager phase: {time.perf_counter() - t0:.2f} s")
 
     k1 = {"max_abs_err": max(k1_err, k1_train_err, adamw["k1_err"], glm["k1_err"]), "ms": k1_times[0],
           "plain_ms": k1_times[1], "bound_ms": k1_times[2], "bound_by": k1_times[3], "library_ms": None}
@@ -2140,22 +2496,26 @@ def main():
     k3 = {"max_abs_err": k3_err, "ms": k3_times[0], "plain_ms": k3_times[1], "bound_ms": k3_times[2],
           "bound_by": k3_times[3], "library_ms": k3_times[4]}
     # the library call is handed out and logsumexp: K3's backward kernels alone compare with it
-    k3_line = dict(kernel_line("K3 flash attention backward", "cuda", K3_SOURCE, K3_REPLACES,
-                               train_launches["K3"], k3), backward_ms=k3_times[5])
+    k3_line = dict(kernel_line("K3 flash attention backward", "cuda", K3_SOURCE, K3_REPLACES, "K3", train, k3),
+                   backward_ms=k3_times[5])
     k5 = dict(glm["K5"], max_abs_err=max(glm["K5"]["max_abs_err"], glm["K5_grad"]["max_abs_err"]))
     k6 = dict(lr["K6"], max_abs_err=max(r["max_abs_err"] for r in (
         lr["K6"], lr["K6_grad"], lr["K6_request"], grad_values["K6"])))
     k7 = dict(grad_values["K7"], max_abs_err=grad_values["K7_err"])
     kernels = [
-        dict(kernel_line("K1 fused elemwise Composite", "triton", K1_SOURCE, K1_REPLACES, train_launches["K1"],
-                         k1), cold_ms=k1_times[4], **k1_adamw),
-        dict(kernel_line("K2 flash attention forward", "cuda", K2_SOURCE, K2_REPLACES, train_launches["K2"], k2),
+        dict(kernel_line("K1 fused elemwise Composite", "triton", K1_SOURCE, K1_REPLACES, "K1", train, k1),
+             cold_ms=k1_times[4], **k1_adamw),
+        dict(kernel_line("K2 flash attention forward", "cuda", K2_SOURCE, K2_REPLACES, "K2", train, k2),
              adamw_launches=adamw["launches"]["K2"]),
         dict(k3_line, adamw_launches=adamw["launches"]["K3"]),
-        kernel_line("K4 row log-softmax", "cuda", K4_SOURCE, K4_REPLACES, lr["launches"]["K4"], lr["K4"]),
-        kernel_line("K5 CSR SpMV (narrow rhs)", "cuda", K567_SOURCE, K5_REPLACES, glm["launches"]["K5"], k5),
-        kernel_line("K6 CSR SpMM (wide rhs)", "cuda", K567_SOURCE, K6_REPLACES, lr["launches"]["K6"], k6),
-        kernel_line("K7 CSR SDDMM", "cuda", K567_SOURCE, K7_REPLACES, grad_values["launches"]["K7"], k7),
+        kernel_line("K4 row log-softmax", "cuda", K4_SOURCE, K4_REPLACES, "K4", (lr["launches"], lr["traced"]),
+                    lr["K4"]),
+        kernel_line("K5 CSR SpMV (narrow rhs)", "cuda", K567_SOURCE, K5_REPLACES, "K5",
+                    (glm["launches"], glm["traced"]), k5),
+        kernel_line("K6 CSR SpMM (wide rhs)", "cuda", K567_SOURCE, K6_REPLACES, "K6", (lr["launches"], lr["traced"]),
+                    k6),
+        kernel_line("K7 CSR SDDMM", "cuda", K567_SOURCE, K7_REPLACES, "K7",
+                    (grad_values["launches"], grad_values["traced"]), k7),
     ]
     log(f"chip_smoke: every phase passed in {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": kernels}))

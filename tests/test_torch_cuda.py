@@ -689,3 +689,149 @@ def test_small_logistic_regression_step_on_card_matches_cpu(cuda):
     assert (csr_spmm.launches, softmax_rows.launches) == (counts[0] + 4, counts[1] + 2)
     for pg, pc in zip(m_gpu.params, m_cpu.params):
         torch.testing.assert_close(pg.value.cpu(), pc.value, atol=1e-5, rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the captured step: each compiled function captured into a CUDA graph on
+# its second call with a key, then replayed
+# ---------------------------------------------------------------------------
+
+def _adamw_step(device, use_graph, seed=0):
+    """The small AdamW encoder step (2 layers, d 64) on ``device``: (step,
+    every update target)."""
+    xv = np.random.default_rng(seed).normal(size=(2, 32, 64)).astype("float32")
+    with config.change_flags(device=device):
+        layers = [TransformerEncoderLayer(64, 4, 128, seed=i) for i in range(2)]
+        x = ptp.shared(xv, name="x")
+        s = ptp.shared(np.asarray(0.0, "float32"), name="s")
+    h = x
+    for layer in layers:
+        h = layer(h)
+    loss = ptm.mean(ptm.sqr(h))
+    params = [p for layer in layers for p in layer.params]
+    updates = adamw(loss, params, lr=warmup_cosine(s, 1e-3, 2, 13), weight_decay=0.01, grad_clip=1.0)
+    updates.append((s, s + 1.0))
+    step = ptp.function([], ptp.Out(loss, borrow=True), updates=updates,
+                        mode=ptp.Mode(ptp.TorchLinker(device=device, use_graph=use_graph)))
+    return step, [t for t, _ in updates]
+
+
+def test_captured_step_is_bitwise_equal_to_eager(cuda):
+    (captured, state_c), (eager, state_e) = _adamw_step("cuda", True), _adamw_step("cuda", False)
+    assert captured.capture_blocker is None and eager.capture_blocker == "use_graph is off"
+    for call in range(4):
+        loss_c, loss_e = captured(), eager()
+        assert captured.captured == (call >= 1) and not eager.captured
+        assert torch.equal(loss_c, loss_e), call
+        for a, b in zip(state_c, state_e):
+            assert torch.equal(a.value, b.value), (call, a.name)
+    assert captured.fn.n_graphs == 1
+
+
+def test_replays_keep_storage_and_take_set_value(cuda):
+    w = ptp.shared(np.arange(4, dtype="float32"), name="w", device="cuda")
+    f = ptp.function([], ptm.sum(w), updates=[(w, w * 2.0)], mode=ptp.Mode(ptp.TorchLinker(device="cuda")))
+    ptr = w.value.data_ptr()
+    got = [float(f()) for _ in range(3)]
+    assert got == [6.0, 12.0, 24.0] and f.captured and w.value.data_ptr() == ptr
+    # set_value writes into the storage the graph reads
+    w.set_value(np.ones(4, "float32"))
+    assert w.value.data_ptr() == ptr
+    assert float(f()) == 4.0 and f.captured
+    np.testing.assert_array_equal(w.get_value(), [2, 2, 2, 2])
+    w.set_value(np.full(4, 3.0, "float32"))
+    assert float(f()) == 12.0 and f.captured and w.value.data_ptr() == ptr
+    np.testing.assert_array_equal(w.get_value(), [6, 6, 6, 6])
+
+
+def test_a_replay_tallies_its_launches_apart_from_the_wrappers(cuda):
+    x = pt.vector("x")
+    f = ptp.function([x], ptm.exp(x) * 2.0 + 1.0, mode=ptp.Mode(ptp.TorchLinker(device="cuda")))
+    xv = np.arange(4, dtype="float32")
+    launches, replayed = fused_elemwise.launches, fused_elemwise.replayed
+    f(xv)                       # eager: one launch
+    f(xv)                       # captured (the launch is recorded into the graph), then replayed
+    assert fused_elemwise.launches == launches + 2 and fused_elemwise.replayed == replayed + 1
+    for _ in range(3):
+        np.testing.assert_allclose(f(xv).cpu().numpy(), np.exp(xv) * 2 + 1, rtol=1e-6)
+    assert f.captured
+    assert fused_elemwise.launches == launches + 2 and fused_elemwise.replayed == replayed + 4
+
+
+def test_a_new_shape_captures_again_and_outputs_stay_put(cuda):
+    x = pt.matrix("x")
+    f = ptp.function([x], [ptm.exp(x) * 2.0 + 1.0, ptp.Out(ptm.sum(x), borrow=True)],
+                     mode=ptp.Mode(ptp.TorchLinker(device="cuda")))
+    a, b = np.ones((3, 4), "float32"), np.zeros((5, 2), "float32")
+    outs = [f(a), f(a), f(b), f(b), f(a * 2.0)]
+    assert f.fn.n_graphs == 2 and f.captured
+    want = [np.exp(a) * 2 + 1, np.exp(a) * 2 + 1, np.exp(b) * 2 + 1, np.exp(b) * 2 + 1, np.exp(a * 2) * 2 + 1]
+    for (out, _), w in zip(outs, want):
+        # a returned output is a fresh tensor: later replays leave it alone
+        np.testing.assert_allclose(out.cpu().numpy(), w, rtol=1e-6)
+    # a borrowed output is the graph's own buffer, which the next replay writes
+    assert float(outs[1][1]) == 24.0 and outs[1][1].data_ptr() == outs[4][1].data_ptr()
+
+
+def test_a_device_arange_reports_its_blocker_and_runs(cuda):
+    x = pt.vector("x")
+    f = ptp.function([x], pt.arange(0, pt.cast(ptm.sum(x), "int64"), 1, dtype="int64"),
+                     mode=ptp.Mode(ptp.TorchLinker(device="cuda")))
+    assert "ARange" in f.capture_blocker
+    for _ in range(3):
+        np.testing.assert_array_equal(f(np.asarray([1.0, 2.0], "float32")).cpu().numpy(), [0, 1, 2])
+        assert not f.captured
+
+
+@pytest.mark.parametrize("case", ["neg_inf", "int_pow", "uint32"])
+def test_k1_launches_the_repaired_forms(cuda, case):
+    if case == "neg_inf":
+        x = pt.TensorType("float32", (None,))("x")
+        out = pt.switch(ptm.isnan(x), np.float32(-np.inf), x) * 2.0
+        xv = np.asarray([1.0, np.nan, -2.0, np.inf] * 300, "float32")
+        args = (xv,)
+    elif case == "int_pow":
+        x, y = pt.TensorType("int32", (None,))("x"), pt.TensorType("int32", (None,))("y")
+        out = ptm.pow(x, y) + np.int32(1)
+        rng = np.random.default_rng(5)
+        args = (rng.integers(-9, 101, size=1000).astype("int32"), rng.integers(-3, 12, size=1000).astype("int32"))
+    else:
+        x = pt.TensorType("uint32", (None,))("x")
+        out = pt.switch(ptm.gt(x, np.uint32(2**31)), x * x + x, -x)
+        xv = np.random.default_rng(6).integers(0, 2**32, size=1000, dtype="uint32")
+        args = (xv,)
+    inputs = [x] if case != "int_pow" else [x, y]
+    gpu = ptp.function(inputs, out, mode=ptp.Mode(ptp.TorchLinker(device="cuda")))
+    cpu = ptp.function(inputs, out, mode=ptp.Mode(ptp.TorchLinker(device="cpu")))
+    before = fused_elemwise.launches
+    got = gpu(*args)
+    assert fused_elemwise.launches == before + 1
+    np.testing.assert_array_equal(got.cpu().numpy(), cpu(*args).numpy())
+
+
+def test_a_failing_capture_raises(cuda):
+    # last in the file: a capture that fails may leave the process's CUDA
+    # state less tidy than a test after it would want
+    from aesara_tpu_torch.graph.ir import Apply
+    from aesara_tpu_torch.graph.op import Op
+    from aesara_tpu_torch.link.torch.dispatch import torch_funcify
+
+    class HostRead(Op):
+        """x times its first value, read on the host: not capturable, and
+        its lowering does not say so."""
+
+        __props__ = ()
+
+        def make_node(self, x):
+            return Apply(self, [x], [x.type()])
+
+    @torch_funcify.register(HostRead)
+    def _host_read(op, node):
+        return lambda x: x * float(x.reshape(-1)[0].item())
+
+    x = pt.vector("x")
+    f = ptp.function([x], HostRead()(x) + 1.0, mode=ptp.Mode(ptp.TorchLinker(device="cuda")))
+    assert f.capture_blocker is None
+    np.testing.assert_array_equal(f(np.asarray([2.0, 3.0], "float32")).cpu().numpy(), [5, 7])
+    with pytest.raises(RuntimeError):
+        f(np.asarray([2.0, 3.0], "float32"))

@@ -291,3 +291,137 @@ def test_runtime_broadcast_of_unknown_dim_raises():
     assert ok.shape == (2, 3)
     with pytest.raises(ValueError, match="runtime broadcasting"):
         f(np.ones((2, 3), "float32"), np.ones((1, 3), "float32"))
+
+
+# ---------------------------------------------------------------------------
+# integer pow, wide unsigned types and non-finite constants: each compiled
+# by both packages (JAX FAST_RUN against the port on the CPU, exact), and
+# the port's generated Triton source checked to parse and name only what
+# it defines
+# ---------------------------------------------------------------------------
+
+def _function(m, inputs, out):
+    import aesara_tpu
+    import aesara_tpu_torch
+
+    if m == "jax":
+        return aesara_tpu.function(inputs, out, mode="FAST_RUN")
+    return aesara_tpu_torch.function(inputs, out)
+
+
+def _both(build, *vals):
+    """(JAX's result, the port's result, the port's fused Elemwise node)."""
+    jf = _function("jax", *build(JTensorType, jtm, jtb))
+    pf = _function("port", *build(PTensorType, ptm, ptb))
+    (pnode,) = [n for n in pf.maker.fgraph.toposort() if type(n.op).__name__ == "Elemwise"]
+    return np.asarray(jf(*vals)), pf(*vals).numpy(), pnode
+
+
+def _source_names_resolve(src):
+    """Every name the generated module reads is defined in it, is a
+    function's parameter or local, or is a Python builtin."""
+    import builtins
+
+    tree = ast.parse(src)
+    module = {a.asname or a.name.split(".")[0] for n in ast.walk(tree) if isinstance(n, (ast.Import, ast.ImportFrom))
+              for a in n.names}
+    module |= {n.name for n in tree.body if isinstance(n, ast.FunctionDef)}
+    for fn in [n for n in tree.body if isinstance(n, ast.FunctionDef)]:
+        local = {a.arg for a in fn.args.args} | {n.id for n in ast.walk(fn)
+                                                 if isinstance(n, ast.Name) and isinstance(n.ctx, ast.Store)}
+        for n in ast.walk(fn):
+            if isinstance(n, ast.Name) and isinstance(n.ctx, ast.Load):
+                assert n.id in module | local or hasattr(builtins, n.id), (fn.name, n.id)
+
+
+def _kernel_source(node, ndim=1):
+    kernel = ElemwiseKernel(node.op.scalar_op, [i.type.dtype for i in node.inputs], node.outputs[0].type.dtype)
+    src = kernel.source(ndim)
+    _source_names_resolve(src)
+    return src
+
+
+@pytest.mark.parametrize("dtype", ["int8", "int16", "int32", "int64", "uint8", "uint32"])
+@pytest.mark.parametrize("exponent", ["tensor", "constant"])
+def test_integer_pow_matches_jax(dtype, exponent):
+    rng = np.random.default_rng(11)
+    lo = 0 if dtype.startswith("uint") else -7
+    xv = rng.integers(lo, 101, size=40).astype(dtype)
+    yv = rng.integers(0, 10, size=40).astype(dtype)
+    xv[:6] = [0, 1, 2, 3, 100, 7]       # 100 ** 9 wraps in every type here
+    yv[:6] = [0, 5, 31, 3, 9, 0]
+
+    def build(T, tm, tb):
+        x, y = T(dtype, (None,))("x"), T(dtype, (None,))("y")
+        if exponent == "constant":
+            return [x], tm.pow(x, np.asarray(3, dtype)) + np.asarray(1, dtype)
+        return [x, y], tm.pow(x, y) + np.asarray(1, dtype)
+
+    vals = (xv,) if exponent == "constant" else (xv, yv)
+    want, got, node = _both(build, *vals)
+    assert got.dtype == want.dtype == np.dtype(dtype)
+    np.testing.assert_array_equal(got, want)
+    src = _kernel_source(node)
+    assert "ipow(" in src and ("True)" in src) == (not dtype.startswith("uint"))
+
+
+@pytest.mark.parametrize("dtype", ["int8", "int32", "int64"])
+def test_negative_integer_pow_is_the_integer_result(dtype):
+    import aesara_tpu_torch
+
+    x, y = PTensorType(dtype, (None,))("x"), PTensorType(dtype, (None,))("y")
+    f = aesara_tpu_torch.function([x, y], ptm.pow(x, y) * np.asarray(1, dtype))
+    xv = np.asarray([1, -1, -1, 2, -3, 0, 5, 1], dtype)
+    yv = np.asarray([-4, -3, -2, -1, -2, -1, 2, 0], dtype)
+    # the exact integer: 1 for base 1, +-1 for base -1, 0 for any other
+    # base; a non-negative exponent as usual
+    np.testing.assert_array_equal(f(xv, yv).numpy(), [1, -1, 1, 0, 0, 0, 25, 1])
+    a, b = aes.ScalarType(dtype)(), aes.ScalarType(dtype)()
+    src = ElemwiseKernel(PComposite([a, b], [aes.pow(a, b)]), [dtype, dtype], dtype).source(1)
+    _source_names_resolve(src)
+    assert f"ipow(x0.to(tl.{dtype}), x1.to(tl.{dtype}), {8 * np.dtype(dtype).itemsize}, True)" in src
+    with pytest.raises(ValueError, match="negative integer powers"):
+        aesara_tpu_torch.function([x], ptm.pow(x, np.asarray(-2, dtype)) + np.asarray(1, dtype))
+    with pytest.raises(ValueError, match="negative integer powers"):
+        aesara_tpu_torch.function([x], ptm.pow(x, np.asarray([2, -1], dtype)))
+
+
+@pytest.mark.parametrize("dtype", ["uint16", "uint32", "uint64"])
+@pytest.mark.parametrize("which", ["mul_add", "ordered", "casts"])
+def test_wide_unsigned_chain_matches_jax(dtype, which):
+    rng = np.random.default_rng(12)
+    info = np.iinfo(dtype)
+    xv = rng.integers(0, info.max, size=50, dtype=dtype, endpoint=True)
+    yv = rng.integers(0, info.max, size=50, dtype=dtype, endpoint=True)
+    xv[:4] = [0, 1, 2, info.max]
+    yv[:4] = [0, 2, 1, info.max // 2 + 1]      # across the sign bit of the same width
+
+    def build(T, tm, tb):
+        x, y = T(dtype, (None,))("x"), T(dtype, (None,))("y")
+        if which == "mul_add":
+            return [x], x * x + x
+        if which == "ordered":      # comparisons, maximum, minimum, abs and a wrapping negation
+            return [x, y], tb.switch(tm.gt(x, y), tm.maximum(x, y) - y, -tm.abs(x)) + tm.minimum(x, y) * \
+                tm.ge(x, y)
+        return [x, y], tb.cast(tb.cast(x, "float64") * 0.5, dtype) + tb.cast(tm.lt(x, y), dtype)
+
+    vals = (xv,) if which == "mul_add" else (xv, yv)
+    want, got, node = _both(build, *vals)
+    assert got.dtype == want.dtype == np.dtype(dtype)
+    np.testing.assert_array_equal(got, want)
+    src = _kernel_source(node, ndim=2)
+    assert f"tl.{dtype}" in src
+
+
+@pytest.mark.parametrize("value", [-np.inf, np.inf, np.nan])
+def test_nonfinite_constants_generate_a_source_whose_names_resolve(value):
+    xv = np.asarray([1.0, np.nan, -2.0, np.inf], "float32")
+
+    def build(T, tm, tb):
+        x = T("float32", (None,))("x")
+        return [x], tb.switch(tm.isnan(x), np.float32(value), x) * 2.0
+
+    want, got, node = _both(build, xv)
+    np.testing.assert_array_equal(got, want)
+    src = _kernel_source(node)
+    assert f"float('{float(value)}')" in src

@@ -6,7 +6,8 @@ Each optimizer or helper runs 3 steps on the 2-layer (64, 4, 128) encoder
 of ``test_torch_train.py`` and on the two linear models, from the same
 weights; after the 3 steps every parameter and every piece of optimizer
 state (moments, counters, loss scale, accumulators, averages) agrees with
-the JAX package compiled by ``FAST_RUN.excluding("BlasOpt")`` within
+the JAX package compiled by ``FAST_RUN.excluding("BlasOpt")`` (and the
+port by ``TORCH.excluding("BlasOpt")``) within
 atol/rtol 1e-5 (fp32; the two sum in different orders), with one
 exception.  Adam, AdamW and the helpers that drive ``adamw_from_grads``
 divide each gradient entry by its own running RMS, so an entry whose
@@ -54,7 +55,7 @@ def _on_the_cpu():
 JAX = dict(pkg=aesara_tpu, optim=joptim, ckpt=jcheckpoint, tm=jtm, Layer=JLayer, Linear=JLinear,
            Logistic=JLogistic, mode=lambda: jget_mode("FAST_RUN").excluding("BlasOpt"))
 PORT = dict(pkg=aesara_tpu_torch, optim=poptim, ckpt=pcheckpoint, tm=ptm, Layer=PLayer, Linear=PLinear,
-            Logistic=PLogistic, mode=lambda: "TORCH")
+            Logistic=PLogistic, mode=lambda: aesara_tpu_torch.get_mode("TORCH").excluding("BlasOpt"))
 TOL = dict(atol=1e-5, rtol=1e-5)
 RECIPES = ["momentum", "rmsprop", "adam", "adamw", "scaled_loss", "accumulate", "ema"]
 #: the recipes that divide each gradient entry by its running RMS (see the docstring)

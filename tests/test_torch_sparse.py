@@ -558,10 +558,62 @@ def _chip_smoke():
      "K4 row softmax", "K4"),
     ("void at::native::(anonymous namespace)::softmax_warp_forward<float, float, float, 5, true, false>(float*)",
      "other torch", None),
+    ("void (anonymous namespace)::flash_fwd_kernel<float, 64>(float const*, float const*)", "K2 flash forward",
+     "K2"),
+    ("void (anonymous namespace)::flash_bwd_dq_kernel<float, 64>(float const*, float const*)",
+     "K3 flash backward", "K3"),
+    ("void (anonymous namespace)::flash_bwd_dkdv_kernel<(anonymous namespace)::bf16, 128>(bf16 const*)",
+     "K3 flash backward", None),
+    ("kernel", "K1 fused Composite", "K1"),
 ])
 def test_profile_groups_and_counts_every_csr_and_softmax_kernel(name, group, counter):
     """``chip_smoke.py`` reads a profiled step's kernels by name: each of
-    K7's two kernels marks one K7 launch, K6's fix-up pass marks none."""
+    K7's two kernels marks one K7 launch, K6's fix-up pass marks none; K3's
+    dq pass marks one K3 launch and its dk/dv pass none; K2's forward (also
+    run again inside K3) marks one K2 launch; a Triton kernel one K1."""
     smoke = _chip_smoke()
     assert smoke.kernel_group(name) == group
     assert smoke.counted_kernel(name) == counter
+
+
+def _trace_event(name, start_us, duration_us, device="CUDA"):
+    from types import SimpleNamespace
+
+    from torch.autograd.profiler_util import Interval
+
+    return SimpleNamespace(name=name, time_range=Interval(start_us, start_us + duration_us),
+                           device_type=getattr(torch.autograd.DeviceType, device))
+
+
+_K6 = "void (anonymous namespace)::csr_spmm_kernel<float, float, float, 16>(int const*)"
+_FIXUP = "void (anonymous namespace)::csr_spmm_fixup_kernel<float>(int const*)"
+
+
+@pytest.mark.parametrize("spins,start", [
+    # the opening edge's spin (50 ms), two markers (50 us), the closing edge's (100 ms)
+    ([(0, 50_000), (150_000, 50), (150_060, 50), (152_000, 100_000)], 150_060),
+    # the first marker, or all but the first, lost from the trace
+    ([(150_060, 50)], 150_060),
+    ([(0, 50_000), (150_000, 50), (152_000, 100_000)], 150_000),
+    # every marker lost: nothing is counted
+    ([(0, 50_000), (152_000, 100_000)], None),
+])
+def test_profile_counts_only_what_starts_after_the_marker(spins, start):
+    """``chip_smoke.py`` counts a profiled window's kernels from the last
+    short spin (a marker) that the trace kept after the lead-in call on:
+    the lead-in's K6 launch, the spins and the profiler's step ranges are
+    left out, and a trace without a marker counts nothing."""
+    smoke = _chip_smoke()
+    spin = "void at::cuda::(anonymous namespace)::spin_kernel(long)"
+    events = [_trace_event(spin, s, d) for s, d in spins] + [
+        _trace_event(_K6, 100_000, 10), _trace_event(_FIXUP, 100_012, 3),             # the lead-in
+        _trace_event(_K6, 151_050, 10), _trace_event(_FIXUP, 151_062, 3),
+        _trace_event(_K6, 151_400, 10), _trace_event("ProfilerStep#2", 150_900, 600),
+        _trace_event(_K6, 151_600, 10), _trace_event("cudaGraphLaunch", 151_500, 5, device="CPU")]
+    marker, device = smoke.after_marker(events)
+    if start is None:
+        assert (marker, device) == (None, [])
+        return
+    assert marker.start == start
+    assert len(device) == 4
+    assert [smoke.counted_kernel(e.name) for e in device].count("K6") == 3
