@@ -2,7 +2,7 @@
 (reference ``aesara_tpu/compile/mode.py``).
 
 Positions follow the JAX package: merge1 at 0, canonicalize at 1,
-BlasOpt at 1.7, specialize at 2, elemwise fusion and merge2 at 49, merge3
+stabilize at 1.5, BlasOpt at 1.7, specialize at 2, elemwise fusion and merge2 at 49, merge3
 at 100.  The ``TORCH`` mode runs the ``fast_run`` rewrites and links
 through ``TorchLinker``; ``including``/``excluding`` give a mode with
 tags added to or taken from its query, as the JAX package's ``Mode``
@@ -18,14 +18,16 @@ from aesara_tpu_torch.graph.rewriting.db import EquilibriumDB, RewriteDatabaseQu
 from aesara_tpu_torch.link.torch.linker import TorchLinker
 
 
-__all__ = ["Mode", "optdb", "get_mode", "register_canonicalize", "register_specialize", "TORCH",
-           "OPT_FAST_RUN"]
+__all__ = ["Mode", "optdb", "get_mode", "register_canonicalize", "register_stabilize", "register_specialize",
+           "TORCH", "OPT_FAST_RUN"]
 
 
 optdb = SequenceDB()
 optdb.register("merge1", MergeOptimizer(), "fast_run", "merge", position=0)
 canonicalize = EquilibriumDB()
 optdb.register("canonicalize", canonicalize, "fast_run", position=1)
+stabilize = EquilibriumDB()
+optdb.register("stabilize", stabilize, "fast_run", position=1.5)
 specialize = EquilibriumDB()
 optdb.register("specialize", specialize, "fast_run", position=2)
 optdb.register("merge2", MergeOptimizer(), "fast_run", "merge", position=49.5)
@@ -36,6 +38,11 @@ optdb.register("merge3", MergeOptimizer(), "fast_run", "merge", position=100)
 
 def register_canonicalize(rewrite, *tags, name=None):
     canonicalize.register(name or rewrite.name, rewrite, "fast_run", *tags)
+    return rewrite
+
+
+def register_stabilize(rewrite, *tags, name=None):
+    stabilize.register(name or rewrite.name, rewrite, "fast_run", *tags)
     return rewrite
 
 

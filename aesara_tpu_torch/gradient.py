@@ -37,7 +37,8 @@ from aesara_tpu_torch.scalar.ops import discrete_dtypes
 
 
 __all__ = ["grad", "Lop", "subgraph_grad", "numeric_grad", "verify_grad", "GradientError",
-           "DisconnectedType", "NullType", "disconnected_type", "grad_undefined", "NullTypeGradError",
+           "DisconnectedType", "NullType", "disconnected_type", "grad_undefined", "grad_not_implemented",
+           "NullTypeGradError",
            "GradManipulatorOp", "ZeroGrad", "DisconnectedGrad", "UndefinedGrad", "GradClip", "GradScale",
            "zero_grad", "disconnected_grad", "undefined_grad", "grad_clip", "grad_scale",
            "consider_constant"]
@@ -85,6 +86,11 @@ def disconnected_type() -> Variable:
 def grad_undefined(op, x_pos: int, x, comment: str = "") -> Variable:
     """The gradient of input ``x_pos`` of ``op`` does not exist."""
     return NullType(f"grad undefined for input {x_pos} of {op}: {comment}")()
+
+
+def grad_not_implemented(op, x_pos: int, x, comment: str = "") -> Variable:
+    """The gradient of input ``x_pos`` of ``op`` exists but is not built."""
+    return NullType(f"grad not implemented for input {x_pos} of {op}: {comment}")()
 
 
 class NullTypeGradError(TypeError):

@@ -312,7 +312,10 @@ def equal_computations(xs: Sequence[Variable], ys: Sequence[Variable],
     memo: dict = {}
 
     def eq(x, y) -> bool:
-        if (x, y) in common or (x is y and x.owner is None):
+        # one variable computes the same as itself when no inputs are
+        # renamed (else only a root does): the walk stops there instead of
+        # going down the whole shared graph
+        if (x, y) in common or (x is y and (x.owner is None or not common)):
             return True
         if isinstance(x, Constant) or isinstance(y, Constant):
             return (isinstance(x, Constant) and isinstance(y, Constant)

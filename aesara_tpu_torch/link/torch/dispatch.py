@@ -19,6 +19,7 @@ from functools import singledispatch
 import numpy as np
 
 from aesara_tpu_torch.gradient import GradManipulatorOp
+from aesara_tpu_torch.graph.ir import Constant
 from aesara_tpu_torch.scalar.composite import Composite
 from aesara_tpu_torch.tensor.basic import Alloc, ARange, MakeVector
 from aesara_tpu_torch.tensor.blas import Dot22, Dot22Scalar, Gemm, Gemv, Ger
@@ -27,7 +28,10 @@ from aesara_tpu_torch.tensor.math import Argmax, Dot
 from aesara_tpu_torch.tensor.nnet.attention import FusedAttention, FusedAttentionGrad
 from aesara_tpu_torch.tensor.shape import Reshape, Shape, Shape_i
 from aesara_tpu_torch.tensor.special import LogSoftmax, Softmax, SoftmaxGrad
-from aesara_tpu_torch.tensor.subtensor import AdvancedIncSubtensor, AdvancedSubtensor
+from aesara_tpu_torch.tensor.subtensor import (
+    AdvancedIncSubtensor, AdvancedIncSubtensor1, AdvancedSubtensor, AdvancedSubtensor1, DynamicIncSubtensor,
+    DynamicSlice, IncSubtensor, Subtensor, indices_from_subtensor,
+)
 from aesara_tpu_torch.link.torch.kernels.attention import flash_attention, flash_attention_grads
 from aesara_tpu_torch.link.torch.kernels.elemwise import (
     ElemwiseKernel, apply_scalar_node, fused_elemwise, refuse_negative_int_pow, torch_dtype,
@@ -314,6 +318,217 @@ def _torch_advanced_inc_subtensor(op, node):
         return x.clone().index_put_(indices, y, accumulate=accumulate)
 
     return advanced_inc_subtensor
+
+
+def _basic_index(node, idx_list, n_fixed: int):
+    """(the static index tuple, the slices with a negative step by their
+    position in its result, the positions of the run-time integer indices
+    in its result, their positions among the node's index inputs) of a
+    Subtensor-like node whose index inputs start at ``n_fixed``.  A slice
+    bound that is not a constant raises: its result's length would be read
+    on the host (the JAX package sends such a node to its Python fallback;
+    the port has none).  A negative-step slice (torch slices step forward
+    only) and a run-time integer index are kept as full slices here and
+    applied by ``_region``, the index gathered on the device."""
+    index_inputs = list(node.inputs[n_fixed:])
+    entries = indices_from_subtensor(index_inputs, idx_list)
+    static, negative, dynamic, kept = [], {}, [], 0
+    for e in entries:
+        if isinstance(e, slice):
+            parts = [p.data if isinstance(p, Constant) else p for p in (e.start, e.stop, e.step)]
+            if any(p is not None and not isinstance(p, (int, np.integer, np.ndarray)) for p in parts):
+                raise NotImplementedError(f"{node.op} has a slice bound computed at run time, so its length "
+                                          "is not known when the function is compiled; index a window of "
+                                          "constant length (x[i*B:(i+1)*B] becomes a DynamicSlice)")
+            sl = slice(*[None if p is None else int(p) for p in parts])
+            if sl.step is not None and sl.step < 0:
+                negative[kept] = sl
+                sl = slice(None)
+            static.append(sl)
+            kept += 1
+        elif isinstance(e, Constant):
+            static.append(int(e.data))
+        elif isinstance(e, (int, np.integer)):
+            static.append(int(e))
+        else:
+            static.append(slice(None))
+            dynamic.append(kept)
+            kept += 1
+    # every other index input is a constant slice bound or a constant index
+    runtime = [k for k, v in enumerate(index_inputs) if not isinstance(v, Constant)]
+    return tuple(static), negative, dynamic, runtime
+
+
+def _region(x, static, negative):
+    """(a view of x at the static index and the negative-step slices, read
+    forward, and the dims to flip to read them as they step)."""
+    view = x[static]
+    for pos, sl in negative.items():
+        start, stop, step = sl.indices(view.shape[pos])
+        count = len(range(start, stop, step))
+        last = start + (count - 1) * step if count else 0
+        view = view.narrow(pos, last, start - last + 1 if count else 0)[(slice(None),) * pos
+                                                                        + (slice(None, None, -step),)]
+    return view, list(negative)
+
+
+def _wrapped(i, dim):
+    """An index tensor with a negative entry wrapped once, as NumPy reads it."""
+    import torch
+
+    return torch.where(i < 0, i + dim, i)
+
+
+def _run_time_indices(view, dynamic, values):
+    """``view`` with its ``dynamic`` dims moved to the front, and the
+    index of each as a (1,) tensor on the device (host values too)."""
+    import torch
+
+    moved = view.movedim(dynamic, list(range(len(dynamic))))
+    idx = []
+    for k, v in enumerate(values):
+        dim = moved.shape[k]
+        if isinstance(v, np.ndarray):
+            v = int(v)
+            idx.append(torch.full((1,), v + dim if v < 0 else v, dtype=torch.int64, device=view.device))
+        else:
+            idx.append(_wrapped(v.reshape(1), dim))
+    return moved, idx
+
+
+@torch_funcify.register(Subtensor)
+def _torch_subtensor(op, node):
+    static, negative, dynamic, runtime = _basic_index(node, op.idx_list, 1)
+    n_dyn = len(dynamic)
+
+    def subtensor(x, *index_inputs):
+        view, flips = _region(x, static, negative)
+        if flips:
+            view = view.flip(flips)
+        if not n_dyn:
+            return view
+        moved, idx = _run_time_indices(view, dynamic, [index_inputs[k] for k in runtime])
+        return moved[tuple(idx)].reshape(moved.shape[n_dyn:])
+
+    subtensor.host_inputs = tuple(range(1, len(node.inputs)))
+    return subtensor
+
+
+@torch_funcify.register(IncSubtensor)
+def _torch_inc_subtensor(op, node):
+    # out of place: the port has no destroy handler yet
+    static, negative, dynamic, runtime = _basic_index(node, op.idx_list, 2)
+    n_dyn, set_instead = len(dynamic), op.set_instead_of_inc
+
+    def inc_subtensor(x, y, *index_inputs):
+        out = x.clone()
+        view, flips = _region(out, static, negative)
+        # y broadcast over the region, a run-time index's dim of size 1
+        shape = [1 if d in dynamic else n for d, n in enumerate(view.shape)]
+        values = y.broadcast_to([n for d, n in enumerate(shape) if d not in dynamic]).reshape(shape)
+        if flips:
+            values = values.flip(flips)
+        if not n_dyn:
+            if set_instead:
+                view.copy_(values)
+            else:
+                view.add_(values)
+            return out
+        moved, idx = _run_time_indices(view, dynamic, [index_inputs[k] for k in runtime])
+        values = values.movedim(dynamic, list(range(n_dyn))).reshape((1,) + tuple(moved.shape[n_dyn:]))
+        moved.index_put_(tuple(idx), values, accumulate=not set_instead)
+        return out
+
+    inc_subtensor.host_inputs = tuple(range(2, len(node.inputs)))
+    return inc_subtensor
+
+
+@torch_funcify.register(AdvancedSubtensor1)
+def _torch_advanced_subtensor1(op, node):
+    return lambda x, ilist: x[ilist]
+
+
+@torch_funcify.register(AdvancedIncSubtensor1)
+def _torch_advanced_inc_subtensor1(op, node):
+    accumulate = not op.set_instead_of_inc
+
+    def advanced_inc_subtensor1(x, y, ilist):
+        values = y.broadcast_to((ilist.shape[0],) + tuple(x.shape[1:]))
+        return x.clone().index_put_((ilist,), values, accumulate=accumulate)
+
+    return advanced_inc_subtensor1
+
+
+def _window_index(lengths, shape, starts, aranges: dict):
+    """The index of a dynamic window of a tensor of ``shape``: a slice for
+    each whole axis, and for each sized one the int64 positions
+    ``clamp(start, 0, dim - length) + arange(length)`` (a negative start
+    wrapped once first), computed on the device from a start on the
+    device: no value is read on the host, so a captured graph reads each
+    replay's start.  ``aranges`` keeps one ``arange`` for each length and
+    device, made at the first (eager) call."""
+    import torch
+
+    it = iter(starts)
+    idx = []
+    for d, n in enumerate(lengths):
+        if n is None:
+            idx.append(slice(None))
+            continue
+        dim = shape[d]
+        if n > dim:
+            raise ValueError(f"a window of {n} does not fit in axis {d} of length {dim}")
+        start = next(it)
+        if isinstance(start, np.ndarray):
+            s = int(start)
+            s = min(max(s + dim if s < 0 else s, 0), dim - n)
+            idx.append(slice(s, s + n))
+            continue
+        key = (n, start.device)
+        if key not in aranges:
+            aranges[key] = torch.arange(n, dtype=torch.int64, device=start.device)
+        idx.append(_wrapped(start, dim).clamp(0, dim - n) + aranges[key])
+    return idx
+
+
+def _gather_window(x, idx):
+    """x at the window ``idx`` of ``_window_index``, one axis at a time."""
+    out = x
+    for d, e in enumerate(idx):
+        out = out[(slice(None),) * d + (e,)] if isinstance(e, slice) else out.index_select(d, e)
+    return out
+
+
+@torch_funcify.register(DynamicSlice)
+def _torch_dynamic_slice(op, node):
+    lengths, aranges = op.lengths, {}
+
+    def dynamic_slice(x, *starts):
+        return _gather_window(x, _window_index(lengths, x.shape, starts, aranges))
+
+    dynamic_slice.host_inputs = tuple(range(1, len(node.inputs)))
+    return dynamic_slice
+
+
+@torch_funcify.register(DynamicIncSubtensor)
+def _torch_dynamic_inc_subtensor(op, node):
+    import torch
+
+    lengths, set_instead, aranges = op.lengths, op.set_instead_of_inc, {}
+
+    def dynamic_inc_subtensor(x, y, *starts):
+        out = x.clone()
+        idx = _window_index(lengths, x.shape, starts, aranges)
+        # every axis up to the last sized one as an open grid of positions
+        grid = [e if not isinstance(e, slice) else
+                torch.arange(x.shape[d], device=x.device)[e] for d, e in enumerate(idx)]
+        grid = [g.reshape([-1 if k == d else 1 for k in range(len(grid))]) for d, g in enumerate(grid)]
+        window = tuple(g.shape[d] for d, g in enumerate(grid)) + tuple(x.shape[len(grid):])
+        out.index_put_(tuple(grid), y.broadcast_to(window), accumulate=not set_instead)
+        return out
+
+    dynamic_inc_subtensor.host_inputs = tuple(range(2, len(node.inputs)))
+    return dynamic_inc_subtensor
 
 
 @torch_funcify.register(Alloc)

@@ -20,7 +20,9 @@ the wrapper: CPU tensors take the plain PyTorch version
 (:func:`composite_plain`), CUDA tensors launch the kernel.
 
 fp32 division and square root use ``tl.math.div_rn`` and ``tl.sqrt_rn``
-(Triton's ``/`` and ``tl.sqrt`` are approximate in fp32); ``exp`` is
+(Triton's ``/`` and ``tl.sqrt`` are approximate in fp32; the ``_rn`` forms
+take fp32 only, and fp64's ``/`` and ``tl.sqrt`` are correctly rounded,
+so fp64 uses those); ``exp`` is
 ``tl.exp``, within a few ulp of the plain version's.  ``pow``, ``log``,
 ``cos`` and ``sin`` call CUDA's libdevice (``__nv_powf`` and the like,
 the accurate forms; a negative base with an integral exponent stays
@@ -43,6 +45,20 @@ arithmetic on uint16, uint32 and uint64 tensors, so the plain version
 computes on int64 carriers of the values (uint64: of their bits) and
 wraps each result to the output's width.  A non-finite constant is
 written ``float('inf')``, ``float('-inf')`` or ``float('nan')``.
+
+The rest of the real table and the special functions: the transcendental
+ones are one libdevice call each (``_LIBDEVICE``: ``tanh``, ``expm1``,
+``log1p``, ``atan2``, ``erfinv``, ``lgamma``, ``j0``, ``cyl_bessel_i0``
+and the others, never an ``.approx`` form); floor division and modulo
+follow NumPy (``ifloordiv``/``ffloordiv`` in the generated module: the
+quotient rounds toward -inf, the remainder takes the divisor's sign, an
+integer divisor of 0 gives 0); a shift by the width or more gives 0 (-1
+for a negative value shifted right), checked before the shift
+(``ishift``); an integer is its own rounding; the functions with more
+than one call hold to the JAX package's lowerings (``_special_expr``:
+sigmoid 1 / (1 + exp(-x)), softplus logaddexp(x, 0), log1mexp switching
+at log(1/2), Gamma by reflection through lgamma, Erfcinv erfinv(1 - x),
+Erfcx a three-term series from 8 on).  Psi and TriGamma have no form yet.
 """
 
 from __future__ import annotations
@@ -52,7 +68,7 @@ from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
-from aesara_tpu_torch.scalar import ops as aes
+from aesara_tpu_torch.scalar import math as aesm, ops as aes
 from aesara_tpu_torch.scalar.composite import Composite
 from aesara_tpu_torch.scalar.ops import discrete_dtypes
 
@@ -105,6 +121,51 @@ def scalar_torch_impl(op):
     for cls, fn in table.items():
         if isinstance(op, cls):
             return fn
+    table = {
+        aes.Xor: torch.bitwise_xor, aes.Exp2: torch.exp2, aes.Expm1: torch.expm1, aes.Log2: torch.log2,
+        aes.Log10: torch.log10, aes.Log1p: torch.log1p, aes.Deg2Rad: torch.deg2rad, aes.Rad2Deg: torch.rad2deg,
+        aes.Tan: torch.tan, aes.ArcCos: torch.acos, aes.ArcSin: torch.asin, aes.ArcTan: torch.atan,
+        aes.ArcTan2: torch.atan2, aes.Cosh: torch.cosh, aes.Sinh: torch.sinh, aes.Tanh: torch.tanh,
+        aes.ArcCosh: torch.acosh, aes.ArcSinh: torch.asinh, aes.ArcTanh: torch.atanh,
+        aes.Reciprocal: torch.reciprocal, aesm.Erf: torch.special.erf, aesm.Erfc: torch.special.erfc,
+        aesm.Erfinv: torch.special.erfinv, aesm.GammaLn: torch.lgamma, aesm.Psi: torch.special.digamma,
+        aesm.J0: _in_fp32(torch.special.bessel_j0), aesm.J1: _in_fp32(torch.special.bessel_j1),
+        aesm.I0: torch.special.i0,
+        aesm.I1: torch.special.i1, aesm.Sigmoid: torch.sigmoid,
+    }
+    for cls, fn in table.items():
+        if isinstance(op, cls):
+            return fn
+    roundings = {aes.Ceil: torch.ceil, aes.Floor: torch.floor, aes.Trunc: torch.trunc,
+                 aes.RoundHalfToEven: torch.round, aes.RoundHalfAwayFromZero: _in_fp32(_round_half_away)}
+    for cls, fn in roundings.items():
+        if isinstance(op, cls):
+            # an integer is its own rounding
+            return lambda x, fn=fn: fn(x) if x.is_floating_point() else x
+    if isinstance(op, (aes.IntDiv, aes.Mod)):
+        return lambda x, y: _floor_div_mod(x, y, isinstance(op, aes.Mod), torch.iinfo(x.dtype).min
+                                           if not x.is_floating_point() else None)
+    if isinstance(op, (aes.ShiftLeft, aes.ShiftRight)):
+        return lambda x, y: _shift(x, y, torch.iinfo(x.dtype).bits, isinstance(op, aes.ShiftLeft))
+    if isinstance(op, aes.InRange):
+        def in_range(x, lo, hi):
+            return (x > lo if op.openlow else x >= lo) & (x < hi if op.openhigh else x <= hi)
+        return in_range
+    if isinstance(op, aes.Mean):
+        def mean(*xs):
+            # one op, rounded once, as K1 computes it
+            low = xs[0].dtype in (torch.bfloat16, torch.float16)
+            s = xs[0].float() if low else xs[0]
+            for x in xs[1:]:
+                s = s + x
+            return (s / len(xs)).to(xs[0].dtype)
+        return mean
+    special = {aesm.Erfcinv: _in_fp32(_erfcinv), aesm.Erfcx: _in_fp32(_erfcx),
+               aesm.Gamma: _in_fp32(_gamma_reflect), aesm.TriGamma: lambda x: torch.special.polygamma(1, x),
+               aesm.Softplus: _in_fp32(_softplus), aesm.Log1mexp: _in_fp32(_log1mexp)}
+    for cls, fn in special.items():
+        if isinstance(op, cls):
+            return fn
     if isinstance(op, aes.Sgn):
         # torch.sign gives 0 for NaN; NumPy keeps the NaN
         return lambda x: torch.where(torch.isnan(x), x, torch.sign(x)) if x.is_floating_point() else torch.sign(x)
@@ -119,13 +180,120 @@ def scalar_torch_impl(op):
     raise NotImplementedError(f"no torch lowering for scalar op {op}")
 
 
+# the plain forms that are more than one torch call.  They hold to the JAX
+# package's lowerings (``aesara_tpu/link/jax/dispatch.py:97-127,378-487``),
+# not to the scalar ops' SciPy ``impl``; the Triton forms in ``_expr``
+# compute the same formulas
+
+def _in_fp32(fn):
+    """``fn`` computed in float32 for bfloat16 and float16 operands (as K1
+    computes them), for a torch function without those dtypes."""
+    import torch
+
+    def f(x):
+        return fn(x.float()).to(x.dtype) if x.dtype in (torch.bfloat16, torch.float16) else fn(x)
+
+    return f
+
+
+def _round_half_away(x):
+    import torch
+
+    return torch.trunc(x + torch.copysign(torch.full_like(x, 0.5), x))
+
+
+# each of these plain forms is one op: on bfloat16 and float16 it computes
+# in float32 and rounds once, as K1 does (rounding its inner steps instead
+# would lose accuracy: exp of a rounded gammaln is off by up to 12%)
+
+
+def _floor_div_mod(x, y, mod: bool, int_min):
+    """NumPy's floor division or modulo.  Integers: a zero divisor gives
+    0 (NumPy's result; torch raises), and MIN // -1 wraps to MIN as in
+    NumPy instead of trapping; the quotient rounds toward -inf and the
+    remainder takes the divisor's sign."""
+    import torch
+
+    if x.is_floating_point():
+        return torch.remainder(x, y) if mod else torch.floor_divide(x, y)
+    if x.dtype == torch.bool:
+        raise NotImplementedError("floor division of bools")
+    zero = y == 0
+    safe = torch.where(zero | ((y == -1) & (x == int_min)), torch.ones_like(y), y)
+    res = torch.remainder(x, safe) if mod else torch.floor_divide(x, safe)
+    return torch.where(zero, torch.zeros_like(res), res)
+
+
+def _shift(x, y, bits: int, left: bool, unsigned_carrier: bool = False):
+    """x << y or x >> y as NumPy shifts: a count of ``bits`` or more (or a
+    negative one) gives 0, or -1 for a negative x shifted right.  With
+    ``unsigned_carrier`` x holds the bits of a uint64 in an int64, shifted
+    right logically."""
+    import torch
+
+    if x.dtype == torch.bool:
+        raise NotImplementedError("shifts of bools")
+    out = (y < 0) | (y >= bits)
+    count = torch.where(out, torch.zeros_like(y), y)
+    if left:
+        return torch.where(out, torch.zeros_like(x), torch.bitwise_left_shift(x, count))
+    res = torch.bitwise_right_shift(x, count)
+    if unsigned_carrier:
+        # an arithmetic shift of the bits, masked to the low 64 - count
+        mask = torch.where(count == 0, torch.full_like(res, -1),
+                           torch.bitwise_left_shift(torch.ones_like(res), 64 - count) - 1)
+        res = res & mask
+        return torch.where(out, torch.zeros_like(x), res)
+    return torch.where(out, torch.where(x < 0, torch.full_like(x, -1), torch.zeros_like(x)), res)
+
+
+def _erfcinv(x):
+    import torch
+
+    return torch.special.erfinv(1.0 - x)
+
+
+def _erfcx(x):
+    """exp(x**2) erfc(x) below 8; from 8 on the three-term asymptotic
+    series (1 - 1/(2x^2) + 3/(4x^4)) / (x sqrt(pi)), where exp(x**2)
+    would overflow."""
+    import torch
+
+    lo, hi = torch.clamp_max(x, 8.0), torch.clamp_min(x, 8.0)
+    hi2 = hi * hi
+    series = (1.0 - 0.5 / hi2 + 0.75 / (hi2 * hi2)) / (hi * math.sqrt(math.pi))
+    return torch.where(x < 8.0, torch.exp(lo * lo) * torch.special.erfc(lo), series)
+
+
+def _gamma_reflect(x):
+    """Gamma of every real x through gammaln, which gives log|Gamma|:
+    the sign of Gamma(x < 0) is that of sin(pi x)."""
+    import torch
+
+    sign = torch.where(x < 0, torch.sign(torch.sin(math.pi * x)), torch.ones_like(x))
+    return sign * torch.exp(torch.lgamma(x))
+
+
+def _softplus(x):
+    """logaddexp(x, 0), as ``jax.nn.softplus``: NaN stays NaN."""
+    import torch
+
+    return torch.where(x > 0, x, torch.zeros_like(x)) + torch.log1p(torch.exp(-torch.abs(x)))
+
+
+def _log1mexp(x):
+    import torch
+
+    return torch.where(x < math.log(0.5), torch.log1p(-torch.exp(x)), torch.log(-torch.expm1(x)))
+
+
 def _operand_dtypes(op, args_dtypes, out_dtype: str) -> List[str]:
     """The dtype each operand of a scalar op is read in: a comparison's in
     their common dtype, a one-operand test's in its own, a switch's
     condition as a bool, every other operand in the op's output dtype (a
     Cast's operand is cast by definition; Second's template is only a
     shape)."""
-    if isinstance(op, aes.LogicalComparison):
+    if isinstance(op, (aes.LogicalComparison, aes.InRange)):
         return [aes.upcast(*args_dtypes)] * len(args_dtypes)
     if isinstance(op, aes.FixedLogicalComparison):
         return list(args_dtypes)
@@ -190,9 +358,14 @@ def _apply_unsigned(op, out_dtype: str, args, wants):
         res = vals[0]
     elif unsigned and isinstance(op, aes.Sgn):
         res = (vals[0] != 0).to(torch.int64)
+    elif unsigned and isinstance(op, (aes.ShiftLeft, aes.ShiftRight)):
+        res = _shift(vals[0], vals[1], 8 * np.dtype(wants[-1]).itemsize, isinstance(op, aes.ShiftLeft),
+                     unsigned_carrier=wants[-1] == "uint64")
+    elif wants[-1] == "uint64" and isinstance(op, (aes.IntDiv, aes.Mod)):
+        raise NotImplementedError("uint64 floor division and modulo are not ported")
     else:
         flip = wants[-1] == "uint64" and isinstance(
-            op, (aes.LogicalComparison, aes.Maximum, aes.Minimum, aes.Clip))
+            op, (aes.LogicalComparison, aes.Maximum, aes.Minimum, aes.Clip, aes.InRange))
         if flip:
             vals = [v ^ _INT64_MIN for v in vals]
         res = scalar_torch_impl(op)(*vals)
@@ -289,6 +462,80 @@ _IPOW = [
     "    return result",
 ]
 
+#: the other helpers of the generated module: NumPy's floor division and
+#: modulo (integers: a zero divisor gives 0 and MIN // -1 wraps to MIN;
+#: the correction holds whether ``//`` and ``%`` truncate, as Triton's do,
+#: or floor), and shifts whose count is checked against the width (PTX
+#: clamps the count, LLVM's shift by the width is poison)
+_HELPERS = {
+    "ifloordiv": [
+        "@triton.jit",
+        "def ifloordiv(x, y, MINV: tl.constexpr, SIGNED: tl.constexpr, MOD: tl.constexpr):",
+        "    zero = y == 0",
+        "    if SIGNED:",
+        "        safe = tl.where(zero | ((y == -1) & (x == MINV)), 1, y).to(y.dtype)",
+        "    else:",
+        "        safe = tl.where(zero, 1, y).to(y.dtype)",
+        "    if MOD:",
+        "        res = (x % safe).to(x.dtype)",
+        "        if SIGNED:",
+        "            res = tl.where((res != 0) & ((res < 0) != (safe < 0)), res + safe, res)",
+        "    else:",
+        "        res = (x // safe).to(x.dtype)",
+        "        if SIGNED:",
+        "            rem = x - res * safe",
+        "            res = tl.where((rem != 0) & ((rem < 0) != (safe < 0)), res - 1, res)",
+        "    return tl.where(zero, 0, res).to(x.dtype)",
+    ],
+    "ffloordiv": [
+        "@triton.jit",
+        "def ffloordiv(x, y, MOD: tl.constexpr, FP64: tl.constexpr):",
+        "    m = libdevice.fmod(x, y)",
+        "    fix = (m != 0) & ((y < 0) != (m < 0))",
+        "    if MOD:",
+        "        return tl.where(fix, m + y, m)",
+        "    if FP64:",
+        "        div = (x - m) / y",
+        "        quotient = x / y",
+        "    else:",
+        "        div = tl.math.div_rn(x - m, y)",
+        "        quotient = tl.math.div_rn(x, y)",
+        "    div = tl.where(fix, div - 1, div)",
+        "    fl = libdevice.floor(div)",
+        "    fl = tl.where(div - fl > 0.5, fl + 1, fl)",
+        "    return tl.where(y == 0, quotient, fl)",
+    ],
+    "ishift": [
+        "@triton.jit",
+        "def ishift(x, y, BITS: tl.constexpr, LEFT: tl.constexpr, SIGNED: tl.constexpr):",
+        "    out = (y < 0) | (y >= BITS)",
+        "    count = tl.where(out, 0, y).to(y.dtype)",
+        "    if LEFT:",
+        "        res = tl.where(out, 0, x << count)",
+        "    elif SIGNED:",
+        "        res = tl.where(out, tl.where(x < 0, -1, 0), x >> count)",
+        "    else:",
+        "        res = tl.where(out, 0, x >> count)",
+        "    return res.to(x.dtype)",
+    ],
+    "ipow": _IPOW,
+}
+
+#: one-operand float functions that are one libdevice call
+_LIBDEVICE = {
+    aes.Log: "log", aes.Cos: "cos", aes.Sin: "sin", aes.Exp2: "exp2", aes.Expm1: "expm1", aes.Log2: "log2",
+    aes.Log10: "log10", aes.Log1p: "log1p", aes.Tan: "tan", aes.ArcCos: "acos", aes.ArcSin: "asin",
+    aes.ArcTan: "atan", aes.Cosh: "cosh", aes.Sinh: "sinh", aes.Tanh: "tanh", aes.ArcCosh: "acosh",
+    aes.ArcSinh: "asinh", aes.ArcTanh: "atanh", aesm.Erf: "erf", aesm.Erfc: "erfc", aesm.Erfinv: "erfinv",
+    aesm.GammaLn: "lgamma", aesm.I0: "cyl_bessel_i0",
+    aesm.I1: "cyl_bessel_i1",
+}
+
+#: the scalar ops whose operands must be floats in the kernel
+_FLOAT_ONLY = (aes.TrueDiv, aes.Sqrt, aes.Exp, aes.Pow, aes.ArcTan2, aes.Deg2Rad, aes.Rad2Deg, aes.Mean,
+               aes.Reciprocal, aesm.Erfcinv, aesm.Erfcx, aesm.Gamma, aesm.J0, aesm.J1, aesm.Sigmoid,
+               aesm.Softplus, aesm.Log1mexp) + tuple(_LIBDEVICE)
+
 
 def _compute_dtype(dtype: str) -> str:
     return "float32" if dtype in _LOW_PRECISION else dtype
@@ -306,6 +553,13 @@ def _literal(value, dtype: str) -> str:
     return f"tl.full([BLOCK], {text}, {_TL[_compute_dtype(dtype)]})"
 
 
+def _div(a: str, b: str, dtype: str) -> str:
+    """a / b correctly rounded: ``div_rn`` in fp32 (Triton's ``/`` is
+    approximate there), ``/`` in fp64 (``div_rn`` takes fp32 only, and
+    fp64's ``/`` is IEEE division)."""
+    return f"(({a}) / ({b}))" if _compute_dtype(dtype) == "float64" else f"tl.math.div_rn({a}, {b})"
+
+
 def _expr(op, args: List[str], dtype: str) -> str:
     """One scalar op as a Triton expression over operand names already
     converted to the dtypes they are read in; ``dtype`` is that of its
@@ -320,22 +574,27 @@ def _expr(op, args: List[str], dtype: str) -> str:
     if isinstance(op, aes.Pow) and dtype in discrete_dtypes and dtype != "bool":
         bits = 8 * np.dtype(dtype).itemsize
         return f"ipow({args[0]}, {args[1]}, {bits}, {not dtype.startswith('uint')})"
-    if isinstance(op, (aes.TrueDiv, aes.Sqrt, aes.Exp, aes.Pow, aes.Log, aes.Cos, aes.Sin)) and not is_float:
+    if isinstance(op, _FLOAT_ONLY) and not is_float:
         raise NotImplementedError(f"{op} into {dtype} has no Triton form")
     if isinstance(op, aes.TrueDiv):
-        return f"tl.math.div_rn({args[0]}, {args[1]})"
+        return _div(args[0], args[1], dtype)
     if isinstance(op, aes.Neg):
         return f"-{args[0]}"   # wraps on unsigned types, as in NumPy
     if isinstance(op, aes.Sqr):
         return f"{args[0]} * {args[0]}"
     if isinstance(op, aes.Sqrt):
-        return f"tl.sqrt_rn({args[0]})"
+        # sqrt_rn takes fp32 only; fp64's sqrt is correctly rounded
+        return f"tl.sqrt({args[0]})" if _compute_dtype(dtype) == "float64" else f"tl.sqrt_rn({args[0]})"
     if isinstance(op, aes.Exp):
         return f"tl.exp({args[0]})"
     if isinstance(op, aes.Pow):
         return f"libdevice.pow({args[0]}, {args[1]})"
-    if isinstance(op, (aes.Log, aes.Cos, aes.Sin)):
-        return f"libdevice.{type(op).__name__.lower()}({args[0]})"
+    for cls, name in _LIBDEVICE.items():
+        if isinstance(op, cls):
+            return f"libdevice.{name}({args[0]})"
+    special = _special_expr(op, args, dtype)
+    if special is not None:
+        return special
     if isinstance(op, aes.Maximum):
         a, b = args
         return f"tl.where(({a} > {b}) | ({a} != {a}), {a}, {b})"
@@ -374,6 +633,78 @@ def _expr(op, args: List[str], dtype: str) -> str:
     if isinstance(op, aes.Second):
         return args[1]
     raise NotImplementedError(f"the fused-elemwise kernel has no Triton form for scalar op {op}")
+
+
+def _special_expr(op, args: List[str], dtype: str):
+    """The Triton forms of the ops that are more than one call (the
+    formulas of the plain forms above), or None."""
+    def lit(v):
+        return _literal(v, dtype)
+
+    if isinstance(op, (aes.IntDiv, aes.Mod)):
+        mod = isinstance(op, aes.Mod)
+        if dtype in ("bool", "uint64"):
+            raise NotImplementedError(f"{op} of {dtype} has no Triton form")
+        if dtype in discrete_dtypes:
+            signed = not dtype.startswith("uint")
+            return f"ifloordiv({args[0]}, {args[1]}, {int(np.iinfo(dtype).min)}, {signed}, {mod})"
+        return f"ffloordiv({args[0]}, {args[1]}, {mod}, {_compute_dtype(dtype) == 'float64'})"
+    if isinstance(op, (aes.ShiftLeft, aes.ShiftRight)):
+        if dtype == "bool":
+            raise NotImplementedError(f"{op} of bool has no Triton form")
+        bits = 8 * np.dtype(dtype).itemsize
+        return (f"ishift({args[0]}, {args[1]}, {bits}, {isinstance(op, aes.ShiftLeft)}, "
+                f"{not dtype.startswith('uint')})")
+    roundings = {aes.Ceil: "ceil", aes.Floor: "floor", aes.Trunc: "trunc", aes.RoundHalfToEven: "rint"}
+    for cls, name in roundings.items():
+        if isinstance(op, cls):
+            # an integer is its own rounding
+            return args[0] if dtype in discrete_dtypes else f"libdevice.{name}({args[0]})"
+    if isinstance(op, aes.RoundHalfAwayFromZero):
+        x = args[0]
+        return x if dtype in discrete_dtypes else f"libdevice.trunc({x} + libdevice.copysign({lit(0.5)}, {x}))"
+    if isinstance(op, aes.Xor):
+        return f"{args[0]} ^ {args[1]}"
+    if isinstance(op, aes.ArcTan2):
+        return f"libdevice.atan2({args[0]}, {args[1]})"
+    if isinstance(op, aes.Deg2Rad):
+        return f"{args[0]} * {lit(math.pi / 180.0)}"
+    if isinstance(op, aes.Rad2Deg):
+        return f"{args[0]} * {lit(180.0 / math.pi)}"
+    if isinstance(op, aes.InRange):
+        x, lo, hi = args
+        return f"({x} {'>' if op.openlow else '>='} {lo}) & ({x} {'<' if op.openhigh else '<='} {hi})"
+    if isinstance(op, aes.Mean):
+        return _div(' + '.join(args), lit(len(args)), dtype)
+    if isinstance(op, aes.Reciprocal):
+        return _div(lit(1.0), args[0], dtype)
+    x = args[0]
+    if isinstance(op, aesm.Sigmoid):
+        return _div(lit(1.0), f"{lit(1.0)} + libdevice.exp(-{x})", dtype)
+    if isinstance(op, aesm.Softplus):
+        return f"tl.where({x} > 0, {x}, {lit(0.0)}) + libdevice.log1p(libdevice.exp(-tl.abs({x})))"
+    if isinstance(op, aesm.Log1mexp):
+        return (f"tl.where({x} < {lit(math.log(0.5))}, libdevice.log1p(-libdevice.exp({x})), "
+                f"libdevice.log(-libdevice.expm1({x})))")
+    if isinstance(op, (aesm.J0, aesm.J1)):
+        # NaN at +-inf, as SciPy and PyTorch give it (libdevice gives 0)
+        name = type(op).__name__.lower()
+        return f"tl.where(tl.abs({x}) == float('inf'), {lit(float('nan'))}, libdevice.{name}({x}))"
+    if isinstance(op, aesm.Erfcinv):
+        return f"libdevice.erfinv({lit(1.0)} - {x})"
+    if isinstance(op, aesm.Erfcx):
+        # NaN stays NaN through both clamps, as in the plain form
+        lo = f"tl.where(({x} < 8.0) | ({x} != {x}), {x}, {lit(8.0)})"
+        hi = f"tl.where(({x} > 8.0) | ({x} != {x}), {x}, {lit(8.0)})"
+        hi2 = f"({hi} * {hi})"
+        terms = f"{lit(1.0)} - {_div(lit(0.5), hi2, dtype)} + {_div(lit(0.75), f'{hi2} * {hi2}', dtype)}"
+        series = _div(terms, f"{hi} * {lit(math.sqrt(math.pi))}", dtype)
+        return f"tl.where({x} < 8.0, libdevice.exp({lo} * {lo}) * libdevice.erfc({lo}), {series})"
+    if isinstance(op, aesm.Gamma):
+        s, cdt = f"libdevice.sin({lit(math.pi)} * {x})", _TL[_compute_dtype(dtype)]
+        sign = f"tl.where({x} < 0, (({s}) > 0).to({cdt}) - (({s}) < 0).to({cdt}), {lit(1.0)})"
+        return f"{sign} * libdevice.exp(libdevice.lgamma({x}))"
+    return None
 
 
 class ElemwiseKernel:
@@ -435,7 +766,8 @@ class ElemwiseKernel:
             "    from triton.language.extra.cuda import libdevice",
             "",
             "",
-            *([*_IPOW, "", ""] if any("ipow(" in line for line in self.body) else []),
+            *[line for name, helper in _HELPERS.items() if any(f"{name}(" in line for line in self.body)
+              for line in [*helper, "", ""]],
             "@triton.jit",
             f"def kernel({', '.join(params)}, BLOCK: tl.constexpr):",
             "    pid = tl.program_id(0)",

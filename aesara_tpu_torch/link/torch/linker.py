@@ -44,8 +44,11 @@ first-use builds of the ``ctypes`` kernels and cuBLAS.  The second call
 captures the step into a ``torch.cuda.CUDAGraph`` (on PyTorch's capture
 stream): the lowerings, the clones before the writes, then the in-place
 writes.  Later calls copy the user arguments into the captured input
-buffers, check that every shared variable still holds the captured
-storage (``set_value`` writes in place, so it does), replay, and return
+buffers (a one-element host value, such as a minibatch index, by a fill
+kernel that takes it as an argument: a copy from pageable memory would
+make the host wait for the work already queued), check that every
+shared variable still holds the captured storage (``set_value`` writes
+in place, so it does), replay, and return
 fresh copies of the outputs (the captured buffers themselves for
 ``Out(borrow=True)``: the next replay overwrites them).
 
@@ -285,6 +288,15 @@ class TorchFunction:
             return value
         return torch.from_numpy(np.asarray(var.type.filter(value), order="C"))
 
+    def _upload(self, value):
+        """A dense argument on the device; a one-element host value by a
+        fill kernel, as ``Program.host_to_device`` uploads one."""
+        import torch
+
+        if value.device.type == "cpu" and value.numel() == 1 and self.device.type != "cpu":
+            return torch.full(value.shape, value.item(), dtype=value.dtype, device=self.device)
+        return value.to(self.device)
+
     def _shared_values(self, state: _Key) -> list:
         values = []
         for pos, var in enumerate(self.shared_inputs, start=self.n_user_inputs):
@@ -373,7 +385,7 @@ class TorchFunction:
                   for pos, (var, a) in enumerate(zip(self.user_inputs, args))]
         if state.calls == 1 or self.capture_blocker is not None:
             self.captured = False
-            values = [v.to(self.device) if isinstance(v, torch.Tensor) else v for v in values]
+            values = [self._upload(v) if isinstance(v, torch.Tensor) else v for v in values]
             shared = self._shared_values(state)
             results = self.program.run(values + shared, state.uploads)
             return self._returned(self._settle(results, values + shared, state.uploads, False), False)
@@ -416,7 +428,13 @@ class TorchFunction:
 
         for static, value in zip(state.static_inputs, values):
             if isinstance(value, torch.Tensor):
-                static.copy_(value)
+                if value.device.type == "cpu" and value.numel() == 1:
+                    # a fill kernel takes the value as an argument: a copy
+                    # from pageable memory would make the host wait for
+                    # the work already queued (a minibatch index each step)
+                    static.fill_(value.item())
+                else:
+                    static.copy_(value)
         if any(var.value is not captured for var, captured in state.shared):
             raise RuntimeError("a shared variable no longer holds the storage its captured graph reads")
         state.graph.replay()

@@ -1,4 +1,6 @@
-"""Carry a JAX-package model's parameters into a port model.
+"""Carry a JAX-package model's parameters into a port model (the
+encoder layer, the linear models and the ``MLP``, whose parameters are
+named ``w0, b0, w1, b1, ...`` in both packages).
 
 ``load_params(model, values)`` takes either the list
 ``[np.asarray(p.get_value()) for p in jax_model.params]`` (the JAX

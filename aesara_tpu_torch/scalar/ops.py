@@ -6,7 +6,12 @@ Maximum and Cast, the ops their gradients build: GE, LT and Second,
 Exp, which the gradient of ``LogSoftmax`` builds, and the ops of the
 optimizers and their helpers: Pow, Abs, Minimum, the comparisons GT, LE,
 EQ, NEQ, IsNan and IsInf, the logical And, Or and Invert, Switch,
-Identity, Log, Cos and Clip.
+Identity, Log, Cos and Clip; and the rest of the real table: IntDiv and
+Mod (floor semantics; an integer division by zero gives 0, as in NumPy),
+the roundings, Xor and the shifts, the exponentials, logarithms,
+trigonometric and hyperbolic functions and their inverses, InRange, Mean
+and Reciprocal.  The special functions are in ``scalar/math.py``; the
+complex ops are not ported.
 Each op declares its NumPy semantics (``impl``), its output dtype rule
 and its gradient (``grad``, over scalar variables; ``Elemwise.L_op`` lifts
 it to tensors); the torch and Triton formulas of each live in
@@ -15,6 +20,7 @@ it to tensors); the torch and Triton formulas of each live in
 
 from __future__ import annotations
 
+import math
 from typing import Any, Tuple
 
 import numpy as np
@@ -71,6 +77,20 @@ def upgrade_to_float(*types):
     """Discrete inputs go to ``config.floatX``."""
     conv = [config.floatX if t.dtype in discrete_dtypes else t.dtype for t in types]
     return (ScalarType(upcast(*conv)),)
+
+
+def upgrade_to_float_no_complex(*types):
+    for t in types:
+        if t.dtype in complex_dtypes:
+            raise TypeError(f"complex input not supported: {t}")
+    return upgrade_to_float(*types)
+
+
+def same_out_nocomplex(*types):
+    for t in types:
+        if t.dtype in complex_dtypes:
+            raise TypeError(f"complex input not supported: {t}")
+    return same_out(*types)
 
 
 def bool_out(*types):
@@ -577,6 +597,281 @@ class Cast(UnaryScalarOp):
         return f"cast{{{self.o_type.dtype}}}"
 
 
+class IntDiv(BinaryScalarOp):
+    """Floor division (NumPy's sign rules); an integer division by zero
+    gives 0, as NumPy gives."""
+
+    nfunc = staticmethod(np.floor_divide)
+
+    def grad(self, inputs, output_grads):
+        return _discrete_grads(self, inputs)
+
+
+class Mod(BinaryScalarOp):
+    """The remainder of floor division: it takes the divisor's sign; an
+    integer modulo by zero gives 0."""
+
+    nfunc = staticmethod(np.mod)
+
+    def grad(self, inputs, output_grads):
+        from aesara_tpu_torch.gradient import grad_undefined
+
+        x, y = inputs
+        if x.dtype in discrete_dtypes:
+            return _discrete_grads(self, inputs)
+        return [output_grads[0], grad_undefined(self, 1, y, "mod grad wrt divisor undefined")]
+
+
+class _Rounding(UnaryScalarOp):
+    """A rounding: an integer is its own rounding, and no gradient flows."""
+
+    output_types_preference = staticmethod(same_out_nocomplex)
+
+    def grad(self, inputs, output_grads):
+        return _discrete_grads(self, inputs)
+
+
+class Ceil(_Rounding):
+    nfunc = staticmethod(np.ceil)
+
+
+class Floor(_Rounding):
+    nfunc = staticmethod(np.floor)
+
+
+class Trunc(_Rounding):
+    nfunc = staticmethod(np.trunc)
+
+
+class RoundHalfToEven(_Rounding):
+    nfunc = staticmethod(np.round)
+
+
+class RoundHalfAwayFromZero(_Rounding):
+    def impl(self, x):
+        return np.trunc(x + np.copysign(np.asarray(0.5, dtype=np.asarray(x).dtype), x))
+
+
+class Xor(BinaryScalarOp):
+    """Bitwise exclusive or (logical on bool)."""
+
+    nfunc = staticmethod(np.bitwise_xor)
+    output_types_preference = staticmethod(discrete_out)
+
+    def grad(self, inputs, output_grads):
+        return _discrete_grads(self, inputs)
+
+
+class ShiftLeft(BinaryScalarOp):
+    """x << y; a shift by the width or more (or by a negative count)
+    gives 0, as NumPy gives."""
+
+    nfunc = staticmethod(np.left_shift)
+    output_types_preference = staticmethod(discrete_out)
+
+    def grad(self, inputs, output_grads):
+        return _discrete_grads(self, inputs)
+
+
+class ShiftRight(BinaryScalarOp):
+    """x >> y, arithmetic on signed types; a shift by the width or more
+    gives 0, or -1 for a negative x."""
+
+    nfunc = staticmethod(np.right_shift)
+    output_types_preference = staticmethod(discrete_out)
+
+    def grad(self, inputs, output_grads):
+        return _discrete_grads(self, inputs)
+
+
+class _Float(UnaryScalarOp):
+    """A one-operand function of the reals: discrete inputs go to floatX."""
+
+    output_types_preference = staticmethod(upgrade_to_float)
+
+
+class Exp2(_Float):
+    nfunc = staticmethod(np.exp2)
+
+    def grad(self, inputs, output_grads):
+        return [mul(output_grads[0], mul(exp2(inputs[0]), constant(math.log(2.0))))]
+
+
+class Expm1(_Float):
+    nfunc = staticmethod(np.expm1)
+
+    def grad(self, inputs, output_grads):
+        return [mul(output_grads[0], exp(inputs[0]))]
+
+
+class Log2(_Float):
+    nfunc = staticmethod(np.log2)
+
+    def grad(self, inputs, output_grads):
+        return [true_div(output_grads[0], mul(inputs[0], constant(math.log(2.0))))]
+
+
+class Log10(_Float):
+    nfunc = staticmethod(np.log10)
+
+    def grad(self, inputs, output_grads):
+        return [true_div(output_grads[0], mul(inputs[0], constant(math.log(10.0))))]
+
+
+class Log1p(_Float):
+    nfunc = staticmethod(np.log1p)
+
+    def grad(self, inputs, output_grads):
+        return [true_div(output_grads[0], add(constant(1.0), inputs[0]))]
+
+
+class Deg2Rad(_Float):
+    nfunc = staticmethod(np.deg2rad)
+    output_types_preference = staticmethod(upgrade_to_float_no_complex)
+
+    def grad(self, inputs, output_grads):
+        return [mul(output_grads[0], constant(math.pi / 180.0))]
+
+
+class Rad2Deg(_Float):
+    nfunc = staticmethod(np.rad2deg)
+    output_types_preference = staticmethod(upgrade_to_float_no_complex)
+
+    def grad(self, inputs, output_grads):
+        return [mul(output_grads[0], constant(180.0 / math.pi))]
+
+
+class Tan(_Float):
+    nfunc = staticmethod(np.tan)
+
+    def grad(self, inputs, output_grads):
+        return [true_div(output_grads[0], sqr(cos(inputs[0])))]
+
+
+class ArcCos(_Float):
+    nfunc = staticmethod(np.arccos)
+
+    def grad(self, inputs, output_grads):
+        return [neg(true_div(output_grads[0], sqrt(sub(constant(1.0), sqr(inputs[0])))))]
+
+
+class ArcSin(_Float):
+    nfunc = staticmethod(np.arcsin)
+
+    def grad(self, inputs, output_grads):
+        return [true_div(output_grads[0], sqrt(sub(constant(1.0), sqr(inputs[0]))))]
+
+
+class ArcTan(_Float):
+    nfunc = staticmethod(np.arctan)
+
+    def grad(self, inputs, output_grads):
+        return [true_div(output_grads[0], add(constant(1.0), sqr(inputs[0])))]
+
+
+class ArcTan2(BinaryScalarOp):
+    """arctan2(y, x)."""
+
+    nfunc = staticmethod(np.arctan2)
+    output_types_preference = staticmethod(upgrade_to_float)
+
+    def grad(self, inputs, output_grads):
+        y, x = inputs
+        (gz,) = output_grads
+        den = add(sqr(x), sqr(y))
+        return [mul(gz, true_div(x, den)), neg(mul(gz, true_div(y, den)))]
+
+
+class Cosh(_Float):
+    nfunc = staticmethod(np.cosh)
+
+    def grad(self, inputs, output_grads):
+        return [mul(output_grads[0], sinh(inputs[0]))]
+
+
+class Sinh(_Float):
+    nfunc = staticmethod(np.sinh)
+
+    def grad(self, inputs, output_grads):
+        return [mul(output_grads[0], cosh(inputs[0]))]
+
+
+class Tanh(_Float):
+    nfunc = staticmethod(np.tanh)
+
+    def grad(self, inputs, output_grads):
+        return [mul(output_grads[0], sub(constant(1.0), sqr(tanh(inputs[0]))))]
+
+
+class ArcCosh(_Float):
+    nfunc = staticmethod(np.arccosh)
+
+    def grad(self, inputs, output_grads):
+        (x,) = inputs
+        return [true_div(output_grads[0], mul(sqrt(sub(x, constant(1.0))), sqrt(add(x, constant(1.0)))))]
+
+
+class ArcSinh(_Float):
+    nfunc = staticmethod(np.arcsinh)
+
+    def grad(self, inputs, output_grads):
+        return [true_div(output_grads[0], sqrt(add(constant(1.0), sqr(inputs[0]))))]
+
+
+class ArcTanh(_Float):
+    nfunc = staticmethod(np.arctanh)
+
+    def grad(self, inputs, output_grads):
+        return [true_div(output_grads[0], sub(constant(1.0), sqr(inputs[0])))]
+
+
+class InRange(ScalarOp):
+    """low <= x <= high (``openlow``/``openhigh`` make a side strict): a
+    bool whose gradient is zero everywhere, at the bounds too."""
+
+    nin = 3
+    __props__ = ("openlow", "openhigh")
+
+    def __init__(self, openlow=False, openhigh=False, name=None):
+        super().__init__(name)
+        self.openlow = bool(openlow)
+        self.openhigh = bool(openhigh)
+
+    def output_types_preference(self, *types):
+        return (ScalarType("bool"),)
+
+    def impl(self, x, low, high):
+        lo_ok = np.greater(x, low) if self.openlow else np.greater_equal(x, low)
+        hi_ok = np.less(x, high) if self.openhigh else np.less_equal(x, high)
+        return np.logical_and(lo_ok, hi_ok)
+
+    def grad(self, inputs, output_grads):
+        return [_zeros_like(inp) for inp in inputs]
+
+
+class Mean(ScalarOp):
+    """The mean of its operands (variadic); it has no gradient, as in the
+    JAX package."""
+
+    output_types_preference = staticmethod(upgrade_to_float)
+
+    def impl(self, *vals):
+        return sum(vals) / len(vals)
+
+
+class Reciprocal(UnaryScalarOp):
+    """1 / x; an integer x goes to the float output first."""
+
+    output_types_preference = staticmethod(upgrade_to_float)
+
+    def impl(self, x):
+        return 1.0 / x
+
+    def grad(self, inputs, output_grads):
+        return [neg(true_div(output_grads[0], sqr(inputs[0])))]
+
+
+
 def cast_to(x, dtype: str):
     """``x`` as ``dtype`` (no node when it already is)."""
     x = as_scalar(x)
@@ -614,3 +909,33 @@ log = Log(name="log")
 cos = Cos(name="cos")
 sin = Sin(name="sin")
 clip_scalar = Clip(name="clip")
+int_div = IntDiv(name="int_div")
+mod = Mod(name="mod")
+ceil = Ceil(name="ceil")
+floor = Floor(name="floor")
+trunc = Trunc(name="trunc")
+round_half_to_even = RoundHalfToEven(name="round_half_to_even")
+round_half_away_from_zero = RoundHalfAwayFromZero(name="round_half_away_from_zero")
+xor = Xor(name="xor")
+shift_left = ShiftLeft(name="shift_left")
+shift_right = ShiftRight(name="shift_right")
+exp2 = Exp2(name="exp2")
+expm1 = Expm1(name="expm1")
+log2 = Log2(name="log2")
+log10 = Log10(name="log10")
+log1p = Log1p(name="log1p")
+deg2rad = Deg2Rad(name="deg2rad")
+rad2deg = Rad2Deg(name="rad2deg")
+tan = Tan(name="tan")
+arccos = ArcCos(name="arccos")
+arcsin = ArcSin(name="arcsin")
+arctan = ArcTan(name="arctan")
+arctan2 = ArcTan2(name="arctan2")
+cosh = Cosh(name="cosh")
+sinh = Sinh(name="sinh")
+tanh = Tanh(name="tanh")
+arccosh = ArcCosh(name="arccosh")
+arcsinh = ArcSinh(name="arcsinh")
+arctanh = ArcTanh(name="arctanh")
+mean_scalar = Mean(name="mean")
+reciprocal = Reciprocal(name="reciprocal")

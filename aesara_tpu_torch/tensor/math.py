@@ -1,6 +1,7 @@
 """Elementwise math, reductions and ``Dot`` with their gradients
-(reference ``aesara_tpu/tensor/math.py``): the subset the encoder's train
-step and the optimizers use."""
+(reference ``aesara_tpu/tensor/math.py``): the real scalar table and the
+special functions K1 computes, and the reductions the encoder's train
+step, the optimizers and the MLP use."""
 
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ import numpy as np
 from aesara_tpu_torch.config import config
 from aesara_tpu_torch.graph.ir import Apply
 from aesara_tpu_torch.graph.op import Op
-from aesara_tpu_torch.scalar import ops as aes
+from aesara_tpu_torch.scalar import math as aesm, ops as aes
 from aesara_tpu_torch.scalar.ops import _np_dtype, discrete_dtypes, upcast
 from aesara_tpu_torch.tensor.basic import as_tensor_variable, cast, constant
 from aesara_tpu_torch.tensor.elemwise import CAReduce, DimShuffle, Elemwise
@@ -21,7 +22,13 @@ from aesara_tpu_torch.tensor.type import TensorType
 __all__ = ["add", "sub", "mul", "true_div", "neg", "sqr", "sqrt", "exp", "maximum", "ge", "lt",
            "pow", "abs", "sgn", "minimum", "gt", "le", "eq", "neq", "and_", "or_", "invert", "log",
            "cos", "sin", "clip", "isnan", "isinf", "Sum", "sum", "mean", "Max", "Min", "All", "Any",
-           "max", "min", "all", "any", "Argmax", "argmax", "Dot", "dot", "tensordot"]
+           "max", "min", "all", "any", "Argmax", "argmax", "Dot", "dot", "tensordot", "int_div",
+           "floor_div", "mod", "ceil", "floor", "trunc", "round_half_to_even", "round_half_away_from_zero",
+           "xor", "shift_left", "shift_right", "exp2", "expm1", "log2", "log10", "log1p", "deg2rad",
+           "rad2deg", "tan", "arccos", "arcsin", "arctan", "arctan2", "cosh", "sinh", "tanh", "arccosh",
+           "arcsinh", "arctanh", "reciprocal", "inv", "erf", "erfc", "erfinv", "erfcinv", "erfcx", "gamma",
+           "gammaln", "psi", "tri_gamma", "j0", "j1", "i0", "i1", "sigmoid", "expit", "softplus",
+           "log1pexp", "log1mexp", "logaddexp", "logsumexp"]
 
 
 def _ew(scalar_op):
@@ -61,6 +68,74 @@ cos = _ew(aes.cos)
 sin = _ew(aes.sin)
 isnan_ = _ew(aes.isnan)
 isinf_ = _ew(aes.isinf)
+int_div = _ew(aes.int_div)
+floor_div = int_div
+mod = _ew(aes.mod)
+ceil = _ew(aes.ceil)
+floor = _ew(aes.floor)
+trunc = _ew(aes.trunc)
+round_half_to_even = _ew(aes.round_half_to_even)
+round_half_away_from_zero = _ew(aes.round_half_away_from_zero)
+xor = _ew(aes.xor)
+shift_left = _ew(aes.shift_left)
+shift_right = _ew(aes.shift_right)
+exp2 = _ew(aes.exp2)
+expm1 = _ew(aes.expm1)
+log2 = _ew(aes.log2)
+log10 = _ew(aes.log10)
+log1p = _ew(aes.log1p)
+deg2rad = _ew(aes.deg2rad)
+rad2deg = _ew(aes.rad2deg)
+tan = _ew(aes.tan)
+arccos = _ew(aes.arccos)
+arcsin = _ew(aes.arcsin)
+arctan = _ew(aes.arctan)
+arctan2 = _ew(aes.arctan2)
+cosh = _ew(aes.cosh)
+sinh = _ew(aes.sinh)
+tanh = _ew(aes.tanh)
+arccosh = _ew(aes.arccosh)
+arcsinh = _ew(aes.arcsinh)
+arctanh = _ew(aes.arctanh)
+reciprocal = _ew(aes.reciprocal)
+inv = reciprocal
+erf = _ew(aesm.erf)
+erfc = _ew(aesm.erfc)
+erfinv = _ew(aesm.erfinv)
+erfcinv = _ew(aesm.erfcinv)
+erfcx = _ew(aesm.erfcx)
+gamma = _ew(aesm.gamma)
+gammaln = _ew(aesm.gammaln)
+psi = _ew(aesm.psi)
+tri_gamma = _ew(aesm.tri_gamma)
+j0 = _ew(aesm.j0)
+j1 = _ew(aesm.j1)
+i0 = _ew(aesm.i0)
+i1 = _ew(aesm.i1)
+sigmoid = _ew(aesm.sigmoid)
+expit = sigmoid
+softplus = _ew(aesm.softplus)
+log1pexp = softplus
+log1mexp = _ew(aesm.log1mexp)
+
+
+def logaddexp(a, b):
+    """log(exp(a) + exp(b)) without overflow, as the JAX package builds it."""
+    m = maximum(a, b)
+    return add(m, log1p(exp(neg(abs(sub(a, b))))))
+
+
+def logsumexp(x, axis=None, keepdims=False):
+    """log(sum(exp(x), axis)) shifted by the max, as the JAX package
+    builds it."""
+    x = as_tensor_variable(x)
+    m = max(x, axis=axis, keepdims=True)
+    res = add(log(sum(exp(sub(x, m)), axis=axis, keepdims=True)), m)
+    if keepdims:
+        return res
+    axes = (range(x.type.ndim) if axis is None else [int(axis) % x.type.ndim]
+            if isinstance(axis, (int, np.integer)) else [int(a) % x.type.ndim for a in axis])
+    return DimShuffle(res.type.ndim, tuple(d for d in range(x.type.ndim) if d not in axes))(res)
 
 
 def clip(x, min_, max_):

@@ -5,8 +5,9 @@
 - ``constant_folding``: nodes over constants become constants.
 - ``local_useless_dimshuffle``: an identity DimShuffle goes;
   ``local_dimshuffle_lift``: a DimShuffle of a DimShuffle is one.
-- ``local_shape_i_lift``: ``Shape_i`` moves toward the graph inputs, the
-  work the JAX package's ShapeFeature does for the ops of the slice;
+- ``local_shape_i_lift``: ``Shape_i`` of a computed value becomes the
+  dim of the graph input it comes from (or a constant), the work the JAX
+  package's ShapeFeature and ``local_track_shape_i`` do;
   ``local_shape_to_shape_i``: ``Shape`` (which ``Reshape``'s gradient
   builds) becomes its dims.
 - ``local_mul_one`` and ``local_flatten_add_mul``: the neutral-element and
@@ -17,19 +18,21 @@
   (the gradients of broadcast operands build such sums).
 - ``local_fill_sink`` and ``local_useless_fill``: the ``fill`` nodes of
   gradients move below the elemwise ops that read them, and go once
-  their value has the output's shape.
+  their value has the output's shape; ``local_fill_to_alloc``
+  (specialize): a fill that stays becomes an ``Alloc`` of the template's
+  shape.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from aesara_tpu_torch.compile.mode import register_canonicalize
+from aesara_tpu_torch.compile.mode import register_canonicalize, register_specialize
 from aesara_tpu_torch.graph.ir import Constant
 from aesara_tpu_torch.graph.rewriting.basic import copy_stack_trace, node_rewriter
 from aesara_tpu_torch.graph.utils import MethodNotDefined
 from aesara_tpu_torch.scalar import ops as aes
-from aesara_tpu_torch.tensor.basic import MakeVector, cast, constant, fill
+from aesara_tpu_torch.tensor.basic import MakeVector, alloc, cast, constant, fill
 from aesara_tpu_torch.tensor.elemwise import CAReduce, DimShuffle, Elemwise
 from aesara_tpu_torch.tensor.math import Dot, Sum, add, mul
 from aesara_tpu_torch.tensor.nnet.attention import FusedAttention, FusedAttentionGrad
@@ -123,23 +126,32 @@ def _lifted_dim(var, i):
 @node_rewriter([Shape_i])
 def local_shape_i_lift(fgraph, node):
     """Shape_i of a static dim → constant; Shape_i of a computed value →
-    the same dim of an input it comes from."""
+    the same dim of the graph input it comes from, or a constant, where
+    the walk toward the inputs ends at one (as the JAX package's
+    ``local_track_shape_i`` replaces only with those final forms)."""
     (x,) = node.inputs
     i = node.op.i
     if x.type.shape[i] is not None:
         return [constant(x.type.shape[i], dtype="int64")]
-    if x.owner is None:
-        return False
-    lifted = _lifted_dim(x, i)
-    if lifted is None:
-        return False
-    if isinstance(lifted, tuple):
+    lifted = (x, i)
+    while isinstance(lifted, tuple):
         src, d = lifted
         if src.type.shape[d] is not None:
             return [constant(src.type.shape[d], dtype="int64")]
+        if src.owner is None:
+            break
+        lifted = _lifted_dim(src, d)
+        if lifted is None:
+            return False
+    if isinstance(lifted, tuple):
+        if src is x or src not in fgraph.inputs:
+            return False
         res = Shape_i(d)(src)
     else:
         res = lifted
+        if not (isinstance(res, Constant) or (res.owner is not None and isinstance(res.owner.op, Shape_i)
+                                              and res.owner.inputs[0] in fgraph.inputs)):
+            return False
     res = _keep_type(node.outputs[0], res)
     return False if res is None else [copy_stack_trace(node.outputs[0], res)]
 
@@ -291,3 +303,24 @@ for _rw in (constant_folding, local_useless_dimshuffle, local_dimshuffle_lift,
             local_reshape_chain, local_useless_reshape, local_reduce_broadcastable,
             local_fill_sink, local_useless_fill):
     register_canonicalize(_rw)
+
+
+@node_rewriter([Elemwise])
+def local_fill_to_alloc(fgraph, node):
+    """fill(template, v) that survives canonicalize → alloc(v, *shape of
+    the template) (specialize, ``aesara_tpu/tensor/rewriting/basic.py:874``),
+    where v does not broadcast the template."""
+    if not isinstance(node.op.scalar_op, aes.Second):
+        return False
+    template, v = node.inputs
+    out = node.outputs[0]
+    if (v.type.ndim > template.type.ndim or template.type.ndim != out.type.ndim
+            or any((t == 1) != (o == 1) for t, o in zip(template.type.shape, out.type.shape))):
+        return False
+    if v.type.dtype != out.type.dtype:
+        v = cast(v, out.type.dtype)
+    conv = out.type.convert_variable(alloc(v, *shape_tuple(template)))
+    return False if conv is None else [copy_stack_trace(out, conv)]
+
+
+register_specialize(local_fill_to_alloc)

@@ -15,7 +15,7 @@ from aesara_tpu_torch.graph.ir import Type, Variable
 from aesara_tpu_torch.scalar.ops import _np_dtype, all_dtypes, discrete_dtypes
 
 
-__all__ = ["TensorType", "scalar", "vector", "matrix", "tensor3"]
+__all__ = ["TensorType", "scalar", "vector", "matrix", "tensor3", "tensor4", "row", "col"]
 
 
 class TensorType(Type):
@@ -120,3 +120,28 @@ scalar = _ctor(0)
 vector = _ctor(1)
 matrix = _ctor(2)
 tensor3 = _ctor(3)
+tensor4 = _ctor(4)
+
+
+def row(name=None, dtype=None):
+    return TensorType(dtype or config.floatX, (1, None))(name)
+
+
+def col(name=None, dtype=None):
+    return TensorType(dtype or config.floatX, (None, 1))(name)
+
+
+def _prefixed():
+    """The typed constructors of the JAX package (``iscalar``, ``lvector``,
+    ``fmatrix``, ...): each is a TensorType, which called with a name
+    makes a variable."""
+    dtypes = {"b": "int8", "w": "int16", "i": "int32", "l": "int64", "f": "float32", "d": "float64"}
+    shapes = {"scalar": (), "vector": (None,), "matrix": (None, None), "tensor3": (None,) * 3,
+              "tensor4": (None,) * 4, "row": (1, None), "col": (None, 1)}
+    for prefix, dtype in dtypes.items():
+        for base, shape in shapes.items():
+            globals()[prefix + base] = TensorType(dtype, shape)
+            __all__.append(prefix + base)
+
+
+_prefixed()

@@ -4,8 +4,8 @@
 One deliberate difference: ``x.shape`` is a tuple of 0-d int64 variables
 (a constant for each static dim, ``Shape_i`` otherwise).  In the JAX
 package ``x.shape[i]`` builds ``Subtensor(Shape(x))``, which its
-canonicalizer rewrites to the same ``Shape_i``; the port has no
-``Subtensor`` yet and builds the rewritten form directly.
+canonicalizer rewrites to the same ``Shape_i``; the port builds the
+rewritten form directly.
 """
 
 from __future__ import annotations
@@ -61,6 +61,14 @@ class _tensor_operators:
     __rand__ = _binary("and_", reflected=True)
     __or__ = _binary("or_")
     __ror__ = _binary("or_", reflected=True)
+    __floordiv__ = _binary("int_div")
+    __rfloordiv__ = _binary("int_div", reflected=True)
+    __mod__ = _binary("mod")
+    __rmod__ = _binary("mod", reflected=True)
+    __xor__ = _binary("xor")
+    __rxor__ = _binary("xor", reflected=True)
+    __lshift__ = _binary("shift_left")
+    __rshift__ = _binary("shift_right")
     __lt__ = _binary("lt")
     __le__ = _binary("le")
     __gt__ = _binary("gt")
@@ -114,15 +122,12 @@ class _tensor_operators:
         return flatten(self, ndim)
 
     def __getitem__(self, args):
-        """Integer-array indexing (``x[i, j]`` with integer arrays); slices
-        and scalar indices are not ported yet."""
-        from aesara_tpu_torch.tensor.subtensor import advanced_subtensor
+        """Basic indexing (slices, integers, None, Ellipsis), a leading
+        integer vector, or integer arrays over the leading dims
+        (``subtensor.take_slice``)."""
+        from aesara_tpu_torch.tensor.subtensor import take_slice
 
-        args = args if isinstance(args, tuple) else (args,)
-        if any(isinstance(a, (slice, int, np.integer, type(None), type(Ellipsis))) for a in args):
-            raise NotImplementedError(f"basic indexing {args} is not ported yet; "
-                                      "index with integer arrays")
-        return advanced_subtensor(self, *args)
+        return take_slice(self, args)
 
     def dimshuffle(self, *pattern):
         from aesara_tpu_torch.tensor.elemwise import DimShuffle

@@ -11,6 +11,7 @@ serve the sparse-input models, all through ``aesara_tpu_torch.function``.
     python3 chip_smoke.py --k7-sweep    # only K7's tuning table (see k7_sweep)
     python3 chip_smoke.py --k4-times    # only K4 against torch.log_softmax, and its sweeps (see k4_times)
     python3 chip_smoke.py --k4-k7-times    # only K7's and K4's times, for two checkouts (see k4_k7_times)
+    python3 chip_smoke.py --reference    # only the setup and path (e), the reference configurations
 
 Every compiled function runs captured (``TorchLinker``'s default on the
 card): its first call with a key runs eagerly, the second captures the
@@ -93,9 +94,28 @@ Phases (any failure raises and the exit code is non-zero):
    bits), and K6 at width 20, against their plain versions, the
    function's launches, 3 captured calls at width 20 profiled, its output
    against the same function on the CPU.
+e. the repo's reference configurations (``benchmarks/
+   bench_reference_ratio.py:146-250`` at REFRATIO_SCALE=4, built as it
+   builds them, float32, data from its seeds in shared variables on the
+   card): config 1, sigmoid logistic regression on 16,384 x 784 (sgd
+   0.1); config 2, the softmax chain on 8,192 x 1,024 (4 Softmax, K4 at
+   width 1,024); config 3, the MNIST MLP 784-512-512-10 with tanh, sgd
+   0.01, its minibatch of 512 chosen by ``givens={x: Xd[idx*B:(idx+1)*B],
+   ...}`` over 10 minibatches (2 DynamicSlice, the start computed on the
+   card); and the ``MLP`` model with sigmoid at the same widths on the
+   same givens (K4's log-softmax at (512, 10)) with ``predict``.  For
+   each: K1 on every Composite it runs against the plain version (values
+   in (0.05, 0.95), with times and bounds), 3 counted steps, 10 timed and
+   3 profiled, the loss falls (config 2: the same output every call),
+   every call replays one captured graph, each of the 10 minibatches
+   replayed equals its eager step, one step at full width on the card
+   against the CPU (loss and every parameter, TRAIN_TOL), and K4 at
+   config 2's softmax and the MLP's log-softmax against the plain version
+   and ``torch.softmax``/``torch.log_softmax``.
 8. captured against eager: every path above (the forward request, the
    sgd and AdamW steps, the classifier step, ``predict`` of one request
-   sent again, the GLM's sgd and adam steps, path (c) at width 20) compiled
+   sent again, the GLM's sgd and adam steps, path (c) at width 20, config
+   3's step) compiled
    twice from the same seeds, captured and with ``use_graph=False``, each
    driven alike (4 calls compared, then timed and profiled); a "capture
    table" line for each gives its step time back
@@ -110,7 +130,8 @@ The next-to-last lines are a JSON object describing the kernels (each
 kernel's launches from its path's run, and beside them the launches that
 run replayed and those the trace showed in the path's profiled replays;
 K1-K3 also with their launches in path 4d's 3 steps, and K1 with its time
-and bound on the AdamW update)
+and bound on the AdamW update; K1 and K4 with their launches in each
+configuration of path (e), and K4 with its checks there)
 and the card's name and power limit; the last is
 ``{"ok": true, "device": {...}}``.
 """
@@ -203,6 +224,14 @@ N_SPARSE_STEPS, N_SPARSE_TIMED = 3, 10
 SPLIT_WIDTHS = (1, 2, 4, 8, 16, 32)
 GRAD_WIDTHS = (1, 20)
 SPARSE_TOL = 1e-5        # fp32 K4-K7 against their plain versions (summation order)
+# (e) bench_reference_ratio.py configs 1-3 at REFRATIO_SCALE=4, and the MLP
+# at config 3's widths: config 1 16,384 x 784 (sgd 0.1), config 2 8,192 x
+# 1,024, config 3 784-512-512-10 at minibatch 512 of 10 (sgd 0.01)
+REF_N1, REF_D1, REF_LR1 = 4 * 4096, 784, 0.1
+REF_N2, REF_D2 = 4 * 2048, 1024
+REF_B, REF_DIN, REF_H, REF_DOUT, REF_NBATCH, REF_LR3 = 4 * 128, 784, 512, 10, 10, 0.01
+MLP_LR = 0.1
+N_REF_STEPS, N_REF_TIMED = 3, 10
 PROFILE_STEPS = 3        # calls counted in a profiled window, after one the profiler drops and a lead-in
 N_HOST_CALLS = 5         # calls whose host time time_steps takes the median of
 # host time at each edge of a profiled window.  On the H100, once the card
@@ -431,20 +460,22 @@ def guarded_inputs(comp):
     return {i for i, var in enumerate(comp.inputs) if var in guarded}
 
 
-def composite_inputs(node, rng, device):
+def composite_inputs(node, rng, device, full=(BATCH, SEQ, D_MODEL), sample="signed"):
     """Test values for one Composite node at full width: static-1 dims stay
-    1 (they broadcast), unknown dims become (B, T, d_model).  Inputs that
-    reach a sqrt or a divisor are positive; the others take both signs, so
-    ``maximum(., 0)`` takes both of its branches."""
+    1 (they broadcast), unknown dims become ``full``.  Inputs that reach a
+    sqrt or a divisor are positive; the others take both signs, so
+    ``maximum(., 0)`` takes both of its branches.  With ``sample`` "unit"
+    every float input lies in (0.05, 0.95)."""
     guarded = guarded_inputs(node.op.scalar_op)
     out = []
     for i, var in enumerate(node.inputs):
-        full = (BATCH, SEQ, D_MODEL)
         shape = tuple(s if s is not None else full[d] for d, s in enumerate(var.type.shape))
         if var.type.dtype == "bool":
             arr = rng.random(size=shape) < 0.5
         elif var.type.dtype.startswith("int"):
             arr = rng.integers(1, 100, size=shape).astype(var.type.dtype)
+        elif sample == "unit":
+            arr = rng.uniform(0.05, 0.95, size=shape).astype(var.type.dtype)
         elif i in guarded:
             arr = rng.uniform(0.5, 2.0, size=shape).astype(var.type.dtype)
         else:
@@ -1418,24 +1449,35 @@ def check_sddmm(label: str, a, gz, b) -> dict:
     return res
 
 
-def check_k4(x) -> dict:
-    """K4 (log-softmax) against its plain version at one shape, with the
-    times of both, of torch.log_softmax, and the bound."""
+def check_k4(x, log_softmax: bool = True) -> dict:
+    """K4 (log-softmax, or softmax) against its plain version at one
+    shape, with the times of both, of torch.log_softmax (torch.softmax),
+    and the bound."""
     from aesara_tpu_torch.link.torch.kernels.softmax import softmax_rows, softmax_rows_plain
 
-    got = softmax_rows(x, log=True)
+    lg = log_softmax
+    got = softmax_rows(x, log=lg)
     torch.cuda.synchronize()
-    want = softmax_rows_plain(x, log=True)
+    want = softmax_rows_plain(x, log=lg)
     err = (got.double() - want.double()).abs().max().item()
     torch.testing.assert_close(got, want, atol=SPARSE_TOL, rtol=SPARSE_TOL)
-    res = {"max_abs_err": err, "ms": device_ms(lambda: softmax_rows(x, log=True)),
-           "plain_ms": device_ms(lambda: softmax_rows_plain(x, log=True)),
-           "library_ms": library_ms("K4", lambda: torch.log_softmax(x, dim=-1))}
-    # read and write each value once; max, subtract, exp, sum, log, subtract
-    res["bound_ms"], res["bound_by"] = bound(2 * x.numel() * 4, 6 * x.numel())
-    log(f"K4 log-softmax {tuple(x.shape)}: max_abs_err {err:.3e}, device ms kernel {res['ms']:.4f} "
-        f"plain {res['plain_ms']:.4f} torch.log_softmax {res['library_ms']}; bound "
-        f"{res['bound_ms']:.4f} ({res['bound_by']})")
+    library = torch.log_softmax if lg else torch.softmax
+    res = {"max_abs_err": err, "ms": device_ms(lambda: softmax_rows(x, log=lg)),
+           "plain_ms": device_ms(lambda: softmax_rows_plain(x, log=lg)),
+           "library_ms": library_ms("K4", lambda: library(x, dim=-1))}
+    # read and write each value once; max, subtract, exp, sum, then log and
+    # subtract (log-softmax) or divide (softmax)
+    res["bound_ms"], res["bound_by"] = bound(2 * x.numel() * 4, (6 if lg else 5) * x.numel())
+    # the bound is HBM's: an input under the 50 MB L2 is read from L2 when
+    # launched again on it, so also the time with the L2 flushed first
+    flush = torch.empty(L2_FLUSH_BYTES // 4, device=x.device)
+    split = device_split(lambda: (flush.zero_(), softmax_rows(x, log=lg)))
+    res["cold_ms"] = sum(t for n, t in split.items() if kernel_group(n) == "K4 row softmax")
+    del flush
+    name = "log-softmax" if lg else "softmax"
+    log(f"K4 {name} {tuple(x.shape)}: max_abs_err {err:.3e}, device ms kernel {res['ms']:.4f} (L2 flushed "
+        f"before each launch {res['cold_ms']:.4f}) plain {res['plain_ms']:.4f} torch.{name.replace('-', '_')} "
+        f"{res['library_ms']}; bound {res['bound_ms']:.4f} ({res['bound_by']})")
     return res
 
 
@@ -1799,12 +1841,306 @@ def phase_values_grad(xv) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# path (e): the repo's reference configurations 1-3 and the MLP, dense
+# ---------------------------------------------------------------------------
+
+def build_reference(which, device: str, use_graph=None) -> dict:
+    """Config 1, 2 or 3 of ``benchmarks/bench_reference_ratio.py:146-250``
+    at REFRATIO_SCALE=4, built as it builds them (float32, its seed-0 data
+    drawn in its order, every dataset a shared variable), or "mlp": the
+    ``MLP`` with sigmoid at config 3's widths, sgd at MLP_LR, on the same
+    minibatch ``givens``.  A dict: ``step`` (config 3 and the MLP take the
+    minibatch index), ``loss`` (a function of the same index giving the
+    loss before a step; config 2's step is its output), ``params`` (the
+    trained shared variables) and ``data``."""
+    import aesara_tpu_torch as ptp
+    import aesara_tpu_torch.tensor as pt
+    from aesara_tpu_torch.config import config
+    from aesara_tpu_torch.models import MLP, sgd
+
+    mode = ptp.Mode(ptp.TorchLinker(device=device, use_graph=use_graph))
+    rng = np.random.default_rng(0)
+    f32 = "float32"
+    with config.change_flags(device=device, floatX=f32):
+        if which == 1:
+            X = ptp.shared(rng.normal(size=(REF_N1, REF_D1)).astype(f32), name="X")
+            Y = ptp.shared((rng.random(REF_N1) > 0.5).astype(f32), name="Y")
+            w = ptp.shared(rng.normal(size=REF_D1).astype(f32) * 0.01, name="w")
+            b = ptp.shared(np.asarray(0.0, dtype=f32), name="b")
+            p = pt.sigmoid(pt.dot(X, w) + b)
+            eps = np.asarray(1e-7, dtype=f32)
+            nll = -pt.mean(Y * pt.log(p + eps) + (1 - Y) * pt.log(1 - p + eps))
+            gw, gb = ptp.grad(nll, [w, b])
+            lr = np.asarray(REF_LR1, dtype=f32)
+            step = ptp.function([], [], updates={w: w - lr * gw, b: b - lr * gb}, mode=mode)
+            return dict(step=step, loss=ptp.function([], nll, mode=mode), params=[w, b], data=[X, Y])
+        if which == 2:
+            X = ptp.shared(rng.normal(size=(REF_N2, REF_D2)).astype(f32), name="X")
+            h = X
+            for _ in range(4):
+                e = pt.exp(h - pt.max(h, axis=1, keepdims=True))
+                sm = e / pt.sum(e, axis=1, keepdims=True)
+                lse = pt.log(pt.sum(pt.exp(sm), axis=1, keepdims=True))
+                h = sm * np.asarray(1.1, f32) + pt.tanh(lse)
+            step = ptp.function([], pt.sum(h), mode=mode)
+            return dict(step=step, loss=None, params=[], data=[X])
+        x, y, idx = pt.matrix("x", dtype=f32), pt.lvector("y"), pt.iscalar("idx")
+        if which == 3:
+            sizes = [(REF_DIN, REF_H), (REF_H, REF_H), (REF_H, REF_DOUT)]
+            ws = [ptp.shared((rng.normal(size=s) * (1.0 / np.sqrt(s[0]))).astype(f32)) for s in sizes]
+            bs = [ptp.shared(np.zeros(s[1], dtype=f32)) for s in sizes]
+            h = x
+            for i, (wi, bi) in enumerate(zip(ws, bs)):
+                h = pt.dot(h, wi) + bi
+                if i < 2:
+                    h = pt.tanh(h)
+            lse = pt.log(pt.sum(pt.exp(h - pt.max(h, axis=1, keepdims=True)), axis=1)) + pt.max(h, axis=1)
+            loss = pt.mean(lse - h[pt.arange(y.shape[0]), y])
+            params = ws + bs
+            grads = ptp.grad(loss, params)
+            lr = np.asarray(REF_LR3, f32)
+            updates = {p: p - lr * g for p, g in zip(params, grads)}
+        else:
+            model = MLP(REF_DIN, [REF_H, REF_H], REF_DOUT, activation="sigmoid", seed=0)
+            loss, params = model.loss(x, y), model.params
+            updates = sgd(loss, params, lr=MLP_LR)
+        Xd = ptp.shared(rng.normal(size=(REF_NBATCH * REF_B, REF_DIN)).astype(f32), name="Xd")
+        Yd = ptp.shared(rng.integers(0, REF_DOUT, size=REF_NBATCH * REF_B).astype("int64"), name="Yd")
+    B = REF_B
+    givens = {x: Xd[idx * B:(idx + 1) * B], y: Yd[idx * B:(idx + 1) * B]}
+    step = ptp.function([idx], [] if which == 3 else ptp.Out(loss, borrow=True), updates=updates,
+                        givens=givens, mode=mode)
+    built = dict(step=step, loss=ptp.function([idx], loss, givens=givens, mode=mode), params=params,
+                 data=[Xd, Yd])
+    if which == "mlp":
+        built["predict"] = ptp.function([idx], model.predict(x), givens={x: givens[x]}, mode=mode)
+        built["model"] = model
+    return built
+
+
+def reference_call(built, which):
+    """A callable driving ``built``'s step through the minibatches in turn
+    (configs 1 and 2 take no index)."""
+    if which in (1, 2):
+        return built["step"]
+    state = {"i": 0}
+
+    def call():
+        out = built["step"](np.int32(state["i"] % REF_NBATCH))
+        state["i"] += 1
+        return out
+
+    return call
+
+
+def check_composites(fn, label: str, rng) -> list:
+    """K1 on each distinct Composite that ``fn`` runs on the card against
+    its plain version, on values in (0.05, 0.95) (every log, division and
+    sigmoid of path (e) stays finite there) at the shapes the path gives
+    it: per Composite a dict with its error, times and bound."""
+    from aesara_tpu_torch.link.torch.kernels.elemwise import ElemwiseKernel, composite_plain, fused_elemwise
+
+    device = torch.device("cuda")
+    rows, seen = [], set()
+    for node in composite_nodes(fn):
+        if node.op in seen:
+            continue
+        seen.add(node.op)
+        comp = node.op.scalar_op
+        out_dtype = node.outputs[0].type.dtype
+        kernel = ElemwiseKernel(comp, [v.type.dtype for v in node.inputs], out_dtype)
+        args = composite_inputs(node, rng, device, full=(REF_B, REF_H), sample="unit")
+        got = fused_elemwise(kernel, *args)
+        torch.cuda.synchronize()
+        want = composite_plain(comp, out_dtype, *args)
+        err = (got.double() - want.double()).abs().max().item() if got.numel() else 0.0
+        if not err <= F32_ATOL or got.shape != want.shape or got.dtype != want.dtype:
+            raise AssertionError(f"{label} K1 {comp} {tuple(got.shape)} {got.dtype}: max err {err} > {F32_ATOL}")
+        ms = device_ms(lambda: fused_elemwise(kernel, *args))
+        plain_ms = device_ms(lambda: composite_plain(comp, out_dtype, *args))
+        n_bytes = sum(a.numel() * a.element_size() for a in args) + got.numel() * got.element_size()
+        bound_ms, bound_by = bound(n_bytes, got.numel() * len(comp.nodes))
+        ops = ".".join(sorted(type(n.op).__name__ for n in comp.nodes))
+        log(f"{label} K1 {{{ops}}} inputs {[tuple(a.shape) for a in args]} -> {tuple(got.shape)}: max_abs_err "
+            f"{err:.3e}, device ms kernel {ms:.4f} plain {plain_ms:.4f}, bound {bound_ms:.4f} ({bound_by})")
+        rows.append(dict(ops=ops, shape=tuple(got.shape), max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by))
+    return rows
+
+
+def reference_graph(fn, label: str) -> dict:
+    """The kernels one call of ``fn`` launches (K1: its Composites on the
+    card; K4: its softmax nodes), logged with the graph's ops."""
+    names = node_names(fn.maker.fgraph)
+    per_call = {"K1": len(composite_nodes(fn)),
+                "K4": sum(n in ("Softmax", "LogSoftmax") for n in names)}
+    counts = {n: names.count(n) for n in sorted(set(names))}
+    log(f"{label} graph: {len(names)} nodes {counts}; launches a call {per_call}")
+    return per_call
+
+
+def set_params(params, values):
+    for p, v in zip(params, values):
+        p.set_value(v)
+
+
+def check_minibatches(built, which, label: str):
+    """Each minibatch's step, replayed from a captured graph, against an
+    eager run (``use_graph=False``) of the same step from the same weights:
+    every parameter and the loss after it, bitwise or within CAPTURE_REL
+    of each tensor's scale.  The start of the minibatch is computed on the
+    card from the index, so each replay must read its own."""
+    eager = build_reference(which, "cuda", use_graph=False)
+    start = [p.get_value() for p in eager["params"]]
+    step, worst = built["step"], 0.0
+    for i in range(REF_NBATCH):
+        for b in (built, eager):
+            set_params(b["params"], start)
+            b["step"](np.int32(i))
+        if not step.captured:
+            raise AssertionError(f"{label}: minibatch {i} did not replay the captured graph")
+        got = [p.get_value() for p in built["params"]] + [_host(built["loss"](np.int32(i)))]
+        want = [p.get_value() for p in eager["params"]] + [_host(eager["loss"](np.int32(i)))]
+        diff, rel, same = _difference(got, want)
+        if not same and rel > CAPTURE_REL:
+            raise AssertionError(f"{label}: minibatch {i} captured and eager differ by {rel:.3e} of a tensor's "
+                                 "scale")
+        worst = max(worst, rel)
+    log(f"{label}: each of the {REF_NBATCH} minibatches, replayed, equals its eager step (parameters and "
+        f"loss; largest difference {worst:.3e} of a tensor's scale)")
+    del eager
+    release()
+
+
+def check_reference_against_cpu(built, which, label: str):
+    """One step (minibatch 0) from the same weights on the card and on the
+    CPU: the loss (config 2: the output) and every parameter, TRAIN_TOL."""
+    cpu = build_reference(which, "cpu")
+    set_params(built["params"], [p.get_value() for p in cpu["params"]])
+    index = () if which in (1, 2) else (np.int32(0),)
+    if which == 2:
+        got, want = [_host(built["step"]())], [_host(cpu["step"]())]
+    else:
+        got, want = [_host(built["loss"](*index))], [_host(cpu["loss"](*index))]
+        built["step"](*index)
+        cpu["step"](*index)
+        got += [p.get_value() for p in built["params"]]
+        want += [p.get_value() for p in cpu["params"]]
+    err = 0.0
+    for g, w in zip(got, want):
+        err = max(err, float(np.abs(np.asarray(g, "float64") - np.asarray(w, "float64")).max()))
+        np.testing.assert_allclose(g, w, atol=TRAIN_TOL, rtol=TRAIN_TOL)
+    what = "the output" if which == 2 else f"loss and {len(got) - 1} parameters"
+    log(f"{label}: one step card vs CPU at full width, {what}: max abs err {err:.3e} (tolerance {TRAIN_TOL}, "
+        f"relative and absolute)")
+
+
+def run_reference(which, label: str) -> dict:
+    """One configuration of path (e): graph and K1/K4 checks, 3 counted
+    steps, 10 timed and 3 profiled, the loss, capture, each minibatch
+    against its eager step, and the card against the CPU."""
+    t0 = time.perf_counter()
+    built = build_reference(which, "cuda")
+    step, loss = built["step"], built["loss"]
+    log(f"{label}: compile (graph + grad + rewrites + link): {time.perf_counter() - t0:.2f} s")
+    per_call = reference_graph(step, label)
+    rows = check_composites(step, label, np.random.default_rng(31))
+    index = () if which in (1, 2) else (np.int32(0),)
+    loss_before = float(_host(loss(*index))) if loss is not None else None
+    call = reference_call(built, which)
+    torch.cuda.synchronize()
+    reset_peak()
+    zero_counters()
+    outs = [_host(call()) for _ in range(N_REF_STEPS)]
+    launches = read_counters(per_call, label, N_REF_STEPS)
+    t = time_steps(call, N_REF_TIMED, label)
+    require_captured(step, label)
+    if step.capture_blocker is not None:
+        raise AssertionError(f"{label}: capture blocked by {step.capture_blocker}")
+    if which == 2:
+        if not all(np.isfinite(o) and o == outs[0] for o in outs):
+            raise AssertionError(f"{label}: outputs {outs} not finite or not the same each call")
+        log(f"{label}: output {float(outs[0])} each call")
+    elif which == 1:
+        after = float(_host(loss()))
+        log(f"{label}: loss {loss_before:.6f} before the {N_REF_STEPS + N_REF_TIMED} steps and more, "
+            f"{after:.6f} after")
+        if not (np.isfinite(after) and after < loss_before):
+            raise AssertionError(f"{label}: the loss did not fall: {loss_before} -> {after}")
+    else:
+        # the loss of one minibatch before and after a step on it
+        first = float(_host(loss(np.int32(0))))
+        step(np.int32(0))
+        second = float(_host(loss(np.int32(0))))
+        log(f"{label}: minibatch 0 loss {loss_before:.6f} before any step, {first:.6f} after the run, "
+            f"{second:.6f} after one more step on it")
+        if not (np.isfinite(second) and second < first):
+            raise AssertionError(f"{label}: a step on minibatch 0 did not lower its loss: {first} -> {second}")
+    if which == "mlp":
+        check_predict(built, label)
+    if which in (3, "mlp"):
+        check_minibatches(built, which, label)
+    check_reference_against_cpu(built, which, label)
+    k4 = None
+    if which == 2:
+        k4 = check_k4(torch.randn((REF_N2, REF_D2), device="cuda",
+                                  generator=torch.Generator(device="cuda").manual_seed(21)) * 3, log_softmax=False)
+    elif which == "mlp":
+        k4 = check_k4(torch.randn((REF_B, REF_DOUT), device="cuda",
+                                  generator=torch.Generator(device="cuda").manual_seed(22)) * 3)
+    busy = (f"{t['busy']:.3f} of {t['wall']:.3f} ms ({100 * t['busy'] / t['wall']:.1f}%)"
+            if t["busy"] is not None else "not measured")
+    log(f"{label}: {t['ms']:.3f} ms a step back to back, host {t['host']:.3f} ms a call, device busy {busy}, "
+        f"peak {t['peak']:.3f} GiB")
+    del built, step, loss, call
+    release()
+    return dict(t, launches=launches, composites=rows, k4=k4)
+
+
+def check_predict(built, label: str):
+    """``predict`` of minibatch 0 against argmax of the logits computed on
+    the host from the card's weights."""
+    got = built["predict"](np.int32(0))
+    xs = built["data"][0].get_value()[:REF_B].astype("float64")
+    h = xs
+    ws = [p.get_value().astype("float64") for p in built["params"]]
+    for i in range(0, len(ws), 2):
+        h = h @ ws[i] + ws[i + 1]
+        if i < len(ws) - 2:
+            h = 1.0 / (1.0 + np.exp(-h))
+    agree = float(np.mean(got.cpu().numpy() == np.argmax(h, axis=1)))
+    if got.dtype != torch.int64 or tuple(got.shape) != (REF_B,) or agree < 0.99:
+        raise AssertionError(f"{label} predict: {got.dtype} {tuple(got.shape)}, agreement with the host {agree}")
+    log(f"{label}: predict of minibatch 0 agrees with argmax of the host's logits on {agree:.4f} of the rows")
+
+
+def reference_only():
+    """--reference: the setup and path (e) alone."""
+    phase_setup()
+    phase_reference()
+    log("chip_smoke --reference: path (e) passed")
+
+
+def phase_reference() -> dict:
+    """Path (e): configs 1-3 and the MLP (see the module docstring)."""
+    t0 = time.perf_counter()
+    out = {}
+    for which, label in ((1, "(e) config 1 logistic regression"), (2, "(e) config 2 softmax chain"),
+                         (3, "(e) config 3 MNIST MLP"), ("mlp", "(e) MLP model (sigmoid)")):
+        out[which] = run_reference(which, label)
+    log(f"(e) reference configs: {time.perf_counter() - t0:.2f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # every path captured and eager, in one process
 # ---------------------------------------------------------------------------
 
 def _host(value):
     """A result on the host, to compare after the function is gone: a
     tensor's values, a SciPy matrix's values (its pattern is x's)."""
+    if value is None:       # a function without outputs
+        return []
     if isinstance(value, (list, tuple)):
         return [_host(v) for v in value]
     if isinstance(value, torch.Tensor):
@@ -1849,10 +2185,15 @@ def _paths(ng, glm):
         fn = build_values_grad("cuda", use_graph=g)
         return fn, lambda: fn(glm_x, rhs), []
 
+    def mnist_mlp(g):
+        built = build_reference(3, "cuda", use_graph=g)
+        return built["step"], reference_call(built, 3), built["params"]
+
     return [("encoder forward request", forward), ("encoder train step (sgd)", train("sgd")),
             ("(d) encoder train step (AdamW)", train("adamw")), ("(a) classifier train step", classifier),
             ("(a) predict, one request again", predict), ("(b) GLM train step", glm_step("sgd")),
-            ("(b) GLM adam step", glm_step("adam")), ("(c) values gradient, width 20", values_grad)]
+            ("(b) GLM adam step", glm_step("adam")), ("(c) values gradient, width 20", values_grad),
+            ("(e) config 3 MNIST MLP step", mnist_mlp)]
 
 
 def _difference(captured, eager) -> tuple:
@@ -2439,7 +2780,7 @@ def profile_check(sessions: int = 12, rounds: int = 3):
 def main():
     modes = {"--k6-sweep": k6_sweep, "--k2-walk-sweep": k2_walk_sweep, "--attention-times": attention_times,
              "--profile-check": profile_check, "--k7-sweep": k7_sweep, "--k4-times": k4_times,
-             "--k4-k7-times": k4_k7_times}
+             "--k4-k7-times": k4_k7_times, "--reference": reference_only}
     if len(sys.argv) == 2 and sys.argv[1] in modes:
         if not torch.cuda.is_available():
             raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU")
@@ -2479,6 +2820,7 @@ def main():
     lr = phase_logistic()
     glm, glm_xyw = phase_glm()
     grad_values = phase_values_grad(glm_xyw[0])
+    reference = phase_reference()
     t0 = time.perf_counter()
     phase_capture(lr["data"], glm_xyw)
     log(f"captured-vs-eager phase: {time.perf_counter() - t0:.2f} s")
@@ -2502,14 +2844,25 @@ def main():
     k6 = dict(lr["K6"], max_abs_err=max(r["max_abs_err"] for r in (
         lr["K6"], lr["K6_grad"], lr["K6_request"], grad_values["K6"])))
     k7 = dict(grad_values["K7"], max_abs_err=grad_values["K7_err"])
+    # path (e): each configuration's launches in its 3 counted steps, and
+    # K4 at config 2's softmax and the MLP's log-softmax
+    labels = {1: "config1", 2: "config2", 3: "config3", "mlp": "mlp"}
+    path_e = {k: {labels[w]: r["launches"][0][k] for w, r in reference.items()} for k in ("K1", "K4")}
+    k1_e_err = max(row["max_abs_err"] for r in reference.values() for row in r["composites"])
+    k1["max_abs_err"] = max(k1["max_abs_err"], k1_e_err)
+    k4_e = {labels[w]: {key: r["k4"][key] for key in ("max_abs_err", "ms", "cold_ms", "plain_ms", "bound_ms",
+                                                       "library_ms")}
+            for w, r in reference.items() if r["k4"] is not None}
     kernels = [
         dict(kernel_line("K1 fused elemwise Composite", "triton", K1_SOURCE, K1_REPLACES, "K1", train, k1),
-             cold_ms=k1_times[4], **k1_adamw),
+             cold_ms=k1_times[4], **k1_adamw, path_e_launches=path_e["K1"]),
         dict(kernel_line("K2 flash attention forward", "cuda", K2_SOURCE, K2_REPLACES, "K2", train, k2),
              adamw_launches=adamw["launches"]["K2"]),
         dict(k3_line, adamw_launches=adamw["launches"]["K3"]),
-        kernel_line("K4 row log-softmax", "cuda", K4_SOURCE, K4_REPLACES, "K4", (lr["launches"], lr["traced"]),
-                    lr["K4"]),
+        dict(kernel_line("K4 row log-softmax", "cuda", K4_SOURCE, K4_REPLACES, "K4", (lr["launches"], lr["traced"]),
+                         dict(lr["K4"], max_abs_err=max([lr["K4"]["max_abs_err"]]
+                                                        + [r["max_abs_err"] for r in k4_e.values()]))),
+             path_e_launches=path_e["K4"], path_e=k4_e),
         kernel_line("K5 CSR SpMV (narrow rhs)", "cuda", K567_SOURCE, K5_REPLACES, "K5",
                     (glm["launches"], glm["traced"]), k5),
         kernel_line("K6 CSR SpMM (wide rhs)", "cuda", K567_SOURCE, K6_REPLACES, "K6", (lr["launches"], lr["traced"]),

@@ -1,7 +1,8 @@
 """Kernel tests that need the card: each hand-written kernel against its
-plain PyTorch version on CUDA tensors, a small encoder forward and train
-step and a small sparse logistic-regression step on the card against the
-CPU.  They skip where there is no CUDA device; run them on a GPU machine
+plain PyTorch version on CUDA tensors (K1 on every op of the scalar
+table), a small encoder forward and train step, a small sparse
+logistic-regression step on the card against the CPU, and a captured
+minibatch window replayed at every index.  They skip where there is no CUDA device; run them on a GPU machine
 with ``python -m pytest -m cuda tests/test_torch_cuda.py``."""
 
 import numpy as np
@@ -835,3 +836,105 @@ def test_a_failing_capture_raises(cuda):
     np.testing.assert_array_equal(f(np.asarray([2.0, 3.0], "float32")).cpu().numpy(), [5, 7])
     with pytest.raises(RuntimeError):
         f(np.asarray([2.0, 3.0], "float32"))
+
+
+# ---------------------------------------------------------------------------
+# the rest of the real scalar table and the special functions: K1's Triton
+# form of each against its plain form on the card, in every dtype it takes
+# ---------------------------------------------------------------------------
+
+#: fp32/fp64 tolerance (rtol = atol) of each op's Triton form (libdevice)
+#: against its plain form (PyTorch's own CUDA math); bfloat16 rounds both
+#: to 8 bits, so 8e-3.  Exact: integer arithmetic, roundings, comparisons,
+#: the floor division and modulo (one algorithm, NumPy's, in both forms)
+K1_TABLE_EXACT = {"int_div", "mod", "ceil", "floor", "trunc", "round_half_to_even", "round_half_away_from_zero",
+                  "xor", "shift_left", "shift_right", "in_range"}
+K1_TABLE_TOL = {"float32": 4e-6, "float64": 1e-13}
+#: the special functions, where PyTorch's CUDA forms are not libdevice's;
+#: PyTorch's float64 J0 and J1 are off by up to 4e-7 (against SciPy, on
+#: the CPU: tests/test_torch_scalar_math.py), so 1e-6 for those
+K1_TABLE_SPECIAL_TOL = {"float32": 3e-5, "float64": 1e-11}
+K1_TABLE_SPECIAL = {"erfcx", "gamma", "gammaln", "j0", "j1", "i0", "i1", "erfinv", "erfcinv"}
+K1_TABLE_BESSEL_J_TOL = 1e-6
+
+
+def _table_case_params():
+    from tests.torch_scalar_cases import CASES, DTYPES
+
+    return [(name, dtype) for name, _, _, _, kind in CASES for dtype in DTYPES[kind]]
+
+
+@pytest.mark.parametrize("name,dtype", _table_case_params())
+def test_k1_scalar_table_matches_plain(cuda, name, dtype):
+    from tests.torch_scalar_cases import BY_NAME, case_values, port_op
+
+    nin = BY_NAME[name][2]
+    S = aes.ScalarType(dtype)
+    ins = [S() for _ in range(nin)]
+    comp = Composite(ins, [port_op(name)(*ins)])
+    out_dtype = comp.outputs[0].type.dtype
+    kernel = ElemwiseKernel(comp, [dtype] * nin, out_dtype)
+    rng = np.random.default_rng(sorted(BY_NAME).index(name))
+    vals = case_values(name, dtype, 33 * 70, rng)
+    args = [torch.tensor(np.asarray(v, dtype="float64" if dtype == "bfloat16" else dtype)).to(
+        getattr(torch, dtype)).reshape(33, 70).to(cuda) for v in vals]
+    if nin > 1:
+        args[-1] = args[-1][:1]       # the last operand broadcasts along dim 0
+    before = fused_elemwise.launches
+    got = fused_elemwise(kernel, *args)
+    assert fused_elemwise.launches == before + 1
+    want = composite_plain(comp, out_dtype, *args)
+    assert got.dtype == want.dtype and got.shape == want.shape == (33, 70)
+    if name in K1_TABLE_EXACT or out_dtype == "bool" or dtype in ("int8", "int32", "int64", "uint8"):
+        torch.testing.assert_close(got, want, atol=0, rtol=0, equal_nan=True)
+        return
+    tol = 8e-3 if dtype == "bfloat16" else (K1_TABLE_SPECIAL_TOL if name in K1_TABLE_SPECIAL
+                                            else K1_TABLE_TOL)[dtype]
+    if name in ("j0", "j1") and dtype != "bfloat16":
+        tol = max(tol, K1_TABLE_BESSEL_J_TOL)
+    err = ((got.double() - want.double()).abs() / want.double().abs().clamp_min(1.0)).nan_to_num(0.0).max()
+    print(f"K1 {name} {dtype}: largest error {float(err):.3e} (relative above 1, absolute below)")
+    torch.testing.assert_close(got, want, atol=tol, rtol=tol, equal_nan=True)
+
+
+def test_k1_integer_division_by_zero_is_zero_on_the_card(cuda):
+    """NumPy's integer floor division and modulo by zero give 0 (the JAX
+    package's -2/-1 is a fault of the reference); MIN // -1 wraps to MIN."""
+    S = aes.ScalarType("int32")
+    x, y = S(), S()
+    for op, want in ((aes.int_div, [0, 0, 0, -2**31, -3, -2]), (aes.mod, [0, 0, 0, 0, 1, -1])):
+        kernel = ElemwiseKernel(Composite([x, y], [op(x, y)]), ["int32", "int32"], "int32")
+        a = torch.tensor([5, 0, -5, -2**31, -5, 5], dtype=torch.int32, device=cuda)
+        b = torch.tensor([0, 0, 0, -1, 2, -3], dtype=torch.int32, device=cuda)
+        assert fused_elemwise(kernel, a, b).tolist() == want
+
+
+def test_captured_dynamic_slice_reads_each_replays_start(cuda):
+    """A minibatch window ``X[i*B:(i+1)*B]`` of a shared X on the card:
+    every call after the first two replays one captured graph, and each
+    replay's window is that of its own index (the start is computed on
+    the card, never read on the host), as the eager run gives it."""
+    B = 10
+    xv = np.random.default_rng(3).normal(size=(10 * B, 7)).astype("float32")
+    with config.change_flags(device="cuda"):
+        X = ptp.shared(xv, name="X")
+        w = ptp.shared(np.zeros(7, dtype="float32"), name="w")
+    i = pt.iscalar("i")
+    window = X[i * B:(i + 1) * B]
+    out = ptm.sum(window, axis=0)
+    names = []
+    fns = {}
+    for use_graph in (True, False):
+        mode = ptp.Mode(ptp.TorchLinker(device="cuda", use_graph=use_graph))
+        fns[use_graph] = ptp.function([i], out, updates={w: w + out}, mode=mode)
+        names = [type(n.op).__name__ for n in fns[use_graph].maker.fgraph.toposort()]
+    assert "DynamicSlice" in names and "Subtensor" not in names
+    captured, eager = fns[True], fns[False]
+    assert captured.capture_blocker is None
+    captured(np.int32(9))
+    captured(np.int32(8))
+    for k in range(10):
+        got = captured(np.int32(k)).cpu().numpy()
+        assert captured.captured
+        np.testing.assert_array_equal(got, eager(np.int32(k)).cpu().numpy())
+        np.testing.assert_allclose(got, xv[k * B:(k + 1) * B].sum(axis=0), rtol=1e-6, atol=1e-5)
