@@ -16,11 +16,12 @@ from aesara_tpu_torch.compile.function import Function, function  # noqa: F401
 from aesara_tpu_torch.compile.io import In, Out  # noqa: F401
 from aesara_tpu_torch.compile.mode import TORCH, Mode, get_mode  # noqa: F401
 from aesara_tpu_torch.compile.sharedvalue import shared  # noqa: F401
-from aesara_tpu_torch.gradient import grad  # noqa: F401
+from aesara_tpu_torch.gradient import grad, hessian, jacobian  # noqa: F401
 from aesara_tpu_torch.link.torch.linker import TorchLinker  # noqa: F401
 from aesara_tpu_torch.tensor import rewriting  # noqa: F401  (registers the rewrites)
 from aesara_tpu_torch.tensor import blas  # noqa: F401  (registers BlasOpt)
 from aesara_tpu_torch import sparse  # noqa: F401  (registers the sparse rewrites)
+from aesara_tpu_torch import scan  # noqa: F401  (registers the scan rewrites and Scan's lowering)
 
 __all__ = ["config", "tensor", "sparse", "function", "Function", "In", "Out", "Mode", "TORCH",
-           "get_mode", "shared", "grad", "TorchLinker"]
+           "get_mode", "shared", "grad", "jacobian", "hessian", "TorchLinker"]

@@ -13,8 +13,9 @@ read every shared value as it was before the call; the linker writes
 the new values into the shared variables' storage only after the whole
 graph has run (inside the captured step on the card), as the JAX
 package donates the old buffers to XLA
-(``aesara_tpu/link/jax/linker.py:304-343``).  ``steps_per_call`` needs
-scan and bucketing needs ``compile/bucketing.py``: neither is ported yet.
+(``aesara_tpu/link/jax/linker.py:304-343``).  ``steps_per_call=k``
+compiles the step as a k-step Scan (``_function_ksteps``).  Bucketing
+needs ``compile/bucketing.py``, which is not ported yet.
 """
 
 from __future__ import annotations
@@ -212,7 +213,8 @@ def function(inputs: Sequence, outputs=None, mode=None, updates=None, givens=Non
     if isinstance(inputs, (Variable, In)):
         raise TypeError("inputs must be a list/tuple")
     if steps_per_call != 1:
-        raise NotImplementedError("steps_per_call waits for the scan slice, which the port does not have yet")
+        return _function_ksteps(inputs, outputs, mode, updates, givens, no_default_updates, name,
+                                allow_input_downcast, on_unused_input, int(steps_per_call))
     specs = []
     for p in inputs:
         if isinstance(p, In):
@@ -266,3 +268,63 @@ def function(inputs: Sequence, outputs=None, mode=None, updates=None, givens=Non
                                    update_targets=[t for t, _ in shared_updates], borrow=borrow)
     positions = [next(i for i, v in enumerate(in_vars) if v is t) for t, _ in input_updates]
     return Function(fn, fgraph, specs, single, borrow, [t for t, _ in shared_updates], positions, name=name)
+
+
+def _function_ksteps(params, outputs, mode, updates, givens, no_default_updates, name, allow_input_downcast,
+                     on_unused_input, k: int) -> Function:
+    """``function(..., steps_per_call=k)`` (``aesara_tpu/compile/function.py:
+    113-210``): the step wrapped in a k-step Scan.  Every update target
+    becomes a sit-sot carry, so step t+1 reads step t's state, as k
+    separate calls would; the inputs are loop-invariant (each step sees
+    the same values); each output is stacked on a new leading (k,) axis.
+    On the card the k steps are one captured graph."""
+    from aesara_tpu_torch.scan.basic import scan
+
+    if k < 1:
+        raise ValueError(f"steps_per_call must be >= 1, got {k}")
+    in_specs = []
+    for p in params:
+        if isinstance(p, In):
+            if p.update is not None:
+                raise NotImplementedError("steps_per_call>1 does not support In(update=...) inputs; "
+                                          "use a shared variable for the looped state")
+            in_specs.append(p)
+        elif isinstance(p, SharedVariable):
+            raise TypeError("shared variables do not belong in `inputs`: they are implicit; "
+                            "pass updates={shared: expr} instead")
+        elif isinstance(p, Variable):
+            in_specs.append(In(p, allow_downcast=allow_input_downcast))
+        else:
+            raise TypeError(f"invalid function input {p!r}")
+    out_vars, _, update_pairs, single = rebuild_collect_shared(
+        outputs, inputs=[s.variable for s in in_specs], replace=givens, updates=updates,
+        no_default_updates=no_default_updates)
+    targets, exprs = [], []
+    for target, expr in update_pairs:
+        if not isinstance(target, SharedVariable) or not isinstance(target.type, TensorType):
+            raise NotImplementedError("steps_per_call>1 requires every update target to be a shared tensor")
+        targets.append(target)
+        exprs.append(expr)
+
+    def body(*carries):
+        new = clone_replace(exprs + out_vars, replace=dict(zip(targets, carries)))
+        return new if len(new) > 1 else new[0]
+
+    outputs_info = list(targets) + [None] * len(out_vars)
+    if not outputs_info:
+        raise ValueError("steps_per_call>1 needs at least one output or update")
+    res, _ = scan(body, outputs_info=outputs_info, n_steps=k, return_list=True)
+    # the state after k steps is the last carried value (scan_save_mem
+    # makes the [-1] reads final-only carries: no (k, ...) state stacks)
+    new_updates = [(t, res[i][-1]) for i, t in enumerate(targets)]
+    stacked = res[len(targets):]
+    new_outputs = None
+    if outputs is not None:
+        raw = [outputs] if isinstance(outputs, (Variable, Out)) else list(outputs)
+        new_outputs = [Out(v, borrow=o.borrow) if isinstance(o, Out) else v for o, v in zip(raw, stacked)]
+        if single:
+            new_outputs = new_outputs[0]
+    fn = function(in_specs, new_outputs, mode=mode, updates=new_updates, no_default_updates=True, name=name,
+                  allow_input_downcast=allow_input_downcast, on_unused_input=on_unused_input)
+    fn.steps_per_call = k
+    return fn

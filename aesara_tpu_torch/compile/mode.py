@@ -2,8 +2,9 @@
 (reference ``aesara_tpu/compile/mode.py``).
 
 Positions follow the JAX package: merge1 at 0, canonicalize at 1,
-stabilize at 1.5, BlasOpt at 1.7, specialize at 2, elemwise fusion and merge2 at 49, merge3
-at 100.  The ``TORCH`` mode runs the ``fast_run`` rewrites and links
+stabilize at 1.5, the scan rewrites at 0.05 and 1.6-1.66 (and 50.5-50.6),
+BlasOpt at 1.7, specialize at 2, uncanonicalize at 3, elemwise fusion and
+merge2 at 49, merge3 at 100.  The ``TORCH`` mode runs the ``fast_run`` rewrites and links
 through ``TorchLinker``; ``including``/``excluding`` give a mode with
 tags added to or taken from its query, as the JAX package's ``Mode``
 does (``TORCH.excluding("BlasOpt")``).
@@ -19,7 +20,7 @@ from aesara_tpu_torch.link.torch.linker import TorchLinker
 
 
 __all__ = ["Mode", "optdb", "get_mode", "register_canonicalize", "register_stabilize", "register_specialize",
-           "TORCH", "OPT_FAST_RUN"]
+           "register_uncanonicalize", "TORCH", "OPT_FAST_RUN"]
 
 
 optdb = SequenceDB()
@@ -30,6 +31,8 @@ stabilize = EquilibriumDB()
 optdb.register("stabilize", stabilize, "fast_run", position=1.5)
 specialize = EquilibriumDB()
 optdb.register("specialize", specialize, "fast_run", position=2)
+uncanonicalize = EquilibriumDB()
+optdb.register("uncanonicalize", uncanonicalize, "fast_run", position=3)
 optdb.register("merge2", MergeOptimizer(), "fast_run", "merge", position=49.5)
 optdb.register("merge3", MergeOptimizer(), "fast_run", "merge", position=100)
 # position 1.7: BlasOpt, registered by aesara_tpu_torch.tensor.blas; position
@@ -48,6 +51,11 @@ def register_stabilize(rewrite, *tags, name=None):
 
 def register_specialize(rewrite, *tags, name=None):
     specialize.register(name or rewrite.name, rewrite, "fast_run", *tags)
+    return rewrite
+
+
+def register_uncanonicalize(rewrite, *tags, name=None):
+    uncanonicalize.register(name or rewrite.name, rewrite, "fast_run", *tags)
     return rewrite
 
 

@@ -19,8 +19,9 @@ The gradient manipulators (``zero_grad``, ``disconnected_grad``,
 ``undefined_grad``, ``grad_clip``, ``grad_scale``, ``consider_constant``)
 are identities in the forward graph with their own gradient.
 
-``Rop``, ``jacobian`` and ``hessian`` wait for the scan slice
-(``jacobian`` and ``hessian`` are scans in the JAX package).
+``jacobian`` and ``hessian`` are scans over the rows of a gradient, as
+in the JAX package.  ``Rop`` waits for ``R_op`` on the rest of the op
+table (``Scan.R_op`` with it).
 """
 
 from __future__ import annotations
@@ -41,7 +42,7 @@ __all__ = ["grad", "Lop", "subgraph_grad", "numeric_grad", "verify_grad", "Gradi
            "NullTypeGradError",
            "GradManipulatorOp", "ZeroGrad", "DisconnectedGrad", "UndefinedGrad", "GradClip", "GradScale",
            "zero_grad", "disconnected_grad", "undefined_grad", "grad_clip", "grad_scale",
-           "consider_constant"]
+           "consider_constant", "jacobian", "hessian", "Rop"]
 
 
 class DisconnectedType(Type):
@@ -271,6 +272,60 @@ def Lop(f, wrt, eval_points, consider_constant=None, disconnected_inputs="raise"
         f, eval_points = [f], [eval_points]
     return grad(None, wrt, known_grads=dict(zip(f, eval_points)), consider_constant=consider_constant,
                 disconnected_inputs=disconnected_inputs)
+
+
+def Rop(f, wrt, eval_points, disconnected_outputs="raise", use_op_rop=False):
+    """The R-operator (df/dwrt) v: not ported yet.  It waits for ``R_op``
+    on the rest of the op table, ``Scan.R_op`` with it."""
+    raise NotImplementedError("Rop waits for R_op on the rest of the op table (Scan.R_op with it), "
+                              "which the port does not have yet")
+
+
+def jacobian(expression, wrt, consider_constant=None, disconnected_inputs="raise"):
+    """The Jacobian of a 0-d or 1-d ``expression``: its rows are the
+    gradients of its entries, computed by a scan over them (as the JAX
+    package builds it, ``aesara_tpu/gradient.py:535``)."""
+    from aesara_tpu_torch.scan.basic import scan
+    from aesara_tpu_torch.tensor.basic import arange
+    from aesara_tpu_torch.tensor.shape import shape
+
+    if expression.type.ndim > 1:
+        raise ValueError("jacobian expects a 0/1-d expression")
+    single = not isinstance(wrt, (list, tuple))
+    wrts = [wrt] if single else list(wrt)
+    if expression.type.ndim == 0:
+        res = grad(expression, wrts, consider_constant=consider_constant, disconnected_inputs=disconnected_inputs)
+        return res[0] if single else res
+
+    def inner(i, expr, *args):
+        return grad(expr[i], wrts, consider_constant=consider_constant, disconnected_inputs=disconnected_inputs)
+
+    rows, _ = scan(inner, sequences=[arange(shape(expression)[0])], non_sequences=[expression] + wrts)
+    if single:
+        return rows if not isinstance(rows, (list, tuple)) else rows[0]
+    return rows
+
+
+def hessian(cost, wrt, consider_constant=None, disconnected_inputs="raise"):
+    """The Hessian of a 0-d ``cost`` with respect to vectors: a scan over
+    the rows of the gradient (``aesara_tpu/gradient.py:569``)."""
+    from aesara_tpu_torch.scan.basic import scan
+    from aesara_tpu_torch.tensor.basic import arange
+    from aesara_tpu_torch.tensor.shape import shape
+
+    if cost.type.ndim != 0:
+        raise TypeError("hessian cost must be scalar")
+    single = not isinstance(wrt, (list, tuple))
+    wrts = [wrt] if single else list(wrt)
+    out = []
+    for w in wrts:
+        if w.type.ndim != 1:
+            raise ValueError("hessian wrt must be vectors")
+        g = grad(cost, w, consider_constant=consider_constant, disconnected_inputs=disconnected_inputs)
+        rows, _ = scan(lambda i, gy, x: grad(gy[i], x, disconnected_inputs="ignore"),
+                       sequences=[arange(shape(g)[0])], non_sequences=[g, w])
+        out.append(rows)
+    return out[0] if single else out
 
 
 def subgraph_grad(wrt, end, start=None, cost=None, details=False):

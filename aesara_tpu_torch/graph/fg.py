@@ -160,3 +160,7 @@ class FunctionGraph:
 
     def toposort(self) -> List[Apply]:
         return io_toposort(self.inputs, self.outputs)
+
+    def clone(self) -> "FunctionGraph":
+        """A copy with fresh variables and nodes (and no features)."""
+        return FunctionGraph(self.inputs, self.outputs, clone=True)

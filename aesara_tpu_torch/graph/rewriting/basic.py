@@ -215,9 +215,10 @@ class WalkingGraphRewriter(GraphRewriter):
 
 
 def in2out(*rewriters, name=None) -> WalkingGraphRewriter:
-    """One inputs-to-outputs pass of ``rewriters``, the first that fires on
-    a node winning (reference ``in2out``)."""
-    rw = WalkingGraphRewriter(rewriters[0] if len(rewriters) == 1 else SequentialNodeRewriter(*rewriters))
+    """One inputs-to-outputs pass of ``rewriters``, each tried on the nodes
+    of the ops it tracks, the first that fires on a node winning
+    (reference ``in2out``)."""
+    rw = WalkingGraphRewriter(SequentialNodeRewriter(*rewriters))
     rw.name = name
     return rw
 

@@ -66,7 +66,7 @@ class EquilibriumDB(RewriteDatabase):
 
 class SequenceDB(RewriteDatabase):
     """Ordered by float positions; its query runs the selected rewriters
-    in position order."""
+    in position order (by name within a position)."""
 
     def __init__(self):
         super().__init__()
@@ -81,5 +81,6 @@ class SequenceDB(RewriteDatabase):
     def query(self, q: RewriteDatabaseQuery):
         from aesara_tpu_torch.graph.rewriting.basic import SequentialGraphRewriter
 
-        picked = sorted(self._selected(q), key=lambda rw: self._position.get(rw.name, math.inf))
+        # ties in position run by name, as in the JAX package
+        picked = sorted(self._selected(q), key=lambda rw: (self._position.get(rw.name, math.inf), rw.name))
         return SequentialGraphRewriter(*[self._compiled(rw, q) for rw in picked])

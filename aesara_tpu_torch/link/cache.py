@@ -9,8 +9,9 @@ graph reuses the lowering and its generated kernels.
 
 Two departures from the JAX package's copy: a constant is hashed by all of
 its bytes (the JAX package hashes only the shape of one over 65,536
-entries, so two graphs differing in such a constant share a key), and a
-``Composite`` by its scalar graph (the port's Composite has no ``fgraph``).
+entries, so two graphs differing in such a constant share a key), a
+``Composite`` by its scalar graph (the port's Composite has no ``fgraph``),
+and a ``Scan`` by its inner graph.
 """
 
 from __future__ import annotations
@@ -89,4 +90,8 @@ def _op_key(op) -> str:
     if isinstance(op, Composite):
         # by its scalar graph: display names alias across distinct graphs
         base += _graph_key(op.inputs, io_toposort(op.inputs, op.outputs), op.outputs)
+    inner = getattr(op, "fgraph", None)
+    if inner is not None:
+        # an op with an inner graph (Scan): by its structure and that graph
+        base += f"{op.info}:{op.truncate_gradient}:" + fgraph_key(inner)
     return base

@@ -6,9 +6,14 @@ An op with no registration raises ``NotImplementedError`` naming it.
 Values the linker keeps on the host (shape arithmetic) reach a lowering
 as NumPy values only at the positions listed in its ``host_inputs``
 attribute; every other input arrives as a tensor on the linker's device.
-A lowering whose results are host values says so (``host_outputs``), and
-one that makes the host wait for the device, so that no CUDA graph can
-capture it, says that (``capturable = False``).
+A lowering whose results are host values says so (``host_outputs``); one
+whose inputs at some positions must be host values lists them with its
+reason (``needs_host``), and the linker refuses to compile a graph where
+they are not.  One that makes the host wait for the device, so that no
+CUDA graph can capture it, says that (``capturable = False``, with its
+reason in ``blocker``), or lists the inputs it reads on the host where
+they are on the device (``syncs``).  One that creates its result from host
+values alone takes the program's device (``takes_device``).
 """
 
 from __future__ import annotations
@@ -21,12 +26,14 @@ import numpy as np
 from aesara_tpu_torch.gradient import GradManipulatorOp
 from aesara_tpu_torch.graph.ir import Constant
 from aesara_tpu_torch.scalar.composite import Composite
-from aesara_tpu_torch.tensor.basic import Alloc, ARange, MakeVector
+from aesara_tpu_torch.tensor.basic import (
+    Alloc, AllocEmpty, ARange, Join, MakeVector, ScalarFromTensor, Split, TensorFromScalar,
+)
 from aesara_tpu_torch.tensor.blas import Dot22, Dot22Scalar, Gemm, Gemv, Ger
 from aesara_tpu_torch.tensor.elemwise import CAReduce, DimShuffle, Elemwise, check_static_broadcast
 from aesara_tpu_torch.tensor.math import Argmax, Dot
 from aesara_tpu_torch.tensor.nnet.attention import FusedAttention, FusedAttentionGrad
-from aesara_tpu_torch.tensor.shape import Reshape, Shape, Shape_i
+from aesara_tpu_torch.tensor.shape import Reshape, Shape, Shape_i, SpecifyShape, Unbroadcast, check_specified_shape
 from aesara_tpu_torch.tensor.special import LogSoftmax, Softmax, SoftmaxGrad
 from aesara_tpu_torch.tensor.subtensor import (
     AdvancedIncSubtensor, AdvancedIncSubtensor1, AdvancedSubtensor, AdvancedSubtensor1, DynamicIncSubtensor,
@@ -95,6 +102,16 @@ def _torch_careduce(op, node):
             return (torch.sum(x, dim=axes) if axes else x).to(out_dtype)
 
         return reduce_sum
+    if name == "mul":
+        acc_dtype = torch_dtype(op.acc_dtype) if op.acc_dtype else out_dtype
+
+        def reduce_prod(x):
+            x = x.to(acc_dtype)
+            for d in reversed(axes):    # one axis a call: torch.prod takes one dim
+                x = torch.prod(x, dim=d)
+            return x.to(out_dtype)
+
+        return reduce_prod
     # as the JAX package lowers them (link/jax/dispatch.py:630-665); amax
     # and amin propagate NaN, as numpy.max does
     reducers = {"maximum": torch.amax, "minimum": torch.amin}
@@ -320,43 +337,73 @@ def _torch_advanced_inc_subtensor(op, node):
     return advanced_inc_subtensor
 
 
+class _In(int):
+    """The position of an index input, among a node's index inputs."""
+
+
 def _basic_index(node, idx_list, n_fixed: int):
-    """(the static index tuple, the slices with a negative step by their
-    position in its result, the positions of the run-time integer indices
-    in its result, their positions among the node's index inputs) of a
-    Subtensor-like node whose index inputs start at ``n_fixed``.  A slice
-    bound that is not a constant raises: its result's length would be read
-    on the host (the JAX package sends such a node to its Python fallback;
-    the port has none).  A negative-step slice (torch slices step forward
-    only) and a run-time integer index are kept as full slices here and
-    applied by ``_region``, the index gathered on the device."""
+    """(``resolve``, the positions of the run-time integer indices in the
+    static index, their positions among the index inputs, the positions
+    of the slice bounds that must be host values among the node's inputs)
+    of a Subtensor-like node whose index inputs start at ``n_fixed``;
+    ``resolve(index_inputs)`` gives the static index tuple and the slices
+    with a negative step by their position in its result.
+
+    A slice bound that is not a constant reaches the lowering as a host
+    value: one computed from shapes and constants, which the linker folds
+    on the host and which each key of a function fixes (``needs_host``).
+    One computed from data raises when the function is compiled: its
+    result's length would be read on the host (the JAX package sends such
+    a node to its Python fallback; the port has none).  A negative-step
+    slice (torch slices step forward only) and a run-time integer index
+    are kept as full slices in the static index and applied by
+    ``_region``, the index gathered on the device."""
     index_inputs = list(node.inputs[n_fixed:])
-    entries = indices_from_subtensor(index_inputs, idx_list)
-    static, negative, dynamic, kept = [], {}, [], 0
+    entries = indices_from_subtensor([_In(k) for k in range(len(index_inputs))], idx_list)
+    template, dynamic, bounds, kept = [], [], [], 0     # kept: dims of the result so far
     for e in entries:
         if isinstance(e, slice):
-            parts = [p.data if isinstance(p, Constant) else p for p in (e.start, e.stop, e.step)]
-            if any(p is not None and not isinstance(p, (int, np.integer, np.ndarray)) for p in parts):
-                raise NotImplementedError(f"{node.op} has a slice bound computed at run time, so its length "
-                                          "is not known when the function is compiled; index a window of "
-                                          "constant length (x[i*B:(i+1)*B] becomes a DynamicSlice)")
-            sl = slice(*[None if p is None else int(p) for p in parts])
-            if sl.step is not None and sl.step < 0:
-                negative[kept] = sl
-                sl = slice(None)
-            static.append(sl)
+            parts = []
+            for p in (e.start, e.stop, e.step):
+                if isinstance(p, _In):
+                    if isinstance(index_inputs[p], Constant):
+                        p = int(index_inputs[p].data)
+                    else:
+                        bounds.append(p)
+                parts.append(p)
+            template.append(tuple(parts))
             kept += 1
-        elif isinstance(e, Constant):
-            static.append(int(e.data))
-        elif isinstance(e, (int, np.integer)):
-            static.append(int(e))
-        else:
-            static.append(slice(None))
+        elif isinstance(e, _In) and not isinstance(index_inputs[e], Constant):
+            template.append(None)
             dynamic.append(kept)
             kept += 1
-    # every other index input is a constant slice bound or a constant index
-    runtime = [k for k, v in enumerate(index_inputs) if not isinstance(v, Constant)]
-    return tuple(static), negative, dynamic, runtime
+        else:
+            template.append(int(index_inputs[e].data) if isinstance(e, _In) else int(e))
+    runtime = [k for k, v in enumerate(index_inputs) if not isinstance(v, Constant) and k not in bounds]
+
+    def resolve(values):
+        static, negative, kept = [], {}, 0
+        for e in template:
+            if isinstance(e, tuple):
+                sl = slice(*[int(values[p]) if isinstance(p, _In) else p for p in e])
+                if sl.step is not None and sl.step < 0:
+                    negative[kept] = sl     # by its dim in the result: an integer index drops one
+                    sl = slice(None)
+                static.append(sl)
+            else:
+                static.append(slice(None) if e is None else e)
+            kept += e is None or isinstance(e, tuple)
+        return tuple(static), negative
+
+    if not bounds:
+        fixed = resolve(())
+        resolve = lambda values: fixed  # noqa: E731
+    return resolve, dynamic, runtime, [n_fixed + k for k in bounds]
+
+
+_RUN_TIME_BOUND = ("has a slice bound computed at run time from data, so its length is not known "
+                   "when the function is compiled; index a window of constant length "
+                   "(x[i*B:(i+1)*B] becomes a DynamicSlice) or compute the bound from shapes")
 
 
 def _region(x, static, negative):
@@ -398,11 +445,11 @@ def _run_time_indices(view, dynamic, values):
 
 @torch_funcify.register(Subtensor)
 def _torch_subtensor(op, node):
-    static, negative, dynamic, runtime = _basic_index(node, op.idx_list, 1)
+    resolve, dynamic, runtime, bounds = _basic_index(node, op.idx_list, 1)
     n_dyn = len(dynamic)
 
     def subtensor(x, *index_inputs):
-        view, flips = _region(x, static, negative)
+        view, flips = _region(x, *resolve(index_inputs))
         if flips:
             view = view.flip(flips)
         if not n_dyn:
@@ -411,18 +458,19 @@ def _torch_subtensor(op, node):
         return moved[tuple(idx)].reshape(moved.shape[n_dyn:])
 
     subtensor.host_inputs = tuple(range(1, len(node.inputs)))
+    subtensor.needs_host = (bounds, _RUN_TIME_BOUND)
     return subtensor
 
 
 @torch_funcify.register(IncSubtensor)
 def _torch_inc_subtensor(op, node):
     # out of place: the port has no destroy handler yet
-    static, negative, dynamic, runtime = _basic_index(node, op.idx_list, 2)
+    resolve, dynamic, runtime, bounds = _basic_index(node, op.idx_list, 2)
     n_dyn, set_instead = len(dynamic), op.set_instead_of_inc
 
     def inc_subtensor(x, y, *index_inputs):
         out = x.clone()
-        view, flips = _region(out, static, negative)
+        view, flips = _region(out, *resolve(index_inputs))
         # y broadcast over the region, a run-time index's dim of size 1
         shape = [1 if d in dynamic else n for d, n in enumerate(view.shape)]
         values = y.broadcast_to([n for d, n in enumerate(shape) if d not in dynamic]).reshape(shape)
@@ -440,6 +488,7 @@ def _torch_inc_subtensor(op, node):
         return out
 
     inc_subtensor.host_inputs = tuple(range(2, len(node.inputs)))
+    inc_subtensor.needs_host = (bounds, _RUN_TIME_BOUND)
     return inc_subtensor
 
 
@@ -574,3 +623,77 @@ def _torch_argmax(op, node):
         return torch.argmax(flat, dim=-1)
 
     return argmax
+
+
+@torch_funcify.register(AllocEmpty)
+def _torch_alloc_empty(op, node):
+    import torch
+
+    dtype = torch_dtype(op.dtype)
+
+    def alloc_empty(*shape, device):
+        # zeros, as the JAX package's lowering gives (XLA has no unset values)
+        return torch.zeros(tuple(int(s) for s in shape), dtype=dtype, device=device)
+
+    alloc_empty.host_inputs = tuple(range(len(node.inputs)))
+    alloc_empty.needs_host = (tuple(range(len(node.inputs))), "has a shape computed on the device")
+    alloc_empty.takes_device = True
+    return alloc_empty
+
+
+@torch_funcify.register(TensorFromScalar)
+def _torch_tensor_from_scalar(op, node):
+    return lambda s: s.reshape(())
+
+
+@torch_funcify.register(ScalarFromTensor)
+def _torch_scalar_from_tensor(op, node):
+    return lambda t: t.reshape(())
+
+
+@torch_funcify.register(Join)
+def _torch_join(op, node):
+    import torch
+
+    def join(axis, *tensors):
+        return torch.cat(tensors, dim=int(axis))
+
+    join.host_inputs = (0,)
+    join.needs_host = ((0,), "has an axis computed on the device")
+    return join
+
+
+@torch_funcify.register(Split)
+def _torch_split(op, node):
+    import torch
+
+    n = op.len_splits
+
+    def split(x, axis, splits):
+        sizes = [int(v) for v in np.asarray(splits)]
+        axis = int(axis)
+        if len(sizes) != n:
+            raise ValueError("wrong number of splits")
+        if sum(sizes) != x.shape[axis]:
+            raise ValueError(f"split sizes {sizes} do not sum to axis length {x.shape[axis]}")
+        return tuple(torch.split(x, sizes, dim=axis))
+
+    split.host_inputs = (1, 2)
+    split.needs_host = ((1, 2), "has an axis or split sizes computed on the device")
+    return split
+
+
+@torch_funcify.register(SpecifyShape)
+def _torch_specify_shape(op, node):
+    def specify_shape(x, *shape):
+        check_specified_shape(tuple(x.shape), shape)
+        return x
+
+    specify_shape.host_inputs = tuple(range(1, len(node.inputs)))
+    specify_shape.needs_host = (tuple(range(1, len(node.inputs))), "has a shape computed on the device")
+    return specify_shape
+
+
+@torch_funcify.register(Unbroadcast)
+def _torch_unbroadcast(op, node):
+    return lambda x: x

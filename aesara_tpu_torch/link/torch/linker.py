@@ -61,10 +61,15 @@ the profiler's trace of the replays.
 
 A graph that cannot be captured runs eagerly and says so
 (``TorchFunction.capture_blocker``): decided when the function is
-compiled, from lowerings that flag themselves (``capturable = False``;
-today ``ARange`` with bounds on the device, whose ``.item()`` waits on
-the device).  A capture that fails raises; nothing carries on eagerly or
-on the CPU in its place.
+compiled, from lowerings that flag themselves (``capturable = False``:
+``ARange`` with bounds on the device, whose ``.item()`` waits on the
+device, and a while-Scan, which reads its condition each step) or that
+read an input on the host where it is not a host value (``syncs``: a
+Scan's trip count computed on the device).  A lowering whose inputs at
+some positions must be host values (``needs_host``: a slice bound, a
+Join axis, Split sizes) makes the compile raise where they are not.  A
+capture that fails raises; nothing carries on eagerly or on the CPU in
+its place.
 
 Sparse values (``linker.py:296-402,414-469``): a sparse argument or shared
 variable, a SciPy matrix on the host, crosses to the device as a
@@ -109,6 +114,20 @@ def _storage(value) -> int:
     return value.untyped_storage().data_ptr() if isinstance(value, torch.Tensor) else 0
 
 
+def _capture_blocker(fn, node, host):
+    """Why the lowering ``fn`` of ``node`` keeps a graph from being
+    captured, or None: it says so itself (``capturable = False``, with
+    ``blocker`` its reason), or it reads on the host an input that is not
+    a host value (``syncs``, the positions of such inputs, with
+    ``sync_blocker`` its reason)."""
+    if not getattr(fn, "capturable", True):
+        return getattr(fn, "blocker", "with inputs on the device")
+    synced = [k for k in getattr(fn, "syncs", ()) if node.inputs[k] not in host]
+    if synced:
+        return getattr(fn, "sync_blocker", None) or f"reads {', '.join(str(node.inputs[k]) for k in synced)} on the host"
+    return None
+
+
 class Program:
     """The lowering of one FunctionGraph for one device: ``run`` maps the
     value of every graph input (a tensor or CSRMat on the device) to the
@@ -127,18 +146,27 @@ class Program:
         self.order = fgraph.toposort()
         self.fns = [torch_funcify(node.op, node=node) for node in self.order]
         self.keep_host = [frozenset(getattr(fn, "host_inputs", ())) for fn in self.fns]
+        self.takes_device = [getattr(fn, "takes_device", False) for fn in self.fns]
         # which nodes fold on the host: all their inputs are host values
         host = {v for node in self.order for v in node.inputs if isinstance(v, Constant)}
         self.folds = []
+        #: the first node that keeps the program from being captured and
+        #: why, or None
+        self.blocker = self.blocker_reason = None
         for node, fn in zip(self.order, self.fns):
             fold = (node.op.do_constant_folding(fgraph, node) and type(node.op).perform is not Op.perform
                     and all(i in host for i in node.inputs))
             self.folds.append(fold)
             if fold or getattr(fn, "host_outputs", False):
                 host.update(node.outputs)
-        #: the first node that keeps the program from being captured, or None
-        self.blocker = next((node for node, fn, fold in zip(self.order, self.fns, self.folds)
-                             if not fold and not getattr(fn, "capturable", True)), None)
+            if fold:
+                continue
+            positions, why = getattr(fn, "needs_host", ((), ""))
+            if any(node.inputs[k] not in host for k in positions):
+                raise NotImplementedError(f"{node.op} {why}")
+            reason = _capture_blocker(fn, node, host)
+            if reason is not None and self.blocker is None:
+                self.blocker, self.blocker_reason = node, reason
         last = {}
         for k, node in enumerate(self.order):
             for var in node.inputs:
@@ -178,7 +206,8 @@ class Program:
 
         env = dict(zip(self.inputs, inputs))
         with torch.no_grad():
-            for node, fn, fold, keep, frees in zip(self.order, self.fns, self.folds, self.keep_host, self.frees):
+            for node, fn, fold, keep, frees, takes_device in zip(self.order, self.fns, self.folds, self.keep_host,
+                                                                 self.frees, self.takes_device):
                 ins = [env[i] if i in env else i.data for i in node.inputs]
                 if fold:
                     storage = [[None] for _ in node.outputs]
@@ -187,7 +216,7 @@ class Program:
                 else:
                     ins = [a if (k in keep or not _is_host(a)) else self.to_device(a, i, uploads)
                            for k, (a, i) in enumerate(zip(ins, node.inputs))]
-                    outs = fn(*ins)
+                    outs = fn(*ins, device=self.device) if takes_device else fn(*ins)
                     if len(node.outputs) == 1:
                         outs = (outs,)
                 env.update(zip(node.outputs, outs))
@@ -253,7 +282,7 @@ class TorchFunction:
             self.capture_blocker = "use_graph is off"
         elif program.blocker is not None:
             node = program.blocker
-            self.capture_blocker = f"{node.op} ({type(node.op).__name__}) with inputs on the device"
+            self.capture_blocker = f"{node.op} ({type(node.op).__name__}) {program.blocker_reason}"
         else:
             self.capture_blocker = None
         #: whether the last call replayed a captured graph

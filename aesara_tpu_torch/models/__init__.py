@@ -3,6 +3,7 @@
 from aesara_tpu_torch.models.convert import load_params, params_by_name  # noqa: F401
 from aesara_tpu_torch.models.linear import LinearRegression, LogisticRegression  # noqa: F401
 from aesara_tpu_torch.models.mlp import MLP  # noqa: F401
+from aesara_tpu_torch.models.rnn import GRU, LSTM, ElmanRNN  # noqa: F401
 from aesara_tpu_torch.models.checkpoint import load_checkpoint, save_checkpoint, state_shareds  # noqa: F401
 from aesara_tpu_torch.models.optim import (  # noqa: F401
     accumulate_gradients, adam, adamw, adamw_from_grads, clip_by_global_norm, ema_updates, momentum, rmsprop,

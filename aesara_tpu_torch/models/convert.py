@@ -1,6 +1,8 @@
-"""Carry a JAX-package model's parameters into a port model (the
-encoder layer, the linear models and the ``MLP``, whose parameters are
-named ``w0, b0, w1, b1, ...`` in both packages).
+"""Carry a JAX-package model's parameters into a port model: the encoder
+layer, the linear models, the ``MLP`` (``w0, b0, w1, b1, ...``) and the
+recurrent models (``ElmanRNN``: ``wx, wh, b, w_out, b_out``; ``LSTM``:
+``w_lstm, b_lstm, w_out, b_out``; ``GRU``: ``w_rz, b_rz, w_h, b_h, w_out,
+b_out``), whose parameters have the same names in both packages.
 
 ``load_params(model, values)`` takes either the list
 ``[np.asarray(p.get_value()) for p in jax_model.params]`` (the JAX

@@ -3,8 +3,8 @@ subset the encoder's forward and train step, the optimizers, the linear
 models, the MLP and the repo's reference configurations 1-3 use."""
 
 from aesara_tpu_torch.tensor.basic import (  # noqa: F401
-    alloc, arange, as_tensor_variable, cast, constant, fill, flatten, ones_like, switch, where,
-    zeros_like,
+    alloc, arange, as_tensor_variable, cast, concatenate, constant, empty, fill, flatten, full, join, ones,
+    ones_like, split, stack, switch, where, zeros, zeros_like,
 )
 from aesara_tpu_torch.tensor.math import (  # noqa: F401
     abs, add, all, and_, any, arccos, arccosh, arcsin, arcsinh, arctan, arctan2, arctanh, argmax, ceil,
@@ -15,7 +15,9 @@ from aesara_tpu_torch.tensor.math import (  # noqa: F401
     sigmoid, sin, sinh, softplus, sqr, sqrt, sub, sum, tan, tanh, tri_gamma, true_div, trunc, xor,
 )
 from aesara_tpu_torch.tensor.nnet.attention import fused_attention  # noqa: F401
-from aesara_tpu_torch.tensor.shape import reshape, shape_padright  # noqa: F401
+from aesara_tpu_torch.tensor.shape import (  # noqa: F401
+    reshape, shape_padleft, shape_padright, specify_shape, unbroadcast,
+)
 from aesara_tpu_torch.tensor.special import log_softmax, softmax  # noqa: F401
 from aesara_tpu_torch.tensor.type import *  # noqa: F401,F403  (TensorType and the constructors)
 from aesara_tpu_torch.tensor.subtensor import inc_subtensor, set_subtensor  # noqa: F401

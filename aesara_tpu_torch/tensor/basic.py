@@ -2,7 +2,11 @@
 ``aesara_tpu/tensor/basic.py``): conversion to variables, constants with
 the JAX package's literal dtype rules, ``cast``, ``fill`` (with
 ``ones_like``/``zeros_like``, which gradients build), ``switch``,
-``MakeVector``, ``Alloc``, ``ARange`` and ``flatten``."""
+``MakeVector``, ``Alloc`` (with ``full``/``zeros``/``ones``),
+``AllocEmpty``, ``ARange``, ``flatten``, the scalar/tensor bridges
+``TensorFromScalar``/``ScalarFromTensor``, and ``Join``/``Split`` (with
+``join``, ``concatenate``, ``stack`` and ``split``), the structural ops
+Scan's graphs build."""
 
 from __future__ import annotations
 
@@ -22,6 +26,8 @@ __all__ = [
     "as_tensor_variable", "constant", "cast", "fill", "second", "ones_like", "zeros_like",
     "MakeVector", "stack", "get_scalar_constant_value", "get_vector_length",
     "NotScalarConstantError", "Alloc", "alloc", "ARange", "arange", "flatten", "switch", "where",
+    "full", "zeros", "ones", "AllocEmpty", "empty", "TensorFromScalar", "ScalarFromTensor",
+    "tensor_from_scalar", "scalar_from_tensor", "Join", "join", "concatenate", "Split", "split",
 ]
 
 
@@ -128,14 +134,6 @@ class MakeVector(Op):
 
     def perform(self, node, inputs, output_storage):
         output_storage[0][0] = np.asarray(inputs, dtype=_np_dtype(self.dtype))
-
-
-def stack(tensors):
-    """Stack 0-d tensors into a vector (the only stacking the slice uses)."""
-    elems = [as_tensor_variable(t) for t in tensors]
-    if not elems or any(e.type.ndim != 0 for e in elems):
-        raise NotImplementedError("stack of non-scalars is not ported yet")
-    return MakeVector(upcast(*[e.type.dtype for e in elems]))(*elems)
 
 
 def get_scalar_constant_value(v):
@@ -287,17 +285,317 @@ def arange(start, stop=None, step=1, dtype=None):
 
 
 def flatten(x, ndim: int = 1):
-    """``x`` reshaped to one dim (the only form the port uses); its length
-    is the product of ``x``'s dims, folded on the host."""
-    from aesara_tpu_torch.tensor.math import mul
-    from aesara_tpu_torch.tensor.shape import reshape, shape_tuple
+    """``x`` reshaped to one dim (the only form the port uses), to the
+    product of its shape, as the JAX package builds it."""
+    from aesara_tpu_torch.tensor.math import prod
+    from aesara_tpu_torch.tensor.shape import reshape, shape
 
     x = as_tensor_variable(x)
     if ndim != 1:
         raise NotImplementedError("flatten to more than one dim is not ported yet")
     if x.type.ndim == 1:
         return x
-    n = constant(1, dtype="int64")
-    for d in shape_tuple(x):
-        n = mul(n, d)
-    return reshape(x, [n], ndim=1)
+    return reshape(x, stack([cast(prod(shape(x)), "int64")]), ndim=1)
+
+
+# ---------------------------------------------------------------------------
+# scalar <-> 0-d tensor bridges
+# ---------------------------------------------------------------------------
+
+class TensorFromScalar(Op):
+    """A ScalarType value as a 0-d tensor."""
+
+    __props__ = ()
+
+    def make_node(self, s):
+        if not isinstance(s.type, ScalarType):
+            raise TypeError("input must be a scalar-typed variable")
+        return Apply(self, [s], [TensorType(s.type.dtype, ())()])
+
+    def perform(self, node, inputs, output_storage):
+        output_storage[0][0] = np.asarray(inputs[0])
+
+    def infer_shape(self, fgraph, node, input_shapes):
+        return [()]
+
+    def grad(self, inputs, output_grads):
+        (s,) = inputs
+        if s.type.dtype in aes.discrete_dtypes:
+            from aesara_tpu_torch.gradient import grad_undefined
+
+            return [grad_undefined(self, 0, s)]
+        return [scalar_from_tensor(output_grads[0])]
+
+
+class ScalarFromTensor(Op):
+    """A 0-d tensor as a ScalarType value."""
+
+    __props__ = ()
+
+    def make_node(self, t):
+        t = as_tensor_variable(t)
+        if t.type.ndim != 0:
+            raise TypeError("input must be a 0-d tensor")
+        return Apply(self, [t], [ScalarType(t.type.dtype)()])
+
+    def perform(self, node, inputs, output_storage):
+        output_storage[0][0] = np.asarray(inputs[0])[()]
+
+    def infer_shape(self, fgraph, node, input_shapes):
+        return [()]
+
+    def grad(self, inputs, output_grads):
+        return [tensor_from_scalar(output_grads[0])]
+
+
+tensor_from_scalar = TensorFromScalar()
+scalar_from_tensor = ScalarFromTensor()
+
+
+# ---------------------------------------------------------------------------
+# full / zeros / ones / empty
+# ---------------------------------------------------------------------------
+
+def full(shape, fill_value, dtype=None):
+    fill_value = as_tensor_variable(fill_value)
+    if dtype:
+        fill_value = cast(fill_value, dtype)
+    if not isinstance(shape, (list, tuple)):
+        shape = (shape,)
+    return alloc(fill_value, *shape)
+
+
+def zeros(shape, dtype=None):
+    return full(shape, constant(0, dtype=dtype or config.floatX))
+
+
+def ones(shape, dtype=None):
+    return full(shape, constant(1, dtype=dtype or config.floatX))
+
+
+def _normalize_shape_args(shape):
+    """Shape arguments as int64 0-d tensors, with their static values."""
+    if len(shape) == 1 and isinstance(shape[0], (list, tuple)):
+        shape = tuple(shape[0])
+    if len(shape) == 1 and isinstance(shape[0], Variable) and shape[0].type.ndim == 1:
+        vec = shape[0]
+        n = vec.type.shape[0]
+        if n is None:
+            raise TypeError("shape vector must have a known static length")
+        shape = tuple(vec[i] for i in range(n))
+    shape_vars, static_shape = [], []
+    for s in shape:
+        if isinstance(s, (int, np.integer)):
+            static_shape.append(int(s))
+            shape_vars.append(constant(int(s), dtype="int64"))
+            continue
+        s = as_tensor_variable(s)
+        if s.type.ndim != 0 or s.type.dtype not in aes.discrete_dtypes:
+            raise TypeError(f"shape entries must be integer scalars, got {s.type}")
+        try:
+            static_shape.append(int(get_scalar_constant_value(s)))
+        except NotScalarConstantError:
+            static_shape.append(None)
+        shape_vars.append(cast(s, "int64"))
+    return shape_vars, tuple(static_shape)
+
+
+class AllocEmpty(Op):
+    """An output buffer of a given shape whose values are not set."""
+
+    __props__ = ("dtype",)
+
+    def __init__(self, dtype: str):
+        self.dtype = dtype if dtype != "floatX" else config.floatX
+
+    def make_node(self, *shape):
+        shape_vars, static_shape = _normalize_shape_args(shape)
+        return Apply(self, shape_vars, [TensorType(self.dtype, static_shape)()])
+
+    def perform(self, node, inputs, output_storage):
+        output_storage[0][0] = np.empty(tuple(int(s) for s in inputs), dtype=_np_dtype(self.dtype))
+
+    def infer_shape(self, fgraph, node, input_shapes):
+        return [tuple(node.inputs)]
+
+    def connection_pattern(self, node):
+        return [[False]] * len(node.inputs)
+
+    def grad(self, inputs, output_grads):
+        from aesara_tpu_torch.gradient import disconnected_type
+
+        return [disconnected_type() for _ in inputs]
+
+    def do_constant_folding(self, fgraph, node):
+        return False
+
+
+def empty(shape, dtype=None):
+    if not isinstance(shape, (list, tuple)):
+        shape = (shape,)
+    return AllocEmpty(dtype or config.floatX)(*shape)
+
+
+# ---------------------------------------------------------------------------
+# Join / Split / stack
+# ---------------------------------------------------------------------------
+
+class Join(Op):
+    """Concatenate along an axis (an int64 0-d input)."""
+
+    __props__ = ()
+
+    def make_node(self, axis, *tensors):
+        if not tensors:
+            raise ValueError("Join needs at least one tensor")
+        tensors = [as_tensor_variable(t) for t in tensors]
+        ndim = tensors[0].type.ndim
+        if any(t.type.ndim != ndim for t in tensors):
+            raise TypeError("all Join inputs must have the same ndim")
+        out_dtype = upcast(*[t.type.dtype for t in tensors])
+        tensors = [cast(t, out_dtype) for t in tensors]
+        try:
+            static_axis = int(get_scalar_constant_value(as_tensor_variable(axis)))
+        except NotScalarConstantError:
+            static_axis = None
+        if static_axis is not None:
+            if not (-ndim <= static_axis < max(ndim, 1)):
+                raise ValueError(f"Join axis {static_axis} out of range for ndim {ndim}")
+            if static_axis < 0:
+                static_axis += ndim
+        if static_axis is None:
+            # any dim may be the joined one
+            out_shape = [None] * ndim
+        else:
+            out_shape = []
+            for d in range(ndim):
+                if d == static_axis:
+                    sizes = [t.type.shape[d] for t in tensors]
+                    out_shape.append(sum(sizes) if all(s is not None for s in sizes) else None)
+                else:
+                    dims = {t.type.shape[d] for t in tensors if t.type.shape[d] is not None}
+                    if len(dims) > 1:
+                        raise TypeError(f"Join inputs disagree on dim {d}: {dims}")
+                    out_shape.append(next(iter(dims)) if dims else None)
+        axis_var = cast(as_tensor_variable(axis), "int64")
+        return Apply(self, [axis_var] + tensors, [TensorType(out_dtype, tuple(out_shape))()])
+
+    def perform(self, node, inputs, output_storage):
+        axis, *tensors = inputs
+        output_storage[0][0] = np.concatenate(tensors, axis=int(axis))
+
+    def connection_pattern(self, node):
+        return [[False]] + [[True]] * (len(node.inputs) - 1)
+
+    def grad(self, inputs, output_grads):
+        """A Split of the output gradient at the inputs' lengths."""
+        from aesara_tpu_torch.gradient import disconnected_type, grad_undefined
+        from aesara_tpu_torch.tensor.shape import shape as tshape
+
+        axis, *tensors = inputs
+        (gz,) = output_grads
+        rval = [disconnected_type()]
+        if tensors[0].type.dtype in aes.discrete_dtypes:
+            return rval + [grad_undefined(self, i + 1, t) for i, t in enumerate(tensors)]
+        sizes = [tshape(t)[axis] for t in tensors]
+        splits = split(gz, stack(sizes), len(tensors), axis=axis)
+        out = []
+        for t, g in zip(tensors, splits):
+            if g.type.dtype != t.type.dtype:
+                g = cast(g, t.type.dtype)
+            out.append(g)
+        return rval + out
+
+
+join_ = Join()
+
+
+def join(axis, *tensors):
+    if len(tensors) == 1:
+        return as_tensor_variable(tensors[0])
+    return join_(axis, *tensors)
+
+
+def concatenate(tensors, axis=0):
+    return join(axis, *tensors)
+
+
+def stack(tensors, axis: int = 0):
+    """Stack along a new axis: 0-d tensors into a vector (``MakeVector``),
+    others by a ``Join`` of their expanded forms."""
+    if not isinstance(tensors, (list, tuple)):
+        raise TypeError("stack expects a list of tensors")
+    if not tensors:
+        raise ValueError("empty stack")
+    elems = [as_tensor_variable(t) for t in tensors]
+    if all(e.type.ndim == 0 for e in elems) and axis == 0:
+        return MakeVector(upcast(*[e.type.dtype for e in elems]))(*elems)
+    ndim = elems[0].type.ndim
+    if axis < 0:
+        axis += ndim + 1
+    expanded = [DimShuffle(e.type.ndim, tuple(range(axis)) + ("x",) + tuple(range(axis, ndim)))(e)
+                for e in elems]
+    return join(axis, *expanded)
+
+
+class Split(Op):
+    """Split along an axis into ``len_splits`` pieces of given lengths."""
+
+    __props__ = ("len_splits",)
+
+    def __init__(self, len_splits: int):
+        self.len_splits = int(len_splits)
+
+    def make_node(self, x, axis, splits):
+        x = as_tensor_variable(x)
+        axis = cast(as_tensor_variable(axis), "int64")
+        splits = cast(as_tensor_variable(splits), "int64")
+        if splits.type.ndim != 1:
+            raise TypeError("splits must be a vector")
+        try:
+            static_axis = int(get_scalar_constant_value(axis))
+            if static_axis < 0:
+                static_axis += x.type.ndim
+        except NotScalarConstantError:
+            static_axis = None
+        out_types = []
+        for i in range(self.len_splits):
+            shape = list(x.type.shape)
+            if static_axis is not None:
+                try:
+                    shape[static_axis] = int(get_underlying_constant_vector(splits)[i])
+                except (NotScalarConstantError, TypeError, IndexError):
+                    shape[static_axis] = None
+            else:
+                shape = [None] * x.type.ndim
+            out_types.append(TensorType(x.type.dtype, tuple(shape))())
+        return Apply(self, [x, axis, splits], out_types)
+
+    def perform(self, node, inputs, output_storage):
+        x, axis, splits = inputs
+        if len(splits) != self.len_splits:
+            raise ValueError("wrong number of splits")
+        if np.sum(splits) != x.shape[int(axis)]:
+            raise ValueError(f"split sizes {splits} do not sum to axis length {x.shape[int(axis)]}")
+        for storage, piece in zip(output_storage, np.split(x, np.cumsum(splits[:-1]), axis=int(axis))):
+            storage[0] = piece
+
+    def connection_pattern(self, node):
+        n = self.len_splits
+        return [[True] * n, [False] * n, [False] * n]
+
+    def grad(self, inputs, output_grads):
+        """The Join of the pieces' gradients (zeros for a disconnected one)."""
+        from aesara_tpu_torch.gradient import DisconnectedType, disconnected_type
+
+        x, axis, splits = inputs
+        outs = self(*inputs, return_list=True)
+        gouts = [zeros_like(o) if isinstance(g.type, DisconnectedType) else g
+                 for g, o in zip(output_grads, outs)]
+        return [join(axis, *gouts), disconnected_type(), disconnected_type()]
+
+
+def split(x, splits_size, n_splits, axis=0):
+    """``x`` cut along ``axis`` into ``n_splits`` pieces of the lengths in
+    the vector ``splits_size``; always a list."""
+    return Split(int(n_splits))(x, axis, splits_size, return_list=True)

@@ -21,7 +21,7 @@ from aesara_tpu_torch.tensor.type import TensorType
 
 __all__ = ["add", "sub", "mul", "true_div", "neg", "sqr", "sqrt", "exp", "maximum", "ge", "lt",
            "pow", "abs", "sgn", "minimum", "gt", "le", "eq", "neq", "and_", "or_", "invert", "log",
-           "cos", "sin", "clip", "isnan", "isinf", "Sum", "sum", "mean", "Max", "Min", "All", "Any",
+           "cos", "sin", "clip", "isnan", "isinf", "Sum", "sum", "mean", "Prod", "prod", "Max", "Min", "All", "Any",
            "max", "min", "all", "any", "Argmax", "argmax", "Dot", "dot", "tensordot", "int_div",
            "floor_div", "mod", "ceil", "floor", "trunc", "round_half_to_even", "round_half_away_from_zero",
            "xor", "shift_left", "shift_right", "exp2", "expm1", "log2", "log10", "log1p", "deg2rad",
@@ -241,6 +241,37 @@ def _kept_order(ndim: int, axes):
     return tuple(order)
 
 
+class Prod(CAReduce):
+    """Product over ``axis`` (small integers multiply in int64)."""
+
+    def __init__(self, axis=None, dtype=None, acc_dtype=None):
+        super().__init__(aes.mul, axis=axis, dtype=dtype, acc_dtype=acc_dtype)
+
+    def grad(self, inputs, output_grads):
+        """d prod / d x_i = the product of the other entries, computed
+        without dividing by a zero x_i (as the JAX package's)."""
+        from aesara_tpu_torch.tensor.basic import fill, ones_like, switch, zeros_like
+
+        (x,) = inputs
+        (gz,) = output_grads
+        if x.type.dtype in discrete_dtypes:
+            return [zeros_like(x, dtype=config.floatX)]
+        order = _kept_order(x.type.ndim, self._normalized_axes(x.type.ndim))
+        pad = lambda v: DimShuffle(gz.type.ndim, order)(v)  # noqa: E731
+        is_zero = eq(x, constant(0, dtype=x.type.dtype))
+        x_safe = switch(is_zero, ones_like(x), x)
+        pnzf = fill(x, pad(Prod(axis=self.axis, dtype=self.dtype, acc_dtype=self.acc_dtype)(x_safe)))
+        zf = fill(x, pad(Sum(axis=self.axis)(cast(is_zero, "int64"))))
+        others = switch(eq(zf, 0), true_div(pnzf, x_safe),
+                        switch(and_(eq(zf, 1), is_zero), pnzf, zeros_like(x)))
+        gx = mul(fill(x, pad(gz)), others)
+        return [cast(gx, x.type.dtype) if gx.type.dtype != x.type.dtype else gx]
+
+    def __str__(self):
+        ax = "" if self.axis is None else f"{{axis={list(self.axis)}}}"
+        return f"Prod{ax}"
+
+
 class Max(CAReduce):
     """Maximum over ``axis``; the gradient goes to every maximal entry."""
 
@@ -333,6 +364,10 @@ def _reduce(op, x, keepdims):
     if keepdims:
         res = DimShuffle(res.type.ndim, _kept_order(x.type.ndim, op._normalized_axes(x.type.ndim)))(res)
     return res
+
+
+def prod(x, axis=None, dtype=None, keepdims=False, acc_dtype=None):
+    return _reduce(Prod(axis=axis, dtype=dtype, acc_dtype=acc_dtype), x, keepdims)
 
 
 def max(x, axis=None, keepdims=False):

@@ -4,7 +4,8 @@
 
 - ``constant_folding``: nodes over constants become constants.
 - ``local_useless_dimshuffle``: an identity DimShuffle goes;
-  ``local_dimshuffle_lift``: a DimShuffle of a DimShuffle is one.
+  ``local_dimshuffle_lift`` (canonicalize and specialize): a DimShuffle
+  of a DimShuffle is one.
 - ``local_shape_i_lift``: ``Shape_i`` of a computed value becomes the
   dim of the graph input it comes from (or a constant), the work the JAX
   package's ShapeFeature and ``local_track_shape_i`` do;
@@ -303,6 +304,8 @@ for _rw in (constant_folding, local_useless_dimshuffle, local_dimshuffle_lift,
             local_reshape_chain, local_useless_reshape, local_reduce_broadcastable,
             local_fill_sink, local_useless_fill):
     register_canonicalize(_rw)
+# as in the JAX package, also after the scan rewrites build DimShuffles
+register_specialize(local_dimshuffle_lift)
 
 
 @node_rewriter([Elemwise])

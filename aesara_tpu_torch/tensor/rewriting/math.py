@@ -1,7 +1,9 @@
 """Algebraic rewrites of the optimizers' graphs (the counterparts of
-``local_pow_specialize`` and ``local_useless_switch`` in
-``aesara_tpu/tensor/rewriting/math.py:692,1059``):
+``local_pow_canonicalize``, ``local_pow_specialize`` and
+``local_useless_switch`` in ``aesara_tpu/tensor/rewriting/math.py:667,692,1059``):
 
+- ``local_pow_canonicalize`` (canonicalize): ``pow`` by the constant 0 is
+  ones, by 1 the base (the gradient of ``x ** 2`` builds ``x ** (2 - 1)``).
 - ``local_pow_specialize`` (specialize): ``pow`` by the constant 2, 0.5,
   -1, -0.5 or -2 becomes ``sqr``, ``sqrt`` or a division, one cheap
   op in place of libdevice's ``pow``.
@@ -39,6 +41,20 @@ from aesara_tpu_torch.tensor.rewriting.basic import _const_val, _keep_type
 
 def _is_elemwise(node, scalar_cls) -> bool:
     return isinstance(node.op, Elemwise) and isinstance(node.op.scalar_op, scalar_cls)
+
+
+@node_rewriter([Elemwise])
+def local_pow_canonicalize(fgraph, node):
+    """pow(x, 0) → ones_like(x); pow(x, 1) → x"""
+    if not _is_elemwise(node, aes.Pow):
+        return False
+    x, p = node.inputs
+    v = _const_val(p)
+    if v is None or float(v) not in (0.0, 1.0):
+        return False
+    out = node.outputs[0]
+    res = _keep_type(out, zeros_like(x) + 1 if float(v) == 0.0 else x)
+    return False if res is None else [copy_stack_trace(out, res)]
 
 
 @node_rewriter([Elemwise])
@@ -81,6 +97,7 @@ def local_useless_switch(fgraph, node):
     return False if res is None else [copy_stack_trace(out, res)]
 
 
+register_canonicalize(local_pow_canonicalize)
 register_specialize(local_pow_specialize)
 register_canonicalize(local_useless_switch)
 

@@ -1,5 +1,5 @@
-"""Shape ops: ``Shape``, ``Shape_i`` and ``Reshape`` (reference
-``aesara_tpu/tensor/shape.py``).  A shape is an integer, so its
+"""Shape ops: ``Shape``, ``Shape_i``, ``Reshape``, ``SpecifyShape`` and
+``Unbroadcast`` (reference ``aesara_tpu/tensor/shape.py``).  A shape is an integer, so its
 gradient is disconnected; ``Reshape``'s gradient reshapes back to
 ``shape(x)``."""
 
@@ -15,7 +15,7 @@ from aesara_tpu_torch.tensor.type import TensorType
 
 
 __all__ = ["Shape", "shape", "Shape_i", "shape_i", "shape_tuple", "Reshape", "reshape",
-           "shape_padright"]
+           "shape_padleft", "shape_padright", "SpecifyShape", "specify_shape", "Unbroadcast", "unbroadcast"]
 
 
 def _disconnected_grads(inputs):
@@ -169,3 +169,113 @@ def shape_padright(t, n_ones: int = 1):
 
     t = as_tensor_variable(t)
     return t.dimshuffle(*range(t.type.ndim), *(["x"] * n_ones))
+
+
+def shape_padleft(t, n_ones: int = 1):
+    """``t`` with ``n_ones`` broadcastable dims prepended."""
+    from aesara_tpu_torch.tensor.basic import as_tensor_variable
+
+    t = as_tensor_variable(t)
+    return t.dimshuffle(*(["x"] * n_ones), *range(t.type.ndim))
+
+
+class SpecifyShape(Op):
+    """``x``, checked at run time to have the given dims (-1: any), with
+    the static ones in its type."""
+
+    __props__ = ()
+
+    def make_node(self, x, *shape):
+        from aesara_tpu_torch.tensor.basic import (
+            NotScalarConstantError, as_tensor_variable, cast, constant, get_scalar_constant_value,
+        )
+
+        x = as_tensor_variable(x)
+        if len(shape) != x.type.ndim:
+            raise ValueError(f"SpecifyShape: got {len(shape)} dims for ndim {x.type.ndim}")
+        shape_vars, static = [], []
+        for d, s in enumerate(shape):
+            if s is None:
+                static.append(x.type.shape[d])
+                shape_vars.append(constant(-1, dtype="int64"))
+                continue
+            if isinstance(s, (int, np.integer)):
+                static.append(int(s))
+                shape_vars.append(constant(int(s), dtype="int64"))
+                continue
+            s = as_tensor_variable(s)
+            try:
+                static.append(int(get_scalar_constant_value(s)))
+            except NotScalarConstantError:
+                static.append(x.type.shape[d])
+            shape_vars.append(cast(s, "int64"))
+        merged = []
+        for d, (old, new) in enumerate(zip(x.type.shape, static)):
+            if old is not None and new is not None and old != new:
+                raise TypeError(f"SpecifyShape conflict at dim {d}: {old} vs {new}")
+            merged.append(new if new is not None else old)
+        return Apply(self, [x] + shape_vars, [TensorType(x.type.dtype, tuple(merged))()])
+
+    def perform(self, node, inputs, output_storage):
+        x, *shp = inputs
+        check_specified_shape(np.shape(x), shp)
+        output_storage[0][0] = x
+
+    def connection_pattern(self, node):
+        return [[True]] + [[False]] * (len(node.inputs) - 1)
+
+    def grad(self, inputs, output_grads):
+        from aesara_tpu_torch.gradient import disconnected_type
+
+        return [output_grads[0]] + [disconnected_type() for _ in inputs[1:]]
+
+
+def check_specified_shape(actual, shape) -> None:
+    """Raise unless each dim of ``actual`` is its entry of ``shape`` (-1: any)."""
+    for d, s in enumerate(shape):
+        s = int(s)
+        if s != -1 and actual[d] != s:
+            raise AssertionError(f"SpecifyShape: dim {d} is {actual[d]}, expected {s}")
+
+
+_specify_shape = SpecifyShape()
+
+
+def specify_shape(x, shape):
+    if not isinstance(shape, (list, tuple)):
+        shape = (shape,)
+    return _specify_shape(x, *shape)
+
+
+class Unbroadcast(Op):
+    """``x`` with the static 1 of the given dims erased from its type."""
+
+    __props__ = ("axes",)
+
+    def __init__(self, *axis):
+        self.axes = tuple(sorted(int(a) for a in axis))
+
+    def make_node(self, x):
+        from aesara_tpu_torch.tensor.basic import as_tensor_variable
+
+        x = as_tensor_variable(x)
+        shape = list(x.type.shape)
+        for a in self.axes:
+            if a >= x.type.ndim:
+                raise ValueError(f"axis {a} out of range")
+            shape[a] = None
+        return Apply(self, [x], [TensorType(x.type.dtype, tuple(shape))()])
+
+    def perform(self, node, inputs, output_storage):
+        output_storage[0][0] = inputs[0]
+
+    def grad(self, inputs, output_grads):
+        return [specify_shape(output_grads[0], inputs[0].type.shape)]
+
+
+def unbroadcast(x, *axes):
+    from aesara_tpu_torch.tensor.basic import as_tensor_variable
+
+    x = as_tensor_variable(x)
+    real = [a for a in axes if x.type.shape[a] == 1]
+    return Unbroadcast(*real)(x) if real else x

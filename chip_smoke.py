@@ -12,6 +12,7 @@ serve the sparse-input models, all through ``aesara_tpu_torch.function``.
     python3 chip_smoke.py --k4-times    # only K4 against torch.log_softmax, and its sweeps (see k4_times)
     python3 chip_smoke.py --k4-k7-times    # only K7's and K4's times, for two checkouts (see k4_k7_times)
     python3 chip_smoke.py --reference    # only the setup and path (e), the reference configurations
+    python3 chip_smoke.py --scan    # only the setup and path (f), Scan: config 4 and the LSTM
 
 Every compiled function runs captured (``TorchLinker``'s default on the
 card): its first call with a key runs eagerly, the second captures the
@@ -112,10 +113,24 @@ e. the repo's reference configurations (``benchmarks/
    against the CPU (loss and every parameter, TRAIN_TOL), and K4 at
    config 2's softmax and the MLP's log-softmax against the plain version
    and ``torch.softmax``/``torch.log_softmax``.
+7f. (f) Scan: config 4 of ``benchmarks/bench_reference_ratio.py:247-276``
+   at REFRATIO_SCALE=4 (an Elman RNN over a shared (128, 128, 64) x, hidden
+   128, float32, sgd 0.01, trained by BPTT through the reverse Scan) and
+   ``LSTM(64, 128, 10)`` with adam on an input X of the same T and batch
+   (its slices of X have bounds computed from X's shape, folded on the
+   host).  For each: the ``FAST_RUN`` op counts, outer and of each Scan's
+   inner graph, equal the JAX package's (``SCAN_JAX_COUNTS``); K1 on every
+   Composite, the inner programs' too, against the plain version; 3
+   counted steps (each Scan's inner launches counted a step: 128 steps a
+   call), 10 timed and 3 profiled, every loop captured unrolled into the
+   step's CUDA graph; the loss falls; one step at full width on the card
+   against the CPU; the LSTM's 3 ``predict`` requests of new sequences
+   against the host's logits, and K4 at its (128, 10) log-softmax against
+   the plain version and ``torch.log_softmax``.
 8. captured against eager: every path above (the forward request, the
    sgd and AdamW steps, the classifier step, ``predict`` of one request
    sent again, the GLM's sgd and adam steps, path (c) at width 20, config
-   3's step) compiled
+   3's step, config 4's step and the LSTM step) compiled
    twice from the same seeds, captured and with ``use_graph=False``, each
    driven alike (4 calls compared, then timed and profiled); a "capture
    table" line for each gives its step time back
@@ -131,7 +146,7 @@ kernel's launches from its path's run, and beside them the launches that
 run replayed and those the trace showed in the path's profiled replays;
 K1-K3 also with their launches in path 4d's 3 steps, and K1 with its time
 and bound on the AdamW update; K1 and K4 with their launches in each
-configuration of path (e), and K4 with its checks there)
+configuration of path (e) and of path (f), and K4 with its checks there)
 and the card's name and power limit; the last is
 ``{"ok": true, "device": {...}}``.
 """
@@ -232,6 +247,44 @@ REF_N2, REF_D2 = 4 * 2048, 1024
 REF_B, REF_DIN, REF_H, REF_DOUT, REF_NBATCH, REF_LR3 = 4 * 128, 784, 512, 10, 10, 0.01
 MLP_LR = 0.1
 N_REF_STEPS, N_REF_TIMED = 3, 10
+# (f) bench_reference_ratio.py config 4 at REFRATIO_SCALE=4: T 128 steps of
+# a (128, 64) input (batch 32 x 4), hidden 128, float32, sgd 0.01; and
+# LSTM(64, 128, 10) at its T and batch with adam(lr=1e-3) on an input X
+SCAN_T, SCAN_B, SCAN_H, SCAN_DIN, SCAN_LR = 128, 4 * 32, 128, 64, 0.01
+LSTM_NOUT, LSTM_LR = 10, 1e-3
+N_SCAN_STEPS, N_SCAN_TIMED, N_SCAN_REQUESTS = 3, 10, 3
+# the JAX package's FAST_RUN op counts of path (f)'s two steps at these
+# widths, outer graph then each Scan's inner graph, taken on the CPU with
+# tests/test_torch_rnn.py's op_counts (its config 4 graph keeps a second,
+# identical cast(0) that its merge pass misses, tests/test_torch_rnn.py; it
+# is not counted here)
+SCAN_JAX_COUNTS = {
+    "config4": [
+        {"Elemwise{Cast}": 1, "DynamicSlice": 2, "Subtensor": 18, "Alloc": 6, "Shape": 7, "Elemwise{Mul}": 7,
+         "MakeVector": 8, "Reshape": 8, "Dot": 5, "DimShuffle": 4, "Scan": 2, "Join": 1, "IncSubtensor": 1,
+         "Composite{Add.Add.Sqr.Tanh}": 1, "Composite{Mul.Sub}": 3, "Composite{Add.TrueDiv.TrueDiv}": 1},
+        ("ScanInfo(n_seqs=1, mit_sot_taps=(), n_sit_sot=1, n_nit_sot=0, n_shared=0, n_non_seqs=2, as_while=False, "
+         "final_only=(), tail_depths=(), nit_tail_depths=())", {"Dot": 1, "Elemwise{Add}": 2, "Elemwise{Tanh}": 1}),
+        ("ScanInfo(n_seqs=4, mit_sot_taps=(), n_sit_sot=4, n_nit_sot=1, n_shared=0, n_non_seqs=2, as_while=False, "
+         "final_only=(True, True, True, True), tail_depths=(), nit_tail_depths=())",
+         {"Subtensor": 1, "Elemwise{Add}": 6, "DimShuffle": 7, "Elemwise{Sub}": 1, "Elemwise{Mul}": 1, "Dot": 4,
+          "Elemwise{Second}": 1, "IncSubtensor": 1})],
+    "lstm": [
+        {"Shape_i": 10, "Alloc": 9, "DimShuffle": 11, "Scan": 2, "Subtensor": 9, "Dot": 3, "Elemwise{Add}": 5,
+         "LogSoftmax": 1, "ARange": 1, "Elemwise{Cast}": 2, "AdvancedSubtensor": 1, "Elemwise{TrueDiv}": 1,
+         "AdvancedIncSubtensor": 1, "Composite{Exp.Mul.Sub}": 1, "Composite{Add.Mul.Mul}": 8,
+         "Composite{Pow.Sub}": 2, "Composite{Add.Mul.Mul.Sqrt.Sub.TrueDiv.TrueDiv}": 4, "Join": 2,
+         "IncSubtensor": 1, "Composite{Neg.TrueDiv}": 1},
+        ("ScanInfo(n_seqs=1, mit_sot_taps=(), n_sit_sot=2, n_nit_sot=0, n_shared=0, n_non_seqs=2, as_while=False, "
+         "final_only=(), tail_depths=(), nit_tail_depths=())",
+         {"Elemwise{Cast}": 1, "Join": 1, "Dot": 1, "Elemwise{Add}": 2, "Subtensor": 4, "Elemwise{Sigmoid}": 3,
+          "Elemwise{Mul}": 3, "Elemwise{Tanh}": 2}),
+        ("ScanInfo(n_seqs=5, mit_sot_taps=(), n_sit_sot=4, n_nit_sot=1, n_shared=0, n_non_seqs=3, as_while=False, "
+         "final_only=(True, True, True, True), tail_depths=(), nit_tail_depths=())",
+         {"Elemwise{Cast}": 1, "Join": 1, "Dot": 3, "Elemwise{Add}": 12, "DimShuffle": 15, "Elemwise{Second}": 6,
+          "Subtensor": 8, "Elemwise{Sigmoid}": 6, "Elemwise{Mul}": 16, "Elemwise{Tanh}": 4, "Elemwise{Sub}": 5,
+          "IncSubtensor": 6, "Elemwise{Sqr}": 2, "Shape": 2, "MakeVector": 1, "Split": 1})],
+}
 PROFILE_STEPS = 3        # calls counted in a profiled window, after one the profiler drops and a lead-in
 N_HOST_CALLS = 5         # calls whose host time time_steps takes the median of
 # host time at each edge of a profiled window.  On the H100, once the card
@@ -1933,23 +1986,24 @@ def reference_call(built, which):
     return call
 
 
-def check_composites(fn, label: str, rng) -> list:
-    """K1 on each distinct Composite that ``fn`` runs on the card against
-    its plain version, on values in (0.05, 0.95) (every log, division and
-    sigmoid of path (e) stays finite there) at the shapes the path gives
-    it: per Composite a dict with its error, times and bound."""
+def check_composites(nodes, label: str, rng, full=(REF_B, REF_H)) -> list:
+    """K1 on each distinct Composite among ``nodes`` (those a function runs
+    on the card) against its plain version, on values in (0.05, 0.95)
+    (every log, division and sigmoid of paths (e) and (f) stays finite
+    there) at the shapes the path gives it, an unknown dim ``full``'s: per
+    Composite a dict with its error, times and bound."""
     from aesara_tpu_torch.link.torch.kernels.elemwise import ElemwiseKernel, composite_plain, fused_elemwise
 
     device = torch.device("cuda")
     rows, seen = [], set()
-    for node in composite_nodes(fn):
+    for node in nodes:
         if node.op in seen:
             continue
         seen.add(node.op)
         comp = node.op.scalar_op
         out_dtype = node.outputs[0].type.dtype
         kernel = ElemwiseKernel(comp, [v.type.dtype for v in node.inputs], out_dtype)
-        args = composite_inputs(node, rng, device, full=(REF_B, REF_H), sample="unit")
+        args = composite_inputs(node, rng, device, full=full, sample="unit")
         got = fused_elemwise(kernel, *args)
         torch.cuda.synchronize()
         want = composite_plain(comp, out_dtype, *args)
@@ -2044,7 +2098,7 @@ def run_reference(which, label: str) -> dict:
     step, loss = built["step"], built["loss"]
     log(f"{label}: compile (graph + grad + rewrites + link): {time.perf_counter() - t0:.2f} s")
     per_call = reference_graph(step, label)
-    rows = check_composites(step, label, np.random.default_rng(31))
+    rows = check_composites(composite_nodes(step), label, np.random.default_rng(31))
     index = () if which in (1, 2) else (np.int32(0),)
     loss_before = float(_host(loss(*index))) if loss is not None else None
     call = reference_call(built, which)
@@ -2133,6 +2187,207 @@ def phase_reference() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# path (f): Scan, config 4 (Elman RNN by BPTT) and the LSTM
+# ---------------------------------------------------------------------------
+
+def build_scan_path(which, device: str, use_graph=None) -> dict:
+    """Config 4 of ``benchmarks/bench_reference_ratio.py:247-276`` at
+    REFRATIO_SCALE=4 ("config4"), built as it builds it (float32, x, Wx, Wh
+    and b shared, drawn from its seed 0 in its order, sgd at SCAN_LR), its
+    loss returned by each step; or "lstm": ``LSTM(SCAN_DIN, SCAN_H,
+    LSTM_NOUT)`` from seed 0 trained with ``adam(lr=LSTM_LR)`` on an input
+    X (SCAN_T, SCAN_B, SCAN_DIN) and int32 labels from seed 5, with
+    ``predict``.  A dict: ``step``, ``call`` (one step), ``loss`` (a
+    function giving the loss before a step), ``params``."""
+    import aesara_tpu_torch as ptp
+    import aesara_tpu_torch.tensor as pt
+    from aesara_tpu_torch.config import config
+    from aesara_tpu_torch.models import LSTM, adam
+    from aesara_tpu_torch.scan import scan
+
+    mode = ptp.Mode(ptp.TorchLinker(device=device, use_graph=use_graph))
+    f32 = "float32"
+    with config.change_flags(device=device, floatX=f32):
+        if which == "config4":
+            rng = np.random.default_rng(0)
+            x = ptp.shared(rng.normal(size=(SCAN_T, SCAN_B, SCAN_DIN)).astype(f32), name="x")
+            wx = ptp.shared((rng.normal(size=(SCAN_DIN, SCAN_H)) * 0.1).astype(f32))
+            wh = ptp.shared((rng.normal(size=(SCAN_H, SCAN_H)) * 0.1).astype(f32))
+            bh = ptp.shared(np.zeros(SCAN_H, dtype=f32))
+            h0 = pt.zeros((SCAN_B, SCAN_H), dtype=f32)
+            hs, _ = scan(lambda xt, htm1: pt.tanh(pt.dot(xt, wx) + pt.dot(htm1, wh) + bh), sequences=[x],
+                         outputs_info=[h0])
+            loss = pt.mean(hs[-1] ** 2) + pt.mean(hs ** 2)
+            params = [wx, wh, bh]
+            grads = ptp.grad(loss, params)
+            lr = np.asarray(SCAN_LR, f32)
+            step = ptp.function([], ptp.Out(loss, borrow=True),
+                                updates={p: p - lr * g for p, g in zip(params, grads)}, mode=mode)
+            return dict(step=step, call=step, loss=ptp.function([], loss, mode=mode), params=params)
+        model = LSTM(SCAN_DIN, SCAN_H, LSTM_NOUT, seed=0)
+        X, y = pt.tensor3("X", dtype=f32), pt.ivector("y")
+        loss = model.loss(X, y)
+        step = ptp.function([X, y], ptp.Out(loss, borrow=True), updates=adam(loss, model.params, lr=LSTM_LR),
+                            mode=mode)
+        rng = np.random.default_rng(5)
+        xv = rng.normal(size=(SCAN_T, SCAN_B, SCAN_DIN)).astype(f32)
+        yv = rng.integers(0, LSTM_NOUT, size=SCAN_B).astype("int32")
+        loss_fn = ptp.function([X, y], loss, mode=mode)
+        return dict(step=step, call=lambda: step(xv, yv), loss=lambda: loss_fn(xv, yv),
+                    params=model.params, model=model, data=(xv, yv),
+                    predict=ptp.function([X], model.predict(X), mode=mode),
+                    logits=ptp.function([X], model.logits(X), mode=mode))
+
+
+def scan_op_counts(fn) -> list:
+    """[{op: count} of the compiled graph, then (info, {op: count}) of each
+    Scan's own inner graph], a Composite named by its sorted scalar ops,
+    an Elemwise by its scalar op (as the JAX-side counts were taken)."""
+    from collections import Counter
+
+    def name(node):
+        scalar = getattr(node.op, "scalar_op", None)
+        if scalar is None:
+            return type(node.op).__name__
+        if type(scalar).__name__ == "Composite":
+            return "Composite{" + ".".join(sorted(type(n.op).__name__ for n in scalar.nodes)) + "}"
+        return f"Elemwise{{{type(scalar).__name__}}}"
+
+    order = fn.maker.fgraph.toposort()
+    out = [dict(Counter(name(n) for n in order))]
+    out += [(str(n.op.info), dict(Counter(name(m) for m in n.op.fgraph.toposort())))
+            for n in order if type(n.op).__name__ == "Scan"]
+    return out
+
+
+def scan_launches(fn, steps: int = SCAN_T) -> tuple:
+    """(K1 and K4 launches one call of ``fn`` makes, its Composite nodes on
+    the card): its own, and each Scan's inner program's times its trip
+    count (every Scan of path (f) runs ``steps`` steps)."""
+    from aesara_tpu_torch.scalar.composite import Composite
+
+    counts, nodes = {"K1": 0, "K4": 0}, []
+
+    def walk(program, times):
+        for node, fn_, fold in zip(program.order, program.fns, program.folds):
+            if fold:
+                continue
+            if isinstance(getattr(node.op, "scalar_op", None), Composite):
+                counts["K1"] += times
+                nodes.append(node)
+            elif type(node.op).__name__ in ("Softmax", "LogSoftmax"):
+                counts["K4"] += times
+            elif type(node.op).__name__ == "Scan":
+                walk(fn_.program, times * steps)
+
+    walk(fn.fn.program, 1)
+    return counts, nodes
+
+
+def check_scan_against_cpu(built, which, label: str):
+    """One step from the same state (every update target: the weights and
+    the optimizer's moments and step) on the card and on the CPU at full
+    width: the loss and every parameter, TRAIN_TOL."""
+    cpu = build_scan_path(which, "cpu")
+    set_params(built["step"].update_targets, [v.get_value() for v in cpu["step"].update_targets])
+    got, want = [_host(built["loss"]())], [_host(cpu["loss"]())]
+    built["call"]()
+    cpu["call"]()
+    got += [p.get_value() for p in built["params"]]
+    want += [p.get_value() for p in cpu["params"]]
+    err = 0.0
+    for g, w in zip(got, want):
+        err = max(err, float(np.abs(np.asarray(g, "float64") - np.asarray(w, "float64")).max()))
+        np.testing.assert_allclose(g, w, atol=TRAIN_TOL, rtol=TRAIN_TOL)
+    log(f"{label}: one step card vs CPU at full width, loss and {len(got) - 1} parameters: max abs err "
+        f"{err:.3e} (tolerance {TRAIN_TOL}, relative and absolute)")
+
+
+def check_lstm_predict(built, label: str):
+    """3 ``predict`` requests of new sequences: each the argmax of the
+    logits computed on the host from the card's weights, the last replayed."""
+    ws = {p.name: p.get_value().astype("float64") for p in built["params"]}
+    H = SCAN_H
+    for r in range(N_SCAN_REQUESTS):
+        xv = np.random.default_rng(200 + r).normal(size=(SCAN_T, SCAN_B, SCAN_DIN)).astype("float32")
+        got = built["predict"](xv).cpu().numpy()
+        h = c = np.zeros((SCAN_B, H))
+        for t in range(SCAN_T):
+            g = np.concatenate([xv[t].astype("float64"), h], axis=1) @ ws["w_lstm"] + ws["b_lstm"]
+            sig = lambda v: 1.0 / (1.0 + np.exp(-v))  # noqa: E731
+            c = sig(g[:, H:2 * H]) * c + sig(g[:, :H]) * np.tanh(g[:, 2 * H:3 * H])
+            h = sig(g[:, 3 * H:]) * np.tanh(c)
+        agree = float(np.mean(got == np.argmax(h @ ws["w_out"] + ws["b_out"], axis=1)))
+        if agree < 0.99:
+            raise AssertionError(f"{label} predict request {r}: agreement with the host {agree}")
+        log(f"{label}: predict request {r} agrees with argmax of the host's logits on {agree:.4f} of the rows")
+    require_captured(built["predict"], f"{label} predict")
+
+
+def run_scan_path(which, label: str) -> dict:
+    """One model of path (f): the op counts against the JAX package's,
+    K1 on every Composite (inner ones too), 3 counted steps, 10 timed and
+    3 profiled, capture, the loss, the card against the CPU (and the
+    LSTM's predict and K4)."""
+    t0 = time.perf_counter()
+    built = build_scan_path(which, "cuda")
+    step = built["step"]
+    log(f"{label}: compile (graph + grad + rewrites + link): {time.perf_counter() - t0:.2f} s")
+    counts = scan_op_counts(step)
+    want = SCAN_JAX_COUNTS[which]
+    log(f"{label} FAST_RUN op counts, outer then each Scan's inner graph: {counts}")
+    if counts != want:
+        raise AssertionError(f"{label}: op counts {counts} differ from the JAX package's {want}")
+    per_call, nodes = scan_launches(step)
+    log(f"{label}: launches a call {per_call} ({len(nodes)} Composite nodes, inner ones counted once)")
+    rows = check_composites(nodes, label, np.random.default_rng(41), full=(SCAN_T, SCAN_B, SCAN_H))
+    loss_before = float(_host(built["loss"]()))
+    torch.cuda.synchronize()
+    reset_peak()
+    zero_counters()
+    losses = [float(_host(built["call"]())) for _ in range(N_SCAN_STEPS)]
+    launches = read_counters(per_call, label, N_SCAN_STEPS)
+    t = time_steps(built["call"], N_SCAN_TIMED, label)
+    require_captured(step, label)
+    if step.capture_blocker is not None:
+        raise AssertionError(f"{label}: capture blocked by {step.capture_blocker}")
+    after = float(_host(built["loss"]()))
+    log(f"{label}: loss {loss_before:.6f} before the steps, {losses} over the counted ones, {after:.6f} after "
+        f"{N_SCAN_STEPS + N_SCAN_TIMED} steps and more")
+    if not (np.isfinite(after) and after < loss_before):
+        raise AssertionError(f"{label}: the loss did not fall: {loss_before} -> {after}")
+    k4 = None
+    if which == "lstm":
+        check_lstm_predict(built, label)
+        k4 = check_k4(torch.randn((SCAN_B, LSTM_NOUT), device="cuda",
+                                  generator=torch.Generator(device="cuda").manual_seed(23)) * 3)
+    check_scan_against_cpu(built, which, label)
+    busy = (f"{t['busy']:.3f} of {t['wall']:.3f} ms ({100 * t['busy'] / t['wall']:.1f}%)"
+            if t["busy"] is not None else "not measured")
+    log(f"{label}: {t['ms']:.3f} ms a step back to back ({SCAN_T * SCAN_B / t['ms'] * 1e3:.1f} sequence steps "
+        f"x batch rows a second), host {t['host']:.3f} ms a call, device busy {busy}, peak {t['peak']:.3f} GiB")
+    del built, step
+    release()
+    return dict(t, launches=launches, composites=rows, k4=k4)
+
+
+def scan_only():
+    """--scan: the setup and path (f) alone."""
+    phase_setup()
+    phase_scan()
+    log("chip_smoke --scan: path (f) passed")
+
+
+def phase_scan() -> dict:
+    """Path (f): config 4 and the LSTM (see the module docstring)."""
+    t0 = time.perf_counter()
+    out = {which: run_scan_path(which, label) for which, label in (
+        ("config4", "(f) config 4 Elman RNN by BPTT"), ("lstm", "(f) LSTM with adam"))}
+    log(f"(f) scan paths: {time.perf_counter() - t0:.2f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # every path captured and eager, in one process
 # ---------------------------------------------------------------------------
 
@@ -2189,11 +2444,18 @@ def _paths(ng, glm):
         built = build_reference(3, "cuda", use_graph=g)
         return built["step"], reference_call(built, 3), built["params"]
 
+    def scan_step(which):
+        def build(g):
+            built = build_scan_path(which, "cuda", use_graph=g)
+            return built["step"], built["call"], built["params"]
+        return build
+
     return [("encoder forward request", forward), ("encoder train step (sgd)", train("sgd")),
             ("(d) encoder train step (AdamW)", train("adamw")), ("(a) classifier train step", classifier),
             ("(a) predict, one request again", predict), ("(b) GLM train step", glm_step("sgd")),
             ("(b) GLM adam step", glm_step("adam")), ("(c) values gradient, width 20", values_grad),
-            ("(e) config 3 MNIST MLP step", mnist_mlp)]
+            ("(e) config 3 MNIST MLP step", mnist_mlp), ("(f) config 4 Elman RNN step", scan_step("config4")),
+            ("(f) LSTM step", scan_step("lstm"))]
 
 
 def _difference(captured, eager) -> tuple:
@@ -2780,7 +3042,7 @@ def profile_check(sessions: int = 12, rounds: int = 3):
 def main():
     modes = {"--k6-sweep": k6_sweep, "--k2-walk-sweep": k2_walk_sweep, "--attention-times": attention_times,
              "--profile-check": profile_check, "--k7-sweep": k7_sweep, "--k4-times": k4_times,
-             "--k4-k7-times": k4_k7_times, "--reference": reference_only}
+             "--k4-k7-times": k4_k7_times, "--reference": reference_only, "--scan": scan_only}
     if len(sys.argv) == 2 and sys.argv[1] in modes:
         if not torch.cuda.is_available():
             raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU")
@@ -2821,6 +3083,7 @@ def main():
     glm, glm_xyw = phase_glm()
     grad_values = phase_values_grad(glm_xyw[0])
     reference = phase_reference()
+    scans = phase_scan()
     t0 = time.perf_counter()
     phase_capture(lr["data"], glm_xyw)
     log(f"captured-vs-eager phase: {time.perf_counter() - t0:.2f} s")
@@ -2853,16 +3116,24 @@ def main():
     k4_e = {labels[w]: {key: r["k4"][key] for key in ("max_abs_err", "ms", "cold_ms", "plain_ms", "bound_ms",
                                                        "library_ms")}
             for w, r in reference.items() if r["k4"] is not None}
+    # path (f): each model's launches in its 3 counted steps (the inner
+    # programs' launches a step times 128 steps), K1 on its Composites and
+    # K4 at the LSTM's log-softmax
+    path_f = {k: {w: r["launches"][0][k] for w, r in scans.items()} for k in ("K1", "K4")}
+    k1["max_abs_err"] = max([k1["max_abs_err"]] + [row["max_abs_err"] for r in scans.values()
+                                                    for row in r["composites"]])
+    k4_f = {key: scans["lstm"]["k4"][key] for key in ("max_abs_err", "ms", "cold_ms", "plain_ms", "bound_ms",
+                                                      "library_ms")}
     kernels = [
         dict(kernel_line("K1 fused elemwise Composite", "triton", K1_SOURCE, K1_REPLACES, "K1", train, k1),
-             cold_ms=k1_times[4], **k1_adamw, path_e_launches=path_e["K1"]),
+             cold_ms=k1_times[4], **k1_adamw, path_e_launches=path_e["K1"], path_f_launches=path_f["K1"]),
         dict(kernel_line("K2 flash attention forward", "cuda", K2_SOURCE, K2_REPLACES, "K2", train, k2),
              adamw_launches=adamw["launches"]["K2"]),
         dict(k3_line, adamw_launches=adamw["launches"]["K3"]),
         dict(kernel_line("K4 row log-softmax", "cuda", K4_SOURCE, K4_REPLACES, "K4", (lr["launches"], lr["traced"]),
-                         dict(lr["K4"], max_abs_err=max([lr["K4"]["max_abs_err"]]
+                         dict(lr["K4"], max_abs_err=max([lr["K4"]["max_abs_err"], k4_f["max_abs_err"]]
                                                         + [r["max_abs_err"] for r in k4_e.values()]))),
-             path_e_launches=path_e["K4"], path_e=k4_e),
+             path_e_launches=path_e["K4"], path_e=k4_e, path_f_launches=path_f["K4"], path_f=k4_f),
         kernel_line("K5 CSR SpMV (narrow rhs)", "cuda", K567_SOURCE, K5_REPLACES, "K5",
                     (glm["launches"], glm["traced"]), k5),
         kernel_line("K6 CSR SpMM (wide rhs)", "cuda", K567_SOURCE, K6_REPLACES, "K6", (lr["launches"], lr["traced"]),

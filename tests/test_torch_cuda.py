@@ -1,8 +1,9 @@
 """Kernel tests that need the card: each hand-written kernel against its
 plain PyTorch version on CUDA tensors (K1 on every op of the scalar
 table), a small encoder forward and train step, a small sparse
-logistic-regression step on the card against the CPU, and a captured
-minibatch window replayed at every index.  They skip where there is no CUDA device; run them on a GPU machine
+logistic-regression step on the card against the CPU, a captured
+minibatch window replayed at every index, and every Scan form captured
+against eager and the CPU (``-k scan``).  They skip where there is no CUDA device; run them on a GPU machine
 with ``python -m pytest -m cuda tests/test_torch_cuda.py``."""
 
 import numpy as np
@@ -938,3 +939,132 @@ def test_captured_dynamic_slice_reads_each_replays_start(cuda):
         assert captured.captured
         np.testing.assert_array_equal(got, eager(np.int32(k)).cpu().numpy())
         np.testing.assert_allclose(got, xv[k * B:(k + 1) * B].sum(axis=0), rtol=1e-6, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# Scan on the card (``python -m pytest -m cuda tests/test_torch_cuda.py -k scan``)
+# ---------------------------------------------------------------------------
+
+def _scan_forms(device, use_graph):
+    """Every capturable Scan form at a small size, compiled on ``device``:
+    {name: (function, its arguments)}, each returning its stacks and the
+    gradients of a cost of them."""
+    from aesara_tpu_torch.scan import scan, until
+    from aesara_tpu_torch.scan.views import foldl
+
+    mode = ptp.Mode(ptp.TorchLinker(device=device, use_graph=use_graph))
+    rng = np.random.default_rng(3)
+    xs, w, h0 = (rng.normal(size=(7, 4)), rng.normal(size=(4, 4)) * 0.5, rng.normal(size=4))
+    forms = {}
+    x, wv, hv = pt.matrix("x", dtype="float64"), pt.matrix("w", dtype="float64"), pt.vector("h0", dtype="float64")
+    (h, y), _ = scan(lambda xt, hp, w: (ptm.tanh(ptm.dot(hp, w) + xt), ptm.sum(hp * xt)), sequences=[x],
+                     outputs_info=[hv, None], non_sequences=[wv])
+    forms["sit_nit"] = (ptp.function([x, wv, hv], [h, y] + ptp.grad(ptm.sum(h ** 2) + ptm.sum(y), [x, wv, hv]),
+                                     mode=mode), [xs, w, h0])
+    init = pt.matrix("init", dtype="float64")
+    m, _ = scan(lambda xt, h2, h1: 0.5 * h2 - 0.3 * ptm.tanh(h1) + xt, sequences=[x],
+                outputs_info=[{"initial": init, "taps": [-2, -1]}], go_backwards=True)
+    forms["mit_sot_backwards"] = (ptp.function([init, x], [m] + ptp.grad(ptm.sum(m * m), [init, x]), mode=mode),
+                                  [rng.normal(size=(2, 4)), xs])
+    t, _ = scan(lambda xt, hp: ptm.tanh(hp * 0.9 + xt), sequences=[x], outputs_info=[hv], truncate_gradient=3,
+                n_steps=x.shape[0] - 1)
+    forms["truncated_shape_steps"] = (ptp.function([x, hv], [t] + ptp.grad(ptm.sum(t), [x, hv]), mode=mode),
+                                      [xs, h0])
+    v = pt.vector("v", dtype="float64")
+    (p, valid), _ = scan(lambda vt, acc: (acc + vt, until(acc + vt > 2.0)), sequences=[v],
+                         outputs_info=[pt.constant(np.float64(0.0))], n_steps=4, padded_while=True)
+    forms["padded_while"] = (ptp.function([v], [p, valid, ptp.grad(ptm.sum(p * valid), v)], mode=mode),
+                             [np.array([1.0, 1.5, 1.0, 1.0])])
+    r, _ = foldl(lambda xt, acc, w: ptm.tanh(ptm.dot(acc, w) + xt), sequences=[x], outputs_info=[hv],
+                 non_sequences=[wv])
+    forms["foldl"] = (ptp.function([x, wv, hv], [r, ptp.grad(ptm.sum(r), wv)], mode=mode), [xs, w, h0])
+    return forms
+
+
+def test_scan_forms_captured_equal_eager_and_cpu(cuda):
+    captured, eager, cpu = (_scan_forms("cuda", True), _scan_forms("cuda", False), _scan_forms("cpu", None))
+    for name, (fn, args) in captured.items():
+        assert fn.capture_blocker is None, name
+        for call in range(3):
+            got = [o.cpu().numpy() for o in fn(*args)]
+            assert fn.captured == (call >= 1), name
+        want = [o.cpu().numpy() for o in eager[name][0](*args)]
+        ref = [o.numpy() for o in cpu[name][0](*args)]
+        for g, e, c in zip(got, want, ref):
+            np.testing.assert_array_equal(g, e, err_msg=name)
+            np.testing.assert_allclose(g, c, atol=1e-10, rtol=1e-10, err_msg=name)
+    np.testing.assert_allclose(captured["padded_while"][0](*captured["padded_while"][1])[2].cpu().numpy(),
+                               [2.0, 1.0, 0.0, 0.0])
+
+
+def test_scan_while_runs_eagerly_and_names_its_blocker(cuda):
+    from aesara_tpu_torch.scan import scan, until
+
+    p0 = pt.scalar("p0", dtype="float64")
+    k, _ = scan(lambda p: (p * 2.0, until(p * 2.0 > 10)), outputs_info=[p0], n_steps=100)
+    f = ptp.function([p0], k, mode=ptp.Mode(ptp.TorchLinker(device="cuda")))
+    assert f.capture_blocker == "Scan{scan_while} (Scan) reads its until condition on the host each step"
+    for _ in range(3):
+        np.testing.assert_array_equal(f(np.float64(1.0)).cpu().numpy(), [2.0, 4.0, 8.0, 16.0])
+        assert not f.captured
+    n = pt.iscalar("n")
+    h, _ = scan(lambda hp: hp * 2.0, outputs_info=[p0], n_steps=n)
+    g = ptp.function([p0, n], h, mode=ptp.Mode(ptp.TorchLinker(device="cuda")))
+    assert g.capture_blocker == "Scan{scan} (Scan) reads its trip count on the host"
+    np.testing.assert_array_equal(g(np.float64(1.0), np.int32(3)).cpu().numpy(), [2.0, 4.0, 8.0])
+
+
+def test_scan_inner_composites_launch_k1_and_match_plain(cuda):
+    """Config 4's body and the LSTM's gate chain, fused in the inner
+    programs, each one K1 launch a step, against their plain versions."""
+    from aesara_tpu_torch.models import LSTM
+    from aesara_tpu_torch.scan import scan
+
+    mode = ptp.Mode(ptp.TorchLinker(device="cuda"))
+    with config.change_flags(device="cuda"):
+        x = ptp.shared(np.random.default_rng(0).normal(size=(6, 8, 5)).astype("float32"), name="x")
+        wx = ptp.shared(np.full((5, 16), 0.1, "float32"))
+        wh = ptp.shared(np.full((16, 16), 0.05, "float32"))
+        b = ptp.shared(np.zeros(16, "float32"))
+        lstm = LSTM(5, 16, 3, seed=1)
+    hs, _ = scan(lambda xt, hp: ptm.tanh(ptm.dot(xt, wx) + ptm.dot(hp, wh) + b), sequences=[x],
+                 outputs_info=[pt.zeros((8, 16), dtype="float32")])
+    X = pt.tensor3("X", dtype="float32")
+    fns = [ptp.function([], ptm.mean(hs ** 2), mode=mode), ptp.function([X], lstm.logits(X), mode=mode)]
+    rng = np.random.default_rng(9)
+    for fn, args in zip(fns, [[], [rng.normal(size=(6, 8, 5)).astype("float32")]]):
+        (scan_node,) = [n for n in fn.fn.program.order if type(n.op).__name__ == "Scan"]
+        inner = fn.fn.program.fns[fn.fn.program.order.index(scan_node)].program
+        composites = [n for n, fold in zip(inner.order, inner.folds)
+                      if not fold and type(getattr(n.op, "scalar_op", None)).__name__ == "Composite"]
+        assert composites
+        before = fused_elemwise.launches
+        fn(*args)
+        assert fused_elemwise.launches - before >= 6 * len(composites)
+        for node in composites:
+            comp, out_dtype = node.op.scalar_op, node.outputs[0].type.dtype
+            kernel = ElemwiseKernel(comp, [v.type.dtype for v in node.inputs], out_dtype)
+            vals = [torch.as_tensor(rng.uniform(0.05, 0.95, size=tuple(s or 8 for s in v.type.shape)).astype(
+                v.type.dtype), device=cuda) for v in node.inputs]
+            torch.testing.assert_close(fused_elemwise(kernel, *vals), composite_plain(comp, out_dtype, *vals),
+                                       atol=1e-6, rtol=1e-6)
+
+
+def test_scan_steps_per_call_is_bitwise_equal_to_separate_calls(cuda):
+    def build(k):
+        with config.change_flags(device="cuda"):
+            w = ptp.shared(np.array([1.0, -2.0, 0.5, 3.0], "float32"), name="w")
+        x = pt.vector("x", dtype="float32")
+        loss = ptm.sum(ptm.tanh(w * x - 1.0) ** 2)
+        f = ptp.function([x], loss, updates=[(w, w - 0.1 * ptp.grad(loss, w))], steps_per_call=k,
+                         mode=ptp.Mode(ptp.TorchLinker(device="cuda")))
+        return f, w
+
+    (one, w1), (three, w3) = build(1), build(3)
+    xv = np.random.default_rng(4).normal(size=4).astype("float32")
+    for call in range(3):
+        want = torch.stack([one(xv) for _ in range(3)])
+        got = three(xv)
+        assert torch.equal(got, want), call
+        assert torch.equal(w3.value, w1.value), call
+    assert three.captured

@@ -19,8 +19,8 @@ of sign of one step's update (measured: one of wq's 4,096 entries,
 1.3e-4).  Every other entry, and every moment, holds to 1e-5.  A checkpoint
 written by either package after 2 steps loads into the other by name, and
 one more step on each side agrees at the same tolerance.  What waits for
-a later slice (optimizer-state sharding, ``steps_per_call``, the bucketing
-options of ``In``) raises."""
+a later slice (optimizer-state sharding, the bucketing options of ``In``)
+raises; ``steps_per_call`` came with the scan slice."""
 
 import numpy as np
 import pytest
@@ -231,9 +231,10 @@ def test_optimizer_state_sharding_waits_for_the_parallel_slice(recipe):
 
 
 def test_steps_per_call_and_bucketing_wait_for_their_slices():
+    # steps_per_call came with the scan slice: two steps a call, stacked
     x = matrix("x")
-    with pytest.raises(NotImplementedError, match="scan"):
-        aesara_tpu_torch.function([x], ptm.sum(x), steps_per_call=2)
+    f = aesara_tpu_torch.function([x], ptm.sum(x), steps_per_call=2)
+    np.testing.assert_array_equal(f(np.ones((2, 3), "float32")).numpy(), [6.0, 6.0])
     for kwargs in ({"batched": True}, {"seq_bucketed": 1}):
         with pytest.raises(NotImplementedError, match="bucketing"):
             In(x, **kwargs)
