@@ -14,8 +14,10 @@ the new values into the shared variables' storage only after the whole
 graph has run (inside the captured step on the card), as the JAX
 package donates the old buffers to XLA
 (``aesara_tpu/link/jax/linker.py:304-343``).  ``steps_per_call=k``
-compiles the step as a k-step Scan (``_function_ksteps``).  Bucketing
-needs ``compile/bucketing.py``, which is not ported yet.
+compiles the step as a k-step Scan (``_function_ksteps``).  Under
+``config.shape_buckets`` a call pads its dynamic-length inputs up to a
+rung of the bucket ladder and slices the results back
+(``compile/bucketing.py``), so each rung is one key of the function.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from __future__ import annotations
 import warnings
 from typing import Sequence
 
+import numpy as np
 
 from aesara_tpu_torch.compile.io import In, Out
 from aesara_tpu_torch.compile.mode import get_mode
@@ -69,6 +72,20 @@ class Function:
         self.shared_inputs = fgraph.inputs[self.n_inputs:]
         self._name_to_pos = {s.name: i for i, s in enumerate(self.in_specs) if s.name}
         self._in_state: dict = {}
+        # bucketing (compile/bucketing.py): the inputs marked
+        # In(batched=True), else every one whose leading dim is dynamic
+        # (In(batched=False) keeps one out); In(seq_bucketed=axis) names
+        # a sequence axis, zero-padded
+        explicit = [i for i, s in enumerate(self.in_specs) if s.batched is True]
+        self._bucket_positions = explicit or [
+            i for i, s in enumerate(self.in_specs)
+            if s.batched is not False and s.seq_bucketed is None
+            and getattr(s.variable.type, "ndim", 0) >= 1 and s.variable.type.shape[0] is None]
+        self._bucket_seq_positions = [(i, int(s.seq_bucketed)) for i, s in enumerate(self.in_specs)
+                                      if s.seq_bucketed is not None]
+        self._bucket_safety = None      # (verdict,) once the analysis has run
+        self._bucket_safety_warned = False
+        self._seq_out_axes = None
 
     def _arguments(self, args, kwargs) -> list:
         """One value per input: the positional and keyword ones, then the
@@ -99,6 +116,98 @@ class Function:
             values[i] = value
         return values
 
+    # -- bucketing ------------------------------------------------------------
+
+    def _lengths(self, values, positions):
+        """The one length the inputs at ``positions`` (input, axis) share,
+        or None when one is not a host array or they disagree."""
+        lengths = set()
+        for pos, axis in positions:
+            v = values[pos]
+            if not isinstance(v, np.ndarray) or v.ndim <= axis:
+                return None
+            lengths.add(int(v.shape[axis]))
+        return lengths.pop() if len(lengths) == 1 else None
+
+    def _pad_to_bucket(self, values, policy):
+        """Pad the batched inputs' leading dim up to the policy's bucket
+        by replicating the last row: (true length, bucket), or (None,
+        None) where nothing was padded."""
+        from aesara_tpu_torch.compile.bucketing import bucket_for, pad_leading
+
+        n = self._lengths(values, [(p, 0) for p in self._bucket_positions])
+        if n is None:
+            return None, None
+        b = bucket_for(n, policy)
+        if b == n or n == 0 or not self._check_bucket_safety():
+            return None, None
+        for pos in self._bucket_positions:
+            values[pos] = pad_leading(values[pos], b)
+        return n, b
+
+    def _check_bucket_safety(self) -> bool:
+        """The batch-axis safety analysis, run once: raise, warn and run
+        unpadded, or trust, as ``config.shape_buckets_check`` says."""
+        from aesara_tpu_torch.compile.bucketing import BucketingError, batch_axis_safety
+
+        if self._bucket_safety is None:
+            n_out = len(self.borrow)
+            updates = range(n_out, n_out + len(self.update_targets))
+            self._bucket_safety = (batch_axis_safety(
+                self.fgraph, [self.fgraph.inputs[p] for p in self._bucket_positions], updates),)
+        (reason,) = self._bucket_safety
+        if reason is None:
+            return True
+        policy = config.shape_buckets_check
+        if policy == "raise":
+            raise BucketingError(reason)
+        if policy == "warn":
+            if not self._bucket_safety_warned:
+                warnings.warn(reason + " — running unbucketed")
+                self._bucket_safety_warned = True
+            return False
+        return True     # "off": the caller asserts safety
+
+    def _pad_seq_to_bucket(self, values, policy):
+        """Zero-pad each declared sequence axis up to the policy's bucket:
+        (true length, bucket), or (None, None)."""
+        from aesara_tpu_torch.compile.bucketing import bucket_for, pad_axis_zero
+
+        n = self._lengths(values, self._bucket_seq_positions)
+        if n is None:
+            return None, None
+        b = bucket_for(n, policy)
+        if b == n or n == 0:
+            return None, None
+        for pos, axis in self._bucket_seq_positions:
+            values[pos] = pad_axis_zero(values[pos], axis, b)
+        return n, b
+
+    def _seq_output_axes(self) -> list:
+        """Each output's sequence axis (or None), tracked through the graph
+        by ``axis_taint``: never guessed from run-time sizes, so a batch
+        axis that happens to equal the bucket is never cut."""
+        if self._seq_out_axes is None:
+            from aesara_tpu_torch.compile.bucketing import axis_taint
+
+            taint = axis_taint(self.fgraph, {self.fgraph.inputs[p]: a for p, a in self._bucket_seq_positions})
+            self._seq_out_axes = [next(iter(t)) if len(t) == 1 else None
+                                  for t in (taint.get(o, frozenset()) for o in self.fgraph.outputs)]
+        return self._seq_out_axes
+
+    @staticmethod
+    def _cut(value, axis, n, b):
+        """``value`` cut to ``n`` along ``axis`` where it came back at ``b``."""
+        if axis is None or value is None or value.ndim <= axis or int(value.shape[axis]) != b:
+            return value
+        return value.narrow(axis, 0, n)
+
+    @property
+    def keys_made(self) -> int:
+        """Keys of the function made so far: one for each distinct set of
+        argument shapes (a bucket rung under ``config.shape_buckets``)."""
+        return self.fn.keys_made
+
     @property
     def captured(self) -> bool:
         return self.fn.captured
@@ -108,11 +217,29 @@ class Function:
         return self.fn.capture_blocker
 
     def __call__(self, *args, **kwargs):
-        results = self.fn(*self._arguments(args, kwargs))
+        from aesara_tpu_torch.compile.bucketing import parse_buckets
+
+        values = self._arguments(args, kwargs)
+        bkt_n = bkt_b = seq_n = seq_b = None
+        policy = parse_buckets(config.shape_buckets)
+        if policy is not None:
+            if self._bucket_positions:
+                bkt_n, bkt_b = self._pad_to_bucket(values, policy)
+            if self._bucket_seq_positions:
+                seq_n, seq_b = self._pad_seq_to_bucket(values, policy)
+        results = self.fn(*values)
         n_out = len(self.borrow)
         outs = list(results[:n_out])
-        for pos, new in zip(self.input_updates, results[n_out:]):
+        state_vars = self.fgraph.outputs[n_out + len(self.update_targets):]
+        for pos, new, var in zip(self.input_updates, results[n_out:], state_vars):
+            if bkt_n is not None and var.type.shape[:1] == (None,):
+                new = self._cut(new, 0, bkt_n, bkt_b)
             self._in_state[pos] = new
+        if bkt_n is not None:
+            outs = [self._cut(o, 0, bkt_n, bkt_b) if var.type.shape[:1] == (None,) else o
+                    for o, var in zip(outs, self.fgraph.outputs)]
+        if seq_n is not None:
+            outs = [self._cut(o, ax, seq_n, seq_b) for o, ax in zip(outs, self._seq_output_axes())]
         if self.single_output:
             return outs[0]
         return outs if outs else None

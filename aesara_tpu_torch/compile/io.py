@@ -49,22 +49,23 @@ class SymbolicInput:
 class In(SymbolicInput):
     """The user's input spec.  ``borrow`` (default: ``mutable``) lets the
     function keep the caller's value without a copy.  ``batched`` and
-    ``seq_bucketed`` belong to shape bucketing, which the port does not
-    have yet: setting either raises."""
+    ``seq_bucketed`` belong to shape bucketing (``compile/bucketing.py``):
+    ``batched=True`` makes only the marked inputs pad their leading dim,
+    ``batched=False`` keeps an input out; ``seq_bucketed=axis`` zero-pads
+    that axis."""
 
     def __init__(self, variable: Variable, name: Optional[str] = None, value: Any = None,
                  update: Optional[Variable] = None, mutable: Optional[bool] = None, strict: bool = False,
                  allow_downcast=None, autoname: bool = True, borrow: Optional[bool] = None,
                  batched: Optional[bool] = None,
                  seq_bucketed: Optional[int] = None):
-        if batched is not None or seq_bucketed is not None:
-            raise NotImplementedError("In(batched=, seq_bucketed=) wait for compile/bucketing.py, "
-                                      "which the port does not have yet")
         if borrow is None:
             borrow = mutable if mutable is not None else False
         super().__init__(variable, name=name, update=update, mutable=mutable, strict=strict,
                          allow_downcast=allow_downcast, autoname=autoname, value=value)
         self.borrow = bool(borrow)
+        self.batched = batched
+        self.seq_bucketed = seq_bucketed
 
 
 class Out:

@@ -12,7 +12,9 @@ nothing reads: "raise" (the default, as in the JAX package), "warn" or
 linker drop each intermediate after its last reader.  ``cuda_graph`` (the
 counterpart of ``jax_jit``, default True) makes ``TorchLinker`` capture
 each compiled step into a CUDA graph on the card; it has no effect on
-the CPU.
+the CPU.  ``shape_buckets`` ("off", "pow2" or a comma list of sizes) and
+``shape_buckets_check`` ("raise", "warn" or "off") are the JAX package's
+bucketing flags (``compile/bucketing.py``), read at each call.
 """
 
 from __future__ import annotations
@@ -28,6 +30,13 @@ def _enum(*allowed):
         return v
 
     return check
+
+
+def _buckets(v):
+    from aesara_tpu_torch.compile.bucketing import parse_buckets
+
+    parse_buckets(v)    # raises on a malformed ladder
+    return v
 
 
 def _device(v):
@@ -77,5 +86,7 @@ config.add("device", "cuda", _device)
 config.add("on_unused_input", "raise", _enum("raise", "warn", "ignore"))
 config.add("allow_gc", True, _enum(True, False))
 config.add("cuda_graph", True, _enum(True, False))
+config.add("shape_buckets", "off", _buckets)
+config.add("shape_buckets_check", "raise", _enum("raise", "warn", "off"))
 
 change_flags = config.change_flags

@@ -236,6 +236,13 @@ class _Importer(Feature):
             (self.q.appendleft if self.left else self.q.append)(node)
 
 
+def _covers(olds, news) -> bool:
+    """Whether each of ``news`` may stand for the one of ``olds`` at its
+    position: the same type, or one whose values are all of the old's."""
+    return all(o.type == n.type or getattr(o.type, "is_super", lambda t: False)(n.type)
+               for o, n in zip(olds, news))
+
+
 class MergeOptimizer(GraphRewriter):
     """CSE: merge equal constants, then equal Apply nodes, to a fixed point."""
 
@@ -257,10 +264,17 @@ class MergeOptimizer(GraphRewriter):
                     continue
                 key = (node.op, tuple(map(id, node.inputs)))
                 first = by_key.setdefault(key, node)
-                if first is not node:
-                    fgraph.replace_all_validate(list(zip(node.outputs, first.outputs)),
-                                                reason="MergeOptimizer")
-                    changed = True
+                if first is node:
+                    continue
+                # keep the node whose outputs know more of their static
+                # shape (a Reshape to a folded shape and one to the same
+                # constant differ only there); skip a pair neither covers
+                if not _covers(node.outputs, first.outputs):
+                    if not _covers(first.outputs, node.outputs):
+                        continue
+                    by_key[key], first, node = node, node, first
+                fgraph.replace_all_validate(list(zip(node.outputs, first.outputs)), reason="MergeOptimizer")
+                changed = True
 
     def __str__(self):
         return "MergeOptimizer"

@@ -31,7 +31,8 @@ from aesara_tpu_torch.tensor.basic import (
 )
 from aesara_tpu_torch.tensor.blas import Dot22, Dot22Scalar, Gemm, Gemv, Ger
 from aesara_tpu_torch.tensor.elemwise import CAReduce, DimShuffle, Elemwise, check_static_broadcast
-from aesara_tpu_torch.tensor.math import Argmax, Dot
+from aesara_tpu_torch.tensor.extra_ops import Repeat
+from aesara_tpu_torch.tensor.math import Argmax, BatchedDot, Dot
 from aesara_tpu_torch.tensor.nnet.attention import FusedAttention, FusedAttentionGrad
 from aesara_tpu_torch.tensor.shape import Reshape, Shape, Shape_i, SpecifyShape, Unbroadcast, check_specified_shape
 from aesara_tpu_torch.tensor.special import LogSoftmax, Softmax, SoftmaxGrad
@@ -46,7 +47,7 @@ from aesara_tpu_torch.link.torch.kernels.elemwise import (
 from aesara_tpu_torch.link.torch.kernels.softmax import softmax_rows
 
 
-__all__ = ["torch_funcify"]
+__all__ = ["torch_funcify", "in_place_lowering", "IN_PLACE_OPS"]
 
 
 @singledispatch
@@ -186,6 +187,29 @@ def _torch_dot(op, node):
         return torch.matmul(x.to(out_dtype), y.to(out_dtype))
 
     return dot
+
+
+@torch_funcify.register(BatchedDot)
+def _torch_batched_dot(op, node):
+    # a plain batched product in full fp32 (link/jax/dispatch.py:1113-1129
+    # leaves it to XLA's dot_general): bmm for 3x3, matmul with a unit
+    # dim for 3x2 and 2x3, a batched dot product for 2x2
+    import torch
+
+    out_dtype = torch_dtype(node.outputs[0].type.dtype)
+    case = (node.inputs[0].type.ndim, node.inputs[1].type.ndim)
+
+    def batched_dot(x, y):
+        x, y = x.to(out_dtype), y.to(out_dtype)
+        if case == (3, 3):
+            return torch.bmm(x, y)
+        if case == (3, 2):
+            return torch.matmul(x, y.unsqueeze(-1)).squeeze(-1)
+        if case == (2, 3):
+            return torch.matmul(x.unsqueeze(1), y).squeeze(1)
+        return torch.einsum("bi,bi->b", x, y)
+
+    return batched_dot
 
 
 def _coefficient(value, dtype):
@@ -464,12 +488,17 @@ def _torch_subtensor(op, node):
 
 @torch_funcify.register(IncSubtensor)
 def _torch_inc_subtensor(op, node):
-    # out of place: the port has no destroy handler yet
+    return _inc_subtensor_lowering(op, node, in_place=False)
+
+
+def _inc_subtensor_lowering(op, node, in_place: bool):
+    # out of place (a clone of x) but where a Scan's loop owns x
+    # (``in_place_lowering``): the port has no destroy handler
     resolve, dynamic, runtime, bounds = _basic_index(node, op.idx_list, 2)
     n_dyn, set_instead = len(dynamic), op.set_instead_of_inc
 
     def inc_subtensor(x, y, *index_inputs):
-        out = x.clone()
+        out = x if in_place else x.clone()
         view, flips = _region(out, *resolve(index_inputs))
         # y broadcast over the region, a run-time index's dim of size 1
         shape = [1 if d in dynamic else n for d, n in enumerate(view.shape)]
@@ -561,12 +590,16 @@ def _torch_dynamic_slice(op, node):
 
 @torch_funcify.register(DynamicIncSubtensor)
 def _torch_dynamic_inc_subtensor(op, node):
+    return _dynamic_inc_subtensor_lowering(op, node, in_place=False)
+
+
+def _dynamic_inc_subtensor_lowering(op, node, in_place: bool):
     import torch
 
     lengths, set_instead, aranges = op.lengths, op.set_instead_of_inc, {}
 
     def dynamic_inc_subtensor(x, y, *starts):
-        out = x.clone()
+        out = x if in_place else x.clone()
         idx = _window_index(lengths, x.shape, starts, aranges)
         # every axis up to the last sized one as an open grid of positions
         grid = [e if not isinstance(e, slice) else
@@ -578,6 +611,20 @@ def _torch_dynamic_inc_subtensor(op, node):
 
     dynamic_inc_subtensor.host_inputs = tuple(range(2, len(node.inputs)))
     return dynamic_inc_subtensor
+
+
+#: the ops that have a lowering writing into their first input
+IN_PLACE_OPS = (IncSubtensor, DynamicIncSubtensor)
+
+
+def in_place_lowering(node):
+    """The lowering of ``node`` (an ``IN_PLACE_OPS`` node) that writes into
+    its input ``x`` and returns it, where the caller owns ``x`` and nothing
+    else reads it: a Scan's loop-carried state (``scan_dispatch.py``), the
+    counterpart of XLA's in-place update of a donated carry."""
+    if isinstance(node.op, IncSubtensor):
+        return _inc_subtensor_lowering(node.op, node, in_place=True)
+    return _dynamic_inc_subtensor_lowering(node.op, node, in_place=True)
 
 
 @torch_funcify.register(Alloc)
@@ -623,6 +670,31 @@ def _torch_argmax(op, node):
         return torch.argmax(flat, dim=-1)
 
     return argmax
+
+
+@torch_funcify.register(Repeat)
+def _torch_repeat(op, node):
+    import torch
+
+    axis, gathers = op.axis, {}
+
+    def repeat(x, repeats):
+        # the counts are host values (needs_host), so the result's length
+        # is fixed for a key of the function; a vector of counts gathers
+        # by an index made at the first (eager) call of each
+        counts = np.asarray(repeats)
+        if not counts.ndim:
+            return torch.repeat_interleave(x, int(counts), dim=axis)
+        dim = 0 if axis is None else axis
+        key = (tuple(counts.tolist()), x.device)
+        if key not in gathers:
+            gathers[key] = torch.as_tensor(np.repeat(np.arange(x.shape[dim]), counts), device=x.device)
+        return (x.reshape(-1) if axis is None else x).index_select(dim, gathers[key])
+
+    repeat.host_inputs = (1,)
+    repeat.needs_host = ((1,), "has a repeat count computed at run time from data, so its result's "
+                               "length is not known when the function is compiled")
+    return repeat
 
 
 @torch_funcify.register(AllocEmpty)

@@ -133,10 +133,12 @@ class Program:
     value of every graph input (a tensor or CSRMat on the device) to the
     value of every output (a tensor, a CSRMat, or a host array where the
     output folds on the host).  It reads no shared variable itself, so
-    functions of identical graphs share it."""
+    functions of identical graphs share it.  The nodes in ``in_place``
+    write into their first input (``dispatch.in_place_lowering``): the
+    caller owns that input's value and nothing else reads it."""
 
-    def __init__(self, fgraph, device, allow_gc: bool):
-        from aesara_tpu_torch.link.torch.dispatch import torch_funcify
+    def __init__(self, fgraph, device, allow_gc: bool, in_place=frozenset()):
+        from aesara_tpu_torch.link.torch.dispatch import in_place_lowering, torch_funcify
         from aesara_tpu_torch.link.torch.sparse_dispatch import csr_plan
 
         self.device = device
@@ -144,7 +146,8 @@ class Program:
         self.outputs = list(fgraph.outputs)
         self.csr_plan = csr_plan(fgraph)
         self.order = fgraph.toposort()
-        self.fns = [torch_funcify(node.op, node=node) for node in self.order]
+        self.fns = [in_place_lowering(node) if node in in_place else torch_funcify(node.op, node=node)
+                    for node in self.order]
         self.keep_host = [frozenset(getattr(fn, "host_inputs", ())) for fn in self.fns]
         self.takes_device = [getattr(fn, "takes_device", False) for fn in self.fns]
         # which nodes fold on the host: all their inputs are host values
@@ -287,6 +290,9 @@ class TorchFunction:
             self.capture_blocker = None
         #: whether the last call replayed a captured graph
         self.captured = False
+        #: keys made so far (the counterpart of the JAX package's
+        #: ``xla_compile_count``): a key dropped and made again counts twice
+        self.keys_made = 0
         self._keys: "OrderedDict" = OrderedDict()
 
     # -- arguments --------------------------------------------------------
@@ -403,6 +409,7 @@ class TorchFunction:
         key = self._key(args)
         state = self._keys.pop(key, None)
         if state is None:
+            self.keys_made += 1
             sparse = [a for pos, a in enumerate(args) if self.program.csr_plan[pos] is not None]
             state = _Key(sparse + [var.value for pos, var in enumerate(self.shared_inputs, self.n_user_inputs)
                                    if self.program.csr_plan[pos] is not None])

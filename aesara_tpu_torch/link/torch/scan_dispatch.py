@@ -26,7 +26,14 @@ runs once a step:
   output is the last state, a tail depth k the last k rows;
 - shared states are carried;
 - the inner program frees each step's intermediates after their last
-  reader (``config.allow_gc``), so no step's values outlive the next.
+  reader (``config.allow_gc``), so no step's values outlive the next;
+- a final-only state of depth 1 whose inner input is read by one
+  ``IncSubtensor`` or ``DynamicIncSubtensor`` alone, whose result is the
+  state's new value, is owned by the loop: its initial value is copied
+  once a call, and that node writes into the owned buffer in place
+  (``in_place_writes``), the counterpart of XLA's in-place update of the
+  donated carry.  The decoder's KV caches are such states, so a decode
+  step writes its K/V rows and copies no cache.
 
 The output shapes are those of the JAX lowering.  With a trip count that
 is a host value (computed from shapes and constants, so fixed for a key
@@ -49,7 +56,7 @@ from aesara_tpu_torch.link.torch.dispatch import torch_funcify
 from aesara_tpu_torch.scan.op import Scan
 
 
-__all__ = ["fused_inner_graph"]
+__all__ = ["fused_inner_graph", "in_place_writes"]
 
 
 def fused_inner_graph(op):
@@ -60,6 +67,35 @@ def fused_inner_graph(op):
     fgraph = op.fgraph.clone()
     get_mode(None).excluding("BlasOpt").optimizer.rewrite(fgraph)
     return fgraph
+
+
+def in_place_writes(inner, info) -> dict:
+    """{inner node: recurrent state} of the nodes of the rewritten inner
+    graph ``inner`` that may write into their state's buffer: the node is
+    an ``IN_PLACE_OPS`` node whose ``x`` is the inner input of a
+    recurrent state that is final-only (not stacked, no tail) of depth 1,
+    it is ``x``'s only client (so ``x`` is no inner output either), and
+    its result is the state's new value and no other output (so the
+    buffer the next step writes is the one this step wrote, and nothing
+    else the loop carries)."""
+    from aesara_tpu_torch.link.torch.dispatch import IN_PLACE_OPS
+
+    n_rec = info.n_mit_sot + info.n_sit_sot
+    taps = [tuple(t) for t in info.mit_sot_taps] + [(-1,)] * info.n_sit_sot
+    found, pos = {}, info.n_seqs
+    for i in range(n_rec):
+        x = inner.inputs[pos]
+        pos += len(taps[i])
+        if taps[i] != (-1,) or not info.is_final_only(i) or info.tail_depth(i):
+            continue
+        clients = inner.clients.get(x, [])
+        if len(clients) != 1:
+            continue
+        node, k = clients[0]
+        if (k == 0 and isinstance(getattr(node, "op", None), IN_PLACE_OPS) and inner.outputs[i] is node.outputs[0]
+                and sum(o is node.outputs[0] for o in inner.outputs) == 1):
+            found[node] = i
+    return found
 
 
 def _host(value) -> bool:
@@ -74,7 +110,9 @@ def _torch_scan(op, node):
 
     info = op.info
     inner = fused_inner_graph(op)
-    program = Program(inner, None, bool(config.allow_gc))
+    writes = in_place_writes(inner, info)
+    program = Program(inner, None, bool(config.allow_gc), in_place=frozenset(writes))
+    owned = sorted(set(writes.values()))
     n_rec = info.n_mit_sot + info.n_sit_sot
     depths = [-min(taps) for taps in info.mit_sot_taps] + [1] * info.n_sit_sot
     taps = [tuple(t) for t in info.mit_sot_taps] + [(-1,)] * info.n_sit_sot
@@ -101,6 +139,9 @@ def _torch_scan(op, node):
                 raise ValueError(f"a sequence of {s.shape[0]} rows is shorter than the {n} steps of {op}")
         device = next((v.device for v in operands if isinstance(v, torch.Tensor)), None)
         program.device = device
+        # the loop's own buffers of the states written in place: the
+        # caller's value is never written
+        inits = [init.clone() if i in owned else init for i, init in enumerate(inits)]
 
         # per recurrent output: the states its taps read (oldest first),
         # its stack, and its last rows where a tail is kept
@@ -171,6 +212,7 @@ def _torch_scan(op, node):
         return tuple(outs) if len(outs) != 1 else outs[0]
 
     scan.program = program     # the inner program (its kernels' launches are counted a step)
+    scan.owned = owned         # the states the loop writes in place
     scan.host_inputs = (0,)
     scan.syncs = (0,)
     scan.sync_blocker = "reads its trip count on the host"

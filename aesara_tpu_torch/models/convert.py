@@ -9,6 +9,14 @@ b_out``), whose parameters have the same names in both packages.
 ``Model.get_values()``) or a ``{name: array}`` dict, checks names, order,
 shapes and dtypes against the port model's parameters, and raises on any
 mismatch before it writes anything.
+
+A ``DecoderLM`` names the parameters of every layer alike (``wq`` in each),
+so it is carried by qualified name: ``named_state(lm)`` gives ``embed`` and
+``layers.<i>.<name>`` of a decoder of either package, or of its
+``quantize_decoder_int8`` copy (whose state is the int8 values and scales,
+``layers.<i>.wq_q8``, ``layers.<i>.wq_scale``, ..., ``embed_q8``,
+``embed_scale``, and the float leftovers ``layers.<i>.b1`` ...), and
+``load_state(lm, named_state(jax_lm))`` writes them, with the same checks.
 """
 
 from __future__ import annotations
@@ -18,7 +26,10 @@ from typing import Mapping, Sequence, Union
 import numpy as np
 
 
-__all__ = ["load_params", "params_by_name"]
+__all__ = ["load_params", "params_by_name", "named_state", "load_state"]
+
+#: the float state a quantized decoder layer keeps (``models/quant.py``)
+_FLOAT_NAMES = ("b1", "b2", "ln1_g", "ln1_b", "ln2_g", "ln2_b")
 
 
 def params_by_name(model) -> dict:
@@ -47,4 +58,40 @@ def load_params(model, values: Union[Sequence[np.ndarray], Mapping[str, np.ndarr
             raise ValueError(f"parameter {p.name}: got {a.dtype}{a.shape}, "
                              f"model has {p.type.dtype}{p.type.shape}")
     for p, a in zip(params, arrays):
+        p.set_value(a)
+
+
+def named_state(lm) -> dict:
+    """``{qualified name: shared variable}`` of a ``DecoderLM`` of either
+    package or of its int8 copy (module docstring), in a fixed order."""
+    out = {}
+    if hasattr(lm, "quantized_shareds"):
+        per = len(lm.quantized_shareds) // len(lm.layers)
+        for i, layer in enumerate(lm.layers):
+            for w in lm.quantized_shareds[per * i:per * (i + 1)]:
+                out[f"layers.{i}.{w.name}"] = w
+            for name in _FLOAT_NAMES:
+                out[f"layers.{i}.{name}"] = getattr(layer, name)
+        for w in lm.quantized_shareds[per * len(lm.layers):]:
+            out[w.name] = w
+        return out
+    out["embed"] = lm.embed
+    for i, layer in enumerate(lm.layers):
+        for p in layer.params:
+            out[f"layers.{i}.{p.name}"] = p
+    return out
+
+
+def load_state(lm, values: Mapping) -> None:
+    """Write ``values`` (``{qualified name: shared variable or array}``,
+    as ``named_state`` of the source gives) into ``lm``'s state, having
+    checked names, order, shapes and dtypes."""
+    state = named_state(lm)
+    if list(values) != list(state):
+        raise ValueError(f"state names/order differ: got {list(values)}, model has {list(state)}")
+    arrays = [np.asarray(v.get_value() if hasattr(v, "get_value") else v) for v in values.values()]
+    for (name, p), a in zip(state.items(), arrays):
+        if a.shape != p.type.shape or a.dtype.name != p.type.dtype:
+            raise ValueError(f"{name}: got {a.dtype}{a.shape}, model has {p.type.dtype}{p.type.shape}")
+    for p, a in zip(state.values(), arrays):
         p.set_value(a)

@@ -28,7 +28,8 @@ from aesara_tpu_torch.scalar import ops as aes
 from aesara_tpu_torch.tensor import math as tm
 from aesara_tpu_torch.tensor.basic import as_tensor_variable, cast, constant
 from aesara_tpu_torch.tensor.elemwise import DimShuffle, Elemwise
-from aesara_tpu_torch.tensor.math import Dot, dot
+# BatchedDot is re-exported here, as the JAX package's blas module does
+from aesara_tpu_torch.tensor.math import BatchedDot, Dot, batched_dot, dot  # noqa: F401
 from aesara_tpu_torch.tensor.type import TensorType
 
 

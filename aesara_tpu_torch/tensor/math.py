@@ -22,8 +22,8 @@ from aesara_tpu_torch.tensor.type import TensorType
 __all__ = ["add", "sub", "mul", "true_div", "neg", "sqr", "sqrt", "exp", "maximum", "ge", "lt",
            "pow", "abs", "sgn", "minimum", "gt", "le", "eq", "neq", "and_", "or_", "invert", "log",
            "cos", "sin", "clip", "isnan", "isinf", "Sum", "sum", "mean", "Prod", "prod", "Max", "Min", "All", "Any",
-           "max", "min", "all", "any", "Argmax", "argmax", "Dot", "dot", "tensordot", "int_div",
-           "floor_div", "mod", "ceil", "floor", "trunc", "round_half_to_even", "round_half_away_from_zero",
+           "max", "min", "all", "any", "Argmax", "argmax", "Dot", "dot", "tensordot", "BatchedDot", "batched_dot",
+           "int_div", "floor_div", "mod", "ceil", "floor", "trunc", "round_half_to_even", "round_half_away_from_zero",
            "xor", "shift_left", "shift_right", "exp2", "expm1", "log2", "log10", "log1p", "deg2rad",
            "rad2deg", "tan", "arccos", "arcsin", "arctan", "arctan2", "cosh", "sinh", "tanh", "arccosh",
            "arcsinh", "arctanh", "reciprocal", "inv", "erf", "erfc", "erfinv", "erfcinv", "erfcx", "gamma",
@@ -489,6 +489,68 @@ def dot(x, y):
     if x.type.ndim > 2 or y.type.ndim > 2:
         return tensordot(x, y, [[x.type.ndim - 1], [builtins.max(y.type.ndim - 2, 0)]])
     return _dot(x, y)
+
+
+class BatchedDot(Op):
+    """Product over a leading batch dim of ndim 2 or 3 operands (reference
+    ``aesara_tpu/tensor/math.py:715-830``): (b,i,j)x(b,j,k), (b,i,j)x(b,j),
+    (b,i)x(b,i,j) and (b,i)x(b,i)."""
+
+    __props__ = ()
+
+    def make_node(self, x, y):
+        x, y = as_tensor_variable(x), as_tensor_variable(y)
+        if x.type.ndim not in (2, 3) or y.type.ndim not in (2, 3):
+            raise TypeError("BatchedDot needs ndim 2 or 3 inputs")
+        xs, ys = x.type.shape, y.type.shape
+        batch = xs[0] if xs[0] is not None else ys[0]
+        out_shape = (batch,) + xs[1:-1] + ys[2:]
+        return Apply(self, [x, y], [TensorType(upcast(x.type.dtype, y.type.dtype), out_shape)()])
+
+    def perform(self, node, inputs, output_storage):
+        x, y = inputs
+        out_dtype = _np_dtype(node.outputs[0].type.dtype)
+        res = np.einsum(_BATCHED_SUBSCRIPTS[x.ndim, y.ndim], x, y)
+        output_storage[0][0] = np.asarray(res).astype(out_dtype, copy=False)
+
+    def infer_shape(self, fgraph, node, input_shapes):
+        xs, ys = input_shapes
+        return [(xs[0],) + tuple(xs[1:-1]) + tuple(ys[2:])]
+
+    def grad(self, inputs, output_grads):
+        x, y = inputs
+        (gz,) = output_grads
+        xdim, ydim = x.type.ndim, y.type.ndim
+        if xdim == 3 and ydim == 3:
+            gx = batched_dot(gz, y.dimshuffle(0, 2, 1))
+            gy = batched_dot(x.dimshuffle(0, 2, 1), gz)
+        elif xdim == 3 and ydim == 2:
+            gx = mul(gz.dimshuffle(0, 1, "x"), y.dimshuffle(0, "x", 1))
+            gy = batched_dot(x.dimshuffle(0, 2, 1), gz)
+        elif xdim == 2 and ydim == 3:
+            gx = batched_dot(gz, y.dimshuffle(0, 2, 1))
+            gy = mul(x.dimshuffle(0, 1, "x"), gz.dimshuffle(0, "x", 1))
+        else:
+            gx = mul(gz.dimshuffle(0, "x"), y)
+            gy = mul(gz.dimshuffle(0, "x"), x)
+        if gx.type.dtype != x.type.dtype:
+            gx = cast(gx, x.type.dtype)
+        if gy.type.dtype != y.type.dtype:
+            gy = cast(gy, y.type.dtype)
+        return [gx, gy]
+
+    def __str__(self):
+        return "batched_dot"
+
+
+#: the einsum of each (x.ndim, y.ndim) case of BatchedDot
+_BATCHED_SUBSCRIPTS = {(3, 3): "bij,bjk->bik", (3, 2): "bij,bj->bi", (2, 3): "bi,bij->bj", (2, 2): "bi,bi->b"}
+
+_batched_dot = BatchedDot()
+
+
+def batched_dot(x, y):
+    return _batched_dot(x, y)
 
 
 def tensordot(a, b, axes):

@@ -38,6 +38,7 @@ from aesara_tpu_torch.tensor.elemwise import CAReduce, DimShuffle, Elemwise
 from aesara_tpu_torch.tensor.math import Dot, Sum, add, mul
 from aesara_tpu_torch.tensor.nnet.attention import FusedAttention, FusedAttentionGrad
 from aesara_tpu_torch.tensor.shape import Reshape, Shape, Shape_i, shape_tuple
+from aesara_tpu_torch.tensor.subtensor import AdvancedSubtensor1
 
 
 def _const_val(var):
@@ -115,6 +116,9 @@ def _lifted_dim(var, i):
     if isinstance(op, FusedAttentionGrad):
         # dq, dk, dv are shaped like q, k, v
         return ins[var.index], i
+    if isinstance(op, AdvancedSubtensor1):
+        # x[ilist]: the rows of the index vector, the rest of x's dims
+        return (ins[1], 0) if i == 0 else (ins[0], i)
     if isinstance(op, Reshape):
         mk = ins[1].owner
         if mk is not None and isinstance(mk.op, MakeVector):

@@ -10,7 +10,10 @@ subtensor.py:1334,1413`` and ``basic.py:217``):
 - ``local_affine_inc_slice_to_dynamic`` (specialize): the same for
   ``set_subtensor``/``inc_subtensor`` of such a window;
 - ``local_IncSubtensor_serialize`` (canonicalize): a sum of increments
-  becomes one chain of increments on the sum of the rest.
+  becomes one chain of increments on the sum of the rest;
+- ``local_subtensor_make_vector`` (canonicalize): ``MakeVector(a, b)[1]``
+  is ``b``, so a dim read as ``x.shape[i]`` becomes that dim
+  (``aesara_tpu/tensor/rewriting/subtensor.py:483``).
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ from aesara_tpu_torch.compile.mode import register_canonicalize, register_specia
 from aesara_tpu_torch.graph.ir import Constant
 from aesara_tpu_torch.graph.rewriting.basic import copy_stack_trace, node_rewriter
 from aesara_tpu_torch.scalar import ops as aes
-from aesara_tpu_torch.tensor.basic import as_tensor_variable, cast
+from aesara_tpu_torch.tensor.basic import MakeVector, as_tensor_variable, cast, constant
 from aesara_tpu_torch.tensor.elemwise import Elemwise
 from aesara_tpu_torch.tensor.subtensor import (
     AdvancedIncSubtensor, AdvancedIncSubtensor1, DynamicIncSubtensor, DynamicSlice, IncSubtensor, Subtensor,
@@ -155,7 +158,38 @@ def local_affine_inc_slice_to_dynamic(fgraph, node):
     return [copy_stack_trace(node.outputs[0], res)] if res.type.dtype == node.outputs[0].type.dtype else False
 
 
+@node_rewriter([Subtensor])
+def local_subtensor_make_vector(fgraph, node):
+    """MakeVector(a, b, c)[1] → b; a constant slice selects a sub-vector."""
+    inner = node.inputs[0].owner
+    if inner is None or not isinstance(inner.op, MakeVector):
+        return False
+    idx = node.op.idx_list
+    if len(idx) != 1 or node.inputs[1:]:
+        return False
+    e, elems, out = idx[0], inner.inputs, node.outputs[0]
+    if isinstance(e, int):
+        i = e + len(elems) if e < 0 else e
+        if not 0 <= i < len(elems):
+            return False
+        res = elems[i]
+        if res.type.dtype != out.type.dtype:
+            res = cast(res, out.type.dtype)
+    elif isinstance(e, slice):
+        picked = elems[e]
+        if list(picked) == list(elems):
+            return False    # the identity slice would make the same node again
+        res = MakeVector(inner.op.dtype)(*picked) if picked else constant(np.zeros((0,), dtype=inner.op.dtype))
+    else:
+        return False
+    if res.type.ndim != out.type.ndim or any(
+            a is not None and b is not None and a != b for a, b in zip(res.type.shape, out.type.shape)):
+        return False
+    return [copy_stack_trace(out, res)]
+
+
 register_canonicalize(local_useless_slice)
+register_canonicalize(local_subtensor_make_vector)
 register_specialize(local_affine_slice_to_dynamic)
 register_specialize(local_affine_inc_slice_to_dynamic)
 

@@ -13,6 +13,7 @@ serve the sparse-input models, all through ``aesara_tpu_torch.function``.
     python3 chip_smoke.py --k4-k7-times    # only K7's and K4's times, for two checkouts (see k4_k7_times)
     python3 chip_smoke.py --reference    # only the setup and path (e), the reference configurations
     python3 chip_smoke.py --scan    # only the setup and path (f), Scan: config 4 and the LSTM
+    python3 chip_smoke.py --decoder    # only the setup and path (g), the decoder LM served
 
 Every compiled function runs captured (``TorchLinker``'s default on the
 card): its first call with a key runs eagerly, the second captures the
@@ -127,10 +128,38 @@ e. the repo's reference configurations (``benchmarks/
    against the CPU; the LSTM's 3 ``predict`` requests of new sequences
    against the host's logits, and K4 at its (128, 10) log-softmax against
    the plain version and ``torch.log_softmax``.
+g. (g) the decoder LM served (``aesara_tpu_torch/models/decoder.py``,
+   ``quant.py``, ``serve.py``) at ``benchmarks/bench_decode.py``'s width:
+   ``DecoderLM(32000, 4, 512, 8, 2048, seed=0)`` in float32 (its graph
+   turns float64 at the scores' ``/ np.sqrt(dh)``, as the JAX package's
+   does).  (g1) ``generate_fn(256, t_max=512)`` from token 17; (g2)
+   ``generate_from_prompt_fn(256, 8, 512)`` on ``(arange(256) * 7) %
+   32000``; (g3) ``generate_batched_fn(32, 256, 512)`` on ``arange(32)``;
+   (g4) ``quantize_decoder_int8`` of the same model, greedy 256; each 3
+   counted calls (eager, capture, replay), 10 timed and 3 profiled, with
+   tokens/s, host time of one call, busy share, a replay's device events
+   (its graph's kernels, copies and sets), the capture's seconds and peak
+   and reserved memory.  (g1) and (g2) against the same graph on the CPU,
+   two of (g3)'s streams against single-stream decode, each under the tie
+   rule (a first difference only where the CPU's top-2 logit gap there is
+   under TIE_REL of the logits' scale, and the comparison stops there);
+   (g4)'s first 32 tokens against (g1)'s, printed.  An eager twin of (g1)
+   at 32 tokens copies a cache's shape no more than 9 times a call (the
+   Alloc of the zeros, and the loop's own copy of each of its 8 caches: it
+   writes each K/V row in place), counted from the op trace.  (g5)
+   ``ContinuousBatcher(DecoderLM(2048, ...), n_slots=32, t_max=256,
+   t_pad=32)`` at ``bench_serving.py``'s settings (32 prompts of 16 tokens
+   from ``default_rng(0)``, 64 new each) for chunk 1 and 16: a first drain,
+   then a second one timed with every call a replay, each request against
+   its own ``generate_from_prompt_fn`` under the tie rule, and ``_decode``
+   timed and profiled.  K1 on every Composite of (g) and K4 (fp64, as the
+   graph computes it) at the decode, batched and prefill softmaxes against
+   their plain versions and ``torch.softmax``.
 8. captured against eager: every path above (the forward request, the
    sgd and AdamW steps, the classifier step, ``predict`` of one request
    sent again, the GLM's sgd and adam steps, path (c) at width 20, config
-   3's step, config 4's step and the LSTM step) compiled
+   3's step, config 4's step, the LSTM step, (g1) at 32 tokens and (g5)'s
+   ``_decode`` at chunk 1 and 16 after 32 admissions) compiled
    twice from the same seeds, captured and with ``use_graph=False``, each
    driven alike (4 calls compared, then timed and profiled); a "capture
    table" line for each gives its step time back
@@ -146,7 +175,7 @@ kernel's launches from its path's run, and beside them the launches that
 run replayed and those the trace showed in the path's profiled replays;
 K1-K3 also with their launches in path 4d's 3 steps, and K1 with its time
 and bound on the AdamW update; K1 and K4 with their launches in each
-configuration of path (e) and of path (f), and K4 with its checks there)
+configuration of path (e), (f) and (g), and K4 with its checks there)
 and the card's name and power limit; the last is
 ``{"ok": true, "device": {...}}``.
 """
@@ -253,6 +282,19 @@ N_REF_STEPS, N_REF_TIMED = 3, 10
 SCAN_T, SCAN_B, SCAN_H, SCAN_DIN, SCAN_LR = 128, 4 * 32, 128, 64, 0.01
 LSTM_NOUT, LSTM_LR = 10, 1e-3
 N_SCAN_STEPS, N_SCAN_TIMED, N_SCAN_REQUESTS = 3, 10, 3
+# (g) benchmarks/bench_decode.py:20-27,63-66: DecoderLM(32000, 4, 512, 8,
+# 2048) in float32, 256 greedy tokens from token 17 against caches of 512,
+# a prompt of 256 then 8 tokens, 32 streams; bench_serving.py:19-35: vocab
+# 2048, 32 slots, t_max 256, t_pad 32, 32 prompts of 16 tokens from
+# default_rng(0), 64 new tokens each, chunks 1 and 16
+DEC_VOCAB, DEC_LAYERS, DEC_D, DEC_HEADS, DEC_FF = 32000, 4, 512, 8, 2048
+DEC_T_MAX, DEC_STEPS, DEC_FIRST, DEC_PROMPT, DEC_NEW, DEC_BATCH = 512, 256, 17, 256, 8, 32
+DEC_INT8_COMPARED = 32
+SERVE_VOCAB, SERVE_SLOTS, SERVE_T_MAX, SERVE_T_PAD, SERVE_PROMPT, SERVE_NEW = 2048, 32, 256, 32, 16, 64
+SERVE_CHUNKS = (1, 16)
+N_DEC_CALLS, N_DEC_TIMED = 3, 10
+DEC_CAPTURE_STEPS = 32      # phase 8: greedy decode of this many tokens
+TIE_REL = 1e-3              # a differing token is a tie where the CPU's top-2 gap is under this of the scale
 # the JAX package's FAST_RUN op counts of path (f)'s two steps at these
 # widths, outer graph then each Scan's inner graph, taken on the CPU with
 # tests/test_torch_rnn.py's op_counts (its config 4 graph keeps a second,
@@ -366,11 +408,15 @@ def device_split(fn, reps: int = 20, warmup: int = 3) -> dict:
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    for attempt in range(3):
+    for attempt in range(PROFILE_ATTEMPTS):
         # on the H100 a profiler session now and then comes back without
-        # device events; try it again
+        # device events, several in a row late in a long run; try it again
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            spin_edge(opening=True)
+            # the card spins through the whole opening edge, so the first
+            # launch follows no idle stretch (whose time the trace can lose
+            # on a hot card, and the launches with it)
+            spin(1.5 * PROFILE_GAP_S)
+            time.sleep(PROFILE_GAP_S)
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
@@ -1190,7 +1236,7 @@ def profile_call(fn, label: str, steps: int = PROFILE_STEPS, strict: bool = True
     raises after PROFILE_ATTEMPTS such sessions, or at once on a plain call.
     Without ``strict`` (eager runs of phase 8 only), that many give a
     busy time of None: not measured.  Returns (wall ms, busy ms or None,
-    the trace's launches)."""
+    the trace's launches, the device events a call by kind or None)."""
     for attempt in range(PROFILE_ATTEMPTS):
         wall, device, traced, counted, plain, note = profile_session(fn, label, steps)
         if plain:
@@ -1204,10 +1250,13 @@ def profile_call(fn, label: str, steps: int = PROFILE_STEPS, strict: bool = True
             raise AssertionError(f"profiled {label}: in {PROFILE_ATTEMPTS} sessions the trace showed launches "
                                  f"{traced}, the counters {counted}")
         log(f"profiled {label}: the trace lost launches in {PROFILE_ATTEMPTS} sessions; its busy time is not measured")
-        return wall, None, traced
+        return wall, None, traced, None
     groups: dict = {}
     by_name: dict = {}
+    events = {"kernels": 0}     # device events a call: kernels, and copies and sets by name
     for e in device:
+        kind = e.name if e.name.startswith(("Memcpy", "Memset")) else "kernels"
+        events[kind] = events.get(kind, 0) + 1 / steps
         t = e.time_range.elapsed_us() / 1e3 / steps
         group = groups.setdefault(kernel_group(e.name), [0.0, 0])
         group[0] += t
@@ -1221,7 +1270,8 @@ def profile_call(fn, label: str, steps: int = PROFILE_STEPS, strict: bool = True
     for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         log(f"  {t:9.3f} ms  {name}")
     log(f"  launches in {steps} calls, trace {traced}, counters {counted}; plain calls {plain}; {note}")
-    return wall, busy, traced
+    log(f"  device events a call: {events}")
+    return wall, busy, traced, events
 
 
 def time_steps(step, n: int, label: str, strict: bool = True):
@@ -1234,7 +1284,8 @@ def time_steps(step, n: int, label: str, strict: bool = True):
     step: a dict of ms a step, host ms of one call, peak and reserved GiB,
     the profiled wall and device busy ms a call (busy None: not measured,
     only without ``strict``) and the trace's launches of K1-K7 over the
-    profiled calls."""
+    profiled calls, and the device events a profiled call shows (kernels,
+    and copies and sets by name: a replay's graph nodes)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(n):
@@ -1252,9 +1303,9 @@ def time_steps(step, n: int, label: str, strict: bool = True):
     log(f"{label}: {n} steps back to back {ms:.3f} ms each; host time of one call {statistics.median(calls):.3f} "
         f"ms (median of {N_HOST_CALLS}: {', '.join(f'{c:.3f}' for c in calls)}); peak device memory {peak:.3f} GiB, "
         f"reserved {reserved:.3f} GiB")
-    wall, busy, traced = profile_call(step, label, strict=strict)
+    wall, busy, traced, events = profile_call(step, label, strict=strict)
     return {"ms": ms, "host": statistics.median(calls), "peak": peak, "reserved": reserved, "wall": wall,
-            "busy": busy, "traced": traced}
+            "busy": busy, "traced": traced, "events": events}
 
 
 def time_train(step):
@@ -1876,7 +1927,7 @@ def phase_values_grad(xv) -> dict:
                               "K6": sum(C > SPMV_MAX_C for C in GRAD_WIDTHS)}, "(c) values gradient",
                              launching=1, replays=1)
     C = max(GRAD_WIDTHS)
-    _, _, traced = profile_call(lambda: f_gpu(xv, rhs[C]), f"(c) values gradient, width {C}, captured")
+    _, _, traced, _ = profile_call(lambda: f_gpu(xv, rhs[C]), f"(c) values gradient, width {C}, captured")
     require_captured(f_gpu, f"(c) values gradient, width {C}, profiled")
     log(f"(c) values gradient, widths {GRAD_WIDTHS}: call ms {[round(t, 3) for t in latencies]} "
         f"(the result goes back to SciPy); peak device memory "
@@ -2388,6 +2439,318 @@ def phase_scan() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# path (g): serve the decoder LM (models/decoder.py, quant.py, serve.py)
+# ---------------------------------------------------------------------------
+
+def build_decoder(device: str, vocab: int = DEC_VOCAB):
+    """``DecoderLM(vocab, 4, 512, 8, 2048, seed=0)`` in float32 on ``device``
+    (``benchmarks/bench_decode.py:20-27``; ``bench_serving.py:22`` with vocab
+    2048)."""
+    from aesara_tpu_torch.config import config
+    from aesara_tpu_torch.models.decoder import DecoderLM
+
+    with config.change_flags(device=device, floatX="float32"):
+        return DecoderLM(vocab, DEC_LAYERS, DEC_D, DEC_HEADS, DEC_FF, seed=0)
+
+
+def decoder_mode(use_graph=None, device: str = "cuda"):
+    import aesara_tpu_torch as ptp
+
+    return ptp.Mode(ptp.TorchLinker(device=device, use_graph=use_graph))
+
+
+def last_logits_fn(lm):
+    """``tokens -> logits after the last one`` by the full-sequence forward
+    (``full()``) of a CPU model: the tie rule's oracle."""
+    import aesara_tpu_torch as ptp
+    import aesara_tpu_torch.tensor as pt
+
+    toks = pt.lvector("toks")
+    h = lm.embed[toks]
+    for layer in lm.layers:
+        h = layer.full(h)
+    return ptp.function([toks], pt.dot(h[-1], lm.embed.T), mode=decoder_mode(device="cpu"))
+
+
+def tie_rule(label: str, got, want, prefix, oracle) -> int:
+    """Hold the card's tokens ``got`` to ``want``: equal, or equal up to a
+    first difference at a step where the oracle's top-2 logit gap (after
+    ``prefix`` and ``want``'s tokens before it) is under TIE_REL of the
+    logits' scale, where the comparison stops.  Returns the tokens that
+    agree."""
+    got, want = [int(t) for t in got], [int(t) for t in want]
+    if got == want:
+        return len(got)
+    k = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+    logits = _host(oracle(np.asarray(list(prefix) + want[:k], dtype="int64"))).astype("float64")
+    top = np.sort(logits)[-2:]
+    gap, scale = float(top[1] - top[0]), float(np.abs(logits).max())
+    log(f"{label}: first difference at token {k} ({got[k]} against {want[k]}); the CPU's top-2 logit gap there "
+        f"{gap:.3e}, {gap / scale:.3e} of the logits' scale (tie rule: under {TIE_REL})")
+    if not gap < TIE_REL * scale:
+        raise AssertionError(f"{label}: token {k} differs ({got[k]} against {want[k]}) where the top-2 logit gap "
+                             f"{gap:.3e} is not a tie")
+    return k
+
+
+def large_copies(call, shape) -> tuple:
+    """(copies of a ``shape`` tensor one call makes, and the shapes of every
+    copy of 1 MiB or more): the ``aten::copy_`` ops (a clone or a dtype
+    conversion is one), in the op trace of one eager call of ``call`` (an
+    eager call runs the lowerings that a capture records)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU], record_shapes=True) as prof:
+        call()
+        torch.cuda.synchronize()
+    sizes = []
+    for e in prof.events():
+        if e.name == "aten::copy_" and e.input_shapes and e.input_shapes[0]:
+            if 4 * int(np.prod(e.input_shapes[0])) >= 1 << 20:
+                sizes.append(tuple(e.input_shapes[0]))
+    return sum(s == tuple(shape) for s in sizes), sizes
+
+
+def decoder_composites(fn, full) -> list:
+    """The Composite nodes a call of ``fn`` runs on the card, the Scan's
+    inner program's among them, with the ``full`` shape of their unknown
+    dims."""
+    from aesara_tpu_torch.scalar.composite import Composite
+
+    nodes = []
+
+    def walk(program):
+        for node, fn_, fold in zip(program.order, program.fns, program.folds):
+            if fold:
+                continue
+            if isinstance(getattr(node.op, "scalar_op", None), Composite):
+                nodes.append(node)
+            elif type(node.op).__name__ == "Scan":
+                walk(fn_.program)
+
+    walk(fn.fn.program)
+    return [(n, full) for n in nodes]
+
+
+def run_decoder_fn(fn, call, label: str, steps: int, tokens_per_call: int, unit: str = "tokens") -> dict:
+    """3 counted calls (eager, capture, replay, timed each), 10 timed back
+    to back and 3 profiled of one decoder function: its launches, tokens/s,
+    host time, busy share, kernels a call, peak and reserved memory."""
+    start = time.perf_counter()
+    per_call, nodes = scan_launches(fn, steps=steps)
+    log(f"{label}: launches a call {per_call} ({len(nodes)} Composite nodes, inner ones counted once; "
+        f"{len(fn.maker.fgraph.apply_nodes)} outer graph nodes)")
+    torch.cuda.synchronize()
+    reset_peak()
+    zero_counters()
+    outs, secs = [], []
+    for _ in range(N_DEC_CALLS):
+        t0 = time.perf_counter()
+        outs.append(_host(call()))
+        secs.append(time.perf_counter() - t0)
+    launches = read_counters(per_call, label, N_DEC_CALLS)
+    require_captured(fn, label)
+    if fn.capture_blocker is not None:
+        raise AssertionError(f"{label}: capture blocked by {fn.capture_blocker}")
+    for o in outs[1:]:
+        if not np.array_equal(o, outs[0]):
+            raise AssertionError(f"{label}: a replay gave other tokens than the eager call")
+    t = time_steps(call, N_DEC_TIMED, label)
+    rate = tokens_per_call / t["ms"] * 1e3
+    busy = (f"{t['busy']:.3f} of {t['wall']:.3f} ms ({100 * t['busy'] / t['wall']:.1f}%)"
+            if t["busy"] is not None else "not measured")
+    log(f"{label}: eager call {secs[0]:.3f} s, capture call (capture + first replay) {secs[1]:.3f} s, replay "
+        f"{secs[2] * 1e3:.3f} ms; {t['ms']:.3f} ms a call back to back = {rate:.1f} {unit}/s; host "
+        f"{t['host']:.3f} ms a call; device busy {busy}; a replay's device events {t['events']}; peak "
+        f"{t['peak']:.3f} GiB, reserved {t['reserved']:.3f} GiB; {time.perf_counter() - start:.1f} s in all")
+    return dict(t, launches=launches, rate=rate, out=outs[0], eager_s=secs[0], capture_s=secs[1] - secs[2])
+
+
+def run_batcher(srv, chunk: int, prompts, label: str, oracle, reference) -> dict:
+    """(g5) at one chunk: 32 requests drained once (the first calls of each
+    function run eagerly and capture), then 32 more of the same prompts
+    drained with the counters set to 0 (every call replays): tokens/s of
+    that drain, each request's tokens against ``reference`` under the tie
+    rule, and ``_decode`` timed and profiled."""
+
+    def drain():
+        rids = [srv.submit(p, max_new=SERVE_NEW) for p in prompts]
+        steps = 0
+        while srv.pending():
+            srv.step()
+            steps += 1
+        return [srv.result(r) for r in rids], steps
+
+    pre, _ = scan_launches(srv._prefill, steps=1)
+    dec, _ = scan_launches(srv._decode, steps=chunk)
+    t0 = time.perf_counter()
+    first, _ = drain()
+    log(f"{label}: first drain (eager and capture calls) {time.perf_counter() - t0:.2f} s")
+    torch.cuda.synchronize()
+    reset_peak()
+    zero_counters()
+    t0 = time.perf_counter()
+    results, steps = drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_tok = sum(len(r) for r in results)
+    counters = _all_counters()
+    expected = {k: pre.get(k, 0) * len(prompts) + dec.get(k, 0) * steps for k in ("K1", "K4")}
+    replayed = {k: counters[k].replayed for k in ("K1", "K4")}
+    launched = {k: counters[k].launches for k in COUNTED}
+    log(f"{label}: second drain {n_tok} tokens of {len(prompts)} requests ({steps} decode calls) in {wall:.3f} s = "
+        f"{n_tok / wall:.1f} tokens/s; replayed {replayed} (expected {expected}), launched {launched}")
+    if replayed != expected or any(launched.values()) or sum(c.plain_calls for c in counters.values()):
+        raise AssertionError(f"{label}: the second drain did not replay its captured graphs alone")
+    require_captured(srv._decode, f"{label} _decode")
+    require_captured(srv._prefill, f"{label} _prefill")
+    if results != first:
+        raise AssertionError(f"{label}: the second drain gave other tokens than the first")
+    agree = [tie_rule(f"{label} request {i}", r, reference[i], prompts[i], oracle) for i, r in enumerate(results)]
+    log(f"{label}: every request's {SERVE_NEW} tokens against its own generate_from_prompt_fn: "
+        f"{sum(a == SERVE_NEW for a in agree)} of {len(agree)} equal, the rest up to a tie")
+    t = time_steps(srv._decode, N_DEC_TIMED, f"{label} _decode")
+    log(f"{label}: {time.perf_counter() - t0:.1f} s from the second drain on")
+    return dict(t, rate=n_tok / wall, launches=({k: 0 for k in COUNTED}, dict(replayed)), wall=wall, steps=steps)
+
+
+def phase_decoder() -> dict:
+    """Path (g): the decoder served on the card (see the module docstring).
+    Every function is compiled first, and K1 and K4 are held against their
+    plain versions at its shapes before the loops run."""
+    from aesara_tpu_torch.models.quant import quantize_decoder_int8
+    from aesara_tpu_torch.models.serve import ContinuousBatcher
+
+    t_start = time.perf_counter()
+    out = {}
+    t0 = time.perf_counter()
+    lm, cpu = build_decoder("cuda"), build_decoder("cpu")
+    oracle = last_logits_fn(cpu)
+    qlm = quantize_decoder_int8(lm)
+    gen = lm.generate_fn(n_steps=DEC_STEPS, t_max=DEC_T_MAX, mode=decoder_mode())
+    genp = lm.generate_from_prompt_fn(prompt_len=DEC_PROMPT, n_new=DEC_NEW, t_max=DEC_T_MAX, mode=decoder_mode())
+    genb = lm.generate_batched_fn(batch=DEC_BATCH, n_steps=DEC_STEPS, t_max=DEC_T_MAX, mode=decoder_mode())
+    genq = qlm.generate_fn(n_steps=DEC_STEPS, t_max=DEC_T_MAX, mode=decoder_mode())
+    smodel, scpu = build_decoder("cuda", SERVE_VOCAB), build_decoder("cpu", SERVE_VOCAB)
+    servers = {chunk: ContinuousBatcher(smodel, n_slots=SERVE_SLOTS, t_max=SERVE_T_MAX, t_pad=SERVE_T_PAD,
+                                        chunk=chunk, mode=decoder_mode()) for chunk in SERVE_CHUNKS}
+    log(f"(g) DecoderLM({DEC_VOCAB}, {DEC_LAYERS}, {DEC_D}, {DEC_HEADS}, {DEC_FF}) and DecoderLM({SERVE_VOCAB}, ...) "
+        f"on the card and the CPU, the int8 copy, and every function of (g) compiled: {time.perf_counter() - t0:.2f} s")
+
+    # K1 on every Composite of (g) at its shapes, K4 at the decoder's softmaxes
+    t0 = time.perf_counter()
+    nodes = (decoder_composites(gen, (DEC_T_MAX,)) + decoder_composites(genp, (DEC_PROMPT,))
+             + decoder_composites(genb, (DEC_BATCH, DEC_T_MAX)) + decoder_composites(genq, (DEC_T_MAX,)))
+    for srv in servers.values():
+        nodes += decoder_composites(srv._decode, (SERVE_SLOTS, SERVE_T_MAX))
+        nodes += decoder_composites(srv._prefill, (SERVE_PROMPT, SERVE_PROMPT, SERVE_PROMPT))
+    out["composites"] = check_decoder_composites(nodes)
+    log(f"(g) K1 on {len(out['composites'])} distinct Composites: {time.perf_counter() - t0:.1f} s")
+    rng = torch.Generator(device="cuda").manual_seed(24)
+    out["k4"] = {name: check_k4(torch.randn(shape, device="cuda", dtype=torch.float64, generator=rng) * 3,
+                                log_softmax=False)
+                 for name, shape in (("g1 decode", (DEC_HEADS, DEC_T_MAX)),
+                                     ("g3 batched", (DEC_BATCH * DEC_HEADS, DEC_T_MAX)),
+                                     ("g2 prefill", (DEC_HEADS * DEC_PROMPT, DEC_PROMPT)))}
+
+    # (g1) greedy KV-cache decode
+    g1 = run_decoder_fn(gen, lambda: gen(np.int64(DEC_FIRST)), "(g1) greedy decode", DEC_STEPS, DEC_STEPS)
+    t0 = time.perf_counter()
+    want = _host(cpu.generate_fn(DEC_STEPS, DEC_T_MAX, mode=decoder_mode(device="cpu"))(np.int64(DEC_FIRST)))
+    log(f"(g1) the same graph on the CPU: {time.perf_counter() - t0:.2f} s")
+    g1["agree"] = tie_rule("(g1) greedy decode, card against CPU", g1["out"], want, [DEC_FIRST], oracle)
+    log(f"(g1) greedy decode: {g1['agree']} of {DEC_STEPS} tokens agree with the CPU's")
+    eager = lm.generate_fn(n_steps=DEC_CAPTURE_STEPS, t_max=DEC_T_MAX, mode=decoder_mode(False))
+    cache = (DEC_T_MAX, DEC_HEADS, DEC_D // DEC_HEADS)
+    n_copies, sizes = large_copies(lambda: eager(np.int64(DEC_FIRST)), cache)
+    n_caches = 2 * DEC_LAYERS
+    by_shape = {s: sizes.count(s) for s in sorted(set(sizes))}
+    log(f"(g1) in place: copies of a {cache} cache in one eager call of the graph at {DEC_CAPTURE_STEPS} tokens: "
+        f"{n_copies} (the Alloc of the zeros the caches start from, and the loop's copy of each of its {n_caches} "
+        f"caches once a call; a clone a step would make {n_caches * DEC_CAPTURE_STEPS} more); every copy of 1 MiB "
+        f"or more, by shape: {by_shape}")
+    if n_copies > n_caches + 1:
+        raise AssertionError(f"(g1): {n_copies} copies of a cache's size in a call: the caches are copied per step")
+    g1["cache_copies"] = n_copies
+    out["g1"] = g1
+    del eager
+    release()
+
+    # (g2) prompt prefill, then decode
+    prompt = (np.arange(DEC_PROMPT, dtype="int64") * 7) % DEC_VOCAB
+    g2 = run_decoder_fn(genp, lambda: genp(prompt), "(g2) prompt prefill + decode", DEC_NEW - 1, DEC_PROMPT,
+                        unit="prompt tokens")
+    want = _host(cpu.generate_from_prompt_fn(DEC_PROMPT, DEC_NEW, DEC_T_MAX, mode=decoder_mode(device="cpu"))(prompt))
+    g2["agree"] = tie_rule("(g2) prompt, card against CPU", g2["out"], want, list(prompt), oracle)
+    out["g2"] = g2
+    del genp
+    release()
+
+    # (g3) batched decode: 32 streams
+    firsts = np.arange(DEC_BATCH, dtype="int64")
+    g3 = run_decoder_fn(genb, lambda: genb(firsts), "(g3) batched decode", DEC_STEPS, DEC_BATCH * DEC_STEPS)
+    g3["agree"] = [tie_rule(f"(g3) stream {j} against single-stream decode", g3["out"][:, j],
+                            _host(gen(np.int64(j))), [j], oracle) for j in range(2)]
+    out["g3"] = g3
+    del genb
+    release()
+
+    # (g4) int8 weights
+    g4 = run_decoder_fn(genq, lambda: genq(np.int64(DEC_FIRST)), "(g4) int8 greedy decode", DEC_STEPS, DEC_STEPS)
+    same = int(np.sum(g4["out"][:DEC_INT8_COMPARED] == g1["out"][:DEC_INT8_COMPARED]))
+    lead = next((i for i in range(DEC_INT8_COMPARED) if g4["out"][i] != g1["out"][i]), DEC_INT8_COMPARED)
+    log(f"(g4) int8 against float32 weights, first {DEC_INT8_COMPARED} tokens: {same} equal, the first {lead} in a "
+        f"row (random weights: the JAX package holds agreement only on a trained model)")
+    g4["agree"] = same
+    out["g4"] = g4
+    del gen, genq, qlm
+    release()
+
+    # (g5) continuous batching at bench_serving.py's settings
+    t0 = time.perf_counter()
+    soracle = last_logits_fn(scpu)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, SERVE_VOCAB, size=SERVE_PROMPT).astype("int64") for _ in range(SERVE_SLOTS)]
+    ref_fn = smodel.generate_from_prompt_fn(SERVE_PROMPT, SERVE_NEW, SERVE_T_MAX, mode=decoder_mode())
+    reference = [[int(v) for v in _host(ref_fn(p))] for p in prompts]
+    log(f"(g5) the {SERVE_SLOTS} per-request references: {time.perf_counter() - t0:.2f} s")
+    del ref_fn
+    for chunk, srv in servers.items():
+        out[f"g5c{chunk}"] = run_batcher(srv, chunk, prompts, f"(g5) continuous batching, chunk {chunk}", soracle,
+                                         reference)
+    del servers, srv
+    release()
+    log(f"(g) decoder paths: {time.perf_counter() - t_start:.2f} s")
+    return out
+
+
+def check_decoder_composites(nodes) -> list:
+    """K1 on each distinct Composite of path (g) (by its scalar ops and its
+    inputs' shapes and dtypes) against its plain version at the shapes the
+    path gives it."""
+    seen, rows = set(), []
+    for node, full in nodes:
+        full = full + (1,) * 5
+        ops = ".".join(sorted(type(n.op).__name__ for n in node.op.scalar_op.nodes))
+        key = (ops, tuple((tuple(s if s is not None else full[d] for d, s in enumerate(v.type.shape)), v.type.dtype)
+                          for v in node.inputs))
+        if key in seen:
+            continue
+        seen.add(key)
+        rows += check_composites([node], "(g)", np.random.default_rng(51), full=full)
+    return rows
+
+
+def decoder_only():
+    """--decoder: the setup and path (g) alone."""
+    phase_setup()
+    phase_decoder()
+    log("chip_smoke --decoder: path (g) passed")
+
+
+# ---------------------------------------------------------------------------
 # every path captured and eager, in one process
 # ---------------------------------------------------------------------------
 
@@ -2450,12 +2813,29 @@ def _paths(ng, glm):
             return built["step"], built["call"], built["params"]
         return build
 
+    def greedy(g):
+        fn = build_decoder("cuda").generate_fn(DEC_CAPTURE_STEPS, DEC_T_MAX, mode=decoder_mode(g))
+        return fn, lambda: fn(np.int64(DEC_FIRST)), []
+
+    def batcher(chunk):
+        def build(g):
+            from aesara_tpu_torch.models.serve import ContinuousBatcher
+
+            srv = ContinuousBatcher(build_decoder("cuda", SERVE_VOCAB), n_slots=SERVE_SLOTS, t_max=SERVE_T_MAX,
+                                    t_pad=SERVE_T_PAD, chunk=chunk, mode=decoder_mode(g))
+            rng = np.random.default_rng(0)
+            for _ in range(SERVE_SLOTS):
+                srv.submit(rng.integers(0, SERVE_VOCAB, size=SERVE_PROMPT).astype("int64"), max_new=SERVE_NEW)
+            return srv._decode, srv._decode, srv._caches + [srv._pos, srv._cur, srv._act]
+        return build
+
     return [("encoder forward request", forward), ("encoder train step (sgd)", train("sgd")),
             ("(d) encoder train step (AdamW)", train("adamw")), ("(a) classifier train step", classifier),
             ("(a) predict, one request again", predict), ("(b) GLM train step", glm_step("sgd")),
             ("(b) GLM adam step", glm_step("adam")), ("(c) values gradient, width 20", values_grad),
             ("(e) config 3 MNIST MLP step", mnist_mlp), ("(f) config 4 Elman RNN step", scan_step("config4")),
-            ("(f) LSTM step", scan_step("lstm"))]
+            ("(f) LSTM step", scan_step("lstm")), (f"(g1) greedy decode, {DEC_CAPTURE_STEPS} tokens", greedy),
+            ("(g5) batcher _decode, chunk 1", batcher(1)), ("(g5) batcher _decode, chunk 16", batcher(16))]
 
 
 def _difference(captured, eager) -> tuple:
@@ -3042,7 +3422,8 @@ def profile_check(sessions: int = 12, rounds: int = 3):
 def main():
     modes = {"--k6-sweep": k6_sweep, "--k2-walk-sweep": k2_walk_sweep, "--attention-times": attention_times,
              "--profile-check": profile_check, "--k7-sweep": k7_sweep, "--k4-times": k4_times,
-             "--k4-k7-times": k4_k7_times, "--reference": reference_only, "--scan": scan_only}
+             "--k4-k7-times": k4_k7_times, "--reference": reference_only, "--scan": scan_only,
+             "--decoder": decoder_only}
     if len(sys.argv) == 2 and sys.argv[1] in modes:
         if not torch.cuda.is_available():
             raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU")
@@ -3084,6 +3465,7 @@ def main():
     grad_values = phase_values_grad(glm_xyw[0])
     reference = phase_reference()
     scans = phase_scan()
+    decoder = phase_decoder()
     t0 = time.perf_counter()
     phase_capture(lr["data"], glm_xyw)
     log(f"captured-vs-eager phase: {time.perf_counter() - t0:.2f} s")
@@ -3124,16 +3506,28 @@ def main():
                                                     for row in r["composites"]])
     k4_f = {key: scans["lstm"]["k4"][key] for key in ("max_abs_err", "ms", "cold_ms", "plain_ms", "bound_ms",
                                                       "library_ms")}
+    # path (g): each sub-path's launches in its counted run (the inner
+    # programs' a step times the trip count; (g5): the replays of its
+    # second drain), K1 on its Composites and K4 at its softmaxes
+    g_paths = [k for k in decoder if k.startswith("g") and k != "g5"]
+    path_g = {k: {w: (decoder[w]["launches"][0][k] + decoder[w]["launches"][1][k]) for w in g_paths}
+              for k in ("K1", "K4")}
+    k1["max_abs_err"] = max([k1["max_abs_err"]] + [row["max_abs_err"] for row in decoder["composites"]])
+    k4_g = {w: {key: r[key] for key in ("max_abs_err", "ms", "cold_ms", "plain_ms", "bound_ms", "library_ms")}
+            for w, r in decoder["k4"].items()}
     kernels = [
         dict(kernel_line("K1 fused elemwise Composite", "triton", K1_SOURCE, K1_REPLACES, "K1", train, k1),
-             cold_ms=k1_times[4], **k1_adamw, path_e_launches=path_e["K1"], path_f_launches=path_f["K1"]),
+             cold_ms=k1_times[4], **k1_adamw, path_e_launches=path_e["K1"], path_f_launches=path_f["K1"],
+             path_g_launches=path_g["K1"]),
         dict(kernel_line("K2 flash attention forward", "cuda", K2_SOURCE, K2_REPLACES, "K2", train, k2),
              adamw_launches=adamw["launches"]["K2"]),
         dict(k3_line, adamw_launches=adamw["launches"]["K3"]),
         dict(kernel_line("K4 row log-softmax", "cuda", K4_SOURCE, K4_REPLACES, "K4", (lr["launches"], lr["traced"]),
                          dict(lr["K4"], max_abs_err=max([lr["K4"]["max_abs_err"], k4_f["max_abs_err"]]
-                                                        + [r["max_abs_err"] for r in k4_e.values()]))),
-             path_e_launches=path_e["K4"], path_e=k4_e, path_f_launches=path_f["K4"], path_f=k4_f),
+                                                        + [r["max_abs_err"] for r in k4_e.values()]
+                                                        + [r["max_abs_err"] for r in k4_g.values()]))),
+             path_e_launches=path_e["K4"], path_e=k4_e, path_f_launches=path_f["K4"], path_f=k4_f,
+             path_g_launches=path_g["K4"], path_g=k4_g),
         kernel_line("K5 CSR SpMV (narrow rhs)", "cuda", K567_SOURCE, K5_REPLACES, "K5",
                     (glm["launches"], glm["traced"]), k5),
         kernel_line("K6 CSR SpMM (wide rhs)", "cuda", K567_SOURCE, K6_REPLACES, "K6", (lr["launches"], lr["traced"]),

@@ -2,9 +2,12 @@
 plain PyTorch version on CUDA tensors (K1 on every op of the scalar
 table), a small encoder forward and train step, a small sparse
 logistic-regression step on the card against the CPU, a captured
-minibatch window replayed at every index, and every Scan form captured
-against eager and the CPU (``-k scan``).  They skip where there is no CUDA device; run them on a GPU machine
-with ``python -m pytest -m cuda tests/test_torch_cuda.py``."""
+minibatch window replayed at every index, every Scan form captured
+against eager and the CPU (``-k scan``), and the decoder's greedy, prompt,
+batched and continuous-batching decode captured against eager and the
+CPU, its caches written in place, K1 and K4 at its shapes (``-k
+decoder``).  They skip where there is no CUDA device; run them on a GPU
+machine with ``python -m pytest -m cuda tests/test_torch_cuda.py``."""
 
 import numpy as np
 import pytest
@@ -1068,3 +1071,114 @@ def test_scan_steps_per_call_is_bitwise_equal_to_separate_calls(cuda):
         assert torch.equal(got, want), call
         assert torch.equal(w3.value, w1.value), call
     assert three.captured
+
+
+# ---------------------------------------------------------------------------
+# the decoder's serving path on the card (``-k decoder``), at the CPU tests'
+# size (tests/test_torch_decoder.py, tests/test_torch_serve.py)
+# ---------------------------------------------------------------------------
+
+DECODER_SIZE = dict(vocab=50, n_layers=2, d_model=32, n_heads=4, d_ff=64, seed=0)
+
+
+def _decoder(device, **kw):
+    from aesara_tpu_torch.models.decoder import DecoderLM
+
+    with config.change_flags(device=device):
+        return DecoderLM(**DECODER_SIZE, **kw)
+
+
+@pytest.mark.parametrize("kv", [None, 2], ids=["mha", "gqa"])
+def test_decoder_greedy_prompt_and_batched_captured_equal_eager_and_cpu(cuda, kv):
+    builds = [(lambda lm, m: lm.generate_fn(6, 8, mode=m), np.int64(3)),
+              (lambda lm, m: lm.generate_from_prompt_fn(4, 5, 16, mode=m), np.array([5, 9, 2, 7], dtype="int64")),
+              (lambda lm, m: lm.generate_batched_fn(3, 6, 8, mode=m), np.array([3, 7, 11], dtype="int64"))]
+    gpu, cpu = _decoder("cuda", n_kv_heads=kv), _decoder("cpu", n_kv_heads=kv)
+    for build, arg in builds:
+        captured = build(gpu, ptp.Mode(ptp.TorchLinker(device="cuda")))
+        eager = build(gpu, ptp.Mode(ptp.TorchLinker(device="cuda", use_graph=False)))
+        assert captured.capture_blocker is None
+        for call in range(3):
+            got = captured(arg).cpu().numpy()
+            assert captured.captured == (call >= 1)
+        np.testing.assert_array_equal(got, eager(arg).cpu().numpy())
+        np.testing.assert_array_equal(got, build(cpu, None)(arg).numpy())
+
+
+def test_decoder_cache_storage_stays_put_across_steps_on_the_card(cuda):
+    lm = _decoder("cuda")
+    f = lm.generate_fn(6, 8, mode=ptp.Mode(ptp.TorchLinker(device="cuda", use_graph=False)))
+    program = f.fn.program
+    scan = program.fns[[type(n.op).__name__ for n in program.order].index("Scan")]
+    assert scan.owned == [2, 3, 4, 5]
+    seen, run = [], scan.program.run
+
+    def spy(args, uploads):
+        seen.append([a.untyped_storage().data_ptr() for a in args[2:6]])
+        return run(args, uploads)
+
+    scan.program.run = spy
+    try:
+        first = f(np.int64(3)).cpu().numpy()
+        second = f(np.int64(3)).cpu().numpy()
+    finally:
+        scan.program.run = run
+    np.testing.assert_array_equal(first, second)
+    assert len(seen) == 12 and seen[:6] == [seen[0]] * 6 and seen[6:] == [seen[6]] * 6
+
+
+@pytest.mark.parametrize("chunk", [1, 4])
+def test_decoder_batcher_captured_equals_eager_and_cpu(cuda, chunk):
+    from aesara_tpu_torch.models.serve import ContinuousBatcher
+
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 50, size=n).astype("int64") for n in (4, 6, 8, 5)]
+    runs = []
+    for device, use_graph in (("cuda", True), ("cuda", False), ("cpu", None)):
+        lm = _decoder(device)
+        srv = ContinuousBatcher(lm, n_slots=2, t_max=64, t_pad=8, chunk=chunk,
+                                mode=ptp.Mode(ptp.TorchLinker(device=device, use_graph=use_graph)))
+        queue, rids, results = list(enumerate(prompts)), {}, {}
+        while queue or srv.pending():
+            while queue and srv.free_slots():
+                i, p = queue.pop(0)
+                rids[srv.submit(p, max_new=10)] = i
+            srv.step()
+            for rid in list(rids):
+                if rid in srv._done:
+                    results[rids.pop(rid)] = srv.result(rid)
+        if use_graph:
+            assert srv._decode.captured
+        state = [v.get_value() for v in srv._caches + [srv._pos, srv._cur, srv._act]]
+        runs.append((results, state))
+    (cap, cap_state), (eag, eag_state), (cpu, _) = runs
+    assert cap == eag == cpu
+    for a, b in zip(cap_state, eag_state):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_decoder_k1_and_k4_at_its_shapes_match_plain(cuda):
+    """K1 on every Composite of the decode step's inner program and K4 at
+    the softmaxes of the decode step (over time, 512 rows of 8 heads) and
+    the prefill (rows of its length), against their plain versions."""
+    lm = _decoder("cuda")
+    f = lm.generate_fn(6, 8, mode=ptp.Mode(ptp.TorchLinker(device="cuda")))
+    program = f.fn.program
+    inner = program.fns[[type(n.op).__name__ for n in program.order].index("Scan")].program
+    composites = [n for n, fold in zip(inner.order, inner.folds)
+                  if not fold and type(getattr(n.op, "scalar_op", None)).__name__ == "Composite"]
+    assert len(composites) >= 10
+    rng = np.random.default_rng(5)
+    for node in composites:
+        comp, out_dtype = node.op.scalar_op, node.outputs[0].type.dtype
+        kernel = ElemwiseKernel(comp, [v.type.dtype for v in node.inputs], out_dtype)
+        vals = [torch.as_tensor(rng.uniform(0.05, 0.95, size=tuple(s or 8 for s in v.type.shape)).astype(
+            v.type.dtype) if v.type.dtype.startswith("float") else rng.integers(0, 8, size=tuple(
+                s or 8 for s in v.type.shape)).astype(v.type.dtype), device=cuda) for v in node.inputs]
+        torch.testing.assert_close(fused_elemwise(kernel, *vals), composite_plain(comp, out_dtype, *vals),
+                                   atol=1e-6, rtol=1e-6)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    for shape in ((8, 512), (256, 512), (2048, 256)):
+        x = torch.randn(shape, device=cuda, generator=gen) * 3
+        torch.testing.assert_close(softmax_rows(x, log=False), softmax_rows_plain(x, log=False), atol=1e-6,
+                                   rtol=1e-5)

@@ -235,6 +235,10 @@ def test_steps_per_call_and_bucketing_wait_for_their_slices():
     x = matrix("x")
     f = aesara_tpu_torch.function([x], ptm.sum(x), steps_per_call=2)
     np.testing.assert_array_equal(f(np.ones((2, 3), "float32")).numpy(), [6.0, 6.0])
-    for kwargs in ({"batched": True}, {"seq_bucketed": 1}):
-        with pytest.raises(NotImplementedError, match="bucketing"):
-            In(x, **kwargs)
+    # bucketing came with the decoder's serving slice: the marked axis is
+    # padded to the rung (the function's key) and the result cut back
+    for kwargs, key in (({"batched": True}, (4, 3)), ({"seq_bucketed": 1}, (3, 4))):
+        g = aesara_tpu_torch.function([In(x, **kwargs)], x * 2.0)
+        with config.change_flags(shape_buckets="pow2"):
+            np.testing.assert_array_equal(g(np.ones((3, 3), "float32")).numpy(), np.full((3, 3), 2.0))
+        assert [k[0][0] for k in g.fn._keys] == [key]
