@@ -249,7 +249,13 @@ def _check_update_type(target, value):
     """``value`` as a variable of ``target``'s type; the value may know
     less of its static shape than the target (the call checks it)."""
     from aesara_tpu_torch.tensor.basic import as_tensor_variable
+    from aesara_tpu_torch.tensor.type import TensorType
 
+    if not isinstance(target.type, TensorType) and isinstance(value, Variable):
+        # a PRNG key and the like: the types must agree
+        if value.type != target.type:
+            raise TypeError(f"update of {target} ({target.type}) has type {value.type}")
+        return value
     value = as_tensor_variable(value)
     tt, vt = target.type, value.type
     if (vt.dtype != tt.dtype or vt.ndim != tt.ndim

@@ -73,11 +73,16 @@ class TensorSharedVariable(_tensor_operators, SharedVariable):
 
 def shared(value, name=None, device=None) -> TensorSharedVariable:
     """A shared tensor holding a copy of ``value`` on ``device``; a SciPy
-    sparse matrix makes a sparse shared variable."""
+    sparse matrix makes a sparse shared variable, a NumPy ``Generator`` or
+    ``RandomState`` a PRNG key (``tensor/random/var.py``)."""
     import scipy.sparse
 
     if isinstance(value, Variable):
         raise TypeError("shared() takes a value, not a Variable")
+    if isinstance(value, (np.random.Generator, np.random.RandomState)):
+        from aesara_tpu_torch.tensor.random.var import generator_shared
+
+        return generator_shared(value, name=name, device=device)
     if scipy.sparse.issparse(value):
         from aesara_tpu_torch.sparse.sharedvar import sparse_shared
 

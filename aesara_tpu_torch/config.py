@@ -88,5 +88,6 @@ config.add("allow_gc", True, _enum(True, False))
 config.add("cuda_graph", True, _enum(True, False))
 config.add("shape_buckets", "off", _buckets)
 config.add("shape_buckets_check", "raise", _enum("raise", "warn", "off"))
+config.add("seed", 0, int)    # the default RandomStream seed (reference aesara_tpu/config.py:187)
 
 change_flags = config.change_flags

@@ -8,6 +8,7 @@ compile path uses.  The IR is a bipartite DAG of ``Apply`` nodes (an
 
 from __future__ import annotations
 
+import itertools
 from collections import deque
 from typing import Any, Callable, Iterable, Optional, Sequence
 
@@ -59,16 +60,25 @@ class Type:
         return self
 
 
-class Apply:
-    """One application of an :class:`Op` to input Variables."""
+#: a process-wide creation stamp of Apply nodes (``Apply.epoch``)
+_apply_epoch = itertools.count()
 
-    __slots__ = ("op", "inputs", "outputs", "tag")
+
+class Apply:
+    """One application of an :class:`Op` to input Variables.
+
+    ``epoch`` is a process-wide monotone creation stamp; ``scan`` uses it
+    to find the nodes its step function built (reference
+    ``aesara_tpu/graph/ir.py:149-169``)."""
+
+    __slots__ = ("op", "inputs", "outputs", "tag", "epoch")
 
     def __init__(self, op, inputs: Sequence["Variable"], outputs: Sequence["Variable"]):
         self.op = op
         self.inputs = list(inputs)
         self.outputs = list(outputs)
         self.tag = Scratchpad()
+        self.epoch = next(_apply_epoch)
         for v in self.inputs:
             if not isinstance(v, Variable):
                 raise TypeError(f"Apply inputs must be Variables, got {type(v)}")

@@ -84,3 +84,15 @@ class SequenceDB(RewriteDatabase):
         # ties in position run by name, as in the JAX package
         picked = sorted(self._selected(q), key=lambda rw: (self._position.get(rw.name, math.inf), rw.name))
         return SequentialGraphRewriter(*[self._compiled(rw, q) for rw in picked])
+
+
+class LocalGroupDB(SequenceDB):
+    """Node rewriters applied as one local pass: its query is a
+    ``SequentialNodeRewriter`` of the selected ones in position order
+    (reference ``aesara_tpu/graph/rewriting/db.py:251``)."""
+
+    def query(self, q: RewriteDatabaseQuery):
+        from aesara_tpu_torch.graph.rewriting.basic import SequentialNodeRewriter
+
+        picked = sorted(self._selected(q), key=lambda rw: (self._position.get(rw.name, math.inf), rw.name))
+        return SequentialNodeRewriter(*picked)

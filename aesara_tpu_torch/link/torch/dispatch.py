@@ -31,10 +31,11 @@ from aesara_tpu_torch.tensor.basic import (
 )
 from aesara_tpu_torch.tensor.blas import Dot22, Dot22Scalar, Gemm, Gemv, Ger
 from aesara_tpu_torch.tensor.elemwise import CAReduce, DimShuffle, Elemwise, check_static_broadcast
-from aesara_tpu_torch.tensor.extra_ops import Repeat
+from aesara_tpu_torch.tensor.extra_ops import BroadcastTo, CumOp, Repeat
 from aesara_tpu_torch.tensor.math import Argmax, BatchedDot, Dot
 from aesara_tpu_torch.tensor.nnet.attention import FusedAttention, FusedAttentionGrad
 from aesara_tpu_torch.tensor.shape import Reshape, Shape, Shape_i, SpecifyShape, Unbroadcast, check_specified_shape
+from aesara_tpu_torch.tensor.sort import ArgSortOp, SortOp, TopKOp
 from aesara_tpu_torch.tensor.special import LogSoftmax, Softmax, SoftmaxGrad
 from aesara_tpu_torch.tensor.subtensor import (
     AdvancedIncSubtensor, AdvancedIncSubtensor1, AdvancedSubtensor, AdvancedSubtensor1, DynamicIncSubtensor,
@@ -606,7 +607,12 @@ def _dynamic_inc_subtensor_lowering(op, node, in_place: bool):
                 torch.arange(x.shape[d], device=x.device)[e] for d, e in enumerate(idx)]
         grid = [g.reshape([-1 if k == d else 1 for k in range(len(grid))]) for d, g in enumerate(grid)]
         window = tuple(g.shape[d] for d, g in enumerate(grid)) + tuple(x.shape[len(grid):])
-        out.index_put_(tuple(grid), y.broadcast_to(window), accumulate=not set_instead)
+        values = y.broadcast_to(window)
+        if not set_instead:
+            values = out[tuple(grid)] + values
+        # (window + y) in their common dtype, then x's, as the JAX lowering
+        # casts (link/jax/dispatch.py:1004-1007)
+        out.index_put_(tuple(grid), values.to(x.dtype))
         return out
 
     dynamic_inc_subtensor.host_inputs = tuple(range(2, len(node.inputs)))
@@ -769,3 +775,115 @@ def _torch_specify_shape(op, node):
 @torch_funcify.register(Unbroadcast)
 def _torch_unbroadcast(op, node):
     return lambda x: x
+
+
+@torch_funcify.register(CumOp)
+def _torch_cum(op, node):
+    import torch
+
+    fn = torch.cumsum if op.mode == "add" else torch.cumprod
+    axis = op.axis
+
+    def cum(x):
+        # an integer input accumulates in int64 and wraps to its own dtype,
+        # as jnp.cumsum/cumprod do where the output keeps the input's dtype
+        out = fn(x.reshape(-1), 0) if axis is None else fn(x, axis)
+        return out.to(x.dtype)
+
+    return cum
+
+
+@torch_funcify.register(BroadcastTo)
+def _torch_broadcast_to(op, node):
+    import torch
+
+    def broadcast_to(x, *shape):
+        # a view with zero strides on the broadcast dims (the op's view_map);
+        # no lowering writes into an input in place but a Scan's own copy
+        return torch.broadcast_to(x, tuple(int(s) for s in shape))
+
+    broadcast_to.host_inputs = tuple(range(1, len(node.inputs)))
+    broadcast_to.needs_host = (tuple(range(1, len(node.inputs))), "has a shape computed on the device")
+    return broadcast_to
+
+
+#: a same-width signed view of each unsigned dtype torch cannot sort or gather
+_SIGNED_VIEW = {"uint16": "int16", "uint32": "int32", "uint64": "int64"}
+
+
+def _sort_key(x):
+    """A tensor that sorts as ``x`` sorts: an unsigned type as int64 (uint64
+    with its top bit flipped), a bool as uint8."""
+    import torch
+
+    name = str(x.dtype).split(".")[-1]
+    if name == "bool":
+        return x.to(torch.uint8)
+    if name in ("uint16", "uint32"):
+        bits = {"uint16": 16, "uint32": 32}[name]
+        return x.view(torch_dtype(_SIGNED_VIEW[name])).to(torch.int64) & ((1 << bits) - 1)
+    if name == "uint64":
+        return x.view(torch.int64) ^ torch.iinfo(torch.int64).min
+    return x
+
+
+def _gather(x, dim, idx):
+    name = str(x.dtype).split(".")[-1]
+    if name in _SIGNED_VIEW:
+        return x.view(torch_dtype(_SIGNED_VIEW[name])).gather(dim, idx).view(x.dtype)
+    return x.gather(dim, idx)
+
+
+@torch_funcify.register(SortOp)
+def _torch_sort(op, node):
+    import torch
+
+    def sort(x, axis):
+        idx = torch.sort(_sort_key(x), dim=int(axis), stable=True).indices
+        return _gather(x, int(axis), idx)
+
+    sort.host_inputs = (1,)
+    sort.needs_host = ((1,), "has an axis computed on the device")
+    return sort
+
+
+@torch_funcify.register(ArgSortOp)
+def _torch_argsort(op, node):
+    import torch
+
+    def argsort(x, axis):
+        return torch.sort(_sort_key(x), dim=int(axis), stable=True).indices
+
+    argsort.host_inputs = (1,)
+    argsort.needs_host = ((1,), "has an axis computed on the device")
+    return argsort
+
+
+@torch_funcify.register(TopKOp)
+def _torch_topk(op, node):
+    """As ``lax.top_k`` (``aesara_tpu/link/jax/linalg_dispatch.py:329-367``):
+    the k largest along the axis (k < 0: the |k| smallest), largest first
+    (smallest first), equal values lowest index first.  A stable sort, then
+    a slice, gives that order on both devices (``torch.topk`` gives no
+    order to ties on the card)."""
+    import torch
+
+    idx_dtype = torch_dtype(op.idx_dtype)
+
+    def topk(x, k):
+        k = int(k)
+        if k == 0:
+            raise ValueError("topk: k must be nonzero")
+        ax = op.axis % x.dim()
+        order = torch.sort(_sort_key(x), dim=ax, descending=k > 0, stable=True).indices
+        idx = order.narrow(ax, 0, min(abs(k), x.shape[ax]))
+        outs = []
+        if op.return_values:
+            outs.append(_gather(x, ax, idx))
+        if op.return_indices:
+            outs.append(idx.to(idx_dtype))
+        return tuple(outs) if len(outs) > 1 else outs[0]
+
+    topk.host_inputs = (1,)
+    topk.needs_host = ((1,), "has a k computed on the device: top-k's result has k's length")
+    return topk

@@ -188,6 +188,8 @@ class Program:
         from aesara_tpu_torch.link.torch.kernels.elemwise import torch_dtype
 
         value = np.asarray(value)
+        if not value.flags.c_contiguous:
+            value = value.copy(order="C")   # a folded [::-1] has negative strides, which torch refuses
         if value.size == 1:
             # a fill kernel takes the value as an argument: unlike a copy
             # from pageable memory, it does not make the host wait for the

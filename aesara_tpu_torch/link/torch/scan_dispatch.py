@@ -140,8 +140,11 @@ def _torch_scan(op, node):
         device = next((v.device for v in operands if isinstance(v, torch.Tensor)), None)
         program.device = device
         # the loop's own buffers of the states written in place: the
-        # caller's value is never written
-        inits = [init.clone() if i in owned else init for i, init in enumerate(inits)]
+        # caller's value is never written, and a broadcast view (zero
+        # strides, ``broadcast_to``) is copied into a dense buffer, so that
+        # a write to one row writes that row alone
+        inits = [init.clone(memory_format=torch.contiguous_format) if i in owned else init
+                 for i, init in enumerate(inits)]
 
         # per recurrent output: the states its taps read (oldest first),
         # its stack, and its last rows where a tail is kept

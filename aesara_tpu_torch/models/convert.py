@@ -17,6 +17,10 @@ so it is carried by qualified name: ``named_state(lm)`` gives ``embed`` and
 ``layers.<i>.wq_q8``, ``layers.<i>.wq_scale``, ..., ``embed_q8``,
 ``embed_scale``, and the float leftovers ``layers.<i>.b1`` ...), and
 ``load_state(lm, named_state(jax_lm))`` writes them, with the same checks.
+A ``RandomStream`` of either package is carried the same way: its keys
+(``uint32[2]``), ``rng.<i>.<name>`` in the order the stream made them
+(``named_state(stream)``), so a port stream continues a JAX package's
+draws and the other way round.
 """
 
 from __future__ import annotations
@@ -63,8 +67,13 @@ def load_params(model, values: Union[Sequence[np.ndarray], Mapping[str, np.ndarr
 
 def named_state(lm) -> dict:
     """``{qualified name: shared variable}`` of a ``DecoderLM`` of either
-    package or of its int8 copy (module docstring), in a fixed order."""
+    package, of its int8 copy, or of a ``RandomStream`` (module
+    docstring), in a fixed order."""
     out = {}
+    if hasattr(lm, "state_updates"):
+        for i, (rng, _) in enumerate(lm.state_updates):
+            out[f"rng.{i}.{rng.name}"] = rng
+        return out
     if hasattr(lm, "quantized_shareds"):
         per = len(lm.quantized_shareds) // len(lm.layers)
         for i, layer in enumerate(lm.layers):
@@ -84,14 +93,16 @@ def named_state(lm) -> dict:
 
 def load_state(lm, values: Mapping) -> None:
     """Write ``values`` (``{qualified name: shared variable or array}``,
-    as ``named_state`` of the source gives) into ``lm``'s state, having
-    checked names, order, shapes and dtypes."""
+    as ``named_state`` of the source gives) into ``lm``'s state (a model or
+    a ``RandomStream`` of either package), having checked names, order,
+    shapes and dtypes."""
     state = named_state(lm)
     if list(values) != list(state):
         raise ValueError(f"state names/order differ: got {list(values)}, model has {list(state)}")
     arrays = [np.asarray(v.get_value() if hasattr(v, "get_value") else v) for v in values.values()]
     for (name, p), a in zip(state.items(), arrays):
-        if a.shape != p.type.shape or a.dtype.name != p.type.dtype:
-            raise ValueError(f"{name}: got {a.dtype}{a.shape}, model has {p.type.dtype}{p.type.shape}")
+        have = np.asarray(p.get_value())
+        if a.shape != have.shape or a.dtype != have.dtype:
+            raise ValueError(f"{name}: got {a.dtype}{a.shape}, model has {have.dtype}{have.shape}")
     for p, a in zip(state.values(), arrays):
         p.set_value(a)

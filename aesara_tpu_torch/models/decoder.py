@@ -10,10 +10,12 @@ captured CUDA graph, and the Scan lowering writes each new K/V row in
 place into the loop's own cache buffer (``link/torch/scan_dispatch.py``),
 as XLA updates the donated carry in place: no cache copy per step.
 
-Cut from the JAX package's decoder, each raising ``NotImplementedError``
-that names what it waits for: sampling (``temperature > 0`` needs the
-port's random streams; ``top_k`` needs ``topk``), speculative decoding
-(``cumprod``) and beam search (``argtopk``, ``broadcast_to``).
+``temperature > 0`` samples by Gumbel-max with a key threaded through the
+loop (one threefry draw a step, ``tensor/random``), ``top_k`` masks the
+logits below the k-th largest first; ``speculative_generate_fn`` verifies
+a draft model's proposals in a while-Scan, which runs eagerly (its
+``until`` is read on the host each round); ``beam_search_fn`` keeps
+per-beam caches reordered by parent each step and backtraces on the host.
 """
 
 from __future__ import annotations
@@ -24,8 +26,10 @@ from aesara_tpu_torch.config import config
 from aesara_tpu_torch.models.base import Model, glorot, zeros
 from aesara_tpu_torch.tensor import math as tm
 from aesara_tpu_torch.tensor.basic import alloc, arange, as_tensor_variable, cast, constant, join, switch
-from aesara_tpu_torch.tensor.extra_ops import repeat as t_repeat
+from aesara_tpu_torch.tensor.extra_ops import broadcast_to, cumprod, repeat as t_repeat
+from aesara_tpu_torch.tensor.random.utils import RandomStream
 from aesara_tpu_torch.tensor.shape import shape as tshape
+from aesara_tpu_torch.tensor.sort import argtopk, topk as t_topk
 from aesara_tpu_torch.tensor.special import softmax
 from aesara_tpu_torch.tensor.subtensor import DynamicIncSubtensor, set_subtensor
 
@@ -37,6 +41,11 @@ def _dim(x, i: int):
     a ``Subtensor`` (the port's ``x.shape`` gives a static dim as a
     constant), so that the two packages' graphs agree node for node."""
     return tshape(x)[i]
+
+
+def _host(value) -> np.ndarray:
+    """A function's result on the host, for the beam's backtrace."""
+    return value.detach().cpu().numpy() if hasattr(value, "detach") else np.asarray(value)
 
 
 def _layer_norm(x, gain, bias, eps=1e-5):
@@ -315,11 +324,12 @@ class DecoderLM(Model):
     def generate_graph(self, first_token, n_steps: int, t_max: int,
                       temperature: float = 0.0, seed: int = 0,
                       top_k: int = 0):
-        """Symbolic greedy generation of ``n_steps`` tokens from
-        ``first_token`` (int scalar variable).  Returns the generated
-        int64 vector (length n_steps).  ``temperature`` > 0 and ``top_k``
-        raise ``NotImplementedError`` (module docstring); ``seed`` is the
-        JAX package's argument of the sampler."""
+        """Symbolic generation of ``n_steps`` tokens from ``first_token``
+        (int scalar variable).  Returns the generated int64 vector (length
+        n_steps).  temperature=0 is greedy argmax; > 0 is Gumbel-max
+        sampling from a stream of fixed ``seed``; ``top_k`` > 0 keeps
+        the k highest logits (a static-shape mask: logits below the k-th
+        value are set to -1e9 before the noise)."""
         from aesara_tpu_torch.scan.basic import scan
 
         if n_steps > t_max:
@@ -328,7 +338,6 @@ class DecoderLM(Model):
                 f"t_max ({t_max}) — a write past the cache would be an "
                 f"out-of-range index on the device"
             )
-        _refuse_sampling(temperature, top_k)
         L = len(self.layers)
         Kv, dh = self.layers[0].n_kv_heads, self.layers[0].d_head
         fX = config.floatX
@@ -349,6 +358,18 @@ class DecoderLM(Model):
                                        pos)
                 new_caches += [kc, vc]
             logits = tm.dot(h, self.embed.T)
+            if temperature > 0.0:
+                if top_k and top_k > 0:
+                    # static-shape top-k truncation: mask logits below
+                    # the k-th largest before the noise
+                    kth = tm.min(t_topk(logits, int(top_k)))
+                    neg = constant(np.asarray(-1e9, dtype=fX))
+                    logits = switch(tm.ge(logits, kth), logits, neg)
+                # Gumbel noise from a key of fixed seed, threaded through
+                # the loop (scan carries the stream's default update)
+                srng = RandomStream(seed=seed)
+                u = srng.uniform(low=1e-6, high=1.0 - 1e-6, size=(self.vocab,))
+                logits = logits / np.asarray(temperature, dtype=fX) - tm.log(-tm.log(u))
             nxt = cast(tm.argmax(logits), "int64")
             return (nxt, pos + np.int64(1), *new_caches)
 
@@ -442,15 +463,235 @@ class DecoderLM(Model):
         toks = join(0, tok0.dimshuffle("x"), cont)
         return function([prompt], toks, mode=mode)
 
-    # -- cut: speculative decoding and beam search ---------------------------
-    def speculative_generate_fn(self, draft: "DecoderLM", prompt_len: int, n_new: int, t_max: int,
-                                n_spec: int = 4, mode=None):
-        raise NotImplementedError("speculative decoding needs cumprod (ROADMAP Queue 1 item 12), "
-                                  "which the port does not have yet")
+    # -- speculative decoding ----------------------------------------------
+    def speculative_generate_fn(self, draft: "DecoderLM", prompt_len: int,
+                                n_new: int, t_max: int, n_spec: int = 4,
+                                mode=None):
+        """Greedy speculative decoding: a small ``draft`` model proposes
+        ``n_spec`` tokens a round, this (target) model verifies them in
+        one batched ``step_block`` pass, and the longest matching prefix
+        commits: every emitted token is the target's own greedy choice, so
+        the output is the target's sequential decode up to reduction
+        order (the batched verify pass and the sequential step compute the
+        same logits through different reductions, so a near tie between
+        the top two logits may flip an argmax between them; Leviathan et
+        al. 2023, greedy variant).
 
-    def beam_search_fn(self, prompt_len: int, n_new: int, t_max: int, beam: int = 4, mode=None):
-        raise NotImplementedError("beam search needs argtopk and broadcast_to (ROADMAP Queue 1 item 12), "
-                                  "which the port does not have yet")
+        Compiles ``prompt (int64, len prompt_len) -> n_new tokens``: both
+        models' prefills, then a while-Scan over rounds whose carry holds
+        the output buffer, the write pointer, the current token and
+        position, and both models' KV caches.  Every round writes a fixed
+        n_spec-wide block into the buffer and advances the pointer by the
+        accepted count (1..n_spec), a scalar on the device.  The loop's
+        ``until`` is read on the host after each round, so the function
+        runs eagerly on the card (``capture_blocker`` says so)."""
+        from aesara_tpu_torch.compile.function import function
+        from aesara_tpu_torch.scan.basic import scan, until
+        from aesara_tpu_torch.tensor.type import TensorType
+
+        if draft.vocab != self.vocab:
+            raise ValueError("draft and target must share a vocabulary")
+        if prompt_len + n_new + n_spec > t_max:
+            raise ValueError(
+                f"prompt_len + n_new + n_spec ({prompt_len + n_new + n_spec})"
+                f" exceeds t_max ({t_max})"
+            )
+        G = int(n_spec)
+        if G < 1:
+            raise ValueError("n_spec must be >= 1")
+
+        prompt = TensorType("int64", (prompt_len,))("prompt")
+        # both models prefill their caches on the prompt
+        h_last_t, t_caches = self.prefill_graph(prompt, prompt_len, t_max)
+        _, d_caches = draft.prefill_graph(prompt, prompt_len, t_max)
+        tok0 = cast(tm.argmax(tm.dot(h_last_t, self.embed.T)), "int64")
+
+        Ld = len(draft.layers)
+        buf0 = alloc(constant(np.int64(0)), n_new + G)
+        zero = constant(np.int64(0))
+
+        def round_fn(buf, n_done, cur, pos, *cache_args):
+            cache_args = list(cache_args)
+            dc = cache_args[: 2 * Ld]
+            tc = cache_args[2 * Ld:]
+
+            # 1. draft proposes G tokens autoregressively (unrolled; its
+            #    first step consumes `cur` at position `pos`)
+            proposals = []
+            tok, dpos = cur, pos
+            for _ in range(G):
+                h = draft.embed[tok]
+                new_dc = []
+                for i, layer in enumerate(draft.layers):
+                    h, kc, vc = layer.step(h, dc[2 * i], dc[2 * i + 1], dpos)
+                    new_dc += [kc, vc]
+                dc = new_dc
+                tok = cast(tm.argmax(tm.dot(h, draft.embed.T)), "int64")
+                proposals.append(tok)
+                dpos = dpos + np.int64(1)
+
+            # 2. target verifies the block [cur, p_1..p_{G-1}] in one pass
+            block_toks = join(
+                0, cur.dimshuffle("x"),
+                *[p.dimshuffle("x") for p in proposals[:-1]]
+            ) if G > 1 else cur.dimshuffle("x")
+            hs = self.embed[block_toks]                     # (G, D)
+            new_tc = []
+            for i, layer in enumerate(self.layers):
+                hs, kc, vc = layer.step_block(
+                    hs, tc[2 * i], tc[2 * i + 1], pos, block=G
+                )
+                new_tc += [kc, vc]
+            t_toks = cast(
+                tm.argmax(tm.dot(hs, self.embed.T), axis=-1), "int64"
+            )                                               # (G,)
+
+            # 3. longest matching prefix commits; first mismatch takes
+            #    the target's token — j in 1..G tokens commit, all drawn
+            #    from t_toks, so the output equals pure target greedy
+            if G > 1:
+                p_vec = join(0, *[p.dimshuffle("x") for p in proposals[:-1]])
+                match = cast(tm.eq(p_vec, t_toks[:G - 1]), "int64")
+                lead = cumprod(match)
+                j = np.int64(1) + tm.sum(lead)
+            else:
+                j = constant(np.int64(1))
+
+            buf = DynamicIncSubtensor((G,), set_instead_of_inc=True)(
+                buf, t_toks, n_done
+            )
+            n_done_new = n_done + j
+            cur_new = t_toks[j - 1]
+            pos_new = pos + j
+            # tok0 already counts toward n_new: rounds fill n_new-1
+            return (
+                buf, n_done_new, cur_new, pos_new, *dc, *new_tc,
+                until(tm.ge(n_done_new, np.int64(max(n_new - 1, 1)))),
+            )
+
+        outs, _ = scan(
+            fn=round_fn,
+            outputs_info=[buf0, zero, tok0,
+                          constant(np.int64(prompt_len))] + d_caches + t_caches,
+            n_steps=n_new,  # each round commits >= 1 token
+        )
+        final_buf = outs[0][-1]
+        toks = join(0, tok0.dimshuffle("x"), final_buf[: n_new - 1]) \
+            if n_new > 1 else tok0.dimshuffle("x")
+        return function([prompt], toks, mode=mode)
+
+    # -- beam search ---------------------------------------------------------
+    def beam_search_fn(self, prompt_len: int, n_new: int, t_max: int,
+                       beam: int = 4, mode=None):
+        """Fixed-width beam search: one compiled function runs the
+        prefill and a scan whose carry holds per-beam scores and per-beam
+        KV caches; each step runs all ``beam`` streams through
+        ``step_batched``, takes the top ``beam`` of the (beam * V) joint
+        scores (equal scores lowest index first) and reorders the caches
+        by parent beam with a gather.  The best sequence is assembled by a
+        backtrace on the host.  No EOS handling (a fixed horizon): length
+        n_new, the greatest total log-probability.
+
+        Returns ``search(prompt) -> (tokens, score)``: the best sequence
+        (length n_new) and its summed log-prob; ``search.function`` is the
+        compiled function it calls.  With ``beam >= V**i`` at every step i
+        the search is exhaustive.
+        """
+        from aesara_tpu_torch.compile.function import function
+        from aesara_tpu_torch.scan.basic import scan
+        from aesara_tpu_torch.tensor.type import TensorType
+
+        if prompt_len + n_new > t_max:
+            raise ValueError("prompt_len + n_new exceeds t_max")
+        if beam < 1:
+            raise ValueError("beam must be >= 1")
+        V = self.vocab
+        K = int(beam)
+        Kv, dh = self.layers[0].n_kv_heads, self.layers[0].d_head
+
+        prompt = TensorType("int64", (prompt_len,))("prompt")
+        h_last, caches0 = self.prefill_graph(prompt, prompt_len, t_max)
+        logits0 = tm.dot(h_last, self.embed.T)
+        logp0 = logits0 - tm.logsumexp(logits0)
+        # step 1 has only V distinct prefixes: carry the full requested
+        # width anyway, the surplus lanes scored -inf, so that they never
+        # win a top-k but do host step-2 expansions (beam > V widens the
+        # later steps; K = min(beam, V) would not be exhaustive)
+        K0 = min(K, V)
+        top0 = argtopk(logp0, K0)                     # (K0,) token ids
+        toks0 = cast(top0, "int64")
+        scores0 = logp0[top0]                          # (K0,)
+        if K > K0:
+            pad_t = alloc(constant(np.int64(0)), K - K0)
+            pad_s = alloc(
+                constant(np.asarray(-np.inf, dtype=scores0.type.dtype)),
+                K - K0,
+            )
+            toks0 = join(0, toks0, pad_t)
+            scores0 = join(0, scores0, pad_s)
+        # per-beam caches: identical prefix for every beam
+        bcaches = [
+            broadcast_to(c.dimshuffle("x", 0, 1, 2), (K, t_max, Kv, dh)) + 0.0
+            for c in caches0
+        ]
+
+        def step_fn(cur, scores, pos, *cache_args):
+            caches = list(cache_args)
+            h = self.embed[cur]                        # (K, D)
+            new_caches = []
+            for i, layer in enumerate(self.layers):
+                h, kc, vc = layer.step_batched(
+                    h, caches[2 * i], caches[2 * i + 1], pos
+                )
+                new_caches += [kc, vc]
+            logits = tm.dot(h, self.embed.T)           # (K, V)
+            logp = logits - tm.logsumexp(logits, axis=-1, keepdims=True)
+            joint = (scores.dimshuffle(0, "x") + logp).flatten()  # (K*V,)
+            best = argtopk(joint, K)                   # (K,) flat indices
+            parent = best // np.int64(V)
+            token = cast(best % np.int64(V), "int64")
+            new_scores = joint[best]
+            reordered = [c[parent] for c in new_caches]
+            new_h_tok = token
+            return (new_h_tok, new_scores, pos + np.int64(1),
+                    *reordered, parent, token)
+
+        if n_new == 1:
+            f = function([prompt], [toks0, scores0], mode=mode)
+
+            def search(pv):
+                t, s = (_host(v) for v in f(pv))
+                b = int(np.argmax(s))
+                return [int(t[b])], float(s[b])
+
+            search.function = f
+            return search
+
+        outs, _ = scan(
+            fn=step_fn,
+            outputs_info=[toks0, scores0, constant(np.int64(prompt_len))]
+            + bcaches + [None, None],
+            n_steps=n_new - 1,
+        )
+        parents = outs[-2]                             # (n_new-1, K)
+        tokens = outs[-1]                              # (n_new-1, K)
+        final_scores = outs[1][-1]                     # (K,)
+        f = function([prompt], [tokens, parents, final_scores, toks0],
+                     mode=mode)
+
+        def search(pv):
+            tk, pr, sc, t0 = (_host(v) for v in f(pv))
+            b = int(np.argmax(sc))
+            seq = []
+            for step in range(tk.shape[0] - 1, -1, -1):
+                seq.append(int(tk[step, b]))
+                b = int(pr[step, b])
+            seq.append(int(t0[b]))
+            seq.reverse()
+            return seq, float(np.max(sc))
+
+        search.function = f
+        return search
 
     # -- batched serving ---------------------------------------------------
     def generate_batched_graph(self, first_tokens, batch: int, n_steps: int,
@@ -504,13 +745,3 @@ class DecoderLM(Model):
         toks0 = lvector("toks0")
         toks = self.generate_batched_graph(toks0, batch, n_steps, t_max)
         return function([toks0], toks, mode=mode)
-
-
-def _refuse_sampling(temperature: float, top_k: int) -> None:
-    """Greedy decoding only: sampling waits for the port's random streams
-    (ROADMAP Queue 1 item 9), top-k truncation for ``topk`` (item 12)."""
-    if temperature > 0.0:
-        raise NotImplementedError("temperature > 0 samples with RandomStream (ROADMAP Queue 1 item 9), "
-                                  "which the port does not have yet; use temperature=0 (greedy)")
-    if top_k:
-        raise NotImplementedError("top_k needs topk (ROADMAP Queue 1 item 12), which the port does not have yet")

@@ -5,10 +5,10 @@ for line, so that the port builds the JAX package's graphs).
 It classifies the arguments into sequences, taps (mit-sot, sit-sot,
 nit-sot), shared updates and non-sequences, builds the inner
 FunctionGraph over fresh placeholder variables, and returns (outputs,
-updates).  A shared variable with a ``default_update`` read in the body
-is not threaded through the loop (that is how the JAX package steps a
-random stream per step; Random is not ported yet), and the body builds
-no test values.
+updates).  A shared variable with a ``default_update`` that a node built
+by the body reads (a random stream drawn in the body) rides the loop as
+carried state, so every step draws anew.  The body builds no test
+values.
 """
 
 from __future__ import annotations
@@ -176,6 +176,9 @@ def scan(
             fn_args.extend(tv)
     fn_args.extend(non_sequences_user)
 
+    from aesara_tpu_torch.graph.ir import _apply_epoch
+
+    _trace_epoch = next(_apply_epoch)  # nodes built by fn stamp >= this
     raw = fn(*fn_args)
 
     # unpack (outputs, updates, until) — ONE implementation, shared with
@@ -185,6 +188,29 @@ def scan(
     raw_outputs, updates, condition = get_updates_and_outputs(raw)
     updates = OrderedDict(updates)
     user_outputs = [as_tensor_variable(o) for o in raw_outputs]
+
+    # ---- implicit per-step state: shared vars with a default_update -------
+    # A RandomStream drawn inside ``fn`` gives its key's shared variable a
+    # ``default_update`` (the next key).  Such a shared variable rides the
+    # loop as carried state, so every step draws fresh values (the
+    # dropout-in-scan pattern).  Only one read by a node built while
+    # tracing fn qualifies: a draw captured by closure stays loop-invariant.
+    # To a fixpoint: a default update may read further such variables.
+    from aesara_tpu_torch.graph.ir import ancestors
+
+    while True:
+        roots = [r for r in user_outputs + list(updates.values()) + ([condition] if condition is not None else [])
+                 if isinstance(r, Variable)]
+        inner_nodes = {id(v.owner): v.owner for v in ancestors(roots)
+                       if v.owner is not None and v.owner.epoch >= _trace_epoch}
+        added = False
+        for n in inner_nodes.values():
+            for v in n.inputs:
+                if isinstance(v, SharedVariable) and v not in updates and v.default_update is not None:
+                    updates[v] = v.default_update
+                    added = True
+        if not added:
+            break
 
     if outs_info is None:
         kinds = ["nit"] * len(user_outputs)

@@ -14,6 +14,7 @@ serve the sparse-input models, all through ``aesara_tpu_torch.function``.
     python3 chip_smoke.py --reference    # only the setup and path (e), the reference configurations
     python3 chip_smoke.py --scan    # only the setup and path (f), Scan: config 4 and the LSTM
     python3 chip_smoke.py --decoder    # only the setup and path (g), the decoder LM served
+    python3 chip_smoke.py --decoder-sampling    # only the setup and path (h): sampling, speculative, beam
 
 Every compiled function runs captured (``TorchLinker``'s default on the
 card): its first call with a key runs eagerly, the second captures the
@@ -21,8 +22,9 @@ step into a CUDA graph, later ones replay it.  A kernel's wrapper counts
 its launches where it launches, the eager ones and those recorded into a
 graph while it is captured; a replay calls no wrapper, and the linker
 tallies the launches it replays apart (``.replayed``).  Every profiled
-run holds the trace's launches of K1-K7 to the launches plus the replay
-tally over the same calls, and fails if they differ.  Each path checks
+run holds the trace's launches of K1-K7 and of the threefry kernel (TF) to
+the launches plus the replay tally over the same calls, and fails if they
+differ.  Each path checks
 that its last call replayed a graph (a ``predict`` request that brings a
 new CSR matrix is a new key and runs eagerly, as it should).
 
@@ -32,7 +34,7 @@ Phases (any failure raises and the exit code is non-zero):
    limit; builds the flash-attention forward (K2) and backward (K3), the
    row softmax (K4) and the CSR (K5-K7) kernels with nvcc for sm_90a, one
    nvcc per source, all at once, and compiles one fused-elemwise kernel
-   (K1) with Triton.
+   (K1) and the threefry kernel (TF) with Triton.
 1. kernels: K1 and K2 against their plain versions on the card, at the
    shapes the forward gives them (K2 also at ragged, padded and D = 128
    panels), with the times of both; K2's resources (registers, shared
@@ -82,9 +84,13 @@ Phases (any failure raises and the exit code is non-zero):
    step at 512 documents on the card against the CPU.
 6. (b) sparse GLM: the repo's config 5 at ``REFRATIO_SCALE=4``
    (``benchmarks/bench_reference_ratio.py:276-321``, 16384 x 8192 at
-   density 0.01, without the Monte-Carlo noise): K5 against its plain
-   version, K5 and K6 timed at rhs widths 1-32 (the split between them),
-   3 + 10 steps with launch counts.  Then the optimizers on the GLM's w,
+   density 0.01, with its Monte-Carlo noise ``eps =
+   RandomStream(42).normal(size=(d,)) * 0.01`` drawn each step): K5
+   against its plain version, K5 and K6 timed at rhs widths 1-32 (the
+   split between them), 3 + 10 steps with launch counts (one threefry
+   launch a step), w after the 3 steps against the CPU's, and the noise's
+   key after every call the host's key after as many draws, bit for bit
+   (replays draw fresh noise).  Then the optimizers on the GLM's w,
    each on the card and on the CPU from the same values, with launch
    counts: one step each of ``momentum``, ``rmsprop`` and ``adam``, two of
    ``accumulate_gradients(every=2)`` driving ``adamw_from_grads``, two of
@@ -144,7 +150,7 @@ g. (g) the decoder LM served (``aesara_tpu_torch/models/decoder.py``,
    rule (a first difference only where the CPU's top-2 logit gap there is
    under TIE_REL of the logits' scale, and the comparison stops there);
    (g4)'s first 32 tokens against (g1)'s, printed.  An eager twin of (g1)
-   at 32 tokens copies a cache's shape no more than 9 times a call (the
+   at 16 tokens copies a cache's shape no more than 9 times a call (the
    Alloc of the zeros, and the loop's own copy of each of its 8 caches: it
    writes each K/V row in place), counted from the op trace.  (g5)
    ``ContinuousBatcher(DecoderLM(2048, ...), n_slots=32, t_max=256,
@@ -155,10 +161,39 @@ g. (g) the decoder LM served (``aesara_tpu_torch/models/decoder.py``,
    timed and profiled.  K1 on every Composite of (g) and K4 (fp64, as the
    graph computes it) at the decode, batched and prefill softmaxes against
    their plain versions and ``torch.softmax``.
+h. (h) the decoder's cut features on (g)'s model (its set-up and kernel
+   checks run before path (g), its runs after): the threefry kernel
+   bitwise against its plain version at 1, 31, 32,000 and 2**20 + 3
+   values in 32- and 64-bit bits and float32/float64 uniforms, from keys
+   of seeds 0 and 42 and an all-ones key, with its time at the decoder's
+   draw against the plain version's and its bound; K1 on every Composite
+   of (h) and K4 at the beam's and the verify block's softmax rows.
+   (h1) ``generate_fn(256, t_max=512, temperature=0.8)`` from token 17,
+   and the same with ``top_k=40``: 3 counted calls, 10 timed, 3
+   profiled, captured; 257 threefry launches a call (one a step, and the
+   stream's key advanced once outside the loop, as the JAX package's
+   default update does: each call draws other noise, and the key after
+   every call is the host's after as many draws); call 3, a replay,
+   against the same graph on the CPU from its key under the sampling tie
+   rule (a first difference only where the CPU's scores of the two
+   tokens, logits / T plus the host's Gumbel noise, differ by under
+   TIE_REL of the largest finite score, a token below the top-k never);
+   not the greedy tokens.  (h2) ``speculative_generate_fn`` with
+   ``DecoderLM(32000, 1, 512, 8, 2048, seed=1)`` as draft, 64 tokens after
+   (g2)'s prompt with 4 proposals a round, and the target as its own draft
+   at 33: eager (a while-Scan), 3 calls each, tokens/s, against the
+   target's own ``generate_from_prompt_fn`` under the tie rule.  (h3)
+   ``beam_search_fn(256, 32, 512, beam=4)`` captured (3 + 10 + 3 calls),
+   its tokens and score against the CPU's (score within BEAM_SCORE_REL) at
+   BEAM_PROMPT_STRIDES' three prompts, the same tokens' score recomputed
+   on the host from the CPU's logits by an fp64 path (within it) and by an
+   fp32 path (which must fail it),
+   and beam 1 at 8 tokens against (g2)'s greedy tokens.
 8. captured against eager: every path above (the forward request, the
    sgd and AdamW steps, the classifier step, ``predict`` of one request
    sent again, the GLM's sgd and adam steps, path (c) at width 20, config
-   3's step, config 4's step, the LSTM step, (g1) at 32 tokens and (g5)'s
+   3's step, config 4's step, the LSTM step, (g1) at 16 tokens, (h1)
+   with top-k 40 at 32 tokens and (g5)'s
    ``_decode`` at chunk 1 and 16 after 32 admissions) compiled
    twice from the same seeds, captured and with ``use_graph=False``, each
    driven alike (4 calls compared, then timed and profiled); a "capture
@@ -170,12 +205,18 @@ g. (g) the decoder LM served (``aesara_tpu_torch/models/decoder.py``,
    everywhere; an eager run whose trace lost launches in PROFILE_ATTEMPTS
    sessions prints its busy share as not measured.
 
+The CPU's side of the card-vs-CPU checks of (d), (g1), (h1) and (h3) is
+made in a spawned process of its own (CPU_REF_THREADS cores, no CUDA)
+while the card runs the paths before them; it ends before the script.
+
 The next-to-last lines are a JSON object describing the kernels (each
 kernel's launches from its path's run, and beside them the launches that
 run replayed and those the trace showed in the path's profiled replays;
 K1-K3 also with their launches in path 4d's 3 steps, and K1 with its time
 and bound on the AdamW update; K1 and K4 with their launches in each
-configuration of path (e), (f) and (g), and K4 with its checks there)
+configuration of path (e), (f), (g) and (h), and K4 with its checks there;
+the threefry kernel, which replaces no TPU kernel, with (h1)'s launches
+and its launches in paths (b) and (h))
 and the card's name and power limit; the last is
 ``{"ok": true, "device": {...}}``.
 """
@@ -191,6 +232,7 @@ import sys
 import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
+from types import SimpleNamespace
 
 import numpy as np
 import scipy.sparse as sps
@@ -235,6 +277,8 @@ K4_REPLACES = "aesara_tpu/link/jax/pallas_kernels.py:89"
 K5_REPLACES = "aesara_tpu/link/jax/bss.py:197"
 K6_REPLACES = "aesara_tpu/link/jax/bss.py:271"
 K7_REPLACES = "aesara_tpu/link/jax/bss.py:354"
+TF_SOURCE = "aesara_tpu_torch/link/torch/kernels/threefry.py"
+TF_REPLACES = "none: the JAX package draws by jax.random under XLA (aesara_tpu/link/jax/random_dispatch.py:16-37)"
 
 # the least time of a kernel: bytes over the H100's memory rate, flops over
 # its rate for the kernel's type: fp32 outside the tensor cores, or dense
@@ -263,6 +307,7 @@ NG_LOG_MU, NG_LOG_SIGMA = 4.85, 1.0
 NG_REQUEST_DOCS, NG_CPU_DOCS = 1000, 512
 # (b) bench_reference_ratio.py config 5 at REFRATIO_SCALE=4
 GLM_N, GLM_D, GLM_DENSITY = 16384, 8192, 0.01
+GLM_NOISE_SEED, GLM_NOISE = 42, 0.01     # its eps: RandomStream(seed=42).normal(size=(d,)) * 0.01
 SPARSE_LR = 0.1
 N_SPARSE_STEPS, N_SPARSE_TIMED = 3, 10
 SPLIT_WIDTHS = (1, 2, 4, 8, 16, 32)
@@ -293,8 +338,35 @@ DEC_INT8_COMPARED = 32
 SERVE_VOCAB, SERVE_SLOTS, SERVE_T_MAX, SERVE_T_PAD, SERVE_PROMPT, SERVE_NEW = 2048, 32, 256, 32, 16, 64
 SERVE_CHUNKS = (1, 16)
 N_DEC_CALLS, N_DEC_TIMED = 3, 10
-DEC_CAPTURE_STEPS = 32      # phase 8: greedy decode of this many tokens
+# phase 8: greedy decode of this many tokens (32 before path (h) came, cut
+# to keep the run's time), and sampled decode of this many
+DEC_CAPTURE_STEPS, SAMPLE_CAPTURE_STEPS = 16, 32
 TIE_REL = 1e-3              # a differing token is a tie where the CPU's top-2 gap is under this of the scale
+# (h) the decoder's cut features at (g)'s width (the JAX package's
+# aesara_tpu/models/decoder.py): sampling at temperature 0.8, alone and with
+# top-k 40; speculative decoding of 64 tokens after (g2)'s prompt with a
+# one-layer draft of seed 1 and 4 proposals a round, and the target as its
+# own draft at 33; beam search of 32 tokens with 4 beams, and of 8 with 1
+SAMPLE_T, SAMPLE_TOPK = 0.8, 40
+SPEC_NEW, SPEC_N, SPEC_SELF_NEW, SPEC_DRAFT_LAYERS, N_SPEC_CALLS = 64, 4, 33, 1, 3
+BEAM_NEW, BEAM, BEAM_ONE_NEW = 32, 4, 8
+# (h3) prompts (arange(256) * m) % 32000 for these m: (g2)'s, then two more
+BEAM_PROMPT_STRIDES = (7, 13, 31)
+# beam score, card against CPU: a sum of 32 log-probabilities in fp64 from
+# logits that pass through fp32 projections, which the card sums in
+# another order (1.5e-8 relative at (g2)'s prompt in each card run); the
+# same tokens' score by an fp32 path (log-softmax and sum in float32) is
+# 1.3e-7 off the CPU's there.  The tolerance lies between the two, and the
+# run fails if the fp32 path's score would pass it
+BEAM_SCORE_REL = 5e-8
+TF_SIZES = (1, 31, DEC_VOCAB, 2**20 + 3)   # values of the threefry checks
+# the CPU's side of the card-vs-CPU checks of paths (d), (g) and (h) is made
+# in a process of its own (cpu_reference) while the card runs the paths
+# before them; it takes this many of the host's cores
+CPU_REF_THREADS = 3
+# integer operations of one threefry2x32 hash: 20 rounds of add, rotate
+# (two shifts and an or) and xor, and 5 key injections of 3 adds
+TF_HASH_OPS = 20 * 5 + 5 * 3
 # the JAX package's FAST_RUN op counts of path (f)'s two steps at these
 # widths, outer graph then each Scan's inner graph, taken on the CPU with
 # tests/test_torch_rnn.py's op_counts (its config 4 graph keeps a second,
@@ -424,9 +496,10 @@ def device_split(fn, reps: int = 20, warmup: int = 3) -> dict:
         device = device_events(prof)
         if device:
             break
-        log(f"profiler session {attempt + 1} saw no device activity")
+        spins = sum("spin_kernel" in e.name for e in prof.events())
+        log(f"profiler session {attempt + 1} saw no device activity ({spins} spin kernels in its trace)")
     else:
-        raise RuntimeError("the profiler saw no device activity")
+        raise RuntimeError(f"the profiler saw no device activity in {PROFILE_ATTEMPTS} sessions")
     by_name: dict = {}
     for e in device:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / reps / 1e3
@@ -609,6 +682,9 @@ def phase_setup():
     t0 = time.perf_counter()
     warm_k4()
     log(f"K4 (CUDA) first launch (log-softmax of 4 x 5): {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    warm_tf()
+    log(f"threefry Triton compile + first launch (1,000 float64 values): {time.perf_counter() - t0:.2f} s")
     return smi
 
 
@@ -640,6 +716,22 @@ def warm_k4():
     torch.cuda.synchronize()
     if softmax_rows.launches != before + 1 or not torch.allclose(out, softmax_rows_plain(x, True), atol=1e-5):
         raise AssertionError("K4 warm-up did not launch or gave a wrong result")
+
+
+def warm_tf():
+    """Compile and launch the threefry kernel on a small draw, held bitwise
+    against its plain version and the host's next key."""
+    from aesara_tpu_torch.link.torch.kernels.threefry import threefry_draw, threefry_plain
+    from aesara_tpu_torch.tensor.random.op import prng_key, split
+
+    key = torch.as_tensor(prng_key(0)).cuda()
+    before = threefry_draw.launches
+    nk, u = threefry_draw(key, (1000,), "float64")
+    pk, want = threefry_plain(key, (1000,), "float64")
+    torch.cuda.synchronize()
+    if (threefry_draw.launches != before + 1 or not torch.equal(u, want)
+            or not np.array_equal(nk.cpu().numpy(), split(prng_key(0))[0])):
+        raise AssertionError("threefry warm-up did not launch or gave a wrong result")
 
 
 def phase_k1(fn, rng, skip=(), timed_shape=(BATCH, SEQ, D_MODEL)):
@@ -1125,7 +1217,8 @@ def kernel_group(name: str) -> str:
               ("softmax_group_kernel", "K4 row softmax"), ("softmax_block_kernel", "K4 row softmax"),
               ("softmax_two_pass_kernel", "K4 row softmax"),
               ("csr_spmv_kernel", "K5 CSR SpMV"), ("csr_spmm_kernel", "K6 CSR SpMM"),
-              ("csr_spmm_fixup_kernel", "K6 CSR SpMM"), ("csr_sddmm", "K7 CSR SDDMM"))
+              ("csr_spmm_fixup_kernel", "K6 CSR SpMM"), ("csr_sddmm", "K7 CSR SDDMM"),
+              ("threefry_kernel", "TF threefry draw"))
     for key, group in groups:
         if key in name:
             return group
@@ -1136,11 +1229,11 @@ def kernel_group(name: str) -> str:
     return "other torch"
 
 
-COUNTED = ("K1", "K2", "K3", "K4", "K5", "K6", "K7")
+COUNTED = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "TF")
 
 
 def counted_kernel(name: str):
-    """The counter ("K1"-"K7") whose one launch this device kernel marks,
+    """The counter ("K1"-"K7", "TF") whose one launch this device kernel marks,
     or None: each wrapper call runs one such kernel (K3's dk/dv pass and
     K6's fix-up pass, second kernels of the same call, mark none; the
     forward that K3 runs again before its backward is a K2 launch, and
@@ -1181,7 +1274,7 @@ def profile_session(fn, label: str, steps: int = PROFILE_STEPS, gap: float = PRO
     ms).  A trace without a marker counts no launches."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    for attempt in range(3):
+    for attempt in range(PROFILE_ATTEMPTS):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=steps + 1, repeat=1)) as prof:
             fn()
@@ -1361,6 +1454,17 @@ def compare_state(label: str, gpu, cpu, tol: float, cancel_atol=None, params=())
     log(f"{label}, card vs CPU: {len(gpu)} state variables, max abs err {worst:.3e} (tolerance {tol}){extra}")
 
 
+def adamw_cpu_reference() -> dict:
+    """(d)'s CPU twin, made in ``cpu_reference``'s process: the AdamW step
+    at batch 1 for N_ADAMW_CPU_STEPS steps; each step's loss, and every
+    update target's name and float64 values after them."""
+    t0 = time.perf_counter()
+    step, params, state = build_train_step("cpu", batch=1, optimizer="adamw")
+    losses = [_host(step()) for _ in range(N_ADAMW_CPU_STEPS)]
+    return {"losses": losses, "state": [(v.name, v.value.double().numpy()) for v in state],
+            "params": {p.name for p in params}, "seconds": time.perf_counter() - t0}
+
+
 def phase_adamw(sgd_ops):
     """Path 4d: the flagship encoder trained with AdamW.  Returns K1's
     error, times and bound on the AdamW Composites, the launches of the 3
@@ -1390,17 +1494,17 @@ def phase_adamw(sgd_ops):
     del step, params
     release()
     t0 = time.perf_counter()
-    (step_gpu, _, state_gpu), (step_cpu, params_cpu, state_cpu) = (
-        build_train_step(dev, batch=1, optimizer="adamw") for dev in ("cuda", "cpu"))
-    for _ in range(N_ADAMW_CPU_STEPS):
-        loss_gpu, loss_cpu = step_gpu().cpu(), step_cpu()
-        torch.testing.assert_close(loss_gpu, loss_cpu, atol=TRAIN_TOL, rtol=TRAIN_TOL)
+    step_gpu, _, state_gpu = build_train_step("cuda", batch=1, optimizer="adamw")
+    ref = cpu_reference("adamw")
+    for loss_cpu in ref["losses"]:
+        torch.testing.assert_close(step_gpu().cpu(), torch.as_tensor(loss_cpu), atol=TRAIN_TOL, rtol=TRAIN_TOL)
     # the largest lr of the compared steps (the schedule at s = 0, 1); an
     # update is at most lr a step (m_hat / sqrt(v_hat) is +-1 when every
     # gradient so far is the same), and 0.1% more covers its rounding
     lr_max = ADAMW_LR * (N_ADAMW_CPU_STEPS - 1) / ADAMW_WARMUP
+    state_cpu = [SimpleNamespace(name=name, value=torch.from_numpy(value)) for name, value in ref["state"]]
     compare_state(f"(d) AdamW at batch 1 after {N_ADAMW_CPU_STEPS} steps", state_gpu, state_cpu, TRAIN_TOL,
-                  cancel_atol=2 * lr_max * 1.001, params={p.name for p in params_cpu})
+                  cancel_atol=2 * lr_max * 1.001, params=ref["params"])
     log(f"(d) card-vs-CPU check: {time.perf_counter() - t0:.2f} s")
     return {"k1_err": k1_err, "k1_times": k1_times, "launches": launches, "ms": ms, "peak": peak}
 
@@ -1412,8 +1516,10 @@ def phase_adamw(sgd_ops):
 def _all_counters():
     from aesara_tpu_torch.link.torch.kernels.softmax import softmax_rows
     from aesara_tpu_torch.link.torch.kernels.sparse import csr_sddmm, csr_spmm, csr_spmv
+    from aesara_tpu_torch.link.torch.kernels.threefry import threefry_draw
 
-    return {**_counters(), "K4": softmax_rows, "K5": csr_spmv, "K6": csr_spmm, "K7": csr_sddmm}
+    return {**_counters(), "K4": softmax_rows, "K5": csr_spmv, "K6": csr_spmm, "K7": csr_sddmm,
+            "TF": threefry_draw}
 
 
 def zero_counters():
@@ -1769,18 +1875,22 @@ def glm_updates(recipe: str, loss, w):
 
 
 def build_glm(device: str, xv, yv, wv, recipe: str = "sgd", use_graph=None):
-    """The GLM step of bench_reference_ratio.py:290-295 without eps:
-    pred = structured_dot(x, w[:, None]).flatten(), mean((pred - y)^2),
-    one update of w by sgd or another optimizer: (step, update targets)."""
+    """The GLM step of bench_reference_ratio.py:287-296 (config 5) as the
+    benchmark builds it: Monte-Carlo noise eps = RandomStream(42).normal(
+    size=(d,)) * 0.01, drawn anew each step; pred = structured_dot(x, (w +
+    eps)[:, None]).flatten(), mean((pred - y)^2), one update of w by sgd
+    or another optimizer: (step, update targets)."""
     import aesara_tpu_torch as ptp
     from aesara_tpu_torch import sparse
     from aesara_tpu_torch.config import config
     from aesara_tpu_torch.tensor import math as tm
+    from aesara_tpu_torch.tensor.random.utils import RandomStream
     from aesara_tpu_torch.tensor.shape import shape_padright
 
     with config.change_flags(device=device, floatX="float32"):
         x, y, w = ptp.shared(xv, name="x"), ptp.shared(yv, name="y"), ptp.shared(wv, name="w")
-        pred = sparse.structured_dot(x, shape_padright(w)).flatten()
+        eps = RandomStream(seed=GLM_NOISE_SEED).normal(size=(wv.shape[0],), dtype="float32") * np.float32(GLM_NOISE)
+        pred = sparse.structured_dot(x, shape_padright(w + eps)).flatten()
         loss = tm.mean(tm.sqr(pred - y))
         updates = glm_updates(recipe, loss, w)
     step = ptp.function([], ptp.Out(loss, borrow=True), updates=updates,
@@ -1804,7 +1914,7 @@ def phase_glm_optimizers(xv, yv, wv) -> float:
         zero_counters()
         losses = [step() for _ in range(steps)]
         torch.cuda.synchronize()
-        read_counters({"K1": n_composite, "K5": 2}, f"(b) GLM {recipe}", steps)
+        read_counters({"K1": n_composite, "K5": 2, "TF": 1}, f"(b) GLM {recipe}", steps)
         step_cpu, state_cpu = build_glm("cpu", xv, yv, wv, recipe)
         losses_cpu = [step_cpu() for _ in range(steps)]
         for got, want in zip(losses, losses_cpu):
@@ -1819,6 +1929,53 @@ def phase_glm_optimizers(xv, yv, wv) -> float:
         require_captured(step, f"(b) GLM {recipe}")
         log(f"(b) GLM {recipe}: losses {[float(v) for v in losses]}; {time.perf_counter() - t0:.2f} s")
     return k1_err
+
+
+def rng_key(fn):
+    """The PRNG key shared variable a compiled function reads."""
+    return next(v for v in fn.fn.shared_inputs if type(v.type).__name__ == "RandomGeneratorType")
+
+
+def key_after(key0, n: int) -> np.ndarray:
+    """The host's key after ``n`` draws from ``key0`` (each takes the first
+    key of a split), as ``jax.random`` would give it."""
+    from aesara_tpu_torch.tensor.random.op import split
+
+    key = np.asarray(key0, dtype=np.uint32)
+    for _ in range(n):
+        key = split(key)[0]
+    return key
+
+
+def check_key(var, key0, n: int, label: str):
+    """A key shared variable holds the host's key after ``n`` draws from
+    ``key0``, bit for bit: every call, replays included, read the key its
+    storage held and wrote the next one."""
+    got, want = var.get_value(), key_after(key0, n)
+    log(f"{label}: key after {n} draws {got.tolist()}, the host's {want.tolist()}")
+    if got.dtype != np.uint32 or not np.array_equal(got, want):
+        raise AssertionError(f"{label}: key {got} after {n} draws, the host gives {want}")
+
+
+def glm_key0() -> np.ndarray:
+    """The first key RandomStream(seed=GLM_NOISE_SEED) makes."""
+    from aesara_tpu_torch.tensor.random.op import fold_in, prng_key
+
+    return fold_in(prng_key(GLM_NOISE_SEED), 0)
+
+
+def check_glm_against_cpu(w, xv, yv, wv):
+    """w after the counted steps on the card against the same steps on the
+    CPU from the same seeds (the same noise: the keys are the same)."""
+    step_cpu, targets_cpu = build_glm("cpu", xv, yv, wv)
+    for _ in range(N_SPARSE_STEPS):
+        step_cpu()
+    got, want = w.get_value(), targets_cpu[0].get_value()
+    diff = float(np.abs(got - want).max())
+    log(f"(b) GLM: w after {N_SPARSE_STEPS} steps, card against CPU: largest difference {diff:.3e} "
+        f"(tolerance {SPARSE_TOL})")
+    if not np.allclose(got, want, atol=SPARSE_TOL, rtol=SPARSE_TOL):
+        raise AssertionError(f"(b) GLM: w differs from the CPU's by {diff}")
 
 
 def phase_glm():
@@ -1848,7 +2005,7 @@ def phase_glm():
     del a
 
     t0 = time.perf_counter()
-    step, _ = build_glm("cuda", xv, yv, wv)
+    step, targets = build_glm("cuda", xv, yv, wv)
     log(f"(b) compile (graph + grad + rewrites + link): {time.perf_counter() - t0:.2f} s")
     names = node_names(step.maker.fgraph)
     n_composite = len(composite_nodes(step))
@@ -1856,13 +2013,25 @@ def phase_glm():
         f"{names.count('DenseFromSparse')} DenseFromSparse, {n_composite} Composite; {blas_counts(step)}")
     if names.count("StructuredDot") != 2 or "DenseFromSparse" in names:
         raise AssertionError(f"GLM graph: {names}")
+    key, key0 = rng_key(step), glm_key0()
+    if not np.array_equal(key.get_value(), key0):
+        raise AssertionError("(b) GLM: the noise's key is not the stream's first key")
     torch.cuda.synchronize()
     reset_peak()
     zero_counters()
     losses = run_steps(step, N_SPARSE_STEPS, "(b) GLM")
-    launches = read_counters({"K1": n_composite, "K5": 2}, "(b) GLM train", N_SPARSE_STEPS)
+    launches = read_counters({"K1": n_composite, "K5": 2, "TF": 1}, "(b) GLM train", N_SPARSE_STEPS)
     check_sparse_losses(losses, "(b) GLM")
-    t = time_steps(step, N_SPARSE_TIMED, "(b) GLM train step")
+    check_key(key, key0, N_SPARSE_STEPS, "(b) GLM, the counted steps")
+    check_glm_against_cpu(targets[0], xv, yv, wv)
+    calls = [0]
+
+    def counted():
+        calls[0] += 1
+        return step()
+
+    t = time_steps(counted, N_SPARSE_TIMED, "(b) GLM train step")
+    check_key(key, key0, N_SPARSE_STEPS + calls[0], "(b) GLM, every call (a draw each, the replays' too)")
     ms, peak, traced = t["ms"], t["peak"], t["traced"]
     require_captured(step, "(b) GLM train step")
     log(f"(b) GLM: {1e3 / ms:.1f} steps/s")
@@ -2312,12 +2481,13 @@ def scan_op_counts(fn) -> list:
 
 
 def scan_launches(fn, steps: int = SCAN_T) -> tuple:
-    """(K1 and K4 launches one call of ``fn`` makes, its Composite nodes on
-    the card): its own, and each Scan's inner program's times its trip
-    count (every Scan of path (f) runs ``steps`` steps)."""
+    """(K1, K4 and threefry launches one call of ``fn`` makes, its Composite
+    nodes on the card): its own, and each Scan's inner program's times its
+    trip count (every Scan of ``fn`` runs ``steps`` steps)."""
     from aesara_tpu_torch.scalar.composite import Composite
+    from aesara_tpu_torch.tensor.random.op import RandomVariable
 
-    counts, nodes = {"K1": 0, "K4": 0}, []
+    counts, nodes = {"K1": 0, "K4": 0, "TF": 0}, []
 
     def walk(program, times):
         for node, fn_, fold in zip(program.order, program.fns, program.folds):
@@ -2328,6 +2498,8 @@ def scan_launches(fn, steps: int = SCAN_T) -> tuple:
                 nodes.append(node)
             elif type(node.op).__name__ in ("Softmax", "LogSoftmax"):
                 counts["K4"] += times
+            elif isinstance(node.op, RandomVariable):
+                counts["TF"] += times
             elif type(node.op).__name__ == "Scan":
                 walk(fn_.program, times * steps)
 
@@ -2534,10 +2706,13 @@ def decoder_composites(fn, full) -> list:
     return [(n, full) for n in nodes]
 
 
-def run_decoder_fn(fn, call, label: str, steps: int, tokens_per_call: int, unit: str = "tokens") -> dict:
+def run_decoder_fn(fn, call, label: str, steps: int, tokens_per_call: int, unit: str = "tokens",
+                   sampled: bool = False) -> dict:
     """3 counted calls (eager, capture, replay, timed each), 10 timed back
     to back and 3 profiled of one decoder function: its launches, tokens/s,
-    host time, busy share, kernels a call, peak and reserved memory."""
+    host time, busy share, kernels a call, peak and reserved memory.  The
+    calls give the same tokens, or with ``sampled`` each call other tokens
+    than the one before (the key advances every call)."""
     start = time.perf_counter()
     per_call, nodes = scan_launches(fn, steps=steps)
     log(f"{label}: launches a call {per_call} ({len(nodes)} Composite nodes, inner ones counted once; "
@@ -2554,9 +2729,13 @@ def run_decoder_fn(fn, call, label: str, steps: int, tokens_per_call: int, unit:
     require_captured(fn, label)
     if fn.capture_blocker is not None:
         raise AssertionError(f"{label}: capture blocked by {fn.capture_blocker}")
-    for o in outs[1:]:
-        if not np.array_equal(o, outs[0]):
-            raise AssertionError(f"{label}: a replay gave other tokens than the eager call")
+    def same(a, b):
+        return all(np.array_equal(x, y) for x, y in zip(a, b)) if isinstance(a, list) else np.array_equal(a, b)
+
+    for prev, o in zip(outs, outs[1:]):
+        if sampled == same(o, prev if sampled else outs[0]):
+            raise AssertionError(f"{label}: a call gave the tokens of the one before" if sampled
+                                 else f"{label}: a replay gave other tokens than the eager call")
     t = time_steps(call, N_DEC_TIMED, label)
     rate = tokens_per_call / t["ms"] * 1e3
     busy = (f"{t['busy']:.3f} of {t['wall']:.3f} ms ({100 * t['busy'] / t['wall']:.1f}%)"
@@ -2565,7 +2744,8 @@ def run_decoder_fn(fn, call, label: str, steps: int, tokens_per_call: int, unit:
         f"{secs[2] * 1e3:.3f} ms; {t['ms']:.3f} ms a call back to back = {rate:.1f} {unit}/s; host "
         f"{t['host']:.3f} ms a call; device busy {busy}; a replay's device events {t['events']}; peak "
         f"{t['peak']:.3f} GiB, reserved {t['reserved']:.3f} GiB; {time.perf_counter() - start:.1f} s in all")
-    return dict(t, launches=launches, rate=rate, out=outs[0], eager_s=secs[0], capture_s=secs[1] - secs[2])
+    return dict(t, launches=launches, rate=rate, out=outs[0], outs=outs, eager_s=secs[0],
+                capture_s=secs[1] - secs[2])
 
 
 def run_batcher(srv, chunk: int, prompts, label: str, oracle, reference) -> dict:
@@ -2616,7 +2796,7 @@ def run_batcher(srv, chunk: int, prompts, label: str, oracle, reference) -> dict
     return dict(t, rate=n_tok / wall, launches=({k: 0 for k in COUNTED}, dict(replayed)), wall=wall, steps=steps)
 
 
-def phase_decoder() -> dict:
+def phase_decoder(seen=None) -> dict:
     """Path (g): the decoder served on the card (see the module docstring).
     Every function is compiled first, and K1 and K4 are held against their
     plain versions at its shapes before the loops run."""
@@ -2646,7 +2826,7 @@ def phase_decoder() -> dict:
     for srv in servers.values():
         nodes += decoder_composites(srv._decode, (SERVE_SLOTS, SERVE_T_MAX))
         nodes += decoder_composites(srv._prefill, (SERVE_PROMPT, SERVE_PROMPT, SERVE_PROMPT))
-    out["composites"] = check_decoder_composites(nodes)
+    out["composites"] = check_decoder_composites(nodes, "(g)", seen)
     log(f"(g) K1 on {len(out['composites'])} distinct Composites: {time.perf_counter() - t0:.1f} s")
     rng = torch.Generator(device="cuda").manual_seed(24)
     out["k4"] = {name: check_k4(torch.randn(shape, device="cuda", dtype=torch.float64, generator=rng) * 3,
@@ -2658,8 +2838,8 @@ def phase_decoder() -> dict:
     # (g1) greedy KV-cache decode
     g1 = run_decoder_fn(gen, lambda: gen(np.int64(DEC_FIRST)), "(g1) greedy decode", DEC_STEPS, DEC_STEPS)
     t0 = time.perf_counter()
-    want = _host(cpu.generate_fn(DEC_STEPS, DEC_T_MAX, mode=decoder_mode(device="cpu"))(np.int64(DEC_FIRST)))
-    log(f"(g1) the same graph on the CPU: {time.perf_counter() - t0:.2f} s")
+    want = cpu_reference("decoder")["g1"]
+    log(f"(g1) the same graph on the CPU: waited {time.perf_counter() - t0:.2f} s")
     g1["agree"] = tie_rule("(g1) greedy decode, card against CPU", g1["out"], want, [DEC_FIRST], oracle)
     log(f"(g1) greedy decode: {g1['agree']} of {DEC_STEPS} tokens agree with the CPU's")
     eager = lm.generate_fn(n_steps=DEC_CAPTURE_STEPS, t_max=DEC_T_MAX, mode=decoder_mode(False))
@@ -2726,11 +2906,12 @@ def phase_decoder() -> dict:
     return out
 
 
-def check_decoder_composites(nodes) -> list:
-    """K1 on each distinct Composite of path (g) (by its scalar ops and its
-    inputs' shapes and dtypes) against its plain version at the shapes the
-    path gives it."""
-    seen, rows = set(), []
+def check_decoder_composites(nodes, label: str = "(g)", seen=None) -> list:
+    """K1 on each distinct Composite of a decoder path (by its scalar ops and
+    its inputs' shapes and dtypes) against its plain version at the shapes
+    the path gives it; ``seen`` (updated) holds the ones checked before."""
+    seen = set() if seen is None else seen
+    rows = []
     for node, full in nodes:
         full = full + (1,) * 5
         ops = ".".join(sorted(type(n.op).__name__ for n in node.op.scalar_op.nodes))
@@ -2739,14 +2920,361 @@ def check_decoder_composites(nodes) -> list:
         if key in seen:
             continue
         seen.add(key)
-        rows += check_composites([node], "(g)", np.random.default_rng(51), full=full)
+        rows += check_composites([node], label, np.random.default_rng(51), full=full)
     return rows
+
+
+def gumbel_uniforms(key) -> np.ndarray:
+    """The uniforms of the sampled decode's draw from ``key`` (the key
+    before the draw), as the graph makes them: JAX's float64 uniforms
+    from the threefry plain version, moved onto [1e-6, 1 - 1e-6] and
+    rounded to float32."""
+    from aesara_tpu_torch.link.torch.kernels.threefry import threefry_plain
+
+    _, u = threefry_plain(torch.as_tensor(np.asarray(key, dtype=np.uint32)), (DEC_VOCAB,), "float64")
+    low, high = np.float32(1e-6), np.float32(1.0 - 1e-6)
+    return (u.numpy() * np.float64(high - low) + np.float64(low)).astype("float32")
+
+
+def noisy_scores(logits, u, top_k: int) -> np.ndarray:
+    """The scores whose argmax a sampled decode step takes, in float64:
+    ``logits`` / T minus log(-log ``u``); below the top-k -inf (the graph
+    puts -1e9 there before the noise, which no kept score can lose to)."""
+    scores = logits / SAMPLE_T - np.log(-np.log(u)).astype("float64")
+    if top_k:
+        scores = np.where(logits >= np.sort(logits)[-top_k], scores, -np.inf)
+    return scores
+
+
+def sample_tie_rule(label: str, got, want, prefix, oracle, key, top_k: int) -> int:
+    """The tie rule of a sampled decode: ``got`` against ``want``, equal up
+    to a first difference at a step where the CPU's scores of the two
+    tokens (``noisy_scores`` of its logits and that step's uniforms, from
+    the host's key chain of the loop from ``key``, the key at the call's
+    start) differ by under TIE_REL of the scores' scale, the largest
+    finite one.  A token below the top-k scores -inf: never a tie."""
+    got, want = [int(t) for t in got], [int(t) for t in want]
+    if got == want:
+        return len(got)
+    k = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+    logits = _host(oracle(np.asarray(list(prefix) + want[:k], dtype="int64"))).astype("float64")
+    scores = noisy_scores(logits, gumbel_uniforms(key_after(key, k)), top_k)
+    gap = abs(float(scores[want[k]] - scores[got[k]]))
+    scale = float(np.abs(scores[np.isfinite(scores)]).max())
+    log(f"{label}: first difference at token {k} ({got[k]} against {want[k]}); their noisy scores differ by "
+        f"{gap:.3e} there, {gap / scale:.3e} of the scores' scale (tie rule: under {TIE_REL})")
+    if not gap < TIE_REL * scale:
+        raise AssertionError(f"{label}: token {k} differs ({got[k]} against {want[k]}) where the gap of their "
+                             f"scores {gap:.3e} is not a tie")
+    return k
+
+
+def path_scores(oracle, prompt, toks) -> tuple:
+    """The summed log-probability of ``toks`` after ``prompt`` from the
+    oracle's logits at each step, by an fp64 path and by an fp32 one (the
+    logits rounded to float32, their log-softmax and the sum in float32)."""
+    s64, s32 = 0.0, np.float32(0.0)
+    for t, tok in enumerate(toks):
+        logits = _host(oracle(np.concatenate([prompt, np.asarray(toks[:t], dtype="int64")])))
+        l64 = logits.astype("float64")
+        s64 += float(l64[tok] - (l64.max() + np.log(np.sum(np.exp(l64 - l64.max())))))
+        l32 = logits.astype("float32")
+        lse32 = l32.max() + np.log(np.sum(np.exp(l32 - l32.max()), dtype=np.float32))
+        s32 = np.float32(s32 + (l32[tok] - lse32))
+    return s64, float(s32)
+
+
+def check_threefry() -> dict:
+    """The threefry kernel bitwise against its plain version at TF_SIZES
+    values in each mode (32 and 64 bits, float32 and float64 on [0, 1)),
+    from keys of seeds 0 and 42 and an all-ones key, its next key against
+    the host's; then its time at the decoder's draw, (32000,) in float64
+    (the sampling path's) and float32, against the plain version's, with
+    its bound: the bytes it writes over the memory rate (its integer
+    operations, TF_HASH_OPS a value, counted at the fp32 rate outside the
+    tensor cores, are under that)."""
+    from aesara_tpu_torch.link.torch.kernels.threefry import MODES, threefry_draw, threefry_plain
+    from aesara_tpu_torch.tensor.random.op import prng_key, split
+
+    keys = {"seed 0": prng_key(0), "seed 42": prng_key(42), "all ones": np.full(2, 0xFFFFFFFF, np.uint32)}
+    t0 = time.perf_counter()
+    checked = 0
+    for name, data in keys.items():
+        key = torch.as_tensor(data).cuda()
+        for n in TF_SIZES:
+            for mode in MODES:
+                nk, out = threefry_draw(key, (n,), mode)
+                pk, want = threefry_plain(key, (n,), mode)
+                torch.cuda.synchronize()
+                if not (torch.equal(nk.view(torch.int32), pk.view(torch.int32)) and torch.equal(out, want)
+                        and np.array_equal(nk.cpu().numpy(), split(data)[0])):
+                    raise AssertionError(f"threefry kernel, key {name}, {n} values, {mode}: not its plain version's "
+                                         f"bits")
+                checked += 1
+    log(f"threefry kernel: {checked} draws ({len(keys)} keys x {TF_SIZES} values x {MODES}) bitwise equal to "
+        f"the plain version, next keys the host's: {time.perf_counter() - t0:.2f} s")
+    key = torch.as_tensor(prng_key(0)).cuda()
+    res = {"max_abs_err": 0.0, "library_ms": None}
+    for mode in ("float64", "float32"):
+        ms = device_ms(lambda: threefry_draw(key, (DEC_VOCAB,), mode))
+        plain_ms = device_ms(lambda: threefry_plain(key, (DEC_VOCAB,), mode))
+        width = 8 if mode == "float64" else 4
+        b_ms, b_by = bound(2 * 8 + DEC_VOCAB * width, DEC_VOCAB * TF_HASH_OPS)
+        log(f"threefry kernel at ({DEC_VOCAB},) {mode}: {ms:.4f} ms, plain version {plain_ms:.4f} ms, bound "
+            f"{b_ms:.5f} ms ({b_by}); no PyTorch call computes threefry2x32")
+        res[mode] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    res.update(res["float64"])
+    return res
+
+
+def prepare_sampling(seen: set) -> dict:
+    """Path (h)'s set-up (see the module docstring): the threefry kernel
+    held against its plain version and timed, the models and every
+    function of (h) compiled, K1 on every Composite of (h) (but those in
+    ``seen``, updated) and K4 at its new softmax widths against their
+    plain versions.  The main run makes it before path (g): late in the
+    run, after (g)'s profiles of 50,000-kernel calls, the profiler's
+    sessions came back empty or with kernels of a fifth of their time
+    (PERF.md section 7), so the kernels are timed first."""
+    from aesara_tpu_torch.config import config
+    from aesara_tpu_torch.models.decoder import DecoderLM
+
+    t_start = time.perf_counter()
+    out = {"tf": check_threefry()}
+    t0 = time.perf_counter()
+    lm, cpu = build_decoder("cuda"), build_decoder("cpu")
+    with config.change_flags(floatX="float32"):
+        draft = DecoderLM(DEC_VOCAB, SPEC_DRAFT_LAYERS, DEC_D, DEC_HEADS, DEC_FF, seed=1)
+        fns = dict(sampled={k: lm.generate_fn(DEC_STEPS, DEC_T_MAX, temperature=SAMPLE_T, top_k=k,
+                                              mode=decoder_mode()) for k in (0, SAMPLE_TOPK)},
+                   spec=lm.speculative_generate_fn(draft, DEC_PROMPT, SPEC_NEW, DEC_T_MAX, n_spec=SPEC_N,
+                                                   mode=decoder_mode()),
+                   spec_self=lm.speculative_generate_fn(lm, DEC_PROMPT, SPEC_SELF_NEW, DEC_T_MAX, n_spec=SPEC_N,
+                                                        mode=decoder_mode()),
+                   beam=lm.beam_search_fn(DEC_PROMPT, BEAM_NEW, DEC_T_MAX, beam=BEAM, mode=decoder_mode()),
+                   beam_one=lm.beam_search_fn(DEC_PROMPT, BEAM_ONE_NEW, DEC_T_MAX, beam=1, mode=decoder_mode()))
+    log(f"(h) the draft DecoderLM({DEC_VOCAB}, {SPEC_DRAFT_LAYERS}, ...) and every function of (h) compiled: "
+        f"{time.perf_counter() - t0:.2f} s")
+    for label in ("spec", "spec_self"):
+        blocker = fns[label].fn.capture_blocker
+        if blocker is None or "until" not in blocker:
+            raise AssertionError(f"(h2) {label}: expected to run eagerly (its until), blocker {blocker}")
+    t0 = time.perf_counter()
+    sampled = fns["sampled"]
+    nodes = (decoder_composites(sampled[0], (DEC_VOCAB,)) + decoder_composites(sampled[SAMPLE_TOPK], (DEC_VOCAB,))
+             + decoder_composites(fns["spec"], (SPEC_N, DEC_T_MAX))
+             + decoder_composites(fns["beam"].function, (BEAM, DEC_T_MAX)))
+    out["composites"] = check_decoder_composites(nodes, "(h)", seen)
+    log(f"(h) K1 on {len(out['composites'])} distinct Composites not checked before: "
+        f"{time.perf_counter() - t0:.1f} s")
+    rng = torch.Generator(device="cuda").manual_seed(25)
+    out["k4"] = {name: check_k4(torch.randn(shape, device="cuda", dtype=torch.float64, generator=rng) * 3,
+                                log_softmax=False)
+                 for name, shape in (("h3 beam", (BEAM * DEC_HEADS, DEC_T_MAX)),
+                                     ("h2 verify block", (SPEC_N * DEC_HEADS, DEC_T_MAX)))}
+    out.update(fns, lm=lm, cpu=cpu, draft=draft, setup_s=time.perf_counter() - t_start)
+    return out
+
+
+def beam_prompt(m: int) -> np.ndarray:
+    """(h3)'s prompt of stride ``m``: (arange(256) * m) % 32000."""
+    return (np.arange(DEC_PROMPT, dtype="int64") * m) % DEC_VOCAB
+
+
+def cpu_decoder_references() -> dict:
+    """Paths (g)'s and (h)'s CPU side, made in ``cpu_reference``'s process:
+    (g1)'s 256 greedy tokens; (h1)'s from call 3's key (the host's after
+    N_DEC_CALLS - 1 draws from the stream's first), alone and with top-k;
+    (h3)'s best sequence and score at each of BEAM_PROMPT_STRIDES' prompts,
+    and the first one's tokens scored by ``path_scores``."""
+    from aesara_tpu_torch.config import config
+    from aesara_tpu_torch.tensor.random.op import fold_in, prng_key
+
+    t0 = time.perf_counter()
+    cpu = build_decoder("cpu")
+    refs = {"g1": _host(cpu.generate_fn(DEC_STEPS, DEC_T_MAX, mode=decoder_mode(device="cpu"))(np.int64(DEC_FIRST)))}
+    for k in (0, SAMPLE_TOPK):
+        with config.change_flags(device="cpu", floatX="float32"):
+            ref = cpu.generate_fn(DEC_STEPS, DEC_T_MAX, temperature=SAMPLE_T, top_k=k, mode=decoder_mode(device="cpu"))
+        rng_key(ref).set_value(key_after(fold_in(prng_key(0), 0), N_DEC_CALLS - 1))
+        refs[f"h1k{k}"] = _host(ref(np.int64(DEC_FIRST)))
+    with config.change_flags(device="cpu", floatX="float32"):
+        beam = cpu.beam_search_fn(DEC_PROMPT, BEAM_NEW, DEC_T_MAX, beam=BEAM, mode=decoder_mode(device="cpu"))
+    refs["h3"] = {m: beam(beam_prompt(m)) for m in BEAM_PROMPT_STRIDES}
+    first = BEAM_PROMPT_STRIDES[0]
+    refs["h3_paths"] = path_scores(last_logits_fn(cpu), beam_prompt(first), refs["h3"][first][0])
+    refs["seconds"] = time.perf_counter() - t0
+    return refs
+
+
+#: the jobs of ``cpu_reference``'s process, in the order it runs them
+CPU_REF_JOBS = {"adamw": adamw_cpu_reference, "decoder": cpu_decoder_references}
+_CPU_REFS: dict = {}
+
+
+def _cpu_ref_worker():
+    torch.set_num_threads(CPU_REF_THREADS)
+
+
+def start_cpu_references(*names):
+    """Start the jobs ``names`` of CPU_REF_JOBS, in that order, in one
+    spawned process (it touches no CUDA); at exit it is ended."""
+    import atexit
+    import multiprocessing
+
+    pool = multiprocessing.get_context("spawn").Pool(1, initializer=_cpu_ref_worker)
+    atexit.register(pool.terminate)
+    _CPU_REFS.update(pool=pool, jobs={name: pool.apply_async(CPU_REF_JOBS[name]) for name in names})
+
+
+def cpu_reference(name: str) -> dict:
+    """Job ``name``'s result (see CPU_REF_JOBS), waited for; the job is
+    started here where ``start_cpu_references`` did not start it."""
+    if name not in _CPU_REFS.get("jobs", {}):
+        stop_cpu_references()
+        start_cpu_references(name)
+    t0 = time.perf_counter()
+    result = _CPU_REFS["jobs"][name].get()
+    log(f"CPU reference {name!r}: made in {result['seconds']:.2f} s in its own process, waited "
+        f"{time.perf_counter() - t0:.2f} s for it")
+    return result
+
+
+def stop_cpu_references():
+    """End ``cpu_reference``'s process once its jobs are done."""
+    pool = _CPU_REFS.pop("pool", None)
+    if pool is not None:
+        pool.close()
+        pool.join()
+    _CPU_REFS.clear()
+
+
+def phase_sampling(prep: dict, greedy=None) -> dict:
+    """Path (h)'s runs, on what ``prepare_sampling`` made (see the module
+    docstring); ``greedy``: (g1)'s tokens, else (h) decodes them itself.
+    Returns the set-up's checks and each sub-path's results."""
+    from aesara_tpu_torch.tensor.random.op import fold_in, prng_key
+
+    t_start = time.perf_counter()
+    out = {k: prep[k] for k in ("tf", "composites", "k4")}
+    lm, cpu, sampled = prep["lm"], prep["cpu"], prep.pop("sampled")
+    spec, spec_self, beam, beam_one = (prep.pop(k) for k in ("spec", "spec_self", "beam", "beam_one"))
+    oracle = last_logits_fn(cpu)
+
+    # (h1) sampling: each call advances the key once (the stream's default
+    # update draws outside the loop, as in the JAX package), so each call
+    # draws other noise; call 3 (a replay) against the CPU from the same key
+    key0 = fold_in(prng_key(0), 0)
+    prompt = beam_prompt(BEAM_PROMPT_STRIDES[0])
+    refs = cpu_reference("decoder")
+    if greedy is None:
+        greedy = _host(lm.generate_fn(DEC_STEPS, DEC_T_MAX, mode=decoder_mode(False))(np.int64(DEC_FIRST)))
+    for k, fn in sampled.items():
+        label = f"(h1) sampled decode, T {SAMPLE_T}" + (f", top-k {k}" if k else "")
+        key = rng_key(fn)
+        calls = [0]
+
+        def counted(fn=fn):
+            calls[0] += 1
+            return fn(np.int64(DEC_FIRST))
+
+        r = run_decoder_fn(fn, counted, label, DEC_STEPS, DEC_STEPS, sampled=True)
+        if r["launches"][0]["TF"] != 2 * (DEC_STEPS + 1):
+            raise AssertionError(f"{label}: {r['launches'][0]['TF']} threefry launches in the eager and capture "
+                                 f"calls, expected {2 * (DEC_STEPS + 1)}")
+        check_key(key, key0, calls[0], f"{label}, every call")
+        want = refs[f"h1k{k}"]
+        r["agree"] = sample_tie_rule(f"{label}, call {N_DEC_CALLS} (a replay), card against CPU",
+                                     r["outs"][-1], want, [DEC_FIRST], oracle,
+                                     key_after(key0, N_DEC_CALLS - 1), k)
+        same = int(np.sum(r["outs"][0] == greedy))
+        log(f"{label}: {r['agree']} of {DEC_STEPS} tokens of call {N_DEC_CALLS} agree with the "
+            f"CPU's; the calls differ from each other; call 1 shares {same} of {DEC_STEPS} tokens with greedy decode")
+        if same == DEC_STEPS:
+            raise AssertionError(f"{label}: the sampled tokens are the greedy ones")
+        out[f"h1k{k}"] = r
+    del sampled
+    release()
+
+    # (h2) speculative decoding: a while-Scan, eager; against the target's
+    # own greedy decode of the same prompt on the card
+    for label, fn, n_new in ((f"(h2) speculative, a {SPEC_DRAFT_LAYERS}-layer draft", spec, SPEC_NEW),
+                             ("(h2) speculative, self-draft", spec_self, SPEC_SELF_NEW)):
+        ref_fn = lm.generate_from_prompt_fn(DEC_PROMPT, n_new, DEC_T_MAX, mode=decoder_mode())
+        want = _host(ref_fn(prompt))
+        torch.cuda.synchronize()
+        zero_counters()
+        secs, toks = [], []
+        for _ in range(N_SPEC_CALLS):
+            t0 = time.perf_counter()
+            toks.append(_host(fn(prompt)))
+            secs.append(time.perf_counter() - t0)
+        counters = _all_counters()
+        launched = {k: counters[k].launches for k in COUNTED if counters[k].launches}
+        for o in toks[1:]:
+            if not np.array_equal(o, toks[0]):
+                raise AssertionError(f"{label}: calls gave other tokens")
+        agree = tie_rule(f"{label}, against the target's greedy decode", toks[0], want, list(prompt), oracle)
+        rate = n_new / min(secs) if secs else 0.0
+        log(f"{label}: {N_SPEC_CALLS} eager calls {', '.join(f'{t:.3f}' for t in secs)} s ({n_new} tokens a call: "
+            f"{rate:.1f} tokens/s at the fastest); launches in them {launched}; {agree} of {n_new} tokens agree "
+            f"with generate_from_prompt_fn ({fn.fn.capture_blocker})")
+        out["h2" + ("self" if fn is spec_self else "")] = dict(secs=secs, rate=rate, agree=agree, launches=launched)
+        del ref_fn
+    del spec, spec_self
+    prep.pop("draft")
+    release()
+
+    # (h3) beam search, captured; the CPU's tokens and score; beam 1 gives
+    # the target's greedy tokens
+    f = beam.function
+    r = run_decoder_fn(f, lambda: f(prompt), f"(h3) beam search, {BEAM} beams", BEAM_NEW - 1, BEAM_NEW)
+    rels = []
+    for m in BEAM_PROMPT_STRIDES:
+        (got, score), (want, want_score) = beam(beam_prompt(m)), refs["h3"][m]
+        rels.append(abs(score - want_score) / abs(want_score))
+        log(f"(h3) beam search, prompt (arange * {m}) % {DEC_VOCAB}: score {score:.12f}, the CPU's "
+            f"{want_score:.12f} ({rels[-1]:.3e} relative; tolerance {BEAM_SCORE_REL}); tokens "
+            f"{'equal' if got == want else 'differ'}")
+        if got != want or not rels[-1] < BEAM_SCORE_REL:
+            raise AssertionError(f"(h3) beam search: tokens {got} score {score}, the CPU's {want} {want_score}")
+        if m == BEAM_PROMPT_STRIDES[0]:
+            r.update(score=score, tokens=got, cpu_score=want_score)
+    s64, s32 = refs["h3_paths"]
+    rel64, rel32 = (abs(v - r["cpu_score"]) / abs(r["cpu_score"]) for v in (s64, s32))
+    log(f"(h3) the CPU's tokens' score from its logits on the host: fp64 path {s64:.12f} ({rel64:.3e} relative to "
+        f"the CPU's beam score), fp32 path {s32:.12f} ({rel32:.3e})")
+    if not rel64 < BEAM_SCORE_REL <= rel32:
+        raise AssertionError(f"(h3) the tolerance {BEAM_SCORE_REL} does not part the fp64 path ({rel64:.3e}) from "
+                             f"the fp32 one ({rel32:.3e})")
+    one, _ = beam_one(prompt)
+    g2 = _host(lm.generate_from_prompt_fn(DEC_PROMPT, DEC_NEW, DEC_T_MAX, mode=decoder_mode())(prompt))
+    r["agree_one"] = tie_rule("(h3) beam 1 against (g2)'s greedy tokens", one, g2[:BEAM_ONE_NEW], list(prompt),
+                              oracle)
+    r.update(score_rel=max(rels), score_rels=rels, fp64_path_rel=rel64, fp32_path_rel=rel32)
+    out["h3"] = r
+    del beam, beam_one, f
+    release()
+    log(f"(h) sampling, speculative and beam paths: {prep['setup_s']:.2f} s of set-up and checks, "
+        f"{time.perf_counter() - t_start:.2f} s of runs")
+    return out
+
+
+def decoder_sampling_only():
+    """--decoder-sampling: the setup and path (h) alone."""
+    phase_setup()
+    start_cpu_references("decoder")
+    phase_sampling(prepare_sampling(set()))
+    stop_cpu_references()
+    log("chip_smoke --decoder-sampling: path (h) passed")
 
 
 def decoder_only():
     """--decoder: the setup and path (g) alone."""
     phase_setup()
+    start_cpu_references("decoder")
     phase_decoder()
+    stop_cpu_references()
     log("chip_smoke --decoder: path (g) passed")
 
 
@@ -2817,6 +3345,11 @@ def _paths(ng, glm):
         fn = build_decoder("cuda").generate_fn(DEC_CAPTURE_STEPS, DEC_T_MAX, mode=decoder_mode(g))
         return fn, lambda: fn(np.int64(DEC_FIRST)), []
 
+    def sampled(g):
+        fn = build_decoder("cuda").generate_fn(SAMPLE_CAPTURE_STEPS, DEC_T_MAX, temperature=SAMPLE_T,
+                                               top_k=SAMPLE_TOPK, mode=decoder_mode(g))
+        return fn, lambda: fn(np.int64(DEC_FIRST)), [rng_key(fn)]
+
     def batcher(chunk):
         def build(g):
             from aesara_tpu_torch.models.serve import ContinuousBatcher
@@ -2835,6 +3368,7 @@ def _paths(ng, glm):
             ("(b) GLM adam step", glm_step("adam")), ("(c) values gradient, width 20", values_grad),
             ("(e) config 3 MNIST MLP step", mnist_mlp), ("(f) config 4 Elman RNN step", scan_step("config4")),
             ("(f) LSTM step", scan_step("lstm")), (f"(g1) greedy decode, {DEC_CAPTURE_STEPS} tokens", greedy),
+            (f"(h1) sampled decode, top-k {SAMPLE_TOPK}, {SAMPLE_CAPTURE_STEPS} tokens", sampled),
             ("(g5) batcher _decode, chunk 1", batcher(1)), ("(g5) batcher _decode, chunk 16", batcher(16))]
 
 
@@ -3423,13 +3957,14 @@ def main():
     modes = {"--k6-sweep": k6_sweep, "--k2-walk-sweep": k2_walk_sweep, "--attention-times": attention_times,
              "--profile-check": profile_check, "--k7-sweep": k7_sweep, "--k4-times": k4_times,
              "--k4-k7-times": k4_k7_times, "--reference": reference_only, "--scan": scan_only,
-             "--decoder": decoder_only}
+             "--decoder": decoder_only, "--decoder-sampling": decoder_sampling_only}
     if len(sys.argv) == 2 and sys.argv[1] in modes:
         if not torch.cuda.is_available():
             raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU")
         return modes[sys.argv[1]]()
     start = time.perf_counter()
     smi = phase_setup()
+    start_cpu_references("adamw", "decoder")
     t0 = time.perf_counter()
     fn = compile_encoder("cuda")
     log(f"compile (graph + rewrites + link): {time.perf_counter() - t0:.2f} s")
@@ -3465,7 +4000,11 @@ def main():
     grad_values = phase_values_grad(glm_xyw[0])
     reference = phase_reference()
     scans = phase_scan()
-    decoder = phase_decoder()
+    seen = set()
+    prep = prepare_sampling(seen)
+    decoder = phase_decoder(seen)
+    sampling = phase_sampling(prep, decoder["g1"]["out"])
+    del prep
     t0 = time.perf_counter()
     phase_capture(lr["data"], glm_xyw)
     log(f"captured-vs-eager phase: {time.perf_counter() - t0:.2f} s")
@@ -3512,13 +4051,27 @@ def main():
     g_paths = [k for k in decoder if k.startswith("g") and k != "g5"]
     path_g = {k: {w: (decoder[w]["launches"][0][k] + decoder[w]["launches"][1][k]) for w in g_paths}
               for k in ("K1", "K4")}
-    k1["max_abs_err"] = max([k1["max_abs_err"]] + [row["max_abs_err"] for row in decoder["composites"]])
+    k1["max_abs_err"] = max([k1["max_abs_err"]] + [row["max_abs_err"] for row in decoder["composites"]]
+                            + [row["max_abs_err"] for row in sampling["composites"]])
     k4_g = {w: {key: r[key] for key in ("max_abs_err", "ms", "cold_ms", "plain_ms", "bound_ms", "library_ms")}
-            for w, r in decoder["k4"].items()}
+            for w, r in {**decoder["k4"], **sampling["k4"]}.items()}
+    # path (h): each sub-path's launches in its counted run (the speculative
+    # calls run eagerly: their launches), and the threefry kernel's line
+    h_paths = ("h1k0", f"h1k{SAMPLE_TOPK}", "h3")
+    path_h = {k: {w: sampling[w]["launches"][0][k] + sampling[w]["launches"][1][k] for w in h_paths}
+              for k in ("K1", "K4", "TF")}
+    for w in ("h2", "h2self"):
+        for k in ("K1", "K4", "TF"):
+            path_h[k][w] = sampling[w]["launches"].get(k, 0)
+    h1 = sampling["h1k0"]
+    tf_line = dict(kernel_line("TF threefry draw (no TPU kernel)", "triton", TF_SOURCE, TF_REPLACES, "TF",
+                               (h1["launches"], h1["traced"]), sampling["tf"]),
+                   float32=sampling["tf"]["float32"], path_b_launches=glm["launches"][0]["TF"],
+                   path_h_launches=path_h["TF"])
     kernels = [
         dict(kernel_line("K1 fused elemwise Composite", "triton", K1_SOURCE, K1_REPLACES, "K1", train, k1),
              cold_ms=k1_times[4], **k1_adamw, path_e_launches=path_e["K1"], path_f_launches=path_f["K1"],
-             path_g_launches=path_g["K1"]),
+             path_g_launches=path_g["K1"], path_h_launches=path_h["K1"]),
         dict(kernel_line("K2 flash attention forward", "cuda", K2_SOURCE, K2_REPLACES, "K2", train, k2),
              adamw_launches=adamw["launches"]["K2"]),
         dict(k3_line, adamw_launches=adamw["launches"]["K3"]),
@@ -3527,14 +4080,16 @@ def main():
                                                         + [r["max_abs_err"] for r in k4_e.values()]
                                                         + [r["max_abs_err"] for r in k4_g.values()]))),
              path_e_launches=path_e["K4"], path_e=k4_e, path_f_launches=path_f["K4"], path_f=k4_f,
-             path_g_launches=path_g["K4"], path_g=k4_g),
+             path_g_launches=path_g["K4"], path_g=k4_g, path_h_launches=path_h["K4"]),
         kernel_line("K5 CSR SpMV (narrow rhs)", "cuda", K567_SOURCE, K5_REPLACES, "K5",
                     (glm["launches"], glm["traced"]), k5),
         kernel_line("K6 CSR SpMM (wide rhs)", "cuda", K567_SOURCE, K6_REPLACES, "K6", (lr["launches"], lr["traced"]),
                     k6),
         kernel_line("K7 CSR SDDMM", "cuda", K567_SOURCE, K7_REPLACES, "K7",
                     (grad_values["launches"], grad_values["traced"]), k7),
+        tf_line,
     ]
+    stop_cpu_references()
     log(f"chip_smoke: every phase passed in {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -6,8 +6,12 @@ minibatch window replayed at every index, every Scan form captured
 against eager and the CPU (``-k scan``), and the decoder's greedy, prompt,
 batched and continuous-batching decode captured against eager and the
 CPU, its caches written in place, K1 and K4 at its shapes (``-k
-decoder``).  They skip where there is no CUDA device; run them on a GPU
-machine with ``python -m pytest -m cuda tests/test_torch_cuda.py``."""
+decoder``), and the random streams (``-k "threefry or topk or sampled"``):
+the threefry kernel bit for bit against its plain version and the host's
+keys, top-k's tie order, and a sampled decode, beam search and
+speculative decoding on the card against the CPU.  They skip where there
+is no CUDA device; run them on a GPU machine with ``python -m pytest -m
+cuda tests/test_torch_cuda.py``."""
 
 import numpy as np
 import pytest
@@ -1182,3 +1186,80 @@ def test_decoder_k1_and_k4_at_its_shapes_match_plain(cuda):
         x = torch.randn(shape, device=cuda, generator=gen) * 3
         torch.testing.assert_close(softmax_rows(x, log=False), softmax_rows_plain(x, log=False), atol=1e-6,
                                    rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# random streams, sort and the decoder's sampling on the card
+# (``-k "threefry or topk or sampled"``)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n", [1, 31, 32000, 2**20 + 3])
+@pytest.mark.parametrize("key", [0, 42, "ones"], ids=str)
+def test_threefry_kernel_is_bitwise_its_plain_version_and_the_host_keys(cuda, n, key):
+    from aesara_tpu_torch.link.torch.kernels.threefry import MODES, threefry_draw, threefry_plain
+    from aesara_tpu_torch.tensor.random.op import prng_key, random_bits, split
+
+    data = np.full(2, 0xFFFFFFFF, np.uint32) if key == "ones" else prng_key(key)
+    host_next, host_draw = split(data)
+    k = torch.as_tensor(data).to(cuda)
+    for mode in MODES:
+        before = threefry_draw.launches
+        nk, out = threefry_draw(k, (n,), mode)
+        assert threefry_draw.launches == before + 1
+        pk, want = threefry_plain(k, (n,), mode)
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(nk.cpu().numpy(), host_next)
+        np.testing.assert_array_equal(nk.cpu().numpy(), pk.cpu().numpy())
+        assert out.dtype == want.dtype and out.shape == want.shape
+        got = out.cpu().numpy()
+        np.testing.assert_array_equal(got, want.cpu().numpy())
+        if mode.startswith("bits"):
+            width = 32 if mode == "bits32" else 64
+            np.testing.assert_array_equal(got.view(np.uint32 if width == 32 else np.uint64),
+                                          random_bits(host_draw, (n,), width))
+    np.testing.assert_array_equal(k.cpu().numpy(), data)
+
+
+def test_topk_ties_keep_the_lowest_index_first_on_the_card(cuda):
+    """argtopk over a beam's joint scores (runs of equal values, -inf
+    lanes), sort and argsort with ties: the card gives the CPU's order."""
+    rng = np.random.default_rng(7)
+    joint = np.round(rng.normal(size=4 * 5000), 1)
+    joint[rng.random(joint.size) < 0.3] = -np.inf
+    x = pt.vector("x", dtype="float64")
+    from aesara_tpu_torch.tensor.sort import argsort, argtopk, sort, topk
+
+    outs = [argtopk(x, 8), argtopk(x, -8), topk(x, 64), sort(x), argsort(x)]
+    with config.change_flags(device="cuda"):
+        gpu = ptp.function([x], outs)
+    cpu = ptp.function([x], outs)
+    for g, c in zip(gpu(joint), cpu(joint)):
+        np.testing.assert_array_equal(g.cpu().numpy(), c.numpy())
+
+
+def test_sampled_decode_beam_and_speculative_on_the_card_equal_the_cpu(cuda):
+    """A sampled decode (top-k 5) captured, call for call against the CPU
+    (each call advances the key, on the card in the captured graph's
+    replays); beam search and speculative decoding against the CPU."""
+    from aesara_tpu_torch.link.torch.kernels.threefry import threefry_draw
+
+    gpu, cpu = _decoder("cuda"), _decoder("cpu")
+    with config.change_flags(device="cuda"):
+        f = gpu.generate_fn(6, 8, temperature=0.8, top_k=5, mode=ptp.Mode(ptp.TorchLinker(device="cuda")))
+        beam = gpu.beam_search_fn(4, 3, 16, beam=60, mode=ptp.Mode(ptp.TorchLinker(device="cuda")))
+        spec = gpu.speculative_generate_fn(gpu, 4, 5, 16, n_spec=3, mode=ptp.Mode(ptp.TorchLinker(device="cuda")))
+    g = cpu.generate_fn(6, 8, temperature=0.8, top_k=5)
+    assert f.capture_blocker is None
+    launched, replayed = threefry_draw.launches, threefry_draw.replayed
+    for call in range(3):
+        np.testing.assert_array_equal(f(np.int64(3)).cpu().numpy(), g(np.int64(3)).numpy())
+        assert f.captured == (call >= 1)
+    # 6 draws in the loop and the stream's key advanced once outside it
+    assert threefry_draw.launches - launched == 2 * 7 and threefry_draw.replayed - replayed == 2 * 7
+    prompt = np.array([5, 9, 2, 7], dtype="int64")
+    got, score = beam(prompt)
+    want, want_score = cpu.beam_search_fn(4, 3, 16, beam=60)(prompt)
+    assert got == want
+    np.testing.assert_allclose(score, want_score, rtol=1e-6)
+    np.testing.assert_array_equal(spec(prompt).cpu().numpy(),
+                                  cpu.generate_from_prompt_fn(4, 5, 16)(prompt).numpy())

@@ -26,7 +26,22 @@ heads, d_ff 64; GQA with 2 KV heads) on the CPU.
 - In the decode loop a final-only carried cache is written in place:
   its storage stays the same across steps, the caller's initial value is
   not written, and a state that is not final-only still clones.
-- The bounds and the cut features raise.
+- Sampling (``temperature`` > 0, with and without ``top_k``) gives the
+  JAX package's tokens call for call: each call advances the key (the
+  stream's default update draws once outside the loop), so calls differ,
+  as the JAX package's do.  Speculative decoding (a one-layer draft, and
+  the target as its own draft) gives the JAX package's tokens and the
+  target's own greedy decode; beam search (beam 1, 3 and beam > V) its
+  tokens, and its score to 1e-6 relative (the float32 projections before
+  the scores turn float64 differ by summation order).  Their ``FAST_RUN``
+  graphs have the JAX package's op counts but its known twins (above) and
+  one ``Alloc`` the JAX package folds into a constant (the port's
+  ``Alloc`` never folds: a fill on the device costs less than a host
+  array copied there).
+- A random stream drawn in a scan body steps its key every step (dropout
+  in a loop), the JAX package's values; a loop state that starts as a
+  ``broadcast_to`` view is copied before the loop writes it in place.
+- The bounds raise.
 """
 
 import numpy as np
@@ -296,6 +311,8 @@ def test_state_carries_across_packages_by_qualified_name(lms):
 
 
 def test_bounds_and_the_cut_features_raise(lms):
+    """The bounds of every entry point, the sampling, speculative and beam
+    ones among them, raise before anything is compiled."""
     _, lm = lms
     with pytest.raises(ValueError, match="t_max"):
         lm.generate_fn(n_steps=6, t_max=4)
@@ -303,11 +320,138 @@ def test_bounds_and_the_cut_features_raise(lms):
         lm.generate_batched_fn(batch=2, n_steps=6, t_max=4)
     with pytest.raises(ValueError, match="t_max"):
         lm.generate_from_prompt_fn(prompt_len=6, n_new=4, t_max=8)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        lm.generate_fn(6, 8, temperature=1.0)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        lm.generate_fn(6, 8, top_k=3)
-    with pytest.raises(NotImplementedError, match="cumprod"):
-        lm.speculative_generate_fn(lm, 4, 4, 16)
-    with pytest.raises(NotImplementedError, match="argtopk"):
-        lm.beam_search_fn(4, 4, 16)
+    with pytest.raises(ValueError, match="t_max"):
+        lm.generate_fn(6, 4, temperature=1.0, top_k=3)
+    with pytest.raises(ValueError, match="t_max"):
+        lm.speculative_generate_fn(lm, 4, 4, 11, n_spec=4)
+    with pytest.raises(ValueError, match="n_spec"):
+        lm.speculative_generate_fn(lm, 4, 4, 16, n_spec=0)
+    with pytest.raises(ValueError, match="vocabulary"):
+        lm.speculative_generate_fn(PLM(**dict(SIZE, vocab=40)), 4, 4, 16)
+    with pytest.raises(ValueError, match="t_max"):
+        lm.beam_search_fn(4, 4, 7)
+    with pytest.raises(ValueError, match="beam"):
+        lm.beam_search_fn(4, 4, 16, beam=0)
+
+
+SAMPLING = [(1.0, 0), (0.8, 5)]
+
+
+@pytest.mark.parametrize("temperature,top_k", SAMPLING, ids=["t1", "t0.8-top5"])
+def test_sampling_tokens_are_the_jax_packages_call_for_call(lms, temperature, top_k):
+    jlm, plm = lms
+    fj = jlm.generate_fn(8, 10, temperature=temperature, top_k=top_k)
+    fp = plm.generate_fn(8, 10, temperature=temperature, top_k=top_k)
+    calls = []
+    for _ in range(3):
+        want, got = np.asarray(fj(np.int64(3))), _host(fp(np.int64(3)))
+        np.testing.assert_array_equal(got, want)
+        calls.append(got)
+    greedy = _host(plm.generate_fn(8, 10)(np.int64(3)))
+    assert any(not np.array_equal(c, greedy) for c in calls)
+    assert any(not np.array_equal(calls[0], c) for c in calls[1:])
+
+
+def _spec_and_beam(m, lm):
+    draft = m["LM"](**dict(SIZE, n_layers=1, seed=1), n_kv_heads=lm.layers[0].n_kv_heads
+                    if lm.layers[0].n_kv_heads != lm.layers[0].n_heads else None)
+    beam = lm.beam_search_fn(4, 3, 24, beam=3)
+    return {"sample": lm.generate_fn(8, 10, temperature=1.0, top_k=5),
+            "speculative": lm.speculative_generate_fn(draft, 4, 9, 24, n_spec=3),
+            "beam": next(c.cell_contents for c in beam.__closure__ if hasattr(c.cell_contents, "maker"))}
+
+
+@pytest.mark.parametrize("which", ["sample", "speculative", "beam"])
+def test_cut_feature_graphs_have_the_jax_packages_op_counts(lms, which):
+    want, got = (op_counts(_spec_and_beam(m, lm)[which].maker.fgraph) for m, lm in zip((JAX, PORT), lms))
+    # the JAX package's unmerged Reshape twins of the target's prefill, and
+    # the Alloc of the speculative buffer it folds (module docstring)
+    if which in ("speculative", "beam"):
+        assert want[0]["Reshape"] == got[0]["Reshape"] + 2 * SIZE["n_layers"]
+        want[0]["Reshape"] = got[0]["Reshape"]
+    if which == "speculative":
+        assert (want[0]["Alloc"], got[0]["Alloc"]) == (1, 2)
+        want[0]["Alloc"] = 2
+    assert got == want
+
+
+PROMPT = np.array([5, 9, 2, 7], dtype="int64")
+
+
+def test_speculative_tokens_are_the_jax_packages_and_the_targets_greedy(lms):
+    jlm, plm = lms
+    kv = plm.layers[0].n_kv_heads if plm.layers[0].n_kv_heads != plm.layers[0].n_heads else None
+    jd, pd = (LM(**dict(SIZE, n_layers=1, seed=1), n_kv_heads=kv) for LM in (JLM, PLM))
+    greedy = _host(plm.generate_from_prompt_fn(4, 9, 24)(PROMPT))
+    for n_spec in (1, 3):
+        want = np.asarray(jlm.speculative_generate_fn(jd, 4, 9, 24, n_spec=n_spec)(PROMPT))
+        got = _host(plm.speculative_generate_fn(pd, 4, 9, 24, n_spec=n_spec)(PROMPT))
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(got, greedy)
+    # the target as its own draft accepts every proposal
+    f = plm.speculative_generate_fn(plm, 4, 9, 24, n_spec=4)
+    np.testing.assert_array_equal(_host(f(PROMPT)), greedy)
+    assert "until" in f.fn.capture_blocker or f.fn.capture_blocker.startswith("runs on")
+
+
+@pytest.mark.parametrize("beam", [1, 3, 60])
+def test_beam_search_is_the_jax_packages(lms, beam):
+    jlm, plm = lms
+    want, want_score = jlm.beam_search_fn(4, 3, 24, beam=beam)(PROMPT)
+    got, got_score = plm.beam_search_fn(4, 3, 24, beam=beam)(PROMPT)
+    assert got == want
+    np.testing.assert_allclose(got_score, want_score, rtol=1e-6)
+    if beam == 1:
+        assert got == [int(t) for t in _host(plm.generate_from_prompt_fn(4, 3, 24)(PROMPT))]
+    one, _ = plm.beam_search_fn(4, 1, 24, beam=beam)(PROMPT)
+    assert one == want[:1]
+
+
+def test_dropout_in_a_scan_draws_with_a_key_a_step():
+    """A bernoulli mask drawn in the body: the key rides the loop, so every
+    step's mask is new; two calls of the function, the JAX package's values."""
+    x0 = np.random.default_rng(2).normal(size=(6, 16))
+    results = []
+    for m in (JAX, PORT):
+        rs = __import__(f"{m['pkg'].__name__}.tensor.random.utils", fromlist=["RandomStream"]).RandomStream
+        at = m["at"]
+        srng = rs(seed=4)
+        x = at.matrix("x", dtype="float64")
+
+        def step(xt, h):
+            return at.tanh(xt * srng.bernoulli(0.5, size=(16,)) + 0.5 * h)
+
+        hs, ups = m["scan"](step, sequences=[x], outputs_info=[at.zeros((16,), dtype="float64")])
+        f = m["pkg"].function([x], hs, updates=ups)
+        results.append([_host(f(x0)) for _ in range(2)])
+    for want, got in zip(*results):
+        np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12)
+    masks = (results[1][0] != np.tanh(0.5 * np.vstack([np.zeros(16), results[1][0][:-1]])))
+    assert len({m.tobytes() for m in masks}) == len(masks)
+    assert not np.array_equal(results[1][0], results[1][1])
+
+
+def test_a_broadcast_loop_state_is_copied_before_it_is_written_in_place():
+    """The beam's pattern: per-row states that start as ``broadcast_to`` of
+    one row (``+ 0.0`` after it, which a rewrite may drop), written in place
+    by the loop a row at a time; a write through the zero-stride view would
+    change every row at once."""
+    results = []
+    for m in (JAX, PORT):
+        at = m["at"]
+        xo = __import__(f"{m['pkg'].__name__}.tensor.extra_ops", fromlist=["broadcast_to"])
+        c = at.vector("c", dtype="float64")
+        init = xo.broadcast_to(c.dimshuffle("x", 0), (3, 4)) + 0.0
+
+        def step(t, state):
+            return m["set_subtensor"](state[t], at.cast(t, "float64") * 10.0 + 1.0)
+
+        out, _ = m["scan"](step, sequences=[at.arange(3)], outputs_info=[init])
+        f = m["pkg"].function([c], out[-1])
+        results.append(_host(f(np.arange(4.0))))
+        if m is PORT:
+            owned = [fn.owned for fn in f.fn.program.fns if hasattr(fn, "owned")]
+            assert owned == [[0]]
+    want, got = results
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, np.tile((np.arange(3.0) * 10 + 1)[:, None], (1, 4)))

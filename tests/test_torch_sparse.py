@@ -565,12 +565,14 @@ def _chip_smoke():
     ("void (anonymous namespace)::flash_bwd_dkdv_kernel<(anonymous namespace)::bf16, 128>(bf16 const*)",
      "K3 flash backward", None),
     ("kernel", "K1 fused Composite", "K1"),
+    ("threefry_kernel", "TF threefry draw", "TF"),
 ])
 def test_profile_groups_and_counts_every_csr_and_softmax_kernel(name, group, counter):
     """``chip_smoke.py`` reads a profiled step's kernels by name: each of
     K7's two kernels marks one K7 launch, K6's fix-up pass marks none; K3's
     dq pass marks one K3 launch and its dk/dv pass none; K2's forward (also
-    run again inside K3) marks one K2 launch; a Triton kernel one K1."""
+    run again inside K3) marks one K2 launch; a generated Triton kernel one
+    K1, the threefry kernel one TF."""
     smoke = _chip_smoke()
     assert smoke.kernel_group(name) == group
     assert smoke.counted_kernel(name) == counter

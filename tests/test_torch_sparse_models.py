@@ -6,7 +6,12 @@
   ``LogSoftmax`` and ``StructuredDot(Transpose(x), ·)`` and no
   ``DenseFromSparse`` (the JAX package's graph makes x dense there).
 - The sparse GLM of ``benchmarks/bench_reference_ratio.py:290-295``
-  (without the Monte-Carlo noise) on 512 × 256, the JAX package's BSS path.
+  (without the Monte-Carlo noise) on 512 × 256, the JAX package's BSS path;
+  and config 5 as the benchmark builds it, with its noise ``eps =
+  RandomStream(42).normal(size=(d,)) * 0.01`` drawn anew each step: 3
+  steps, the loss, w and the key against JAX FAST_RUN, and the key
+  carried from a JAX package stream into a port stream of another seed
+  (``named_state``/``load_state``), after which the steps agree again.
 - The gradient with respect to the stored values of x,
   ``grad(sum(structured_dot(x, b)²), x)``: against JAX FAST_RUN at n = 256,
   and against SciPy at n = 300, where the JAX package fails (its BSS
@@ -135,6 +140,47 @@ def test_sparse_glm_step_matches_jax():
         np.testing.assert_allclose(pw.get_value(), np.asarray(jw.get_value()), **TOL)
     names = _names(pstep.maker.fgraph)
     assert names.count("StructuredDot") == 2 and "DenseFromSparse" not in names
+
+
+def _glm_noise_step(m, xv, yv, wv, square, seed=42):
+    """Config 5's step as bench_reference_ratio.py:287-296 builds it:
+    ``eps = srng.normal(size=(d,)) * 0.01`` added to w in the prediction."""
+    rs = __import__(f"{m['pkg'].__name__}.tensor.random.utils", fromlist=["RandomStream"]).RandomStream
+    x = m["pkg"].shared(xv, name="x")
+    y = m["pkg"].shared(yv, name="y")
+    w = m["pkg"].shared(wv, name="w")
+    srng = rs(seed=seed)
+    eps = srng.normal(size=(wv.shape[0],), dtype="float32") * np.asarray(0.01, "float32")
+    pred = m["sparse"].structured_dot(x, m["padright"](w + eps)).flatten()
+    loss = m["tm"].mean(square(pred - y))
+    gw = m["pkg"].grad(loss, w)
+    return w, srng, m["pkg"].function([], loss, updates={w: w - np.float32(0.1) * gw}, mode=m["mode"])
+
+
+def test_config5_with_its_noise_matches_jax_and_carries_its_key():
+    from aesara_tpu_torch.models.convert import load_state, named_state
+    from aesara_tpu_torch.tensor.random.op import split
+
+    rng = np.random.default_rng(4)
+    xv = _csr(512, 256, 0.01, seed=4)
+    yv = rng.normal(size=512).astype("float32")
+    wv = (rng.normal(size=256) * 0.01).astype("float32")
+    jw, jsrng, jstep = _glm_noise_step(JAX, xv, yv, wv, lambda d: d ** 2)
+    pw, psrng, pstep = _glm_noise_step(PORT, xv, yv, wv, ptm.sqr, seed=7)
+    (pkey,) = named_state(psrng).values()
+    first = pkey.get_value()
+    load_state(psrng, named_state(jsrng))
+    assert not np.array_equal(pkey.get_value(), first)
+    for step in range(3):
+        key = pkey.get_value()
+        np.testing.assert_allclose(float(pstep()), float(np.asarray(jstep())), **TOL)
+        np.testing.assert_allclose(pw.get_value(), np.asarray(jw.get_value()), **TOL)
+        np.testing.assert_array_equal(pkey.get_value(), split(key)[0])
+        np.testing.assert_array_equal(pkey.get_value(), np.asarray(jsrng.state_updates[0][0].get_value()))
+    # and back: the JAX package's stream continues from the port's key
+    pstep()
+    load_state(jsrng, named_state(psrng))
+    np.testing.assert_array_equal(np.asarray(jsrng.state_updates[0][0].get_value()), pkey.get_value())
 
 
 def _values_grad(m):
