@@ -22,6 +22,10 @@ from aesara_tpu_torch.tensor import rewriting  # noqa: F401  (registers the rewr
 from aesara_tpu_torch.tensor import blas  # noqa: F401  (registers BlasOpt)
 from aesara_tpu_torch import sparse  # noqa: F401  (registers the sparse rewrites)
 from aesara_tpu_torch import scan  # noqa: F401  (registers the scan rewrites and Scan's lowering)
+from aesara_tpu_torch.compile.builders import register_inline_ofg
+from aesara_tpu_torch.link.torch import control_dispatch  # noqa: F401  (OpFromGraph's and RematBarrier's lowerings)
+
+register_inline_ofg()
 
 __all__ = ["config", "tensor", "sparse", "function", "Function", "In", "Out", "Mode", "TORCH",
            "get_mode", "shared", "grad", "jacobian", "hessian", "TorchLinker"]

@@ -3,8 +3,10 @@
 
 The value is a ``torch.Tensor`` on one explicit device, chosen when the
 variable is made (``device=``, else ``config.device``).  ``get_value``
-returns a NumPy copy and ``set_value`` takes NumPy and writes it into the
-variable's storage, which updates also write into: a compiled step
+returns a copy in the user form (``scalar.ops.from_host``: NumPy, a torch
+tensor on the CPU for bfloat16, which NumPy lacks) and ``set_value`` takes
+either form and writes it into the variable's storage, which updates also
+write into: a compiled step
 captured in a CUDA graph keeps reading that storage.  ``default_update``
 (reference ``aesara_tpu/compile/sharedvalue.py:44``) is an update that
 ``function()`` applies without being asked.
@@ -16,6 +18,7 @@ import numpy as np
 
 from aesara_tpu_torch.graph.ir import Variable
 from aesara_tpu_torch.link.basic import resolve_device
+from aesara_tpu_torch.scalar.ops import from_host, is_torch_tensor
 from aesara_tpu_torch.tensor.type import TensorType
 from aesara_tpu_torch.tensor.var import _tensor_operators
 
@@ -36,17 +39,27 @@ class SharedVariable(Variable):
         self._value = None
         self.set_value(value)
 
-    def get_value(self) -> np.ndarray:
-        return self._value.detach().cpu().numpy().copy()
+    def get_value(self):
+        """A copy in the user form (``scalar.ops.from_host``): a NumPy
+        array, or for bfloat16 a torch.bfloat16 tensor on the CPU."""
+        return from_host(self._value, self.type.dtype)
 
     def set_value(self, new_value) -> None:
         import torch
 
-        arr = torch.as_tensor(np.asarray(self.type.filter(np.asarray(new_value)), order="C"))
-        if self._value is not None and self._value.shape == arr.shape and self._value.dtype == arr.dtype:
-            self._value.copy_(arr)
+        if is_torch_tensor(new_value):
+            # a tensor of the variable's dtype is copied as it is, not
+            # through the host form that ``filter`` returns
+            if str(new_value.dtype).split(".")[-1] != self.type.dtype:
+                raise TypeError(f"{self.type} got a torch tensor of dtype {new_value.dtype}")
+            self.type.check_shape(tuple(new_value.shape))
+            value = new_value.detach()
         else:
-            self._value = arr.to(self.device, copy=True)
+            value = torch.as_tensor(from_host(self.type.filter(np.asarray(new_value)), self.type.dtype))
+        if self._value is not None and self._value.shape == value.shape and self._value.dtype == value.dtype:
+            self._value.copy_(value)
+        else:
+            self._value = value.to(self.device, copy=True).contiguous()
 
     @property
     def value(self):
@@ -87,5 +100,8 @@ def shared(value, name=None, device=None) -> TensorSharedVariable:
         from aesara_tpu_torch.sparse.sharedvar import sparse_shared
 
         return sparse_shared(value, name=name, device=device)
+    if is_torch_tensor(value):
+        return TensorSharedVariable(TensorType(str(value.dtype).split(".")[-1], tuple(value.shape)), value,
+                                    name=name, device=device)
     arr = np.asarray(value)
     return TensorSharedVariable(TensorType(arr.dtype.name, arr.shape), arr, name=name, device=device)

@@ -1,7 +1,8 @@
 """Configuration flags of the PyTorch port.
 
 The counterpart of ``aesara_tpu/config.py``, cut down to the flags the
-port reads.  ``device`` is new: it names the ``torch.device`` that
+port reads.  ``floatX`` takes float32 (the default), float64, float16 or
+bfloat16, as in the JAX package.  ``device`` is new: it names the ``torch.device`` that
 ``shared()`` places values on and that ``TorchLinker`` runs on when it is
 not given one.  It defaults to ``"cuda"``: entry points run on the card
 unless the caller asks for the CPU (``change_flags(device="cpu")`` or
@@ -81,7 +82,7 @@ class _Config:
 
 
 config = _Config()
-config.add("floatX", "float32", _enum("float32", "float64"))
+config.add("floatX", "float32", _enum("float32", "float64", "float16", "bfloat16"))
 config.add("device", "cuda", _device)
 config.add("on_unused_input", "raise", _enum("raise", "warn", "ignore"))
 config.add("allow_gc", True, _enum(True, False))

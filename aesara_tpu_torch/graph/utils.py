@@ -2,7 +2,7 @@
 
 from __future__ import annotations
 
-import traceback
+import sys
 from typing import Any
 
 
@@ -28,11 +28,16 @@ class Scratchpad:
 
 
 def add_tag_trace(thing: Any, user_line: int = 1) -> Any:
-    """Record the user frame that created ``thing`` in ``thing.tag.trace``."""
-    frames = [
-        (f.filename, f.lineno, f.name)
-        for f in traceback.extract_stack()
-        if "aesara_tpu_torch" not in (f.filename or "")
-    ]
-    thing.tag.trace = [frames[-user_line:]] if frames else []
+    """Record the user frames that created ``thing`` in ``thing.tag.trace``:
+    the innermost ``user_line`` frames outside the package, outermost
+    first, as (file, line, function).  The stack is walked from the
+    innermost frame and no further than needed, and no source line is
+    read: a graph build makes one of these per variable."""
+    frames = []
+    frame = sys._getframe(1)
+    while frame is not None and len(frames) < user_line:
+        if "aesara_tpu_torch" not in frame.f_code.co_filename:
+            frames.append((frame.f_code.co_filename, frame.f_lineno, frame.f_code.co_name))
+        frame = frame.f_back
+    thing.tag.trace = [frames[::-1]] if frames else []
     return thing

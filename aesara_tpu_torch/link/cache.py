@@ -92,6 +92,7 @@ def _op_key(op) -> str:
         base += _graph_key(op.inputs, io_toposort(op.inputs, op.outputs), op.outputs)
     inner = getattr(op, "fgraph", None)
     if inner is not None:
-        # an op with an inner graph (Scan): by its structure and that graph
-        base += f"{op.info}:{op.truncate_gradient}:" + fgraph_key(inner)
+        # an op with an inner graph (Scan, OpFromGraph): by its structure
+        # and that graph
+        base += f"{getattr(op, 'info', '')}:{getattr(op, 'truncate_gradient', '')}:" + fgraph_key(inner)
     return base

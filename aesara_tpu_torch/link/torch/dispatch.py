@@ -50,6 +50,8 @@ from aesara_tpu_torch.link.torch.kernels.softmax import softmax_rows
 
 __all__ = ["torch_funcify", "in_place_lowering", "IN_PLACE_OPS"]
 
+LOW_PRECISION = ("bfloat16", "float16")
+
 
 @singledispatch
 def torch_funcify(op, node=None):
@@ -96,8 +98,11 @@ def _torch_careduce(op, node):
     name = str(op.scalar_op)
     axes = op._normalized_axes(node.inputs[0].type.ndim)
     out_dtype = torch_dtype(node.outputs[0].type.dtype)
+    # bfloat16 and float16 sums and products accumulate in float32, as
+    # jnp.sum and jnp.prod compute them
+    acc = op.acc_dtype or node.outputs[0].type.dtype
+    acc_dtype = torch_dtype("float32" if acc in LOW_PRECISION else acc)
     if name == "add":
-        acc_dtype = torch_dtype(op.acc_dtype) if op.acc_dtype else out_dtype
 
         def reduce_sum(x):
             x = x.to(acc_dtype)
@@ -105,7 +110,6 @@ def _torch_careduce(op, node):
 
         return reduce_sum
     if name == "mul":
-        acc_dtype = torch_dtype(op.acc_dtype) if op.acc_dtype else out_dtype
 
         def reduce_prod(x):
             x = x.to(acc_dtype)
@@ -177,15 +181,36 @@ def _torch_reshape(op, node):
     return reshape
 
 
+def sums_in_fp32(fn, dtype: str):
+    """``fn`` (a product or a fused BLAS call) for operands of ``dtype``:
+    a bfloat16 or float16 product sums in fp32 and rounds once, as
+    ``_dot_precision`` leaves it to the MXU (``aesara_tpu/link/jax/
+    dispatch.py:1084-1096``).  On the card cuBLAS does so while PyTorch's
+    reduced-precision reductions are off (``TorchLinker`` refuses to
+    compile such a product while they are on); on the CPU the product is
+    taken in float32 and rounded."""
+    if dtype not in LOW_PRECISION:
+        return fn
+    import torch
+
+    def product(*args, **kwargs):
+        if args[0].device.type == "cuda":
+            return fn(*args, **kwargs)
+        return fn(*(a.float() for a in args), **kwargs).to(args[0].dtype)
+
+    return product
+
+
 @torch_funcify.register(Dot)
 def _torch_dot(op, node):
     import torch
 
     out_dtype = torch_dtype(node.outputs[0].type.dtype)
+    matmul = sums_in_fp32(torch.matmul, node.outputs[0].type.dtype)
 
     def dot(x, y):
         # a plain product, left to the library as the JAX package left it to XLA
-        return torch.matmul(x.to(out_dtype), y.to(out_dtype))
+        return matmul(x.to(out_dtype), y.to(out_dtype))
 
     return dot
 
@@ -199,16 +224,18 @@ def _torch_batched_dot(op, node):
 
     out_dtype = torch_dtype(node.outputs[0].type.dtype)
     case = (node.inputs[0].type.ndim, node.inputs[1].type.ndim)
+    bmm, matmul, dots = (sums_in_fp32(f, node.outputs[0].type.dtype) for f in (
+        torch.bmm, torch.matmul, lambda a, b: torch.einsum("bi,bi->b", a, b)))
 
     def batched_dot(x, y):
         x, y = x.to(out_dtype), y.to(out_dtype)
         if case == (3, 3):
-            return torch.bmm(x, y)
+            return bmm(x, y)
         if case == (3, 2):
-            return torch.matmul(x, y.unsqueeze(-1)).squeeze(-1)
+            return matmul(x, y.unsqueeze(-1)).squeeze(-1)
         if case == (2, 3):
-            return torch.matmul(x.unsqueeze(1), y).squeeze(1)
-        return torch.einsum("bi,bi->b", x, y)
+            return matmul(x.unsqueeze(1), y).squeeze(1)
+        return dots(x, y)
 
     return batched_dot
 
@@ -231,6 +258,7 @@ def _accumulate_lowering(node, fused, product):
 
     out_dtype = torch_dtype(node.outputs[0].type.dtype)
     with_beta = len(node.inputs) == 5
+    fused, product = (sums_in_fp32(f, node.outputs[0].type.dtype) for f in (fused, product))
 
     def accumulate(z, alpha, *rest):
         operands = [o.to(out_dtype) for o in (rest[:-1] if with_beta else rest)]
@@ -273,7 +301,8 @@ def _torch_dot22(op, node):
     import torch
 
     out_dtype = torch_dtype(node.outputs[0].type.dtype)
-    return lambda x, y: torch.mm(x.to(out_dtype), y.to(out_dtype))
+    mm = sums_in_fp32(torch.mm, node.outputs[0].type.dtype)
+    return lambda x, y: mm(x.to(out_dtype), y.to(out_dtype))
 
 
 @torch_funcify.register(Dot22Scalar)
@@ -281,9 +310,10 @@ def _torch_dot22scalar(op, node):
     import torch
 
     out_dtype = torch_dtype(node.outputs[0].type.dtype)
+    mm = sums_in_fp32(torch.mm, node.outputs[0].type.dtype)
 
     def dot22scalar(x, y, a):
-        return torch.mm(x.to(out_dtype), y.to(out_dtype)) * _coefficient(a, out_dtype)
+        return mm(x.to(out_dtype), y.to(out_dtype)) * _coefficient(a, out_dtype)
 
     dot22scalar.host_inputs = (2,)
     return dot22scalar

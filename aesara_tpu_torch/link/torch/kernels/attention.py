@@ -34,11 +34,23 @@ from typing import Optional
 __all__ = ["attention_plain", "attention_grads_plain", "flash_attention", "flash_attention_grads"]
 
 
+def _operand(x, dtype):
+    """``x`` rounded to bfloat16 and widened again where the inputs are
+    bfloat16: the kernels round P (and K3 dS) so before their second
+    product, as the operands are, and so do the reference's flash kernels
+    (their ``dot_dtype``, ``aesara_tpu/link/jax/pallas_kernels.py:205,403``)."""
+    import torch
+
+    return x.to(dtype).to(x.dtype) if dtype == torch.bfloat16 else x
+
+
 def attention_plain(q, k, v, causal: bool, scale: float, with_lse: bool = False):
     """softmax(q kᵀ · scale [+ causal mask]) v in fp32 (fp64 for fp64
     inputs), cast back to the input dtype; with ``with_lse`` also the row logsumexp, (BH, T) fp32 in
     natural-log units.  The composition of ``_attention_ref``
-    (``aesara_tpu/tensor/nnet/attention.py:29-40``)."""
+    (``aesara_tpu/tensor/nnet/attention.py:29-40``); for bfloat16 inputs
+    P is rounded to bfloat16 before P·V, as K2 and the reference's flash
+    kernel round it."""
     import torch
 
     acc = torch.float64 if q.dtype == torch.float64 else torch.float32
@@ -49,7 +61,7 @@ def attention_plain(q, k, v, causal: bool, scale: float, with_lse: bool = False)
         s = s.masked_fill(~mask, float("-inf"))
     lse = torch.logsumexp(s, dim=-1)
     p = torch.exp(s - lse[..., None])
-    out = torch.einsum("bts,bsd->btd", p, v.to(acc)).to(q.dtype)
+    out = torch.einsum("bts,bsd->btd", _operand(p, q.dtype), v.to(acc)).to(q.dtype)
     return (out, lse.float()) if with_lse else out
 
 
@@ -58,7 +70,10 @@ def attention_grads_plain(q, k, v, do, causal: bool, scale: float):
     ``do``, by the formulas the kernel applies, in fp32 (fp64 for fp64
     inputs), cast back to the input dtype: P = exp(scale·QKᵀ − lse),
     D = rowsum(dO ⊙ O), dS = P ⊙ (dO Vᵀ − D), dQ = scale·dS K,
-    dK = scale·dSᵀ Q, dV = Pᵀ dO."""
+    dK = scale·dSᵀ Q, dV = Pᵀ dO.  For bfloat16 inputs it rounds where K2
+    and K3 (and the reference's flash kernels) round: O is the forward's
+    output in bfloat16, and P and dS are rounded to bfloat16 before their
+    second products."""
     import torch
 
     acc = torch.float64 if q.dtype == torch.float64 else torch.float32
@@ -69,11 +84,11 @@ def attention_grads_plain(q, k, v, do, causal: bool, scale: float):
         mask = torch.ones((T, T), dtype=torch.bool, device=q.device).tril()
         s = s.masked_fill(~mask, float("-inf"))
     p = torch.exp(s - torch.logsumexp(s, dim=-1, keepdim=True))
-    o = torch.einsum("bts,bsd->btd", p, va)
+    o = _operand(torch.einsum("bts,bsd->btd", _operand(p, q.dtype), va), q.dtype)
     ds = p * (torch.einsum("btd,bsd->bts", da, va) - (da * o).sum(-1, keepdim=True))
-    dq = torch.einsum("bts,bsd->btd", ds, ka) * scale
-    dk = torch.einsum("bts,btd->bsd", ds, qa) * scale
-    dv = torch.einsum("bts,btd->bsd", p, da)
+    dq = torch.einsum("bts,bsd->btd", _operand(ds, q.dtype), ka) * scale
+    dk = torch.einsum("bts,btd->bsd", _operand(ds, q.dtype), qa) * scale
+    dv = torch.einsum("bts,btd->bsd", _operand(p, q.dtype), da)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 

@@ -128,6 +128,25 @@ def _capture_blocker(fn, node, host):
     return None
 
 
+def product_dtypes(fgraph) -> set:
+    """The output dtypes of the matrix products (``Dot``, ``BatchedDot``
+    and the BLAS ops) in ``fgraph`` and in the inner graphs of its Scan and
+    OpFromGraph nodes."""
+    from aesara_tpu_torch.tensor.blas import Dot22, Dot22Scalar, Gemm, Gemv, Ger
+    from aesara_tpu_torch.tensor.math import BatchedDot, Dot
+
+    products = (Dot, BatchedDot, Dot22, Dot22Scalar, Gemm, Gemv, Ger)
+    found, todo = set(), [fgraph]
+    while todo:
+        for node in todo.pop().apply_nodes:
+            if isinstance(node.op, products):
+                found.add(node.outputs[0].type.dtype)
+            inner = getattr(node.op, "fgraph", None)
+            if inner is not None:
+                todo.append(inner)
+    return found
+
+
 class Program:
     """The lowering of one FunctionGraph for one device: ``run`` maps the
     value of every graph input (a tensor or CSRMat on the device) to the
@@ -182,28 +201,31 @@ class Program:
                     self.frees[k].append(var)
         self.device_constants: dict = {}
 
-    def host_to_device(self, value):
+    def host_to_device(self, value, dtype=None):
+        """A host value on the device, in ``dtype`` (the variable's; by
+        default the value's own): a bfloat16 value's host form is float32
+        (``scalar.ops.to_host``)."""
         import torch
 
         from aesara_tpu_torch.link.torch.kernels.elemwise import torch_dtype
 
         value = np.asarray(value)
+        dtype = torch_dtype(dtype or value.dtype.name)
         if not value.flags.c_contiguous:
             value = value.copy(order="C")   # a folded [::-1] has negative strides, which torch refuses
         if value.size == 1:
             # a fill kernel takes the value as an argument: unlike a copy
             # from pageable memory, it does not make the host wait for the
             # work already queued on the device (and a CUDA graph takes it)
-            return torch.full(value.shape, value.item(), dtype=torch_dtype(value.dtype.name),
-                              device=self.device)
-        return torch.as_tensor(value, device=self.device)
+            return torch.full(value.shape, value.item(), dtype=dtype, device=self.device)
+        return torch.as_tensor(value, device=self.device).to(dtype)
 
     def to_device(self, value, var, uploads: dict):
         """A host value of ``var`` on the device: a constant's once per
         program, another's once per key, in ``uploads``."""
         cache = self.device_constants if isinstance(var, Constant) else uploads
         if var not in cache:
-            cache[var] = self.host_to_device(value)
+            cache[var] = self.host_to_device(value, getattr(var.type, "dtype", None))
         return cache[var]
 
     def run(self, inputs: Sequence, uploads: dict) -> list:
@@ -323,7 +345,7 @@ class TorchFunction:
                 raise TypeError(f"input {var} has dtype {value.dtype}, expected {var.type.dtype}")
             var.type.check_shape(tuple(value.shape))
             return value
-        return torch.from_numpy(np.asarray(var.type.filter(value), order="C"))
+        return torch.from_numpy(np.asarray(var.type.filter(value), order="C")).to(torch_dtype(var.type.dtype))
 
     def _upload(self, value):
         """A dense argument on the device; a one-element host value by a
@@ -507,6 +529,14 @@ class TorchLinker:
             # process-wide switch is the caller's to set, not the linker's
             raise RuntimeError("torch.backends.cuda.matmul.allow_tf32 is True: Dot would round "
                                "its fp32 inputs to TF32; set it to False before compiling")
+        if device.type == "cuda":
+            # a bfloat16 or float16 product sums in fp32 (dispatch.sums_in_fp32);
+            # PyTorch lets cuBLAS sum in the inputs' precision unless told not to
+            for dtype, flag in (("bfloat16", "allow_bf16_reduced_precision_reduction"),
+                                ("float16", "allow_fp16_reduced_precision_reduction")):
+                if getattr(torch.backends.cuda.matmul, flag) and dtype in product_dtypes(fgraph):
+                    raise RuntimeError(f"torch.backends.cuda.matmul.{flag} is True: a {dtype} Dot would "
+                                       "sum in reduced precision; set it to False before compiling")
         use_graph = config.cuda_graph if self.use_graph is None else self.use_graph
         n_outputs = len(fgraph.outputs) - len(update_targets) if n_outputs is None else n_outputs
         return TorchFunction(program_for(fgraph, device, bool(config.allow_gc)), fgraph, n_user_inputs, n_outputs,

@@ -10,16 +10,18 @@ import numpy as np
 
 from aesara_tpu_torch.compile.sharedvalue import shared
 from aesara_tpu_torch.config import config
+from aesara_tpu_torch.misc.safe_asarray import _asarray
 
 
 def glorot(rng: np.random.Generator, n_in: int, n_out: int, name: str):
     limit = np.sqrt(6.0 / (n_in + n_out))
-    w = rng.uniform(-limit, limit, size=(n_in, n_out)).astype(config.floatX)
-    return shared(w, name=name)
+    # in floatX as the JAX package's .astype(config.floatX) (bfloat16: the
+    # same bits, rounded by torch, _asarray)
+    return shared(_asarray(rng.uniform(-limit, limit, size=(n_in, n_out)), config.floatX), name=name)
 
 
 def zeros(shape, name: str):
-    return shared(np.zeros(shape, dtype=config.floatX), name=name)
+    return shared(_asarray(np.zeros(shape), config.floatX), name=name)
 
 
 class Model:

@@ -5,6 +5,10 @@ The state is ``params`` plus every shared target of an ``updates`` list
 (Adam moments, step counters, loss scales), in that order; each array is
 keyed ``<index>:<name>``, as the JAX package keys it, so a checkpoint
 either package writes loads into the same model built by the other.
+A bfloat16 value is saved in float32, which holds it exactly, and loaded
+back in the variable's dtype, as the JAX package does
+(``aesara_tpu/models/checkpoint.py:50-58,100-110``): so the two packages'
+files are alike, and neither needs ml_dtypes to read the other's.
 """
 
 from __future__ import annotations
@@ -12,6 +16,8 @@ from __future__ import annotations
 import numpy as np
 
 from aesara_tpu_torch.compile.sharedvalue import SharedVariable
+from aesara_tpu_torch.misc.safe_asarray import _asarray
+from aesara_tpu_torch.scalar.ops import is_torch_tensor, to_host
 
 
 __all__ = ["state_shareds", "save_checkpoint", "load_checkpoint"]
@@ -41,13 +47,19 @@ def _npz_path(path):
     return path if path.endswith(".npz") else path + ".npz"
 
 
+def _savable(value) -> np.ndarray:
+    """A value as NumPy: a torch tensor (the user form of a bfloat16 one)
+    in its host form, float32."""
+    return to_host(value, str(value.dtype).split(".")[-1]) if is_torch_tensor(value) else np.asarray(value)
+
+
 def save_checkpoint(path, params, updates=None, extra=None):
     """Write every state variable's value, and the arrays of ``extra``
     (a dict, e.g. the data loader's position), to an ``.npz``."""
     shareds = state_shareds(params, updates)
-    arrays = {k: sv.get_value() for k, sv in zip(_keys(shareds), shareds)}
+    arrays = {k: _savable(sv.get_value()) for k, sv in zip(_keys(shareds), shareds)}
     for k, v in (extra or {}).items():
-        arrays[f"extra:{k}"] = np.asarray(v)
+        arrays[f"extra:{k}"] = _savable(v)
     np.savez(_npz_path(path), **arrays)
 
 
@@ -68,8 +80,8 @@ def load_checkpoint(path, params, updates=None, strict=True):
             if strict:
                 raise KeyError(f"checkpoint missing {k!r}")
             continue
-        val, cur = saved[k], sv.get_value()
-        if strict and cur.shape != val.shape:
-            raise ValueError(f"checkpoint entry {k!r} has shape {val.shape}, variable has {cur.shape}")
-        sv.set_value(val.astype(cur.dtype, copy=False))
+        val, shape = saved[k], tuple(sv.get_value().shape)
+        if strict and shape != val.shape:
+            raise ValueError(f"checkpoint entry {k!r} has shape {val.shape}, variable has {shape}")
+        sv.set_value(_asarray(val, sv.type.dtype))
     return {k[len("extra:"):]: v for k, v in saved.items() if k.startswith("extra:")}

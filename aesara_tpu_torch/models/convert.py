@@ -17,6 +17,9 @@ so it is carried by qualified name: ``named_state(lm)`` gives ``embed`` and
 ``layers.<i>.wq_q8``, ``layers.<i>.wq_scale``, ..., ``embed_q8``,
 ``embed_scale``, and the float leftovers ``layers.<i>.b1`` ...), and
 ``load_state(lm, named_state(jax_lm))`` writes them, with the same checks.
+A bfloat16 array of the JAX package (an ml_dtypes array, which the port
+does not import) is carried bit for bit into a torch.bfloat16 tensor
+through float32, which holds it exactly (``port_value``).
 A ``RandomStream`` of either package is carried the same way: its keys
 (``uint32[2]``), ``rng.<i>.<name>`` in the order the stream made them
 (``named_state(stream)``), so a port stream continues a JAX package's
@@ -29,11 +32,30 @@ from typing import Mapping, Sequence, Union
 
 import numpy as np
 
+from aesara_tpu_torch.scalar.ops import from_host, is_torch_tensor
 
-__all__ = ["load_params", "params_by_name", "named_state", "load_state"]
+
+__all__ = ["load_params", "params_by_name", "named_state", "load_state", "port_value"]
 
 #: the float state a quantized decoder layer keeps (``models/quant.py``)
 _FLOAT_NAMES = ("b1", "b2", "ln1_g", "ln1_b", "ln2_g", "ln2_b")
+
+
+def port_value(a):
+    """A value for a port shared variable: an ml_dtypes bfloat16 array in
+    the port's user form of one (``scalar.ops.from_host``: a float32 array
+    holds it exactly), anything else as a NumPy array or the torch tensor
+    it is."""
+    if hasattr(a, "get_value"):
+        a = a.get_value()
+    if is_torch_tensor(a):
+        return a
+    a = np.asarray(a)
+    return from_host(a.astype(np.float32), "bfloat16") if a.dtype.name == "bfloat16" else a
+
+
+def _dtype_shape(a) -> tuple:
+    return str(a.dtype).split(".")[-1], tuple(a.shape)
 
 
 def params_by_name(model) -> dict:
@@ -42,7 +64,7 @@ def params_by_name(model) -> dict:
     names = [p.name for p in model.params]
     if len(set(names)) != len(names):
         raise ValueError(f"duplicate parameter names {names}")
-    return {p.name: np.asarray(p.get_value()) for p in model.params}
+    return {p.name: port_value(p) for p in model.params}
 
 
 def load_params(model, values: Union[Sequence[np.ndarray], Mapping[str, np.ndarray]]) -> None:
@@ -56,9 +78,9 @@ def load_params(model, values: Union[Sequence[np.ndarray], Mapping[str, np.ndarr
         arrays = list(values)
         if len(arrays) != len(params):
             raise ValueError(f"got {len(arrays)} arrays for {len(params)} parameters")
-    arrays = [np.asarray(a) for a in arrays]
+    arrays = [port_value(a) for a in arrays]
     for p, a in zip(params, arrays):
-        if a.shape != p.type.shape or a.dtype.name != p.type.dtype:
+        if _dtype_shape(a) != (p.type.dtype, p.type.shape):
             raise ValueError(f"parameter {p.name}: got {a.dtype}{a.shape}, "
                              f"model has {p.type.dtype}{p.type.shape}")
     for p, a in zip(params, arrays):
@@ -99,10 +121,10 @@ def load_state(lm, values: Mapping) -> None:
     state = named_state(lm)
     if list(values) != list(state):
         raise ValueError(f"state names/order differ: got {list(values)}, model has {list(state)}")
-    arrays = [np.asarray(v.get_value() if hasattr(v, "get_value") else v) for v in values.values()]
+    arrays = [port_value(v) for v in values.values()]
     for (name, p), a in zip(state.items(), arrays):
-        have = np.asarray(p.get_value())
-        if a.shape != have.shape or a.dtype != have.dtype:
-            raise ValueError(f"{name}: got {a.dtype}{a.shape}, model has {have.dtype}{have.shape}")
+        have = port_value(p)
+        if _dtype_shape(a) != _dtype_shape(have):
+            raise ValueError(f"{name}: got {a.dtype}{tuple(a.shape)}, model has {have.dtype}{tuple(have.shape)}")
     for p, a in zip(state.values(), arrays):
         p.set_value(a)

@@ -7,6 +7,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from aesara_tpu_torch.misc.safe_asarray import _asarray
 from aesara_tpu_torch.models.base import Model, glorot, zeros
 from aesara_tpu_torch.tensor import math as tm
 
@@ -42,8 +43,8 @@ class TransformerEncoderLayer(Model):
         self.ln2_g = self._register(zeros((d_model,), "ln2_g"))
         self.ln2_b = self._register(zeros((d_model,), "ln2_b"))
         # gains start at 1
-        self.ln1_g.set_value(np.ones(d_model, dtype=self.ln1_g.type.dtype))
-        self.ln2_g.set_value(np.ones(d_model, dtype=self.ln2_g.type.dtype))
+        self.ln1_g.set_value(_asarray(np.ones(d_model), self.ln1_g.type.dtype))
+        self.ln2_g.set_value(_asarray(np.ones(d_model), self.ln2_g.type.dtype))
 
     def _split_heads(self, x, B, T):
         # (B, T, D) -> (H*B, T, d_head), head-major

@@ -41,9 +41,58 @@ all_dtypes = discrete_dtypes + continuous_dtypes
 
 
 def _np_dtype(name: str) -> np.dtype:
-    if name == "bfloat16":
-        raise TypeError("NumPy has no bfloat16; bfloat16 values exist only as torch tensors")
-    return np.dtype(name)
+    """The NumPy dtype of the host form of a value of dtype ``name``
+    (``to_host``): NumPy has no bfloat16, so a bfloat16 value's host form
+    is a float32 array that holds bfloat16 values only."""
+    return np.dtype("float32" if name == "bfloat16" else name)
+
+
+def itemsize(name: str) -> int:
+    """Bytes of one value of dtype ``name``."""
+    return 2 if name == "bfloat16" else np.dtype(name).itemsize
+
+
+def is_torch_tensor(x) -> bool:
+    """Whether ``x`` is a torch tensor (without importing torch)."""
+    return type(x).__module__.startswith("torch") and hasattr(x, "dtype") and hasattr(x, "device")
+
+
+# A value of dtype ``name`` lives in one of two forms off the device.  Its
+# host form, which the graph holds (constants, ``perform`` results, values
+# folded from constants), is a NumPy array of ``_np_dtype(name)``.  Its user
+# form, which ``shared``, ``get_value`` and ``_asarray`` give and take, is a
+# NumPy array too, but for bfloat16 a torch.bfloat16 tensor on the CPU.
+# These two functions are the only conversions between them.
+
+def to_host(x, name: str) -> np.ndarray:
+    """``x`` (a NumPy value, a Python literal or a torch tensor on any
+    device) in the host form of dtype ``name``.  A bfloat16 value is
+    rounded by torch, through float32 as torch and ml_dtypes round a
+    float64, so the JAX package's ml_dtypes values have the same bits."""
+    if is_torch_tensor(x):
+        import torch
+
+        x = x.detach().cpu()
+        x = (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+    arr = np.asarray(x).astype(_np_dtype(name), copy=False)
+    if name != "bfloat16":
+        return arr
+    import torch
+
+    return torch.from_numpy(np.array(arr, order="C")).to(torch.bfloat16).float().numpy()
+
+
+def from_host(x, name: str):
+    """``x`` (as ``to_host`` takes it) in the user form of dtype ``name``,
+    a copy: a NumPy array, or for bfloat16 a torch.bfloat16 tensor on the
+    CPU."""
+    if name != "bfloat16":
+        return np.array(to_host(x, name))
+    import torch
+
+    if is_torch_tensor(x) and x.dtype == torch.bfloat16:
+        return x.detach().cpu().clone()
+    return torch.from_numpy(to_host(x, name)).to(torch.bfloat16)
 
 
 def upcast(dtype, *dtypes) -> str:
@@ -116,7 +165,7 @@ class ScalarType(Type):
         self.dtype = "bfloat16" if dtype == "bfloat16" else np.dtype(dtype).name
 
     def filter(self, data, strict=False, allow_downcast=None):
-        arr = np.asarray(data, dtype=_np_dtype(self.dtype))
+        arr = to_host(data, self.dtype)
         if arr.ndim != 0:
             raise TypeError(f"scalar expected, got array of ndim {arr.ndim}")
         return arr[()]
@@ -175,8 +224,8 @@ def constant(x, dtype=None) -> ScalarConstant:
             dtype = "int8" if -128 <= x < 128 else "int64"
         elif isinstance(x, float):
             dtype = config.floatX
-    arr = np.asarray(x, dtype=dtype)
-    return ScalarConstant(ScalarType(arr.dtype.name), arr[()])
+    arr = np.asarray(x) if dtype is None else to_host(x, dtype)
+    return ScalarConstant(ScalarType(dtype or arr.dtype.name), arr[()])
 
 
 class ScalarOp(Op):
@@ -212,7 +261,7 @@ class ScalarOp(Op):
         if self.nout == 1:
             out = (out,)
         for storage, o, var in zip(output_storage, out, node.outputs):
-            storage[0] = np.asarray(o).astype(_np_dtype(var.type.dtype))[()]
+            storage[0] = to_host(o, var.type.dtype)[()]
 
     def __eq__(self, other):
         if self is other:
@@ -585,7 +634,7 @@ class Cast(UnaryScalarOp):
         return (self.o_type,)
 
     def impl(self, x):
-        return np.asarray(x).astype(_np_dtype(self.o_type.dtype))[()]
+        return to_host(x, self.o_type.dtype)[()]
 
     def grad(self, inputs, output_grads):
         (x,) = inputs

@@ -16,7 +16,7 @@ from aesara_tpu_torch.config import config
 from aesara_tpu_torch.graph.ir import Apply, Constant, Variable
 from aesara_tpu_torch.graph.op import Op
 from aesara_tpu_torch.scalar import ops as aes
-from aesara_tpu_torch.scalar.ops import ScalarType, _np_dtype, upcast
+from aesara_tpu_torch.scalar.ops import ScalarType, _np_dtype, from_host, is_torch_tensor, to_host, upcast
 from aesara_tpu_torch.tensor.elemwise import DimShuffle, Elemwise, check_static_broadcast
 from aesara_tpu_torch.tensor.type import TensorType
 from aesara_tpu_torch.tensor.var import TensorConstant, TensorVariable
@@ -47,7 +47,7 @@ def as_tensor_variable(x, name=None, ndim=None) -> TensorVariable:
         return x
     if isinstance(x, (list, tuple)) and any(isinstance(e, Variable) for e in x):
         return stack(list(x))
-    if isinstance(x, (np.ndarray, np.generic, int, float, bool, list, tuple)):
+    if isinstance(x, (np.ndarray, np.generic, int, float, bool, list, tuple)) or is_torch_tensor(x):
         return constant(x, name=name, ndim=ndim)
     raise TypeError(f"cannot convert {x!r} to a TensorVariable")
 
@@ -60,7 +60,10 @@ def constant(x, name=None, ndim=None, dtype=None) -> TensorConstant:
         if (name in (None, x.name) and ndim in (None, x.type.ndim)
                 and dtype in (None, x.type.dtype)):
             return x
-        x = x.data
+        x, dtype = x.data, dtype or x.type.dtype   # a bfloat16 one's data is its host form
+    if is_torch_tensor(x):
+        # a torch tensor (the user form of a bfloat16 value): its dtype
+        dtype = dtype or str(x.dtype).split(".")[-1]
     if dtype is None and not isinstance(x, (np.ndarray, np.generic)):
         if isinstance(x, bool):
             dtype = "bool"
@@ -69,7 +72,7 @@ def constant(x, name=None, ndim=None, dtype=None) -> TensorConstant:
                      else "int32" if -(2**31) <= x < 2**31 else "int64")
         elif isinstance(x, float):
             dtype = config.floatX
-    arr = np.asarray(x, dtype=None if dtype is None else _np_dtype(dtype))
+    arr = np.asarray(x) if dtype is None else to_host(x, dtype)
     if ndim is not None:
         if arr.ndim > ndim:
             extra = arr.ndim - ndim
@@ -78,7 +81,9 @@ def constant(x, name=None, ndim=None, dtype=None) -> TensorConstant:
             arr = arr.reshape(arr.shape[extra:])
         while arr.ndim < ndim:
             arr = arr[None]
-    return TensorConstant(TensorType(arr.dtype.name, arr.shape), arr, name=name)
+    if dtype == "bfloat16":
+        arr = from_host(arr, dtype)   # the form a bfloat16 type admits
+    return TensorConstant(TensorType(dtype or arr.dtype.name, tuple(arr.shape)), arr, name=name)
 
 
 def cast(x, dtype: str):
@@ -133,7 +138,7 @@ class MakeVector(Op):
         return Apply(self, inputs, [TensorType(self.dtype, (len(inputs),))()])
 
     def perform(self, node, inputs, output_storage):
-        output_storage[0][0] = np.asarray(inputs, dtype=_np_dtype(self.dtype))
+        output_storage[0][0] = to_host(inputs, self.dtype)
 
 
 def get_scalar_constant_value(v):
@@ -153,7 +158,7 @@ def get_scalar_constant_value(v):
             continue
         if isinstance(op, Elemwise):
             vals = [get_scalar_constant_value(i) for i in v.owner.inputs]
-            return np.asarray(op.scalar_op.impl(*vals)).astype(_np_dtype(v.type.dtype))[()]
+            return to_host(op.scalar_op.impl(*vals), v.type.dtype)[()]
         raise NotScalarConstantError(str(v))
     raise NotScalarConstantError("max recursion")
 

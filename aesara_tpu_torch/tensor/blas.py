@@ -347,7 +347,7 @@ def _outer_operands(x, y):
 
 
 def _one(dtype):
-    return constant(np.asarray(1, dtype=dtype)[()], dtype=dtype)
+    return constant(1, dtype=dtype)
 
 
 def _is_one(v) -> bool:

@@ -16,7 +16,7 @@ import numpy as np
 from aesara_tpu_torch.graph.ir import Apply
 from aesara_tpu_torch.graph.op import Op
 from aesara_tpu_torch.scalar import ops as aes
-from aesara_tpu_torch.scalar.ops import ScalarType, _np_dtype, discrete_dtypes
+from aesara_tpu_torch.scalar.ops import ScalarType, _np_dtype, discrete_dtypes, to_host
 from aesara_tpu_torch.tensor.type import TensorType
 
 
@@ -212,7 +212,7 @@ class Elemwise(Op):
         if self.scalar_op.nout == 1:
             results = (results,)
         for storage, r, o in zip(output_storage, results, node.outputs):
-            storage[0] = np.asarray(r).astype(_np_dtype(o.type.dtype), copy=False)
+            storage[0] = to_host(r, o.type.dtype)
 
 
 class CAReduce(Op):
@@ -270,12 +270,13 @@ class CAReduce(Op):
     def perform(self, node, inputs, output_storage):
         (x,) = inputs
         axes = self._normalized_axes(x.ndim)
-        out_dtype = _np_dtype(node.outputs[0].type.dtype)
-        acc_dtype = _np_dtype(self.acc_dtype) if self.acc_dtype else out_dtype
-        acc = x.astype(acc_dtype, copy=False)
+        # bfloat16 and float16 sum in float32, as jnp.sum computes them
+        out_dtype = node.outputs[0].type.dtype
+        acc_dtype = self.acc_dtype or out_dtype
+        acc = x.astype(_np_dtype("float32" if acc_dtype in ("bfloat16", "float16") else acc_dtype), copy=False)
         if axes:
             acc = self._np_reducers[str(self.scalar_op)].reduce(acc, axis=axes)
-        output_storage[0][0] = np.asarray(acc).astype(out_dtype, copy=False)
+        output_storage[0][0] = to_host(acc, out_dtype)
 
     def __str__(self):
         ax = "" if self.axis is None else f"{{axis={list(self.axis)}}}"

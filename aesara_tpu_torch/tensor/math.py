@@ -13,7 +13,7 @@ from aesara_tpu_torch.config import config
 from aesara_tpu_torch.graph.ir import Apply
 from aesara_tpu_torch.graph.op import Op
 from aesara_tpu_torch.scalar import math as aesm, ops as aes
-from aesara_tpu_torch.scalar.ops import _np_dtype, discrete_dtypes, upcast
+from aesara_tpu_torch.scalar.ops import discrete_dtypes, to_host, upcast
 from aesara_tpu_torch.tensor.basic import as_tensor_variable, cast, constant
 from aesara_tpu_torch.tensor.elemwise import CAReduce, DimShuffle, Elemwise
 from aesara_tpu_torch.tensor.type import TensorType
@@ -450,8 +450,7 @@ class Dot(Op):
 
     def perform(self, node, inputs, output_storage):
         x, y = inputs
-        out_dtype = _np_dtype(node.outputs[0].type.dtype)
-        output_storage[0][0] = np.asarray(np.dot(x, y)).astype(out_dtype, copy=False)
+        output_storage[0][0] = to_host(np.dot(x, y), node.outputs[0].type.dtype)
 
     def grad(self, inputs, output_grads):
         x, y = inputs
@@ -509,9 +508,8 @@ class BatchedDot(Op):
 
     def perform(self, node, inputs, output_storage):
         x, y = inputs
-        out_dtype = _np_dtype(node.outputs[0].type.dtype)
         res = np.einsum(_BATCHED_SUBSCRIPTS[x.ndim, y.ndim], x, y)
-        output_storage[0][0] = np.asarray(res).astype(out_dtype, copy=False)
+        output_storage[0][0] = to_host(res, node.outputs[0].type.dtype)
 
     def infer_shape(self, fgraph, node, input_shapes):
         xs, ys = input_shapes

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from aesara_tpu_torch.scalar.ops import to_host
 from aesara_tpu_torch.graph.ir import Apply
 from aesara_tpu_torch.graph.op import Op
 from aesara_tpu_torch.tensor.basic import as_tensor_variable
@@ -68,7 +69,7 @@ class FusedAttention(Op):
     def perform(self, node, inputs, output_storage):
         q, k, v = inputs
         res = attention_ref_numpy(q, k, v, self.causal, 1.0 / float(np.sqrt(q.shape[-1])))
-        output_storage[0][0] = np.asarray(res, dtype=node.outputs[0].type.dtype)
+        output_storage[0][0] = to_host(res, node.outputs[0].type.dtype)
 
     def L_op(self, inputs, outputs, output_grads):
         return FusedAttentionGrad(self.causal)(*inputs, output_grads[0])
@@ -94,7 +95,7 @@ class FusedAttentionGrad(Op):
         grads = attention_grads_ref_numpy(q, k, v, gz.astype(q.dtype), self.causal,
                                           1.0 / float(np.sqrt(q.shape[-1])))
         for storage, g, var in zip(output_storage, grads, node.outputs):
-            storage[0] = np.asarray(g, dtype=var.type.dtype)
+            storage[0] = to_host(g, var.type.dtype)
 
 
 def fused_attention(q, k, v, causal: bool = False):

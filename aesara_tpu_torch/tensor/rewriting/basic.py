@@ -74,7 +74,7 @@ def constant_folding(fgraph, node):
         return False
     results = []
     for s, o in zip(storage, node.outputs):
-        const = constant(np.asarray(s[0], dtype=o.type.dtype))
+        const = constant(s[0], dtype=o.type.dtype)
         results.append(copy_stack_trace(o, const))
     return results
 

@@ -32,7 +32,7 @@ from aesara_tpu_torch.compile.mode import register_canonicalize, register_specia
 from aesara_tpu_torch.graph.ir import Constant, equal_computations
 from aesara_tpu_torch.graph.rewriting.basic import NodeRewriter, copy_stack_trace, node_rewriter
 from aesara_tpu_torch.scalar import math as aesm, ops as aes
-from aesara_tpu_torch.scalar.ops import discrete_dtypes
+from aesara_tpu_torch.scalar.ops import discrete_dtypes, itemsize
 from aesara_tpu_torch.tensor import math as tm
 from aesara_tpu_torch.tensor.basic import cast, constant, switch, zeros_like
 from aesara_tpu_torch.tensor.elemwise import Elemwise
@@ -115,11 +115,11 @@ def local_sumsqr2dot(fgraph, node):
     if x.type.dtype in discrete_dtypes or x.type.ndim == 0:
         return False
     out = node.outputs[0]
-    out_dt = np.dtype(out.type.dtype)
-    acc_dt = np.dtype(node.op.acc_dtype) if node.op.acc_dtype else out_dt
-    x_dt = np.dtype(x.type.dtype)
-    eff_acc = 4 if x.type.dtype in ("float16", "bfloat16") else x_dt.itemsize
-    if out_dt.itemsize > x_dt.itemsize or acc_dt.itemsize > eff_acc:
+    out_size = itemsize(out.type.dtype)
+    acc_size = itemsize(node.op.acc_dtype) if node.op.acc_dtype else out_size
+    x_size = itemsize(x.type.dtype)
+    eff_acc = 4 if x.type.dtype in ("float16", "bfloat16") else x_size
+    if out_size > x_size or acc_size > eff_acc:
         return False
     flat = x.flatten()
     res = tm.dot(flat, flat)
@@ -504,7 +504,7 @@ class AlgebraicCanonizer(NodeRewriter):
             denum = [v for v in denum if v not in d_consts]
             ct = self.calculate([_const_val(v) for v in n_consts], [_const_val(v) for v in d_consts])
             if not np.all(ct == self.neutral):
-                num.insert(0, constant(np.asarray(ct).astype(out.type.dtype)[()]))
+                num.insert(0, constant(np.asarray(ct)[()], dtype=out.type.dtype))
             changed = True
         return num, denum, changed
 
@@ -522,7 +522,7 @@ class AlgebraicCanonizer(NodeRewriter):
 
     def merge(self, num, denum, out):
         if not num and not denum:
-            return constant(np.asarray(self.neutral, dtype=out.type.dtype))
+            return constant(self.neutral, dtype=out.type.dtype)
         if not denum:
             return num[0] if len(num) == 1 else self.build_main(*num)
         d = denum[0] if len(denum) == 1 else self.build_main(*denum)

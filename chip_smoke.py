@@ -15,6 +15,7 @@ serve the sparse-input models, all through ``aesara_tpu_torch.function``.
     python3 chip_smoke.py --scan    # only the setup and path (f), Scan: config 4 and the LSTM
     python3 chip_smoke.py --decoder    # only the setup and path (g), the decoder LM served
     python3 chip_smoke.py --decoder-sampling    # only the setup and path (h): sampling, speculative, beam
+    python3 chip_smoke.py --bf16    # only the setup and path (i): bfloat16, remat, the decoder trained
 
 Every compiled function runs captured (``TorchLinker``'s default on the
 card): its first call with a key runs eagerly, the second captures the
@@ -189,12 +190,49 @@ h. (h) the decoder's cut features on (g)'s model (its set-up and kernel
    on the host from the CPU's logits by an fp64 path (within it) and by an
    fp32 path (which must fail it),
    and beam 1 at 8 tokens against (g2)'s greedy tokens.
+i. (i) bfloat16 graphs, ``remat`` and the decoder LM trained, with
+   PyTorch's reduced-precision reductions off (a bfloat16 Dot sums in
+   fp32).  (i1) ``benchmarks/bench_transformer.py``'s bfloat16 row: the
+   4-layer encoder above in bfloat16 (x ``normal * 0.1`` of
+   ``default_rng(0)``, sgd 0.01): K1 on its bfloat16 Composites against
+   the plain versions (within BF16_REL of the scale), 3 counted steps (the
+   loss below the first step's), 10 timed and 3 profiled; at batch 1
+   against the CPU, the loss and every gradient within BF16_REL of its
+   scale plus the CPU's own distance from the float64 gradient of the same
+   bfloat16 start, and the loss and every parameter after one step within
+   BF16_REL of its scale.  K2 and K3 in bfloat16 at (i1)'s and (i2)'s
+   panels, (128, 1024, 64) and (128, 2048, 128): against the plain
+   versions, two calls with the same bits, times beside
+   ``scaled_dot_product_attention``'s (backend named) and the fastest
+   backward it offers, bounds at the dense bf16 rate (made with phase 3's
+   checks, early in the run).  (i2) ``run_model_scale_remat``: 12 layers
+   of (2048, 16, 8192) at 8 x 2048 tokens in bfloat16 (604 M parameters),
+   remat off then on in one process, each with its gradients at the start,
+   3 counted steps (every launch of the inner programs of the Remat nodes
+   counted), N_SCALE_TIMED timed and 3 profiled; the two arms' gradients,
+   and their losses and parameters after the 3 steps, bitwise equal (else
+   each within BF16_REL and the differing ones logged), and the remat
+   arm's peak memory below the other's.  (i3)
+   ``examples/production_training.py`` at (g)'s width: ``DecoderLM(32000,
+   4, 512, 8, 2048)`` trained by ``scaled_loss_updates`` around
+   ``adamw_from_grads(weight_decay=0.01)`` under ``warmup_cosine(3e-3, 20,
+   200)`` on a shared counter, 16 rows of 257 tokens x 2 epochs with a
+   checkpoint after each: K1 on each distinct Composite at the shapes a
+   call gives it, every state variable after the first step against the
+   CPU (TRAIN_TOL) and the first TRAIN_CPU_STEPS losses against the CPU's
+   (TRAIN_LOSS_REL; the schedule overshoots at this width, in the JAX
+   package too), the launches of all 32 steps; then the checkpoint loaded
+   into a freshly built graph (every state variable bitwise the saved
+   one), 8 greedy tokens of the resumed model equal to the CPU's from the
+   same checkpoint, and one more step from each graph bitwise equal; K4 at
+   its causal softmax, (8 x 256, 256) float64.
 8. captured against eager: every path above (the forward request, the
    sgd and AdamW steps, the classifier step, ``predict`` of one request
    sent again, the GLM's sgd and adam steps, path (c) at width 20, config
    3's step, config 4's step, the LSTM step, (g1) at 16 tokens, (h1)
-   with top-k 40 at 32 tokens and (g5)'s
-   ``_decode`` at chunk 1 and 16 after 32 admissions) compiled
+   with top-k 40 at 16 tokens, (g5)'s
+   ``_decode`` at chunk 1 and 16 after 32 admissions, (i1)'s bfloat16
+   step and (i3)'s train step on one row after another) compiled
    twice from the same seeds, captured and with ``use_graph=False``, each
    driven alike (4 calls compared, then timed and profiled); a "capture
    table" line for each gives its step time back
@@ -205,9 +243,10 @@ h. (h) the decoder's cut features on (g)'s model (its set-up and kernel
    everywhere; an eager run whose trace lost launches in PROFILE_ATTEMPTS
    sessions prints its busy share as not measured.
 
-The CPU's side of the card-vs-CPU checks of (d), (g1), (h1) and (h3) is
-made in a spawned process of its own (CPU_REF_THREADS cores, no CUDA)
-while the card runs the paths before them; it ends before the script.
+The CPU's side of the card-vs-CPU checks of (d), (g1), (h1), (h3), (i1)
+and (i3) is made in a spawned process of its own (CPU_REF_THREADS cores,
+no CUDA) while the card runs the paths before them; it ends before the
+script.
 
 The next-to-last lines are a JSON object describing the kernels (each
 kernel's launches from its path's run, and beside them the launches that
@@ -216,7 +255,9 @@ K1-K3 also with their launches in path 4d's 3 steps, and K1 with its time
 and bound on the AdamW update; K1 and K4 with their launches in each
 configuration of path (e), (f), (g) and (h), and K4 with its checks there;
 the threefry kernel, which replaces no TPU kernel, with (h1)'s launches
-and its launches in paths (b) and (h))
+and its launches in paths (b) and (h); K1-K4 with their launches in each
+run of path (i), K1 with its bfloat16 time and bound, K2 and K3 with their
+bfloat16 checks at (i)'s panels, K4 with its check at (i3)'s softmax)
 and the card's name and power limit; the last is
 ``{"ok": true, "device": {...}}``.
 """
@@ -340,7 +381,7 @@ SERVE_CHUNKS = (1, 16)
 N_DEC_CALLS, N_DEC_TIMED = 3, 10
 # phase 8: greedy decode of this many tokens (32 before path (h) came, cut
 # to keep the run's time), and sampled decode of this many
-DEC_CAPTURE_STEPS, SAMPLE_CAPTURE_STEPS = 16, 32
+DEC_CAPTURE_STEPS, SAMPLE_CAPTURE_STEPS = 16, 16
 TIE_REL = 1e-3              # a differing token is a tie where the CPU's top-2 gap is under this of the scale
 # (h) the decoder's cut features at (g)'s width (the JAX package's
 # aesara_tpu/models/decoder.py): sampling at temperature 0.8, alone and with
@@ -399,6 +440,27 @@ SCAN_JAX_COUNTS = {
           "Subtensor": 8, "Elemwise{Sigmoid}": 6, "Elemwise{Mul}": 16, "Elemwise{Tanh}": 4, "Elemwise{Sub}": 5,
           "IncSubtensor": 6, "Elemwise{Sqr}": 2, "Shape": 2, "MakeVector": 1, "Split": 1})],
 }
+# (i) bench_transformer.py's bfloat16 row (:70-71,147-166: the flagship
+# encoder above in bfloat16, 3 + 10 steps); run_model_scale_remat
+# (:103-121): 12 layers of (2048, 16, 8192) at B 8 x T 2048 in bfloat16,
+# remat off then on, 3 counted steps and N_SCALE_TIMED timed ones each (the
+# bench times 10); K2 and K3 in bfloat16 at the two paths' panels; and
+# examples/production_training.py at (g)'s width: rows of 257 tokens from
+# default_rng(0), 16 rows x 2 epochs, its AdamW, schedule and loss scaling,
+# then 8 tokens of the resumed model from token 1 against caches of 16
+SCALE_LAYERS, SCALE_D, SCALE_HEADS, SCALE_FF, SCALE_BATCH, SCALE_SEQ = 12, 2048, 16, 8192, BATCH, 2048
+N_SCALE_TIMED = 5
+BF16_PANELS = ((BATCH * N_HEADS, SEQ, D_MODEL // N_HEADS),
+               (SCALE_BATCH * SCALE_HEADS, SCALE_SEQ, SCALE_D // SCALE_HEADS))
+TRAIN_ROWS, TRAIN_ROW_LEN, TRAIN_EPOCHS = 16, 257, 2
+TRAIN_LR_MAX, TRAIN_WARMUP, TRAIN_TOTAL, TRAIN_WD = 3e-3, 20, 200, 0.01
+# (i3) against the CPU: every state variable after the first step at
+# TRAIN_TOL, and the losses of the first TRAIN_CPU_STEPS steps within
+# TRAIN_LOSS_REL of the CPU's (the port's are held to the JAX package's so on
+# the CPU, tests/test_torch_production_training.py; AdamW moves an entry
+# whose gradient sums cancel by up to 2 lr a step, so later losses drift)
+TRAIN_CPU_STEPS, TRAIN_LOSS_REL = 8, 1e-3
+GEN_STEPS, GEN_T_MAX = 8, 16
 PROFILE_STEPS = 3        # calls counted in a profiled window, after one the profiler drops and a lead-in
 N_HOST_CALLS = 5         # calls whose host time time_steps takes the median of
 # host time at each edge of a profiled window.  On the H100, once the card
@@ -632,27 +694,29 @@ def guarded_inputs(comp):
     return {i for i, var in enumerate(comp.inputs) if var in guarded}
 
 
-def composite_inputs(node, rng, device, full=(BATCH, SEQ, D_MODEL), sample="signed"):
+def composite_inputs(node, rng, device, full=(BATCH, SEQ, D_MODEL), sample="signed", shapes=None):
     """Test values for one Composite node at full width: static-1 dims stay
     1 (they broadcast), unknown dims become ``full``.  Inputs that reach a
     sqrt or a divisor are positive; the others take both signs, so
     ``maximum(., 0)`` takes both of its branches.  With ``sample`` "unit"
-    every float input lies in (0.05, 0.95)."""
+    every float input lies in (0.05, 0.95).  ``shapes``, where given, are
+    the inputs' shapes (those a run gave them)."""
     guarded = guarded_inputs(node.op.scalar_op)
     out = []
     for i, var in enumerate(node.inputs):
-        shape = tuple(s if s is not None else full[d] for d, s in enumerate(var.type.shape))
+        shape = (tuple(s if s is not None else full[d] for d, s in enumerate(var.type.shape)) if shapes is None
+                 else shapes[i])
         if var.type.dtype == "bool":
             arr = rng.random(size=shape) < 0.5
         elif var.type.dtype.startswith("int"):
-            arr = rng.integers(1, 100, size=shape).astype(var.type.dtype)
+            arr = rng.integers(1, 100, size=shape)
         elif sample == "unit":
-            arr = rng.uniform(0.05, 0.95, size=shape).astype(var.type.dtype)
+            arr = rng.uniform(0.05, 0.95, size=shape)
         elif i in guarded:
-            arr = rng.uniform(0.5, 2.0, size=shape).astype(var.type.dtype)
+            arr = rng.uniform(0.5, 2.0, size=shape)
         else:
-            arr = rng.normal(size=shape).astype(var.type.dtype)
-        out.append(torch.as_tensor(arr, device=device))
+            arr = rng.normal(size=shape)
+        out.append(card_tensor(arr, var.type.dtype, device))
     return out
 
 
@@ -662,8 +726,12 @@ def phase_setup():
     if importlib.util.find_spec("aesara_tpu_torch") is None:
         raise SystemExit("chip_smoke: the package aesara_tpu_torch is not here; run this script "
                          "from the root of a checkout of the repo")
-    # Dot is a full-fp32 product, as in the JAX reference; the linker refuses TF32
+    # Dot is a full-fp32 product, as in the JAX reference, and a bfloat16 or
+    # float16 one sums in fp32: the linker refuses TF32 and the reduced-
+    # precision reductions PyTorch turns on by default
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
     smi = card_line()
     log(f"card: {smi}; python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}")
@@ -734,19 +802,31 @@ def warm_tf():
         raise AssertionError("threefry warm-up did not launch or gave a wrong result")
 
 
-def phase_k1(fn, rng, skip=(), timed_shape=(BATCH, SEQ, D_MODEL)):
+def k1_and_plain_ms(kernel, comp, out_dtype, args) -> tuple:
+    """Device ms of one K1 launch and of its plain version on ``args``, from
+    one profiled session that runs both (K1's Triton kernel is the one
+    named "kernel", ``kernel_group``; the plain version's are PyTorch's)."""
+    from aesara_tpu_torch.link.torch.kernels.elemwise import composite_plain, fused_elemwise
+
+    split = device_split(lambda: (fused_elemwise(kernel, *args), composite_plain(comp, out_dtype, *args)))
+    ms = sum(t for name, t in split.items() if kernel_group(name) == "K1 fused Composite")
+    return ms, sum(split.values()) - ms
+
+
+def phase_k1(fn, rng, skip=(), timed_shape=(BATCH, SEQ, D_MODEL), full=(BATCH, SEQ, D_MODEL)):
     """K1 on each distinct Composite that the compiled ``fn`` runs on the
     card (but those in ``skip``)
-    against its plain version: (max abs err, (ms, plain ms, bound ms, bound
-    by, ms with the L2 flushed) of the Composite of the most ops (more
-    than two) whose output has ``timed_shape``, or None, the Composite
-    ops checked)."""
+    against its plain version: (max abs err of the float32 and float64
+    Composites, max err of the bfloat16 and float16 ones relative to their
+    output's scale (their gate), (ms, plain ms, bound ms, bound by, ms with
+    the L2 flushed) of the Composite of the most ops (more than two) whose
+    output has ``timed_shape``, or None, the Composite ops checked)."""
     from aesara_tpu_torch.link.torch.kernels.elemwise import (
         ElemwiseKernel, composite_plain, fused_elemwise,
     )
 
     device = torch.device("cuda")
-    k1_err, k1_times, timed = 0.0, None, []
+    k1_err, rel_err, k1_times, timed = 0.0, 0.0, None, []
     distinct = []     # one node of each Composite op, one with ``timed_shape`` where there is one
     for node in composite_nodes(fn):
         if node.op in skip:
@@ -760,22 +840,26 @@ def phase_k1(fn, rng, skip=(), timed_shape=(BATCH, SEQ, D_MODEL)):
         comp = node.op.scalar_op
         out_dtype = node.outputs[0].type.dtype
         kernel = ElemwiseKernel(comp, [v.type.dtype for v in node.inputs], out_dtype)
-        args = composite_inputs(node, rng, device)
+        args = composite_inputs(node, rng, device, full)
         t0 = time.perf_counter()
         got = fused_elemwise(kernel, *args)
         torch.cuda.synchronize()
         compile_s = time.perf_counter() - t0
         want = composite_plain(comp, out_dtype, *args)
         err = (got.double() - want.double()).abs().max().item()
-        if not err <= F32_ATOL or got.shape != want.shape or got.dtype != want.dtype:
-            raise AssertionError(f"K1 {comp} {tuple(got.shape)} {got.dtype}: max err {err} > {F32_ATOL}")
-        ms = device_ms(lambda: fused_elemwise(kernel, *args))
-        plain_ms = device_ms(lambda: composite_plain(comp, out_dtype, *args))
+        low, scale = out_dtype in ("bfloat16", "float16"), want.double().abs().max().item()
+        tol = BF16_REL * scale if low else F32_ATOL
+        if not err <= tol or got.shape != want.shape or got.dtype != want.dtype:
+            raise AssertionError(f"K1 {comp} {tuple(got.shape)} {got.dtype}: max err {err} > {tol}")
+        ms, plain_ms = k1_and_plain_ms(kernel, comp, out_dtype, args)
         call, plain_call = (call_ms(lambda: fused_elemwise(kernel, *args)),
                             call_ms(lambda: composite_plain(comp, out_dtype, *args)))
-        k1_err = max(k1_err, err)
+        if low:
+            rel_err = max(rel_err, err / scale if scale else err)
+        else:
+            k1_err = max(k1_err, err)
         shapes = [tuple(a.shape) for a in args]
-        log(f"K1 {comp} inputs {shapes} -> {tuple(got.shape)}: max_abs_err {err:.3e}, "
+        log(f"K1 {comp} inputs {shapes} -> {tuple(got.shape)} {out_dtype}: max_abs_err {err:.3e}, "
             f"device ms kernel {ms:.4f} plain {plain_ms:.4f}; per call ms kernel {call:.4f} "
             f"plain {plain_call:.4f}; first call {compile_s:.2f} s")
         if timed_shape is not None and tuple(got.shape) == tuple(timed_shape) and len(comp.nodes) > 2:
@@ -799,7 +883,7 @@ def phase_k1(fn, rng, skip=(), timed_shape=(BATCH, SEQ, D_MODEL)):
             f"{n_bytes / 1e6:.1f} MB moved")
         k1_times += (cold_ms,)
         del flush
-    return k1_err, k1_times, {n.op for n in distinct}
+    return k1_err, rel_err, k1_times, {n.op for n in distinct}
 
 
 def k2_occupancy(lib=None, label: str = "K2 occupancy"):
@@ -844,7 +928,7 @@ def phase_kernels(fn):
 
     rng = np.random.default_rng(0)
     device = torch.device("cuda")
-    k1_err, k1_times, _ = phase_k1(fn, rng)   # k1_times: the layer-norm scale Composite
+    k1_err, _, k1_times, _ = phase_k1(fn, rng)   # k1_times: the layer-norm scale Composite
     if k1_times is None:
         raise AssertionError("no layer-norm scale Composite among the forward's Composites")
 
@@ -1330,6 +1414,7 @@ def profile_call(fn, label: str, steps: int = PROFILE_STEPS, strict: bool = True
     Without ``strict`` (eager runs of phase 8 only), that many give a
     busy time of None: not measured.  Returns (wall ms, busy ms or None,
     the trace's launches, the device events a call by kind or None)."""
+    t0 = time.perf_counter()
     for attempt in range(PROFILE_ATTEMPTS):
         wall, device, traced, counted, plain, note = profile_session(fn, label, steps)
         if plain:
@@ -1363,7 +1448,7 @@ def profile_call(fn, label: str, steps: int = PROFILE_STEPS, strict: bool = True
     for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         log(f"  {t:9.3f} ms  {name}")
     log(f"  launches in {steps} calls, trace {traced}, counters {counted}; plain calls {plain}; {note}")
-    log(f"  device events a call: {events}")
+    log(f"  device events a call: {events}; profiled in {time.perf_counter() - t0:.2f} s")
     return wall, busy, traced, events
 
 
@@ -1473,8 +1558,8 @@ def phase_adamw(sgd_ops):
     step, params, _ = build_train_step("cuda", optimizer="adamw")
     log(f"(d) AdamW train step compile (graph + grad + rewrites + link): {time.perf_counter() - t0:.2f} s")
     check_train_graph(step, N_COMPOSITE_ADAMW, "(d) AdamW train")
-    k1_err, k1_times, _ = phase_k1(step, np.random.default_rng(3), skip=sgd_ops,
-                                   timed_shape=(D_MODEL, D_FF))
+    k1_err, _, k1_times, _ = phase_k1(step, np.random.default_rng(3), skip=sgd_ops,
+                                      timed_shape=(D_MODEL, D_FF))
     if k1_times is None:
         raise AssertionError("no AdamW update Composite on a (d_model, d_ff) weight")
     losses, (launches, _) = phase_train(step, params, N_COMPOSITE_ADAMW, "(d) AdamW train")
@@ -1677,7 +1762,7 @@ def check_k4(x, log_softmax: bool = True) -> dict:
            "library_ms": library_ms("K4", lambda: library(x, dim=-1))}
     # read and write each value once; max, subtract, exp, sum, then log and
     # subtract (log-softmax) or divide (softmax)
-    res["bound_ms"], res["bound_by"] = bound(2 * x.numel() * 4, (6 if lg else 5) * x.numel())
+    res["bound_ms"], res["bound_by"] = bound(2 * x.numel() * x.element_size(), (6 if lg else 5) * x.numel())
     # the bound is HBM's: an input under the 50 MB L2 is read from L2 when
     # launched again on it, so also the time with the L2 flushed first
     flush = torch.empty(L2_FLUSH_BYTES // 4, device=x.device)
@@ -1908,7 +1993,7 @@ def phase_glm_optimizers(xv, yv, wv) -> float:
         t0 = time.perf_counter()
         step, state = build_glm("cuda", xv, yv, wv, recipe)
         n_composite = len(composite_nodes(step))
-        err, _, ops = phase_k1(step, np.random.default_rng(4), skip=checked, timed_shape=None)
+        err, _, _, ops = phase_k1(step, np.random.default_rng(4), skip=checked, timed_shape=None)
         k1_err, checked = max(k1_err, err), checked | ops
         torch.cuda.synchronize()
         zero_counters()
@@ -2206,16 +2291,20 @@ def reference_call(built, which):
     return call
 
 
-def check_composites(nodes, label: str, rng, full=(REF_B, REF_H)) -> list:
+def check_composites(nodes, label: str, rng, full=(REF_B, REF_H), shapes=None, time_each: bool = True) -> list:
     """K1 on each distinct Composite among ``nodes`` (those a function runs
     on the card) against its plain version, on values in (0.05, 0.95)
     (every log, division and sigmoid of paths (e) and (f) stays finite
-    there) at the shapes the path gives it, an unknown dim ``full``'s: per
-    Composite a dict with its error, times and bound."""
+    there) at the shapes the path gives it: those a run gave its inputs
+    where ``shapes`` ({node: input shapes}, ``composite_shapes``) has them,
+    else with an unknown dim ``full``'s.  Each is timed, or with
+    ``time_each`` off only the one that moves the most bytes: per
+    Composite a dict with its error, and its times and bound (None where
+    not timed)."""
     from aesara_tpu_torch.link.torch.kernels.elemwise import ElemwiseKernel, composite_plain, fused_elemwise
 
     device = torch.device("cuda")
-    rows, seen = [], set()
+    rows, seen, largest = [], set(), None
     for node in nodes:
         if node.op in seen:
             continue
@@ -2223,23 +2312,41 @@ def check_composites(nodes, label: str, rng, full=(REF_B, REF_H)) -> list:
         comp = node.op.scalar_op
         out_dtype = node.outputs[0].type.dtype
         kernel = ElemwiseKernel(comp, [v.type.dtype for v in node.inputs], out_dtype)
-        args = composite_inputs(node, rng, device, full=full, sample="unit")
+        args = composite_inputs(node, rng, device, full=full, sample="unit",
+                                shapes=None if shapes is None else shapes[node])
         got = fused_elemwise(kernel, *args)
         torch.cuda.synchronize()
         want = composite_plain(comp, out_dtype, *args)
         err = (got.double() - want.double()).abs().max().item() if got.numel() else 0.0
         if not err <= F32_ATOL or got.shape != want.shape or got.dtype != want.dtype:
             raise AssertionError(f"{label} K1 {comp} {tuple(got.shape)} {got.dtype}: max err {err} > {F32_ATOL}")
-        ms = device_ms(lambda: fused_elemwise(kernel, *args))
-        plain_ms = device_ms(lambda: composite_plain(comp, out_dtype, *args))
         n_bytes = sum(a.numel() * a.element_size() for a in args) + got.numel() * got.element_size()
-        bound_ms, bound_by = bound(n_bytes, got.numel() * len(comp.nodes))
         ops = ".".join(sorted(type(n.op).__name__ for n in comp.nodes))
-        log(f"{label} K1 {{{ops}}} inputs {[tuple(a.shape) for a in args]} -> {tuple(got.shape)}: max_abs_err "
-            f"{err:.3e}, device ms kernel {ms:.4f} plain {plain_ms:.4f}, bound {bound_ms:.4f} ({bound_by})")
-        rows.append(dict(ops=ops, shape=tuple(got.shape), max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                         bound_ms=bound_ms, bound_by=bound_by))
+        ins = [f"{tuple(a.shape)} {str(a.dtype).split('.')[-1]}" for a in args]
+        row = dict(ops=ops, shape=tuple(got.shape), max_abs_err=err, ms=None, plain_ms=None, bound_ms=None,
+                   bound_by=None)
+        rows.append(row)
+        entry = (n_bytes, row, kernel, comp, out_dtype, args, got.numel())
+        line = f"{label} K1 {{{ops}}} inputs [{', '.join(ins)}] -> {tuple(got.shape)} {out_dtype}"
+        if time_each:
+            log(f"{line}: max_abs_err {err:.3e}, {time_composite(*entry)}")
+            continue
+        log(f"{line}: max_abs_err {err:.3e}")
+        if largest is None or n_bytes > largest[0][0]:
+            largest = (entry, line)
+    if largest is not None:
+        entry, line = largest
+        log(f"{line}, the one that moves the most bytes: {time_composite(*entry)}")
     return rows
+
+
+def time_composite(n_bytes, row, kernel, comp, out_dtype, args, n_out) -> str:
+    """Fill a ``check_composites`` row's device ms of K1 and its plain
+    version, and its bound; returns them as text for the log."""
+    row["ms"], row["plain_ms"] = k1_and_plain_ms(kernel, comp, out_dtype, args)
+    row["bound_ms"], row["bound_by"] = bound(n_bytes, n_out * len(comp.nodes))
+    return (f"device ms kernel {row['ms']:.4f} plain {row['plain_ms']:.4f}, bound {row['bound_ms']:.4f} "
+            f"({row['bound_by']})")
 
 
 def reference_graph(fn, label: str) -> dict:
@@ -3107,8 +3214,6 @@ def cpu_decoder_references() -> dict:
     return refs
 
 
-#: the jobs of ``cpu_reference``'s process, in the order it runs them
-CPU_REF_JOBS = {"adamw": adamw_cpu_reference, "decoder": cpu_decoder_references}
 _CPU_REFS: dict = {}
 
 
@@ -3279,6 +3384,552 @@ def decoder_only():
 
 
 # ---------------------------------------------------------------------------
+# (i) bfloat16 graphs, remat and the decoder LM trained
+# ---------------------------------------------------------------------------
+
+def card_tensor(arr, dtype: str, device="cuda"):
+    """A NumPy array as a tensor of ``dtype`` on ``device``, through the
+    port's user form of the dtype (``scalar.ops.from_host``)."""
+    from aesara_tpu_torch.scalar.ops import from_host
+
+    return torch.as_tensor(from_host(arr, dtype)).to(device)
+
+
+def build_bf16_step(device: str, n_layers: int = N_LAYERS, d: int = D_MODEL, heads: int = N_HEADS,
+                    ff: int = D_FF, batch: int = BATCH, seq: int = SEQ, use_remat: bool = False, use_graph=None,
+                    with_grads: bool = False, dtype: str = "bfloat16"):
+    """``benchmarks/bench_transformer.py``'s ``build_step`` in bfloat16 on
+    the port: ``n_layers`` encoder layers of seeds 0.., x a shared
+    ``normal(size=(batch, seq, d)) * 0.1`` of ``default_rng(0)`` (its first
+    ``batch`` rows), loss mean(h²) returned on the card, sgd at LR, and
+    with ``use_remat`` each layer a ``remat`` node: (step, parameters), and
+    with ``with_grads`` a third function, without updates, that returns
+    the loss and the gradient of each parameter.  In another ``dtype`` the
+    graph starts from the same bfloat16 values of x and the weights."""
+    import aesara_tpu_torch as ptp
+    from aesara_tpu_torch.compile.builders import remat
+    from aesara_tpu_torch.config import config
+    from aesara_tpu_torch.gradient import grad
+    from aesara_tpu_torch.models.optim import sgd
+    from aesara_tpu_torch.models.transformer import TransformerEncoderLayer
+    from aesara_tpu_torch.scalar.ops import from_host, to_host
+    from aesara_tpu_torch.tensor import math as tm
+
+    def bf16_start(value):
+        return from_host(to_host(value, "bfloat16"), dtype)
+
+    xv = np.random.default_rng(0).normal(size=(BATCH, seq, d))[:batch] * 0.1
+    with config.change_flags(device=device, floatX=dtype):
+        layers = [TransformerEncoderLayer(d, heads, ff, seed=i) for i in range(n_layers)]
+        params = [p for layer in layers for p in layer.params]
+        if dtype != "bfloat16":
+            for p in params:
+                p.set_value(bf16_start(p.value))
+        x = ptp.shared(bf16_start(xv), name="x")
+        h = x
+        for layer in layers:
+            h = remat([h] + layer.params, [layer(h)])(h, *layer.params) if use_remat else layer(h)
+        loss = tm.mean(tm.sqr(h))
+        mode = ptp.Mode(ptp.TorchLinker(device=device, use_graph=use_graph))
+        step = ptp.function([], ptp.Out(loss, borrow=True), updates=sgd(loss, params, lr=LR), mode=mode)
+        if not with_grads:
+            return step, params
+        return step, params, ptp.function([], [loss] + grad(loss, params), mode=mode)
+
+
+def graph_launches(fn) -> dict:
+    """The launches of one call of a compiled function, read from its
+    graph: K1 a Composite run on the card, K2 a FusedAttention and a
+    FusedAttentionGrad (its recompute), K3 a FusedAttentionGrad, K4 a
+    Softmax or LogSoftmax, in the step's program and in the inner programs
+    of its OpFromGraph (Remat) nodes."""
+    from aesara_tpu_torch.compile.builders import OpFromGraph
+    from aesara_tpu_torch.scalar.composite import Composite
+
+    counts = {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
+
+    def walk(program):
+        for node, fold, lowered in zip(program.order, program.folds, program.fns):
+            name = type(node.op).__name__
+            if fold:
+                continue
+            if isinstance(getattr(node.op, "scalar_op", None), Composite):
+                counts["K1"] += 1
+            elif name in ("FusedAttention", "FusedAttentionGrad"):
+                counts["K2"] += 1
+                counts["K3"] += name == "FusedAttentionGrad"
+            elif name in ("Softmax", "LogSoftmax"):
+                counts["K4"] += 1
+            elif isinstance(node.op, OpFromGraph):
+                walk(lowered.program)
+
+    walk(fn.fn.program)
+    return counts
+
+
+def op_census(fn) -> dict:
+    """Nodes of the step's graph by op (Composites as one), for the log."""
+    names = [type(n.op).__name__ for n in fn.fn.program.order]
+    return {k: names.count(k) for k in ("Remat", "RematBarrier", "FusedAttention", "FusedAttentionGrad",
+                                        "Dot", "Dot22Scalar")}
+
+
+def counted_steps(step, label: str, n: int = N_TRAIN_STEPS, dtype=torch.bfloat16):
+    """``n`` calls of a train step with the counters set to 0 just before
+    and read just after (every kernel of the step's graph launched as its
+    graph says): the losses as floats."""
+    per_call = graph_launches(step)
+    torch.cuda.synchronize()
+    zero_counters()
+    losses = []
+    for _ in range(n):
+        loss = step()
+        if not (loss.is_cuda and loss.shape == () and loss.dtype == dtype):
+            raise AssertionError(f"{label}: loss {loss} is not a {dtype} scalar on the card")
+        losses.append(float(loss))
+    torch.cuda.synchronize()
+    launches = read_counters(per_call, label, n)
+    log(f"{label} losses: {losses}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{label}: loss not finite: {losses}")
+    return losses, launches, per_call
+
+
+def check_bf16_attention(shape) -> dict:
+    """K2 and K3 in bfloat16 at one of path (i)'s panels, non-causal: each
+    against its plain version within BF16_REL of the plain output's scale,
+    two calls with the same bits, device ms of the kernel, the plain
+    version and the library (scaled_dot_product_attention, its backend
+    named; for K3 the fastest backward it offers, ``sdpa_backward_ms``),
+    and the bound: q, k, v (and dO) read, the outputs written, the
+    products at the card's dense bf16 rate."""
+    from aesara_tpu_torch.link.torch.kernels.attention import (
+        attention_grads_plain, attention_plain, flash_attention, flash_attention_grads,
+    )
+
+    BH, T, D = shape
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    q, k, v, do = (torch.randn(shape, device="cuda", generator=gen).to(torch.bfloat16) for _ in range(4))
+    scale = 1.0 / D ** 0.5
+    out = flash_attention(q, k, v, scale=scale)
+    want = attention_plain(q, k, v, False, scale)
+    k2_err = (out.float() - want.float()).abs().max().item()
+    if not k2_err <= BF16_REL * want.float().abs().max().item():
+        raise AssertionError(f"K2 bf16 {shape}: max err {k2_err}")
+    grads = flash_attention_grads(q, k, v, do, scale=scale)
+    k3_err = 0.0
+    for name, g, w in zip(("dq", "dk", "dv"), grads, attention_grads_plain(q, k, v, do, False, scale)):
+        err = (g.float() - w.float()).abs().max().item()
+        if g.dtype != torch.bfloat16 or not err <= BF16_REL * w.float().abs().max().item():
+            raise AssertionError(f"K3 bf16 {shape} {name}: {g.dtype}, max err {err}")
+        k3_err = max(k3_err, err)
+    del want
+    if not (torch.equal(out, flash_attention(q, k, v, scale=scale))
+            and all(torch.equal(a, b) for a, b in zip(grads, flash_attention_grads(q, k, v, do, scale=scale)))):
+        raise AssertionError(f"K2/K3 bf16 {shape}: two calls gave different bits")
+    del out, grads
+    k2 = {"max_abs_err": k2_err, "ms": device_ms(lambda: flash_attention(q, k, v, scale=scale)),
+          "plain_ms": device_ms(lambda: attention_plain(q, k, v, False, scale), reps=5)}
+    k2["library_ms"], names = library_split("K2 bf16", lambda: torch.nn.functional.scaled_dot_product_attention(
+        q[None], k[None], v[None], scale=scale))
+    k2["library"] = sdpa_backend(names)
+    k2["bound_ms"], k2["bound_by"] = bound(4 * q.numel() * 2, 4 * BH * T * T * D, BF16_FLOPS)
+    split = device_split(lambda: flash_attention_grads(q, k, v, do, scale=scale), reps=10)
+    k3 = {"max_abs_err": k3_err, "ms": sum(split.values()),
+          "backward_ms": sum(t for name, t in split.items() if "flash_bwd" in name),
+          "plain_ms": device_ms(lambda: attention_grads_plain(q, k, v, do, False, scale), reps=3)}
+    k3["library_ms"], k3["library"] = sdpa_backward_ms(q, k, v, do, scale)
+    # q, k, v, dO read, dQ, dK, dV written; the S, dP, dV, dQ, dK products
+    k3["bound_ms"], k3["bound_by"] = bound(7 * q.numel() * 2, 10 * BH * T * T * D, BF16_FLOPS)
+    for name, r in (("K2", k2), ("K3", k3)):
+        extra = f", backward kernels {r['backward_ms']:.4f}" if "backward_ms" in r else ""
+        log(f"{name} bf16 {shape}: max_abs_err {r['max_abs_err']:.3e} (tolerance {BF16_REL} x max|plain|), two "
+            f"calls the same bits; device ms kernel {r['ms']:.4f}{extra}, plain {r['plain_ms']:.4f}, library "
+            f"({r['library']}) {r['library_ms']}, bound {r['bound_ms']:.4f} ({r['bound_by']})")
+    return {"K2": k2, "K3": k3}
+
+
+def sdpa_backward_ms(q, k, v, do, scale) -> tuple:
+    """(device ms, backend) of the fastest backward that PyTorch's
+    scaled_dot_product_attention offers on K3's inputs, viewed as (8,
+    BH / 8, T, D): under each of its cuDNN, flash and memory-efficient
+    backends that takes them, the forward runs once outside the timed
+    window and autograd's backward (dQ, dK, dV from dO) is timed; (None,
+    None) where none takes them."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    leaves = [t.reshape(8, t.shape[0] // 8, *t.shape[1:]).detach().requires_grad_() for t in (q, k, v)]
+    do4 = do.reshape(leaves[0].shape)
+    times = {}
+    for backend, name in ((SDPBackend.CUDNN_ATTENTION, "cuDNN"), (SDPBackend.FLASH_ATTENTION, "flash"),
+                          (SDPBackend.EFFICIENT_ATTENTION, "memory-efficient")):
+        try:
+            with warnings.catch_warnings(), sdpa_kernel(backend):
+                warnings.simplefilter("ignore")
+                out = torch.nn.functional.scaled_dot_product_attention(*leaves, scale=scale)
+        except RuntimeError as exc:
+            log(f"K3 library {name} backward not timed: {str(exc)[:200]}")
+            continue
+        ms, names = library_split(f"K3 library {name} backward", lambda: torch.autograd.grad(
+            out, leaves, do4, retain_graph=True))
+        del out
+        if ms is not None:
+            times[name] = ms
+            log(f"K3 library {name} backward {tuple(leaves[0].shape)} {q.dtype}: device ms {ms:.4f} "
+                f"({', '.join(n[:60] for n in names)})")
+    if not times:
+        return None, None
+    best = min(times, key=times.get)
+    return times[best], f"{best} backward"
+
+
+def bf16_cpu_reference() -> dict:
+    """(i1)'s CPU twin, made in ``cpu_reference``'s process: at batch 1, the
+    loss and the gradients of the bfloat16 step, and every parameter
+    after one step (in float32, which holds a bfloat16 exactly); and how far
+    each of those gradients is from the same gradient in float64 from the
+    same bfloat16 start (``own``: the CPU's own distance from exact
+    arithmetic)."""
+    t0 = time.perf_counter()
+    step, params, grads = build_bf16_step("cpu", batch=1, with_grads=True)
+    g = [v.float().numpy() for v in grads()]
+    loss = float(step())
+    exact = build_bf16_step("cpu", batch=1, with_grads=True, dtype="float64")[2]()
+    own = [float(np.abs(a - b.numpy()).max()) for a, b in zip(g, exact)]
+    return {"loss": loss, "grads": g, "own": own, "params": [(p.name, p.value.float().numpy()) for p in params],
+            "seconds": time.perf_counter() - t0}
+
+
+def compare_bf16(label: str, got, want, names, own=None):
+    """Each pair of tensors within BF16_REL of the reference's scale (its
+    largest magnitude), plus, where ``own`` gives it, the reference's own
+    distance from exact arithmetic; logs the worst relative error."""
+    worst, beyond = 0.0, []
+    for k, (name, g, w) in enumerate(zip(names, got, want)):
+        g, w = torch.as_tensor(g).double().cpu(), torch.as_tensor(w).double()
+        scale = w.abs().max().item()
+        err = (g - w).abs().max().item()
+        rel = err / scale if scale else err
+        extra = 0.0 if own is None else own[k]
+        if g.shape != w.shape or not err <= BF16_REL * (scale or 1.0) + extra:
+            raise AssertionError(f"{label}: {name} {tuple(g.shape)} off by {rel:.3e} of its scale (own distance "
+                                 f"from exact {extra:.3e})")
+        worst = max(worst, rel)
+        if rel > BF16_REL:
+            beyond.append(f"{name} {rel:.3e} (own {extra / scale:.3e})")
+    log(f"{label}: {len(names)} tensors, largest difference {worst:.3e} of its tensor's scale (gate {BF16_REL}"
+        f"{'' if own is None else ' plus the reference own distance from float64'}); beyond {BF16_REL}: "
+        f"{beyond or 'none'}")
+    return worst
+
+
+def run_bf16_encoder() -> dict:
+    """(i1): bench_transformer's bfloat16 row at full width."""
+    t0 = time.perf_counter()
+    step, params = build_bf16_step("cuda")
+    log(f"(i1) bf16 train step compile (graph + grad + rewrites + link): {time.perf_counter() - t0:.2f} s; "
+        f"graph {op_census(step)}")
+    k1_err, k1_rel, k1_times, ops = phase_k1(step, np.random.default_rng(16))
+    reset_peak()
+    losses, launches, per_call = counted_steps(step, "(i1) bf16 train")
+    if not all(v < losses[0] for v in losses[1:]):
+        raise AssertionError(f"(i1): loss not below the first step's: {losses}")
+    t = time_steps(step, N_TIMED_STEPS, "(i1) bf16 train step")
+    require_captured(step, "(i1) bf16 train step")
+    log(f"(i1) bf16 train step: {BATCH * SEQ / t['ms'] * 1e3:.1f} tokens/s ({BATCH}x{SEQ} tokens a step); "
+        f"host time of one call {t['host']:.3f} ms; busy {t['busy']:.3f} of {t['wall']:.3f} ms; peak "
+        f"{t['peak']:.3f} GiB, reserved {t['reserved']:.3f} GiB")
+    del step, params
+    release()
+    step, params, grads = build_bf16_step("cuda", batch=1, with_grads=True)
+    g = grads()
+    loss = float(step())
+    ref = cpu_reference("bf16")
+    names = [name for name, _ in ref["params"]]
+    compare_bf16("(i1) bf16 gradients at batch 1, card vs CPU", g, ref["grads"],
+                 ["loss"] + [f"d{name}" for name in names], own=ref["own"])
+    compare_bf16("(i1) bf16 step at batch 1, card vs CPU", [loss] + [p.value for p in params],
+                 [ref["loss"]] + [torch.from_numpy(v) for _, v in ref["params"]], ["loss"] + names)
+    del step, params, grads, g
+    release()
+    return {"k1_err": k1_err, "k1_rel": k1_rel, "k1_times": k1_times, "ops": ops, "launches": launches, "t": t}
+
+
+def run_model_scale_remat(seen_ops) -> dict:
+    """(i2): ``run_model_scale_remat``, remat off then on, in one process."""
+    arms = {}
+    for use_remat in (False, True):
+        label = f"(i2) {SCALE_LAYERS}L d={SCALE_D} ff={SCALE_FF} bf16 remat={use_remat}"
+        t0 = time.perf_counter()
+        step, params, grads = build_bf16_step("cuda", SCALE_LAYERS, SCALE_D, SCALE_HEADS, SCALE_FF, SCALE_BATCH,
+                                              SCALE_SEQ, use_remat=use_remat, with_grads=True)
+        n_params = sum(p.value.numel() for p in params)
+        log(f"{label}: {n_params} parameters; compile of the step and of its gradients (graph + grad + rewrites "
+            f"+ link) {time.perf_counter() - t0:.2f} s; graph {op_census(step)}")
+        # the gradients at the seeds' start: an sgd step at lr 0.01 leaves
+        # most bfloat16 weights as they were (lr x grad under half an ulp),
+        # so the parameters alone would not show a wrong gradient
+        first = [g.cpu() for g in grads()]
+        del grads
+        release()
+        k1_err, k1_rel, _, ops = phase_k1(step, np.random.default_rng(17), skip=seen_ops, timed_shape=None,
+                                          full=(SCALE_BATCH, SCALE_SEQ, SCALE_D))
+        seen_ops = seen_ops | ops
+        reset_peak()
+        before = [p.value.cpu() for p in params]
+        losses, launches, per_call = counted_steps(step, label)
+        # compared by their bits, a tensor at a time on the card (a CPU pass
+        # over 604 M bfloat16 values takes seconds)
+        moved = sum(int((p.value.view(torch.int16) != b.to(p.value.device).view(torch.int16)).sum())
+                    for p, b in zip(params, before))
+        after = [p.value.cpu() for p in params]
+        del before
+        log(f"{label}: {moved} of {n_params} parameter entries ({moved / n_params:.4%}) changed in the "
+            f"{N_TRAIN_STEPS} steps")
+        t = time_steps(step, N_SCALE_TIMED, label)
+        require_captured(step, label)
+        tok_s = SCALE_BATCH * SCALE_SEQ / t["ms"] * 1e3
+        log(f"{label}: {t['ms']:.3f} ms a step, {tok_s:.1f} tokens/s; peak {t['peak']:.3f} GiB, reserved "
+            f"{t['reserved']:.3f} GiB; host time of one call {t['host']:.3f} ms; busy {t['busy']:.3f} of "
+            f"{t['wall']:.3f} ms")
+        arms[use_remat] = {"losses": losses, "after": after, "grads": first, "t": t, "launches": launches,
+                           "k1_err": k1_err, "k1_rel": k1_rel, "names": [p.name for p in params], "tok_s": tok_s}
+        del step, params
+        release()
+    plain, rem = arms[False], arms[True]
+    names = [f"loss {i}" for i in range(N_TRAIN_STEPS)] + ["first loss"] + [f"d{n}" for n in plain["names"]] + \
+        plain["names"]
+    tensors = [[torch.tensor(v) for v in arm["losses"]] + arm["grads"] + arm["after"] for arm in (plain, rem)]
+    differ = [n for n, a, b in zip(names, *tensors) if not torch.equal(_bits(a), _bits(b))]
+    same = not differ
+    n_grads = len(plain["grads"]) - 1
+    if same:
+        log(f"(i2) remat off and on: the {N_TRAIN_STEPS} losses, the loss and all {n_grads} gradients at the start, "
+            f"and all {len(plain['after'])} parameters after the {N_TRAIN_STEPS} steps bitwise equal")
+    else:
+        log(f"(i2) remat off and on: not bitwise equal ({len(differ)} of {len(names)} tensors differ: "
+            f"{differ[:12]})")
+        compare_bf16("(i2) remat on against off", tensors[1], tensors[0], names)
+    if not rem["t"]["peak"] < plain["t"]["peak"]:
+        raise AssertionError(f"(i2): remat peak {rem['t']['peak']:.3f} GiB not below {plain['t']['peak']:.3f}")
+    log(f"(i2) peak device memory remat off {plain['t']['peak']:.3f} GiB, on {rem['t']['peak']:.3f} GiB; step "
+        f"{plain['t']['ms']:.3f} / {rem['t']['ms']:.3f} ms ({rem['t']['ms'] / plain['t']['ms']:.3f}x)")
+    for arm in arms.values():
+        del arm["after"], arm["grads"]
+    return {"arms": arms, "same": same, "ops": seen_ops}
+
+
+def _bits(t):
+    """A tensor's bits as integers: compared bit for bit, and a CPU pass
+    over bfloat16 values is several times slower than over int16 ones."""
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+
+def build_lm_train(device: str, use_graph=None):
+    """``examples/production_training.py``'s program at (g)'s width:
+    ``DecoderLM(32000, 4, 512, 8, 2048, seed=0)``, AdamW (weight decay
+    0.01) under ``warmup_cosine(lr_max=3e-3, warmup_steps=20,
+    total_steps=200)`` on a shared step counter, inside
+    ``scaled_loss_updates``: (model, updates, compiled step)."""
+    import aesara_tpu_torch as ptp
+    import aesara_tpu_torch.tensor as pt
+    from aesara_tpu_torch.config import config
+    from aesara_tpu_torch.models.optim import adamw_from_grads, scaled_loss_updates, warmup_cosine
+
+    lm = build_decoder(device)
+    with config.change_flags(device=device, floatX="float32"):
+        toks = pt.lvector("toks")
+        loss = lm.loss(toks)
+        step_ctr = ptp.shared(np.float32(0.0), name="step")
+        lr = warmup_cosine(step_ctr, lr_max=TRAIN_LR_MAX, warmup_steps=TRAIN_WARMUP, total_steps=TRAIN_TOTAL)
+        updates = scaled_loss_updates(loss, lm.params, lambda grads: adamw_from_grads(
+            lm.params, grads, lr=lr, weight_decay=TRAIN_WD))
+        updates.append((step_ctr, step_ctr + 1.0))
+        train = ptp.function([toks], ptp.Out(loss, borrow=True), updates=updates,
+                             mode=ptp.Mode(ptp.TorchLinker(device=device, use_graph=use_graph)))
+    return lm, updates, train
+
+
+def train_rows() -> np.ndarray:
+    return np.random.default_rng(0).integers(0, DEC_VOCAB, size=(TRAIN_ROWS, TRAIN_ROW_LEN)).astype("int64")
+
+
+def lm_train_cpu_reference() -> dict:
+    """(i3)'s CPU twin, made in ``cpu_reference``'s process: TRAIN_CPU_STEPS
+    steps of the program from the seeds on the first rows; their losses and
+    every state variable after the first."""
+    from aesara_tpu_torch.models.checkpoint import state_shareds
+
+    t0 = time.perf_counter()
+    lm, updates, train = build_lm_train("cpu")
+    rows = train_rows()
+    losses = [float(train(rows[0]))]
+    state = [(v.name, v.value.double().numpy()) for v in state_shareds(lm.params, updates)]
+    losses += [float(train(row)) for row in rows[1:TRAIN_CPU_STEPS]]
+    return {"losses": losses, "state": state, "seconds": time.perf_counter() - t0}
+
+
+def run_lm_train() -> dict:
+    """(i3): the example's program at (g)'s width on the card."""
+    import tempfile
+
+    from aesara_tpu_torch.models.checkpoint import load_checkpoint, save_checkpoint, state_shareds
+
+    t0 = time.perf_counter()
+    lm, updates, train = build_lm_train("cuda")
+    log(f"(i3) DecoderLM({DEC_VOCAB}, {DEC_LAYERS}, {DEC_D}, {DEC_HEADS}, {DEC_FF}) train step compile: "
+        f"{time.perf_counter() - t0:.2f} s; {len(composite_nodes(train))} Composites")
+    rows = train_rows()
+    t0 = time.perf_counter()
+    shapes = composite_shapes(train, [torch.as_tensor(rows[0], device="cuda")])
+    k1_rows = check_composites(list(shapes), "(i3)", np.random.default_rng(18), shapes=shapes, time_each=False)
+    k1_err = max(row["max_abs_err"] for row in k1_rows)
+    log(f"(i3) K1 on {len(k1_rows)} distinct Composites of {len(shapes)} at the call's shapes: max_abs_err "
+        f"{k1_err:.3e} (tolerance {F32_ATOL}), {time.perf_counter() - t0:.2f} s")
+    per_call = graph_launches(train)
+    state = state_shareds(lm.params, updates)
+    zero_counters()
+    losses = [float(train(rows[0]))]
+    first_state = [SimpleNamespace(name=v.name, value=v.value.clone()) for v in state]
+    ref = cpu_reference("lm_train")
+    compare_state("(i3) first step", first_state,
+                  [SimpleNamespace(name=n, value=torch.from_numpy(v)) for n, v in ref["state"]], TRAIN_TOL)
+    del first_state
+    workdir = tempfile.TemporaryDirectory()
+    path = f"{workdir.name}/ckpt.npz"
+    steps_s = 0.0
+    for epoch in range(TRAIN_EPOCHS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for row in rows[1:] if epoch == 0 else rows:
+            losses.append(float(train(row)))
+        steps_s += time.perf_counter() - t0
+        save_checkpoint(path, lm.params, updates, extra={"epoch": np.int64(epoch)})
+    ms = steps_s * 1e3 / (len(losses) - 1)
+    launches = read_counters(per_call, "(i3) train", len(losses))
+    epochs = [float(np.mean(losses[k * TRAIN_ROWS:(k + 1) * TRAIN_ROWS])) for k in range(TRAIN_EPOCHS)]
+    log(f"(i3) {len(losses)} steps of {TRAIN_ROW_LEN - 1} tokens: {ms:.3f} ms a step, each reading its loss on "
+        f"the host ({(TRAIN_ROW_LEN - 1) / ms * 1e3:.1f} tokens/s); mean loss by epoch {epochs} (the JAX package "
+        f"on the CPU: 10.606, 13.540, tests/test_torch_production_training.py); losses "
+        f"{[round(v, 4) for v in losses]}")
+    # the first step at TRAIN_TOL, then the losses the CPU gives (the
+    # schedule overshoots at this width, in the JAX package too: they rise)
+    errs = [abs(a - b) / abs(b) for a, b in zip(losses, ref["losses"])]
+    log(f"(i3) losses of the first {len(errs)} steps, card vs CPU: {[round(v, 6) for v in ref['losses']]}, "
+        f"largest relative difference {max(errs):.3e} (first step {errs[0]:.3e}, tolerance {TRAIN_TOL}; later "
+        f"{TRAIN_LOSS_REL})")
+    if not (all(np.isfinite(losses)) and errs[0] <= TRAIN_TOL and max(errs) <= TRAIN_LOSS_REL):
+        raise AssertionError(f"(i3): losses {losses[:len(errs)]} against the CPU's {ref['losses']}")
+    require_captured(train, "(i3) train step")
+    t0 = time.perf_counter()
+    lm2, updates2, train2 = build_lm_train("cuda")
+    extra = load_checkpoint(path, lm2.params, updates2)
+    state2 = state_shareds(lm2.params, updates2)
+    if int(extra["epoch"]) != TRAIN_EPOCHS - 1 or not all(
+            a.value.dtype == b.value.dtype and torch.equal(a.value, b.value) for a, b in zip(state, state2)):
+        raise AssertionError("(i3): the resumed state is not the saved one bit for bit")
+    log(f"(i3) resumed into a fresh graph ({time.perf_counter() - t0:.2f} s): all {len(state2)} state variables "
+        f"bitwise the saved ones, epoch {int(extra['epoch'])}")
+    tokens = _host(lm2.generate_fn(GEN_STEPS, GEN_T_MAX, mode=decoder_mode())(np.int64(1)))
+    cpu = build_decoder("cpu")
+    load_checkpoint(path, cpu.params, strict=False)
+    want = _host(cpu.generate_fn(GEN_STEPS, GEN_T_MAX, mode=decoder_mode(device="cpu"))(np.int64(1)))
+    log(f"(i3) {GEN_STEPS} tokens of the resumed model: card {tokens.tolist()}, CPU {want.tolist()}")
+    if tokens.tolist() != want.tolist():
+        raise AssertionError("(i3): the resumed model's tokens are not the CPU's from the same checkpoint")
+    workdir.cleanup()
+    a, b = float(train(rows[0])), float(train2(rows[0]))
+    if a != b or not all(torch.equal(x.value, y.value) for x, y in zip(state, state2)):
+        raise AssertionError(f"(i3): one more step from the saved and the resumed graph differs ({a}, {b})")
+    log(f"(i3) one more step from the trained and the resumed graph: loss {a} both, every state variable "
+        f"bitwise equal")
+    del lm, lm2, train, train2, state, state2, cpu
+    release()
+    return {"k1_err": k1_err, "launches": launches, "ms": ms, "losses": losses}
+
+
+def composite_shapes(fn, args) -> dict:
+    """{Composite node: its inputs' shapes} of one run of a compiled
+    function's program on ``args`` (its user inputs on the card), read by
+    wrapping the Composites' lowerings for that run; the program runs as
+    ``Program.run`` runs it, and no update is written."""
+    from aesara_tpu_torch.scalar.composite import Composite
+
+    program, shapes = fn.fn.program, {}
+
+    def recording(node, lowered):
+        def run(*ins, **kwargs):
+            shapes[node] = [tuple(a.shape) for a in ins]
+            return lowered(*ins, **kwargs)
+        return run
+
+    lowered = program.fns
+    program.fns = [recording(node, f) if isinstance(getattr(node.op, "scalar_op", None), Composite) else f
+                   for node, f in zip(program.order, lowered)]
+    try:
+        program.run(list(args) + [v.value for v in fn.fn.shared_inputs], {})
+    finally:
+        program.fns = lowered
+    return shapes
+
+
+def check_lm_softmax() -> dict:
+    """K4 at (i3)'s causal attention softmax, (heads 8, 256, 256) in
+    float64 as the graph computes it, against its plain version and
+    ``torch.softmax``."""
+    x = torch.randn((DEC_HEADS * (TRAIN_ROW_LEN - 1), TRAIN_ROW_LEN - 1), device="cuda", dtype=torch.float64,
+                    generator=torch.Generator(device="cuda").manual_seed(19))
+    mask = torch.triu(torch.ones(x.shape[1], x.shape[1], dtype=torch.bool, device="cuda"), 1)
+    x = x.view(DEC_HEADS, TRAIN_ROW_LEN - 1, -1).masked_fill(mask, -1e9).view_as(x)
+    return check_k4(x, log_softmax=False)
+
+
+def bf16_attention_checks() -> dict:
+    """K2 and K3 in bfloat16 at path (i)'s panels (``check_bf16_attention``).
+    The main run makes them early, with the other kernel checks: late in
+    the run the profiler has read kernels faster than their bound."""
+    t0 = time.perf_counter()
+    out = {shape: check_bf16_attention(shape) for shape in BF16_PANELS}
+    log(f"(i) K2/K3 bf16 checks: {time.perf_counter() - t0:.2f} s")
+    return out
+
+
+def phase_bf16(attention=None) -> dict:
+    """Path (i): (i1), the K2/K3 checks at (i)'s panels (unless made before,
+    ``attention``), (i2), (i3)."""
+    matmul = torch.backends.cuda.matmul
+    log(f"(i) reduced-precision reductions: bf16 {matmul.allow_bf16_reduced_precision_reduction}, "
+        f"fp16 {matmul.allow_fp16_reduced_precision_reduction} (both must be off)")
+    out = {}
+    t0 = time.perf_counter()
+    out["i1"] = run_bf16_encoder()
+    log(f"(i1) path: {time.perf_counter() - t0:.2f} s")
+    out["attention"] = attention if attention is not None else bf16_attention_checks()
+    t0 = time.perf_counter()
+    out["i2"] = run_model_scale_remat(out["i1"]["ops"])
+    log(f"(i2) path: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    out["i3"] = run_lm_train()
+    out["k4"] = check_lm_softmax()
+    log(f"(i3) path: {time.perf_counter() - t0:.2f} s")
+    return out
+
+
+def bf16_only():
+    """--bf16: the setup and path (i) alone."""
+    phase_setup()
+    start_cpu_references("bf16", "lm_train")
+    phase_bf16()
+    stop_cpu_references()
+    log("chip_smoke --bf16: path (i) passed")
+
+
+#: the jobs of ``cpu_reference``'s process, in the order it runs them
+CPU_REF_JOBS = {"adamw": adamw_cpu_reference, "decoder": cpu_decoder_references, "bf16": bf16_cpu_reference,
+                "lm_train": lm_train_cpu_reference}
+
+
+# ---------------------------------------------------------------------------
 # every path captured and eager, in one process
 # ---------------------------------------------------------------------------
 
@@ -3290,7 +3941,9 @@ def _host(value):
     if isinstance(value, (list, tuple)):
         return [_host(v) for v in value]
     if isinstance(value, torch.Tensor):
-        return value.detach().cpu().numpy()
+        from aesara_tpu_torch.scalar.ops import to_host
+
+        return to_host(value, str(value.dtype).split(".")[-1]).copy()
     return np.asarray(value.data).copy()
 
 
@@ -3362,6 +4015,17 @@ def _paths(ng, glm):
             return srv._decode, srv._decode, srv._caches + [srv._pos, srv._cur, srv._act]
         return build
 
+    def bf16_train(g):
+        step, params = build_bf16_step("cuda", use_graph=g)
+        return step, step, params
+
+    def lm_train(g):
+        from aesara_tpu_torch.models.checkpoint import state_shareds
+
+        lm, updates, train = build_lm_train("cuda", use_graph=g)
+        rows, calls = train_rows(), iter(range(1 << 30))
+        return train, lambda: train(rows[next(calls) % TRAIN_ROWS]), state_shareds(lm.params, updates)
+
     return [("encoder forward request", forward), ("encoder train step (sgd)", train("sgd")),
             ("(d) encoder train step (AdamW)", train("adamw")), ("(a) classifier train step", classifier),
             ("(a) predict, one request again", predict), ("(b) GLM train step", glm_step("sgd")),
@@ -3369,7 +4033,9 @@ def _paths(ng, glm):
             ("(e) config 3 MNIST MLP step", mnist_mlp), ("(f) config 4 Elman RNN step", scan_step("config4")),
             ("(f) LSTM step", scan_step("lstm")), (f"(g1) greedy decode, {DEC_CAPTURE_STEPS} tokens", greedy),
             (f"(h1) sampled decode, top-k {SAMPLE_TOPK}, {SAMPLE_CAPTURE_STEPS} tokens", sampled),
-            ("(g5) batcher _decode, chunk 1", batcher(1)), ("(g5) batcher _decode, chunk 16", batcher(16))]
+            ("(g5) batcher _decode, chunk 1", batcher(1)), ("(g5) batcher _decode, chunk 16", batcher(16)),
+            ("(i1) bf16 encoder train step (sgd)", bf16_train), ("(i3) DecoderLM train step (AdamW, loss scaling)",
+                                                                  lm_train)]
 
 
 def _difference(captured, eager) -> tuple:
@@ -3400,6 +4066,7 @@ def phase_capture(ng, glm):
     largest value (cuBLAS may pick another algorithm under capture)."""
     summary = []
     for label, build in _paths(ng, glm):
+        t_row = time.perf_counter()
         runs = {}
         for use_graph in (True, False):
             mode = "captured" if use_graph else "eager"
@@ -3413,7 +4080,8 @@ def phase_capture(ng, glm):
             outs = [_host(call()) for _ in range(N_COMPARED_CALLS)]
             require_captured(fn, f"{label}, {mode}", captured=use_graph)
             compared = dict(outs=[a for out in outs for a in (out if isinstance(out, list) else [out])],
-                            state=[v.get_value() for v in state])
+                            state=[_host(v.value) if v.type.dtype == "bfloat16" else v.get_value()
+                                   for v in state])
             # an eager run whose trace loses launches in every session
             # prints its busy share as not measured; a captured run's must
             # match, as in the main phases
@@ -3435,6 +4103,7 @@ def phase_capture(ng, glm):
             f"difference {diff:.3e} ({rel:.3e} of its tensor's scale)")
         if not same and rel > CAPTURE_REL:
             raise AssertionError(f"{label}: captured and eager differ by {rel:.3e} of a tensor's scale")
+        log(f"capture table | {label} | both runs in {time.perf_counter() - t_row:.2f} s")
         summary.append((label, same, diff))
     return summary
 
@@ -3957,14 +4626,16 @@ def main():
     modes = {"--k6-sweep": k6_sweep, "--k2-walk-sweep": k2_walk_sweep, "--attention-times": attention_times,
              "--profile-check": profile_check, "--k7-sweep": k7_sweep, "--k4-times": k4_times,
              "--k4-k7-times": k4_k7_times, "--reference": reference_only, "--scan": scan_only,
-             "--decoder": decoder_only, "--decoder-sampling": decoder_sampling_only}
+             "--decoder": decoder_only, "--decoder-sampling": decoder_sampling_only, "--bf16": bf16_only}
     if len(sys.argv) == 2 and sys.argv[1] in modes:
         if not torch.cuda.is_available():
             raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU")
         return modes[sys.argv[1]]()
     start = time.perf_counter()
     smi = phase_setup()
-    start_cpu_references("adamw", "decoder")
+    start_cpu_references("adamw", "decoder", "bf16", "lm_train")
+    log(f"setup (builds and first launches): {time.perf_counter() - start:.2f} s")
+    t_path = time.perf_counter()
     t0 = time.perf_counter()
     fn = compile_encoder("cuda")
     log(f"compile (graph + rewrites + link): {time.perf_counter() - t0:.2f} s")
@@ -3978,26 +4649,36 @@ def main():
         f"ms, quartiles {q1:.3f} / {q3:.3f} ms ({BATCH}x{SEQ} tokens)")
     del fn, requests, results
     release()
+    log(f"encoder forward path (with the K1 and K2 checks): {time.perf_counter() - t_path:.2f} s")
 
+    t_path = time.perf_counter()
     t0 = time.perf_counter()
     step, params, _ = build_train_step("cuda")
     log(f"train step compile (graph + grad + rewrites + link): {time.perf_counter() - t0:.2f} s")
     check_train_graph(step)
-    k1_train_err, _, sgd_ops = phase_k1(step, np.random.default_rng(1))
+    k1_train_err, _, _, sgd_ops = phase_k1(step, np.random.default_rng(1))
     k3_err, k3_times = phase_k3()
+    attention_bf16 = bf16_attention_checks()
     _, train_counts = phase_train(step, params)
     train = (train_counts, time_train(step)["traced"])
     require_captured(step, "train step")
     del step, params
     release()
     check_train_against_cpu()
+    log(f"encoder train path (with the K1, K3 and bf16 K2/K3 checks): {time.perf_counter() - t_path:.2f} s")
     t0 = time.perf_counter()
     adamw = phase_adamw(sgd_ops)
     log(f"(d) AdamW path: {time.perf_counter() - t0:.2f} s")
 
+    t0 = time.perf_counter()
     lr = phase_logistic()
+    log(f"(a) classifier path: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
     glm, glm_xyw = phase_glm()
+    log(f"(b) GLM path: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
     grad_values = phase_values_grad(glm_xyw[0])
+    log(f"(c) values-gradient path: {time.perf_counter() - t0:.2f} s")
     reference = phase_reference()
     scans = phase_scan()
     seen = set()
@@ -4005,6 +4686,10 @@ def main():
     decoder = phase_decoder(seen)
     sampling = phase_sampling(prep, decoder["g1"]["out"])
     del prep
+    release()
+    t0 = time.perf_counter()
+    bf16 = phase_bf16(attention_bf16)
+    log(f"(i) bf16, remat and the decoder trained: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     phase_capture(lr["data"], glm_xyw)
     log(f"captured-vs-eager phase: {time.perf_counter() - t0:.2f} s")
@@ -4068,19 +4753,40 @@ def main():
                                (h1["launches"], h1["traced"]), sampling["tf"]),
                    float32=sampling["tf"]["float32"], path_b_launches=glm["launches"][0]["TF"],
                    path_h_launches=path_h["TF"])
+    # path (i): each run's launches in its counted steps (the encoder's 3,
+    # each (i2) arm's 3, (i3)'s 32 training steps), K1 on the bf16
+    # layer-norm scale Composite, K2 and K3 in bf16 at (i)'s panels, K4 at
+    # (i3)'s causal softmax
+    arms = bf16["i2"]["arms"]
+    runs_i = {"i1": bf16["i1"]["launches"], "i2_plain": arms[False]["launches"], "i2_remat": arms[True]["launches"],
+              "i3": bf16["i3"]["launches"]}
+    path_i = {k: {w: r[0][k] + r[1][k] for w, r in runs_i.items()} for k in ("K1", "K2", "K3", "K4")}
+    i1_ms, i1_plain_ms, i1_bound_ms, i1_bound_by, i1_cold_ms = bf16["i1"]["k1_times"]
+    # the bfloat16 Composites' error relative to their output's scale, the
+    # float32 ones' (the losses', (i3)'s) absolute, as each is gated
+    runs_k1 = (bf16["i1"], arms[False], arms[True])
+    k1_bf16 = {"shape": [BATCH, SEQ, D_MODEL], "max_rel_err": max(r["k1_rel"] for r in runs_k1),
+               "fp32_max_abs_err": max([r["k1_err"] for r in runs_k1] + [bf16["i3"]["k1_err"]]),
+               "ms": i1_ms, "cold_ms": i1_cold_ms, "plain_ms": i1_plain_ms, "bound_ms": i1_bound_ms,
+               "bound_by": i1_bound_by, "library_ms": None}
+    k1["max_abs_err"] = max(k1["max_abs_err"], k1_bf16["fp32_max_abs_err"])
+    attention_i = {k: {"x".join(map(str, shape)): r[k] for shape, r in bf16["attention"].items()} for k in ("K2", "K3")}
     kernels = [
         dict(kernel_line("K1 fused elemwise Composite", "triton", K1_SOURCE, K1_REPLACES, "K1", train, k1),
              cold_ms=k1_times[4], **k1_adamw, path_e_launches=path_e["K1"], path_f_launches=path_f["K1"],
-             path_g_launches=path_g["K1"], path_h_launches=path_h["K1"]),
+             path_g_launches=path_g["K1"], path_h_launches=path_h["K1"], path_i_launches=path_i["K1"],
+             path_i_bf16=k1_bf16),
         dict(kernel_line("K2 flash attention forward", "cuda", K2_SOURCE, K2_REPLACES, "K2", train, k2),
-             adamw_launches=adamw["launches"]["K2"]),
-        dict(k3_line, adamw_launches=adamw["launches"]["K3"]),
+             adamw_launches=adamw["launches"]["K2"], path_i_launches=path_i["K2"], path_i_bf16=attention_i["K2"]),
+        dict(k3_line, adamw_launches=adamw["launches"]["K3"], path_i_launches=path_i["K3"],
+             path_i_bf16=attention_i["K3"]),
         dict(kernel_line("K4 row log-softmax", "cuda", K4_SOURCE, K4_REPLACES, "K4", (lr["launches"], lr["traced"]),
                          dict(lr["K4"], max_abs_err=max([lr["K4"]["max_abs_err"], k4_f["max_abs_err"]]
                                                         + [r["max_abs_err"] for r in k4_e.values()]
                                                         + [r["max_abs_err"] for r in k4_g.values()]))),
              path_e_launches=path_e["K4"], path_e=k4_e, path_f_launches=path_f["K4"], path_f=k4_f,
-             path_g_launches=path_g["K4"], path_g=k4_g, path_h_launches=path_h["K4"]),
+             path_g_launches=path_g["K4"], path_g=k4_g, path_h_launches=path_h["K4"], path_i_launches=path_i["K4"],
+             path_i=bf16["k4"]),
         kernel_line("K5 CSR SpMV (narrow rhs)", "cuda", K567_SOURCE, K5_REPLACES, "K5",
                     (glm["launches"], glm["traced"]), k5),
         kernel_line("K6 CSR SpMM (wide rhs)", "cuda", K567_SOURCE, K6_REPLACES, "K6", (lr["launches"], lr["traced"]),

@@ -1263,3 +1263,66 @@ def test_sampled_decode_beam_and_speculative_on_the_card_equal_the_cpu(cuda):
     np.testing.assert_allclose(score, want_score, rtol=1e-6)
     np.testing.assert_array_equal(spec(prompt).cpu().numpy(),
                                   cpu.generate_from_prompt_fn(4, 5, 16)(prompt).numpy())
+
+
+# ---------------------------------------------------------------------------
+# bfloat16 graphs: K2 and K3 at the model-scale encoder's head dim, and the
+# encoder's bfloat16 step (with and without remat) captured against eager
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [(4, 1024, 128), (2, 2048, 128)])
+def test_k2_k3_bfloat16_head_dim_128(cuda, shape):
+    """``run_model_scale_remat``'s panels (d_model 2048 over 16 heads) at
+    T 1024 and 2048: K2 and K3 within 2e-2 of the plain versions' scale,
+    and two calls with the same bits."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    q, k, v, do = (torch.randn(shape, device=cuda, generator=gen).to(torch.bfloat16) for _ in range(4))
+    scale = shape[-1] ** -0.5
+    out = flash_attention(q, k, v)
+    want = attention_plain(q, k, v, False, scale)
+    tol = 2e-2 * want.float().abs().max().item()
+    torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=0)
+    assert torch.equal(out, flash_attention(q, k, v))
+    grads = flash_attention_grads(q, k, v, do)
+    for g, w in zip(grads, attention_grads_plain(q, k, v, do, False, scale)):
+        assert g.dtype == torch.bfloat16
+        torch.testing.assert_close(g.float(), w.float(), atol=2e-2 * w.float().abs().max().item(), rtol=0)
+    for a, b in zip(grads, flash_attention_grads(q, k, v, do)):
+        assert torch.equal(a, b)
+
+
+def _bf16_encoder_step(use_graph, use_remat):
+    """The 2-layer bfloat16 encoder sgd step (d 128, 8 heads: head dim 16)
+    on the card, each layer a ``remat`` node with ``use_remat``."""
+    from aesara_tpu_torch.compile.builders import remat
+    from aesara_tpu_torch.misc.safe_asarray import _asarray
+
+    xv = np.random.default_rng(0).normal(size=(2, 64, 128)) * 0.1
+    with config.change_flags(device="cuda", floatX="bfloat16"):
+        layers = [TransformerEncoderLayer(128, 8, 256, seed=i) for i in range(2)]
+        x = ptp.shared(_asarray(xv, "bfloat16"), name="x")
+        h = x
+        for layer in layers:
+            h = remat([h] + layer.params, [layer(h)])(h, *layer.params) if use_remat else layer(h)
+        loss = ptm.mean(ptm.sqr(h))
+        params = [p for layer in layers for p in layer.params]
+        step = ptp.function([], ptp.Out(loss, borrow=True), updates=sgd(loss, params, lr=0.01),
+                            mode=ptp.Mode(ptp.TorchLinker(device="cuda", use_graph=use_graph)))
+    return step, params
+
+
+@pytest.mark.parametrize("use_remat", [False, True], ids=["plain", "remat"])
+def test_captured_bfloat16_encoder_step_is_bitwise_eager(cuda, use_remat):
+    matmul = torch.backends.cuda.matmul
+    old = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        (captured, pc), (eager, pe) = _bf16_encoder_step(True, use_remat), _bf16_encoder_step(False, use_remat)
+        for call in range(4):
+            assert torch.equal(captured(), eager()), call
+            for a, b in zip(pc, pe):
+                assert a.value.dtype == torch.bfloat16
+                assert torch.equal(a.value, b.value), (call, a.name)
+        assert captured.captured
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = old

@@ -26,9 +26,11 @@ def _on_the_cpu():
 
 
 def test_import_pulls_in_neither_jax_nor_the_jax_package():
-    code = ("import sys, aesara_tpu_torch, aesara_tpu_torch.sparse\n"
+    code = ("import sys, aesara_tpu_torch, aesara_tpu_torch.sparse, aesara_tpu_torch.compile.builders\n"
+            "import aesara_tpu_torch.link.torch.control_dispatch, aesara_tpu_torch.misc.safe_asarray\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-            " or m == 'aesara_tpu' or m.startswith('aesara_tpu.')]\n"
+            " or m == 'aesara_tpu' or m.startswith('aesara_tpu.')"
+            " or m == 'ml_dtypes' or m.startswith('ml_dtypes.')]\n"
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
 
