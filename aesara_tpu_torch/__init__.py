@@ -23,9 +23,12 @@ from aesara_tpu_torch.tensor import blas  # noqa: F401  (registers BlasOpt)
 from aesara_tpu_torch import sparse  # noqa: F401  (registers the sparse rewrites)
 from aesara_tpu_torch import scan  # noqa: F401  (registers the scan rewrites and Scan's lowering)
 from aesara_tpu_torch.compile.builders import register_inline_ofg
-from aesara_tpu_torch.link.torch import control_dispatch  # noqa: F401  (OpFromGraph's and RematBarrier's lowerings)
+from aesara_tpu_torch.link.torch import control_dispatch  # noqa: F401  (IfElse, CheckAndRaise, Print, OpFromGraph)
+from aesara_tpu_torch.link.torch import nnet_dispatch  # noqa: F401  (convolution, pooling, images2neibs)
+from aesara_tpu_torch.ifelse import ifelse, register_ifelse_rewrites  # noqa: F401
 
 register_inline_ofg()
+register_ifelse_rewrites()
 
 __all__ = ["config", "tensor", "sparse", "function", "Function", "In", "Out", "Mode", "TORCH",
-           "get_mode", "shared", "grad", "jacobian", "hessian", "TorchLinker"]
+           "get_mode", "shared", "grad", "jacobian", "hessian", "TorchLinker", "ifelse"]

@@ -1,7 +1,7 @@
 """``Mode`` = (rewrite query, linker), and the global ``optdb`` pipeline
 (reference ``aesara_tpu/compile/mode.py``).
 
-Positions follow the JAX package: merge1 at 0, canonicalize at 1,
+Positions follow the JAX package: merge1 at 0, useless at 0.6, canonicalize at 1,
 stabilize at 1.5, the scan rewrites at 0.05 and 1.6-1.66 (and 50.5-50.6),
 BlasOpt at 1.7, specialize at 2, uncanonicalize at 3, elemwise fusion and
 merge2 at 49, merge3 at 100.  The ``TORCH`` mode runs the ``fast_run`` rewrites and links
@@ -19,12 +19,14 @@ from aesara_tpu_torch.graph.rewriting.db import EquilibriumDB, RewriteDatabaseQu
 from aesara_tpu_torch.link.torch.linker import TorchLinker
 
 
-__all__ = ["Mode", "optdb", "get_mode", "register_canonicalize", "register_stabilize", "register_specialize",
-           "register_uncanonicalize", "TORCH", "OPT_FAST_RUN"]
+__all__ = ["Mode", "optdb", "get_mode", "register_useless", "register_canonicalize", "register_stabilize",
+           "register_specialize", "register_uncanonicalize", "TORCH", "OPT_FAST_RUN"]
 
 
 optdb = SequenceDB()
 optdb.register("merge1", MergeOptimizer(), "fast_run", "merge", position=0)
+local_useless = EquilibriumDB()
+optdb.register("useless", local_useless, "fast_run", position=0.6)
 canonicalize = EquilibriumDB()
 optdb.register("canonicalize", canonicalize, "fast_run", position=1)
 stabilize = EquilibriumDB()
@@ -37,6 +39,11 @@ optdb.register("merge2", MergeOptimizer(), "fast_run", "merge", position=49.5)
 optdb.register("merge3", MergeOptimizer(), "fast_run", "merge", position=100)
 # position 1.7: BlasOpt, registered by aesara_tpu_torch.tensor.blas; position
 # 49: elemwise fusion, registered by aesara_tpu_torch.tensor.rewriting
+
+
+def register_useless(rewrite, *tags, name=None):
+    local_useless.register(name or rewrite.name, rewrite, "fast_run", *tags)
+    return rewrite
 
 
 def register_canonicalize(rewrite, *tags, name=None):

@@ -31,7 +31,7 @@ from aesara_tpu_torch.tensor.basic import (
 )
 from aesara_tpu_torch.tensor.blas import Dot22, Dot22Scalar, Gemm, Gemv, Ger
 from aesara_tpu_torch.tensor.elemwise import CAReduce, DimShuffle, Elemwise, check_static_broadcast
-from aesara_tpu_torch.tensor.extra_ops import BroadcastTo, CumOp, Repeat
+from aesara_tpu_torch.tensor.extra_ops import BroadcastTo, CumOp, Repeat, Unique
 from aesara_tpu_torch.tensor.math import Argmax, BatchedDot, Dot
 from aesara_tpu_torch.tensor.nnet.attention import FusedAttention, FusedAttentionGrad
 from aesara_tpu_torch.tensor.shape import Reshape, Shape, Shape_i, SpecifyShape, Unbroadcast, check_specified_shape
@@ -917,3 +917,28 @@ def _torch_topk(op, node):
     topk.host_inputs = (1,)
     topk.needs_host = ((1,), "has a k computed on the device: top-k's result has k's length")
     return topk
+
+
+@torch_funcify.register(Unique)
+def _torch_unique(op, node):
+    import torch
+
+    def unique(x):
+        flat = x.reshape(-1) if op.axis is None else x
+        values, inverse, counts = torch.unique(flat, sorted=True, return_inverse=True, return_counts=True,
+                                               dim=op.axis)
+        outs = [values]
+        if op.return_index:
+            n = flat.shape[0 if op.axis is None else op.axis]
+            first = torch.full((values.shape[0 if op.axis is None else op.axis],), n, dtype=torch.int64,
+                               device=x.device)
+            outs.append(first.scatter_reduce(0, inverse, torch.arange(n, device=x.device), "amin"))
+        if op.return_inverse:
+            outs.append(inverse.reshape(-1))
+        if op.return_counts:
+            outs.append(counts)
+        return outs[0] if len(outs) == 1 else tuple(outs)
+
+    unique.capturable = False
+    unique.blocker = "has a result whose length the data decides"
+    return unique

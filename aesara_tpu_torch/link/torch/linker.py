@@ -79,6 +79,15 @@ built once per key.  A sparse output goes back to SciPy after
 the graph has run (after the replay), with exactly the device value's
 pattern.
 
+**Refusals.**  A compile for CUDA raises, before any launch, where a
+process-wide torch setting would change what the graph computes: TF32
+matmuls (``Dot`` is a full-fp32 product), reduced-precision sums of
+bfloat16 or float16 products, and for a graph that holds convolutions
+(cuDNN's) TF32 convolutions (``cudnn_tf32_flag``) or
+``torch.backends.cudnn.benchmark``, which autotunes inside a capture.
+The settings are the caller's to change.  A key whose first call raises
+(a ``CheckAndRaise``) is not kept.
+
 There is no fallback: an op with no lowering raises when the function is
 compiled.  Dtypes are kept exactly; the card has fp64 and int64, so there
 is no 64→32 canonicalisation.
@@ -97,7 +106,7 @@ from aesara_tpu_torch.graph.op import Op
 from aesara_tpu_torch.link.basic import resolve_device
 
 
-__all__ = ["MAX_KEYS", "Program", "TorchFunction", "TorchLinker"]
+__all__ = ["MAX_KEYS", "Program", "TorchFunction", "TorchLinker", "cudnn_refusal"]
 
 #: keys a function keeps (each captured one with its graph's memory pool)
 MAX_KEYS = 2
@@ -128,23 +137,69 @@ def _capture_blocker(fn, node, host):
     return None
 
 
+def graph_nodes(fgraph):
+    """The Apply nodes of ``fgraph`` and of the inner graphs of its Scan
+    and OpFromGraph nodes."""
+    todo = [fgraph]
+    while todo:
+        for node in todo.pop().apply_nodes:
+            yield node
+            inner = getattr(node.op, "fgraph", None)
+            if inner is not None:
+                todo.append(inner)
+
+
 def product_dtypes(fgraph) -> set:
     """The output dtypes of the matrix products (``Dot``, ``BatchedDot``
-    and the BLAS ops) in ``fgraph`` and in the inner graphs of its Scan and
-    OpFromGraph nodes."""
+    and the BLAS ops) in ``fgraph`` and in its inner graphs."""
     from aesara_tpu_torch.tensor.blas import Dot22, Dot22Scalar, Gemm, Gemv, Ger
     from aesara_tpu_torch.tensor.math import BatchedDot, Dot
 
     products = (Dot, BatchedDot, Dot22, Dot22Scalar, Gemm, Gemv, Ger)
-    found, todo = set(), [fgraph]
-    while todo:
-        for node in todo.pop().apply_nodes:
-            if isinstance(node.op, products):
-                found.add(node.outputs[0].type.dtype)
-            inner = getattr(node.op, "fgraph", None)
-            if inner is not None:
-                todo.append(inner)
-    return found
+    return {node.outputs[0].type.dtype for node in graph_nodes(fgraph) if isinstance(node.op, products)}
+
+
+def cudnn_tf32_flag():
+    """The setting by which cuDNN may compute an fp32 convolution in TF32,
+    as text, or None.  Where the installed torch has the per-operator
+    ``fp32_precision`` settings, the convolutions' one decides, or where
+    it is "none" its parent's (cuDNN's, then torch's); else
+    ``torch.backends.cudnn.allow_tf32``."""
+    import torch
+
+    cudnn = torch.backends.cudnn
+    conv = getattr(cudnn, "conv", None)
+    if conv is None or not hasattr(conv, "fp32_precision"):
+        return "torch.backends.cudnn.allow_tf32 is True" if cudnn.allow_tf32 else None
+    for name, owner in (("torch.backends.cudnn.conv", conv), ("torch.backends.cudnn", cudnn),
+                        ("torch.backends", torch.backends)):
+        value = owner.fp32_precision
+        if value != "none":
+            return f'{name}.fp32_precision is "{value}"' if value == "tf32" else None
+    return None
+
+
+def cudnn_refusal(fgraph):
+    """Why a CUDA compile of ``fgraph``, which holds convolutions that
+    cuDNN computes, must be refused, or None: an fp32 or fp64 one while
+    cuDNN may use TF32, or any while ``torch.backends.cudnn.benchmark``
+    autotunes (it would inside a capture).  The settings are the caller's
+    to change, not the linker's."""
+    import torch
+
+    from aesara_tpu_torch.link.torch.nnet_dispatch import CONV_OPS
+
+    dtypes = {node.outputs[0].type.dtype for node in graph_nodes(fgraph) if isinstance(node.op, CONV_OPS)}
+    if not dtypes:
+        return None
+    if torch.backends.cudnn.benchmark:
+        return ("torch.backends.cudnn.benchmark is True: cuDNN would autotune the convolutions' algorithms, "
+                "inside a captured step too; set it to False before compiling")
+    flag = cudnn_tf32_flag()
+    if flag is not None and dtypes & {"float32", "float64"}:
+        return (f"{flag}: a convolution would round its fp32 inputs to TF32; set "
+                "torch.backends.cudnn.allow_tf32 to False before compiling")
+    return None
 
 
 class Program:
@@ -447,7 +502,14 @@ class TorchFunction:
             self.captured = False
             values = [self._upload(v) if isinstance(v, torch.Tensor) else v for v in values]
             shared = self._shared_values(state)
-            results = self.program.run(values + shared, state.uploads)
+            try:
+                results = self.program.run(values + shared, state.uploads)
+            except Exception:
+                if state.calls == 1:
+                    # a key whose first call failed (a CheckAndRaise) is
+                    # not kept, so the next call with it is not captured
+                    del self._keys[key]
+                raise
             return self._returned(self._settle(results, values + shared, state.uploads, False), False)
         if state.graph is None:
             self._capture(state, values)
@@ -537,6 +599,9 @@ class TorchLinker:
                 if getattr(torch.backends.cuda.matmul, flag) and dtype in product_dtypes(fgraph):
                     raise RuntimeError(f"torch.backends.cuda.matmul.{flag} is True: a {dtype} Dot would "
                                        "sum in reduced precision; set it to False before compiling")
+            refusal = cudnn_refusal(fgraph)
+            if refusal is not None:
+                raise RuntimeError(refusal)
         use_graph = config.cuda_graph if self.use_graph is None else self.use_graph
         n_outputs = len(fgraph.outputs) - len(update_targets) if n_outputs is None else n_outputs
         return TorchFunction(program_for(fgraph, device, bool(config.allow_gc)), fgraph, n_user_inputs, n_outputs,

@@ -3,6 +3,7 @@
 from aesara_tpu_torch.models.convert import load_params, load_state, named_state, params_by_name  # noqa: F401
 from aesara_tpu_torch.models.linear import LinearRegression, LogisticRegression  # noqa: F401
 from aesara_tpu_torch.models.mlp import MLP  # noqa: F401
+from aesara_tpu_torch.models.convnet import ConvNet  # noqa: F401
 from aesara_tpu_torch.models.rnn import GRU, LSTM, ElmanRNN  # noqa: F401
 from aesara_tpu_torch.models.checkpoint import load_checkpoint, save_checkpoint, state_shareds  # noqa: F401
 from aesara_tpu_torch.models.optim import (  # noqa: F401

@@ -1,5 +1,6 @@
 """Carry a JAX-package model's parameters into a port model: the encoder
-layer, the linear models, the ``MLP`` (``w0, b0, w1, b1, ...``) and the
+layer, the linear models, the ``MLP`` (``w0, b0, w1, b1, ...``), the
+``ConvNet`` (``f0, f1, ..., w_out, b_out``) and the
 recurrent models (``ElmanRNN``: ``wx, wh, b, w_out, b_out``; ``LSTM``:
 ``w_lstm, b_lstm, w_out, b_out``; ``GRU``: ``w_rz, b_rz, w_h, b_h, w_out,
 b_out``), whose parameters have the same names in both packages.

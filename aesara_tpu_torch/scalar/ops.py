@@ -95,6 +95,15 @@ def from_host(x, name: str):
     return torch.from_numpy(to_host(x, name)).to(torch.bfloat16)
 
 
+def perform_by_torch(fn, node, inputs, output_storage) -> None:
+    """An op's ``perform`` through its torch form ``fn``: the host values
+    as CPU tensors in, the one result in its output's host form."""
+    import torch
+
+    res = fn(*[torch.from_numpy(np.ascontiguousarray(a)) for a in inputs])
+    output_storage[0][0] = to_host(res, node.outputs[0].type.dtype)
+
+
 def upcast(dtype, *dtypes) -> str:
     """NumPy type promotion over dtype names; with bfloat16 present,
     integer operands do not widen the result (the JAX package's rule)."""

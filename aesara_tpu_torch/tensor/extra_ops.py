@@ -3,7 +3,11 @@ path of the port runs: ``Repeat`` (``numpy.repeat``; the decoder's
 grouped-query attention repeats each K/V head for its query heads),
 ``CumOp`` (cumsum and cumprod; speculative decoding's accepted prefix)
 and ``BroadcastTo`` (``broadcast_to``, ``broadcast_arrays``; beam
-search's per-beam caches), all in ``models/decoder.py``."""
+search's per-beam caches), all in ``models/decoder.py``, and ``Unique``
+(``numpy.unique``; ``tensor/nnet/basic.py``'s ``confusion_matrix``), whose
+result's length the data decides, so a function that holds one runs
+eagerly.  The JAX package's XLA linker refuses ``Unique``; only its PY
+linker runs it."""
 
 from __future__ import annotations
 
@@ -18,7 +22,7 @@ from aesara_tpu_torch.tensor.type import TensorType
 
 
 __all__ = ["CumOp", "CumsumOp", "CumprodOp", "cumsum", "cumprod", "Repeat", "repeat", "BroadcastTo",
-           "broadcast_to", "broadcast_arrays"]
+           "broadcast_to", "broadcast_arrays", "Unique", "unique"]
 
 
 class CumOp(Op):
@@ -235,3 +239,43 @@ def broadcast_arrays(*args):
                 t = fill(b, t)
         out.append(t)
     return out
+
+
+class Unique(Op):
+    """``numpy.unique`` (reference ``aesara_tpu/tensor/extra_ops.py:207``):
+    the sorted distinct values, and with the flags the index of each one's
+    first occurrence, the inverse (flattened) and the counts."""
+
+    __props__ = ("return_index", "return_inverse", "return_counts", "axis")
+
+    def __init__(self, return_index=False, return_inverse=False, return_counts=False, axis=None):
+        self.return_index = bool(return_index)
+        self.return_inverse = bool(return_inverse)
+        self.return_counts = bool(return_counts)
+        self.axis = axis if axis is None else int(axis)
+
+    def make_node(self, x):
+        x = as_tensor_variable(x)
+        out_ndim = 1 if self.axis is None else x.type.ndim
+        outs = [TensorType(x.type.dtype, (None,) * out_ndim)()]
+        outs += [TensorType("int64", (None,))() for flag in (self.return_index, self.return_inverse,
+                                                              self.return_counts) if flag]
+        return Apply(self, [x], outs)
+
+    def perform(self, node, inputs, output_storage):
+        (x,) = inputs
+        res = np.unique(x, return_index=self.return_index, return_inverse=self.return_inverse,
+                        return_counts=self.return_counts, axis=self.axis)
+        if not isinstance(res, tuple):
+            res = (res,)
+        for storage, r, out in zip(output_storage, res, node.outputs):
+            storage[0] = np.asarray(r).reshape(-1) if out.type.ndim == 1 else np.asarray(r)
+
+    def grad(self, inputs, output_grads):
+        from aesara_tpu_torch.gradient import grad_undefined
+
+        return [grad_undefined(self, 0, inputs[0])]
+
+
+def unique(x, return_index=False, return_inverse=False, return_counts=False, axis=None):
+    return Unique(return_index, return_inverse, return_counts, axis)(x)

@@ -21,7 +21,7 @@ from aesara_tpu_torch.tensor.type import TensorType
 
 __all__ = ["add", "sub", "mul", "true_div", "neg", "sqr", "sqrt", "exp", "maximum", "ge", "lt",
            "pow", "abs", "sgn", "minimum", "gt", "le", "eq", "neq", "and_", "or_", "invert", "log",
-           "cos", "sin", "clip", "isnan", "isinf", "Sum", "sum", "mean", "Prod", "prod", "Max", "Min", "All", "Any",
+           "cos", "sin", "clip", "isnan", "isinf", "Sum", "sum", "mean", "var", "std", "Prod", "prod", "Max", "Min", "All", "Any",
            "max", "min", "all", "any", "Argmax", "argmax", "Dot", "dot", "tensordot", "BatchedDot", "batched_dot",
            "int_div", "floor_div", "mod", "ceil", "floor", "trunc", "round_half_to_even", "round_half_away_from_zero",
            "xor", "shift_left", "shift_right", "exp2", "expm1", "log2", "log10", "log1p", "deg2rad",
@@ -227,6 +227,34 @@ def mean(x, axis=None, dtype=None, keepdims=False, acc_dtype=None):
         dtype = s.type.dtype if s.type.dtype not in discrete_dtypes else config.floatX
     res = true_div(cast(s, dtype) if s.type.dtype in discrete_dtypes else s, cast(n, dtype))
     return cast(res, dtype) if res.type.dtype != dtype else res
+
+
+def var(x, axis=None, ddof=0, keepdims=False, corrected=False):
+    """Variance built as the mean of squared deviations, as the JAX
+    package builds it (``ddof`` rescales by n / (n - ddof))."""
+    from aesara_tpu_torch.tensor.shape import shape_tuple
+
+    x = as_tensor_variable(x)
+    m = mean(x, axis=axis, keepdims=True)
+    sq = mean(sqr(sub(x, m)), axis=axis, keepdims=keepdims)
+    if ddof:
+        if axis is None:
+            axes = list(range(x.type.ndim))
+        elif isinstance(axis, (int, np.integer)):
+            axes = [int(axis) % x.type.ndim]
+        else:
+            axes = [int(a) % x.type.ndim for a in axis]
+        shp = shape_tuple(x)
+        n = constant(1, dtype="int64")
+        for a in axes:
+            n = mul(n, shp[a])
+        nf = cast(n, sq.type.dtype)
+        sq = mul(sq, true_div(nf, sub(nf, constant(float(ddof)))))
+    return sq
+
+
+def std(x, axis=None, ddof=0, keepdims=False):
+    return sqrt(var(x, axis=axis, ddof=ddof, keepdims=keepdims))
 
 
 def _kept_order(ndim: int, axes):

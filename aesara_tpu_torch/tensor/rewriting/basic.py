@@ -22,18 +22,27 @@
   their value has the output's shape; ``local_fill_to_alloc``
   (specialize): a fill that stays becomes an ``Alloc`` of the template's
   shape.
+- ``local_useless_split`` (useless, canonicalize and specialize): a
+  split into one piece is its input, behind an ``Assert`` that the size
+  is the axis length unless that is known statically.
+- ``local_remove_useless_assert`` (canonicalize): constant-true
+  conditions go, and an assert left with none is its input;
+  ``local_remove_all_assert`` strips every assert, under the tag
+  "unsafe" only, so never by default.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from aesara_tpu_torch.compile.mode import register_canonicalize, register_specialize
+from aesara_tpu_torch.compile.mode import canonicalize, register_canonicalize, register_specialize, register_useless
 from aesara_tpu_torch.graph.ir import Constant
 from aesara_tpu_torch.graph.rewriting.basic import copy_stack_trace, node_rewriter
 from aesara_tpu_torch.graph.utils import MethodNotDefined
 from aesara_tpu_torch.scalar import ops as aes
-from aesara_tpu_torch.tensor.basic import MakeVector, alloc, cast, constant, fill
+from aesara_tpu_torch.tensor.basic import (
+    MakeVector, NotScalarConstantError, Split, alloc, cast, constant, fill, get_scalar_constant_value,
+)
 from aesara_tpu_torch.tensor.elemwise import CAReduce, DimShuffle, Elemwise
 from aesara_tpu_torch.tensor.math import Dot, Sum, add, mul
 from aesara_tpu_torch.tensor.nnet.attention import FusedAttention, FusedAttentionGrad
@@ -331,3 +340,81 @@ def local_fill_to_alloc(fgraph, node):
 
 
 register_specialize(local_fill_to_alloc)
+
+
+@node_rewriter([Split])
+def local_useless_split(fgraph, node):
+    """A split into one piece is its input, behind the run-time check the
+    split itself would make (the sizes must sum to the axis length), unless
+    the static shape proves it."""
+    from aesara_tpu_torch.raise_op import Assert
+    from aesara_tpu_torch.tensor.math import eq
+    from aesara_tpu_torch.tensor.shape import shape, specify_shape
+
+    if node.op.len_splits != 1:
+        return False
+    x, axis, splits = node.inputs
+    res = x
+    try:
+        ax = int(get_scalar_constant_value(axis))
+        sp0 = get_scalar_constant_value(splits)
+        static_ok = x.type.shape[ax if ax >= 0 else ax + x.type.ndim] == int(sp0)
+    except NotScalarConstantError:
+        static_ok = False
+    if not static_ok:
+        check = Assert("Split{1}: split size must equal the axis length")
+        res = check(x, eq(shape(x)[axis], splits[0]))
+        copy_stack_trace(node.outputs[0], res)
+    if not node.outputs[0].type.is_super(res.type):
+        # the piece's static length is the split size's (the JAX package's
+        # convert_variable builds the same SpecifyShape)
+        res = specify_shape(res, node.outputs[0].type.shape)
+    return {node.outputs[0]: res}
+
+
+register_useless(local_useless_split)
+register_canonicalize(local_useless_split)
+register_specialize(local_useless_split)
+
+
+@node_rewriter(None)
+def local_remove_useless_assert(fgraph, node):
+    """Constant-true conditions go; an assert with none left is its input.
+    A constant-false one stays, to raise when the function is called."""
+    from aesara_tpu_torch.raise_op import CheckAndRaise
+
+    if not isinstance(node.op, CheckAndRaise):
+        return False
+    value, *conds = node.inputs
+    kept = []
+    for c in conds:
+        if isinstance(c, Constant):
+            if not bool(np.asarray(c.data)):
+                return False
+            continue
+        kept.append(c)
+    if len(kept) == len(conds):
+        return False
+    res = node.op(value, *kept) if kept else value
+    conv = node.outputs[0].type.convert_variable(res)
+    if conv is None:
+        return False
+    copy_stack_trace(node.outputs[0], conv)
+    return [conv]
+
+
+register_canonicalize(local_remove_useless_assert)
+
+
+@node_rewriter(None)
+def local_remove_all_assert(fgraph, node):
+    """Every assert is its input: unsafe, so only under the tag "unsafe"."""
+    from aesara_tpu_torch.raise_op import CheckAndRaise
+
+    if not isinstance(node.op, CheckAndRaise):
+        return False
+    conv = node.outputs[0].type.convert_variable(node.inputs[0])
+    return False if conv is None else [conv]
+
+
+canonicalize.register("local_remove_all_assert", local_remove_all_assert, "unsafe")

@@ -16,6 +16,8 @@ serve the sparse-input models, all through ``aesara_tpu_torch.function``.
     python3 chip_smoke.py --decoder    # only the setup and path (g), the decoder LM served
     python3 chip_smoke.py --decoder-sampling    # only the setup and path (h): sampling, speculative, beam
     python3 chip_smoke.py --bf16    # only the setup and path (i): bfloat16, remat, the decoder trained
+    python3 chip_smoke.py --convnet    # only the setup and path (j): the conv net and control flow
+    python3 chip_smoke.py --seed 3    # path (j)'s synthetic images from another seed (default 0)
 
 Every compiled function runs captured (``TorchLinker``'s default on the
 card): its first call with a key runs eagerly, the second captures the
@@ -226,6 +228,27 @@ i. (i) bfloat16 graphs, ``remat`` and the decoder LM trained, with
    one), 8 greedy tokens of the resumed model equal to the CPU's from the
    same checkpoint, and one more step from each graph bitwise equal; K4 at
    its causal softmax, (8 x 256, 256) float64.
+j. (j) the conv net, with cuDNN in full fp32, deterministic and not
+   autotuning (set and logged first; the linker refuses a convolution
+   otherwise).  (j1) ``ConvNet(1, (28, 28), [20, 50], 10, seed=0)`` in
+   float32, LeNet's widths (the Aesara tutorial's ``evaluate_lenet5``) on
+   the model's 3 x 3 "half" convolutions, on 500 synthetic images and
+   labels from SEED: its graph's convolutions, pools, their gradients
+   and Composites; K1 on each Composite at the shapes a step gives it and
+   K4 at (500, 10) against their plain versions; sgd at 0.1, 3 counted
+   steps, 10 timed and 3 profiled (images/s, host time of a call, peak
+   memory), the loss after them below the first; each convolution and
+   pool node's device time alone; one step at batch 8 against the CPU
+   (the loss and every gradient, TRAIN_TOL); 3 ``predict`` requests of
+   500 new images and one of 1 against the CPU's labels under the tie
+   rule; its "capture table" line, captured bitwise equal to eager.  (j2)
+   on (j1)'s model and batch: the step guarded by ``ifelse(isfinite(loss),
+   p - 0.1 g, p)``, 3 calls bitwise equal to (j1)'s step from the same
+   weights, then a batch with one NaN pixel (loss NaN, every parameter
+   unchanged, replayed); an ``Assert`` on the labels' count (from shapes)
+   passing on 500, captured, and raising its message on 499; a function
+   holding a ``Print`` that runs eagerly, names it as its blocker and
+   prints once a call.
 8. captured against eager: every path above (the forward request, the
    sgd and AdamW steps, the classifier step, ``predict`` of one request
    sent again, the GLM's sgd and adam steps, path (c) at width 20, config
@@ -257,15 +280,18 @@ configuration of path (e), (f), (g) and (h), and K4 with its checks there;
 the threefry kernel, which replaces no TPU kernel, with (h1)'s launches
 and its launches in paths (b) and (h); K1-K4 with their launches in each
 run of path (i), K1 with its bfloat16 time and bound, K2 and K3 with their
-bfloat16 checks at (i)'s panels, K4 with its check at (i3)'s softmax)
-and the card's name and power limit; the last is
+bfloat16 checks at (i)'s panels, K4 with its check at (i3)'s softmax; K1
+and K4 with their launches in (j1)'s counted steps, K4 with its check
+there) and the card's name and power limit; the last is
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import importlib.util
+import io
 import json
 import statistics
 import subprocess
@@ -461,6 +487,15 @@ TRAIN_LR_MAX, TRAIN_WARMUP, TRAIN_TOTAL, TRAIN_WD = 3e-3, 20, 200, 0.01
 # whose gradient sums cancel by up to 2 lr a step, so later losses drift)
 TRAIN_CPU_STEPS, TRAIN_LOSS_REL = 8, 1e-3
 GEN_STEPS, GEN_T_MAX = 8, 16
+# (j) LeNet's widths (the Aesara/Theano tutorial's convolutional_mlp.py,
+# evaluate_lenet5: nkerns [20, 50], batch 500, learning rate 0.1, 28 x 28
+# MNIST images) on the JAX package's ConvNet (3 x 3 "half" convolutions,
+# ReLU, 2 x 2 max-pools), float32; the images are synthetic at MNIST's
+# shape, from SEED (``--seed``), as MNIST is not in the repository
+CONV_CHANNELS, CONV_HW, CONV_CLASSES, CONV_BATCH, CONV_LR = (20, 50), (28, 28), 10, 500, 0.1
+CONV_CPU_BATCH, CONV_REQUESTS = 8, 3
+N_CONV_STEPS, N_CONV_TIMED = 3, 10
+SEED = 0
 PROFILE_STEPS = 3        # calls counted in a profiled window, after one the profiler drops and a lead-in
 N_HOST_CALLS = 5         # calls whose host time time_steps takes the median of
 # host time at each edge of a profiled window.  On the H100, once the card
@@ -1308,6 +1343,8 @@ def kernel_group(name: str) -> str:
             return group
     if name == "kernel":
         return "K1 fused Composite"
+    if any(k in name.lower() for k in ("conv", "cudnn", "fprop", "dgrad", "wgrad", "implicit")):
+        return "conv (cuDNN)"
     if "gemm" in name.lower() or "cutlass" in name.lower():
         return "matmul"
     return "other torch"
@@ -3848,29 +3885,34 @@ def run_lm_train() -> dict:
     return {"k1_err": k1_err, "launches": launches, "ms": ms, "losses": losses}
 
 
-def composite_shapes(fn, args) -> dict:
-    """{Composite node: its inputs' shapes} of one run of a compiled
-    function's program on ``args`` (its user inputs on the card), read by
-    wrapping the Composites' lowerings for that run; the program runs as
-    ``Program.run`` runs it, and no update is written."""
-    from aesara_tpu_torch.scalar.composite import Composite
-
-    program, shapes = fn.fn.program, {}
+def run_recording(fn, args, pick, keep) -> dict:
+    """{node: ``keep(its inputs)``} for the nodes ``pick`` selects, of one
+    run of a compiled function's program on ``args`` (its user inputs on
+    the card), read by wrapping those nodes' lowerings for that run; the
+    program runs as ``Program.run`` runs it, and no update is written."""
+    program, seen = fn.fn.program, {}
 
     def recording(node, lowered):
         def run(*ins, **kwargs):
-            shapes[node] = [tuple(a.shape) for a in ins]
+            seen[node] = keep(ins)
             return lowered(*ins, **kwargs)
         return run
 
     lowered = program.fns
-    program.fns = [recording(node, f) if isinstance(getattr(node.op, "scalar_op", None), Composite) else f
-                   for node, f in zip(program.order, lowered)]
+    program.fns = [recording(node, f) if pick(node) else f for node, f in zip(program.order, lowered)]
     try:
         program.run(list(args) + [v.value for v in fn.fn.shared_inputs], {})
     finally:
         program.fns = lowered
-    return shapes
+    return seen
+
+
+def composite_shapes(fn, args) -> dict:
+    """{Composite node: its inputs' shapes} of one run (``run_recording``)."""
+    from aesara_tpu_torch.scalar.composite import Composite
+
+    return run_recording(fn, args, lambda node: isinstance(getattr(node.op, "scalar_op", None), Composite),
+                         lambda ins: [tuple(a.shape) for a in ins])
 
 
 def check_lm_softmax() -> dict:
@@ -3922,6 +3964,286 @@ def bf16_only():
     phase_bf16()
     stop_cpu_references()
     log("chip_smoke --bf16: path (i) passed")
+
+
+# ---------------------------------------------------------------------------
+# path (j): the conv net at LeNet's widths trained and served, and control flow
+# ---------------------------------------------------------------------------
+
+def set_cudnn_for_convolutions():
+    """cuDNN in full fp32 (as the JAX package convolves), deterministic (so
+    a captured step equals its eager run bitwise) and without autotuning
+    (which a capture must not run): the linker refuses the first and the
+    last otherwise."""
+    cudnn = torch.backends.cudnn
+    cudnn.allow_tf32 = False
+    cudnn.deterministic = True
+    cudnn.benchmark = False
+    conv = getattr(cudnn, "conv", None)
+    precision = (f", conv.fp32_precision {conv.fp32_precision}" if conv is not None and hasattr(conv, "fp32_precision")
+                 else "")
+    log(f"(j) cuDNN {cudnn.version()}: allow_tf32 {cudnn.allow_tf32}{precision}, deterministic "
+        f"{cudnn.deterministic}, benchmark {cudnn.benchmark}")
+
+
+def conv_images(n: int, seed: int):
+    """``n`` synthetic 28 x 28 single-channel images (float32) and labels,
+    from ``seed`` with numpy."""
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(n, 1) + CONV_HW).astype("float32"),
+            rng.integers(0, CONV_CLASSES, size=n).astype("int64"))
+
+
+def build_convnet(device: str, use_graph=None, fns=("step", "grads", "predict", "logits")) -> dict:
+    """``ConvNet(1, (28, 28), [20, 50], 10, seed=0)`` in float32, compiled
+    on ``device``: those of ``fns`` among ``step`` (sgd at CONV_LR, the loss
+    returned borrowed), ``grads`` (the loss and every parameter's
+    gradient), ``predict`` and ``logits``; with the model's ``params``, the
+    symbolic ``x``, ``y``, ``loss`` and sgd ``updates``, and the ``mode``."""
+    import aesara_tpu_torch as ptp
+    import aesara_tpu_torch.tensor as pt
+    from aesara_tpu_torch.config import config
+    from aesara_tpu_torch.models import ConvNet, sgd
+
+    mode = ptp.Mode(ptp.TorchLinker(device=device, use_graph=use_graph))
+    with config.change_flags(device=device, floatX="float32"):
+        model = ConvNet(1, CONV_HW, CONV_CHANNELS, CONV_CLASSES, seed=0)
+    x, y = pt.tensor4("x", dtype="float32"), pt.lvector("y")
+    loss = model.loss(x, y)
+    updates = sgd(loss, model.params, lr=CONV_LR)
+    make = {"step": lambda: ptp.function([x, y], ptp.Out(loss, borrow=True), updates=updates, mode=mode),
+            "grads": lambda: ptp.function([x, y], [loss] + ptp.grad(loss, model.params), mode=mode),
+            "predict": lambda: ptp.function([x], model.predict(x), mode=mode),
+            "logits": lambda: ptp.function([x], model.logits(x), mode=mode)}
+    return dict({k: make[k]() for k in fns}, params=model.params, x=x, y=y, loss=loss, updates=updates, mode=mode)
+
+
+#: the ops of path (j) that run library calls, not kernels of the port
+CONV_POOL_OPS = ("AbstractConv2d", "AbstractConv2dGradWeights", "AbstractConv2dGradInputs", "Pool", "PoolGrad")
+
+
+def conv_census(fn) -> dict:
+    """Nodes of a compiled step by op: the convolutions, pools and their
+    gradients, and the Composites (one K1 launch each)."""
+    names = [type(n.op).__name__ for n in fn.fn.program.order]
+    census = {k: names.count(k) for k in CONV_POOL_OPS}
+    census["Composite"] = len(composite_nodes(fn))
+    return census
+
+
+def conv_pool_ms(fn, args) -> dict:
+    """Device ms of each convolution and pool node of one call of ``fn``
+    (its lowering run alone on the inputs a run gave it, by the profiler),
+    summed by op."""
+    program = fn.fn.program
+    inputs = run_recording(fn, args, lambda node: type(node.op).__name__ in CONV_POOL_OPS, list)
+    by_op = dict.fromkeys(CONV_POOL_OPS, 0.0)
+    for node, ins in inputs.items():
+        lowered = program.fns[program.order.index(node)]
+        by_op[type(node.op).__name__] += device_ms(lambda: lowered(*ins), reps=10)
+    return by_op
+
+
+def check_convnet_against_cpu(label: str):
+    """One step's loss and every parameter's gradient at batch
+    CONV_CPU_BATCH, card against CPU from the same seeded weights, within
+    TRAIN_TOL."""
+    x, y = conv_images(CONV_CPU_BATCH, SEED + 7)
+    got = [_host(v) for v in build_convnet("cuda", fns=("grads",))["grads"](x, y)]
+    want = [_host(v) for v in build_convnet("cpu", fns=("grads",))["grads"](x, y)]
+    err = 0.0
+    for g, w in zip(got, want):
+        err = max(err, float(np.abs(g.astype("float64") - w.astype("float64")).max()))
+        np.testing.assert_allclose(g, w, atol=TRAIN_TOL, rtol=TRAIN_TOL)
+    log(f"{label}: one step at batch {CONV_CPU_BATCH}, card vs CPU, the loss and {len(got) - 1} gradients: max abs "
+        f"err {err:.3e} (tolerance {TRAIN_TOL}, relative and absolute)")
+    return err
+
+
+def check_conv_predict(built, label: str) -> dict:
+    """CONV_REQUESTS ``predict`` requests of CONV_BATCH new images and one of
+    a single image, each against the CPU's labels from the card's trained
+    weights: equal, but where the CPU's top-2 logit gap is under TIE_REL
+    of that row's logits' scale (the tie rule)."""
+    cpu = build_convnet("cpu", fns=("predict", "logits"))
+    set_params(cpu["params"], [p.get_value() for p in built["params"]])
+    predict, ties, times = built["predict"], 0, []
+    sizes = [CONV_BATCH] * CONV_REQUESTS + [1]
+    for i, n in enumerate(sizes):
+        x, _ = conv_images(n, SEED + 100 + i)
+        t0 = time.perf_counter()
+        got = predict(x)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        got = _host(got)
+        want = _host(cpu["predict"](x))
+        if got.shape != (n,) or got.dtype != np.int64:
+            raise AssertionError(f"{label} predict: {got.dtype} {got.shape}")
+        for row in np.flatnonzero(got != want):
+            logits = _host(cpu["logits"](x[row:row + 1]))[0].astype("float64")
+            top = np.sort(logits)[-2:]
+            gap, scale = float(top[1] - top[0]), float(np.abs(logits).max())
+            log(f"{label} predict request {i}: image {row} labelled {got[row]} against the CPU's {want[row]}; the "
+                f"CPU's top-2 gap {gap / scale:.3e} of the scale (tie rule: under {TIE_REL})")
+            if not gap < TIE_REL * scale:
+                raise AssertionError(f"{label} predict request {i}: image {row} differs and is no tie")
+            ties += 1
+    if predict.fn.capture_blocker is not None:
+        raise AssertionError(f"{label} predict: capture blocked by {predict.fn.capture_blocker}")
+    log(f"{label}: predict requests of {sizes} images agree with the CPU ({ties} ties); ms a request "
+        f"{[round(t, 3) for t in times]} (the first of each size runs eagerly, the second captures); "
+        f"last call {'replayed' if predict.captured else 'ran eagerly'}")
+    return {"ties": ties, "request_ms": times}
+
+
+def run_convnet() -> dict:
+    """(j1): the graph, K1 and K4 at its shapes, 3 counted steps, 10 timed
+    and 3 profiled, the loss falling over the 13, the conv and pool device
+    time, the card against the CPU, ``predict``, and its capture table
+    line."""
+    label = "(j1) ConvNet"
+    t0 = time.perf_counter()
+    built = build_convnet("cuda", fns=("step", "grads", "predict"))
+    step = built["step"]
+    log(f"{label}: compile (graph + grad + rewrites + link): {time.perf_counter() - t0:.2f} s")
+    x, y = conv_images(CONV_BATCH, SEED)
+    xc, yc = torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
+    per_call = graph_launches(step)
+    census = conv_census(step)
+    log(f"{label} step graph: {census}; launches a step {per_call}")
+    if min(census.values()) < 1 or per_call["K4"] != 1:
+        raise AssertionError(f"{label}: the step's graph lacks a convolution, pool or K4 op: {census}")
+    rows = check_composites(composite_nodes(step), label, np.random.default_rng(41),
+                            shapes=composite_shapes(step, (xc, yc)), time_each=False)
+    k4 = check_k4(torch.randn((CONV_BATCH, CONV_CLASSES), device="cuda",
+                              generator=torch.Generator(device="cuda").manual_seed(42)) * 3)
+    torch.cuda.synchronize()
+    reset_peak()
+    zero_counters()
+    losses = []
+    for _ in range(N_CONV_STEPS):
+        loss = step(xc, yc)
+        if not (loss.is_cuda and loss.shape == () and loss.dtype == torch.float32):
+            raise AssertionError(f"{label}: loss {loss} is not a float32 scalar on the card")
+        losses.append(float(loss))
+    torch.cuda.synchronize()
+    launches = read_counters(per_call, label, N_CONV_STEPS)
+    t = time_steps(lambda: step(xc, yc), N_CONV_TIMED, f"{label} train step")
+    require_captured(step, f"{label} train step")
+    if step.capture_blocker is not None:
+        raise AssertionError(f"{label}: capture blocked by {step.capture_blocker}")
+    after = float(_host(built["grads"](xc, yc)[0]))
+    log(f"{label} losses: {losses} in the counted steps, {after:.6f} after all {N_CONV_STEPS + N_CONV_TIMED} "
+        "steps and the profiled ones")
+    if not (all(np.isfinite(losses)) and np.isfinite(after) and after < losses[0]):
+        raise AssertionError(f"{label}: the loss did not fall: {losses[0]} -> {after}")
+    by_op = conv_pool_ms(step, (xc, yc))
+    conv_pool = sum(by_op.values())
+    busy = t["busy"]
+    log(f"{label} train step: {t['ms']:.3f} ms a step back to back, {CONV_BATCH / t['ms'] * 1e3:.1f} images/s, host "
+        f"{t['host']:.3f} ms a call, device busy {busy:.3f} of {t['wall']:.3f} ms, peak {t['peak']:.3f} GiB; "
+        f"convolutions and pools alone {conv_pool:.3f} ms a step ({100 * conv_pool / busy:.1f}% of the busy time: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in by_op.items()) + ")")
+    cpu_err = check_convnet_against_cpu(label)
+    serve = check_conv_predict(built, label)
+    def captured_or_eager(use_graph):
+        b = build_convnet("cuda", use_graph, fns=("step",))
+        return b["step"], lambda: b["step"](xc, yc), b["params"]
+
+    row = capture_row("(j1) ConvNet train step (sgd)", captured_or_eager)
+    if not row[1]:
+        raise AssertionError("(j1): the captured step is not bitwise equal to the eager one")
+    return dict(t, built=built, data=(xc, yc), launches=launches, composites=rows, k4=k4, census=census,
+                per_call=per_call, losses=losses + [after], conv_pool=by_op, cpu_err=cpu_err, serve=serve)
+
+
+def run_control_flow(j1: dict) -> dict:
+    """(j2) on (j1)'s model and batch: the guarded step, a shape Assert and
+    a function holding a Print."""
+    import aesara_tpu_torch as ptp
+    import aesara_tpu_torch.tensor as pt
+    from aesara_tpu_torch.ifelse import ifelse
+    from aesara_tpu_torch.printing import Print
+    from aesara_tpu_torch.raise_op import Assert
+    from aesara_tpu_torch.tensor import math as tm
+
+    label = "(j2)"
+    built, (xc, yc) = j1["built"], j1["data"]
+    x, y, loss, params, mode = built["x"], built["y"], built["loss"], built["params"], built["mode"]
+    finite = tm.invert(tm.or_(tm.isnan(loss), tm.isinf(loss)))
+    guarded = ptp.function([x, y], ptp.Out(loss, borrow=True), mode=mode,
+                           updates=[(p, ifelse(finite, new, p)) for p, new in built["updates"]])
+    n_if = sum(type(n.op).__name__ == "IfElse" for n in guarded.fn.program.order)
+    start = [p.get_value() for p in params]
+    for call in range(3):
+        runs = []
+        for fn in (built["step"], guarded):
+            set_params(params, start)
+            runs.append([_host(fn(xc, yc))] + [_host(p.value) for p in params])
+        _, _, same = _difference(*runs)
+        if not same:
+            raise AssertionError(f"{label} guarded step call {call}: not bitwise equal to (j1)'s sgd step")
+    require_captured(guarded, f"{label} guarded step")
+    bad = xc.clone()
+    bad[3, 0, 5, 7] = float("nan")
+    before = [p.value.clone() for p in params]
+    nan_loss = float(guarded(bad, yc))
+    if not np.isnan(nan_loss) or not guarded.captured:
+        raise AssertionError(f"{label} guarded step on a NaN pixel: loss {nan_loss}, captured {guarded.captured}")
+    for p, b in zip(params, before):
+        if not torch.equal(p.value, b):
+            raise AssertionError(f"{label} guarded step on a NaN pixel changed {p.name}")
+    log(f"{label} guarded step ({n_if} IfElse, one a parameter): 3 calls (eager, captured, replayed) bitwise equal "
+        f"to (j1)'s sgd step from the same weights; on a batch with one NaN pixel, replayed, the loss {nan_loss} and "
+        "every parameter kept its bits")
+    message = "(j2): the labels must number the images"
+    checked = ptp.function([x, y], Assert(message)(loss, pt.eq(x.shape[0], y.shape[0])), mode=mode)
+    for _ in range(3):
+        ok = float(checked(xc, yc))
+    require_captured(checked, f"{label} shape Assert")
+    try:
+        checked(xc, yc[:-1])
+    except AssertionError as exc:
+        if str(exc) != message:
+            raise AssertionError(f"{label} shape Assert raised {exc!r}, not its message") from exc
+        log(f"{label} shape Assert: passes on {CONV_BATCH} images and labels (loss {ok:.6f}, captured), raises "
+            f"AssertionError({str(exc)!r}) on {CONV_BATCH - 1} labels")
+    else:
+        raise AssertionError(f"{label} shape Assert: no error on {CONV_BATCH - 1} labels")
+    printed = ptp.function([x, y], Print("(j2) loss")(loss), mode=mode)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        for _ in range(2):
+            printed(xc, yc)
+    lines = out.getvalue().splitlines()
+    blocker = printed.fn.capture_blocker
+    if len(lines) != 2 or not all(ln.startswith("(j2) loss ") for ln in lines) or printed.captured \
+            or "Print" not in (blocker or ""):
+        raise AssertionError(f"{label} Print: lines {lines}, captured {printed.captured}, blocker {blocker}")
+    log(f"{label} Print: 2 calls printed {lines}; eager, capture blocker: {blocker}")
+    return {"ifelse": n_if, "nan_loss": nan_loss}
+
+
+def phase_convnet() -> dict:
+    """Path (j): (j1) and (j2) (see the module docstring)."""
+    set_cudnn_for_convolutions()
+    t0 = time.perf_counter()
+    out = {"j1": run_convnet()}
+    log(f"(j1) path: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    out["j2"] = run_control_flow(out["j1"])
+    log(f"(j2) path: {time.perf_counter() - t0:.2f} s")
+    out["j1"].pop("built")
+    out["j1"].pop("data")
+    release()
+    return out
+
+
+def convnet_only():
+    """--convnet: the setup and path (j) alone."""
+    phase_setup()
+    phase_convnet()
+    log("chip_smoke --convnet: path (j) passed")
 
 
 #: the jobs of ``cpu_reference``'s process, in the order it runs them
@@ -4055,57 +4377,61 @@ def _difference(captured, eager) -> tuple:
 
 
 def phase_capture(ng, glm):
-    """Every path compiled twice from the same seeds: captured (the
-    default) and eager (``use_graph=False``), one after the other, each
-    driven alike: 4 calls (eager, captured, replayed twice), then back to
-    back, host time of one call and a profile (``time_steps``).  Each
-    prints its step time, host time of one call, device busy share, peak
-    and reserved memory and BLAS ops; the captured run's results after the
-    4 calls (every call's outputs, then every piece of state) against the
+    """Every path compiled twice from the same seeds and compared,
+    ``capture_row`` each."""
+    return [capture_row(label, build) for label, build in _paths(ng, glm)]
+
+
+def capture_row(label: str, build):
+    """One path compiled twice from the same seeds: captured (the default)
+    and eager (``use_graph=False``), one after the other, each driven
+    alike: 4 calls (eager, captured, replayed twice), then back to back,
+    host time of one call and a profile (``time_steps``).  Each prints its
+    step time, host time of one call, device busy share, peak and
+    reserved memory and BLAS ops; the captured run's results after the 4
+    calls (every call's outputs, then every piece of state) against the
     eager run's: bitwise, or else within CAPTURE_REL of each tensor's
-    largest value (cuBLAS may pick another algorithm under capture)."""
-    summary = []
-    for label, build in _paths(ng, glm):
-        t_row = time.perf_counter()
-        runs = {}
-        for use_graph in (True, False):
-            mode = "captured" if use_graph else "eager"
-            t0 = time.perf_counter()
-            fn, call, state = build(use_graph)
-            compile_s = time.perf_counter() - t0
-            torch.cuda.synchronize()
-            reset_peak()
-            # eager, captured, replayed twice; compared before the timing,
-            # whose profile may take the step a varying number of times
-            outs = [_host(call()) for _ in range(N_COMPARED_CALLS)]
-            require_captured(fn, f"{label}, {mode}", captured=use_graph)
-            compared = dict(outs=[a for out in outs for a in (out if isinstance(out, list) else [out])],
-                            state=[_host(v.value) if v.type.dtype == "bfloat16" else v.get_value()
-                                   for v in state])
-            # an eager run whose trace loses launches in every session
-            # prints its busy share as not measured; a captured run's must
-            # match, as in the main phases
-            t = time_steps(call, N_TIMED_STEPS, f"{label}, {mode}", strict=use_graph)
-            runs[mode] = dict(t, **compared, blas=blas_counts(fn), compile_s=compile_s)
-            del fn, call, state
-            release()
-        cap, eag = runs["captured"], runs["eager"]
-        diff, rel, same = _difference(cap["outs"] + cap["state"], eag["outs"] + eag["state"])
-        for mode, r in runs.items():
-            busy = ("not measured (the trace lost launches)" if r["busy"] is None
-                    else f"{r['busy']:.3f} of {r['wall']:.3f} ms ({100 * r['busy'] / r['wall']:.1f}%)")
-            log(f"capture table | {label} | {mode} | {r['ms']:.3f} ms back to back | host {r['host']:.3f} ms a "
-                f"call | busy {busy} | peak "
-                f"{r['peak']:.3f} GiB, reserved {r['reserved']:.3f} GiB | compile {r['compile_s']:.2f} s | "
-                f"{r['blas']}")
-        log(f"capture table | {label} | captured vs eager over {len(cap['outs'])} outputs and "
-            f"{len(cap['state'])} state variables: {'bitwise equal' if same else 'not bitwise equal'}, largest "
-            f"difference {diff:.3e} ({rel:.3e} of its tensor's scale)")
-        if not same and rel > CAPTURE_REL:
-            raise AssertionError(f"{label}: captured and eager differ by {rel:.3e} of a tensor's scale")
-        log(f"capture table | {label} | both runs in {time.perf_counter() - t_row:.2f} s")
-        summary.append((label, same, diff))
-    return summary
+    largest value (cuBLAS may pick another algorithm under capture).
+    Returns (label, bitwise equal, largest difference)."""
+    t_row = time.perf_counter()
+    runs = {}
+    for use_graph in (True, False):
+        mode = "captured" if use_graph else "eager"
+        t0 = time.perf_counter()
+        fn, call, state = build(use_graph)
+        compile_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        reset_peak()
+        # eager, captured, replayed twice; compared before the timing,
+        # whose profile may take the step a varying number of times
+        outs = [_host(call()) for _ in range(N_COMPARED_CALLS)]
+        require_captured(fn, f"{label}, {mode}", captured=use_graph)
+        compared = dict(outs=[a for out in outs for a in (out if isinstance(out, list) else [out])],
+                        state=[_host(v.value) if v.type.dtype == "bfloat16" else v.get_value()
+                               for v in state])
+        # an eager run whose trace loses launches in every session
+        # prints its busy share as not measured; a captured run's must
+        # match, as in the main phases
+        t = time_steps(call, N_TIMED_STEPS, f"{label}, {mode}", strict=use_graph)
+        runs[mode] = dict(t, **compared, blas=blas_counts(fn), compile_s=compile_s)
+        del fn, call, state
+        release()
+    cap, eag = runs["captured"], runs["eager"]
+    diff, rel, same = _difference(cap["outs"] + cap["state"], eag["outs"] + eag["state"])
+    for mode, r in runs.items():
+        busy = ("not measured (the trace lost launches)" if r["busy"] is None
+                else f"{r['busy']:.3f} of {r['wall']:.3f} ms ({100 * r['busy'] / r['wall']:.1f}%)")
+        log(f"capture table | {label} | {mode} | {r['ms']:.3f} ms back to back | host {r['host']:.3f} ms a "
+            f"call | busy {busy} | peak "
+            f"{r['peak']:.3f} GiB, reserved {r['reserved']:.3f} GiB | compile {r['compile_s']:.2f} s | "
+            f"{r['blas']}")
+    log(f"capture table | {label} | captured vs eager over {len(cap['outs'])} outputs and "
+        f"{len(cap['state'])} state variables: {'bitwise equal' if same else 'not bitwise equal'}, largest "
+        f"difference {diff:.3e} ({rel:.3e} of its tensor's scale)")
+    if not same and rel > CAPTURE_REL:
+        raise AssertionError(f"{label}: captured and eager differ by {rel:.3e} of a tensor's scale")
+    log(f"capture table | {label} | both runs in {time.perf_counter() - t_row:.2f} s")
+    return label, same, diff
 
 
 def kernel_line(name, route, source, replaces, key, path, res):
@@ -4623,14 +4949,23 @@ def profile_check(sessions: int = 12, rounds: int = 3):
 
 
 def main():
+    global SEED
     modes = {"--k6-sweep": k6_sweep, "--k2-walk-sweep": k2_walk_sweep, "--attention-times": attention_times,
              "--profile-check": profile_check, "--k7-sweep": k7_sweep, "--k4-times": k4_times,
              "--k4-k7-times": k4_k7_times, "--reference": reference_only, "--scan": scan_only,
-             "--decoder": decoder_only, "--decoder-sampling": decoder_sampling_only, "--bf16": bf16_only}
-    if len(sys.argv) == 2 and sys.argv[1] in modes:
+             "--decoder": decoder_only, "--decoder-sampling": decoder_sampling_only, "--bf16": bf16_only,
+             "--convnet": convnet_only}
+    args = sys.argv[1:]
+    if "--seed" in args:
+        at = args.index("--seed")
+        SEED = int(args[at + 1])
+        del args[at:at + 2]
+    if len(args) == 1 and args[0] in modes:
         if not torch.cuda.is_available():
             raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU")
-        return modes[sys.argv[1]]()
+        return modes[args[0]]()
+    if args:
+        raise SystemExit(f"chip_smoke: unknown arguments {args}")
     start = time.perf_counter()
     smi = phase_setup()
     start_cpu_references("adamw", "decoder", "bf16", "lm_train")
@@ -4690,6 +5025,9 @@ def main():
     t0 = time.perf_counter()
     bf16 = phase_bf16(attention_bf16)
     log(f"(i) bf16, remat and the decoder trained: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    convnet = phase_convnet()
+    log(f"(j) conv net and control flow: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     phase_capture(lr["data"], glm_xyw)
     log(f"captured-vs-eager phase: {time.perf_counter() - t0:.2f} s")
@@ -4770,12 +5108,18 @@ def main():
                "ms": i1_ms, "cold_ms": i1_cold_ms, "plain_ms": i1_plain_ms, "bound_ms": i1_bound_ms,
                "bound_by": i1_bound_by, "library_ms": None}
     k1["max_abs_err"] = max(k1["max_abs_err"], k1_bf16["fp32_max_abs_err"])
+    # path (j): (j1)'s launches in its 3 counted steps, K1 on its Composites,
+    # K4 at its (500, 10) log-softmax
+    j1 = convnet["j1"]
+    path_j = {k: j1["launches"][0][k] + j1["launches"][1][k] for k in ("K1", "K4")}
+    k1["max_abs_err"] = max([k1["max_abs_err"]] + [row["max_abs_err"] for row in j1["composites"]])
+    k4_j = {key: j1["k4"][key] for key in ("max_abs_err", "ms", "cold_ms", "plain_ms", "bound_ms", "library_ms")}
     attention_i = {k: {"x".join(map(str, shape)): r[k] for shape, r in bf16["attention"].items()} for k in ("K2", "K3")}
     kernels = [
         dict(kernel_line("K1 fused elemwise Composite", "triton", K1_SOURCE, K1_REPLACES, "K1", train, k1),
              cold_ms=k1_times[4], **k1_adamw, path_e_launches=path_e["K1"], path_f_launches=path_f["K1"],
              path_g_launches=path_g["K1"], path_h_launches=path_h["K1"], path_i_launches=path_i["K1"],
-             path_i_bf16=k1_bf16),
+             path_i_bf16=k1_bf16, path_j_launches=path_j["K1"]),
         dict(kernel_line("K2 flash attention forward", "cuda", K2_SOURCE, K2_REPLACES, "K2", train, k2),
              adamw_launches=adamw["launches"]["K2"], path_i_launches=path_i["K2"], path_i_bf16=attention_i["K2"]),
         dict(k3_line, adamw_launches=adamw["launches"]["K3"], path_i_launches=path_i["K3"],
@@ -4783,10 +5127,11 @@ def main():
         dict(kernel_line("K4 row log-softmax", "cuda", K4_SOURCE, K4_REPLACES, "K4", (lr["launches"], lr["traced"]),
                          dict(lr["K4"], max_abs_err=max([lr["K4"]["max_abs_err"], k4_f["max_abs_err"]]
                                                         + [r["max_abs_err"] for r in k4_e.values()]
-                                                        + [r["max_abs_err"] for r in k4_g.values()]))),
+                                                        + [r["max_abs_err"] for r in k4_g.values()]
+                                                        + [k4_j["max_abs_err"]]))),
              path_e_launches=path_e["K4"], path_e=k4_e, path_f_launches=path_f["K4"], path_f=k4_f,
              path_g_launches=path_g["K4"], path_g=k4_g, path_h_launches=path_h["K4"], path_i_launches=path_i["K4"],
-             path_i=bf16["k4"]),
+             path_i=bf16["k4"], path_j_launches=path_j["K4"], path_j=k4_j),
         kernel_line("K5 CSR SpMV (narrow rhs)", "cuda", K567_SOURCE, K5_REPLACES, "K5",
                     (glm["launches"], glm["traced"]), k5),
         kernel_line("K6 CSR SpMM (wide rhs)", "cuda", K567_SOURCE, K6_REPLACES, "K6", (lr["launches"], lr["traced"]),

@@ -9,7 +9,9 @@ CPU, its caches written in place, K1 and K4 at its shapes (``-k
 decoder``), and the random streams (``-k "threefry or topk or sampled"``):
 the threefry kernel bit for bit against its plain version and the host's
 keys, top-k's tie order, and a sampled decode, beam search and
-speculative decoding on the card against the CPU.  They skip where there
+speculative decoding on the card against the CPU, and a small conv net's
+step captured against eager and the CPU, and its step guarded by
+``IfElse`` (``-k convnet``).  They skip where there
 is no CUDA device; run them on a GPU machine with ``python -m pytest -m
 cuda tests/test_torch_cuda.py``."""
 
@@ -1326,3 +1328,82 @@ def test_captured_bfloat16_encoder_step_is_bitwise_eager(cuda, use_remat):
         assert captured.captured
     finally:
         matmul.allow_bf16_reduced_precision_reduction = old
+
+
+# -- the conv net and control flow (path (j) of chip_smoke.py, at a small size) -------------------
+
+
+@pytest.fixture
+def cudnn_exact(cuda):
+    """cuDNN in full fp32, deterministic, not autotuning (the linker refuses
+    the first and the last otherwise); restored after the test."""
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.allow_tf32, cudnn.deterministic, cudnn.benchmark)
+    cudnn.allow_tf32, cudnn.deterministic, cudnn.benchmark = False, True, False
+    yield cuda
+    cudnn.allow_tf32, cudnn.deterministic, cudnn.benchmark = saved
+
+
+def _convnet_step(device, use_graph=None, guarded=False):
+    from aesara_tpu_torch.ifelse import ifelse
+    from aesara_tpu_torch.models import ConvNet
+
+    with config.change_flags(device=device, floatX="float32"):
+        model = ConvNet(1, (12, 12), [4, 8], 10, seed=0)
+    x, y = pt.tensor4("x", dtype="float32"), pt.lvector("y")
+    loss = model.loss(x, y)
+    updates = sgd(loss, model.params, lr=0.1)
+    if guarded:
+        finite = ptm.invert(ptm.or_(ptm.isnan(loss), ptm.isinf(loss)))
+        updates = [(p, ifelse(finite, new, p)) for p, new in updates]
+    step = ptp.function([x, y], ptp.Out(loss, borrow=True), updates=updates,
+                        mode=ptp.Mode(ptp.TorchLinker(device=device, use_graph=use_graph)))
+    return step, model.params
+
+
+def _conv_batch(n=16):
+    rng = np.random.default_rng(0)
+    return rng.normal(size=(n, 1, 12, 12)).astype("float32"), rng.integers(0, 10, size=n).astype("int64")
+
+
+def test_convnet_step_captured_is_bitwise_eager_and_the_cpu(cudnn_exact):
+    """The conv net's sgd step captured against the same step eager (every
+    call and parameter bitwise), and its first step against the CPU."""
+    x, y = _conv_batch()
+    (captured, pc), (eager, pe), (cpu, pcpu) = (_convnet_step("cuda", True), _convnet_step("cuda", False),
+                                               _convnet_step("cpu"))
+    want = float(cpu(x, y))
+    for call in range(4):
+        got = captured(x, y)
+        assert torch.equal(got, eager(x, y)), call
+        if call == 0:
+            np.testing.assert_allclose(float(got), want, rtol=1e-5, atol=1e-5)
+            for a, c in zip(pc, pcpu):
+                np.testing.assert_allclose(a.get_value(), c.get_value(), rtol=1e-5, atol=1e-5)
+        for a, b in zip(pc, pe):
+            assert torch.equal(a.value, b.value), (call, a.name)
+    assert captured.captured and captured.capture_blocker is None
+
+
+def test_guarded_convnet_step_equals_sgd_and_keeps_the_parameters_on_nan(cudnn_exact):
+    """ifelse(isfinite(loss), p - 0.1 g, p): on a finite batch the same bits
+    as the sgd step, captured; on a batch with one NaN pixel the loss is NaN
+    and every parameter keeps its bits."""
+    x, y = _conv_batch()
+    (plain, pp), (guarded, pg) = _convnet_step("cuda"), _convnet_step("cuda", guarded=True)
+    start = [p.get_value() for p in pp]
+    for call in range(3):
+        for params in (pp, pg):
+            for p, v in zip(params, start):
+                p.set_value(v)
+        assert torch.equal(plain(x, y), guarded(x, y)), call
+        for a, b in zip(pp, pg):
+            assert torch.equal(a.value, b.value), (call, a.name)
+    assert guarded.captured
+    before = [p.value.clone() for p in pg]
+    bad = x.copy()
+    bad[3, 0, 5, 7] = np.nan
+    assert torch.isnan(guarded(bad, y))
+    assert guarded.captured
+    for p, b in zip(pg, before):
+        assert torch.equal(p.value, b), p.name
