@@ -36,7 +36,7 @@ from __future__ import annotations
 
 import math
 
-__all__ = ["MODES", "threefry2x32", "threefry_draw", "threefry_plain"]
+__all__ = ["KEYS", "MODES", "threefry2x32", "threefry_draw", "threefry_plain"]
 
 _BLOCK = 1024
 M32 = 0xFFFFFFFF
@@ -45,8 +45,11 @@ ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 #: the key schedule's parity constant
 KS_PARITY = 0x1BD11BDA
 #: what a draw returns: raw bits (as int32 / int64 bit patterns) or
-#: uniform floats on [0, 1)
+#: uniform floats on [0, 1); or, with ``KEYS``, keys (``split(key, n)``:
+#: element ``i``'s two hash words, an (n, 2) uint32 tensor)
 MODES = ("bits32", "bits64", "float32", "float64")
+KEYS = "keys"
+_CODES = {**{m: i for i, m in enumerate(MODES)}, KEYS: 4}
 
 
 # ---------------------------------------------------------------------------
@@ -88,21 +91,30 @@ def _key_words(key):
     return words[0], words[1]
 
 
-def threefry_plain(key, shape, mode: str):
+def threefry_plain(key, shape, mode: str, split: bool = True):
     """(next key, draw) of one draw, as the kernel computes them: ``key``
     a torch.uint32 tensor of shape (2,); the draw is int32 (``bits32``) or
-    int64 (``bits64``) bit patterns, or float32/float64 on [0, 1)."""
+    int64 (``bits64``) bit patterns, float32/float64 on [0, 1), or keys.
+    With ``split`` False the draw is made from ``key`` itself (JAX's
+    ``random_bits``, ``uniform`` or ``split`` of that key) and the next key
+    is None."""
     import torch
 
-    if mode not in MODES:
-        raise ValueError(f"threefry: mode {mode!r} is not one of {MODES}")
+    if mode not in _CODES:
+        raise ValueError(f"threefry: mode {mode!r} is not one of {MODES} or {KEYS!r}")
     k0, k1 = _key_words(key)
-    c = torch.arange(2, dtype=torch.int64, device=key.device)
-    y0, y1 = threefry2x32(k0, k1, torch.zeros_like(c), c)
-    next_key = _to_uint32(torch.stack([y0[0], y1[0]]))
+    if split:
+        c = torch.arange(2, dtype=torch.int64, device=key.device)
+        y0, y1 = threefry2x32(k0, k1, torch.zeros_like(c), c)
+        next_key = _to_uint32(torch.stack([y0[0], y1[0]]))
+        k0, k1 = y0[1], y1[1]
+    else:
+        next_key = None
     n = math.prod(shape)
     i = torch.arange(n, dtype=torch.int64, device=key.device)
-    b1, b2 = threefry2x32(y0[1], y1[1], i >> 32, i & M32)
+    b1, b2 = threefry2x32(k0, k1, i >> 32, i & M32)
+    if mode == "keys":
+        return next_key, _to_uint32(torch.stack([b1, b2], dim=-1)).reshape(*shape, 2)
     if mode in ("bits32", "float32"):
         bits = b1 ^ b2
         if mode == "bits32":
@@ -169,16 +181,21 @@ def _threefry(k0, k1, x0, x1):
 
 
 @triton.jit
-def threefry_kernel(key_ptr, next_ptr, out_ptr, N, MODE: tl.constexpr, BLOCK: tl.constexpr):
+def threefry_kernel(key_ptr, next_ptr, out_ptr, N, MODE: tl.constexpr, SPLIT: tl.constexpr,
+                    BLOCK: tl.constexpr):
     pid = tl.program_id(0)
     k0 = tl.load(key_ptr).to(tl.uint32, bitcast=True)
     k1 = tl.load(key_ptr + 1).to(tl.uint32, bitcast=True)
-    # the split: the next key at counter (0, 0), the draw's at (0, 1)
-    zero = k0 * 0
-    n0, n1 = _threefry(k0, k1, zero, zero)
-    d0, d1 = _threefry(k0, k1, zero, zero + 1)
-    tl.store(next_ptr, n0.to(tl.int32, bitcast=True), mask=pid == 0)
-    tl.store(next_ptr + 1, n1.to(tl.int32, bitcast=True), mask=pid == 0)
+    if SPLIT:
+        # the split: the next key at counter (0, 0), the draw's at (0, 1)
+        zero = k0 * 0
+        n0, n1 = _threefry(k0, k1, zero, zero)
+        d0, d1 = _threefry(k0, k1, zero, zero + 1)
+        tl.store(next_ptr, n0.to(tl.int32, bitcast=True), mask=pid == 0)
+        tl.store(next_ptr + 1, n1.to(tl.int32, bitcast=True), mask=pid == 0)
+    else:
+        d0 = k0
+        d1 = k1
     offs = pid.to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
     mask = offs < N
     hi = (offs >> 32).to(tl.uint32)
@@ -192,6 +209,9 @@ def threefry_kernel(key_ptr, next_ptr, out_ptr, N, MODE: tl.constexpr, BLOCK: tl
     elif MODE == 2:
         f = (((b1 ^ b2) >> 9) | 0x3F800000).to(tl.float32, bitcast=True)
         tl.store(out_ptr + offs, f - 1.0, mask=mask)
+    elif MODE == 4:
+        tl.store(out_ptr + 2 * offs, b1.to(tl.int32, bitcast=True), mask=mask)
+        tl.store(out_ptr + 2 * offs + 1, b2.to(tl.int32, bitcast=True), mask=mask)
     else:
         m = (b1.to(tl.uint64) << 20) | (b2 >> 12).to(tl.uint64)
         f = (m | 0x3FF0000000000000).to(tl.float64, bitcast=True)
@@ -214,31 +234,34 @@ def source() -> str:
     return _SOURCE
 
 
-def threefry_draw(key, shape, mode: str):
+def threefry_draw(key, shape, mode: str, split: bool = True):
     """(next key, draw) of one draw from ``key`` (torch.uint32, shape (2,)):
     a key on the CPU takes the plain version, a key on the card launches
-    the kernel."""
+    the kernel.  ``split`` False: the draw of ``key`` itself, no next key
+    (see :func:`threefry_plain`)."""
     import torch
 
-    if mode not in MODES:
-        raise ValueError(f"threefry: mode {mode!r} is not one of {MODES}")
+    if mode not in _CODES:
+        raise ValueError(f"threefry: mode {mode!r} is not one of {MODES} or {KEYS!r}")
     if key.dtype != torch.uint32 or tuple(key.shape) != (2,):
         raise TypeError(f"threefry: a key is a torch.uint32 tensor of shape (2,), got {key.dtype} {tuple(key.shape)}")
     shape = tuple(int(s) for s in shape)
     if key.device.type == "cpu":
         threefry_draw.plain_calls += 1
-        return threefry_plain(key, shape, mode)
+        return threefry_plain(key, shape, mode, split)
     if key.device.type != "cuda":
         raise ValueError(f"threefry: no kernel for a key on {key.device}")
-    dtype = {"bits32": torch.int32, "bits64": torch.int64, "float32": torch.float32, "float64": torch.float64}[mode]
+    dtype = {"bits32": torch.int32, "bits64": torch.int64, "float32": torch.float32, "float64": torch.float64,
+             "keys": torch.uint32}[mode]
     next_key = torch.empty(2, dtype=torch.uint32, device=key.device)
-    out = torch.empty(shape, dtype=dtype, device=key.device)
-    n = out.numel()
+    out = torch.empty(shape + ((2,) if mode == "keys" else ()), dtype=dtype, device=key.device)
+    n = math.prod(shape)
     grid = (max(1, (n + _BLOCK - 1) // _BLOCK),)
-    _compiled()[grid](key.contiguous().view(torch.int32), next_key.view(torch.int32), out, n,
-                      MODE=MODES.index(mode), BLOCK=_BLOCK, num_warps=4)
+    _compiled()[grid](key.contiguous().view(torch.int32), next_key.view(torch.int32),
+                      out.view(torch.int32) if mode == "keys" else out, n,
+                      MODE=_CODES[mode], SPLIT=bool(split), BLOCK=_BLOCK, num_warps=4)
     threefry_draw.launches += 1
-    return next_key, out
+    return (next_key if split else None), out
 
 
 #: launches of the kernel, calls that took the plain version, and the

@@ -2,9 +2,9 @@
 ``aesara_tpu/tensor/nnet/__init__.py``): convolution and pooling
 (``abstract_conv``, ``pool``: library calls through
 ``link/torch/nnet_dispatch.py``), the graph functions of ``basic`` and
-``batchnorm``, ``images2neibs`` (``neighbours``) and fused attention
-(``attention``: K2 and K3).  The JAX package's CTC loss (``ctc``) is not
-ported yet, so ``CTCLoss``, ``CTCGrad`` and ``ctc`` are not here."""
+``batchnorm``, ``images2neibs`` (``neighbours``), fused attention
+(``attention``: K2 and K3) and the CTC loss (``ctc``: its DP as torch ops,
+the log-softmax on K4)."""
 
 from aesara_tpu_torch.tensor.nnet.abstract_conv import (  # noqa: F401
     AbstractConv2d, AbstractConv3d, conv2d, conv2d_transpose, conv3d,
@@ -21,6 +21,7 @@ from aesara_tpu_torch.tensor.nnet.basic import (  # noqa: F401
     sigmoid, sigmoid_binary_crossentropy, softmax, softmax_grad_legacy, softmax_legacy, softmax_with_bias, softplus,
     softsign, ultra_fast_sigmoid,
 )
+from aesara_tpu_torch.tensor.nnet.ctc import CTCGrad, CTCLoss, ctc  # noqa: F401
 from aesara_tpu_torch.tensor.nnet.batchnorm import (  # noqa: F401
     batch_normalization, batch_normalization_test, batch_normalization_train,
 )

@@ -1,7 +1,7 @@
 """Random streams (the counterpart of ``aesara_tpu/tensor/random``):
 threefry keys, ``RandomVariable`` and the distributions, ``RandomStream``,
 the random rewrites, and the lowering of a draw onto the threefry kernel
-(importing this package registers the last two)."""
+and the loop kernels (importing this package registers the last two)."""
 
 from aesara_tpu_torch.tensor.random import basic  # noqa: F401
 from aesara_tpu_torch.tensor.random.basic import *  # noqa: F401,F403

@@ -163,8 +163,10 @@ class RandomVariable(Op):
     output dtype ("floatX" resolved when the node is built).  Node:
     ``(rng, size, *dist_params) -> (next_rng, draw)``.
 
-    A subclass whose draw the port computes defines :meth:`sample`; the
-    others raise when a function holding them is compiled."""
+    A subclass whose draw the port computes defines :meth:`sample` (a
+    transform of one draw of uniform floats) or :meth:`sample_key` (the
+    counterpart of the JAX package's ``rng_fn``, from the draw's key); one
+    with neither raises when a function holding it is compiled."""
 
     __props__ = ("name", "ndim_supp", "ndims_params", "dtype")
     default_output = 1
@@ -248,9 +250,6 @@ class RandomVariable(Op):
 
     # -- the draw ------------------------------------------------------------
 
-    #: the ROADMAP item a distribution without a port of its draw waits for
-    waits_for = ("the rejection samplers and the discrete draws, "
-                 "ROADMAP Queue 1 item 9 (the remaining distributions)")
 
     def draw_shape(self, size, param_shapes):
         """The draw's shape: ``size`` if given, else the params' broadcast."""
@@ -272,12 +271,27 @@ class RandomVariable(Op):
     def sample(self, u, *params):
         """The draw from ``u``, ``jax.random.uniform``'s floats on the
         range :meth:`uniform_range` gives, as torch ops."""
-        raise NotImplementedError(f"{self.name}: the port has no draw of this distribution yet; it waits for "
-                                  f"{self.waits_for}")
+        raise NotImplementedError(f"{self.name}: no draw (a RandomVariable defines sample or sample_key)")
+
+    def sample_key(self, key, size, *params):
+        """The draw from ``key``, the draw's own key (a torch.uint32 tensor
+        (2,) on the params' device), ``size`` a tuple or None, and the params
+        as tensors: the JAX package's ``rng_fn`` as torch ops and kernel
+        launches (``tensor/random/basic.py``)."""
+        raise NotImplementedError(f"{self.name}: no draw from a key")
+
+    #: positions of the node's inputs a draw reads on the host besides the
+    #: size (a trip count), which must then be host values
+    host_params: tuple = ()
+
+    @property
+    def draws_by_key(self) -> bool:
+        return type(self).sample_key is not RandomVariable.sample_key
 
     @property
     def ported(self) -> bool:
-        return type(self).sample is not RandomVariable.sample
+        """Whether the port has a draw of this distribution."""
+        return self.draws_by_key or type(self).sample is not RandomVariable.sample
 
     def infer_shape(self, fgraph, node, input_shapes):
         from aesara_tpu_torch.tensor.shape import shape as tshape

@@ -17,6 +17,7 @@ serve the sparse-input models, all through ``aesara_tpu_torch.function``.
     python3 chip_smoke.py --decoder-sampling    # only the setup and path (h): sampling, speculative, beam
     python3 chip_smoke.py --bf16    # only the setup and path (i): bfloat16, remat, the decoder trained
     python3 chip_smoke.py --convnet    # only the setup and path (j): the conv net and control flow
+    python3 chip_smoke.py --ctc-random    # only the setup and path (k): CTC, the distributions, MRG31k3p
     python3 chip_smoke.py --seed 3    # path (j)'s synthetic images from another seed (default 0)
 
 Every compiled function runs captured (``TorchLinker``'s default on the
@@ -249,6 +250,34 @@ j. (j) the conv net, with cuDNN in full fp32, deterministic and not
    passing on 500, captured, and raising its message on 499; a function
    holding a ``Print`` that runs eagerly, names it as its blocker and
    prints once a call.
+k. (k) the CTC loss at Deep Speech 2's output width and the rest of the
+   random module.  (k1) Amodei et al. 2016 (arXiv:1512.02595), English: C =
+   29 (28 characters and the blank), T = 750 frames (15 s at a 10 ms hop
+   after a stride of 2), B = 32 utterances of 600-750 frames, labels of
+   150-200 characters with repeats, padded with -1 to 200, from SEED; a
+   linear CTC head (W (1024, 29), b) on fp32 features (750, 32, 1024)
+   trained by sgd through ``function()`` with updates: K4 at its (24000,
+   29) log-softmax against the plain version and ``torch.log_softmax``;
+   the loss and both gradients against the CPU at full size (CTC_TOL); a
+   batch with an impossible alignment, whose loss is finite (the DP's
+   floor) and the CPU's; 3 captured steps (eager, capture, replay) bitwise
+   equal to 3 eager ones, with their launches; the step time of 10 steps
+   back to back, the device kernels of a replay and its device time by
+   group (K4, K1, GEMM, the DP's torch ops).  Then TG (fp64 and log
+   space, fp32), TP and TB (fp64, fp32) and TM (fp32, fp64) at 2**20
+   values against their plain versions on the same key and state, with
+   parameters reaching every branch: every differing element counted (0
+   required), device times, bounds (bytes, or this run's threefry hashes),
+   and PyTorch's own samplers at the same parameters as a note.  (k2) one
+   ``RandomStream`` and one captured function draw 2**20 values of every
+   distribution the loop kernels' slice ported (float64; gamma in float32
+   too; Poisson with float32 lambda), 3 calls each bitwise an eager twin's
+   with its keys, values fresh each call; the first call's sample mean and
+   variance of each parameter group within MOMENT_SE standard errors of
+   scipy's, the shuffles checked as permutations.  (k3) MRG31k3p: 2**20
+   uniforms (fp32, fp64), normals and binomials from one
+   ``MRG_RandomStream`` (15,360 streams, 69 steps), captured against eager,
+   states too, and moments.
 8. captured against eager: every path above (the forward request, the
    sgd and AdamW steps, the classifier step, ``predict`` of one request
    sent again, the GLM's sgd and adam steps, path (c) at width 20, config
@@ -282,7 +311,12 @@ and its launches in paths (b) and (h); K1-K4 with their launches in each
 run of path (i), K1 with its bfloat16 time and bound, K2 and K3 with their
 bfloat16 checks at (i)'s panels, K4 with its check at (i3)'s softmax; K1
 and K4 with their launches in (j1)'s counted steps, K4 with its check
-there) and the card's name and power limit; the last is
+there; K1 and K4 with their launches in (k1)'s 3 counted steps, K4 with
+its check at (k1)'s (24000, 29); TG, TP, TB and TM, which replace no TPU
+kernel, with their launches in (k2)'s or (k3)'s 3 counted calls, their
+mismatch counts against the plain versions (0), their times and bounds
+and, under ``torch_*_ms``, PyTorch's samplers of the same distributions)
+and the card's name and power limit; the last is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -346,6 +380,11 @@ K6_REPLACES = "aesara_tpu/link/jax/bss.py:271"
 K7_REPLACES = "aesara_tpu/link/jax/bss.py:354"
 TF_SOURCE = "aesara_tpu_torch/link/torch/kernels/threefry.py"
 TF_REPLACES = "none: the JAX package draws by jax.random under XLA (aesara_tpu/link/jax/random_dispatch.py:16-37)"
+RL_SOURCE = "aesara_tpu_torch/link/torch/kernels/csrc/random_loops.cu"
+RL_REPLACES = {k: f"none: the JAX package draws by {v} under XLA (aesara_tpu/tensor/random/basic.py)"
+               for k, v in (("TG", "jax.random.gamma"), ("TP", "jax.random.poisson"),
+                            ("TB", "jax.random.binomial"))}
+RL_REPLACES["TM"] = "none: the JAX package steps MRG31k3p by lax.scan (aesara_tpu/link/jax/random_dispatch.py:40-137)"
 
 # the least time of a kernel: bytes over the H100's memory rate, flops over
 # its rate for the kernel's type: fp32 outside the tensor cores, or dense
@@ -495,6 +534,23 @@ GEN_STEPS, GEN_T_MAX = 8, 16
 CONV_CHANNELS, CONV_HW, CONV_CLASSES, CONV_BATCH, CONV_LR = (20, 50), (28, 28), 10, 500, 0.1
 CONV_CPU_BATCH, CONV_REQUESTS = 8, 3
 N_CONV_STEPS, N_CONV_TIMED = 3, 10
+# (k) Deep Speech 2 (Amodei et al. 2016, arXiv:1512.02595), English: 28
+# characters and the blank, C = 29; 15 s of audio at a 10 ms hop after a
+# stride of 2, T = 750 frames; B = 32 utterances of 600-750 frames, labels
+# of 150-200 characters padded with -1 to L = 200, a share CTC_REPEAT of
+# them repeating the one before; a linear CTC head on D = 1024 features,
+# sgd.  The card's loss and gradients against the CPU's within CTC_TOL of
+# each tensor's largest value (fp32 products and the DP's sums in another
+# order)
+CTC_T, CTC_B, CTC_C, CTC_L, CTC_D, CTC_LR = 750, 32, 29, 200, 1024, 0.01
+CTC_ILEN, CTC_LLEN, CTC_REPEAT = (600, 750), (150, 200), 0.15
+CTC_TOL = 1e-4
+N_CTC_STEPS, N_CTC_TIMED = 3, 10
+# (k2) and (k3): 2**20 values a draw, MRG31k3p's guessed streams for them
+# (guess_n_streams: 15,360, 69 steps), 3 calls; moments within MOMENT_SE
+# standard errors; MRG_STEP_OPS integer operations a stream step (two
+# multiply-adds and a modulo a component, the difference and its wrap)
+RAND_N, MRG_STREAMS, N_RANDOM_CALLS, MOMENT_SE, MRG_STEP_OPS = 1 << 20, 15360, 3, 6.0, 10
 SEED = 0
 PROFILE_STEPS = 3        # calls counted in a profiled window, after one the profiler drops and a lead-in
 N_HOST_CALLS = 5         # calls whose host time time_steps takes the median of
@@ -568,10 +624,11 @@ def call_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_split(fn, reps: int = 20, warmup: int = 3) -> dict:
+def device_split(fn, reps: int = 20, warmup: int = 3, census=None) -> dict:
     """Device time of one call of ``fn`` by kernel name: the summed
     duration of the kernels (and copies) it runs on the card, by
-    torch.profiler (CUPTI), averaged over ``reps`` calls."""
+    torch.profiler (CUPTI), averaged over ``reps`` calls; ``census``, a
+    dict, gains the device events a call under "events"."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
@@ -600,6 +657,8 @@ def device_split(fn, reps: int = 20, warmup: int = 3) -> dict:
     by_name: dict = {}
     for e in device:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / reps / 1e3
+    if census is not None:
+        census["events"] = len(device) / reps
     return by_name
 
 
@@ -770,15 +829,15 @@ def phase_setup():
     smi = card_line()
     log(f"card: {smi}; python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}")
-    from aesara_tpu_torch.link.torch.kernels import attention, softmax, sparse
+    from aesara_tpu_torch.link.torch.kernels import attention, random_loops, softmax, sparse
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(4) as pool:      # one nvcc per source, started together
+    with ThreadPoolExecutor(5) as pool:      # one nvcc per source, started together
         builds = [pool.submit(attention._library, "flash_fwd"), pool.submit(attention._library, "flash_bwd"),
-                  pool.submit(softmax._library), pool.submit(sparse._library)]
+                  pool.submit(softmax._library), pool.submit(sparse._library), pool.submit(random_loops._library)]
         for b in builds:
             b.result()
-    log(f"K2 + K3 + K4 + K5-K7 nvcc builds + load: {time.perf_counter() - t0:.2f} s")
+    log(f"K2 + K3 + K4 + K5-K7 + TG/TP/TB/TM nvcc builds + load: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     warm_k1()
     log(f"K1 Triton compile + first launch (bias+ReLU Composite): {time.perf_counter() - t0:.2f} s")
@@ -1337,7 +1396,8 @@ def kernel_group(name: str) -> str:
               ("softmax_two_pass_kernel", "K4 row softmax"),
               ("csr_spmv_kernel", "K5 CSR SpMV"), ("csr_spmm_kernel", "K6 CSR SpMM"),
               ("csr_spmm_fixup_kernel", "K6 CSR SpMM"), ("csr_sddmm", "K7 CSR SDDMM"),
-              ("threefry_kernel", "TF threefry draw"))
+              ("threefry_kernel", "TF threefry draw"), ("tg_kernel", "TG gamma"), ("tp_kernel", "TP Poisson"),
+              ("tb_kernel", "TB binomial"), ("tm_kernel", "TM MRG31k3p"))
     for key, group in groups:
         if key in name:
             return group
@@ -1636,12 +1696,13 @@ def phase_adamw(sgd_ops):
 # ---------------------------------------------------------------------------
 
 def _all_counters():
+    from aesara_tpu_torch.link.torch.kernels.random_loops import binomial_draw, gamma_draw, mrg_draw, poisson_draw
     from aesara_tpu_torch.link.torch.kernels.softmax import softmax_rows
     from aesara_tpu_torch.link.torch.kernels.sparse import csr_sddmm, csr_spmm, csr_spmv
     from aesara_tpu_torch.link.torch.kernels.threefry import threefry_draw
 
     return {**_counters(), "K4": softmax_rows, "K5": csr_spmv, "K6": csr_spmm, "K7": csr_sddmm,
-            "TF": threefry_draw}
+            "TF": threefry_draw, "TG": gamma_draw, "TP": poisson_draw, "TB": binomial_draw, "TM": mrg_draw}
 
 
 def zero_counters():
@@ -4246,9 +4307,499 @@ def convnet_only():
     log("chip_smoke --convnet: path (j) passed")
 
 
+# ---------------------------------------------------------------------------
+# path (k): the CTC loss at Deep Speech 2's output width, the distributions
+# and MRG31k3p streams
+# ---------------------------------------------------------------------------
+
+def ctc_data(seed: int = SEED):
+    """(k1)'s batch from ``default_rng(seed)``: features (T, B, D), labels
+    of CTC_LLEN characters from 1..C-1 (0 is the blank), a share
+    CTC_REPEAT of them repeating the one before, padded with -1 to L; input
+    lengths in CTC_ILEN; the head's weights."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(CTC_T, CTC_B, CTC_D)).astype("float32")
+    lens = rng.integers(CTC_LLEN[0], CTC_LLEN[1] + 1, size=CTC_B)
+    labels = np.full((CTC_B, CTC_L), -1, dtype=np.int64)
+    for b, n in enumerate(lens):
+        row = rng.integers(1, CTC_C, size=n)
+        repeat = rng.random(n) < CTC_REPEAT
+        for j in range(1, n):
+            if repeat[j]:
+                row[j] = row[j - 1]
+        labels[b, :n] = row
+    ilen = rng.integers(CTC_ILEN[0], CTC_ILEN[1] + 1, size=CTC_B)
+    w0 = (rng.normal(size=(CTC_D, CTC_C)) * 0.02).astype("float32")
+    return x, labels, ilen, w0
+
+
+def build_ctc(device: str, data, use_graph=None) -> dict:
+    """(k1)'s functions on ``device``: the sgd step of the CTC head (x a
+    shared tensor there, labels and input lengths arguments), returning
+    the loss and both gradients before its update, and each utterance's
+    loss."""
+    import aesara_tpu_torch as ptp
+    import aesara_tpu_torch.tensor as pt
+    from aesara_tpu_torch.tensor.nnet.ctc import ctc
+
+    x0, _, _, w0 = data
+    mode = ptp.Mode(ptp.TorchLinker(device=device, use_graph=use_graph))
+    x = ptp.shared(x0, name="ctc_x", device=device)
+    w = ptp.shared(w0.copy(), name="ctc_w", device=device)
+    b = ptp.shared(np.zeros(CTC_C, "float32"), name="ctc_b", device=device)
+    lab, il = pt.lmatrix("labels"), pt.lvector("input_lengths")
+    per_utt = ctc(pt.dot(x, w) + b, lab, il)
+    loss = pt.mean(per_utt)
+    gw, gb = ptp.grad(loss, [w, b])
+    step = ptp.function([lab, il], [loss, gw, gb], updates=[(w, w - CTC_LR * gw), (b, b - CTC_LR * gb)], mode=mode)
+    losses = ptp.function([lab, il], per_utt, mode=mode)
+    return {"step": step, "losses": losses, "params": (w, b)}
+
+
+def _rel(got, want) -> float:
+    """Largest difference over the largest magnitude of ``want``."""
+    got, want = np.asarray(got, dtype=np.float64), np.asarray(want, dtype=np.float64)
+    return float(np.max(np.abs(got - want)) / max(np.max(np.abs(want)), 1e-30))
+
+
+def ctc_cpu_reference() -> dict:
+    """(k1)'s CPU twin, made in ``cpu_reference``'s process: the loss and
+    both gradients of the first step, and each utterance's loss on the
+    batch with an impossible alignment."""
+    t0 = time.perf_counter()
+    data = ctc_data()
+    _, labels, ilen, _ = data
+    cpu = build_ctc("cpu", data)
+    grads = [np.asarray(v) for v in cpu["step"](labels, ilen)]
+    losses = np.asarray(cpu["losses"](labels, ctc_impossible(ilen)))
+    return {"grads": grads, "losses": losses, "seconds": time.perf_counter() - t0}
+
+
+def ctc_impossible(ilen):
+    """(k1)'s input lengths with utterance 0 cut under its label's length."""
+    bad = ilen.copy()
+    bad[0] = CTC_LLEN[0] // 2
+    return bad
+
+
+def run_ctc() -> dict:
+    """(k1): K4 at the step's log-softmax; the loss and both gradients at
+    full size and an impossible alignment's loss against the CPU; 3
+    captured steps bitwise equal to 3 eager ones; step time, launches and
+    device split of a captured step."""
+    data = ctc_data()
+    x, labels, ilen, w0 = data
+    t0 = time.perf_counter()
+    cap, eag = build_ctc("cuda", data), build_ctc("cuda", data, use_graph=False)
+    log(f"(k1) CTC head compiled twice (captured, eager): {time.perf_counter() - t0:.2f} s")
+    xt = torch.as_tensor(x, device="cuda")
+    k4 = check_k4((xt.reshape(-1, CTC_D) @ torch.as_tensor(w0, device="cuda")).contiguous(), True)
+    t0 = time.perf_counter()
+    # an impossible alignment: input length under the label's
+    bad = ctc_impossible(ilen)
+    lc = cap["losses"](labels, bad).cpu().numpy()
+    # 3 eager steps (the first's loss and gradients against the CPU's), then
+    # 3 captured ones (counted: eager, capture, replay), bitwise the eager ones
+    eager = []
+    for _ in range(N_CTC_STEPS):
+        out = eag["step"](labels, ilen)
+        eager.append([v.clone() for v in out] + [p.value.clone() for p in eag["params"]])
+    got = [v.cpu().numpy() for v in eager[0][:3]]
+    log(f"(k1) the losses of the impossible batch and 3 eager steps: {time.perf_counter() - t0:.2f} s")
+    cpu = cpu_reference("ctc")
+    errs = {name: _rel(g, w) for name, g, w in zip(("loss", "grad_W", "grad_b"), got, cpu["grads"])}
+    log(f"(k1) first step's loss {float(got[0]):.6f} (CPU {float(cpu['grads'][0]):.6f}); card against CPU, of each "
+        f"largest value: {errs} (tolerance {CTC_TOL})")
+    if not all(np.all(np.isfinite(g)) for g in got) or max(errs.values()) > CTC_TOL:
+        raise AssertionError(f"(k1) the card's loss and gradients are not the CPU's: {errs}")
+    lh = cpu["losses"]
+    imp = _rel(lc, lh)
+    log(f"(k1) impossible alignment (input 0: {bad[0]} frames, {int((labels[0] >= 0).sum())} labels): loss "
+        f"{lc[0]:.6e} (CPU {lh[0]:.6e}), all finite {bool(np.all(np.isfinite(lc)))}, card against CPU {imp:.3e}")
+    if not np.all(np.isfinite(lc)) or lc[0] < 1e29 or imp > CTC_TOL:
+        raise AssertionError("(k1) the impossible alignment's loss is not the CPU's finite floor")
+    zero_counters()
+    t0 = time.perf_counter()
+    for i, want in enumerate(eager):
+        got = list(cap["step"](labels, ilen)) + [p.value for p in cap["params"]]
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        log(f"(k1) step {i + 1}: loss {float(got[0]):.6f}, captured bitwise the eager step: {same}")
+        if not same:
+            raise AssertionError(f"(k1) captured step {i + 1} differs from the eager one")
+    del eager
+    log(f"(k1) 3 captured calls (eager, capture, replay): {time.perf_counter() - t0:.2f} s")
+    counters = _all_counters()
+    launches = {k: c.launches for k, c in counters.items()}
+    replayed = {k: c.replayed for k, c in counters.items()}
+    plain = sum(c.plain_calls for c in counters.values())
+    log(f"(k1) {N_CTC_STEPS} captured steps: launches {launches}, replayed {replayed}, plain calls {plain}")
+    if plain or launches["K4"] == 0 or replayed["K4"] == 0:
+        raise AssertionError("(k1) the step did not run K4 on the card in every call")
+    require_captured(cap["step"], "(k1) CTC step")
+    # step time, launches and the device split of a replay
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(N_CTC_TIMED):
+        cap["step"](labels, ilen)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / N_CTC_TIMED * 1e3
+    # one replay profiled: a step's trace holds about 110,000 kernels
+    census: dict = {}
+    t0 = time.perf_counter()
+    split = device_split(lambda: cap["step"](labels, ilen), reps=1, warmup=0, census=census)
+    log(f"(k1) one replay profiled: {time.perf_counter() - t0:.2f} s")
+    groups: dict = {}
+    for name, ms in split.items():
+        groups[kernel_group(name)] = groups.get(kernel_group(name), 0.0) + ms
+    n_kernels = census["events"]
+    log(f"(k1) captured step: {step_ms:.3f} ms back to back ({N_CTC_TIMED} steps), {n_kernels} device kernels a "
+        f"step, device ms by group {dict((k, round(v, 4)) for k, v in groups.items())} "
+        f"(the DP's torch ops are 'other torch')")
+    del cap, eag
+    release()
+    return {"k4": k4, "launches": launches, "replayed": replayed, "step_ms": step_ms, "kernels_a_step": n_kernels,
+            "device_ms": groups, "errors": errs, "impossible_rel": imp}
+
+
+def _resized(values, n: int = RAND_N, dtype="float64"):
+    """``values`` repeated to ``n``: each branch's share of one draw."""
+    return np.resize(np.asarray(values, dtype=dtype), n)
+
+
+def random_specs(stats):
+    """(k2)'s draws, each of RAND_N values: (label, build(stream, rb), the
+    groups' scipy distributions, group j the flat elements i with i %
+    groups == j (a parameter repeated to RAND_N, or a component); the
+    string "vonmises" or None where ``check_other`` stands in)."""
+    n = RAND_N
+    gam = (0.05, 0.7, 1.0, 3.5, 250.0)
+    lam = (0.0, 0.5, 9.99, 10.0, 37.0, 1e4)
+    bn = ((5, 0.3), (40, 0.2), (1000, 0.5), (1e6, 0.01))
+    ba, bb = (0.05, 2.0, 0.7, 4.0), (1.5, 0.08, 3.0, 4.0)
+    p4 = np.array([0.1, 0.2, 0.3, 0.4])
+    dir4 = np.array([0.05, 0.5, 1.0, 3.0])
+    mean2, cov2 = np.array([1.0, -1.0]), np.array([[2.0, 0.3], [0.3, 0.5]])
+    disc = lambda vals, p=None: stats.rv_discrete(values=(vals, np.full(len(vals), 1 / len(vals)) if p is None else p))  # noqa: E731
+    return [
+        ("gamma", lambda s, rb: s.gamma(_resized(gam), 2.0), [stats.gamma(a, scale=2.0) for a in gam]),
+        ("gamma_f32", lambda s, rb: s.gamma(_resized(gam, dtype="float32"), np.float32(1.0), dtype="float32"),
+         [stats.gamma(a) for a in gam]),
+        ("beta", lambda s, rb: s.beta(_resized(ba), _resized(bb)), [stats.beta(a, b) for a, b in zip(ba, bb)]),
+        ("dirichlet", lambda s, rb: s.dirichlet(dir4, size=(n // 4,)),
+         [stats.beta(a, dir4.sum() - a) for a in dir4]),
+        ("chisquare", lambda s, rb: s.chisquare(_resized((0.5, 3.0))), [stats.chi2(d) for d in (0.5, 3.0)]),
+        ("t", lambda s, rb: s.t(10.0, 0.5, 2.0, size=(n,)), [stats.t(10.0, loc=0.5, scale=2.0)]),
+        ("invgamma", lambda s, rb: s.invgamma(6.0, 2.0, size=(n,)), [stats.invgamma(6.0, scale=2.0)]),
+        ("f", lambda s, rb: s.f(3.0, 20.0, size=(n,)), [stats.f(3.0, 20.0)]),
+        ("gengamma", lambda s, rb: s.gengamma(2.0, 1.5, 0.7, size=(n,)),
+         [stats.gengamma(2.0 / 1.5, 1.5, scale=0.7)]),
+        ("poisson", lambda s, rb: s.poisson(_resized(lam)), [stats.poisson(v) for v in lam]),
+        ("poisson_f32", lambda s, rb: s.poisson(_resized(lam, dtype="float32")), [stats.poisson(v) for v in lam]),
+        ("binomial", lambda s, rb: s.binomial(_resized([c for c, _ in bn]), _resized([p for _, p in bn])),
+         [stats.binom(c, p) for c, p in bn]),
+        ("nbinom", lambda s, rb: s.negative_binomial(5.0, 0.3, size=(n,)), [stats.nbinom(5, 0.3)]),
+        ("betabinom", lambda s, rb: s.betabinom(20, 2.0, 3.0, size=(n,)), [stats.betabinom(20, 2.0, 3.0)]),
+        ("multinomial", lambda s, rb: s.multinomial(20, p4, size=(n // 4,)), [stats.binom(20, p) for p in p4]),
+        ("pareto", lambda s, rb: s.pareto(10.0, size=(n,)), [stats.pareto(10.0)]),
+        ("geometric", lambda s, rb: s.geometric(0.3, size=(n,)), [stats.geom(0.3)]),
+        ("truncated_normal", lambda s, rb: s.truncated_normal(-1.0, 2.0, size=(n,)), [stats.truncnorm(-1.0, 2.0)]),
+        ("vonmises", lambda s, rb: s.vonmises(0.5, 2.0, size=(n,)), "vonmises"),
+        ("integers", lambda s, rb: s.integers(-3, 17, size=(n,)), [stats.randint(-3, 17)]),
+        # scipy's randint overflows its variance at this span: the discrete uniform's, exactly
+        ("randint", lambda s, rb: s.randint(0, 2**40, size=(n,)),
+         [SimpleNamespace(stats=lambda moments: ((2**40 - 1) / 2, (2.0**80 - 1) / 12))]),
+        ("categorical", lambda s, rb: s.categorical(p4, size=(n,)), [disc(np.arange(4), p4)]),
+        ("choice", lambda s, rb: s.choice(np.arange(10) * 3, size=(n,)), [disc(np.arange(10) * 3)]),
+        ("choice_scalar", lambda s, rb: s.choice(7, size=(n,)), [disc(np.arange(7))]),
+        ("choice_p", lambda s, rb: s.choice(np.arange(4) * 5, size=(n,), p=p4), [disc(np.arange(4) * 5, p4)]),
+        ("choice_noreplace", lambda s, rb: s.choice(np.arange(2 * n), size=(n,), replace=False), None),
+        ("permutation", lambda s, rb: s.permutation(np.arange(n)), None),
+        ("multivariate_normal", lambda s, rb: s.multivariate_normal(mean2, cov2, size=(n // 2,)),
+         [stats.norm(m, np.sqrt(cov2[j, j])) for j, m in enumerate(mean2)]),
+        ("rayleigh", lambda s, rb: s.rayleigh(2.0, size=(n,)), [stats.rayleigh(scale=2.0)]),
+        ("wald", lambda s, rb: s.wald(1.5, 2.0, size=(n,)), [stats.invgauss(1.5 / 2.0, scale=2.0)]),
+        ("triangular", lambda s, rb: s.triangular(-1.0, 0.5, 2.0, size=(n,)),
+         [stats.triang(0.5, loc=-1.0, scale=3.0)]),
+        ("truncexpon", lambda s, rb: s.truncexpon(2.0, 0.5, 1.5, size=(n,)),
+         [stats.truncexpon(2.0, loc=0.5, scale=1.5)]),
+        ("power", lambda s, rb: s.power(2.5, size=(n,)), [stats.powerlaw(2.5)]),
+        ("zipf", lambda s, rb: s.gen(rb.zipf, 6.0, size=(n,)), [stats.zipf(6.0)]),
+        ("hypergeometric", lambda s, rb: s.gen(rb.hypergeometric, 10, 5, 4, size=(n,)),
+         [stats.hypergeom(15, 10, 4)]),
+    ]
+
+
+def build_random(device: str, specs, use_graph=None):
+    """One RandomStream and one function drawing every spec of (k2)."""
+    import aesara_tpu_torch as ptp
+    from aesara_tpu_torch.config import config
+    from aesara_tpu_torch.tensor.random import basic as rb
+    from aesara_tpu_torch.tensor.random.utils import RandomStream
+
+    with config.change_flags(floatX="float64"):
+        srng = RandomStream(seed=SEED + 18)
+        outs = [build(srng, rb) for _, build, _ in specs]
+        fn = ptp.function([], outs, mode=ptp.Mode(ptp.TorchLinker(device=device, use_graph=use_graph)))
+    return fn, srng
+
+
+def check_moments(label: str, value, groups) -> list:
+    """Each group's (the draw's flat elements i with i % groups == j) sample
+    mean and variance within MOMENT_SE standard errors of its
+    distribution's; the variance's error from the sample's fourth central
+    moment.  Returns the worst z of each group."""
+    v = value.to(torch.float64).reshape(-1)
+    worst = []
+    for j, dist in enumerate(groups):
+        col = v[j::len(groups)]
+        n = col.numel()
+        mu, var = (float(t) for t in dist.stats(moments="mv"))
+        if not (np.isfinite(mu) and np.isfinite(var) and var >= 0):
+            raise AssertionError(f"(k2) {label} group {j}: no finite mean and variance to hold the draw to")
+        m = float(col.mean())
+        c = col - m
+        s2 = float((c * c).mean())
+        if var == 0:
+            if not bool((col == mu).all()):
+                raise AssertionError(f"(k2) {label} group {j}: a degenerate distribution drew other values")
+            worst.append(0.0)
+            continue
+        m4 = float((c ** 4).mean())
+        z_mean = abs(m - mu) / np.sqrt(var / n)
+        z_var = abs(s2 - var) / np.sqrt(max(m4 - s2 * s2, 1e-300) / n)
+        worst.append(max(z_mean, z_var))
+        if worst[-1] > MOMENT_SE:
+            raise AssertionError(f"(k2) {label} group {j}: mean {m} (want {mu}), variance {s2} (want {var}): "
+                                 f"z {z_mean:.2f}, {z_var:.2f} over {MOMENT_SE}")
+    return worst
+
+
+def check_other(label: str, value):
+    """The draws whose check is not a moment: the shuffle is a permutation,
+    the draw without replacement has no repeat and stays in its
+    population, the von Mises mean resultant length is A(kappa)."""
+    from scipy import special
+
+    if label == "permutation":
+        ok = torch.equal(torch.sort(value).values, torch.arange(RAND_N, device=value.device))
+        return ok, 0.0
+    if label == "choice_noreplace":
+        ok = torch.unique(value).numel() == RAND_N and int(value.min()) >= 0 and int(value.max()) < 2 * RAND_N
+        return ok, 0.0
+    cos = torch.cos(value - 0.5)
+    want = special.i1(2.0) / special.i0(2.0)
+    z = abs(float(cos.mean()) - want) / np.sqrt(float(cos.var()) / cos.numel())
+    return z <= MOMENT_SE and bool((value.abs() <= np.pi).all()), z
+
+
+def loop_kernel_checks() -> dict:
+    """TG, TP, TB and TM against their plain versions on the card at
+    RAND_N values on the same key and state, parameters reaching every
+    branch: mismatches counted (0 required), with the kernels' and plain
+    versions' device times at each kernel's first row, the bounds (bytes
+    moved, or the threefry hashes these inputs need at TF_HASH_OPS each,
+    counted by the plain versions), and PyTorch's own samplers of the same
+    distributions (other bits) as a note."""
+    from aesara_tpu_torch.link.torch.kernels import random_loops as rl
+    from aesara_tpu_torch.tensor.random.op import prng_key
+
+    key = torch.as_tensor(prng_key(SEED + 18)).cuda()
+    dev = "cuda"
+    gam = torch.as_tensor(_resized((0.05, 0.7, 1.0, 3.5, 250.0)), device=dev)
+    lam = torch.as_tensor(_resized((0.0, 0.5, 9.99, 10.0, 37.0, 1e4), dtype="float32"), device=dev)
+    cnt = torch.as_tensor(_resized((5, 40, 1000, 1e6, 30)), device=dev)
+    prb = torch.as_tensor(_resized((0.3, 0.2, 0.5, 0.01, 0.9)), device=dev)
+    state = torch.as_tensor(np.random.default_rng(SEED).integers(1, 2**31 - 30000, size=(MRG_STREAMS, 6)),
+                            dtype=torch.int32, device=dev)
+    cases = {
+        "TG": [("float64", lambda: rl.gamma_draw(key, gam, False), lambda w: rl.gamma_plain(key, gam, False, w)),
+               ("float64 log", lambda: rl.gamma_draw(key, gam, True), lambda w: rl.gamma_plain(key, gam, True, w)),
+               ("float32", lambda: rl.gamma_draw(key, gam.float(), False),
+                lambda w: rl.gamma_plain(key, gam.float(), False, w))],
+        "TP": [("float32 lam", lambda: rl.poisson_draw(key, lam), lambda w: rl.poisson_plain(key, lam, w))],
+        "TB": [("float64", lambda: rl.binomial_draw(key, cnt, prb), lambda w: rl.binomial_plain(key, cnt, prb, w)),
+               ("float32", lambda: rl.binomial_draw(key, cnt.float(), prb.float()),
+                lambda w: rl.binomial_plain(key, cnt.float(), prb.float(), w))],
+        "TM": [(dt, lambda dt=dt: rl.mrg_draw(state, RAND_N, dt), lambda w, dt=dt: rl.mrg_plain(state, RAND_N, dt))
+               for dt in ("float32", "float64")],
+    }
+    # bytes each kernel reads: its parameters (for the fp32 rows half of the fp64's) and TM's states
+    inputs = {"TG": gam.numel() * 8, "TP": lam.numel() * 4, "TB": 2 * cnt.numel() * 8, "TM": state.numel() * 4}
+    res = {}
+    for name, rows in cases.items():
+        out = {"max_abs_err": 0.0, "mismatches": 0, "rows": {}}
+        for label, kernel, plain in rows:
+            work: dict = {}
+            kept = []
+
+            def run_plain():
+                work.clear()
+                kept.append(plain(work))
+
+            got = kernel()
+            # the plain version (a host test each round): its one call is the
+            # check and, at a kernel's first row, profiled, its time
+            plain_ms = None if out["rows"] else device_ms(run_plain, reps=1, warmup=0)
+            if not kept:
+                run_plain()
+            want = kept[-1]
+            torch.cuda.synchronize()
+            got, want = (g if isinstance(g, tuple) else (g,) for g in (got, want))
+            bad = sum(int((~((a == b) | (a.isnan() & b.isnan()) if a.is_floating_point() else a == b)).sum())
+                      for a, b in zip(got, want))
+            out["mismatches"] += bad
+            # each kernel timed at its first row (the others' times: PERF.md, path (k) alone)
+            ms = None if out["rows"] else device_ms(kernel)
+            written = sum(t.numel() * t.element_size() for t in got)
+            read = inputs[name] // 2 if label.startswith("float32") and name in ("TG", "TB") else inputs[name]
+            b_ms, b_by = bound(16 + read + written,
+                               work.get("hashes", 0) * TF_HASH_OPS + (MRG_STEP_OPS * RAND_N if name == "TM" else 0))
+            out["rows"][label] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                                  "mismatches": bad, "hashes": work.get("hashes", 0)}
+            log(f"{name} {label} at {RAND_N} values: {bad} elements differ from the plain version; device ms "
+                f"{ms}, plain {plain_ms}, bound {b_ms:.4f} ({b_by}; {work.get('hashes', 0)} hashes)")
+        first = next(iter(out["rows"].values()))
+        out.update(ms=first["ms"], plain_ms=first["plain_ms"], bound_ms=first["bound_ms"],
+                   bound_by=first["bound_by"], library_ms=None)
+        res[name] = out
+    # PyTorch's samplers of the same distributions at the same parameters:
+    # other bits, a note for later work, not the library column (CUDA events)
+    res["TG"]["torch_standard_gamma_ms"] = call_ms(lambda: torch._standard_gamma(gam))
+    res["TP"]["torch_poisson_ms"] = call_ms(lambda: torch.poisson(lam))
+    res["TB"]["torch_binomial_ms"] = call_ms(lambda: torch.binomial(cnt, prb))
+    log(f"PyTorch's samplers (other bits) at the same parameters, by CUDA events: _standard_gamma "
+        f"{res['TG']['torch_standard_gamma_ms']} ms, poisson {res['TP']['torch_poisson_ms']} ms, binomial "
+        f"{res['TB']['torch_binomial_ms']} ms")
+    if any(r["mismatches"] for r in res.values()):
+        raise AssertionError(f"(k) a loop kernel differs from its plain version: "
+                             f"{ {k: r['mismatches'] for k, r in res.items()} }")
+    return res
+
+
+def run_random() -> dict:
+    """(k2): every distribution ported by the loop kernels' PR at RAND_N
+    values from one stream and one captured function (its 3 counted calls:
+    eager, capture, replay), each call bitwise an eager twin's from the same
+    seed and the keys after it the twin's; the draws of call 1 checked by
+    moments."""
+    from scipy import stats
+
+    specs = random_specs(stats)
+    t0 = time.perf_counter()
+    cap, cap_srng = build_random("cuda", specs)
+    eag, eag_srng = build_random("cuda", specs, use_graph=False)
+    log(f"(k2) {len(specs)} draws of {RAND_N} values compiled twice: {time.perf_counter() - t0:.2f} s")
+    zero_counters()
+    worst = {}
+    previous = None
+    for call in range(N_RANDOM_CALLS):
+        t0 = time.perf_counter()
+        got, want = cap(), eag()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        for (label, _, groups), a, b in zip(specs, got, want):
+            if not torch.equal(a, b):
+                raise AssertionError(f"(k2) call {call + 1}: {label} captured differs from eager")
+        for (ra, _), (rb_, _) in zip(cap_srng.state_updates, eag_srng.state_updates):
+            if not np.array_equal(ra.get_value(), rb_.get_value()):
+                raise AssertionError(f"(k2) call {call + 1}: a key after the captured call is not the eager one's")
+        if previous is not None and any(torch.equal(a, b) for a, b in zip(got, previous)
+                                        if a.numel() > 1):
+            raise AssertionError(f"(k2) call {call + 1} drew a value array of the call before")
+        if call == 0:
+            for (label, _, groups), value in zip(specs, got):
+                if isinstance(groups, list):
+                    worst[label] = float(max(check_moments(label, value, groups)))
+                else:
+                    ok, z = check_other(label, value)
+                    if not ok:
+                        raise AssertionError(f"(k2) {label}: check failed (z {z})")
+                    worst[label] = float(z)
+        log(f"(k2) call {call + 1} ({'eager' if call == 0 else 'capture' if call == 1 else 'replay'} and its "
+            f"eager twin): {secs:.2f} s, every draw bitwise the twin's, keys the twin's")
+        previous = got
+    counters = _all_counters()
+    launches = {k: c.launches for k, c in counters.items()}
+    replayed = {k: c.replayed for k, c in counters.items()}
+    plain = sum(c.plain_calls for c in counters.values())
+    log(f"(k2) launches over {N_RANDOM_CALLS} calls of each function {launches}, replayed {replayed}, plain calls "
+        f"{plain}; worst moment z by draw {dict((k, round(v, 2)) for k, v in worst.items())}")
+    if plain or any(launches[k] == 0 or replayed[k] == 0 for k in ("TG", "TP", "TB", "TF")):
+        raise AssertionError("(k2) a loop kernel was not launched and replayed on the path")
+    require_captured(cap, "(k2) draws")
+    del cap, eag, got, want, previous
+    release()
+    return {"launches": launches, "replayed": replayed, "worst_z": worst}
+
+
+def run_mrg() -> dict:
+    """(k3): MRG31k3p streams, RAND_N uniforms in float32 and float64 and
+    normals and binomials from one MRG_RandomStream in one captured
+    function, against its eager twin (bitwise, states too) and moments."""
+    import aesara_tpu_torch as ptp
+    from aesara_tpu_torch.sandbox.rng_mrg import MRG_RandomStream, guess_n_streams
+
+    def build(use_graph):
+        rs = MRG_RandomStream(seed=SEED + 2024)
+        outs = [rs.uniform(size=(RAND_N,), dtype="float32"), rs.uniform(size=(RAND_N,), dtype="float64"),
+                rs.normal(size=(RAND_N,), dtype="float64"), rs.binomial(size=(RAND_N,), p=0.3)]
+        return ptp.function([], outs, mode=ptp.Mode(ptp.TorchLinker(device="cuda", use_graph=use_graph))), rs
+
+    from scipy import stats
+
+    (cap, rs_c), (eag, rs_e) = build(None), build(False)
+    zero_counters()
+    for call in range(N_RANDOM_CALLS):
+        got, want = cap(), eag()
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, want)) and all(
+            np.array_equal(a.get_value(), b.get_value()) for (a, *_), (b, *_) in zip(rs_c.state_updates,
+                                                                                    rs_e.state_updates))
+        if not same:
+            raise AssertionError(f"(k3) call {call + 1}: captured draws or states differ from eager")
+        if call == 0:
+            z = [float(max(check_moments(f"mrg {name}", v, [dist])))
+                 for name, v, dist in zip(("uniform32", "uniform64", "normal", "binomial"), got,
+                                          (stats.uniform(), stats.uniform(), stats.norm(), stats.bernoulli(0.3)))]
+    counters = _all_counters()
+    launches = {k: c.launches for k, c in counters.items()}
+    replayed = {k: c.replayed for k, c in counters.items()}
+    log(f"(k3) MRG31k3p, {guess_n_streams((RAND_N,))} streams x {-(-RAND_N // guess_n_streams((RAND_N,)))} steps: "
+        f"{N_RANDOM_CALLS} calls bitwise their eager twin's, states too; launches {launches}, replayed {replayed}; "
+        f"moment z {[round(v, 2) for v in z]}")
+    if launches["TM"] == 0 or replayed["TM"] == 0:
+        raise AssertionError("(k3) TM was not launched and replayed")
+    require_captured(cap, "(k3) MRG draws")
+    del cap, eag
+    release()
+    return {"launches": launches, "replayed": replayed, "z": z}
+
+
+def phase_ctc_random() -> dict:
+    """Path (k): (k1), the loop kernels' checks, (k2) and (k3)."""
+    t_path = time.perf_counter()
+    out = {}
+    for key, run in (("k1", run_ctc), ("loops", loop_kernel_checks), ("k2", run_random), ("k3", run_mrg)):
+        t0 = time.perf_counter()
+        out[key] = run()
+        log(f"({key}) {time.perf_counter() - t0:.2f} s")
+    log(f"(k) path: {time.perf_counter() - t_path:.2f} s")
+    return out
+
+
+def ctc_random_only():
+    """--ctc-random: the setup and path (k) alone."""
+    phase_setup()
+    start_cpu_references("ctc")
+    phase_ctc_random()
+    stop_cpu_references()
+    log("chip_smoke --ctc-random: path (k) passed")
+
+
 #: the jobs of ``cpu_reference``'s process, in the order it runs them
 CPU_REF_JOBS = {"adamw": adamw_cpu_reference, "decoder": cpu_decoder_references, "bf16": bf16_cpu_reference,
-                "lm_train": lm_train_cpu_reference}
+                "lm_train": lm_train_cpu_reference, "ctc": ctc_cpu_reference}
 
 
 # ---------------------------------------------------------------------------
@@ -4954,7 +5505,7 @@ def main():
              "--profile-check": profile_check, "--k7-sweep": k7_sweep, "--k4-times": k4_times,
              "--k4-k7-times": k4_k7_times, "--reference": reference_only, "--scan": scan_only,
              "--decoder": decoder_only, "--decoder-sampling": decoder_sampling_only, "--bf16": bf16_only,
-             "--convnet": convnet_only}
+             "--convnet": convnet_only, "--ctc-random": ctc_random_only}
     args = sys.argv[1:]
     if "--seed" in args:
         at = args.index("--seed")
@@ -4968,7 +5519,7 @@ def main():
         raise SystemExit(f"chip_smoke: unknown arguments {args}")
     start = time.perf_counter()
     smi = phase_setup()
-    start_cpu_references("adamw", "decoder", "bf16", "lm_train")
+    start_cpu_references("adamw", "decoder", "bf16", "lm_train", "ctc")
     log(f"setup (builds and first launches): {time.perf_counter() - start:.2f} s")
     t_path = time.perf_counter()
     t0 = time.perf_counter()
@@ -5028,6 +5579,9 @@ def main():
     t0 = time.perf_counter()
     convnet = phase_convnet()
     log(f"(j) conv net and control flow: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    ctc_random = phase_ctc_random()
+    log(f"(k) CTC, the distributions and MRG31k3p: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     phase_capture(lr["data"], glm_xyw)
     log(f"captured-vs-eager phase: {time.perf_counter() - t0:.2f} s")
@@ -5115,11 +5669,27 @@ def main():
     k1["max_abs_err"] = max([k1["max_abs_err"]] + [row["max_abs_err"] for row in j1["composites"]])
     k4_j = {key: j1["k4"][key] for key in ("max_abs_err", "ms", "cold_ms", "plain_ms", "bound_ms", "library_ms")}
     attention_i = {k: {"x".join(map(str, shape)): r[k] for shape, r in bf16["attention"].items()} for k in ("K2", "K3")}
+    # path (k): (k1)'s launches in its 3 counted steps, K4 at its (T B, C)
+    # log-softmax; each loop kernel's launches in (k2)'s or (k3)'s 3 counted
+    # calls, its checks and times
+    k1_run, loops = ctc_random["k1"], ctc_random["loops"]
+    path_k = {k: k1_run["launches"][k] + k1_run["replayed"][k] for k in ("K1", "K4")}
+    k4_k = {key: k1_run["k4"][key] for key in ("max_abs_err", "ms", "cold_ms", "plain_ms", "bound_ms", "library_ms")}
+    k_runs = {"TG": ctc_random["k2"], "TP": ctc_random["k2"], "TB": ctc_random["k2"], "TM": ctc_random["k3"]}
+    loop_names = {"TG": "TG gamma (no TPU kernel)", "TP": "TP Poisson (no TPU kernel)",
+                  "TB": "TB binomial (no TPU kernel)", "TM": "TM MRG31k3p streams (no TPU kernel)"}
+    loop_lines = []
+    for name, run in k_runs.items():
+        line = kernel_line(loop_names[name], "cuda", RL_SOURCE, RL_REPLACES[name], name,
+                           ((run["launches"], run["replayed"]), {name: None}), loops[name])
+        line.update(mismatches=loops[name]["mismatches"], rows=loops[name]["rows"],
+                    **{k: v for k, v in loops[name].items() if k.startswith("torch_")})
+        loop_lines.append(line)
     kernels = [
         dict(kernel_line("K1 fused elemwise Composite", "triton", K1_SOURCE, K1_REPLACES, "K1", train, k1),
              cold_ms=k1_times[4], **k1_adamw, path_e_launches=path_e["K1"], path_f_launches=path_f["K1"],
              path_g_launches=path_g["K1"], path_h_launches=path_h["K1"], path_i_launches=path_i["K1"],
-             path_i_bf16=k1_bf16, path_j_launches=path_j["K1"]),
+             path_i_bf16=k1_bf16, path_j_launches=path_j["K1"], path_k_launches=path_k["K1"]),
         dict(kernel_line("K2 flash attention forward", "cuda", K2_SOURCE, K2_REPLACES, "K2", train, k2),
              adamw_launches=adamw["launches"]["K2"], path_i_launches=path_i["K2"], path_i_bf16=attention_i["K2"]),
         dict(k3_line, adamw_launches=adamw["launches"]["K3"], path_i_launches=path_i["K3"],
@@ -5131,14 +5701,16 @@ def main():
                                                         + [k4_j["max_abs_err"]]))),
              path_e_launches=path_e["K4"], path_e=k4_e, path_f_launches=path_f["K4"], path_f=k4_f,
              path_g_launches=path_g["K4"], path_g=k4_g, path_h_launches=path_h["K4"], path_i_launches=path_i["K4"],
-             path_i=bf16["k4"], path_j_launches=path_j["K4"], path_j=k4_j),
+             path_i=bf16["k4"], path_j_launches=path_j["K4"], path_j=k4_j, path_k_launches=path_k["K4"],
+             path_k=k4_k),
         kernel_line("K5 CSR SpMV (narrow rhs)", "cuda", K567_SOURCE, K5_REPLACES, "K5",
                     (glm["launches"], glm["traced"]), k5),
         kernel_line("K6 CSR SpMM (wide rhs)", "cuda", K567_SOURCE, K6_REPLACES, "K6", (lr["launches"], lr["traced"]),
                     k6),
         kernel_line("K7 CSR SDDMM", "cuda", K567_SOURCE, K7_REPLACES, "K7",
                     (grad_values["launches"], grad_values["traced"]), k7),
-        tf_line,
+        dict(tf_line, path_k_launches=ctc_random["k2"]["launches"]["TF"] + ctc_random["k2"]["replayed"]["TF"]),
+        *loop_lines,
     ]
     stop_cpu_references()
     log(f"chip_smoke: every phase passed in {time.perf_counter() - start:.1f} s")

@@ -11,7 +11,10 @@ the threefry kernel bit for bit against its plain version and the host's
 keys, top-k's tie order, and a sampled decode, beam search and
 speculative decoding on the card against the CPU, and a small conv net's
 step captured against eager and the CPU, and its step guarded by
-``IfElse`` (``-k convnet``).  They skip where there
+``IfElse`` (``-k convnet``), and the loop samplers TG, TP, TB and TM
+against their plain versions, the new distributions and a CTC step on the
+card against the CPU, captured against eager (``-k "ctc or
+random_loops"``).  They skip where there
 is no CUDA device; run them on a GPU machine with ``python -m pytest -m
 cuda tests/test_torch_cuda.py``."""
 
@@ -1407,3 +1410,106 @@ def test_guarded_convnet_step_equals_sgd_and_keeps_the_parameters_on_nan(cudnn_e
     assert guarded.captured
     for p, b in zip(pg, before):
         assert torch.equal(p.value, b), p.name
+
+
+# ---------------------------------------------------------------------------
+# the CTC loss, the loop samplers and MRG31k3p (``-k "ctc or random_loops"``)
+# ---------------------------------------------------------------------------
+
+def test_random_loops_kernels_match_their_plain_versions(cuda):
+    """TG (both spaces, fp32 and fp64), TP and TB at parameters that reach
+    every branch, and TM at a ragged n: bit for bit against the plain
+    versions on the same key and state, with their launch counts."""
+    from aesara_tpu_torch.link.torch.kernels import random_loops as rl
+    from aesara_tpu_torch.tensor.random.op import prng_key
+
+    key = torch.as_tensor(prng_key(7)).to(cuda)
+    n = 1 << 14
+    for dtype in (torch.float64, torch.float32):
+        alpha = torch.tensor([0.05, 0.7, 1.0, 3.5, 250.0], dtype=dtype, device=cuda).repeat(n // 5)
+        for log_space in (False, True):
+            before = rl.gamma_draw.launches
+            got = rl.gamma_draw(key, alpha, log_space)
+            assert rl.gamma_draw.launches == before + 1
+            assert torch.equal(got, rl.gamma_plain(key, alpha, log_space))
+        count = torch.tensor([5, 40, 1000, 1e6, 30, 7], dtype=dtype, device=cuda).repeat(n // 6)
+        prob = torch.tensor([0.3, 0.2, 0.5, 0.01, 0.9, -0.1], dtype=dtype, device=cuda).repeat(n // 6)
+        got = rl.binomial_draw(key, count, prob)
+        assert torch.equal(got.nan_to_num(-7.0), rl.binomial_plain(key, count, prob).nan_to_num(-7.0))
+    lam = torch.tensor([0.0, 0.5, 9.99, 10.0, 37.0, 1e4], dtype=torch.float32, device=cuda).repeat(n // 6)
+    before = rl.poisson_draw.launches
+    got = rl.poisson_draw(key, lam)
+    assert rl.poisson_draw.launches == before + 2
+    assert torch.equal(got, rl.poisson_plain(key, lam))
+    state = torch.as_tensor(np.random.default_rng(1).integers(1, 2**31 - 30000, size=(77, 6)), dtype=torch.int32,
+                            device=cuda)
+    for dtype in ("float32", "float64"):
+        (ks, kv), (ps, pv) = rl.mrg_draw(state, 1000, dtype), rl.mrg_plain(state, 1000, dtype)
+        assert torch.equal(ks, ps) and torch.equal(kv, pv)
+
+
+def test_random_loops_distributions_on_the_card_are_the_cpus(cuda):
+    """A compiled function drawing gamma, poisson, binomial, multinomial,
+    integers, permutation and dirichlet on the card, captured: each call
+    the CPU's draws from the same seed (integers equal, floats within
+    1e-12 relative), the keys advancing alike.  Poisson at lambda = 1e4 is
+    float32 arithmetic near lgamma(1e4) = 8.2e4, where an ulp of CUDA's
+    log against the CPU's flips an acceptance now and then: that column
+    may differ in 1 draw of 500, and only near lambda."""
+    from aesara_tpu_torch.tensor.random.utils import RandomStream
+
+    def build(device):
+        # the stream's keys live on the device the function runs on
+        with config.change_flags(device=device):
+            srng = RandomStream(seed=3)
+            outs = [srng.gamma(np.array([0.05, 0.7, 3.5]), 2.0, size=(500, 3)),
+                    srng.poisson(np.array([0.5, 9.99, 37.0, 1e4]), size=(500, 4)),
+                    srng.binomial(np.array([5, 1000, 30]), np.array([0.3, 0.5, 0.9]), size=(500, 3)),
+                    srng.multinomial(20, np.array([0.2, 0.3, 0.5]), size=(100,)),
+                    srng.integers(-3, 2**40, size=(500,)), srng.permutation(np.arange(64)),
+                    srng.dirichlet(np.array([0.05, 1.0, 3.0]), size=(200,))]
+            return ptp.function([], outs)
+
+    card, host = build("cuda"), build("cpu")
+    for call in range(3):
+        for k, (a, b) in enumerate(zip(card(), host())):
+            a = a.cpu().numpy()
+            b = b.numpy() if isinstance(b, torch.Tensor) else np.asarray(b)
+            if a.dtype.kind == "f":
+                np.testing.assert_allclose(a, b, rtol=1e-12, atol=1e-300)
+            elif k == 1:
+                np.testing.assert_array_equal(a[:, :3], b[:, :3])
+                differ = a[:, 3] != b[:, 3]
+                assert differ.sum() <= a.shape[0] // 500 and np.all(np.abs(a[differ, 3] - 1e4) < 600)
+            else:
+                np.testing.assert_array_equal(a, b)
+    assert card.captured
+
+
+def test_ctc_step_on_the_card_is_the_cpus_and_captured_equals_eager(cuda):
+    """A small CTC head (T 30, B 4, C 6, d 8) trained by sgd: 3 captured
+    calls bitwise the eager ones, and the card's loss and weights within
+    1e-5 of the CPU's (the Dot's and the DP's sums in another order)."""
+    from aesara_tpu_torch.tensor.nnet.ctc import ctc
+
+    rng = np.random.default_rng(5)
+    feats = rng.normal(size=(30, 4, 8)).astype("float32")
+    w0 = (rng.normal(size=(8, 6)) * 0.3).astype("float32")
+    labels = np.array([[1, 1, 2, -1], [3, 4, 5, 2], [-1, -1, -1, -1], [2, 3, 2, 3]])
+    ilen = np.array([30, 25, 30, 3])
+
+    def build(device, use_graph):
+        w = ptp.shared(w0.copy(), device=device)
+        x, lab, il = pt.tensor3("x", dtype="float32"), pt.lmatrix("l"), pt.lvector("i")
+        loss = pt.mean(ctc(pt.dot(x, w), lab, il))
+        step = ptp.function([x, lab, il], loss, updates=[(w, w - 0.1 * ptp.grad(loss, w))],
+                            mode=ptp.Mode(ptp.TorchLinker(device=device, use_graph=use_graph)))
+        return step, w
+
+    (cap, wc), (eag, we), (cpu, wcpu) = build("cuda", True), build("cuda", False), build("cpu", False)
+    for _ in range(3):
+        lc, le, lh = cap(feats, labels, ilen), eag(feats, labels, ilen), cpu(feats, labels, ilen)
+        assert torch.equal(lc, le) and torch.equal(wc.value, we.value)
+        np.testing.assert_allclose(lc.cpu().numpy(), np.asarray(lh), rtol=1e-5)
+        np.testing.assert_allclose(wc.get_value(), wcpu.get_value(), rtol=1e-5, atol=1e-5)
+    assert cap.captured and cap.capture_blocker is None
