@@ -5,15 +5,18 @@
 // jax.random under XLA (aesara_tpu/tensor/random/basic.py) and MRG31k3p
 // by a lax.scan (aesara_tpu/link/jax/random_dispatch.py:40-137).  They are
 // loops whose trip count depends on the data, so each element (each
-// stream for TM) gets one thread that walks its own threefry2x32 key chain
-// in registers and leaves the loop on its own.  The wrapper and the plain
-// versions are kernels/random_loops.py; its docstring says which rounds
-// each sampler runs and why TP and TB take two launches (jax.random keeps
-// an element's k of the batch's *last* accepting round).
+// stream for TM) gets one thread that leaves the loop on its own.  TG's
+// element walks its own threefry2x32 key chain in registers.  TP's and TB's
+// rounds draw from keys that every element shares: one launch derives them,
+// then two passes draw, or one launch does all three for a draw of one block
+// (see "TP and TB" below).  The wrapper and the plain versions are
+// kernels/random_loops.py.
 //
-// What bounds them on the H100: integer work, three to five threefry
-// hashes (115 32-bit operations each) a round an element, and a few
-// transcendentals; each element writes 4 or 8 bytes.
+// What bounds them on the H100: integer work, threefry hashes (75 32-bit
+// operations each) and a few transcendentals a round an element; each
+// element writes 4 or 8 bytes.  TG hashes three to five times a round; TP
+// and TB twice a rejection round and once a Knuth or inversion round, and
+// walk back from the batch's last round instead of running every round.
 //
 // Rounding follows the plain versions operation for operation: every sum
 // and product is rounded on its own (__fadd_rn, __dmul_rn, ..., which nvcc
@@ -197,11 +200,230 @@ __global__ void __launch_bounds__(THREADS) tg_kernel(const uint32_t* key, const 
 }
 
 // ---------------------------------------------------------------------------
+// TP and TB: the round keys of a launch, then two passes
+// ---------------------------------------------------------------------------
+//
+// Round r of jax.random's rejection loop draws from split(kk_r, 3) =
+// (kk_{r+1}, s0_r, s1_r), kk_0 the call's key, and element i hashes its
+// counter i under s0_r and s1_r.  Only those two hashes are the element's
+// own: round_keys_kernel derives the chain once a launch (one thread walks
+// kk, the others hash the children) into the workspace for rounds below a
+// cap, and a thread that needs a round past the cap derives it itself from
+// the stored kk_cap.  Knuth's loop (TP) draws from split(rng_j, 2) =
+// (rng_{j+1}, sub_j) on the same key: its keys are the rejection chain's
+// (sub_j = s0_j).  The inversion loop (TB) draws from (sub_j, rng_{j+1}) =
+// split(rng_j, 2), a chain of its own, stored beside it.
+//
+// jax.random keeps an element's k of the batch's last accepting round at or
+// before R, the batch's round count.  Pass 0 takes every element to its first
+// acceptance f (the other branch's elements too, with JAX's stand-in
+// parameters: they count in R), writes the draw as if f were also its last,
+// keeps f in first[i] (saturated at 255: a lower f only lengthens the walk)
+// and reduces R = max(f + 1), one atomic a block; it lists the rejection
+// elements.  Pass 1 walks each listed element back from round R - 1 to
+// f + 1 and stops at the first acceptance, which is the last one; with
+// none, pass 0's draw stands.
+//
+// A draw of at most THREADS values runs in one launch: its block derives the
+// round keys, runs pass 0, and walks back at once, since R is final when the
+// block's own reduction is done.  A larger one takes three launches (the
+// round keys, pass 0, pass 1).
+//
+// The workspace, in 32-bit words for a cap of C rounds: R at word 0, the
+// length of pass 1's list at word 1; from word 4 the rejection rounds' (s0,
+// s1), four words each, then kk_C; from word 8 + 4 C the inversion rounds'
+// sub, two words each, then rng_C.
+
+constexpr int KEY_THREADS = 64;
+constexpr int MAX_KEY_ROUNDS = 64;
+
+// The resident blocks an SM that the passes ask of the register allocator
+// (__launch_bounds__'s second argument).  Left to itself ptxas gives TB's
+// float64 passes 76-80 registers, 3 blocks an SM; at 4 (64 registers, a few
+// spilled) they ran 6-8% faster on the H100, and more than 5 for the float32
+// passes (45-47 registers) spilled with no gain (PERF.md)
+constexpr int BLOCKS_32 = 5, BLOCKS_64 = 4;
+
+__host__ __device__ constexpr int rejection_tail(int cap) { return 4 + 4 * cap; }
+__host__ __device__ constexpr int inversion_keys(int cap) { return 8 + 4 * cap; }
+__host__ __device__ constexpr int inversion_tail(int cap) { return 8 + 6 * cap; }
+
+// the round keys of cap rounds into ws, R and the list length zeroed; every
+// thread of the block calls it
+__device__ void derive_round_keys(const uint32_t* key, uint32_t* ws, int cap, int inversion) {
+  __shared__ Key kk[MAX_KEY_ROUNDS + 1], rng[MAX_KEY_ROUNDS + 1];
+  const int t = threadIdx.x;
+  if (t == 0) {
+    ws[0] = ws[1] = 0;
+    Key k{key[0], key[1]};
+    for (int r = 0; r < cap; ++r) {
+      kk[r] = k;
+      k = child(k, 0u);
+    }
+    kk[cap] = k;
+  } else if (t == 32 && inversion) {
+    Key k{key[0], key[1]};
+    for (int j = 0; j < cap; ++j) {
+      rng[j] = k;
+      k = child(k, 1u);
+    }
+    rng[cap] = k;
+  }
+  __syncthreads();
+  for (int r = t; r < cap; r += blockDim.x) {
+    const Key s0 = child(kk[r], 1u), s1 = child(kk[r], 2u);
+    reinterpret_cast<uint4*>(ws + 4)[r] = make_uint4(s0.a, s0.b, s1.a, s1.b);
+    if (inversion) {
+      const Key sub = child(rng[r], 0u);
+      reinterpret_cast<uint2*>(ws + inversion_keys(cap))[r] = make_uint2(sub.a, sub.b);
+    }
+  }
+  if (t == 0) {
+    ws[rejection_tail(cap)] = kk[cap].a;
+    ws[rejection_tail(cap) + 1] = kk[cap].b;
+    if (inversion) {
+      ws[inversion_tail(cap)] = rng[cap].a;
+      ws[inversion_tail(cap) + 1] = rng[cap].b;
+    }
+  }
+  __syncthreads();
+}
+
+__global__ void __launch_bounds__(KEY_THREADS) round_keys_kernel(const uint32_t* key, uint32_t* ws, int cap,
+                                                                int inversion) {
+  derive_round_keys(key, ws, cap, inversion);
+}
+
+// the rejection chain's keys round by round; past the cap from the thread's
+// own copy of the chain, so rounds from the cap on must come in order
+struct RejectionKeys {
+  const uint4* stored;
+  int cap;
+  Key kk;
+  __device__ RejectionKeys(const uint32_t* ws, int cap_)
+      : stored(reinterpret_cast<const uint4*>(ws + 4)), cap(cap_),
+        kk{ws[rejection_tail(cap_)], ws[rejection_tail(cap_) + 1]} {}
+  __device__ void get(int r, Key* s0, Key* s1) {
+    if (r < cap) {
+      const uint4 w = stored[r];
+      *s0 = Key{w.x, w.y};
+      *s1 = Key{w.z, w.w};
+    } else {
+      *s0 = child(kk, 1u);
+      *s1 = child(kk, 2u);
+      kk = child(kk, 0u);
+    }
+  }
+  // s0 alone: Knuth's sub key of round r
+  __device__ Key first(int r) {
+    if (r < cap) {
+      const uint2 w = reinterpret_cast<const uint2*>(stored + r)[0];
+      return Key{w.x, w.y};
+    }
+    const Key s0 = child(kk, 1u);
+    kk = child(kk, 0u);
+    return s0;
+  }
+};
+
+// the inversion chain's sub keys, as RejectionKeys
+struct InversionKeys {
+  const uint2* stored;
+  int cap;
+  Key rng;
+  __device__ InversionKeys(const uint32_t* ws, int cap_)
+      : stored(reinterpret_cast<const uint2*>(ws + inversion_keys(cap_))), cap(cap_),
+        rng{ws[inversion_tail(cap_)], ws[inversion_tail(cap_) + 1]} {}
+  __device__ Key get(int j) {
+    if (j < cap) {
+      const uint2 w = stored[j];
+      return Key{w.x, w.y};
+    }
+    const Key sub = child(rng, 0u);
+    rng = child(rng, 1u);
+    return sub;
+  }
+};
+
+// the element's first accepting round of the rejection loop, its k in *k
+template <typename T, typename Step>
+__device__ int first_acceptance(const uint32_t* ws, int cap, long long i, const Step& step, T* k) {
+  RejectionKeys keys(ws, cap);
+  for (int r = 0;; ++r) {
+    Key s0, s1;
+    keys.get(r, &s0, &s1);
+    if (step.round(s0, s1, i, k)) return r;
+  }
+}
+
+// whether a round in [lo, R) accepts, the last such round's k in *k: the
+// stored rounds walked back from the top, the rounds past the cap (if R
+// passes it) forward from kk_cap, keeping the last
+template <typename T, typename Step>
+__device__ bool last_acceptance(const uint32_t* ws, int cap, int lo, int R, long long i, const Step& step, T* k) {
+  bool found = false;
+  if (R > cap) {
+    Key kk{ws[rejection_tail(cap)], ws[rejection_tail(cap) + 1]};
+    for (int r = cap; r < R; ++r) {
+      T kr;
+      if (r >= lo && step.round(child(kk, 1u), child(kk, 2u), i, &kr)) {
+        found = true;
+        *k = kr;
+      }
+      kk = child(kk, 0u);
+    }
+  }
+  const uint4* stored = reinterpret_cast<const uint4*>(ws + 4);
+  for (int r = (R < cap ? R : cap) - 1; !found && r >= lo; --r) {
+    const uint4 w = stored[r];
+    found = step.round(Key{w.x, w.y}, Key{w.z, w.w}, i, k);
+  }
+  return found;
+}
+
+// pass 0's end, which every thread of the block reaches: R = max(rounds)
+// into ws[0], and each i whose `walk` is set appended to pass 1's list (its
+// length ws[1]; one atomic a block, in order within the block)
+__device__ __forceinline__ void pass0_end(uint32_t* ws, uint32_t* list, int rounds, bool walk, long long i) {
+  __shared__ int warp_max[THREADS / 32];
+  __shared__ uint32_t warp_start[THREADS / 32], base;
+  const unsigned lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned mask = __ballot_sync(0xFFFFFFFFu, walk);
+  rounds = __reduce_max_sync(0xFFFFFFFFu, rounds);
+  if (lane == 0) {
+    warp_max[warp] = rounds;
+    warp_start[warp] = __popc(mask);
+  }
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    rounds = __reduce_max_sync(0xFFFFFFFFu, threadIdx.x < THREADS / 32 ? warp_max[threadIdx.x] : 0);
+    if (threadIdx.x == 0) {
+      atomicMax(reinterpret_cast<int*>(ws), rounds);
+      uint32_t total = 0;
+      for (int w = 0; w < THREADS / 32; ++w) {
+        const uint32_t c = warp_start[w];
+        warp_start[w] = total;
+        total += c;
+      }
+      base = total ? atomicAdd(ws + 1, total) : 0u;
+    }
+  }
+  __syncthreads();
+  if (walk) list[base + warp_start[warp] + __popc(mask & ((1u << lane) - 1u))] = (uint32_t)i;
+}
+
+// pass 1's element of this thread: the listed one, or -1 past the list
+__device__ __forceinline__ long long pass1_element(const uint32_t* ws, const uint32_t* list) {
+  const long long t = (long long)blockIdx.x * THREADS + threadIdx.x;
+  return t < (long long)ws[1] ? (long long)list[t] : -1;
+}
+
+// ---------------------------------------------------------------------------
 // TP: Poisson, float32 as jax.random computes it
 // ---------------------------------------------------------------------------
 
 struct PoissonRejection {
-  float lam, log_lam, b, a, inv_alpha, v_r;
+  float lam, log_lam, b, a, inv_alpha, v_r, two_a;
   __device__ explicit PoissonRejection(float l) : lam(l) {
     using M = F<float>;
     log_lam = M::log(l);
@@ -209,6 +431,7 @@ struct PoissonRejection {
     a = M::fma(b, 0.02483f, -0.059f);
     inv_alpha = M::add(1.1239f, M::div(1.1328f, M::sub(b, 3.4f)));
     v_r = M::sub(0.9277f, M::div(3.6224f, M::sub(b, 2.0f)));
+    two_a = M::mul(2.0f, a);
   }
   // one round from its two subkeys: (k, accepted)
   __device__ bool round(Key s0, Key s1, long long i, float* k_out) const {
@@ -216,7 +439,7 @@ struct PoissonRejection {
     const float u = M::sub(M::unit(at(s0, i)), 0.5f);
     const float v = M::unit(at(s1, i));
     const float us = M::sub(0.5f, fabsf(u));
-    const float k = M::floor(M::add(M::fma(M::add(M::div(M::mul(2.0f, a), us), b), u, lam), 0.43f));
+    const float k = M::floor(M::add(M::fma(M::add(M::div(two_a, us), b), u, lam), 0.43f));
     const float s = M::log(M::div(M::mul(v, inv_alpha), M::add(M::div(a, M::mul(us, us)), b)));
     const float t = M::sub(M::fma(k, log_lam, -lam), lgamma_xla<float>(M::add(k, 1.0f)));
     const bool accept1 = (us >= 0.07f) && (v <= v_r);
@@ -226,74 +449,82 @@ struct PoissonRejection {
   }
 };
 
-// pass 0: Knuth's elements, and every element's first accepting round of
-// the rejection loop into *rounds; pass 1: the rejection elements to round R
-__global__ void __launch_bounds__(THREADS) tp_kernel(const uint32_t* key, const float* lam, long long* out,
-                                                    long long n, int* rounds, int pass) {
+__device__ __forceinline__ bool poisson_knuth(float l) { return isnan(l) || l < 10.0f; }
+
+// element i's walk back from round R - 1 to its first acceptance + 1
+__device__ __forceinline__ void tp_walk(const float* lam, long long* out, const uint32_t* ws, const uint8_t* first,
+                                        int cap, long long i) {
+  const int R = *reinterpret_cast<const int*>(ws);
+  const int lo = first[i] + 1;
+  float k;
+  if (lo < R && last_acceptance(ws, cap, lo, R, i, PoissonRejection(lam[i]), &k)) out[i] = (long long)k;
+}
+
+// WALK false: pass 0 (every element; with `whole`, the draw's one block,
+// which derives the round keys first and walks back at the end); true: pass 1
+// (the listed rejection elements)
+template <bool WALK>
+__global__ void __launch_bounds__(THREADS, BLOCKS_32)
+    tp_kernel(const uint32_t* key, const float* lam, long long* out, long long n, uint32_t* ws, uint8_t* first,
+              uint32_t* list, int cap, int whole) {
   using M = F<float>;
-  const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
-  if (i >= n) return;
-  const Key k0{key[0], key[1]};
-  const float l = lam[i];
-  const bool knuth = isnan(l) || l < 10.0f;
-  const PoissonRejection rej(knuth ? 1e5f : l);
-  if (pass == 0) {
-    if (knuth) {
-      long long k = 0;
-      float log_prod = 0.0f;
-      Key rng = k0;
-      while (log_prod > -l) {
-        const Key next = child(rng, 0u), sub = child(rng, 1u);
-        ++k;
-        log_prod = M::add(log_prod, M::log(M::unit(at(sub, i))));
-        rng = next;
-      }
-      out[i] = l == 0.0f ? 0 : k - 1;
-    }
-    Key kk = k0;
-    int r = 0;
-    float k;
-    bool accepted = false;
-    while (!accepted) {
-      const Key next = child(kk, 0u), s0 = child(kk, 1u), s1 = child(kk, 2u);
-      accepted = rej.round(s0, s1, i, &k);
-      kk = next;
-      ++r;
-    }
-    atomicMax(rounds, r);
+  if constexpr (WALK) {
+    const long long i = pass1_element(ws, list);
+    if (i >= 0) tp_walk(lam, out, ws, first, cap, i);
     return;
   }
-  if (knuth) return;
-  const int last = *rounds;
-  float k_out = -1.0f, k;
-  Key kk = k0;
-  for (int r = 0; r < last; ++r) {
-    const Key next = child(kk, 0u), s0 = child(kk, 1u), s1 = child(kk, 2u);
-    if (rej.round(s0, s1, i, &k)) k_out = k;
-    kk = next;
+  if (whole) derive_round_keys(key, ws, cap, 0);
+  const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
+  int rounds = 0;
+  bool walk = false;
+  if (i < n) {
+    const float l = lam[i];
+    const bool knuth = poisson_knuth(l);
+    float k;
+    const int f = first_acceptance(ws, cap, i, PoissonRejection(knuth ? 1e5f : l), &k);
+    first[i] = (uint8_t)(f < 255 ? f : 255);
+    rounds = f + 1;
+    walk = !knuth;
+    long long draw = (long long)k;
+    if (knuth) {
+      RejectionKeys keys(ws, cap);
+      long long j = 0;
+      float log_prod = 0.0f;
+      while (log_prod > -l) log_prod = M::add(log_prod, M::log(M::unit(at(keys.first((int)j++), i))));
+      draw = l == 0.0f ? 0 : j - 1;
+    }
+    out[i] = draw;
   }
-  out[i] = l == 0.0f ? 0 : (long long)k_out;
+  pass0_end(ws, list, rounds, walk, i);
+  if (whole && walk) tp_walk(lam, out, ws, first, cap, i);
 }
 
 // ---------------------------------------------------------------------------
 // TB: binomial, inversion and BTRS, in the probabilities' dtype
 // ---------------------------------------------------------------------------
 
+// Stirling's series tail of log k! for k = 0..9, read through the read-only
+// cache (an array local to the function would be written to the stack at
+// every call)
+__device__ const double STIRLING_TAIL[10] = {0.0810614667953272,  0.0413406959554092,  0.0276779256849983,
+                                             0.02079067210376509, 0.0166446911898211,  0.0138761288230707,
+                                             0.0118967099458917,  0.0104112652619720,  0.00925546218271273,
+                                             0.00833056343336287};
+
 template <typename T> __device__ __forceinline__ T stirling_tail(T k) {
   using M = F<T>;
-  const double table[10] = {0.0810614667953272, 0.0413406959554092, 0.0276779256849983, 0.02079067210376509,
-                            0.0166446911898211, 0.0138761288230707, 0.0118967099458917, 0.0104112652619720,
-                            0.00925546218271273, 0.00833056343336287};
   const T kc = k < (T)0 ? (T)0 : (k > (T)9 ? (T)9 : k);
   const T kp1 = M::add(kc, (T)1.0);
   const T kp1sq = M::mul(kp1, kp1);
   const T approx = M::div(M::sub((T)(1.0 / 12), M::div(M::sub((T)(1.0 / 360), M::div((T)(1.0 / 1260), kp1sq)), kp1sq)),
                           kp1);
-  return k <= (T)9 ? (T)table[(int)M::floor(kc)] : approx;
+  return k <= (T)9 ? (T)__ldg(STIRLING_TAIL + (int)M::floor(kc)) : approx;
 }
 
+// BTRS of one element: what a round computes from its parameters alone is
+// computed once, each operation as the round would round it
 template <typename T> struct Btrs {
-  T n, p, stddev, b, a, c, v_r, r, alpha, m;
+  T n, p, stddev, b, a, c, v_r, r, alpha, m, two_a, n1, nm1, m_term, tail_m, tail_nm;
   __device__ Btrs(T n_, T p_) : n(n_), p(p_) {
     using M = F<T>;
     stddev = M::sqrt(M::mul(M::mul(n, p), M::sub((T)1.0, p)));
@@ -304,6 +535,12 @@ template <typename T> struct Btrs {
     r = M::div(p, M::sub((T)1.0, p));
     alpha = M::mul(M::add((T)2.83, M::div((T)5.1, b)), stddev);
     m = M::floor(M::mul(M::add(n, (T)1.0), p));
+    two_a = M::mul((T)2.0, a);
+    n1 = M::add(n, (T)1.0);
+    nm1 = M::add(M::sub(n, m), (T)1.0);
+    m_term = M::mul(M::add(m, (T)0.5), M::log(M::div(M::add(m, (T)1.0), M::mul(r, nm1))));
+    tail_m = stirling_tail(m);
+    tail_nm = stirling_tail(M::sub(n, m));
   }
   __device__ bool round(Key s0, Key s1, long long i, T* k_out) const {
     using M = F<T>;
@@ -311,81 +548,97 @@ template <typename T> struct Btrs {
     T v = M::unit(at(s1, i));
     const T us = M::sub((T)0.5, fabs(u));
     const bool accept1 = (us >= (T)0.07) && (v <= v_r);
-    const T k = M::floor(M::fma(M::add(M::div(M::mul((T)2.0, a), us), b), u, c));
+    const T k = M::floor(M::fma(M::add(M::div(two_a, us), b), u, c));
     const bool reject = (k < (T)0) || (k > n);
     v = M::log(M::div(M::mul(v, alpha), M::add(M::div(a, M::mul(us, us)), b)));
     const T nk1 = M::add(M::sub(n, k), (T)1.0);
-    const T nm1 = M::add(M::sub(n, m), (T)1.0);
     T ub = M::fma(M::add(k, (T)0.5), M::log(M::div(M::mul(r, nk1), M::add(k, (T)1.0))),
-                  M::fma(M::add(n, (T)1.0), M::log(M::div(nm1, nk1)),
-                         M::mul(M::add(m, (T)0.5), M::log(M::div(M::add(m, (T)1.0), M::mul(r, nm1))))));
-    ub = M::sub(M::sub(M::add(M::add(ub, stirling_tail(m)), stirling_tail(M::sub(n, m))), stirling_tail(k)),
-                stirling_tail(M::sub(n, k)));
+                  M::fma(n1, M::log(M::div(nm1, nk1)), m_term));
+    ub = M::sub(M::sub(M::add(M::add(ub, tail_m), tail_nm), stirling_tail(k)), stirling_tail(M::sub(n, k)));
     *k_out = k;
     return accept1 || (!reject && (v <= ub));
   }
 };
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS) tb_kernel(const uint32_t* key, const T* count_in, const T* prob,
-                                                    T* out, long long n, int* rounds, int pass) {
-  using M = F<T>;
-  const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
-  if (i >= n) return;
-  const Key k0{key[0], key[1]};
-  const T p = prob[i];
-  const T count_raw = count_in[i];
-  const bool p_lt_half = p < (T)0.5;
-  T q = p_lt_half ? p : M::sub((T)1.0, p);
-  const bool count_nan_or_neg = isnan(count_raw) || count_raw < (T)0;
-  const bool count_inf = isinf(count_raw);
-  const bool q_is_nan = isnan(q);
-  const bool q_l_0 = q < (T)0;
-  q = (q_is_nan || q_l_0) ? (T)0.01 : q;
-  const bool inversion = count_nan_or_neg || (M::mul(count_raw, q) <= (T)10.0);
-  const T count = M::floor(count_raw);
-  const Btrs<T> btrs(inversion ? (T)1e4 : count, inversion ? (T)0.5 : q);
-  T sample;
-  if (pass == 0) {
-    Key kk = k0;
-    int r = 0;
-    T k;
-    bool accepted = false;
-    while (!accepted) {
-      const Key next = child(kk, 0u), s0 = child(kk, 1u), s1 = child(kk, 2u);
-      accepted = btrs.round(s0, s1, i, &k);
-      kk = next;
-      ++r;
-    }
-    atomicMax(rounds, r);
-    if (!inversion) return;
-    const T log1mq = M::log1p(-q);
-    T num_geom = 0, geom_sum = 0;
-    Key rng = k0;
-    while (geom_sum <= count) {
-      const Key sub = child(rng, 0u), next = child(rng, 1u);
-      num_geom = M::add(num_geom, (T)1.0);
-      geom_sum = M::add(geom_sum, M::ceil(M::div(M::log(M::unit(at(sub, i))), log1mq)));
-      rng = next;
-    }
-    sample = M::sub(num_geom, (T)1.0);
-  } else {
-    if (inversion) return;
-    const int last = *rounds;
-    T k_out = (T)-1.0, k;
-    Key kk = k0;
-    for (int r = 0; r < last; ++r) {
-      const Key next = child(kk, 0u), s0 = child(kk, 1u), s1 = child(kk, 2u);
-      if (btrs.round(s0, s1, i, &k)) k_out = k;
-      kk = next;
-    }
-    sample = k_out;
+// jax.random.binomial's parameters of one element: the branch, the
+// reflection and the invalid-parameter rules
+template <typename T> struct BinomialParams {
+  T count, q;
+  bool keep, invalid, count_inf, inversion;
+  __device__ BinomialParams(T count_raw, T p) {
+    using M = F<T>;
+    const bool p_lt_half = p < (T)0.5;
+    q = p_lt_half ? p : M::sub((T)1.0, p);
+    const bool count_nan_or_neg = isnan(count_raw) || count_raw < (T)0;
+    count_inf = isinf(count_raw);
+    const bool q_is_nan = isnan(q);
+    const bool q_l_0 = q < (T)0;
+    q = (q_is_nan || q_l_0) ? (T)0.01 : q;
+    inversion = count_nan_or_neg || (M::mul(count_raw, q) <= (T)10.0);
+    count = M::floor(count_raw);
+    invalid = q_l_0 || q_is_nan || count_nan_or_neg;
+    keep = p_lt_half || count_nan_or_neg || q_is_nan || count_inf;
   }
-  const bool invalid = q_l_0 || q_is_nan || count_nan_or_neg;
-  if (invalid) sample = (T)NAN;
-  if (count_inf && !invalid) sample = (T)INFINITY;
-  const bool keep = p_lt_half || count_nan_or_neg || q_is_nan || count_inf;
-  out[i] = keep ? sample : M::sub(count, sample);
+  // whether the draw is the rejection loop's k of the last accepting round
+  // (nan and inf draws are not), so that pass 1 walks back for it
+  __device__ bool walks() const { return !inversion && !invalid && !count_inf; }
+  // the draw of the sampled value
+  __device__ T finish(T sample) const {
+    if (invalid) sample = (T)NAN;
+    if (count_inf && !invalid) sample = (T)INFINITY;
+    return keep ? sample : F<T>::sub(count, sample);
+  }
+};
+
+// element i's walk back, as tp_walk
+template <typename T>
+__device__ __forceinline__ void tb_walk(const T* count_in, const T* prob, T* out, const uint32_t* ws,
+                                        const uint8_t* first, int cap, long long i) {
+  const int R = *reinterpret_cast<const int*>(ws);
+  const int lo = first[i] + 1;
+  if (lo >= R) return;
+  const BinomialParams<T> pr(count_in[i], prob[i]);
+  T k;
+  if (last_acceptance(ws, cap, lo, R, i, Btrs<T>(pr.count, pr.q), &k)) out[i] = pr.finish(k);
+}
+
+// WALK and `whole` as for tp_kernel
+template <typename T, bool WALK>
+__global__ void __launch_bounds__(THREADS, sizeof(T) == 8 ? BLOCKS_64 : BLOCKS_32)
+    tb_kernel(const uint32_t* key, const T* count_in, const T* prob, T* out, long long n, uint32_t* ws,
+              uint8_t* first, uint32_t* list, int cap, int whole) {
+  using M = F<T>;
+  if constexpr (WALK) {
+    const long long i = pass1_element(ws, list);
+    if (i >= 0) tb_walk(count_in, prob, out, ws, first, cap, i);
+    return;
+  }
+  if (whole) derive_round_keys(key, ws, cap, 1);
+  const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
+  int rounds = 0;
+  bool walk = false;
+  if (i < n) {
+    const BinomialParams<T> pr(count_in[i], prob[i]);
+    T sample;
+    const int f = first_acceptance(ws, cap, i, Btrs<T>(pr.inversion ? (T)1e4 : pr.count, pr.inversion ? (T)0.5 : pr.q),
+                                   &sample);
+    first[i] = (uint8_t)(f < 255 ? f : 255);
+    rounds = f + 1;
+    walk = pr.walks();
+    if (pr.inversion && !pr.invalid) {
+      InversionKeys keys(ws, cap);
+      const T log1mq = M::log1p(-pr.q);
+      T num_geom = 0, geom_sum = 0;
+      for (int j = 0; geom_sum <= pr.count; ++j) {
+        num_geom = M::add(num_geom, (T)1.0);
+        geom_sum = M::add(geom_sum, M::ceil(M::div(M::log(M::unit(at(keys.get(j), i))), log1mq)));
+      }
+      sample = M::sub(num_geom, (T)1.0);
+    }
+    out[i] = pr.finish(sample);
+  }
+  pass0_end(ws, list, rounds, walk, i);
+  if (whole && walk) tb_walk(count_in, prob, out, ws, first, cap, i);
 }
 
 // ---------------------------------------------------------------------------
@@ -422,6 +675,32 @@ __global__ void __launch_bounds__(THREADS) tm_kernel(const int* state, int* new_
 
 inline unsigned blocks(long long n) { return (unsigned)((n + THREADS - 1) / THREADS); }
 
+template <typename T>
+void tb_launch(const void* key, const void* count, const void* prob, void* out, long long n, void* ws, void* first,
+               void* list, int cap, cudaStream_t s) {
+  uint32_t* w = (uint32_t*)ws;
+  const int whole = n <= THREADS;
+  if (!whole) round_keys_kernel<<<1, KEY_THREADS, 0, s>>>((const uint32_t*)key, w, cap, 1);
+  tb_kernel<T, false><<<blocks(n), THREADS, 0, s>>>((const uint32_t*)key, (const T*)count, (const T*)prob, (T*)out, n,
+                                                    w, (uint8_t*)first, (uint32_t*)list, cap, whole);
+  if (!whole)
+    tb_kernel<T, true><<<blocks(n), THREADS, 0, s>>>((const uint32_t*)key, (const T*)count, (const T*)prob, (T*)out,
+                                                     n, w, (uint8_t*)first, (uint32_t*)list, cap, 0);
+}
+
+template <typename Kernel> int kernel_info(Kernel kernel, int threads, int* info) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  int resident = 0;
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, kernel, threads, 0);
+  if (err != cudaSuccess) return (int)err;
+  info[0] = attr.numRegs;
+  info[1] = (int)attr.localSizeBytes;
+  info[2] = resident;
+  info[3] = threads;
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -440,25 +719,53 @@ int tg_gamma(const void* key, const void* alpha, void* out, long long n, int dty
   return (int)cudaGetLastError();
 }
 
-int tp_poisson(const void* key, const void* lam, void* out, long long n, void* rounds, int pass, void* stream) {
-  if (n > 0)
-    tp_kernel<<<blocks(n), THREADS, 0, (cudaStream_t)stream>>>((const uint32_t*)key, (const float*)lam,
-                                                               (long long*)out, n, (int*)rounds, pass);
+// TP and TB: the round keys, pass 0 and pass 1 (three launches; one for at
+// most THREADS values); ws holds 10 + 6 cap words, first n bytes, list n
+// words (n < 2**32)
+int tp_poisson(const void* key, const void* lam, void* out, long long n, void* ws, void* first, void* list, int cap,
+               void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (cap < 0 || cap > MAX_KEY_ROUNDS || n >= (1ll << 32)) return (int)cudaErrorInvalidValue;
+  if (n > 0) {
+    uint32_t* w = (uint32_t*)ws;
+    const int whole = n <= THREADS;
+    if (!whole) round_keys_kernel<<<1, KEY_THREADS, 0, s>>>((const uint32_t*)key, w, cap, 0);
+    tp_kernel<false><<<blocks(n), THREADS, 0, s>>>((const uint32_t*)key, (const float*)lam, (long long*)out, n, w,
+                                                   (uint8_t*)first, (uint32_t*)list, cap, whole);
+    if (!whole)
+      tp_kernel<true><<<blocks(n), THREADS, 0, s>>>((const uint32_t*)key, (const float*)lam, (long long*)out, n, w,
+                                                    (uint8_t*)first, (uint32_t*)list, cap, 0);
+  }
   return (int)cudaGetLastError();
 }
 
-int tb_binomial(const void* key, const void* count, const void* prob, void* out, long long n, int dtype,
-                void* rounds, int pass, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
+int tb_binomial(const void* key, const void* count, const void* prob, void* out, long long n, int dtype, void* ws,
+                void* first, void* list, int cap, void* stream) {
+  if (cap < 0 || cap > MAX_KEY_ROUNDS || n >= (1ll << 32)) return (int)cudaErrorInvalidValue;
   if (n > 0) {
     if (dtype == 0)
-      tb_kernel<float><<<blocks(n), THREADS, 0, s>>>((const uint32_t*)key, (const float*)count, (const float*)prob,
-                                                    (float*)out, n, (int*)rounds, pass);
+      tb_launch<float>(key, count, prob, out, n, ws, first, list, cap, (cudaStream_t)stream);
     else
-      tb_kernel<double><<<blocks(n), THREADS, 0, s>>>((const uint32_t*)key, (const double*)count,
-                                                     (const double*)prob, (double*)out, n, (int*)rounds, pass);
+      tb_launch<double>(key, count, prob, out, n, ws, first, list, cap, (cudaStream_t)stream);
   }
   return (int)cudaGetLastError();
+}
+
+// info[0..3] of TP's and TB's kernels: registers a thread, local memory
+// (spills and stack) bytes a thread, resident blocks an SM, threads a block.
+// which: 0 the round keys, 1 and 2 TP's passes, 3 and 4 TB's in float32,
+// 5 and 6 in float64
+int random_loops_kernel_info(int which, int* info) {
+  switch (which) {
+    case 0: return kernel_info(round_keys_kernel, KEY_THREADS, info);
+    case 1: return kernel_info(tp_kernel<false>, THREADS, info);
+    case 2: return kernel_info(tp_kernel<true>, THREADS, info);
+    case 3: return kernel_info(tb_kernel<float, false>, THREADS, info);
+    case 4: return kernel_info(tb_kernel<float, true>, THREADS, info);
+    case 5: return kernel_info(tb_kernel<double, false>, THREADS, info);
+    case 6: return kernel_info(tb_kernel<double, true>, THREADS, info);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 int tm_mrg(const void* state, void* new_state, void* out, long long n, int n_streams, long long steps, int rem,

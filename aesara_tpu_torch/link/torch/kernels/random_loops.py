@@ -9,12 +9,12 @@ and binomial values by ``jax.random`` under XLA
 Pallas call.  They were added because those draws are loops whose trip
 count depends on the data: as torch ops each round would read a flag on
 the host, which a captured step cannot do.  ``csrc/random_loops.cu`` runs
-one thread an element (a stream for TM), each walking its own threefry key
-chain in registers:
+one thread an element (a stream for TM) that leaves its loop on its own:
 
 - **TG**, gamma (Marsaglia and Tsang, in linear or log space): element
   ``i`` starts from ``split(key, n)[i]`` and loops until it accepts, as
-  ``jax.random``'s vmapped ``while_loop`` does for each element.
+  ``jax.random``'s vmapped ``while_loop`` does for each element, walking
+  its own threefry key chain in registers.
 - **TP**, Poisson: Knuth's product of uniforms below λ = 10, Hörmann's
   transformed rejection above, 0 at λ = 0.  Round ``r``'s key is the same
   for every element; element ``i`` reads counter ``i`` of round ``r``'s
@@ -31,20 +31,42 @@ What the rejection loops of ``jax.random`` do that a thread must copy:
 ``_poisson_rejection`` and ``_btrs`` write ``k_out = select(accept, k,
 k_out)`` for every element in every round, accepted or not, until the
 whole batch has accepted.  An element's draw is therefore its value in the
-*last* accepting round of the batch's rounds, not its first.  TP and TB
-run in two launches: the first takes each element to its own first
-acceptance and reduces the batch's round count R (``atomicMax``); the
-second carries every rejection element on to round R.  Elements of the
-other branch (Knuth, inversion) run the rejection loop as ``jax.random``
-does, with its stand-in parameters (λ = 1e5; n = 1e4, p = 0.5), to their
-first acceptance, because they count in R.
+*last* accepting round of the batch's R rounds, not its first.  Elements of
+the other branch (Knuth, inversion) run the rejection loop as
+``jax.random`` does, with its stand-in parameters (λ = 1e5; n = 1e4, p =
+0.5), to their first acceptance, because they count in R.
 
-What bounds them on the H100: integer work.  A round costs three to five
-threefry2x32 hashes (the round's keys and the element's bits, 115 integer
-operations each) and a few transcendentals; the output is 4 or 8 bytes an
-element.  The bound ``chip_smoke.py`` states is the larger of the bytes
-moved over 3.35 TB/s and the hashes this run's rounds need at the card's
-integer rate.
+How TP and TB run, in three launches (one for a draw of at most
+:data:`LOOP_THREADS` values: its block does all three steps):
+
+- **The round keys, once a launch.**  Round r's keys (``key, s0, s1 =
+  split(key, 3)``) are the same for every element; only the hashes of
+  counter ``i`` under ``s0`` and ``s1`` are the element's.  A one-block
+  launch derives the chain for rounds below a cap into a workspace (one
+  thread walks it, so the cap grows with the draw's size: :func:`_round_keys`);
+  a thread that needs a round past the cap derives it itself.
+  Knuth's loop (``rng, sub = split(rng, 2)`` from the same key) draws from
+  the rejection chain's ``s0``; the inversion loop's chain is stored beside
+  it.
+- **Pass 0** takes every element to its first acceptance f, writes its
+  draw as if f were also its last, keeps f, and reduces R (one atomic a
+  block); it runs Knuth's and the inversion loop too.
+- **Pass 1** walks each rejection element back from round R - 1 and stops
+  at its first acceptance above f, which is its last; with none, f's draw
+  stands.  Most rounds accept, so the walk mostly takes one round where
+  carrying every element on to R took R - f.  Pass 0 lists the elements to
+  walk (one atomic a block), so that pass 1's warps are full where the
+  branches mix.
+
+What bounds them on the H100: integer work.  The bound ``chip_smoke.py``
+states is the larger of the bytes moved over 3.35 TB/s and, at the card's
+32-bit integer rate, the threefry2x32 hashes (75 operations each) these
+inputs need: ``work["hashes"]`` of the plain versions counts two a
+rejection round an element to its first acceptance and over its walk back,
+one a Knuth or inversion round an element, and the shared keys once (three
+a rejection round to R; two a Knuth round past R, two an inversion round).
+An element whose draw cannot depend on its rounds (TB's nan and inf draws)
+is not walked and runs no inversion loop.
 
 Rounding: each ``a * b + c`` that XLA contracts into one fused
 multiply-add is ``torch.addcmul`` here (``fma``) and ``__fma_rn`` in the
@@ -75,6 +97,14 @@ POISSON_KNUTH_MAX = 10.0         # Knuth below this λ, rejection at and above
 POISSON_STANDIN = 1e5            # the λ the rejection loop runs for Knuth's elements
 BINOMIAL_INVERSION_MAX = 10.0    # inversion where n q <= this
 BINOMIAL_STANDIN = (1e4, 0.5)    # the (n, q) the BTRS loop runs for inversion's elements
+#: the most rounds whose keys TP's and TB's first launch derives, fewer for
+#: a small draw (:func:`_round_keys`; at most MAX_ROUND_KEYS,
+#: ``csrc/random_loops.cu``); later rounds' keys each thread derives itself.
+#: Draws of 2**20 values reach R = 7-10, and Knuth's and the inversion loop's
+#: longest runs 29 and 22 rounds
+ROUND_KEYS, MAX_ROUND_KEYS = 32, 64
+#: threads of a block of TP's and TB's passes (``csrc/random_loops.cu``)
+LOOP_THREADS = 256
 #: Stirling's series tail of log k! for k = 0..9 (``_stirling_approx_tail``)
 STIRLING_TAIL = (0.0810614667953272, 0.0413406959554092, 0.0276779256849983, 0.02079067210376509,
                  0.0166446911898211, 0.0138761288230707, 0.0118967099458917, 0.0104112652619720,
@@ -246,30 +276,65 @@ def _rejection_rounds(key, idx, step, work=None, own=None):
     3)`` a round) until every element has accepted: ``step(u, v)`` gives
     (k, accept) from the round's two uniforms; ``k_out`` keeps each
     element's k of the last accepting round, as ``select(accept, k,
-    k_out)`` over the whole batch does.  ``work`` gains the hashes of the
-    kernel's two passes: every element's rounds to its first acceptance,
-    then the batch's R rounds of each element where ``own`` is set."""
+    k_out)`` over the whole batch does.  ``work`` gains the hashes the
+    kernel's schedule needs (two a round of each element to its first
+    acceptance f and, where ``own`` is set, of its walk back from round R -
+    1 to its last acceptance above f; the round keys once, three a round)
+    and, under "rounds", the batch's round count R."""
     import torch
 
-    k_out = accepted = None
-    rounds = first = 0
+    k_out = accepted = first = last = None
+    rounds = 0
     while accepted is None or not bool(accepted.all()):
         key, s0, s1 = _split(key, 3)
         k, accept = step(s0, s1)
         if k_out is None:
             k_out, accepted = torch.full_like(k, -1.0), torch.zeros_like(accept)
-        first += int((~accepted).sum())
+            first = last = torch.zeros(k.shape, dtype=torch.int64, device=k.device)
+        first = torch.where(accept & ~accepted, rounds, first)
+        last = torch.where(accept, rounds, last)
         k_out = torch.where(accept, k, k_out)
         accepted = accepted | accept
         rounds += 1
     if work is not None:
-        work["hashes"] = work.get("hashes", 0) + 5 * (first + rounds * int(own.sum()))
+        walk = (rounds - torch.maximum(last, first + 1))[own]
+        work["hashes"] = work.get("hashes", 0) + 2 * int((first + 1).sum() + walk.sum()) + 3 * rounds
+        work["rounds"] = rounds
     return k_out
+
+
+def _poisson_step(lam, idx):
+    """One round of ``_poisson_rejection`` at the float32 ``lam`` (every
+    value at or above 10) for the elements ``idx``: ``step(s0, s1)`` gives
+    (k, accept) from the round's two keys."""
+    import torch
+
+    f32 = torch.float32
+    log_lam = torch.log(lam)
+    b = fma(torch.sqrt(lam), 2.53, 0.931)
+    a = fma(b, 0.02483, -0.059)
+    inv_alpha = 1.1239 + rdiv(1.1328, b - 3.4)
+    v_r = 0.9277 - rdiv(3.6224, b - 2.0)
+
+    def step(s0, s1):
+        u = _draw_unit(s0, idx, f32) - 0.5
+        v = _draw_unit(s1, idx, f32)
+        us = 0.5 - u.abs()
+        kk = torch.floor(fma((2.0 * a) / us + b, u, lam) + 0.43)
+        s = torch.log((v * inv_alpha) / (a / (us * us) + b))
+        t = fma(kk, log_lam, -lam) - lgamma_xla(kk + 1.0)
+        accept1 = (us >= 0.07) & (v <= v_r)
+        reject = (kk < 0) | ((us < 0.013) & (v > us))
+        return kk, accept1 | (~reject & (s <= t))
+
+    return step
 
 
 def poisson_plain(key, lam, work=None):
     """``jax.random.poisson`` of each value of the 1-D float32 ``lam`` from
-    ``key``: int64.  ``work`` as for :func:`gamma_plain` (TP's)."""
+    ``key``: int64.  ``work`` as for :func:`_rejection_rounds` (TP's), with
+    Knuth's rounds: one hash a round an element, and two a round past R for
+    the keys (below R they are the rejection loop's)."""
     import torch
 
     n = lam.numel()
@@ -283,31 +348,14 @@ def poisson_plain(key, lam, work=None):
     k = torch.zeros(n, dtype=torch.int64, device=lam.device)
     log_prod = torch.zeros_like(lam)
     while bool((log_prod > -lam_k).any()):
-        if work is not None:
-            work["hashes"] = work.get("hashes", 0) + 3 * int((log_prod > -lam_k).sum())
         rng, sub = _split(rng, 2)
         k = torch.where(log_prod > -lam_k, k + 1, k)
         log_prod = log_prod + torch.log(_draw_unit(sub, idx, f32))
     knuth = k - 1
-    # transformed rejection
-    log_lam = torch.log(lam_r)
-    b = fma(torch.sqrt(lam_r), 2.53, 0.931)
-    a = fma(b, 0.02483, -0.059)
-    inv_alpha = 1.1239 + rdiv(1.1328, b - 3.4)
-    v_r = 0.9277 - rdiv(3.6224, b - 2.0)
-
-    def step(s0, s1):
-        u = _draw_unit(s0, idx, f32) - 0.5
-        v = _draw_unit(s1, idx, f32)
-        us = 0.5 - u.abs()
-        kk = torch.floor(fma((2.0 * a) / us + b, u, lam_r) + 0.43)
-        s = torch.log((v * inv_alpha) / (a / (us * us) + b))
-        t = fma(kk, log_lam, -lam_r) - lgamma_xla(kk + 1.0)
-        accept1 = (us >= 0.07) & (v <= v_r)
-        reject = (kk < 0) | ((us < 0.013) & (v > us))
-        return kk, accept1 | (~reject & (s <= t))
-
-    rejection = _rejection_rounds(_words(key), idx, step, work, ~use_knuth).to(torch.int64)
+    rejection = _rejection_rounds(_words(key), idx, _poisson_step(lam_r, idx), work, ~use_knuth).to(torch.int64)
+    if work is not None:
+        longest = int(k.max()) if n else 0
+        work["hashes"] += int(k.sum()) + 2 * max(0, longest - work["rounds"])
     out = torch.where(use_knuth, knuth, rejection)
     return torch.where(lam == 0, torch.zeros_like(out), out)
 
@@ -319,44 +367,17 @@ def _stirling_tail(k):
     kc = torch.clamp(k, 0.0, 9.0)
     kp1sq = (kc + 1.0) * (kc + 1.0)
     approx = (1.0 / 12 - (1.0 / 360 - rdiv(1.0 / 1260, kp1sq)) / kp1sq) / (kc + 1.0)
-    return torch.where(k <= 9, table[torch.floor(kc).to(torch.int64)], approx)
+    # a nan k (an infinite count) takes the series, as in the kernel; its index is any
+    return torch.where(k <= 9, table[torch.floor(kc).nan_to_num(0.0).to(torch.int64)], approx)
 
 
-def binomial_plain(key, count, prob, work=None):
-    """``jax.random.binomial(key, count, prob)`` of the 1-D ``count`` and
-    ``prob`` (one float dtype, the draw's): float values, nan where the
-    parameters are invalid, inf for an infinite count.  ``work`` as for
-    :func:`gamma_plain` (TB's)."""
+def _btrs_step(n_, p_, idx):
+    """One round of ``_btrs`` at the counts ``n_`` and probabilities ``p_``
+    (at most 0.5, the draw's dtype) for the elements ``idx``, as
+    :func:`_poisson_step`."""
     import torch
 
-    dt = prob.dtype
-    idx = torch.arange(prob.numel(), dtype=torch.int64, device=prob.device)
-    p_lt_half = prob < 0.5
-    q = torch.where(p_lt_half, prob, 1.0 - prob)
-    count_nan_or_neg = torch.isnan(count) | (count < 0.0)
-    count_inf = torch.isinf(count)
-    q_is_nan = torch.isnan(q)
-    q_l_0 = q < 0.0
-    q = torch.where(q_is_nan | q_l_0, torch.full_like(q, 0.01), q)
-    use_inversion = count_nan_or_neg | (count * q <= BINOMIAL_INVERSION_MAX)
-    count = torch.floor(count)
-    count_inv = torch.where(use_inversion, count, torch.zeros_like(count))
-    count_btrs = torch.where(use_inversion, torch.full_like(count, BINOMIAL_STANDIN[0]), count)
-    q_btrs = torch.where(use_inversion, torch.full_like(q, BINOMIAL_STANDIN[1]), q)
-    # inversion: count the geometric gaps that fit in count
-    log1mq = torch.log1p(-q)
-    rng = _words(key)
-    num_geom = torch.zeros_like(q)
-    geom_sum = torch.zeros_like(q)
-    while bool((geom_sum <= count_inv).any()):
-        if work is not None:
-            work["hashes"] = work.get("hashes", 0) + 3 * int((geom_sum <= count_inv).sum())
-        sub, rng = _split(rng, 2)
-        num_geom = torch.where(geom_sum <= count_inv, num_geom + 1.0, num_geom)
-        geom_sum = geom_sum + torch.ceil(torch.log(_draw_unit(sub, idx, dt)) / log1mq)
-    inversion = num_geom - 1.0
-    # BTRS
-    n_, p_ = count_btrs, q_btrs
+    dt = p_.dtype
     stddev = torch.sqrt((n_ * p_) * (1.0 - p_))
     b = fma(stddev, 2.53, 1.15)
     a = fma(p_, 0.01, fma(b, 0.0248, -0.0873))
@@ -380,9 +401,49 @@ def binomial_plain(key, count, prob, work=None):
               + _stirling_tail(m) + _stirling_tail(n_ - m) - _stirling_tail(k) - _stirling_tail(n_ - k))
         return k, accept1 | (~reject & (v <= ub))
 
-    btrs = _rejection_rounds(_words(key), idx, step, work, ~use_inversion)
-    samples = torch.where(use_inversion, inversion, btrs)
+    return step
+
+
+def binomial_plain(key, count, prob, work=None):
+    """``jax.random.binomial(key, count, prob)`` of the 1-D ``count`` and
+    ``prob`` (one float dtype, the draw's): float values, nan where the
+    parameters are invalid, inf for an infinite count.  ``work`` as for
+    :func:`_rejection_rounds` (TB's; no walk where the draw is nan or inf),
+    with the inversion loop's rounds of the valid elements: one hash a round
+    an element, and two a round for its own chain of keys."""
+    import torch
+
+    dt = prob.dtype
+    idx = torch.arange(prob.numel(), dtype=torch.int64, device=prob.device)
+    p_lt_half = prob < 0.5
+    q = torch.where(p_lt_half, prob, 1.0 - prob)
+    count_nan_or_neg = torch.isnan(count) | (count < 0.0)
+    count_inf = torch.isinf(count)
+    q_is_nan = torch.isnan(q)
+    q_l_0 = q < 0.0
+    q = torch.where(q_is_nan | q_l_0, torch.full_like(q, 0.01), q)
+    use_inversion = count_nan_or_neg | (count * q <= BINOMIAL_INVERSION_MAX)
     invalid = q_l_0 | q_is_nan | count_nan_or_neg
+    count = torch.floor(count)
+    count_inv = torch.where(use_inversion, count, torch.zeros_like(count))
+    count_btrs = torch.where(use_inversion, torch.full_like(count, BINOMIAL_STANDIN[0]), count)
+    q_btrs = torch.where(use_inversion, torch.full_like(q, BINOMIAL_STANDIN[1]), q)
+    # inversion: count the geometric gaps that fit in count
+    log1mq = torch.log1p(-q)
+    rng = _words(key)
+    num_geom = torch.zeros_like(q)
+    geom_sum = torch.zeros_like(q)
+    while bool((geom_sum <= count_inv).any()):
+        sub, rng = _split(rng, 2)
+        num_geom = torch.where(geom_sum <= count_inv, num_geom + 1.0, num_geom)
+        geom_sum = geom_sum + torch.ceil(torch.log(_draw_unit(sub, idx, dt)) / log1mq)
+    inversion = num_geom - 1.0
+    btrs = _rejection_rounds(_words(key), idx, _btrs_step(count_btrs, q_btrs, idx), work,
+                             ~use_inversion & ~invalid & ~count_inf)
+    if work is not None:
+        loops = num_geom[use_inversion & ~invalid]
+        work["hashes"] += int(loops.sum()) + 2 * (int(loops.max()) if loops.numel() else 0)
+    samples = torch.where(use_inversion, inversion, btrs)
     samples = torch.where(invalid, torch.full_like(samples, math.nan), samples)
     samples = torch.where(count_inf & ~invalid, torch.full_like(samples, math.inf), samples)
     keep = p_lt_half | count_nan_or_neg | q_is_nan | count_inf
@@ -434,10 +495,11 @@ def _library():
         lib = load_cuda_library("random_loops")
         p, i, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.tg_gamma.argtypes = [p, p, p, q, i, i, p]
-        lib.tp_poisson.argtypes = [p, p, p, q, p, i, p]
-        lib.tb_binomial.argtypes = [p, p, p, p, q, i, p, i, p]
+        lib.tp_poisson.argtypes = [p, p, p, q, p, p, p, i, p]
+        lib.tb_binomial.argtypes = [p, p, p, p, q, i, p, p, p, i, p]
         lib.tm_mrg.argtypes = [p, p, p, q, i, q, i, i, p]
-        for fn in (lib.tg_gamma, lib.tp_poisson, lib.tb_binomial, lib.tm_mrg):
+        lib.random_loops_kernel_info.argtypes = [i, ctypes.POINTER(i)]
+        for fn in (lib.tg_gamma, lib.tp_poisson, lib.tb_binomial, lib.tm_mrg, lib.random_loops_kernel_info):
             fn.restype = i
         lib.random_loops_error_string.argtypes = [i]
         lib.random_loops_error_string.restype = ctypes.c_char_p
@@ -495,9 +557,66 @@ def gamma_draw(key, alpha, log_space: bool = False):
     return out
 
 
+def _scratch(name: str, like, cap: int):
+    """TP's and TB's scratch on ``like``'s device: the workspace of R, pass
+    1's list length and the round keys (10 + 6 ``cap`` words,
+    ``csrc/random_loops.cu``), a byte an element for its first acceptance
+    and a word an element for pass 1's list."""
+    import torch
+
+    if not 0 <= cap <= MAX_ROUND_KEYS:
+        raise ValueError(f"{name}: cap {cap} is outside 0..{MAX_ROUND_KEYS}")
+    if like.numel() >= 2**32:
+        raise ValueError(f"{name}: {like.numel()} values; the kernel lists at most 2**32 - 1")
+    return (torch.empty(10 + 6 * cap, dtype=torch.int32, device=like.device),
+            torch.empty(like.numel(), dtype=torch.uint8, device=like.device),
+            torch.empty(like.numel(), dtype=torch.int32, device=like.device))
+
+
+def _round_keys(n: int) -> int:
+    """The rounds whose keys TP's and TB's first launch derives for a draw
+    of ``n`` values: enough that the batch's round count R and most of
+    Knuth's and the inversion loop's runs fall below it, and no more, since
+    one thread walks the chain (see :data:`ROUND_KEYS`)."""
+    return min(ROUND_KEYS, 2 + int(n).bit_length())
+
+
+def _launches(n: int) -> int:
+    """TP's or TB's launches for a draw of ``n`` values."""
+    return 0 if n == 0 else 1 if n <= LOOP_THREADS else 3
+
+
+def _poisson_launch(key, lam, cap: int):
+    """TP's launches (:func:`_launches`) on checked CUDA tensors, the round
+    keys of ``cap`` rounds derived first: the int64 draws (no counter
+    moves)."""
+    import torch
+
+    out = torch.empty(lam.shape, dtype=torch.int64, device=lam.device)
+    ws, first, listed = _scratch("poisson_draw", lam, cap)
+    _check("poisson_draw", _library().tp_poisson(key.data_ptr(), lam.data_ptr(), out.data_ptr(), lam.numel(),
+                                                 ws.data_ptr(), first.data_ptr(), listed.data_ptr(), cap,
+                                                 _stream(lam)))
+    return out
+
+
+def _binomial_launch(key, count, prob, cap: int):
+    """TB's launches on checked CUDA tensors, as :func:`_poisson_launch`."""
+    import torch
+
+    out = torch.empty_like(prob)
+    ws, first, listed = _scratch("binomial_draw", prob, cap)
+    _check("binomial_draw", _library().tb_binomial(key.data_ptr(), count.data_ptr(), prob.data_ptr(),
+                                                   out.data_ptr(), prob.numel(), int(prob.dtype == torch.float64),
+                                                   ws.data_ptr(), first.data_ptr(), listed.data_ptr(), cap,
+                                                   _stream(prob)))
+    return out
+
+
 def poisson_draw(key, lam):
     """TP: ``jax.random.poisson`` of each value of the 1-D float32 ``lam``
-    from ``key``: int64 (two launches, see the module's docstring)."""
+    from ``key``: int64 (three launches, or one for a small draw; see the
+    module's docstring)."""
     import torch
 
     if not _on_card("poisson_draw", key, lam):
@@ -505,19 +624,15 @@ def poisson_draw(key, lam):
         return poisson_plain(key, lam)
     if lam.dtype != torch.float32:
         raise TypeError(f"poisson_draw takes float32 lam (jax.random's), got {lam.dtype}")
-    out = torch.empty(lam.shape, dtype=torch.int64, device=lam.device)
-    rounds = torch.zeros(1, dtype=torch.int32, device=lam.device)
-    lib = _library()
-    for pass_ in (0, 1):
-        _check("poisson_draw", lib.tp_poisson(key.data_ptr(), lam.data_ptr(), out.data_ptr(), lam.numel(),
-                                              rounds.data_ptr(), pass_, _stream(lam)))
-        poisson_draw.launches += 1
+    out = _poisson_launch(key, lam, _round_keys(lam.numel()))
+    poisson_draw.launches += _launches(lam.numel())
     return out
 
 
 def binomial_draw(key, count, prob):
     """TB: ``jax.random.binomial(key, count, prob)`` of the 1-D ``count``
-    and ``prob`` of one float dtype: values in that dtype (two launches)."""
+    and ``prob`` of one float dtype: values in that dtype (launches as
+    :func:`poisson_draw`'s)."""
     import torch
 
     if not _on_card("binomial_draw", key, count, prob):
@@ -526,14 +641,8 @@ def binomial_draw(key, count, prob):
     if prob.dtype not in (torch.float32, torch.float64) or count.dtype != prob.dtype or count.shape != prob.shape:
         raise TypeError(f"binomial_draw takes count and prob of one float dtype and shape, got {count.dtype} "
                         f"{tuple(count.shape)} and {prob.dtype} {tuple(prob.shape)}")
-    out = torch.empty_like(prob)
-    rounds = torch.zeros(1, dtype=torch.int32, device=prob.device)
-    lib = _library()
-    for pass_ in (0, 1):
-        _check("binomial_draw", lib.tb_binomial(key.data_ptr(), count.data_ptr(), prob.data_ptr(), out.data_ptr(),
-                                                prob.numel(), int(prob.dtype == torch.float64), rounds.data_ptr(),
-                                                pass_, _stream(prob)))
-        binomial_draw.launches += 1
+    out = _binomial_launch(key, count, prob, _round_keys(prob.numel()))
+    binomial_draw.launches += _launches(prob.numel())
     return out
 
 

@@ -11,6 +11,7 @@ serve the sparse-input models, all through ``aesara_tpu_torch.function``.
     python3 chip_smoke.py --k7-sweep    # only K7's tuning table (see k7_sweep)
     python3 chip_smoke.py --k4-times    # only K4 against torch.log_softmax, and its sweeps (see k4_times)
     python3 chip_smoke.py --k4-k7-times    # only K7's and K4's times, for two checkouts (see k4_k7_times)
+    python3 chip_smoke.py --loop-times    # only TP's and TB's checks and times, for two checkouts (see loop_times)
     python3 chip_smoke.py --reference    # only the setup and path (e), the reference configurations
     python3 chip_smoke.py --scan    # only the setup and path (f), Scan: config 4 and the LSTM
     python3 chip_smoke.py --decoder    # only the setup and path (g), the decoder LM served
@@ -266,9 +267,12 @@ k. (k) the CTC loss at Deep Speech 2's output width and the rest of the
    group (K4, K1, GEMM, the DP's torch ops).  Then TG (fp64 and log
    space, fp32), TP and TB (fp64, fp32) and TM (fp32, fp64) at 2**20
    values against their plain versions on the same key and state, with
-   parameters reaching every branch: every differing element counted (0
-   required), device times, bounds (bytes, or this run's threefry hashes),
-   and PyTorch's own samplers at the same parameters as a note.  (k2) one
+   parameters reaching every branch, and TP and TB also at uniform ones
+   (poisson(37), binomial(1000, 0.5)): every differing element counted (0
+   required), device times, bounds (bytes, or the threefry hashes these
+   inputs need, at the card's 32-bit integer rate), TP's and TB's
+   registers, local bytes and resident blocks, and PyTorch's own samplers
+   at the same parameters as a note.  (k2) one
    ``RandomStream`` and one captured function draw 2**20 values of every
    distribution the loop kernels' slice ported (float64; gamma in float32
    too; Poisson with float32 lambda), 3 calls each bitwise an eager twin's
@@ -327,6 +331,8 @@ import gc
 import importlib.util
 import io
 import json
+import os
+import re
 import statistics
 import subprocess
 import sys
@@ -393,6 +399,10 @@ RL_REPLACES["TM"] = "none: the JAX package steps MRG31k3p by lax.scan (aesara_tp
 HBM_BYTES_PER_S = 3.35e12
 L2_FLUSH_BYTES = 256 * 2**20     # written before a launch timed cold: five times the 50 MB L2
 FP32_FLOPS = 67e12
+# 32-bit integer add, logic and shift: 64 results a clock an SM (the CUDA C++
+# Programming Guide's arithmetic throughput table, compute capability 9.0)
+# on 132 SMs at the 1.98 GHz boost clock
+INT32_OPS = 64 * 132 * 1.98e9
 TF32_FLOPS = 495e12
 BF16_FLOPS = 989e12
 K2_WALKS = (16, 32, 64)   # walked key tiles --k2-walk-sweep builds
@@ -470,9 +480,9 @@ TF_SIZES = (1, 31, DEC_VOCAB, 2**20 + 3)   # values of the threefry checks
 # in a process of its own (cpu_reference) while the card runs the paths
 # before them; it takes this many of the host's cores
 CPU_REF_THREADS = 3
-# integer operations of one threefry2x32 hash: 20 rounds of add, rotate
-# (two shifts and an or) and xor, and 5 key injections of 3 adds
-TF_HASH_OPS = 20 * 5 + 5 * 3
+# 32-bit integer operations of one threefry2x32 hash: 20 rounds of add,
+# rotate (one funnel shift) and xor, and 5 key injections of 3 adds
+TF_HASH_OPS = 20 * 3 + 5 * 3
 # the JAX package's FAST_RUN op counts of path (f)'s two steps at these
 # widths, outer graph then each Scan's inner graph, taken on the CPU with
 # tests/test_torch_rnn.py's op_counts (its config 4 graph keeps a second,
@@ -551,6 +561,13 @@ N_CTC_STEPS, N_CTC_TIMED = 3, 10
 # standard errors; MRG_STEP_OPS integer operations a stream step (two
 # multiply-adds and a modulo a component, the difference and its wrap)
 RAND_N, MRG_STREAMS, N_RANDOM_CALLS, MOMENT_SE, MRG_STEP_OPS = 1 << 20, 15360, 3, 6.0, 10
+LOOP_TIME_ROUNDS = 3        # --loop-times: profiled sessions a row
+# --loop-times: TP's and TB's small draws (values), timed as calls in a
+# CUDA graph; a multinomial of MULTINOMIAL_DRAWS draws over
+# MULTINOMIAL_P's categories, a scan of TB
+LOOP_SMALL_N, LOOP_GRAPH_CALLS = (1, 256, 4096), 50
+MULTINOMIAL_DRAWS, MULTINOMIAL_COUNT = 256, 100.0
+MULTINOMIAL_P = (0.02, 0.05, 0.08, 0.1, 0.15, 0.2, 0.1, 0.12, 0.1, 0.08)
 SEED = 0
 PROFILE_STEPS = 3        # calls counted in a profiled window, after one the profiler drops and a lead-in
 N_HOST_CALLS = 5         # calls whose host time time_steps takes the median of
@@ -1397,7 +1414,7 @@ def kernel_group(name: str) -> str:
               ("csr_spmv_kernel", "K5 CSR SpMV"), ("csr_spmm_kernel", "K6 CSR SpMM"),
               ("csr_spmm_fixup_kernel", "K6 CSR SpMM"), ("csr_sddmm", "K7 CSR SDDMM"),
               ("threefry_kernel", "TF threefry draw"), ("tg_kernel", "TG gamma"), ("tp_kernel", "TP Poisson"),
-              ("tb_kernel", "TB binomial"), ("tm_kernel", "TM MRG31k3p"))
+              ("tb_kernel", "TB binomial"), ("round_keys_kernel", "TP/TB round keys"), ("tm_kernel", "TM MRG31k3p"))
     for key, group in groups:
         if key in name:
             return group
@@ -3195,9 +3212,8 @@ def check_threefry() -> dict:
     from keys of seeds 0 and 42 and an all-ones key, its next key against
     the host's; then its time at the decoder's draw, (32000,) in float64
     (the sampling path's) and float32, against the plain version's, with
-    its bound: the bytes it writes over the memory rate (its integer
-    operations, TF_HASH_OPS a value, counted at the fp32 rate outside the
-    tensor cores, are under that)."""
+    its bound: the larger of the bytes it writes over the memory rate and
+    its integer operations, TF_HASH_OPS a value, at INT32_OPS."""
     from aesara_tpu_torch.link.torch.kernels.threefry import MODES, threefry_draw, threefry_plain
     from aesara_tpu_torch.tensor.random.op import prng_key, split
 
@@ -3224,7 +3240,7 @@ def check_threefry() -> dict:
         ms = device_ms(lambda: threefry_draw(key, (DEC_VOCAB,), mode))
         plain_ms = device_ms(lambda: threefry_plain(key, (DEC_VOCAB,), mode))
         width = 8 if mode == "float64" else 4
-        b_ms, b_by = bound(2 * 8 + DEC_VOCAB * width, DEC_VOCAB * TF_HASH_OPS)
+        b_ms, b_by = bound(2 * 8 + DEC_VOCAB * width, DEC_VOCAB * TF_HASH_OPS, INT32_OPS)
         log(f"threefry kernel at ({DEC_VOCAB},) {mode}: {ms:.4f} ms, plain version {plain_ms:.4f} ms, bound "
             f"{b_ms:.5f} ms ({b_by}); no PyTorch call computes threefry2x32")
         res[mode] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
@@ -4593,43 +4609,140 @@ def check_other(label: str, value):
     return z <= MOMENT_SE and bool((value.abs() <= np.pi).all()), z
 
 
+# path (k)'s parameters of the loop kernels, each cycled to RAND_N values
+# (_resized: every warp mixes branches), and TP's and TB's uniform rows
+LOOP_GAMMA = (0.05, 0.7, 1.0, 3.5, 250.0)
+LOOP_LAM = (0.0, 0.5, 9.99, 10.0, 37.0, 1e4)
+LOOP_COUNT, LOOP_PROB = (5, 40, 1000, 1e6, 30), (0.3, 0.2, 0.5, 0.01, 0.9)
+UNIFORM_LAM, UNIFORM_BINOMIAL = 37.0, (1000.0, 0.5)
+
+
+def tp_tb_rows() -> list:
+    """TP's and TB's rows at RAND_N values: (kernel, label, the draw's
+    arguments after the key, bytes read), path (k)'s cycled parameters
+    first (the row each kernel's line reports), then uniform ones."""
+    def full(value, dtype):
+        return torch.full((RAND_N,), value, dtype=dtype, device="cuda")
+
+    lam = torch.as_tensor(_resized(LOOP_LAM, dtype="float32"), device="cuda")
+    cnt = torch.as_tensor(_resized(LOOP_COUNT), device="cuda")
+    prb = torch.as_tensor(_resized(LOOP_PROB), device="cuda")
+    un, up = UNIFORM_BINOMIAL
+    rows = [("TP", "float32 lam", (lam,)),
+            ("TP", f"float32 lam {UNIFORM_LAM:g} (uniform)", (full(UNIFORM_LAM, torch.float32),)),
+            ("TB", "float64", (cnt, prb)), ("TB", "float32", (cnt.float(), prb.float())),
+            ("TB", f"float64 ({un:g}, {up:g}) (uniform)", (full(un, torch.float64), full(up, torch.float64))),
+            ("TB", f"float32 ({un:g}, {up:g}) (uniform)", (full(un, torch.float32), full(up, torch.float32)))]
+    return [(name, label, args, sum(a.numel() * a.element_size() for a in args)) for name, label, args in rows]
+
+
+def tp_tb_draw(name: str, key, args):
+    """TP's or TB's draw of ``args`` through its wrapper; only the wrappers'
+    plain signatures are used, so another checkout's kernels run here too."""
+    from aesara_tpu_torch.link.torch.kernels import random_loops as rl
+
+    return (rl.poisson_draw if name == "TP" else rl.binomial_draw)(key, *args)
+
+
+def tp_tb_plain(name: str, key, args, work):
+    from aesara_tpu_torch.link.torch.kernels import random_loops as rl
+
+    return (rl.poisson_plain if name == "TP" else rl.binomial_plain)(key, *args, work)
+
+
+def mismatches(got, want) -> int:
+    """Elements of ``got`` (a tensor or a tuple of them) that differ from
+    ``want``'s, nan equal to nan."""
+    got, want = (g if isinstance(g, tuple) else (g,) for g in (got, want))
+    return sum(int((~((a == b) | (a.isnan() & b.isnan()) if a.is_floating_point() else a == b)).sum())
+               for a, b in zip(got, want))
+
+
+def loop_kernel_info(lib) -> str:
+    """TP's and TB's kernels' registers, local bytes and resident blocks an
+    SM (``random_loops_kernel_info``), one line."""
+    import ctypes
+
+    names = ("round keys", "TP pass 0", "TP pass 1", "TB fp32 pass 0", "TB fp32 pass 1", "TB fp64 pass 0",
+             "TB fp64 pass 1")
+    cells = []
+    for which, name in enumerate(names):
+        info = (ctypes.c_int * 4)()
+        err = lib.random_loops_kernel_info(which, info)
+        if err != 0:
+            raise RuntimeError(f"random_loops_kernel_info({which}) failed: {err}")
+        regs, local, resident, threads = list(info)
+        cells.append(f"{name}: {regs} registers, {local} local bytes, {resident} blocks of {threads} an SM")
+    return "; ".join(cells)
+
+
+def ptxas_report() -> list:
+    """``nvcc -Xptxas -v`` of the checkout's ``random_loops.cu``, built into
+    a temporary directory that is deleted: each TP, TB and round-keys
+    entry's registers, spill stores and loads and stack bytes, a line each
+    (the spills apart from the stack, which ``random_loops_kernel_info``
+    reads as one)."""
+    import tempfile
+
+    from aesara_tpu_torch.link.torch.kernels.build import CSRC, NVCC_FLAGS, find_nvcc
+
+    with tempfile.TemporaryDirectory() as tmp:
+        res = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", os.path.join(tmp, "v.so"),
+                              os.path.join(CSRC, "random_loops.cu")], capture_output=True, text=True)
+    if res.returncode != 0:
+        return [f"nvcc -Xptxas -v failed: {res.stderr[-2000:]}"]
+    entry, stack, lines = None, ("?", "?", "?"), []
+    for text in (res.stdout + res.stderr).splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", text)
+        if m:
+            entry, stack = m.group(1), ("?", "?", "?")
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", text)
+        if m and entry:
+            stack = m.groups()
+        m = re.search(r"Used (\d+) registers", text)
+        if m and entry and any(k in entry for k in ("tp_kernel", "tb_kernel", "round_keys")):
+            lines.append(f"{entry}: {m.group(1)} registers, spill stores {stack[1]} B, loads {stack[2]} B, "
+                         f"stack {stack[0]} B")
+            entry = None
+    return lines
+
+
 def loop_kernel_checks() -> dict:
     """TG, TP, TB and TM against their plain versions on the card at
     RAND_N values on the same key and state, parameters reaching every
-    branch: mismatches counted (0 required), with the kernels' and plain
-    versions' device times at each kernel's first row, the bounds (bytes
-    moved, or the threefry hashes these inputs need at TF_HASH_OPS each,
-    counted by the plain versions), and PyTorch's own samplers of the same
+    branch, TP and TB also at uniform ones: mismatches counted (0
+    required), with the kernels' and plain versions' device times (TG's and
+    TM's at their first row, TP's and TB's at every row; plain at each
+    kernel's first), the bounds (bytes moved, or the threefry hashes these
+    inputs need at TF_HASH_OPS each, counted by the plain versions, at
+    INT32_OPS), TP's and TB's registers, local bytes and resident blocks
+    (``random_loops_kernel_info``), and PyTorch's own samplers of the same
     distributions (other bits) as a note."""
     from aesara_tpu_torch.link.torch.kernels import random_loops as rl
     from aesara_tpu_torch.tensor.random.op import prng_key
 
     key = torch.as_tensor(prng_key(SEED + 18)).cuda()
     dev = "cuda"
-    gam = torch.as_tensor(_resized((0.05, 0.7, 1.0, 3.5, 250.0)), device=dev)
-    lam = torch.as_tensor(_resized((0.0, 0.5, 9.99, 10.0, 37.0, 1e4), dtype="float32"), device=dev)
-    cnt = torch.as_tensor(_resized((5, 40, 1000, 1e6, 30)), device=dev)
-    prb = torch.as_tensor(_resized((0.3, 0.2, 0.5, 0.01, 0.9)), device=dev)
+    gam = torch.as_tensor(_resized(LOOP_GAMMA), device=dev)
     state = torch.as_tensor(np.random.default_rng(SEED).integers(1, 2**31 - 30000, size=(MRG_STREAMS, 6)),
                             dtype=torch.int32, device=dev)
     cases = {
-        "TG": [("float64", lambda: rl.gamma_draw(key, gam, False), lambda w: rl.gamma_plain(key, gam, False, w)),
-               ("float64 log", lambda: rl.gamma_draw(key, gam, True), lambda w: rl.gamma_plain(key, gam, True, w)),
-               ("float32", lambda: rl.gamma_draw(key, gam.float(), False),
-                lambda w: rl.gamma_plain(key, gam.float(), False, w))],
-        "TP": [("float32 lam", lambda: rl.poisson_draw(key, lam), lambda w: rl.poisson_plain(key, lam, w))],
-        "TB": [("float64", lambda: rl.binomial_draw(key, cnt, prb), lambda w: rl.binomial_plain(key, cnt, prb, w)),
-               ("float32", lambda: rl.binomial_draw(key, cnt.float(), prb.float()),
-                lambda w: rl.binomial_plain(key, cnt.float(), prb.float(), w))],
-        "TM": [(dt, lambda dt=dt: rl.mrg_draw(state, RAND_N, dt), lambda w, dt=dt: rl.mrg_plain(state, RAND_N, dt))
-               for dt in ("float32", "float64")],
+        "TG": [(label, kernel, plain, gam.numel() * a.element_size()) for label, kernel, plain, a in (
+            ("float64", lambda: rl.gamma_draw(key, gam, False), lambda w: rl.gamma_plain(key, gam, False, w), gam),
+            ("float64 log", lambda: rl.gamma_draw(key, gam, True), lambda w: rl.gamma_plain(key, gam, True, w), gam),
+            ("float32", lambda: rl.gamma_draw(key, gam.float(), False),
+             lambda w: rl.gamma_plain(key, gam.float(), False, w), gam.float()))],
+        "TP": [], "TB": [],
+        "TM": [(dt, lambda dt=dt: rl.mrg_draw(state, RAND_N, dt), lambda w, dt=dt: rl.mrg_plain(state, RAND_N, dt),
+                state.numel() * 4) for dt in ("float32", "float64")],
     }
-    # bytes each kernel reads: its parameters (for the fp32 rows half of the fp64's) and TM's states
-    inputs = {"TG": gam.numel() * 8, "TP": lam.numel() * 4, "TB": 2 * cnt.numel() * 8, "TM": state.numel() * 4}
+    for name, label, args, read in tp_tb_rows():
+        cases[name].append((label, lambda name=name, args=args: tp_tb_draw(name, key, args),
+                            lambda w, name=name, args=args: tp_tb_plain(name, key, args, w), read))
     res = {}
     for name, rows in cases.items():
         out = {"max_abs_err": 0.0, "mismatches": 0, "rows": {}}
-        for label, kernel, plain in rows:
+        for label, kernel, plain, read in rows:
             work: dict = {}
             kept = []
 
@@ -4643,34 +4756,35 @@ def loop_kernel_checks() -> dict:
             plain_ms = None if out["rows"] else device_ms(run_plain, reps=1, warmup=0)
             if not kept:
                 run_plain()
-            want = kept[-1]
             torch.cuda.synchronize()
-            got, want = (g if isinstance(g, tuple) else (g,) for g in (got, want))
-            bad = sum(int((~((a == b) | (a.isnan() & b.isnan()) if a.is_floating_point() else a == b)).sum())
-                      for a, b in zip(got, want))
+            bad = mismatches(got, kept[-1])
             out["mismatches"] += bad
-            # each kernel timed at its first row (the others' times: PERF.md, path (k) alone)
-            ms = None if out["rows"] else device_ms(kernel)
-            written = sum(t.numel() * t.element_size() for t in got)
-            read = inputs[name] // 2 if label.startswith("float32") and name in ("TG", "TB") else inputs[name]
+            # TG and TM timed at their first row (the others' times: PERF.md, path (k) alone)
+            ms = device_ms(kernel) if name in ("TP", "TB") or not out["rows"] else None
+            written = sum(t.numel() * t.element_size() for t in (got if isinstance(got, tuple) else (got,)))
             b_ms, b_by = bound(16 + read + written,
-                               work.get("hashes", 0) * TF_HASH_OPS + (MRG_STEP_OPS * RAND_N if name == "TM" else 0))
+                               work.get("hashes", 0) * TF_HASH_OPS + (MRG_STEP_OPS * RAND_N if name == "TM" else 0),
+                               INT32_OPS)
             out["rows"][label] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                                  "mismatches": bad, "hashes": work.get("hashes", 0)}
+                                  "mismatches": bad, "hashes": work.get("hashes", 0), "rounds": work.get("rounds")}
             log(f"{name} {label} at {RAND_N} values: {bad} elements differ from the plain version; device ms "
-                f"{ms}, plain {plain_ms}, bound {b_ms:.4f} ({b_by}; {work.get('hashes', 0)} hashes)")
+                f"{ms}, plain {plain_ms}, bound {b_ms:.4f} ({b_by}; {work.get('hashes', 0)} hashes"
+                f"{'' if work.get('rounds') is None else ', R ' + str(work['rounds'])})")
         first = next(iter(out["rows"].values()))
         out.update(ms=first["ms"], plain_ms=first["plain_ms"], bound_ms=first["bound_ms"],
                    bound_by=first["bound_by"], library_ms=None)
         res[name] = out
     # PyTorch's samplers of the same distributions at the same parameters:
     # other bits, a note for later work, not the library column (CUDA events)
+    lam = torch.as_tensor(_resized(LOOP_LAM, dtype="float32"), device=dev)
+    cnt, prb = (torch.as_tensor(_resized(v), device=dev) for v in (LOOP_COUNT, LOOP_PROB))
     res["TG"]["torch_standard_gamma_ms"] = call_ms(lambda: torch._standard_gamma(gam))
     res["TP"]["torch_poisson_ms"] = call_ms(lambda: torch.poisson(lam))
     res["TB"]["torch_binomial_ms"] = call_ms(lambda: torch.binomial(cnt, prb))
     log(f"PyTorch's samplers (other bits) at the same parameters, by CUDA events: _standard_gamma "
         f"{res['TG']['torch_standard_gamma_ms']} ms, poisson {res['TP']['torch_poisson_ms']} ms, binomial "
         f"{res['TB']['torch_binomial_ms']} ms")
+    log(f"TP and TB resources: {loop_kernel_info(rl._library())}")
     if any(r["mismatches"] for r in res.values()):
         raise AssertionError(f"(k) a loop kernel differs from its plain version: "
                              f"{ {k: r['mismatches'] for k, r in res.items()} }")
@@ -5363,6 +5477,100 @@ def k4_k7_times():
     print(smi)
 
 
+def loop_small_rows() -> list:
+    """--loop-times' small draws: (kernel, label, the draw's arguments after
+    the key) of TP and of TB in float64 and float32 at LOOP_SMALL_N values,
+    path (k)'s cycled parameters cut to each size."""
+    rows = []
+    for n in LOOP_SMALL_N:
+        lam = torch.as_tensor(_resized(LOOP_LAM, n, "float32"), device="cuda")
+        cnt, prb = (torch.as_tensor(_resized(v, n), device="cuda") for v in (LOOP_COUNT, LOOP_PROB))
+        rows += [("TP", f"float32 lam, {n} values", (lam,)), ("TB", f"float64, {n} values", (cnt, prb)),
+                 ("TB", f"float32, {n} values", (cnt.float(), prb.float()))]
+    return rows
+
+
+def loop_times():
+    """TP and TB through their wrappers, each checked bitwise against its
+    plain version: at path (k)'s RAND_N values (``tp_tb_rows``: its cycled
+    parameters, then uniform ones; TB in float64 and float32) timed in
+    LOOP_TIME_ROUNDS profiled sessions (device ms of the whole call, and
+    split by kernel) beside the hashes and bound of the plain version's
+    ``work``; at LOOP_SMALL_N values (``loop_small_rows``) and in a
+    multinomial (MULTINOMIAL_DRAWS draws over MULTINOMIAL_P's categories, a
+    scan of TB, checked against the same draw on the CPU), ms a call of
+    LOOP_GRAPH_CALLS calls replayed in a CUDA graph (the median of three
+    replays; launch gaps count) and device ms.  Then the checkout's ``-Xptxas
+    -v`` figures for both kernels.  It reads only the wrappers and the
+    multinomial's draw, so a copy of this script placed in another checkout
+    times that checkout's kernels: two checkouts are compared in one call by
+    running the two in turns (a, b, b, a)."""
+    from aesara_tpu_torch.link.torch.kernels import random_loops as rl
+    from aesara_tpu_torch.tensor.random.basic import multinomial
+    from aesara_tpu_torch.tensor.random.op import prng_key
+
+    smi = card_line()
+    log(f"card: {smi}; torch {torch.__version__}; checkout {sys.path[0]}")
+    t0 = time.perf_counter()
+    lib = rl._library()
+    log(f"random_loops nvcc build + load: {time.perf_counter() - t0:.2f} s")
+    if hasattr(lib, "random_loops_kernel_info"):
+        log(f"TP and TB resources: {loop_kernel_info(lib)}")
+    key = torch.as_tensor(prng_key(SEED + 18)).cuda()
+    bad_rows = []
+
+    def check(label, got, want):
+        bad = mismatches(got, want)
+        if bad:
+            bad_rows.append(label)
+        return bad
+
+    for name, label, args, read in tp_tb_rows():
+        work: dict = {}
+
+        def kernel():
+            return tp_tb_draw(name, key, args)
+
+        got = kernel()
+        bad = check(f"{name} {label}", got, tp_tb_plain(name, key, args, work))
+        times, split = [], {}
+        for _ in range(LOOP_TIME_ROUNDS):
+            by_name = device_split(kernel)
+            times.append(sum(by_name.values()))
+            for k, t in by_name.items():
+                m = re.search(r"\w+_kernel(<[^>]*>)?", k)
+                short = m.group(0) if m else k[:40]
+                split[short] = split.get(short, 0.0) + t / LOOP_TIME_ROUNDS
+        b_ms, b_by = bound(16 + read + got.numel() * got.element_size(), work.get("hashes", 0) * TF_HASH_OPS,
+                           INT32_OPS)
+        log(f"{name} {label}: {bad} elements differ from the plain version; device ms "
+            f"{' '.join(f'{t:.4f}' for t in times)}; by kernel {dict((k, round(v, 4)) for k, v in split.items())}; "
+            f"{work.get('hashes', 0)} hashes, R {work.get('rounds')}, bound {b_ms:.4f} ({b_by}), "
+            f"{b_ms / statistics.median(times):.1%} of it")
+
+    def small(label, fn, bad):
+        timer = graph_timer(fn, LOOP_GRAPH_CALLS)
+        graph = statistics.median(timer() for _ in range(3))
+        log(f"{label}: {bad} elements differ; {graph:.4f} ms a call in a graph of {LOOP_GRAPH_CALLS}, device ms "
+            f"{device_ms(fn):.4f}")
+
+    for name, label, args in loop_small_rows():
+        fn = lambda name=name, args=args: tp_tb_draw(name, key, args)  # noqa: E731
+        small(f"{name} {label}", fn, check(f"{name} {label}", fn(), tp_tb_plain(name, key, args, None)))
+    n = torch.tensor(MULTINOMIAL_COUNT, dtype=torch.float64)
+    p = torch.tensor(MULTINOMIAL_P, dtype=torch.float64)
+    size = (MULTINOMIAL_DRAWS,)
+    n_card, p_card = n.cuda(), p.cuda()
+    fn = lambda: multinomial.sample_key(key, size, n_card, p_card)  # noqa: E731
+    label = f"multinomial, {MULTINOMIAL_DRAWS} draws of {MULTINOMIAL_COUNT:g} over {len(MULTINOMIAL_P)} categories"
+    small(label, fn, check(label, fn().cpu(), multinomial.sample_key(key.cpu(), size, n, p)))
+    for line in ptxas_report():
+        log(f"ptxas -v {line}")
+    print(smi)
+    if bad_rows:
+        raise AssertionError(f"--loop-times: rows that differ from their plain versions: {bad_rows}")
+
+
 def attention_times():
     """K2 and K3 at the encoder's panels, (128, 1024, 64) fp32 and bf16,
     causal and not: device ms of K2, and of K3's call split into its
@@ -5503,9 +5711,10 @@ def main():
     global SEED
     modes = {"--k6-sweep": k6_sweep, "--k2-walk-sweep": k2_walk_sweep, "--attention-times": attention_times,
              "--profile-check": profile_check, "--k7-sweep": k7_sweep, "--k4-times": k4_times,
-             "--k4-k7-times": k4_k7_times, "--reference": reference_only, "--scan": scan_only,
-             "--decoder": decoder_only, "--decoder-sampling": decoder_sampling_only, "--bf16": bf16_only,
-             "--convnet": convnet_only, "--ctc-random": ctc_random_only}
+             "--k4-k7-times": k4_k7_times, "--loop-times": loop_times,
+             "--reference": reference_only, "--scan": scan_only, "--decoder": decoder_only,
+             "--decoder-sampling": decoder_sampling_only, "--bf16": bf16_only, "--convnet": convnet_only,
+             "--ctc-random": ctc_random_only}
     args = sys.argv[1:]
     if "--seed" in args:
         at = args.index("--seed")

@@ -1439,13 +1439,61 @@ def test_random_loops_kernels_match_their_plain_versions(cuda):
     lam = torch.tensor([0.0, 0.5, 9.99, 10.0, 37.0, 1e4], dtype=torch.float32, device=cuda).repeat(n // 6)
     before = rl.poisson_draw.launches
     got = rl.poisson_draw(key, lam)
-    assert rl.poisson_draw.launches == before + 2
+    assert rl.poisson_draw.launches == before + 3
     assert torch.equal(got, rl.poisson_plain(key, lam))
     state = torch.as_tensor(np.random.default_rng(1).integers(1, 2**31 - 30000, size=(77, 6)), dtype=torch.int32,
                             device=cuda)
     for dtype in ("float32", "float64"):
         (ks, kv), (ps, pv) = rl.mrg_draw(state, 1000, dtype), rl.mrg_plain(state, 1000, dtype)
         assert torch.equal(ks, ps) and torch.equal(kv, pv)
+
+
+@pytest.mark.parametrize("n", [1, 255, 257, 2**20 + 3])
+def test_random_loops_tp_and_tb_are_bitwise_at_every_cap(cuda, n):
+    """TP and TB (the round keys once a launch, pass 0 to each element's
+    first acceptance, pass 1 walking back from round R - 1) bit for bit
+    against their plain versions at n values: parameters cycling through
+    every branch and the invalid ones, and uniform ones (poisson(37),
+    binomial(1000, 0.5)), TB in float32 and float64.  The wrappers (the cap
+    of stored rounds their size gives; one launch a call up to 256 values,
+    where the block derives the keys and walks back itself, three past it),
+    then the launches with caps of 2 and 0, where threads derive the rounds
+    past the cap themselves."""
+    from aesara_tpu_torch.link.torch.kernels import random_loops as rl
+    from aesara_tpu_torch.tensor.random.op import prng_key
+
+    key = torch.as_tensor(prng_key(11)).to(cuda)
+    launches = 1 if n <= 256 else 3
+    lams = {"mixed": [0.0, 0.5, 9.99, 10.0, 37.0, 1e4, np.nan, -1.0], "uniform": [37.0]}
+    pairs = {"mixed": [(5, 0.3), (40, 0.2), (1000, 0.5), (1e6, 0.01), (30, 0.9), (7, -0.1), (np.nan, 0.4),
+                       (5000, 1.5), (np.inf, 0.3)],
+             "uniform": [(1000, 0.5)]}
+
+    def poisson(lam, cap):
+        if cap is not None:
+            return rl._poisson_launch(key, lam, cap)
+        before = rl.poisson_draw.launches
+        got = rl.poisson_draw(key, lam)
+        assert rl.poisson_draw.launches == before + launches
+        return got
+
+    def binomial(count, prob, cap):
+        if cap is not None:
+            return rl._binomial_launch(key, count, prob, cap)
+        before = rl.binomial_draw.launches
+        got = rl.binomial_draw(key, count, prob)
+        assert rl.binomial_draw.launches == before + launches
+        return got
+
+    for cap in (None, 2, 0):
+        for label in ("mixed", "uniform"):
+            lam = torch.as_tensor(np.resize(np.array(lams[label], np.float32), n), device=cuda)
+            assert torch.equal(poisson(lam, cap), rl.poisson_plain(key, lam)), (cap, label)
+            for dtype in (torch.float64, torch.float32):
+                cp = torch.as_tensor(np.resize(np.array(pairs[label]), (n, 2)), dtype=dtype, device=cuda)
+                count, prob = cp[:, 0].contiguous(), cp[:, 1].contiguous()
+                got, want = binomial(count, prob, cap), rl.binomial_plain(key, count, prob)
+                assert torch.equal(got.nan_to_num(-7.0), want.nan_to_num(-7.0)), (cap, label, dtype)
 
 
 def test_random_loops_distributions_on_the_card_are_the_cpus(cuda):

@@ -476,3 +476,288 @@ def test_the_loop_wrappers_refuse_mixed_devices_and_bad_types_and_bind_the_sourc
     for entry in ("int tg_gamma(", "int tp_poisson(", "int tb_binomial(", "int tm_mrg(",
                   "const char* random_loops_error_string("):
         assert entry in src
+
+
+# -- TP's and TB's schedule: the round keys once, first acceptance, walk back --
+
+class _RoundKeys:
+    """The key chains of one TP or TB draw, which every element shares: a
+    round of the rejection loop splits its key in 3 (next, s0, s1), one of
+    Knuth's in 2 (next, sub) on the same chain, one of the inversion loop in
+    2 (sub, next) on a chain of its own.  Each child hash is derived once,
+    whichever loop asks first, and counted (``derived``)."""
+
+    NEXT = {"rejection": 0, "inversion": 1}
+
+    def __init__(self, key):
+        self.root = rl._words(key)
+        self.derived = {}
+
+    def split(self, chain, r, num):
+        """``split(key, num)`` of round ``r``'s key (rounds come in order)."""
+        k0, k1 = self.root if r == 0 else self.derived[(chain, r - 1, self.NEXT[chain])]
+        zero = torch.zeros_like(k0)
+        for c in range(num):
+            if (chain, r, c) not in self.derived:
+                self.derived[(chain, r, c)] = rl.threefry2x32(k0, k1, zero, zero + c)
+        return [self.derived[(chain, r, c)] for c in range(num)]
+
+
+def _walk_schedule(keys, idx, step, own):
+    """The rejection loop as TP's and TB's kernels run it: every element to
+    its first acceptance f (pass 0), R = max(f + 1), then each ``own``
+    element walked back from round R - 1 to f + 1, stopping at the first
+    acceptance.  (k, its own hashes, R)."""
+    n = idx.numel()
+    active = torch.ones(n, dtype=torch.bool)
+    first = torch.zeros(n, dtype=torch.int64)
+    k_out = None
+    hashes = rounds = 0
+    while bool(active.any()):
+        k, accept = step(*keys.split("rejection", rounds, 3)[1:])
+        k_out = torch.full_like(k, -1.0) if k_out is None else k_out
+        hashes += 2 * int(active.sum())
+        hit = active & accept
+        first = torch.where(hit, rounds, first)
+        k_out = torch.where(hit, k, k_out)
+        active &= ~accept
+        rounds += 1
+    searching = own & (first + 1 < rounds)
+    for r in range(rounds - 1, -1, -1):
+        need = searching & (r > first)
+        if not bool(need.any()):
+            break
+        k, accept = step(*keys.split("rejection", r, 3)[1:])
+        hashes += 2 * int(need.sum())
+        k_out = torch.where(need & accept, k, k_out)
+        searching &= ~accept
+    return k_out, hashes, rounds
+
+
+def _poisson_schedule(key, lam):
+    """TP's schedule on the CPU: (draws, hashes, R)."""
+    keys = _RoundKeys(key)
+    idx = torch.arange(lam.numel())
+    knuth = torch.isnan(lam) | (lam < rl.POISSON_KNUTH_MAX)
+    step = rl._poisson_step(torch.where(knuth, torch.full_like(lam, rl.POISSON_STANDIN), lam), idx)
+    k, hashes, rounds = _walk_schedule(keys, idx, step, ~knuth)
+    count = torch.zeros(lam.numel(), dtype=torch.int64)
+    log_prod = torch.zeros_like(lam)
+    active = knuth & (log_prod > -lam)
+    j = 0
+    while bool(active.any()):
+        hashes += int(active.sum())
+        u = rl._draw_unit(keys.split("rejection", j, 2)[1], idx, torch.float32)
+        count = torch.where(active, count + 1, count)
+        log_prod = torch.where(active, log_prod + torch.log(u), log_prod)
+        active &= log_prod > -lam
+        j += 1
+    out = torch.where(knuth, count - 1, k.to(torch.int64))
+    return torch.where(lam == 0, torch.zeros_like(out), out), hashes + len(keys.derived), rounds
+
+
+def _binomial_schedule(key, count, prob):
+    """TB's schedule on the CPU: (draws, hashes, R)."""
+    keys = _RoundKeys(key)
+    idx = torch.arange(prob.numel())
+    p_lt_half = prob < 0.5
+    q = torch.where(p_lt_half, prob, 1.0 - prob)
+    count_nan_or_neg = torch.isnan(count) | (count < 0.0)
+    count_inf = torch.isinf(count)
+    q_is_nan, q_l_0 = torch.isnan(q), q < 0.0
+    q = torch.where(q_is_nan | q_l_0, torch.full_like(q, 0.01), q)
+    inversion = count_nan_or_neg | (count * q <= rl.BINOMIAL_INVERSION_MAX)
+    invalid = q_l_0 | q_is_nan | count_nan_or_neg
+    keep = p_lt_half | count_nan_or_neg | q_is_nan | count_inf
+    count = torch.floor(count)
+    step = rl._btrs_step(torch.where(inversion, torch.full_like(count, rl.BINOMIAL_STANDIN[0]), count),
+                         torch.where(inversion, torch.full_like(q, rl.BINOMIAL_STANDIN[1]), q), idx)
+    k, hashes, rounds = _walk_schedule(keys, idx, step, ~inversion & ~invalid & ~count_inf)
+    loop = inversion & ~invalid
+    log1mq = torch.log1p(-q)
+    num_geom, geom_sum = torch.zeros_like(q), torch.zeros_like(q)
+    active = loop & (geom_sum <= count)
+    j = 0
+    while bool(active.any()):
+        hashes += int(active.sum())
+        u = rl._draw_unit(keys.split("inversion", j, 2)[0], idx, prob.dtype)
+        num_geom = torch.where(active, num_geom + 1.0, num_geom)
+        geom_sum = torch.where(active, geom_sum + torch.ceil(torch.log(u) / log1mq), geom_sum)
+        active &= geom_sum <= count
+        j += 1
+    sample = torch.where(loop, num_geom - 1.0, k)
+    sample = torch.where(invalid, torch.full_like(sample, np.nan), sample)
+    sample = torch.where(count_inf & ~invalid, torch.full_like(sample, np.inf), sample)
+    return torch.where(keep, sample, count - sample), hashes + len(keys.derived), rounds
+
+
+SCHEDULE_SEEDS = [0, 7, 2**31 + 3]
+POISSON_BATCHES = {
+    "knuth": [0.0, 0.5, 3.0, 9.99],
+    "rejection": [10.0, 37.0, 50.0, 200.0],
+    "mixed": [0.0, 0.5, 3.0, 9.99, 10.0, 37.0, 50.0, 200.0],
+    "one": [37.0],
+    "invalid": [np.nan, -1.0, 0.5, 37.0],
+}
+BINOMIAL_BATCHES = {
+    "inversion": [(5, 0.3), (40, 0.2), (30, 0.9), (12, 0.0)],
+    "btrs": [(1000, 0.5), (1e6, 0.01), (2000, 0.7), (300, 0.3)],
+    "mixed": [(5, 0.3), (40, 0.2), (30, 0.9), (12, 0.0), (1000, 0.5), (1e6, 0.01), (2000, 0.7), (300, 0.3)],
+    "one": [(1000, 0.5)],
+    "invalid": [(7, -0.1), (7, np.nan), (-3, 0.4), (np.nan, 0.4), (5000, np.nan), (5000, 1.5), (np.inf, 0.3),
+                (1000, 0.5)],
+}
+
+
+def _batch(values, dtype, n=96):
+    """``values`` cycled to ``n`` elements (one element stays one)."""
+    values = np.asarray(values, dtype)
+    return values if len(values) == 1 else np.resize(values, (n,) + values.shape[1:])
+
+
+def _poisson_case(batch, seed):
+    key = rop.prng_key(seed)
+    lam = _batch(POISSON_BATCHES[batch], np.float32)
+    return key, lam, torch.as_tensor(key), torch.from_numpy(lam)
+
+
+def _binomial_case(batch, seed, dtype):
+    key = rop.prng_key(seed)
+    cp = _batch(BINOMIAL_BATCHES[batch], dtype)
+    count, prob = np.ascontiguousarray(cp[:, 0]), np.ascontiguousarray(cp[:, 1])
+    return key, count, prob, torch.as_tensor(key), torch.from_numpy(count), torch.from_numpy(prob)
+
+
+@pytest.mark.parametrize("seed", SCHEDULE_SEEDS)
+@pytest.mark.parametrize("batch", list(POISSON_BATCHES))
+def test_tp_schedule_model_is_the_plain_version_and_jax_randoms(batch, seed):
+    """TP's kernel schedule (the round keys once, each element to its first
+    acceptance, the walk back from round R - 1) draws what ``poisson_plain``
+    and ``jax.random.poisson`` draw, bit for bit: each branch alone, mixed,
+    one element, and nan and negative λ."""
+    key, lam, tkey, tlam = _poisson_case(batch, seed)
+    got, _, _ = _poisson_schedule(tkey, tlam)
+    np.testing.assert_array_equal(got.numpy(), rl.poisson_plain(tkey, tlam).numpy())
+    want = np.asarray(jr.poisson(jr.wrap_key_data(jax.numpy.asarray(key)), lam, lam.shape))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("seed", SCHEDULE_SEEDS)
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("batch", list(BINOMIAL_BATCHES))
+def test_tb_schedule_model_is_the_plain_version_and_jax_randoms(batch, dtype, seed):
+    """TB's kernel schedule as TP's: inversion alone, BTRS alone, mixed,
+    one element, and the invalid parameters (nan or negative count, p nan
+    or outside [0, 1], an infinite count), bit for bit."""
+    key, count, prob, tkey, tcount, tprob = _binomial_case(batch, seed, dtype)
+    got, _, _ = _binomial_schedule(tkey, tcount, tprob)
+    want_plain = rl.binomial_plain(tkey, tcount, tprob).numpy()
+    np.testing.assert_array_equal(got.numpy(), want_plain)
+    want = np.asarray(jr.binomial(jr.wrap_key_data(jax.numpy.asarray(key)), count, prob, count.shape, dtype=dtype))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("seed", SCHEDULE_SEEDS)
+@pytest.mark.parametrize("batch", list(POISSON_BATCHES))
+def test_tp_recounted_work_is_the_schedules_hashes(batch, seed):
+    """``poisson_plain``'s work: the threefry hashes the schedule makes,
+    each shared key once, and its R."""
+    _, _, tkey, tlam = _poisson_case(batch, seed)
+    _, hashes, rounds = _poisson_schedule(tkey, tlam)
+    work = {}
+    rl.poisson_plain(tkey, tlam, work)
+    assert work == {"hashes": hashes, "rounds": rounds}
+
+
+@pytest.mark.parametrize("seed", SCHEDULE_SEEDS)
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("batch", list(BINOMIAL_BATCHES))
+def test_tb_recounted_work_is_the_schedules_hashes(batch, dtype, seed):
+    _, _, _, tkey, tcount, tprob = _binomial_case(batch, seed, dtype)
+    _, hashes, rounds = _binomial_schedule(tkey, tcount, tprob)
+    work = {}
+    rl.binomial_plain(tkey, tcount, tprob, work)
+    assert work == {"hashes": hashes, "rounds": rounds}
+
+
+def _first_seed_with_one_round(schedule, *args):
+    """The first seed whose draw of ``args`` accepts every element in round
+    0 (R = 1), and that draw."""
+    for seed in range(200):
+        got, _, rounds = schedule(torch.as_tensor(rop.prng_key(seed)), *args)
+        if rounds == 1:
+            return seed, got
+    raise AssertionError("no seed below 200 gives R = 1")
+
+
+@pytest.mark.parametrize("draw", ["poisson", "binomial float64", "binomial float32"])
+def test_a_batch_whose_rejection_loop_takes_one_round(draw):
+    """R = 1: nothing to walk back; the draws are still the plain version's
+    and ``jax.random``'s, and the work is 2 hashes an element, the round's
+    3 keys and Knuth's or the inversion loop's."""
+    if draw == "poisson":
+        lam = np.array([3.0, 37.0, 50.0], np.float32)
+        seed, got = _first_seed_with_one_round(_poisson_schedule, torch.from_numpy(lam))
+        key = rop.prng_key(seed)
+        want_plain = rl.poisson_plain(torch.as_tensor(key), torch.from_numpy(lam), work := {})
+        want = jr.poisson(jr.wrap_key_data(jax.numpy.asarray(key)), lam, lam.shape)
+    else:
+        dtype = draw.split()[1]
+        count, prob = np.array([5, 1000, 1e6], dtype), np.array([0.3, 0.5, 0.01], dtype)
+        seed, got = _first_seed_with_one_round(_binomial_schedule, torch.from_numpy(count), torch.from_numpy(prob))
+        key = rop.prng_key(seed)
+        want_plain = rl.binomial_plain(torch.as_tensor(key), torch.from_numpy(count), torch.from_numpy(prob),
+                                       work := {})
+        want = jr.binomial(jr.wrap_key_data(jax.numpy.asarray(key)), count, prob, count.shape, dtype=dtype)
+    assert work["rounds"] == 1
+    np.testing.assert_array_equal(got.numpy(), want_plain.numpy())
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_the_loop_scratch_takes_a_cap_of_stored_rounds_up_to_the_kernels():
+    """TP's and TB's scratch: 10 + 6 cap words, a byte and a word an
+    element; a cap outside 0..MAX_ROUND_KEYS (the kernel's shared arrays)
+    is refused."""
+    lam = torch.ones(7)
+    ws, first, listed = rl._scratch("poisson_draw", lam, 5)
+    assert ws.numel() == 40 and ws.dtype == torch.int32 and first.numel() == 7 and first.dtype == torch.uint8
+    assert listed.numel() == 7 and listed.dtype == torch.int32
+    for cap in (-1, rl.MAX_ROUND_KEYS + 1):
+        with pytest.raises(ValueError, match="cap"):
+            rl._scratch("poisson_draw", lam, cap)
+    import os
+
+    from aesara_tpu_torch.link.torch.kernels.build import CSRC
+
+    src = open(os.path.join(CSRC, "random_loops.cu")).read()
+    assert f"constexpr int MAX_KEY_ROUNDS = {rl.MAX_ROUND_KEYS};" in src
+    assert f"constexpr int THREADS = {rl.LOOP_THREADS};" in src
+    assert "int random_loops_kernel_info(" in src
+
+
+@pytest.mark.parametrize("n", [1, 256, 4096])
+def test_the_round_key_cap_of_a_draw_covers_its_rounds(n):
+    """The rounds whose keys TP's and TB's first launch derives grow with
+    the draw (one thread walks the chain, so a small draw derives few) and
+    stay within the kernel's arrays; at path (k)'s cycled parameters cut to
+    n values they cover the batch's round count R, so pass 1 walks back
+    through stored keys only."""
+    cap = rl._round_keys(n)
+    assert 0 <= cap <= rl.ROUND_KEYS <= rl.MAX_ROUND_KEYS
+    assert rl._round_keys(n - 1) <= cap <= rl._round_keys(2 * n)
+    lam = torch.from_numpy(np.resize(np.array([0.0, 0.5, 9.99, 10.0, 37.0, 1e4], np.float32), n))
+    count = torch.from_numpy(np.resize(np.array([5, 40, 1000, 1e6, 30.0]), n))
+    prob = torch.from_numpy(np.resize(np.array([0.3, 0.2, 0.5, 0.01, 0.9]), n))
+    for seed in range(3):
+        key = torch.as_tensor(rop.prng_key(seed))
+        rl.poisson_plain(key, lam, work := {})
+        assert work["rounds"] <= cap, ("poisson", seed)
+        rl.binomial_plain(key, count, prob, work := {})
+        assert work["rounds"] <= cap, ("binomial", seed)
+
+
+def test_a_draw_of_one_block_takes_one_launch():
+    """TP's and TB's launches a draw: none for no values, one up to a
+    block's threads (the block derives the round keys and walks back
+    itself), then three (the round keys, pass 0, pass 1)."""
+    assert [rl._launches(n) for n in (0, 1, rl.LOOP_THREADS, rl.LOOP_THREADS + 1, 2**20)] == [0, 1, 1, 3, 3]
