@@ -3,13 +3,14 @@
 //
 // None of them replaces a TPU kernel: the JAX package draws these by
 // jax.random under XLA (aesara_tpu/tensor/random/basic.py) and MRG31k3p
-// by a lax.scan (aesara_tpu/link/jax/random_dispatch.py:40-137).  They are
-// loops whose trip count depends on the data, so each element (each
-// stream for TM) gets one thread that leaves the loop on its own.  TG's
-// element walks its own threefry2x32 key chain in registers.  TP's and TB's
-// rounds draw from keys that every element shares: one launch derives them,
-// then two passes draw, or one launch does all three for a draw of one block
-// (see "TP and TB" below).  The wrapper and the plain versions are
+// by a lax.scan (aesara_tpu/link/jax/random_dispatch.py:40-137).  TG, TP
+// and TB are loops whose trip count depends on the data, so each element
+// gets one thread that leaves the loop on its own.  TG's element walks its
+// own threefry2x32 key chain in registers.  TP's and TB's rounds draw from
+// keys that every element shares: one launch derives them, then two passes
+// draw, or one launch does all three for a draw of one block (see "TP and
+// TB" below).  TM spreads each stream's steps over threads by jump-ahead
+// tables (see "TM" below).  The wrapper and the plain versions are
 // kernels/random_loops.py.
 //
 // What bounds them on the H100: integer work, threefry hashes (75 32-bit
@@ -17,6 +18,8 @@
 // element writes 4 or 8 bytes.  TG hashes three to five times a round; TP
 // and TB twice a rejection round and once a Knuth or inversion round, and
 // walk back from the batch's last round instead of running every round.
+// TM's step is about ten 32-bit operations a value: its bound is the bytes
+// it writes.
 //
 // Rounding follows the plain versions operation for operation: every sum
 // and product is rounded on its own (__fadd_rn, __dmul_rn, ..., which nvcc
@@ -642,35 +645,102 @@ __global__ void __launch_bounds__(THREADS, sizeof(T) == 8 ? BLOCKS_64 : BLOCKS_3
 }
 
 // ---------------------------------------------------------------------------
-// TM: MRG31k3p, one thread a stream
+// TM: MRG31k3p, a thread a (stream, chunk of steps)
 // ---------------------------------------------------------------------------
+//
+// The recurrence is linear: a stream's state after t steps is A1^t x1 mod
+// m1 and A2^t x2 mod m2 (x1, x2 its two triples).  Thread (j, c) owns steps
+// [c L, (c + 1) L) of stream j: it jumps the stream's state by row c of
+// the jump table (A1^(c L), A2^(c L), computed exactly on the host, 18
+// words a row), steps L times and writes its draws t n_streams + j, the
+// stream index fastest across a warp so that each step's stores are
+// coalesced.  The thread whose chunk holds the stream's last own step
+// (`steps`, one fewer for streams at or past `rem`) writes its new state;
+// with no own step, chunk 0 copies the state.  Chunk 0 starts from the
+// state itself; a later chunk starts at step c L >= 3, where every
+// component is a reduced result, so the jump gives the stepped state's
+// bits.
+//
+// No 64-bit `%`: a step's two sums are below 2^54 and 2^47 and fold once
+// (2^31 = 1 mod m1, 2^31 = 21069 mod m2) to below twice the modulus; the
+// jump's rows of three 31 x 31-bit products (below 3 2^62) fold twice.
+// Then one conditional subtract.  Exact for components in [0, 2^31).
+
+constexpr uint32_t MRG_M1 = 2147483647u, MRG_M2 = 2147462579u, LOW31 = 0x7FFFFFFFu;
+constexpr int MRG_JUMP_WORDS = 18;
+
+__device__ __forceinline__ uint32_t reduce_once(uint32_t v, uint32_t m) { return v >= m ? v - m : v; }
+
+// (2^22 x12 + 129 x13) mod m1
+__device__ __forceinline__ uint32_t mrg_y1(uint32_t x12, uint32_t x13) {
+  const uint64_t p = (uint64_t)x12 * 4194304u + (uint64_t)x13 * 129u;
+  return reduce_once((uint32_t)(p & LOW31) + (uint32_t)(p >> 31), MRG_M1);
+}
+
+// (2^15 x21 + (2^15 + 1) x23) mod m2
+__device__ __forceinline__ uint32_t mrg_y2(uint32_t x21, uint32_t x23) {
+  const uint64_t p = (uint64_t)x21 * 32768u + (uint64_t)x23 * 32769u;
+  return reduce_once((uint32_t)(p & LOW31) + (uint32_t)(p >> 31) * 21069u, MRG_M2);
+}
+
+// row a of a jump matrix times x, mod m1 or m2
+template <bool FIRST>
+__device__ __forceinline__ uint32_t mrg_row(const uint32_t* a, const uint32_t* x) {
+  uint64_t p = (uint64_t)a[0] * x[0] + (uint64_t)a[1] * x[1] + (uint64_t)a[2] * x[2];
+  if (FIRST) {
+    p = (p & LOW31) + (p >> 31);                                               // < 2^33
+    return reduce_once((uint32_t)(p & LOW31) + (uint32_t)(p >> 31), MRG_M1);   // < 2^31 + 4
+  }
+  p = (p & LOW31) + (p >> 31) * 21069u;                                            // < 2^47
+  return reduce_once((uint32_t)(p & LOW31) + (uint32_t)(p >> 31) * 21069u, MRG_M2);  // < 2^32
+}
 
 template <typename T>
-__global__ void __launch_bounds__(THREADS) tm_kernel(const int* state, int* new_state, T* out, long long n,
-                                                    int n_streams, long long steps, int rem, T norm) {
-  const int j = blockIdx.x * THREADS + threadIdx.x;
-  if (j >= n_streams) return;
-  const unsigned long long M1 = 2147483647ull, M2 = 2147462579ull;
-  unsigned long long x[6];
-#pragma unroll
-  for (int c = 0; c < 6; ++c) x[c] = (unsigned long long)(unsigned)state[(long long)j * 6 + c];
+__global__ void __launch_bounds__(THREADS) tm_kernel(const int* state, int* new_state, T* out, const uint32_t* jump,
+                                                    int n_streams, int chunk, int threads, long long steps, int rem,
+                                                    T norm) {
+  const int id = blockIdx.x * THREADS + threadIdx.x;
+  if (id >= threads) return;
+  const int j = id % n_streams, c = id / n_streams;
   const long long own = (rem != 0 && j >= rem) ? steps - 1 : steps;
-  for (long long t = 0; t < own; ++t) {
-    const unsigned long long y1 = (4194304ull * x[1] + 129ull * x[2]) % M1;
-    const unsigned long long y2 = (32768ull * x[3] + 32769ull * x[5]) % M2;
+  const long long t0 = (long long)c * chunk;
+  const bool last = c == (own > 0 ? (int)((own - 1) / chunk) : 0);
+  if (t0 >= own && !last) return;
+  uint32_t x[6];
+#pragma unroll
+  for (int k = 0; k < 6; ++k) x[k] = (uint32_t)state[(long long)j * 6 + k];
+  if (c > 0) {
+    uint32_t a[MRG_JUMP_WORDS];
+    const uint2* row = reinterpret_cast<const uint2*>(jump + (long long)c * MRG_JUMP_WORDS);
+#pragma unroll
+    for (int k = 0; k < MRG_JUMP_WORDS / 2; ++k) {
+      const uint2 w = __ldg(row + k);
+      a[2 * k] = w.x;
+      a[2 * k + 1] = w.y;
+    }
+    const uint32_t y[6] = {mrg_row<true>(a, x),      mrg_row<true>(a + 3, x),      mrg_row<true>(a + 6, x),
+                           mrg_row<false>(a + 9, x + 3), mrg_row<false>(a + 12, x + 3), mrg_row<false>(a + 15, x + 3)};
+#pragma unroll
+    for (int k = 0; k < 6; ++k) x[k] = y[k];
+  }
+  const long long t1 = t0 + chunk < own ? t0 + chunk : own;
+  T* o = out + t0 * n_streams + j;
+  for (long long t = t0; t < t1; ++t, o += n_streams) {
+    const uint32_t y1 = mrg_y1(x[1], x[2]), y2 = mrg_y2(x[3], x[5]);
     x[2] = x[1];
     x[1] = x[0];
     x[0] = y1;
     x[5] = x[4];
     x[4] = x[3];
     x[3] = y2;
-    unsigned long long d = (y1 + M1 - y2) % M1;
-    if (d == 0) d = M1;
-    const long long pos = t * n_streams + j;
-    if (pos < n) out[pos] = (T)d * norm;
+    uint32_t d = y1 - y2;
+    if ((int)d <= 0) d += MRG_M1;
+    *o = F<T>::mul((T)d, norm);
   }
+  if (last) {
 #pragma unroll
-  for (int c = 0; c < 6; ++c) new_state[(long long)j * 6 + c] = (int)x[c];
+    for (int k = 0; k < 6; ++k) new_state[(long long)j * 6 + k] = (int)x[k];
+  }
 }
 
 inline unsigned blocks(long long n) { return (unsigned)((n + THREADS - 1) / THREADS); }
@@ -751,10 +821,10 @@ int tb_binomial(const void* key, const void* count, const void* prob, void* out,
   return (int)cudaGetLastError();
 }
 
-// info[0..3] of TP's and TB's kernels: registers a thread, local memory
-// (spills and stack) bytes a thread, resident blocks an SM, threads a block.
-// which: 0 the round keys, 1 and 2 TP's passes, 3 and 4 TB's in float32,
-// 5 and 6 in float64
+// info[0..3] of TP's, TB's and TM's kernels: registers a thread, local
+// memory (spills and stack) bytes a thread, resident blocks an SM, threads a
+// block.  which: 0 the round keys, 1 and 2 TP's passes, 3 and 4 TB's in
+// float32, 5 and 6 in float64, 7 and 8 TM in float32 and float64
 int random_loops_kernel_info(int which, int* info) {
   switch (which) {
     case 0: return kernel_info(round_keys_kernel, KEY_THREADS, info);
@@ -764,20 +834,29 @@ int random_loops_kernel_info(int which, int* info) {
     case 4: return kernel_info(tb_kernel<float, true>, THREADS, info);
     case 5: return kernel_info(tb_kernel<double, false>, THREADS, info);
     case 6: return kernel_info(tb_kernel<double, true>, THREADS, info);
+    case 7: return kernel_info(tm_kernel<float>, THREADS, info);
+    case 8: return kernel_info(tm_kernel<double>, THREADS, info);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-int tm_mrg(const void* state, void* new_state, void* out, long long n, int n_streams, long long steps, int rem,
-           int dtype, void* stream) {
+// TM: one launch of n_streams x chunks threads; jump holds 18 words a chunk
+// (row c: A1^(c chunk), A2^(c chunk), row-major), unread with one chunk
+int tm_mrg(const void* state, void* new_state, void* out, const void* jump, int n_streams, int chunk, int chunks,
+           long long steps, int rem, int dtype, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (n_streams > 0) {
+  const long long threads = (long long)n_streams * chunks;
+  if (n_streams < 0 || chunk < 1 || chunks < 1 || threads >= (1ll << 31) || (chunks > 1 && !jump))
+    return (int)cudaErrorInvalidValue;
+  if (threads > 0) {
     if (dtype == 0)
-      tm_kernel<float><<<blocks(n_streams), THREADS, 0, s>>>((const int*)state, (int*)new_state, (float*)out, n,
-                                                            n_streams, steps, rem, 4.6566126e-10f);
+      tm_kernel<float><<<blocks(threads), THREADS, 0, s>>>((const int*)state, (int*)new_state, (float*)out,
+                                                           (const uint32_t*)jump, n_streams, chunk, (int)threads,
+                                                           steps, rem, 4.6566126e-10f);
     else
-      tm_kernel<double><<<blocks(n_streams), THREADS, 0, s>>>((const int*)state, (int*)new_state, (double*)out, n,
-                                                             n_streams, steps, rem, 4.656612873077392578125e-10);
+      tm_kernel<double><<<blocks(threads), THREADS, 0, s>>>((const int*)state, (int*)new_state, (double*)out,
+                                                            (const uint32_t*)jump, n_streams, chunk, (int)threads,
+                                                            steps, rem, 4.656612873077392578125e-10);
   }
   return (int)cudaGetLastError();
 }

@@ -9,7 +9,8 @@ and binomial values by ``jax.random`` under XLA
 Pallas call.  They were added because those draws are loops whose trip
 count depends on the data: as torch ops each round would read a flag on
 the host, which a captured step cannot do.  ``csrc/random_loops.cu`` runs
-one thread an element (a stream for TM) that leaves its loop on its own:
+one thread an element that leaves its loop on its own (TM: a thread a
+chunk of a stream's steps):
 
 - **TG**, gamma (Marsaglia and Tsang, in linear or log space): element
   ``i`` starts from ``split(key, n)[i]`` and loops until it accepts, as
@@ -24,8 +25,14 @@ one thread an element (a stream for TM) that leaves its loop on its own:
   ``jax.random.binomial``.
 - **TM**, MRG31k3p: a stream steps ``ceil(n / n_streams)`` times (the
   streams past ``n % n_streams`` one fewer), writes its draws at the
-  interleaved positions and its new state.  Exact integer arithmetic:
-  kernel, plain version and JAX package agree bit for bit.
+  interleaved positions and its new state.  The recurrence is linear, so
+  a stream's steps are cut into chunks of L (:func:`mrg_chunks`) and
+  thread (j, c) starts at step c L from the stream's state jumped by
+  ``A1^(c L)``, ``A2^(c L)`` (:func:`mrg_jump_table`, exact on the host,
+  uploaded once a shape and kept on the card); a step folds its sums mod
+  2^31 - 1 and 2^31 - 21069 in 32 bits, with no 64-bit ``%``.  Exact
+  integer arithmetic: kernel, plain version and JAX package agree bit for
+  bit.
 
 What the rejection loops of ``jax.random`` do that a thread must copy:
 ``_poisson_rejection`` and ``_btrs`` write ``k_out = select(accept, k,
@@ -66,7 +73,8 @@ rejection round an element to its first acceptance and over its walk back,
 one a Knuth or inversion round an element, and the shared keys once (three
 a rejection round to R; two a Knuth round past R, two an inversion round).
 An element whose draw cannot depend on its rounds (TB's nan and inf draws)
-is not walked and runs no inversion loop.
+is not walked and runs no inversion loop.  TM's bound is the bytes it
+writes (a step is about ten 32-bit operations, ``MRG_STEP_OPS`` there).
 
 Rounding: each ``a * b + c`` that XLA contracts into one fused
 multiply-add is ``torch.addcmul`` here (``fma``) and ``__fma_rn`` in the
@@ -85,12 +93,14 @@ raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 from aesara_tpu_torch.link.torch.kernels.threefry import M32, threefry2x32
 
 __all__ = ["gamma_draw", "gamma_plain", "poisson_draw", "poisson_plain", "binomial_draw", "binomial_plain",
-           "mrg_draw", "mrg_plain", "lgamma_xla", "fma", "rdiv", "SQUEEZE", "POISSON_KNUTH_MAX", "BINOMIAL_INVERSION_MAX"]
+           "mrg_draw", "mrg_plain", "mrg_jump_table", "mrg_chunks", "lgamma_xla", "fma", "rdiv", "SQUEEZE",
+           "POISSON_KNUTH_MAX", "BINOMIAL_INVERSION_MAX"]
 
 SQUEEZE = 0.0331                 # Marsaglia and Tsang's squeeze constant
 POISSON_KNUTH_MAX = 10.0         # Knuth below this λ, rejection at and above
@@ -118,6 +128,16 @@ LOG_SQRT_2PI = 0.91893853320467274178
 LOG_PI = 1.1447298858494002
 M1, M2 = 2147483647, 2147462579
 MRG_NORM = {"float64": 4.656612873077392578125e-10, "float32": 4.6566126e-10}
+#: one MRG31k3p step as a matrix on each component's triple (x_n-1, x_n-2,
+#: x_n-3), with its modulus
+MRG_STEP = ((((0, 4194304, 129), (1, 0, 0), (0, 1, 0)), M1), (((32768, 0, 32769), (1, 0, 0), (0, 1, 0)), M2))
+#: TM's chunks (:func:`mrg_chunks`): a stream of at most MRG_MIN_CHUNK steps
+#: is one thread's; a longer one is cut into chunks of at least that many
+#: steps, at most MRG_MAX_CHUNKS of them (the jump table's rows).  On the
+#: H100 chunks of 32 steps ran 2**20 values fastest, over 15,360 streams and
+#: over 64, and 2**24 values as fast as chunks of 61-64 (chunks of 4-64
+#: timed by ``chip_smoke.py --mrg-times``, PERF.md)
+MRG_MIN_CHUNK, MRG_MAX_CHUNKS = 32, 1 << 16
 
 
 # ---------------------------------------------------------------------------
@@ -483,6 +503,57 @@ def mrg_plain(state, n: int, dtype: str):
     return new_state, flat.to(fdt) * MRG_NORM[dtype]
 
 
+def _mat_mul_mod(a, b, m):
+    """``(a @ b) mod m`` of stacks of 3 x 3 uint64 matrices with entries
+    below ``m`` < 2**31: each product is below 2**62, each partial sum below
+    2**32."""
+    import numpy as np
+
+    out = np.zeros(np.broadcast_shapes(a.shape, b.shape), dtype=np.uint64)
+    for k in range(3):
+        out = (out + a[..., :, k:k + 1] * b[..., k:k + 1, :] % m) % m
+    return out
+
+
+def mrg_jump_table(chunk: int, rows: int):
+    """TM's jump table: row c holds ``A1^(c chunk) mod m1`` then ``A2^(c
+    chunk) mod m2`` (row-major, 18 uint32), exact, for c = 0 .. rows - 1;
+    applied to a stream's triples it gives the state after c chunk steps.
+    Rows are doubled: rows [b, 2b) are rows [0, b) times ``A^(b chunk)``."""
+    import numpy as np
+
+    halves = []
+    for a, m in MRG_STEP:
+        m = np.uint64(m)
+        step = np.eye(3, dtype=np.uint64)
+        base, e = np.asarray(a, dtype=np.uint64), chunk
+        while e:                              # step = A^chunk
+            if e & 1:
+                step = _mat_mul_mod(step, base, m)
+            base, e = _mat_mul_mod(base, base, m), e >> 1
+        out = np.eye(3, dtype=np.uint64)[None]
+        while out.shape[0] < rows:            # step = A^(len(out) chunk)
+            out = np.concatenate([out, _mat_mul_mod(out, step, m)])
+            step = _mat_mul_mod(step, step, m)
+        halves.append(out[:rows].reshape(rows, 9))
+    return np.concatenate(halves, axis=1).astype(np.uint32)
+
+
+def mrg_chunks(n_streams: int, steps: int, slots: int):
+    """(L, C): TM's chunk of steps a thread and chunks a stream for
+    ``n_streams`` streams of ``steps`` steps on a card of ``slots``
+    resident threads.  One chunk where the streams alone fill the card or
+    take at most MRG_MIN_CHUNK steps; else chunks of at least MRG_MIN_CHUNK
+    steps, as short as fill the card once, at most MRG_MAX_CHUNKS of them.
+    The last chunk keeps the rest: its blocks, launched last, are the
+    light ones (at 15,360 streams of 69 steps chunks of 32, 32 and 5 ran
+    10% faster on the H100 than three of 23, PERF.md)."""
+    if steps <= MRG_MIN_CHUNK or n_streams >= slots:
+        return max(steps, 1), 1
+    chunk = max(MRG_MIN_CHUNK, -(-steps * n_streams // slots), -(-steps // MRG_MAX_CHUNKS))
+    return chunk, -(-steps // chunk)
+
+
 # ---------------------------------------------------------------------------
 # the kernels
 # ---------------------------------------------------------------------------
@@ -497,7 +568,7 @@ def _library():
         lib.tg_gamma.argtypes = [p, p, p, q, i, i, p]
         lib.tp_poisson.argtypes = [p, p, p, q, p, p, p, i, p]
         lib.tb_binomial.argtypes = [p, p, p, p, q, i, p, p, p, i, p]
-        lib.tm_mrg.argtypes = [p, p, p, q, i, q, i, i, p]
+        lib.tm_mrg.argtypes = [p, p, p, p, i, i, i, q, i, i, p]
         lib.random_loops_kernel_info.argtypes = [i, ctypes.POINTER(i)]
         for fn in (lib.tg_gamma, lib.tp_poisson, lib.tb_binomial, lib.tm_mrg, lib.random_loops_kernel_info):
             fn.restype = i
@@ -646,9 +717,58 @@ def binomial_draw(key, count, prob):
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _slots(device) -> int:
+    """Threads the card can hold resident at once."""
+    import torch
+
+    props = torch.cuda.get_device_properties(device)
+    return props.multi_processor_count * props.max_threads_per_multi_processor
+
+
+def _jump_table(device, chunk: int, chunks: int):
+    """TM's jump table of ``chunks`` rows on ``device``, uploaded on its
+    first use and kept: a captured graph holds its address.  None for one
+    chunk (the kernel reads no row).  It cannot be uploaded while a CUDA
+    graph is captured."""
+    import torch
+
+    if chunks == 1:
+        return None
+    key = (device, chunk, chunks)
+    if key not in _JUMP_TABLES:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"mrg_draw: TM's jump table of {chunks} chunks of {chunk} steps is not on the card, "
+                               "and a CUDA graph is being captured, which cannot upload it: draw this shape once "
+                               "outside the capture first")
+        _JUMP_TABLES[key] = torch.from_numpy(mrg_jump_table(chunk, chunks).view("int32")).to(device)
+    return _JUMP_TABLES[key]
+
+
+_JUMP_TABLES: dict = {}
+
+
+def _mrg_launch(state, n: int, dtype: str, chunk: int):
+    """TM's launch on a contiguous (n_streams, 6) int32 CUDA ``state`` with
+    chunks of ``chunk`` steps: (new state, draws)."""
+    import torch
+
+    n_streams = state.shape[0]
+    steps = -(-n // n_streams) if n else 0
+    chunks = max(1, -(-steps // chunk))
+    jump = _jump_table(state.device, chunk, chunks)
+    new_state = torch.empty_like(state)
+    out = torch.empty(n, dtype=getattr(torch, dtype), device=state.device)
+    _check("mrg_draw", _library().tm_mrg(state.data_ptr(), new_state.data_ptr(), out.data_ptr(),
+                                         0 if jump is None else jump.data_ptr(), n_streams, chunk, chunks, steps,
+                                         n % n_streams, int(dtype == "float64"), _stream(state)))
+    return new_state, out
+
+
 def mrg_draw(state, n: int, dtype: str):
     """TM: (new state, ``n`` uniforms in ``dtype``) of ``mrg_uniform`` from
-    the (n_streams, 6) int32 ``state``."""
+    the (n_streams, 6) int32 ``state``, its components in [0, 2**31): one
+    launch, the stream's steps in chunks (:func:`mrg_chunks`)."""
     import torch
 
     if dtype not in MRG_NORM:
@@ -660,15 +780,11 @@ def mrg_draw(state, n: int, dtype: str):
         return mrg_plain(state, n, dtype)
     if state.device.type != "cuda":
         raise ValueError(f"mrg_draw: no kernel for a state on {state.device}")
-    state = state.contiguous()
     n_streams = state.shape[0]
-    steps = -(-n // n_streams) if n else 0
-    new_state = torch.empty_like(state)
-    out = torch.empty(n, dtype=getattr(torch, dtype), device=state.device)
-    _check("mrg_draw", _library().tm_mrg(state.data_ptr(), new_state.data_ptr(), out.data_ptr(), n, n_streams, steps,
-                                         n % n_streams, int(dtype == "float64"), _stream(state)))
+    chunk, _ = mrg_chunks(n_streams, -(-n // n_streams) if n else 0, _slots(state.device))
+    out = _mrg_launch(state.contiguous(), n, dtype, chunk)
     mrg_draw.launches += 1
-    return new_state, out
+    return out
 
 
 #: launches of each kernel, calls that took the plain version, and the

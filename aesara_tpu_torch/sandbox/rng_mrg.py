@@ -14,8 +14,9 @@ The recurrence (moduli m1 = 2^31-1, m2 = 2^31-21069):
 The host side (the jump matrices, ``multMatVect``, ``ff_2p134``,
 ``DotModulo``, ``guess_n_streams`` and the stream object) is exact NumPy
 integer arithmetic, as the JAX package's.  ``mrg_uniform`` draws on the
-device through TM (``link/torch/kernels/random_loops.py``: one thread a
-stream, its plain version on the CPU), lowered in
+device through TM (``link/torch/kernels/random_loops.py``: a thread a
+chunk of a stream's steps, jumped there by ``A^(c L)``; its plain version
+on the CPU), lowered in
 ``link/torch/random_dispatch.py``; its floats are the JAX package's
 lowering's, the uint32 draw converted to the output dtype and scaled by
 1/2^31 in it.

@@ -12,6 +12,7 @@ serve the sparse-input models, all through ``aesara_tpu_torch.function``.
     python3 chip_smoke.py --k4-times    # only K4 against torch.log_softmax, and its sweeps (see k4_times)
     python3 chip_smoke.py --k4-k7-times    # only K7's and K4's times, for two checkouts (see k4_k7_times)
     python3 chip_smoke.py --loop-times    # only TP's and TB's checks and times, for two checkouts (see loop_times)
+    python3 chip_smoke.py --mrg-times    # only TM's checks and times, for two checkouts (see mrg_times)
     python3 chip_smoke.py --reference    # only the setup and path (e), the reference configurations
     python3 chip_smoke.py --scan    # only the setup and path (f), Scan: config 4 and the LSTM
     python3 chip_smoke.py --decoder    # only the setup and path (g), the decoder LM served
@@ -265,14 +266,15 @@ k. (k) the CTC loss at Deep Speech 2's output width and the rest of the
    equal to 3 eager ones, with their launches; the step time of 10 steps
    back to back, the device kernels of a replay and its device time by
    group (K4, K1, GEMM, the DP's torch ops).  Then TG (fp64 and log
-   space, fp32), TP and TB (fp64, fp32) and TM (fp32, fp64) at 2**20
-   values against their plain versions on the same key and state, with
-   parameters reaching every branch, and TP and TB also at uniform ones
-   (poisson(37), binomial(1000, 0.5)): every differing element counted (0
-   required), device times, bounds (bytes, or the threefry hashes these
-   inputs need, at the card's 32-bit integer rate), TP's and TB's
-   registers, local bytes and resident blocks, and PyTorch's own samplers
-   at the same parameters as a note.  (k2) one
+   space, fp32), TP and TB (fp64, fp32) and TM (fp32, fp64; fp32 also at
+   64 streams and at the 4**6 edge states) at 2**20 values against their
+   plain versions on the same key and state, with parameters reaching
+   every branch, and TP and TB also at uniform ones (poisson(37),
+   binomial(1000, 0.5)): every differing element counted (0 required),
+   device times, bounds (bytes, or the threefry hashes these inputs need,
+   at the card's 32-bit integer rate), TP's, TB's and TM's registers,
+   local bytes and resident blocks, and PyTorch's own samplers at the same
+   parameters as a note.  (k2) one
    ``RandomStream`` and one captured function draw 2**20 values of every
    distribution the loop kernels' slice ported (float64; gamma in float32
    too; Poisson with float32 lambda), 3 calls each bitwise an eager twin's
@@ -561,6 +563,18 @@ N_CTC_STEPS, N_CTC_TIMED = 3, 10
 # standard errors; MRG_STEP_OPS integer operations a stream step (two
 # multiply-adds and a modulo a component, the difference and its wrap)
 RAND_N, MRG_STREAMS, N_RANDOM_CALLS, MOMENT_SE, MRG_STEP_OPS = 1 << 20, 15360, 3, 6.0, 10
+# TM's rows beside (k3)'s: the streams a user may pass (``nstreams``), and
+# MRG31k3p's moduli, whose edges make the edge states
+MRG_FEW_STREAMS, MRG_M1, MRG_M2 = 64, 2147483647, 2147462579
+# --mrg-times: TM's rows (label, streams or None for guess_n_streams,
+# values, dtype) and the chunk lengths its sweep launches
+MRG_TIME_ROWS = (("2**20 values, 15,360 streams", MRG_STREAMS, 1 << 20, "float32"),
+                 ("2**20 values, 15,360 streams", MRG_STREAMS, 1 << 20, "float64"),
+                 ("2**24 values, 15,360 streams", MRG_STREAMS, 1 << 24, "float32"),
+                 (f"2**20 values, {MRG_FEW_STREAMS} streams", MRG_FEW_STREAMS, 1 << 20, "float32"),
+                 ("1,000 values, guessed streams", None, 1000, "float32"),
+                 ("92,160 values, guessed streams", None, 92160, "float32"))
+MRG_SWEEP_CHUNKS = (4, 8, 16, 32, 64)
 LOOP_TIME_ROUNDS = 3        # --loop-times: profiled sessions a row
 # --loop-times: TP's and TB's small draws (values), timed as calls in a
 # CUDA graph; a multinomial of MULTINOMIAL_DRAWS draws over
@@ -4658,21 +4672,38 @@ def mismatches(got, want) -> int:
                for a, b in zip(got, want))
 
 
-def loop_kernel_info(lib) -> str:
-    """TP's and TB's kernels' registers, local bytes and resident blocks an
-    SM (``random_loops_kernel_info``), one line."""
+def mrg_state(n_streams: int):
+    """A seeded (n_streams, 6) int32 MRG31k3p state on the card."""
+    return torch.as_tensor(np.random.default_rng(SEED).integers(1, 2**31 - 30000, size=(n_streams, 6)),
+                           dtype=torch.int32, device="cuda")
+
+
+def mrg_edge_states():
+    """Every state whose components come from 0, 1, m2 - 1 and m1 - 1: 4**6
+    streams on the card."""
+    edges = np.array([0, 1, MRG_M2 - 1, MRG_M1 - 1])
+    return torch.as_tensor(np.stack(np.meshgrid(*[edges] * 6, indexing="ij"), -1).reshape(-1, 6),
+                           dtype=torch.int32, device="cuda")
+
+
+LOOP_KERNEL_NAMES = ("round keys", "TP pass 0", "TP pass 1", "TB fp32 pass 0", "TB fp32 pass 1", "TB fp64 pass 0",
+                     "TB fp64 pass 1", "TM fp32", "TM fp64")
+
+
+def loop_kernel_info(lib, which=range(len(LOOP_KERNEL_NAMES))) -> str:
+    """The loop kernels' registers, local bytes and resident blocks an SM
+    (``random_loops_kernel_info``), one line; a kernel the checkout's
+    library does not report (an older one's) says so."""
     import ctypes
 
-    names = ("round keys", "TP pass 0", "TP pass 1", "TB fp32 pass 0", "TB fp32 pass 1", "TB fp64 pass 0",
-             "TB fp64 pass 1")
     cells = []
-    for which, name in enumerate(names):
+    for k in which:
         info = (ctypes.c_int * 4)()
-        err = lib.random_loops_kernel_info(which, info)
-        if err != 0:
-            raise RuntimeError(f"random_loops_kernel_info({which}) failed: {err}")
+        err = lib.random_loops_kernel_info(k, info)
         regs, local, resident, threads = list(info)
-        cells.append(f"{name}: {regs} registers, {local} local bytes, {resident} blocks of {threads} an SM")
+        cells.append(f"{LOOP_KERNEL_NAMES[k]}: not reported (error {err})" if err else
+                     f"{LOOP_KERNEL_NAMES[k]}: {regs} registers, {local} local bytes, {resident} blocks of {threads} "
+                     "an SM")
     return "; ".join(cells)
 
 
@@ -4724,8 +4755,7 @@ def loop_kernel_checks() -> dict:
     key = torch.as_tensor(prng_key(SEED + 18)).cuda()
     dev = "cuda"
     gam = torch.as_tensor(_resized(LOOP_GAMMA), device=dev)
-    state = torch.as_tensor(np.random.default_rng(SEED).integers(1, 2**31 - 30000, size=(MRG_STREAMS, 6)),
-                            dtype=torch.int32, device=dev)
+    state = mrg_state(MRG_STREAMS)
     cases = {
         "TG": [(label, kernel, plain, gam.numel() * a.element_size()) for label, kernel, plain, a in (
             ("float64", lambda: rl.gamma_draw(key, gam, False), lambda w: rl.gamma_plain(key, gam, False, w), gam),
@@ -4736,6 +4766,13 @@ def loop_kernel_checks() -> dict:
         "TM": [(dt, lambda dt=dt: rl.mrg_draw(state, RAND_N, dt), lambda w, dt=dt: rl.mrg_plain(state, RAND_N, dt),
                 state.numel() * 4) for dt in ("float32", "float64")],
     }
+    # TM also at a user's few streams and at the edge states, its plain
+    # version on the CPU (a host loop of RAND_N / streams steps)
+    for label, st in ((f"float32, {MRG_FEW_STREAMS} streams", mrg_state(MRG_FEW_STREAMS)),
+                      ("float32, edge states", mrg_edge_states())):
+        cases["TM"].append((label, lambda st=st: rl.mrg_draw(st, RAND_N, "float32"),
+                            lambda w, st=st: tuple(t.to(dev) for t in rl.mrg_plain(st.cpu(), RAND_N, "float32")),
+                            st.numel() * 4))
     for name, label, args, read in tp_tb_rows():
         cases[name].append((label, lambda name=name, args=args: tp_tb_draw(name, key, args),
                             lambda w, name=name, args=args: tp_tb_plain(name, key, args, w), read))
@@ -4759,8 +4796,8 @@ def loop_kernel_checks() -> dict:
             torch.cuda.synchronize()
             bad = mismatches(got, kept[-1])
             out["mismatches"] += bad
-            # TG and TM timed at their first row (the others' times: PERF.md, path (k) alone)
-            ms = device_ms(kernel) if name in ("TP", "TB") or not out["rows"] else None
+            # TG timed at its first row (the others' times: PERF.md, path (k) alone)
+            ms = device_ms(kernel) if name != "TG" or not out["rows"] else None
             written = sum(t.numel() * t.element_size() for t in (got if isinstance(got, tuple) else (got,)))
             b_ms, b_by = bound(16 + read + written,
                                work.get("hashes", 0) * TF_HASH_OPS + (MRG_STEP_OPS * RAND_N if name == "TM" else 0),
@@ -4769,7 +4806,8 @@ def loop_kernel_checks() -> dict:
                                   "mismatches": bad, "hashes": work.get("hashes", 0), "rounds": work.get("rounds")}
             log(f"{name} {label} at {RAND_N} values: {bad} elements differ from the plain version; device ms "
                 f"{ms}, plain {plain_ms}, bound {b_ms:.4f} ({b_by}; {work.get('hashes', 0)} hashes"
-                f"{'' if work.get('rounds') is None else ', R ' + str(work['rounds'])})")
+                f"{'' if work.get('rounds') is None else ', R ' + str(work['rounds'])})"
+                f"{'' if ms is None else f', {b_ms / ms:.1%} of it'}")
         first = next(iter(out["rows"].values()))
         out.update(ms=first["ms"], plain_ms=first["plain_ms"], bound_ms=first["bound_ms"],
                    bound_by=first["bound_by"], library_ms=None)
@@ -4784,7 +4822,7 @@ def loop_kernel_checks() -> dict:
     log(f"PyTorch's samplers (other bits) at the same parameters, by CUDA events: _standard_gamma "
         f"{res['TG']['torch_standard_gamma_ms']} ms, poisson {res['TP']['torch_poisson_ms']} ms, binomial "
         f"{res['TB']['torch_binomial_ms']} ms")
-    log(f"TP and TB resources: {loop_kernel_info(rl._library())}")
+    log(f"TP, TB and TM resources: {loop_kernel_info(rl._library())}")
     if any(r["mismatches"] for r in res.values()):
         raise AssertionError(f"(k) a loop kernel differs from its plain version: "
                              f"{ {k: r['mismatches'] for k, r in res.items()} }")
@@ -5515,7 +5553,7 @@ def loop_times():
     lib = rl._library()
     log(f"random_loops nvcc build + load: {time.perf_counter() - t0:.2f} s")
     if hasattr(lib, "random_loops_kernel_info"):
-        log(f"TP and TB resources: {loop_kernel_info(lib)}")
+        log(f"loop kernels' resources: {loop_kernel_info(lib)}")
     key = torch.as_tensor(prng_key(SEED + 18)).cuda()
     bad_rows = []
 
@@ -5569,6 +5607,69 @@ def loop_times():
     print(smi)
     if bad_rows:
         raise AssertionError(f"--loop-times: rows that differ from their plain versions: {bad_rows}")
+
+
+def mrg_times():
+    """TM alone through its wrapper at MRG_TIME_ROWS, each row checked
+    bitwise (draws and new state) against its plain version on the CPU:
+    device ms (LOOP_TIME_ROUNDS profiled sessions of 20 calls), ms a call of
+    LOOP_GRAPH_CALLS calls replayed in a CUDA graph (the median of three
+    replays; launch gaps count), the bound (bytes: the state read and
+    written and the draws written, or MRG_STEP_OPS integer operations a
+    value at INT32_OPS) and its share, and TM's registers
+    (``random_loops_kernel_info``).  Where the checkout cuts streams into
+    chunks (``mrg_chunks``, ``_mrg_launch``), the rows' chunks and, at the
+    first four rows, a sweep of the chunk length over MRG_SWEEP_CHUNKS.  It
+    reads only the wrapper otherwise, so a copy of this script placed in
+    another checkout times that checkout's kernel: two checkouts are
+    compared in one call by running the two in turns (a, b, b, a)."""
+    from aesara_tpu_torch.link.torch.kernels import random_loops as rl
+    from aesara_tpu_torch.sandbox.rng_mrg import guess_n_streams
+
+    smi = card_line()
+    log(f"card: {smi}; torch {torch.__version__}; checkout {sys.path[0]}")
+    t0 = time.perf_counter()
+    lib = rl._library()
+    log(f"random_loops nvcc build + load: {time.perf_counter() - t0:.2f} s")
+    log(f"TM resources: {loop_kernel_info(lib, (7, 8))}")
+    chunked = hasattr(rl, "_mrg_launch")
+    bad_rows, wants = [], {}
+    for label, streams, n, dt in MRG_TIME_ROWS:
+        streams = streams or guess_n_streams((n,))
+        steps = -(-n // streams)
+        state = mrg_state(streams)
+        fn = lambda state=state, n=n, dt=dt: rl.mrg_draw(state, n, dt)  # noqa: E731
+        want = wants[label, dt] = rl.mrg_plain(state.cpu(), n, dt)
+        got = fn()
+        bad = mismatches(tuple(t.cpu() for t in got), want)
+        if bad:
+            bad_rows.append(f"{label} {dt}")
+        times = [device_ms(fn) for _ in range(LOOP_TIME_ROUNDS)]
+        timer = graph_timer(fn, LOOP_GRAPH_CALLS)
+        graph = statistics.median(timer() for _ in range(3))
+        b_ms, b_by = bound(2 * state.numel() * 4 + got[1].numel() * got[1].element_size(), MRG_STEP_OPS * n,
+                           INT32_OPS)
+        split = ""
+        if chunked:
+            chunk, chunks = rl.mrg_chunks(streams, steps, rl._slots(state.device))
+            split = f", chunks of {chunk}, {chunks} of them"
+        log(f"TM {label}, {dt} ({streams} streams x {steps} steps{split}): {bad} elements differ from the plain "
+            f"version; device ms {' '.join(f'{t:.4f}' for t in times)}; {graph:.4f} ms a call in a graph of "
+            f"{LOOP_GRAPH_CALLS}; bound {b_ms:.4f} ({b_by}), {b_ms / statistics.median(times):.1%} of it")
+        del timer, got
+        release()
+    for label, streams, n, dt in MRG_TIME_ROWS[:4] if chunked else ():
+        state, steps = mrg_state(streams), -(-n // streams)
+        for chunk in MRG_SWEEP_CHUNKS:
+            fn = lambda state=state, n=n, dt=dt, chunk=chunk: rl._mrg_launch(state, n, dt, chunk)  # noqa: E731
+            bad = mismatches(tuple(t.cpu() for t in fn()), wants[label, dt])
+            if bad:
+                bad_rows.append(f"{label} {dt} at chunks of {chunk}")
+            log(f"TM sweep {label}, {dt}, chunks of {chunk} ({-(-steps // chunk)} a stream): {bad} elements "
+                f"differ; device ms {device_ms(fn):.4f}")
+    print(smi)
+    if bad_rows:
+        raise AssertionError(f"--mrg-times: rows that differ from their plain versions: {bad_rows}")
 
 
 def attention_times():
@@ -5711,7 +5812,7 @@ def main():
     global SEED
     modes = {"--k6-sweep": k6_sweep, "--k2-walk-sweep": k2_walk_sweep, "--attention-times": attention_times,
              "--profile-check": profile_check, "--k7-sweep": k7_sweep, "--k4-times": k4_times,
-             "--k4-k7-times": k4_k7_times, "--loop-times": loop_times,
+             "--k4-k7-times": k4_k7_times, "--loop-times": loop_times, "--mrg-times": mrg_times,
              "--reference": reference_only, "--scan": scan_only, "--decoder": decoder_only,
              "--decoder-sampling": decoder_sampling_only, "--bf16": bf16_only, "--convnet": convnet_only,
              "--ctc-random": ctc_random_only}

@@ -1448,6 +1448,94 @@ def test_random_loops_kernels_match_their_plain_versions(cuda):
         assert torch.equal(ks, ps) and torch.equal(kv, pv)
 
 
+def _mrg_states(n_streams, seed):
+    """Seeded MRG31k3p states, each component below its modulus."""
+    from aesara_tpu_torch.link.torch.kernels.random_loops import M1, M2
+
+    rng = np.random.default_rng(seed)
+    return np.concatenate([rng.integers(0, M1, size=(n_streams, 3)), rng.integers(0, M2, size=(n_streams, 3))],
+                          axis=1).astype(np.int32)
+
+
+def _tm_draws(state, n, dtype, chunk):
+    """TM's (new state, draws) on the card: through the wrapper, one launch
+    (chunk None), or at chunks of ``chunk`` steps."""
+    from aesara_tpu_torch.link.torch.kernels import random_loops as rl
+
+    card = torch.from_numpy(state).cuda()
+    if chunk is not None:
+        return rl._mrg_launch(card, n, dtype, chunk)
+    before = rl.mrg_draw.launches
+    got = rl.mrg_draw(card, n, dtype)
+    assert rl.mrg_draw.launches == before + 1
+    return got
+
+
+@pytest.mark.parametrize("n_streams,n,chunk", [
+    (7, 0, None), (40, 13, None), (1, 1, None), (33, 33, None), (33, 34 * 33 - 5, None), (1, 4000, None),
+    (1, 4000, 3), (1, 4000, 61), (5, 997, 7), (64, 64 * 300, None), (64, 1 << 20, None), (15360, 1 << 20, None),
+    (15360, 1 << 20, 5), (15360, 1 << 20, 64), (15360, 15360 * 6, None), (166, 1000, None), (15360, 1 << 24, None),
+], ids=["n0", "fewer_than_streams", "one_step", "one_step_each", "ragged", "one_stream", "one_stream_L3",
+        "one_stream_L61", "ragged_L7", "64_streams", "64_streams_2e20", "15360x69", "15360x69_L5", "15360x69_L64",
+        "15360x6", "guessed_1000", "15360x1093"])
+def test_random_loops_tm_is_bitwise_over_the_grid(cuda, n_streams, n, chunk):
+    """TM (a thread a chunk of a stream's steps, jumped there by the jump
+    table) bit for bit against its plain version on the CPU, draws and new
+    state, in float32 and float64: through the wrapper, one launch a draw,
+    or at a given chunk length."""
+    from aesara_tpu_torch.link.torch.kernels import random_loops as rl
+
+    state = _mrg_states(n_streams, n_streams + n)
+    for dtype in ("float32", "float64"):
+        (ks, kv), (ps, pv) = _tm_draws(state, n, dtype, chunk), rl.mrg_plain(torch.from_numpy(state), n, dtype)
+        assert torch.equal(ks.cpu(), ps) and torch.equal(kv.cpu(), pv), dtype
+
+
+@pytest.mark.parametrize("n", [1, 4096 * 40 - 3])
+def test_random_loops_tm_at_the_edge_states(cuda, n):
+    """TM from every state whose components come from 0, 1, m2 - 1 and m1 -
+    1 (4**6 streams), through the wrapper and at chunks of 5 and 8 steps,
+    bit for bit against its plain version in float32 and float64."""
+    import itertools
+
+    from aesara_tpu_torch.link.torch.kernels import random_loops as rl
+
+    state = np.array(list(itertools.product((0, 1, rl.M2 - 1, rl.M1 - 1), repeat=6)), dtype=np.int32)
+    for dtype in ("float32", "float64"):
+        ps, pv = rl.mrg_plain(torch.from_numpy(state), n, dtype)
+        for chunk in (None, 5, 8):
+            ks, kv = _tm_draws(state, n, dtype, chunk)
+            assert torch.equal(ks.cpu(), ps) and torch.equal(kv.cpu(), pv), (dtype, chunk)
+
+
+def test_random_loops_tm_replays_from_a_cuda_graph(cuda):
+    """A TM draw captured into a CUDA graph (its launch counted there),
+    replayed on a state rewritten in place, bitwise the eager draw of that
+    state; a draw whose jump table was never uploaded raises while a graph
+    is captured, naming the cause."""
+    from aesara_tpu_torch.link.torch.kernels import random_loops as rl
+
+    n = 1 << 20
+    state = torch.from_numpy(_mrg_states(15360, 1)).cuda()
+    eager = rl.mrg_draw(state, n, "float32")
+    graph = torch.cuda.CUDAGraph()
+    before = rl.mrg_draw.launches
+    with torch.cuda.graph(graph):
+        captured = rl.mrg_draw(state, n, "float32")
+    assert rl.mrg_draw.launches == before + 1
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured[0], eager[0]) and torch.equal(captured[1], eager[1])
+    state.copy_(torch.from_numpy(_mrg_states(15360, 2)))
+    graph.replay()
+    eager = rl.mrg_draw(state, n, "float32")
+    torch.cuda.synchronize()
+    assert torch.equal(captured[0], eager[0]) and torch.equal(captured[1], eager[1])
+    with pytest.raises(RuntimeError, match="jump table"):
+        with torch.cuda.graph(torch.cuda.CUDAGraph()):
+            rl._mrg_launch(state, n, "float32", 23)
+
+
 @pytest.mark.parametrize("n", [1, 255, 257, 2**20 + 3])
 def test_random_loops_tp_and_tb_are_bitwise_at_every_cap(cuda, n):
     """TP and TB (the round keys once a launch, pass 0 to each element's

@@ -4,8 +4,13 @@ and TM's plain version in ``link/torch/kernels/random_loops.py``) against
 the JAX package's ``aesara_tpu/sandbox`` on the CPU, bit for bit: the
 draws of ``mrg_uniform`` (n a multiple of the stream count and not, float32
 and float64) and the states after each of three calls, every method of
-``MRG_RandomStream``, the host's jumps and ``DotModulo``.
+``MRG_RandomStream``, the host's jumps and ``DotModulo``.  TM's schedule
+(a thread a chunk of a stream's steps, jumped there by the jump table, its
+sums folded in 32 bits) is modelled here with int64 torch ops and held to
+TM's plain version and the JAX package's lowering.
 """
+
+import itertools
 
 import numpy as np
 import pytest
@@ -14,7 +19,9 @@ import torch
 import jax
 
 import aesara_tpu
+from aesara_tpu.link.jax.dispatch import jax_funcify
 from aesara_tpu.sandbox import rng_mrg as jm
+from aesara_tpu.tensor.type import TensorType
 
 import aesara_tpu_torch
 from aesara_tpu_torch.config import config
@@ -140,3 +147,186 @@ def test_reseeding_and_the_plain_version_against_the_host_recurrence():
     np.testing.assert_array_equal(draws.numpy(), np.asarray(want))
     # streams 0 and 1 stepped 3 times, stream 2 twice
     np.testing.assert_array_equal(new.numpy(), np.stack(rows).astype(np.int32))
+
+
+# ---------------------------------------------------------------------------
+# TM's schedule: jump tables, chunks and 32-bit folds
+# ---------------------------------------------------------------------------
+
+M1, M2, LOW31 = rl.M1, rl.M2, 2**31 - 1
+#: the H100's resident threads (132 SMs of 2048), and a card small enough
+#: that a few streams are cut into chunks
+SLOTS = (132 * 2048, 64)
+
+
+def _edge_states():
+    """Every state whose components come from 0, 1, m2 - 1 and m1 - 1 (the
+    last at or above m2 in the second triple): 4**6 streams."""
+    return np.array(list(itertools.product((0, 1, M2 - 1, M1 - 1), repeat=6)), dtype=np.int32)
+
+
+def _random_states(n_streams, seed):
+    rng = np.random.default_rng(seed)
+    return np.concatenate([rng.integers(0, M1, size=(n_streams, 3)), rng.integers(0, M2, size=(n_streams, 3))],
+                          axis=1).astype(np.int32)
+
+
+def _reduce_once(v, m):
+    """The kernel's conditional subtract, on a value it holds in 32 bits
+    that one subtract brings below ``m``."""
+    assert bool((v >= 0).all() and (v < 2**32).all() and (v < 2 * m).all())
+    return torch.where(v >= m, v - m, v)
+
+
+def _y1(x12, x13):
+    p = x12 * 4194304 + x13 * 129
+    return _reduce_once((p & LOW31) + (p >> 31), M1)
+
+
+def _y2(x21, x23):
+    p = x21 * 32768 + x23 * 32769
+    return _reduce_once((p & LOW31) + (p >> 31) * 21069, M2)
+
+
+def _row(a, x, first):
+    """A jump row times a triple, as the kernel folds it: the 64-bit sum P
+    of three products (below 3 * 2**62) held as P >> 31 and P & (2**31 -
+    1), folded twice."""
+    prods = a * x
+    lo = (prods & LOW31).sum(-1)
+    hi = (prods >> 31).sum(-1) + (lo >> 31)
+    lo = lo & LOW31
+    if first:
+        v = lo + hi
+        assert bool((v < 2**33).all())
+        return _reduce_once((v & LOW31) + (v >> 31), M1)
+    v = lo + hi * 21069
+    assert bool((v < 2**47).all())
+    return _reduce_once((v & LOW31) + (v >> 31) * 21069, M2)
+
+
+def _tm_model(state, n, dtype, chunk):
+    """TM's launch as int64 torch ops on the CPU: thread (j, c) jumps stream
+    j by row c of ``mrg_jump_table``, steps ``chunk`` times with the
+    kernel's folds and writes its draws; the thread holding the stream's
+    last own step writes its state (chunk 0 where it has none)."""
+    n_streams = state.shape[0]
+    steps = -(-n // n_streams) if n else 0
+    chunks = max(1, -(-steps // chunk))
+    table = torch.from_numpy(rl.mrg_jump_table(chunk, chunks).astype(np.int64))
+    ids = torch.arange(n_streams * chunks)
+    j, c = ids % n_streams, ids // n_streams
+    rem = n % n_streams
+    own = torch.where((j >= rem) & (rem != 0), steps - 1, steps)
+    t0 = c * chunk
+    last = c == torch.where(own > 0, torch.div(own - 1, chunk, rounding_mode="floor"), 0)
+    x = torch.from_numpy(state.astype(np.int64))[j]
+    a = table[c]
+    jumped = torch.stack([_row(a[:, 3 * i:3 * i + 3], x[:, :3], True) for i in range(3)]
+                         + [_row(a[:, 9 + 3 * i:12 + 3 * i], x[:, 3:], False) for i in range(3)], dim=1)
+    x = torch.where((c > 0)[:, None], jumped, x)
+    draws = torch.zeros(n, dtype=torch.int64)
+    for k in range(chunk):
+        t = t0 + k
+        live = t < own
+        y1, y2 = _y1(x[:, 1], x[:, 2]), _y2(x[:, 3], x[:, 5])
+        stepped = torch.stack([y1, x[:, 0], x[:, 1], y2, x[:, 3], x[:, 4]], dim=1)
+        x = torch.where(live[:, None], stepped, x)
+        d = y1 - y2
+        d = torch.where(d <= 0, d + M1, d)
+        draws[(t * n_streams + j)[live]] = d[live]
+    new_state = torch.from_numpy(state.copy())
+    new_state[j[last]] = x[last].to(torch.int32)
+    fdt = torch.float64 if dtype == "float64" else torch.float32
+    return new_state, draws.to(fdt) * rl.MRG_NORM[dtype]
+
+
+def test_jump_table_rows_are_the_stepped_states():
+    """Row c of ``mrg_jump_table(L, rows)`` applied to a state (exactly, by
+    the host's ``_mat_vec_mod``) is the state after c L steps of TM's plain
+    step, from seeded states and from every edge state, at several L; its
+    entries lie below their moduli and row 0 is the identity."""
+    states = np.concatenate([_random_states(64, 5), _edge_states()])
+    comps = tuple(torch.from_numpy(states[:, k].astype(np.int64)) for k in range(6))
+    for chunk, rows in ((3, 9), (8, 16), (61, 5), (1093, 3)):
+        table = rl.mrg_jump_table(chunk, rows)
+        assert table.shape == (rows, 18) and table.dtype == np.uint32
+        assert (table[:, :9] < M1).all() and (table[:, 9:] < M2).all()
+        np.testing.assert_array_equal(table[0], np.eye(3, dtype=np.uint32).ravel().tolist() * 2)
+        stepped = comps
+        for c in range(1, rows):
+            for _ in range(chunk):
+                stepped = rl._mrg_step(stepped)
+            want = torch.stack(stepped, dim=1).numpy()
+            a1, a2 = (table[c, 9 * h:9 * h + 9].astype(np.int64).reshape(3, 3) for h in (0, 1))
+            for i in range(0, len(states), 97):
+                got = np.concatenate([pm._mat_vec_mod(a1, states[i, :3], M1), pm._mat_vec_mod(a2, states[i, 3:], M2)])
+                np.testing.assert_array_equal(got, want[i], err_msg=f"L {chunk} row {c} state {states[i]}")
+
+
+@pytest.mark.parametrize("n_streams,n,chunk", [
+    (7, 0, None), (40, 13, None), (1, 1, None), (33, 33, None), (33, 34 * 33 - 5, None),
+    (1, 4000, None), (1, 4000, 3), (1, 4000, 61), (5, 997, 7), (64, 64 * 300, None),
+    (15360, 1 << 20, None), (15360, 1 << 20, 5), (15360, 15360 * 6, None), (166, 1000, None),
+], ids=["n0", "fewer_than_streams", "one_step", "one_step_each", "ragged", "one_stream", "one_stream_L3",
+        "one_stream_L61", "ragged_L7", "64_streams", "15360x69", "15360x69_L5", "15360x6", "guessed_1000"])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_tm_schedule_is_the_plain_version_and_the_jax_packages(n_streams, n, chunk, dtype):
+    """TM's launch modelled on the CPU (its chunks from ``mrg_chunks`` at
+    the H100's resident threads and at a card of 64 threads, or a given
+    L) bit for bit against ``mrg_plain`` and the JAX package's lowering of
+    ``mrg_uniform`` (a ``lax.scan``): draws and new states, from seeded
+    states."""
+    state = _random_states(n_streams, n_streams + n)
+    steps = -(-n // n_streams) if n else 0
+    chunks = {rl.mrg_chunks(n_streams, steps, slots)[0] for slots in SLOTS} if chunk is None else {chunk}
+    want_state, want = rl.mrg_plain(torch.from_numpy(state), n, dtype)
+    js, jd = jax_funcify(jm.mrg_uniform(TensorType(dtype, (None,))))(state, np.array([n]))
+    np.testing.assert_array_equal(np.asarray(js), want_state.numpy())
+    np.testing.assert_array_equal(np.asarray(jd), want.numpy())
+    for L in chunks:
+        got_state, got = _tm_model(state, n, dtype, L)
+        assert got.dtype == want.dtype
+        assert torch.equal(got_state, want_state), L
+        assert torch.equal(got, want), L
+
+
+@pytest.mark.parametrize("n", [1, 4096, 4096 * 40 - 3])
+def test_tm_schedule_at_the_edge_states(n):
+    """Every edge state (components 0, 1, m2 - 1, m1 - 1) as a stream of
+    one draw: TM's modelled launch (one step, then 40 in chunks of 8 and of
+    5) bit for bit against ``mrg_plain``, and against the JAX package's
+    lowering where the state is one ``MRG_RandomStream`` admits (its second
+    triple below m2)."""
+    state = _edge_states()
+    for dtype in ("float32", "float64"):
+        want_state, want = rl.mrg_plain(torch.from_numpy(state), n, dtype)
+        steps = -(-n // len(state))
+        for L in {rl.mrg_chunks(len(state), steps, 64)[0], 5}:
+            got_state, got = _tm_model(state, n, dtype, L)
+            assert torch.equal(got_state, want_state) and torch.equal(got, want), (dtype, L)
+        admitted = (state[:, 3:] < M2).all(axis=1)
+        js, jd = jax_funcify(jm.mrg_uniform(TensorType(dtype, (None,))))(state[admitted], np.array([n]))
+        ps, pd = rl.mrg_plain(torch.from_numpy(state[admitted]), n, dtype)
+        np.testing.assert_array_equal(np.asarray(js), ps.numpy())
+        np.testing.assert_array_equal(np.asarray(jd), pd.numpy())
+
+
+def test_tm_chunks():
+    """``mrg_chunks``: one chunk for short streams and for streams that fill
+    the card alone; else chunks of at least ``MRG_MIN_CHUNK`` steps that
+    cover the stream, at most ``MRG_MAX_CHUNKS`` of them, the last holding
+    the rest."""
+    h100 = SLOTS[0]
+    assert rl.mrg_chunks(15360, 6, h100) == (6, 1)
+    assert rl.mrg_chunks(166, 7, h100) == (7, 1)
+    assert rl.mrg_chunks(7, 0, h100) == (1, 1)
+    assert rl.mrg_chunks(h100, 50, h100) == (50, 1)
+    for n_streams, steps in ((15360, 69), (15360, 1093), (64, 16384), (1, 1 << 24), (3, 100)):
+        chunk, chunks = rl.mrg_chunks(n_streams, steps, h100)
+        assert chunks > 1 and chunk >= rl.MRG_MIN_CHUNK and chunks <= rl.MRG_MAX_CHUNKS
+        assert (chunks - 1) * chunk < steps <= chunks * chunk
+    assert rl.mrg_chunks(15360, 69, h100) == (32, 3)
+    assert rl.mrg_chunks(15360, 1093, h100) == (63, 18)
+    assert rl.mrg_chunks(64, 16384, h100) == (32, 512)
+    assert rl.mrg_chunks(1, 1 << 24, h100) == (256, 1 << 16)
