@@ -30,5 +30,9 @@ from aesara_tpu_torch.ifelse import ifelse, register_ifelse_rewrites  # noqa: F4
 register_inline_ofg()
 register_ifelse_rewrites()
 
+# ``scan`` is the function, as in the JAX package; the subpackage imported
+# above stays reachable by its module path (``aesara_tpu_torch.scan.basic``)
+from aesara_tpu_torch.scan.basic import scan  # noqa: E402,F811
+
 __all__ = ["config", "tensor", "sparse", "function", "Function", "In", "Out", "Mode", "TORCH",
-           "get_mode", "shared", "grad", "jacobian", "hessian", "TorchLinker", "ifelse"]
+           "get_mode", "shared", "grad", "jacobian", "hessian", "TorchLinker", "ifelse", "scan"]

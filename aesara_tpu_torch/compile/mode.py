@@ -92,7 +92,9 @@ class Mode:
 
 
 TORCH = Mode(TorchLinker(), OPT_FAST_RUN)
-predefined_modes = {"TORCH": TORCH}
+# ``FAST_RUN`` is the JAX package's name for the same rewrites on its own
+# linker (``aesara_tpu/compile/mode.py``), so its callers run verbatim here
+predefined_modes = {"TORCH": TORCH, "FAST_RUN": TORCH}
 
 
 def get_mode(mode: Optional[Union[str, Mode]]) -> Mode:

@@ -18,11 +18,14 @@ output and the row logsumexp (natural log), then launches the two
 backward kernels.  Every product of both kernels runs on the tensor cores
 with ``mma.sync``: fp32 in 3xTF32 (each operand split into two TF32
 halves, three TF32 products, so fp32 stays close to fp32), bf16 as one
-bf16 product, both with fp32 sums.  They use no atomics: two calls give
-the same bits.  They stage rows by 16-byte ``cp.async``, so a panel whose
-rows are not a multiple of 16 bytes, or not 16-byte aligned, goes to them
-padded with zero columns (:func:`cp_async_rows`), and the results are cut
-back.
+bf16 product, fp16 as fp16 products with the register-held P and dS taken
+as two fp16 terms (hi + lo), all with fp32 sums.  They use no atomics: two
+calls give the same bits.  They take D <= 256 and any BH whose blocks of
+64 rows number under 2**31; on the card an fp64 panel, or a wider one,
+raises (no CUDA input takes the plain version).  They stage rows by
+16-byte ``cp.async``, so a panel whose rows are not a multiple of 16
+bytes, or not 16-byte aligned, goes to them padded with zero columns
+(:func:`cp_async_rows`), and the results are cut back.
 """
 
 from __future__ import annotations
@@ -38,7 +41,9 @@ def _operand(x, dtype):
     """``x`` rounded to bfloat16 and widened again where the inputs are
     bfloat16: the kernels round P (and K3 dS) so before their second
     product, as the operands are, and so do the reference's flash kernels
-    (their ``dot_dtype``, ``aesara_tpu/link/jax/pallas_kernels.py:205,403``)."""
+    (their ``dot_dtype``, ``aesara_tpu/link/jax/pallas_kernels.py:205,403``).
+    In float16 the kernels take P and dS as two fp16 terms, hi + lo, which
+    keeps about 22 bits, and the reference keeps fp32 products: no rounding."""
     import torch
 
     return x.to(dtype).to(x.dtype) if dtype == torch.bfloat16 else x
@@ -48,8 +53,8 @@ def attention_plain(q, k, v, causal: bool, scale: float, with_lse: bool = False)
     """softmax(q kᵀ · scale [+ causal mask]) v in fp32 (fp64 for fp64
     inputs), cast back to the input dtype; with ``with_lse`` also the row logsumexp, (BH, T) fp32 in
     natural-log units.  The composition of ``_attention_ref``
-    (``aesara_tpu/tensor/nnet/attention.py:29-40``); for bfloat16 inputs
-    P is rounded to bfloat16 before P·V, as K2 and the reference's flash
+    (``aesara_tpu/tensor/nnet/attention.py:29-40``); for bfloat16 inputs P
+    is rounded to bfloat16 before P·V, as K2 and the reference's flash
     kernel round it."""
     import torch
 
@@ -70,10 +75,9 @@ def attention_grads_plain(q, k, v, do, causal: bool, scale: float):
     ``do``, by the formulas the kernel applies, in fp32 (fp64 for fp64
     inputs), cast back to the input dtype: P = exp(scale·QKᵀ − lse),
     D = rowsum(dO ⊙ O), dS = P ⊙ (dO Vᵀ − D), dQ = scale·dS K,
-    dK = scale·dSᵀ Q, dV = Pᵀ dO.  For bfloat16 inputs it rounds where K2
-    and K3 (and the reference's flash kernels) round: O is the forward's
-    output in bfloat16, and P and dS are rounded to bfloat16 before their
-    second products."""
+    dK = scale·dSᵀ Q, dV = Pᵀ dO.  It rounds where K2 and K3 round: O is
+    the forward's output in the input dtype, and for bfloat16 inputs P and
+    dS are rounded to bfloat16 before their second products."""
     import torch
 
     acc = torch.float64 if q.dtype == torch.float64 else torch.float32
@@ -84,7 +88,7 @@ def attention_grads_plain(q, k, v, do, causal: bool, scale: float):
         mask = torch.ones((T, T), dtype=torch.bool, device=q.device).tril()
         s = s.masked_fill(~mask, float("-inf"))
     p = torch.exp(s - torch.logsumexp(s, dim=-1, keepdim=True))
-    o = _operand(torch.einsum("bts,bsd->btd", _operand(p, q.dtype), va), q.dtype)
+    o = torch.einsum("bts,bsd->btd", _operand(p, q.dtype), va).to(q.dtype).to(acc)
     ds = p * (torch.einsum("btd,bsd->bts", da, va) - (da * o).sum(-1, keepdim=True))
     dq = torch.einsum("bts,bsd->btd", _operand(ds, q.dtype), ka) * scale
     dk = torch.einsum("bts,btd->bsd", _operand(ds, q.dtype), qa) * scale
@@ -113,22 +117,35 @@ def _library(name: str, defines=()):
     return lib
 
 
+#: the kernels' dtype codes (their C entry points' ``dtype``)
+_DTYPE_CODES = {"float32": 0, "bfloat16": 1, "float16": 2}
+#: the widest head the kernels take, and their blocks' limit (one grid
+#: dimension of ceil(T / 64) * BH blocks)
+MAX_D = 256
+MAX_BLOCKS = 2**31 - 1
+
+
+def _dtype_code(t) -> int:
+    return _DTYPE_CODES[str(t.dtype).split(".")[-1]]
+
+
 def _check_cuda_panels(name: str, *ts):
     """Raise unless the tensors are (BH, T, D) panels of one shape, one
-    dtype (float32 or bfloat16) and one CUDA device that the kernels take."""
-    import torch
-
+    dtype (float32, bfloat16 or float16) and one CUDA device that the
+    kernels take."""
     q = ts[0]
     if any(t.device != q.device for t in ts) or q.device.type != "cuda":
         raise ValueError(f"{name}: operands on {', '.join(str(t.device) for t in ts)}")
-    if any(t.dtype != q.dtype for t in ts) or q.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"{name} takes float32 or bfloat16, got {', '.join(str(t.dtype) for t in ts)}")
+    if any(t.dtype != q.dtype for t in ts) or str(q.dtype).split(".")[-1] not in _DTYPE_CODES:
+        raise TypeError(f"{name} takes float32, bfloat16 or float16 on the card, got "
+                        f"{', '.join(str(t.dtype) for t in ts)}")
     if q.dim() != 3 or any(t.shape != q.shape for t in ts):
         raise ValueError(f"{name} needs equal (BH, T, D) shapes, got "
                          f"{', '.join(str(tuple(t.shape)) for t in ts)}")
     BH, T, D = q.shape
-    if D > 128 or BH > 65535:
-        raise ValueError(f"{name} kernel takes D <= 128 and BH <= 65535, got {tuple(q.shape)}")
+    if D > MAX_D or -(-T // 64) * BH > MAX_BLOCKS:
+        raise ValueError(f"{name} kernel takes D <= {MAX_D} and ceil(T / 64) * BH <= {MAX_BLOCKS}, got "
+                         f"{tuple(q.shape)}")
 
 
 def cp_async_width(D: int, itemsize: int) -> int:
@@ -163,7 +180,7 @@ def _flash_fwd(q, k, v, causal: bool, scale: float, with_lse: bool):
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                         None if lse is None else lse.data_ptr(), BH, T, width, float(scale),
-                        int(bool(causal)), 0 if q.dtype == torch.float32 else 1, stream)
+                        int(bool(causal)), _dtype_code(q), stream)
     if err != 0:
         raise RuntimeError(f"flash_fwd launch failed: {lib.flash_fwd_error_string(err).decode()}")
     flash_attention.launches += 1
@@ -173,8 +190,8 @@ def _flash_fwd(q, k, v, causal: bool, scale: float, with_lse: bool):
 def flash_attention(q, k, v, causal: bool = False, scale: Optional[float] = None,
                     with_lse: bool = False):
     """Attention over (BH, T, D) panels: the CUDA kernel for CUDA tensors
-    (3xTF32 tensor-core products for fp32, deterministic), the plain
-    version for CPU tensors."""
+    (3xTF32 tensor-core products for fp32, bf16 and fp16 ones, P as hi +
+    lo in fp16; deterministic), the plain version for CPU tensors."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if all(t.device.type == "cpu" for t in (q, k, v)):
@@ -219,13 +236,14 @@ def flash_attention_grads(q, k, v, do, causal: bool = False, scale: Optional[flo
     q, k, v, do = (cp_async_rows(t.contiguous(), width) for t in (q, k, v, do))
     o, lse = _flash_fwd(q, k, v, causal, scale, with_lse=True)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty((BH, T), dtype=torch.float32, device=q.device)
+    # D = rowsum(dO * O), then (fp16) each row's largest |dO|: the kernels' scratch
+    delta = torch.empty((2, BH, T), dtype=torch.float32, device=q.device)
     lib = _library("flash_bwd")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.flash_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
                         lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                         delta.data_ptr(), BH, T, width, float(scale), int(bool(causal)),
-                        0 if q.dtype == torch.float32 else 1, stream)
+                        _dtype_code(q), stream)
     if err != 0:
         raise RuntimeError(f"flash_bwd launch failed: {lib.flash_bwd_error_string(err).decode()}")
     flash_attention_grads.launches += 1

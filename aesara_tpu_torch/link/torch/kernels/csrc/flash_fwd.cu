@@ -14,8 +14,10 @@
 //   - fp32 inputs: m16n8k8 TF32 in 3xTF32 (hi/lo split, small terms first),
 //     so fp32 stays close to fp32: 103 GFLOP of TF32 at the flagship shape,
 //     0.21 ms at 495 TFLOP/s.
-//   - bf16 inputs: m16n8k16 bf16 with fp32 sums; P is rounded to bf16 for
-//     P V, as the operands are.
+//   - bf16 and fp16 inputs: m16n8k16 in the input type with fp32 sums; P
+//     is rounded to bf16 for P V, as the operands are, or in fp16 taken as
+//     two fp16 terms, hi + lo (flash_mma.cuh).  The scores stay fp32: an
+//     fp16 panel whose unscaled scores pass 65,504 is right.
 // wgmma with TMA would take the staging and the operand reads off the
 // issuing warps; that is later work (ROADMAP.md).
 //
@@ -23,10 +25,15 @@
 // max, denominator and output across a sequential grid axis in VMEM
 // scratch; here one block of 4 warps owns (bh, 64 query rows), each warp 16
 // of them, and walks the keys in tiles of WALK rows, a loop inside the
-// block, with no atomics, so two calls give the same bits:
+// block, with no atomics, so two calls give the same bits.  The blocks are
+// one grid dimension, (bh, row block) in turn, so any BH whose blocks
+// number under 2^31 launches (gridDim.y stops at 65,535):
 //   - The owned Q rows are split into their A fragments once, before the
-//     walk: into registers (fp32 at D <= 64, bf16), or for fp32 at D <= 128
-//     into hi and lo planes in shared memory, which the products read.
+//     walk: into registers (fp32 at D <= 64, bf16 and fp16 at D <= 128), or
+//     for fp32 at D <= 128 into hi and lo planes in shared memory, which
+//     the products read.  At D <= 256 they stay as they landed and each
+//     tile reads them again (Q's fragments would take 64 registers, its
+//     fp32 planes 133 KB beside the walked tiles).
 //   - Each tile: S = Q K^T (16 x WALK a warp, in registers), the online
 //     softmax on it, then O += P V with P in registers as the A fragment
 //     of the second product (flash_mma.cuh).  The 16 x DMAX accumulator O
@@ -35,8 +42,11 @@
 //     __shfl_xor_sync (1 and 2); the denominator is kept a partial sum per
 //     lane and added across the quad once, at the end.
 //   - The next K and V tiles land by 16-byte cp.async while the current one
-//     is computed; fp32 splits them once a block into hi/lo planes, bf16
-//     reads them where they landed (two landing buffers in turn).
+//     is computed; fp32 splits them once a block into hi/lo planes, bf16 and
+//     fp16 read them where they landed (two landing buffers in turn).
+// At D <= 256 the 16 x 256 fp32 accumulator O is 128 registers a thread:
+// one block an SM, walked tiles of 16 rows (fp32: the hi and lo planes of
+// 16 K and V rows are 100 KB) or 32 (bf16, fp16).
 // Scores are taken in log2 units (scale * log2(e) folded in) so the softmax
 // runs on exp2f; a row with nothing valid yet keeps m = -inf and its
 // exponents are taken against 0, so every p is 0.
@@ -46,9 +56,9 @@
 // zero-filled by the copies; entries past T or above the diagonal are
 // masked only on the tiles that hold any.  A fully masked row gets output
 // 0 and lse 0, as the Pallas kernel gives.  The products loop over all DMAX
-// columns (zero past D) with no test on D inside.  D <= 128 (variants for
-// D <= 64 and D <= 128).  Inputs must be contiguous (BH, T, D), fp32 or
-// bf16, all of one dtype, with D a multiple of 16 bytes and q, k, v, o
+// columns (zero past D) with no test on D inside.  D <= 256 (variants for
+// D <= 64, 128 and 256).  Inputs must be contiguous (BH, T, D), fp32, bf16
+// or fp16, all of one dtype, with D a multiple of 16 bytes and q, k, v, o
 // 16-byte aligned; flash_attention pads other panels with zero columns.
 
 #include <math.h>
@@ -58,7 +68,8 @@
 // Rows of a walked key tile in the D <= 64 variants (the encoder's): 32 in
 // fp32, 64 in bf16, the fastest of 16, 32 and 64 on the H100 by
 // `chip_smoke.py --k2-walk-sweep`, which builds each with FLASH_FWD_WALK
-// set (PERF.md has the table).  At D <= 128 the walk is 32 rows.
+// set (PERF.md has the table).  At D <= 128 the walk is 32 rows, at D <= 256
+// 16 (fp32) or 32.
 #ifdef FLASH_FWD_WALK
 constexpr int WALK_F32 = FLASH_FWD_WALK, WALK_BF16 = FLASH_FWD_WALK;
 #else
@@ -69,24 +80,31 @@ namespace {
 
 constexpr float LN2 = 0.6931471805599453f;
 
+// where the owned rows' A fragments are kept: registers, split hi and lo
+// planes in shared memory (fp32), or the rows as they landed
+enum QMode { Q_REGS, Q_PLANES, Q_LANDED };
+
 template <typename T, int DMAX>
 struct Fwd {
   using M = Mma<T>;
   static constexpr bool SPLIT = M::SPLIT;
   static constexpr int P = pitch<T, DMAX>();
-  static constexpr int WALK = DMAX > 64 ? 32 : SPLIT ? WALK_F32 : WALK_BF16;
-  // Q's A fragments in registers, except fp32 at D <= 128 (128 of them)
-  static constexpr bool QREGS = !SPLIT || DMAX <= 64;
+  static constexpr int WALK = DMAX > 128 ? (SPLIT ? 16 : 32) : DMAX > 64 ? 32 : SPLIT ? WALK_F32 : WALK_BF16;
+  // Q's A fragments in registers, but fp32 at D <= 128 (128 of them) and
+  // every type at D <= 256
+  static constexpr QMode QMODE = DMAX > 128 ? Q_LANDED : !SPLIT || DMAX <= 64 ? Q_REGS : Q_PLANES;
   using KV = Walked<T, DMAX, WALK>;
-  // Q's shared memory: bf16 its own landing tile; fp32 held in registers
-  // lands in the walked planes, not yet in use; fp32 in planes: the hi plane
-  // over its landing tile, then the lo plane
-  static constexpr size_t Q_BYTES = !SPLIT ? sizeof(T) * OWN * P : QREGS ? 0 : 2 * sizeof(float) * OWN * P;
+  // Q's shared memory: bf16, fp16 and landed fp32 its own landing tile;
+  // fp32 held in registers lands in the walked planes, not yet in use;
+  // fp32 in planes: the hi plane over its landing tile, then the lo plane
+  static constexpr size_t Q_BYTES = QMODE == Q_PLANES ? 2 * sizeof(float) * OWN * P
+                                    : QMODE == Q_REGS && SPLIT ? 0 : sizeof(T) * OWN * P;
   static constexpr size_t SMEM = Q_BYTES + KV::BYTES;
   // resident blocks an SM asked of ptxas (registers); fp32 at D <= 128 is
-  // held to one by its shared memory
-  static constexpr int MIN_BLOCKS = !SPLIT ? (DMAX <= 64 ? 4 : 3) : DMAX > 64 ? 1 : WALK >= 64 ? 2 : 3;
-  static_assert(!(SPLIT && QREGS) || KV::PLANES * WALK >= OWN, "Q lands in the walked planes");
+  // held to one by its shared memory, D <= 256 by its registers
+  static constexpr int MIN_BLOCKS = DMAX > 128 ? 1 : !SPLIT ? (DMAX <= 64 ? 4 : 3)
+                                    : DMAX > 64 ? 1 : WALK >= 64 ? 2 : 3;
+  static_assert(!(SPLIT && QMODE == Q_REGS) || KV::PLANES * WALK >= OWN, "Q lands in the walked planes");
   static_assert(SMEM <= 232448, "a block's shared memory");
   static_assert(WALK % 16 == 0 && WALK <= OWN, "walked tiles of 16, 32 or 64 rows");
 };
@@ -96,6 +114,9 @@ __device__ __forceinline__ void store2(float* p, float a, float b) {
 }
 __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store2(__half* p, float a, float b) {
+  *reinterpret_cast<__half2*>(p) = __floats2half2_rn(a, b);
 }
 
 template <typename T, int DMAX>
@@ -108,11 +129,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   constexpr int P = F::P, WALK = F::WALK;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const typename F::KV kv(smem_raw + F::Q_BYTES);   // K, V
-  T* Qs = F::SPLIT && F::QREGS ? reinterpret_cast<T*>(kv.planes) : reinterpret_cast<T*>(smem_raw);
+  T* Qs = F::SPLIT && F::QMODE == Q_REGS ? reinterpret_cast<T*>(kv.planes) : reinterpret_cast<T*>(smem_raw);
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int bh = blockIdx.y, w0 = warp * 16;
-  const int q0 = (causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * OWN;
+  // block (bh, row block), the row blocks of one bh in turn
+  const int n_qb = (T_len + OWN - 1) / OWN;
+  const int bh = blockIdx.x / n_qb, qb = blockIdx.x % n_qb, w0 = warp * 16;
+  const int q0 = (causal ? n_qb - 1 - qb : qb) * OWN;
   const size_t base = (size_t)bh * T_len * D;
   const int n_tiles = ((causal ? min(T_len, q0 + OWN) : T_len) + WALK - 1) / WALK;
 
@@ -123,9 +146,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   cp_async_wait_all();
 
   // the owned rows' A fragments
-  typename M::A qa[F::QREGS ? DMAX / M::KS : 1];
+  typename M::A qa[F::QMODE == Q_REGS ? DMAX / M::KS : 1];
   const uint32_t* Qhi = reinterpret_cast<const uint32_t*>(smem_raw) + w0 * P;
-  if constexpr (!F::QREGS) {
+  if constexpr (F::QMODE == Q_PLANES) {
     // split the pieces of Q this thread copied: hi over them, lo OWN * P on
     constexpr int E = 4, CPR = DMAX / E;
 #pragma unroll
@@ -137,7 +160,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     }
   }
   __syncthreads();   // Q and tile 0 have landed
-  if constexpr (F::QREGS) {
+  if constexpr (F::QMODE == Q_REGS) {
 #pragma unroll
     for (int j = 0; j < DMAX / M::KS; ++j) qa[j] = M::load_a(Qs + w0 * P, P, j * M::KS, g, t);
     if constexpr (F::SPLIT) __syncthreads();   // every warp holds its Q before tile 0 is split over it
@@ -168,11 +191,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     for (int n = 0; n < WALK / 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-    if constexpr (F::QREGS)
+    if constexpr (F::QMODE == Q_REGS)
       mma_a_rows<T, DMAX, WALK>(s, [&](int k0) { return qa[k0 / M::KS]; }, Kp, g, t);
-    else
+    else if constexpr (F::QMODE == Q_PLANES)
       mma_a_rows<T, DMAX, WALK>(
           s, [&](int k0) { return M::load_a_split(Qhi, P, OWN * P, k0, g, t); }, Kp, g, t);
+    else
+      mma_rows_rows<T, DMAX, WALK>(s, Qs + w0 * P, Kp, g, t);
 
     // online softmax; masks only on a tile past T or across the warp's diagonal
     const int k0 = kt * WALK;
@@ -250,8 +275,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
                    int T_len, int D, float scale, int causal, cudaStream_t stream) {
   cudaError_t err = set_smem_limit<T, DMAX>();
   if (err != cudaSuccess) return err;
-  const dim3 grid((T_len + OWN - 1) / OWN, BH);
-  flash_fwd_kernel<T, DMAX><<<grid, THREADS, Fwd<T, DMAX>::SMEM, stream>>>(
+  const int blocks = (T_len + OWN - 1) / OWN * BH;   // under 2^31: see flash_fwd
+  flash_fwd_kernel<T, DMAX><<<blocks, THREADS, Fwd<T, DMAX>::SMEM, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), lse, T_len, D, scale * LOG2E, causal);
   return cudaGetLastError();
@@ -265,7 +290,8 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o, flo
   if (D % (16 / (int)sizeof(T)) != 0 || !aligned(q) || !aligned(k) || !aligned(v) || !aligned(o))
     return cudaErrorInvalidValue;
   if (D <= 64) return launch<T, 64>(q, k, v, o, lse, BH, T_len, D, scale, causal, stream);
-  return launch<T, 128>(q, k, v, o, lse, BH, T_len, D, scale, causal, stream);
+  if (D <= 128) return launch<T, 128>(q, k, v, o, lse, BH, T_len, D, scale, causal, stream);
+  return launch<T, 256>(q, k, v, o, lse, BH, T_len, D, scale, causal, stream);
 }
 
 template <typename T, int DMAX>
@@ -288,35 +314,39 @@ cudaError_t kernel_info(int* info) {
   return cudaSuccess;
 }
 
+template <typename T>
+cudaError_t info_d(int dmax, int* info) {
+  return dmax == 64 ? kernel_info<T, 64>(info) : dmax == 128 ? kernel_info<T, 128>(info) : kernel_info<T, 256>(info);
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  lse may be null.  D * the element
-// size must be a multiple of 16 and q, k, v, o 16-byte aligned
-// (cudaErrorInvalidValue otherwise).  Returns the CUDA error of the launch
-// (cudaSuccess = 0); the caller raises on anything else.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  lse may be null.  D <= 256,
+// D * the element size a multiple of 16 and q, k, v, o 16-byte aligned; the
+// blocks, ceil(T / 64) * BH, under 2^31 (cudaErrorInvalidValue otherwise).
+// Returns the CUDA error of the launch (cudaSuccess = 0); the caller raises
+// on anything else.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
                          int BH, int T_len, int D, float scale, int causal, int dtype,
                          void* stream) {
-  if (BH <= 0 || BH > 65535 || T_len <= 0 || D <= 0 || D > 128 || (dtype != 0 && dtype != 1))
+  if (BH <= 0 || T_len <= 0 || D <= 0 || D > 256 || dtype < 0 || dtype > 2 ||
+      (long long)((T_len + OWN - 1) / OWN) * BH > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = dtype == 0
-      ? dispatch_d<float>(q, k, v, o, lse, BH, T_len, D, scale, causal, s)
-      : dispatch_d<__nv_bfloat16>(q, k, v, o, lse, BH, T_len, D, scale, causal, s);
+  cudaError_t err = dtype == 0 ? dispatch_d<float>(q, k, v, o, lse, BH, T_len, D, scale, causal, s)
+                    : dtype == 1 ? dispatch_d<__nv_bfloat16>(q, k, v, o, lse, BH, T_len, D, scale, causal, s)
+                    : dispatch_d<__half>(q, k, v, o, lse, BH, T_len, D, scale, causal, s);
   return (int)err;
 }
 
-// Resources of the kernel variant for dtype (as above) and dmax (64 or
-// 128).  Fills info with threads a block, dynamic shared memory bytes a
+// Resources of the kernel variant for dtype (as above) and dmax (64, 128 or
+// 256).  Fills info with threads a block, dynamic shared memory bytes a
 // block, registers a thread, local (spill) bytes a thread, resident blocks
 // an SM and rows of a walked key tile.
 extern "C" int flash_fwd_kernel_info(int dtype, int dmax, int* info) {
-  if ((dtype != 0 && dtype != 1) || (dmax != 64 && dmax != 128)) return (int)cudaErrorInvalidValue;
-  cudaError_t err;
-  if (dtype == 0)
-    err = dmax == 64 ? kernel_info<float, 64>(info) : kernel_info<float, 128>(info);
-  else
-    err = dmax == 64 ? kernel_info<__nv_bfloat16, 64>(info) : kernel_info<__nv_bfloat16, 128>(info);
+  if (dtype < 0 || dtype > 2 || (dmax != 64 && dmax != 128 && dmax != 256)) return (int)cudaErrorInvalidValue;
+  cudaError_t err = dtype == 0 ? info_d<float>(dmax, info)
+                    : dtype == 1 ? info_d<__nv_bfloat16>(dmax, info) : info_d<__half>(dmax, info);
   return (int)err;
 }
 

@@ -1,12 +1,12 @@
 // The pieces that K2 (flash_fwd.cu) and K3 (flash_bwd.cu) share: cp.async
 // staging of (T, D) panel rows into shared memory, the mma.sync fragments
-// of fp32 (3xTF32, m16n8k8) and bf16 (m16n8k16) with fp32 sums, the
+// of fp32 (3xTF32, m16n8k8), bf16 and fp16 (m16n8k16) with fp32 sums, the
 // walked-tile buffers and the two products of a flash-attention tile.
 //
 // Both kernels give one block of 4 warps 64 owned rows (each warp 16) and
 // walk the other operand's rows in tiles of WALK rows, a loop inside the
 // block.  Every tile and plane is stored row-major with a pitch of D+4
-// 32-bit words (D+8 bf16): the fragments read a tile along its rows (A,
+// 32-bit words (D+8 bf16 or fp16): the fragments read a tile along its rows (A,
 // and B of S = Q K^T: word 4g + t, distinct for the 32 lanes) and along its
 // columns (B of C V in the contraction order below: rows 2t, 2t+1, word
 // 8t + g, distinct), so neither read has a bank conflict and no swizzle is
@@ -26,7 +26,7 @@
 // An accumulator tile (row g or g+8, columns 2t and 2t+1 of each 8) is the
 // A fragment of the next product once the contraction index is taken in the
 // order (0, 2, 4, 6, 1, 3, 5, 7) within each 8 (TF32), and as it stands for
-// bf16's k16 fragment; the B operand of that product is read in the same
+// the 16-bit types' k16 fragment; the B operand of that product is read in the same
 // order: rows 2t and 2t+1 of each step.  So P (and K3's dS) never leave the
 // registers.
 //
@@ -38,6 +38,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 namespace {
@@ -50,11 +51,17 @@ constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
 template <typename T> __device__ __forceinline__ T from_float(float x);
 template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
+// to nearest, ties to even; past 65,504 it gives inf, as torch's .half() does
+template <> __device__ __forceinline__ __half from_float<__half>(float x) { return __float2half_rn(x); }
+
+__device__ __forceinline__ uint16_t bits16(__nv_bfloat16 x) { return __bfloat16_as_ushort(x); }
+__device__ __forceinline__ uint16_t bits16(__half x) { return __half_as_ushort(x); }
 
 // pitch of a staged row: 16 bytes of pad keeps rows 16-byte aligned and
 // the fragment reads free of bank conflicts (see the header)
@@ -117,7 +124,7 @@ __device__ __forceinline__ void stage_row(float* dst, const float* __restrict__ 
 // mma.sync fragments.  Lane = 4g + t.  An accumulator tile (16 x 8, fp32)
 // holds c[0], c[1] at row g, columns 2t, 2t+1 and c[2], c[3] at row g+8.
 // A walked tile is read as Prep values of the landing tile's shape and
-// pitch: fp32 from its hi and lo planes, PS values apart; bf16 from the
+// pitch: fp32 from its hi and lo planes, PS values apart; bf16 and fp16 from the
 // landing tile itself.
 // ---------------------------------------------------------------------------
 
@@ -212,28 +219,33 @@ template <> struct Mma<float> {
   }
 };
 
-// bf16: m16n8k16.  A fragment: register i holds two adjacent columns,
-// (row g, cols 2t..2t+1), (g+8, 2t..), (g, 2t+8..), (g+8, 2t+8..); B
-// fragment: (rows 2t..2t+1, column g), (rows 2t+8..2t+9, column g).
-template <> struct Mma<__nv_bfloat16> {
-  using bf16 = __nv_bfloat16;
+// bf16 and fp16: m16n8k16 with fp32 sums.  A fragment: register i holds
+// two adjacent columns, (row g, cols 2t..2t+1), (g+8, 2t..), (g, 2t+8..),
+// (g+8, 2t+8..); B fragment: (rows 2t..2t+1, column g), (rows 2t+8..2t+9,
+// column g).  bf16: the register-held P and dS are rounded to bf16 (to
+// nearest, ties to even) as they become A fragments, one product, as the
+// reference's bf16 flash kernels round them.  fp16 (Mma<__half> below): they
+// become two fp16 terms, hi + lo, and two products, so the second products
+// keep about 22 bits of P and dS, as the reference's fp16 flash kernels keep
+// fp32 products; one rounding to fp16 put a gradient 1% of its scale off.
+template <typename H> struct Mma16 {
   static constexpr int KS = 16;
   static constexpr bool SPLIT = false;  // walked tiles read as they landed
-  using Prep = bf16;
+  using Prep = H;
   struct A { uint32_t r[4]; };
   struct B { uint32_t r[2]; };
 
-  static __device__ __forceinline__ uint32_t ld2(const bf16* p) {
+  static __device__ __forceinline__ uint32_t ld2(const H* p) {
     return *reinterpret_cast<const uint32_t*>(p);
   }
-  static __device__ __forceinline__ uint32_t pack(bf16 lo, bf16 hi) {
-    return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+  static __device__ __forceinline__ uint32_t pack(H lo, H hi) {
+    return (uint32_t)bits16(lo) | ((uint32_t)bits16(hi) << 16);
   }
   static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    return pack(__float2bfloat16(lo), __float2bfloat16(hi));
+    return pack(from_float<H>(lo), from_float<H>(hi));
   }
 
-  static __device__ __forceinline__ A load_a(const bf16* s, int P, int k0, int g, int t) {
+  static __device__ __forceinline__ A load_a(const H* s, int P, int k0, int g, int t) {
     return {{ld2(s + g * P + k0 + 2 * t), ld2(s + (g + 8) * P + k0 + 2 * t),
              ld2(s + g * P + k0 + 2 * t + 8), ld2(s + (g + 8) * P + k0 + 2 * t + 8)}};
   }
@@ -245,15 +257,17 @@ template <> struct Mma<__nv_bfloat16> {
              pack(c[2 * j + 1][0], c[2 * j + 1][1]), pack(c[2 * j + 1][2], c[2 * j + 1][3])}};
   }
 
-  static __device__ __forceinline__ B load_b_nk(const bf16* s, int P, int, int k0, int g, int t) {
+  static __device__ __forceinline__ B load_b_nk(const H* s, int P, int, int k0, int g, int t) {
     return {{ld2(s + g * P + k0 + 2 * t), ld2(s + g * P + k0 + 2 * t + 8)}};
   }
 
-  static __device__ __forceinline__ B load_b_kn(const bf16* s, int P, int, int g, int t) {
+  static __device__ __forceinline__ B load_b_kn(const H* s, int P, int, int g, int t) {
     return {{pack(s[2 * t * P + g], s[(2 * t + 1) * P + g]),
              pack(s[(2 * t + 8) * P + g], s[(2 * t + 9) * P + g])}};
   }
+};
 
+template <> struct Mma<__nv_bfloat16> : Mma16<__nv_bfloat16> {
   static __device__ __forceinline__ void mma(float (&d)[4], const A& a, const B& b) {
     asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
         "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
@@ -262,12 +276,46 @@ template <> struct Mma<__nv_bfloat16> {
   }
 };
 
+template <> struct Mma<__half> : Mma16<__half> {
+  // an A fragment of P or dS as two fp16 terms: hi = fp16(x), lo = fp16(x - hi)
+  struct AC { A hi, lo; };
+
+  static __device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+    const __half h0 = __float2half_rn(x0), h1 = __float2half_rn(x1);
+    hi = pack(h0, h1);
+    lo = pack(__float2half_rn(x0 - __half2float(h0)), __float2half_rn(x1 - __half2float(h1)));
+  }
+
+  template <int N>
+  static __device__ __forceinline__ AC a_from_c(const float (&c)[N][4], int j) {
+    AC a;
+    split2(c[2 * j][0], c[2 * j][1], a.hi.r[0], a.lo.r[0]);
+    split2(c[2 * j][2], c[2 * j][3], a.hi.r[1], a.lo.r[1]);
+    split2(c[2 * j + 1][0], c[2 * j + 1][1], a.hi.r[2], a.lo.r[2]);
+    split2(c[2 * j + 1][2], c[2 * j + 1][3], a.hi.r[3], a.lo.r[3]);
+    return a;
+  }
+
+  static __device__ __forceinline__ void mma(float (&d)[4], const A& a, const B& b) {
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a.r[0]), "r"(a.r[1]), "r"(a.r[2]), "r"(a.r[3]), "r"(b.r[0]), "r"(b.r[1]));
+  }
+
+  // the small term first, as 3xTF32 takes its products
+  static __device__ __forceinline__ void mma(float (&d)[4], const AC& a, const B& b) {
+    mma(d, a.lo, b);
+    mma(d, a.hi, b);
+  }
+};
+
 template <typename T> using Prep = typename Mma<T>::Prep;
 
 // The shared-memory buffers of two walked operands of WALK rows (K and V in
 // K2 and K3's dq kernel, Q and dO in K3's dkdv kernel).  fp32: tile i lands
 // in one buffer per operand, then is split into that operand's hi and lo
-// planes, which the products read.  bf16: two buffers per operand; the
+// planes, which the products read.  bf16, fp16: two buffers per operand; the
 // products read tile i where it landed while tile i + 1 lands in the other.
 template <typename T, int DMAX, int WALK>
 struct Walked {
@@ -357,7 +405,7 @@ __device__ __forceinline__ void mma_regs_rows(float (&acc)[DMAX / 8][4], const f
   constexpr int P = pitch<T, DMAX>();
 #pragma unroll
   for (int j = 0; j < WALK / M::KS; ++j) {
-    const typename M::A a = M::a_from_c(c, j);
+    const auto a = M::a_from_c(c, j);
 #pragma unroll
     for (int n = 0; n < DMAX / 8; ++n)
       M::mma(acc[n], a, M::load_b_kn(sb + j * M::KS * P + n * 8, P, WALK * P, g, t));

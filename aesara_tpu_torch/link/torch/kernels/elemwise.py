@@ -44,7 +44,12 @@ comparisons, wrapping negation, ``abs`` the identity); PyTorch has no
 arithmetic on uint16, uint32 and uint64 tensors, so the plain version
 computes on int64 carriers of the values (uint64: of their bits) and
 wraps each result to the output's width.  A non-finite constant is
-written ``float('inf')``, ``float('-inf')`` or ``float('nan')``.
+written ``float('inf')``, ``float('-inf')`` or ``float('nan')``.  A float
+converted to an integer type truncates toward zero, saturates at the
+type's bounds and gives 0 for NaN, as XLA's ``convert`` does in the JAX
+package (int8(300.0) = 127, uint8(-1.9) = 0, int32(nan) = 0): both forms
+write the bounds out (``_saturate``, ``_saturate_expr``) rather than
+leave an out-of-range conversion to torch or to the compiler.
 
 The rest of the real table and the special functions: the transcendental
 ones are one libdevice call each (``_LIBDEVICE``: ``tanh``, ``expm1``,
@@ -318,20 +323,57 @@ def _wrap(c, dtype: str):
     return c if mask is None else c & mask
 
 
+def _int_range(dst: str) -> Tuple[int, int]:
+    """(least, greatest) value of the integer dtype ``dst``."""
+    info = np.iinfo(dst)
+    return int(info.min), int(info.max)
+
+
+def _saturate(t, dst: str):
+    """The float tensor ``t`` as the integer dtype ``dst`` (not bool; for
+    uint16, uint32 and uint64 their int64 carrier): truncated toward zero,
+    saturated at ``dst``'s bounds, NaN as 0, as XLA's ``convert`` gives it.
+    Only values inside the bounds reach torch's conversion."""
+    import torch
+
+    lo, hi = _int_range(dst)
+    x = t if t.dtype == torch.float64 else t.to(torch.float32)
+    # the bounds' neighbours 2**k and -2**k are exact in float32 and float64
+    top, bottom = float(hi + 1), float(lo)
+    big, small = x >= top, x <= bottom
+    inside = torch.where(big | small | torch.isnan(x), torch.zeros_like(x), x)
+    if dst == "uint64":
+        # the carrier holds the bits: 2**63 and more wrap onto the sign bit
+        wide = inside >= 2.0**63
+        r = torch.where(wide, (inside - 2.0**63).to(torch.int64) + _INT64_MIN, inside.to(torch.int64))
+        return torch.where(big, torch.full_like(r, -1), r)
+    r = inside.to(torch.int64 if dst in _WIDE_UNSIGNED else torch_dtype(dst))
+    r = torch.where(big, torch.full_like(r, hi), r)
+    return torch.where(small, torch.full_like(r, lo), r)
+
+
+def _to(t, dst: str):
+    """``t`` as the dtype ``dst``, a float to an integer by ``_saturate``."""
+    import torch
+
+    if t.is_floating_point() and dst in discrete_dtypes and dst != "bool":
+        return _saturate(t, dst)
+    out = torch_dtype(dst)
+    return t.to(out) if t.dtype != out else t
+
+
 def _carrier_cast(t, src: str, dst: str):
     """``t`` (of dtype ``src``, or its int64 carrier when ``src`` is a wide
     unsigned type) as ``dst`` (its carrier when ``dst`` is one): as NumPy's
-    ``astype``, wrapping integers and truncating floats toward zero."""
+    ``astype`` between integers (wrapping), a float to an integer as XLA's
+    ``convert`` (``_saturate``)."""
     import torch
 
     if src == dst:
         return t
     if dst in _WIDE_UNSIGNED:
         if src not in discrete_dtypes:
-            # from a float: values of 2**63 and more wrap onto the sign bit
-            t = t.to(torch.float64)
-            big = t >= 2.0**63
-            t = torch.where(big, (t - 2.0**63).to(torch.int64) + _INT64_MIN, t.to(torch.int64))
+            return _saturate(t, dst)
         return _wrap(t.to(torch.int64), dst)
     if src == "uint64" and dst == "bool":
         return t != 0
@@ -339,7 +381,7 @@ def _carrier_cast(t, src: str, dst: str):
         # the two halves of the bits are exact in float64: one rounding
         hi = ((t >> 32) & 0xFFFFFFFF).to(torch.float64)
         return (hi * 2.0**32 + (t & 0xFFFFFFFF).to(torch.float64)).to(torch_dtype(dst))
-    return t.to(torch_dtype(dst))
+    return _to(t, dst)
 
 
 def _apply_unsigned(op, out_dtype: str, args, wants):
@@ -372,10 +414,9 @@ def _apply_unsigned(op, out_dtype: str, args, wants):
         if flip and res.dtype != torch.bool:
             res = res ^ _INT64_MIN
     if out_dtype in _WIDE_UNSIGNED:
-        res = _wrap(res.to(torch.int64), out_dtype)
+        res = _saturate(res, out_dtype) if res.is_floating_point() else _wrap(res.to(torch.int64), out_dtype)
         return res.view(torch.uint64) if out_dtype == "uint64" else res.to(torch_dtype(out_dtype))
-    out = torch_dtype(out_dtype)
-    return res.to(out) if res.dtype != out else res
+    return _to(res, out_dtype)
 
 
 def apply_scalar_node(op, out_dtype: str, args):
@@ -385,10 +426,8 @@ def apply_scalar_node(op, out_dtype: str, args):
     wants = _operand_dtypes(op, names, out_dtype)
     if any(d in _WIDE_UNSIGNED for d in names + wants + [out_dtype]):
         return _apply_unsigned(op, out_dtype, args, wants)
-    args = [a.to(torch_dtype(w)) if a.dtype != torch_dtype(w) else a for a, w in zip(args, wants)]
-    res = scalar_torch_impl(op)(*args)
-    out = torch_dtype(out_dtype)
-    return res.to(out) if res.dtype != out else res
+    args = [_to(a, w) for a, w in zip(args, wants)]
+    return _to(scalar_torch_impl(op)(*args), out_dtype)
 
 
 def refuse_negative_int_pow(op, outer_inputs=()) -> None:
@@ -551,6 +590,19 @@ def _literal(value, dtype: str) -> str:
         # repr gives a bare inf or nan, names the generated module lacks
         text = repr(float(value)) if np.isfinite(value) else f"float('{float(value)}')"
     return f"tl.full([BLOCK], {text}, {_TL[_compute_dtype(dtype)]})"
+
+
+def _saturate_expr(x: str, src: str, dst: str) -> str:
+    """The float ``x`` (of dtype ``src``) as the integer dtype ``dst`` in
+    Triton, as ``_saturate`` gives it: only values strictly inside the
+    bounds reach ``.to()`` (LLVM leaves an out-of-range conversion
+    undefined, and a narrow one may be a 32-bit conversion truncated)."""
+    lo, hi = _int_range(dst)
+    x = f"{x}.to({_TL[_compute_dtype(src)]})"
+    top, bottom = f"{float(hi + 1)!r}", f"{float(lo)!r}"
+    inside = f"tl.where(({x} < {top}) & ({x} > {bottom}), {x}, 0.0).to({_TL[dst]})"
+    edge = f"tl.where({x} >= {top}, tl.full([BLOCK], {hi}, {_TL[dst]}), tl.full([BLOCK], {lo}, {_TL[dst]}))"
+    return f"tl.where(({x} >= {top}) | ({x} <= {bottom}), {edge}, {inside})"
 
 
 def _div(a: str, b: str, dtype: str) -> str:
@@ -733,7 +785,10 @@ class ElemwiseKernel:
             args = []
             for inp, in_dtype in zip(node.inputs, in_dtypes):
                 in_cdt = _TL[_compute_dtype(in_dtype)]
-                if inp in names:
+                if inp in names and inp.type.dtype not in discrete_dtypes and in_dtype in discrete_dtypes \
+                        and in_dtype != "bool":
+                    args.append(_saturate_expr(names[inp], inp.type.dtype, in_dtype))
+                elif inp in names:
                     args.append(f"{names[inp]}.to({in_cdt})")
                 else:
                     args.append(f"{_literal(inp.data, inp.type.dtype)}.to({in_cdt})")

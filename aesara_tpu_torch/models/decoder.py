@@ -23,6 +23,7 @@ from __future__ import annotations
 import numpy as np
 
 from aesara_tpu_torch.config import config
+from aesara_tpu_torch.misc.safe_asarray import _asarray
 from aesara_tpu_torch.models.base import Model, glorot, zeros
 from aesara_tpu_torch.tensor import math as tm
 from aesara_tpu_torch.tensor.basic import alloc, arange, as_tensor_variable, cast, constant, join, switch
@@ -91,7 +92,7 @@ class TransformerDecoderLayer(Model):
         self.ln2_g = self._register(zeros((d_model,), "ln2_g"))
         self.ln2_b = self._register(zeros((d_model,), "ln2_b"))
         for g in (self.ln1_g, self.ln2_g):
-            g.set_value(np.ones(d_model, dtype=g.get_value().dtype))
+            g.set_value(_asarray(np.ones(d_model), g.type.dtype))
 
     # -- training / prefill: (T, D) with a causal mask ---------------------
     def full(self, x):
@@ -109,7 +110,7 @@ class TransformerDecoderLayer(Model):
         scores = tm.batched_dot(q, k.dimshuffle(0, 2, 1)) / np.sqrt(dh)
         rows = arange(T).dimshuffle("x", 0, "x")
         cols = arange(T).dimshuffle("x", "x", 0)
-        neg = constant(np.asarray(-1e9, dtype=config.floatX))
+        neg = constant(-1e9, dtype=config.floatX)
         scores = switch(tm.ge(rows, cols), scores, neg)
         attn = softmax(scores, axis=-1)
         ctx = tm.batched_dot(attn, v).dimshuffle(1, 0, 2).reshape(
@@ -138,7 +139,7 @@ class TransformerDecoderLayer(Model):
             axis=-1,
         ) / np.sqrt(dh)                                   # (T_max, Kv, G)
         t_idx = arange(_dim(k_cache, 0)).dimshuffle(0, "x", "x")
-        neg = constant(np.asarray(-1e9, dtype=config.floatX))
+        neg = constant(-1e9, dtype=config.floatX)
         scores = switch(tm.le(t_idx, pos), scores, neg)
         attn = softmax(scores, axis=0)                    # over time
         ctx = tm.sum(
@@ -192,7 +193,7 @@ class TransformerDecoderLayer(Model):
         ) / np.sqrt(dh)                               # (T_max, Kv, G, B)
         t_idx = arange(_dim(k_cache, 0)).dimshuffle(0, "x", "x", "x")
         b_idx = arange(B).dimshuffle("x", "x", "x", 0)
-        neg = constant(np.asarray(-1e9, dtype=config.floatX))
+        neg = constant(-1e9, dtype=config.floatX)
         scores = switch(tm.le(t_idx, pos + b_idx), scores, neg)
         attn = softmax(scores, axis=0)                # over time
         ctx = tm.sum(
@@ -239,7 +240,7 @@ class TransformerDecoderLayer(Model):
             * q.dimshuffle(0, "x", 1, 2, 3),
             axis=-1,
         ) / np.sqrt(dh)                                   # (B, T, Kv, G)
-        neg = constant(np.asarray(-1e9, dtype=config.floatX))
+        neg = constant(-1e9, dtype=config.floatX)
         scores = switch(
             tm.le(t_sel, pos.dimshuffle(0, "x", "x", "x")), scores, neg
         )
@@ -276,7 +277,7 @@ class TransformerDecoderLayer(Model):
             axis=-1,
         ) / np.sqrt(dh)                                   # (B, T, Kv, G)
         t_idx = arange(_dim(k_cache, 1)).dimshuffle("x", 0, "x", "x")
-        neg = constant(np.asarray(-1e9, dtype=config.floatX))
+        neg = constant(-1e9, dtype=config.floatX)
         scores = switch(tm.le(t_idx, pos), scores, neg)
         attn = softmax(scores, axis=1)                    # over time
         ctx = tm.sum(
@@ -346,7 +347,7 @@ class DecoderLM(Model):
         for i in range(L):
             for kind in ("k", "v"):
                 caches.append(
-                    alloc(constant(np.asarray(0, dtype=fX)), t_max, Kv, dh)
+                    alloc(constant(0, dtype=fX), t_max, Kv, dh)
                 )
 
         def step_fn(tok, pos, *cache_args):
@@ -363,13 +364,13 @@ class DecoderLM(Model):
                     # static-shape top-k truncation: mask logits below
                     # the k-th largest before the noise
                     kth = tm.min(t_topk(logits, int(top_k)))
-                    neg = constant(np.asarray(-1e9, dtype=fX))
+                    neg = constant(-1e9, dtype=fX)
                     logits = switch(tm.ge(logits, kth), logits, neg)
                 # Gumbel noise from a key of fixed seed, threaded through
                 # the loop (scan carries the stream's default update)
                 srng = RandomStream(seed=seed)
                 u = srng.uniform(low=1e-6, high=1.0 - 1e-6, size=(self.vocab,))
-                logits = logits / np.asarray(temperature, dtype=fX) - tm.log(-tm.log(u))
+                logits = logits / constant(temperature, dtype=fX) - tm.log(-tm.log(u))
             nxt = cast(tm.argmax(logits), "int64")
             return (nxt, pos + np.int64(1), *new_caches)
 
@@ -412,8 +413,8 @@ class DecoderLM(Model):
         h = x
         for layer in self.layers:
             k_rows, v_rows = layer.prefill_kv_rows(h, prompt_len)
-            kc = alloc(constant(np.asarray(0, dtype=fX)), t_max, Kv, dh)
-            vc = alloc(constant(np.asarray(0, dtype=fX)), t_max, Kv, dh)
+            kc = alloc(constant(0, dtype=fX), t_max, Kv, dh)
+            vc = alloc(constant(0, dtype=fX), t_max, Kv, dh)
             caches.append(set_subtensor(kc[:prompt_len], k_rows))
             caches.append(set_subtensor(vc[:prompt_len], v_rows))
             h = layer.full(h)
@@ -624,7 +625,7 @@ class DecoderLM(Model):
         if K > K0:
             pad_t = alloc(constant(np.int64(0)), K - K0)
             pad_s = alloc(
-                constant(np.asarray(-np.inf, dtype=scores0.type.dtype)),
+                constant(-np.inf, dtype=scores0.type.dtype),
                 K - K0,
             )
             toks0 = join(0, toks0, pad_t)
@@ -713,7 +714,7 @@ class DecoderLM(Model):
         caches = []
         for _ in range(2 * L):
             caches.append(
-                alloc(constant(np.asarray(0, dtype=fX)), batch, t_max, Kv, dh)
+                alloc(constant(0, dtype=fX), batch, t_max, Kv, dh)
             )
 
         def step_fn(toks, pos, *cache_args):

@@ -19,6 +19,7 @@ import numpy as np
 
 from aesara_tpu_torch.compile.sharedvalue import shared
 from aesara_tpu_torch.gradient import grad
+from aesara_tpu_torch.misc.safe_asarray import _asarray
 from aesara_tpu_torch.tensor import math as tm
 from aesara_tpu_torch.tensor.basic import cast, switch
 
@@ -34,7 +35,9 @@ def _grads(cost, params):
 def _state(p, suffix: str, dtype=None, value=None):
     """A zero state buffer shaped like ``p`` on ``p``'s device (or a copy
     of ``value``)."""
-    value = np.zeros(p.get_value().shape, dtype=dtype or p.get_value().dtype) if value is None else value
+    if value is None:
+        # the dtype by name (a bfloat16 value's user form is a torch tensor)
+        value = _asarray(np.zeros(tuple(p.get_value().shape)), dtype or p.type.dtype)
     return shared(value, name=(p.name or "p") + suffix, device=p.device)
 
 
@@ -87,12 +90,21 @@ def adam(cost, params: Sequence, lr: float = 0.001, b1: float = 0.9, b2: float =
     t_new = t + 1.0
     updates = [(t, t_new)]
     for p, g in zip(params, _grads(cost, params)):
-        m, v = _state(p, "_m"), _state(p, "_v")
-        m_new = b1 * m + (1.0 - b1) * g
-        v_new = b2 * v + (1.0 - b2) * g * g
-        m_hat = m_new / (1.0 - tm.pow(cast(b1, "float32"), t_new))
-        v_hat = v_new / (1.0 - tm.pow(cast(b2, "float32"), t_new))
-        updates += [(m, m_new), (v, v_new), (p, p - lr * m_hat / (tm.sqrt(v_hat) + eps))]
+        # a bfloat16 or float16 parameter keeps float32 moments and float32
+        # constants (b2 = 0.999 is 1.0 in bfloat16, and (1 - b2) g² underflows
+        # in float16; a Python float would take floatX, the parameter's
+        # type), and its update is cast back to its dtype; the JAX package's
+        # adam refuses such a parameter (its update is float32)
+        low = p.type.dtype in ("bfloat16", "float16")
+        f = np.float32 if low else float
+        m, v = _state(p, "_m", "float32" if low else None), _state(p, "_v", "float32" if low else None)
+        g = cast(g, "float32") if low else g
+        m_new = f(b1) * m + f(1.0 - b1) * g
+        v_new = f(b2) * v + f(1.0 - b2) * g * g
+        m_hat = m_new / (1.0 - tm.pow(np.float32(b1), t_new))
+        v_hat = v_new / (1.0 - tm.pow(np.float32(b2), t_new))
+        new = p - f(lr) * m_hat / (tm.sqrt(v_hat) + f(eps))
+        updates += [(m, m_new), (v, v_new), (p, cast(new, p.type.dtype) if low else new)]
     return updates
 
 
@@ -210,7 +222,7 @@ def accumulate_gradients(cost, params: Sequence, opt_fn, every: int) -> List[Tup
     apply_now = tm.ge(ctr_next, np.float32(every))
     accs, avg_grads = [], []
     for p, g in zip(params, _grads(cost, params)):
-        acc_dt = "float64" if str(p.get_value().dtype) == "float64" else "float32"
+        acc_dt = "float64" if p.type.dtype == "float64" else "float32"
         acc = _state(p, "_gacc", acc_dt)
         acc_new = acc + cast(g, acc_dt)
         accs.append((acc, acc_new))
@@ -232,9 +244,8 @@ def ema_updates(params: Sequence, decay: float = 0.999):
     updates: List[Tuple] = []
     emas = []
     for p in params:
-        value = p.get_value()
-        ema = _state(p, "_ema", value=value)
-        acc_dt = "float64" if str(value.dtype) == "float64" else "float32"
-        updates.append((ema, cast(decay * cast(ema, acc_dt) + (1.0 - decay) * cast(p, acc_dt), str(value.dtype))))
+        ema = _state(p, "_ema", value=p.get_value())
+        acc_dt = "float64" if p.type.dtype == "float64" else "float32"
+        updates.append((ema, cast(decay * cast(ema, acc_dt) + (1.0 - decay) * cast(p, acc_dt), p.type.dtype)))
         emas.append(ema)
     return updates, emas

@@ -24,6 +24,7 @@ import numpy as np
 
 from aesara_tpu_torch.compile.sharedvalue import shared
 from aesara_tpu_torch.config import config
+from aesara_tpu_torch.scalar.ops import to_host
 from aesara_tpu_torch.tensor.basic import cast
 
 __all__ = ["quantize_array_int8", "dequantize_expr", "quantize_decoder_int8"]
@@ -56,7 +57,8 @@ def dequantize_expr(q_shared, scale_shared):
 
 def _quantize_attr(obj, name, device):
     w = getattr(obj, name)
-    q_vals, s_vals = quantize_array_int8(w.get_value())
+    # the values as float32 (a bfloat16 value's user form is a torch tensor)
+    q_vals, s_vals = quantize_array_int8(to_host(w.get_value(), w.type.dtype))
     q = shared(q_vals, name=f"{w.name or name}_q8", device=device)
     s = shared(s_vals, name=f"{w.name or name}_scale", device=device)
     setattr(obj, name, dequantize_expr(q, s))
@@ -86,6 +88,6 @@ def quantize_decoder_int8(lm):
         for name in float_names:
             src = getattr(layer, name)
             setattr(layer, name,
-                    shared(np.array(src.get_value()), name=src.name, device=device))
+                    shared(src.get_value(), name=src.name, device=device))
     qlm.quantized_shareds += _quantize_attr(qlm, "embed", device)
     return qlm

@@ -21,3 +21,14 @@ from aesara_tpu_torch.tensor.shape import (  # noqa: F401
 from aesara_tpu_torch.tensor.special import log_softmax, softmax  # noqa: F401
 from aesara_tpu_torch.tensor.type import *  # noqa: F401,F403  (TensorType and the constructors)
 from aesara_tpu_torch.tensor.subtensor import inc_subtensor, set_subtensor  # noqa: F401
+
+# ``var``, ``shape`` and ``sort`` name functions here, as in the JAX package,
+# though submodules of this package share those names.  Each submodule is
+# imported first, so no later import of it binds its name to the module;
+# ``from aesara_tpu_torch.tensor.shape import ...`` reaches the module still.
+import aesara_tpu_torch.tensor.shape  # noqa: E402,F401
+import aesara_tpu_torch.tensor.sort  # noqa: E402,F401
+import aesara_tpu_torch.tensor.var  # noqa: E402,F401
+from aesara_tpu_torch.tensor.math import var  # noqa: E402,F401,F811
+from aesara_tpu_torch.tensor.shape import shape  # noqa: E402,F401,F811
+from aesara_tpu_torch.tensor.sort import sort  # noqa: E402,F401,F811

@@ -169,7 +169,7 @@ class Elemwise(Op):
             if isinstance(s_var.type, markers):
                 return s_var
             if s_var.owner is None:
-                res = constant(s_var.data)   # a 0-d constant broadcasts
+                res = constant(s_var.data, dtype=s_var.type.dtype)   # a 0-d constant broadcasts
             else:
                 t_ins = [lift(i) for i in s_var.owner.inputs]
                 bad = next((t for t in t_ins if isinstance(t.type, markers)), None)

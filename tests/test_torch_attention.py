@@ -352,3 +352,125 @@ def test_k2_rows_padded_to_16_bytes_change_no_output(D, dtype, offset):
     assert not got[..., D:].any()
     torch.testing.assert_close(got[..., :D], want)
     torch.testing.assert_close(lse, want_lse)
+
+
+# --- fp16, and heads wider than 128 (D 160 and 256) ---------------------------
+
+#: (dtype, D, causal) of the plain versions against the Pallas kernels in
+#: interpret mode (inputs of the same dtype) and against ``_attention_ref``
+#: / ``jax.vjp`` of it in fp32 on the same rounded inputs.  Tolerance, of
+#: each reference's largest magnitude: fp32 1e-5 (orders of summation);
+#: bf16 2e-2 (P and dS rounded to bf16, 2**-8 of a value, before the
+#: second products, where the reference keeps fp32); fp16 2e-3 (the
+#: results rounded to fp16, 2**-11 of a value: P and dS keep fp32 in the
+#: plain versions and the Pallas kernels, and about 22 bits in K2 and K3).
+WIDE = [("float16", 64, False), ("float16", 64, True), ("float16", 160, True), ("float32", 160, False),
+        ("float32", 160, True), ("float32", 256, True), ("bfloat16", 160, False), ("bfloat16", 256, True)]
+WIDE_IDS = [f"{d}-D{D}{'-causal' if c else ''}" for d, D, c in WIDE]
+WIDE_REL = {"float32": 1e-5, "bfloat16": 2e-2, "float16": 2e-3}
+
+
+def _wide_inputs(dtype, D, seed):
+    """q, k, v, dO of shape (2, 80, D) in ``dtype`` (torch), and the same
+    values as JAX arrays of the dtype and as fp32 JAX arrays."""
+    rng = np.random.default_rng(seed)
+    host = [rng.normal(size=(2, 80, D)).astype("float32") * s for s in (0.3, 0.3, 1.0, 1.0)]
+    ported = [torch.from_numpy(a).to(getattr(torch, dtype)) for a in host]
+    rounded = [t.float().numpy() for t in ported]
+    return ported, [jnp.asarray(a, dtype=dtype) for a in rounded], [jnp.asarray(a) for a in rounded]
+
+
+def _close(got, want, rel, name):
+    got, want = np.asarray(got, dtype="float64"), np.asarray(want, dtype="float64")
+    assert got.shape == want.shape, name
+    err, scale = np.abs(got - want).max(), np.abs(want).max()
+    assert err <= rel * scale, f"{name}: {err / scale:.3e} of the scale (tolerance {rel})"
+
+
+@pytest.mark.parametrize("dtype,D,causal", WIDE, ids=WIDE_IDS)
+def test_plain_k2_in_fp16_and_wide_heads_matches_pallas_interpret_and_reference(dtype, D, causal):
+    from jax.experimental.pallas import tpu as pltpu
+
+    (q, k, v, _), jx, j32 = _wide_inputs(dtype, D, seed=41)
+    scale = float(1.0 / np.sqrt(D))
+    got = flash_attention(q, k, v, causal=causal, scale=scale)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    with pltpu.force_tpu_interpret_mode():
+        want_pallas = jax_flash(*jx[:3], causal=causal, scale=scale).astype(jnp.float32)
+    want_ref = _attention_ref(*j32[:3], causal, scale)
+    _close(got.float(), want_pallas, WIDE_REL[dtype], "vs Pallas")
+    _close(got.float(), want_ref, WIDE_REL[dtype], "vs _attention_ref")
+
+
+@pytest.mark.parametrize("dtype,D,causal", WIDE, ids=WIDE_IDS)
+def test_plain_k3_in_fp16_and_wide_heads_matches_pallas_interpret_and_vjp(dtype, D, causal):
+    from jax.experimental.pallas import tpu as pltpu
+
+    (q, k, v, do), jx, j32 = _wide_inputs(dtype, D, seed=43)
+    scale = float(1.0 / np.sqrt(D))
+    got = flash_attention_grads(q, k, v, do, causal=causal, scale=scale)
+    with pltpu.force_tpu_interpret_mode():
+        want_pallas = jax_flash_grads(*jx, causal=causal, scale=scale)
+    _, vjp = jax.vjp(lambda q_, k_, v_: _attention_ref(q_, k_, v_, causal, scale), *j32[:3])
+    for name, g, wp, wv in zip(("dq", "dk", "dv"), got, want_pallas, vjp(j32[3])):
+        assert g.dtype == q.dtype and g.shape == q.shape, name
+        _close(g.float(), wp.astype(jnp.float32), WIDE_REL[dtype], f"{name} vs Pallas")
+        _close(g.float(), wv, WIDE_REL[dtype], f"{name} vs jax.vjp")
+
+
+def test_plain_fp16_attention_past_fp16s_range_of_scores():
+    """Unscaled scores past fp16's 65,504 (q about 10,000, scale 5e-5, so
+    the scaled scores are a few units): the plain versions take the scores
+    in fp32, as the kernels do, so the output and the gradients are finite,
+    and agree with the fp32 computation on the same values within fp16's
+    rounding of O and the results (2e-3 of the scale)."""
+    rng = np.random.default_rng(45)
+    q = 10000.0 * (1.0 + 0.1 * rng.normal(size=(1, 40, 64)))
+    k, v, do = rng.normal(size=(3, 1, 40, 64))
+    half = [torch.from_numpy(a).half() for a in (q, k, v, do)]
+    single = [t.float() for t in half]
+    assert torch.einsum("btd,bsd->bts", single[0], single[1]).abs().max().item() > 65504 * 1.5
+    out = attention_plain(*half[:3], True, 5e-5)
+    assert out.dtype == torch.float16 and torch.isfinite(out).all()
+    _close(out.float(), attention_plain(*single[:3], True, 5e-5), 2e-3, "out")
+    for name, g, w in zip(("dq", "dk", "dv"), attention_grads_plain(*half, True, 5e-5),
+                          attention_grads_plain(*single, True, 5e-5)):
+        assert torch.isfinite(g).all(), name
+        _close(g.float(), w, 2e-3, name)
+
+
+@pytest.mark.parametrize("shape,dtype", [((2, 70, 300), torch.float32), ((1, 5, 40), torch.float64)],
+                         ids=["D300", "fp64"])
+def test_the_wrappers_raise_on_what_the_kernels_do_not_take(shape, dtype):
+    """A CUDA panel that K2 and K3 do not take raises before any launch (the
+    check reads shapes and dtypes only, so a meta tensor stands in)."""
+    from aesara_tpu_torch.link.torch.kernels import attention as attn
+
+    t = torch.empty(shape, dtype=dtype, device="meta")
+    match = "D <= 256" if dtype == torch.float32 else "float32, bfloat16 or float16 on the card, got torch.float64"
+    with pytest.raises((ValueError, TypeError), match=match):
+        _check_as_cuda(attn, t)
+
+
+def _check_as_cuda(attn, t):
+    """``_check_cuda_panels`` on a meta tensor made to read as a CUDA one."""
+
+    class OnCard:
+        def __init__(self, x):
+            self.x = x
+            self.device = torch.device("cuda", 0)
+            self.dtype, self.shape = x.dtype, x.shape
+
+        def dim(self):
+            return self.x.dim()
+
+    p = OnCard(t)
+    attn._check_cuda_panels("flash_attention", p, p, p)
+
+
+def test_the_wrappers_take_more_than_65535_batch_heads():
+    from aesara_tpu_torch.link.torch.kernels import attention as attn
+
+    _check_as_cuda(attn, torch.empty((65600, 16, 64), device="meta"))
+    with pytest.raises(ValueError, match="ceil"):
+        _check_as_cuda(attn, torch.empty((2**31 // 2, 129, 8), dtype=torch.float16, device="meta"))

@@ -14,7 +14,10 @@ step captured against eager and the CPU, and its step guarded by
 ``IfElse`` (``-k convnet``), and the loop samplers TG, TP, TB and TM
 against their plain versions, the new distributions and a CTC step on the
 card against the CPU, captured against eager (``-k "ctc or
-random_loops"``).  They skip where there
+random_loops"``), and K2 and K3 in fp16, at head widths up to 256 and past
+65,535 batch-heads, fp64 refused, and K1's float-to-integer casts at their
+edges (``-k "fp16 or fp64 or fused_attention_compiled or saturate"``).
+They skip where there
 is no CUDA device; run them on a GPU machine with ``python -m pytest -m
 cuda tests/test_torch_cuda.py``."""
 
@@ -1649,3 +1652,161 @@ def test_ctc_step_on_the_card_is_the_cpus_and_captured_equals_eager(cuda):
         np.testing.assert_allclose(lc.cpu().numpy(), np.asarray(lh), rtol=1e-5)
         np.testing.assert_allclose(wc.get_value(), wcpu.get_value(), rtol=1e-5, atol=1e-5)
     assert cap.captured and cap.capture_blocker is None
+
+
+# ---------------------------------------------------------------------------
+# K2 and K3 in fp16, at head widths 160 and 256 and past 65,535 batch-heads;
+# fp64 refused; K1's float-to-integer casts at their edges
+# ---------------------------------------------------------------------------
+
+#: each against its plain version within this of the plain output's scale:
+#: fp32 1e-4 (3xTF32 and the order of sums), bf16 2e-2 (P and dS rounded to
+#: bf16), fp16 2e-3 (the outputs rounded to fp16; P and dS kept as hi + lo)
+WIDE_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 2e-3}
+
+
+@pytest.mark.parametrize("shape,causal,dtype", [
+    ((16, 512, 64), False, torch.float16), ((4, 300, 64), True, torch.float16),
+    ((2, 130, 128), True, torch.float16), ((3, 77, 40), False, torch.float16),
+    ((4, 200, 160), True, torch.float32), ((4, 200, 160), False, torch.bfloat16),
+    ((4, 200, 160), True, torch.float16), ((2, 300, 256), False, torch.float32),
+    ((2, 300, 256), True, torch.bfloat16), ((2, 300, 256), True, torch.float16),
+    ((2, 65, 200), True, torch.float32), ((2, 65, 250), False, torch.bfloat16),
+    ((65600, 16, 64), False, torch.float32), ((65600, 16, 64), True, torch.float16)])
+def test_k2_k3_fp16_wide_heads_and_many_batch_heads(cuda, shape, causal, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    q, k, v, do = (torch.randn(shape, device=cuda, generator=gen).to(dtype) for _ in range(4))
+    scale = shape[-1] ** -0.5
+    before = flash_attention.launches, flash_attention_grads.launches
+    out = flash_attention(q, k, v, causal=causal, scale=scale)
+    grads = flash_attention_grads(q, k, v, do, causal=causal, scale=scale)
+    assert (flash_attention.launches, flash_attention_grads.launches) == (before[0] + 2, before[1] + 1)
+    want = attention_plain(q, k, v, causal, scale)
+    assert out.dtype == dtype and out.shape == shape
+    tol = WIDE_TOL[dtype]
+    torch.testing.assert_close(out.float(), want.float(), atol=tol * want.float().abs().max().item(), rtol=0)
+    for g, w in zip(grads, attention_grads_plain(q, k, v, do, causal, scale)):
+        assert g.dtype == dtype and g.shape == shape and bool(torch.isfinite(g).all())
+        torch.testing.assert_close(g.float(), w.float(), atol=tol * w.float().abs().max().item(), rtol=0)
+    assert torch.equal(out, flash_attention(q, k, v, causal=causal, scale=scale))
+    for a, b in zip(grads, flash_attention_grads(q, k, v, do, causal=causal, scale=scale)):
+        assert torch.equal(a, b)
+
+
+def test_fp16_attention_past_fp16s_range_of_scores(cuda):
+    """Unscaled scores past 65,504: K2 and K3 keep them in fp32, so the
+    results are finite and the plain versions'."""
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    q = (10000.0 * (1.0 + 0.1 * torch.randn((2, 64, 64), device=cuda, generator=gen))).half()
+    k, v, do = (torch.randn((2, 64, 64), device=cuda, generator=gen).half() for _ in range(3))
+    assert (q.float() @ k.float().transpose(1, 2)).abs().max().item() > 65504 * 1.5
+    out = flash_attention(q, k, v, causal=True, scale=5e-5)
+    assert bool(torch.isfinite(out).all())
+    want = attention_plain(q, k, v, True, 5e-5)
+    torch.testing.assert_close(out.float(), want.float(), atol=2e-3 * want.float().abs().max().item(), rtol=0)
+    for g, w in zip(flash_attention_grads(q, k, v, do, causal=True, scale=5e-5),
+                    attention_grads_plain(q, k, v, do, True, 5e-5)):
+        assert bool(torch.isfinite(g).all())
+        torch.testing.assert_close(g.float(), w.float(), atol=2e-3 * w.float().abs().max().item(), rtol=0)
+
+
+def test_fp64_attention_raises_on_the_card(cuda):
+    x = torch.zeros((2, 16, 64), device=cuda, dtype=torch.float64)
+    before = flash_attention.plain_calls, flash_attention_grads.plain_calls
+    with pytest.raises(TypeError, match="float32, bfloat16 or float16 on the card, got torch.float64"):
+        flash_attention(x, x, x)
+    with pytest.raises(TypeError, match="torch.float64"):
+        flash_attention_grads(x, x, x, x)
+    assert (flash_attention.plain_calls, flash_attention_grads.plain_calls) == before
+
+
+@pytest.mark.parametrize("dtype,shape", [("float16", (4, 200, 64)), ("float32", (2, 130, 256)),
+                                         ("bfloat16", (2, 130, 160))])
+def test_fused_attention_compiled_through_function_on_the_card(cuda, dtype, shape):
+    """A causal FusedAttention graph and its gradient, compiled through
+    ``function()``: K2 and K3 on the card, the CPU's values."""
+    q, k, v = (pt.tensor3(n, dtype=dtype) for n in "qkv")
+    out = pt.fused_attention(q, k, v, causal=True)
+    cost = ptm.sum(out * out)
+    gen = torch.Generator().manual_seed(11)
+    args = [torch.randn(shape, generator=gen).to(getattr(torch, dtype)) for _ in range(3)]
+    results = []
+    for device in ("cuda", "cpu"):
+        mode = ptp.Mode(ptp.TorchLinker(device=device))
+        f = ptp.function([q, k, v], [out] + ptp.grad(cost, [q, k, v]), mode=mode)
+        before = flash_attention.launches, flash_attention_grads.launches
+        results.append([r.float().cpu() for r in f(*[a.to(device) for a in args])])
+        if device == "cuda":
+            assert flash_attention.launches > before[0] and flash_attention_grads.launches == before[1] + 1
+    # twice the kernels' tolerance: the gradient takes K2's output through K3
+    tol = 2 * WIDE_TOL[getattr(torch, dtype)]
+    for got, want in zip(*results):
+        torch.testing.assert_close(got, want, atol=tol * want.abs().max().item(), rtol=0)
+
+
+@pytest.mark.parametrize("src", ["float32", "float64", "float16", "bfloat16"])
+def test_k1_float_to_integer_casts_saturate_as_the_plain_form(cuda, src):
+    """K1's cast of ``x * 2`` to every integer width at the edges (past the
+    bounds, NaN, the infinities, fractions either side) equals the plain
+    form's: saturated, NaN as 0."""
+    edges = [300.0, -1.9, 3e9, float("nan"), float("inf"), float("-inf"), -300.0, 1e19, 2e19, -3e9, 127.9,
+             -128.9, 255.5, 65535.7, 1e30, 0.0, -0.0, 0.99, -0.99, 2147483520.0, 4294967040.0]
+    xt = torch.tensor(edges, dtype=getattr(torch, src))
+    for dst in ("int8", "int16", "int32", "int64", "uint8", "uint16", "uint32", "uint64"):
+        x = pt.vector("x", dtype=src)
+        y = pt.cast(x * np.asarray(2.0, dtype="float32" if src == "bfloat16" else src), dst)
+        node = _composite_node(ptp.function([x], y))
+        kernel = ElemwiseKernel(node.op.scalar_op, [src], dst)
+        before = fused_elemwise.launches
+        got = fused_elemwise(kernel, xt.to(cuda)).cpu()
+        assert fused_elemwise.launches == before + 1
+        want = composite_plain(node.op.scalar_op, dst, xt)
+        assert torch.equal(got, want), (src, dst, got.tolist(), want.tolist())
+
+
+@pytest.mark.parametrize("shrink", [1e-2, 1e-3])
+def test_k3_fp16_keeps_small_output_gradients(cuda, shrink):
+    """A loss's dS is often below fp16's normal range (6.1e-5): at dO of
+    1e-3, over 300 keys, dS is about 3e-5 while dQ, dK and dV stay normal.
+    K3 scales dS by a power of two before its hi + lo split, so they keep
+    the plain version's values (which hold dS in fp32) within 2e-3 of
+    their scale."""
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    q, k, v, do = (torch.randn((4, 300, 64), device=cuda, generator=gen) for _ in range(4))
+    q, k, v, do = q.half(), k.half(), v.half(), (do * shrink).half()
+    assert bool((do != 0).any())
+    for causal in (False, True):
+        for g, w in zip(flash_attention_grads(q, k, v, do, causal=causal),
+                        attention_grads_plain(q, k, v, do, causal, 0.125)):
+            scale = w.float().abs().max().item()
+            assert scale > 0
+            torch.testing.assert_close(g.float(), w.float(), atol=2e-3 * scale, rtol=0)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d,v_size", [(64, 32768.0), (256, 8192.0)])
+def test_k3_fp16_keeps_large_ds_finite(cuda, d, v_size, causal):
+    """dS is dO times V: at dO of 2**-10 (which puts K3's starting scale of
+    dS at 2**10) and |V| in the thousands, over 8 keys of nearly equal
+    scores, |dS| reaches a few hundred, and 2**10 times that passes fp16's
+    65,504.  K3 lowers a row's scale where a tile's dS would pass 2**14, so
+    dQ, dK and dV stay finite and the plain version's (which holds dS in
+    fp32) within 2e-3 of their scale."""
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    shape = (4, 8, d)
+    q = torch.randn(shape, device=cuda, generator=gen).half()
+    k = (0.01 * torch.randn(shape, device=cuda, generator=gen)).half()
+    sign = torch.where(torch.rand((4, 8, 1), device=cuda, generator=gen) < 0.5, -1.0, 1.0)
+    v = (v_size * sign * (1 + 0.01 * torch.randn(shape, device=cuda, generator=gen))).half()
+    do = torch.full(shape, 2.0**-10, device=cuda).half()
+    scale = d ** -0.5
+    s = (q.float() @ k.float().transpose(1, 2)) * scale
+    if causal:
+        s = s.masked_fill(torch.ones(8, 8, dtype=torch.bool, device=cuda).triu(1), float("-inf"))
+    p = s.softmax(-1)
+    ds = p * (do.float() @ v.float().transpose(1, 2) - (do.float() * (p @ v.float())).sum(-1, keepdim=True))
+    assert 2.0**10 * ds.abs().max().item() > 4 * 65504
+    for g, w in zip(flash_attention_grads(q, k, v, do, causal=causal, scale=scale),
+                    attention_grads_plain(q, k, v, do, causal, scale)):
+        assert bool(torch.isfinite(g).all())
+        torch.testing.assert_close(g.float(), w.float(), atol=2e-3 * w.float().abs().max().item(), rtol=0)

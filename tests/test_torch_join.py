@@ -8,6 +8,8 @@ while a bound computed from data still raises when the function is
 compiled.
 """
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -20,9 +22,11 @@ from aesara_tpu.tensor.shape import specify_shape as jspecify_shape, unbroadcast
 import aesara_tpu_torch
 import aesara_tpu_torch.tensor as pat
 import aesara_tpu_torch.tensor.basic as ptb
-import aesara_tpu_torch.tensor.shape as pts
 from aesara_tpu_torch.tensor.shape import specify_shape as pspecify_shape, unbroadcast as punbroadcast
 from aesara_tpu_torch.config import config
+
+# ``aesara_tpu_torch.tensor.shape`` is shadowed by a function of that name
+pts = importlib.import_module("aesara_tpu_torch.tensor.shape")
 
 
 @pytest.fixture(autouse=True)

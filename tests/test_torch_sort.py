@@ -29,10 +29,11 @@ from aesara_tpu.tensor import extra_ops as jxo
 import aesara_tpu_torch
 import aesara_tpu_torch.tensor as pat
 from aesara_tpu_torch.config import config
-from aesara_tpu_torch.tensor import extra_ops as pxo, sort as psort
+from aesara_tpu_torch.tensor import extra_ops as pxo
 
-# ``aesara_tpu.tensor.sort`` is shadowed by a function of that name
+# ``aesara_tpu.tensor.sort`` and the port's are shadowed by functions of that name
 jsort = importlib.import_module("aesara_tpu.tensor.sort")
+psort = importlib.import_module("aesara_tpu_torch.tensor.sort")
 
 
 @pytest.fixture(autouse=True)
