@@ -10,29 +10,85 @@ the CSR products of sparse inputs (CUDA C++).  This package imports torch
 and never jax.
 """
 
-from aesara_tpu_torch.config import config  # noqa: F401
-from aesara_tpu_torch import tensor  # noqa: F401
-from aesara_tpu_torch.compile.function import Function, function  # noqa: F401
-from aesara_tpu_torch.compile.io import In, Out  # noqa: F401
-from aesara_tpu_torch.compile.mode import TORCH, Mode, get_mode  # noqa: F401
-from aesara_tpu_torch.compile.sharedvalue import shared  # noqa: F401
-from aesara_tpu_torch.gradient import grad, hessian, jacobian  # noqa: F401
-from aesara_tpu_torch.link.torch.linker import TorchLinker  # noqa: F401
-from aesara_tpu_torch.tensor import rewriting  # noqa: F401  (registers the rewrites)
-from aesara_tpu_torch.tensor import blas  # noqa: F401  (registers BlasOpt)
-from aesara_tpu_torch import sparse  # noqa: F401  (registers the sparse rewrites)
-from aesara_tpu_torch import scan  # noqa: F401  (registers the scan rewrites and Scan's lowering)
-from aesara_tpu_torch.compile.builders import register_inline_ofg
-from aesara_tpu_torch.link.torch import control_dispatch  # noqa: F401  (IfElse, CheckAndRaise, Print, OpFromGraph)
-from aesara_tpu_torch.link.torch import nnet_dispatch  # noqa: F401  (convolution, pooling, images2neibs)
-from aesara_tpu_torch.ifelse import ifelse, register_ifelse_rewrites  # noqa: F401
+import logging
 
-register_inline_ofg()
-register_ifelse_rewrites()
+# the package's logger with one default stderr handler, which an
+# application that configures logging itself may detach
+aesara_logger = logging.getLogger("aesara_tpu_torch")
+logging_default_handler = logging.StreamHandler()
+logging_default_formatter = logging.Formatter(fmt="%(levelname)s (%(name)s): %(message)s")
+logging_default_handler.setFormatter(logging_default_formatter)
+aesara_logger.setLevel(logging.WARNING)
+if not aesara_logger.hasHandlers():
+    aesara_logger.addHandler(logging_default_handler)
+
+
+def disable_log_handler(logger=aesara_logger, handler=logging_default_handler):
+    """Detach the default handler."""
+    if logger.hasHandlers():
+        logger.removeHandler(handler)
+
+
+from aesara_tpu_torch.config import change_flags, config  # noqa: E402,F401
+from aesara_tpu_torch.graph.ir import Variable, clone_replace  # noqa: E402,F401
+from aesara_tpu_torch import scalar  # noqa: E402,F401
+from aesara_tpu_torch import tensor  # noqa: E402,F401
+from aesara_tpu_torch import tensor as at  # noqa: E402,F401  (the conventional alias)
+from aesara_tpu_torch.compile.function import Function, function, function_dump, pfunc  # noqa: E402,F401
+from aesara_tpu_torch.compile.function import Function as FunctionMaker  # noqa: E402,F401
+from aesara_tpu_torch.compile.io import In, Out  # noqa: E402,F401
+from aesara_tpu_torch.compile.mode import (  # noqa: E402,F401
+    FAST_COMPILE, FAST_RUN, TORCH, Mode, get_mode, predefined_linkers, predefined_modes, predefined_optimizers,
+)
+from aesara_tpu_torch.compile.ops import as_op  # noqa: E402,F401
+from aesara_tpu_torch.compile.sharedvalue import SharedVariable, shared, shared_constructor  # noqa: E402,F401
+from aesara_tpu_torch.gradient import Lop, grad, hessian, jacobian, subgraph_grad, verify_grad  # noqa: E402,F401
+from aesara_tpu_torch.link.torch.linker import TorchLinker  # noqa: E402,F401
+from aesara_tpu_torch.printing import Print  # noqa: E402,F401
+from aesara_tpu_torch.raise_op import Assert, assert_op  # noqa: E402,F401
+from aesara_tpu_torch.updates import OrderedUpdates  # noqa: E402,F401
+from aesara_tpu_torch.tensor import rewriting as _tensor_rewriting  # noqa: E402,F401  (registers the rewrites)
+from aesara_tpu_torch.tensor import blas as _blas  # noqa: E402,F401  (registers BlasOpt)
+from aesara_tpu_torch import sparse  # noqa: E402,F401  (registers the sparse rewrites)
+from aesara_tpu_torch import scan as _scan  # noqa: E402,F401  (registers the scan rewrites and Scan's lowering)
+from aesara_tpu_torch.compile.builders import OpFromGraph, remat  # noqa: E402,F401
+from aesara_tpu_torch.compile.builders import register_inline_ofg as _register_inline_ofg  # noqa: E402
+from aesara_tpu_torch.link.torch import control_dispatch as _control_dispatch  # noqa: E402,F401  (IfElse, ...)
+from aesara_tpu_torch.link.torch import nnet_dispatch as _nnet_dispatch  # noqa: E402,F401  (convolution, ...)
+from aesara_tpu_torch.ifelse import ifelse  # noqa: E402,F401
+from aesara_tpu_torch.ifelse import register_ifelse_rewrites as _register_ifelse_rewrites  # noqa: E402
+
+_register_inline_ofg()
+_register_ifelse_rewrites()
 
 # ``scan`` is the function, as in the JAX package; the subpackage imported
 # above stays reachable by its module path (``aesara_tpu_torch.scan.basic``)
-from aesara_tpu_torch.scan.basic import scan  # noqa: E402,F811
+from aesara_tpu_torch.scan.basic import scan  # noqa: E402,F401,F811
+from aesara_tpu_torch.scan.views import foldl, foldr, map, reduce  # noqa: E402,F401,A004
+from aesara_tpu_torch.scan.views import map as scan_map  # noqa: E402,F401
+from aesara_tpu_torch.scan.views import reduce as scan_reduce  # noqa: E402,F401
 
-__all__ = ["config", "tensor", "sparse", "function", "Function", "In", "Out", "Mode", "TORCH",
-           "get_mode", "shared", "grad", "jacobian", "hessian", "TorchLinker", "ifelse", "scan"]
+
+def as_symbolic(x, name=None, **kwargs):
+    """``x`` as a Variable: a Variable as it is, a SciPy sparse matrix as a
+    sparse constant, anything else through ``as_tensor_variable``."""
+    import scipy.sparse
+
+    if isinstance(x, Variable):
+        return x
+    if scipy.sparse.issparse(x):
+        from aesara_tpu_torch.sparse.basic import as_sparse_variable
+
+        res = as_sparse_variable(x)
+        if name is not None:
+            res.name = name
+        return res
+    res = tensor.as_tensor_variable(x, **kwargs)
+    if name is not None:
+        res.name = name
+    return res
+
+
+def get_scalar_constant_value(v):
+    """The Python scalar behind a constant scalar graph."""
+    return tensor.get_scalar_constant_value(v)

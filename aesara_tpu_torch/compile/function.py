@@ -36,7 +36,7 @@ from aesara_tpu_torch.graph.ir import Constant, Variable, ancestors, clone_repla
 from aesara_tpu_torch.tensor.type import TensorType
 
 
-__all__ = ["function", "Function", "rebuild_collect_shared", "UnusedInputError"]
+__all__ = ["function", "pfunc", "function_dump", "Function", "rebuild_collect_shared", "UnusedInputError"]
 
 
 class UnusedInputError(Exception):
@@ -334,17 +334,24 @@ def rebuild_collect_shared(outputs, inputs=(), replace=None, updates=None, no_de
 
 
 def function(inputs: Sequence, outputs=None, mode=None, updates=None, givens=None,
-             no_default_updates=False, name=None, allow_input_downcast=None, on_unused_input=None,
-             steps_per_call: int = 1) -> Function:
+             no_default_updates=False, accept_inplace=False, name=None, rebuild_strict=True,
+             allow_input_downcast=None, profile=None, on_unused_input=None, steps_per_call: int = 1) -> Function:
     """Compile ``outputs`` (a variable, an ``Out``, a list of them, or
     None) as a function of ``inputs`` (variables or ``In`` specs),
     applying ``updates`` (pairs or a dict of shared variable → new value)
     after each call.  ``givens`` replaces variables before compiling;
     ``allow_input_downcast`` is the default of the inputs' own;
     ``on_unused_input`` ("raise", "warn" or "ignore"; default
-    ``config.on_unused_input``) says what an input nothing reads does."""
+    ``config.on_unused_input``) says what an input nothing reads does.
+    ``accept_inplace`` and ``rebuild_strict`` are accepted and change
+    nothing, as in the JAX package (the port builds no in-place node
+    before its rewrites, and ``givens`` keep their types); a truthy
+    ``profile`` raises until the port's diagnostics come."""
     if isinstance(inputs, (Variable, In)):
         raise TypeError("inputs must be a list/tuple")
+    if profile:
+        raise NotImplementedError("function(profile=...) waits for the port's diagnostics "
+                                  "(ROADMAP Queue 1 item 15)")
     if steps_per_call != 1:
         return _function_ksteps(inputs, outputs, mode, updates, givens, no_default_updates, name,
                                 allow_input_downcast, on_unused_input, int(steps_per_call))
@@ -461,3 +468,22 @@ def _function_ksteps(params, outputs, mode, updates, givens, no_default_updates,
                   allow_input_downcast=allow_input_downcast, on_unused_input=on_unused_input)
     fn.steps_per_call = k
     return fn
+
+
+def pfunc(params, outputs=None, mode=None, updates=None, givens=None, no_default_updates=False,
+          accept_inplace=False, name=None, rebuild_strict=True, allow_input_downcast=None, profile=None,
+          on_unused_input=None) -> Function:
+    """``function`` under its older name, with its ``params``."""
+    return function(list(params), outputs, mode=mode, updates=updates, givens=givens,
+                    no_default_updates=no_default_updates, accept_inplace=accept_inplace, name=name,
+                    rebuild_strict=rebuild_strict, allow_input_downcast=allow_input_downcast, profile=profile,
+                    on_unused_input=on_unused_input)
+
+
+def function_dump(filename, *args, **kwargs):
+    """Pickle the arguments of a ``function`` call into ``filename`` (for a
+    bug report)."""
+    import pickle
+
+    with open(filename, "wb") as f:
+        pickle.dump({"args": args, "kwargs": kwargs}, f)

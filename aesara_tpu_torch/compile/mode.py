@@ -20,15 +20,16 @@ from aesara_tpu_torch.link.torch.linker import TorchLinker
 
 
 __all__ = ["Mode", "optdb", "get_mode", "register_useless", "register_canonicalize", "register_stabilize",
-           "register_specialize", "register_uncanonicalize", "TORCH", "OPT_FAST_RUN"]
+           "register_specialize", "register_uncanonicalize", "TORCH", "FAST_RUN", "FAST_COMPILE", "OPT_FAST_RUN",
+           "OPT_FAST_COMPILE", "predefined_modes", "predefined_linkers", "predefined_optimizers"]
 
 
 optdb = SequenceDB()
-optdb.register("merge1", MergeOptimizer(), "fast_run", "merge", position=0)
+optdb.register("merge1", MergeOptimizer(), "fast_run", "fast_compile", "merge", position=0)
 local_useless = EquilibriumDB()
-optdb.register("useless", local_useless, "fast_run", position=0.6)
+optdb.register("useless", local_useless, "fast_run", "fast_compile", position=0.6)
 canonicalize = EquilibriumDB()
-optdb.register("canonicalize", canonicalize, "fast_run", position=1)
+optdb.register("canonicalize", canonicalize, "fast_run", "fast_compile", position=1)
 stabilize = EquilibriumDB()
 optdb.register("stabilize", stabilize, "fast_run", position=1.5)
 specialize = EquilibriumDB()
@@ -42,12 +43,12 @@ optdb.register("merge3", MergeOptimizer(), "fast_run", "merge", position=100)
 
 
 def register_useless(rewrite, *tags, name=None):
-    local_useless.register(name or rewrite.name, rewrite, "fast_run", *tags)
+    local_useless.register(name or rewrite.name, rewrite, "fast_run", "fast_compile", *tags)
     return rewrite
 
 
 def register_canonicalize(rewrite, *tags, name=None):
-    canonicalize.register(name or rewrite.name, rewrite, "fast_run", *tags)
+    canonicalize.register(name or rewrite.name, rewrite, "fast_run", "fast_compile", *tags)
     return rewrite
 
 
@@ -68,6 +69,8 @@ def register_uncanonicalize(rewrite, *tags, name=None):
 
 OPT_NONE = RewriteDatabaseQuery(include=[])
 OPT_FAST_RUN = RewriteDatabaseQuery(include=["fast_run"])
+OPT_FAST_COMPILE = RewriteDatabaseQuery(include=["fast_compile"])
+OPT_MERGE = RewriteDatabaseQuery(include=["merge"])
 
 
 class Mode:
@@ -93,8 +96,16 @@ class Mode:
 
 TORCH = Mode(TorchLinker(), OPT_FAST_RUN)
 # ``FAST_RUN`` is the JAX package's name for the same rewrites on its own
-# linker (``aesara_tpu/compile/mode.py``), so its callers run verbatim here
-predefined_modes = {"TORCH": TORCH, "FAST_RUN": TORCH}
+# linker (``aesara_tpu/compile/mode.py``), so its callers run verbatim here;
+# ``FAST_COMPILE`` runs the merges, the useless-node removals and the
+# canonicalizations only, as there.  The JAX package's ``JAX`` and ``PY``
+# modes have no counterpart: the port has one linker and no fallback.
+FAST_RUN = TORCH
+FAST_COMPILE = Mode(TorchLinker(), OPT_FAST_COMPILE)
+predefined_modes = {"TORCH": TORCH, "FAST_RUN": FAST_RUN, "FAST_COMPILE": FAST_COMPILE}
+predefined_linkers = {"torch": TorchLinker()}
+predefined_optimizers = {None: OPT_NONE, "None": OPT_NONE, "merge": OPT_MERGE, "fast_compile": OPT_FAST_COMPILE,
+                         "fast_run": OPT_FAST_RUN}
 
 
 def get_mode(mode: Optional[Union[str, Mode]]) -> Mode:

@@ -14,8 +14,11 @@ captured in a CUDA graph keeps reading that storage.  ``default_update``
 
 from __future__ import annotations
 
+from functools import singledispatch
+
 import numpy as np
 
+from aesara_tpu_torch.config import config
 from aesara_tpu_torch.graph.ir import Variable
 from aesara_tpu_torch.link.basic import resolve_device
 from aesara_tpu_torch.scalar.ops import from_host, is_torch_tensor
@@ -23,7 +26,7 @@ from aesara_tpu_torch.tensor.type import TensorType
 from aesara_tpu_torch.tensor.var import _tensor_operators
 
 
-__all__ = ["SharedVariable", "TensorSharedVariable", "shared"]
+__all__ = ["SharedVariable", "TensorSharedVariable", "shared", "shared_constructor"]
 
 
 class SharedVariable(Variable):
@@ -33,9 +36,11 @@ class SharedVariable(Variable):
     #: function that reads it (unless ``no_default_updates``)
     default_update = None
 
-    def __init__(self, type, value, name=None, device=None):
+    def __init__(self, type, value, name=None, device=None, strict=False, allow_downcast=None):
         super().__init__(type=type, owner=None, index=None, name=name)
         self.device = resolve_device(device)
+        #: how ``set_value`` admits a value (``TensorType.filter``)
+        self.strict, self.allow_downcast = strict, allow_downcast
         self._value = None
         self.set_value(value)
 
@@ -55,7 +60,9 @@ class SharedVariable(Variable):
             self.type.check_shape(tuple(new_value.shape))
             value = new_value.detach()
         else:
-            value = torch.as_tensor(from_host(self.type.filter(np.asarray(new_value)), self.type.dtype))
+            value = torch.as_tensor(from_host(self.type.filter(np.asarray(new_value), strict=self.strict,
+                                                               allow_downcast=self.allow_downcast),
+                                              self.type.dtype))
         if self._value is not None and self._value.shape == value.shape and self._value.dtype == value.dtype:
             self._value.copy_(value)
         else:
@@ -84,14 +91,32 @@ class TensorSharedVariable(_tensor_operators, SharedVariable):
         return self is other
 
 
-def shared(value, name=None, device=None) -> TensorSharedVariable:
-    """A shared tensor holding a copy of ``value`` on ``device``; a SciPy
+@singledispatch
+def shared_constructor(value, name=None, strict=False, allow_downcast=None, **kwargs):
+    """The shared variable for a value of a registered type (register one
+    with ``shared_constructor.register``); a TypeError hands the value to
+    ``shared``'s own constructors."""
+    raise TypeError(f"no shared constructor for {type(value)}")
+
+
+def shared(value, name=None, strict=False, allow_downcast=None, device=None, **kwargs) -> TensorSharedVariable:
+    """A shared variable holding a copy of ``value`` on ``device`` (default
+    ``config.device``): a tensor of the value's dtype, where a Python
+    float takes ``config.floatX``, an int int64 and a bool bool; a SciPy
     sparse matrix makes a sparse shared variable, a NumPy ``Generator`` or
-    ``RandomState`` a PRNG key (``tensor/random/var.py``)."""
+    ``RandomState`` a PRNG key (``tensor/random/var.py``).  ``strict`` and
+    ``allow_downcast`` say how ``set_value`` admits later values;
+    ``shape`` or ``broadcastable`` give the static shape, ``borrow`` is
+    accepted (the value is copied to the device either way)."""
     import scipy.sparse
 
     if isinstance(value, Variable):
         raise TypeError("shared() takes a value, not a Variable")
+    try:
+        return shared_constructor(value, name=name, strict=strict, allow_downcast=allow_downcast, device=device,
+                                  **kwargs)
+    except TypeError:
+        pass
     if isinstance(value, (np.random.Generator, np.random.RandomState)):
         from aesara_tpu_torch.tensor.random.var import generator_shared
 
@@ -100,8 +125,22 @@ def shared(value, name=None, device=None) -> TensorSharedVariable:
         from aesara_tpu_torch.sparse.sharedvar import sparse_shared
 
         return sparse_shared(value, name=name, device=device)
+    return _tensor_shared(value, name, strict, allow_downcast, device, **kwargs)
+
+
+def _tensor_shared(value, name, strict, allow_downcast, device, borrow=False, shape=None, broadcastable=None,
+                   sharding=None):
+    if sharding is not None:
+        raise NotImplementedError("sharding= waits for the port's parallel layer (ROADMAP Queue 1 item 16)")
     if is_torch_tensor(value):
-        return TensorSharedVariable(TensorType(str(value.dtype).split(".")[-1], tuple(value.shape)), value,
-                                    name=name, device=device)
-    arr = np.asarray(value)
-    return TensorSharedVariable(TensorType(arr.dtype.name, arr.shape), arr, name=name, device=device)
+        dtype, value_shape = str(value.dtype).split(".")[-1], tuple(value.shape)
+    else:
+        if isinstance(value, (bool, int, float)) and not isinstance(value, np.generic):
+            value = np.asarray(value, dtype="bool" if isinstance(value, bool) else "int64"
+                               if isinstance(value, int) else config.floatX)
+        value = np.asarray(value)
+        dtype, value_shape = value.dtype.name, value.shape
+    if shape is None and broadcastable is not None:
+        shape = tuple(1 if b else s for b, s in zip(broadcastable, value_shape))
+    return TensorSharedVariable(TensorType(dtype, value_shape if shape is None else shape), value, name=name,
+                                device=device, strict=strict, allow_downcast=allow_downcast)

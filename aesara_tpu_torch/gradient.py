@@ -446,10 +446,14 @@ class numeric_grad:
 
 
 def verify_grad(fun: Callable, pt: Sequence, n_tests: int = 2, rng=None, eps: Optional[float] = None,
-                abs_tol: Optional[float] = None, rel_tol: Optional[float] = None, mode=None):
+                out_type=None, abs_tol: Optional[float] = None, rel_tol: Optional[float] = None, mode=None,
+                cast_to_output_type: bool = False, no_debug_ref: bool = True):
     """Check ``fun``'s symbolic gradient against central differences of a
     random projection of its output, at the point ``pt``; raises
-    ``GradientError`` where both tolerances are exceeded."""
+    ``GradientError`` where both tolerances are exceeded.  The projection
+    takes the output's dtype, so ``out_type`` and ``cast_to_output_type``
+    change nothing, and there is no debug mode for ``no_debug_ref`` to
+    leave out: all three are accepted as the JAX package accepts them."""
     from aesara_tpu_torch.compile.function import function
     from aesara_tpu_torch.tensor.math import mul, sum as tsum
     from aesara_tpu_torch.tensor.type import TensorType

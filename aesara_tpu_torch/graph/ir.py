@@ -112,6 +112,9 @@ class Apply:
         new_node.tag = Scratchpad().__update__(self.tag)
         return new_node
 
+    def get_parents(self) -> list:
+        return list(self.inputs)
+
     def __str__(self) -> str:
         return f"{self.op}({', '.join(map(str, self.inputs))})"
 
@@ -135,6 +138,39 @@ class Variable:
                             index=None, name=kwargs.pop("name", self.name))
         cp.tag = Scratchpad().__update__(self.tag)
         return cp
+
+    def get_parents(self) -> list:
+        return [self.owner] if self.owner is not None else []
+
+    def eval(self, inputs_to_values: Optional[dict] = None, **kwargs):
+        """Compile this variable as a function of the inputs in
+        ``inputs_to_values`` (variables, or the names of this graph's
+        inputs) and call it with their values.  The function is kept on the
+        variable, one for each set of inputs and ``function`` keywords; it
+        compiles for ``config.device`` (the card by default), so the result
+        is a tensor there."""
+        from aesara_tpu_torch.compile.function import function
+
+        resolved = {}
+        for var, value in (inputs_to_values or {}).items():
+            if isinstance(var, str):
+                named = [v for v in graph_inputs([self]) if not isinstance(v, Constant) and v.name == var]
+                if len(named) != 1:
+                    raise ValueError(f"{len(named)} inputs named {var!r}")
+                var = named[0]
+            resolved[var] = value
+        cache = self.__dict__.setdefault("_fn_cache", {})
+        inputs = tuple(sorted(resolved, key=id))
+        key = (inputs, tuple(sorted(kwargs.items())))
+        try:
+            fn = cache[key]
+        except (KeyError, TypeError):
+            fn = function(list(inputs), self, on_unused_input="ignore", **kwargs)
+            try:
+                cache[key] = fn
+            except TypeError:
+                pass
+        return fn(*(resolved[i] for i in inputs))
 
     def __str__(self) -> str:
         if self.name is not None:

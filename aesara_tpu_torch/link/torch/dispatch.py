@@ -26,12 +26,15 @@ import numpy as np
 from aesara_tpu_torch.gradient import GradManipulatorOp
 from aesara_tpu_torch.graph.ir import Constant
 from aesara_tpu_torch.scalar.composite import Composite
+from aesara_tpu_torch.compile.ops import DeepCopyOp, FromFunctionOp, ViewOp
+from aesara_tpu_torch.scalar.ops import to_host
 from aesara_tpu_torch.tensor.basic import (
-    Alloc, AllocEmpty, ARange, Join, MakeVector, ScalarFromTensor, Split, TensorFromScalar,
+    Alloc, AllocDiag, AllocEmpty, ARange, Choose, ExtractDiag, Eye, Join, MakeVector, Nonzero, PermuteRowElements,
+    ScalarFromTensor, Split, TensorFromScalar, Tri,
 )
 from aesara_tpu_torch.tensor.blas import Dot22, Dot22Scalar, Gemm, Gemv, Ger
 from aesara_tpu_torch.tensor.elemwise import CAReduce, DimShuffle, Elemwise, check_static_broadcast
-from aesara_tpu_torch.tensor.extra_ops import BroadcastTo, CumOp, Repeat, Unique
+from aesara_tpu_torch.tensor.extra_ops import BroadcastTo, CumOp, FillDiagonalOffset, Repeat, Unique, diagonal_indices
 from aesara_tpu_torch.tensor.math import Argmax, BatchedDot, Dot
 from aesara_tpu_torch.tensor.nnet.attention import FusedAttention, FusedAttentionGrad
 from aesara_tpu_torch.tensor.shape import Reshape, Shape, Shape_i, SpecifyShape, Unbroadcast, check_specified_shape
@@ -942,3 +945,172 @@ def _torch_unique(op, node):
     unique.capturable = False
     unique.blocker = "has a result whose length the data decides"
     return unique
+
+
+# ---------------------------------------------------------------------------
+# the user API's core ops (``aesara_tpu/link/jax/dispatch.py:741-835``) and
+# the compile-support ops (``:1186-1215``)
+# ---------------------------------------------------------------------------
+
+def _diagonal_mask(op, node, lower: bool):
+    """A lowering of ``Eye`` (``lower`` False) or ``Tri``: an (n, m) matrix
+    of ``col - row == k`` or ``col - row <= k`` in the op's dtype, made on
+    the program's device from sizes on the host (``k`` may be on the
+    device)."""
+    import torch
+
+    dtype = torch_dtype(op.dtype)
+
+    def mask(n, m, k, device):
+        rows = torch.arange(int(n), device=device).unsqueeze(1)
+        cols = torch.arange(int(m), device=device).unsqueeze(0)
+        diff = cols - rows
+        return ((diff <= k) if lower else (diff == k)).to(dtype)
+
+    # the diagonal k may stay on the device; the sizes fix the result's shape
+    mask.host_inputs = (0, 1)
+    mask.needs_host = ((0, 1), "has a size computed on the device: its result's shape must be known on the host")
+    mask.takes_device = True
+    return mask
+
+
+@torch_funcify.register(Eye)
+def _torch_eye(op, node):
+    return _diagonal_mask(op, node, lower=False)
+
+
+@torch_funcify.register(Tri)
+def _torch_tri(op, node):
+    return _diagonal_mask(op, node, lower=True)
+
+
+@torch_funcify.register(ExtractDiag)
+def _torch_extract_diag(op, node):
+    import torch
+
+    # a view, as jnp.diagonal's is in XLA's eyes (the op's view_map); the
+    # linker clones an output that shares an updated variable's storage
+    return lambda x: torch.diagonal(x, op.offset, op.axis1, op.axis2)
+
+
+@torch_funcify.register(AllocDiag)
+def _torch_alloc_diag(op, node):
+    import torch
+
+    offset = op.offset
+
+    def alloc_diag(x):
+        n = x.shape[-1] + abs(offset)
+        res = torch.zeros(tuple(x.shape[:-1]) + (n, n), dtype=x.dtype, device=x.device)
+        idx = torch.arange(x.shape[-1], device=x.device)
+        if offset >= 0:
+            res[..., idx, idx + offset] = x
+        else:
+            res[..., idx - offset, idx] = x
+        return res
+
+    return alloc_diag
+
+
+@torch_funcify.register(FillDiagonalOffset)
+def _torch_fill_diagonal_offset(op, node):
+    import torch
+
+    def fill_diagonal_offset(a, val):
+        # the indices made on the device (a copy from the host would break a capture)
+        rows, _ = diagonal_indices(tuple(a.shape), op.offset)
+        idx = torch.arange(len(rows), device=a.device)
+        out = a.clone()
+        out[idx + max(-op.offset, 0), idx + max(op.offset, 0)] = val.to(a.dtype)
+        return out
+
+    return fill_diagonal_offset
+
+
+@torch_funcify.register(PermuteRowElements)
+def _torch_permute_row_elements(op, node):
+    import torch
+
+    def permute(x, y):
+        shape = torch.broadcast_shapes(x.shape, y.shape)
+        n = shape[-1]
+        xb = torch.broadcast_to(x, shape).reshape(-1, n)
+        # a negative index counts from the row's end and one past either
+        # end takes the end, as XLA's gather does
+        yb = torch.broadcast_to(y, shape).reshape(-1, n)
+        yb = torch.where(yb < 0, yb + n, yb).clamp(0, n - 1)
+        if op.inverse:
+            res = torch.zeros_like(xb).scatter_(1, yb, xb)
+        else:
+            res = torch.gather(xb, 1, yb)
+        return res.reshape(shape)
+
+    return permute
+
+
+@torch_funcify.register(Choose)
+def _torch_choose(op, node):
+    import torch
+
+    if op.mode not in ("raise", "clip", "wrap"):
+        raise NotImplementedError(f"Choose mode {op.mode!r}")
+
+    def choose(a, choices):
+        n = choices.shape[0]
+        shape = torch.broadcast_shapes(a.shape, choices.shape[1:])
+        idx = a.to(torch.int64)
+        # "raise" clips on the card, as the JAX package's XLA lowering does:
+        # checking the indices would make the host wait for the device
+        idx = idx.remainder(n) if op.mode == "wrap" else idx.clamp(0, n - 1)
+        idx = torch.broadcast_to(idx, shape).unsqueeze(0)
+        return torch.gather(torch.broadcast_to(choices, (n,) + tuple(shape)), 0, idx).squeeze(0)
+
+    return choose
+
+
+@torch_funcify.register(Nonzero)
+def _torch_nonzero(op, node):
+    import torch
+
+    def nonzero(a):
+        res = torch.nonzero(a, as_tuple=True)
+        return res if len(res) > 1 else res[0]
+
+    nonzero.capturable = False
+    nonzero.blocker = "has a result whose length the data decides"
+    return nonzero
+
+
+@torch_funcify.register(DeepCopyOp)
+def _torch_deep_copy(op, node):
+    return lambda x: x.clone()
+
+
+@torch_funcify.register(ViewOp)
+def _torch_view(op, node):
+    return lambda x: x
+
+
+@torch_funcify.register(FromFunctionOp)
+def _torch_from_function(op, node):
+    """The user's function on the host, as the JAX package's
+    ``pure_callback``: the inputs copied there in their host form, the
+    results back to the device in the outputs' dtypes.  An exception in
+    the function propagates."""
+    import torch
+
+    in_dtypes = [i.type.dtype for i in node.inputs]
+    out_dtypes = [o.type.dtype for o in node.outputs]
+
+    def from_function(*args, device):
+        outs = op._fn(*[to_host(a, d) for a, d in zip(args, in_dtypes)])
+        if not isinstance(outs, (list, tuple)):
+            outs = (outs,)
+        res = tuple(torch.as_tensor(np.ascontiguousarray(to_host(o, d)), device=device).to(torch_dtype(d))
+                    for o, d in zip(outs, out_dtypes))
+        return res if len(res) > 1 else res[0]
+
+    from_function.takes_device = True
+    from_function.capturable = False
+    from_function.blocker = "runs a Python function on the host"
+    return from_function

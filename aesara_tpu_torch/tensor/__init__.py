@@ -1,26 +1,41 @@
-"""The tensor API of the port (reference ``aesara_tpu/tensor``): the
-subset the encoder's forward and train step, the optimizers, the linear
-models, the MLP and the repo's reference configurations 1-3 use."""
+"""The tensor API of the port (reference ``aesara_tpu/tensor/__init__.py``):
+the NumPy-like symbolic namespace (``import aesara_tpu_torch.tensor as
+at``), with the same names as the JAX package's but those the port leaves
+out on purpose (``tests/test_torch_api_surface.py`` lists each with its
+reason)."""
 
-from aesara_tpu_torch.tensor.basic import (  # noqa: F401
-    alloc, arange, as_tensor_variable, cast, concatenate, constant, empty, fill, flatten, full, join, ones,
-    ones_like, split, stack, switch, where, zeros, zeros_like,
-)
-from aesara_tpu_torch.tensor.math import (  # noqa: F401
-    abs, add, all, and_, any, arccos, arccosh, arcsin, arcsinh, arctan, arctan2, arctanh, argmax, ceil,
-    clip, cos, cosh, deg2rad, dot, eq, erf, erfc, erfcinv, erfcx, erfinv, exp, exp2, expit, expm1, floor,
-    floor_div, gamma, gammaln, ge, gt, i0, i1, int_div, inv, invert, isinf, isnan, j0, j1, le, log, log1mexp,
-    log1p, log1pexp, log2, log10, lt, max, maximum, mean, min, minimum, mod, mul, neg, neq, or_, pow, psi,
-    rad2deg, reciprocal, round_half_away_from_zero, round_half_to_even, sgn, shift_left, shift_right,
-    sigmoid, sin, sinh, softplus, sqr, sqrt, sub, sum, tan, tanh, tri_gamma, true_div, trunc, xor,
-)
-from aesara_tpu_torch.tensor.nnet.attention import fused_attention  # noqa: F401
-from aesara_tpu_torch.tensor.shape import (  # noqa: F401
-    reshape, shape_padleft, shape_padright, specify_shape, unbroadcast,
-)
-from aesara_tpu_torch.tensor.special import log_softmax, softmax  # noqa: F401
 from aesara_tpu_torch.tensor.type import *  # noqa: F401,F403  (TensorType and the constructors)
-from aesara_tpu_torch.tensor.subtensor import inc_subtensor, set_subtensor  # noqa: F401
+from aesara_tpu_torch.tensor.type import TensorType, tensor  # noqa: F401
+from aesara_tpu_torch.tensor.var import TensorConstant, TensorVariable  # noqa: F401
+from aesara_tpu_torch.tensor.basic import *  # noqa: F401,F403
+from aesara_tpu_torch.tensor.basic import (  # noqa: F401
+    NotScalarConstantError, get_scalar_constant_value, get_vector_length,
+)
+from aesara_tpu_torch.tensor.elemwise import CAReduce, DimShuffle, Elemwise  # noqa: F401
+from aesara_tpu_torch.tensor.shape import (  # noqa: F401
+    Reshape, Shape, Shape_i, SpecifyShape, reshape, shape_padaxis, shape_padleft, shape_padright, specify_shape,
+    unbroadcast,
+)
+from aesara_tpu_torch.tensor.math import *  # noqa: F401,F403
+from aesara_tpu_torch.tensor.blas import batched_tensordot, outer  # noqa: F401
+from aesara_tpu_torch.scalar.ops import ScalarType, upcast  # noqa: F401
+from aesara_tpu_torch.tensor import math  # noqa: F401
+from aesara_tpu_torch.tensor.blas import gemm, gemv, ger  # noqa: F401,E501
+from aesara_tpu_torch.tensor.subtensor import (  # noqa: F401
+    AdvancedIncSubtensor, AdvancedIncSubtensor1, AdvancedSubtensor, AdvancedSubtensor1, IncSubtensor, Subtensor,
+    inc_subtensor, set_subtensor, take,
+)
+from aesara_tpu_torch.tensor.sort import argsort, argtopk, take_along_axis, topk, topk_and_argtopk  # noqa: F401
+from aesara_tpu_torch.graph.ir import Apply, Constant, Variable  # noqa: F401
+from aesara_tpu_torch.graph.op import Op  # noqa: F401
+from aesara_tpu_torch.config import config  # noqa: F401
+from aesara_tpu_torch.scalar.ops import discrete_dtypes  # noqa: F401
+from aesara_tpu_torch.gradient import consider_constant, grad, hessian, jacobian  # noqa: F401
+from aesara_tpu_torch.tensor.nnet.attention import fused_attention  # noqa: F401
+from aesara_tpu_torch.tensor.special import log_softmax, softmax  # noqa: F401
+
+#: anything ``as_tensor_variable`` converts
+TensorLike = object
 
 # ``var``, ``shape`` and ``sort`` name functions here, as in the JAX package,
 # though submodules of this package share those names.  Each submodule is
@@ -32,3 +47,19 @@ import aesara_tpu_torch.tensor.var  # noqa: E402,F401
 from aesara_tpu_torch.tensor.math import var  # noqa: E402,F401,F811
 from aesara_tpu_torch.tensor.shape import shape  # noqa: E402,F401,F811
 from aesara_tpu_torch.tensor.sort import sort  # noqa: E402,F401,F811
+
+
+def __getattr__(name):
+    """The submodules the port has, imported on first use, and the
+    functions of ``extra_ops`` at the namespace's root, as in the JAX
+    package."""
+    import importlib
+
+    lazy = {"extra_ops", "sort", "special", "random", "nnet", "blas", "rewriting", "sharedvar", "elemwise",
+            "subtensor", "type", "basic"}
+    if name in lazy:
+        return importlib.import_module(f"aesara_tpu_torch.tensor.{name}")
+    extra = importlib.import_module("aesara_tpu_torch.tensor.extra_ops")
+    if name in extra.__all__:
+        return getattr(extra, name)
+    raise AttributeError(f"module 'aesara_tpu_torch.tensor' has no attribute {name!r}")

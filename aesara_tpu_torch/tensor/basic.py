@@ -6,7 +6,11 @@ the JAX package's literal dtype rules, ``cast``, ``fill`` (with
 ``AllocEmpty``, ``ARange``, ``flatten``, the scalar/tensor bridges
 ``TensorFromScalar``/``ScalarFromTensor``, and ``Join``/``Split`` (with
 ``join``, ``concatenate``, ``stack`` and ``split``), the structural ops
-Scan's graphs build."""
+Scan's graphs build; and the user API's core ops (``Eye``, ``Tri``,
+``ExtractDiag``, ``AllocDiag``, ``Nonzero``, ``PermuteRowElements``,
+``Choose``) with the helpers built on them and the shape conveniences
+(``tril``, ``diag``, ``nonzero_values``, ``roll``, ``tile``,
+``expand_dims``, ``mgrid``, ...)."""
 
 from __future__ import annotations
 
@@ -290,17 +294,25 @@ def arange(start, stop=None, step=1, dtype=None):
 
 
 def flatten(x, ndim: int = 1):
-    """``x`` reshaped to one dim (the only form the port uses), to the
-    product of its shape, as the JAX package builds it."""
+    """``x`` with its trailing dims merged so that ``ndim`` remain, as the
+    JAX package builds it: to a constant shape where the leading dims are
+    static, else to the product of its shape (``ndim`` 1) or its leading
+    dims and -1."""
     from aesara_tpu_torch.tensor.math import prod
     from aesara_tpu_torch.tensor.shape import reshape, shape
 
     x = as_tensor_variable(x)
-    if ndim != 1:
-        raise NotImplementedError("flatten to more than one dim is not ported yet")
-    if x.type.ndim == 1:
+    if not 1 <= ndim <= x.type.ndim:
+        raise ValueError(f"flatten ndim {ndim} out of range for input ndim {x.type.ndim}")
+    if ndim == x.type.ndim:
         return x
-    return reshape(x, stack([cast(prod(shape(x)), "int64")]), ndim=1)
+    static = x.type.shape
+    if ndim > 1 and all(s is not None for s in static[:ndim - 1]):
+        return reshape(x, tuple(static[:ndim - 1]) + (-1,), ndim=ndim)
+    if ndim == 1:
+        return reshape(x, stack([cast(prod(shape(x)), "int64")]), ndim=1)
+    lead = [x.shape[i] for i in range(ndim - 1)] + [constant(-1, dtype="int64")]
+    return reshape(x, stack([cast(as_tensor_variable(s), "int64") for s in lead]), ndim=ndim)
 
 
 # ---------------------------------------------------------------------------
@@ -604,3 +616,572 @@ def split(x, splits_size, n_splits, axis=0):
     """``x`` cut along ``axis`` into ``n_splits`` pieces of the lengths in
     the vector ``splits_size``; always a list."""
     return Split(int(n_splits))(x, axis, splits_size, return_list=True)
+
+
+# ---------------------------------------------------------------------------
+# the user API's helpers: conversion, Eye / Tri, diagonals, Nonzero,
+# PermuteRowElements, Choose and the shape conveniences (reference
+# ``aesara_tpu/tensor/basic.py:79,384-447,599-605,725-820,891-1127,
+# 1197-1558``)
+# ---------------------------------------------------------------------------
+
+as_tensor = as_tensor_variable
+make_vector = MakeVector()
+
+
+def as_tensor_or_list(x):
+    return x
+
+
+def extract_constant(x, elemwise=True, only_process_constants=False):
+    """The Python scalar behind ``x`` where it is a constant scalar graph,
+    else ``x``."""
+    try:
+        return get_scalar_constant_value(x)
+    except NotScalarConstantError:
+        return x
+
+
+def full_like(a, fill_value, dtype=None):
+    res = fill(as_tensor_variable(a), as_tensor_variable(fill_value))
+    return cast(res, dtype) if dtype else res
+
+
+def empty_like(x, dtype=None):
+    x = as_tensor_variable(x)
+    return AllocEmpty(dtype or x.type.dtype)(*[x.shape[i] for i in range(x.type.ndim)])
+
+
+def _static_sizes(*sizes):
+    out = []
+    for a in sizes:
+        try:
+            out.append(int(get_scalar_constant_value(a)))
+        except NotScalarConstantError:
+            out.append(None)
+    return tuple(out)
+
+
+class Eye(Op):
+    """``numpy.eye(n, m, k)`` in ``dtype``; the sizes and ``k`` are int64
+    scalars, which the lowering needs on the host."""
+
+    __props__ = ("dtype",)
+
+    def __init__(self, dtype=None):
+        self.dtype = dtype or config.floatX
+
+    def make_node(self, n, m, k):
+        n, m, k = [cast(as_tensor_variable(a), "int64") for a in (n, m, k)]
+        return Apply(self, [n, m, k], [TensorType(self.dtype, _static_sizes(n, m))()])
+
+    def perform(self, node, inputs, output_storage):
+        n, m, k = inputs
+        output_storage[0][0] = to_host(np.eye(int(n), int(m), int(k)), self.dtype)
+
+    def infer_shape(self, fgraph, node, input_shapes):
+        return [(node.inputs[0], node.inputs[1])]
+
+    def connection_pattern(self, node):
+        return [[False]] * 3
+
+    def grad(self, inputs, output_grads):
+        from aesara_tpu_torch.gradient import disconnected_type
+
+        return [disconnected_type() for _ in inputs]
+
+
+def eye(n, m=None, k=0, dtype=None):
+    if m is None:
+        m = n
+    return Eye(dtype)(n, m, k)
+
+
+def identity_like(x, dtype=None):
+    x = as_tensor_variable(x)
+    return eye(x.shape[0], x.shape[1], 0, dtype or x.type.dtype)
+
+
+class Tri(Op):
+    """``numpy.tri(n, m, k)``: ones on and below diagonal ``k``."""
+
+    __props__ = ("dtype",)
+
+    def __init__(self, dtype=None):
+        self.dtype = dtype or config.floatX
+
+    def make_node(self, n, m, k):
+        n, m, k = [cast(as_tensor_variable(a), "int64") for a in (n, m, k)]
+        return Apply(self, [n, m, k], [TensorType(self.dtype, _static_sizes(n, m))()])
+
+    def perform(self, node, inputs, output_storage):
+        n, m, k = inputs
+        output_storage[0][0] = to_host(np.tri(int(n), int(m), int(k)), self.dtype)
+
+    def infer_shape(self, fgraph, node, input_shapes):
+        return [(node.inputs[0], node.inputs[1])]
+
+    def connection_pattern(self, node):
+        return [[False]] * 3
+
+    def grad(self, inputs, output_grads):
+        from aesara_tpu_torch.gradient import disconnected_type
+
+        return [disconnected_type() for _ in inputs]
+
+
+def tri(n, m=None, k=0, dtype=None):
+    if m is None:
+        m = n
+    return Tri(dtype)(n, m, k)
+
+
+def tril(m, k=0):
+    """``m`` with the entries above diagonal ``k`` zeroed (a product with
+    ``tri``, as the JAX package builds it)."""
+    m = as_tensor_variable(m)
+    return m * tri(m.shape[-2], m.shape[-1], k, dtype=m.type.dtype)
+
+
+def triu(m, k=0):
+    m = as_tensor_variable(m)
+    mask = tri(m.shape[-2], m.shape[-1], k - 1, dtype=m.type.dtype)
+    return m * (constant(1, dtype=m.type.dtype) - mask)
+
+
+def tril_indices(n, k=0, m=None):
+    """The row and column indices of ``tril``'s kept entries (a Nonzero)."""
+    from aesara_tpu_torch.tensor.math import ge
+
+    m = n if m is None else m
+    return nonzero(ge(arange(0, n).dimshuffle(0, "x") + k, arange(0, m).dimshuffle("x", 0)))
+
+
+def tril_indices_from(a, k=0):
+    a = as_tensor_variable(a)
+    return tril_indices(a.shape[0], k=k, m=a.shape[1])
+
+
+def triu_indices(n, k=0, m=None):
+    from aesara_tpu_torch.tensor.math import le
+
+    m = n if m is None else m
+    return nonzero(le(arange(0, n).dimshuffle(0, "x") + k, arange(0, m).dimshuffle("x", 0)))
+
+
+def triu_indices_from(a, k=0):
+    a = as_tensor_variable(a)
+    return triu_indices(a.shape[0], k=k, m=a.shape[1])
+
+
+class ExtractDiag(Op):
+    """``numpy.diagonal(x, offset, axis1, axis2)``: the other dims, then
+    the diagonal.  The result is a view of ``x`` (``view_map``); the linker
+    returns no output that shares a shared variable's storage with an
+    update."""
+
+    __props__ = ("offset", "axis1", "axis2")
+    view_map = {0: [0]}
+
+    def __init__(self, offset=0, axis1=0, axis2=1):
+        self.offset, self.axis1, self.axis2 = int(offset), int(axis1), int(axis2)
+
+    def make_node(self, x):
+        x = as_tensor_variable(x)
+        if x.type.ndim < 2:
+            raise TypeError("ExtractDiag needs ndim >= 2")
+        ax1, ax2 = self.axis1 % x.type.ndim, self.axis2 % x.type.ndim
+        rest = [s for d, s in enumerate(x.type.shape) if d not in (ax1, ax2)]
+        s1, s2 = x.type.shape[ax1], x.type.shape[ax2]
+        dlen = None
+        if s1 is not None and s2 is not None:
+            dlen = max(0, min(s1, s2 - self.offset) if self.offset >= 0 else min(s1 + self.offset, s2))
+        return Apply(self, [x], [TensorType(x.type.dtype, tuple(rest) + (dlen,))()])
+
+    def perform(self, node, inputs, output_storage):
+        output_storage[0][0] = np.diagonal(inputs[0], self.offset, self.axis1, self.axis2).copy()
+
+    def grad(self, inputs, output_grads):
+        """A zero matrix with the output gradient on the diagonal (matrices
+        only, as in the JAX package)."""
+        from aesara_tpu_torch.tensor.extra_ops import fill_diagonal_offset
+
+        (x,) = inputs
+        (gz,) = output_grads
+        if x.type.ndim != 2:
+            raise NotImplementedError("ExtractDiag grad only for matrices")
+        ax1, ax2 = self.axis1 % 2, self.axis2 % 2
+        sh = x.shape
+        if (ax1, ax2) == (1, 0):
+            g = fill_diagonal_offset(zeros((sh[1], sh[0]), dtype=gz.type.dtype), gz, self.offset).T
+        else:
+            g = fill_diagonal_offset(zeros((sh[0], sh[1]), dtype=gz.type.dtype), gz, self.offset)
+        return [cast(g, x.type.dtype)]
+
+
+def diagonal(x, offset=0, axis1=0, axis2=1):
+    return ExtractDiag(offset, axis1, axis2)(x)
+
+
+extract_diag = diagonal
+
+
+class AllocDiag(Op):
+    """A vector's entries on diagonal ``offset`` of a square matrix of
+    zeros (over the leading dims of a higher-dimensional input)."""
+
+    __props__ = ("offset", "axis1", "axis2")
+
+    def __init__(self, offset=0, axis1=0, axis2=1):
+        self.offset, self.axis1, self.axis2 = int(offset), int(axis1), int(axis2)
+
+    def make_node(self, x):
+        x = as_tensor_variable(x)
+        if x.type.ndim < 1:
+            raise TypeError("AllocDiag needs ndim >= 1")
+        n = x.type.shape[-1]
+        d = None if n is None else n + abs(self.offset)
+        return Apply(self, [x], [TensorType(x.type.dtype, x.type.shape[:-1] + (d, d))()])
+
+    def perform(self, node, inputs, output_storage):
+        (x,) = inputs
+        if x.ndim == 1:
+            res = np.diag(x, self.offset)
+        else:
+            n = x.shape[-1] + abs(self.offset)
+            res = np.zeros(x.shape[:-1] + (n, n), dtype=x.dtype)
+            idx = np.arange(x.shape[-1])
+            if self.offset >= 0:
+                res[..., idx, idx + self.offset] = x
+            else:
+                res[..., idx - self.offset, idx] = x
+        output_storage[0][0] = res
+
+    def grad(self, inputs, output_grads):
+        return [diagonal(output_grads[0], self.offset, self.axis1, self.axis2)]
+
+
+def diag(v, k=0):
+    """A vector's diagonal matrix, or a matrix's diagonal."""
+    v = as_tensor_variable(v)
+    if v.type.ndim == 1:
+        return AllocDiag(k)(v)
+    if v.type.ndim >= 2:
+        return diagonal(v, offset=k)
+    raise ValueError("diag needs vector or matrix")
+
+
+class Nonzero(Op):
+    """The indices of the nonzero entries, one int64 vector a dim.  The
+    result's length is the data's, so a function that holds one runs
+    eagerly on the card (as ``Unique``); the JAX package runs it only on
+    its PY linker."""
+
+    __props__ = ()
+
+    def make_node(self, a):
+        a = as_tensor_variable(a)
+        if a.type.ndim == 0:
+            raise ValueError("nonzero of 0-d tensor")
+        return Apply(self, [a], [TensorType("int64", (None,))() for _ in range(a.type.ndim)])
+
+    def perform(self, node, inputs, output_storage):
+        for storage, r in zip(output_storage, np.nonzero(inputs[0])):
+            storage[0] = r.astype(np.int64)
+
+    def grad(self, inputs, output_grads):
+        from aesara_tpu_torch.gradient import grad_undefined
+
+        return [grad_undefined(self, 0, inputs[0])]
+
+
+_nonzero = Nonzero()
+
+
+def nonzero(a, return_matrix: bool = False):
+    res = _nonzero(a)
+    if isinstance(res, Variable):
+        res = [res]
+    if return_matrix:
+        return stack(list(res), axis=0)
+    return tuple(res)
+
+
+def nonzero_values(a):
+    a = as_tensor_variable(a)
+    return a.flatten()[nonzero(a.flatten())[0]]
+
+
+def flatnonzero(a):
+    return nonzero(as_tensor_variable(a).flatten())[0]
+
+
+class PermuteRowElements(Op):
+    """Each row of ``x`` (its last dim) permuted by the matching row of
+    ``y`` (broadcast against each other): ``x[..., y]``, or with
+    ``inverse`` the scatter ``out[..., y] = x``."""
+
+    __props__ = ("inverse",)
+
+    def __init__(self, inverse: bool = False):
+        self.inverse = bool(inverse)
+
+    def make_node(self, x, y):
+        x = as_tensor_variable(x)
+        y = cast(as_tensor_variable(y), "int64")
+        ndim = max(x.type.ndim, y.type.ndim)
+        return Apply(self, [x, y], [TensorType(x.type.dtype, (None,) * ndim)()])
+
+    def perform(self, node, inputs, output_storage):
+        x, y = inputs
+        shape = np.broadcast_shapes(x.shape, y.shape)
+        flat_x = np.broadcast_to(x, shape).reshape(-1, shape[-1])
+        flat_y = np.broadcast_to(y, shape).reshape(-1, shape[-1])
+        out = np.empty(shape, dtype=x.dtype)
+        flat_o = out.reshape(-1, shape[-1])
+        for i in range(flat_x.shape[0]):
+            if self.inverse:
+                flat_o[i][flat_y[i]] = flat_x[i]
+            else:
+                flat_o[i] = flat_x[i][flat_y[i]]
+        output_storage[0][0] = out
+
+    def grad(self, inputs, output_grads):
+        """The inverse permutation of the output gradient, summed over the
+        dims ``x`` was broadcast along."""
+        from aesara_tpu_torch.gradient import grad_undefined
+        from aesara_tpu_torch.tensor.math import sum as tsum
+
+        x, y = inputs
+        gx = PermuteRowElements(not self.inverse)(output_grads[0], y)
+        if gx.type.ndim > x.type.ndim:
+            gx = tsum(gx, axis=list(range(gx.type.ndim - x.type.ndim)))
+        return [gx, grad_undefined(self, 1, y)]
+
+
+def permute_row_elements(x, y, inverse=False):
+    return PermuteRowElements(bool(inverse))(x, y)
+
+
+def inverse_permutation(perm):
+    return permute_row_elements(arange(as_tensor_variable(perm).shape[-1]), perm, inverse=True)
+
+
+class Choose(Op):
+    """``numpy.choose(a, choices, mode)``.  With ``mode="raise"`` the
+    lowering clips an index out of range, as the JAX package's XLA lowering
+    does (reading it on the host would make the card wait); ``perform``
+    raises, as NumPy and the JAX package's ``perform`` do."""
+
+    __props__ = ("mode",)
+
+    def __init__(self, mode: str = "raise"):
+        self.mode = mode
+
+    def make_node(self, a, choices):
+        a, choices = as_tensor_variable(a), as_tensor_variable(choices)
+        out_shape = (None,) * (choices.type.ndim - 1)
+        return Apply(self, [a, choices], [TensorType(choices.type.dtype, out_shape)()])
+
+    def perform(self, node, inputs, output_storage):
+        a, choices = inputs
+        output_storage[0][0] = np.choose(a, choices, mode=self.mode)
+
+    def grad(self, inputs, output_grads):
+        from aesara_tpu_torch.gradient import grad_undefined
+
+        return [grad_undefined(self, i, inp) for i, inp in enumerate(inputs)]
+
+
+def choose(a, choices, mode="raise"):
+    return Choose(mode)(a, choices)
+
+
+def transpose(x, axes=None):
+    x = as_tensor_variable(x)
+    if axes is None:
+        axes = tuple(range(x.type.ndim - 1, -1, -1))
+    return DimShuffle(x.type.ndim, tuple(axes))(x)
+
+
+def swapaxes(x, axis1, axis2):
+    x = as_tensor_variable(x)
+    order = list(range(x.type.ndim))
+    order[axis1], order[axis2] = order[axis2], order[axis1]
+    return DimShuffle(x.type.ndim, tuple(order))(x)
+
+
+def moveaxis(x, source, destination):
+    x = as_tensor_variable(x)
+    src = tuple(int(s) % x.type.ndim for s in np.atleast_1d(source))
+    dst = tuple(int(d) % x.type.ndim for d in np.atleast_1d(destination))
+    order = [n for n in range(x.type.ndim) if n not in src]
+    for d, s in sorted(zip(dst, src)):
+        order.insert(d, s)
+    return DimShuffle(x.type.ndim, tuple(order))(x)
+
+
+def expand_dims(x, axis):
+    """New dims of length 1 at ``axis`` (an int or a tuple); an axis out of
+    range or repeated raises, as NumPy's does."""
+    x = as_tensor_variable(x)
+    if isinstance(axis, int):
+        axis = (axis,)
+    out_ndim = x.type.ndim + len(axis)
+    for a in axis:
+        if not -out_ndim <= a < out_ndim:
+            raise IndexError(f"expand_dims: axis {a} is out of bounds [-{out_ndim}, {out_ndim})")
+    axis = tuple(a % out_ndim for a in axis)
+    if len(set(axis)) != len(axis):
+        raise ValueError("repeated axis in expand_dims")
+    it = iter(range(x.type.ndim))
+    return DimShuffle(x.type.ndim, tuple("x" if d in axis else next(it) for d in range(out_ndim)))(x)
+
+
+def atleast_Nd(x, n: int):
+    x = as_tensor_variable(x)
+    if x.type.ndim >= n:
+        return x
+    return DimShuffle(x.type.ndim, ("x",) * (n - x.type.ndim) + tuple(range(x.type.ndim)))(x)
+
+
+def atleast_1d(x):
+    return atleast_Nd(x, 1)
+
+
+def atleast_2d(x):
+    return atleast_Nd(x, 2)
+
+
+def atleast_3d(*args):
+    res = []
+    for a in args:
+        a = as_tensor_variable(a)
+        pattern = {0: ("x", "x", "x"), 1: ("x", 0, "x"), 2: ("x", 0, 1)}.get(a.type.ndim)
+        res.append(a.dimshuffle(*pattern) if pattern else a)
+    return res if len(res) > 1 else res[0]
+
+
+def horizontal_stack(*args):
+    return concatenate([atleast_2d(a) for a in args], axis=1)
+
+
+def vertical_stack(*args):
+    return concatenate([atleast_2d(a) for a in args], axis=0)
+
+
+def stacklists(arg):
+    """Nested lists of tensors stacked into one tensor."""
+    if isinstance(arg, (tuple, list)):
+        return stack([stacklists(a) for a in arg], axis=0)
+    return as_tensor_variable(arg)
+
+
+def tensor_copy(x):
+    """``x`` as a fresh copy at run time (``DeepCopyOp``)."""
+    from aesara_tpu_torch.compile.ops import deep_copy_op
+
+    return deep_copy_op(as_tensor_variable(x))
+
+
+def is_flat(var, ndim=1):
+    return as_tensor_variable(var).type.ndim == ndim
+
+
+def mul_scalars(xs):
+    from aesara_tpu_torch.tensor.math import mul
+
+    res = xs[0]
+    for e in xs[1:]:
+        res = mul(res, e)
+    return res
+
+
+def roll(x, shift, axis=None):
+    """``numpy.roll`` as a take of ``(arange(n) - shift) % n``, so the
+    shift may be symbolic."""
+    from aesara_tpu_torch.tensor.subtensor import take
+
+    x = as_tensor_variable(x)
+    if axis is None:
+        flat = x.reshape((mul_scalars([x.shape[i] for i in range(x.type.ndim)]),))
+        return roll(flat, shift, 0).reshape(x.shape)
+    n = x.shape[axis]
+    return take(x, (arange(0, n) - shift) % n, axis=axis)
+
+
+def tile(x, reps, ndim=None):
+    """``numpy.tile`` with static ``reps``: a Join of copies per axis."""
+    x = as_tensor_variable(x)
+    if isinstance(reps, (int, np.integer)):
+        reps = (int(reps),)
+    reps = tuple(int(r) for r in reps)
+    nd = max(len(reps), x.type.ndim) if ndim is None else ndim
+    while x.type.ndim < nd:
+        x = x.dimshuffle(*(["x"] + list(range(x.type.ndim))))
+    reps = (1,) * (nd - len(reps)) + reps
+    for axis, r in enumerate(reps):
+        if r == 1:
+            continue
+        if r < 0:
+            raise ValueError("tile reps must be non-negative")
+        if r == 0:
+            x = x[tuple(slice(0, 0) if d == axis else slice(None) for d in range(nd))]
+        else:
+            x = join(axis, *([x] * r))
+    return x
+
+
+def transfer(var, target):
+    """The identity: the linker places values on its device."""
+    return as_tensor_variable(var)
+
+
+def default(x, default_value):
+    """``x`` as an input that takes ``default_value`` when not given."""
+    from aesara_tpu_torch.compile.io import In
+
+    return In(as_tensor_variable(x), value=np.asarray(default_value))
+
+
+class _GridBase:
+    """``mgrid[a:b, c:d]`` and ``ogrid[...]`` of aranges."""
+
+    def __init__(self, sparse_grid):
+        self.sparse = sparse_grid
+
+    def __getitem__(self, key):
+        from aesara_tpu_torch.tensor.math import add
+
+        if not isinstance(key, tuple):
+            key = (key,)
+        ranges = [arange(0 if sl.start is None else sl.start, sl.stop, 1 if sl.step is None else sl.step)
+                  for sl in key]
+        nd = len(ranges)
+        outs = []
+        for i, r in enumerate(ranges):
+            order = ["x"] * nd
+            order[i] = 0
+            outs.append(r.dimshuffle(*order))
+        if self.sparse:
+            return outs if nd > 1 else outs[0]
+        full_ = outs[0]
+        for o in outs[1:]:
+            full_ = add(full_, o * 0)
+        dense = [o + full_ * 0 for o in outs]
+        return dense if nd > 1 else dense[0]
+
+
+mgrid = _GridBase(sparse_grid=False)
+ogrid = _GridBase(sparse_grid=True)
+
+
+__all__ += [
+    "as_tensor", "make_vector", "as_tensor_or_list", "extract_constant", "full_like", "empty_like", "Eye", "eye",
+    "identity_like", "Tri", "tri", "tril", "triu", "tril_indices", "tril_indices_from", "triu_indices",
+    "triu_indices_from", "ExtractDiag", "diagonal", "extract_diag", "AllocDiag", "diag", "Nonzero", "nonzero",
+    "nonzero_values", "flatnonzero", "PermuteRowElements", "permute_row_elements", "inverse_permutation",
+    "Choose", "choose", "transpose", "swapaxes", "moveaxis", "expand_dims", "atleast_Nd", "atleast_1d",
+    "atleast_2d", "atleast_3d", "horizontal_stack", "vertical_stack", "stacklists", "tensor_copy", "is_flat",
+    "roll", "tile", "transfer", "default", "mgrid", "ogrid",
+]

@@ -7,7 +7,8 @@ search's per-beam caches), all in ``models/decoder.py``, and ``Unique``
 (``numpy.unique``; ``tensor/nnet/basic.py``'s ``confusion_matrix``), whose
 result's length the data decides, so a function that holds one runs
 eagerly.  The JAX package's XLA linker refuses ``Unique``; only its PY
-linker runs it."""
+linker runs it.  ``FillDiagonalOffset`` (``ExtractDiag``'s gradient) and
+``squeeze`` (``TensorVariable.squeeze``) serve the user API."""
 
 from __future__ import annotations
 
@@ -279,3 +280,75 @@ class Unique(Op):
 
 def unique(x, return_index=False, return_inverse=False, return_counts=False, axis=None):
     return Unique(return_index, return_inverse, return_counts, axis)(x)
+
+
+class FillDiagonalOffset(Op):
+    """A copy of the matrix ``a`` with ``val`` on diagonal ``offset``
+    (``ExtractDiag``'s gradient builds it)."""
+
+    __props__ = ("offset",)
+
+    def __init__(self, offset=0):
+        self.offset = int(offset)
+
+    def make_node(self, a, val):
+        a, val = as_tensor_variable(a), as_tensor_variable(val)
+        if val.type.dtype != a.type.dtype:
+            val = cast(val, a.type.dtype)
+        return Apply(self, [a, val], [a.type()])
+
+    def perform(self, node, inputs, output_storage):
+        a, val = inputs
+        out = a.copy()
+        rows, cols = diagonal_indices(out.shape, self.offset)
+        out[rows, cols] = val
+        output_storage[0][0] = out
+
+    def grad(self, inputs, output_grads):
+        from aesara_tpu_torch.tensor.basic import constant, diagonal
+        from aesara_tpu_torch.tensor.math import sum as tsum
+
+        a, val = inputs
+        (gz,) = output_grads
+        ga = FillDiagonalOffset(self.offset)(gz, constant(0, dtype=gz.type.dtype))
+        gval = diagonal(gz, offset=self.offset)
+        if val.type.ndim == 0:
+            gval = cast(tsum(gval), val.type.dtype)
+        return [ga, gval]
+
+
+def diagonal_indices(shape, offset: int):
+    """The row and column indices of diagonal ``offset`` of a matrix of
+    ``shape``."""
+    if offset >= 0:
+        n = min(shape[0], shape[1] - offset)
+        idx = np.arange(max(n, 0))
+        return idx, idx + offset
+    n = min(shape[0] + offset, shape[1])
+    idx = np.arange(max(n, 0))
+    return idx - offset, idx
+
+
+def fill_diagonal_offset(a, val, offset=0):
+    return FillDiagonalOffset(offset)(a, val)
+
+
+def squeeze(x, axis=None):
+    """``x`` without its dims of length 1 (those at ``axis``, which the
+    function checks at run time where they are not static)."""
+    from aesara_tpu_torch.tensor.elemwise import DimShuffle
+    from aesara_tpu_torch.tensor.shape import specify_shape
+
+    x = as_tensor_variable(x)
+    if axis is None:
+        axes = [d for d in range(x.type.ndim) if x.type.shape[d] == 1]
+    elif isinstance(axis, (int, np.integer)):
+        axes = [int(axis) % x.type.ndim]
+    else:
+        axes = [int(a) % x.type.ndim for a in axis]
+    if any(x.type.shape[a] is None for a in axes):
+        x = specify_shape(x, [1 if d in axes else None for d in range(x.type.ndim)])
+    return DimShuffle(x.type.ndim, tuple(d for d in range(x.type.ndim) if d not in axes))(x)
+
+
+__all__ += ["FillDiagonalOffset", "fill_diagonal_offset", "squeeze"]

@@ -394,7 +394,10 @@ def _reduce(op, x, keepdims):
     return res
 
 
-def prod(x, axis=None, dtype=None, keepdims=False, acc_dtype=None):
+def prod(x, axis=None, dtype=None, keepdims=False, acc_dtype=None, no_zeros_in_input=False):
+    """The product over ``axis``.  ``no_zeros_in_input`` is accepted and, as
+    in the JAX package, changes nothing: the gradient is the zero-safe one
+    either way, so both packages build the same graph."""
     return _reduce(Prod(axis=axis, dtype=dtype, acc_dtype=acc_dtype), x, keepdims)
 
 
@@ -457,8 +460,13 @@ class Argmax(Op):
         return f"Argmax{{axis={self.axis}}}"
 
 
-def argmax(x, axis=None):
-    return Argmax(axis)(x)
+def argmax(x, axis=None, keepdims=False):
+    x = as_tensor_variable(x)
+    op = Argmax(axis)
+    res = op(x)
+    if keepdims:
+        res = DimShuffle(res.type.ndim, _kept_order(x.type.ndim, op.axes(x.type.ndim)))(res)
+    return res
 
 
 class Dot(Op):
@@ -579,12 +587,15 @@ def batched_dot(x, y):
     return _batched_dot(x, y)
 
 
-def tensordot(a, b, axes):
+def tensordot(a, b, axes=2):
     """numpy.tensordot as transpose + reshape + Dot (the JAX package's
-    ``_tensordot_as_dot``, unbatched)."""
+    ``_tensordot_as_dot``, unbatched); an int ``axes`` contracts ``a``'s
+    last dims with ``b``'s first."""
     from aesara_tpu_torch.tensor.shape import reshape, shape_tuple
 
     a, b = as_tensor_variable(a), as_tensor_variable(b)
+    if isinstance(axes, (int, np.integer)):
+        axes = [list(range(a.type.ndim - int(axes), a.type.ndim)), list(range(int(axes)))]
     a_axes = [int(ax) % a.type.ndim for ax in np.atleast_1d(axes[0])]
     b_axes = [int(ax) % b.type.ndim for ax in np.atleast_1d(axes[1])]
     if len(a_axes) != len(b_axes):
@@ -607,4 +618,198 @@ def tensordot(a, b, axes):
     bm = reshape(bt, [prod_dims(bshape[:nca]), prod_dims(bshape[nca:])], ndim=2)
     out = _dot(am, bm)
     final = [ashape[i] for i in range(nfa)] + [bshape[nca + i] for i in range(len(b_free))]
+    if not final:
+        return reshape(out, constant(np.zeros(0, dtype="int64")), ndim=0)
     return reshape(out, final, ndim=len(final))
+
+
+# ---------------------------------------------------------------------------
+# the user API's helpers (reference ``aesara_tpu/tensor/math.py:54-114,
+# 153-199,507-623,844-880,938-1058``): aliases, rounding, closeness, norms,
+# argmin, matmul, covariance and 1-d convolution
+# ---------------------------------------------------------------------------
+
+sign = sgn
+digamma = psi
+polygamma1 = tri_gamma
+bitwise_and = and_
+bitwise_or = or_
+bitwise_xor = xor
+bitwise_not = invert
+square = sqr
+true_divide = true_div
+floor_divide = int_div
+power = pow
+
+
+def divmod_(x, y):
+    return int_div(x, y), mod(x, y)
+
+
+divmod = divmod_
+
+
+def ceil_intdiv(a, b):
+    """ceil(a / b) for integers."""
+    return neg(int_div(neg(as_tensor_variable(a)), b))
+
+
+def round(x, mode: str = "half_to_even"):
+    if mode == "half_to_even":
+        return round_half_to_even(x)
+    if mode == "half_away_from_zero":
+        return round_half_away_from_zero(x)
+    raise ValueError(f"unknown round mode {mode}")
+
+
+def iround(x, mode: str = "half_to_even"):
+    return cast(round(x, mode), "int64")
+
+
+def invert_bool(x):
+    return eq(x, constant(False))
+
+
+def isclose(a, b, rtol=1e-5, atol=1e-8, equal_nan=False):
+    """``numpy.isclose`` as the JAX package builds it: |a - b| <= atol +
+    rtol |b| where both are finite, equal infinities, and with
+    ``equal_nan`` two NaNs."""
+    a, b = as_tensor_variable(a), as_tensor_variable(b)
+    close = le(abs(sub(a, b)), add(constant(atol), mul(constant(rtol), abs(b))))
+    res = and_(close, and_(invert_bool(isinf(a)), invert_bool(isinf(b))))
+    res = or_(res, and_(isinf(a), and_(isinf(b), eq(sgn(a), sgn(b)))))
+    if equal_nan:
+        res = or_(res, and_(isnan(a), isnan(b)))
+    return res
+
+
+def allclose(a, b, rtol=1e-5, atol=1e-8, equal_nan=False):
+    return all(isclose(a, b, rtol, atol, equal_nan))
+
+
+def ptp(x, axis=None):
+    return sub(max(x, axis=axis), min(x, axis=axis))
+
+
+def norm(x, L=2, axis=None, keepdims=False):
+    """The L-norm over ``axis``: 1, 2, +-inf or any other power."""
+    x = as_tensor_variable(x)
+    if L == 1:
+        return sum(abs(x), axis=axis, keepdims=keepdims)
+    if L == 2:
+        return sqrt(sum(sqr(x), axis=axis, keepdims=keepdims))
+    if np.isinf(L):
+        return (max if L > 0 else min)(abs(x), axis=axis, keepdims=keepdims)
+    return pow(sum(pow(abs(x), constant(float(L))), axis=axis, keepdims=keepdims), constant(1.0 / float(L)))
+
+
+def argmin(x, axis=None, keepdims=False):
+    """argmax of the order-reversed ``x``: ``~x`` for integers and bools
+    (no overflow), ``-x`` for floats."""
+    x = as_tensor_variable(x)
+    if x.type.dtype == "bool" or x.type.dtype in discrete_dtypes:
+        return argmax(invert(x), axis=axis, keepdims=keepdims)
+    return argmax(neg(x), axis=axis, keepdims=keepdims)
+
+
+def max_and_argmax(x, axis=None, keepdims=False):
+    return max(x, axis=axis, keepdims=keepdims), argmax(x, axis=axis, keepdims=keepdims)
+
+
+def largest(*args):
+    """Elementwise maximum of any number of tensors."""
+    res = as_tensor_variable(args[0]) if len(args) == 1 else args[0]
+    for a in args[1:]:
+        res = maximum(res, a)
+    return res
+
+
+def smallest(*args):
+    res = as_tensor_variable(args[0]) if len(args) == 1 else args[0]
+    for a in args[1:]:
+        res = minimum(res, a)
+    return res
+
+
+def dense_dot(x, y):
+    return dot(x, y)
+
+
+def matmul(x, y):
+    """``numpy.matmul``: ``Dot`` up to 2 dims, ``BatchedDot`` for two 3-d
+    operands, else the batch dims broadcast, flattened and restored."""
+    from aesara_tpu_torch.tensor import basic as tb
+    from aesara_tpu_torch.tensor.shape import reshape, shape_tuple
+
+    x, y = as_tensor_variable(x), as_tensor_variable(y)
+    if x.type.ndim == 0 or y.type.ndim == 0:
+        raise ValueError("matmul does not accept scalars")
+    if x.type.ndim <= 2 and y.type.ndim <= 2:
+        return _dot(x, y)
+    if x.type.ndim == y.type.ndim == 3:
+        return _batched_dot(x, y)
+    nd = builtins.max(x.type.ndim, y.type.ndim)
+    xx = tb.atleast_Nd(x if x.type.ndim >= 2 else x.dimshuffle("x", 0), nd)
+    yy = tb.atleast_Nd(y if y.type.ndim >= 2 else y.dimshuffle(0, "x"), nd)
+    xshape, yshape = shape_tuple(xx), shape_tuple(yy)
+    batch = [maximum(a, b) for a, b in zip(xshape[:-2], yshape[:-2])]
+    bx = xx * tb.ones(tuple(batch) + (1, 1), dtype=xx.type.dtype)
+    by = yy * tb.ones(tuple(batch) + (1, 1), dtype=yy.type.dtype)
+    nbatch = batch[0]
+    for b in batch[1:]:
+        nbatch = mul(nbatch, b)
+    out = _batched_dot(reshape(bx, [nbatch, xshape[-2], xshape[-1]], ndim=3),
+                       reshape(by, [nbatch, yshape[-2], yshape[-1]], ndim=3))
+    res = reshape(out, list(batch) + [xshape[-2], yshape[-1]], ndim=nd)
+    if x.type.ndim == 1:
+        res = res[..., 0, :]
+    if y.type.ndim == 1:
+        res = res[..., 0]
+    return res
+
+
+def cov(m, y=None, rowvar=True, bias=False, ddof=None):
+    """The covariance matrix, as ``numpy.cov``."""
+    from aesara_tpu_torch.tensor.basic import join
+
+    m = as_tensor_variable(m)
+    if m.type.ndim == 1:
+        m = m.dimshuffle("x", 0)
+    if not rowvar:
+        m = m.T
+    if y is not None:
+        y = as_tensor_variable(y)
+        if y.type.ndim == 1:
+            y = y.dimshuffle("x", 0)
+        if not rowvar:
+            y = y.T
+        m = join(0, m, y)
+    ddof_ = (0 if bias else 1) if ddof is None else ddof
+    centered = m - mean(m, axis=1, keepdims=True)
+    return dot(centered, centered.T) / cast(m.shape[1] - ddof_, centered.dtype)
+
+
+def convolve(x, kernel, mode: str = "full"):
+    """``numpy.convolve`` of two vectors, by ``conv2d`` over (1, 1, 1, N)."""
+    from aesara_tpu_torch.tensor.nnet.abstract_conv import conv2d
+
+    x, kernel = as_tensor_variable(x), as_tensor_variable(kernel)
+    if x.type.ndim != 1 or kernel.type.ndim != 1:
+        raise TypeError("convolve expects two vectors")
+    xi, ki = x.dimshuffle("x", "x", "x", 0), kernel.dimshuffle("x", "x", "x", 0)
+    # the port's conv2d leaves the output's unit height unknown statically,
+    # so the row is taken by index where the JAX package drops the dims
+    if mode in ("full", "valid"):
+        return conv2d(xi, ki, border_mode=mode)[0, 0, 0]
+    if mode == "same":
+        full = conv2d(xi, ki, border_mode="full")[0, 0, 0]
+        n, k = x.shape[0], kernel.shape[0]
+        start = int_div(sub(minimum(n, k), 1), 2)
+        return full[start: start + maximum(n, k)]
+    raise ValueError(f"unknown convolve mode {mode!r}")
+
+
+__all__ += ["sign", "digamma", "polygamma1", "bitwise_and", "bitwise_or", "bitwise_xor", "bitwise_not", "square", "true_divide",
+            "floor_divide", "power", "divmod_", "divmod", "ceil_intdiv", "round", "iround", "invert_bool",
+            "isclose", "allclose", "ptp", "norm", "argmin", "max_and_argmax", "largest", "smallest", "dense_dot",
+            "matmul", "cov", "convolve", "isnan_", "isinf_", "logaddexp", "logsumexp"]

@@ -279,3 +279,10 @@ def unbroadcast(x, *axes):
     x = as_tensor_variable(x)
     real = [a for a in axes if x.type.shape[a] == 1]
     return Unbroadcast(*real)(x) if real else x
+
+
+def shape_padaxis(t, axis: int):
+    """``t`` with a new dim of length 1 at ``axis`` (``expand_dims``)."""
+    from aesara_tpu_torch.tensor.basic import expand_dims
+
+    return expand_dims(t, axis)

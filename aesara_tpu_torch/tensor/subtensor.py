@@ -629,3 +629,26 @@ def take_slice(x, args):
                 k += 1
         res = DimShuffle(res.type.ndim, tuple(order))(res)
     return res
+
+
+def take(x, indices, axis=None, mode="raise"):
+    """``numpy.take``: over the flattened ``x``, or along ``axis`` (an axis
+    past 0 indexes with slices before the indices, which waits for the
+    rest of the slice family)."""
+    from aesara_tpu_torch.tensor.shape import reshape
+
+    x = as_tensor_variable(x)
+    indices = as_tensor_variable(indices)
+    if axis is None:
+        flat = x.flatten()
+        if indices.type.ndim == 1:
+            return AdvancedSubtensor1()(flat, indices)
+        res = AdvancedSubtensor1()(flat, indices.flatten())
+        return reshape(res, indices.shape, ndim=indices.type.ndim)
+    axis = int(axis) % x.type.ndim
+    if axis == 0 and indices.type.ndim == 1:
+        return AdvancedSubtensor1()(x, indices)
+    return take_slice(x, tuple([slice(None)] * axis + [indices]))
+
+
+__all__ += ["take"]

@@ -160,9 +160,31 @@ def values_eq_approx(a, b, allow_remove_inf=False, allow_remove_nan=False, rtol=
     return bool(np.all(np.isclose(af, bf, rtol=rtol, atol=atol) | both_nan | both_inf | mask))
 
 
+DenseTensorType = TensorType
+
+
+def tensor(name=None, *, dtype=None, shape=None, broadcastable=None, sharding=None):
+    """A tensor variable of ``dtype`` (default ``config.floatX``) and static
+    ``shape``, or of the legacy ``broadcastable`` flags (1 where True)."""
+    if sharding is not None:
+        raise NotImplementedError("sharding= waits for the port's parallel layer (ROADMAP Queue 1 item 16)")
+    if shape is None and broadcastable is not None:
+        shape = tuple(1 if b else None for b in broadcastable)
+    return TensorType(dtype or config.floatX, shape)(name)
+
+
 def _ctor(ndim):
     def make(name=None, dtype=None, shape=None):
+        if shape is not None and len(shape) != ndim:
+            raise ValueError(f"shape must have {ndim} entries")
         return TensorType(dtype or config.floatX, shape or (None,) * ndim)(name)
+
+    return make
+
+
+def _multi(ctor):
+    def make(*names, **kwargs):
+        return [ctor(n, **kwargs) for n in names]
 
     return make
 
@@ -172,6 +194,15 @@ vector = _ctor(1)
 matrix = _ctor(2)
 tensor3 = _ctor(3)
 tensor4 = _ctor(4)
+tensor5 = _ctor(5)
+tensor6 = _ctor(6)
+tensor7 = _ctor(7)
+scalars = _multi(scalar)
+vectors = _multi(vector)
+matrices = _multi(matrix)
+tensor3s = _multi(tensor3)
+tensor4s = _multi(tensor4)
+tensor5s = _multi(tensor5)
 
 
 def row(name=None, dtype=None):
@@ -184,15 +215,21 @@ def col(name=None, dtype=None):
 
 def _prefixed():
     """The typed constructors of the JAX package (``iscalar``, ``lvector``,
-    ``fmatrix``, ...): each is a TensorType, which called with a name
-    makes a variable."""
+    ``fmatrix``, ``dtensor5``, ...), each a TensorType, which called with a
+    name makes a variable, and their plurals (``fvectors``, ``imatrices``,
+    ...).  The complex ones (``c``, ``z``) wait for the complex dtypes."""
     dtypes = {"b": "int8", "w": "int16", "i": "int32", "l": "int64", "f": "float32", "d": "float64"}
     shapes = {"scalar": (), "vector": (None,), "matrix": (None, None), "tensor3": (None,) * 3,
-              "tensor4": (None,) * 4, "row": (1, None), "col": (None, 1)}
+              "tensor4": (None,) * 4, "tensor5": (None,) * 5, "tensor6": (None,) * 6, "tensor7": (None,) * 7,
+              "row": (1, None), "col": (None, 1)}
     for prefix, dtype in dtypes.items():
         for base, shape in shapes.items():
+            plural = "matrices" if base == "matrix" else f"{base}s"
             globals()[prefix + base] = TensorType(dtype, shape)
-            __all__.append(prefix + base)
+            globals()[prefix + plural] = _multi(globals()[prefix + base])
+            __all__.extend([prefix + base, prefix + plural])
 
 
+__all__ += ["DenseTensorType", "tensor", "tensor5", "tensor6", "tensor7", "scalars", "vectors", "matrices",
+            "tensor3s", "tensor4s", "tensor5s"]
 _prefixed()

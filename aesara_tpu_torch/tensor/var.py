@@ -69,6 +69,9 @@ class _tensor_operators:
     __rxor__ = _binary("xor", reflected=True)
     __lshift__ = _binary("shift_left")
     __rshift__ = _binary("shift_right")
+    __matmul__ = _binary("matmul")
+    __rmatmul__ = _binary("matmul", reflected=True)
+    __divmod__ = _binary("divmod_")
     __lt__ = _binary("lt")
     __le__ = _binary("le")
     __gt__ = _binary("gt")
@@ -135,6 +138,198 @@ class _tensor_operators:
         if len(pattern) == 1 and isinstance(pattern[0], (list, tuple)):
             pattern = tuple(pattern[0])
         return DimShuffle(self.type.ndim, pattern)(self)
+
+    # -- the NumPy-like methods (reference ``aesara_tpu/tensor/var.py:
+    # 237-471``): each calls the function the JAX package's calls, so the
+    # graph it builds has the same nodes
+
+    @property
+    def size(self):
+        from aesara_tpu_torch.tensor.basic import constant
+        from aesara_tpu_torch.tensor.math import prod
+        from aesara_tpu_torch.tensor.shape import shape
+
+        if self.type.ndim == 0:
+            return constant(1, dtype="int64")
+        return prod(shape(self))
+
+    @property
+    def broadcastable(self):
+        return tuple(s == 1 for s in self.type.shape)
+
+    def transpose(self, *axes):
+        from aesara_tpu_torch.tensor.basic import transpose
+
+        if len(axes) == 1 and isinstance(axes[0], (list, tuple)):
+            axes = tuple(axes[0])
+        return transpose(self, axes or None)
+
+    def ravel(self):
+        return self.flatten()
+
+    def squeeze(self, axis=None):
+        from aesara_tpu_torch.tensor.extra_ops import squeeze
+
+        return squeeze(self, axis=axis)
+
+    def take(self, indices, axis=None, mode="raise"):
+        from aesara_tpu_torch.tensor.subtensor import take
+
+        return take(self, indices, axis=axis, mode=mode)
+
+    def diagonal(self, offset=0, axis1=0, axis2=1):
+        from aesara_tpu_torch.tensor.basic import diagonal
+
+        return diagonal(self, offset, axis1, axis2)
+
+    def trace(self):
+        """The sum of the diagonal (the JAX package's ``nlinalg.trace``)."""
+        from aesara_tpu_torch.tensor.basic import diagonal
+        from aesara_tpu_torch.tensor.math import sum as tsum
+
+        return tsum(diagonal(self))
+
+    def astype(self, dtype):
+        from aesara_tpu_torch.tensor.basic import cast
+
+        return cast(self, dtype)
+
+    def copy(self, name=None):
+        from aesara_tpu_torch.tensor.basic import tensor_copy
+
+        out = tensor_copy(self)
+        out.name = name
+        return out
+
+    def repeat(self, repeats, axis=None):
+        from aesara_tpu_torch.tensor.extra_ops import repeat
+
+        return repeat(self, repeats, axis=axis)
+
+    def round(self, mode="half_to_even"):
+        from aesara_tpu_torch.tensor import math as tm
+
+        return tm.round(self, mode)
+
+    def cumsum(self, axis=None):
+        from aesara_tpu_torch.tensor.extra_ops import cumsum
+
+        return cumsum(self, axis)
+
+    def cumprod(self, axis=None):
+        from aesara_tpu_torch.tensor.extra_ops import cumprod
+
+        return cumprod(self, axis)
+
+    def sort(self, axis=-1, kind="quicksort", order=None):
+        from aesara_tpu_torch.tensor.sort import sort
+
+        return sort(self, axis, kind, order)
+
+    def argsort(self, axis=-1, kind="quicksort", order=None):
+        from aesara_tpu_torch.tensor.sort import argsort
+
+        return argsort(self, axis, kind, order)
+
+    def nonzero(self, return_matrix=False):
+        from aesara_tpu_torch.tensor.basic import nonzero
+
+        return nonzero(self, return_matrix)
+
+    def nonzero_values(self):
+        from aesara_tpu_torch.tensor.basic import nonzero_values
+
+        return nonzero_values(self)
+
+    def choose(self, choices, mode="raise"):
+        from aesara_tpu_torch.tensor.basic import choose
+
+        return choose(self, choices, mode)
+
+    def sum(self, axis=None, dtype=None, keepdims=False, acc_dtype=None):
+        from aesara_tpu_torch.tensor import math as tm
+
+        return tm.sum(self, axis=axis, dtype=dtype, keepdims=keepdims, acc_dtype=acc_dtype)
+
+    def prod(self, axis=None, dtype=None, keepdims=False, acc_dtype=None):
+        from aesara_tpu_torch.tensor import math as tm
+
+        return tm.prod(self, axis=axis, dtype=dtype, keepdims=keepdims, acc_dtype=acc_dtype)
+
+    def mean(self, axis=None, dtype=None, keepdims=False, acc_dtype=None):
+        from aesara_tpu_torch.tensor import math as tm
+
+        return tm.mean(self, axis=axis, dtype=dtype, keepdims=keepdims, acc_dtype=acc_dtype)
+
+    def var(self, axis=None, ddof=0, keepdims=False):
+        from aesara_tpu_torch.tensor import math as tm
+
+        return tm.var(self, axis=axis, ddof=ddof, keepdims=keepdims)
+
+    def std(self, axis=None, ddof=0, keepdims=False):
+        from aesara_tpu_torch.tensor import math as tm
+
+        return tm.std(self, axis=axis, ddof=ddof, keepdims=keepdims)
+
+    def min(self, axis=None, keepdims=False):
+        from aesara_tpu_torch.tensor import math as tm
+
+        return tm.min(self, axis=axis, keepdims=keepdims)
+
+    def max(self, axis=None, keepdims=False):
+        from aesara_tpu_torch.tensor import math as tm
+
+        return tm.max(self, axis=axis, keepdims=keepdims)
+
+    def argmin(self, axis=None, keepdims=False):
+        from aesara_tpu_torch.tensor import math as tm
+
+        return tm.argmin(self, axis=axis, keepdims=keepdims)
+
+    def argmax(self, axis=None, keepdims=False):
+        from aesara_tpu_torch.tensor import math as tm
+
+        return tm.argmax(self, axis=axis, keepdims=keepdims)
+
+    def all(self, axis=None, keepdims=False):
+        from aesara_tpu_torch.tensor import math as tm
+
+        return tm.all(self, axis=axis, keepdims=keepdims)
+
+    def any(self, axis=None, keepdims=False):
+        from aesara_tpu_torch.tensor import math as tm
+
+        return tm.any(self, axis=axis, keepdims=keepdims)
+
+    def norm(self, L, axis=None, keepdims=False):
+        from aesara_tpu_torch.tensor import math as tm
+
+        return tm.norm(self, L, axis=axis, keepdims=keepdims)
+
+    def dot(self, other):
+        from aesara_tpu_torch.tensor import math as tm
+
+        return tm.dot(self, other)
+
+    def clip(self, a_min, a_max):
+        from aesara_tpu_torch.tensor import math as tm
+
+        return tm.clip(self, a_min, a_max)
+
+    def fill(self, value):
+        from aesara_tpu_torch.tensor.basic import fill
+
+        return fill(self, value)
+
+    def zeros_like(self, dtype=None):
+        from aesara_tpu_torch.tensor.basic import zeros_like
+
+        return zeros_like(self, dtype=dtype)
+
+    def ones_like(self, dtype=None):
+        from aesara_tpu_torch.tensor.basic import ones_like
+
+        return ones_like(self, dtype=dtype)
 
 
 class TensorVariable(_tensor_operators, Variable):

@@ -21,6 +21,7 @@ serve the sparse-input models, all through ``aesara_tpu_torch.function``.
     python3 chip_smoke.py --convnet    # only the setup and path (j): the conv net and control flow
     python3 chip_smoke.py --ctc-random    # only the setup and path (k): CTC, the distributions, MRG31k3p
     python3 chip_smoke.py --fp16    # only the setup and path (l): bf16 and fp16 beyond PR 16
+    python3 chip_smoke.py --api    # only the setup and path (m): the user API
     python3 chip_smoke.py --seed 3    # path (j)'s synthetic images from another seed (default 0)
 
 Every compiled function runs captured (``TorchLinker``'s default on the
@@ -316,6 +317,29 @@ l. (l) bf16 and fp16 beyond PR 16.  (l1) bench_decode.py's bfloat16 half,
    ms beside the plain version, scaled_dot_product_attention and its
    fastest backward, and the bound; a causal FusedAttention at D 256 (fp32)
    and in fp16 compiled through ``function()``.
+m. (m) the user API (ROADMAP 6a).  (m1) ``examples/custom_op.py``'s
+   ``SoftShrink`` Op, lowered by ``torch_funcify.register``, its value and
+   gradient through ``function`` and the example's two assertions.  (m2)
+   ``doc/tutorial.md``'s "Graphs", "Functions, shared state, updates" and
+   "Gradients" snippets at their own shapes, ``verify_grad`` included,
+   against the CPU at TRAIN_TOL.  (m3) config 3 built only through methods
+   (``h.dot(W)``, ``.max``, ``.sum``, ``.mean``): path (e)'s op counts, its
+   evaluation (log-softmax, K4; accuracy by ``argmax`` and ``astype``;
+   ``max_and_argmax``; each weight's ``norm(2)``; ``isclose`` and
+   ``allclose`` of two forms of the loss) against the CPU, then 3 + 10
+   steps beside path (e)'s function-built config 3 from the same seed,
+   bitwise the same parameters, step ms.  (m4) the new core ops at real
+   sizes, bitwise the CPU's (digests): diagonal and ``eye`` of a (4096,
+   4096) matrix (the trace within TRAIN_TOL of its summands), ``eye(4096)``,
+   ``tril``/``triu`` of (2048, 2048) ones, ``nonzero`` and
+   ``nonzero_values`` of 16,384 x 784 features (run eagerly, logged),
+   ``choose`` of a (512, 784) index (out of range clipped) from 4 choices,
+   ``permute_row_elements`` and its inverse, ``roll``/``tile``/
+   ``flatten(2)`` of (8, 1024, 1024), an ``as_op`` host function (run
+   eagerly, logged); and ``function([], w.diagonal(),
+   updates={w: 2 * w})`` returning the diagonal from before each update.
+   K1 and K4 must launch; K1 on each of (m)'s Composites and K4 at (512,
+   10) against their plain versions.
 8. captured against eager: every path above (the forward request, the
    sgd and AdamW steps, the classifier step, ``predict`` of one request
    sent again, the GLM's sgd and adam steps, path (c) at width 20, config
@@ -333,7 +357,7 @@ l. (l) bf16 and fp16 beyond PR 16.  (l1) bench_decode.py's bfloat16 half,
    captured run's profile is held to its launches as everywhere.
 
 The CPU's side of the card-vs-CPU checks of (d), (g1), (h1), (h3), (i1),
-(i3), (l1), (l2) and (l3) is made in a spawned process of its own (CPU_REF_THREADS cores,
+(i3), (l1), (l2), (l3) and (m) is made in a spawned process of its own (CPU_REF_THREADS cores,
 no CUDA) while the card runs the paths before them; it ends before the
 script.
 
@@ -354,7 +378,8 @@ kernel, with their launches in (k2)'s or (k3)'s 3 counted calls, their
 mismatch counts against the plain versions (0), their times and bounds
 and, under ``torch_*_ms``, PyTorch's samplers of the same distributions;
 K1-K4 with their launches in each run of path (l), K2 and K3 with their
-checks at (l5)'s panels) and the card's name and power limit; the last is
+checks at (l5)'s panels; K1 and K4 with their launches in path (m), K4 with
+its check at (m3)'s log-softmax) and the card's name and power limit; the last is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -620,6 +645,13 @@ LOOP_SMALL_N, LOOP_GRAPH_CALLS = (1, 256, 4096), 50
 MULTINOMIAL_DRAWS, MULTINOMIAL_COUNT = 256, 100.0
 MULTINOMIAL_P = (0.02, 0.05, 0.08, 0.1, 0.15, 0.2, 0.1, 0.12, 0.1, 0.08)
 SEED = 0
+# (m4) sizes: a (4096, 4096) matrix's diagonal and trace and eye(4096);
+# tril and triu of ones at T 2048 (path (i2)'s sequence length); nonzero of
+# config 3's features at config 1's rows (16,384 x 784, REFRATIO_SCALE=4);
+# choose and permute_row_elements at a minibatch (512 x 784) of them, with 4
+# choices; roll, tile and flatten of (8, 1024, 1024); the aliasing case on a
+# (256, 256) w
+M_DIAG, M_TRI, M_ROWS, M_CHOICES, M_ROLL, M_ALIAS = 4096, 2048, 4 * 4096, 4, (8, 1024, 1024), 256
 PROFILE_STEPS = 3        # calls counted in a profiled window, after one the profiler drops and a lead-in
 N_HOST_CALLS = 5         # calls whose host time time_steps takes the median of
 # host time at each edge of a profiled window.  On the H100, once the card
@@ -5027,7 +5059,35 @@ def run_mrg() -> dict:
     require_captured(cap, "(k3) MRG draws")
     del cap, eag
     release()
+    check_fp64_sqrt()
     return {"launches": launches, "replayed": replayed, "z": z}
+
+
+#: a float64 whose square root torch's CPU ``sqrt`` rounds one ulp low on
+#: some installations (1.3986228656634305; correctly rounded ...307): the
+#: radius of one of MRG's Box-Muller pairs in tests/test_torch_mrg.py
+SQRT_EDGE = 1.9561459203565867
+
+
+def check_fp64_sqrt():
+    """(k3) the float64 ``sqrt`` of MRG's normal (its Box-Muller radius)
+    on the card, as a lone op and inside a K1 Composite, against the
+    host's correctly rounded ``math.sqrt``, bitwise, at SQRT_EDGE and at
+    4095 more values."""
+    import math
+
+    import aesara_tpu_torch as ptp
+    import aesara_tpu_torch.tensor as pt
+
+    values = np.concatenate([[SQRT_EDGE], np.random.default_rng(SEED + 24).uniform(0.0, 40.0, 4095)])
+    v = pt.dvector("v")
+    f = ptp.function([v], [pt.sqrt(v), pt.sqrt(v) * 2.0 + 1.0])
+    lone, fused = (_host(r) for r in f(values))
+    want = np.array([math.sqrt(x) for x in values])
+    if not (np.array_equal(lone, want) and np.array_equal(fused, want * 2.0 + 1.0)):
+        raise AssertionError(f"(k3) the card's float64 sqrt is not math.sqrt's: {lone[0]!r}, {fused[0]!r}")
+    log(f"(k3) float64 sqrt on the card, lone and in a K1 Composite ({len(composite_nodes(f))}), is math.sqrt's at "
+        f"{len(values)} values: sqrt({SQRT_EDGE!r}) = {float(lone[0])!r}")
 
 
 def phase_ctc_random() -> dict:
@@ -5459,8 +5519,406 @@ def fp16_only():
     log("chip_smoke --fp16: path (l) passed")
 
 
+# ---------------------------------------------------------------------------
+# path (m): the user API (ROADMAP 6a) on the card
+# ---------------------------------------------------------------------------
+
+@functools.cache
+def soft_shrink():
+    """``examples/custom_op.py``'s ``SoftShrink`` Op (``make_node``,
+    ``perform``, ``grad``), lowered by ``torch_funcify.register`` where the
+    example registers ``jax_funcify``; made and registered once a process."""
+    import aesara_tpu_torch.tensor as at
+    from aesara_tpu_torch.graph.ir import Apply
+    from aesara_tpu_torch.graph.op import Op
+    from aesara_tpu_torch.link.torch.dispatch import torch_funcify
+
+    class SoftShrink(Op):
+        """soft-shrinkage: sign(x) * max(|x| - lambda, 0)"""
+
+        __props__ = ("lambd",)
+
+        def __init__(self, lambd: float = 0.5):
+            self.lambd = float(lambd)
+
+        def make_node(self, x):
+            x = at.as_tensor_variable(x)
+            return Apply(self, [x], [x.type()])
+
+        def perform(self, node, inputs, output_storage):
+            (x,) = inputs
+            output_storage[0][0] = np.sign(x) * np.maximum(np.abs(x) - self.lambd, 0.0).astype(x.dtype)
+
+        def grad(self, inputs, output_grads):
+            (x,) = inputs
+            (gz,) = output_grads
+            pass_through = at.math.gt(at.math.abs(x), self.lambd)
+            return [gz * pass_through.astype(x.dtype)]
+
+    @torch_funcify.register(SoftShrink)
+    def _lower_softshrink(op, node=None):
+        lam = op.lambd
+        return lambda x: torch.sign(x) * torch.clamp(torch.abs(x) - lam, min=0.0)
+
+    return SoftShrink
+
+
+def run_m1() -> list:
+    """(m1) the custom Op example on the card: its two assertions; the
+    functions run."""
+    import aesara_tpu_torch as atp
+    import aesara_tpu_torch.tensor as at
+
+    SoftShrink = soft_shrink()
+    x = at.vector("x")
+    y = SoftShrink(0.5)(x)
+    f = atp.function([x], [y, atp.grad(y.sum(), x)])
+    xv = np.array([-2.0, -0.3, 0.1, 1.5], dtype="float32")
+    for _ in range(3):
+        out, g = (_host(v) for v in f(xv))
+    if not (np.allclose(out, [-1.5, 0.0, 0.0, 1.0]) and np.allclose(g, [1.0, 0.0, 0.0, 1.0])):
+        raise AssertionError(f"(m1) softshrink {out}, grad {g}")
+    require_captured(f, "(m1) custom Op SoftShrink, value and grad")
+    log(f"(m1) custom Op SoftShrink on the card: {out.tolist()}, grad {g.tolist()}; the example's assertions hold")
+    return [(f, [torch.from_numpy(xv).cuda()])]
+
+
+def m2_tutorial(device: str) -> tuple:
+    """(m2) ``doc/tutorial.md``'s "Graphs", "Functions, shared state,
+    updates" and "Gradients" snippets on ``device``, at their own shapes
+    (the gradient's target a matrix of ``dot(x, w)``'s shape; ``dprint``
+    and ``Rop`` wait for the port's items 15 and 8): their results on the
+    host, and the functions with their arguments."""
+    import aesara_tpu_torch as atp
+    import aesara_tpu_torch.tensor as at
+    from aesara_tpu_torch.config import config
+
+    rng = np.random.default_rng(SEED + 22)
+    xa = rng.normal(size=(16, 32)).astype("float32") * 0.1
+    xb = rng.normal(size=(16, 8)).astype("float32")
+    ya = rng.normal(size=(32, 8)).astype("float32")
+    ta = rng.normal(size=(16, 4)).astype("float32")
+    with config.change_flags(device=device, floatX="float32"):
+        x = at.matrix("x")
+        y = at.tensor("y", shape=(32, 8))
+        z = at.exp(x) @ y + 1.0
+        graphs = atp.function([x, y], z)
+        w = atp.shared(np.zeros((8, 4), dtype="float32"), name="w")
+        out = at.tanh(at.dot(x, w))
+        f = atp.function([x], out)
+        step = atp.function([x], out.sum(), updates={w: w * 0.9})
+        target = at.matrix("t")
+        loss = ((at.dot(x, w) - target) ** 2).mean()
+        gw = atp.grad(loss, w)
+        grads = atp.function([x, target], [loss, gw])
+        w.set_value(rng.normal(size=(8, 4)).astype("float32"))
+        res = [graphs(xa, ya), f(xb)] + [step(xb) for _ in range(3)] + [w.get_value()] + list(grads(xb, ta))
+        atp.verify_grad(lambda m: at.tanh(m).sum(), [rng.standard_normal((3, 3))])
+    fns = [(graphs, [xa, ya]), (f, [xb]), (grads, [xb, ta])]
+    return [np.asarray(_host(r)) for r in res], fns
+
+
+def build_m3(device: str, use_graph=None) -> dict:
+    """(m3) reference config 3 as ``build_reference(3)`` builds it, from
+    the same seed and in the same order, but only through methods
+    (``h.dot(W)``, ``.max``, ``.sum``, ``.mean``), and its evaluation
+    function, built through methods too: on the log-softmax of the logits
+    (K4), the accuracy (``argmax`` and ``astype``), ``max_and_argmax``,
+    each weight's ``norm(2)``, and ``isclose``/``allclose`` of the loss and
+    the log-softmax's form of it."""
+    import aesara_tpu_torch as ptp
+    import aesara_tpu_torch.tensor as pt
+    from aesara_tpu_torch.config import config
+
+    mode = ptp.Mode(ptp.TorchLinker(device=device, use_graph=use_graph))
+    rng = np.random.default_rng(0)
+    f32 = "float32"
+    with config.change_flags(device=device, floatX=f32):
+        x, y, idx = pt.matrix("x", dtype=f32), pt.lvector("y"), pt.iscalar("idx")
+        sizes = [(REF_DIN, REF_H), (REF_H, REF_H), (REF_H, REF_DOUT)]
+        ws = [ptp.shared((rng.normal(size=s) * (1.0 / np.sqrt(s[0]))).astype(f32)) for s in sizes]
+        bs = [ptp.shared(np.zeros(s[1], dtype=f32)) for s in sizes]
+        h = x
+        for i, (wi, bi) in enumerate(zip(ws, bs)):
+            h = h.dot(wi) + bi
+            if i < 2:
+                h = pt.tanh(h)
+        lse = pt.log(pt.exp(h - h.max(axis=1, keepdims=True)).sum(axis=1)) + h.max(axis=1)
+        loss = (lse - h[pt.arange(y.shape[0]), y]).mean()
+        params = ws + bs
+        grads = ptp.grad(loss, params)
+        lr = np.asarray(REF_LR3, f32)
+        updates = {p: p - lr * g for p, g in zip(params, grads)}
+        Xd = ptp.shared(rng.normal(size=(REF_NBATCH * REF_B, REF_DIN)).astype(f32), name="Xd")
+        Yd = ptp.shared(rng.integers(0, REF_DOUT, size=REF_NBATCH * REF_B).astype("int64"), name="Yd")
+        logp = pt.log_softmax(h)
+        accuracy = pt.eq(logp.argmax(axis=1, keepdims=False), y).astype(f32).mean()
+        best, best_at = pt.max_and_argmax(logp, axis=1)
+        other = -logp[pt.arange(y.shape[0]), y].mean()
+        checks = [pt.isclose(loss, other, rtol=1e-5, atol=1e-6), pt.allclose(loss, other, rtol=1e-5, atol=1e-6)]
+    B = REF_B
+    givens = {x: Xd[idx * B:(idx + 1) * B], y: Yd[idx * B:(idx + 1) * B]}
+    step = ptp.function([idx], [], updates=updates, givens=givens, mode=mode)
+    evaluate = ptp.function([idx], [loss, accuracy, best, best_at] + [w.norm(2) for w in ws] + checks,
+                            givens=givens, mode=mode)
+    return dict(step=step, evaluate=evaluate, params=params, data=[Xd, Yd])
+
+
+def m_data(seed: int) -> dict:
+    """(m4)'s inputs, from ``seed``: a (4096, 4096) matrix, config 3's
+    features at config 1's rows (16,384 x 784), a minibatch's choose
+    indices (some out of range: Choose clips them) against 4 choices, row
+    permutations, and an (8, 1024, 1024) tensor; float32."""
+    rng = np.random.default_rng(seed)
+    f32 = "float32"
+    return dict(square=rng.normal(size=(M_DIAG, M_DIAG)).astype(f32),
+                features=rng.normal(size=(M_ROWS, REF_DIN)).astype(f32),
+                index=rng.integers(-1, M_CHOICES + 1, size=(REF_B, REF_DIN)).astype("int64"),
+                choices=rng.normal(size=(M_CHOICES, REF_B, REF_DIN)).astype(f32),
+                perms=np.argsort(rng.random((REF_B, REF_DIN)), axis=1).astype("int64"),
+                cube=rng.normal(size=M_ROLL).astype(f32))
+
+
+def m4_functions(device: str) -> list:
+    """(m4)'s functions on ``device``: (label, function, argument names,
+    how its outputs are compared: "bitwise", or "fp32" for a sum)."""
+    import aesara_tpu_torch as ptp
+    import aesara_tpu_torch.tensor as pt
+    from aesara_tpu_torch.config import config
+
+    with config.change_flags(device=device, floatX="float32"):
+        sq, feat, cube = pt.matrix("square"), pt.matrix("features"), pt.tensor3("cube")
+        index, choices, perms = pt.lmatrix("index"), pt.tensor3("choices"), pt.lmatrix("perms")
+        rows = pt.matrix("rows")
+        ones = pt.ones((M_TRI, M_TRI))
+        out = [("diagonal", ptp.function([sq], [sq.diagonal(), pt.eye(sq.shape[0])]), ["square"], "bitwise"),
+               ("trace", ptp.function([sq], sq.trace()), ["square"], "fp32"),
+               ("eye(4096) of constant size", ptp.function([], pt.eye(M_DIAG)), [], "bitwise"),
+               ("tril and triu of ones", ptp.function([], [pt.tril(ones), pt.triu(ones, 1)]), [], "bitwise"),
+               ("nonzero", ptp.function([feat], list((feat > 0).nonzero()) + [feat.nonzero_values()]),
+                ["features"], "bitwise"),
+               ("choose", ptp.function([index, choices], index.choose(choices)), ["index", "choices"], "bitwise"),
+               ("permute_row_elements", ptp.function(
+                   [rows, perms], [pt.permute_row_elements(rows, perms),
+                                   pt.permute_row_elements(pt.permute_row_elements(rows, perms), perms, inverse=True),
+                                   pt.inverse_permutation(perms)]), ["rows", "perms"], "bitwise"),
+               ("roll, tile, flatten", ptp.function([cube], [pt.roll(cube, 3), pt.roll(cube, -2, axis=0),
+                                                            pt.tile(cube, (2, 1, 1)), cube.flatten(2)]),
+                ["cube"], "bitwise"),
+               ("as_op", ptp.function([rows], host_rank(rows) * 2.0), ["rows"], "bitwise")]
+    return out
+
+
+def _rank_rows(rows):
+    """A host function for ``as_op``: each row's entries replaced by their
+    rank in the row, as float32."""
+    return np.argsort(np.argsort(rows, axis=1, kind="stable"), axis=1).astype("float32")
+
+
+def host_rank(rows):
+    """``_rank_rows`` as an Op (``as_op``) applied to ``rows``."""
+    import aesara_tpu_torch as ptp
+    import aesara_tpu_torch.tensor as pt
+
+    return ptp.as_op(itypes=[pt.fmatrix], otypes=[pt.fmatrix])(_rank_rows)(rows)
+
+
+def m4_arguments(data: dict, names, device: str) -> list:
+    rows = {"rows": data["features"][:REF_B]}
+    return [torch.from_numpy(np.ascontiguousarray(rows[n] if n in rows else data[n])).to(device) for n in names]
+
+
+def digest(value) -> tuple:
+    """(dtype, shape, sha256 of the bytes) of a host array."""
+    import hashlib
+
+    a = np.ascontiguousarray(value)
+    return str(a.dtype), a.shape, hashlib.sha256(a.tobytes()).hexdigest()
+
+
+def m_cpu_reference() -> dict:
+    """Path (m)'s CPU side, made in ``cpu_reference``'s process: (m2)'s
+    results, (m3)'s evaluation of minibatch 0 at the initial weights, and
+    (m4)'s results (a digest of each large one, the trace's value)."""
+    t0 = time.perf_counter()
+    refs = {"m2": m2_tutorial("cpu")[0]}
+    m3 = build_m3("cpu")
+    refs["m3"] = [np.asarray(_host(v)) for v in m3["evaluate"](np.int32(0))]
+    data = m_data(SEED + 23)
+    refs["m4"] = {}
+    for label, fn, names, how in m4_functions("cpu"):
+        outs = fn(*m4_arguments(data, names, "cpu"))
+        outs = [np.asarray(_host(v)) for v in (outs if isinstance(outs, (list, tuple)) else [outs])]
+        refs["m4"][label] = [o if how == "fp32" else digest(o) for o in outs]
+    refs["seconds"] = time.perf_counter() - t0
+    return refs
+
+
+def close_within(label: str, got, want, tol: float = TRAIN_TOL) -> float:
+    """Raise unless each of ``got`` lies within ``tol`` (relative and
+    absolute) of ``want``, dtypes and shapes alike; the largest |error|."""
+    err = 0.0
+    for g, w in zip(got, want):
+        g, w = np.asarray(g), np.asarray(w)
+        if g.dtype != w.dtype or g.shape != w.shape:
+            raise AssertionError(f"{label}: {g.dtype} {g.shape} against the CPU's {w.dtype} {w.shape}")
+        err = max(err, float(np.abs(g.astype("float64") - w.astype("float64")).max()) if g.size else 0.0)
+        np.testing.assert_allclose(g, w, rtol=tol, atol=tol, err_msg=label)
+    return err
+
+
+def run_m3(refs: dict) -> dict:
+    """(m3): the method-built step's graph against ``build_reference(3)``'s
+    (op counts), its evaluation at the initial weights against the CPU
+    (fp32 gate; an argmax may differ only where the CPU's top two lie
+    within it), then 3 counted and 10 timed steps of each build, every
+    parameter bitwise equal after them."""
+    built = build_m3("cuda")
+    funcs = build_reference(3, "cuda")
+    names = [node_names(b["step"].maker.fgraph) for b in (built, funcs)]
+    counts = [{n: ns.count(n) for n in sorted(set(ns))} for ns in names]
+    if counts[0] != counts[1]:
+        raise AssertionError(f"(m3) method-built step's graph {counts[0]} is not path (e)'s config 3 {counts[1]}")
+    log(f"(m3) method-built config 3 step: {len(names[0])} nodes, path (e)'s op counts {counts[0]}")
+    got = [np.asarray(_host(v)) for v in built["evaluate"](np.int32(0))]
+    want = refs["m3"]
+    loss, accuracy, best, best_at, *rest = got
+    w_loss, w_acc, w_best, w_at, *w_rest = want
+    err = close_within("(m3) evaluation: loss, max, norms", [loss, best] + rest[:3], [w_loss, w_best] + w_rest[:3])
+    # a row whose two largest log-probabilities lie within the two devices'
+    # rounding may take the other argmax; at most 2 of the 512 (none so far)
+    near = int(np.count_nonzero(best_at != w_at))
+    if near > 2 or abs(float(accuracy) - float(w_acc)) > near / REF_B + TRAIN_TOL or not (rest[3] and rest[4]):
+        raise AssertionError(f"(m3) argmax differs on {near} rows; accuracy {accuracy} vs the CPU's {w_acc}; "
+                             f"isclose/allclose {rest[3:]}")
+    log(f"(m3) evaluation of minibatch 0 at the initial weights against the CPU: loss {float(loss):.6f}, accuracy "
+        f"{float(accuracy):.4f}, max abs err {err:.3e} (gate {TRAIN_TOL}); argmax rows differing {near}; "
+        f"isclose and allclose of the two forms of the loss: {bool(rest[3])}, {bool(rest[4])}")
+    zero_counters()
+    calls = [reference_call(b, 3) for b in (built, funcs)]
+    for call in calls:
+        for _ in range(N_REF_STEPS):
+            call()
+    per_call = reference_graph(built["step"], "(m3) method-built step")
+    t = time_steps(calls[0], N_REF_TIMED, "(m3) method-built config 3 step", profile=False)
+    t_funcs = time_steps(calls[1], N_REF_TIMED, "(m3) function-built config 3 step (path (e)'s build)", profile=False)
+    require_captured(built["step"], "(m3) method-built step")
+    for p, q in zip(built["params"], funcs["params"]):
+        if not np.array_equal(p.get_value(), q.get_value()):
+            raise AssertionError("(m3) the method-built steps are not bitwise path (e)'s config 3 steps")
+    n = N_REF_STEPS + N_REF_TIMED + N_HOST_CALLS
+    log(f"(m3) after {n} steps each ({N_REF_STEPS} counted, {N_REF_TIMED} timed, {N_HOST_CALLS} host-timed), "
+        f"every parameter of the method-built config 3 is bitwise path (e)'s function-built one; step "
+        f"{t['ms']:.3f} ms (function-built {t_funcs['ms']:.3f} ms) on {card_line()}")
+    built["evaluate"](np.int32(1))
+    fns = [(built["step"], [np.int32(0)]), (built["evaluate"], [np.int32(1)])]
+    return dict(step_ms=t["ms"], functions_step_ms=t_funcs["ms"], host_ms=t["host"], per_call=per_call, fns=fns,
+                eval_err=err, call=calls[0], keep=(built, funcs))
+
+
+def run_m4(refs: dict) -> dict:
+    """(m4): each function on the card against the CPU's results (digests,
+    bitwise; the trace within the fp32 gate of its summands' scale), the
+    Nonzero function's eager run logged; then the aliasing case."""
+    import aesara_tpu_torch as ptp
+
+    data = m_data(SEED + 23)
+    fns = []
+    for label, fn, names, how in m4_functions("cuda"):
+        args = m4_arguments(data, names, "cuda")
+        t0 = time.perf_counter()
+        outs = fn(*args)
+        outs = fn(*args)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / 2
+        outs = [np.asarray(_host(v)) for v in (outs if isinstance(outs, (list, tuple)) else [outs])]
+        want = refs["m4"][label]
+        if how == "fp32":
+            scale = float(np.abs(np.diagonal(data["square"])).sum())
+            err = max(abs(float(o) - float(w)) for o, w in zip(outs, want))
+            if err > TRAIN_TOL * scale:
+                raise AssertionError(f"(m4) {label}: {outs} vs the CPU's {want} (gate {TRAIN_TOL} of {scale})")
+            what = f"within {err:.3e} of the CPU's (gate {TRAIN_TOL * scale:.3e})"
+        else:
+            got = [digest(o) for o in outs]
+            if got != want:
+                raise AssertionError(f"(m4) {label}: {got} vs the CPU's {want}")
+            what = "bitwise the CPU's: " + ", ".join(f"{d[1]} {d[0]}" for d in got)
+        mode = "captured" if fn.captured else f"eager ({fn.capture_blocker})"
+        log(f"(m4) {label}: {what}; {ms:.3f} ms a call (host clock), last call {mode}")
+        if label in ("nonzero", "as_op") and fn.captured:
+            raise AssertionError(f"(m4) the {label} function was captured; it must run eagerly")
+        fns.append((fn, args))
+    # the aliasing case: the diagonal is a view of w, which the update
+    # overwrites after the graph has run
+    start = np.arange(M_ALIAS * M_ALIAS, dtype="float32").reshape(M_ALIAS, M_ALIAS)
+    w = ptp.shared(start, name="w")
+    f = ptp.function([], w.diagonal(), updates={w: 2 * w})
+    for k in range(4):
+        got = _host(f())
+        if not np.array_equal(got, np.diagonal(start) * 2.0 ** k):
+            raise AssertionError(f"(m4) aliasing: call {k} returned the diagonal from after the update")
+    require_captured(f, "(m4) w.diagonal() with updates={w: 2 * w}")
+    log("(m4) aliasing: each of 4 calls of function([], w.diagonal(), updates={w: 2 * w}) returned the diagonal "
+        "from before its update (eager, captured, replayed twice)")
+    return dict(fns=fns)
+
+
+def phase_m(refs=None) -> dict:
+    """Path (m): (m1)-(m4) (see the module docstring), the launches of
+    K1 and K4 in the run, K1 on each of (m)'s Composites and K4 at (m3)'s
+    log-softmax against their plain versions."""
+    t_path = time.perf_counter()
+    refs = refs or cpu_reference("m")
+    zero_counters()
+    m1 = run_m1()
+    got, m2_fns = m2_tutorial("cuda")
+    err = close_within("(m2) tutorial snippets", got, refs["m2"])
+    log(f"(m2) the tutorial's snippets on the card against the CPU: {len(got)} results, max abs err {err:.3e} "
+        f"(gate {TRAIN_TOL}); verify_grad passed on the card")
+    m3 = run_m3(refs)
+    m4 = run_m4(refs)
+    counters = _all_counters()
+    launches = {k: c.launches + c.replayed for k, c in counters.items()}
+    plain = sum(c.plain_calls for c in counters.values())
+    log(f"(m) launches and replays in the path: {launches}; plain calls {plain}")
+    if plain:
+        raise AssertionError(f"(m): {plain} calls of a plain version on the card")
+    # where (m3)'s step time goes (a profiled session zeroes the counters,
+    # so it follows their reading)
+    wall, busy, _, _ = profile_call(m3["call"], "(m3) method-built config 3 step")
+    for k in ("K1", "K4"):
+        if not launches[k]:
+            raise AssertionError(f"(m) the path launched no {k}")
+    nodes, shapes = [], {}
+    for fn, args in m1 + m2_fns + m3["fns"] + m4["fns"]:
+        args = [a if isinstance(a, torch.Tensor) else torch.as_tensor(np.asarray(a)).cuda() for a in args]
+        if composite_nodes(fn):
+            ran = composite_shapes(fn, args)
+            nodes += [n for n in composite_nodes(fn) if n in ran]
+            shapes.update(ran)
+    # each Composite once (the step's recur in the evaluation)
+    rows = check_composites(nodes, "(m)", np.random.default_rng(32), shapes=shapes)
+    k4 = check_k4(torch.randn((REF_B, REF_DOUT), device="cuda",
+                              generator=torch.Generator(device="cuda").manual_seed(23)) * 3)
+    seconds = time.perf_counter() - t_path
+    log(f"(m) the user API: {seconds:.2f} s")
+    return dict(launches=launches, composites=rows, k4=k4, seconds=seconds, step_ms=m3["step_ms"], busy=busy,
+                wall=wall)
+
+
+def api_only():
+    """--api: the setup and path (m) alone."""
+    phase_setup()
+    start_cpu_references("m")
+    phase_m()
+    stop_cpu_references()
+    log("chip_smoke --api: path (m) passed")
+
+
 CPU_REF_JOBS = {"adamw": adamw_cpu_reference, "decoder": cpu_decoder_references, "bf16": bf16_cpu_reference,
-                "lm_train": lm_train_cpu_reference, "ctc": ctc_cpu_reference, "l": l_cpu_reference}
+                "lm_train": lm_train_cpu_reference, "ctc": ctc_cpu_reference, "l": l_cpu_reference,
+                "m": m_cpu_reference}
 
 
 # ---------------------------------------------------------------------------
@@ -6324,7 +6782,7 @@ def main():
              "--k4-k7-times": k4_k7_times, "--loop-times": loop_times, "--mrg-times": mrg_times,
              "--reference": reference_only, "--scan": scan_only, "--decoder": decoder_only,
              "--decoder-sampling": decoder_sampling_only, "--bf16": bf16_only, "--convnet": convnet_only,
-             "--ctc-random": ctc_random_only, "--fp16": fp16_only}
+             "--ctc-random": ctc_random_only, "--fp16": fp16_only, "--api": api_only}
     args = sys.argv[1:]
     if "--seed" in args:
         at = args.index("--seed")
@@ -6338,7 +6796,7 @@ def main():
         raise SystemExit(f"chip_smoke: unknown arguments {args}")
     start = time.perf_counter()
     smi = phase_setup()
-    start_cpu_references("adamw", "decoder", "bf16", "lm_train", "ctc", "l")
+    start_cpu_references("adamw", "decoder", "bf16", "lm_train", "ctc", "l", "m")
     log(f"setup (builds and first launches): {time.perf_counter() - start:.2f} s")
     t_path = time.perf_counter()
     t0 = time.perf_counter()
@@ -6405,6 +6863,7 @@ def main():
     t0 = time.perf_counter()
     path_l = phase_l(attention_l, bf16["i2"]["arms"][False])
     log(f"(l) bf16 and fp16 beyond PR 16: {time.perf_counter() - t0:.2f} s")
+    path_m = phase_m()
     t0 = time.perf_counter()
     phase_capture(lr["data"], glm_xyw)
     log(f"captured-vs-eager phase: {time.perf_counter() - t0:.2f} s")
@@ -6516,6 +6975,8 @@ def main():
     # (l1)'s and (l2)'s Composites compute in bf16 (gated by BF16_REL of the scale): kept apart
     k1["max_abs_err"] = max(k1["max_abs_err"], path_l["l3"]["k1_err"])
     k1_l_16 = max(row["max_abs_err"] for row in path_l["l1"]["composites"] + path_l["l2"]["composites"])
+    # path (m): K1 and K4 launches in its run, K1 on its Composites, K4 at (m3)'s log-softmax
+    k1["max_abs_err"] = max([k1["max_abs_err"]] + [row["max_abs_err"] for row in path_m["composites"]])
     attention_l_rows = {k: {f"{dt} {'x'.join(map(str, shape))}": r[k] for (dt, shape), r in path_l["l5"].items()}
                         for k in ("K2", "K3")}
     kernels = [
@@ -6524,7 +6985,7 @@ def main():
              path_g_launches=path_g["K1"], path_h_launches=path_h["K1"], path_i_launches=path_i["K1"],
              path_i_bf16=k1_bf16, path_j_launches=path_j["K1"], path_k_launches=path_k["K1"],
              path_l_launches=path_l_launches["K1"], path_l_fp16_max_rel_err=path_l["l3"]["k1_rel"],
-             path_l_bf16_max_abs_err=k1_l_16),
+             path_l_bf16_max_abs_err=k1_l_16, path_m_launches=path_m["launches"]["K1"]),
         dict(kernel_line("K2 flash attention forward", "cuda", K2_SOURCE, K2_REPLACES, "K2", train, k2),
              adamw_launches=adamw["launches"]["K2"], path_i_launches=path_i["K2"], path_i_bf16=attention_i["K2"],
              path_l_launches=path_l_launches["K2"], path_l=attention_l_rows["K2"]),
@@ -6534,11 +6995,13 @@ def main():
                          dict(lr["K4"], max_abs_err=max([lr["K4"]["max_abs_err"], k4_f["max_abs_err"]]
                                                         + [r["max_abs_err"] for r in k4_e.values()]
                                                         + [r["max_abs_err"] for r in k4_g.values()]
-                                                        + [k4_j["max_abs_err"]]))),
+                                                        + [k4_j["max_abs_err"], path_m["k4"]["max_abs_err"]]))),
              path_e_launches=path_e["K4"], path_e=k4_e, path_f_launches=path_f["K4"], path_f=k4_f,
              path_g_launches=path_g["K4"], path_g=k4_g, path_h_launches=path_h["K4"], path_i_launches=path_i["K4"],
              path_i=bf16["k4"], path_j_launches=path_j["K4"], path_j=k4_j, path_k_launches=path_k["K4"],
-             path_k=k4_k, path_l_launches=path_l_launches["K4"]),
+             path_k=k4_k, path_l_launches=path_l_launches["K4"], path_m_launches=path_m["launches"]["K4"],
+             path_m={key: path_m["k4"][key] for key in ("max_abs_err", "ms", "cold_ms", "plain_ms", "bound_ms",
+                                                         "library_ms")}),
         kernel_line("K5 CSR SpMV (narrow rhs)", "cuda", K567_SOURCE, K5_REPLACES, "K5",
                     (glm["launches"], glm["traced"]), k5),
         kernel_line("K6 CSR SpMM (wide rhs)", "cuda", K567_SOURCE, K6_REPLACES, "K6", (lr["launches"], lr["traced"]),

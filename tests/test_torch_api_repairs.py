@@ -147,8 +147,10 @@ def test_fast_run_is_the_torch_mode():
     x = pat.vector("x", dtype="float64")
     f = aesara_tpu_torch.function([x], pat.exp(x) * 2.0, mode="FAST_RUN")
     np.testing.assert_array_equal(_host(f(np.arange(3.0))), np.exp(np.arange(3.0)) * 2.0)
-    from aesara_tpu_torch.compile.mode import TORCH, get_mode
+    from aesara_tpu_torch.compile.mode import FAST_COMPILE, TORCH, get_mode
 
     assert get_mode("FAST_RUN") is TORCH
+    assert get_mode("FAST_COMPILE") is FAST_COMPILE
+    # the JAX package's PY mode has no counterpart: the port has no fallback
     with pytest.raises(ValueError, match="unknown mode"):
-        get_mode("FAST_COMPILE")
+        get_mode("PY")

@@ -16,8 +16,10 @@ against their plain versions, the new distributions and a CTC step on the
 card against the CPU, captured against eager (``-k "ctc or
 random_loops"``), and K2 and K3 in fp16, at head widths up to 256 and past
 65,535 batch-heads, fp64 refused, and K1's float-to-integer casts at their
-edges (``-k "fp16 or fp64 or fused_attention_compiled or saturate"``).
-They skip where there
+edges (``-k "fp16 or fp64 or fused_attention_compiled or saturate"``),
+and the user API's core ops on the card against the CPU, bitwise, with
+an output that views an updated shared variable (``-k "core_ops or
+viewing"``).  They skip where there
 is no CUDA device; run them on a GPU machine with ``python -m pytest -m
 cuda tests/test_torch_cuda.py``."""
 
@@ -1810,3 +1812,57 @@ def test_k3_fp16_keeps_large_ds_finite(cuda, d, v_size, causal):
                     attention_grads_plain(q, k, v, do, causal, scale)):
         assert bool(torch.isfinite(g).all())
         torch.testing.assert_close(g.float(), w.float(), atol=2e-3 * w.float().abs().max().item(), rtol=0)
+
+
+# -- the user API's core ops (-k core_ops) ------------------------------------------
+
+def _core_op_functions():
+    """Functions of the core ops at small sizes: (label, build(inputs) ->
+    outputs, input values)."""
+    rng = np.random.default_rng(11)
+    x, n = rng.normal(size=(37, 29)).astype("float32"), rng.normal(size=(3, 41, 17)).astype("float32")
+    index = rng.integers(-1, 5, size=(6, 29)).astype("int64")
+    choices = rng.normal(size=(4, 6, 29)).astype("float32")
+    perms = np.argsort(rng.random((6, 29)), axis=1).astype("int64")
+    return [
+        ("diagonal", lambda m: [m.diagonal(), m.diagonal(-3), m.trace(), pt.eye(m.shape[0], m.shape[1], 2),
+                                ptp.grad((m.diagonal(1) ** 2).sum() + m.diagonal(-2).sum(), m)], [x]),
+        ("eye_tri", lambda m: [pt.eye(9, 7, -1), pt.tril(m, 1), pt.triu(m, -2), pt.diag(m[0])], [x]),
+        ("nonzero", lambda m: list((m > 0.5).nonzero()) + [m.nonzero_values(), pt.flatnonzero(m < -1)], [x]),
+        ("choose", lambda a, c: [a.choose(c), pt.choose(a, c, mode="wrap")], [index, choices]),
+        ("permute", lambda r, p: [pt.permute_row_elements(r, p), pt.permute_row_elements(r, p, inverse=True),
+                                  pt.inverse_permutation(p)], [x[:6], perms]),
+        ("shape_helpers", lambda c: [pt.roll(c, 5), pt.roll(c, -1, axis=0), pt.tile(c, (2, 1, 3)), c.flatten(2),
+                                     pt.swapaxes(c, 0, 2), pt.expand_dims(c, 1)], [n]),
+    ]
+
+
+@pytest.mark.parametrize("label", [c[0] for c in _core_op_functions()])
+def test_core_ops_on_the_card_are_the_cpus_bitwise(cuda, label):
+    """Each core op of the user API on the card against the same function
+    on the CPU, bitwise (they move data; the trace sums, within 1e-5)."""
+    _, build, values = next(c for c in _core_op_functions() if c[0] == label)
+    outs = []
+    for device in ("cpu", "cuda"):
+        with config.change_flags(device=device):
+            ins = [pt.TensorType(str(v.dtype), (None,) * v.ndim)(f"i{k}") for k, v in enumerate(values)]
+            f = ptp.function(ins, build(*ins))
+            outs.append([[o.cpu().numpy() for o in f(*values)] for _ in range(3)])
+    for call_cpu, call_card in zip(*outs):
+        for a, b in zip(call_card, call_cpu):
+            assert a.dtype == b.dtype and a.shape == b.shape
+            if a.ndim == 0 and label == "diagonal":
+                np.testing.assert_allclose(a, b, rtol=1e-5)
+            else:
+                np.testing.assert_array_equal(a, b)
+
+
+def test_an_output_viewing_an_updated_shared_variable_on_the_card(cuda):
+    with config.change_flags(device="cuda"):
+        w = ptp.shared(np.arange(16.0, dtype="float32").reshape(4, 4))
+        f = ptp.function([], [w.diagonal(), w.T], updates={w: w * 2})
+        for k in range(4):
+            d, t = (v.cpu().numpy() for v in f())
+            np.testing.assert_array_equal(d, np.array([0.0, 5.0, 10.0, 15.0]) * 2.0 ** k)
+            np.testing.assert_array_equal(t, np.arange(16.0).reshape(4, 4).T * 2.0 ** k)
+        assert f.captured

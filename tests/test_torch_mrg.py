@@ -88,9 +88,45 @@ def test_mrg_uniform_of_two_dims_and_a_range():
                             rs.uniform(size=(12,), nstreams=4, low=-2.0, high=3.0, dtype="float64")]))
 
 
+def _box_muller(u, size, avg, std):
+    """``MRG_RandomStream.normal``'s transform in NumPy float64 on the
+    uniforms ``u`` of one call (z0 block, then z1 block)."""
+    half = u.shape[0] // 2
+    r = np.sqrt(-2.0 * np.log(u[:half]))
+    theta = (2.0 * np.pi) * u[half:]
+    z = np.concatenate([r * np.cos(theta), r * np.sin(theta)])[:int(np.prod(size))]
+    return z.reshape(size) * std + avg
+
+
+def _one_ulp_of_the_draw(got, want, avg):
+    """``got`` within 1 ulp of ``want - avg``, the draw before its shift
+    by ``avg``: the shift keeps the draw's absolute error but may halve the
+    value's magnitude (1 + 2 * -0.27 = 0.46), so 1 ulp of the draw can be
+    2 of the result."""
+    assert np.all(np.abs(got - want) <= np.spacing(np.abs(want - avg))), np.abs(got - want) / np.spacing(want)
+
+
 def test_normal_binomial_multinomial_and_choice_are_the_jax_packages():
+    """The uniforms under ``normal`` and the states stay bitwise; the
+    normal draws are held within 1 ulp each (``_one_ulp_of_the_draw``), of
+    the JAX package's and of a NumPy Box-Muller on the port's own uniforms.  Box-Muller's radius
+    passes through a float64 ``sqrt``: XLA's, NumPy's and the card's are
+    correctly rounded, torch's CPU one is not on some installations (one
+    ulp low at 1.9561459203565867), so a bitwise test of it would pass or
+    fail by the machine.  Binomial, multinomial and choice stay bitwise."""
     pvals = np.array([[0.2, 0.3, 0.5], [0.6, 0.1, 0.3]])
-    _equal(_run(lambda rs: rs.normal(size=(11, 3), avg=1.0, std=2.0, dtype="float64")))
+    size, n_even = (11, 3), 34
+    (jd, js), (pd, ps) = _run(lambda rs: rs.normal(size=size, avg=1.0, std=2.0, dtype="float64"))
+    for a, b in zip(ps, js):
+        for x, y in zip(a, b):
+            assert x.dtype == y.dtype
+            np.testing.assert_array_equal(x, y)
+    uniforms = _run(lambda rs: rs.uniform(size=(n_even,), low=0.0, high=1.0, ndim=1, dtype="float64"))
+    _equal(uniforms)
+    for z, want, u in zip(pd, jd, uniforms[1][0]):
+        assert z.dtype == want.dtype == np.float64 and z.shape == want.shape == size
+        _one_ulp_of_the_draw(z, want, 1.0)
+        _one_ulp_of_the_draw(z, _box_muller(u, size, 1.0, 2.0), 1.0)
     _equal(_run(lambda rs: rs.binomial(size=(50,), p=0.3)))
     _equal(_run(lambda rs: rs.multinomial(pvals=pvals)))
     _equal(_run(lambda rs: rs.choice(size=2, replace=False, p=pvals)))
