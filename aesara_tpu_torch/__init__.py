@@ -42,7 +42,7 @@ from aesara_tpu_torch.compile.mode import (  # noqa: E402,F401
 )
 from aesara_tpu_torch.compile.ops import as_op  # noqa: E402,F401
 from aesara_tpu_torch.compile.sharedvalue import SharedVariable, shared, shared_constructor  # noqa: E402,F401
-from aesara_tpu_torch.gradient import Lop, grad, hessian, jacobian, subgraph_grad, verify_grad  # noqa: E402,F401
+from aesara_tpu_torch.gradient import Lop, Rop, grad, hessian, jacobian, subgraph_grad, verify_grad  # noqa: E402,F401
 from aesara_tpu_torch.link.torch.linker import TorchLinker  # noqa: E402,F401
 from aesara_tpu_torch.printing import Print  # noqa: E402,F401
 from aesara_tpu_torch.raise_op import Assert, assert_op  # noqa: E402,F401
@@ -66,6 +66,7 @@ _register_ifelse_rewrites()
 from aesara_tpu_torch.scan.basic import scan  # noqa: E402,F401,F811
 from aesara_tpu_torch.scan.views import foldl, foldr, map, reduce  # noqa: E402,F401,A004
 from aesara_tpu_torch.scan.views import map as scan_map  # noqa: E402,F401
+from aesara_tpu_torch.scan.checkpoints import scan_checkpoints  # noqa: E402,F401
 from aesara_tpu_torch.scan.views import reduce as scan_reduce  # noqa: E402,F401
 
 

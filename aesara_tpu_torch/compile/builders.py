@@ -138,6 +138,11 @@ class OpFromGraph(Op):
     def __str__(self):
         return self.name
 
+    def R_op(self, inputs, eval_points):
+        if callable(self.rop_overrides):
+            return self.rop_overrides(inputs, eval_points)
+        raise NotImplementedError("use gradient.Rop (double-backward)")
+
 
 def inline_ofg_expansion(fgraph, node):
     """An ``OpFromGraph(inline=True)`` node replaced by its subgraph over
@@ -188,6 +193,9 @@ class RematBarrier(Op):
 
     def __str__(self):
         return f"RematBarrier{{{self.nonce}}}"
+
+    def R_op(self, inputs, eval_points):
+        return [eval_points[0]]
 
 
 _remat_nonce = itertools.count()

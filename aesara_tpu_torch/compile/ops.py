@@ -46,6 +46,9 @@ class DeepCopyOp(Op):
     def __str__(self):
         return "DeepCopyOp"
 
+    def R_op(self, inputs, eval_points):
+        return [eval_points[0]]
+
 
 class ViewOp(Op):
     """The identity; its output is a view of its input."""
@@ -67,6 +70,9 @@ class ViewOp(Op):
 
     def __str__(self):
         return "ViewOp"
+
+    def R_op(self, inputs, eval_points):
+        return [eval_points[0]]
 
 
 deep_copy_op = DeepCopyOp()

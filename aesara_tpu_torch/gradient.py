@@ -274,11 +274,106 @@ def Lop(f, wrt, eval_points, consider_constant=None, disconnected_inputs="raise"
                 disconnected_inputs=disconnected_inputs)
 
 
+def _as_type(v, t):
+    """``v`` as a variable of type ``t``: a value as a constant, a variable
+    of a less static shape behind a ``SpecifyShape`` (the JAX package's
+    ``convert_variable``)."""
+    from aesara_tpu_torch.tensor.shape import specify_shape
+    from aesara_tpu_torch.tensor.type import TensorType
+
+    if not isinstance(v, Variable):
+        return t.filter_variable(v, allow_convert=True)
+    if v.type == t or t.is_super(v.type):
+        return v
+    if (isinstance(t, TensorType) and isinstance(v.type, TensorType) and v.type.dtype == t.dtype
+            and v.type.ndim == t.ndim
+            and all(a is None or b is None or a == b for a, b in zip(t.shape, v.type.shape))):
+        return specify_shape(v, t.shape)
+    return t.filter_variable(v, allow_convert=True)
+
+
+def _rop_via_op_rop(fs, wrts, evs):
+    """Forward mode through each op's ``R_op``: tangents walk from the
+    inputs to the outputs; a node that no tangent reaches is skipped."""
+    from aesara_tpu_torch.graph.ir import graph_inputs
+
+    tangents: dict = {}
+    for w, ev in zip(wrts, evs):
+        tangents[w] = _as_type(ev, w.type)
+    for node in io_toposort(graph_inputs(fs), fs):
+        if not any(i in tangents for i in node.inputs):
+            continue
+        eval_points = [tangents.get(i) for i in node.inputs]
+        try:
+            rops = node.op.R_op(node.inputs, eval_points)
+        except NotImplementedError as e:
+            raise NotImplementedError(f"{node.op} has no R_op rule (forward mode); use the default "
+                                      "double-backward Rop (use_op_rop=False)") from e
+        for out, r in zip(node.outputs, rops):
+            if r is not None:
+                tangents[out] = _as_type(r, out.type)
+    return [tangents.get(f) for f in fs]  # None: disconnected
+
+
+def _apply_disconnected_output_policy(results, fs, policy, zeros_fn):
+    """The raise/warn/zeros policy for the Rop outputs that no tangent
+    reaches, shared by both constructions."""
+    for i, (fi, r) in enumerate(zip(fs, results)):
+        if r is None or _is_disconnected(r):
+            if policy == "raise":
+                raise DisconnectedInputError(f"Rop: output {fi} is not connected to any wrt")
+            if policy == "warn":
+                warnings.warn(f"Rop: output {fi} is not connected to any wrt")
+            results[i] = zeros_fn(fi)
+    return results
+
+
 def Rop(f, wrt, eval_points, disconnected_outputs="raise", use_op_rop=False):
-    """The R-operator (df/dwrt) v: not ported yet.  It waits for ``R_op``
-    on the rest of the op table, ``Scan.R_op`` with it."""
-    raise NotImplementedError("Rop waits for R_op on the rest of the op table (Scan.R_op with it), "
-                              "which the port does not have yet")
+    """The R-operator (df/dwrt) v.
+
+    By default the Lop-of-Lop ("double-backward") construction: ``grad``
+    of the inner product of ``grad`` with dummy cotangents and ``v``, with
+    respect to those cotangents; it needs no rule of its own per op.
+    ``use_op_rop=True`` walks the graph forward through each op's
+    ``R_op`` instead, a Scan through ``Scan.R_op``."""
+    from aesara_tpu_torch.graph.ir import clone_replace
+    from aesara_tpu_torch.tensor.math import add as tadd, mul as tmul, sum as tsum
+
+    single = not isinstance(f, (list, tuple))
+    fs = [f] if single else list(f)
+    wrts = [wrt] if not isinstance(wrt, (list, tuple)) else list(wrt)
+    evs = [eval_points] if not isinstance(eval_points, (list, tuple)) else list(eval_points)
+    if len(evs) != len(wrts):
+        raise ValueError(f"Rop: {len(wrts)} wrt variables but {len(evs)} eval points")
+    if use_op_rop:
+        from aesara_tpu_torch.tensor.basic import zeros_like
+
+        results = _apply_disconnected_output_policy(_rop_via_op_rop(fs, wrts, evs), fs, disconnected_outputs,
+                                                    zeros_like)
+        return results[0] if single else results
+    us = []
+    for fi in fs:
+        u = fi.type()
+        u.name = "rop_dummy_u"
+        us.append(u)
+    gs = grad(cost=None, wrt=wrts, known_grads=dict(zip(fs, us)), disconnected_inputs="ignore",
+              return_disconnected="zero")
+    if not isinstance(gs, (list, tuple)):
+        gs = [gs]
+    inner = None
+    for g, v in zip(gs, evs):
+        v = _as_type(v, g.type)
+        term = tsum(tmul(g, v)) if g.type.ndim else tmul(g, v)
+        inner = term if inner is None else tadd(inner, term)
+    rops = grad(cost=None, wrt=us, known_grads={inner: _ones_like_cost(inner)}, disconnected_inputs="ignore",
+                return_disconnected="disconnected")
+    if not isinstance(rops, (list, tuple)):
+        rops = [rops]
+    rops = _apply_disconnected_output_policy(rops, fs, disconnected_outputs, _zeros_like_var)
+    # the result is linear in u and does not depend on its value, but a
+    # broadcast template (fill) may still name it: put in a zero of its shape
+    rops = clone_replace(rops, replace={u: _zeros_like_var(fi) for u, fi in zip(us, fs)})
+    return rops[0] if single else rops
 
 
 def jacobian(expression, wrt, consider_constant=None, disconnected_inputs="raise"):
@@ -365,6 +460,11 @@ def subgraph_grad(wrt, end, start=None, cost=None, details=False):
 # ---------------------------------------------------------------------------
 # numeric checking
 # ---------------------------------------------------------------------------
+
+class DisconnectedInputError(ValueError):
+    """An output or input that ``Rop`` was asked about is disconnected, with
+    the policy ``"raise"``."""
+
 
 class GradientError(Exception):
     """The symbolic and the numeric gradient disagree."""
@@ -511,6 +611,12 @@ class GradManipulatorOp(Op):
 
     def perform(self, node, inputs, output_storage):
         output_storage[0][0] = inputs[0]
+
+    def R_op(self, inputs, eval_points):
+        return [eval_points[0]]
+
+    def infer_shape(self, fgraph, node, input_shapes):
+        return input_shapes
 
 
 class ZeroGrad(GradManipulatorOp):

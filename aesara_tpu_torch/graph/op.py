@@ -87,3 +87,11 @@ class Op:
         return name
 
     __repr__ = __str__
+
+    def infer_shape(self, fgraph, node: Apply, input_shapes):
+        raise NotImplementedError(f"{type(self).__name__}.infer_shape")
+
+    def R_op(self, inputs, eval_points):
+        """The Jacobian-vector product of the outputs in the direction
+        ``eval_points`` (forward mode); None marks a zero tangent."""
+        raise NotImplementedError(f"{type(self).__name__}.R_op")

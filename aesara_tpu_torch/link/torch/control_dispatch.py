@@ -32,7 +32,8 @@ is left as it is, since every function that holds the op shares it.  The
 inner program frees its intermediates after their last reader
 (``config.allow_gc``), so a ``Remat`` node keeps none of them: that is the
 memory ``remat`` saves.  The inner program runs inside the outer step,
-so a captured step records its launches too.
+so a captured step records its launches too; one whose subgraph blocks a
+capture blocks the outer step's (``linker.inner_blocker``).
 
 ``RematBarrier`` is the identity.  What it fences is a recompute in the
 outer graph, which no rewrite merges with the forward (its ``nonce``).
@@ -68,7 +69,7 @@ def fused_ofg_graph(op):
 def _torch_op_from_graph(op, node):
     import torch
 
-    from aesara_tpu_torch.link.torch.linker import Program
+    from aesara_tpu_torch.link.torch.linker import Program, inner_blocker
 
     inner = fused_ofg_graph(op)
     program = Program(inner, None, bool(config.allow_gc))
@@ -84,6 +85,9 @@ def _torch_op_from_graph(op, node):
         return tuple(outs) if len(outs) != 1 else outs[0]
 
     op_from_graph.program = program     # the inner program (its kernels' launches count in the step)
+    if inner_blocker(program) is not None:
+        op_from_graph.capturable = False
+        op_from_graph.blocker = inner_blocker(program)
     return op_from_graph
 
 

@@ -41,8 +41,7 @@ from aesara_tpu_torch.tensor.shape import Reshape, Shape, Shape_i, SpecifyShape,
 from aesara_tpu_torch.tensor.sort import ArgSortOp, SortOp, TopKOp
 from aesara_tpu_torch.tensor.special import LogSoftmax, Softmax, SoftmaxGrad
 from aesara_tpu_torch.tensor.subtensor import (
-    AdvancedIncSubtensor, AdvancedIncSubtensor1, AdvancedSubtensor, AdvancedSubtensor1, DynamicIncSubtensor,
-    DynamicSlice, IncSubtensor, Subtensor, indices_from_subtensor,
+    DynamicIncSubtensor, DynamicSlice, IncSubtensor, Subtensor, indices_from_subtensor,
 )
 from aesara_tpu_torch.link.torch.kernels.attention import flash_attention, flash_attention_grads
 from aesara_tpu_torch.link.torch.kernels.elemwise import (
@@ -380,21 +379,6 @@ def _torch_softmax_grad(op, node):
     return softmax_grad
 
 
-@torch_funcify.register(AdvancedSubtensor)
-def _torch_advanced_subtensor(op, node):
-    return lambda x, *indices: x[indices]
-
-
-@torch_funcify.register(AdvancedIncSubtensor)
-def _torch_advanced_inc_subtensor(op, node):
-    accumulate = not op.set_instead_of_inc
-
-    def advanced_inc_subtensor(x, y, *indices):
-        return x.clone().index_put_(indices, y, accumulate=accumulate)
-
-    return advanced_inc_subtensor
-
-
 class _In(int):
     """The position of an index input, among a node's index inputs."""
 
@@ -408,11 +392,11 @@ def _basic_index(node, idx_list, n_fixed: int):
     with a negative step by their position in its result.
 
     A slice bound that is not a constant reaches the lowering as a host
-    value: one computed from shapes and constants, which the linker folds
-    on the host and which each key of a function fixes (``needs_host``).
-    One computed from data raises when the function is compiled: its
-    result's length would be read on the host (the JAX package sends such
-    a node to its Python fallback; the port has none).  A negative-step
+    value where it is computed from shapes and constants, which the linker
+    folds on the host and which each key of a function fixes.  One
+    computed from data is read on the host when the node runs (``syncs``):
+    the function runs eagerly and names it (the JAX package sends such a
+    node to its Python fallback).  A negative-step
     slice (torch slices step forward only) and a run-time integer index
     are kept as full slices in the static index and applied by
     ``_region``, the index gathered on the device."""
@@ -459,9 +443,7 @@ def _basic_index(node, idx_list, n_fixed: int):
     return resolve, dynamic, runtime, [n_fixed + k for k in bounds]
 
 
-_RUN_TIME_BOUND = ("has a slice bound computed at run time from data, so its length is not known "
-                   "when the function is compiled; index a window of constant length "
-                   "(x[i*B:(i+1)*B] becomes a DynamicSlice) or compute the bound from shapes")
+_BOUND_BLOCKER = "has a slice bound computed from data, read on the host"
 
 
 def _region(x, static, negative):
@@ -516,7 +498,7 @@ def _torch_subtensor(op, node):
         return moved[tuple(idx)].reshape(moved.shape[n_dyn:])
 
     subtensor.host_inputs = tuple(range(1, len(node.inputs)))
-    subtensor.needs_host = (bounds, _RUN_TIME_BOUND)
+    subtensor.syncs, subtensor.sync_blocker = tuple(bounds), _BOUND_BLOCKER
     return subtensor
 
 
@@ -551,24 +533,8 @@ def _inc_subtensor_lowering(op, node, in_place: bool):
         return out
 
     inc_subtensor.host_inputs = tuple(range(2, len(node.inputs)))
-    inc_subtensor.needs_host = (bounds, _RUN_TIME_BOUND)
+    inc_subtensor.syncs, inc_subtensor.sync_blocker = tuple(bounds), _BOUND_BLOCKER
     return inc_subtensor
-
-
-@torch_funcify.register(AdvancedSubtensor1)
-def _torch_advanced_subtensor1(op, node):
-    return lambda x, ilist: x[ilist]
-
-
-@torch_funcify.register(AdvancedIncSubtensor1)
-def _torch_advanced_inc_subtensor1(op, node):
-    accumulate = not op.set_instead_of_inc
-
-    def advanced_inc_subtensor1(x, y, ilist):
-        values = y.broadcast_to((ilist.shape[0],) + tuple(x.shape[1:]))
-        return x.clone().index_put_((ilist,), values, accumulate=accumulate)
-
-    return advanced_inc_subtensor1
 
 
 def _window_index(lengths, shape, starts, aranges: dict):
@@ -1114,3 +1080,6 @@ def _torch_from_function(op, node):
     from_function.capturable = False
     from_function.blocker = "runs a Python function on the host"
     return from_function
+
+
+from aesara_tpu_torch.link.torch import index_dispatch  # noqa: E402,F401  (registers the fancy-index lowerings)

@@ -137,6 +137,17 @@ def _capture_blocker(fn, node, host):
     return None
 
 
+def inner_blocker(program):
+    """Why an inner ``Program`` (a Scan's body, an OpFromGraph's subgraph)
+    keeps the node that runs it from being captured, or None: its first
+    blocking node reads the device on the host, or has a result whose
+    length is the data's, in every step the node runs."""
+    node = program.blocker
+    if node is None:
+        return None
+    return f"runs {node.op} ({type(node.op).__name__}) in its inner graph, which {program.blocker_reason}"
+
+
 def graph_nodes(fgraph):
     """The Apply nodes of ``fgraph`` and of the inner graphs of its Scan
     and OpFromGraph nodes."""

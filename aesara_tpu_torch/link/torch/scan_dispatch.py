@@ -43,7 +43,9 @@ trip count computed on the device is read once on the host
 (``syncs``), and a while-Scan (``until`` without ``padded_while``) reads
 its condition each step and cuts its stacks at the step that made it
 true, as ``Scan.perform`` does: both run eagerly and say so
-(``TorchFunction.capture_blocker``).  ``padded_while`` keeps its done
+(``TorchFunction.capture_blocker``).  So does a Scan whose body holds a
+node that blocks a capture (a mask or a slice bound from data, read each
+step; ``linker.inner_blocker``).  ``padded_while`` keeps its done
 flag on the device and captures.
 """
 
@@ -106,7 +108,7 @@ def _host(value) -> bool:
 def _torch_scan(op, node):
     import torch
 
-    from aesara_tpu_torch.link.torch.linker import Program
+    from aesara_tpu_torch.link.torch.linker import Program, inner_blocker
 
     info = op.info
     inner = fused_inner_graph(op)
@@ -222,6 +224,9 @@ def _torch_scan(op, node):
     if info.as_while:
         scan.capturable = False
         scan.blocker = "reads its until condition on the host each step"
+    elif inner_blocker(program) is not None:
+        scan.capturable = False
+        scan.blocker = inner_blocker(program)
     return scan
 
 

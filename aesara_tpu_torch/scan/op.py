@@ -765,3 +765,115 @@ class Scan(Op):
             rows.append([j in direct[base + k] for j in range(n_out)])
         assert len(rows) == len(node.inputs), (len(rows), len(node.inputs))
         return rows
+
+    def R_op(self, inputs, eval_points):
+        """Native forward-mode scan (reference ``scan/op.py:3131``): one
+        augmented Scan carrying (state, tangent) pairs — the inner
+        tangent body comes from the per-op ``R_op`` traversal of the
+        inner graph.  ``Rop(..., use_op_rop=False)`` (the default
+        double-backward construction) covers the cases this raises on
+        (while-scans, save-mem scans, non-tensor shared state)."""
+        import aesara_tpu_torch.tensor.basic as tb
+        from aesara_tpu_torch.gradient import _rop_via_op_rop
+        from aesara_tpu_torch.graph.fg import FunctionGraph
+        from aesara_tpu_torch.tensor.type import TensorType
+
+        info = self.info
+        if info.as_while:
+            raise NotImplementedError("R_op of a while-Scan")
+        if ((info.final_only and any(info.final_only)) or any(info.tail_depths)
+                or any(info.nit_tail_depths)):
+            raise NotImplementedError("R_op of a save-mem (final-only/tail) Scan")
+
+        inner_in = list(self.fgraph.inputs)
+        if any(not isinstance(iv.type, TensorType) for iv in inner_in):
+            raise NotImplementedError(
+                "R_op of a Scan with non-tensor inner state"
+            )
+
+        # tangent placeholder per inner input, then forward-traverse the
+        # inner graph for the tangents of every inner output
+        t_inner = [iv.type(f"jvp_{iv.name or 'v'}") for iv in inner_in]
+        tan_outs = _rop_via_op_rop(
+            list(self.fgraph.outputs[: info.n_outs]), inner_in, t_inner
+        )
+
+        # category split of the flat inner input list
+        n_flat_taps = sum(len(t) for t in info.mit_sot_taps)
+        bounds = [
+            info.n_seqs,
+            info.n_seqs + n_flat_taps,
+            info.n_seqs + n_flat_taps + info.n_sit_sot,
+            info.n_seqs + n_flat_taps + info.n_sit_sot + info.n_shared,
+        ]
+        cat_in = [
+            inner_in[: bounds[0]],
+            inner_in[bounds[0]: bounds[1]],
+            inner_in[bounds[1]: bounds[2]],
+            inner_in[bounds[2]: bounds[3]],
+            inner_in[bounds[3]:],
+        ]
+        cat_tan = [
+            t_inner[: bounds[0]],
+            t_inner[bounds[0]: bounds[1]],
+            t_inner[bounds[1]: bounds[2]],
+            t_inner[bounds[2]: bounds[3]],
+            t_inner[bounds[3]:],
+        ]
+        new_inner_inputs = []
+        for orig, tan in zip(cat_in, cat_tan):
+            new_inner_inputs.extend(orig)
+            new_inner_inputs.extend(tan)
+
+        inner_out = list(self.fgraph.outputs)
+        o_bounds = [
+            info.n_mit_sot,
+            info.n_mit_sot + info.n_sit_sot,
+            info.n_mit_sot + info.n_sit_sot + info.n_nit_sot,
+            info.n_outs,
+        ]
+        new_inner_outputs = []
+        start = 0
+        for end in o_bounds:
+            new_inner_outputs.extend(inner_out[start:end])
+            new_inner_outputs.extend(tan_outs[start:end])
+            start = end
+
+        new_info = ScanInfo(
+            n_seqs=info.n_seqs * 2,
+            mit_sot_taps=info.mit_sot_taps + info.mit_sot_taps,
+            n_sit_sot=info.n_sit_sot * 2,
+            n_nit_sot=info.n_nit_sot * 2,
+            n_shared=info.n_shared * 2,
+            n_non_seqs=info.n_non_seqs * 2,
+        )
+        new_fg = FunctionGraph(new_inner_inputs, new_inner_outputs, clone=True)
+        new_op = Scan(new_fg, new_info, name=f"{self.name}_jvp")
+
+        # outer operands: originals + tangents per category (None → 0)
+        def etan(x, e):
+            return tb.zeros_like(tb.as_tensor_variable(x)) if e is None else e
+
+        pos = 1
+        outer = [inputs[0]]
+        for count in (info.n_seqs, info.n_mit_sot, info.n_sit_sot,
+                      info.n_shared, info.n_non_seqs):
+            group = inputs[pos: pos + count]
+            evs = eval_points[pos: pos + count]
+            outer.extend(group)
+            outer.extend(etan(x, e) for x, e in zip(group, evs))
+            pos += count
+
+        outs = new_op(*outer, return_list=True)
+        # pick the tangent half of each output category, aligned with
+        # this node's (mit, sit, nit, shared) output order
+        n_pairs = (
+            (info.n_mit_sot,), (info.n_sit_sot,), (info.n_nit_sot,),
+            (info.n_shared,),
+        )
+        rops = []
+        cursor = 0
+        for (count,) in n_pairs:
+            rops.extend(outs[cursor + count: cursor + 2 * count])
+            cursor += 2 * count
+        return rops

@@ -56,7 +56,7 @@ def __getattr__(name):
     import importlib
 
     lazy = {"extra_ops", "sort", "special", "random", "nnet", "blas", "rewriting", "sharedvar", "elemwise",
-            "subtensor", "type", "basic"}
+            "subtensor", "type", "basic", "type_other", "subtensor_opt"}
     if name in lazy:
         return importlib.import_module(f"aesara_tpu_torch.tensor.{name}")
     extra = importlib.import_module("aesara_tpu_torch.tensor.extra_ops")

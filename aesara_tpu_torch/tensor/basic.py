@@ -144,6 +144,9 @@ class MakeVector(Op):
     def perform(self, node, inputs, output_storage):
         output_storage[0][0] = to_host(inputs, self.dtype)
 
+    def infer_shape(self, fgraph, node, input_shapes):
+        return [(len(node.inputs),)]
+
 
 def get_scalar_constant_value(v):
     """The Python scalar behind a constant scalar graph, walking through
@@ -244,6 +247,14 @@ class Alloc(Op):
             gv = tsum(gv, axis=ones, keepdims=True)
         return [gv] + rest
 
+    def R_op(self, inputs, eval_points):
+        if eval_points[0] is None:
+            return [None]
+        return [self.make_node(eval_points[0], *inputs[1:]).outputs[0]]
+
+    def infer_shape(self, fgraph, node, input_shapes):
+        return [tuple(node.inputs[1:])]
+
 
 def alloc(value, *shape):
     return Alloc()(value, *shape)
@@ -279,6 +290,17 @@ class ARange(Op):
         from aesara_tpu_torch.gradient import disconnected_type
 
         return [disconnected_type() for _ in inputs]
+
+    def infer_shape(self, fgraph, node, input_shapes):
+        from aesara_tpu_torch.tensor.math import ceil as tceil, maximum as tmaximum, true_div
+
+        start, stop, step = node.inputs
+        length = cast(
+            tceil(true_div(cast(stop, "float64") - cast(start, "float64"),
+                           cast(step, "float64"))),
+            "int64",
+        )
+        return [(tmaximum(length, constant(0, dtype="int64")),)]
 
 
 def arange(start, stop=None, step=1, dtype=None):
@@ -523,6 +545,39 @@ class Join(Op):
             out.append(g)
         return rval + out
 
+    def R_op(self, inputs, eval_points):
+        # linear in every tensor input: join the tangents
+        from aesara_tpu_torch.tensor.basic import zeros_like
+
+        evs = eval_points[1:]
+        if all(e is None for e in evs):
+            return [None]
+        evs = [zeros_like(t) if e is None else e
+               for e, t in zip(evs, inputs[1:])]
+        return [self.make_node(inputs[0], *evs).outputs[0]]
+
+    def infer_shape(self, fgraph, node, input_shapes):
+        from aesara_tpu_torch.tensor.math import add as tadd
+
+        axis = node.inputs[0]
+        n = len(node.inputs) - 1
+        first = input_shapes[1]
+        ndim = len(first)
+        try:
+            ax = int(get_scalar_constant_value(axis))
+            if ax < 0:
+                ax += ndim
+        except NotScalarConstantError:
+            from aesara_tpu_torch.tensor.shape import shape as tshape
+
+            return [tuple(tshape(node.outputs[0])[d] for d in range(ndim))]
+        out = list(first)
+        total = first[ax]
+        for ish in input_shapes[2:]:
+            total = tadd(total, ish[ax])
+        out[ax] = total
+        return [tuple(out)]
+
 
 join_ = Join()
 
@@ -610,6 +665,25 @@ class Split(Op):
         gouts = [zeros_like(o) if isinstance(g.type, DisconnectedType) else g
                  for g, o in zip(output_grads, outs)]
         return [join(axis, *gouts), disconnected_type(), disconnected_type()]
+
+    def R_op(self, inputs, eval_points):
+        if eval_points[0] is None:
+            return [None] * self.len_splits
+        return self.make_node(eval_points[0], *inputs[1:]).outputs
+
+    def infer_shape(self, fgraph, node, input_shapes):
+        xshape, _, _ = input_shapes
+        axis = node.inputs[1]
+        splits = node.inputs[2]
+        out = []
+        for i in range(self.len_splits):
+            out.append(
+                tuple(
+                    switch(_eq_idx(d, axis), splits[i], xshape[d])
+                    for d in range(node.inputs[0].type.ndim)
+                )
+            )
+        return out
 
 
 def split(x, splits_size, n_splits, axis=0):
@@ -818,6 +892,21 @@ class ExtractDiag(Op):
             g = fill_diagonal_offset(zeros((sh[0], sh[1]), dtype=gz.type.dtype), gz, self.offset)
         return [cast(g, x.type.dtype)]
 
+    def infer_shape(self, fgraph, node, input_shapes):
+        from aesara_tpu_torch.tensor.math import maximum as tmaximum, minimum as tminimum
+
+        (ishape,) = input_shapes
+        ndim = node.inputs[0].type.ndim
+        ax1, ax2 = self.axis1 % ndim, self.axis2 % ndim
+        rest = [s for d, s in enumerate(ishape) if d not in (ax1, ax2)]
+        off = constant(self.offset, dtype="int64")
+        zero = constant(0, dtype="int64")
+        if self.offset >= 0:
+            dlen = tminimum(ishape[ax1], ishape[ax2] - off)
+        else:
+            dlen = tminimum(ishape[ax1] + off, ishape[ax2])
+        return [tuple(rest) + (tmaximum(dlen, zero),)]
+
 
 def diagonal(x, offset=0, axis1=0, axis2=1):
     return ExtractDiag(offset, axis1, axis2)(x)
@@ -859,6 +948,11 @@ class AllocDiag(Op):
 
     def grad(self, inputs, output_grads):
         return [diagonal(output_grads[0], self.offset, self.axis1, self.axis2)]
+
+    def infer_shape(self, fgraph, node, input_shapes):
+        (ishape,) = input_shapes
+        d = ishape[-1] + constant(abs(self.offset), dtype="int64")
+        return [tuple(ishape[:-1]) + (d, d)]
 
 
 def diag(v, k=0):
@@ -957,6 +1051,15 @@ class PermuteRowElements(Op):
         if gx.type.ndim > x.type.ndim:
             gx = tsum(gx, axis=list(range(gx.type.ndim - x.type.ndim)))
         return [gx, grad_undefined(self, 1, y)]
+
+    def infer_shape(self, fgraph, node, input_shapes):
+        from aesara_tpu_torch.tensor.math import maximum as tmaximum
+
+        xs, ys = input_shapes
+        nd = node.outputs[0].type.ndim
+        xs = (constant(1, dtype="int64"),) * (nd - len(xs)) + tuple(xs)
+        ys = (constant(1, dtype="int64"),) * (nd - len(ys)) + tuple(ys)
+        return [tuple(tmaximum(a, b) for a, b in zip(xs, ys))]
 
 
 def permute_row_elements(x, y, inverse=False):
@@ -1185,3 +1288,9 @@ __all__ += [
     "atleast_2d", "atleast_3d", "horizontal_stack", "vertical_stack", "stacklists", "tensor_copy", "is_flat",
     "roll", "tile", "transfer", "default", "mgrid", "ogrid",
 ]
+
+
+def _eq_idx(d, axis):
+    from aesara_tpu_torch.tensor.math import eq
+
+    return eq(constant(d, dtype="int64"), axis)

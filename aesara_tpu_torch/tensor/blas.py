@@ -103,6 +103,9 @@ class Gemm(_Accumulate):
                 cast(dot(gz, y.T) * alpha, x.type.dtype), cast(dot(x.T, gz) * alpha, y.type.dtype),
                 cast(tm.sum(gz * z), beta.type.dtype)]
 
+    def infer_shape(self, fgraph, node, input_shapes):
+        return [input_shapes[0]]
+
 
 class Gemv(_Accumulate):
     """out = beta·z + alpha·(A @ x) with z, x vectors (reference
@@ -128,6 +131,9 @@ class Gemv(_Accumulate):
                 cast(outer(gz, x) * alpha, A.type.dtype), cast(dot(A.T, gz) * alpha, x.type.dtype),
                 cast(dot(gz, z), beta.type.dtype)]
 
+    def infer_shape(self, fgraph, node, input_shapes):
+        return [input_shapes[0]]
+
 
 class Ger(_Accumulate):
     """out = z + alpha·outer(x, y), a rank-1 update (reference
@@ -151,6 +157,9 @@ class Ger(_Accumulate):
         (gz,) = output_grads
         return [gz, cast(tm.sum(gz * outer(x, y)), alpha.type.dtype),
                 cast(dot(gz, y) * alpha, x.type.dtype), cast(dot(gz.T, x) * alpha, y.type.dtype)]
+
+    def infer_shape(self, fgraph, node, input_shapes):
+        return [input_shapes[0]]
 
 
 gemm_no_inplace, gemv_no_inplace, ger_no_inplace = Gemm(), Gemv(), Ger()

@@ -89,6 +89,22 @@ class DimShuffle(Op):
             return f"Transpose{{axes={self.shuffle}}}"
         return f"DimShuffle{{order=[{', '.join(map(str, self.new_order))}]}}"
 
+    def R_op(self, inputs, eval_points):
+        if eval_points[0] is None:
+            return [None]
+        return self(eval_points[0], return_list=True)
+
+    def infer_shape(self, fgraph, node, input_shapes):
+        (ishape,) = input_shapes
+        from aesara_tpu_torch.tensor.basic import constant
+
+        return [
+            tuple(
+                constant(1, dtype="int64") if d == "x" else ishape[d]
+                for d in self.new_order
+            )
+        ]
+
 
 def check_static_broadcast(static_shapes, runtime_shapes) -> None:
     """Raise if a dim broadcasts at runtime that is not statically 1
@@ -151,7 +167,32 @@ class Elemwise(Op):
         to a tensor graph over the inputs, then summed over the dims
         where an input was broadcast against the output."""
         from aesara_tpu_torch.gradient import DisconnectedType, NullType
-        from aesara_tpu_torch.tensor.basic import cast, constant
+        from aesara_tpu_torch.tensor.basic import cast
+
+        markers = (DisconnectedType, NullType)
+        rval = []
+        for inp, gx in zip(inputs, self._pointwise_igrads(inputs, outs, ograds)):
+            if isinstance(gx.type, markers):
+                rval.append(gx)
+                continue
+            # dims where the input was broadcast against the output
+            to_sum = [d for d in range(inp.type.ndim)
+                      if inp.type.shape[d] == 1 and outs[0].type.shape[d] != 1]
+            if to_sum:
+                from aesara_tpu_torch.tensor.math import sum as tsum
+
+                gx = tsum(gx, axis=to_sum, keepdims=True)
+            if gx.type.dtype != inp.type.dtype and inp.type.dtype not in discrete_dtypes:
+                gx = cast(gx, inp.type.dtype)
+            rval.append(gx)
+        return rval
+
+    def _pointwise_igrads(self, inputs, outs, ograds):
+        """Each input's gradient term at the output's shape, before the sum
+        over broadcast dims: ``L_op`` sums them, ``R_op`` takes them as
+        they are, so that a broadcast input is not counted once per copy."""
+        from aesara_tpu_torch.gradient import DisconnectedType, NullType
+        from aesara_tpu_torch.tensor.basic import constant
 
         markers = (DisconnectedType, NullType)
         s_inputs = [ScalarType(i.type.dtype)() for i in inputs]
@@ -182,23 +223,7 @@ class Elemwise(Op):
             mapping[s_var] = res
             return res
 
-        rval = []
-        for inp, s_igrad in zip(inputs, s_igrads):
-            gx = lift(s_igrad)
-            if isinstance(gx.type, markers):
-                rval.append(gx)
-                continue
-            # dims where the input was broadcast against the output
-            to_sum = [d for d in range(inp.type.ndim)
-                      if inp.type.shape[d] == 1 and outs[0].type.shape[d] != 1]
-            if to_sum:
-                from aesara_tpu_torch.tensor.math import sum as tsum
-
-                gx = tsum(gx, axis=to_sum, keepdims=True)
-            if gx.type.dtype != inp.type.dtype and inp.type.dtype not in discrete_dtypes:
-                gx = cast(gx, inp.type.dtype)
-            rval.append(gx)
-        return rval
+        return [lift(s_igrad) for s_igrad in s_igrads]
 
     def perform(self, node, inputs, output_storage):
         check_static_broadcast([i.type.shape for i in node.inputs], [np.shape(i) for i in inputs])
@@ -213,6 +238,66 @@ class Elemwise(Op):
             results = (results,)
         for storage, r, o in zip(output_storage, results, node.outputs):
             storage[0] = to_host(r, o.type.dtype)
+
+    def R_op(self, inputs, eval_points):
+        """JVP of a pointwise op: sum_i (df/dx_i) * t_i.
+
+        The partials are taken at the OUTPUT shape (``_pointwise_igrads``,
+        i.e. *before* L_op's broadcast summation) — using L_op directly
+        would scale the JVP by the broadcast count for any broadcast
+        input (a (1,3) operand against a (4,3) output would contribute
+        4x its true tangent)."""
+        if all(ev is None for ev in eval_points):
+            return [None] * len(self(*inputs, return_list=True))
+        outputs = self(*inputs, return_list=True)
+        if len(outputs) != 1:
+            raise NotImplementedError(
+                "R_op for multi-output Elemwise is not implemented"
+            )
+        from aesara_tpu_torch.tensor.basic import ones_like
+
+        partials = self._pointwise_igrads(inputs, outputs, [ones_like(outputs[0])])
+        total = None
+        for pd, ev in zip(partials, eval_points):
+            if ev is None or pd is None:
+                continue
+            tname = type(getattr(pd, "type", None)).__name__
+            if tname in ("DisconnectedType",):
+                continue
+            if tname in ("NullType",):
+                raise NotImplementedError(
+                    f"R_op through non-differentiable input of {self}"
+                )
+            term = pd * ev
+            total = term if total is None else total + term
+        return [total]
+
+    def infer_shape(self, fgraph, node, input_shapes):
+        from aesara_tpu_torch.tensor.basic import constant
+
+        if len(node.inputs) == 1:
+            return [input_shapes[0]] * len(node.outputs)
+        out = []
+        for d in range(node.outputs[0].type.ndim):
+            # pick a dim known statically non-broadcastable if possible
+            chosen = None
+            for inp, ish in zip(node.inputs, input_shapes):
+                if inp.type.shape[d] is not None and inp.type.shape[d] != 1:
+                    chosen = ish[d]
+                    break
+            if chosen is None:
+                # static-only broadcasting (enforced on both paths): a
+                # runtime-1 dim with static None may NOT broadcast, so
+                # every input whose static dim isn't exactly 1 has the
+                # same runtime extent — any of them is the output's
+                nonb = [
+                    ish[d]
+                    for inp, ish in zip(node.inputs, input_shapes)
+                    if inp.type.shape[d] != 1
+                ]
+                chosen = nonb[0] if nonb else constant(1, dtype="int64")
+            out.append(chosen)
+        return [tuple(out)] * len(node.outputs)
 
 
 class CAReduce(Op):
@@ -281,3 +366,8 @@ class CAReduce(Op):
     def __str__(self):
         ax = "" if self.axis is None else f"{{axis={list(self.axis)}}}"
         return f"CAReduce{{{self.scalar_op}}}{ax}"
+
+    def infer_shape(self, fgraph, node, input_shapes):
+        (ishape,) = input_shapes
+        axes = self._normalized_axes(node.inputs[0].type.ndim)
+        return [tuple(s for d, s in enumerate(ishape) if d not in axes)]

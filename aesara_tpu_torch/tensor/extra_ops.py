@@ -316,6 +316,9 @@ class FillDiagonalOffset(Op):
             gval = cast(tsum(gval), val.type.dtype)
         return [ga, gval]
 
+    def infer_shape(self, fgraph, node, input_shapes):
+        return [input_shapes[0]]
+
 
 def diagonal_indices(shape, offset: int):
     """The row and column indices of diagonal ``offset`` of a matrix of

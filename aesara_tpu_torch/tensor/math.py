@@ -189,6 +189,11 @@ class Sum(CAReduce):
         ax = "" if self.axis is None else f"{{axis={list(self.axis)}}}"
         return f"Sum{ax}"
 
+    def R_op(self, inputs, eval_points):
+        if eval_points[0] is None:
+            return [None]
+        return self.make_node(eval_points[0]).outputs
+
 
 def sum(x, axis=None, dtype=None, keepdims=False, acc_dtype=None):
     x = as_tensor_variable(x)
@@ -459,6 +464,11 @@ class Argmax(Op):
     def __str__(self):
         return f"Argmax{{axis={self.axis}}}"
 
+    def infer_shape(self, fgraph, node, input_shapes):
+        (ishape,) = input_shapes
+        axes = self.axes(node.inputs[0].type.ndim)
+        return [tuple(s for d, s in enumerate(ishape) if d not in axes)]
+
 
 def argmax(x, axis=None, keepdims=False):
     x = as_tensor_variable(x)
@@ -503,6 +513,32 @@ class Dot(Op):
 
     def __str__(self):
         return "dot"
+    def R_op(self, inputs, eval_points):
+        x, y = inputs
+        ex, ey = eval_points
+        terms = []
+        if ex is not None:
+            terms.append(self(ex, y))
+        if ey is not None:
+            terms.append(self(x, ey))
+        if not terms:
+            return [None]
+        res = terms[0]
+        for t in terms[1:]:
+            res = add(res, t)
+        return [res]
+
+    def infer_shape(self, fgraph, node, input_shapes):
+        xs, ys = input_shapes
+        x, y = node.inputs
+        if x.type.ndim == 1 and y.type.ndim == 1:
+            return [()]
+        if x.type.ndim == 2 and y.type.ndim == 1:
+            return [(xs[0],)]
+        if x.type.ndim == 1 and y.type.ndim == 2:
+            return [(ys[1],)]
+        return [(xs[0], ys[1])]
+
 
 
 _dot = Dot()
@@ -575,6 +611,19 @@ class BatchedDot(Op):
 
     def __str__(self):
         return "batched_dot"
+
+    def R_op(self, inputs, eval_points):
+        # bilinear product rule: d(x·y)[vx, vy] = vx·y + x·vy
+        x, y = inputs
+        vx, vy = eval_points
+        terms = []
+        if vx is not None:
+            terms.append(batched_dot(vx, y))
+        if vy is not None:
+            terms.append(batched_dot(x, vy))
+        if not terms:
+            return [None]
+        return [terms[0] if len(terms) == 1 else add(*terms)]
 
 
 #: the einsum of each (x.ndim, y.ndim) case of BatchedDot

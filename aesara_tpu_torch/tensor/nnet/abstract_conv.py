@@ -213,12 +213,18 @@ class AbstractConv2dGradInputs(_ConvGradBase):
 
     wants = (True, False)
 
+    def infer_shape(self, fgraph, node, input_shapes):
+        return [input_shapes[2]]
+
 
 class AbstractConv2dGradWeights(_ConvGradBase):
     """The gradient with respect to the kernel: inputs (image, output
     cotangent, the kernel as its shape's template)."""
 
     wants = (False, True)
+
+    def infer_shape(self, fgraph, node, input_shapes):
+        return [input_shapes[2]]
 
 
 def conv2d(input, filters, input_shape=None, filter_shape=None, border_mode="valid", subsample=(1, 1),

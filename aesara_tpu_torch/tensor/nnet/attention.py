@@ -74,6 +74,9 @@ class FusedAttention(Op):
     def L_op(self, inputs, outputs, output_grads):
         return FusedAttentionGrad(self.causal)(*inputs, output_grads[0])
 
+    def infer_shape(self, fgraph, node, input_shapes):
+        return [input_shapes[0]]
+
 
 class FusedAttentionGrad(Op):
     """(q, k, v, dout) → (dq, dk, dv), the gradient of FusedAttention.  It
@@ -96,6 +99,9 @@ class FusedAttentionGrad(Op):
                                           1.0 / float(np.sqrt(q.shape[-1])))
         for storage, g, var in zip(output_storage, grads, node.outputs):
             storage[0] = to_host(g, var.type.dtype)
+
+    def infer_shape(self, fgraph, node, input_shapes):
+        return [input_shapes[0], input_shapes[1], input_shapes[2]]
 
 
 def fused_attention(q, k, v, causal: bool = False):

@@ -6,11 +6,8 @@
 - ``local_useless_dimshuffle``: an identity DimShuffle goes;
   ``local_dimshuffle_lift`` (canonicalize and specialize): a DimShuffle
   of a DimShuffle is one.
-- ``local_shape_i_lift``: ``Shape_i`` of a computed value becomes the
-  dim of the graph input it comes from (or a constant), the work the JAX
-  package's ShapeFeature and ``local_track_shape_i`` do;
-  ``local_shape_to_shape_i``: ``Shape`` (which ``Reshape``'s gradient
-  builds) becomes its dims.
+- the shape rewrites (``ShapeFeature``, ``local_track_shape_i``,
+  ``local_shape_to_shape_i``, ...) are in ``shape.py``.
 - ``local_mul_one`` and ``local_flatten_add_mul``: the neutral-element and
   flattening part of the algebraic canonicalizer.
 - ``local_reshape_chain``: a reshape of a reshape is one reshape;
@@ -41,13 +38,11 @@ from aesara_tpu_torch.graph.rewriting.basic import copy_stack_trace, node_rewrit
 from aesara_tpu_torch.graph.utils import MethodNotDefined
 from aesara_tpu_torch.scalar import ops as aes
 from aesara_tpu_torch.tensor.basic import (
-    MakeVector, NotScalarConstantError, Split, alloc, cast, constant, fill, get_scalar_constant_value,
+    NotScalarConstantError, Split, alloc, cast, constant, fill, get_scalar_constant_value,
 )
-from aesara_tpu_torch.tensor.elemwise import CAReduce, DimShuffle, Elemwise
-from aesara_tpu_torch.tensor.math import Dot, Sum, add, mul
-from aesara_tpu_torch.tensor.nnet.attention import FusedAttention, FusedAttentionGrad
-from aesara_tpu_torch.tensor.shape import Reshape, Shape, Shape_i, shape_tuple
-from aesara_tpu_torch.tensor.subtensor import AdvancedSubtensor1
+from aesara_tpu_torch.tensor.elemwise import DimShuffle, Elemwise
+from aesara_tpu_torch.tensor.math import Sum, add, mul
+from aesara_tpu_torch.tensor.shape import Reshape, Shape, shape_tuple
 
 
 def _const_val(var):
@@ -94,86 +89,6 @@ def local_useless_dimshuffle(fgraph, node):
     if node.op.new_order == tuple(range(node.op.input_ndim)):
         return [node.inputs[0]]
     return False
-
-
-def _lifted_dim(var, i):
-    """A variable equal to dim ``i`` of ``var``, built from the inputs of
-    the node that computes it, or None."""
-    node = var.owner
-    op, ins = node.op, node.inputs
-    if isinstance(op, Elemwise):
-        # static-only broadcasting: every input whose dim is not statically
-        # 1 has the output's extent; prefer one whose size is known
-        cands = [x for x in ins if x.type.shape[i] != 1]
-        known = [x for x in cands if x.type.shape[i] is not None]
-        src = (known or cands or [None])[0]
-        return None if src is None else (src, i)
-    if isinstance(op, DimShuffle):
-        d = op.new_order[i]
-        return None if d == "x" else (ins[0], d)
-    if isinstance(op, CAReduce):
-        axes = op._normalized_axes(ins[0].type.ndim)
-        kept = [d for d in range(ins[0].type.ndim) if d not in axes]
-        return ins[0], kept[i]
-    if isinstance(op, Dot):
-        x, y = ins
-        if x.type.ndim == 2 and i == 0:
-            return x, 0
-        return y, y.type.ndim - 1
-    if isinstance(op, FusedAttention):
-        return (ins[0], i) if i < 2 else (ins[2], 2)
-    if isinstance(op, FusedAttentionGrad):
-        # dq, dk, dv are shaped like q, k, v
-        return ins[var.index], i
-    if isinstance(op, AdvancedSubtensor1):
-        # x[ilist]: the rows of the index vector, the rest of x's dims
-        return (ins[1], 0) if i == 0 else (ins[0], i)
-    if isinstance(op, Reshape):
-        mk = ins[1].owner
-        if mk is not None and isinstance(mk.op, MakeVector):
-            el = mk.inputs[i]
-            if _const_val(el) is None or int(_const_val(el)) != -1:
-                return el
-    return None
-
-
-@node_rewriter([Shape_i])
-def local_shape_i_lift(fgraph, node):
-    """Shape_i of a static dim → constant; Shape_i of a computed value →
-    the same dim of the graph input it comes from, or a constant, where
-    the walk toward the inputs ends at one (as the JAX package's
-    ``local_track_shape_i`` replaces only with those final forms)."""
-    (x,) = node.inputs
-    i = node.op.i
-    if x.type.shape[i] is not None:
-        return [constant(x.type.shape[i], dtype="int64")]
-    lifted = (x, i)
-    while isinstance(lifted, tuple):
-        src, d = lifted
-        if src.type.shape[d] is not None:
-            return [constant(src.type.shape[d], dtype="int64")]
-        if src.owner is None:
-            break
-        lifted = _lifted_dim(src, d)
-        if lifted is None:
-            return False
-    if isinstance(lifted, tuple):
-        if src is x or src not in fgraph.inputs:
-            return False
-        res = Shape_i(d)(src)
-    else:
-        res = lifted
-        if not (isinstance(res, Constant) or (res.owner is not None and isinstance(res.owner.op, Shape_i)
-                                              and res.owner.inputs[0] in fgraph.inputs)):
-            return False
-    res = _keep_type(node.outputs[0], res)
-    return False if res is None else [copy_stack_trace(node.outputs[0], res)]
-
-
-@node_rewriter([Shape])
-def local_shape_to_shape_i(fgraph, node):
-    """Shape(x) → MakeVector of x's dims (constants where static)."""
-    return [MakeVector("int64")(*shape_tuple(node.inputs[0]))]
 
 
 @node_rewriter([DimShuffle])
@@ -312,8 +227,7 @@ def local_useless_reshape(fgraph, node):
     return False if res is None else [res]
 
 
-for _rw in (constant_folding, local_useless_dimshuffle, local_dimshuffle_lift,
-            local_shape_i_lift, local_shape_to_shape_i, local_mul_one, local_flatten_add_mul,
+for _rw in (constant_folding, local_useless_dimshuffle, local_dimshuffle_lift, local_mul_one, local_flatten_add_mul,
             local_reshape_chain, local_useless_reshape, local_reduce_broadcastable,
             local_fill_sink, local_useless_fill):
     register_canonicalize(_rw)

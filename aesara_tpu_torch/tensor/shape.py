@@ -44,6 +44,12 @@ class Shape(Op):
     def grad(self, inputs, output_grads):
         return _disconnected_grads(inputs)
 
+    def R_op(self, inputs, eval_points):
+        return [None]  # integer output: no tangent
+
+    def infer_shape(self, fgraph, node, input_shapes):
+        return [(node.inputs[0].type.ndim,)]
+
 
 def shape(x):
     return Shape()(x)
@@ -76,6 +82,12 @@ class Shape_i(Op):
 
     def __str__(self):
         return f"Shape_i{{{self.i}}}"
+
+    def R_op(self, inputs, eval_points):
+        return [None]  # integer output: no tangent
+
+    def infer_shape(self, fgraph, node, input_shapes):
+        return [()]
 
 
 def shape_i(x, i: int):
@@ -150,6 +162,41 @@ class Reshape(Op):
 
         x, _ = inputs
         return [reshape(output_grads[0], shape(x), ndim=x.type.ndim), disconnected_type()]
+
+    def R_op(self, inputs, eval_points):
+        # linear in the data input: re-apply on the tangent
+        if eval_points[0] is None:
+            return [None]
+        return self.make_node(eval_points[0], *inputs[1:]).outputs
+
+    def infer_shape(self, fgraph, node, input_shapes):
+        from aesara_tpu_torch.tensor.basic import cast as tcast, constant, switch
+        from aesara_tpu_torch.tensor.math import eq, true_div
+
+        xshape = input_shapes[0]
+        shp = node.inputs[1]
+        out = []
+        # total elements of input
+        if len(xshape):
+            total = xshape[0]
+            for s in xshape[1:]:
+                total = total * s
+        else:
+            total = constant(1, dtype="int64")
+        if self.ndim == 0:
+            return [()]
+        known_prod = constant(1, dtype="int64")
+        for d in range(self.ndim):
+            known_prod = known_prod * switch(eq(shp[d], -1), constant(1, dtype="int64"), shp[d])
+        for d in range(self.ndim):
+            out.append(
+                switch(
+                    eq(shp[d], -1),
+                    tcast(true_div(total, known_prod), "int64"),
+                    shp[d],
+                )
+            )
+        return [tuple(out)]
 
 
 def reshape(x, newshape, ndim: Optional[int] = None):
@@ -229,6 +276,24 @@ class SpecifyShape(Op):
 
         return [output_grads[0]] + [disconnected_type() for _ in inputs[1:]]
 
+    def R_op(self, inputs, eval_points):
+        # linear in the data input: re-apply on the tangent
+        if eval_points[0] is None:
+            return [None]
+        return self.make_node(eval_points[0], *inputs[1:]).outputs
+
+    def infer_shape(self, fgraph, node, input_shapes):
+        from aesara_tpu_torch.tensor.basic import constant
+
+        xshape = input_shapes[0]
+        out = []
+        for d, s in enumerate(node.outputs[0].type.shape):
+            if s is not None:
+                out.append(constant(s, dtype="int64"))
+            else:
+                out.append(xshape[d])
+        return [tuple(out)]
+
 
 def check_specified_shape(actual, shape) -> None:
     """Raise unless each dim of ``actual`` is its entry of ``shape`` (-1: any)."""
@@ -271,6 +336,14 @@ class Unbroadcast(Op):
 
     def grad(self, inputs, output_grads):
         return [specify_shape(output_grads[0], inputs[0].type.shape)]
+
+    def R_op(self, inputs, eval_points):
+        if eval_points[0] is None:
+            return [None]
+        return self.make_node(eval_points[0]).outputs
+
+    def infer_shape(self, fgraph, node, input_shapes):
+        return [input_shapes[0]]
 
 
 def unbroadcast(x, *axes):

@@ -54,6 +54,9 @@ class Softmax(Op):
     def __str__(self):
         return f"Softmax{{axis={self.axis}}}"
 
+    def infer_shape(self, fgraph, node, input_shapes):
+        return input_shapes
+
 
 class SoftmaxGrad(Op):
     """The vector-Jacobian product of softmax: sm · (dy − Σ dy·sm)."""
@@ -74,6 +77,9 @@ class SoftmaxGrad(Op):
 
     def __str__(self):
         return f"SoftmaxGrad{{axis={self.axis}}}"
+
+    def infer_shape(self, fgraph, node, input_shapes):
+        return [input_shapes[1]]
 
 
 def softmax(x, axis=-1):
@@ -106,6 +112,9 @@ class LogSoftmax(Op):
 
     def __str__(self):
         return f"LogSoftmax{{axis={self.axis}}}"
+
+    def infer_shape(self, fgraph, node, input_shapes):
+        return input_shapes
 
 
 def log_softmax(x, axis=-1):

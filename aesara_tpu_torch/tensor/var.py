@@ -1,11 +1,7 @@
 """``TensorVariable``: the NumPy-like operator surface (reference
-``aesara_tpu/tensor/var.py``).
-
-One deliberate difference: ``x.shape`` is a tuple of 0-d int64 variables
-(a constant for each static dim, ``Shape_i`` otherwise).  In the JAX
-package ``x.shape[i]`` builds ``Subtensor(Shape(x))``, which its
-canonicalizer rewrites to the same ``Shape_i``; the port builds the
-rewritten form directly.
+``aesara_tpu/tensor/var.py``).  ``x.shape`` is a ``Shape`` vector, as
+there: ``x.shape[i]`` builds ``Subtensor(Shape(x))``, which the
+canonicalizer rewrites to ``Shape_i`` or a constant.
 """
 
 from __future__ import annotations
@@ -96,11 +92,19 @@ class _tensor_operators:
 
         return tm.neg(self)
 
-    @property
-    def shape(self) -> tuple:
-        from aesara_tpu_torch.tensor.shape import shape_tuple
+    def __iter__(self):
+        if self.type.ndim == 0:
+            raise TypeError("iteration over a 0-d tensor")
+        n = self.type.shape[0]
+        if n is None:
+            raise TypeError("cannot iterate over a tensor with unknown leading dimension")
+        return iter(self[i] for i in range(n))
 
-        return shape_tuple(self)
+    @property
+    def shape(self):
+        from aesara_tpu_torch.tensor.shape import shape
+
+        return shape(self)
 
     @property
     def ndim(self) -> int:

@@ -22,6 +22,9 @@ serve the sparse-input models, all through ``aesara_tpu_torch.function``.
     python3 chip_smoke.py --ctc-random    # only the setup and path (k): CTC, the distributions, MRG31k3p
     python3 chip_smoke.py --fp16    # only the setup and path (l): bf16 and fp16 beyond PR 16
     python3 chip_smoke.py --api    # only the setup and path (m): the user API
+    python3 chip_smoke.py --graph-core    # only the setup and path (n): indexing, shapes, Rop, checkpoints
+    python3 chip_smoke.py --compile-times    # only each path's compile seconds (see compile_times)
+    python3 chip_smoke.py --step-times    # only (g1)-(g3), (i3), (l1a), (l1b)'s ms a call (see step_times)
     python3 chip_smoke.py --seed 3    # path (j)'s synthetic images from another seed (default 0)
 
 Every compiled function runs captured (``TorchLinker``'s default on the
@@ -321,8 +324,8 @@ m. (m) the user API (ROADMAP 6a).  (m1) ``examples/custom_op.py``'s
    ``SoftShrink`` Op, lowered by ``torch_funcify.register``, its value and
    gradient through ``function`` and the example's two assertions.  (m2)
    ``doc/tutorial.md``'s "Graphs", "Functions, shared state, updates" and
-   "Gradients" snippets at their own shapes, ``verify_grad`` included,
-   against the CPU at TRAIN_TOL.  (m3) config 3 built only through methods
+   "Gradients" snippets at their own shapes, ``verify_grad`` and ``Rop``
+   included, against the CPU at TRAIN_TOL.  (m3) config 3 built only through methods
    (``h.dot(W)``, ``.max``, ``.sum``, ``.mean``): path (e)'s op counts, its
    evaluation (log-softmax, K4; accuracy by ``argmax`` and ``astype``;
    ``max_and_argmax``; each weight's ``norm(2)``; ``isclose`` and
@@ -340,6 +343,28 @@ m. (m) the user API (ROADMAP 6a).  (m1) ``examples/custom_op.py``'s
    updates={w: 2 * w})`` returning the diagonal from before each update.
    K1 and K4 must launch; K1 on each of (m)'s Composites and K4 at (512,
    10) against their plain versions.
+n. (n) the rest of the graph core (ROADMAP 6b and 8).  (n1) fancy indexing
+   on config 3's features (16,384 x 784) and an (8, 1024, 1024) tensor, 256
+   indices: ``x[:, cols]``, ``x[rows, 100:356]``, ``t[i0, :, i1]`` (not
+   adjacent) and ``t[:, i0, i1]`` (adjacent), ``x[rows, 3]``, ``take`` and
+   ``roll`` along axis 1, a constant mask, ``set_subtensor(x[x < 0], 0)``
+   (a ``torch.where``, captured), ``x[x > 0.5]`` and ``x[:n]`` with ``n``
+   from data (eager, their blockers logged), each bitwise the CPU's and its
+   replay bitwise an eager twin's; ``inc_subtensor(x[:, cols], y)`` with
+   duplicated columns and its gradients within TRAIN_TOL of the CPU's
+   scale, the same bits over two calls.  (n2) ``Rop``: the tutorial's
+   line, the Gauss-Newton-vector product of config 3's MLP (784-512-512-10,
+   a minibatch of 512; the softmax is K4's) and Jv through config 4's
+   Elman RNN (T 128, B 128, H 128), each by the Lop-of-Lop construction
+   and by the ops' ``R_op`` (``Scan.R_op``), the two within TRAIN_TOL of
+   the scale and each of the CPU's, op counts, ms a call and capture
+   logged.  (n3) ``doc/scan.md``'s ``scan_checkpoints`` at config 4's
+   width: at T 128 and N 16 the BPTT gradient of the final state's mean
+   square against the plain scan's of path (f)'s config 4 build and the
+   CPU's (TRAIN_TOL of the scale); at T 1,024 and N 32 the step ms
+   and peak memory of both, the checkpointed peak the lower.  K1 and K4
+   must launch; K1 on each of (n)'s Composites (the Scan bodies' too) and
+   K4's softmax at (512, 10) against their plain versions.
 8. captured against eager: every path above (the forward request, the
    sgd and AdamW steps, the classifier step, ``predict`` of one request
    sent again, the GLM's sgd and adam steps, path (c) at width 20, config
@@ -357,7 +382,7 @@ m. (m) the user API (ROADMAP 6a).  (m1) ``examples/custom_op.py``'s
    captured run's profile is held to its launches as everywhere.
 
 The CPU's side of the card-vs-CPU checks of (d), (g1), (h1), (h3), (i1),
-(i3), (l1), (l2), (l3) and (m) is made in a spawned process of its own (CPU_REF_THREADS cores,
+(i3), (l1), (l2), (l3), (m) and (n) is made in a spawned process of its own (CPU_REF_THREADS cores,
 no CUDA) while the card runs the paths before them; it ends before the
 script.
 
@@ -379,7 +404,8 @@ mismatch counts against the plain versions (0), their times and bounds
 and, under ``torch_*_ms``, PyTorch's samplers of the same distributions;
 K1-K4 with their launches in each run of path (l), K2 and K3 with their
 checks at (l5)'s panels; K1 and K4 with their launches in path (m), K4 with
-its check at (m3)'s log-softmax) and the card's name and power limit; the last is
+its check at (m3)'s log-softmax; K1 and K4 with their launches in path (n),
+K4 with its check at (n2)'s softmax) and the card's name and power limit; the last is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -2747,7 +2773,8 @@ def build_scan_path(which, device: str, use_graph=None) -> dict:
     LSTM_NOUT)`` from seed 0 trained with ``adam(lr=LSTM_LR)`` on an input
     X (SCAN_T, SCAN_B, SCAN_DIN) and int32 labels from seed 5, with
     ``predict``.  A dict: ``step``, ``call`` (one step), ``loss`` (a
-    function giving the loss before a step), ``params``."""
+    function giving the loss before a step), ``params`` (and config 4's
+    states ``hs`` and its ``mode``, which (n3) takes its gradient of)."""
     import aesara_tpu_torch as ptp
     import aesara_tpu_torch.tensor as pt
     from aesara_tpu_torch.config import config
@@ -2772,7 +2799,8 @@ def build_scan_path(which, device: str, use_graph=None) -> dict:
             lr = np.asarray(SCAN_LR, f32)
             step = ptp.function([], ptp.Out(loss, borrow=True),
                                 updates={p: p - lr * g for p, g in zip(params, grads)}, mode=mode)
-            return dict(step=step, call=step, loss=ptp.function([], loss, mode=mode), params=params)
+            return dict(step=step, call=step, loss=ptp.function([], loss, mode=mode), params=params, hs=hs,
+                        mode=mode)
         model = LSTM(SCAN_DIN, SCAN_H, LSTM_NOUT, seed=0)
         X, y = pt.tensor3("X", dtype=f32), pt.ivector("y")
         loss = model.loss(X, y)
@@ -5586,9 +5614,10 @@ def run_m1() -> list:
 def m2_tutorial(device: str) -> tuple:
     """(m2) ``doc/tutorial.md``'s "Graphs", "Functions, shared state,
     updates" and "Gradients" snippets on ``device``, at their own shapes
-    (the gradient's target a matrix of ``dot(x, w)``'s shape; ``dprint``
-    and ``Rop`` wait for the port's items 15 and 8): their results on the
-    host, and the functions with their arguments."""
+    (the gradient's target a matrix of ``dot(x, w)``'s shape, ``Rop``'s
+    ``f_out`` the snippet's ``tanh(dot(x, w))`` and ``v`` a tangent of w;
+    ``dprint`` waits for the port's item 15): their results on the host,
+    and the functions with their arguments."""
     import aesara_tpu_torch as atp
     import aesara_tpu_torch.tensor as at
     from aesara_tpu_torch.config import config
@@ -5611,10 +5640,14 @@ def m2_tutorial(device: str) -> tuple:
         loss = ((at.dot(x, w) - target) ** 2).mean()
         gw = atp.grad(loss, w)
         grads = atp.function([x, target], [loss, gw])
+        v = at.matrix("v")
+        rop = atp.function([x, v], atp.Rop(out, w, v))
         w.set_value(rng.normal(size=(8, 4)).astype("float32"))
         res = [graphs(xa, ya), f(xb)] + [step(xb) for _ in range(3)] + [w.get_value()] + list(grads(xb, ta))
         atp.verify_grad(lambda m: at.tanh(m).sum(), [rng.standard_normal((3, 3))])
-    fns = [(graphs, [xa, ya]), (f, [xb]), (grads, [xb, ta])]
+        va = rng.normal(size=(8, 4)).astype("float32")
+        res.append(rop(xb, va))
+    fns = [(graphs, [xa, ya]), (f, [xb]), (grads, [xb, ta]), (rop, [xb, va])]
     return [np.asarray(_host(r)) for r in res], fns
 
 
@@ -5916,9 +5949,579 @@ def api_only():
     log("chip_smoke --api: path (m) passed")
 
 
+# ---------------------------------------------------------------------------
+# path (n): the rest of the graph core (ROADMAP 6b and 8) on the card
+# ---------------------------------------------------------------------------
+
+N_IDX = 256                    # (n1)'s index arrays: 256 columns, rows, (i0, i1) pairs
+N_CK_EVERY, N_CK_LONG_T, N_CK_LONG_EVERY = 16, 1024, 32
+N_TIMED = 5                    # calls timed back to back per (n2)/(n3) function
+
+
+def n_data(seed: int) -> dict:
+    """Path (n)'s inputs, from ``seed``: config 3's features at config 1's
+    rows (16,384 x 784, float32, as (m4)), an (8, 1024, 1024) tensor, index
+    arrays of N_IDX entries (the columns with duplicates), an increment of
+    (16,384, N_IDX), a vector whose positive count bounds a slice, and a
+    constant mask over the 784 columns."""
+    rng = np.random.default_rng(seed)
+    f32 = "float32"
+    return dict(features=rng.normal(size=(M_ROWS, REF_DIN)).astype(f32),
+                cube=rng.normal(size=M_ROLL).astype(f32),
+                cols=rng.integers(0, REF_DIN, size=N_IDX).astype("int64"),
+                rows=rng.integers(0, M_ROWS, size=N_IDX).astype("int64"),
+                i0=rng.integers(0, M_ROLL[0], size=N_IDX).astype("int64"),
+                i1=rng.integers(0, M_ROLL[2], size=N_IDX).astype("int64"),
+                j1=rng.integers(0, M_ROLL[1], size=N_IDX).astype("int64"),
+                inc=rng.normal(size=(M_ROWS, N_IDX)).astype(f32),
+                bound=rng.normal(size=4096).astype(f32),
+                mask=rng.random(REF_DIN) > 0.5)
+
+
+def n1_functions(device: str, use_graph=None) -> list:
+    """(n1)'s functions on ``device``: (label, function, argument names,
+    how its outputs are compared: "bitwise" or "fp32", whether it must
+    capture)."""
+    import aesara_tpu_torch as ptp
+    import aesara_tpu_torch.tensor as pt
+    from aesara_tpu_torch.config import config
+
+    mode = ptp.Mode(ptp.TorchLinker(device=device, use_graph=use_graph))
+    mask = n_data(SEED + 24)["mask"]
+    with config.change_flags(device=device, floatX="float32"):
+        x, t, inc, bound_v = pt.matrix("features"), pt.tensor3("cube"), pt.matrix("inc"), pt.vector("bound")
+        cols, rows, i0, i1, j1 = (pt.lvector(n) for n in ("cols", "rows", "i0", "i1", "j1"))
+        out = pt.inc_subtensor(x[:, cols], inc)
+        gx, gi = ptp.grad(pt.sum(out ** 2), [x, inc])
+
+        def fn(outs, *ins):
+            return ptp.function(list(ins), outs, mode=mode)
+
+        return [("x[:, cols]", fn(x[:, cols], x, cols), ["features", "cols"], "bitwise", True),
+                ("x[rows, 100:356]", fn(x[rows, 100:356], x, rows), ["features", "rows"], "bitwise", True),
+                ("t[i0, :, i1] (not adjacent)", fn(t[i0, :, i1], t, i0, i1), ["cube", "i0", "i1"], "bitwise", True),
+                ("t[:, j1, i1] (adjacent)", fn(t[:, j1, i1], t, j1, i1), ["cube", "j1", "i1"], "bitwise", True),
+                ("x[rows, 3]", fn(x[rows, 3], x, rows), ["features", "rows"], "bitwise", True),
+                ("take(x, cols, axis=1), roll(x, 7, axis=1)",
+                 fn([pt.take(x, cols, axis=1), pt.roll(x, 7, axis=1)], x, cols), ["features", "cols"], "bitwise",
+                 True),
+                ("inc_subtensor(x[:, cols], y) with duplicates, its gradients", fn([out, gx, gi], x, inc, cols),
+                 ["features", "inc", "cols"], "fp32", True),
+                ("x[x > 0.5]", fn(x[x > 0.5], x), ["features"], "bitwise", False),
+                ("set_subtensor(x[x < 0], 0)", fn(pt.set_subtensor(x[x < 0], 0.0), x), ["features"], "bitwise",
+                 True),
+                ("constant mask x[:, mask], set_subtensor(x[:, mask], 1)",
+                 fn([x[:, mask], pt.set_subtensor(x[:, mask], 1.0)], x), ["features"], "bitwise", True),
+                ("x[:n], n = (y > 0).sum()", fn(x[: (bound_v > 0).sum()], x, bound_v), ["features", "bound"],
+                 "bitwise", False)]
+
+
+def n_arguments(data: dict, names, device: str) -> list:
+    return [torch.from_numpy(np.ascontiguousarray(data[n])).to(device) for n in names]
+
+
+def n2_tutorial(device: str, use_op_rop: bool, use_graph=None):
+    """``doc/tutorial.md``'s ``atp.Rop(f_out, x, v)`` at the tutorial's
+    shapes (its ``tanh(dot(x, w))`` with x (16, 8) and w (8, 4)), v a
+    tangent of w: (function, arguments)."""
+    import aesara_tpu_torch as atp
+    import aesara_tpu_torch.tensor as at
+    from aesara_tpu_torch.config import config
+
+    rng = np.random.default_rng(SEED + 25)
+    mode = atp.Mode(atp.TorchLinker(device=device, use_graph=use_graph))
+    with config.change_flags(device=device, floatX="float32"):
+        x, v = at.matrix("x"), at.matrix("v")
+        w = atp.shared(rng.normal(size=(8, 4)).astype("float32"), name="w")
+        f_out = at.tanh(at.dot(x, w))
+        f = atp.function([x, v], atp.Rop(f_out, w, v, use_op_rop=use_op_rop), mode=mode)
+    return f, [rng.normal(size=(16, 8)).astype("float32"), rng.normal(size=(8, 4)).astype("float32")]
+
+
+def n2_gnv(device: str, use_op_rop: bool, use_graph=None):
+    """The Gauss-Newton-vector product of config 3's MLP (784-512-512-10,
+    float32, the weights drawn as ``build_reference(3)`` draws them) on a
+    minibatch of 512: Jv = Rop(logits, params, vs), times the softmax
+    cross-entropy's output Hessian (diag(p) - p p^T) / n as elementwise
+    ops (p by the Softmax op: K4), then Lop(logits, params, .):
+    (function, arguments)."""
+    import aesara_tpu_torch as ptp
+    import aesara_tpu_torch.tensor as pt
+    from aesara_tpu_torch.config import config
+
+    mode = ptp.Mode(ptp.TorchLinker(device=device, use_graph=use_graph))
+    rng = np.random.default_rng(0)
+    f32 = "float32"
+    sizes = [(REF_DIN, REF_H), (REF_H, REF_H), (REF_H, REF_DOUT)]
+    with config.change_flags(device=device, floatX=f32):
+        x = pt.matrix("x")
+        ws = [ptp.shared((rng.normal(size=s) * (1.0 / np.sqrt(s[0]))).astype(f32)) for s in sizes]
+        bs = [ptp.shared(np.zeros(s[1], dtype=f32)) for s in sizes]
+        h = x
+        for i, (wi, bi) in enumerate(zip(ws, bs)):
+            h = pt.dot(h, wi) + bi
+            if i < 2:
+                h = pt.tanh(h)
+        params = ws + bs
+        vs = [pt.matrix(f"v{k}") for k in range(3)] + [pt.vector(f"u{k}") for k in range(3)]
+        jv = ptp.Rop(h, params, vs, use_op_rop=use_op_rop)
+        p = pt.softmax(h)
+        hjv = (p * jv - p * (p * jv).sum(axis=1, keepdims=True)) / np.float32(REF_B)
+        gv = ptp.Lop(h, params, hjv)
+        f = ptp.function([x] + vs, gv, mode=mode)
+    trng = np.random.default_rng(SEED + 26)
+    args = [trng.normal(size=(REF_B, REF_DIN)).astype(f32)]
+    args += [trng.normal(size=s).astype(f32) for s in sizes] + [trng.normal(size=s[1]).astype(f32) for s in sizes]
+    return f, args
+
+
+def n2_elman(device: str, use_op_rop: bool, use_graph=None):
+    """Jv of every hidden state of config 4's Elman RNN (T 128, B 128, H
+    128, Din 64, float32, built and drawn as ``build_scan_path("config4")``
+    builds it) with respect to (Wx, Wh, b): with ``use_op_rop`` through
+    ``Scan.R_op``: (function, arguments)."""
+    import aesara_tpu_torch as ptp
+    import aesara_tpu_torch.tensor as pt
+    from aesara_tpu_torch.config import config
+    from aesara_tpu_torch.scan import scan
+
+    mode = ptp.Mode(ptp.TorchLinker(device=device, use_graph=use_graph))
+    f32 = "float32"
+    with config.change_flags(device=device, floatX=f32):
+        rng = np.random.default_rng(0)
+        x = ptp.shared(rng.normal(size=(SCAN_T, SCAN_B, SCAN_DIN)).astype(f32), name="x")
+        wx = ptp.shared((rng.normal(size=(SCAN_DIN, SCAN_H)) * 0.1).astype(f32))
+        wh = ptp.shared((rng.normal(size=(SCAN_H, SCAN_H)) * 0.1).astype(f32))
+        bh = ptp.shared(np.zeros(SCAN_H, dtype=f32))
+        h0 = pt.zeros((SCAN_B, SCAN_H), dtype=f32)
+        hs, _ = scan(lambda xt, htm1: pt.tanh(pt.dot(xt, wx) + pt.dot(htm1, wh) + bh), sequences=[x],
+                     outputs_info=[h0])
+        vs = [pt.matrix("vx"), pt.matrix("vh"), pt.vector("vb")]
+        f = ptp.function(vs, ptp.Rop(hs, [wx, wh, bh], vs, use_op_rop=use_op_rop), mode=mode)
+    trng = np.random.default_rng(SEED + 27)
+    return f, [trng.normal(size=(SCAN_DIN, SCAN_H)).astype(f32), trng.normal(size=(SCAN_H, SCAN_H)).astype(f32),
+               trng.normal(size=SCAN_H).astype(f32)]
+
+
+def n3_grads(device: str, T: int, every: int, use_graph=None):
+    """``doc/scan.md``'s ``scan_checkpoints(fn, sequences=[X],
+    save_every_N=every)`` at config 4's width (B 128, H 128, Din 64,
+    float32), its X, Wx, Wh, b drawn as ``build_scan_path("config4")``
+    draws them at T steps, and the BPTT gradient of the final state's mean
+    square with respect to (Wx, Wh, b); with ``every`` 0 the plain scan's.
+    Config 4's second term, the mean square over every state, needs all the
+    states, which the checkpointed scan does not keep: (n3) takes the
+    final-state term.  (function, the loss and the three gradients)."""
+    import aesara_tpu_torch as ptp
+    import aesara_tpu_torch.tensor as pt
+    from aesara_tpu_torch.config import config
+    from aesara_tpu_torch.scan import scan
+
+    mode = ptp.Mode(ptp.TorchLinker(device=device, use_graph=use_graph))
+    f32 = "float32"
+    with config.change_flags(device=device, floatX=f32):
+        rng = np.random.default_rng(0)
+        X = ptp.shared(rng.normal(size=(T, SCAN_B, SCAN_DIN)).astype(f32), name="X")
+        wx = ptp.shared((rng.normal(size=(SCAN_DIN, SCAN_H)) * 0.1).astype(f32))
+        wh = ptp.shared((rng.normal(size=(SCAN_H, SCAN_H)) * 0.1).astype(f32))
+        bh = ptp.shared(np.zeros(SCAN_H, dtype=f32))
+        h0 = pt.zeros((SCAN_B, SCAN_H), dtype=f32)
+
+        def fn(xt, htm1, wxx, whh, bb):
+            return pt.tanh(pt.dot(xt, wxx) + pt.dot(htm1, whh) + bb)
+
+        if every:
+            out, _ = ptp.scan_checkpoints(fn, sequences=[X], outputs_info=h0, non_sequences=[wx, wh, bh],
+                                          save_every_N=every)
+        else:
+            out, _ = scan(fn, sequences=[X], outputs_info=[h0], non_sequences=[wx, wh, bh])
+        loss = pt.mean(out[-1] ** 2)
+        return ptp.function([], [loss] + ptp.grad(loss, [wx, wh, bh]), mode=mode)
+
+
+def n3_plain(device: str):
+    """The plain BPTT gradient (n3)'s T 128 checkpointed one is held to:
+    path (f)'s own config 4 build (``build_scan_path("config4")``, its
+    shared x, Wx, Wh, b and its scan), with the loss ``n3_grads`` takes,
+    the final state's mean square (config 4's second term needs every
+    state, which the checkpointed scan does not keep).  A function giving
+    the loss and the three gradients."""
+    import aesara_tpu_torch as ptp
+    import aesara_tpu_torch.tensor as pt
+    from aesara_tpu_torch.config import config
+
+    built = build_scan_path("config4", device)
+    with config.change_flags(device=device, floatX="float32"):
+        loss = pt.mean(built["hs"][-1] ** 2)
+        return ptp.function([], [loss] + ptp.grad(loss, built["params"]), mode=built["mode"])
+
+
+def n_cpu_reference() -> dict:
+    """Path (n)'s CPU side, made in ``cpu_reference``'s process: (n1)'s
+    results (a digest of each bitwise one, the values of the fp32 one),
+    (n2)'s products by both constructions, and (n3)'s T 128 gradients,
+    checkpointed and plain."""
+    t0 = time.perf_counter()
+    data = n_data(SEED + 24)
+    refs = {"n1": {}}
+    for label, fn, names, how, _ in n1_functions("cpu"):
+        outs = fn(*n_arguments(data, names, "cpu"))
+        outs = [np.asarray(_host(v)) for v in (outs if isinstance(outs, (list, tuple)) else [outs])]
+        refs["n1"][label] = outs if how == "fp32" else [digest(o) for o in outs]
+    for name, build in (("tutorial", n2_tutorial), ("gnv", n2_gnv), ("elman", n2_elman)):
+        for use_op in (False, True):
+            f, args = build("cpu", use_op)
+            outs = f(*args)
+            refs[(name, use_op)] = [np.asarray(_host(v)) for v in (outs if isinstance(outs, (list, tuple)) else [outs])]
+    for every in (N_CK_EVERY, 0):
+        f = n3_grads("cpu", SCAN_T, every) if every else n3_plain("cpu")
+        refs[("n3", every)] = [np.asarray(_host(v)) for v in f()]
+    refs["seconds"] = time.perf_counter() - t0
+    return refs
+
+
+def n_same_bits(label: str, got, want):
+    for g, w in zip(got, want):
+        g, w = np.asarray(g), np.asarray(w)
+        if g.dtype != w.dtype or g.shape != w.shape or not np.array_equal(g, w, equal_nan=True):
+            raise AssertionError(f"{label}: the captured replay is not bitwise its eager twin's")
+
+
+def n_outputs(fn, args) -> list:
+    outs = fn(*args)
+    return [np.asarray(_host(v)) for v in (outs if isinstance(outs, (list, tuple)) else [outs])]
+
+
+def run_n1(refs: dict) -> list:
+    """(n1): each function on the card (eager, capture, replay) against its
+    eager twin (``use_graph=False``, bitwise) and the CPU (bitwise, or the
+    fp32 gate of the result's scale for the inc with duplicates and its
+    gradients, whose two calls on the card give the same bits); whether
+    it captures is logged and checked."""
+    data = n_data(SEED + 24)
+    fns = []
+    twins = {label: fn for label, fn, *_ in n1_functions("cuda", use_graph=False)}
+    for label, fn, names, how, captures in n1_functions("cuda"):
+        args = n_arguments(data, names, "cuda")
+        calls = [n_outputs(fn, args) for _ in range(3)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(*args)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        twin = n_outputs(twins[label], args)
+        n_same_bits(f"(n1) {label}", calls[-1], twin)
+        want = refs["n1"][label]
+        if how == "fp32":
+            n_same_bits(f"(n1) {label}: two calls on the card", calls[-1], calls[-2])
+            err = 0.0
+            for g, w in zip(calls[-1], want):
+                scale = float(np.abs(w).max())
+                err = max(err, float(np.abs(g.astype("float64") - w).max()) / scale)
+                if err > TRAIN_TOL:
+                    raise AssertionError(f"(n1) {label}: {err} of the scale from the CPU's (gate {TRAIN_TOL})")
+            what = (f"within {err:.3e} of the CPU's scale (gate {TRAIN_TOL}); two calls on the card give the "
+                    "same bits")
+        else:
+            got = [digest(o) for o in calls[-1]]
+            if got != want:
+                raise AssertionError(f"(n1) {label}: {got} vs the CPU's {want}")
+            what = "bitwise the CPU's: " + ", ".join(f"{d[1]} {d[0]}" for d in got)
+        how_run = "captured" if fn.captured else f"eager ({fn.capture_blocker})"
+        log(f"(n1) {label}: {what}; replay bitwise its eager twin; {ms:.3f} ms a call (host clock), last call "
+            f"{how_run}")
+        if fn.captured != captures:
+            raise AssertionError(f"(n1) {label}: captured {fn.captured}, expected {captures}")
+        fns.append((fn, args))
+    del twins
+    return fns
+
+
+def n_scale_gate(label: str, got, want, tol: float = TRAIN_TOL) -> float:
+    """Raise unless each of ``got`` lies within ``tol`` of ``want``'s scale
+    (its largest |value|); the largest error relative to it."""
+    worst = 0.0
+    for g, w in zip(got, want):
+        g, w = np.asarray(g, dtype="float64"), np.asarray(w, dtype="float64")
+        if g.shape != w.shape:
+            raise AssertionError(f"{label}: shape {g.shape} against {w.shape}")
+        scale = max(float(np.abs(w).max()), 1e-30)
+        err = float(np.abs(g - w).max()) / scale
+        worst = max(worst, err)
+        if not err <= tol:
+            raise AssertionError(f"{label}: {err:.3e} of the scale {scale:.3e} (gate {tol})")
+    return worst
+
+
+def n_op_counts(fn) -> str:
+    from collections import Counter
+
+    names = Counter(type(n.op).__name__ for n in fn.maker.fgraph.toposort())
+    return f"{sum(names.values())} nodes ({', '.join(f'{k} {v}' for k, v in sorted(names.items()))})"
+
+
+def run_n2(refs: dict) -> list:
+    """(n2): the tutorial's Rop, the Gauss-Newton-vector product of config
+    3's MLP and config 4's Jv, each by both constructions: the two agree
+    within TRAIN_TOL of the result's scale, each agrees with the CPU's
+    within the same gate, each captured replay is bitwise its eager twin;
+    op counts, ms a call and capture are logged."""
+    fns = []
+    for name, build in (("tutorial", n2_tutorial), ("gnv", n2_gnv), ("elman", n2_elman)):
+        results = {}
+        for use_op in (False, True):
+            t0 = time.perf_counter()
+            f, args = build("cuda", use_op)
+            twin, _ = build("cuda", use_op, use_graph=False)
+            compile_s = time.perf_counter() - t0
+            args = [torch.from_numpy(a).cuda() for a in args]
+            calls = [n_outputs(f, args) for _ in range(3)]
+            n_same_bits(f"(n2) {name} use_op_rop={use_op}", calls[-1], n_outputs(twin, args))
+            err = n_scale_gate(f"(n2) {name} use_op_rop={use_op} against the CPU", calls[-1], refs[(name, use_op)])
+            ms = call_ms(lambda: f(*args), reps=N_TIMED, warmup=1)
+            how_run = "captured" if f.captured else f"eager ({f.capture_blocker})"
+            log(f"(n2) {name} Rop use_op_rop={use_op}: {n_op_counts(f)}; compile (both twins) {compile_s:.2f} s; "
+                f"{ms:.3f} ms a call; last call {how_run}, replay bitwise its eager twin; within {err:.3e} of "
+                f"the CPU's scale (gate {TRAIN_TOL})")
+            results[use_op] = calls[-1]
+            fns.append((f, args))
+            del twin
+        err = n_scale_gate(f"(n2) {name}: the two constructions", results[True], results[False])
+        log(f"(n2) {name}: the Lop-of-Lop and the R_op constructions agree within {err:.3e} of the scale "
+            f"(gate {TRAIN_TOL})")
+    return fns
+
+
+def run_n3(refs: dict) -> dict:
+    """(n3): at T 128 and N 16 the checkpointed BPTT gradient against the
+    plain scan's of path (f)'s own config 4 build (``n3_plain``) on the
+    card (within TRAIN_TOL of the scale: a segment's gradient sums in its
+    inner scan, then the segments' in the outer one, so the sums run in
+    another order than the plain scan's) and each against
+    the CPU's; at T 1,024 and N 32 the step ms and peak device memory of
+    both, in one run, the checkpointed peak below the plain one."""
+    grads = {}
+    fns = []
+    for every in (N_CK_EVERY, 0):
+        f = n3_grads("cuda", SCAN_T, every) if every else n3_plain("cuda")
+        grads[every] = [n_outputs(f, []) for _ in range(3)][-1]
+        err = n_scale_gate(f"(n3) T {SCAN_T} every {every} against the CPU", grads[every], refs[("n3", every)])
+        log(f"(n3) T {SCAN_T}, save_every_N {every or 'plain scan'}: loss {float(grads[every][0]):.6f}, within "
+            f"{err:.3e} of the CPU's scale; last call {'captured' if f.captured else f.capture_blocker}")
+        fns.append((f, []))
+    bitwise = all(np.array_equal(a, b) for a, b in zip(grads[N_CK_EVERY], grads[0]))
+    err = n_scale_gate(f"(n3) T {SCAN_T}: checkpointed against plain", grads[N_CK_EVERY], grads[0])
+    log(f"(n3) T {SCAN_T}: the checkpointed gradient {'is bitwise' if bitwise else 'is not bitwise'} the plain "
+        f"scan's; within {err:.3e} of the scale (gate {TRAIN_TOL})")
+    long = {}
+    for every in (N_CK_LONG_EVERY, 0):
+        release()
+        # the peak of an eager call above what was allocated before it: a
+        # captured call's buffers live in its graph's pool, made once
+        eager = n3_grads("cuda", N_CK_LONG_T, every, use_graph=False)
+        eager()
+        torch.cuda.synchronize()
+        reset_peak()
+        base = torch.cuda.memory_allocated()
+        eager()
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+        del eager
+        release()
+        f = n3_grads("cuda", N_CK_LONG_T, every)
+        ms = call_ms(f, reps=N_TIMED, warmup=2)
+        long[every] = dict(ms=ms, peak_mib=peak, captured=f.captured)
+        log(f"(n3) T {N_CK_LONG_T}, save_every_N {every or 'plain scan'}: {ms:.3f} ms a gradient step (last call "
+            f"{'captured' if f.captured else f.capture_blocker}); peak device memory of an eager step above what it "
+            f"was given {peak:.1f} MiB, on {card_line()}")
+        del f
+    if not long[N_CK_LONG_EVERY]["peak_mib"] < long[0]["peak_mib"]:
+        raise AssertionError(f"(n3) the checkpointed peak {long[N_CK_LONG_EVERY]} is not below the plain scan's "
+                             f"{long[0]}")
+    return dict(t128_err=err, t128_bitwise=bitwise, long=long, fns=fns)
+
+
+def scan_body_composites(program) -> list:
+    """The Composite nodes of the inner programs of a program's Scans, at
+    any depth (a checkpointed scan nests one in another)."""
+    from aesara_tpu_torch.scalar.composite import Composite
+
+    out = []
+    for node, fn_, fold in zip(program.order, program.fns, program.folds):
+        if type(node.op).__name__ == "Scan":
+            inner = fn_.program
+            out += [n for n, f in zip(inner.order, inner.folds)
+                    if not f and isinstance(getattr(n.op, "scalar_op", None), Composite)]
+            out += scan_body_composites(inner)
+    return out
+
+
+def phase_n(refs=None) -> dict:
+    """Path (n): (n1)-(n3) (see the module docstring), the launches of K1
+    and K4 in the run, K1 on each of (n)'s Composites against its plain
+    version and K4 at the MLP's softmax (512, 10)."""
+    t_path = time.perf_counter()
+    refs = refs or cpu_reference("n")
+    zero_counters()
+    n1 = run_n1(refs)
+    n2 = run_n2(refs)
+    n3 = run_n3(refs)
+    counters = _all_counters()
+    launches = {k: c.launches + c.replayed for k, c in counters.items()}
+    plain = sum(c.plain_calls for c in counters.values())
+    log(f"(n) launches and replays in the path: {launches}; plain calls {plain}")
+    if plain:
+        raise AssertionError(f"(n): {plain} calls of a plain version on the card")
+    for k in ("K1", "K4"):
+        if not launches[k]:
+            raise AssertionError(f"(n) the path launched no {k}")
+    nodes, shapes = [], {}
+    for fn, args in n1 + n2 + n3["fns"]:
+        if composite_nodes(fn):
+            ran = composite_shapes(fn, args)
+            nodes += [n for n in composite_nodes(fn) if n in ran]
+            shapes.update(ran)
+    rows = check_composites(nodes, "(n)", np.random.default_rng(33), shapes=shapes)
+    inner = [n for fn, _ in n2 + n3["fns"] for n in scan_body_composites(fn.fn.program)]
+    rows += check_composites(inner, "(n) Scan bodies", np.random.default_rng(34), full=(SCAN_T, SCAN_B, SCAN_H))
+    k4 = check_k4(torch.randn((REF_B, REF_DOUT), device="cuda",
+                              generator=torch.Generator(device="cuda").manual_seed(24)) * 3, log_softmax=False)
+    seconds = time.perf_counter() - t_path
+    log(f"(n) the graph core: {seconds:.2f} s")
+    del n1, n2
+    release()
+    return dict(launches=launches, composites=rows, k4=k4, seconds=seconds, n3=n3["long"], t128_err=n3["t128_err"],
+                t128_bitwise=n3["t128_bitwise"])
+
+
+def graph_core_only():
+    """--graph-core: the setup and path (n) alone."""
+    phase_setup()
+    start_cpu_references("n")
+    phase_n()
+    stop_cpu_references()
+    log("chip_smoke --graph-core: path (n) passed")
+
+
+def compile_times():
+    """--compile-times: the seconds ``function()`` takes (graph, gradient,
+    rewrites and link; no call) for each path's main function on the card,
+    each compiled twice and the second read (the first also imports and
+    warms up).  It builds no kernel and runs no step, so it runs unchanged
+    in a checkout of an earlier version of the port: copy this file there
+    and run both in one call to compare their rewrite pipelines."""
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
+    set_cudnn_for_convolutions()
+    log(f"card: {card_line()}; torch {torch.__version__}")
+
+    def decoder_greedy():
+        return build_decoder("cuda").generate_fn(n_steps=DEC_STEPS, t_max=DEC_T_MAX, mode=decoder_mode())
+
+    builds = {"(2) encoder forward": lambda: compile_encoder("cuda"),
+              "(4) encoder train step": lambda: build_train_step("cuda"),
+              "(e) config 1": lambda: build_reference(1, "cuda"),
+              "(e) config 2": lambda: build_reference(2, "cuda"),
+              "(e) config 3": lambda: build_reference(3, "cuda"),
+              "(e) MLP": lambda: build_reference("mlp", "cuda"),
+              "(f) config 4": lambda: build_scan_path("config4", "cuda"),
+              "(f) LSTM": lambda: build_scan_path("lstm", "cuda"),
+              "(g1) decoder greedy generate_fn": decoder_greedy,
+              "(j) conv net": lambda: build_convnet("cuda", fns=("step",)),
+              "(i3) decoder train step": lambda: build_lm_train("cuda")}
+    rows = {}
+    for label, build in builds.items():
+        times = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            built = build()
+            times.append(time.perf_counter() - t0)
+            del built
+            release()
+        rows[label] = times[-1]
+        log(f"compile {label}: {times[-1]:.2f} s (first {times[0]:.2f} s)")
+    log(f"compile times: {json.dumps(rows)}")
+    log("chip_smoke --compile-times: done")
+
+
+def fancy_nodes(fn) -> dict:
+    """{op class: nodes} of the fancy-index ops in ``fn``'s program and its
+    inner programs (a Scan's body counted once)."""
+    from collections import Counter
+
+    counts = Counter()
+
+    def walk(program):
+        for node, fn_ in zip(program.order, program.fns):
+            if type(node.op).__name__.startswith("Advanced"):
+                counts[type(node.op).__name__] += 1
+            if getattr(fn_, "program", None) is not None:
+                walk(fn_.program)
+
+    walk(fn.fn.program)
+    return dict(counts)
+
+
+def step_times():
+    """--step-times: the ms a call of the main-path functions whose graphs
+    hold the fancy-index ops (the embedding's read of a token vector, and
+    in the train step its gradient), and of (g1)'s and (l1a)'s greedy
+    decodes, which read a scalar token (a ``Subtensor``) and hold none:
+    (g1)-(g3), (i3)'s train step, (l1a) and (l1b), each captured and
+    replayed (``call_ms``: CUDA events around a call, the median of the
+    timed calls after 3 warm ones).  It checks nothing against the CPU and
+    builds only what the three functions launch, so it runs unchanged in a
+    checkout of an earlier version of the port: copy this file there and
+    run the two in turns (parent, change, change, parent) in one call."""
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
+    log(f"card: {card_line()}; torch {torch.__version__}")
+    first = np.int64(DEC_FIRST)
+    rows = {}
+
+    def row(label, fn, call, reps, tokens):
+        ms = call_ms(call, reps=reps, warmup=3)
+        rows[label] = dict(ms=ms, tok_s=tokens / ms * 1e3, captured=fn.captured, fancy=fancy_nodes(fn))
+        log(f"step times {label}: {ms:.4f} ms a call, {tokens / ms * 1e3:.1f} tokens/s, last call "
+            f"{'replayed' if fn.captured else fn.capture_blocker}; fancy-index nodes {rows[label]['fancy']}")
+
+    firsts, prompt = np.arange(DEC_BATCH, dtype="int64"), l_prompt()
+    lm = build_decoder("cuda")
+    fns = {"g1": lm.generate_fn(n_steps=DEC_STEPS, t_max=DEC_T_MAX, mode=decoder_mode()),
+           "g2": lm.generate_from_prompt_fn(prompt_len=DEC_PROMPT, n_new=DEC_NEW, t_max=DEC_T_MAX,
+                                            mode=decoder_mode()),
+           "g3": lm.generate_batched_fn(batch=DEC_BATCH, n_steps=DEC_STEPS, t_max=DEC_T_MAX, mode=decoder_mode())}
+    row("(g1) greedy decode", fns["g1"], lambda: fns["g1"](first), 7, DEC_STEPS)
+    row("(g2) prompt prefill + decode", fns["g2"], lambda: fns["g2"](prompt), 7, DEC_PROMPT)
+    row("(g3) batched decode", fns["g3"], lambda: fns["g3"](firsts), 7, DEC_BATCH * DEC_STEPS)
+    del lm, fns
+    release()
+    _, _, train = build_lm_train("cuda")
+    tokens = train_rows()[0]
+    row("(i3) train step", train, lambda: train(tokens), 21, TRAIN_ROW_LEN - 1)
+    del train
+    release()
+    from aesara_tpu_torch.config import config
+
+    lm = build_decoder("cuda", floatX="bfloat16")
+    with config.change_flags(floatX="bfloat16"):
+        fns = {"l1a": lm.generate_fn(n_steps=DEC_STEPS, t_max=DEC_T_MAX, mode="FAST_RUN"),
+               "l1b": lm.generate_batched_fn(batch=DEC_BATCH, n_steps=DEC_STEPS, t_max=DEC_T_MAX, mode="FAST_RUN")}
+    row("(l1a) bf16 greedy decode", fns["l1a"], lambda: fns["l1a"](first), 7, DEC_STEPS)
+    row("(l1b) bf16 batched decode", fns["l1b"], lambda: fns["l1b"](firsts), 7, DEC_BATCH * DEC_STEPS)
+    log(f"step times: {json.dumps(rows)}")
+    log("chip_smoke --step-times: done")
+
+
 CPU_REF_JOBS = {"adamw": adamw_cpu_reference, "decoder": cpu_decoder_references, "bf16": bf16_cpu_reference,
                 "lm_train": lm_train_cpu_reference, "ctc": ctc_cpu_reference, "l": l_cpu_reference,
-                "m": m_cpu_reference}
+                "m": m_cpu_reference, "n": n_cpu_reference}
 
 
 # ---------------------------------------------------------------------------
@@ -6782,7 +7385,8 @@ def main():
              "--k4-k7-times": k4_k7_times, "--loop-times": loop_times, "--mrg-times": mrg_times,
              "--reference": reference_only, "--scan": scan_only, "--decoder": decoder_only,
              "--decoder-sampling": decoder_sampling_only, "--bf16": bf16_only, "--convnet": convnet_only,
-             "--ctc-random": ctc_random_only, "--fp16": fp16_only, "--api": api_only}
+             "--ctc-random": ctc_random_only, "--fp16": fp16_only, "--api": api_only,
+             "--graph-core": graph_core_only, "--compile-times": compile_times, "--step-times": step_times}
     args = sys.argv[1:]
     if "--seed" in args:
         at = args.index("--seed")
@@ -6796,7 +7400,7 @@ def main():
         raise SystemExit(f"chip_smoke: unknown arguments {args}")
     start = time.perf_counter()
     smi = phase_setup()
-    start_cpu_references("adamw", "decoder", "bf16", "lm_train", "ctc", "l", "m")
+    start_cpu_references("adamw", "decoder", "bf16", "lm_train", "ctc", "l", "m", "n")
     log(f"setup (builds and first launches): {time.perf_counter() - start:.2f} s")
     t_path = time.perf_counter()
     t0 = time.perf_counter()
@@ -6864,6 +7468,7 @@ def main():
     path_l = phase_l(attention_l, bf16["i2"]["arms"][False])
     log(f"(l) bf16 and fp16 beyond PR 16: {time.perf_counter() - t0:.2f} s")
     path_m = phase_m()
+    path_n = phase_n()
     t0 = time.perf_counter()
     phase_capture(lr["data"], glm_xyw)
     log(f"captured-vs-eager phase: {time.perf_counter() - t0:.2f} s")
@@ -6977,6 +7582,9 @@ def main():
     k1_l_16 = max(row["max_abs_err"] for row in path_l["l1"]["composites"] + path_l["l2"]["composites"])
     # path (m): K1 and K4 launches in its run, K1 on its Composites, K4 at (m3)'s log-softmax
     k1["max_abs_err"] = max([k1["max_abs_err"]] + [row["max_abs_err"] for row in path_m["composites"]])
+    # path (n): K1 and K4 launches in its run, K1 on its Composites (the Scan bodies' too), K4 at the
+    # Gauss-Newton product's softmax
+    k1["max_abs_err"] = max([k1["max_abs_err"]] + [row["max_abs_err"] for row in path_n["composites"]])
     attention_l_rows = {k: {f"{dt} {'x'.join(map(str, shape))}": r[k] for (dt, shape), r in path_l["l5"].items()}
                         for k in ("K2", "K3")}
     kernels = [
@@ -6985,7 +7593,8 @@ def main():
              path_g_launches=path_g["K1"], path_h_launches=path_h["K1"], path_i_launches=path_i["K1"],
              path_i_bf16=k1_bf16, path_j_launches=path_j["K1"], path_k_launches=path_k["K1"],
              path_l_launches=path_l_launches["K1"], path_l_fp16_max_rel_err=path_l["l3"]["k1_rel"],
-             path_l_bf16_max_abs_err=k1_l_16, path_m_launches=path_m["launches"]["K1"]),
+             path_l_bf16_max_abs_err=k1_l_16, path_m_launches=path_m["launches"]["K1"],
+             path_n_launches=path_n["launches"]["K1"]),
         dict(kernel_line("K2 flash attention forward", "cuda", K2_SOURCE, K2_REPLACES, "K2", train, k2),
              adamw_launches=adamw["launches"]["K2"], path_i_launches=path_i["K2"], path_i_bf16=attention_i["K2"],
              path_l_launches=path_l_launches["K2"], path_l=attention_l_rows["K2"]),
@@ -6995,12 +7604,16 @@ def main():
                          dict(lr["K4"], max_abs_err=max([lr["K4"]["max_abs_err"], k4_f["max_abs_err"]]
                                                         + [r["max_abs_err"] for r in k4_e.values()]
                                                         + [r["max_abs_err"] for r in k4_g.values()]
-                                                        + [k4_j["max_abs_err"], path_m["k4"]["max_abs_err"]]))),
+                                                        + [k4_j["max_abs_err"], path_m["k4"]["max_abs_err"],
+                                                           path_n["k4"]["max_abs_err"]]))),
              path_e_launches=path_e["K4"], path_e=k4_e, path_f_launches=path_f["K4"], path_f=k4_f,
              path_g_launches=path_g["K4"], path_g=k4_g, path_h_launches=path_h["K4"], path_i_launches=path_i["K4"],
              path_i=bf16["k4"], path_j_launches=path_j["K4"], path_j=k4_j, path_k_launches=path_k["K4"],
              path_k=k4_k, path_l_launches=path_l_launches["K4"], path_m_launches=path_m["launches"]["K4"],
              path_m={key: path_m["k4"][key] for key in ("max_abs_err", "ms", "cold_ms", "plain_ms", "bound_ms",
+                                                         "library_ms")},
+             path_n_launches=path_n["launches"]["K4"],
+             path_n={key: path_n["k4"][key] for key in ("max_abs_err", "ms", "cold_ms", "plain_ms", "bound_ms",
                                                          "library_ms")}),
         kernel_line("K5 CSR SpMV (narrow rhs)", "cuda", K567_SOURCE, K5_REPLACES, "K5",
                     (glm["launches"], glm["traced"]), k5),

@@ -28,7 +28,6 @@ from aesara_tpu_torch.tensor.var import TensorVariable as PTensorVariable
 COMPLEX = "4c: complex dtypes and their scalar ops"
 SERIES = "4b: the series special functions (no libdevice form)"
 LINALG = "12: nlinalg, slinalg, fft, searchsorted, xlogx"
-ROP = "8 (rest): Rop and scan checkpoints"
 DIAGNOSTICS = "15: diagnostics and the graph printers"
 PARALLEL = "16: parallel"
 NO_FALLBACK = "no fallback by rule: the port has one linker"
@@ -46,13 +45,11 @@ LEFT_OUT = {
     **{("tensor", n): SERIES for n in ("betainc", "chi2sf", "gammainc", "gammaincc", "gammal", "gammau", "hyp2f1",
                                        "hyp2f1_der", "iv", "jv", "owens_t")},
     ("method", "searchsorted"): LINALG,
-    ("top", "Rop"): ROP, ("top", "scan_checkpoints"): ROP,
     **{("top", n): DIAGNOSTICS for n in ("ProfileStats", "debugprint", "dprint", "pp", "pprint")},
     ("function(profile)", "truthy"): DIAGNOSTICS,
     ("tensor(sharding)", "not None"): PARALLEL,
     ("top", "JAX"): NO_FALLBACK, ("top", "PY"): NO_FALLBACK,
     **{("module", n): LINALG for n in ("tensor.nlinalg", "tensor.slinalg", "tensor.fft", "tensor.xlogx")},
-    ("module", "scan.checkpoints"): ROP,
     ("module", "typed_list"): "14: typed_list",
     ("module", "parallel"): PARALLEL,
 }
@@ -83,9 +80,21 @@ def _public(module) -> set:
     return out
 
 
-def _diff(where, jax_names, port_names):
+def _shadowed(module, name) -> bool:
+    """Whether the JAX package's ``module.name`` is a submodule where the
+    package binds a function of that name: importing
+    ``aesara_tpu.assert_op`` (as another test file does) rebinds
+    ``aesara_tpu.assert_op`` to the module, so in a worker that ran that
+    file first the name is not the package's function, and a comparison of
+    the two packages' names would depend on the order the files ran in.
+    The port's names get no such pass: a port name that is a module where
+    the JAX package's is a function is a fault."""
+    return module is not None and isinstance(getattr(module, name, None), MODULES)
+
+
+def _diff(where, jax_names, port_names, jax=None):
     missing = {n for n in jax_names - port_names if (where, n) not in LEFT_OUT}
-    extra = {n for n in port_names - jax_names if (where, n) not in PORT_ONLY}
+    extra = {n for n in port_names - jax_names if (where, n) not in PORT_ONLY and not _shadowed(jax, n)}
     stale = {n for (w, n) in LEFT_OUT if w == where and n in port_names}
     return missing, extra, stale
 
@@ -93,7 +102,7 @@ def _diff(where, jax_names, port_names):
 @pytest.mark.parametrize("where,jax,port", [("top", aesara_tpu, aesara_tpu_torch), ("tensor", jat, pat)],
                          ids=["top", "tensor"])
 def test_the_namespaces_match_but_the_listed_leave_outs(where, jax, port):
-    missing, extra, stale = _diff(where, _public(jax), _public(port))
+    missing, extra, stale = _diff(where, _public(jax), _public(port), jax)
     assert not missing, f"names of the JAX package's {where} namespace the port lacks: {sorted(missing)}"
     assert not extra, f"names only the port's {where} namespace has, unlisted: {sorted(extra)}"
     assert not stale, f"listed as left out but present: {sorted(stale)}"
@@ -134,7 +143,7 @@ def test_the_left_out_parameters_refuse_to_run():
         aesara_tpu_torch.function([x], x, profile=True)
     with pytest.raises(NotImplementedError, match="item 16"):
         pat.tensor("y", shape=(2,), sharding=("dp",))
-    assert set(LEFT_OUT.values()) == {COMPLEX, SERIES, LINALG, ROP, DIAGNOSTICS, PARALLEL, NO_FALLBACK,
+    assert set(LEFT_OUT.values()) == {COMPLEX, SERIES, LINALG, DIAGNOSTICS, PARALLEL, NO_FALLBACK,
                                       "14: typed_list"}
 
 

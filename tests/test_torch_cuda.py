@@ -1866,3 +1866,85 @@ def test_an_output_viewing_an_updated_shared_variable_on_the_card(cuda):
             np.testing.assert_array_equal(d, np.array([0.0, 5.0, 10.0, 15.0]) * 2.0 ** k)
             np.testing.assert_array_equal(t, np.arange(16.0).reshape(4, 4).T * 2.0 ** k)
         assert f.captured
+
+
+# -- the graph core's fancy indexing (-k graph_core) ---------------------------------
+
+
+def test_graph_core_mask_set_is_captured_on_the_card(cuda):
+    """set_subtensor(x[x < 0], 0) is a torch.where: the step captures, and
+    its replays equal the CPU's bitwise."""
+    x = np.random.default_rng(0).normal(size=(64, 33)).astype("float32")
+    outs = []
+    for device in ("cpu", "cuda"):
+        with config.change_flags(device=device):
+            xv = pt.matrix("x")
+            f = ptp.function([xv], pt.set_subtensor(xv[xv < 0], 0.0))
+            outs.append([f(x).cpu().numpy() for _ in range(3)])
+            if device == "cuda":
+                assert f.captured and f.capture_blocker is None
+    for a in outs[1]:
+        np.testing.assert_array_equal(a, outs[0][0])
+
+
+def test_graph_core_eager_blockers_are_named_on_the_card(cuda):
+    """A mask read from data and a slice bound from data run eagerly and name
+    their blockers; their results equal the CPU's bitwise."""
+    x = np.random.default_rng(1).normal(size=(40, 9)).astype("float32")
+    for build, why in ((lambda v: v[v > 0.5], "boolean mask computed from data"),
+                       (lambda v: v[: (v[:, 0] > 0).sum()], "slice bound computed from data")):
+        outs = []
+        for device in ("cpu", "cuda"):
+            with config.change_flags(device=device):
+                xv = pt.matrix("x")
+                f = ptp.function([xv], build(xv))
+                outs.append([f(x).cpu().numpy() for _ in range(2)])
+                if device == "cuda":
+                    assert why in f.capture_blocker and not f.captured
+        for a in outs[1]:
+            np.testing.assert_array_equal(a, outs[0][0])
+
+
+@pytest.mark.parametrize("holder", ["scan", "op_from_graph"])
+@pytest.mark.parametrize("body", ["mask", "bound"])
+def test_graph_core_inner_graph_blockers_run_eagerly_on_the_card(cuda, body, holder):
+    """A mask or a slice bound from data inside a Scan's body or an
+    OpFromGraph's subgraph: the outer function runs eagerly (no capture
+    of the per-step host read), names the inner node as its blocker, and
+    its results equal the CPU's within 1e-6 (the sums' order)."""
+    read, why = {"mask": (lambda r: r[r > 0].sum(), "boolean mask computed from data"),
+                 "bound": (lambda r: r[: (r > 0).sum()].sum(), "slice bound computed from data")}[body]
+    x = np.random.default_rng(3).normal(size=(24, 33)).astype("float32")
+    outs = []
+    for device in ("cpu", "cuda"):
+        with config.change_flags(device=device):
+            xv = pt.matrix("x")
+            if holder == "scan":
+                out, _ = ptp.scan(read, sequences=[xv])
+            else:
+                r = pt.vector("r")
+                out = ptp.OpFromGraph([r], [read(r)])(xv[1])
+            f = ptp.function([xv], out)
+            outs.append([f(x).cpu().numpy() for _ in range(3)])
+            if device == "cuda":
+                assert not f.captured
+                assert "in its inner graph" in f.capture_blocker and why in f.capture_blocker, f.capture_blocker
+    for a in outs[1]:
+        np.testing.assert_allclose(a, outs[0][0], rtol=1e-6, atol=1e-6)
+
+
+def test_graph_core_inc_with_duplicates_is_the_same_bits_twice(cuda):
+    """inc_subtensor(x[:, cols], y) with duplicated columns: two calls on the
+    card give the same bits, and the CPU's sums within 1e-6."""
+    r = np.random.default_rng(2)
+    x = r.normal(size=(512, 96)).astype("float32")
+    cols = r.integers(0, 96, size=64)
+    y = r.normal(size=(512, 64)).astype("float32")
+    outs = []
+    for device in ("cpu", "cuda"):
+        with config.change_flags(device=device):
+            xv, yv, cv = pt.matrix("x"), pt.matrix("y"), pt.lvector("c")
+            f = ptp.function([xv, yv, cv], pt.inc_subtensor(xv[:, cv], yv))
+            outs.append([f(x, y, cols).cpu().numpy() for _ in range(2)])
+    np.testing.assert_array_equal(outs[1][0], outs[1][1])
+    np.testing.assert_allclose(outs[1][0], outs[0][0], rtol=1e-6, atol=1e-6)

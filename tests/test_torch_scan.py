@@ -31,7 +31,7 @@ from aesara_tpu.scan.views import foldl as jfoldl, foldr as jfoldr, map as jmap,
 import aesara_tpu_torch
 import aesara_tpu_torch.tensor as pat
 from aesara_tpu_torch.config import config
-from aesara_tpu_torch.gradient import Rop, hessian as phessian, jacobian as pjacobian
+from aesara_tpu_torch.gradient import hessian as phessian, jacobian as pjacobian
 from aesara_tpu_torch.link.torch.scan_dispatch import fused_inner_graph
 from aesara_tpu_torch.scan import Scan
 from aesara_tpu_torch.scan.basic import scan as pscan, until as puntil
@@ -270,10 +270,19 @@ def test_jacobian_and_hessian():
     _compare(build, [np.linspace(-1, 1, 4), RNG.normal(size=4)])
 
 
-def test_rop_waits_for_r_op():
-    x = pat.vector("x")
-    with pytest.raises(NotImplementedError, match="R_op"):
-        Rop(pat.tanh(x), x, pat.vector("v"))
+@pytest.mark.parametrize("use_op_rop", [False, True], ids=["lop_of_lop", "op_rop"])
+def test_rop_waits_for_r_op(use_op_rop):
+    """Rop through a Scan, by the Lop-of-Lop construction and through
+    ``Scan.R_op``, against the JAX package's."""
+    def build(m):
+        at = m["at"]
+        xs, v = at.matrix("xs", dtype="float64"), at.matrix("v", dtype="float64")
+        h0 = at.vector("h0", dtype="float64")
+        hs, _ = m["scan"](lambda x, h: at.tanh(x + 0.5 * h), sequences=[xs], outputs_info=[h0])
+        grad_mod = aesara_tpu.gradient if m is JAX else aesara_tpu_torch.gradient
+        return [xs, h0, v], [grad_mod.Rop(hs, xs, v, use_op_rop=use_op_rop)]
+
+    _compare(build, [XS, H0, RNG.normal(size=XS.shape)])
 
 
 def test_steps_per_call_equals_that_many_calls():

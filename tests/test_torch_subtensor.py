@@ -191,16 +191,20 @@ def test_window_longer_than_its_axis_raises():
 
 
 def test_subtensor_with_symbolic_bounds_raises_when_compiled():
-    """x[i:j] has a length computed at run time: the port has no fallback
-    to run it, so compiling it raises (the JAX package sends it to its
-    Python fallback)."""
+    """x[i:j] has a length computed at run time from data: the port reads
+    the bounds on the host and runs the function eagerly, naming the
+    blocker, where the JAX package sends the node to its Python fallback;
+    both give NumPy's slice."""
     x, i, j = pat.vector("x"), pat.iscalar("i"), pat.iscalar("j")
-    with pytest.raises(NotImplementedError, match="slice bound computed at run time"):
-        aesara_tpu_torch.function([x, i, j], x[i:j])
+    f = aesara_tpu_torch.function([x, i, j], x[i:j])
+    assert "slice bound computed from data" in f.fn.program.blocker_reason
     jx, ji, jj = jat.vector("x"), jat.iscalar("i"), jat.iscalar("j")
     with pytest.warns(UserWarning, match="py path"):
-        f = aesara_tpu.function([jx, ji, jj], jx[ji:jj])
-    np.testing.assert_array_equal(f(np.arange(5, dtype="float32"), 1, 3), [1.0, 2.0])
+        g = aesara_tpu.function([jx, ji, jj], jx[ji:jj])
+    data = np.arange(5, dtype="float32")
+    for a, b in ((1, 3), (-4, 5), (3, 1)):
+        np.testing.assert_array_equal(_host(f(data, a, b)), g(data, a, b))
+        np.testing.assert_array_equal(_host(f(data, a, b)), data[a:b])
 
 
 def test_full_slice_is_removed():
@@ -214,8 +218,16 @@ def test_full_slice_is_removed():
 
 
 def test_arrays_mixed_with_slices_are_not_ported():
+    """An integer array beside a slice is an ``AdvancedSubtensor`` with the
+    JAX package's result; more indices than dims raise."""
+    def build(m):
+        x = m["at"].matrix("x")
+        return [x], [x[np.array([0, 1]), 1:2], x[1:3, np.array([2, 0, 2])]]
+
+    jax_out, port_out = _both(build, [X[0]])
+    for p, j in zip(port_out, jax_out):
+        np.testing.assert_array_equal(p, j)
+    np.testing.assert_array_equal(port_out[0], X[0][np.array([0, 1]), 1:2])
     x = pat.matrix("x")
-    with pytest.raises(NotImplementedError, match="mixed"):
-        x[np.array([0, 1]), 1:2]
     with pytest.raises(IndexError):
         x[0, 0, 0]
