@@ -9,11 +9,16 @@ dict at once, a list of pairs in order).  ``updates`` pairs shared
 variables with expressions of their new values; a shared variable's
 ``default_update`` joins them unless ``no_default_updates`` says not.
 The update expressions are outputs of the one compiled graph, so they
-read every shared value as it was before the call; the linker writes
-the new values into the shared variables' storage only after the whole
-graph has run (inside the captured step on the card), as the JAX
-package donates the old buffers to XLA
-(``aesara_tpu/link/jax/linker.py:304-343``).  ``steps_per_call=k``
+read every shared value as it was before the call.  The graph carries
+``update_mapping`` (update output -> shared input) and a ``Supervisor``
+that keeps the rewrites from overwriting a non-mutable input or a shared
+variable that is not updated (``aesara_tpu/compile/function.py:441-470``).
+Where the destroy handler finds it legal, the node that computes an
+update writes it into the shared variable's storage (the linker's
+donation, as the JAX package donates the old buffers to XLA,
+``aesara_tpu/link/jax/linker.py:304-343``); else the linker writes the new
+value there after the whole graph has run (inside the captured step on
+the card).  ``steps_per_call=k``
 compiles the step as a k-step Scan (``_function_ksteps``).  Under
 ``config.shape_buckets`` a call pads its dynamic-length inputs up to a
 rung of the bucket ladder and slices the results back
@@ -31,6 +36,7 @@ from aesara_tpu_torch.compile.io import In, Out
 from aesara_tpu_torch.compile.mode import get_mode
 from aesara_tpu_torch.compile.sharedvalue import SharedVariable
 from aesara_tpu_torch.config import config
+from aesara_tpu_torch.graph.destroyhandler import Supervisor
 from aesara_tpu_torch.graph.fg import FunctionGraph
 from aesara_tpu_torch.graph.ir import Constant, Variable, ancestors, clone_replace, graph_inputs
 from aesara_tpu_torch.tensor.type import TensorType
@@ -402,7 +408,14 @@ def function(inputs: Sequence, outputs=None, mode=None, updates=None, givens=Non
                 warnings.warn(msg)
 
     mode = get_mode(mode)
-    fgraph = FunctionGraph(in_vars + shared, all_outs, clone=True)
+    # update output -> shared input; the inputs that no rewrite may overwrite
+    update_mapping = {len(out_vars) + j: len(in_vars) + next(i for i, v in enumerate(shared) if v is t)
+                      for j, (t, _) in enumerate(shared_updates)}
+    fgraph = FunctionGraph(in_vars + shared, all_outs, clone=True, update_mapping=update_mapping)
+    updated = set(update_mapping.values())
+    fgraph.attach_feature(Supervisor([fgraph.inputs[i] for i, s in enumerate(specs) if not s.mutable]
+                                     + [v for i, v in enumerate(fgraph.inputs[len(in_vars):], len(in_vars))
+                                        if i not in updated]))
     mode.optimizer.rewrite(fgraph)
     fn = mode.linker.make_function(fgraph, n_user_inputs=len(in_vars), n_outputs=len(out_vars),
                                    update_targets=[t for t, _ in shared_updates], borrow=borrow)

@@ -3,8 +3,9 @@
 
 Positions follow the JAX package: merge1 at 0, useless at 0.6, canonicalize at 1,
 stabilize at 1.5, the scan rewrites at 0.05 and 1.6-1.66 (and 50.5-50.6),
-BlasOpt at 1.7, specialize at 2, uncanonicalize at 3, elemwise fusion and
-merge2 at 49, merge3 at 100.  The ``TORCH`` mode runs the ``fast_run`` rewrites and links
+BlasOpt at 1.7, specialize at 2, uncanonicalize at 3, elemwise fusion at
+49, merge2 and the destroy handler at 49.5, blas_inplace at 70, merge3 at
+100.  The ``TORCH`` mode runs the ``fast_run`` rewrites and links
 through ``TorchLinker``; ``including``/``excluding`` give a mode with
 tags added to or taken from its query, as the JAX package's ``Mode``
 does (``TORCH.excluding("BlasOpt")``).
@@ -14,7 +15,8 @@ from __future__ import annotations
 
 from typing import Optional, Union
 
-from aesara_tpu_torch.graph.rewriting.basic import MergeOptimizer
+from aesara_tpu_torch.graph.destroyhandler import add_destroy_handler
+from aesara_tpu_torch.graph.rewriting.basic import FromFunctionGraphRewriter, MergeOptimizer
 from aesara_tpu_torch.graph.rewriting.db import EquilibriumDB, RewriteDatabaseQuery, SequenceDB
 from aesara_tpu_torch.link.torch.linker import TorchLinker
 
@@ -37,6 +39,10 @@ optdb.register("specialize", specialize, "fast_run", position=2)
 uncanonicalize = EquilibriumDB()
 optdb.register("uncanonicalize", uncanonicalize, "fast_run", position=3)
 optdb.register("merge2", MergeOptimizer(), "fast_run", "merge", position=49.5)
+# the destroy handler, which the in-place rewrites (blas_inplace at 70) and
+# the linker's donation of updated shared storage consult
+optdb.register("add_destroy_handler", FromFunctionGraphRewriter(add_destroy_handler), "fast_run", "inplace",
+               position=49.5)
 optdb.register("merge3", MergeOptimizer(), "fast_run", "merge", position=100)
 # position 1.7: BlasOpt, registered by aesara_tpu_torch.tensor.blas; position
 # 49: elemwise fusion, registered by aesara_tpu_torch.tensor.rewriting

@@ -87,6 +87,10 @@ config.add("device", "cuda", _device)
 config.add("on_unused_input", "raise", _enum("raise", "warn", "ignore"))
 config.add("allow_gc", True, _enum(True, False))
 config.add("cuda_graph", True, _enum(True, False))
+# the node that computes a shared variable's update writes it into the
+# variable's storage where the destroy handler allows it (the counterpart
+# of jax_donate_shared); False copies every update in after the graph ran
+config.add("donate_shared", True, _enum(True, False))
 config.add("shape_buckets", "off", _buckets)
 config.add("shape_buckets_check", "raise", _enum("raise", "warn", "off"))
 config.add("seed", 0, int)    # the default RandomStream seed (reference aesara_tpu/config.py:187)

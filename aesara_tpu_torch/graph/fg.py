@@ -1,7 +1,8 @@
 """``FunctionGraph``: the mutable subgraph that rewrites operate on
 (reference ``graph/fg.py``).  It keeps a ``clients`` index
 (variable → [(Apply, input index)]) and fires Feature callbacks on every
-import, prune and input change."""
+import, prune and input change; ``validate`` runs its features' checks
+and ``toposort`` honours their ``orderings`` (the destroy handler's)."""
 
 from __future__ import annotations
 
@@ -28,7 +29,8 @@ class FunctionGraph:
     """A subgraph with explicit inputs and outputs plus rewrite bookkeeping."""
 
     def __init__(self, inputs: Optional[Sequence[Variable]] = None,
-                 outputs: Optional[Sequence[Variable]] = None, clone: bool = True):
+                 outputs: Optional[Sequence[Variable]] = None, clone: bool = True,
+                 update_mapping: Optional[dict] = None):
         if outputs is None:
             raise ValueError("outputs must be provided")
         if inputs is None:
@@ -40,6 +42,9 @@ class FunctionGraph:
             outputs = [memo[o] for o in outputs]
         self.inputs: List[Variable] = []
         self.outputs: List[Variable] = outputs
+        #: output index -> the index of the input whose new value it is
+        #: (``function``'s shared updates)
+        self.update_mapping: dict = dict(update_mapping or {})
         self.clients: dict = {}
         self.apply_nodes: set = set()
         self.variables: set = set()
@@ -159,8 +164,29 @@ class FunctionGraph:
     # --- queries -------------------------------------------------------------
 
     def toposort(self) -> List[Apply]:
-        return io_toposort(self.inputs, self.outputs)
+        """Apply nodes in dependency order, honouring the features'
+        orderings (reference ``fg.py:766``)."""
+        return io_toposort(self.inputs, self.outputs, orderings=self.orderings() or None)
+
+    def orderings(self) -> dict:
+        """The features' extra dependencies, node -> nodes before it
+        (reference ``fg.py:782``)."""
+        merged: dict = {}
+        for feature in self._features:
+            fn = getattr(feature, "orderings", None)
+            if fn is not None:
+                for node, before in fn(self).items():
+                    merged.setdefault(node, []).extend(before)
+        return merged
+
+    def validate(self) -> None:
+        """Run every feature's ``validate`` (the destroy handler's and the
+        Supervisor's raise ``InconsistencyError``)."""
+        for feature in self._features:
+            fn = getattr(feature, "validate", None)
+            if fn is not None:
+                fn(self)
 
     def clone(self) -> "FunctionGraph":
         """A copy with fresh variables and nodes (and no features)."""
-        return FunctionGraph(self.inputs, self.outputs, clone=True)
+        return FunctionGraph(self.inputs, self.outputs, clone=True, update_mapping=self.update_mapping)

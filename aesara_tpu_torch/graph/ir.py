@@ -323,9 +323,11 @@ def clone_replace(output, replace=None):
     return result[0] if single else result
 
 
-def io_toposort(inputs: Iterable[Variable], outputs: Iterable[Variable]) -> list:
+def io_toposort(inputs: Iterable[Variable], outputs: Iterable[Variable], orderings: Optional[dict] = None) -> list:
     """Topologically sorted Apply nodes between inputs and outputs
-    (iterative DFS post-order)."""
+    (iterative DFS post-order).  ``orderings`` maps a node to nodes that
+    must come before it besides its inputs' owners (the destroy handler's:
+    every reader of a variable before its destroyer)."""
     seen_vars = set(map(id, inputs))
     visited: set = set()
     result: list = []
@@ -340,6 +342,10 @@ def io_toposort(inputs: Iterable[Variable], outputs: Iterable[Variable]) -> list
             continue
         visited.add(id(node))
         work.append((node, True))
+        if orderings:
+            for before in reversed(orderings.get(node, ())):
+                if id(before) not in visited:
+                    work.append((before, False))
         for inp in reversed(node.inputs):
             if id(inp) not in seen_vars and inp.owner is not None:
                 if id(inp.owner) not in visited:

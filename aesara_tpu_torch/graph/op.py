@@ -26,6 +26,10 @@ class Op:
 
     __props__: Optional[tuple] = None
     default_output: Optional[int] = None
+    #: output index -> the input indices it aliases (a view) or overwrites
+    #: (destroys), which the destroy handler reads
+    view_map: dict = {}
+    destroy_map: dict = {}
 
     def make_node(self, *inputs: Variable) -> Apply:
         raise NotImplementedError(f"{type(self).__name__}.make_node")

@@ -1,7 +1,11 @@
 """Rewriter framework: graph rewriters, node rewriters, the equilibrium
 driver and merge (CSE).  The counterpart of
 ``aesara_tpu/graph/rewriting/basic.py``, cut to what the port's
-pipeline runs."""
+pipeline runs.  A rewriter made with ``inplace=True`` (or
+``inplace_graph_rewriter``) attaches a ``DestroyHandler`` first, and its
+replacements are validated by it: ``NodeProcessingGraphRewriter.warn_inplace``
+skips a node whose in-place form the handler refuses.  Merge never merges
+a node that destroys an input."""
 
 from __future__ import annotations
 
@@ -15,10 +19,16 @@ from aesara_tpu_torch.graph.ir import Constant, io_toposort
 
 
 __all__ = [
-    "Rewriter", "GraphRewriter", "NodeRewriter", "node_rewriter",
-    "SequentialGraphRewriter", "EquilibriumGraphRewriter", "MergeOptimizer",
-    "copy_stack_trace", "in2out",
+    "Rewriter", "GraphRewriter", "NodeRewriter", "node_rewriter", "inplace_graph_rewriter",
+    "FromFunctionGraphRewriter", "NodeProcessingGraphRewriter", "SequentialGraphRewriter",
+    "EquilibriumGraphRewriter", "MergeOptimizer", "copy_stack_trace", "in2out",
 ]
+
+
+def _attach_destroy_handler(fgraph) -> None:
+    from aesara_tpu_torch.graph.destroyhandler import add_destroy_handler
+
+    add_destroy_handler(fgraph)
 
 
 def _require_replace_validate(fgraph: FunctionGraph) -> None:
@@ -28,9 +38,14 @@ def _require_replace_validate(fgraph: FunctionGraph) -> None:
 
 class Rewriter:
     name: Optional[str] = None
+    #: functions of the graph run before the rewriter (a destroy handler
+    #: attached for an in-place one)
+    requirements: tuple = ()
 
     def add_requirements(self, fgraph: FunctionGraph) -> None:
         _require_replace_validate(fgraph)
+        for req in self.requirements:
+            req(fgraph)
 
 
 class GraphRewriter(Rewriter):
@@ -55,11 +70,33 @@ class NodeRewriter(Rewriter):
         raise NotImplementedError
 
 
+class FromFunctionGraphRewriter(GraphRewriter):
+    """A graph rewriter from a function of the graph."""
+
+    def __init__(self, fn, requirements=()):
+        self.fn = fn
+        self.requirements = tuple(requirements)
+        self.name = getattr(fn, "__name__", None)
+
+    def apply(self, fgraph):
+        return self.fn(fgraph)
+
+    def __str__(self):
+        return self.name or repr(self.fn)
+
+
+def inplace_graph_rewriter(fn) -> FromFunctionGraphRewriter:
+    """Decorator: a graph rewriter that needs a destroy handler."""
+    return FromFunctionGraphRewriter(fn, requirements=(_attach_destroy_handler,))
+
+
 class FromFunctionNodeRewriter(NodeRewriter):
-    def __init__(self, fn, tracks):
+    def __init__(self, fn, tracks, inplace: bool = False):
         self.fn = fn
         self._tracks = tracks
         self.name = fn.__name__
+        if inplace:
+            self.requirements = (_attach_destroy_handler,)
 
     def tracks(self):
         return self._tracks
@@ -71,11 +108,12 @@ class FromFunctionNodeRewriter(NodeRewriter):
         return self.name
 
 
-def node_rewriter(tracks):
-    """Decorator declaring a node rewriter and the ops it tracks."""
+def node_rewriter(tracks, inplace: bool = False):
+    """Decorator declaring a node rewriter and the ops it tracks; with
+    ``inplace`` it needs a destroy handler, which its pass attaches."""
 
     def deco(fn):
-        return FromFunctionNodeRewriter(fn, tracks)
+        return FromFunctionNodeRewriter(fn, tracks, inplace=inplace)
 
     return deco
 
@@ -177,6 +215,7 @@ class SequentialNodeRewriter(NodeRewriter):
 
     def __init__(self, *rewriters):
         self.rewriters = list(rewriters)
+        self.requirements = tuple(req for rw in self.rewriters for req in rw.requirements)
 
     def transform(self, fgraph, node):
         for rw in self.rewriters:
@@ -190,12 +229,39 @@ class SequentialNodeRewriter(NodeRewriter):
         return f"SequentialNodeRewriter({self.rewriters})"
 
 
-class WalkingGraphRewriter(GraphRewriter):
-    """One pass of a node rewriter over the graph, inputs to outputs; the
-    nodes a replacement brings in are visited next (reference ``:2002``)."""
+class NodeProcessingGraphRewriter(GraphRewriter):
+    """The failure callbacks of a node pass (reference ``:320-346``): each
+    takes (the exception, the pass, the replacements, the node rewriter,
+    the node); one that returns lets the pass go on to the next node."""
 
-    def __init__(self, rewriter: NodeRewriter):
+    @classmethod
+    def warn(cls, exc, nav, repl_pairs, node_rewriter, node):
+        """Warn of the failure; re-raise an AssertionError."""
+        if isinstance(exc, AssertionError):
+            raise exc
+        warnings.warn(f"rewrite {node_rewriter} failed on {node}: {type(exc).__name__}: {exc}")
+
+    @classmethod
+    def warn_inplace(cls, exc, nav, repl_pairs, node_rewriter, node):
+        """An InconsistencyError means the in-place form is illegal here
+        (the replacement is already undone): skip the node quietly."""
+        from aesara_tpu_torch.graph.destroyhandler import InconsistencyError
+
+        if isinstance(exc, InconsistencyError):
+            return
+        cls.warn(exc, nav, repl_pairs, node_rewriter, node)
+
+
+class WalkingGraphRewriter(NodeProcessingGraphRewriter):
+    """One pass of a node rewriter over the graph, inputs to outputs; the
+    nodes a replacement brings in are visited next (reference ``:2002``).
+    A node whose rewrite raises goes to ``failure_callback`` where one is
+    given; without one the compile fails."""
+
+    def __init__(self, rewriter: NodeRewriter, failure_callback=None):
         self.rewriter = rewriter
+        self.failure_callback = failure_callback
+        self.requirements = rewriter.requirements
 
     def apply(self, fgraph):
         q = deque(io_toposort(fgraph.inputs, fgraph.outputs))
@@ -206,7 +272,12 @@ class WalkingGraphRewriter(GraphRewriter):
                 node = q.popleft()
                 if node in fgraph.apply_nodes:
                     importer.current = node
-                    _process_node(fgraph, node, self.rewriter)
+                    try:
+                        _process_node(fgraph, node, self.rewriter)
+                    except Exception as exc:
+                        if self.failure_callback is None:
+                            raise
+                        self.failure_callback(exc, self, None, self.rewriter, node)
         finally:
             fgraph.remove_feature(importer)
 
@@ -214,11 +285,11 @@ class WalkingGraphRewriter(GraphRewriter):
         return f"WalkingGraphRewriter({self.rewriter})"
 
 
-def in2out(*rewriters, name=None) -> WalkingGraphRewriter:
+def in2out(*rewriters, name=None, failure_callback=None) -> WalkingGraphRewriter:
     """One inputs-to-outputs pass of ``rewriters``, each tried on the nodes
     of the ops it tracks, the first that fires on a node winning
     (reference ``in2out``)."""
-    rw = WalkingGraphRewriter(SequentialNodeRewriter(*rewriters))
+    rw = WalkingGraphRewriter(SequentialNodeRewriter(*rewriters), failure_callback=failure_callback)
     rw.name = name
     return rw
 
@@ -260,8 +331,8 @@ class MergeOptimizer(GraphRewriter):
             changed = False
             by_key: dict = {}
             for node in fgraph.toposort():
-                if node not in fgraph.apply_nodes:
-                    continue
+                if node not in fgraph.apply_nodes or node.op.destroy_map:
+                    continue   # never merge a node that destroys an input
                 key = (node.op, tuple(map(id, node.inputs)))
                 first = by_key.setdefault(key, node)
                 if first is node:

@@ -50,7 +50,8 @@ from aesara_tpu_torch.link.torch.kernels.elemwise import (
 from aesara_tpu_torch.link.torch.kernels.softmax import softmax_rows
 
 
-__all__ = ["torch_funcify", "in_place_lowering", "IN_PLACE_OPS"]
+__all__ = ["torch_funcify", "in_place_lowering", "IN_PLACE_OPS", "DONATING_OPS", "can_donate",
+           "donates_into_first_input"]
 
 LOW_PRECISION = ("bfloat16", "float16")
 
@@ -62,6 +63,8 @@ def torch_funcify(op, node=None):
 
 @torch_funcify.register(Elemwise)
 def _torch_elemwise(op, node):
+    # ``out`` (``can_donate`` nodes only): the storage of the shared
+    # variable the result updates, written by K1's launch or torch's out=
     static_shapes = [tuple(i.type.shape) for i in node.inputs]
     out_dtype = node.outputs[0].type.dtype
     refuse_negative_int_pow(op.scalar_op, node.inputs)
@@ -70,14 +73,17 @@ def _torch_elemwise(op, node):
         # fails when the function is compiled
         kernel = ElemwiseKernel(op.scalar_op, [i.type.dtype for i in node.inputs], out_dtype)
 
-        def composite(*args):
+        def composite(*args, out=None):
             check_static_broadcast(static_shapes, [a.shape for a in args])
-            return fused_elemwise(kernel, *args)
+            return fused_elemwise(kernel, *args, out=out)
 
         return composite
+    into = _lone_arithmetic(node)
 
-    def elemwise(*args):
+    def elemwise(*args, out=None):
         check_static_broadcast(static_shapes, [a.shape for a in args])
+        if out is not None:
+            return into(*args, out=out)
         return apply_scalar_node(op.scalar_op, out_dtype, args)
 
     return elemwise
@@ -250,52 +256,63 @@ def _coefficient(value, dtype):
     return value.item() if isinstance(value, np.ndarray) else value.to(dtype)
 
 
-def _accumulate_lowering(node, fused, product):
+def _accumulate_lowering(node, fused, product, inplace: bool):
     """beta·z + alpha·product(operands) for Gemm, Gemv and Ger (Ger: beta
     1), by ``fused(z, *operands, beta=, alpha=)`` (``torch.addmm``,
     ``addmv``, ``addr``) where both coefficients are host values (the
     constants and what the linker folds from them); a coefficient that
-    lives on the device is a tensor multiply instead."""
+    lives on the device is a tensor multiply instead.  An ``inplace`` op,
+    or a call given ``out`` (the linker's donation of z's storage: z
+    itself), writes the result into z and returns it: ``fused(...,
+    out=z)``, which is ``addmm_`` and its kin, the same product into z's
+    storage."""
     import torch
 
     out_dtype = torch_dtype(node.outputs[0].type.dtype)
     with_beta = len(node.inputs) == 5
+    low = node.outputs[0].type.dtype in LOW_PRECISION
     fused, product = (sums_in_fp32(f, node.outputs[0].type.dtype) for f in (fused, product))
 
-    def accumulate(z, alpha, *rest):
+    def accumulate(z, alpha, *rest, out=None):
+        into_z = inplace or out is not None
         operands = [o.to(out_dtype) for o in (rest[:-1] if with_beta else rest)]
+        target = z
         z = z.to(out_dtype)
         alpha = _coefficient(alpha, out_dtype)
         beta = _coefficient(rest[-1], out_dtype) if with_beta else 1
-        if not isinstance(alpha, torch.Tensor) and not isinstance(beta, torch.Tensor):
-            return fused(z, *operands, beta=beta, alpha=alpha)
-        return torch.add(z * beta, product(*operands) * alpha)
+        host = not isinstance(alpha, torch.Tensor) and not isinstance(beta, torch.Tensor)
+        if into_z and host and z is target and (z.device.type == "cuda" or not low):
+            return fused(z, *operands, beta=beta, alpha=alpha, out=z)
+        value = fused(z, *operands, beta=beta, alpha=alpha) if host else torch.add(z * beta, product(*operands) * alpha)
+        # the CPU's bfloat16 and float16 products sum in a float32 copy, and
+        # a device coefficient is a tensor multiply: written into z after
+        return target.copy_(value) if into_z else value
 
     accumulate.host_inputs = (1, 4) if with_beta else (1,)
     return accumulate
 
 
+# Gemm, Gemv and Ger: ``inplace`` (``blas_inplace``, where the destroy
+# handler allows it) writes into z
 @torch_funcify.register(Gemm)
 def _torch_gemm(op, node):
-    # the inplace flag changes nothing here: the port has no destroy
-    # handler, so no rewrite sets it, and the value is the same
     import torch
 
-    return _accumulate_lowering(node, torch.addmm, torch.mm)
+    return _accumulate_lowering(node, torch.addmm, torch.mm, op.inplace)
 
 
 @torch_funcify.register(Gemv)
 def _torch_gemv(op, node):
     import torch
 
-    return _accumulate_lowering(node, torch.addmv, torch.mv)
+    return _accumulate_lowering(node, torch.addmv, torch.mv, op.inplace)
 
 
 @torch_funcify.register(Ger)
 def _torch_ger(op, node):
     import torch
 
-    return _accumulate_lowering(node, torch.addr, torch.outer)
+    return _accumulate_lowering(node, torch.addr, torch.outer, op.inplace)
 
 
 @torch_funcify.register(Dot22)
@@ -508,13 +525,14 @@ def _torch_inc_subtensor(op, node):
 
 
 def _inc_subtensor_lowering(op, node, in_place: bool):
-    # out of place (a clone of x) but where a Scan's loop owns x
-    # (``in_place_lowering``): the port has no destroy handler
+    # out of place (a clone of x) but where the caller owns x: a Scan's
+    # loop-carried state (``in_place_lowering``), or a donated shared
+    # variable (the linker passes ``out``, which is x)
     resolve, dynamic, runtime, bounds = _basic_index(node, op.idx_list, 2)
     n_dyn, set_instead = len(dynamic), op.set_instead_of_inc
 
-    def inc_subtensor(x, y, *index_inputs):
-        out = x if in_place else x.clone()
+    def inc_subtensor(x, y, *index_inputs, out=None):
+        out = x if in_place or out is not None else x.clone()
         view, flips = _region(out, *resolve(index_inputs))
         # y broadcast over the region, a run-time index's dim of size 1
         shape = [1 if d in dynamic else n for d, n in enumerate(view.shape)]
@@ -598,8 +616,8 @@ def _dynamic_inc_subtensor_lowering(op, node, in_place: bool):
 
     lengths, set_instead, aranges = op.lengths, op.set_instead_of_inc, {}
 
-    def dynamic_inc_subtensor(x, y, *starts):
-        out = x if in_place else x.clone()
+    def dynamic_inc_subtensor(x, y, *starts, out=None):
+        out = x if in_place or out is not None else x.clone()
         idx = _window_index(lengths, x.shape, starts, aranges)
         # every axis up to the last sized one as an open grid of positions
         grid = [e if not isinstance(e, slice) else
@@ -620,6 +638,9 @@ def _dynamic_inc_subtensor_lowering(op, node, in_place: bool):
 
 #: the ops that have a lowering writing into their first input
 IN_PLACE_OPS = (IncSubtensor, DynamicIncSubtensor)
+#: the ops whose lowering, given ``out``, writes into their first input (a
+#: donated update target); an elementwise node writes into ``out`` itself
+DONATING_OPS = (Gemm, Gemv, Ger) + IN_PLACE_OPS
 
 
 def in_place_lowering(node):
@@ -630,6 +651,41 @@ def in_place_lowering(node):
     if isinstance(node.op, IncSubtensor):
         return _inc_subtensor_lowering(node.op, node, in_place=True)
     return _dynamic_inc_subtensor_lowering(node.op, node, in_place=True)
+
+
+def donates_into_first_input(node) -> bool:
+    """Whether ``node``'s lowering, given ``out``, writes into its first
+    input (a BLAS op's z, an IncSubtensor's x, which ``out`` then is); else
+    (a K1 Composite, a lone arithmetic op) into ``out``."""
+    return isinstance(node.op, DONATING_OPS)
+
+
+def _lone_arithmetic(node):
+    """The torch function (which takes ``out=``) of a lone Elemwise ``add``,
+    ``sub``, ``mul`` or ``true_div`` of two operands of its float32 or
+    float64 output dtype, or None: the ``w - lr * g`` of an sgd step once
+    BlasOpt has taken the product (its plain form is that one torch call)."""
+    import torch
+
+    from aesara_tpu_torch.scalar import ops as aes
+
+    op = node.op
+    if not isinstance(op, Elemwise) or isinstance(op.scalar_op, Composite) or len(node.inputs) != 2:
+        return None
+    dtype = node.outputs[0].type.dtype
+    if dtype not in ("float32", "float64") or any(i.type.dtype != dtype for i in node.inputs):
+        return None
+    table = ((aes.Add, torch.add), (aes.Sub, torch.sub), (aes.Mul, torch.mul), (aes.TrueDiv, torch.true_divide))
+    return next((fn for cls, fn in table if type(op.scalar_op) is cls), None)
+
+
+def can_donate(node) -> bool:
+    """Whether ``node``'s lowering takes ``out``, the storage of the
+    donated shared variable its result updates: a K1 Composite (its
+    launch's ``out``), a lone fp32 or fp64 add, sub, mul or true_div
+    (torch's ``out=``), a Gemm, Gemv or Ger (z), an IncSubtensor (x)."""
+    return isinstance(node.op, DONATING_OPS) or _lone_arithmetic(node) is not None or (
+        isinstance(node.op, Elemwise) and isinstance(node.op.scalar_op, Composite) and len(node.outputs) == 1)
 
 
 @torch_funcify.register(Alloc)
@@ -797,8 +853,8 @@ def _torch_broadcast_to(op, node):
     import torch
 
     def broadcast_to(x, *shape):
-        # a view with zero strides on the broadcast dims (the op's view_map);
-        # no lowering writes into an input in place but a Scan's own copy
+        # a view with zero strides on the broadcast dims (the op's view_map,
+        # which the destroy handler follows before any node writes in place)
         return torch.broadcast_to(x, tuple(int(s) for s in shape))
 
     broadcast_to.host_inputs = tuple(range(1, len(node.inputs)))

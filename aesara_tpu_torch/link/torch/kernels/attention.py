@@ -19,13 +19,15 @@ backward kernels.  Every product of both kernels runs on the tensor cores
 with ``mma.sync``: fp32 in 3xTF32 (each operand split into two TF32
 halves, three TF32 products, so fp32 stays close to fp32), bf16 as one
 bf16 product, fp16 as fp16 products with the register-held P and dS taken
-as two fp16 terms (hi + lo), all with fp32 sums.  They use no atomics: two
-calls give the same bits.  They take D <= 256 and any BH whose blocks of
-64 rows number under 2**31; on the card an fp64 panel, or a wider one,
-raises (no CUDA input takes the plain version).  They stage rows by
-16-byte ``cp.async``, so a panel whose rows are not a multiple of 16
-bytes, or not 16-byte aligned, goes to them padded with zero columns
-(:func:`cp_async_rows`), and the results are cut back.
+as two fp16 terms (hi + lo), all with fp32 sums; fp64 on the fp64 tensor
+cores with fp64 sums, softmax, lse and D.  They use no atomics: two calls
+give the same bits.  They take any D: heads wider than 256 (128 in fp64)
+take the D split, a block for each chunk of that many output columns,
+each recomputing the scores over the whole of D (:func:`split_chunk`).
+They take any BH whose blocks (64 rows, times the chunks) number under
+2**31.  They stage rows by 16-byte ``cp.async``, so a panel whose rows are
+not a multiple of 16 bytes, or not 16-byte aligned, goes to them padded
+with zero columns (:func:`cp_async_rows`), and the results are cut back.
 """
 
 from __future__ import annotations
@@ -51,8 +53,8 @@ def _operand(x, dtype):
 
 def attention_plain(q, k, v, causal: bool, scale: float, with_lse: bool = False):
     """softmax(q kᵀ · scale [+ causal mask]) v in fp32 (fp64 for fp64
-    inputs), cast back to the input dtype; with ``with_lse`` also the row logsumexp, (BH, T) fp32 in
-    natural-log units.  The composition of ``_attention_ref``
+    inputs), cast back to the input dtype; with ``with_lse`` also the row
+    logsumexp, (BH, T) in natural-log units, fp32 (fp64 for fp64 inputs).  The composition of ``_attention_ref``
     (``aesara_tpu/tensor/nnet/attention.py:29-40``); for bfloat16 inputs P
     is rounded to bfloat16 before P·V, as K2 and the reference's flash
     kernel round it."""
@@ -67,7 +69,7 @@ def attention_plain(q, k, v, causal: bool, scale: float, with_lse: bool = False)
     lse = torch.logsumexp(s, dim=-1)
     p = torch.exp(s - lse[..., None])
     out = torch.einsum("bts,bsd->btd", _operand(p, q.dtype), v.to(acc)).to(q.dtype)
-    return (out, lse.float()) if with_lse else out
+    return (out, lse) if with_lse else out
 
 
 def attention_grads_plain(q, k, v, do, causal: bool, scale: float):
@@ -103,7 +105,7 @@ def _library(name: str, defines=()):
 
     lib = load_cuda_library(name, tuple(defines))
     if not getattr(lib, "_typed", False):
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
         entry = getattr(lib, name)
         if name == "flash_fwd":
             entry.argtypes = [p, p, p, p, p, i, i, i, f, i, i, p]
@@ -118,10 +120,9 @@ def _library(name: str, defines=()):
 
 
 #: the kernels' dtype codes (their C entry points' ``dtype``)
-_DTYPE_CODES = {"float32": 0, "bfloat16": 1, "float16": 2}
-#: the widest head the kernels take, and their blocks' limit (one grid
-#: dimension of ceil(T / 64) * BH blocks)
-MAX_D = 256
+_DTYPE_CODES = {"float32": 0, "bfloat16": 1, "float16": 2, "float64": 3}
+#: the kernels' blocks' limit (one grid dimension of ceil(T / 64) * BH
+#: blocks, times the D split's chunks)
 MAX_BLOCKS = 2**31 - 1
 
 
@@ -129,23 +130,44 @@ def _dtype_code(t) -> int:
     return _DTYPE_CODES[str(t.dtype).split(".")[-1]]
 
 
+def split_chunk(dtype) -> int:
+    """The widest head that the kernels' variants for ``dtype`` (a torch
+    dtype) take whole: 128 for float64 (an fp64 sum takes two registers),
+    256 for the others.  A wider head takes the D split, in chunks of it."""
+    import torch
+
+    return 128 if dtype == torch.float64 else 256
+
+
+def chunks(D: int, dtype) -> int:
+    """The D split's chunks of a head of width ``D`` (1: no split)."""
+    return -(-D // split_chunk(dtype))
+
+
 def _check_cuda_panels(name: str, *ts):
     """Raise unless the tensors are (BH, T, D) panels of one shape, one
-    dtype (float32, bfloat16 or float16) and one CUDA device that the
-    kernels take."""
+    dtype (float32, bfloat16, float16 or float64) and one CUDA device that
+    the kernels take."""
     q = ts[0]
     if any(t.device != q.device for t in ts) or q.device.type != "cuda":
         raise ValueError(f"{name}: operands on {', '.join(str(t.device) for t in ts)}")
     if any(t.dtype != q.dtype for t in ts) or str(q.dtype).split(".")[-1] not in _DTYPE_CODES:
-        raise TypeError(f"{name} takes float32, bfloat16 or float16 on the card, got "
-                        f"{', '.join(str(t.dtype) for t in ts)}")
+        raise TypeError(f"{name} takes float32, bfloat16, float16 or float64 panels of one dtype on the card, "
+                        f"got {', '.join(str(t.dtype) for t in ts)}")
     if q.dim() != 3 or any(t.shape != q.shape for t in ts):
         raise ValueError(f"{name} needs equal (BH, T, D) shapes, got "
                          f"{', '.join(str(tuple(t.shape)) for t in ts)}")
     BH, T, D = q.shape
-    if D > MAX_D or -(-T // 64) * BH > MAX_BLOCKS:
-        raise ValueError(f"{name} kernel takes D <= {MAX_D} and ceil(T / 64) * BH <= {MAX_BLOCKS}, got "
-                         f"{tuple(q.shape)}")
+    if -(-T // 64) * BH * chunks(D, q.dtype) > MAX_BLOCKS:
+        raise ValueError(f"{name} kernel takes ceil(T / 64) * BH * ceil(D / {split_chunk(q.dtype)}) <= "
+                         f"{MAX_BLOCKS} blocks, got {tuple(q.shape)}")
+
+
+def _sums_dtype(dtype):
+    """The kernels' sums, lse and D: float64 for float64, else float32."""
+    import torch
+
+    return torch.float64 if dtype == torch.float64 else torch.float32
 
 
 def cp_async_width(D: int, itemsize: int) -> int:
@@ -175,7 +197,7 @@ def _flash_fwd(q, k, v, causal: bool, scale: float, with_lse: bool):
 
     BH, T, width = q.shape
     out = torch.empty_like(q)
-    lse = torch.empty((BH, T), dtype=torch.float32, device=q.device) if with_lse else None
+    lse = torch.empty((BH, T), dtype=_sums_dtype(q.dtype), device=q.device) if with_lse else None
     lib = _library("flash_fwd")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -191,7 +213,8 @@ def flash_attention(q, k, v, causal: bool = False, scale: Optional[float] = None
                     with_lse: bool = False):
     """Attention over (BH, T, D) panels: the CUDA kernel for CUDA tensors
     (3xTF32 tensor-core products for fp32, bf16 and fp16 ones, P as hi +
-    lo in fp16; deterministic), the plain version for CPU tensors."""
+    lo in fp16, fp64 ones with fp64 sums; any D; deterministic), the plain
+    version for CPU tensors."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if all(t.device.type == "cpu" for t in (q, k, v)):
@@ -219,8 +242,8 @@ def flash_attention_grads(q, k, v, do, causal: bool = False, scale: Optional[flo
     gradient ``do`` (cast to q's dtype): the CUDA kernels for CUDA
     tensors, the plain version for CPU tensors.  On the card this re-runs
     the forward kernel (K2) for the output and the row logsumexp, then
-    launches K3's two kernels (3xTF32 tensor-core products for fp32,
-    deterministic), all on the same padded panels."""
+    launches K3's kernels (3xTF32 tensor-core products for fp32, fp64 ones
+    with fp64 sums; deterministic), all on the same padded panels."""
     import torch
 
     if scale is None:
@@ -237,7 +260,7 @@ def flash_attention_grads(q, k, v, do, causal: bool = False, scale: Optional[flo
     o, lse = _flash_fwd(q, k, v, causal, scale, with_lse=True)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     # D = rowsum(dO * O), then (fp16) each row's largest |dO|: the kernels' scratch
-    delta = torch.empty((2, BH, T), dtype=torch.float32, device=q.device)
+    delta = torch.empty((2, BH, T), dtype=_sums_dtype(q.dtype), device=q.device)
     lib = _library("flash_bwd")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.flash_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),

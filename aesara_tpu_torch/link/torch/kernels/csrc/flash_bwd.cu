@@ -25,6 +25,9 @@
 //   - bf16 and fp16 inputs: m16n8k16 in the input type, fp32 accumulation;
 //     P and dS are rounded to bf16 for the second product, as the operands
 //     are, or in fp16 taken as two fp16 terms, hi + lo (flash_mma.cuh).
+//   - fp64 inputs: m16n8k8 .f64 on the fp64 tensor cores with fp64 sums;
+//     P, dS, the lse and D in fp64: 10 * BH*T*T*D = 86 GFLOP of the 5
+//     products at the flagship shape, 1.28 ms at 67 TFLOP/s.
 // The split is what else the fp32 path pays for: it is issued by the same
 // warps as the mma.sync.  It is four instructions, and the walked tiles (the
 // B operands: K and V in the dq kernel, Q and dO in the dkdv kernel) are
@@ -53,7 +56,13 @@
 //     S^T and dP^T, then P^T and dS^T in registers, dV += P^T dO and
 //     dK += dS^T Q.  At D <= 256 dK and dV are 128 registers a thread each,
 //     too many for one thread: the kernel runs twice, a pass for dK (S^T,
-//     dP^T, dS^T) and a pass for dV (S^T, P^T), each with one accumulator.
+//     dP^T, dS^T) and a pass for dV (S^T, P^T), each with one accumulator;
+//     so does fp64 at D <= 128, whose sums take two registers each.
+//   - the D split, for wider heads (over 256, over 128 in fp64): each
+//     block owns one chunk of 256 output columns (128 in fp64) of its rows
+//     and takes S and dP over the whole of D, chunk by chunk in one order,
+//     so every chunk sees the same P and dS; the dq kernel, then a dK pass
+//     and a dV pass (the split kernels below).
 // P and dS never leave the registers: they are the A fragment of the second
 // product (flash_mma.cuh).  The next walked tile arrives by 16-byte cp.async
 // (4-byte for the lse and D rows) into a landing buffer while the warps
@@ -91,9 +100,10 @@
 // Causal: key tiles wholly above the diagonal are skipped (the dq loop
 // stops at the diagonal, the dkdv loop starts there).  Ragged T and D are
 // masked: staged tiles are zero-filled and entries outside T or above the
-// diagonal take P = 0.  D <= 256 (variants for D <= 64, 128 and 256).
-// Inputs must be contiguous (BH, T, D), fp32, bf16 or fp16, all of one
-// dtype, with D a multiple of 16 bytes and q, k, v, dout 16-byte aligned.
+// diagonal take P = 0.  Any D (variants for D <= 64, 128 and 256, fp64 64
+// and 128, then the D split).  Inputs must be contiguous (BH, T, D), fp32,
+// bf16, fp16 or fp64, all of one dtype, with D a multiple of 16 bytes and
+// q, k, v, dout 16-byte aligned.
 
 #include <type_traits>
 
@@ -107,11 +117,12 @@ template <typename T, int DMAX>
 __host__ __device__ constexpr int walk() { return Mma<T>::SPLIT && DMAX > 128 ? 8 : 16; }
 
 // resident blocks an SM asked of ptxas: three at D <= 64 (61 KB of shared
-// memory a block in fp32, so registers are the limit), one above
-template <int DMAX>
-__host__ __device__ constexpr int min_blocks() { return DMAX <= 64 ? 3 : 1; }
+// memory a block in fp32, so registers are the limit), one above, and one
+// for fp64, whose two-register sums want all 255
+template <typename T, int DMAX>
+__host__ __device__ constexpr int min_blocks() { return sizeof(T) == 8 || DMAX > 64 ? 1 : 3; }
 
-// the dkdv kernel's accumulators: both, or at D <= 256 one a pass
+// the dkdv kernel's accumulators: both, or at D <= 256 (fp64: D <= 128) one a pass
 enum Part { DK_DV, DK_ONLY, DV_ONLY };
 
 // whether dS is scaled before its split (fp16: see the header)
@@ -161,17 +172,109 @@ __device__ __forceinline__ void scale_ds(float (&ds)[N][4], float (&acc)[M][4], 
   }
 }
 
-// write the warp's 16 x D block of an accumulator (rows from r0) times mul
+// write the warp's 16 x D block of an accumulator (rows from r0, ld values
+// apart) times mul
 template <typename T, int DMAX>
-__device__ __forceinline__ void store_rows(T* __restrict__ out, const float (&acc)[DMAX / 8][4],
-                                           int r0, int T_len, int D, float mul, int g, int t) {
+__device__ __forceinline__ void store_rows(T* __restrict__ out, const Acc<T> (&acc)[DMAX / 8][4],
+                                           int r0, int T_len, int D, Acc<T> mul, int g, int t, int ld) {
 #pragma unroll
   for (int n = 0; n < DMAX / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int r = r0 + g + 8 * (e >> 1), d = n * 8 + 2 * t + (e & 1);
-      if (r < T_len && d < D) out[(size_t)r * D + d] = from_float<T>(acc[n][e] * mul);
+      if (r < T_len && d < D) out[(size_t)r * ld + d] = from_float<T>(acc[n][e] * mul);
     }
+}
+
+template <typename A, int N>
+__device__ __forceinline__ void zero(A (&acc)[N][4]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = A(0);
+}
+
+// fp16: the sums divided by the rows' dS scales again (powers of two: exact)
+template <int N>
+__device__ __forceinline__ void unscale(float (&acc)[N][4], const float (&c)[2]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] /= c[e >> 1];
+}
+
+// D of the warp's 16 rows from r0 (rowsum(dO * O) over D, read from dO's
+// rows in `dout` (ld values apart) and O's in `o`), then (fp16) the rows'
+// scales of dS from their largest |dO|: the thread keeps rows g and g + 8's
+// in Dr and Cr; lane 0 writes D to delta_row and (fp16) the largest |dO| to
+// rowmax_row when `write`
+template <typename T>
+__device__ __forceinline__ void row_deltas(const T* dout, int ld, const T* __restrict__ o, int r0, int T_len,
+                                           int D, Acc<T> (&Dr)[2], float (&Cr)[2], Acc<T>* delta_row,
+                                           Acc<T>* rowmax_row, bool write, int lane, int g) {
+  using A = Acc<T>;
+#pragma unroll
+  for (int r = 0; r < 16; ++r) {
+    const int gr = r0 + r;
+    A acc = A(0);
+    float mx = 0.f;
+    if (gr < T_len)
+      for (int d = lane; d < D; d += 32) {
+        const A x = to_float(dout[(size_t)r * ld + d]);
+        acc = afma(x, to_float(o[(size_t)gr * D + d]), acc);
+        if constexpr (scales_ds<T>()) mx = fmaxf(mx, fabsf(x));
+      }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(FULL, acc, off);
+    if (r == g) Dr[0] = acc;
+    if (r == g + 8) Dr[1] = acc;
+    if (write && lane == 0 && gr < T_len) delta_row[gr] = acc;
+    if constexpr (scales_ds<T>()) {
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, off));
+      if (r == g) Cr[0] = pow2_scale(mx);
+      if (r == g + 8) Cr[1] = pow2_scale(mx);
+      if (write && lane == 0 && gr < T_len) rowmax_row[gr] = mx;
+    }
+  }
+}
+
+// dS = P (dP - D) of a walked key tile in the dq kernels: P from S and the
+// rows' lse (log2 units), masked past T and (causal) above the diagonal
+template <typename A, int WALK>
+__device__ __forceinline__ void ds_rows(A (&s)[WALK / 8][4], const A (&dp)[WALK / 8][4], const A (&Dr)[2],
+                                        const A (&Lr)[2], A scale_log2, int qr0, int k0, int T_len, bool causal,
+                                        int t) {
+#pragma unroll
+  for (int n = 0; n < WALK / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int h = e >> 1, qr = qr0 + 8 * h, kc = k0 + n * 8 + 2 * t + (e & 1);
+      const bool valid = qr < T_len && kc < T_len && (!causal || kc <= qr);
+      const A p = valid ? aexp2(afma(s[n][e], scale_log2, -Lr[h])) : A(0);
+      s[n][e] = p * (dp[n][e] - Dr[h]);   // dS
+    }
+}
+
+// P^T and dS^T of a walked query tile in the dkdv kernels: rows are the
+// warp's keys from kr0, columns the tile's queries from q0, whose lse and D
+// are Lb and Db
+template <typename A, int WALK>
+__device__ __forceinline__ void p_ds_cols(A (&s)[WALK / 8][4], A (&dp)[WALK / 8][4], const A* Lb, const A* Db,
+                                          A scale_log2, int kr0, int q0, int T_len, bool causal, int t) {
+#pragma unroll
+  for (int n = 0; n < WALK / 8; ++n) {
+    const int c = n * 8 + 2 * t;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int kr = kr0 + 8 * (e >> 1), qc = q0 + c + (e & 1);
+      const bool valid = qc < T_len && kr < T_len && (!causal || kr <= qc);
+      const A lc = Lb[c + (e & 1)], dc = Db[c + (e & 1)];
+      const A p = valid ? aexp2(afma(s[n][e], scale_log2, -lc * Units<A>::LOG2E)) : A(0);
+      s[n][e] = p;                      // P^T
+      dp[n][e] = p * (dp[n][e] - dc);   // dS^T
+    }
+  }
 }
 
 // two owned tiles and the walked operands' buffers
@@ -185,15 +288,16 @@ constexpr size_t dq_smem_bytes() { return tiles_bytes<T, DMAX>(); }
 
 template <typename T, int DMAX>
 constexpr size_t dkdv_smem_bytes() {
-  return tiles_bytes<T, DMAX>() + sizeof(float) * 4 * walk<T, DMAX>();   // two buffers of the lse, D rows
+  return tiles_bytes<T, DMAX>() + sizeof(Acc<T>) * 4 * walk<T, DMAX>();   // two buffers of the lse, D rows
 }
 
 template <typename T, int DMAX>
-__global__ void __launch_bounds__(THREADS, min_blocks<DMAX>())
+__global__ void __launch_bounds__(THREADS, min_blocks<T, DMAX>())
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     const T* __restrict__ o, const T* __restrict__ dout,
-                    const float* __restrict__ lse, T* __restrict__ dq, float* __restrict__ delta,
-                    int T_len, int D, float scale, int causal) {
+                    const Acc<T>* __restrict__ lse, T* __restrict__ dq, Acc<T>* __restrict__ delta,
+                    int T_len, int D, Acc<T> scale, int causal) {
+  using A = Acc<T>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int P = pitch<T, DMAX>(), WALK = walk<T, DMAX>();
   T* Qs = reinterpret_cast<T*>(smem_raw);   // [OWN][P]
@@ -204,7 +308,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const int n_b = (T_len + OWN - 1) / OWN;   // block (bh, row block), a bh's in turn
   const int bh = blockIdx.x / n_b, q0 = blockIdx.x % n_b * OWN, w0 = warp * 16;
   const size_t base = (size_t)bh * T_len * D;
-  const float scale_log2 = scale * LOG2E;
+  const A scale_log2 = scale * Units<A>::LOG2E;
   const int n_tiles = ((causal ? min(T_len, q0 + OWN) : T_len) + WALK - 1) / WALK;
 
   stage_tile<T, DMAX, OWN>(Qs, q + base, q0, T_len, D);
@@ -219,43 +323,20 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   // D, the lse (log2 units) and (fp16) dS's scale of the thread's rows
   // w0 + g and w0 + g + 8; each row's largest |dO| goes beside D for the
   // dkdv kernel
-  float Dr[2] = {0.f, 0.f}, Lr[2], Cr[2] = {1.f, 1.f};
-  float* rowmax = delta + (size_t)(gridDim.x / n_b) * T_len;
-#pragma unroll
-  for (int r = 0; r < 16; ++r) {
-    const int gr = q0 + w0 + r;
-    float acc = 0.f, mx = 0.f;
-    if (gr < T_len)
-      for (int d = lane; d < D; d += 32) {
-        const float x = to_float(dOs[(w0 + r) * P + d]);
-        acc = fmaf(x, to_float(o[base + (size_t)gr * D + d]), acc);
-        mx = fmaxf(mx, fabsf(x));
-      }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(FULL, acc, off);
-    if (r == g) Dr[0] = acc;
-    if (r == g + 8) Dr[1] = acc;
-    if (lane == 0 && gr < T_len) delta[(size_t)bh * T_len + gr] = acc;
-    if constexpr (scales_ds<T>()) {
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, off));
-      if (r == g) Cr[0] = pow2_scale(mx);
-      if (r == g + 8) Cr[1] = pow2_scale(mx);
-      if (lane == 0 && gr < T_len) rowmax[(size_t)bh * T_len + gr] = mx;
-    }
-  }
+  A Dr[2] = {A(0), A(0)}, Lr[2];
+  float Cr[2] = {1.f, 1.f};
+  A* rowmax = delta + (size_t)(gridDim.x / n_b) * T_len;
+  row_deltas<T>(dOs + w0 * P, P, o + base, q0 + w0, T_len, D, Dr, Cr, delta + (size_t)bh * T_len,
+                rowmax + (size_t)bh * T_len, true, lane, g);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int gr = q0 + w0 + g + 8 * h;
-    Lr[h] = gr < T_len ? lse[(size_t)bh * T_len + gr] * LOG2E : 0.f;
+    Lr[h] = gr < T_len ? lse[(size_t)bh * T_len + gr] * Units<A>::LOG2E : A(0);
   }
   __syncthreads();   // tile 0 is split (fp32)
 
-  float acc[DMAX / 8][4];
-#pragma unroll
-  for (int n = 0; n < DMAX / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  A acc[DMAX / 8][4];
+  zero(acc);
 
   for (int kt = 0; kt < n_tiles; ++kt) {
     const bool next = kt + 1 < n_tiles;
@@ -267,78 +348,69 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     const Prep<T>* Kp = kv.read(kt, 0);
     const Prep<T>* Vp = kv.read(kt, 1);
 
-    float s[WALK / 8][4], dp[WALK / 8][4];
-#pragma unroll
-    for (int n = 0; n < WALK / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+    A s[WALK / 8][4], dp[WALK / 8][4];
+    zero(s);
+    zero(dp);
     mma_rows_rows<T, DMAX, WALK>(s, Qs + w0 * P, Kp, g, t);
     mma_rows_rows<T, DMAX, WALK>(dp, dOs + w0 * P, Vp, g, t);
 
-    const int k0 = kt * WALK;
-#pragma unroll
-    for (int n = 0; n < WALK / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int h = e >> 1, qr = q0 + w0 + g + 8 * h, kc = k0 + n * 8 + 2 * t + (e & 1);
-        const bool valid = qr < T_len && kc < T_len && (!causal || kc <= qr);
-        const float p = valid ? exp2f(fmaf(s[n][e], scale_log2, -Lr[h])) : 0.f;
-        s[n][e] = p * (dp[n][e] - Dr[h]);   // dS
-      }
+    ds_rows<A, WALK>(s, dp, Dr, Lr, scale_log2, q0 + w0 + g, kt * WALK, T_len, causal, t);
     if constexpr (scales_ds<T>()) scale_ds(s, acc, Cr);
     mma_regs_rows<T, DMAX, WALK>(acc, s, Kp, g, t);
 
     if (next) kv.next();
   }
 
-  if constexpr (scales_ds<T>())
+  if constexpr (scales_ds<T>()) unscale(acc, Cr);
+  store_rows<T, DMAX>(dq + base, acc, q0 + w0, T_len, D, scale, g, t, D);
+}
+
+// fp16: dS^T's scale for a block's key rows, from the largest |dO| of the
+// panel's rows (the dq kernel's, in rowmax_row)
+template <typename A>
+__device__ __forceinline__ float panel_ds_scale(const A* rowmax_row, int T_len, int warp, int lane) {
+  __shared__ float red[WARPS];
+  float m = 0.f;
+  for (int i = threadIdx.x; i < T_len; i += THREADS) m = fmaxf(m, rowmax_row[i]);
 #pragma unroll
-    for (int n = 0; n < DMAX / 8; ++n)
+  for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(FULL, m, off));
+  if (lane == 0) red[warp] = m;
+  __syncthreads();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[n][e] /= Cr[e >> 1];   // a power of two: exact
-  store_rows<T, DMAX>(dq + base, acc, q0 + w0, T_len, D, scale, g, t);
+  for (int w = 0; w < WARPS; ++w) m = fmaxf(m, red[w]);
+  return pow2_scale(m);
 }
 
 template <typename T, int DMAX, Part PART>
-__global__ void __launch_bounds__(THREADS, min_blocks<DMAX>())
+__global__ void __launch_bounds__(THREADS, min_blocks<T, DMAX>())
 flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                      const T* __restrict__ dout, const float* __restrict__ lse,
-                      const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-                      int T_len, int D, float scale, int causal) {
+                      const T* __restrict__ dout, const Acc<T>* __restrict__ lse,
+                      const Acc<T>* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+                      int T_len, int D, Acc<T> scale, int causal) {
+  using A = Acc<T>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int P = pitch<T, DMAX>(), WALK = walk<T, DMAX>();
   constexpr bool DK = PART != DV_ONLY, DV = PART != DK_ONLY;
   T* Ks = reinterpret_cast<T*>(smem_raw);   // [OWN][P]
   T* Vs = Ks + OWN * P;                     // [OWN][P]
   unsigned char* walked = reinterpret_cast<unsigned char*>(Vs + OWN * P);
-  const Walked<T, DMAX, WALK> qdo(walked);                                     // Q, dO
-  float* Ls = reinterpret_cast<float*>(walked + Walked<T, DMAX, WALK>::BYTES);  // [2][WALK] lse
-  float* Ds = Ls + 2 * WALK;                                                   // [2][WALK] D
+  const Walked<T, DMAX, WALK> qdo(walked);                                 // Q, dO
+  A* Ls = reinterpret_cast<A*>(walked + Walked<T, DMAX, WALK>::BYTES);     // [2][WALK] lse
+  A* Ds = Ls + 2 * WALK;                                                   // [2][WALK] D
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int n_b = (T_len + OWN - 1) / OWN;   // block (bh, row block), a bh's in turn
   const int bh = blockIdx.x / n_b, k0 = blockIdx.x % n_b * OWN, w0 = warp * 16;
   const size_t base = (size_t)bh * T_len * D;
-  const float* lse_row = lse + (size_t)bh * T_len;
-  const float* delta_row = delta + (size_t)bh * T_len;
+  const A* lse_row = lse + (size_t)bh * T_len;
+  const A* delta_row = delta + (size_t)bh * T_len;
   // fp16: dS^T's scale for each of the thread's two key rows, from the
   // largest |dO| of the panel's rows (the dq kernel's), lowered by scale_ds
   float ds_scale = 1.f;
-  if constexpr (scales_ds<T>() && DK) {
-    __shared__ float red[WARPS];
-    const float* rowmax = delta + (size_t)(gridDim.x / n_b) * T_len + (size_t)bh * T_len;
-    float m = 0.f;
-    for (int i = threadIdx.x; i < T_len; i += THREADS) m = fmaxf(m, rowmax[i]);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(FULL, m, off));
-    if (lane == 0) red[warp] = m;
-    __syncthreads();
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) m = fmaxf(m, red[w]);
-    ds_scale = pow2_scale(m);
-  }
+  if constexpr (scales_ds<T>() && DK)
+    ds_scale = panel_ds_scale(delta + (size_t)(gridDim.x / n_b) * T_len + (size_t)bh * T_len, T_len, warp, lane);
   float Cr[2] = {ds_scale, ds_scale};
-  const float scale_log2 = scale * LOG2E;
+  const A scale_log2 = scale * Units<A>::LOG2E;
   // causal: query tiles wholly above this key tile see none of its keys
   const int qt0 = causal ? k0 / WALK : 0;
   const int n_qt = (T_len + WALK - 1) / WALK;
@@ -363,50 +435,26 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
     __syncthreads();
   }
 
-  float dk_acc[DK ? DMAX / 8 : 1][4], dv_acc[DV ? DMAX / 8 : 1][4];
-#pragma unroll
-  for (int n = 0; n < (DK ? DMAX / 8 : 1); ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[n][e] = 0.f;
-#pragma unroll
-  for (int n = 0; n < (DV ? DMAX / 8 : 1); ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dv_acc[n][e] = 0.f;
+  A dk_acc[DK ? DMAX / 8 : 1][4], dv_acc[DV ? DMAX / 8 : 1][4];
+  zero(dk_acc);
+  zero(dv_acc);
 
   for (int qt = qt0; qt < n_qt; ++qt) {
     const int buf = (qt - qt0) & 1;
     const bool next = qt + 1 < n_qt;
     if (next) stage_queries(qt + 1, buf ^ 1);   // lands while this tile is computed
-    const float* Lb = Ls + buf * WALK;
-    const float* Db = Ds + buf * WALK;
     const Prep<T>* Qp = qdo.read(buf, 0);
     const Prep<T>* dOp = qdo.read(buf, 1);
 
     // S^T and dP^T: rows are the warp's keys, columns the tile's queries
-    float s[WALK / 8][4], dp[WALK / 8][4];
-#pragma unroll
-    for (int n = 0; n < WALK / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+    A s[WALK / 8][4], dp[WALK / 8][4];
+    zero(s);
+    zero(dp);
     mma_rows_rows<T, DMAX, WALK>(s, Ks + w0 * P, Qp, g, t);
     if constexpr (DK) mma_rows_rows<T, DMAX, WALK>(dp, Vs + w0 * P, dOp, g, t);
 
-    const int q0 = qt * WALK;
-#pragma unroll
-    for (int n = 0; n < WALK / 8; ++n) {
-      const int c = n * 8 + 2 * t;
-      const float2 l = *reinterpret_cast<const float2*>(Lb + c);
-      const float2 dd = *reinterpret_cast<const float2*>(Db + c);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kr = k0 + w0 + g + 8 * (e >> 1), qc = q0 + c + (e & 1);
-        const bool valid = qc < T_len && kr < T_len && (!causal || kr <= qc);
-        const float lc = (e & 1) ? l.y : l.x, dc = (e & 1) ? dd.y : dd.x;
-        const float p = valid ? exp2f(fmaf(s[n][e], scale_log2, -lc * LOG2E)) : 0.f;
-        s[n][e] = p;                   // P^T
-        dp[n][e] = p * (dp[n][e] - dc);   // dS^T
-      }
-    }
+    p_ds_cols<A, WALK>(s, dp, Ls + buf * WALK, Ds + buf * WALK, scale_log2, k0 + w0 + g, qt * WALK, T_len,
+                       causal, t);
     if constexpr (scales_ds<T>() && DK) scale_ds(dp, dk_acc, Cr);
     if constexpr (DV) mma_regs_rows<T, DMAX, WALK>(dv_acc, s, dOp, g, t);
     if constexpr (DK) mma_regs_rows<T, DMAX, WALK>(dk_acc, dp, Qp, g, t);
@@ -414,88 +462,292 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
     if (next) qdo.next();
   }
 
+  if constexpr (scales_ds<T>() && DK) unscale(dk_acc, Cr);
+  if constexpr (DK) store_rows<T, DMAX>(dk + base, dk_acc, k0 + w0, T_len, D, scale, g, t, D);
+  if constexpr (DV) store_rows<T, DMAX>(dv + base, dv_acc, k0 + w0, T_len, D, A(1), g, t, D);
+}
+
+// ---------------------------------------------------------------------------
+// The D split: panels wider than the variants' DMAX (fp32, bf16, fp16: 256;
+// fp64: 128).  A block owns (bh, 64 rows, one chunk of DC output columns),
+// the chunks of a row block in turn.  For each walked tile it takes S (and
+// dP) over the whole of D, staging the owned and walked rows' columns DC at
+// a time in one order, so every chunk's block computes the same P and dS,
+// then stages the walked operand's chunk c for its product.  D is taken
+// from dO and O in device memory over the whole row, in the order of the
+// dq kernel above, and written by the chunk-0 blocks.  The dkdv kernel runs
+// as two passes, dK then dV.  Nothing is staged ahead: the simple form.
+// ---------------------------------------------------------------------------
+
+template <typename T>
+constexpr int dmax_of() { return sizeof(T) == 8 ? 128 : 256; }
+
+template <typename T, int DC>
+constexpr size_t split_dq_smem_bytes() { return tiles_bytes<T, DC>(); }
+
+template <typename T, int DC>
+constexpr size_t split_dkdv_smem_bytes() { return tiles_bytes<T, DC>() + sizeof(Acc<T>) * 2 * walk<T, DC>(); }
+
+template <typename T, int DC>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dq_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                          const T* __restrict__ o, const T* __restrict__ dout,
+                          const Acc<T>* __restrict__ lse, T* __restrict__ dq, Acc<T>* __restrict__ delta,
+                          int T_len, int D, Acc<T> scale, int causal) {
+  using A = Acc<T>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int P = pitch<T, DC>(), WALK = walk<T, DC>();
+  T* Qs = reinterpret_cast<T*>(smem_raw);   // [OWN][P]: a chunk of the owned Q rows
+  T* dOs = Qs + OWN * P;                    // [OWN][P]: of dO
+  const Walked<T, DC, WALK> kv(reinterpret_cast<unsigned char*>(dOs + OWN * P));   // chunks of K, V
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int n_c = (D + DC - 1) / DC, n_b = (T_len + OWN - 1) / OWN;
+  const int c = blockIdx.x % n_c, rb = blockIdx.x / n_c;
+  const int bh = rb / n_b, q0 = rb % n_b * OWN, w0 = warp * 16, c0 = c * DC;
+  const size_t base = (size_t)bh * T_len * D;
+  const A scale_log2 = scale * Units<A>::LOG2E;
+  const int n_tiles = ((causal ? min(T_len, q0 + OWN) : T_len) + WALK - 1) / WALK;
+
+  A Dr[2] = {A(0), A(0)}, Lr[2];
+  float Cr[2] = {1.f, 1.f};
+  A* rowmax = delta + (size_t)(gridDim.x / (n_b * n_c)) * T_len;
+  row_deltas<T>(dout + base + (size_t)(q0 + w0) * D, D, o + base, q0 + w0, T_len, D, Dr, Cr,
+                delta + (size_t)bh * T_len, rowmax + (size_t)bh * T_len, c == 0, lane, g);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int gr = q0 + w0 + g + 8 * h;
+    Lr[h] = gr < T_len ? lse[(size_t)bh * T_len + gr] * Units<A>::LOG2E : A(0);
+  }
+
+  A acc[DC / 8][4];
+  zero(acc);
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int k0 = kt * WALK;
+    A s[WALK / 8][4], dp[WALK / 8][4];
+    zero(s);
+    zero(dp);
+    for (int dc = 0; dc < n_c; ++dc) {
+      const int d0 = dc * DC, cols = min(DC, D - d0);
+      stage_cols<T, DC, OWN>(Qs, q + base + d0, q0, T_len, cols, D);
+      stage_cols<T, DC, OWN>(dOs, dout + base + d0, q0, T_len, cols, D);
+      stage_cols<T, DC, WALK>(kv.landing(0, 0), k + base + d0, k0, T_len, cols, D);
+      stage_cols<T, DC, WALK>(kv.landing(0, 1), v + base + d0, k0, T_len, cols, D);
+      cp_async_commit();
+      cp_async_wait_all();
+      __syncthreads();
+      kv.prepare();
+      if constexpr (Walked<T, DC, WALK>::SPLIT) __syncthreads();
+      mma_rows_rows<T, DC, WALK>(s, Qs + w0 * P, kv.read(0, 0), g, t);
+      mma_rows_rows<T, DC, WALK>(dp, dOs + w0 * P, kv.read(0, 1), g, t);
+      __syncthreads();   // every warp is done with the chunk before the next lands
+    }
+    // K's chunk c for dQ_c += dS K_c
+    stage_cols<T, DC, WALK>(kv.landing(0, 0), k + base + c0, k0, T_len, min(DC, D - c0), D);
+    cp_async_commit();
+    ds_rows<A, WALK>(s, dp, Dr, Lr, scale_log2, q0 + w0 + g, k0, T_len, causal, t);
+    if constexpr (scales_ds<T>()) scale_ds(s, acc, Cr);
+    cp_async_wait_all();
+    __syncthreads();
+    kv.prepare();
+    if constexpr (Walked<T, DC, WALK>::SPLIT) __syncthreads();
+    mma_regs_rows<T, DC, WALK>(acc, s, kv.read(0, 0), g, t);
+    __syncthreads();
+  }
+
+  if constexpr (scales_ds<T>()) unscale(acc, Cr);
+  store_rows<T, DC>(dq + base + c0, acc, q0 + w0, T_len, min(DC, D - c0), scale, g, t, D);
+}
+
+template <typename T, int DC, Part PART>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dkdv_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                            const T* __restrict__ dout, const Acc<T>* __restrict__ lse,
+                            const Acc<T>* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+                            int T_len, int D, Acc<T> scale, int causal) {
+  static_assert(PART != DK_DV, "the D split runs dK and dV as two passes");
+  using A = Acc<T>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int P = pitch<T, DC>(), WALK = walk<T, DC>();
+  constexpr bool DK = PART == DK_ONLY;
+  T* Ks = reinterpret_cast<T*>(smem_raw);   // [OWN][P]: a chunk of the owned K rows
+  T* Vs = Ks + OWN * P;                     // [OWN][P]: of V (dK's pass)
+  unsigned char* walked = reinterpret_cast<unsigned char*>(Vs + OWN * P);
+  const Walked<T, DC, WALK> qdo(walked);                                // chunks of Q, dO
+  A* Ls = reinterpret_cast<A*>(walked + Walked<T, DC, WALK>::BYTES);    // [WALK] lse
+  A* Ds = Ls + WALK;                                                    // [WALK] D
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int n_c = (D + DC - 1) / DC, n_b = (T_len + OWN - 1) / OWN;
+  const int c = blockIdx.x % n_c, rb = blockIdx.x / n_c;
+  const int bh = rb / n_b, k0 = rb % n_b * OWN, w0 = warp * 16, c0 = c * DC;
+  const size_t base = (size_t)bh * T_len * D;
+  const A* lse_row = lse + (size_t)bh * T_len;
+  const A* delta_row = delta + (size_t)bh * T_len;
+  float ds_scale = 1.f;
   if constexpr (scales_ds<T>() && DK)
-#pragma unroll
-    for (int n = 0; n < DMAX / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dk_acc[n][e] /= Cr[e >> 1];   // a power of two: exact
-  if constexpr (DK) store_rows<T, DMAX>(dk + base, dk_acc, k0 + w0, T_len, D, scale, g, t);
-  if constexpr (DV) store_rows<T, DMAX>(dv + base, dv_acc, k0 + w0, T_len, D, 1.f, g, t);
+    ds_scale = panel_ds_scale(delta + (size_t)(gridDim.x / (n_b * n_c)) * T_len + (size_t)bh * T_len, T_len,
+                              warp, lane);
+  float Cr[2] = {ds_scale, ds_scale};
+  const A scale_log2 = scale * Units<A>::LOG2E;
+  const int qt0 = causal ? k0 / WALK : 0;
+  const int n_qt = (T_len + WALK - 1) / WALK;
+
+  A acc[DC / 8][4];
+  zero(acc);
+
+  for (int qt = qt0; qt < n_qt; ++qt) {
+    A s[WALK / 8][4], dp[WALK / 8][4];
+    zero(s);
+    zero(dp);
+    for (int dc = 0; dc < n_c; ++dc) {
+      const int d0 = dc * DC, cols = min(DC, D - d0);
+      stage_cols<T, DC, OWN>(Ks, k + base + d0, k0, T_len, cols, D);
+      stage_cols<T, DC, WALK>(qdo.landing(0, 0), q + base + d0, qt * WALK, T_len, cols, D);
+      if constexpr (DK) {
+        stage_cols<T, DC, OWN>(Vs, v + base + d0, k0, T_len, cols, D);
+        stage_cols<T, DC, WALK>(qdo.landing(0, 1), dout + base + d0, qt * WALK, T_len, cols, D);
+      }
+      if (dc == 0) {
+        if (threadIdx.x < WALK) stage_row(Ls, lse_row, qt * WALK, T_len, threadIdx.x);
+        else if (threadIdx.x < 2 * WALK) stage_row(Ds, delta_row, qt * WALK, T_len, threadIdx.x - WALK);
+      }
+      cp_async_commit();
+      cp_async_wait_all();
+      __syncthreads();
+      qdo.prepare();
+      if constexpr (Walked<T, DC, WALK>::SPLIT) __syncthreads();
+      mma_rows_rows<T, DC, WALK>(s, Ks + w0 * P, qdo.read(0, 0), g, t);
+      if constexpr (DK) mma_rows_rows<T, DC, WALK>(dp, Vs + w0 * P, qdo.read(0, 1), g, t);
+      __syncthreads();
+    }
+    // the walked operand's chunk c: Q's for dK_c += dS^T Q_c, dO's for dV_c += P^T dO_c
+    stage_cols<T, DC, WALK>(qdo.landing(0, DK ? 0 : 1), (DK ? q : dout) + base + c0, qt * WALK, T_len,
+                            min(DC, D - c0), D);
+    cp_async_commit();
+    p_ds_cols<A, WALK>(s, dp, Ls, Ds, scale_log2, k0 + w0 + g, qt * WALK, T_len, causal, t);
+    if constexpr (scales_ds<T>() && DK) scale_ds(dp, acc, Cr);
+    cp_async_wait_all();
+    __syncthreads();
+    qdo.prepare();
+    if constexpr (Walked<T, DC, WALK>::SPLIT) __syncthreads();
+    if constexpr (DK) mma_regs_rows<T, DC, WALK>(acc, dp, qdo.read(0, 0), g, t);
+    else mma_regs_rows<T, DC, WALK>(acc, s, qdo.read(0, 1), g, t);
+    __syncthreads();
+  }
+
+  if constexpr (scales_ds<T>() && DK) unscale(acc, Cr);
+  store_rows<T, DC>((DK ? dk : dv) + base + c0, acc, k0 + w0, T_len, min(DC, D - c0), DK ? scale : A(1), g, t, D);
 }
 
 // the dkdv passes of a variant: one with both accumulators, or at D <= 256
-// a pass for dK and one for dV
-template <int DMAX>
-constexpr bool split_dkdv() { return DMAX > 128; }
+// (fp64: D <= 128) a pass for dK and one for dV
+template <typename T, int DMAX>
+constexpr bool split_dkdv() { return DMAX > 128 || (sizeof(T) == 8 && DMAX > 64); }
 
 template <typename T, int DMAX>
 cudaError_t set_smem_limits() {
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, DMAX>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)dq_smem_bytes<T, DMAX>());
-  if (err != cudaSuccess) return err;
-  const int bytes = (int)dkdv_smem_bytes<T, DMAX>();
-  if constexpr (!split_dkdv<DMAX>())
-    return cudaFuncSetAttribute(flash_bwd_dkdv_kernel<T, DMAX, DK_DV>,
+  if constexpr (DMAX == 0) {
+    constexpr int DC = dmax_of<T>();
+    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_split_kernel<T, DC>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)split_dq_smem_bytes<T, DC>());
+    if (err != cudaSuccess) return err;
+    const int bytes = (int)split_dkdv_smem_bytes<T, DC>();
+    err = cudaFuncSetAttribute(flash_bwd_dkdv_split_kernel<T, DC, DK_ONLY>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+    return cudaFuncSetAttribute(flash_bwd_dkdv_split_kernel<T, DC, DV_ONLY>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<T, DMAX, DK_ONLY>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return err;
-  return cudaFuncSetAttribute(flash_bwd_dkdv_kernel<T, DMAX, DV_ONLY>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  } else {
+    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, DMAX>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)dq_smem_bytes<T, DMAX>());
+    if (err != cudaSuccess) return err;
+    const int bytes = (int)dkdv_smem_bytes<T, DMAX>();
+    if constexpr (!split_dkdv<T, DMAX>())
+      return cudaFuncSetAttribute(flash_bwd_dkdv_kernel<T, DMAX, DK_DV>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<T, DMAX, DK_ONLY>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+    return cudaFuncSetAttribute(flash_bwd_dkdv_kernel<T, DMAX, DV_ONLY>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  }
 }
 
 template <typename T, int DMAX>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
-                   const float* lse, void* dq, void* dk, void* dv, float* delta, int BH,
-                   int T_len, int D, float scale, int causal, cudaStream_t stream) {
+                   const void* lse, void* dq, void* dk, void* dv, void* delta, int BH,
+                   int T_len, int D, double scale, int causal, cudaStream_t stream) {
+  using A = Acc<T>;
   cudaError_t err = set_smem_limits<T, DMAX>();
   if (err != cudaSuccess) return err;
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
   const T* dot = static_cast<const T*>(dout);
-  const int grid = (T_len + OWN - 1) / OWN * BH;   // under 2^31: see flash_bwd
-  flash_bwd_dq_kernel<T, DMAX><<<grid, THREADS, dq_smem_bytes<T, DMAX>(), stream>>>(
-      qt, kt, vt, static_cast<const T*>(o), dot, lse, static_cast<T*>(dq), delta, T_len, D, scale,
-      causal);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  // same stream: reads the D that the first kernel wrote
-  const size_t bytes = dkdv_smem_bytes<T, DMAX>();
+  const A* lset = static_cast<const A*>(lse);
+  A* deltat = static_cast<A*>(delta);
   T* dkt = static_cast<T*>(dk);
   T* dvt = static_cast<T*>(dv);
-  if constexpr (!split_dkdv<DMAX>()) {
-    flash_bwd_dkdv_kernel<T, DMAX, DK_DV><<<grid, THREADS, bytes, stream>>>(
-        qt, kt, vt, dot, lse, delta, dkt, dvt, T_len, D, scale, causal);
-  } else {
-    flash_bwd_dkdv_kernel<T, DMAX, DK_ONLY><<<grid, THREADS, bytes, stream>>>(
-        qt, kt, vt, dot, lse, delta, dkt, dvt, T_len, D, scale, causal);
+  const A sc = A(scale);
+  if constexpr (DMAX == 0) {
+    constexpr int DC = dmax_of<T>();
+    const int grid = (T_len + OWN - 1) / OWN * BH * ((D + DC - 1) / DC);   // under 2^31: see flash_bwd
+    flash_bwd_dq_split_kernel<T, DC><<<grid, THREADS, split_dq_smem_bytes<T, DC>(), stream>>>(
+        qt, kt, vt, static_cast<const T*>(o), dot, lset, static_cast<T*>(dq), deltat, T_len, D, sc, causal);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    flash_bwd_dkdv_kernel<T, DMAX, DV_ONLY><<<grid, THREADS, bytes, stream>>>(
-        qt, kt, vt, dot, lse, delta, dkt, dvt, T_len, D, scale, causal);
+    const size_t bytes = split_dkdv_smem_bytes<T, DC>();
+    flash_bwd_dkdv_split_kernel<T, DC, DK_ONLY><<<grid, THREADS, bytes, stream>>>(
+        qt, kt, vt, dot, lset, deltat, dkt, dvt, T_len, D, sc, causal);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    flash_bwd_dkdv_split_kernel<T, DC, DV_ONLY><<<grid, THREADS, bytes, stream>>>(
+        qt, kt, vt, dot, lset, deltat, dkt, dvt, T_len, D, sc, causal);
+    return cudaGetLastError();
+  } else {
+    const int grid = (T_len + OWN - 1) / OWN * BH;   // under 2^31: see flash_bwd
+    flash_bwd_dq_kernel<T, DMAX><<<grid, THREADS, dq_smem_bytes<T, DMAX>(), stream>>>(
+        qt, kt, vt, static_cast<const T*>(o), dot, lset, static_cast<T*>(dq), deltat, T_len, D, sc, causal);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    // same stream: reads the D that the first kernel wrote
+    const size_t bytes = dkdv_smem_bytes<T, DMAX>();
+    if constexpr (!split_dkdv<T, DMAX>()) {
+      flash_bwd_dkdv_kernel<T, DMAX, DK_DV><<<grid, THREADS, bytes, stream>>>(
+          qt, kt, vt, dot, lset, deltat, dkt, dvt, T_len, D, sc, causal);
+    } else {
+      flash_bwd_dkdv_kernel<T, DMAX, DK_ONLY><<<grid, THREADS, bytes, stream>>>(
+          qt, kt, vt, dot, lset, deltat, dkt, dvt, T_len, D, sc, causal);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
+      flash_bwd_dkdv_kernel<T, DMAX, DV_ONLY><<<grid, THREADS, bytes, stream>>>(
+          qt, kt, vt, dot, lset, deltat, dkt, dvt, T_len, D, sc, causal);
+    }
+    return cudaGetLastError();
   }
-  return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_d(const void* q, const void* k, const void* v, const void* o,
-                       const void* dout, const float* lse, void* dq, void* dk, void* dv,
-                       float* delta, int BH, int T_len, int D, float scale, int causal,
+                       const void* dout, const void* lse, void* dq, void* dk, void* dv,
+                       void* delta, int BH, int T_len, int D, double scale, int causal,
                        cudaStream_t stream) {
   // cp.async staging: every staged row a 16-byte multiple, 16-byte aligned
   const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
   if (D % (16 / (int)sizeof(T)) != 0 || !aligned(q) || !aligned(k) || !aligned(v) || !aligned(dout))
     return cudaErrorInvalidValue;
   if (D <= 64)
-    return launch<T, 64>(q, k, v, o, dout, lse, dq, dk, dv, delta, BH, T_len, D, scale, causal,
-                         stream);
+    return launch<T, 64>(q, k, v, o, dout, lse, dq, dk, dv, delta, BH, T_len, D, scale, causal, stream);
   if (D <= 128)
-    return launch<T, 128>(q, k, v, o, dout, lse, dq, dk, dv, delta, BH, T_len, D, scale, causal,
-                          stream);
-  return launch<T, 256>(q, k, v, o, dout, lse, dq, dk, dv, delta, BH, T_len, D, scale, causal,
-                        stream);
+    return launch<T, 128>(q, k, v, o, dout, lse, dq, dk, dv, delta, BH, T_len, D, scale, causal, stream);
+  if (D <= dmax_of<T>())
+    return launch<T, dmax_of<T>()>(q, k, v, o, dout, lse, dq, dk, dv, delta, BH, T_len, D, scale, causal,
+                                   stream);
+  return launch<T, 0>(q, k, v, o, dout, lse, dq, dk, dv, delta, BH, T_len, D, scale, causal, stream);
 }
 
 template <typename T, int DMAX>
@@ -503,15 +755,28 @@ cudaError_t kernel_info(int which, int* info) {
   cudaError_t err = set_smem_limits<T, DMAX>();
   if (err != cudaSuccess) return err;
   // only the variants a launch takes are instantiated
-  const void* fn = (const void*)flash_bwd_dq_kernel<T, DMAX>;
-  if constexpr (!split_dkdv<DMAX>()) {
-    if (which == 2) return cudaErrorInvalidValue;
-    if (which == 1) fn = (const void*)flash_bwd_dkdv_kernel<T, DMAX, DK_DV>;
-  } else if (which > 0) {
-    fn = which == 1 ? (const void*)flash_bwd_dkdv_kernel<T, DMAX, DK_ONLY>
-                    : (const void*)flash_bwd_dkdv_kernel<T, DMAX, DV_ONLY>;
+  const void* fn;
+  size_t smem;
+  int walked;
+  if constexpr (DMAX == 0) {
+    constexpr int DC = dmax_of<T>();
+    fn = which == 0 ? (const void*)flash_bwd_dq_split_kernel<T, DC>
+         : which == 1 ? (const void*)flash_bwd_dkdv_split_kernel<T, DC, DK_ONLY>
+                      : (const void*)flash_bwd_dkdv_split_kernel<T, DC, DV_ONLY>;
+    smem = which == 0 ? split_dq_smem_bytes<T, DC>() : split_dkdv_smem_bytes<T, DC>();
+    walked = walk<T, DC>();
+  } else {
+    fn = (const void*)flash_bwd_dq_kernel<T, DMAX>;
+    if constexpr (!split_dkdv<T, DMAX>()) {
+      if (which == 2) return cudaErrorInvalidValue;
+      if (which == 1) fn = (const void*)flash_bwd_dkdv_kernel<T, DMAX, DK_DV>;
+    } else if (which > 0) {
+      fn = which == 1 ? (const void*)flash_bwd_dkdv_kernel<T, DMAX, DK_ONLY>
+                      : (const void*)flash_bwd_dkdv_kernel<T, DMAX, DV_ONLY>;
+    }
+    smem = which == 0 ? dq_smem_bytes<T, DMAX>() : dkdv_smem_bytes<T, DMAX>();
+    walked = walk<T, DMAX>();
   }
-  const size_t smem = which == 0 ? dq_smem_bytes<T, DMAX>() : dkdv_smem_bytes<T, DMAX>();
   cudaFuncAttributes attr;
   err = cudaFuncGetAttributes(&attr, fn);
   if (err != cudaSuccess) return err;
@@ -523,51 +788,65 @@ cudaError_t kernel_info(int which, int* info) {
   info[2] = attr.numRegs;
   info[3] = (int)attr.localSizeBytes;
   info[4] = blocks;
-  info[5] = walk<T, DMAX>();
+  info[5] = walked;
   return cudaSuccess;
 }
 
 template <typename T>
 cudaError_t info_d(int dmax, int which, int* info) {
-  return dmax == 64 ? kernel_info<T, 64>(which, info)
-         : dmax == 128 ? kernel_info<T, 128>(which, info) : kernel_info<T, 256>(which, info);
+  if constexpr (sizeof(T) == 8)
+    return dmax == 64 ? kernel_info<T, 64>(which, info) : dmax == 128 ? kernel_info<T, 128>(which, info)
+           : dmax == 0 ? kernel_info<T, 0>(which, info) : cudaErrorInvalidValue;
+  else
+    return dmax == 64 ? kernel_info<T, 64>(which, info) : dmax == 128 ? kernel_info<T, 128>(which, info)
+           : dmax == 256 ? kernel_info<T, 256>(which, info) : dmax == 0 ? kernel_info<T, 0>(which, info)
+                         : cudaErrorInvalidValue;
+}
+
+template <typename T>
+long long blocks_of(int BH, int T_len, int D) {
+  const int n_c = D <= dmax_of<T>() ? 1 : (D + dmax_of<T>() - 1) / dmax_of<T>();
+  return (long long)((T_len + OWN - 1) / OWN) * BH * n_c;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (q, k, v, o, dout, dq, dk,
-// dv); lse is (BH, T) float32; delta is (2, BH, T) float32 scratch the call
-// fills (D, then in fp16 each row's largest |dO|).
-// D <= 256, D * the element size a multiple of 16 and q, k, v, dout 16-byte
-// aligned; the blocks, ceil(T / 64) * BH, under 2^31 (cudaErrorInvalidValue
-// otherwise).  Returns the CUDA error of the launches (cudaSuccess = 0); the
-// caller raises on anything else.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16, 3 = float64 (q, k, v, o,
+// dout, dq, dk, dv); lse is (BH, T) and delta (2, BH, T) scratch the call
+// fills (D, then in fp16 each row's largest |dO|), both float32, or float64
+// for float64.  Any D, D * the element size a multiple of 16 and q, k, v,
+// dout 16-byte aligned; the blocks, ceil(T / 64) * BH times the D split's
+// chunks, under 2^31 (cudaErrorInvalidValue otherwise).  Returns the CUDA
+// error of the launches (cudaSuccess = 0); the caller raises on anything
+// else.
 extern "C" int flash_bwd(const void* q, const void* k, const void* v, const void* o,
-                         const void* dout, const float* lse, void* dq, void* dk, void* dv,
-                         float* delta, int BH, int T_len, int D, float scale, int causal, int dtype,
+                         const void* dout, const void* lse, void* dq, void* dk, void* dv,
+                         void* delta, int BH, int T_len, int D, double scale, int causal, int dtype,
                          void* stream) {
-  if (BH <= 0 || T_len <= 0 || D <= 0 || D > 256 || dtype < 0 || dtype > 2 ||
-      (long long)((T_len + OWN - 1) / OWN) * BH > 0x7fffffffLL)
-    return (int)cudaErrorInvalidValue;
+  if (BH <= 0 || T_len <= 0 || D <= 0 || dtype < 0 || dtype > 3) return (int)cudaErrorInvalidValue;
+  const long long blocks = dtype == 3 ? blocks_of<double>(BH, T_len, D) : blocks_of<float>(BH, T_len, D);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err =
       dtype == 0 ? dispatch_d<float>(q, k, v, o, dout, lse, dq, dk, dv, delta, BH, T_len, D, scale, causal, s)
       : dtype == 1 ? dispatch_d<__nv_bfloat16>(q, k, v, o, dout, lse, dq, dk, dv, delta, BH, T_len, D, scale,
                                                causal, s)
-      : dispatch_d<__half>(q, k, v, o, dout, lse, dq, dk, dv, delta, BH, T_len, D, scale, causal, s);
+      : dtype == 2 ? dispatch_d<__half>(q, k, v, o, dout, lse, dq, dk, dv, delta, BH, T_len, D, scale, causal, s)
+      : dispatch_d<double>(q, k, v, o, dout, lse, dq, dk, dv, delta, BH, T_len, D, scale, causal, s);
   return (int)err;
 }
 
-// Resources of one kernel: which 0 = the dq kernel, 1 = the dkdv kernel (at
-// dmax 256 its dK pass), 2 = at dmax 256 its dV pass, of the variant for
-// dtype (as above) and dmax (64, 128 or 256).  Fills info with threads a
-// block, dynamic shared memory bytes a block, registers a thread, local
-// (spill) bytes a thread, resident blocks an SM and rows of a walked tile.
+// Resources of one kernel: which 0 = the dq kernel, 1 = the dkdv kernel (in
+// two passes: its dK pass), 2 = its dV pass, of the variant for dtype (as
+// above) and dmax (64, 128, 256 but for float64, or 0 for the D split).
+// Fills info with threads a block, dynamic shared memory bytes a block,
+// registers a thread, local (spill) bytes a thread, resident blocks an SM
+// and rows of a walked tile.
 extern "C" int flash_bwd_kernel_info(int dtype, int dmax, int which, int* info) {
-  if (dtype < 0 || dtype > 2 || (dmax != 64 && dmax != 128 && dmax != 256) || which < 0 || which > 2)
-    return (int)cudaErrorInvalidValue;
+  if (dtype < 0 || dtype > 3 || which < 0 || which > 2) return (int)cudaErrorInvalidValue;
   cudaError_t err = dtype == 0 ? info_d<float>(dmax, which, info)
-                    : dtype == 1 ? info_d<__nv_bfloat16>(dmax, which, info) : info_d<__half>(dmax, which, info);
+                    : dtype == 1 ? info_d<__nv_bfloat16>(dmax, which, info)
+                    : dtype == 2 ? info_d<__half>(dmax, which, info) : info_d<double>(dmax, which, info);
   return (int)err;
 }
 

@@ -1,7 +1,9 @@
 // The pieces that K2 (flash_fwd.cu) and K3 (flash_bwd.cu) share: cp.async
 // staging of (T, D) panel rows into shared memory, the mma.sync fragments
-// of fp32 (3xTF32, m16n8k8), bf16 and fp16 (m16n8k16) with fp32 sums, the
-// walked-tile buffers and the two products of a flash-attention tile.
+// of fp32 (3xTF32, m16n8k8), bf16 and fp16 (m16n8k16) with fp32 sums and of
+// fp64 (m16n8k8 .f64 on Hopper's fp64 tensor cores) with fp64 sums, the
+// walked-tile buffers, the two products of a flash-attention tile and the
+// online softmax of one.
 //
 // Both kernels give one block of 4 warps 64 owned rows (each warp 16) and
 // walk the other operand's rows in tiles of WALK rows, a loop inside the
@@ -30,9 +32,18 @@
 // order: rows 2t and 2t+1 of each step.  So P (and K3's dS) never leave the
 // registers.
 //
+// fp64 (Mma<double>) takes the TF32 fragments' layout with f64 values and
+// no split: m16n8k8 .f64 (sm_90, PTX ISA 7.8), one product, fp64 sums, and
+// the softmax, the lse and K3's D in fp64 (an fp32 lse would put P 1e-7 off,
+// far above fp64's rounding).  Its rows are padded by 4 values (32 bytes):
+// a half-warp's 8-byte reads of an A or B fragment, word 8g + 2t, then fall
+// on distinct banks.
+//
 // Every staged row is a 16-byte multiple on a 16-byte aligned panel; the
 // wrappers pad other panels with zero columns.  Rows past T and columns past
-// D are zero-filled through cp.async's src-size operand.
+// D are zero-filled through cp.async's src-size operand.  A tile may be a
+// chunk of DMAX columns of a wider panel (the D split, flash_fwd.cu): the
+// staging then takes the panel's row stride apart from the chunk's width.
 
 #pragma once
 
@@ -49,9 +60,20 @@ constexpr int THREADS = 32 * WARPS;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr unsigned FULL = 0xffffffffu;
 
+// log2(e) and ln(2) in a sums' type
+template <typename A> struct Units;
+template <> struct Units<float> {
+  static constexpr float LOG2E = 1.4426950408889634f, LN2 = 0.6931471805599453f;
+};
+template <> struct Units<double> {
+  static constexpr double LOG2E = 1.4426950408889634074, LN2 = 0.69314718055994530942;
+};
+
+// a panel's value in its sums' type (fp32, or fp64 for fp64), and back
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
+__device__ __forceinline__ double to_float(double x) { return x; }
 template <typename T> __device__ __forceinline__ T from_float(float x);
 template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
@@ -59,14 +81,25 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(f
 }
 // to nearest, ties to even; past 65,504 it gives inf, as torch's .half() does
 template <> __device__ __forceinline__ __half from_float<__half>(float x) { return __float2half_rn(x); }
+template <typename T> __device__ __forceinline__ T from_float(double x) { return x; }   // fp64 sums: T is double
+
+// the math of the softmax in the sums' type
+__device__ __forceinline__ float amax(float a, float b) { return fmaxf(a, b); }
+__device__ __forceinline__ double amax(double a, double b) { return fmax(a, b); }
+__device__ __forceinline__ float aexp2(float x) { return exp2f(x); }
+__device__ __forceinline__ double aexp2(double x) { return exp2(x); }
+__device__ __forceinline__ float alog2(float x) { return log2f(x); }
+__device__ __forceinline__ double alog2(double x) { return log2(x); }
+__device__ __forceinline__ float afma(float a, float b, float c) { return fmaf(a, b, c); }
+__device__ __forceinline__ double afma(double a, double b, double c) { return fma(a, b, c); }
 
 __device__ __forceinline__ uint16_t bits16(__nv_bfloat16 x) { return __bfloat16_as_ushort(x); }
 __device__ __forceinline__ uint16_t bits16(__half x) { return __half_as_ushort(x); }
 
-// pitch of a staged row: 16 bytes of pad keeps rows 16-byte aligned and
-// the fragment reads free of bank conflicts (see the header)
+// pitch of a staged row: 16 bytes of pad (32 for fp64) keeps rows 16-byte
+// aligned and the fragment reads free of bank conflicts (see the header)
 template <typename T, int DMAX>
-__host__ __device__ constexpr int pitch() { return DMAX + 16 / (int)sizeof(T); }
+__host__ __device__ constexpr int pitch() { return DMAX + (sizeof(T) == 8 ? 4 : 16 / (int)sizeof(T)); }
 
 // ---------------------------------------------------------------------------
 // cp.async staging
@@ -82,9 +115,11 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) 
                :: "r"(smem_addr(dst)), "l"(src), "r"(in ? 16 : 0) : "memory");
 }
 
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool in) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(in ? 4 : 0) : "memory");
+// sizeof(A) bytes (4 or 8) from src, or zero bytes when !in
+template <typename A>
+__device__ __forceinline__ void cp_async_value(A* dst, const A* src, bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "n"((int)sizeof(A)), "r"(in ? (int)sizeof(A) : 0) : "memory");
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -95,12 +130,13 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// Stage rows [r0, r0 + ROWS) of a (T_len, D) panel into dst (pitch
-// pitch<T, DMAX>()) by 16-byte cp.async, zero past T_len and D.  The
-// panel's rows are 16-byte multiples on a 16-byte aligned pointer.
+// Stage rows [r0, r0 + ROWS) of a panel of rows ld values apart, its first
+// D columns from `panel` on, into dst (pitch pitch<T, DMAX>()) by 16-byte
+// cp.async, zero past T_len and D.  The rows are 16-byte multiples on a
+// 16-byte aligned pointer.
 template <typename T, int DMAX, int ROWS>
-__device__ __forceinline__ void stage_tile(T* dst, const T* __restrict__ panel, int r0, int T_len,
-                                           int D) {
+__device__ __forceinline__ void stage_cols(T* dst, const T* __restrict__ panel, int r0, int T_len, int D,
+                                           int ld) {
   constexpr int P = pitch<T, DMAX>();
   constexpr int E = 16 / sizeof(T);       // values a copy
   constexpr int CPR = DMAX / E;           // copies a row
@@ -109,15 +145,23 @@ __device__ __forceinline__ void stage_tile(T* dst, const T* __restrict__ panel, 
     const int i = it * THREADS + threadIdx.x;
     const int r = i / CPR, d = (i % CPR) * E, gr = r0 + r;
     const bool in = gr < T_len && d < D;
-    cp_async16(dst + r * P + d, in ? panel + (size_t)gr * D + d : panel, in);
+    cp_async16(dst + r * P + d, in ? panel + (size_t)gr * ld + d : panel, in);
   }
 }
 
-// value i of a walked tile's (T_len,) fp32 row from r0 by 4-byte cp.async, zero past T_len
-__device__ __forceinline__ void stage_row(float* dst, const float* __restrict__ row, int r0, int T_len,
-                                          int i) {
+// the same for a (T_len, D) panel
+template <typename T, int DMAX, int ROWS>
+__device__ __forceinline__ void stage_tile(T* dst, const T* __restrict__ panel, int r0, int T_len,
+                                           int D) {
+  stage_cols<T, DMAX, ROWS>(dst, panel, r0, T_len, D, D);
+}
+
+// value i of a walked tile's (T_len,) row of sums (the lse, D) from r0 by
+// cp.async, zero past T_len
+template <typename A>
+__device__ __forceinline__ void stage_row(A* dst, const A* __restrict__ row, int r0, int T_len, int i) {
   const bool in = r0 + i < T_len;
-  cp_async4(dst + i, in ? row + r0 + i : row, in);
+  cp_async_value(dst + i, in ? row + r0 + i : row, in);
 }
 
 // ---------------------------------------------------------------------------
@@ -144,6 +188,7 @@ template <> struct Mma<float> {
   static constexpr int KS = 8;         // depth of one mma
   static constexpr bool SPLIT = true;  // walked tiles read from hi and lo planes
   using Prep = uint32_t;
+  using Acc = float;                   // the sums' type
   struct A { uint32_t hi[4], lo[4]; };
   struct B { uint32_t hi[2], lo[2]; };
 
@@ -232,6 +277,7 @@ template <typename H> struct Mma16 {
   static constexpr int KS = 16;
   static constexpr bool SPLIT = false;  // walked tiles read as they landed
   using Prep = H;
+  using Acc = float;
   struct A { uint32_t r[4]; };
   struct B { uint32_t r[2]; };
 
@@ -310,7 +356,49 @@ template <> struct Mma<__half> : Mma16<__half> {
   }
 };
 
+// fp64: m16n8k8 .f64 with the layout of the TF32 fragments above (A: rows
+// g, g+8 x columns t, t+4; B: rows t, t+4 x column g; C as every type's),
+// one product with fp64 sums, no split.  ptxas 12.9 takes it for sm_90a
+// (sm_80's m8n8k4 .f64 would take four a step over the same fragments).
+template <> struct Mma<double> {
+  static constexpr int KS = 8;
+  static constexpr bool SPLIT = false;
+  using Prep = double;
+  using Acc = double;
+  struct A { double r[4]; };
+  struct B { double r[2]; };
+
+  static __device__ __forceinline__ A load_a(const double* s, int P, int k0, int g, int t) {
+    const double* p = s + g * P + k0 + t;
+    return {{p[0], p[8 * P], p[4], p[8 * P + 4]}};
+  }
+
+  // in the order of Mma<float>::a_from_c
+  template <int N>
+  static __device__ __forceinline__ A a_from_c(const double (&c)[N][4], int j) {
+    return {{c[j][0], c[j][2], c[j][1], c[j][3]}};
+  }
+
+  static __device__ __forceinline__ B load_b_nk(const double* s, int P, int, int k0, int g, int t) {
+    const double* p = s + g * P + k0 + t;
+    return {{p[0], p[4]}};
+  }
+
+  static __device__ __forceinline__ B load_b_kn(const double* s, int P, int, int g, int t) {
+    const double* p = s + 2 * t * P + g;
+    return {{p[0], p[P]}};
+  }
+
+  static __device__ __forceinline__ void mma(double (&d)[4], const A& a, const B& b) {
+    asm("mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+        : "d"(a.r[0]), "d"(a.r[1]), "d"(a.r[2]), "d"(a.r[3]), "d"(b.r[0]), "d"(b.r[1]));
+  }
+};
+
 template <typename T> using Prep = typename Mma<T>::Prep;
+template <typename T> using Acc = typename Mma<T>::Acc;
 
 // The shared-memory buffers of two walked operands of WALK rows (K and V in
 // K2 and K3's dq kernel, Q and dO in K3's dkdv kernel).  fp32: tile i lands
@@ -374,7 +462,7 @@ struct Walked {
 // the unrolled steps stay one block of code that ptxas can schedule)
 // (S = Q K^T, dP = dO V^T and, in K3's dkdv kernel, their transposes).
 template <typename T, int DMAX, int WALK, typename AOf>
-__device__ __forceinline__ void mma_a_rows(float (&acc)[WALK / 8][4], const AOf& a_of,
+__device__ __forceinline__ void mma_a_rows(Acc<T> (&acc)[WALK / 8][4], const AOf& a_of,
                                            const Prep<T>* sb, int g, int t) {
   using M = Mma<T>;
   constexpr int P = pitch<T, DMAX>();
@@ -389,7 +477,7 @@ __device__ __forceinline__ void mma_a_rows(float (&acc)[WALK / 8][4], const AOf&
 
 // mma_a_rows with A the warp's 16 landed rows from sa, split as they are read
 template <typename T, int DMAX, int WALK>
-__device__ __forceinline__ void mma_rows_rows(float (&acc)[WALK / 8][4], const T* sa,
+__device__ __forceinline__ void mma_rows_rows(Acc<T> (&acc)[WALK / 8][4], const T* sa,
                                               const Prep<T>* sb, int g, int t) {
   mma_a_rows<T, DMAX, WALK>(
       acc, [&](int k0) { return Mma<T>::load_a(sa, pitch<T, DMAX>(), k0, g, t); }, sb, g, t);
@@ -399,7 +487,7 @@ __device__ __forceinline__ void mma_rows_rows(float (&acc)[WALK / 8][4], const T
 // S the walked tile's prepared rows from sb, all DMAX columns (zero past D)
 // (O = P V in K2; dQ = dS K, dV = P^T dO, dK = dS^T Q in K3).
 template <typename T, int DMAX, int WALK>
-__device__ __forceinline__ void mma_regs_rows(float (&acc)[DMAX / 8][4], const float (&c)[WALK / 8][4],
+__device__ __forceinline__ void mma_regs_rows(Acc<T> (&acc)[DMAX / 8][4], const Acc<T> (&c)[WALK / 8][4],
                                               const Prep<T>* sb, int g, int t) {
   using M = Mma<T>;
   constexpr int P = pitch<T, DMAX>();
@@ -410,6 +498,51 @@ __device__ __forceinline__ void mma_regs_rows(float (&acc)[DMAX / 8][4], const f
     for (int n = 0; n < DMAX / 8; ++n)
       M::mma(acc[n], a, M::load_b_kn(sb + j * M::KS * P + n * 8, P, WALK * P, g, t));
   }
+}
+
+// The online softmax of one walked tile in a warp's 16 rows: S (16 x WALK,
+// the thread's entries of rows g and g + 8 in s) is taken to log2 units
+// (times scale_log2) and masked, then becomes P, unnormalised, in place.
+// m holds the rows' running max (log2 units), l this lane's part of their
+// denominators; alpha gets each row's factor for the sums so far.  Masks
+// only on a tile that is not `whole`: keys k0.. past T_len, or (causal)
+// above row qr0 + 8h's diagonal.  Row g's scores sit on the 4 lanes of one
+// quad, so its max takes two __shfl_xor_sync (1 and 2); a row with nothing
+// valid yet keeps m = -inf and its exponents are taken against 0, so every
+// p is 0.
+template <typename A, int WALK>
+__device__ __forceinline__ void online_softmax(A (&s)[WALK / 8][4], A (&m)[2], A (&l)[2], A (&alpha)[2],
+                                               A scale_log2, int k0, int qr0, int T_len, bool causal,
+                                               bool whole, int t) {
+  A mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int n = 0; n < WALK / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int h = e >> 1, kc = k0 + n * 8 + 2 * t + (e & 1), qr = qr0 + 8 * h;
+      const bool valid = whole || (kc < T_len && (!causal || kc <= qr));
+      s[n][e] = valid ? s[n][e] * scale_log2 : -INFINITY;
+      mx[h] = amax(mx[h], s[n][e]);
+    }
+  A mu[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = amax(mx[h], __shfl_xor_sync(FULL, mx[h], 1));
+    mx[h] = amax(mx[h], __shfl_xor_sync(FULL, mx[h], 2));
+    const A m_new = amax(m[h], mx[h]);
+    mu[h] = m_new == -INFINITY ? A(0) : m_new;
+    alpha[h] = aexp2(m[h] - mu[h]);
+    m[h] = m_new;
+    l[h] *= alpha[h];
+  }
+#pragma unroll
+  for (int n = 0; n < WALK / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const A p = aexp2(s[n][e] - mu[e >> 1]);
+      s[n][e] = p;   // P, unnormalised
+      l[e >> 1] += p;
+    }
 }
 
 }  // namespace

@@ -885,16 +885,29 @@ def launch_plan(args):
     return shape, n, sizes, strides, wide
 
 
-def fused_elemwise(kernel: ElemwiseKernel, *args):
+def fused_elemwise(kernel: ElemwiseKernel, *args, out=None):
     """Evaluate a Composite over broadcasting tensors.  CPU tensors take
-    the plain version; CUDA tensors launch the generated Triton kernel."""
+    the plain version; CUDA tensors launch the generated Triton kernel.
+    With ``out`` (a contiguous tensor of the result's shape and dtype on the
+    operands' device, which may be one of them: each value is read where it
+    is written) the result is written there and ``out`` returned."""
     import torch
 
     if len(args) != kernel.composite.nin:
         raise TypeError(f"{kernel.composite} takes {kernel.composite.nin} operands, got {len(args)}")
+    def check_out(shape):
+        if (tuple(out.shape) != tuple(shape) or out.dtype != torch_dtype(kernel.out_dtype)
+                or not out.is_contiguous() or out.device != args[0].device):
+            raise ValueError(f"fused_elemwise: out {tuple(out.shape)} {out.dtype} on {out.device} for a "
+                             f"{kernel.out_dtype} result of shape {tuple(shape)} on {args[0].device}")
+
     if all(a.device.type == "cpu" for a in args):
         fused_elemwise.plain_calls += 1
-        return composite_plain(kernel.composite, kernel.out_dtype, *args)
+        result = composite_plain(kernel.composite, kernel.out_dtype, *args)
+        if out is None:
+            return result
+        check_out(result.shape)
+        return out.copy_(result)
     device = args[0].device
     if any(a.device != device for a in args) or device.type != "cuda":
         raise ValueError(f"fused_elemwise: operands on several devices {[a.device for a in args]}")
@@ -902,7 +915,10 @@ def fused_elemwise(kernel: ElemwiseKernel, *args):
         if a.dtype != torch_dtype(dt):
             raise TypeError(f"fused_elemwise: got {a.dtype}, the kernel was built for {dt}")
     shape, n, sizes, strides, wide = launch_plan(args)
-    out = torch.empty(shape, dtype=torch_dtype(kernel.out_dtype), device=device)
+    if out is None:
+        out = torch.empty(shape, dtype=torch_dtype(kernel.out_dtype), device=device)
+    else:
+        check_out(shape)
     if n == 0:
         return out
     grid = ((n + _BLOCK - 1) // _BLOCK,)

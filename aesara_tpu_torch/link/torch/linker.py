@@ -15,16 +15,28 @@ keeps on the host (``host_inputs``, e.g. the target shape of
 ``Reshape``).  With ``config.allow_gc`` (default True) each
 intermediate is dropped after its last reader, so its memory returns to
 the allocator within the call.  Programs are memoized process-wide by
-(graph key, device, ``allow_gc``) (``link/cache.py``), as long as a
-function holds them: a second function of an identical graph reuses the
-lowering and its generated kernels.
+(graph key, device, ``allow_gc``, donation map) (``link/cache.py``), as
+long as a function holds them: a second function of an identical graph
+reuses the lowering and its generated kernels.
 
 **Updates in place** (the counterpart of donation).  An updated shared
-variable keeps its storage: the new value is written into it after the
-whole graph has run, in both eager and captured mode.  Before any write,
-an output that reads a target's storage is cloned, and so is an update
-value that reads another target's (``updates={a: b, b: a}`` swaps); a
-returned output aliases no input or update unless ``Out(borrow=True)``.
+variable keeps its storage.  Where the destroy handler finds it legal
+(``DestroyHandler.donations``: every other reader of the old value, and
+of any view of it, can run before the node; no output returns it) the
+node that computes the update writes it there itself: the ``out`` of the
+final K1 launch, or of a lone fp32 or fp64 add, sub, mul or true_div (an sgd
+step's ``w - lr * g`` once BlasOpt has taken the product), the ``addmm_``
+of a ``Gemm`` whose z is the variable, the in-place ``IncSubtensor``; the
+program's order puts those readers first.  A call whose shared variables
+hold one storage between them, or a node whose inputs or pending values
+alias the storage at run time, takes the copying route: the new value is
+computed into a fresh tensor and written into the storage after the
+whole graph has run, in both eager and captured mode.  Before any write, an output that reads a
+target's storage is cloned, and so is an update value that reads another
+target's (``updates={a: b, b: a}`` swaps); a returned output aliases no
+input or update unless ``Out(borrow=True)``.  ``TorchLinker(
+donate_updated=False)`` (or ``config.donate_shared``) takes the copying
+route for every update.
 
 **Keys and capture** (the counterpart of ``jax.jit``).  Calls are keyed
 by the shape and dtype of each user argument and the identity of each
@@ -101,7 +113,7 @@ from typing import Callable, Sequence
 
 import numpy as np
 
-from aesara_tpu_torch.graph.ir import Constant
+from aesara_tpu_torch.graph.ir import Constant, io_toposort
 from aesara_tpu_torch.graph.op import Op
 from aesara_tpu_torch.link.basic import resolve_device
 
@@ -121,6 +133,18 @@ def _storage(value) -> int:
     import torch
 
     return value.untyped_storage().data_ptr() if isinstance(value, torch.Tensor) else 0
+
+
+def _index_storage(index: dict, variables, values) -> None:
+    """Add the variable of each tensor of ``values`` to ``index``, {storage
+    address: [variables]}.  It holds no tensor, so a freed value's memory
+    returns to the allocator; an entry whose variable has left the run's
+    values is stale."""
+    import torch
+
+    for var, value in zip(variables, values):
+        if isinstance(value, torch.Tensor):
+            index.setdefault(value.untyped_storage().data_ptr(), []).append(var)
 
 
 def _capture_blocker(fn, node, host):
@@ -220,17 +244,23 @@ class Program:
     output folds on the host).  It reads no shared variable itself, so
     functions of identical graphs share it.  The nodes in ``in_place``
     write into their first input (``dispatch.in_place_lowering``): the
-    caller owns that input's value and nothing else reads it."""
+    caller owns that input's value and nothing else reads it.  ``donate``
+    pairs (output index, input index) of the updates whose node may write
+    the new value into the input's storage; ``donated`` maps each node the
+    destroy handler allows to the input it writes, and ``run(donate=True)``
+    has them do so (its lowering called with ``out``, that input's value)."""
 
-    def __init__(self, fgraph, device, allow_gc: bool, in_place=frozenset()):
+    def __init__(self, fgraph, device, allow_gc: bool, in_place=frozenset(), donate=()):
         from aesara_tpu_torch.link.torch.dispatch import in_place_lowering, torch_funcify
         from aesara_tpu_torch.link.torch.sparse_dispatch import csr_plan
 
         self.device = device
         self.inputs = list(fgraph.inputs)
         self.outputs = list(fgraph.outputs)
+        self.output_set = set(self.outputs)
         self.csr_plan = csr_plan(fgraph)
-        self.order = fgraph.toposort()
+        self.donated, orderings = donation_plan(fgraph, donate)
+        self.order = io_toposort(fgraph.inputs, fgraph.outputs, orderings=orderings or None)
         self.fns = [in_place_lowering(node) if node in in_place else torch_funcify(node.op, node=node)
                     for node in self.order]
         self.keep_host = [frozenset(getattr(fn, "host_inputs", ())) for fn in self.fns]
@@ -255,10 +285,16 @@ class Program:
             reason = _capture_blocker(fn, node, host)
             if reason is not None and self.blocker is None:
                 self.blocker, self.blocker_reason = node, reason
+        #: the input positions each node's op destroys (``destroy_map``)
+        self.destroys = [() if fold else sorted({i for idxs in node.op.destroy_map.values() for i in idxs})
+                         for node, fold in zip(self.order, self.folds)]
+        self.any_destroys = any(self.destroys)
         last = {}
         for k, node in enumerate(self.order):
             for var in node.inputs:
                 last[var] = k
+        #: each variable's last reader (its index in ``order``)
+        self.last_reader = last
         kept = set(self.inputs) | set(self.outputs)
         self.frees = [[] for _ in self.order]
         if allow_gc:
@@ -266,6 +302,9 @@ class Program:
                 if var not in kept and not isinstance(var, Constant):
                     self.frees[k].append(var)
         self.device_constants: dict = {}
+        #: donated writes that met an alias of their storage at run time and
+        #: took the copying route
+        self.donation_fallbacks = 0
 
     def host_to_device(self, value, dtype=None):
         """A host value on the device, in ``dtype`` (the variable's; by
@@ -294,13 +333,37 @@ class Program:
             cache[var] = self.host_to_device(value, getattr(var.type, "dtype", None))
         return cache[var]
 
-    def run(self, inputs: Sequence, uploads: dict) -> list:
+    def _clear(self, k, ins, target, env, index, skip=None) -> bool:
+        """Whether node ``k`` may write into ``target``'s storage now: no
+        other value it reads, and no live value (but ``skip``'s) still to
+        be read or returned, lies in that storage (the destroy handler's
+        decision, checked against the views the lowerings made; ``index``
+        holds the run's tensors by storage)."""
+        import torch
+
+        if not isinstance(target, torch.Tensor) or not target.is_contiguous():
+            return False
+        storage = _storage(target)
+        for var in index.get(storage, ()):
+            value = env.get(var)
+            if value is not None and value is not target and var is not skip and (
+                    self.last_reader.get(var, -1) > k or var in self.output_set):
+                return False
+        return not any(a is not target and _storage(a) == storage for a in ins)
+
+    def run(self, inputs: Sequence, uploads: dict, donate: bool = False) -> list:
         import torch
 
         env = dict(zip(self.inputs, inputs))
+        # the run's variables by their tensors' storage, kept where some node
+        # writes in place
+        index = {} if (donate and self.donated) or self.any_destroys else None
+        if index is not None:
+            _index_storage(index, self.inputs, inputs)
         with torch.no_grad():
-            for node, fn, fold, keep, frees, takes_device in zip(self.order, self.fns, self.folds, self.keep_host,
-                                                                 self.frees, self.takes_device):
+            for k, (node, fn, fold, keep, frees, takes_device, destroys) in enumerate(zip(
+                    self.order, self.fns, self.folds, self.keep_host, self.frees, self.takes_device,
+                    self.destroys)):
                 ins = [env[i] if i in env else i.data for i in node.inputs]
                 if fold:
                     storage = [[None] for _ in node.outputs]
@@ -309,27 +372,98 @@ class Program:
                 else:
                     ins = [a if (k in keep or not _is_host(a)) else self.to_device(a, i, uploads)
                            for k, (a, i) in enumerate(zip(ins, node.inputs))]
-                    outs = fn(*ins, device=self.device) if takes_device else fn(*ins)
+                    for d in destroys:
+                        # an in-place op (blas_inplace) whose input turns out
+                        # to share a storage still read: it writes into a copy
+                        if not self._clear(k, ins, ins[d], env, index, skip=node.inputs[d]):
+                            ins[d] = ins[d].clone()
+                    write = self.donated.get(node) if donate else None
+                    target = env[write[0]] if write is not None else None
+                    if target is not None and self._clear(k, ins, target, env, index) and (
+                            write[1] or _fits(target, ins)):
+                        outs = fn(*ins, out=target)
+                    else:
+                        if target is not None:
+                            self.donation_fallbacks += 1
+                        outs = fn(*ins, device=self.device) if takes_device else fn(*ins)
                     if len(node.outputs) == 1:
                         outs = (outs,)
                 env.update(zip(node.outputs, outs))
+                if index is not None:
+                    _index_storage(index, node.outputs, outs)
                 for var in frees:
                     del env[var]
         return [env[o] if o in env else o.data for o in self.outputs]
 
 
-#: process-wide memo of lowered programs, (graph key, device, allow_gc) ->
-#: Program, kept while some function holds its program
+def _fits(target, ins) -> bool:
+    """Whether an elementwise node's result over ``ins`` has ``target``'s
+    shape (an update may change a variable's shape; it is then copied):
+    each operand broadcasts to it, and together they give each of its
+    dims (``torch.broadcast_shapes`` would go through its symbolic-shape
+    reference on every call)."""
+    shape = tuple(target.shape)
+    given = [1] * len(shape)
+    if max(a.dim() for a in ins) != len(shape):
+        return False
+    for a in ins:
+        for d, n in enumerate(a.shape, len(shape) - a.dim()):
+            if n != 1:
+                if n != shape[d]:
+                    return False
+                given[d] = n
+    return tuple(given) == shape
+
+
+def donation_plan(fgraph, donate) -> tuple:
+    """({node: (the input it writes, whether that input is its first)},
+    the orderings that put every other reader of each written input, and
+    of the graph's own destroyed storage, before its writer) for the
+    updates ``donate`` (output index, input index) whose node can write
+    into the input's storage (``dispatch.can_donate``: a K1 Composite, a
+    lone arithmetic op, a BLAS op whose z is the input, an IncSubtensor of
+    it) and where the destroy handler finds it legal
+    (``DestroyHandler.donations``)."""
+    from aesara_tpu_torch.graph.destroyhandler import add_destroy_handler
+    from aesara_tpu_torch.link.torch.dispatch import can_donate, donates_into_first_input
+
+    if not donate:
+        return {}, fgraph.orderings()
+    add_destroy_handler(fgraph)
+    candidates = []
+    for out_idx, in_idx in sorted(donate):
+        value, target = fgraph.outputs[out_idx], fgraph.inputs[in_idx]
+        node = value.owner
+        if (node is None or not can_donate(node) or getattr(value.type, "dtype", None) != target.type.dtype
+                or getattr(value.type, "ndim", None) != getattr(target.type, "ndim", None)):
+            continue
+        first = donates_into_first_input(node)
+        if first and node.inputs[0] is not target:
+            continue
+        # where the node may read the target itself: a BLAS op's z or an
+        # IncSubtensor's x; any operand of K1, which reads each value
+        # where it writes it
+        same = [0] if first else [i for i, inp in enumerate(node.inputs) if inp is target]
+        candidates.append((node, target, same))
+    kept, orderings = fgraph.destroy_handler.donations(fgraph, candidates)
+    if not kept:
+        return {}, fgraph.orderings()
+    return {node: (target, donates_into_first_input(node)) for node, target, _ in kept}, orderings
+
+
+#: process-wide memo of lowered programs, (graph key, device, allow_gc,
+#: donation map) -> Program, kept while some function holds its program
 _PROGRAMS: "weakref.WeakValueDictionary" = weakref.WeakValueDictionary()
 
 
-def program_for(fgraph, device, allow_gc: bool) -> Program:
+def program_for(fgraph, device, allow_gc: bool, donate=()) -> Program:
     from aesara_tpu_torch.link.cache import fgraph_key
 
-    key = (fgraph_key(fgraph), str(device), allow_gc)
+    donate = tuple(sorted(donate))
+    key = (fgraph_key(fgraph), str(device), allow_gc, donate)
     program = _PROGRAMS.get(key)
     if program is None:
-        program = _PROGRAMS[key] = Program(fgraph, device, allow_gc)
+        program = _PROGRAMS[key] = Program(fgraph, device, allow_gc, donate=donate)
     return program
 
 
@@ -343,6 +477,7 @@ class _Key:
         self.uploads: dict = {}
         self.csr: dict = {}
         self.graph = None
+        self.donating = False
         self.static_inputs = None
         self.shared = None
         self.results = None
@@ -367,6 +502,8 @@ class TorchFunction:
         self.n_user_inputs = n_user_inputs
         self.n_outputs = n_outputs
         self.update_targets = list(update_targets)
+        #: the update targets that are not inputs of the graph
+        self.unread_targets = [t for t in self.update_targets if not any(t is v for v in self.shared_inputs)]
         self.borrow = list(borrow) + [False] * (n_outputs - len(borrow))
         self.output_vars = fgraph.outputs
         if self.device.type != "cuda":
@@ -380,6 +517,10 @@ class TorchFunction:
             self.capture_blocker = None
         #: whether the last call replayed a captured graph
         self.captured = False
+        #: whether the last call let the donated nodes write into the
+        #: shared storage (``Program.donated``; off where shared variables
+        #: share a storage)
+        self.donating = False
         #: keys made so far (the counterpart of the JAX package's
         #: ``xla_compile_count``): a key dropped and made again counts twice
         self.keys_made = 0
@@ -431,6 +572,17 @@ class TorchFunction:
                 raise ValueError(f"shared variable {var} lives on {where}; this function runs on {self.device}")
             values.append(self._to_csr(pos, var, var.value, state) if sparse else var.value)
         return values
+
+    def _may_donate(self, shared: list) -> bool:
+        """Whether this call's updates may be written by their nodes: the
+        program has such nodes, and no two of the shared variables' values
+        and update targets share a storage (two variables on one borrowed
+        array: each update would overwrite the other's)."""
+        if not self.program.donated:
+            return False
+        values = list(shared) + [t.value for t in self.unread_targets]
+        storages = [st for st in map(_storage, values) if st]
+        return len(storages) == len(set(storages))
 
     def _key(self, args):
         key = []
@@ -513,8 +665,9 @@ class TorchFunction:
             self.captured = False
             values = [self._upload(v) if isinstance(v, torch.Tensor) else v for v in values]
             shared = self._shared_values(state)
+            self.donating = self._may_donate(shared)
             try:
-                results = self.program.run(values + shared, state.uploads)
+                results = self.program.run(values + shared, state.uploads, donate=self.donating)
             except Exception:
                 if state.calls == 1:
                     # a key whose first call failed (a CheckAndRaise) is
@@ -526,6 +679,7 @@ class TorchFunction:
             self._capture(state, values)
         self._replay(state, values)
         self.captured = True
+        self.donating = state.donating
         return self._returned(state.results, True)
 
     def _capture(self, state: _Key, values: list) -> None:
@@ -539,12 +693,13 @@ class TorchFunction:
         state.static_inputs = [torch.empty(v.shape, dtype=v.dtype, device=self.device)
                                if isinstance(v, torch.Tensor) else v for v in values]
         shared = self._shared_values(state)
+        state.donating = self._may_donate(shared)
         wrappers = counted_wrappers()
         before = [w.launches for w in wrappers]
         graph = torch.cuda.CUDAGraph()
         torch.cuda.synchronize(self.device)
         with torch.cuda.graph(graph):
-            results = self.program.run(state.static_inputs + shared, state.uploads)
+            results = self.program.run(state.static_inputs + shared, state.uploads, donate=state.donating)
             state.results = self._settle(results, state.static_inputs + shared, state.uploads, True)
         state.launches = [w.launches - b for w, b in zip(wrappers, before)]
         # the storage the graph reads and writes: its shared inputs' and its
@@ -584,11 +739,17 @@ class TorchLinker:
     """Links a FunctionGraph to a callable on ``device`` (a
     ``torch.device`` or its name; None means ``config.device`` when the
     function is compiled).  ``use_graph`` (None: ``config.cuda_graph``)
-    captures each step into a CUDA graph on the card."""
+    captures each step into a CUDA graph on the card.  ``donate_updated``
+    (None: ``config.donate_shared``, default True) lets the node that
+    computes a shared variable's update write it into the variable's
+    storage where the destroy handler finds it legal (the counterpart of
+    ``JAXLinker(donate_updated=)``); False computes every update into a
+    fresh tensor and copies it there after the graph has run."""
 
-    def __init__(self, device=None, use_graph=None):
+    def __init__(self, device=None, use_graph=None, donate_updated=None):
         self.device = device
         self.use_graph = use_graph
+        self.donate_updated = donate_updated
 
     def make_function(self, fgraph, n_user_inputs: int, n_outputs: int = None, update_targets=(),
                       borrow=()) -> Callable:
@@ -615,8 +776,10 @@ class TorchLinker:
                 raise RuntimeError(refusal)
         use_graph = config.cuda_graph if self.use_graph is None else self.use_graph
         n_outputs = len(fgraph.outputs) - len(update_targets) if n_outputs is None else n_outputs
-        return TorchFunction(program_for(fgraph, device, bool(config.allow_gc)), fgraph, n_user_inputs, n_outputs,
-                             update_targets, borrow, bool(use_graph))
+        donate = config.donate_shared if self.donate_updated is None else self.donate_updated
+        pairs = tuple(getattr(fgraph, "update_mapping", {}).items()) if donate else ()
+        return TorchFunction(program_for(fgraph, device, bool(config.allow_gc), pairs), fgraph, n_user_inputs,
+                             n_outputs, update_targets, borrow, bool(use_graph))
 
     def __str__(self):
         return f"TorchLinker(device={self.device})"

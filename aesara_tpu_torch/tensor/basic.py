@@ -370,6 +370,7 @@ class ScalarFromTensor(Op):
     """A 0-d tensor as a ScalarType value."""
 
     __props__ = ()
+    view_map = {0: [0]}
 
     def make_node(self, t):
         t = as_tensor_variable(t)

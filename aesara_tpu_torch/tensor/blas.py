@@ -10,10 +10,13 @@ canonicalized mul/add graph: ``add(β·z, α·dot(x, y))`` becomes a
 
 The linker lowers them to ``torch.addmm``, ``addmv``, ``addr`` and
 ``mm`` in full fp32, plain library products as the JAX package's are XLA
-products (``link/torch/dispatch.py``).  The ops keep the ``inplace``
-flag of the reference, but the port has no destroy handler yet, so no
-rewrite sets it (``blas_inplace`` waits for it) and the lowering computes
-the same value whatever it says.
+products (``link/torch/dispatch.py``).  ``blas_inplace`` (position 70,
+``fast_run`` and ``inplace``, after the destroy handler is attached at
+49.5) makes a Gemm, Gemv or Ger ``inplace`` where its z is an
+intermediate that nothing else reads and that views no input or
+constant, the JAX package's rule (``aesara_tpu/tensor/blas.py:571-610``);
+the lowering then writes into z (``addmm(..., out=z)``, ``addmm_``'s
+call).
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ import numpy as np
 from aesara_tpu_torch.compile.mode import optdb
 from aesara_tpu_torch.graph.ir import Apply, Constant
 from aesara_tpu_torch.graph.op import Op
-from aesara_tpu_torch.graph.rewriting.basic import copy_stack_trace, in2out, node_rewriter
+from aesara_tpu_torch.graph.rewriting.basic import NodeProcessingGraphRewriter, copy_stack_trace, in2out, node_rewriter
 from aesara_tpu_torch.scalar import ops as aes
 from aesara_tpu_torch.tensor import math as tm
 from aesara_tpu_torch.tensor.basic import as_tensor_variable, cast, constant
@@ -34,8 +37,9 @@ from aesara_tpu_torch.tensor.type import TensorType
 
 
 __all__ = ["Gemm", "Gemv", "Ger", "Dot22", "Dot22Scalar", "gemm", "gemv", "ger", "outer",
-           "batched_tensordot", "gemm_no_inplace", "gemv_no_inplace", "ger_no_inplace",
-           "local_gemm_fusion", "local_gemv_fusion", "local_dot22scalar"]
+           "batched_tensordot", "gemm_no_inplace", "gemv_no_inplace", "ger_no_inplace", "gemm_inplace",
+           "gemv_inplace", "ger_inplace", "local_gemm_fusion", "local_gemv_fusion", "local_dot22scalar",
+           "local_blas_inplace"]
 
 _FLOATS = ("float16", "bfloat16", "float32", "float64")
 
@@ -163,6 +167,7 @@ class Ger(_Accumulate):
 
 
 gemm_no_inplace, gemv_no_inplace, ger_no_inplace = Gemm(), Gemv(), Ger()
+gemm_inplace, gemv_inplace, ger_inplace = Gemm(inplace=True), Gemv(inplace=True), Ger(inplace=True)
 
 
 class Dot22(Op):
@@ -471,3 +476,29 @@ def local_dot22scalar(fgraph, node):
 
 optdb.register("BlasOpt", in2out(local_gemm_fusion, local_gemv_fusion, local_dot22scalar, name="BlasOpt"),
                "fast_run", position=1.7)
+
+
+@node_rewriter([Gemm, Gemv, Ger], inplace=True)
+def local_blas_inplace(fgraph, node):
+    """A Gemm, Gemv or Ger that writes into its z, where z is an
+    intermediate read by this node alone and its view chain ends at no
+    function input or constant (a write there would clobber the protected
+    root's storage); the destroy handler validates the rest."""
+    from aesara_tpu_torch.graph.destroyhandler import droot
+
+    if node.op.inplace:
+        return False
+    z = node.inputs[0]
+    if z.owner is None or len(fgraph.clients.get(z, ())) != 1:
+        return False
+    zroot = droot(z)
+    if zroot.owner is None or isinstance(zroot, Constant):
+        return False
+    new = {Gemm: gemm_inplace, Gemv: gemv_inplace, Ger: ger_inplace}[type(node.op)](*node.inputs)
+    copy_stack_trace(node.outputs[0], new)
+    return new.owner.outputs
+
+
+optdb.register("blas_inplace", in2out(local_blas_inplace, name="blas_inplace",
+                                      failure_callback=NodeProcessingGraphRewriter.warn_inplace),
+               "fast_run", "inplace", position=70.0)

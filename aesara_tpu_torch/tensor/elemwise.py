@@ -27,6 +27,7 @@ class DimShuffle(Op):
     """Transpose, insert broadcast dims ('x') and drop size-1 dims."""
 
     __props__ = ("input_ndim", "new_order")
+    view_map = {0: [0]}
 
     def __init__(self, input_ndim: int, new_order: Sequence[Union[int, str]]):
         self.input_ndim = int(input_ndim)

@@ -111,6 +111,7 @@ class Reshape(Op):
     """numpy.reshape with a symbolic target shape (an int64 vector)."""
 
     __props__ = ("ndim",)
+    view_map = {0: [0]}
 
     def __init__(self, ndim: int):
         self.ndim = int(ndim)
@@ -231,6 +232,7 @@ class SpecifyShape(Op):
     the static ones in its type."""
 
     __props__ = ()
+    view_map = {0: [0]}
 
     def make_node(self, x, *shape):
         from aesara_tpu_torch.tensor.basic import (
@@ -316,6 +318,7 @@ class Unbroadcast(Op):
     """``x`` with the static 1 of the given dims erased from its type."""
 
     __props__ = ("axes",)
+    view_map = {0: [0]}
 
     def __init__(self, *axis):
         self.axes = tuple(sorted(int(a) for a in axis))

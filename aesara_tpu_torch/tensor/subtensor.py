@@ -17,7 +17,9 @@
   first).  The specialize rewrite ``local_affine_slice_to_dynamic`` makes
   one of ``data[i*B:(i+1)*B]``, the minibatch idiom of the tutorials.
 
-Every op computes out of place: the port has no destroy handler yet.
+Every op computes out of place, but where the caller owns ``x``: a Scan's
+loop-carried state or a donated shared variable
+(``link/torch/dispatch.py::in_place_lowering``).
 """
 
 from __future__ import annotations
@@ -147,6 +149,7 @@ class Subtensor(Op):
     """x[idx] for basic indices: slices and integers."""
 
     __props__ = ("idx_list",)
+    view_map = {0: [0]}
 
     def __init__(self, idx_list):
         self.idx_list = tuple(idx_list)

@@ -23,6 +23,7 @@ serve the sparse-input models, all through ``aesara_tpu_torch.function``.
     python3 chip_smoke.py --fp16    # only the setup and path (l): bf16 and fp16 beyond PR 16
     python3 chip_smoke.py --api    # only the setup and path (m): the user API
     python3 chip_smoke.py --graph-core    # only the setup and path (n): indexing, shapes, Rop, checkpoints
+    python3 chip_smoke.py --fp64-inplace    # only the setup and path (o): float64, heads past 256, in-place updates
     python3 chip_smoke.py --compile-times    # only each path's compile seconds (see compile_times)
     python3 chip_smoke.py --step-times    # only (g1)-(g3), (i3), (l1a), (l1b)'s ms a call (see step_times)
     python3 chip_smoke.py --seed 3    # path (j)'s synthetic images from another seed (default 0)
@@ -365,6 +366,20 @@ n. (n) the rest of the graph core (ROADMAP 6b and 8).  (n1) fancy indexing
    and peak memory of both, the checkpointed peak the lower.  K1 and K4
    must launch; K1 on each of (n)'s Composites (the Scan bodies' too) and
    K4's softmax at (512, 10) against their plain versions.
+o. (o) the encoder in float64, heads wider than 256 and the updates
+   written in place (ROADMAP 17b's rest and 2b).  (o1) the flagship
+   encoder under ``floatX="float64"``: 3 requests of the forward, the sgd
+   step (3 counted steps, 10 timed), one step at batch 1 against the CPU's
+   within O1_TOL of each tensor's scale; the graphs' FusedAttention and
+   Composite counts the fp32 ones'.  (o2) K2 and K3 alone at O_PANELS (fp64
+   at the flagship's panel causal and not, at D 128 and 384; fp32, bf16 and
+   fp16 at D 384 and 512, the D split) against their plain versions, two
+   calls bitwise, timed beside ``scaled_dot_product_attention`` (its math
+   backend in fp64) and their bounds (fp64 at FP64_TC_FLOPS).  (o3) the fp32
+   sgd step with 2 heads of 512 (3 + 5 steps), one step at batch 1 against
+   the CPU's.  (o4) the sgd and (d)'s AdamW steps with ``donate_updated`` on
+   and off: 3 steps bitwise equal; each arm's ms a step, peak memory and
+   device copies in a profiled step.  K2 and K3 must launch in (o1) and (o3).
 8. captured against eager: every path above (the forward request, the
    sgd and AdamW steps, the classifier step, ``predict`` of one request
    sent again, the GLM's sgd and adam steps, path (c) at width 20, config
@@ -382,7 +397,7 @@ n. (n) the rest of the graph core (ROADMAP 6b and 8).  (n1) fancy indexing
    captured run's profile is held to its launches as everywhere.
 
 The CPU's side of the card-vs-CPU checks of (d), (g1), (h1), (h3), (i1),
-(i3), (l1), (l2), (l3), (m) and (n) is made in a spawned process of its own (CPU_REF_THREADS cores,
+(i3), (l1), (l2), (l3), (m), (n), (o1) and (o3) is made in a spawned process of its own (CPU_REF_THREADS cores,
 no CUDA) while the card runs the paths before them; it ends before the
 script.
 
@@ -405,7 +420,8 @@ and, under ``torch_*_ms``, PyTorch's samplers of the same distributions;
 K1-K4 with their launches in each run of path (l), K2 and K3 with their
 checks at (l5)'s panels; K1 and K4 with their launches in path (m), K4 with
 its check at (m3)'s log-softmax; K1 and K4 with their launches in path (n),
-K4 with its check at (n2)'s softmax) and the card's name and power limit; the last is
+K4 with its check at (n2)'s softmax; K1-K3 with their launches in path (o)'s
+runs, K2 and K3 with their checks at (o2)'s panels) and the card's name and power limit; the last is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -441,7 +457,8 @@ F32_ATOL = 1e-4          # fp32 kernels against fp32 plain versions
 BF16_REL = 2e-2          # bf16 error relative to the output's scale
 FP16_REL = 2e-3          # fp16 K2/K3 against their plain versions, of the output's scale: results rounded at 2**-11
 # K2 and K3 against their plain versions at path (l5)'s panels, of the plain output's scale
-ATTENTION_REL = {torch.float32: 1e-4, torch.bfloat16: BF16_REL, torch.float16: FP16_REL}
+FP64_REL = 1e-12         # fp64 K2/K3 against the fp64 plain versions (sums in another order)
+ATTENTION_REL = {torch.float32: 1e-4, torch.bfloat16: BF16_REL, torch.float16: FP16_REL, torch.float64: FP64_REL}
 K3_ATOL, K3_RTOL = 5e-4, 1e-3   # fp32 K3: the JAX package's own bound for its backward
 SLICE_TOL = 1e-3         # card against CPU after 4 layers (reduction order)
 TRAIN_TOL = 1e-4         # card against CPU after one train step (reduction order)
@@ -493,6 +510,7 @@ FP32_FLOPS = 67e12
 # on 132 SMs at the 1.98 GHz boost clock
 INT32_OPS = 64 * 132 * 1.98e9
 TF32_FLOPS = 495e12
+FP64_TC_FLOPS = 67e12    # fp64 on the tensor cores (DMMA), H100 SXM
 BF16_FLOPS = 989e12
 K2_WALKS = (16, 32, 64)   # walked key tiles --k2-walk-sweep builds
 K7_CHUNKS = (64, 128, 256, 512)   # plan chunk sizes --k7-sweep times
@@ -848,25 +866,25 @@ def call_by_schema(op, values: dict):
     return lambda: op(**kwargs)
 
 
-def build_encoder(device: str):
+def build_encoder(device: str, dtype: str = "float32"):
     import aesara_tpu_torch.tensor as pt
     from aesara_tpu_torch.config import config
     from aesara_tpu_torch.models.transformer import TransformerEncoderLayer
     from aesara_tpu_torch.tensor import math as tm
 
-    with config.change_flags(device=device, floatX="float32"):
+    with config.change_flags(device=device, floatX=dtype):
         layers = [TransformerEncoderLayer(D_MODEL, N_HEADS, D_FF, seed=i) for i in range(N_LAYERS)]
-    x = pt.tensor3("x")
+    x = pt.tensor3("x", dtype=dtype)
     h = x
     for layer in layers:
         h = layer(h)
     return layers, x, [h, tm.mean(tm.sqr(h))]
 
 
-def compile_encoder(device: str, use_graph=None):
+def compile_encoder(device: str, use_graph=None, dtype: str = "float32"):
     import aesara_tpu_torch as ptp
 
-    _, x, outs = build_encoder(device)
+    _, x, outs = build_encoder(device, dtype)
     return ptp.function([x], outs, mode=ptp.Mode(ptp.TorchLinker(device=device, use_graph=use_graph)))
 
 
@@ -1315,24 +1333,27 @@ def check_against_cpu(requests, results):
     torch.testing.assert_close(h_gpu, h_cpu, atol=SLICE_TOL, rtol=SLICE_TOL)
 
 
-def build_train_step(device: str, batch: int = BATCH, optimizer: str = "sgd", use_graph=None):
+def build_train_step(device: str, batch: int = BATCH, optimizer: str = "sgd", use_graph=None,
+                     dtype: str = "float32", heads: int = N_HEADS, donate=None):
     """The flagship train step: the 4-layer encoder on a shared ``x``
     (normal × 0.1 from a seed, its first ``batch`` sequences), loss
     mean(h²), the loss returned on the card (``Out(borrow=True)``), and
     ``sgd`` updates of every parameter or the AdamW recipe (warmup-cosine
     schedule on a shared step counter ``s``, weight decay, global-norm
-    clipping): (step, parameters, every update target)."""
+    clipping): (step, parameters, every update target).  ``dtype`` is the
+    floatX it is built in, ``heads`` its heads (width D_MODEL / heads),
+    ``donate`` the linker's ``donate_updated``."""
     import aesara_tpu_torch as ptp
     from aesara_tpu_torch.config import config
     from aesara_tpu_torch.models.optim import adamw, sgd, warmup_cosine
     from aesara_tpu_torch.models.transformer import TransformerEncoderLayer
     from aesara_tpu_torch.tensor import math as tm
 
-    xv = (np.random.default_rng(200).normal(size=(BATCH, SEQ, D_MODEL)) * 0.1).astype("float32")
-    with config.change_flags(device=device, floatX="float32"):
-        layers = [TransformerEncoderLayer(D_MODEL, N_HEADS, D_FF, seed=i) for i in range(N_LAYERS)]
+    xv = (np.random.default_rng(200).normal(size=(BATCH, SEQ, D_MODEL)) * 0.1).astype(dtype)
+    with config.change_flags(device=device, floatX=dtype):
+        layers = [TransformerEncoderLayer(D_MODEL, heads, D_FF, seed=i) for i in range(N_LAYERS)]
         x = ptp.shared(xv[:batch], name="x")
-        s = ptp.shared(np.asarray(0.0, dtype="float32"), name="s")
+        s = ptp.shared(np.asarray(0.0, dtype=dtype), name="s")
     h = x
     for layer in layers:
         h = layer(h)
@@ -1343,8 +1364,9 @@ def build_train_step(device: str, batch: int = BATCH, optimizer: str = "sgd", us
     else:
         lr = warmup_cosine(s, ADAMW_LR, ADAMW_WARMUP, ADAMW_TOTAL)
         updates = adamw(loss, params, lr=lr, weight_decay=ADAMW_WD, grad_clip=ADAMW_CLIP) + [(s, s + 1.0)]
-    step = ptp.function([], ptp.Out(loss, borrow=True), updates=updates,
-                        mode=ptp.Mode(ptp.TorchLinker(device=device, use_graph=use_graph)))
+    # donate_updated only where asked: --compile-times runs this in checkouts of ports that lack it
+    linker = dict(device=device, use_graph=use_graph, **({} if donate is None else {"donate_updated": donate}))
+    step = ptp.function([], ptp.Out(loss, borrow=True), updates=updates, mode=ptp.Mode(ptp.TorchLinker(**linker)))
     return step, params, [t for t, _ in updates]
 
 
@@ -2535,17 +2557,22 @@ def reference_call(built, which):
     return call
 
 
-def check_composites(nodes, label: str, rng, full=(REF_B, REF_H), shapes=None, time_each: bool = True) -> list:
+def check_composites(nodes, label: str, rng, full=(REF_B, REF_H), shapes=None, time_each: bool = True,
+                     fp64_rel=None, into: bool = False) -> list:
     """K1 on each distinct Composite among ``nodes`` (those a function runs
     on the card) against its plain version (F32_ATOL; a bfloat16 or float16
-    output BF16_REL of its scale), on values in (0.05, 0.95)
+    output BF16_REL of its scale; with ``fp64_rel``, one that computes in
+    float64 alone that share of its scale), on values in (0.05, 0.95)
     (every log, division and sigmoid of paths (e) and (f) stays finite
     there) at the shapes the path gives it: those a run gave its inputs
     where ``shapes`` ({node: input shapes}, ``composite_shapes``) has them,
-    else with an unknown dim ``full``'s.  Each is timed, or with
-    ``time_each`` False only the one that moves the most bytes, with None
-    none: per Composite a dict with its error, and its times and bound
-    (None where not timed)."""
+    else with an unknown dim ``full``'s.  With ``into``, K1 also writes
+    into an operand of the output's shape and dtype (a copy; else a new
+    tensor) as a donated update does (``out=``): within the same gate, and
+    bitwise the first launch.  Each is timed, or with ``time_each`` False
+    only the one that moves the most bytes, with None none: per Composite
+    a dict with its error, and its times and bound (None where not
+    timed)."""
     from aesara_tpu_torch.link.torch.kernels.elemwise import ElemwiseKernel, composite_plain, fused_elemwise
 
     device = torch.device("cuda")
@@ -2565,9 +2592,24 @@ def check_composites(nodes, label: str, rng, full=(REF_B, REF_H), shapes=None, t
         err = (got.double() - want.double()).abs().max().item() if got.numel() else 0.0
         # a Composite rounding to 16 bits within its type's share of its scale (phase_k1's gate)
         rel = k1_rel_gate(comp, out_dtype)
+        if fp64_rel is not None and not ({out_dtype} | {n.outputs[0].type.dtype for n in comp.nodes}) & {
+                "float32", "bfloat16", "float16"}:
+            rel = fp64_rel
         tol = F32_ATOL if rel is None else rel * want.double().abs().max().item()
         if not err <= tol or got.shape != want.shape or got.dtype != want.dtype:
             raise AssertionError(f"{label} K1 {comp} {tuple(got.shape)} {got.dtype}: max err {err} > {tol}")
+        into_text = ""
+        if into:
+            at = next((i for i, a in enumerate(args) if a.shape == got.shape and a.dtype == got.dtype), None)
+            dest = torch.empty_like(got) if at is None else args[at].clone()
+            fused_elemwise(kernel, *[dest if i == at else a for i, a in enumerate(args)], out=dest)
+            torch.cuda.synchronize()
+            into_err = (dest.double() - want.double()).abs().max().item() if dest.numel() else 0.0
+            if not (into_err <= tol and torch.equal(dest, got)):
+                raise AssertionError(f"{label} K1 {comp} with out= (operand {at}): max err {into_err} > {tol}, "
+                                     f"or not bitwise the first launch")
+            err = max(err, into_err)
+            into_text = f", with out= {'a new tensor' if at is None else f'operand {at}'} bitwise the same"
         n_bytes = sum(a.numel() * a.element_size() for a in args) + got.numel() * got.element_size()
         ops = ".".join(sorted(type(n.op).__name__ for n in comp.nodes))
         ins = [f"{tuple(a.shape)} {str(a.dtype).split('.')[-1]}" for a in args]
@@ -2575,7 +2617,8 @@ def check_composites(nodes, label: str, rng, full=(REF_B, REF_H), shapes=None, t
                    bound_by=None)
         rows.append(row)
         entry = (n_bytes, row, kernel, comp, out_dtype, args, got.numel())
-        line = f"{label} K1 {{{ops}}} inputs [{', '.join(ins)}] -> {tuple(got.shape)} {out_dtype}"
+        line = (f"{label} K1 {{{ops}}} inputs [{', '.join(ins)}] -> {tuple(got.shape)} {out_dtype} (tolerance "
+                f"{tol:.3e}{into_text})")
         if time_each:
             log(f"{line}: max_abs_err {err:.3e}, {time_composite(*entry)}")
             continue
@@ -3758,61 +3801,67 @@ def counted_steps(step, label: str, n: int = N_TRAIN_STEPS, dtype=torch.bfloat16
     return losses, launches, per_call
 
 
-def check_attention(shape, dtype=torch.bfloat16) -> dict:
-    """K2 and K3 at one (BH, T, D) panel, non-causal: each against its
-    plain version within ATTENTION_REL[dtype] of the plain output's scale,
-    two calls with the same bits, device ms of the kernel, the plain
-    version and the library (scaled_dot_product_attention on the panel's
-    ``sdpa_view``, its backend named; for K3 the fastest backward it
-    offers, ``sdpa_backward_ms``),
-    and the bound: q, k, v (and dO) read, the outputs written, the
-    products at the card's dense rate for the type (bf16 and fp16 alike;
-    fp32 as three TF32 products, the kernels' 3xTF32)."""
+def check_attention(shape, dtype=torch.bfloat16, causal: bool = False) -> dict:
+    """K2 and K3 at one (BH, T, D) panel: each against its plain version
+    within ATTENTION_REL[dtype] of the plain output's scale (fp64: a
+    gradient's scale is at least that of dO times V, the size of dS's
+    terms), two calls with the same bits, device ms of the kernel, the
+    plain version and the library (scaled_dot_product_attention on the
+    panel's ``sdpa_view``, its backend named; for K3 the fastest backward
+    it offers, ``sdpa_backward_ms``), and the bound: q, k, v (and dO) read,
+    the outputs written, the products at the card's dense rate for the
+    type (bf16 and fp16 alike; fp32 as three TF32 products, the kernels'
+    3xTF32; fp64 on the fp64 tensor cores), the masked half of a causal
+    panel's products not counted."""
     from aesara_tpu_torch.link.torch.kernels.attention import (
         attention_grads_plain, attention_plain, flash_attention, flash_attention_grads,
     )
 
     BH, T, D = shape
-    name = {torch.float32: "fp32", torch.bfloat16: "bf16", torch.float16: "fp16"}[dtype]
+    name = {torch.float32: "fp32", torch.bfloat16: "bf16", torch.float16: "fp16", torch.float64: "fp64"}[dtype]
+    label = f"{name}{' causal' if causal else ''}"
     rel = ATTENTION_REL[dtype]
     gen = torch.Generator(device="cuda").manual_seed(16)
     q, k, v, do = (torch.randn(shape, device="cuda", generator=gen).to(dtype) for _ in range(4))
     scale = 1.0 / D ** 0.5
-    out = flash_attention(q, k, v, scale=scale)
-    want = attention_plain(q, k, v, False, scale)
-    k2_err = (out.float() - want.float()).abs().max().item()
-    if not k2_err <= rel * want.float().abs().max().item():
-        raise AssertionError(f"K2 {name} {shape}: max err {k2_err}")
-    grads = flash_attention_grads(q, k, v, do, scale=scale)
+    out = flash_attention(q, k, v, causal=causal, scale=scale)
+    want = attention_plain(q, k, v, causal, scale)
+    k2_err = (out.double() - want.double()).abs().max().item()
+    if not k2_err <= rel * want.double().abs().max().item():
+        raise AssertionError(f"K2 {label} {shape}: max err {k2_err}")
+    grads = flash_attention_grads(q, k, v, do, causal=causal, scale=scale)
+    terms = do.abs().max().item() * v.abs().max().item() if dtype == torch.float64 else 0.0
     k3_err = 0.0
-    for g_name, g, w in zip(("dq", "dk", "dv"), grads, attention_grads_plain(q, k, v, do, False, scale)):
-        err = (g.float() - w.float()).abs().max().item()
-        if g.dtype != dtype or not err <= rel * w.float().abs().max().item():
-            raise AssertionError(f"K3 {name} {shape} {g_name}: {g.dtype}, max err {err}")
+    for g_name, g, w in zip(("dq", "dk", "dv"), grads, attention_grads_plain(q, k, v, do, causal, scale)):
+        err = (g.double() - w.double()).abs().max().item()
+        if g.dtype != dtype or not err <= rel * max(w.double().abs().max().item(), terms):
+            raise AssertionError(f"K3 {label} {shape} {g_name}: {g.dtype}, max err {err}")
         k3_err = max(k3_err, err)
     del want
-    if not (torch.equal(out, flash_attention(q, k, v, scale=scale))
-            and all(torch.equal(a, b) for a, b in zip(grads, flash_attention_grads(q, k, v, do, scale=scale)))):
-        raise AssertionError(f"K2/K3 {name} {shape}: two calls gave different bits")
+    if not (torch.equal(out, flash_attention(q, k, v, causal=causal, scale=scale))
+            and all(torch.equal(a, b) for a, b in zip(grads, flash_attention_grads(q, k, v, do, causal=causal,
+                                                                                 scale=scale)))):
+        raise AssertionError(f"K2/K3 {label} {shape}: two calls gave different bits")
     del out, grads
     size = q.element_size()
-    flops, rate = (3, TF32_FLOPS) if dtype == torch.float32 else (1, BF16_FLOPS)
-    k2 = {"max_abs_err": k2_err, "ms": device_ms(lambda: flash_attention(q, k, v, scale=scale)),
-          "plain_ms": device_ms(lambda: attention_plain(q, k, v, False, scale), reps=5)}
-    k2["library_ms"], names = library_split(f"K2 {name}", lambda: torch.nn.functional.scaled_dot_product_attention(
-        *(sdpa_view(t) for t in (q, k, v)), scale=scale))
+    flops, rate = {torch.float32: (3, TF32_FLOPS), torch.float64: (1, FP64_TC_FLOPS)}.get(dtype, (1, BF16_FLOPS))
+    share = (T + 1) / (2 * T) if causal else 1.0   # a causal panel's products below the diagonal
+    k2 = {"max_abs_err": k2_err, "ms": device_ms(lambda: flash_attention(q, k, v, causal=causal, scale=scale)),
+          "plain_ms": device_ms(lambda: attention_plain(q, k, v, causal, scale), reps=5)}
+    k2["library_ms"], names = library_split(f"K2 {label}", lambda: torch.nn.functional.scaled_dot_product_attention(
+        *(sdpa_view(t) for t in (q, k, v)), is_causal=causal, scale=scale))
     k2["library"] = sdpa_backend(names)
-    k2["bound_ms"], k2["bound_by"] = bound(4 * q.numel() * size, flops * 4 * BH * T * T * D, rate)
-    split = device_split(lambda: flash_attention_grads(q, k, v, do, scale=scale), reps=10)
+    k2["bound_ms"], k2["bound_by"] = bound(4 * q.numel() * size, share * flops * 4 * BH * T * T * D, rate)
+    split = device_split(lambda: flash_attention_grads(q, k, v, do, causal=causal, scale=scale), reps=10)
     k3 = {"max_abs_err": k3_err, "ms": sum(split.values()),
           "backward_ms": sum(t for name, t in split.items() if "flash_bwd" in name),
-          "plain_ms": device_ms(lambda: attention_grads_plain(q, k, v, do, False, scale), reps=3)}
-    k3["library_ms"], k3["library"] = sdpa_backward_ms(q, k, v, do, scale)
+          "plain_ms": device_ms(lambda: attention_grads_plain(q, k, v, do, causal, scale), reps=3)}
+    k3["library_ms"], k3["library"] = sdpa_backward_ms(q, k, v, do, scale, causal)
     # q, k, v, dO read, dQ, dK, dV written; the S, dP, dV, dQ, dK products
-    k3["bound_ms"], k3["bound_by"] = bound(7 * q.numel() * size, flops * 10 * BH * T * T * D, rate)
+    k3["bound_ms"], k3["bound_by"] = bound(7 * q.numel() * size, share * flops * 10 * BH * T * T * D, rate)
     for kernel, r in (("K2", k2), ("K3", k3)):
         extra = f", backward kernels {r['backward_ms']:.4f}" if "backward_ms" in r else ""
-        log(f"{kernel} {name} {shape}: max_abs_err {r['max_abs_err']:.3e} (tolerance {rel} x max|plain|), two "
+        log(f"{kernel} {label} {shape}: max_abs_err {r['max_abs_err']:.3e} (tolerance {rel} x max|plain|), two "
             f"calls the same bits; device ms kernel {r['ms']:.4f}{extra}, plain {r['plain_ms']:.4f}, library "
             f"({r['library']}) {r['library_ms']}, bound {r['bound_ms']:.4f} ({r['bound_by']})")
     return {"K2": k2, "K3": k3}
@@ -3825,24 +3874,27 @@ def sdpa_view(t):
     return t.reshape(8, t.shape[0] // 8, *t.shape[1:])
 
 
-def sdpa_backward_ms(q, k, v, do, scale) -> tuple:
+def sdpa_backward_ms(q, k, v, do, scale, causal: bool = False) -> tuple:
     """(device ms, backend) of the fastest backward that PyTorch's
     scaled_dot_product_attention offers on K3's inputs, viewed as (8,
     BH / 8, T, D): under each of its cuDNN, flash and memory-efficient
-    backends that takes them, the forward runs once outside the timed
-    window and autograd's backward (dQ, dK, dV from dO) is timed; (None,
-    None) where none takes them."""
+    backends that takes them (where none does, as for fp64, its math
+    backend), the forward runs once outside the timed window and
+    autograd's backward (dQ, dK, dV from dO) is timed; (None, None) where
+    none takes them."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     leaves = [sdpa_view(t).detach().requires_grad_() for t in (q, k, v)]
     do4 = do.reshape(leaves[0].shape)
     times = {}
     for backend, name in ((SDPBackend.CUDNN_ATTENTION, "cuDNN"), (SDPBackend.FLASH_ATTENTION, "flash"),
-                          (SDPBackend.EFFICIENT_ATTENTION, "memory-efficient")):
+                          (SDPBackend.EFFICIENT_ATTENTION, "memory-efficient"), (SDPBackend.MATH, "math")):
+        if backend == SDPBackend.MATH and times:
+            break
         try:
             with warnings.catch_warnings(), sdpa_kernel(backend):
                 warnings.simplefilter("ignore")
-                out = torch.nn.functional.scaled_dot_product_attention(*leaves, scale=scale)
+                out = torch.nn.functional.scaled_dot_product_attention(*leaves, is_causal=causal, scale=scale)
         except RuntimeError as exc:
             log(f"K3 library {name} backward not timed: {str(exc)[:200]}")
             continue
@@ -6403,13 +6455,285 @@ def graph_core_only():
     log("chip_smoke --graph-core: path (n) passed")
 
 
+# ---------------------------------------------------------------------------
+# path (o): the encoder in float64, heads wider than 256 and the updates
+# written in place (ROADMAP 17b's rest and 2b)
+# ---------------------------------------------------------------------------
+
+#: (o2)'s K2/K3 panels: (dtype, (BH, T, D), causal)
+O_PANELS = ((torch.float64, (128, SEQ, 64), False), (torch.float64, (128, SEQ, 64), True),
+            (torch.float64, (32, SEQ, 128), False), (torch.float64, (32, SEQ, 384), False),
+            *((dtype, (32, SEQ, d), False) for d in (384, 512)
+              for dtype in (torch.float32, torch.bfloat16, torch.float16)))
+O1_TOL = 1e-10              # (o1): the fp64 step on the card against the CPU's, of each tensor's scale
+O3_HEADS, O3_STEPS = 2, 5   # (o3): 2 heads of width 512 at d_model 1024; 3 counted steps, then 5 timed
+# (o3): the 2-head step's update against the CPU's may err at most this many times the 16-head fp32 step's
+# reading on the same tensors: on the H100 the two read 6.2e-3 and 4.3e-3 of wq's update (fp32 sums in another
+# order; 1.45 times), where a wrong gradient through the D split errs by about 1 of the scale
+O3_MARGIN = 3
+#: path (o)'s card-vs-CPU steps: (o1)'s float64 one, (o3)'s 2-head float32 one, and the 16-head float32 one
+#: that sets (o3)'s limit
+O_CPU_STEPS = {"o1": dict(dtype="float64"), "o3": dict(heads=O3_HEADS), "o3_16": dict()}
+
+
+def o_cpu_reference() -> dict:
+    """Path (o)'s CPU side, made in ``cpu_reference``'s process: one step at
+    batch 1 of each of O_CPU_STEPS, the loss and every updated tensor
+    after it and its update (after - before, in float64)."""
+    t0 = time.perf_counter()
+    out = {}
+    for name, kwargs in O_CPU_STEPS.items():
+        step, _, targets = build_train_step("cpu", batch=1, **kwargs)
+        before = [t.value.double().clone() for t in targets]
+        loss = _host(step())
+        out[name] = {"loss": loss, "state": [_host(t.value) for t in targets],
+                     "update": [(t.value.double() - b).numpy() for t, b in zip(targets, before)],
+                     "names": [t.name for t in targets]}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def scaled_err(got, want) -> float:
+    """|got - want|'s largest entry over want's largest magnitude."""
+    got = got.detach().double().cpu() if isinstance(got, torch.Tensor) else torch.as_tensor(np.asarray(got)).double()
+    want = torch.as_tensor(np.asarray(want)).double()
+    return (got - want).abs().max().item() / max(want.abs().max().item(), 1e-300)
+
+
+def o_card_vs_cpu(label: str) -> dict:
+    """One step at batch 1 of O_CPU_STEPS[``label``] on the card against
+    ``o_cpu_reference``'s: the error of the loss, of every updated tensor
+    and of every update (after - before, so a wrong gradient shows even
+    where the learning rate makes the update small beside its weight),
+    each as a share of its own scale; the largest of each kind and the
+    tensor that gives the update's."""
+    step, _, targets = build_train_step("cuda", batch=1, **O_CPU_STEPS[label])
+    before = [t.value.detach().double().cpu() for t in targets]
+    loss = step()
+    ref = cpu_reference("o")[label]
+    after = [t.value.detach().double().cpu() for t in targets]
+    if [t.name for t in targets] != ref["names"]:
+        raise AssertionError(f"{label}: the card's update targets are not the CPU's")
+    loss_err = scaled_err(loss, ref["loss"])
+    state_err = max(scaled_err(a, w) for a, w in zip(after, ref["state"]))
+    updates = [scaled_err(a - b, w) for a, b, w in zip(after, before, ref["update"])]
+    worst = int(np.argmax(updates))
+    out = {"loss": loss_err, "state": state_err, "update": updates[worst], "worst": ref["names"][worst]}
+    log(f"{label} one step at batch 1, card vs CPU: loss {float(loss):.12g} vs {float(ref['loss']):.12g}; of each "
+        f"one's scale, the loss {loss_err:.3e}, the {len(targets)} updated tensors up to {state_err:.3e}, their "
+        f"updates up to {updates[worst]:.3e} ({out['worst']})")
+    del step, targets
+    return out
+
+
+def o_train(label: str, n_timed: int, **kwargs) -> dict:
+    """A full-width train step (``build_train_step(**kwargs)``): its graph's
+    FusedAttention and Composite counts the fp32 step's, 3 counted steps
+    (K2 and K3 must launch), ``n_timed`` more back to back, the peak
+    memory of all of them."""
+    t0 = time.perf_counter()
+    step, params, targets = build_train_step("cuda", **kwargs)
+    log(f"{label} train step compile (graph + grad + rewrites + link): {time.perf_counter() - t0:.2f} s; "
+        f"{len(step.fn.program.donated)} of {len(targets)} updates written in place by their nodes")
+    check_train_graph(step, N_COMPOSITE_TRAIN, label)
+    reset_peak()
+    dtype = getattr(torch, kwargs.get("dtype", "float32"))
+    losses, launches, _ = counted_steps(step, label, dtype=dtype)
+    for k in ("K2", "K3"):
+        if launches[0][k] + launches[1][k] == 0:
+            raise AssertionError(f"{label}: {k} launched no time")
+    timed = time_steps(step, n_timed, label, profile=False)
+    require_captured(step, label)
+    for p in params:
+        if not (p.value.is_cuda and p.value.dtype == dtype and bool(torch.isfinite(p.value).all())):
+            raise AssertionError(f"{label}: parameter {p.name} not finite {dtype} on the card")
+    return {"launches": launches, "ms": timed["ms"], "peak": timed["peak"], "losses": losses, "step": step}
+
+
+def o_composites(fn, args, label: str, seed: int) -> list:
+    """K1 on each distinct Composite of ``fn`` at the shapes a run on
+    ``args`` gives it, against its plain version (float64 ones at FP64_REL
+    of their scale) and written with ``out=`` as a donated update is
+    (``check_composites``); the one that moves the most bytes timed."""
+    shapes = composite_shapes(fn, args)
+    nodes = [n for n in composite_nodes(fn) if n in shapes]
+    return check_composites(nodes, label, np.random.default_rng(seed), shapes=shapes, time_each=False,
+                            fp64_rel=FP64_REL, into=True)
+
+
+def run_o1() -> dict:
+    """(o1): the flagship encoder in float64, served (3 requests) and trained
+    with sgd (3 + 10 steps), and one step at batch 1 against the CPU's."""
+    t0 = time.perf_counter()
+    fn = compile_encoder("cuda", dtype="float64")
+    check_graph(fn)
+    requests = [np.random.default_rng(100 + r).normal(size=(BATCH, SEQ, D_MODEL)) for r in range(N_REQUESTS)]
+    torch.cuda.synchronize()
+    zero_counters()
+    for x in requests:
+        h, msq = fn(x)
+        if not (h.dtype == torch.float64 and tuple(h.shape) == (BATCH, SEQ, D_MODEL) and bool(torch.isfinite(h).all())
+                and bool(torch.isfinite(msq))):
+            raise AssertionError("(o1) forward output not finite float64 (8, 1024, 1024)")
+    torch.cuda.synchronize()
+    forward = read_counters({"K1": N_COMPOSITE, "K2": N_LAYERS}, "(o1) forward", N_REQUESTS)
+    require_captured(fn, "(o1) forward")
+    composites = o_composites(fn, [torch.as_tensor(requests[-1], device="cuda")], "(o1) forward", 40)
+    del fn, h, msq
+    release()
+    log(f"(o1) float64 forward, {N_REQUESTS} requests: {time.perf_counter() - t0:.2f} s")
+    out = o_train("(o1) float64 sgd", N_TIMED_STEPS, dtype="float64")
+    out["composites"] = composites + o_composites(out.pop("step"), [], "(o1) float64 sgd", 41)
+    release()
+    out["forward"] = forward
+    cpu = o_card_vs_cpu("o1")
+    if not max(cpu["loss"], cpu["state"], cpu["update"]) <= O1_TOL:
+        raise AssertionError(f"(o1): card vs CPU beyond {O1_TOL} of a tensor's scale: {cpu}")
+    out["cpu_err"] = cpu
+    release()
+    return out
+
+
+def o_occupancy():
+    """Log the resources of K2's and K3's fp64 variants and of the D split
+    (``flash_fwd_kernel_info``, ``flash_bwd_kernel_info`` with dmax 0)."""
+    import ctypes
+    from aesara_tpu_torch.link.torch.kernels.attention import _library
+
+    fwd, bwd = _library("flash_fwd").flash_fwd_kernel_info, _library("flash_bwd").flash_bwd_kernel_info
+    fwd.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    bwd.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fwd.restype = bwd.restype = ctypes.c_int
+    for dtype, dtype_name, dmaxes in ((3, "fp64", (64, 128, 0)), (0, "fp32", (0,)), (1, "bf16", (0,)),
+                                      (2, "fp16", (0,))):
+        for dmax in dmaxes:
+            parts = []
+            kernels = ((0, "dq"), (1, "dK/dV")) if dmax == 64 else ((0, "dq"), (1, "dK"), (2, "dV"))
+            for which, kernel in [(None, "K2")] + [(w, f"K3 {k}") for w, k in kernels]:
+                info = (ctypes.c_int * 6)()
+                err = fwd(dtype, dmax, info) if which is None else bwd(dtype, dmax, which, info)
+                if err != 0:
+                    raise RuntimeError(f"kernel_info({dtype}, {dmax}, {which}) failed: {err}")
+                threads, smem, regs, spill, blocks, walk = list(info)
+                parts.append(f"{kernel} {smem} B shared, {regs} registers, {spill} B spilled, {blocks} blocks an "
+                             f"SM, walked tiles of {walk}")
+            log(f"(o2) occupancy {dtype_name} {'the D split' if dmax == 0 else f'D<={dmax}'}: {'; '.join(parts)}")
+
+
+def run_o2() -> dict:
+    """(o2): K2 and K3 alone at O_PANELS (``check_attention``)."""
+    t0 = time.perf_counter()
+    o_occupancy()
+    out = {}
+    for dtype, shape, causal in O_PANELS:
+        name = f"{str(dtype).split('.')[-1]} {'x'.join(map(str, shape))}{' causal' if causal else ''}"
+        out[name] = check_attention(shape, dtype, causal)
+        release()
+    log(f"(o2) K2/K3 in fp64 and past D 256: {time.perf_counter() - t0:.2f} s")
+    return out
+
+
+def run_o3() -> dict:
+    """(o3): the fp32 sgd step with 2 heads of width 512, K1 on its
+    Composites, and one step at batch 1 against the CPU's: the loss
+    within TRAIN_TOL of its scale, and every update within O3_MARGIN
+    times the 16-head fp32 step's reading, on the same tensors, of the
+    update's scale."""
+    label = f"(o3) fp32 {O3_HEADS} heads of {D_MODEL // O3_HEADS}"
+    out = o_train(label, O3_STEPS, heads=O3_HEADS)
+    out["composites"] = o_composites(out.pop("step"), [], label, 42)
+    release()
+    split, whole = o_card_vs_cpu("o3"), o_card_vs_cpu("o3_16")
+    limit = O3_MARGIN * whole["update"]
+    log(f"(o3) the D split's update against the CPU's: {split['update']:.3e} of its scale ({split['worst']}), the "
+        f"16-head step's {whole['update']:.3e} ({whole['worst']}): {split['update'] / whole['update']:.2f} times it "
+        f"(limit {O3_MARGIN} times, {limit:.3e})")
+    if not (split["update"] <= limit and split["loss"] <= TRAIN_TOL):
+        raise AssertionError(f"(o3): card vs CPU, the update {split['update']} of its scale beyond {limit} or the "
+                             f"loss {split['loss']} beyond {TRAIN_TOL}")
+    out["cpu_err"], out["cpu_err_16_heads"] = split, whole
+    release()
+    return out
+
+
+def run_o4() -> dict:
+    """(o4): the fp32 sgd step and (d)'s AdamW step compiled twice from the
+    same seeds, ``donate_updated`` on then off: 3 counted steps each, the
+    losses and every updated tensor bitwise equal; per arm N_TIMED_STEPS
+    more back to back (ms a step, peak memory) and one profiled step (its
+    device busy ms and its copies)."""
+    out = {}
+    for optimizer in ("sgd", "adamw"):
+        arms = {}
+        for donate in (True, False):
+            label = f"(o4) {optimizer} donate_updated={donate}"
+            reset_peak()
+            step, _, targets = build_train_step("cuda", optimizer=optimizer, donate=donate)
+            donated = len(step.fn.program.donated)
+            losses, launches, _ = counted_steps(step, label, dtype=torch.float32)
+            if step.fn.donating != donate or (donated > 0) != donate:
+                raise AssertionError(f"{label}: {donated} updates written in place, donating {step.fn.donating}")
+            state = [t.value.clone() for t in targets]
+            timed = time_steps(step, N_TIMED_STEPS, label)
+            copies = sum(n for kind, n in timed["events"].items() if kind.startswith("Memcpy DtoD"))
+            arms[donate] = {"losses": losses, "state": state, "launches": launches, "ms": timed["ms"],
+                            "busy": timed["busy"], "peak": timed["peak"], "copies": copies,
+                            "donated": donated, "updates": len(targets)}
+            log(f"{label}: {donated} of {len(targets)} updates written in place; {timed['ms']:.3f} ms a step, device "
+                f"busy {timed['busy']:.3f} ms, peak {timed['peak']:.3f} GiB, {copies:.0f} device-to-device copies "
+                f"a profiled step")
+            del step, targets
+            release()
+        on, off = arms[True], arms[False]
+        same = on["losses"] == off["losses"] and all(torch.equal(a, b) for a, b in zip(on["state"], off["state"]))
+        if not same:
+            raise AssertionError(f"(o4) {optimizer}: donation on and off differ after 3 steps")
+        log(f"(o4) {optimizer}: 3 steps with donation on and off give the same bits (losses {on['losses']}); "
+            f"ms a step {on['ms']:.3f} vs {off['ms']:.3f}, peak {on['peak']:.3f} vs {off['peak']:.3f} GiB, copies "
+            f"a step {on['copies']:.0f} vs {off['copies']:.0f}")
+        for arm in arms.values():
+            del arm["state"]
+        out[optimizer] = arms
+        release()
+    return out
+
+
+def phase_o() -> dict:
+    """Path (o): (o1)-(o4)."""
+    out = {}
+    for name, run in (("o2", run_o2), ("o1", run_o1), ("o3", run_o3), ("o4", run_o4)):
+        t0 = time.perf_counter()
+        out[name] = run()
+        log(f"({name}) path: {time.perf_counter() - t0:.2f} s")
+    return out
+
+
+def fp64_inplace_only():
+    """--fp64-inplace: the setup and path (o) alone."""
+    phase_setup()
+    start_cpu_references("o")
+    phase_o()
+    stop_cpu_references()
+    log("chip_smoke --fp64-inplace: path (o) passed")
+
+
+#: --compile-times: the eager calls timed of each eager train step, after one that builds its kernels
+N_EAGER_CALLS = 20
+
+
 def compile_times():
     """--compile-times: the seconds ``function()`` takes (graph, gradient,
     rewrites and link; no call) for each path's main function on the card,
     each compiled twice and the second read (the first also imports and
-    warms up).  It builds no kernel and runs no step, so it runs unchanged
-    in a checkout of an earlier version of the port: copy this file there
-    and run both in one call to compare their rewrite pipelines."""
+    warms up); then the host ms of the eager train steps (``use_graph=False``,
+    batch 1, so that the card waits on the host: sgd and AdamW), the least
+    and the median of N_EAGER_CALLS calls from a synchronized card to the
+    call's return (the least is the one a busy host slowed the least), and
+    their median wall ms to the card's end; where the linker takes
+    ``donate_updated``, with it on and off in alternate calls of one
+    process, which a busy host slows alike.  It runs unchanged in a
+    checkout of an earlier version of the port: copy this file there and
+    run both in one call to compare their rewrite pipelines and linkers."""
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -6444,6 +6768,36 @@ def compile_times():
         rows[label] = times[-1]
         log(f"compile {label}: {times[-1]:.2f} s (first {times[0]:.2f} s)")
     log(f"compile times: {json.dumps(rows)}")
+    import inspect
+
+    import aesara_tpu_torch as ptp
+
+    arms = (None, True, False) if "donate_updated" in inspect.signature(ptp.TorchLinker).parameters else (None,)
+    host = {}
+    for optimizer in ("sgd", "adamw"):
+        steps = {arm: build_train_step("cuda", batch=1, optimizer=optimizer, use_graph=False, donate=arm)[0]
+                 for arm in arms}
+        times = {arm: ([], []) for arm in arms}
+        for step in steps.values():
+            step()
+        for _ in range(N_EAGER_CALLS):
+            for arm, step in steps.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step()
+                times[arm][0].append((time.perf_counter() - t0) * 1e3)
+                torch.cuda.synchronize()
+                times[arm][1].append((time.perf_counter() - t0) * 1e3)
+        for arm, (returns, walls) in times.items():
+            name = f"{optimizer}{'' if arm is None else f' donate_updated={arm}'}"
+            host[name] = {"host_ms_least": min(returns), "host_ms": float(np.median(returns)),
+                          "wall_ms": float(np.median(walls))}
+            log(f"eager {name} train step at batch 1: host ms a call least {min(returns):.3f}, median "
+                f"{host[name]['host_ms']:.3f} (of {N_EAGER_CALLS}; {', '.join(f'{t:.3f}' for t in returns)}), "
+                f"wall ms {host[name]['wall_ms']:.3f}")
+        del steps
+        release()
+    log(f"eager host times: {json.dumps(host)}")
     log("chip_smoke --compile-times: done")
 
 
@@ -6521,7 +6875,7 @@ def step_times():
 
 CPU_REF_JOBS = {"adamw": adamw_cpu_reference, "decoder": cpu_decoder_references, "bf16": bf16_cpu_reference,
                 "lm_train": lm_train_cpu_reference, "ctc": ctc_cpu_reference, "l": l_cpu_reference,
-                "m": m_cpu_reference, "n": n_cpu_reference}
+                "m": m_cpu_reference, "n": n_cpu_reference, "o": o_cpu_reference}
 
 
 # ---------------------------------------------------------------------------
@@ -7386,7 +7740,8 @@ def main():
              "--reference": reference_only, "--scan": scan_only, "--decoder": decoder_only,
              "--decoder-sampling": decoder_sampling_only, "--bf16": bf16_only, "--convnet": convnet_only,
              "--ctc-random": ctc_random_only, "--fp16": fp16_only, "--api": api_only,
-             "--graph-core": graph_core_only, "--compile-times": compile_times, "--step-times": step_times}
+             "--graph-core": graph_core_only, "--fp64-inplace": fp64_inplace_only, "--compile-times": compile_times,
+             "--step-times": step_times}
     args = sys.argv[1:]
     if "--seed" in args:
         at = args.index("--seed")
@@ -7400,7 +7755,7 @@ def main():
         raise SystemExit(f"chip_smoke: unknown arguments {args}")
     start = time.perf_counter()
     smi = phase_setup()
-    start_cpu_references("adamw", "decoder", "bf16", "lm_train", "ctc", "l", "m", "n")
+    start_cpu_references("adamw", "decoder", "bf16", "lm_train", "ctc", "l", "m", "n", "o")
     log(f"setup (builds and first launches): {time.perf_counter() - start:.2f} s")
     t_path = time.perf_counter()
     t0 = time.perf_counter()
@@ -7469,6 +7824,9 @@ def main():
     log(f"(l) bf16 and fp16 beyond PR 16: {time.perf_counter() - t0:.2f} s")
     path_m = phase_m()
     path_n = phase_n()
+    t0 = time.perf_counter()
+    path_o = phase_o()
+    log(f"(o) float64, heads past 256 and in-place updates: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     phase_capture(lr["data"], glm_xyw)
     log(f"captured-vs-eager phase: {time.perf_counter() - t0:.2f} s")
@@ -7585,8 +7943,18 @@ def main():
     # path (n): K1 and K4 launches in its run, K1 on its Composites (the Scan bodies' too), K4 at the
     # Gauss-Newton product's softmax
     k1["max_abs_err"] = max([k1["max_abs_err"]] + [row["max_abs_err"] for row in path_n["composites"]])
+    # path (o): K1 on (o1)'s float64 Composites (forward and sgd step) and (o3)'s, each also with out=
+    k1["max_abs_err"] = max([k1["max_abs_err"]] + [row["max_abs_err"] for run in ("o1", "o3")
+                                                   for row in path_o[run]["composites"]])
     attention_l_rows = {k: {f"{dt} {'x'.join(map(str, shape))}": r[k] for (dt, shape), r in path_l["l5"].items()}
                         for k in ("K2", "K3")}
+    # path (o): K1-K3 launches in (o1)'s forward and counted steps, (o3)'s and each (o4) arm's counted steps;
+    # K2 and K3 at (o2)'s panels
+    runs_o = {"o1_forward": path_o["o1"]["forward"], "o1": path_o["o1"]["launches"], "o3": path_o["o3"]["launches"]}
+    runs_o.update({f"o4_{opt}_{'on' if on else 'off'}": path_o["o4"][opt][on]["launches"]
+                   for opt in ("sgd", "adamw") for on in (True, False)})
+    path_o_launches = {k: {w: r[0][k] + r[1][k] for w, r in runs_o.items()} for k in ("K1", "K2", "K3")}
+    attention_o_rows = {k: {name: r[k] for name, r in path_o["o2"].items()} for k in ("K2", "K3")}
     kernels = [
         dict(kernel_line("K1 fused elemwise Composite", "triton", K1_SOURCE, K1_REPLACES, "K1", train, k1),
              cold_ms=k1_times[4], **k1_adamw, path_e_launches=path_e["K1"], path_f_launches=path_f["K1"],
@@ -7594,12 +7962,14 @@ def main():
              path_i_bf16=k1_bf16, path_j_launches=path_j["K1"], path_k_launches=path_k["K1"],
              path_l_launches=path_l_launches["K1"], path_l_fp16_max_rel_err=path_l["l3"]["k1_rel"],
              path_l_bf16_max_abs_err=k1_l_16, path_m_launches=path_m["launches"]["K1"],
-             path_n_launches=path_n["launches"]["K1"]),
+             path_n_launches=path_n["launches"]["K1"], path_o_launches=path_o_launches["K1"]),
         dict(kernel_line("K2 flash attention forward", "cuda", K2_SOURCE, K2_REPLACES, "K2", train, k2),
              adamw_launches=adamw["launches"]["K2"], path_i_launches=path_i["K2"], path_i_bf16=attention_i["K2"],
-             path_l_launches=path_l_launches["K2"], path_l=attention_l_rows["K2"]),
+             path_l_launches=path_l_launches["K2"], path_l=attention_l_rows["K2"],
+             path_o_launches=path_o_launches["K2"], path_o=attention_o_rows["K2"]),
         dict(k3_line, adamw_launches=adamw["launches"]["K3"], path_i_launches=path_i["K3"],
-             path_i_bf16=attention_i["K3"], path_l_launches=path_l_launches["K3"], path_l=attention_l_rows["K3"]),
+             path_i_bf16=attention_i["K3"], path_l_launches=path_l_launches["K3"], path_l=attention_l_rows["K3"],
+             path_o_launches=path_o_launches["K3"], path_o=attention_o_rows["K3"]),
         dict(kernel_line("K4 row log-softmax", "cuda", K4_SOURCE, K4_REPLACES, "K4", (lr["launches"], lr["traced"]),
                          dict(lr["K4"], max_abs_err=max([lr["K4"]["max_abs_err"], k4_f["max_abs_err"]]
                                                         + [r["max_abs_err"] for r in k4_e.values()]

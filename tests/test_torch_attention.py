@@ -439,21 +439,28 @@ def test_plain_fp16_attention_past_fp16s_range_of_scores():
         _close(g.float(), w, 2e-3, name)
 
 
-@pytest.mark.parametrize("shape,dtype", [((2, 70, 300), torch.float32), ((1, 5, 40), torch.float64)],
-                         ids=["D300", "fp64"])
-def test_the_wrappers_raise_on_what_the_kernels_do_not_take(shape, dtype):
+@pytest.mark.parametrize("shapes,dtypes,error,match", [
+    ([(2, 70, 300)] * 3, [torch.float32, torch.float64, torch.float32], TypeError, "of one dtype"),
+    ([(1, 5, 40)] * 3, [torch.int32] * 3, TypeError, "got torch.int32"),
+    ([(2, 70, 64), (2, 70, 64), (2, 71, 64)], [torch.float64] * 3, ValueError, "equal"),
+], ids=["mixed-dtypes", "integer", "unequal-shapes"])
+def test_the_wrappers_raise_on_what_the_kernels_do_not_take(shapes, dtypes, error, match):
     """A CUDA panel that K2 and K3 do not take raises before any launch (the
-    check reads shapes and dtypes only, so a meta tensor stands in)."""
+    check reads shapes and dtypes only, so meta tensors stand in); fp64 and
+    any D pass it."""
     from aesara_tpu_torch.link.torch.kernels import attention as attn
 
-    t = torch.empty(shape, dtype=dtype, device="meta")
-    match = "D <= 256" if dtype == torch.float32 else "float32, bfloat16 or float16 on the card, got torch.float64"
-    with pytest.raises((ValueError, TypeError), match=match):
-        _check_as_cuda(attn, t)
+    ts = [torch.empty(shape, dtype=dtype, device="meta") for shape, dtype in zip(shapes, dtypes)]
+    with pytest.raises(error, match=match):
+        _check_as_cuda(attn, *ts)
+    for shape, dtype in (((2, 70, 300), torch.float32), ((1, 5, 40), torch.float64), ((1, 9, 1024), torch.float16)):
+        t = torch.empty(shape, dtype=dtype, device="meta")
+        _check_as_cuda(attn, t, t, t)
 
 
-def _check_as_cuda(attn, t):
-    """``_check_cuda_panels`` on a meta tensor made to read as a CUDA one."""
+def _check_as_cuda(attn, *ts):
+    """``_check_cuda_panels`` on meta tensors made to read as CUDA ones (one
+    tensor stands for q, k and v)."""
 
     class OnCard:
         def __init__(self, x):
@@ -464,8 +471,8 @@ def _check_as_cuda(attn, t):
         def dim(self):
             return self.x.dim()
 
-    p = OnCard(t)
-    attn._check_cuda_panels("flash_attention", p, p, p)
+    panels = [OnCard(t) for t in ts]
+    attn._check_cuda_panels("flash_attention", *(panels * 3 if len(panels) == 1 else panels))
 
 
 def test_the_wrappers_take_more_than_65535_batch_heads():

@@ -15,11 +15,14 @@ step captured against eager and the CPU, and its step guarded by
 against their plain versions, the new distributions and a CTC step on the
 card against the CPU, captured against eager (``-k "ctc or
 random_loops"``), and K2 and K3 in fp16, at head widths up to 256 and past
-65,535 batch-heads, fp64 refused, and K1's float-to-integer casts at their
-edges (``-k "fp16 or fp64 or fused_attention_compiled or saturate"``),
+65,535 batch-heads, in fp64 and past 256 (the D split), and K1's
+float-to-integer casts at their edges (``-k "fp16 or fp64 or past_256 or
+d_split or fused_attention_compiled or saturate"``),
 and the user API's core ops on the card against the CPU, bitwise, with
 an output that views an updated shared variable (``-k "core_ops or
-viewing"``).  They skip where there
+viewing"``), and a small encoder's sgd and AdamW steps with the updates
+written in place by their nodes and without, bitwise (``-k donation``).
+They skip where there
 is no CUDA device; run them on a GPU machine with ``python -m pytest -m
 cuda tests/test_torch_cuda.py``."""
 
@@ -1712,14 +1715,82 @@ def test_fp16_attention_past_fp16s_range_of_scores(cuda):
         torch.testing.assert_close(g.float(), w.float(), atol=2e-3 * w.float().abs().max().item(), rtol=0)
 
 
-def test_fp64_attention_raises_on_the_card(cuda):
-    x = torch.zeros((2, 16, 64), device=cuda, dtype=torch.float64)
-    before = flash_attention.plain_calls, flash_attention_grads.plain_calls
-    with pytest.raises(TypeError, match="float32, bfloat16 or float16 on the card, got torch.float64"):
-        flash_attention(x, x, x)
-    with pytest.raises(TypeError, match="torch.float64"):
-        flash_attention_grads(x, x, x, x)
-    assert (flash_attention.plain_calls, flash_attention_grads.plain_calls) == before
+#: fp64: 1e-12 of the scale (fp64 sums, taken in another order than the
+#: plain version's); the others as WIDE_TOL.  A gradient's scale is at least
+#: that of dO times V, the size of dS's terms: at T = 1 dS is their
+#: difference and the gradients cancel to rounding.
+FP64_TOL = 1e-12
+
+
+@pytest.mark.parametrize("shape,causal", [
+    ((2, 70, 40), False), ((2, 70, 40), True), ((4, 200, 64), True), ((3, 1000, 64), False),
+    ((2, 130, 128), False), ((1, 65, 128), True), ((2, 33, 130), True), ((2, 100, 256), False),
+    ((2, 77, 384), True), ((3, 1, 64), False)])
+def test_k2_k3_fp64_match_plain(cuda, shape, causal):
+    """fp64 panels launch K2 and K3 (the fp64 tensor cores; the D split past
+    128) and agree with the fp64 plain versions within 1e-12 of the scale,
+    the lse too; two calls give the same bits."""
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    q, k, v, do = (torch.randn(shape, device=cuda, generator=gen, dtype=torch.float64) for _ in range(4))
+    scale = shape[-1] ** -0.5
+    before = flash_attention.launches, flash_attention_grads.launches, flash_attention.plain_calls
+    out, lse = flash_attention(q, k, v, causal=causal, scale=scale, with_lse=True)
+    grads = flash_attention_grads(q, k, v, do, causal=causal, scale=scale)
+    assert (flash_attention.launches, flash_attention_grads.launches) == (before[0] + 2, before[1] + 1)
+    assert flash_attention.plain_calls == before[2]
+    want, want_lse = attention_plain(q, k, v, causal, scale, with_lse=True)
+    assert out.dtype == lse.dtype == torch.float64
+    torch.testing.assert_close(out, want, atol=FP64_TOL * want.abs().max().item(), rtol=0)
+    torch.testing.assert_close(lse, want_lse, atol=FP64_TOL * want_lse.abs().max().item(), rtol=0)
+    terms = do.abs().max().item() * v.abs().max().item()
+    for g, w in zip(grads, attention_grads_plain(q, k, v, do, causal, scale)):
+        assert g.dtype == torch.float64 and g.shape == shape
+        torch.testing.assert_close(g, w, atol=FP64_TOL * max(w.abs().max().item(), terms), rtol=0)
+    assert torch.equal(out, flash_attention(q, k, v, causal=causal, scale=scale))
+    for a, b in zip(grads, flash_attention_grads(q, k, v, do, causal=causal, scale=scale)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("shape,causal", [((2, 100, 300), True), ((2, 130, 384), False), ((2, 70, 512), True),
+                                          ((1, 64, 1024), False), ((2, 33, 520), True)])
+def test_k2_k3_past_256_match_plain(cuda, shape, causal, dtype):
+    """Heads wider than 256 take the D split and agree with the plain
+    versions within WIDE_TOL of the scale; two calls give the same bits."""
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    q, k, v, do = (torch.randn(shape, device=cuda, generator=gen).to(dtype) for _ in range(4))
+    scale = shape[-1] ** -0.5
+    before = flash_attention.launches, flash_attention_grads.launches
+    out = flash_attention(q, k, v, causal=causal, scale=scale)
+    grads = flash_attention_grads(q, k, v, do, causal=causal, scale=scale)
+    assert (flash_attention.launches, flash_attention_grads.launches) == (before[0] + 2, before[1] + 1)
+    tol = WIDE_TOL[dtype]
+    want = attention_plain(q, k, v, causal, scale)
+    torch.testing.assert_close(out.float(), want.float(), atol=tol * want.float().abs().max().item(), rtol=0)
+    for g, w in zip(grads, attention_grads_plain(q, k, v, do, causal, scale)):
+        assert g.dtype == dtype and g.shape == shape and bool(torch.isfinite(g).all())
+        torch.testing.assert_close(g.float(), w.float(), atol=tol * w.float().abs().max().item(), rtol=0)
+    assert torch.equal(out, flash_attention(q, k, v, causal=causal, scale=scale))
+    for a, b in zip(grads, flash_attention_grads(q, k, v, do, causal=causal, scale=scale)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype,D", [(torch.float32, 512), (torch.bfloat16, 512), (torch.float16, 768),
+                                     (torch.float64, 256), (torch.float64, 384)])
+def test_the_d_split_gives_every_chunk_the_same_p(cuda, dtype, D):
+    """Each chunk of the D split recomputes the scores over the whole of D
+    in one order: with V's (and dO's, K's, Q's) chunks equal, the output's
+    and the gradients' chunks are equal bit for bit."""
+    chunk = 128 if dtype == torch.float64 else 256
+    gen = torch.Generator(device=cuda).manual_seed(14)
+    half = [torch.randn((2, 90, chunk), device=cuda, generator=gen).to(dtype) for _ in range(4)]
+    q, k, v, do = (t.repeat(1, 1, D // chunk) for t in half)
+    out = flash_attention(q, k, v, causal=True, scale=0.05)
+    grads = flash_attention_grads(q, k, v, do, causal=True, scale=0.05)
+    for t in (out, *grads):
+        first = t[..., :chunk]
+        for c in range(1, D // chunk):
+            assert torch.equal(t[..., c * chunk:(c + 1) * chunk], first)
 
 
 @pytest.mark.parametrize("dtype,shape", [("float16", (4, 200, 64)), ("float32", (2, 130, 256)),
@@ -1948,3 +2019,33 @@ def test_graph_core_inc_with_duplicates_is_the_same_bits_twice(cuda):
             outs.append([f(x, y, cols).cpu().numpy() for _ in range(2)])
     np.testing.assert_array_equal(outs[1][0], outs[1][1])
     np.testing.assert_allclose(outs[1][0], outs[0][0], rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("optimizer", ["sgd", "adamw"])
+def test_donation_on_and_off_give_the_same_bits_on_the_card(cuda, optimizer):
+    """A small encoder's step compiled twice from the same seeds,
+    ``donate_updated`` on and off: 4 calls (eager, captured, replayed) give
+    the same bits, the updated variables keep their storage, and with it on
+    the nodes that compute the updates write into it."""
+    runs = {}
+    for donate in (True, False):
+        with config.change_flags(device="cuda"):
+            layers = [TransformerEncoderLayer(64, 4, 128, seed=i) for i in range(2)]
+            params = [p for layer in layers for p in layer.params]
+            h = ptp.shared(np.random.default_rng(5).normal(size=(2, 48, 64)).astype("float32"), name="x")
+            for layer in layers:
+                h = layer(h)
+            loss = ptm.mean(ptm.sqr(h))
+            updates = sgd(loss, params, lr=0.01) if optimizer == "sgd" else adamw(loss, params, lr=1e-3)
+            step = ptp.function([], loss, updates=updates,
+                                mode=ptp.Mode(ptp.TorchLinker(device="cuda", donate_updated=donate)))
+        targets = list(step.update_targets)
+        ptrs = [t.value.data_ptr() for t in targets]
+        trace = []
+        for _ in range(4):
+            trace.append([step().clone()] + [t.value.clone() for t in targets])
+        assert step.captured and [t.value.data_ptr() for t in targets] == ptrs
+        runs[donate] = (trace, len(step.fn.program.donated), len(targets))
+    assert runs[True][1] == runs[True][2] and runs[False][1] == 0
+    for a, b in zip(runs[True][0], runs[False][0]):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
